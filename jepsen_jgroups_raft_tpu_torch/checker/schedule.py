@@ -1,0 +1,168 @@
+"""Window-group launches and the port's run counters.
+
+`run_dense_groups` is the port's launch loop for the dense kernel: it
+queues every window group's kernel on the current stream and
+synchronises once, after the last launch — the reference's discipline
+for its monolithic path (bench.py run(): launch every group, block
+once). The reference's chunked wavefront (decided-row eviction between
+chunks) is not ported yet: the CUDA kernel exits a history's loop at its
+real length or at its first dead FORCE on its own, which covers the
+eviction's two cases inside one launch.
+
+The counters follow the reference's checker/schedule.py: per-tier
+decided rows and wall (`note_tier`, `consume_tiers`) and run counters
+(`consume_stats`), both also collected into any active `stats_scope`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..ops.dense_scan import dense_scan
+
+_STATS_LOCK = threading.Lock()
+_STATS_ZERO = {"groups_run": 0, "rows_run": 0, "wall_s": 0.0}
+_STATS = dict(_STATS_ZERO)
+#: (scope dict, owner thread id), innermost last; guarded by _STATS_LOCK.
+_SCOPES: List[tuple] = []
+_TIERS: dict = {}  # tier -> [rows, wall_s]; guarded by _STATS_LOCK
+
+
+def _targets() -> list:
+    """Scopes a counter update lands in: those owned by this thread, or
+    every active scope when the thread owns none (the reference's
+    thread-affine rule)."""
+    tid = threading.get_ident()
+    owned = [s for s, o in _SCOPES if o == tid]
+    return owned if owned else [s for s, _ in _SCOPES]
+
+
+def _add_stats(**kw) -> None:
+    with _STATS_LOCK:
+        targets = _targets()
+        for k, v in kw.items():
+            _STATS[k] += v
+            for scope in targets:
+                scope[k] += v
+
+
+@contextlib.contextmanager
+def stats_scope(label: Optional[str] = None):
+    """Counters accumulated while the scope is active also land in the
+    yielded dict (under ``"tiers"`` for tier counts), isolated from
+    everything before it. Nesting- and thread-safe."""
+    scope = dict(_STATS_ZERO)
+    if label is not None:
+        scope["label"] = label
+    with _STATS_LOCK:
+        _SCOPES.append((scope, threading.get_ident()))
+    try:
+        yield scope
+    finally:
+        with _STATS_LOCK:
+            for i, (s, _) in enumerate(_SCOPES):
+                if s is scope:  # by identity: equal dicts are not the same
+                    del _SCOPES[i]
+                    break
+
+
+def consume_stats() -> dict:
+    """Return and reset the process-wide run counters."""
+    global _STATS
+    with _STATS_LOCK:
+        out = dict(_STATS)
+        _STATS = dict(_STATS_ZERO)
+        return out
+
+
+def note_tier(tier: str, rows: int = 1, wall_s: float = 0.0) -> None:
+    """Record `rows` verdicts decided by `tier` and the wall seconds
+    attributed to them."""
+    with _STATS_LOCK:
+        t = _TIERS.setdefault(tier, [0, 0.0])
+        t[0] += rows
+        t[1] += wall_s
+        for scope in _targets():
+            e = scope.setdefault("tiers", {}).setdefault(tier, [0, 0.0])
+            e[0] += rows
+            e[1] += wall_s
+
+
+def consume_tiers() -> dict:
+    """Return and reset the process-wide per-tier counters,
+    ``{tier: {"rows", "wall_s"}}``."""
+    global _TIERS
+    with _STATS_LOCK:
+        out = {k: {"rows": v[0], "wall_s": v[1]} for k, v in _TIERS.items()}
+        _TIERS = {}
+        return out
+
+
+# ------------------------------------------------------------- launches
+
+
+@dataclass
+class DenseLaunch:
+    """One window group ready for the dense kernel, its tensors already
+    on the launch device.
+
+    events [B, E, R] int32, val_of [B, S] int32, n_events [B] int32 (real
+    row counts), n_slots the group's window W, macro_p the macro payload
+    width (None for legacy rows), tag the kernel label for results."""
+
+    events: torch.Tensor
+    val_of: torch.Tensor
+    n_events: torch.Tensor
+    n_slots: int
+    macro_p: Optional[int] = None
+    tag: str = "dense"
+
+
+@dataclass
+class GroupRun:
+    """Verdicts of `run_dense_groups`: ok[k] is launch k's [B] bool
+    array; kernel_ms[k] its kernel time by CUDA events when timed."""
+
+    ok: List[np.ndarray]
+    wall_s: float
+    kernel_ms: Optional[List[float]] = None
+
+
+def run_dense_groups(launches: List[DenseLaunch], model,
+                     timed: bool = False) -> GroupRun:
+    """Launch every group's dense kernel on the current stream, then
+    synchronise once and read the verdicts. `timed` brackets each
+    launch with CUDA events (card only) for per-group kernel times."""
+    t0 = time.perf_counter()
+    on_card = any(ln.events.device.type == "cuda" for ln in launches)
+    timed = timed and on_card
+    marks = []
+    oks = []
+    for ln in launches:
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        oks.append(dense_scan(ln.events, ln.val_of, ln.n_slots,
+                              macro_p=ln.macro_p, n_events=ln.n_events,
+                              model=model))
+        if timed:
+            end.record()
+            marks.append((start, end))
+    if on_card:
+        torch.cuda.synchronize()
+    out = [o.cpu().numpy() for o in oks]
+    wall = time.perf_counter() - t0
+    _add_stats(groups_run=len(launches),
+               rows_run=sum(int(ln.events.shape[0]) for ln in launches),
+               wall_s=wall)
+    return GroupRun(ok=out, wall_s=wall,
+                    kernel_ms=[s.elapsed_time(e) for s, e in marks]
+                    if timed else None)

@@ -1,0 +1,205 @@
+"""Op records and history pairing.
+
+An operation appears in a history twice: once as an invocation and once as a
+completion. Completion types follow jepsen's taxonomy (reference
+workload/client.clj:52-63 semantics):
+
+  ``ok``    — op definitely applied, return value known
+  ``fail``  — op definitely did NOT apply (definite error, or idempotent op)
+  ``info``  — unknown: the op may or may not have applied (indefinite error).
+              The checker must treat it as concurrent with everything after
+              its invocation, forever.
+
+Invocations that never complete by the end of the history are treated as
+``info`` (crashed worker), matching jepsen/knossos behavior.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Any, Iterable, Iterator, Optional, Union
+
+INVOKE = "invoke"
+OK = "ok"
+FAIL = "fail"
+INFO = "info"
+
+#: process id used for nemesis ops in the history (jepsen convention).
+NEMESIS = "nemesis"
+
+#: int32 encoding of knossos' `nil` (e.g. the cas-register's initial
+#: value). Lives here — the one leaf module both the models and the
+#: packing layer import — so there is exactly one definition.
+NIL = -(2**31)
+
+_COMPLETIONS = (OK, FAIL, INFO)
+
+
+@dataclass
+class Op:
+    """One history event.
+
+    Fields mirror jepsen's op maps (reference raft_test.clj:9-25):
+    process, type, f, value, time (ns since test start), index (position in
+    the history). ``error`` carries the error keyword for fail/info ops.
+    """
+
+    process: Union[int, str]
+    type: str
+    f: str
+    value: Any = None
+    time: int = -1
+    index: int = -1
+    error: Optional[str] = None
+    extra: dict = field(default_factory=dict)
+
+    def is_invoke(self) -> bool:
+        return self.type == INVOKE
+
+    def is_completion(self) -> bool:
+        return self.type in _COMPLETIONS
+
+    def replace(self, **kw) -> "Op":
+        return replace(self, **kw)
+
+    def to_dict(self) -> dict:
+        d = {
+            "process": self.process,
+            "type": self.type,
+            "f": self.f,
+            "value": self.value,
+            "time": self.time,
+            "index": self.index,
+        }
+        if self.error is not None:
+            d["error"] = self.error
+        if self.extra:
+            d.update(self.extra)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Op":
+        known = {"process", "type", "f", "value", "time", "index", "error"}
+        return cls(
+            process=d["process"],
+            type=d["type"],
+            f=d["f"],
+            value=d.get("value"),
+            time=d.get("time", -1),
+            index=d.get("index", -1),
+            error=d.get("error"),
+            extra={k: v for k, v in d.items() if k not in known},
+        )
+
+
+def invoke_op(process, f, value=None, time=-1) -> Op:
+    return Op(process=process, type=INVOKE, f=f, value=value, time=time)
+
+
+@dataclass
+class OpPair:
+    """A matched invocation/completion.
+
+    ``completion`` is None for crashed ops (treated as info). ``ctype`` is
+    the effective completion type (crashes become ``info``).
+    """
+
+    invoke: Op
+    completion: Optional[Op]
+
+    @property
+    def ctype(self) -> str:
+        return self.completion.type if self.completion is not None else INFO
+
+    @property
+    def f(self) -> str:
+        return self.invoke.f
+
+
+class History:
+    """An ordered sequence of ops with pairing helpers.
+
+    The order of the underlying list *is* the real-time order the checker
+    relies on (jepsen assigns dense indices; we use list position when
+    ``index`` is unset).
+    """
+
+    def __init__(self, ops: Iterable[Union[Op, dict]] = ()):  # noqa: D401
+        self.ops: list[Op] = [
+            op if isinstance(op, Op) else Op.from_dict(op) for op in ops
+        ]
+
+    def append(self, op: Op) -> Op:
+        if op.index < 0:
+            op.index = len(self.ops)
+        self.ops.append(op)
+        return op
+
+    def __iter__(self) -> Iterator[Op]:
+        return iter(self.ops)
+
+    def __len__(self) -> int:
+        return len(self.ops)
+
+    def __getitem__(self, i):
+        return self.ops[i]
+
+    def client_ops(self) -> "History":
+        return History(op for op in self.ops if op.process != NEMESIS)
+
+    def nemesis_ops(self) -> "History":
+        return History(op for op in self.ops if op.process == NEMESIS)
+
+    def oks(self) -> list[Op]:
+        return [op for op in self.ops if op.type == OK]
+
+    def pairs(self) -> list[OpPair]:
+        return pair_ops(self.ops)
+
+    def to_dicts(self) -> list[dict]:
+        return [op.to_dict() for op in self.ops]
+
+
+def pair_ops(ops: Iterable[Op]) -> list[OpPair]:
+    """Match invocations with their completions, per process.
+
+    Jepsen guarantees a process has at most one outstanding op; a process
+    that crashes (info) never invokes again under the same id. We mirror
+    that: a completion matches the process's pending invocation; an
+    unmatched completion raises; pending invocations at the end become
+    crashed (info) pairs. Returned in invocation order.
+    """
+    return [OpPair(inv, comp) for _, _, inv, comp in pair_ops_indexed(ops)]
+
+
+def pair_ops_indexed(ops: Iterable[Op]) -> list[tuple]:
+    """`pair_ops` with positions: [(invoke_pos, completion_pos | -1,
+    invoke, completion | None)], sorted by invocation position. One pass,
+    no identity maps — this sits on the encode hot path (a 1000-history
+    batch pairs a million ops)."""
+    pending: dict = {}  # process -> (invoke position, invoke op)
+    out: list = []
+    for i, op in enumerate(ops):
+        t = op.type
+        if t == INVOKE:
+            if op.process in pending:
+                prev = pending[op.process][1]
+                raise ValueError(
+                    f"process {op.process} invoked twice without completing "
+                    f"(indices {prev.index}, {op.index})"
+                )
+            pending[op.process] = (i, op)
+        elif t in _COMPLETIONS:
+            entry = pending.pop(op.process, None)
+            if entry is None:
+                raise ValueError(
+                    f"completion without invocation: process {op.process} "
+                    f"index {op.index}"
+                )
+            out.append((entry[0], i, entry[1], op))
+        else:
+            raise ValueError(f"unknown op type: {t!r}")
+    for ipos, inv in pending.values():
+        out.append((ipos, -1, inv, None))  # crashed: never completed
+    out.sort(key=lambda e: e[0])
+    return out

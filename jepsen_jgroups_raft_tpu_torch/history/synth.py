@@ -1,0 +1,198 @@
+"""Synthetic history generation (a copy of the reference's generator).
+
+A randomized generator with a built-in linearizability guarantee: ops take
+effect atomically at a simulated linearization point between invocation and
+completion, so the produced history IS linearizable by construction.
+Crashed ops may linearize and then never report (→ info), reproducing the
+ambiguous-completion semantics the checker must handle.
+
+The port uses it for the north-star batch (chip_smoke.py) and its tests;
+the same seed gives the same histories as the reference's generator.
+"""
+
+from __future__ import annotations
+
+import random
+
+from .ops import FAIL, INFO, INVOKE, OK, History, Op
+
+
+def build_history(rows) -> History:
+    """Build a history from (process, type, f, value) rows; indices/times
+    are assigned from position."""
+    h = History()
+    for i, (process, typ, f, value) in enumerate(rows):
+        h.append(Op(process=process, type=typ, f=f, value=value, time=i))
+    return h
+
+
+def random_valid_history(
+    rng: random.Random,
+    model_kind: str = "register",
+    n_ops: int = 8,
+    n_procs: int = 3,
+    value_range: int = 3,
+    crash_p: float = 0.2,
+    max_crashes: int | None = None,
+) -> History:
+    """Generate a linearizable-by-construction history of n_ops ops.
+
+    model_kind: "register" (read/write/cas), "counter"
+    (read/add/add-and-get), "set" (add/read over the 32-wide
+    membership), "queue" (ticket-FIFO enqueue/dequeue, completed
+    enqueues observing their assigned ticket), or "list-append"
+    (unique-element appends observing the resulting list, reads
+    observing the whole list). crash_p biases how often
+    a pending op crashes instead of completing (info ops are the
+    checker-pressure knob).
+
+    A crashed process is REPLACED by a fresh process id, the way jepsen's
+    runner remaps crashed worker ids — so the history really reaches n_ops
+    regardless of crashes. Every crashed op holds a concurrency-
+    window slot forever, so `max_crashes` caps the total — the knob that
+    keeps long histories inside a checkable window. The default (None)
+    caps at n_procs: the concurrency window stays ≤ 2·n_procs no matter
+    how long the history. An uncapped run (windows in the
+    hundreds, beyond every checker) must be asked for with
+    max_crashes=n_ops."""
+
+    if max_crashes is None:
+        max_crashes = n_procs
+    if model_kind == "register":
+        state = None
+    elif model_kind == "queue":
+        state = (0, 0)  # (head, tail)
+    elif model_kind == "list-append":
+        state = []  # the append-only list itself
+    else:
+        state = 0  # counter value / set membership mask
+    # list-append: unique elements 1..MAX_LEN (the packed int32 state
+    # admits at most 6), then the generator degrades to reads
+    next_elem = 1
+    rows = []
+    # pending: process -> dict(f, value, linearized?, result)
+    pending: dict = {}
+    done_ops = 0
+    crashes = 0
+    free = list(range(n_procs))
+    next_pid = n_procs
+    while done_ops < n_ops or pending:
+        choices = []
+        if done_ops < n_ops and free:
+            choices.append("invoke")
+        unlin = [p for p, d in pending.items() if not d["lin"]]
+        lin = [p for p, d in pending.items() if d["lin"]]
+        may_crash = crashes < max_crashes
+        if unlin:
+            choices.append("linearize")
+            if may_crash and rng.random() < crash_p:
+                choices.append("crash_unapplied")
+        if lin:
+            choices.append("complete")
+            if may_crash and rng.random() < crash_p:
+                choices.append("crash_applied")
+        act = rng.choice(choices)
+        if act == "invoke":
+            p = free.pop(rng.randrange(len(free)))
+            if model_kind == "register":
+                f = rng.choice(["read", "write", "cas"])
+                if f == "read":
+                    value = None
+                elif f == "write":
+                    value = rng.randrange(value_range)
+                else:
+                    value = (rng.randrange(value_range), rng.randrange(value_range))
+            elif model_kind == "set":
+                f = rng.choice(["add", "add", "read"])
+                value = rng.randrange(value_range) if f == "add" else None
+            elif model_kind == "queue":
+                f = rng.choice(["enqueue", "enqueue", "dequeue"])
+                value = None
+            elif model_kind == "list-append":
+                if next_elem <= 6 and rng.random() < 0.5:
+                    f, value = "append", next_elem
+                    next_elem += 1
+                else:
+                    f, value = "read", None
+            else:
+                f = rng.choice(["read", "add", "add-and-get"])
+                value = None if f == "read" else rng.randrange(1, value_range + 1)
+            pending[p] = {"f": f, "value": value, "lin": False, "result": None}
+            rows.append((p, INVOKE, f, value))
+            done_ops += 1
+        elif act == "linearize":
+            p = rng.choice(unlin)
+            d = pending[p]
+            f, v = d["f"], d["value"]
+            if model_kind == "register":
+                if f == "read":
+                    d["result"] = state
+                elif f == "write":
+                    state = v
+                    d["result"] = None
+                else:
+                    frm, to = v
+                    if state == frm:
+                        state = to
+                        d["result"] = True
+                    else:
+                        d["result"] = False
+            elif model_kind == "set":
+                if f == "add":
+                    state |= 1 << v
+                    d["result"] = None
+                else:
+                    d["result"] = [i for i in range(32)
+                                   if (state >> i) & 1]
+            elif model_kind == "queue":
+                h, t = state
+                if f == "enqueue":
+                    state = (h, t + 1)
+                    d["result"] = t  # the assigned ticket
+                elif h == t:
+                    d["result"] = None  # empty observation
+                else:
+                    state = (h + 1, t)
+                    d["result"] = h
+            elif model_kind == "list-append":
+                if f == "append":
+                    state = state + [v]
+                d["result"] = list(state)  # the observed/resulting list
+            else:
+                if f == "read":
+                    d["result"] = state
+                elif f == "add":
+                    state += v
+                    d["result"] = None
+                else:
+                    state += v
+                    d["result"] = (v, state)
+            d["lin"] = True
+        elif act == "complete":
+            p = rng.choice(lin)
+            d = pending.pop(p)
+            f, r = d["f"], d["result"]
+            if model_kind == "register" and f == "cas" and r is False:
+                rows.append((p, FAIL, f, d["value"]))
+            elif f == "read":
+                rows.append((p, OK, f, r))
+            elif f in ("add-and-get", "enqueue", "dequeue", "append"):
+                rows.append((p, OK, f, r))  # observed result/ticket/list
+            else:
+                rows.append((p, OK, f, d["value"]))
+            free.append(p)
+        else:
+            # Crash (applied or not): completion unknown. The op's slot
+            # stays open forever; the worker comes back under a fresh
+            # process id (jepsen's crashed-id remapping).
+            p = rng.choice(lin if act == "crash_applied" else unlin)
+            d = pending.pop(p)
+            crashes += 1
+            free.append(next_pid)
+            next_pid += 1
+            if rng.random() < 0.5:
+                rows.append((p, INFO, d["f"], d["value"]))
+            # else: no completion row at all — pair_ops treats the dangling
+            # invocation as a crashed (info) op, same as jepsen.
+    return build_history(rows)
+

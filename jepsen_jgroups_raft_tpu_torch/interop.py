@@ -1,0 +1,46 @@
+"""State carried across from the reference package.
+
+The checker has no weights: its state is the encoded histories and the
+per-group domain tables. These helpers read the numpy fields of a
+reference `EncodedHistory` or `DensePlan` by attribute (duck typing —
+nothing of the reference is imported) and return the port's own
+objects, so a test can feed the reference's encodings straight into the
+port's scan and never depend on the port's encoder.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from .history.packing import EncodedHistory
+from .ops.dense_scan import DensePlan
+
+
+def encoding_from_arrays(events, n_slots: int, n_ops: int,
+                         op_index=None, proc=None) -> EncodedHistory:
+    """An `EncodedHistory` from plain arrays: events [E, 5] int32;
+    op_index defaults to the row positions, proc to None."""
+    ev = np.ascontiguousarray(np.asarray(events, dtype=np.int32)
+                              .reshape(-1, 5))
+    oi = (np.arange(ev.shape[0], dtype=np.int32) if op_index is None
+          else np.asarray(op_index, dtype=np.int32).copy())
+    pr: Optional[np.ndarray] = (None if proc is None
+                                else np.asarray(proc, dtype=np.int32).copy())
+    return EncodedHistory(events=ev, op_index=oi, n_slots=int(n_slots),
+                          n_ops=int(n_ops), proc=pr)
+
+
+def encoding_from_reference(obj) -> EncodedHistory:
+    """The port's `EncodedHistory` with the fields of a reference one."""
+    return encoding_from_arrays(obj.events, obj.n_slots, obj.n_ops,
+                                op_index=obj.op_index,
+                                proc=getattr(obj, "proc", None))
+
+
+def plan_from_reference(obj) -> DensePlan:
+    """The port's `DensePlan` with the fields of a reference one."""
+    return DensePlan(str(obj.kind), int(obj.n_slots), int(obj.n_states),
+                     np.ascontiguousarray(np.asarray(obj.val_of,
+                                                     dtype=np.int32)))

@@ -1,0 +1,216 @@
+"""Model protocol for the linearizability checker.
+
+A model is a sequential state machine. The checker asks one question: "is
+this operation, with this observed result, legal in this state — and what is
+the state afterwards?" (knossos.model/Model semantics, reference L0).
+
+To run on the card, models are constrained to:
+  * int32 state (one scalar; richer models pack their state into 32 bits),
+  * a small integer op code ``f`` plus two int32 arguments ``a``/``b``,
+  * a branch-free step on tensors (`torch_step`: pure `torch.where` math,
+    no data-dependent control flow), whose device twin lives in the CUDA
+    kernel's model switch (ops/csrc/dense_scan.cu).
+
+A copy of the reference's models/base.py with `jax_step` renamed
+`torch_step`.
+
+``encode_pair`` is the bridge from history op pairs to kernel ops. It also
+owns the completion-type semantics (reference workload/client.clj:52-63 and
+counter.clj:113-127):
+  * ``fail``  completions are dropped — the op never happened.
+  * ``ok``    completions are *forced* — they must linearize before their
+              completion event.
+  * ``info``  completions (and crashed invokes) are *optional* — they may
+              linearize at any point from invocation onward, or never.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+from ..history.ops import FAIL, NIL, OpPair
+
+INT32_MIN = -(2**31)
+INT32_MAX = 2**31 - 1
+
+
+def _i32(x) -> int:
+    """Clamp a python int into int32 range (values outside are out of model
+    range anyway; clamping keeps packing total)."""
+    if x is None:
+        return NIL
+    x = int(x)
+    return max(INT32_MIN, min(INT32_MAX, x))
+
+
+@dataclass(frozen=True)
+class EncodedOp:
+    """A kernel-ready op: opcode + two int32 args + whether its completion
+    forces linearization (ok) or leaves it optional forever (info)."""
+
+    f: int
+    a: int
+    b: int
+    forced: bool
+
+
+class Model:
+    """Base class; subclasses define opcodes, steps, and history encoding."""
+
+    name: str = "abstract"
+
+    def init_state(self) -> int:
+        raise NotImplementedError
+
+    def cache_key(self) -> tuple:
+        """Hashable identity of this model's compiled-kernel semantics.
+        Every kernel cache (ops/dense_scan, ops/pallas_scan,
+        ops/linear_scan, parallel/mesh) keys on it. The default assumes a
+        model is fully determined by its class + initial state; a subclass
+        whose `torch_step`/`mask_delta` depends on extra constructor
+        parameters MUST extend the tuple, or equivalent-looking models
+        would silently share one stale compiled kernel."""
+        return (type(self), int(self.init_state()))
+
+    def step(self, state: int, f: int, a: int, b: int) -> Tuple[int, bool]:
+        """Pure python step: (state, op) -> (state', legal). Must agree
+        exactly with `torch_step` — the differential tests pin this."""
+        raise NotImplementedError
+
+    def torch_step(self, state, f, a, b):
+        """Vectorized step on int32 tensors (broadcasting), -> (state',
+        legal).
+
+        Must be branch-free: called inside the frontier-expansion kernel on
+        a [n_configs, n_slots] grid.
+        """
+        raise NotImplementedError
+
+    #: Columnar host twin of `step`: numpy int32 arrays over a batch
+    #: axis, -> (state' int32 array, legal bool array). It MUST agree
+    #: with the scalar `step` ELEMENTWISE — including int32 wraparound
+    #: and packed-field masking (the differential tests pin this next to
+    #: the step↔torch_step pin). None (the default): no columnar step.
+    step_columnar = None
+
+    def encode_pair(self, pair: OpPair) -> Optional[EncodedOp]:
+        """Encode one invocation/completion pair, or None to drop it."""
+        if pair.ctype == FAIL:
+            return None
+        return self._encode(pair)
+
+    def encode_pairs_columnar(self, pairs):
+        """Batch-encode indexed pairs ([(invoke_pos, completion_pos|-1,
+        invoke, completion|None)], the `pair_ops_indexed` output) into
+        parallel lists (fs, as_, bs, forced, invoke_pos, completion_pos)
+        of KEPT ops, or None to use the per-pair path.
+
+        This is the encode hot path: it avoids the per-op dataclass and
+        method-call overhead of the per-pair path. A model
+        implementing it MUST produce exactly what a `encode_pair` loop
+        would (differential tests pin this), and must also define
+        `prune_observe_enable` consistently with its enable/observe
+        hooks: None there ⇔ the hooks disable pruning for this model.
+        """
+        return None
+
+    def prune_observe_enable(self, fs, as_, bs):
+        """Columnar twin of enable_values/observe_values for the fast
+        prune: (enable_val, enable_has, observe_val, observe_has) int32/
+        bool numpy arrays over the kept ops — valid only for models
+        whose enable/observe sets are at most singletons — or None when
+        the model's hooks disable pruning (the conservative default)."""
+        return None
+
+    def dense_domain(self, events) -> Optional[list]:
+        """Enumerate the reachable state-value domain of a packed history
+        (events [E,5] int32, initial state FIRST), or None when the domain
+        is not small/enumerable. Models that can answer (e.g. a register:
+        initial ∪ written ∪ cas-to values) unlock the dense-bitset kernel
+        (ops/dense_scan.py); the default keeps the general sort kernel."""
+        return None
+
+    #: True when the state after linearizing a SET of ops is independent
+    #: of their order (e.g. a counter: state = initial + Σ deltas). Such
+    #: models need no state dimension at all in the dense kernel — the
+    #: frontier is a bare bitset over window masks, with per-mask states
+    #: derived from `mask_delta` subset sums (ops/dense_scan.py mask mode).
+    mask_determined = False
+
+    #: Opcodes whose step never mutates state (pure observations). The
+    #: weaker-consistency rung family (checker/consistency.py) uses this
+    #: to place session-rung precedence edges: an op only has to
+    #: linearize before the same process's next *read*. Empty = the
+    #: session rung degrades to end-of-stream forces for that model.
+    readonly_fcodes: tuple = ()
+
+    def mask_eligible(self, events) -> bool:
+        """Per-HISTORY mask-mode eligibility (consulted by the dense
+        router alongside the class-level `mask_determined`). The mask
+        kernel derives per-config states as initial + subset SUMS of
+        `mask_delta`; a model whose state combine is order-independent
+        but not additive in general (e.g. a set: OR of element bits)
+        can still ride the mask kernel for the histories where sum and
+        combine coincide — this hook is that proof, checked against the
+        packed events. Default: the class-level claim."""
+        return self.mask_determined
+
+    def mask_delta(self, f, a, b):
+        """Vectorized: the state delta op (f, a, b) contributes when
+        linearized (0 for pure reads). Only consulted when
+        `mask_determined` is True."""
+        raise NotImplementedError
+
+    # -- crashed-op pruning hooks (SURVEY §7.4.3: crashed ops never
+    # retire and double the search frontier; these let the encoder prove
+    # some of them irrelevant and drop them before slot assignment) ----
+
+    def enable_values(self, enc: EncodedOp):
+        """EVERY state value that linearizing this op can set the state
+        to (e.g. a register write's value) — not merely the "new" ones:
+        an empty set is a load-bearing assertion that the op NEVER
+        changes state (the prune drops crashed ops with empty enable
+        sets outright, so an op that rewrites the current/initial value
+        must still list it). Return None when the model cannot answer —
+        None disables pruning for this op. (Listing only the "newly
+        exposed" values would make the prune unsound.)"""
+        return None
+
+    def observe_values(self, enc: EncodedOp):
+        """State values this op's legality depends on observing (e.g. a
+        register read's expected value, a CAS's from-value), or None
+        when the model cannot answer — None disables pruning for the
+        whole history (every op's observations must be known for the
+        'nobody observes v downstream' proof to hold)."""
+        return None
+
+    def rw_classify(self, f: int, a: int, b: int):
+        """Dependency-graph role of op (f, a, b) for the exact cycle
+        tier (checker/cycle.py): ``("r", v)`` reads value v, ``("w",
+        v)`` writes value v, ``("rw", rv, wv)`` reads rv then writes wv
+        (a CAS), or None — the model cannot classify this op and the
+        whole history skips the cycle tier (conservative: the tier only
+        ever refutes, so skipping is always sound).
+
+        Contract: only meaningful for last-writer-wins models whose
+        state IS the most recently written value (a read of v is legal
+        iff the latest preceding write wrote v). The cycle tier's
+        writes-before / anti-dependency edge derivations assume exactly
+        that; a model violating it must return None."""
+        return None
+
+    def _encode(self, pair: OpPair) -> Optional[EncodedOp]:
+        raise NotImplementedError
+
+    # -- conveniences -----------------------------------------------------
+
+    def run_sequential(self, encoded_ops) -> bool:
+        """Apply ops in order; True iff every step is legal. (Test helper &
+        sequential-consistency fast path.)"""
+        state = self.init_state()
+        for e in encoded_ops:
+            state, legal = self.step(state, e.f, e.a, e.b)
+            if not legal:
+                return False
+        return True

@@ -1,0 +1,174 @@
+"""Compare-and-set register model (the port's copy of the reference's
+models/register.py, with `torch_step` in place of `jax_step`).
+
+Equivalent of knossos.model/cas-register: ops are read / write / cas over
+a single register whose initial value is nil (NIL = -2^31).
+
+Completion semantics mirror the reference client:
+  * reads are idempotent, so an info read carries no constraint and is
+    dropped;
+  * a CAS that returned false is recorded ``fail`` and dropped — it never
+    mutated the register;
+  * info writes/cas may or may not have applied: optional ops.
+
+`KERNEL_MODEL` is this model's id in the CUDA kernel's model switch
+(ops/csrc/dense_scan.cu `model_step`), whose register case is the device
+twin of `torch_step`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..history.ops import FAIL, INFO, OK, OpPair
+from .base import NIL, EncodedOp, Model, _i32
+
+READ = 0
+WRITE = 1
+CAS = 2
+
+F_NAMES = {"read": READ, "write": WRITE, "cas": CAS}
+
+
+class CasRegister(Model):
+    name = "cas-register"
+    n_fcodes = 3
+    readonly_fcodes = (READ,)
+    #: model id in the CUDA kernel's switch (ops/csrc/dense_scan.cu)
+    KERNEL_MODEL = 0
+
+    def __init__(self, initial: Optional[int] = None):
+        self.initial = NIL if initial is None else _i32(initial)
+
+    def init_state(self) -> int:
+        return self.initial
+
+    def step(self, state, f, a, b):
+        if f == READ:
+            return state, state == a
+        if f == WRITE:
+            return a, True
+        if f == CAS:
+            if state == a:
+                return b, True
+            return state, False
+        raise ValueError(f"bad opcode {f}")
+
+    def torch_step(self, state, f, a, b):
+        """Branch-free step on int32 tensors (broadcasting) -> (state',
+        legal). Compares only — NIL survives every operation."""
+        import torch
+
+        is_write = f == WRITE
+        is_cas = f == CAS
+        match = state == a
+        legal = is_write | match  # read/cas legal iff observed/from matches
+        new_state = torch.where(
+            is_write, a, torch.where(is_cas & match, b, state))
+        return new_state, legal
+
+    def step_columnar(self, state, f, a, b):
+        """Numpy batch twin of `step`: same select logic as `torch_step`,
+        host-side."""
+        is_write = f == WRITE
+        is_cas = f == CAS
+        match = state == a
+        legal = is_write | match
+        new_state = np.where(is_write, a,
+                             np.where(is_cas & match, b, state))
+        return new_state.astype(np.int32), legal
+
+    def dense_domain(self, events):
+        """Reachable register values: initial ∪ {a of writes} ∪ {b of cas}
+        (initial first, the rest sorted). Read expectations outside this
+        set never match — the config dies at that read's FORCE, which is
+        the correct verdict."""
+        from ..history.packing import EV_OPEN
+
+        opens = events[events[:, 0] == EV_OPEN]
+        vals = {int(self.initial)}
+        vals.update(int(v) for v in opens[opens[:, 2] == WRITE][:, 3])
+        vals.update(int(v) for v in opens[opens[:, 2] == CAS][:, 4])
+        return [int(self.initial)] + sorted(vals - {int(self.initial)})
+
+    def enable_values(self, enc: EncodedOp):
+        """Linearizing a write exposes state a; a cas exposes its
+        to-value b; a read exposes nothing."""
+        if enc.f == WRITE:
+            return (enc.a,)
+        if enc.f == CAS:
+            return (enc.b,)
+        return ()
+
+    def observe_values(self, enc: EncodedOp):
+        """A read is legal iff the state equals its returned value; a
+        cas iff the state equals its from-value; a write observes
+        nothing."""
+        if enc.f == READ:
+            return (enc.a,)
+        if enc.f == CAS:
+            return (enc.a,)
+        return ()
+
+    def _encode(self, pair: OpPair) -> Optional[EncodedOp]:
+        f = pair.f
+        forced = pair.ctype == OK
+        if f == "read":
+            if not forced:
+                return None  # unknown read constrains nothing
+            value = pair.completion.value
+            return EncodedOp(READ, _i32(value), 0, True)
+        if f == "write":
+            return EncodedOp(WRITE, _i32(pair.invoke.value), 0, forced)
+        if f == "cas":
+            frm, to = pair.invoke.value
+            return EncodedOp(CAS, _i32(frm), _i32(to), forced)
+        raise ValueError(f"cas-register: unknown op f={f!r}")
+
+    def encode_pairs_columnar(self, pairs):
+        """Tight-loop twin of `_encode` (byte-identical output)."""
+        fs, as_, bs = [], [], []
+        forced, ips, cps = [], [], []
+        i32 = _i32
+        for ip, cp, inv, comp in pairs:
+            ctype = comp.type if comp is not None else INFO
+            if ctype == FAIL:
+                continue
+            fo = ctype == OK
+            f = inv.f
+            if f == "read":
+                if not fo:
+                    continue  # unknown read constrains nothing
+                fs.append(READ)
+                as_.append(i32(comp.value))
+                bs.append(0)
+            elif f == "write":
+                fs.append(WRITE)
+                as_.append(i32(inv.value))
+                bs.append(0)
+            elif f == "cas":
+                frm, to = inv.value
+                fs.append(CAS)
+                as_.append(i32(frm))
+                bs.append(i32(to))
+            else:
+                raise ValueError(f"cas-register: unknown op f={f!r}")
+            forced.append(fo)
+            ips.append(ip)
+            cps.append(cp)
+        return fs, as_, bs, forced, ips, cps
+
+    def prune_observe_enable(self, fs, as_, bs):
+        """Columnar enable/observe (singletons): write enables a, cas
+        enables b; read observes a, cas observes a (mirrors
+        enable_values/observe_values exactly)."""
+        f = np.asarray(fs, dtype=np.int32)
+        a = np.asarray(as_, dtype=np.int32)
+        b = np.asarray(bs, dtype=np.int32)
+        enable_has = f != READ
+        enable_val = np.where(f == CAS, b, a)
+        observe_has = f != WRITE
+        observe_val = a
+        return enable_val, enable_has, observe_val, observe_has

@@ -1,0 +1,16 @@
+"""Device kernels of the port.
+
+* `kernel_ir`  — eligibility caps, the macro row layout, and the plain
+  PyTorch step parts (latch, closure fixpoint, FORCE) the plain version
+  of every dense kernel is built from.
+* `dense_scan` — window grouping (`dense_plans_grouped`), the CUDA
+  dense-domain scan wrapper `dense_scan` and its plain version
+  `dense_scan_plain`.
+* `_build`     — nvcc build of `csrc/*.cu` at first use, ctypes binding.
+"""
+
+from .dense_scan import (  # noqa: F401
+    DensePlan,
+    dense_plan,
+    dense_plans_grouped,
+)

@@ -1,0 +1,124 @@
+"""Build and bind the port's CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (sm_90a) into a
+shared library with a plain C entry point, at first use, into
+`build/torch_kernels/` at the root of the checkout (listed in
+.gitignore), and loaded with `ctypes`. The library's file name carries
+a hash of its source and flags, so an edited source never loads a
+stale build. No PyTorch headers are compiled, which keeps a build to
+seconds. Any failure — no nvcc, a compile error, a load error — raises;
+there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+from ..platform import nvcc_path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: ctypes signatures of each library's C entry points: name ->
+#: {function: (restype, argtypes)}. Pointers and the stream are
+#: c_void_p — a plain int would be cut to 32 bits.
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES: Dict[str, dict] = {
+    "dense_scan": {
+        # events, val_of, n_events, ok, B, E, R, macro_p, W, S, model,
+        # threads, device, stream
+        "dense_scan_launch": (_I, [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _VP]),
+        "dense_scan_error_string": (ctypes.c_char_p, [_I]),
+    },
+}
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+#: ptxas resource report of each build made by this process.
+BUILD_LOG: Dict[str, str] = {}
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (Popen, tmp path, target) or
+    None when the library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the port's CUDA kernels cannot build")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def build(names: Iterable[str]) -> float:
+    """Build every named library that is not built yet, one nvcc per
+    source, all started together. Returns the wall seconds spent;
+    raises on any compile failure."""
+    t0 = time.perf_counter()
+    with _LOCK:
+        jobs = {n: _start(n) for n in names}
+        errors = []
+        for name, job in jobs.items():
+            if job is None:
+                continue
+            proc, tmp, out = job
+            log, _ = proc.communicate()
+            BUILD_LOG[name] = log
+            if proc.returncode != 0:
+                errors.append(f"{name}: nvcc exited {proc.returncode}:\n"
+                              f"{log[-4000:]}")
+                continue
+            os.replace(tmp, out)  # atomic: concurrent builds agree
+        if errors:
+            raise RuntimeError("CUDA kernel build failed\n" +
+                               "\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library `name`, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, (restype, argtypes) in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.restype = restype
+                f.argtypes = argtypes
+            _LIBS[name] = lib
+    return lib
+
+
+def error_string(name: str, rc: int) -> str:
+    """Readable form of library `name`'s return code (its
+    `<name>_error_string` entry): a CUDA error's text, or the argument
+    check that refused the launch."""
+    msg = getattr(load(name), f"{name}_error_string")(int(rc))
+    return f"{rc}: {msg.decode() if msg else 'unknown error'}"

@@ -1,0 +1,414 @@
+"""Dense-bitset frontier scan: exact linearizability for small domains.
+
+The port of the reference's dense-domain scan (`jepsen_jgroups_raft_tpu/
+ops/dense_scan.py` `dense_step_parts` and its Pallas twin
+`ops/pallas_scan.py` `_build_kernel`). A CAS register over a handful of
+values has a reachable state domain enumerable from the history (the
+initial value plus every written / cas-to value), so with a small
+concurrency window W and domain S the whole powerset-of-window × domain
+fits a dense boolean frontier F[2^W, S]: F[m, s] = "some linearization
+of exactly the ops in mask m ends in state s".
+
+Per event (packing.py's stream):
+
+  OPEN w:  latch (f, a, b) of slot w — here as the slot's transition row
+           T_w[s, s'] = legal(s) & (step(s) == s').
+  closure: at a FORCE after an OPEN, repeat sweeps until fixpoint: for
+           each open slot w, configurations without bit w flow through
+           T_w into the bit-w half.
+  FORCE w: survivors must hold bit w; the bit is recycled by moving the
+           bit-w half onto the other; ok &= "some survivor".
+
+This module holds:
+
+  * the window grouping (`dense_plan`, `dense_plans_grouped`) — numpy,
+    identical groups to the reference's;
+  * `dense_scan`, the wrapper of the hand-written CUDA kernel
+    (ops/csrc/dense_scan.cu) — the main path's only kernel;
+  * `dense_scan_plain`, the same function in plain PyTorch, which the CPU
+    tests use and chip_smoke.py holds the kernel to on the card.
+
+`val_of[S]` is a per-history input (id 0 = initial state); padding
+repeats id 0, so duplicate ids are expected and must all light up.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..history.packing import EncodedHistory
+from . import _build
+from .kernel_ir import (DENSE_MAX_CELLS, DENSE_MAX_SLOTS, DENSE_MAX_STATES,
+                        closure_fixpoint, force_arith, macro_row_ints,
+                        make_stream_step)
+
+
+@dataclass(frozen=True)
+class DensePlan:
+    """How to run a window group on the dense kernel: frontier
+    F[2^W, S] over an enumerated value domain; `val_of` [B, S] is the
+    per-history id→value table (kernel input)."""
+
+    kind: str
+    n_slots: int
+    n_states: int
+    val_of: np.ndarray
+
+    @property
+    def kernel_tag(self) -> str:
+        """Reporting label (checker results)."""
+        return "dense"
+
+
+def _fits(W: int, S: int) -> bool:
+    return (W <= DENSE_MAX_SLOTS and S <= DENSE_MAX_STATES
+            and (1 << W) * S <= DENSE_MAX_CELLS)
+
+
+def dense_plan(model, encs: Sequence[EncodedHistory]) -> Optional[DensePlan]:
+    """One plan for a whole batch at its widest window, or None when
+    some history's domain is not enumerable or the cells exceed the
+    caps. Domain tables are padded with their own id-0 value."""
+    if not encs:
+        return None
+    W = max((e.n_slots for e in encs), default=0)
+    domains = []
+    for e in encs:
+        d = model.dense_domain(e.events)
+        if d is None:
+            return None
+        domains.append(np.asarray(d, dtype=np.int32))
+    S = max((len(d) for d in domains), default=1)
+    if not _fits(W, S):
+        return None
+    S_b, val_of = _pad_domains(domains, range(len(domains)))
+    return DensePlan("domain", max(W, 1), S_b, val_of)
+
+
+#: Don't launch a group for fewer histories than this — merge the
+#: stragglers into the next-wider window group instead.
+DENSE_MIN_GROUP = 16
+
+#: Past this legacy event count a history counts as LONG.
+MERGE_MAX_EVENTS = 4096
+
+#: Long histories merge into one launch only while the group's window
+#: spread stays within this many slots of the widest member.
+MERGE_LONG_MAX_SPREAD = 3
+
+
+def _merge_long_groups() -> bool:
+    """Whether LONG histories merge into window-proximate cluster
+    launches. Off unless ``JGRAFT_MERGE_LONG=1`` (the reference's
+    default off the TPU; the port asks no backend)."""
+    return os.environ.get("JGRAFT_MERGE_LONG") == "1"
+
+
+def _pad_domains(domains, idxs):
+    """[len(idxs), S] id→value table from per-history domains, S bucketed
+    to a power of two, rows padded with their own id-0 (initial)
+    value."""
+    ds = [domains[i] for i in idxs]
+    S = max(len(d) for d in ds)
+    S_b = 1
+    while S_b < S:
+        S_b *= 2
+    val_of = np.empty((len(ds), S_b), dtype=np.int32)
+    for r, d in enumerate(ds):
+        val_of[r, : len(d)] = d
+        val_of[r, len(d):] = d[0]
+    return S_b, val_of
+
+
+def dense_plans_grouped(model, encs: Sequence[EncodedHistory]):
+    """Route each history of a batch to its dense window group.
+
+    Returns (groups, rest): `groups` is [(indices, DensePlan)] over the
+    dense-eligible histories, partitioned by concurrency window (kernel
+    cost is exponential in W, and a real batch's windows spread with
+    per-history crash counts); `rest` holds the indices beyond the dense
+    caps. Groups of fewer than DENSE_MIN_GROUP histories merge into the
+    next-wider window; a merged group whose padded cells exceed the cap
+    sheds its widest members to `rest`. Each history's domain is
+    scanned once. Same groups, `rest` and `val_of` as the reference."""
+    domains = [model.dense_domain(e.events) for e in encs]
+    buckets: dict = {}
+    rest: list = []
+    for i, (e, d) in enumerate(zip(encs, domains)):
+        W = max(e.n_slots, 1)
+        if d is not None and _fits(W, len(d)):
+            buckets.setdefault(W, []).append(i)
+        else:
+            rest.append(i)
+    groups: list = []
+
+    def flush(pending):
+        """(indices, plan) for one group at the group's own widest
+        window, or None when the whole group sheds."""
+        w_eff = max(max(encs[i].n_slots for i in pending), 1)
+        S, val_of = _pad_domains(domains, pending)
+        while (1 << w_eff) * S > DENSE_MAX_CELLS and pending:
+            widest = max(pending, key=lambda i: encs[i].n_slots)
+            pending.remove(widest)
+            rest.append(widest)
+            if pending:
+                S, val_of = _pad_domains(domains, pending)
+                w_eff = max(max(encs[i].n_slots for i in pending), 1)
+        if not pending:
+            return None
+        return (pending, DensePlan("domain", w_eff, S, val_of))
+
+    windows = sorted(buckets)
+    if _merge_long_groups():
+        long_pool = [i for w in windows for i in buckets[w]
+                     if encs[i].n_events > MERGE_MAX_EVENTS]
+        if long_pool:
+            pooled = set(long_pool)
+            for w in windows:
+                buckets[w] = [i for i in buckets[w] if i not in pooled]
+            windows = [w for w in windows if buckets[w]]
+            by_w = sorted(long_pool, key=lambda i: encs[i].n_slots,
+                          reverse=True)
+            while by_w:
+                w_top = encs[by_w[0]].n_slots
+                cut = w_top - MERGE_LONG_MAX_SPREAD
+                # greedy take, re-checking the padded cell envelope as
+                # members join; a member that would overflow it waits
+                # for a later, narrower cluster
+                take, rest_pool, s_run = [], [], 1
+                for i in by_w:
+                    if encs[i].n_slots < cut:
+                        rest_pool.append(i)
+                        continue
+                    s_new = max(s_run, len(domains[i]))
+                    s_pad = 1
+                    while s_pad < s_new:
+                        s_pad *= 2
+                    if take and (1 << w_top) * s_pad > DENSE_MAX_CELLS:
+                        rest_pool.append(i)
+                        continue
+                    take.append(i)
+                    s_run = s_new
+                by_w = rest_pool
+                g = flush(take)
+                if g is not None:
+                    groups.append(g)
+    pending: list = []
+    for w in windows:
+        bucket = buckets[w]
+        long_bucket = any(encs[i].n_events > MERGE_MAX_EVENTS
+                          for i in bucket)
+        if long_bucket and pending:
+            # short stragglers flush first: merging them into a long
+            # launch would pad their streams to the long length
+            g = flush(pending)
+            if g is not None:
+                groups.append(g)
+            pending = []
+        pending += bucket
+        min_group = 1 if long_bucket else DENSE_MIN_GROUP
+        if len(pending) >= min_group or w == windows[-1]:
+            g = flush(pending)
+            if g is not None:
+                groups.append(g)
+            pending = []
+    return groups, rest
+
+
+# ----------------------------------------------------------- plain version
+
+
+def dense_scan_plain(events, val_of, n_slots: int,
+                     macro_p: Optional[int] = None, n_events=None,
+                     model=None, stats: Optional[dict] = None):
+    """The dense-domain scan in plain PyTorch: a Python loop over event
+    rows, batched over B, following the reference's `dense_step_parts`
+    (transition rows hoisted to OPEN, as the kernel builds them).
+
+    events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
+    val_of [B, S] int32; n_events [B] (rows past a history's length are
+    EV_PAD no-ops, so it only bounds the loop). Returns ok [B] bool on
+    events' device. `stats`, when given, accumulates the work the
+    data needed over rows still alive: "force_rows" (FORCE events),
+    "sweeps" (closure sweeps) and "slot_passes" (sweeps × open slots)."""
+    if model is None:
+        from ..models.register import CasRegister
+        model = CasRegister()
+    W, S = int(n_slots), int(val_of.shape[1])
+    M = 1 << W
+    B, E = int(events.shape[0]), int(events.shape[1])
+    dev = events.device
+    slot_ids = torch.arange(W, dtype=torch.int32, device=dev)
+    vo = val_of
+
+    def t_rows(f, a, b):
+        """Transition rows for ops (f, a, b) [B, K] -> [B, K, S, S']."""
+        ns, legal = model.torch_step(vo[:, None, :], f[:, :, None],
+                                     a[:, :, None], b[:, :, None])
+        return (ns[..., None] == vo[:, None, None, :]) & legal[..., None]
+
+    def latch(carry, slot, f, a, b, is_open, upd):
+        F, T, slot_open, ok, dirty = carry
+        row = t_rows(f[:, None], a[:, None], b[:, None])[:, 0]  # [B,S,S']
+        T = torch.where(upd[:, :, None, None], row[:, None], T)
+        return (F, T, slot_open | upd, ok, dirty | is_open)
+
+    def macro_latch(carry, pslot, pf, pa, pb, valid, n, eq, upd):
+        F, T, slot_open, ok, dirty = carry
+        rows = t_rows(pf, pa, pb)                               # [B,P,S,S']
+        picked = (eq[:, :, :, None, None] & rows[:, None]).any(dim=2)
+        T = torch.where(upd[:, :, None, None], picked, T)
+        return (F, T, slot_open | upd, ok, dirty | (n > 0))
+
+    def sweep_fn(T, slot_open):
+        Te = (T & slot_open[:, :, None, None]).to(torch.float32)
+
+        def sweep(F):
+            for w in range(W):
+                Fb = F.view(B, M >> (w + 1), 2, 1 << w, S)
+                src = Fb[:, :, 0].reshape(B, -1, S).to(torch.float32)
+                contrib = (torch.bmm(src, Te[:, w]) > 0).view(
+                    B, M >> (w + 1), 1 << w, S)
+                F = torch.stack([Fb[:, :, 0], Fb[:, :, 1] | contrib],
+                                dim=2).reshape(B, M, S)
+            return F
+
+        return sweep
+
+    def force_tail(carry, is_force, slot):
+        F, T, slot_open, ok, dirty = carry
+        active = is_force & dirty
+        if bool(active.any()):
+            F, sweeps = closure_fixpoint(W, sweep_fn(T, slot_open), F,
+                                         active)
+            if stats is not None:
+                live = ok.to(torch.int64)
+                stats["sweeps"] += int((sweeps * live).sum())
+                stats["slot_passes"] += int(
+                    (sweeps * live * slot_open.sum(dim=1)).sum())
+        dirty = dirty & ~is_force
+        if stats is not None:
+            stats["force_rows"] += int((is_force & ok).sum())
+        F_forced, alive = force_arith(F, slot.clamp(0, W - 1))
+        F = torch.where(is_force[:, None, None], F_forced, F)
+        ok = ok & (~is_force | alive)
+        slot_open = slot_open & ~((slot_ids[None, :] == slot[:, None])
+                                  & is_force[:, None])
+        return (F, T, slot_open, ok, dirty)
+
+    step = make_stream_step(W, latch, macro_latch, force_tail, macro_p)
+    F = torch.zeros((B, M, S), dtype=torch.bool, device=dev)
+    F[:, 0, 0] = True
+    carry = (F, torch.zeros((B, W, S, S), dtype=torch.bool, device=dev),
+             torch.zeros((B, W), dtype=torch.bool, device=dev),
+             torch.ones((B,), dtype=torch.bool, device=dev),
+             torch.zeros((B,), dtype=torch.bool, device=dev))
+    if stats is not None:
+        for k in ("force_rows", "sweeps", "slot_passes"):
+            stats.setdefault(k, 0)
+    n_scan = E if n_events is None or B == 0 else \
+        min(E, int(torch.as_tensor(n_events).max()))
+    for e in range(n_scan):
+        carry = step(carry, events[:, e])
+    return carry[3]
+
+
+# ------------------------------------------------------------ the kernel
+
+#: Launch counts of the port's kernels, one plain integer per wrapper:
+#: a wrapper adds one where it launches its kernel and nowhere else, so
+#: a run can show that its main path went through the card's kernels.
+LAUNCHES = {"dense_scan": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _threads_for(W: int) -> int:
+    """Threads per history block: one per configuration pair of a
+    closure pass (2^(W-1)), at least a warp, at most 256."""
+    return min(256, max(32, 1 << (W - 1)))
+
+
+def _check_int32(name, t, dims, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if t.dim() != dims:
+        raise ValueError(f"{name} must have {dims} dims, got {t.dim()}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def dense_scan(events, val_of, n_slots: int,
+               macro_p: Optional[int] = None, n_events=None, model=None):
+    """The dense-domain scan over a window group: ok [B] bool.
+
+    events [B, E, 5] int32 (legacy rows) or [B, E, 3 + 4·P] int32 (macro
+    rows, macro_p=P); val_of [B, S] int32; n_events [B] int32 real row
+    counts (default: all E rows). A CPU tensor takes `dense_scan_plain`;
+    a CUDA tensor launches the hand-written kernel
+    (ops/csrc/dense_scan.cu, one block per history) on the current
+    stream without synchronising, or raises."""
+    if model is None:
+        from ..models.register import CasRegister
+        model = CasRegister()
+    if events.device.type == "cpu":
+        return dense_scan_plain(events, val_of, n_slots, macro_p, n_events,
+                                model)
+    if events.device.type != "cuda":
+        raise ValueError(f"dense_scan: unsupported device {events.device}")
+    dev = events.device
+    _check_int32("events", events, 3, dev)
+    _check_int32("val_of", val_of, 2, dev)
+    B, E, R = (int(x) for x in events.shape)
+    W, S = int(n_slots), int(val_of.shape[1])
+    P = int(macro_p or 0)
+    if R != (5 if not P else macro_row_ints(P)):
+        raise ValueError(f"dense_scan: row width {R} does not match "
+                         f"macro_p={macro_p}")
+    if val_of.shape[0] != B:
+        raise ValueError("dense_scan: val_of rows differ from events rows")
+    if not (1 <= W and 1 <= S and _fits(W, S)):
+        raise ValueError(f"dense_scan: (W={W}, S={S}) beyond the dense "
+                         f"caps")
+    if n_events is None:
+        n_events = torch.full((B,), E, dtype=torch.int32, device=dev)
+    _check_int32("n_events", n_events, 1, dev)
+    if n_events.shape[0] != B:
+        raise ValueError("dense_scan: n_events must be [B]")
+    code = getattr(model, "KERNEL_MODEL", None)
+    if code is None:
+        raise ValueError(f"dense_scan: model {type(model).__name__} has no "
+                         f"device step in the CUDA kernel")
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return ok
+    lib = _build.load("dense_scan")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.dense_scan_launch(
+        ctypes.c_void_p(events.data_ptr()), ctypes.c_void_p(val_of.data_ptr()),
+        ctypes.c_void_p(n_events.data_ptr()), ctypes.c_void_p(ok.data_ptr()),
+        B, E, R, P, W, S, int(code), _threads_for(W),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"dense_scan kernel launch failed: "
+                           f"{_build.error_string('dense_scan', rc)}")
+    LAUNCHES["dense_scan"] += 1
+    return ok

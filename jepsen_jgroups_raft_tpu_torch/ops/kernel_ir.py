@@ -1,0 +1,155 @@
+"""Kernel IR of the port: caps, the event-row layout, and the plain
+PyTorch step parts that a dense kernel's plain version is built from.
+
+The reference (`jepsen_jgroups_raft_tpu/ops/kernel_ir.py`) writes one
+per-history step body and batches it with `vmap`; here the batch
+dimension B is written out: every carry leaf is batch-leading and every
+step part acts on all B rows at once. The hooks keep the reference's
+contract:
+
+  ``latch(carry, slot, f, a, b, is_open, upd) -> carry``
+      latch ONE op per row (legacy [5]-lane rows); ``upd`` [B, W] is
+      ``(slot_ids == slot) & is_open``.
+  ``macro_latch(carry, pslot, pf, pa, pb, valid, n, eq, upd) -> carry``
+      latch ≤ P opens per row at once (macro rows, history/packing.py
+      macro_compact); ``eq`` [B, W, P] / ``upd`` [B, W] from
+      :func:`macro_select`.
+  ``force_tail(carry, is_force, slot) -> carry``
+      closure + FORCE, identical for both row formats — the macro
+      soundness argument: both latch phases reach the same registers,
+      then run this same code.
+
+These functions are the semantics the CUDA kernel (ops/csrc/
+dense_scan.cu) is held to; they are not on the card's main path.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ..history.packing import EV_FORCE, EV_OPEN, MACRO_MAX_OPENS
+
+# --------------------------------------------------------------- caps
+
+#: Dense-domain caps: frontier F[2^W, S] per history. Per-event work is
+#: ~W · 2^W · S² (closure sweeps) plus 2^W · S (FORCE), so the dense
+#: path is reserved for small windows and domains — which the
+#: reference's workload shapes are.
+DENSE_MAX_SLOTS = 10
+DENSE_MAX_STATES = 16
+DENSE_MAX_CELLS = 8192  # 2^W · S
+
+
+# ------------------------------------------------------- event-row layout
+
+
+def macro_row_ints(macro_p: int = MACRO_MAX_OPENS) -> int:
+    """int32 lanes of one macro-event row: [mtype, force_slot, n_opens]
+    + macro_p × (slot, f, a, b)."""
+    return 3 + 4 * macro_p
+
+
+def macro_cols(rows, macro_p: int):
+    """Split macro-event rows [B, 3 + 4·P] into (mtype [B], force_slot
+    [B], n_opens [B], pslot [B, P], pf, pa, pb)."""
+    pay = rows[:, 3:3 + 4 * macro_p].reshape(rows.shape[0], macro_p, 4)
+    return (rows[:, 0], rows[:, 1], rows[:, 2],
+            pay[:, :, 0], pay[:, :, 1], pay[:, :, 2], pay[:, :, 3])
+
+
+def macro_select(slot_ids, pslot, valid):
+    """eq [B, W, P] marks which payload lands in which slot register
+    (slots within a macro are distinct, so at most one per slot); upd
+    [B, W] which slots update at all."""
+    eq = (slot_ids[None, :, None] == pslot[:, None, :]) & valid[:, None, :]
+    return eq, eq.any(dim=2)
+
+
+# --------------------------------------------------- shared FORCE/closure
+
+
+def _rows_like(mask, x):
+    """[B] bool mask viewed to broadcast against a batch-leading x."""
+    return mask.view((-1,) + (1,) * (x.dim() - 1))
+
+
+def closure_fixpoint(W: int, sweep, F, active):
+    """Iterate `sweep` (one pass over all slots, all rows) to the
+    reachability fixpoint, per row: a row keeps sweeping while its last
+    sweep changed it and fewer than W+1 sweeps ran — the reference's
+    `while_loop` condition `any(F != F0) & (it < W)`, row by row.
+    `active` [B] selects the rows that close at all. Returns (F,
+    sweeps [B] int64), the sweeps each row ran (work accounting)."""
+    cont = active.clone()
+    sweeps = torch.zeros(active.shape, dtype=torch.int64, device=F.device)
+    it = 0
+    while bool(cont.any()):
+        F_new = sweep(F)
+        changed = (F_new != F).flatten(1).any(dim=1)
+        sweeps += cont
+        F = torch.where(_rows_like(cont, F), F_new, F)
+        cont = cont & changed & (it < W)
+        it += 1
+    return F, sweeps
+
+
+def force_arith(F, slot_w):
+    """FORCE over a batch of dense frontiers F [B, M, S] bool with
+    per-row slot ids slot_w [B] (pre-clipped to [0, W)): kill
+    configurations missing the slot's bit, then recycle the bit by
+    moving the bit=1 half onto the bit=0 half. Returns (F', alive [B])."""
+    B, M, S = F.shape
+    ids = torch.arange(M, dtype=torch.int64, device=F.device)
+    w = slot_w.to(torch.int64)
+    has = ((ids[None, :] >> w[:, None]) & 1) == 1          # [B, M]
+    Fk = F & has[:, :, None]
+    alive = Fk.flatten(1).any(dim=1)
+    src = ids[None, :] + (1 << w)[:, None]                 # m + bit
+    inside = src < M
+    gathered = torch.gather(
+        Fk, 1, src.clamp(max=M - 1)[:, :, None].expand(B, M, S))
+    shifted = gathered & inside[:, :, None]
+    return shifted & ~has[:, :, None], alive
+
+
+# ---------------------------------------------------------- stream step
+
+
+def make_stream_step(n_slots: int, latch: Callable, macro_latch: Callable,
+                     force_tail: Callable,
+                     macro_p: Optional[int] = None) -> Callable:
+    """The per-event body shared by every plain dense version: decode a
+    batch of event rows ([B, 5] legacy or [B, 3 + 4·P] macro), compute
+    the latch write masks, call the latch hook, then the closure+FORCE
+    tail. Returns step(carry, rows) -> carry."""
+    W = int(n_slots)
+
+    if macro_p is None:
+        def step(carry, rows):
+            slot_ids = torch.arange(W, dtype=torch.int32,
+                                    device=rows.device)
+            etype, slot = rows[:, 0], rows[:, 1]
+            f, a, b = rows[:, 2], rows[:, 3], rows[:, 4]
+            is_open = etype == EV_OPEN
+            is_force = etype == EV_FORCE
+            upd = (slot_ids[None, :] == slot[:, None]) & is_open[:, None]
+            carry = latch(carry, slot, f, a, b, is_open, upd)
+            return force_tail(carry, is_force, slot)
+    else:
+        P = int(macro_p)
+
+        def step(carry, rows):
+            slot_ids = torch.arange(W, dtype=torch.int32,
+                                    device=rows.device)
+            mtype, fslot, n, pslot, pf, pa, pb = macro_cols(rows, P)
+            is_force = mtype == EV_FORCE
+            valid = (torch.arange(P, dtype=torch.int32,
+                                  device=rows.device)[None, :]
+                     < n[:, None])
+            eq, upd = macro_select(slot_ids, pslot, valid)
+            carry = macro_latch(carry, pslot, pf, pa, pb, valid, n, eq,
+                                upd)
+            return force_tail(carry, is_force, fslot)
+    return step

@@ -1,0 +1,131 @@
+"""The port's checker against the reference's `check_histories` on
+register histories (the reference under the suite's pins:
+JGRAFT_LIN_FASTPATH=0, JGRAFT_AUTOTUNE=0). Inside the dense caps every
+result must agree on valid?, kernel, decided-tier, op-count and
+concurrency-window; beyond them the reference takes its own ladder and
+the port the host tier, so only valid? is compared. Exact equality."""
+
+import random
+
+import pytest
+import torch
+
+from jepsen_jgroups_raft_tpu.checker.linearizable import \
+    check_histories as ref_check
+from jepsen_jgroups_raft_tpu.models.register import CasRegister as RefReg
+from jepsen_jgroups_raft_tpu_torch.checker import schedule
+from jepsen_jgroups_raft_tpu_torch.checker.base import UNKNOWN
+from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+    LinearizableChecker, check_encoded, check_histories)
+from jepsen_jgroups_raft_tpu_torch.history.ops import History
+from jepsen_jgroups_raft_tpu_torch.history.synth import (build_history,
+                                                         random_valid_history)
+from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
+
+torch.set_num_threads(1)
+
+KEYS = ("valid?", "kernel", "decided-tier", "op-count", "concurrency-window")
+
+
+def _batch(seed=5, n=40):
+    rng = random.Random(seed)
+    hs = []
+    for i in range(n):
+        h = random_valid_history(rng, "register",
+                                 n_ops=rng.randint(100, 200),
+                                 n_procs=rng.randint(2, 5), crash_p=0.1,
+                                 max_crashes=3)
+        if i % 2:
+            ops = list(h)
+            reads = [j for j, op in enumerate(ops) if op.type == "ok"
+                     and op.f == "read" and op.value is not None]
+            if reads:
+                j = rng.choice(reads)
+                ops[j] = ops[j].replace(value=ops[j].value + 1)
+                h = ops
+        hs.append(h)
+    return hs
+
+
+def _wide(valid):
+    """A history beyond the dense caps: an initial write, then 12
+    crashed CAS ops chained 0→1→…→12 (each one's value observed by the
+    next, so the prune keeps them all: window 13), then a read of 12 —
+    and, for the invalid twin, a later read of 5, which no op can bring
+    back."""
+    rows = [(0, "invoke", "write", 0), (0, "ok", "write", 0)]
+    rows += [(k + 1, "invoke", "cas", (k, k + 1)) for k in range(12)]
+    rows += [(20, "invoke", "read", None), (20, "ok", "read", 12)]
+    if not valid:
+        rows += [(21, "invoke", "read", None), (21, "ok", "read", 5)]
+    return build_history(rows)
+
+
+def _view(r):
+    return {k: r.get(k) for k in KEYS}
+
+
+def test_matches_reference_inside_dense_caps():
+    hs = _batch()
+    ours = check_histories(hs, CasRegister(), device="cpu")
+    theirs = ref_check(hs, RefReg())
+    assert [_view(r) for r in ours] == [_view(r) for r in theirs]
+    verdicts = [r["valid?"] for r in ours]
+    assert True in verdicts and False in verdicts
+    assert {r["decided-tier"] for r in ours} == {"dense"}
+    assert all(r["algorithm"] == "torch" for r in ours)
+
+
+def test_beyond_caps_takes_host_tier_with_reference_verdict():
+    hs = [_wide(True), _wide(False)] + _batch(seed=9, n=6)
+    ours = check_histories(hs, CasRegister(), device="cpu")
+    theirs = ref_check(hs, RefReg())
+    assert [r["valid?"] for r in ours] == [r["valid?"] for r in theirs]
+    assert [r["valid?"] for r in ours[:2]] == [True, False]
+    for r in ours[:2]:
+        assert r["concurrency-window"] == 13
+        assert (r["algorithm"], r["decided-tier"]) == ("cpu", "host")
+    assert [_view(r) for r in ours[2:]] == [_view(r) for r in theirs[2:]]
+
+
+def test_algorithms_dense_and_cpu():
+    hs = [_wide(True)] + _batch(seed=3, n=4)
+    dense = check_histories(hs, CasRegister(), algorithm="dense",
+                            device="cpu")
+    assert dense[0]["valid?"] == UNKNOWN and "caps" in dense[0]["error"]
+    host = check_histories(hs, CasRegister(), algorithm="cpu", device="cpu")
+    assert {r["decided-tier"] for r in host} == {"host"}
+    assert [r["valid?"] for r in host[1:]] == \
+        [r["valid?"] for r in dense[1:]]
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        check_histories(hs, CasRegister(), algorithm="jax", device="cpu")
+
+
+def test_trivial_and_tier_counters():
+    schedule.consume_tiers()
+    schedule.consume_stats()
+    with schedule.stats_scope("t") as scope:
+        rs = check_encoded([], CasRegister(), device="cpu")
+        assert rs == []
+        [empty, one] = check_histories([History(), _batch(n=1)[0]],
+                                       CasRegister(), device="cpu")
+    ref_empty = ref_check([History()], RefReg())[0]
+    assert _view(empty) == _view(ref_empty)
+    assert empty["decided-tier"] == "trivial"
+    assert scope["tiers"]["trivial"][0] == 1
+    assert scope["tiers"]["dense"][0] == 1
+    assert scope["groups_run"] == 1 and scope["rows_run"] == 1
+    tiers = schedule.consume_tiers()
+    assert tiers["dense"]["rows"] == 1 and tiers["trivial"]["rows"] == 1
+    assert schedule.consume_stats()["groups_run"] == 1
+    assert one["valid?"] is True
+
+
+def test_linearizable_checker_protocol():
+    good, bad = _wide(True), _wide(False)
+    ck = LinearizableChecker(CasRegister(), device="cpu")
+    assert ck.check({}, good)["valid?"] is True
+    r = ck.check({}, bad)
+    assert r["valid?"] is False and "failing-op-index" in r
+    # plain lists of op dicts are accepted too
+    assert ck.check({}, good.to_dicts())["valid?"] is True
