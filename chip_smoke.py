@@ -6,19 +6,30 @@ and PyTorch built for CUDA):
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing JSON lines; any failure exits non-zero:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the path from this checkout's
-               sources (into build/torch_kernels/)
-  3. kernel  — each kernel against its plain PyTorch version, bitwise, on
-               random window groups at the cap corners, both row formats,
-               valid and invalid histories
-  4. main    — the north-star check through the port's `check_histories`
+               sources (into build/torch_kernels/); ptxas's report, which
+               must show no spill bytes and no stack frame
+  3. kernel  — each kernel against its plain PyTorch version, bitwise, at
+               every window W = 1..10 with the largest domain S the caps
+               allow, at W = 1 / S = 1 and at the north-star shape, both
+               row formats, valid and invalid histories in each case
+  4. groups  — window groups that differ in W, macro width P and length E,
+               launched together through `run_dense_groups` (one stream
+               each): every group's verdicts equal the plain version's on
+               that group alone
+  5. main    — the north-star check through the port's `check_histories`
                on the card: 1000 CAS-register histories of 1000 ops (5
                processes, crash_p 0.05, at most 3 crashes, seed 20260729);
                warm-up, then best of 3; all must be VALID, no row may take
-               the host tier, the kernel's launch count must be above 0
-  5. invalid — 64 of those histories with one read corrupted: kernel,
+               the host tier, the kernel's launch count must be above 0.
+               Then the kernel breakdown: the overlapped span of the
+               groups, each group's time alone and its ns per row
+  6. profile — one check under torch.profiler: the device's busy share of
+               the check's wall (reported as not measured when the trace
+               holds no device time)
+  7. invalid — 64 of those histories with one read corrupted: kernel,
                plain version and host oracle must agree row for row, and
                every corrupted row must be INVALID
 
@@ -34,6 +45,7 @@ import random
 import subprocess
 import sys
 import time
+import traceback
 
 SEED = 20260729
 N_HISTORIES = 1000
@@ -64,6 +76,13 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def corrupt_read(ops, rng, bump: int):
     """Raise one ok read's value by `bump` (the reference tests'
     `_maybe_corrupt_read` with a chosen bump); returns (ops, changed)."""
@@ -77,9 +96,40 @@ def corrupt_read(ops, rng, bump: int):
     return ops, True
 
 
+def cap_histories(rng, W: int, S: int, n: int, n_ops: int):
+    """n register histories whose windows reach up to W slots over a
+    domain of at most S values: up to 5 processes, the rest of the window
+    held by crashed ops. Odd histories get one read corrupted. S = 1: one
+    process reading nil, odd histories read a 1 once."""
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        build_history, random_valid_history)
+
+    if S == 1:
+        hs = []
+        for i in range(n):
+            rows = []
+            for k in range(n_ops):
+                v = 1 if (i % 2 and k == n_ops // 2) else None
+                rows += [(0, "invoke", "read", None), (0, "ok", "read", v)]
+            hs.append(build_history(rows))
+        return hs
+    n_procs = min(W, 5)
+    crashes = W - n_procs
+    hs = []
+    for i in range(n):
+        h = random_valid_history(rng, "register", n_ops=n_ops,
+                                 n_procs=n_procs,
+                                 crash_p=0.5 if crashes else 0.0,
+                                 max_crashes=crashes, value_range=S - 1)
+        if i % 2:
+            h, _ = corrupt_read(h, rng, 1)
+        hs.append(h)
+    return hs
+
+
 def group_tensors(encs, plan, macro: bool, dev, W=None, S=None):
-    """(events, val_of, n_events, macro_p) tensors on `dev` for one
-    group, optionally widened to window W and domain table size S."""
+    """(events, val_of, n_events, macro_p, W) for one group on `dev`,
+    optionally widened to window W and domain table size S."""
     import numpy as np
     import torch
 
@@ -97,69 +147,70 @@ def group_tensors(encs, plan, macro: bool, dev, W=None, S=None):
             batch.get("macro_p"), W or plan.n_slots)
 
 
-def phase_kernel(dev, model):
-    """Kernel vs plain version at the cap corners, both row formats,
-    both polarities. Returns (rows compared, max |kernel - plain|)."""
-    import torch
-
+def encode_group(hists, model, W=None, S=None, name="group"):
+    """Encodings and dense plan of one group; the plan must fit window W
+    and table size S, and some history must reach W (so the top slot's
+    layout kind is exercised)."""
     from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
-    from jepsen_jgroups_raft_tpu_torch.history.synth import (
-        build_history, random_valid_history)
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import dense_plan
+
+    encs = [encode_history(h, model) for h in hists]
+    plan = dense_plan(model, encs)
+    if plan is None or plan.n_slots > (W or plan.n_slots) or \
+            plan.n_states > (S or plan.n_states):
+        raise AssertionError(f"{name}: histories do not fit (plan "
+                             f"{plan and (plan.n_slots, plan.n_states)})")
+    if W is not None and max(e.n_slots for e in encs) != W:
+        raise AssertionError(f"{name}: no history reaches window {W}")
+    return encs, plan
+
+
+def phase_kernel(dev, model):
+    """Kernel vs plain version at every window W = 1..10 (largest S the
+    caps allow), W = 1 / S = 1 and the north-star shape, both row
+    formats, both polarities. Returns (rows compared, max |kernel -
+    plain|)."""
+    from jepsen_jgroups_raft_tpu_torch.ops.kernel_ir import (
+        DENSE_MAX_CELLS, DENSE_MAX_SLOTS, DENSE_MAX_STATES)
     from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
-        dense_plan, dense_scan, dense_scan_plain)
+        dense_layout, dense_scan, dense_scan_plain)
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        random_valid_history)
 
     rng = random.Random(SEED + 1)
-
-    def synth(n, n_ops, n_procs, max_crashes, value_range, crash_p):
-        hs = []
-        for i in range(n):
-            h = random_valid_history(rng, "register", n_ops=n_ops,
-                                     n_procs=n_procs, crash_p=crash_p,
-                                     max_crashes=max_crashes,
-                                     value_range=value_range)
-            if i % 2:
-                h, _ = corrupt_read(h, rng, 1)
-            hs.append(h)
-        return hs
-
-    def reads_only(n, n_ops):
-        # W = 1, S = 1: one process reading nil; odd rows read a 1
-        hs = []
-        for i in range(n):
-            rows = []
-            for k in range(n_ops):
-                v = 1 if (i % 2 and k == n_ops // 2) else None
-                rows += [(0, "invoke", "read", None), (0, "ok", "read", v)]
-            hs.append(build_history(rows))
-        return hs
-
-    corners = [
-        ("W10_S8", synth(48, 160, 5, 5, 7, 0.3), 10, 8),
-        ("W9_S16", synth(48, 160, 5, 4, 15, 0.3), 9, 16),
-        ("W1_S1", reads_only(32, 40), 1, 1),
-        ("north_star", synth(64, 300, N_PROCS, MAX_CRASHES, VALUE_RANGE,
-                             CRASH_P), None, None),
-    ]
+    corners = []
+    for W in range(1, DENSE_MAX_SLOTS + 1):
+        S = min(DENSE_MAX_STATES, DENSE_MAX_CELLS >> W)
+        corners.append((f"W{W}_S{S}", cap_histories(rng, W, S, 32, 100),
+                        W, S))
+    corners.append(("W1_S1", cap_histories(rng, 1, 1, 32, 40), 1, 1))
+    north = []
+    for i in range(64):
+        h = random_valid_history(rng, "register", n_ops=300,
+                                 n_procs=N_PROCS, crash_p=CRASH_P,
+                                 max_crashes=MAX_CRASHES)
+        north.append(corrupt_read(h, rng, 1)[0] if i % 2 else h)
+    corners.append(("north_star", north, None, None))
     compared, max_err = 0, 0
     for name, hists, W, S in corners:
-        encs = [encode_history(h, model) for h in hists]
-        plan = dense_plan(model, encs)
-        if plan is None or plan.n_slots > (W or plan.n_slots) or \
-                plan.n_states > (S or plan.n_states):
-            raise AssertionError(f"{name}: corner histories do not fit "
-                                 f"(plan {plan and (plan.n_slots, plan.n_states)})")
+        encs, plan = encode_group(hists, model, W, S, name)
         for macro in (False, True):
             ev, vo, ne, P, Wk = group_tensors(encs, plan, macro, dev, W, S)
             ok_k = dense_scan(ev, vo, Wk, macro_p=P, n_events=ne,
                               model=model)
-            torch.cuda.synchronize()
+            sync(dev)
             ok_p = dense_scan_plain(ev, vo, Wk, macro_p=P, n_events=ne,
                                     model=model)
             err = int((ok_k.int() - ok_p.int()).abs().max())
             n_valid = int(ok_p.sum())
+            layout = dense_layout(Wk, int(vo.shape[1]))
             emit("kernel", case=name, rows=int(ev.shape[0]),
                  events=int(ev.shape[1]), row_ints=int(ev.shape[2]),
                  W=int(Wk), S=int(vo.shape[1]), macro_p=P,
+                 layout={"field_log2": layout.field_log2,
+                         "lanes": layout.lanes, "words": layout.words,
+                         "passes": [layout.slot_pass(w)[0]
+                                    for w in range(Wk)]},
                  valid=n_valid, invalid=int(ev.shape[0]) - n_valid,
                  max_abs_err=err)
             if err != 0:
@@ -170,6 +221,100 @@ def phase_kernel(dev, model):
             compared += int(ev.shape[0])
             max_err = max(max_err, err)
     return compared, max_err
+
+
+def phase_groups(dev, model):
+    """Groups that differ in W, P and E launched together through
+    run_dense_groups; each must equal the plain version on that group
+    alone. Returns (rows compared, max |kernel - plain|)."""
+    import numpy as np
+
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
+        DenseLaunch, run_dense_groups)
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+        dense_scan_plain, launch_counts)
+
+    t0 = time.perf_counter()
+    rng = random.Random(SEED + 3)
+    specs = [  # (name, W, S, histories, ops each, macro rows)
+        ("W2_S16_legacy", 2, 16, 40, 60, False),
+        ("W6_S16_macro", 6, 16, 32, 150, True),
+        ("W10_S8_macro", 10, 8, 24, 100, True),
+        ("W1_S1_macro", 1, 1, 16, 30, True)]
+    launches = []
+    for name, W, S, n, n_ops, macro in specs:
+        encs, plan = encode_group(cap_histories(rng, W, S, n, n_ops), model,
+                                  W, S, name)
+        ev, vo, ne, P, Wk = group_tensors(encs, plan, macro, dev, W, S)
+        launches.append(DenseLaunch(events=ev, val_of=vo, n_events=ne,
+                                    n_slots=Wk, macro_p=P))
+    before = launch_counts()["dense_scan"]
+    run = run_dense_groups(launches, model, timed=dev.type == "cuda")
+    launched = launch_counts()["dense_scan"] - before
+    if dev.type == "cuda" and launched != len(launches):
+        raise AssertionError(f"groups: {launched} launches for "
+                             f"{len(launches)} groups")
+    rows, max_err = 0, 0
+    for (name, *_), ln, ok in zip(specs, launches, run.ok):
+        plain = dense_scan_plain(ln.events, ln.val_of, ln.n_slots,
+                                 macro_p=ln.macro_p, n_events=ln.n_events,
+                                 model=model).cpu().numpy()
+        err = int(np.abs(ok.astype(int) - plain.astype(int)).max())
+        emit("groups", case=name, rows=int(ln.events.shape[0]),
+             events=int(ln.events.shape[1]),
+             row_ints=int(ln.events.shape[2]), W=ln.n_slots,
+             macro_p=ln.macro_p, valid=int(plain.sum()), max_abs_err=err)
+        if err != 0 or plain.all() or not plain.any():
+            raise AssertionError(f"groups/{name}: kernel disagrees with "
+                                 f"the plain version, or one polarity only")
+        rows += len(plain)
+        max_err = max(max_err, err)
+    emit("groups_summary", groups=len(launches), rows_compared=rows,
+         max_abs_err=max_err, launches=launched,
+         kernel_ms_per_group=run.kernel_ms, span_ms=run.span_ms,
+         seconds=time.perf_counter() - t0)
+    return rows, max_err
+
+
+def phase_profile(dev, model, histories):
+    """Busy share of the card over one check, read from a torch.profiler
+    trace: the union of the device events' intervals over the check's
+    host wall (profiler on). None when the trace has no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        check_histories(histories, model, device=dev)
+        torch.cuda.synchronize(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t and e.device_type == DeviceType.CUDA:
+            by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + t / 1e3
+    share = busy / wall_us if spans else None
+    emit("profile", device_events=len(spans), device_busy_ms=busy / 1e3,
+         check_wall_ms=wall_us / 1e3, busy_share=share,
+         device_ms_by_name=by_name,
+         note=None if spans else "trace holds no device time: not measured")
+    return share
 
 
 def main() -> int:
@@ -211,17 +356,24 @@ def main() -> int:
 
     # 2. build from this checkout's sources
     build_s = _build.build(["dense_scan"])
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("dense_scan", "")
-             .splitlines() if "registers" in ln or "smem" in ln]
+    ptxas = _build.ptxas_report("dense_scan")
     emit("build", seconds=build_s, kernels=["dense_scan"], ptxas=ptxas)
+    if ptxas["functions"] == 0:
+        raise AssertionError("no ptxas report for dense_scan")
+    spill_bytes = ptxas["spill_store_bytes"] + ptxas["spill_load_bytes"]
+    if spill_bytes or ptxas["max_stack_bytes"]:
+        raise AssertionError(f"dense_scan spills or uses a stack: {ptxas}")
 
-    # 3. kernel against its plain version at the cap corners
+    # 3. kernel against its plain version at every window
     t0 = time.perf_counter()
     compared, corner_err = phase_kernel(dev, model)
     emit("kernel_summary", rows_compared=compared, max_abs_err=corner_err,
          seconds=time.perf_counter() - t0)
 
-    # 4. the main path: the north-star batch through check_histories
+    # 4. mixed window groups launched together
+    _, groups_err = phase_groups(dev, model)
+
+    # 5. the main path: the north-star batch through check_histories
     t0 = time.perf_counter()
     rng = random.Random(SEED)
     histories = [random_valid_history(rng, "register", n_ops=N_OPS,
@@ -251,7 +403,8 @@ def main() -> int:
     if host_rows or "host" in tiers:
         raise AssertionError(f"{host_rows} rows left the dense kernel")
 
-    # breakdown of one run: encode, group + pack, kernel per group
+    # breakdown of one run: encode, group + pack, the kernels overlapped
+    # (span and per group) and each group alone
     t0 = time.perf_counter()
     encs = [encode_history(h, model) for h in histories]
     encode_s = time.perf_counter() - t0
@@ -266,12 +419,19 @@ def main() -> int:
         n_events=torch.from_numpy(b["n_events"]).to(dev),
         n_slots=plan.n_slots, macro_p=b["macro_p"])
         for b, (_, plan) in zip(batches, grouped)]
-    group_ms = None
+    group_ms, span_ms, alone_ms = None, None, None
     for _ in range(3):
         run = run_dense_groups(launch_list, model, timed=True)
         group_ms = run.kernel_ms if group_ms is None else \
             [min(a, b) for a, b in zip(group_ms, run.kernel_ms)]
-    kernel_ms = sum(group_ms)
+        span_ms = run.span_ms if span_ms is None else \
+            min(span_ms, run.span_ms)
+        alone = [run_dense_groups([ln], model, timed=True).kernel_ms[0]
+                 for ln in launch_list]
+        alone_ms = alone if alone_ms is None else \
+            [min(a, b) for a, b in zip(alone_ms, alone)]
+    longest = [int(b["n_events"].max()) for b in batches]
+    ns_per_row = [ms * 1e6 / n for ms, n in zip(alone_ms, longest)]
     scan_steps = int(sum(int(b["n_events"].sum()) for b in batches))
 
     # the plain version on the same groups: its time, bitwise agreement,
@@ -323,15 +483,27 @@ def main() -> int:
          macro_p=[int(b["macro_p"]) for b in batches],
          synth_s=synth_s, check_s_reps=walls, check_s_best=best,
          hist_per_s=N_HISTORIES / best, encode_s=encode_s, pack_s=pack_s,
-         kernel_ms_per_group=group_ms, kernel_ms=kernel_ms,
+         kernel_span_ms=span_ms, kernel_ms_per_group=group_ms,
+         kernel_ms_alone=alone_ms, kernel_ms_alone_sum=sum(alone_ms),
+         longest_rows=longest, ns_per_row=ns_per_row,
          plain_ms=plain_ms, scan_steps=scan_steps,
          closure_sweeps=sweeps, slot_passes=slot_passes,
          force_rows=force_rows, bytes_moved=bytes_moved,
          bit_ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+         spill_bytes=spill_bytes, max_registers=ptxas["max_registers"],
          launches=launches, tiers=tiers, device=stamp["device_name"],
          power=stamp["nvidia_smi"])
 
-    # 5. invalid subset: guaranteed-invalid corruption (the bumped read
+    # 6. the card's busy share over one check, from a profiler trace; a
+    # profiler that cannot trace here is reported, not fatal
+    try:
+        phase_profile(dev, model, histories)
+    except Exception as e:  # noqa: BLE001 — measurement only
+        traceback.print_exc()
+        emit("profile", busy_share=None,
+             note=f"not measured: {type(e).__name__}: {e}")
+
+    # 7. invalid subset: guaranteed-invalid corruption (the bumped read
     # leaves the value domain), kernel vs plain vs host oracle
     rng = random.Random(SEED + 2)
     bad = []
@@ -368,8 +540,8 @@ def main() -> int:
         "name": "dense_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": int(launches["dense_scan"]),
-        "max_abs_err": float(max(corner_err, main_err)),
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "max_abs_err": float(max(corner_err, groups_err, main_err)),
+        "ms": span_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
 """Window-group launches and the port's run counters.
 
 `run_dense_groups` is the port's launch loop for the dense kernel: it
-queues every window group's kernel on the current stream and
-synchronises once, after the last launch — the reference's discipline
-for its monolithic path (bench.py run(): launch every group, block
-once). The reference's chunked wavefront (decided-row eviction between
-chunks) is not ported yet: the CUDA kernel exits a history's loop at its
-real length or at its first dead FORCE on its own, which covers the
-eviction's two cases inside one launch.
+launches every window group's kernel at once, each on a side stream of
+its own, joins them back to the current stream and synchronises once —
+the reference's discipline for its monolithic path (bench.py run():
+launch every group, block once), with the groups overlapped on the card
+instead of queued one after another. The reference's chunked wavefront
+(decided-row eviction between chunks) is not ported yet: the CUDA
+kernel exits a history's loop at its real length or at its first dead
+FORCE on its own, which covers the eviction's two cases inside one
+launch.
 
 The counters follow the reference's checker/schedule.py: per-tier
 decided rows and wall (`note_tier`, `consume_tiers`) and run counters
@@ -25,7 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..ops.dense_scan import dense_scan
+from ..ops.dense_scan import dense_scan, dense_scan_launcher
 
 _STATS_LOCK = threading.Lock()
 _STATS_ZERO = {"groups_run": 0, "rows_run": 0, "wall_s": 0.0}
@@ -128,36 +130,69 @@ class DenseLaunch:
 @dataclass
 class GroupRun:
     """Verdicts of `run_dense_groups`: ok[k] is launch k's [B] bool
-    array; kernel_ms[k] its kernel time by CUDA events when timed."""
+    array. When timed (card only), kernel_ms[k] is launch k's kernel time
+    on its own stream and span_ms the check's kernel span, from before
+    the first launch to the join of the last, by CUDA events."""
 
     ok: List[np.ndarray]
     wall_s: float
     kernel_ms: Optional[List[float]] = None
+    span_ms: Optional[float] = None
+
+
+def _timer() -> torch.cuda.Event:
+    return torch.cuda.Event(enable_timing=True)
 
 
 def run_dense_groups(launches: List[DenseLaunch], model,
                      timed: bool = False) -> GroupRun:
-    """Launch every group's dense kernel on the current stream, then
-    synchronise once and read the verdicts. `timed` brackets each
-    launch with CUDA events (card only) for per-group kernel times."""
+    """Launch every group's dense kernel, then synchronise once and read
+    the verdicts. On the card every group is checked and allocated first,
+    then the kernels launch back to back, each on its own side stream:
+    a side stream first waits for the current stream (which carried the
+    inputs' host-to-device copies and allocated the verdicts), every
+    tensor a side stream touches is recorded on it, and the current
+    stream waits for all of them before the verdicts are read. `timed`
+    adds CUDA events (card only) for per-group kernel times and the
+    overlapped span."""
     t0 = time.perf_counter()
     on_card = any(ln.events.device.type == "cuda" for ln in launches)
     timed = timed and on_card
-    marks = []
-    oks = []
-    for ln in launches:
+    oks, marks, span = [], [], None
+    if not on_card:
+        oks = [dense_scan(ln.events, ln.val_of, ln.n_slots,
+                          macro_p=ln.macro_p, n_events=ln.n_events,
+                          model=model) for ln in launches]
+    else:
+        dev = launches[0].events.device
+        main = torch.cuda.current_stream(dev)
+        # PyTorch hands out its pooled streams round-robin, so these are
+        # distinct for up to 32 groups
+        sides = [torch.cuda.Stream(device=dev) for _ in launches]
+        ready = [dense_scan_launcher(ln.events, ln.val_of, ln.n_slots,
+                                     macro_p=ln.macro_p,
+                                     n_events=ln.n_events, model=model)
+                 for ln in launches]
         if timed:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        oks.append(dense_scan(ln.events, ln.val_of, ln.n_slots,
-                              macro_p=ln.macro_p, n_events=ln.n_events,
-                              model=model))
+            span = (_timer(), _timer())
+            marks = [(_timer(), _timer()) for _ in launches]
+            span[0].record(main)
+        for k, ((ok, launch), side) in enumerate(zip(ready, sides)):
+            side.wait_stream(main)
+            if timed:
+                marks[k][0].record(side)
+            launch(side)
+            if timed:
+                marks[k][1].record(side)
+            oks.append(ok)
+        for side in sides:
+            main.wait_stream(side)
         if timed:
-            end.record()
-            marks.append((start, end))
-    if on_card:
-        torch.cuda.synchronize()
+            span[1].record(main)
+        for ln, ok, side in zip(launches, oks, sides):
+            for t in (ln.events, ln.val_of, ln.n_events, ok):
+                t.record_stream(side)
+        main.synchronize()
     out = [o.cpu().numpy() for o in oks]
     wall = time.perf_counter() - t0
     _add_stats(groups_run=len(launches),
@@ -165,4 +200,5 @@ def run_dense_groups(launches: List[DenseLaunch], model,
                wall_s=wall)
     return GroupRun(ok=out, wall_s=wall,
                     kernel_ms=[s.elapsed_time(e) for s, e in marks]
-                    if timed else None)
+                    if timed else None,
+                    span_ms=span[0].elapsed_time(span[1]) if timed else None)

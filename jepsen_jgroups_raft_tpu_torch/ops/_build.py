@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -35,8 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, dict] = {
     "dense_scan": {
-        # events, val_of, n_events, ok, B, E, R, macro_p, W, S, model,
-        # threads, device, stream
+        # events, val_of, n_events, ok, B, E, R, macro_p, W, S,
+        # field_log2, model, device, stream
         "dense_scan_launch": (_I, [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _VP]),
         "dense_scan_error_string": (ctypes.c_char_p, [_I]),
@@ -45,7 +46,9 @@ SIGNATURES: Dict[str, dict] = {
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: ptxas resource report of each build made by this process.
+#: nvcc's output (ptxas resource report) of each build made by this
+#: process; `build_log` also reads it back from beside a library built
+#: earlier.
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -91,6 +94,7 @@ def build(names: Iterable[str]) -> float:
                 errors.append(f"{name}: nvcc exited {proc.returncode}:\n"
                               f"{log[-4000:]}")
                 continue
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: concurrent builds agree
         if errors:
             raise RuntimeError("CUDA kernel build failed\n" +
@@ -122,3 +126,31 @@ def error_string(name: str, rc: int) -> str:
     check that refused the launch."""
     msg = getattr(load(name), f"{name}_error_string")(int(rc))
     return f"{rc}: {msg.decode() if msg else 'unknown error'}"
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for library `name` as built from the current source:
+    from this process's build, or from the log kept beside the library."""
+    if name in BUILD_LOG:
+        return BUILD_LOG[name]
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(name: str) -> dict:
+    """Sum of ptxas -v's per-function report for library `name`: the
+    functions compiled, the most registers and stack any of them uses,
+    and the spill bytes stored and loaded over all of them."""
+    log = build_log(name)
+    frames = [tuple(int(x) for x in m) for m in _PTXAS_FRAME.findall(log)]
+    regs = [int(x) for x in _PTXAS_REGS.findall(log)]
+    return {"functions": len(frames),
+            "max_registers": max(regs, default=0),
+            "max_stack_bytes": max((f[0] for f in frames), default=0),
+            "spill_store_bytes": sum(f[1] for f in frames),
+            "spill_load_bytes": sum(f[2] for f in frames)}

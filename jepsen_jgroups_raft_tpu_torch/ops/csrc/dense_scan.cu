@@ -1,41 +1,91 @@
-// Dense-domain linearizability scan for Hopper (sm_90a).
+// Dense-domain linearizability scan for Hopper (sm_90a): one warp per
+// history, the frontier in registers.
 //
 // Replaces the TPU kernel jepsen_jgroups_raft_tpu/ops/pallas_scan.py
-// `_build_kernel` (the one `pl.pallas_call`, pallas_scan.py:291) and
-// computes the same function as its XLA twin ops/dense_scan.py
-// `dense_step_parts`: for each history, scan the packed event stream
-// over a dense frontier F[2^W, S] (bit s of F[m] = "some linearization
-// of exactly the ops in window mask m ends in state id s") and report
-// whether every FORCE left a survivor.
+// `_build_kernel` (pallas_scan.py:102, the one `pl.pallas_call` at
+// pallas_scan.py:291) and computes the same function as its XLA twin
+// ops/dense_scan.py `dense_step_parts`: for each history, scan the
+// packed event stream over a dense frontier F[2^W, S] (bit s of F[m] =
+// "some linearization of exactly the ops in window mask m ends in state
+// id s") and report whether every FORCE left a survivor.
 //
-// Design. One thread block per history; the TPU's sequential grid
-// becomes a loop over the history's event rows inside the block. The
-// block keeps its whole state in shared memory:
-//   F[1 << W]  uint16  the frontier, one S-bit word per mask (2 KiB at
-//                      the W = 10 cap; S <= 16 states fit a word)
-//   T[W][S]    uint16  per slot, per source state: the S-bit set of
-//                      next states, rebuilt when the slot latches an op
-//   vals[S]    int32   the history's id -> value table
-// Per row: OPEN payloads rebuild T rows (one thread per (payload,
-// state)); a FORCE after an OPEN runs the closure to fixpoint, each
-// pass over an open slot w handing the threads the 2^(W-1) masks m
-// without bit w (F[m | bit] |= OR of T[w][s] over s in F[m]: reads and
-// writes touch disjoint halves, so no atomics), `__syncthreads_or`
-// carrying the change flag; then the FORCE kills configurations
-// without bit w and shifts the bit-w half down. The block stops at the
-// history's real length or as soon as `ok` is false (a dead frontier
-// stays dead). None of the TPU layout workarounds carry over: no lane
-// rows, no identity-mask column moves, no block-diagonal matmuls.
+// What bounds it on this card: serial depth. A north-star history is
+// ~775 macro rows, ~1275 closure sweeps and ~7100 slot passes in the
+// reference's schedule, each step depending on the one before; the data
+// it moves (a few hundred KB per history) and the bit operations it does
+// take a small fraction of the time the chain takes. So the design
+// shortens every link of the chain and runs as many chains side by side
+// as the batch holds:
 //
-// What bounds it on this card: serial depth, not bytes or operations.
-// A north-star history is ~1000 macro rows, each FORCE with up to
-// W + 1 closure sweeps of W barrier-separated passes, so a block walks
-// thousands of dependent, barrier-bound steps while moving a few
-// hundred KB. The design answers with parallelism across histories
-// (one small block each, hundreds resident per GPU at 32-256 threads
-// and ~2.4 KB of shared memory) and by keeping every step in shared
-// memory and registers; the frontier never leaves the SM. Bits, not
-// matmuls: at S <= 16 a tensor-core product has nothing to chew on.
+// * One warp per history, four histories per block. The event loop has
+//   no block barrier: every branch in it is warp-uniform (all 32 lanes
+//   read the same row), the closure's change flag and the FORCE's
+//   `alive` come from `__any_sync`, and a warp whose history ended or
+//   whose frontier died exits on its own. Nothing in a block is shared
+//   between warps, so no warp waits on, or reads memory of, another. A
+//   1000-history batch is ~250 blocks: resident on the 132 SMs at once.
+//
+// * The frontier lives in registers. S is padded to a field of FS = 2^LF
+//   bits (FS >= S; states >= S are never set), so frontier bit
+//   b = m * FS + s spans 2^(W+LF) <= 8192 bits, at most 8 words a lane:
+//     b[0..4]    bit in a 32-bit word  (a field of FS bits per mask)
+//     b[5..9]    lane
+//     b[10..12]  word index in the lane's register array
+//   Mask bit w sits at b[LF + w]. A closure pass or FORCE over slot w is
+//   therefore, fixed at compile time for each (W, LF, w): a shift and
+//   mask inside each word (in-word field bits), a `__shfl_xor_sync`
+//   between lanes (lane bits), or a move between registers (word bits).
+//   The kernel is a template on (W, LF), dispatched once at launch, so
+//   every register array is indexed by constants (ptxas -v: no stack
+//   frame, no spills). Small frontiers leave lanes or words empty: below
+//   1024 bits only lanes [0, 2^(W+LF-5)) hold bits (one word each), below
+//   32 bits only the low 2^(W+LF) bits of lane 0's word. The empty lanes
+//   run the same code on zero words; every lane pass pairs lanes inside
+//   the occupied range, and every transform maps a zero field to zero,
+//   so they stay zero and all 32 lanes stay converged for the shuffles.
+//
+// * A transition is applied without a per-bit loop. The rows T[w][s]
+//   (the S-bit set of next states of state s under slot w's op) are
+//   rebuilt at OPEN, one (payload, state) pair per lane, and kept per
+//   warp in shared memory, read as broadcasts (a copy in registers
+//   measured no faster). The lookup from a source field to the OR of its
+//   rows is bit-plane arithmetic on a whole word: ((x >> s) & unit) *
+//   T[w][s] puts T[w][s] into every field whose bit s is set (fields are
+//   FS bits apart and T < 2^FS, so the products never overlap), and the
+//   OR over the FS planes maps all 32 / FS fields of the word at once:
+//   4 * FS integer operations per word, no table, no branch on the data.
+//
+// * A closure sweep has no dependent chain across slots. Each sweep ORs
+//   in every open slot's image of the frontier it starts from, all W
+//   images computed from the same words, so their instructions are
+//   independent and issue back to back; a closed slot's image is masked
+//   to zero rather than branched around. One `__any_sync` per sweep
+//   decides whether another is needed.
+//
+// * Rows are staged ahead. Each warp owns a ring of kRingDepth rows in
+//   shared memory, filled with `cp.async` (lane i copies int i of a
+//   row): the copy of row e + kRingDepth - 1 is in flight while row e is
+//   processed, so a row's first read waits on device memory only at the
+//   start of the stream.
+//
+// * Window groups overlap: checker/schedule.run_dense_groups launches
+//   each group on its own stream, so the check's kernel span approaches
+//   the slowest group rather than the sum.
+//
+// Same function as the reference, bit for bit. The reference sweeps the
+// slots in order, each pass seeing the passes before it; here a sweep
+// applies every slot to the same frontier. Both stop at the least
+// fixpoint, within the reference's bound of W + 1 sweeps
+// (ops/kernel_ir.py:169-187): every productive sweep, in either order,
+// extends every pending chain of transitions by at least one op, and a
+// chain holds at most W ops (each sets a distinct mask bit), so W sweeps
+// reach the fixpoint and the next only confirms it; the verdict depends
+// only on the fixpoint. A closure runs where the reference's does, at a
+// FORCE after any OPEN since the last one. Slots are clipped to [0, W)
+// at FORCE; padding rows are no-ops; duplicate ids in a padded val_of
+// all light up; payloads that land in one slot in one macro row OR their
+// rows (the plain version's `any` over payloads); the scan stops at
+// n_events or at the first dead FORCE (a dead frontier stays dead).
 //
 // Integers: NIL = -2^31 only ever meets `==`; nothing negates or
 // subtracts a value.
@@ -49,6 +99,10 @@ constexpr int kMaxSlots = 10;   // DENSE_MAX_SLOTS
 constexpr int kMaxStates = 16;  // DENSE_MAX_STATES
 constexpr int kMaxCells = 8192; // DENSE_MAX_CELLS = 2^W * S
 constexpr int kMaxOpens = 16;   // MACRO_MAX_OPENS
+constexpr int kRowPitch = 3 + 4 * kMaxOpens + 1;  // ring row stride, ints
+constexpr int kRingDepth = 8;   // rows staged per warp
+constexpr int kWarpsPerBlock = 4;
+constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int32_t kEvOpen = 1;
 constexpr int32_t kEvForce = 2;
@@ -76,148 +130,359 @@ __device__ __forceinline__ void model_step(int model, int32_t state,
   }
 }
 
-// Mask number i of the 2^(W-1) masks without bit w: insert a 0 at w.
-__device__ __forceinline__ int mask_without(int i, int w) {
-  const int low = i & ((1 << w) - 1);
-  return ((i >> w) << (w + 1)) | low;
+// Bits of a word whose position has bit p clear (p < 5): the fields of
+// the masks without the in-word mask bit at p.
+__host__ __device__ constexpr uint32_t low_half(int p) {
+  return p == 0 ? 0x55555555u
+       : p == 1 ? 0x33333333u
+       : p == 2 ? 0x0f0f0f0fu
+       : p == 3 ? 0x00ff00ffu
+                : 0x0000ffffu;
 }
 
-__global__ void dense_scan_kernel(const int32_t* __restrict__ events,
-                                  const int32_t* __restrict__ val_of,
-                                  const int32_t* __restrict__ n_events,
-                                  uint8_t* __restrict__ ok_out, int E, int R,
-                                  int macro_p, int W, int S, int model) {
-  __shared__ uint16_t F[1 << kMaxSlots];
-  __shared__ uint16_t T[kMaxSlots][kMaxStates];
-  __shared__ int32_t vals[kMaxStates];
+// Bit 0 of every FS-bit field of a word.
+__host__ __device__ constexpr uint32_t field_unit(int lf) {
+  return lf == 0 ? 0xffffffffu
+       : lf == 1 ? 0x55555555u
+       : lf == 2 ? 0x11111111u
+       : lf == 3 ? 0x01010101u
+                 : 0x00010001u;
+}
 
-  const int h = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int M = 1 << W;
-  const int half = M >> 1;
+template <int W, int LF>
+struct Layout {
+  static constexpr int kBits = W + LF;  // log2 of the frontier's bits
+  static constexpr int kWords = kBits > 10 ? 1 << (kBits - 10) : 1;
+  static constexpr int kFS = 1 << LF;
+};
+
+// Every field of x mapped through slot w's rows t[0..FS).
+template <int LF>
+__device__ __forceinline__ uint32_t apply_rows(uint32_t x,
+                                               const uint32_t* t) {
+  constexpr uint32_t unit = field_unit(LF);
+  uint32_t y = 0;
+#pragma unroll
+  for (int s = 0; s < (1 << LF); ++s) y |= ((x >> s) & unit) * t[s];
+  return y;
+}
+
+// Slot w's image in a closure sweep: T_w(F[m]) for every mask m without
+// bit w, placed at m | bit_w and OR-ed into `add`. `on` is all ones when
+// slot w is open and zero when it is closed (a closed slot adds nothing;
+// its rows may be stale).
+template <int W, int LF, int w>
+__device__ __forceinline__ void slot_image(
+    const uint32_t (&F)[Layout<W, LF>::kWords],
+    uint32_t (&add)[Layout<W, LF>::kWords], const uint32_t* t, uint32_t on,
+    int lane) {
+  constexpr int p = LF + w;
+  constexpr int kWords = Layout<W, LF>::kWords;
+  if constexpr (p < 5) {
+    constexpr uint32_t lo = low_half(p);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      add[j] |= (apply_rows<LF>(F[j] & lo, t) << (1 << p)) & on;
+  } else if constexpr (p < 10) {
+    constexpr int k = p - 5;
+    const uint32_t dst = ((lane >> k) & 1) ? on : 0u;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      add[j] |= __shfl_xor_sync(kFull, apply_rows<LF>(F[j], t), 1 << k) & dst;
+  } else {
+    constexpr int k = p - 10;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      if (!((j >> k) & 1)) add[j | (1 << k)] |= apply_rows<LF>(F[j], t) & on;
+  }
+}
+
+// The images of every slot, all from the same frontier F.
+template <int W, int LF, int w = 0>
+__device__ __forceinline__ void sweep_images(
+    const uint32_t (&F)[Layout<W, LF>::kWords],
+    uint32_t (&add)[Layout<W, LF>::kWords],
+    uint32_t (*T)[Layout<W, LF>::kFS], unsigned open, int lane) {
+  if constexpr (w < W) {
+    slot_image<W, LF, w>(F, add, T[w], ((open >> w) & 1u) ? kFull : 0u,
+                         lane);
+    sweep_images<W, LF, w + 1>(F, add, T, open, lane);
+  }
+}
+
+// Closure to fixpoint: each sweep adds every open slot's image of the
+// frontier it starts from, until a sweep adds nothing, in at most W + 1
+// sweeps (the reference's bound).
+template <int W, int LF>
+__device__ __forceinline__ void closure(
+    uint32_t (&F)[Layout<W, LF>::kWords],
+    uint32_t (*T)[Layout<W, LF>::kFS], unsigned open, int lane) {
+  constexpr int kWords = Layout<W, LF>::kWords;
+  for (int it = 0; it <= W; ++it) {
+    uint32_t add[kWords];
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) add[j] = 0u;
+    sweep_images<W, LF>(F, add, T, open, lane);
+    uint32_t fresh = 0;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      fresh |= add[j] & ~F[j];
+      F[j] |= add[j];
+    }
+    if (!__any_sync(kFull, fresh != 0)) break;
+  }
+}
+
+// FORCE over a register-word mask bit b[10 + k]: words j without the bit
+// take words j | bit, which are cleared. Returns this lane's survivors.
+template <int W, int LF, int k>
+__device__ __forceinline__ uint32_t force_words(
+    uint32_t (&F)[Layout<W, LF>::kWords]) {
+  uint32_t live = 0;
+#pragma unroll
+  for (int j = 0; j < Layout<W, LF>::kWords; ++j) {
+    if (!((j >> k) & 1)) {
+      live |= F[j | (1 << k)];
+      F[j] = F[j | (1 << k)];
+      F[j | (1 << k)] = 0;
+    }
+  }
+  return live;
+}
+
+// FORCE slot w (already clipped to [0, W)): a survivor must hold bit w;
+// the bit-w half moves down onto the other and is cleared. In-word and
+// lane bits take the slot as a runtime shift or shuffle mask; register
+// words branch (warp-uniformly) to their compile-time move. Returns
+// "some survivor" (warp-wide).
+template <int W, int LF>
+__device__ __forceinline__ bool force(uint32_t (&F)[Layout<W, LF>::kWords],
+                                      int w, int lane) {
+  constexpr int kWords = Layout<W, LF>::kWords;
+  const int p = LF + w;
+  uint32_t live = 0;
+  if (p < 5) {
+    const uint32_t lo = p == 0 ? low_half(0) : p == 1 ? low_half(1)
+                      : p == 2 ? low_half(2) : p == 3 ? low_half(3)
+                                                      : low_half(4);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      live |= F[j] & ~lo;
+      F[j] = (F[j] >> (1 << p)) & lo;
+    }
+  } else if (p < 10) {
+    const int x = 1 << (p - 5);
+    const bool has = lane & x;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      live |= has ? F[j] : 0u;
+      const uint32_t up = __shfl_xor_sync(kFull, F[j], x);
+      F[j] = has ? 0u : up;
+    }
+  } else if constexpr (kWords > 1) {
+    if (p == 10) live = force_words<W, LF, 0>(F);
+    if constexpr (kWords > 2) {
+      if (p == 11) live = force_words<W, LF, 1>(F);
+    }
+    if constexpr (kWords > 4) {
+      if (p == 12) live = force_words<W, LF, 2>(F);
+    }
+  }
+  return __any_sync(kFull, live != 0);
+}
+
+// Transition row of source state s under op (f, a, b): every state id
+// s' < S whose value is the step's result (duplicates in the padded
+// table all light up), or nothing when illegal or s >= S.
+template <int LF>
+__device__ __forceinline__ uint32_t transition_row(
+    const int32_t (&vals)[1 << LF], int S, int s, int32_t f, int32_t a,
+    int32_t b, int model) {
+  int32_t v = vals[0];
+#pragma unroll
+  for (int s2 = 1; s2 < (1 << LF); ++s2) v = (s == s2) ? vals[s2] : v;
+  int32_t next;
+  bool legal;
+  model_step(model, v, f, a, b, &next, &legal);
+  uint32_t bits = 0;
+#pragma unroll
+  for (int s2 = 0; s2 < (1 << LF); ++s2)
+    bits |= (s2 < S && vals[s2] == next) ? 1u << s2 : 0u;
+  return (legal && s < S) ? bits : 0u;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int W, int LF>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
+    dense_scan_warp(const int32_t* __restrict__ events,
+                    const int32_t* __restrict__ val_of,
+                    const int32_t* __restrict__ n_events,
+                    uint8_t* __restrict__ ok_out, int B, int E, int R,
+                    int macro_p, int S, int model) {
+  constexpr int kFS = Layout<W, LF>::kFS;
+  constexpr int kWords = Layout<W, LF>::kWords;
+  __shared__ int32_t ring_all[kWarpsPerBlock][kRingDepth][kRowPitch];
+  __shared__ uint32_t T_all[kWarpsPerBlock][W][kFS];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.x * kWarpsPerBlock + warp;
+  if (h >= B) return;  // warp-uniform; no other warp waits on this one
+  int32_t (*ring)[kRowPitch] = ring_all[warp];
+  uint32_t (*T)[kFS] = T_all[warp];
   const int32_t* ev = events + static_cast<size_t>(h) * E * R;
   const int n_rows = min(max(n_events[h], 0), E);
 
-  for (int m = tid; m < M; m += nt) F[m] = (m == 0) ? 1 : 0;
-  if (tid < S) vals[tid] = val_of[static_cast<size_t>(h) * S + tid];
-  __syncthreads();
-
-  // Transition row of slot w for source state s under op (f, a, b):
-  // every state id s' whose value is the step's result (duplicates in
-  // the padded table all light up), or nothing when illegal.
-  auto build_row = [&](int w, int s, int32_t f, int32_t a, int32_t b) {
-    int32_t next;
-    bool legal;
-    model_step(model, vals[s], f, a, b, &next, &legal);
-    unsigned bits = 0;
-    if (legal) {
-      for (int s2 = 0; s2 < S; ++s2) bits |= (vals[s2] == next) ? 1u << s2 : 0u;
+  // Copy row e into its ring slot (nothing past the history's end) and
+  // close a cp.async group either way, so group counts stay uniform.
+  auto stage = [&](int e) {
+    if (e < n_rows) {
+      const int32_t* src = ev + static_cast<size_t>(e) * R;
+      int32_t* dst = ring[e % kRingDepth];
+      for (int i = lane; i < R; i += 32) cp_async4(dst + i, src + i);
     }
-    T[w][s] = static_cast<uint16_t>(bits);
+    cp_async_commit();
   };
+#pragma unroll
+  for (int e = 0; e < kRingDepth - 1; ++e) stage(e);
 
-  // Every thread keeps the same copies of the per-history scalars: they
-  // follow from the row data and from barrier results alone.
-  unsigned slot_open = 0;
-  bool dirty = false;
+  int32_t vals[kFS];
+#pragma unroll
+  for (int s = 0; s < kFS; ++s)
+    vals[s] = s < S ? __ldg(val_of + static_cast<size_t>(h) * S + s) : 0;
+  for (int i = lane; i < W * kFS; i += 32) (&T[0][0])[i] = 0u;
+  uint32_t F[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) F[j] = 0u;
+  if (lane == 0) F[0] = 1u;  // mask 0, state id 0
+  __syncwarp();
+
+  unsigned open = 0;   // slots holding a latched op
+  bool dirty = false;  // an OPEN since the last FORCE: a closure is due
   bool ok = true;
+  const int base = macro_p ? 3 : 1;  // first payload (slot, f, a, b)
+  for (int e = 0; e < n_rows; ++e) {
+    stage(e + kRingDepth - 1);
+    cp_async_wait<kRingDepth - 1>();  // this lane's copies of row e landed
+    __syncwarp();                     // ... and every other lane's
+    const int32_t* row = ring[e % kRingDepth];
+    const int32_t kind = row[0];
+    const int32_t fslot = row[1];
+    const int n = macro_p ? min(max(row[2], 0), macro_p) : (kind == kEvOpen);
 
-  for (int e = 0; e < n_rows && ok; ++e) {
-    const int32_t* row = ev + static_cast<size_t>(e) * R;
-    const int32_t kind = __ldg(row);
-    const int32_t fslot = __ldg(row + 1);
-
-    // ---- latch
-    bool latched = false;
-    if (macro_p == 0) {
-      if (kind == kEvOpen) {
-        dirty = true;
-        if (fslot >= 0 && fslot < W) {
-          if (tid < S) build_row(fslot, tid, __ldg(row + 2), __ldg(row + 3),
-                                 __ldg(row + 4));
-          slot_open |= 1u << fslot;
-          latched = true;
-        }
-      }
-    } else {
-      const int n = min(max(__ldg(row + 2), 0), macro_p);
-      dirty = dirty || n > 0;
-      for (int j = 0; j < n; ++j) {
-        const int32_t ps = __ldg(row + 3 + 4 * j);
-        if (ps >= 0 && ps < W) slot_open |= 1u << ps;
-      }
-      for (int i = tid; i < n * S; i += nt) {
-        const int j = i / S;
-        const int32_t* pay = row + 3 + 4 * j;
-        const int32_t ps = __ldg(pay);
-        if (ps >= 0 && ps < W)
-          build_row(ps, i - j * S, __ldg(pay + 1), __ldg(pay + 2),
-                    __ldg(pay + 3));
-      }
-      latched = n > 0;
-    }
-    if (latched) __syncthreads();
-    if (kind != kEvForce) continue;
-
-    // ---- closure to fixpoint (only when an OPEN came since the last
-    // FORCE: a closed frontier stays closed under FORCE). At most W + 1
-    // sweeps, the reference's loop bound; the fixpoint needs <= W.
-    if (dirty) {
-      for (int it = 0;; ++it) {
-        int changed = 0;
-        for (int w = 0; w < W; ++w) {
-          if (!((slot_open >> w) & 1u)) continue;  // closed: contributes 0
-          const int bit = 1 << w;
-          for (int i = tid; i < half; i += nt) {
-            const int m = mask_without(i, w);
-            unsigned src = F[m];
-            unsigned acc = 0;
-            while (src) {
-              const int s = __ffs(src) - 1;
-              src &= src - 1;
-              acc |= T[w][s];
-            }
-            const unsigned dst = F[m | bit];
-            if (acc & ~dst) {
-              F[m | bit] = static_cast<uint16_t>(dst | acc);
-              changed = 1;
-            }
+    // ---- latch: lane j reads payload j's slot. One (payload, state)
+    // per lane writes the updated slots' T rows; payloads that share a
+    // slot (never from the packer, but legal input) OR theirs into it.
+    if (n > 0) {
+      dirty = true;
+      const int ps = lane < n ? row[base + 4 * lane] : -1;
+      const bool valid = ps >= 0 && ps < W;
+      const unsigned upd = __reduce_or_sync(kFull, valid ? 1u << ps : 0u);
+      if (upd) {
+        open |= upd;
+        const bool overlap =
+            __popc(upd) != __popc(__ballot_sync(kFull, valid));
+        const int tasks = n << LF;
+        if (overlap) {
+          for (int i = lane; i < tasks; i += 32) {
+            const int q = row[base + 4 * (i >> LF)];
+            if (q >= 0 && q < W) T[q][i & (kFS - 1)] = 0u;
           }
-          __syncthreads();
+          __syncwarp();
         }
-        if (!__syncthreads_or(changed) || it >= W) break;
+        for (int i = lane; i < tasks; i += 32) {
+          const int32_t* pay = row + base + 4 * (i >> LF);
+          const int q = pay[0];
+          if (q < 0 || q >= W) continue;
+          const uint32_t bits = transition_row<LF>(
+              vals, S, i & (kFS - 1), pay[1], pay[2], pay[3], model);
+          if (overlap)
+            atomicOr(&T[q][i & (kFS - 1)], bits);
+          else
+            T[q][i & (kFS - 1)] = bits;
+        }
+        __syncwarp();
       }
-      dirty = false;
     }
 
-    // ---- FORCE slot w: a survivor must hold bit w; recycle the bit.
-    const int w = min(max(fslot, 0), W - 1);
-    const int bit = 1 << w;
-    int local = 0;
-    for (int i = tid; i < half; i += nt) local |= F[mask_without(i, w) | bit];
-    const bool alive = __syncthreads_or(local) != 0;
-    for (int i = tid; i < half; i += nt) {
-      const int m = mask_without(i, w);
-      F[m] = F[m | bit];
-      F[m | bit] = 0;
+    if (kind == kEvForce) {
+      // ---- closure to fixpoint, only when an OPEN came since the last
+      // FORCE (the reference's rule)
+      if (dirty) {
+        closure<W, LF>(F, T, open, lane);
+        dirty = false;
+      }
+      // ---- FORCE: survivors hold the slot's bit; recycle the bit
+      ok = force<W, LF>(F, min(max(fslot, 0), W - 1), lane);
+      if (fslot >= 0 && fslot < W) open &= ~(1u << fslot);
     }
-    __syncthreads();
-    ok = ok && alive;
-    if (fslot >= 0 && fslot < W) slot_open &= ~(1u << fslot);
+    __syncwarp();  // every lane is done with this ring slot
+    if (!ok) break;
   }
-  if (tid == 0) ok_out[h] = ok ? 1 : 0;
+  cp_async_wait<0>();
+  if (lane == 0) ok_out[h] = ok ? 1 : 0;
+}
+
+using KernelFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
+                          uint8_t*, int, int, int, int, int, int);
+
+template <int W>
+KernelFn pick_field(int lf) {
+  switch (lf) {
+    case 0: return dense_scan_warp<W, 0>;
+    case 1: return dense_scan_warp<W, 1>;
+    case 2: return dense_scan_warp<W, 2>;
+    case 3: return dense_scan_warp<W, 3>;
+    case 4:
+      if constexpr (W + 4 <= 13) return dense_scan_warp<W, 4>;
+      return nullptr;
+    default: return nullptr;
+  }
+}
+
+KernelFn pick(int W, int lf) {
+  switch (W) {
+    case 1: return pick_field<1>(lf);
+    case 2: return pick_field<2>(lf);
+    case 3: return pick_field<3>(lf);
+    case 4: return pick_field<4>(lf);
+    case 5: return pick_field<5>(lf);
+    case 6: return pick_field<6>(lf);
+    case 7: return pick_field<7>(lf);
+    case 8: return pick_field<8>(lf);
+    case 9: return pick_field<9>(lf);
+    case 10: return pick_field<10>(lf);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// Launch the scan over B histories on `stream`; returns 0, a CUDA error
-// code from the launch, or a negative code for refused arguments (see
-// dense_scan_error_string). Does not synchronise.
+// Launch the scan over B histories on `stream`, one warp per history and
+// kWarpsPerBlock histories per block, with the kernel instantiated for
+// (W, field_log2); field_log2 is the layout's LF (ops/dense_scan.py
+// `dense_layout`). Returns 0, a CUDA error code from the launch, or a
+// negative code for refused arguments (see dense_scan_error_string).
+// Does not synchronise.
 extern "C" int dense_scan_launch(const int32_t* events, const int32_t* val_of,
                                  const int32_t* n_events, uint8_t* ok, int B,
                                  int E, int R, int macro_p, int W, int S,
-                                 int model, int threads, int device,
+                                 int field_log2, int model, int device,
                                  void* stream) {
   if (B < 0 || E < 0) return -1;
   if (W < 1 || W > kMaxSlots || S < 1 || S > kMaxStates ||
@@ -226,12 +491,18 @@ extern "C" int dense_scan_launch(const int32_t* events, const int32_t* val_of,
   if (macro_p < 0 || macro_p > kMaxOpens) return -3;
   if (R != (macro_p ? 3 + 4 * macro_p : 5)) return -4;
   if (model != kModelCasRegister) return -5;
-  if (threads < 32 || threads > 1024 || threads % 32 != 0) return -6;
+  if (field_log2 < 0 || field_log2 > 4 || (1 << field_log2) < S ||
+      (field_log2 > 0 && (1 << (field_log2 - 1)) >= S))
+    return -6;
+  const KernelFn kernel = pick(W, field_log2);
+  if (kernel == nullptr) return -6;
   if (B == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dense_scan_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      events, val_of, n_events, ok, E, R, macro_p, W, S, model);
+  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  kernel<<<blocks, kWarpsPerBlock * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(events, val_of, n_events, ok,
+                                                B, E, R, macro_p, S, model);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -242,7 +513,7 @@ extern "C" const char* dense_scan_error_string(int code) {
     case -3: return "macro_p beyond MACRO_MAX_OPENS";
     case -4: return "row width does not match macro_p";
     case -5: return "model has no device step";
-    case -6: return "threads per block not a multiple of 32 in [32, 1024]";
+    case -6: return "field_log2 is not the layout's field width for S";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

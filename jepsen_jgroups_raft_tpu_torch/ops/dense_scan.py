@@ -224,6 +224,30 @@ def dense_plans_grouped(model, encs: Sequence[EncodedHistory]):
 # ----------------------------------------------------------- plain version
 
 
+def dense_sweep_fn(T, slot_open):
+    """One closure sweep of the plain version, as a function F -> F'.
+
+    T [B, W, S, S'] bool transition rows, slot_open [B, W] bool; F [B,
+    2^W, S] bool. Slots w = 0 .. W-1 in turn: every mask m without bit w
+    flows through open slot w's rows into m | bit w (closed slots
+    contribute nothing)."""
+    B, W, S = int(T.shape[0]), int(T.shape[1]), int(T.shape[2])
+    Te = (T & slot_open[:, :, None, None]).to(torch.float32)
+
+    def sweep(F):
+        M = int(F.shape[1])
+        for w in range(W):
+            Fb = F.view(B, M >> (w + 1), 2, 1 << w, S)
+            src = Fb[:, :, 0].reshape(B, -1, S).to(torch.float32)
+            contrib = (torch.bmm(src, Te[:, w]) > 0).view(
+                B, M >> (w + 1), 1 << w, S)
+            F = torch.stack([Fb[:, :, 0], Fb[:, :, 1] | contrib],
+                            dim=2).reshape(B, M, S)
+        return F
+
+    return sweep
+
+
 def dense_scan_plain(events, val_of, n_slots: int,
                      macro_p: Optional[int] = None, n_events=None,
                      model=None, stats: Optional[dict] = None):
@@ -266,26 +290,11 @@ def dense_scan_plain(events, val_of, n_slots: int,
         T = torch.where(upd[:, :, None, None], picked, T)
         return (F, T, slot_open | upd, ok, dirty | (n > 0))
 
-    def sweep_fn(T, slot_open):
-        Te = (T & slot_open[:, :, None, None]).to(torch.float32)
-
-        def sweep(F):
-            for w in range(W):
-                Fb = F.view(B, M >> (w + 1), 2, 1 << w, S)
-                src = Fb[:, :, 0].reshape(B, -1, S).to(torch.float32)
-                contrib = (torch.bmm(src, Te[:, w]) > 0).view(
-                    B, M >> (w + 1), 1 << w, S)
-                F = torch.stack([Fb[:, :, 0], Fb[:, :, 1] | contrib],
-                                dim=2).reshape(B, M, S)
-            return F
-
-        return sweep
-
     def force_tail(carry, is_force, slot):
         F, T, slot_open, ok, dirty = carry
         active = is_force & dirty
         if bool(active.any()):
-            F, sweeps = closure_fixpoint(W, sweep_fn(T, slot_open), F,
+            F, sweeps = closure_fixpoint(W, dense_sweep_fn(T, slot_open), F,
                                          active)
             if stats is not None:
                 live = ok.to(torch.int64)
@@ -336,10 +345,60 @@ def launch_counts() -> dict:
     return dict(LAUNCHES)
 
 
-def _threads_for(W: int) -> int:
-    """Threads per history block: one per configuration pair of a
-    closure pass (2^(W-1)), at least a warp, at most 256."""
-    return min(256, max(32, 1 << (W - 1)))
+@dataclass(frozen=True)
+class DenseLayout:
+    """Where the CUDA kernel (one warp per history) keeps frontier bit
+    (m, s) of F[2^W, S] in its registers.
+
+    S is padded to a field of 2^field_log2 bits, so bit b = m·2^LF + s
+    spans 2^(W+LF) ≤ 8192 bits: b[0..4] is the bit in a 32-bit word,
+    b[5..9] the lane, b[10..12] the word in the lane's register array.
+    Mask bit w sits at b[LF + w], which makes a closure pass or FORCE
+    over slot w one of three kinds (`slot_pass`). The wrapper launches
+    the kernel instantiated for (n_slots, field_log2)."""
+
+    n_slots: int
+    field_log2: int
+
+    @property
+    def bits_log2(self) -> int:
+        return self.n_slots + self.field_log2
+
+    @property
+    def words(self) -> int:
+        """32-bit frontier words per lane."""
+        return 1 << max(self.bits_log2 - 10, 0)
+
+    @property
+    def lanes(self) -> int:
+        """Lanes that hold frontier bits; the others hold zero words."""
+        return 1 << min(max(self.bits_log2 - 5, 0), 5)
+
+    def locate(self, m: int, s: int = 0):
+        """(lane, word, bit) of frontier bit (m, s)."""
+        b = (m << self.field_log2) | s
+        return (b >> 5) & 31, b >> 10, b & 31
+
+    def slot_pass(self, w: int):
+        """How mask bit w is reached: ("field", d) — a shift by d bits
+        inside each word; ("lane", x) — `__shfl_xor_sync` with lane mask
+        x; ("word", x) — a move between register words j and j ^ x."""
+        p = self.field_log2 + w
+        if p < 5:
+            return "field", 1 << p
+        if p < 10:
+            return "lane", 1 << (p - 5)
+        return "word", 1 << (p - 10)
+
+
+def dense_layout(n_slots: int, n_states: int) -> DenseLayout:
+    """The kernel's frontier layout for window W and domain table size S
+    (the field is S rounded up to a power of two)."""
+    W, S = int(n_slots), int(n_states)
+    if not (1 <= W and 1 <= S and _fits(W, S)):
+        raise ValueError(f"dense_scan: (W={W}, S={S}) beyond the dense "
+                         f"caps")
+    return DenseLayout(W, (S - 1).bit_length())
 
 
 def _check_int32(name, t, dims, device):
@@ -363,14 +422,33 @@ def dense_scan(events, val_of, n_slots: int,
     rows, macro_p=P); val_of [B, S] int32; n_events [B] int32 real row
     counts (default: all E rows). A CPU tensor takes `dense_scan_plain`;
     a CUDA tensor launches the hand-written kernel
-    (ops/csrc/dense_scan.cu, one block per history) on the current
-    stream without synchronising, or raises."""
+    (ops/csrc/dense_scan.cu, one warp per history, instantiated for
+    `dense_layout(W, S)`) on the current stream without synchronising,
+    or raises."""
     if model is None:
         from ..models.register import CasRegister
         model = CasRegister()
     if events.device.type == "cpu":
         return dense_scan_plain(events, val_of, n_slots, macro_p, n_events,
                                 model)
+    ok, launch = dense_scan_launcher(events, val_of, n_slots, macro_p,
+                                     n_events, model)
+    launch(torch.cuda.current_stream(events.device))
+    return ok
+
+
+def dense_scan_launcher(events, val_of, n_slots: int,
+                        macro_p: Optional[int] = None, n_events=None,
+                        model=None):
+    """Everything `dense_scan` does on the card before the launch: check
+    the CUDA tensors, allocate ok [B] bool, build or load the kernel.
+    Returns (ok, launch); launch(stream) launches the kernel on that
+    `torch.cuda.Stream` without synchronising and counts it, or raises.
+    Splitting the two lets `run_dense_groups` launch several window
+    groups back to back."""
+    if model is None:
+        from ..models.register import CasRegister
+        model = CasRegister()
     if events.device.type != "cuda":
         raise ValueError(f"dense_scan: unsupported device {events.device}")
     dev = events.device
@@ -384,9 +462,7 @@ def dense_scan(events, val_of, n_slots: int,
                          f"macro_p={macro_p}")
     if val_of.shape[0] != B:
         raise ValueError("dense_scan: val_of rows differ from events rows")
-    if not (1 <= W and 1 <= S and _fits(W, S)):
-        raise ValueError(f"dense_scan: (W={W}, S={S}) beyond the dense "
-                         f"caps")
+    layout = dense_layout(W, S)
     if n_events is None:
         n_events = torch.full((B,), E, dtype=torch.int32, device=dev)
     _check_int32("n_events", n_events, 1, dev)
@@ -397,18 +473,23 @@ def dense_scan(events, val_of, n_slots: int,
         raise ValueError(f"dense_scan: model {type(model).__name__} has no "
                          f"device step in the CUDA kernel")
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
-    if B == 0:
-        return ok
     lib = _build.load("dense_scan")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dense_scan_launch(
-        ctypes.c_void_p(events.data_ptr()), ctypes.c_void_p(val_of.data_ptr()),
-        ctypes.c_void_p(n_events.data_ptr()), ctypes.c_void_p(ok.data_ptr()),
-        B, E, R, P, W, S, int(code), _threads_for(W),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"dense_scan kernel launch failed: "
-                           f"{_build.error_string('dense_scan', rc)}")
-    LAUNCHES["dense_scan"] += 1
-    return ok
+    # the closure holds the tensors, not only their addresses: a default
+    # n_events made here must outlive the launch
+    tensors = (events, val_of, n_events, ok)
+    sizes = (B, E, R, P, W, S, layout.field_log2, int(code),
+             dev.index if dev.index is not None
+             else torch.cuda.current_device())
+
+    def launch(stream) -> None:
+        if B == 0:
+            return
+        rc = lib.dense_scan_launch(
+            *(ctypes.c_void_p(t.data_ptr()) for t in tensors), *sizes,
+            ctypes.c_void_p(stream.cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"dense_scan kernel launch failed: "
+                               f"{_build.error_string('dense_scan', rc)}")
+        LAUNCHES["dense_scan"] += 1
+
+    return ok, launch

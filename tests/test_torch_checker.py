@@ -18,9 +18,13 @@ from jepsen_jgroups_raft_tpu_torch.checker.base import UNKNOWN
 from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
     LinearizableChecker, check_encoded, check_histories)
 from jepsen_jgroups_raft_tpu_torch.history.ops import History
+from jepsen_jgroups_raft_tpu_torch.history.packing import (encode_history,
+                                                           pack_batch,
+                                                           pack_macro_batch)
 from jepsen_jgroups_raft_tpu_torch.history.synth import (build_history,
                                                          random_valid_history)
 from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
+from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import dense_plan
 
 torch.set_num_threads(1)
 
@@ -129,3 +133,44 @@ def test_linearizable_checker_protocol():
     assert r["valid?"] is False and "failing-op-index" in r
     # plain lists of op dicts are accepted too
     assert ck.check({}, good.to_dicts())["valid?"] is True
+
+
+def test_run_dense_groups_mixed_groups_match_reference():
+    """Window groups that differ in W, S, row format and length, launched
+    together through run_dense_groups on the CPU, give the reference
+    checker's verdict for every history."""
+    rng = random.Random(11)
+    m = CasRegister()
+    launches, hists = [], []
+    for n_procs, crashes, vr, n_ops, macro in ((1, 0, 3, 30, False),
+                                               (3, 1, 7, 60, True),
+                                               (5, 3, 3, 90, True),
+                                               (4, 2, 15, 40, False)):
+        hs = []
+        for i in range(6):
+            h = random_valid_history(rng, "register", n_ops=n_ops,
+                                     n_procs=n_procs, crash_p=0.4,
+                                     max_crashes=crashes, value_range=vr)
+            ops = list(h)
+            reads = [j for j, op in enumerate(ops) if op.type == "ok"
+                     and op.f == "read" and op.value is not None]
+            if i % 2 and reads:
+                j = rng.choice(reads)
+                ops[j] = ops[j].replace(value=ops[j].value + 1)
+            hs.append(ops)
+        encs = [encode_history(h, m) for h in hs]
+        plan = dense_plan(m, encs)
+        batch = (pack_macro_batch if macro else pack_batch)(encs)
+        launches.append(schedule.DenseLaunch(
+            events=torch.from_numpy(batch["events"]),
+            val_of=torch.from_numpy(plan.val_of),
+            n_events=torch.from_numpy(batch["n_events"]),
+            n_slots=plan.n_slots, macro_p=batch.get("macro_p")))
+        hists += hs
+    assert len({ln.n_slots for ln in launches}) == len(launches)
+    run = schedule.run_dense_groups(launches, m)
+    assert run.kernel_ms is None and run.span_ms is None  # CPU: untimed
+    ours = [bool(v) for ok in run.ok for v in ok]
+    theirs = [r["valid?"] for r in ref_check(hists, RefReg())]
+    assert ours == theirs
+    assert True in ours and False in ours

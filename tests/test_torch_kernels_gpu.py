@@ -13,15 +13,19 @@ inputs (verdicts are booleans: tolerance is exact equality).
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
 from jepsen_jgroups_raft_tpu_torch.checker.linearizable import \
     check_histories
+from jepsen_jgroups_raft_tpu_torch.checker.schedule import (DenseLaunch,
+                                                            run_dense_groups)
 from jepsen_jgroups_raft_tpu_torch.history.packing import (encode_history,
                                                            pack_batch,
                                                            pack_macro_batch)
-from jepsen_jgroups_raft_tpu_torch.history.synth import random_valid_history
+from jepsen_jgroups_raft_tpu_torch.history.synth import (build_history,
+                                                         random_valid_history)
 from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
 from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
 
@@ -61,10 +65,11 @@ CONFIGS = {
 }
 
 
-def _inputs(name, macro, dev):
-    make, W, S = CONFIGS[name]
+def _group(hists, W, S, macro, dev):
+    """(events, val_of, n_events, macro_p, widest history window) of one
+    group launched at window W with a table of S ids."""
     m = CasRegister()
-    encs = [encode_history(h, m) for h in make()]
+    encs = [encode_history(h, m) for h in hists]
     plan = ds.dense_plan(m, encs)
     assert plan is not None and plan.n_slots <= W and plan.n_states <= S
     batch = pack_macro_batch(encs) if macro else pack_batch(encs)
@@ -72,9 +77,15 @@ def _inputs(name, macro, dev):
     if S > val_of.shape[1]:  # pad the table with its id-0 value
         val_of = torch.cat([val_of, val_of[:, :1].expand(
             -1, S - val_of.shape[1])], dim=1).contiguous()
-    return (torch.from_numpy(batch["events"]).to(dev), val_of.to(dev), W,
-            batch.get("macro_p"),
-            torch.from_numpy(batch["n_events"]).to(dev))
+    return (torch.from_numpy(batch["events"]).to(dev), val_of.to(dev),
+            torch.from_numpy(batch["n_events"]).to(dev),
+            batch.get("macro_p"), max(e.n_slots for e in encs))
+
+
+def _inputs(name, macro, dev):
+    make, W, S = CONFIGS[name]
+    ev, vo, ne, P, _ = _group(make(), W, S, macro, dev)
+    return ev, vo, W, P, ne
 
 
 @pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
@@ -89,6 +100,142 @@ def test_dense_scan_kernel_matches_plain(cuda, name, macro):
     assert ok.device.type == "cuda" and ok.dtype == torch.bool
     assert ok.cpu().tolist() == plain.cpu().tolist()
     assert 0 < int(plain.sum()) < len(plain)  # both polarities
+
+
+def _cap_histories(seed, W, S, n, n_ops):
+    """n histories whose windows reach up to W slots over at most S
+    values (up to 5 processes, the rest of the window from crashed ops),
+    odd ones with one read corrupted; S = 1: one process reading nil,
+    odd histories read a 1 once."""
+    rng = random.Random(seed)
+    if S == 1:
+        return [build_history([r for k in range(n_ops) for r in (
+            (0, "invoke", "read", None),
+            (0, "ok", "read", 1 if (i % 2 and k == n_ops // 2) else None))])
+            for i in range(n)]
+    n_procs, crashes = min(W, 5), max(W - 5, 0)
+    out = []
+    for i in range(n):
+        h = list(random_valid_history(rng, "register", n_ops=n_ops,
+                                      n_procs=n_procs,
+                                      crash_p=0.5 if crashes else 0.0,
+                                      max_crashes=crashes,
+                                      value_range=S - 1))
+        reads = [j for j, op in enumerate(h) if op.type == "ok"
+                 and op.f == "read" and op.value is not None]
+        if i % 2 and reads:
+            j = rng.choice(reads)
+            h[j] = h[j].replace(value=h[j].value + 1)
+        out.append(h)
+    return out
+
+
+#: every window at the largest domain the caps allow, and W = 1 / S = 1:
+#: a case on each in-word / lane / register-word boundary of the layout
+WINDOWS = [(W, min(16, 8192 >> W)) for W in range(1, 11)] + [(1, 1)]
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("W,S", WINDOWS,
+                         ids=[f"W{w}_S{s}" for w, s in WINDOWS])
+def test_dense_scan_kernel_every_window(cuda, W, S, macro):
+    ev, vo, ne, P, top = _group(_cap_histories(100 + W, W, S, 24, 150), W,
+                                S, macro, cuda)
+    assert top == W  # some history uses the top slot's layout kind
+    ok = ds.dense_scan(ev, vo, W, macro_p=P, n_events=ne)
+    torch.cuda.synchronize()
+    plain = ds.dense_scan_plain(ev, vo, W, macro_p=P, n_events=ne)
+    assert ok.cpu().tolist() == plain.cpu().tolist()
+    assert 0 < int(plain.sum()) < len(plain)  # both polarities
+
+
+def test_run_dense_groups_overlapped_matches_plain_per_group(cuda):
+    specs = [(2, 16, 30, 50, False), (6, 16, 24, 120, True),
+             (10, 8, 24, 150, True), (1, 1, 12, 30, True)]
+    launches = []
+    for k, (W, S, n, n_ops, macro) in enumerate(specs):
+        ev, vo, ne, P, _ = _group(_cap_histories(200 + k, W, S, n, n_ops),
+                                  W, S, macro, cuda)
+        launches.append(DenseLaunch(events=ev, val_of=vo, n_events=ne,
+                                    n_slots=W, macro_p=P))
+    before = ds.launch_counts()["dense_scan"]
+    run = run_dense_groups(launches, CasRegister(), timed=True)
+    assert ds.launch_counts()["dense_scan"] == before + len(launches)
+    assert len(run.kernel_ms) == len(launches) and run.span_ms > 0
+    for ln, ok in zip(launches, run.ok):
+        plain = ds.dense_scan_plain(ln.events, ln.val_of, ln.n_slots,
+                                    macro_p=ln.macro_p,
+                                    n_events=ln.n_events)
+        assert ok.tolist() == plain.cpu().tolist()
+
+
+def _random_rows(rng, B, E, W, P, vals):
+    """Event rows that stray from what the packer emits while keeping
+    most frontiers alive: mostly writes (always legal) on free slots and
+    FORCEs of open slots, but also slots out of range (ignored at OPEN,
+    clipped at FORCE), re-opened slots, payloads sharing a slot in one
+    macro row, n_opens past P or negative, padding and unknown kinds,
+    opcodes and values outside the model and the domain."""
+    R = 5 if P is None else 3 + 4 * P
+    ev = np.zeros((B, E, R), dtype=np.int32)
+    pool = np.concatenate([vals, [7, -5]])
+
+    def slot(among, p_among):
+        if among and rng.random() < p_among:
+            return int(rng.choice(among))
+        return int(rng.integers(-2, W + 2))
+
+    def op():
+        f = int(rng.choice([1, 0, 2, 3], p=[.85, .05, .05, .05]))
+        a = rng.choice(vals if rng.random() < 0.97 else pool)
+        return f, int(a), int(rng.choice(pool))
+
+    for h in range(B):
+        open_ = set()
+        for e in range(E):
+            free = [w for w in range(W) if w not in open_]
+            kind = int(rng.choice([0, 1, 2, 3], p=[.05, .45, .45, .05]))
+            if kind == 2 and P is None and not open_ and rng.random() < .9:
+                kind = 1
+            opens = []
+            if P is None and kind == 1:
+                opens = [(slot(free, 0.85), *op())]
+                ev[h, e, :5] = (1, *opens[0])
+            elif P is not None:
+                n = int(rng.integers(0, min(len(free), P) + 1))
+                opens = [(slot(free, 0.85), *op()) for _ in range(n)]
+                for j, pay in enumerate(opens):
+                    ev[h, e, 3 + 4 * j:7 + 4 * j] = pay
+                ev[h, e, 2] = n if rng.random() < 0.9 else \
+                    int(rng.choice([-1, P + 2]))
+            open_ |= {q for q, *_ in opens if 0 <= q < W}
+            ev[h, e, 0] = kind
+            if kind == 2:
+                f = slot(sorted(open_), 0.97)
+                ev[h, e, 1] = f
+                open_.discard(f)
+    return ev
+
+
+@pytest.mark.parametrize("P", [None, 3, 16], ids=["legacy", "P3", "P16"])
+@pytest.mark.parametrize("W,S", [(3, 3), (6, 16), (10, 8)],
+                         ids=["W3_S3", "W6_S16", "W10_S8"])
+def test_dense_scan_kernel_matches_plain_on_arbitrary_rows(cuda, W, S, P):
+    rng = np.random.default_rng(10 * W + S + (P or 0))
+    B, E = 96, 48
+    vals = np.resize(np.array([-2**31, 0, 1, 2, 3, 4, 5, 6], np.int32), S)
+    val_of = np.tile(vals, (B, 1))
+    ev = _random_rows(rng, B, E, W, P, vals)
+    n_events = rng.integers(0, E + 1, size=B, dtype=np.int32)
+    ev[np.arange(E)[None, :] >= n_events[:, None]] = 0  # EV_PAD past the end
+    ev = torch.from_numpy(ev).to(cuda)
+    vo = torch.from_numpy(val_of).to(cuda)
+    ne = torch.from_numpy(n_events).to(cuda)
+    ok = ds.dense_scan(ev, vo, W, macro_p=P, n_events=ne)
+    torch.cuda.synchronize()
+    plain = ds.dense_scan_plain(ev, vo, W, macro_p=P, n_events=ne)
+    assert ok.cpu().tolist() == plain.cpu().tolist()
+    assert 0 < int(plain.sum()) < B  # both polarities
 
 
 def test_dense_scan_rows_past_n_events_are_not_read(cuda):
