@@ -8,30 +8,47 @@ and PyTorch built for CUDA):
 
 Phases, each printing JSON lines; any failure exits non-zero:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
-  2. build   — nvcc builds every kernel of the path from this checkout's
-               sources (into build/torch_kernels/); ptxas's report, which
-               must show no spill bytes and no stack frame
-  3. kernel  — each kernel against its plain PyTorch version, bitwise, at
+  2. build   — nvcc builds every kernel of the paths (dense_scan,
+               mask_scan; one nvcc per source, started together) from this
+               checkout's sources into build/torch_kernels/; ptxas's report
+               for each, which must show no spill bytes and no stack frame
+  3. kernel  — dense_scan against its plain PyTorch version, bitwise, at
                every window W = 1..10 with the largest domain S the caps
                allow, at W = 1 / S = 1 and at the north-star shape, both
                row formats, valid and invalid histories in each case
-  4. groups  — window groups that differ in W, macro width P and length E,
-               launched together through `run_dense_groups` (one stream
-               each): every group's verdicts equal the plain version's on
-               that group alone
-  5. main    — the north-star check through the port's `check_histories`
+  4. mask_kernel — mask_scan against its plain version, bitwise: counter
+               and queue groups at every window W = 1..12, both row
+               formats, both polarities; a counter group that crosses
+               2^31; arbitrary rows (slots out of range, shared slots,
+               int32 edges) for the counter, the queue and a counter
+               started near 2^31
+  5. groups  — register domain groups and counter / queue mask groups that
+               differ in W, macro width P and length E, launched together
+               through `run_dense_groups` (one stream each): every group's
+               verdicts equal the plain version's on that group alone
+  6. main    — the north-star check through the port's `check_histories`
                on the card: 1000 CAS-register histories of 1000 ops (5
                processes, crash_p 0.05, at most 3 crashes, seed 20260729);
-               warm-up, then best of 3; all must be VALID, no row may take
-               the host tier, the kernel's launch count must be above 0.
-               Then the kernel breakdown: the overlapped span of the
-               groups, each group's time alone and its ns per row
-  6. profile — one check under torch.profiler: the device's busy share of
+               warm-up, then best of 3; all must be VALID, every row on the
+               dense tier, dense_scan's launch count (reset before each
+               run) above 0. Then the breakdown: encode, group + pack, the
+               overlapped span of the groups, each group's time alone, its
+               ns per row, the plain version's time and the bound
+  7. profile — one check under torch.profiler: the device's busy share of
                the check's wall (reported as not measured when the trace
                holds no device time)
-  7. invalid — 64 of those histories with one read corrupted: kernel,
+  8. invalid — 64 of those histories with one read corrupted: kernel,
                plain version and host oracle must agree row for row, and
                every corrupted row must be INVALID
+  9. counter_main, queue_main — the reference suite's counter and queue
+               shapes (bench.py configs 2 and 7): 1000 histories of 1000
+               ops, 5 processes, crash_p 0.05, at most 3 crashes, seed
+               20260729, through `check_histories` on the card, measured
+               as `main`; all VALID, every row on the mask tier, 0 host
+               rows, mask_scan's launch count above 0
+ 10. counter_invalid — 64 of the counter histories with one read
+               corrupted: kernel, plain version and host oracle agree row
+               for row, every corrupted row INVALID
 
 Then the kernels' summary line, the card's `nvidia-smi` name and power
 limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -61,8 +78,13 @@ N_INVALID = 64
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 
-KERNEL_SOURCE = "jepsen_jgroups_raft_tpu_torch/ops/csrc/dense_scan.cu"
-KERNEL_REPLACES = "jepsen_jgroups_raft_tpu/ops/pallas_scan.py:102"
+#: kernel name -> (source in the repo, the TPU-side program it replaces)
+KERNELS = {
+    "dense_scan": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/dense_scan.cu",
+                   "jepsen_jgroups_raft_tpu/ops/pallas_scan.py:102"),
+    "mask_scan": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/mask_scan.cu",
+                  "jepsen_jgroups_raft_tpu/ops/dense_scan.py:577"),
+}
 
 
 def emit(phase: str, **kw) -> None:
@@ -223,16 +245,147 @@ def phase_kernel(dev, model):
     return compared, max_err
 
 
-def phase_groups(dev, model):
-    """Groups that differ in W, P and E launched together through
-    run_dense_groups; each must equal the plain version on that group
-    alone. Returns (rows compared, max |kernel - plain|)."""
+def corrupt_observation(ops, rng, bump: int):
+    """Raise one ok observation of a counter or queue history (a read,
+    an add-and-get's new value, an enqueue's or dequeue's ticket) by
+    `bump`."""
+    ops = list(ops)
+    idx = [j for j, op in enumerate(ops) if op.type == "ok"
+           and op.value is not None
+           and op.f in ("read", "add-and-get", "enqueue", "dequeue")]
+    if idx:
+        j = rng.choice(idx)
+        v = ops[j].value
+        ops[j] = ops[j].replace(value=(v[0], v[1] + bump)
+                                if isinstance(v, tuple) else v + bump)
+    return ops
+
+
+def mask_histories(rng, kind: str, W: int, n: int, n_ops: int):
+    """n counter or queue histories with windows up to W, the first
+    exactly W (up to 5 processes, the rest of the window held by crashed
+    ops); odd ones with one observation raised by 1000."""
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        random_valid_history)
+    from jepsen_jgroups_raft_tpu_torch.models import MODELS
+
+    m = MODELS[kind]()
+    n_procs, crashes = min(W, 5), max(W - 5, 0)
+    top, rest = None, []
+    while top is None or len(rest) < n - 1:
+        h = random_valid_history(rng, kind, n_ops=n_ops, n_procs=n_procs,
+                                 crash_p=0.5 if crashes else 0.0,
+                                 max_crashes=crashes)
+        w = encode_history(h, m).n_slots
+        if w == W and top is None:
+            top = h
+        elif w <= W and len(rest) < n - 1:
+            rest.append(h)
+    return [corrupt_observation(h, rng, 1000) if i % 2 else list(h)
+            for i, h in enumerate([top] + rest)]
+
+
+def mask_tensors(encs, macro: bool, dev):
+    """(events, n_events, macro_p) of one mask group on `dev`."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        pack_batch, pack_macro_batch)
+
+    batch = pack_macro_batch(encs) if macro else pack_batch(encs)
+    return (torch.from_numpy(batch["events"]).to(dev),
+            torch.from_numpy(batch["n_events"]).to(dev),
+            batch.get("macro_p"))
+
+
+def phase_mask_kernel(dev):
+    """mask_scan against its plain version: counter and queue groups at
+    every window W = 1..12 (both row formats, both polarities), a counter
+    group across 2^31, and arbitrary rows. Returns (rows compared, max
+    |kernel - plain|)."""
     import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        offset_counter_history, random_mask_rows)
+    from jepsen_jgroups_raft_tpu_torch.models import Counter, TicketQueue
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+        mask_layout, mask_scan, mask_scan_plain)
+
+    rng = random.Random(SEED + 4)
+    compared, max_err = 0, 0
+
+    def check(name, ev, ne, W, P, model):
+        nonlocal compared, max_err
+        ok_k = mask_scan(ev, W, P, ne, model=model)
+        sync(dev)
+        ok_p = mask_scan_plain(ev, W, P, ne, model=model)
+        err = int((ok_k.int() - ok_p.int()).abs().max())
+        n_valid = int(ok_p.sum())
+        lay = mask_layout(W)
+        emit("mask_kernel", case=name, model=model.name,
+             init_state=int(model.init_state()), rows=int(ev.shape[0]),
+             events=int(ev.shape[1]), row_ints=int(ev.shape[2]), W=W,
+             macro_p=P, layout={"lanes": lay.lanes, "words": lay.words},
+             valid=n_valid, invalid=int(ev.shape[0]) - n_valid,
+             max_abs_err=err)
+        if err != 0:
+            raise AssertionError(f"mask_kernel/{name}: kernel disagrees "
+                                 f"with the plain version")
+        if n_valid in (0, int(ev.shape[0])):
+            raise AssertionError(f"mask_kernel/{name}: both polarities "
+                                 f"expected")
+        compared += int(ev.shape[0])
+        max_err = max(max_err, err)
+
+    for kind, model in (("counter", Counter()), ("queue", TicketQueue())):
+        for W in range(1, 13):
+            encs = [encode_history(h, model)
+                    for h in mask_histories(rng, kind, W, 24, 100)]
+            for macro in (False, True):
+                ev, ne, P = mask_tensors(encs, macro, dev)
+                check(f"{kind}_W{W}_{'macro' if macro else 'legacy'}", ev,
+                      ne, W, P, model)
+    offset = 2**31 - 40  # the counter crosses 2^31 mid-history
+    model = Counter(offset)
+    encs = [encode_history(offset_counter_history(h, offset), model)
+            for h in mask_histories(rng, "counter", 8, 32, 120)]
+    for macro in (False, True):
+        ev, ne, P = mask_tensors(encs, macro, dev)
+        check(f"counter_across_2^31_{'macro' if macro else 'legacy'}", ev,
+              ne, max(e.n_slots for e in encs), P, model)
+    B, E = 96, 48
+    for kind, model in (("counter", Counter()), ("queue", TicketQueue()),
+                        ("counter", Counter(2**31 - 3))):
+        for W in (1, 6, 12):
+            for P in (None, 3, 16):
+                nrng = np.random.default_rng(SEED + 1000 * W + (P or 0))
+                ev = random_mask_rows(nrng, B, E, W, P, kind)
+                n_events = nrng.integers(0, E + 1, size=B, dtype=np.int32)
+                ev[np.arange(E)[None, :] >= n_events[:, None]] = 0
+                check(f"rows_{kind}_{int(model.init_state())}_W{W}_P{P}",
+                      torch.from_numpy(ev).to(dev), torch.from_numpy(
+                          n_events).to(dev), W, P, model)
+    return compared, max_err
+
+
+def phase_groups(dev, model):
+    """Register domain groups and counter / queue mask groups that differ
+    in W, P and E, launched together through run_dense_groups (each mask
+    group carries its own model); each must equal its plain version on
+    that group alone. Returns (rows compared, {kernel: max |kernel -
+    plain|})."""
+    import numpy as np
+    import torch
 
     from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
         DenseLaunch, run_dense_groups)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.models import MODELS
     from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
-        dense_scan_plain, launch_counts)
+        dense_scan_plain, launch_counts, mask_scan_plain)
 
     t0 = time.perf_counter()
     rng = random.Random(SEED + 3)
@@ -241,26 +394,49 @@ def phase_groups(dev, model):
         ("W6_S16_macro", 6, 16, 32, 150, True),
         ("W10_S8_macro", 10, 8, 24, 100, True),
         ("W1_S1_macro", 1, 1, 16, 30, True)]
-    launches = []
+    launches, names = [], []
     for name, W, S, n, n_ops, macro in specs:
         encs, plan = encode_group(cap_histories(rng, W, S, n, n_ops), model,
                                   W, S, name)
         ev, vo, ne, P, Wk = group_tensors(encs, plan, macro, dev, W, S)
         launches.append(DenseLaunch(events=ev, val_of=vo, n_events=ne,
                                     n_slots=Wk, macro_p=P))
-    before = launch_counts()["dense_scan"]
+        names.append(name)
+    for kind, W, n, n_ops, macro in (("counter", 8, 32, 150, True),
+                                     ("queue", 12, 24, 100, True),
+                                     ("counter", 3, 40, 60, False)):
+        m = MODELS[kind]()
+        encs = [encode_history(h, m)
+                for h in mask_histories(rng, kind, W, n, n_ops)]
+        ev, ne, P = mask_tensors(encs, macro, dev)
+        launches.append(DenseLaunch(
+            events=ev, val_of=torch.zeros((ev.shape[0], 1),
+                                          dtype=torch.int32, device=dev),
+            n_events=ne, n_slots=W, macro_p=P, tag="dense-mask",
+            kind="mask", model=m))
+        names.append(f"{kind}_W{W}_{'macro' if macro else 'legacy'}")
+    before = launch_counts()
     run = run_dense_groups(launches, model, timed=dev.type == "cuda")
-    launched = launch_counts()["dense_scan"] - before
-    if dev.type == "cuda" and launched != len(launches):
-        raise AssertionError(f"groups: {launched} launches for "
-                             f"{len(launches)} groups")
-    rows, max_err = 0, 0
-    for (name, *_), ln, ok in zip(specs, launches, run.ok):
-        plain = dense_scan_plain(ln.events, ln.val_of, ln.n_slots,
-                                 macro_p=ln.macro_p, n_events=ln.n_events,
-                                 model=model).cpu().numpy()
+    after = launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    want = {"dense_scan": len(specs),
+            "mask_scan": len(launches) - len(specs)}
+    if dev.type == "cuda" and launched != want:
+        raise AssertionError(f"groups: launches {launched}, expected {want}")
+    rows, max_err = 0, {"dense_scan": 0, "mask_scan": 0}
+    for name, ln, ok in zip(names, launches, run.ok):
+        if ln.kind == "mask":
+            kernel = "mask_scan"
+            plain = mask_scan_plain(ln.events, ln.n_slots, ln.macro_p,
+                                    ln.n_events, model=ln.model)
+        else:
+            kernel = "dense_scan"
+            plain = dense_scan_plain(ln.events, ln.val_of, ln.n_slots,
+                                     macro_p=ln.macro_p,
+                                     n_events=ln.n_events, model=model)
+        plain = plain.cpu().numpy()
         err = int(np.abs(ok.astype(int) - plain.astype(int)).max())
-        emit("groups", case=name, rows=int(ln.events.shape[0]),
+        emit("groups", case=name, kind=ln.kind, rows=int(ln.events.shape[0]),
              events=int(ln.events.shape[1]),
              row_ints=int(ln.events.shape[2]), W=ln.n_slots,
              macro_p=ln.macro_p, valid=int(plain.sum()), max_abs_err=err)
@@ -268,7 +444,7 @@ def phase_groups(dev, model):
             raise AssertionError(f"groups/{name}: kernel disagrees with "
                                  f"the plain version, or one polarity only")
         rows += len(plain)
-        max_err = max(max_err, err)
+        max_err[kernel] = max(max_err[kernel], err)
     emit("groups_summary", groups=len(launches), rows_compared=rows,
          max_abs_err=max_err, launches=launched,
          kernel_ms_per_group=run.kernel_ms, span_ms=run.span_ms,
@@ -317,70 +493,44 @@ def phase_profile(dev, model, histories):
     return share
 
 
-def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card",
-              file=sys.stderr)
-        return 2
-    try:
-        from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
-            check_encoded, check_histories)
-        from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
-            DenseLaunch, consume_tiers, run_dense_groups)
-        from jepsen_jgroups_raft_tpu_torch.checker.wgl_cpu import (
-            check_encoded_cpu)
-        from jepsen_jgroups_raft_tpu_torch.history.packing import (
-            encode_history, pack_macro_batch)
-        from jepsen_jgroups_raft_tpu_torch.history.synth import (
-            random_valid_history)
-        from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
-        from jepsen_jgroups_raft_tpu_torch.ops import _build
-        from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
-            dense_plans_grouped, dense_scan_plain, launch_counts,
-            reset_launch_counts)
-        from jepsen_jgroups_raft_tpu_torch.platform import toolchain_stamp
-    except ImportError as e:
-        print(f"chip_smoke: the port's package is not beside this script "
-              f"({e})", file=sys.stderr)
-        return 2
+def suite_histories(kind: str):
+    """The suite shape: N_HISTORIES histories of N_OPS ops, N_PROCS
+    processes, crash_p CRASH_P, at most MAX_CRASHES crashes, seed SEED.
+    Returns (histories, seconds to make them)."""
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        random_valid_history)
 
-    dev = torch.device("cuda")
-    model = CasRegister()
-    stamp = toolchain_stamp()
-    emit("stamp", **stamp)
-
-    # 2. build from this checkout's sources
-    build_s = _build.build(["dense_scan"])
-    ptxas = _build.ptxas_report("dense_scan")
-    emit("build", seconds=build_s, kernels=["dense_scan"], ptxas=ptxas)
-    if ptxas["functions"] == 0:
-        raise AssertionError("no ptxas report for dense_scan")
-    spill_bytes = ptxas["spill_store_bytes"] + ptxas["spill_load_bytes"]
-    if spill_bytes or ptxas["max_stack_bytes"]:
-        raise AssertionError(f"dense_scan spills or uses a stack: {ptxas}")
-
-    # 3. kernel against its plain version at every window
-    t0 = time.perf_counter()
-    compared, corner_err = phase_kernel(dev, model)
-    emit("kernel_summary", rows_compared=compared, max_abs_err=corner_err,
-         seconds=time.perf_counter() - t0)
-
-    # 4. mixed window groups launched together
-    _, groups_err = phase_groups(dev, model)
-
-    # 5. the main path: the north-star batch through check_histories
     t0 = time.perf_counter()
     rng = random.Random(SEED)
-    histories = [random_valid_history(rng, "register", n_ops=N_OPS,
-                                      n_procs=N_PROCS, crash_p=CRASH_P,
-                                      max_crashes=MAX_CRASHES)
-                 for _ in range(N_HISTORIES)]
-    synth_s = time.perf_counter() - t0
+    hs = [random_valid_history(rng, kind, n_ops=N_OPS, n_procs=N_PROCS,
+                               crash_p=CRASH_P, max_crashes=MAX_CRASHES)
+          for _ in range(N_HISTORIES)]
+    return hs, time.perf_counter() - t0
+
+
+def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
+             kernel: str, ptxas: dict) -> dict:
+    """Drive one main path through check_histories on the card: a
+    warm-up, then best of 3, each run with the launch counts set to 0
+    just before it and read just after (the path's kernel must have
+    launched). Guards: every history VALID (valid by construction),
+    every row on `tier`. Then the breakdown of one run: encode, group +
+    pack, the kernels overlapped (span, per group) and each group alone,
+    ns per row, the plain version's time and bitwise agreement on the
+    same groups, and the bound from the work this run's data needed.
+    Emits the phase's line; returns the kernels-line numbers."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
+        DenseLaunch, consume_tiers, run_dense_groups)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        encode_history, pack_macro_batch)
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+        dense_plans_grouped, dense_scan_plain, launch_counts,
+        mask_scan_plain, reset_launch_counts)
+
     check_histories(histories, model, device=dev)  # warm-up
     consume_tiers()
     walls, launches = [], None
@@ -391,20 +541,21 @@ def main() -> int:
         results = check_histories(histories, model, device=dev)
         walls.append(time.perf_counter() - t0)
         launches = launch_counts()
-        if launches["dense_scan"] <= 0:
-            raise AssertionError("main path launched no dense_scan kernel")
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{phase}: the path launched no {kernel} "
+                                 f"kernel")
     tiers = consume_tiers()
+    n = len(histories)
     n_valid = sum(1 for r in results if r["valid?"] is True)
-    host_rows = sum(1 for r in results if r.get("decided-tier") != "dense")
-    if n_valid != N_HISTORIES:
-        raise AssertionError(f"verdict guard: {n_valid} of {N_HISTORIES} "
+    host_rows = sum(1 for r in results if r.get("decided-tier") != tier)
+    if n_valid != n:
+        raise AssertionError(f"{phase} verdict guard: {n_valid} of {n} "
                              f"VALID (every history is valid by "
                              f"construction)")
     if host_rows or "host" in tiers:
-        raise AssertionError(f"{host_rows} rows left the dense kernel")
+        raise AssertionError(f"{phase}: {host_rows} rows left the {tier} "
+                             f"tier")
 
-    # breakdown of one run: encode, group + pack, the kernels overlapped
-    # (span and per group) and each group alone
     t0 = time.perf_counter()
     encs = [encode_history(h, model) for h in histories]
     encode_s = time.perf_counter() - t0
@@ -417,7 +568,8 @@ def main() -> int:
         events=torch.from_numpy(b["events"]).to(dev),
         val_of=torch.from_numpy(plan.val_of).to(dev),
         n_events=torch.from_numpy(b["n_events"]).to(dev),
-        n_slots=plan.n_slots, macro_p=b["macro_p"])
+        n_slots=plan.n_slots, macro_p=b["macro_p"], tag=plan.kernel_tag,
+        kind=plan.kind)
         for b, (_, plan) in zip(batches, grouped)]
     group_ms, span_ms, alone_ms = None, None, None
     for _ in range(3):
@@ -431,7 +583,7 @@ def main() -> int:
         alone_ms = alone if alone_ms is None else \
             [min(a, b) for a, b in zip(alone_ms, alone)]
     longest = [int(b["n_events"].max()) for b in batches]
-    ns_per_row = [ms * 1e6 / n for ms, n in zip(alone_ms, longest)]
+    ns_per_row = [ms * 1e6 / r for ms, r in zip(alone_ms, longest)]
     scan_steps = int(sum(int(b["n_events"].sum()) for b in batches))
 
     # the plain version on the same groups: its time, bitwise agreement,
@@ -441,60 +593,174 @@ def main() -> int:
     t0 = time.perf_counter()
     for ln in launch_list:
         g: dict = {}
-        plain_oks.append(dense_scan_plain(
-            ln.events, ln.val_of, ln.n_slots, macro_p=ln.macro_p,
-            n_events=ln.n_events, model=model, stats=g))
+        if ln.kind == "mask":
+            plain_oks.append(mask_scan_plain(
+                ln.events, ln.n_slots, ln.macro_p, ln.n_events, model=model,
+                stats=g))
+        else:
+            plain_oks.append(dense_scan_plain(
+                ln.events, ln.val_of, ln.n_slots, macro_p=ln.macro_p,
+                n_events=ln.n_events, model=model, stats=g))
         group_stats.append(g)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    main_err = max(int((torch.from_numpy(k).int() - p.cpu().int())
-                       .abs().max()) for k, p in zip(run.ok, plain_oks))
-    if main_err != 0:
-        raise AssertionError("main-path groups: kernel disagrees with the "
-                             "plain version")
+    err = max(int((torch.from_numpy(k).int() - p.cpu().int()).abs().max())
+              for k, p in zip(run.ok, plain_oks))
+    if err != 0:
+        raise AssertionError(f"{phase} groups: kernel disagrees with the "
+                             f"plain version")
 
-    # bound: the bytes the kernel must move (the real event rows, val_of
-    # and n_events read once, ok written once) against the bit operations
-    # this data needed (closure: one OR per (mask, source state) of each
-    # open slot's pass; FORCE: one word per mask; latch: S² compares per
-    # opened op)
+    # bound: the bytes the kernel must move (the real event rows and
+    # n_events read once, val_of read once by the domain kernel, ok
+    # written once) against the operations this data needed, one per
+    # cell: closure, one per (mask, source state) of each open slot's
+    # pass; FORCE, one per mask; latch, S² compares per opened op
+    # (domain) or one per op (mask); and the mask kernel's legality
+    # tables, one model step per (open slot, mask) of each closing FORCE
     bytes_moved, ops = 0, 0
     for ln, b, g in zip(launch_list, batches, group_stats):
         B, _, R = (int(x) for x in ln.events.shape)
-        S, M = int(ln.val_of.shape[1]), 1 << ln.n_slots
-        bytes_moved += int(b["n_events"].sum()) * R * 4 + B * (S * 4 + 5)
+        M = 1 << ln.n_slots
         n_opens = int(ln.events[:, :, 2].clamp(min=0).sum())
-        ops += (g["slot_passes"] * (M // 2) * S + g["force_rows"] * M
-                + n_opens * S * S)
+        bytes_moved += int(b["n_events"].sum()) * R * 4 + B * 5
+        if ln.kind == "mask":
+            ops += (g["slot_passes"] * (M // 2) + g["force_rows"] * M
+                    + g["legal_steps"] + n_opens)
+        else:
+            S = int(ln.val_of.shape[1])
+            bytes_moved += B * S * 4
+            ops += (g["slot_passes"] * (M // 2) * S + g["force_rows"] * M
+                    + n_opens * S * S)
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / CORE_OPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    sweeps = sum(g["sweeps"] for g in group_stats)
-    slot_passes = sum(g["slot_passes"] for g in group_stats)
-    force_rows = sum(g["force_rows"] for g in group_stats)
     best = min(walls)
-    emit("main", histories=N_HISTORIES, ops_per_history=N_OPS,
+    stats = {k: sum(g.get(k, 0) for g in group_stats)
+             for k in ("sweeps", "slot_passes", "force_rows", "closures",
+                       "legal_steps")}
+    emit(phase, model=model.name, histories=n, ops_per_history=N_OPS,
          valid=n_valid, host_rows=host_rows, rest=len(rest),
-         groups=len(grouped),
+         groups=len(grouped), kinds=sorted({p.kind for _, p in grouped}),
          windows=[int(p.n_slots) for _, p in grouped],
          group_rows=[len(i) for i, _ in grouped],
          states=[int(p.n_states) for _, p in grouped],
          macro_p=[int(b["macro_p"]) for b in batches],
          synth_s=synth_s, check_s_reps=walls, check_s_best=best,
-         hist_per_s=N_HISTORIES / best, encode_s=encode_s, pack_s=pack_s,
+         hist_per_s=n / best, encode_s=encode_s, pack_s=pack_s,
          kernel_span_ms=span_ms, kernel_ms_per_group=group_ms,
          kernel_ms_alone=alone_ms, kernel_ms_alone_sum=sum(alone_ms),
          longest_rows=longest, ns_per_row=ns_per_row,
          plain_ms=plain_ms, scan_steps=scan_steps,
-         closure_sweeps=sweeps, slot_passes=slot_passes,
-         force_rows=force_rows, bytes_moved=bytes_moved,
-         bit_ops=ops, bound_ms=bound_ms, bound_by=bound_by,
-         spill_bytes=spill_bytes, max_registers=ptxas["max_registers"],
-         launches=launches, tiers=tiers, device=stamp["device_name"],
-         power=stamp["nvidia_smi"])
+         closure_sweeps=stats["sweeps"], slot_passes=stats["slot_passes"],
+         force_rows=stats["force_rows"], closures=stats["closures"],
+         legal_steps=stats["legal_steps"], bytes_moved=bytes_moved,
+         bit_ops=ops, bound_ms=bound_ms,
+         bound_by="bytes" if t_bytes >= t_ops else "operations",
+         spill_bytes=ptxas["spill_store_bytes"] + ptxas["spill_load_bytes"],
+         max_registers=ptxas["max_registers"], launches=launches,
+         tiers=tiers, device=torch.cuda.get_device_name(dev),
+         power=nvidia_smi_line())
+    return {"launches": int(launches[kernel]), "max_abs_err": err,
+            "ms": span_ms, "plain_ms": plain_ms, "t_bytes": t_bytes,
+            "t_ops": t_ops}
 
-    # 6. the card's busy share over one check, from a profiler trace; a
+
+def phase_invalid(dev, model, bad, tier: str, kernel_plain, name: str):
+    """Corrupted histories: kernel (check_encoded on the card), plain
+    version (per group on the same device) and host oracle agree row for
+    row, every row INVALID, every row on `tier`. Returns max |kernel -
+    plain|."""
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_encoded)
+    from jepsen_jgroups_raft_tpu_torch.checker.wgl_cpu import (
+        check_encoded_cpu)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+        dense_plans_grouped)
+
+    bad_encs = [encode_history(h, model) for h in bad]
+    res = check_encoded(bad_encs, model, device=dev)
+    k_ok = [r["valid?"] is True for r in res]
+    sub_groups, sub_rest = dense_plans_grouped(model, bad_encs)
+    p_ok = [None] * len(bad_encs)
+    for idxs, plan in sub_groups:
+        ok_p = kernel_plain([bad_encs[i] for i in idxs], plan)
+        for j, i in enumerate(idxs):
+            p_ok[i] = bool(ok_p[j])
+    o_ok = [check_encoded_cpu(e, model).valid for e in bad_encs]
+    emit(name, rows=len(bad_encs), kernel_invalid=k_ok.count(False),
+         plain_invalid=p_ok.count(False), oracle_invalid=o_ok.count(False),
+         rest=len(sub_rest),
+         tiers=sorted({r.get("decided-tier") for r in res}))
+    if sub_rest or any(r.get("decided-tier") != tier for r in res):
+        raise AssertionError(f"{name}: the subset left the {tier} tier")
+    if k_ok != p_ok or k_ok != o_ok or any(k_ok):
+        raise AssertionError(f"{name}: kernel, plain version and host "
+                             f"oracle disagree, or a corrupted row passed")
+    return 0
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    try:
+        from jepsen_jgroups_raft_tpu_torch.models import (CasRegister,
+                                                          Counter,
+                                                          TicketQueue)
+        from jepsen_jgroups_raft_tpu_torch.ops import _build
+        from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+            dense_scan_plain, mask_scan_plain)
+        from jepsen_jgroups_raft_tpu_torch.platform import toolchain_stamp
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is not beside this script "
+              f"({e})", file=sys.stderr)
+        return 2
+
+    dev = torch.device("cuda")
+    model = CasRegister()
+    stamp = toolchain_stamp()
+    emit("stamp", **stamp)
+
+    # 2. build every kernel from this checkout's sources, in parallel
+    build_s = _build.build(list(KERNELS))
+    ptxas = {k: _build.ptxas_report(k) for k in KERNELS}
+    emit("build", seconds=build_s, kernels=list(KERNELS), ptxas=ptxas)
+    for k, rep in ptxas.items():
+        if rep["functions"] == 0:
+            raise AssertionError(f"no ptxas report for {k}")
+        if rep["spill_store_bytes"] + rep["spill_load_bytes"] or \
+                rep["max_stack_bytes"]:
+            raise AssertionError(f"{k} spills or uses a stack: {rep}")
+
+    # 3. dense_scan against its plain version at every window
+    t0 = time.perf_counter()
+    compared, corner_err = phase_kernel(dev, model)
+    emit("kernel_summary", rows_compared=compared, max_abs_err=corner_err,
+         seconds=time.perf_counter() - t0)
+
+    # 4. mask_scan against its plain version
+    t0 = time.perf_counter()
+    compared, mask_err = phase_mask_kernel(dev)
+    emit("mask_kernel_summary", rows_compared=compared,
+         max_abs_err=mask_err, seconds=time.perf_counter() - t0)
+
+    # 5. domain and mask groups launched together
+    _, groups_err = phase_groups(dev, model)
+
+    # 6. the main path: the north-star batch through check_histories
+    histories, synth_s = suite_histories("register")
+    line = {"dense_scan": run_path("main", dev, model, histories, synth_s,
+                                   "dense", "dense_scan",
+                                   ptxas["dense_scan"])}
+
+    # 7. the card's busy share over one check, from a profiler trace; a
     # profiler that cannot trace here is reported, not fatal
     try:
         phase_profile(dev, model, histories)
@@ -503,8 +769,20 @@ def main() -> int:
         emit("profile", busy_share=None,
              note=f"not measured: {type(e).__name__}: {e}")
 
-    # 7. invalid subset: guaranteed-invalid corruption (the bumped read
+    # 8. invalid subset: guaranteed-invalid corruption (the bumped read
     # leaves the value domain), kernel vs plain vs host oracle
+    def dense_plain(encs, plan):
+        ev, vo, ne, P, W = group_tensors(encs, plan, True, dev)
+        return dense_scan_plain(ev, vo, W, macro_p=P, n_events=ne,
+                                model=model).cpu().tolist()
+
+    def mask_plain(m):
+        def run(encs, plan):
+            ev, ne, P = mask_tensors(encs, True, dev)
+            return mask_scan_plain(ev, plan.n_slots, P, ne,
+                                   model=m).cpu().tolist()
+        return run
+
     rng = random.Random(SEED + 2)
     bad = []
     for h in histories[:N_INVALID]:
@@ -512,37 +790,53 @@ def main() -> int:
         if not changed:
             raise AssertionError("a north-star history without an ok read")
         bad.append(ops_)
-    bad_encs = [encode_history(h, model) for h in bad]
-    res = check_encoded(bad_encs, model, device=dev)
-    k_ok = [r["valid?"] is True for r in res]
-    sub_groups, sub_rest = dense_plans_grouped(model, bad_encs)
-    p_ok = [None] * len(bad_encs)
-    for idxs, plan in sub_groups:
-        ev, vo, ne, P, W = group_tensors([bad_encs[i] for i in idxs], plan,
-                                         True, dev)
-        ok_p = dense_scan_plain(ev, vo, W, macro_p=P, n_events=ne,
-                                model=model).cpu().tolist()
-        for j, i in enumerate(idxs):
-            p_ok[i] = bool(ok_p[j])
-    o_ok = [check_encoded_cpu(e, model).valid for e in bad_encs]
-    emit("invalid", rows=len(bad_encs), kernel_invalid=k_ok.count(False),
-         plain_invalid=p_ok.count(False), oracle_invalid=o_ok.count(False),
-         rest=len(sub_rest),
-         tiers=sorted({r.get("decided-tier") for r in res}))
-    if sub_rest or any(r.get("decided-tier") != "dense" for r in res):
-        raise AssertionError("invalid subset left the dense kernel")
-    if k_ok != p_ok or k_ok != o_ok or any(k_ok):
-        raise AssertionError("invalid subset: kernel, plain version and "
-                             "host oracle disagree, or a corrupted row "
-                             "passed")
+    phase_invalid(dev, model, bad, "dense", dense_plain, "invalid")
 
-    print(json.dumps({"kernels": [{
-        "name": "dense_scan", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": int(launches["dense_scan"]),
-        "max_abs_err": float(max(corner_err, groups_err, main_err)),
-        "ms": span_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}), flush=True)
+    # 9. the counter and queue paths: the suite's shapes on the mask kernel
+    mask_line = []
+    counter_histories = None
+    for phase, kind, m in (("counter_main", "counter", Counter()),
+                           ("queue_main", "queue", TicketQueue())):
+        hs, synth_s = suite_histories(kind)
+        if kind == "counter":
+            counter_histories = hs
+        mask_line.append(run_path(phase, dev, m, hs, synth_s, "mask",
+                                  "mask_scan", ptxas["mask_scan"]))
+
+    # 10. counter invalid subset: a read raised by 10^6 (beyond any sum
+    # of the history's adds), kernel vs plain vs host oracle
+    rng = random.Random(SEED + 5)
+    bad = []
+    for h in counter_histories[:N_INVALID]:
+        ops_, changed = corrupt_read(h, rng, 10**6)
+        if not changed:
+            raise AssertionError("a counter history without an ok read")
+        bad.append(ops_)
+    m = Counter()
+    phase_invalid(dev, m, bad, "mask", mask_plain(m), "counter_invalid")
+
+    line["mask_scan"] = {
+        "launches": sum(x["launches"] for x in mask_line),
+        "max_abs_err": max(x["max_abs_err"] for x in mask_line),
+        "ms": sum(x["ms"] for x in mask_line),
+        "plain_ms": sum(x["plain_ms"] for x in mask_line),
+        "t_bytes": sum(x["t_bytes"] for x in mask_line),
+        "t_ops": sum(x["t_ops"] for x in mask_line)}
+    errs = {"dense_scan": max(corner_err, groups_err["dense_scan"]),
+            "mask_scan": max(mask_err, groups_err["mask_scan"])}
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        x = line[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": x["launches"],
+            "max_abs_err": float(max(errs[name], x["max_abs_err"])),
+            "ms": x["ms"], "plain_ms": x["plain_ms"],
+            "bound_ms": max(x["t_bytes"], x["t_ops"]) * 1e3,
+            "bound_by": "bytes" if x["t_bytes"] >= x["t_ops"]
+            else "operations",
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,20 @@
 """PyTorch/CUDA port of the history checker, for an NVIDIA H100.
 
 A second package beside `jepsen_jgroups_raft_tpu` (the JAX reference,
-which it never imports). The port carries the north-star check: CAS
-register histories are encoded and macro-packed on the host, grouped by
-concurrency window, and verified by a hand-written CUDA dense-domain
-scan kernel (`ops/csrc/dense_scan.cu`), one thread block per history.
+which it never imports). Histories are encoded and macro-packed on the
+host, grouped by kernel kind and concurrency window, and verified by
+hand-written CUDA kernels, one warp per history: the dense-domain scan
+(`ops/csrc/dense_scan.cu`) for the CAS register, the north-star
+workload, and the mask-mode scan (`ops/csrc/mask_scan.cu`) for the
+counter and the ticket queue.
 
 Layout (mirrors the reference's module paths):
   platform.py          env knobs, `resolve_device`, `toolchain_stamp`
   history/             op records, encoding, macro packing, synthesis
-  models/              the model protocol and the CAS register
+  models/              the model protocol, register, counter, queue
   ops/kernel_ir.py     caps, macro row layout, plain-torch step parts
-  ops/dense_scan.py    window grouping, `dense_scan` (kernel wrapper)
-                       and `dense_scan_plain` (its plain version)
+  ops/dense_scan.py    grouping, the kernel wrappers `dense_scan` and
+                       `mask_scan` and their plain versions
   ops/csrc/            CUDA sources, built by ops/_build.py at first use
   checker/             `check_histories`, the host oracle, tier stats
   interop.py           reading reference encodings and plans by duck type

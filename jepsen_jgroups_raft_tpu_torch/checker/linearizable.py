@@ -3,9 +3,13 @@
 Equivalent of the reference's checker/linearizable.py at its
 linearizable rung with the lin fast path off (``JGRAFT_LIN_FASTPATH=0``,
 which the reference's test suite pins): histories are encoded and
-macro-packed on the host, grouped by concurrency window
-(`ops.dense_scan.dense_plans_grouped`), and every window group runs the
-hand-written CUDA dense scan (`ops.dense_scan.dense_scan`).
+macro-packed on the host, grouped by kernel kind and concurrency window
+(`ops.dense_scan.dense_plans_grouped`), and every window group runs a
+hand-written CUDA kernel: the dense-domain scan
+(`ops.dense_scan.dense_scan`) for models with an enumerable domain (the
+register), the mask-mode scan (`ops.dense_scan.mask_scan`) for
+order-independent models (the counter, the queue), whose rows report
+``"kernel": "dense-mask"`` and ``"decided-tier": "mask"``.
 
 Algorithms:
   * ``"auto"``  — dense kernel for every history inside the dense caps;
@@ -16,8 +20,9 @@ Algorithms:
                   the reference's own escalation tier, visible in every
                   result (where the reference first tries its sort
                   ladder, which is not ported yet).
-  * ``"dense"`` — dense kernel only; histories beyond the caps report
-                  UNKNOWN with an error, like the reference's "jax".
+  * ``"dense"`` — dense kernels only (domain and mask groups);
+                  histories beyond the caps report UNKNOWN with an
+                  error, like the reference's "jax".
   * ``"cpu"``   — the host oracle for every history.
 
 Device: every entry point runs on ``cuda`` unless the caller passes
@@ -102,9 +107,9 @@ def check_encoded(
 
 
 def _dense_pass(encs, model, dev) -> list:
-    """Run every dense-eligible history through the CUDA kernel (or its
-    plain version on a CPU device); None where a history is beyond the
-    dense caps."""
+    """Run every dense-eligible history through its group's CUDA kernel,
+    domain or mask (or the kernel's plain version on a CPU device); None
+    where a history is beyond both kinds' caps."""
     results: list = [None] * len(encs)
     fits = []
     for i, e in enumerate(encs):
@@ -127,7 +132,7 @@ def _dense_pass(encs, model, dev) -> list:
             val_of=torch.from_numpy(plan.val_of).to(dev),
             n_events=torch.from_numpy(batch["n_events"]).to(dev),
             n_slots=plan.n_slots, macro_p=batch.get("macro_p"),
-            tag=plan.kernel_tag))
+            tag=plan.kernel_tag, kind=plan.kind))
         subs.append(sub)
     if not launches:
         return results

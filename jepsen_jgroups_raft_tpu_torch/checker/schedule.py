@@ -1,15 +1,16 @@
 """Window-group launches and the port's run counters.
 
-`run_dense_groups` is the port's launch loop for the dense kernel: it
-launches every window group's kernel at once, each on a side stream of
-its own, joins them back to the current stream and synchronises once —
-the reference's discipline for its monolithic path (bench.py run():
-launch every group, block once), with the groups overlapped on the card
-instead of queued one after another. The reference's chunked wavefront
-(decided-row eviction between chunks) is not ported yet: the CUDA
-kernel exits a history's loop at its real length or at its first dead
-FORCE on its own, which covers the eviction's two cases inside one
-launch.
+`run_dense_groups` is the port's launch loop for the dense kernels (the
+dense-domain scan for domain groups, the mask-mode scan for mask
+groups): it launches every window group's kernel at once, each on a
+side stream of its own, joins them back to the current stream and
+synchronises once — the reference's discipline for its monolithic path
+(bench.py run(): launch every group, block once), with the groups
+overlapped on the card instead of queued one after another. The
+reference's chunked wavefront (decided-row eviction between chunks) is
+not ported yet: each CUDA kernel exits a history's loop at its real
+length or at its first dead FORCE on its own, which covers the
+eviction's two cases inside one launch.
 
 The counters follow the reference's checker/schedule.py: per-tier
 decided rows and wall (`note_tier`, `consume_tiers`) and run counters
@@ -27,7 +28,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..ops.dense_scan import dense_scan, dense_scan_launcher
+from ..ops.dense_scan import (dense_scan, dense_scan_launcher, mask_scan,
+                              mask_scan_launcher)
 
 _STATS_LOCK = threading.Lock()
 _STATS_ZERO = {"groups_run": 0, "rows_run": 0, "wall_s": 0.0}
@@ -112,12 +114,16 @@ def consume_tiers() -> dict:
 
 @dataclass
 class DenseLaunch:
-    """One window group ready for the dense kernel, its tensors already
-    on the launch device.
+    """One window group ready for a dense kernel, its tensors already on
+    the launch device.
 
-    events [B, E, R] int32, val_of [B, S] int32, n_events [B] int32 (real
-    row counts), n_slots the group's window W, macro_p the macro payload
-    width (None for legacy rows), tag the kernel label for results."""
+    events [B, E, R] int32, val_of [B, S] int32 (a [B, 1] dummy for mask
+    groups, which the mask kernel does not read), n_events [B] int32
+    (real row counts), n_slots the group's window W, macro_p the macro
+    payload width (None for legacy rows), tag the kernel label for
+    results, kind the plan's kind: "domain" (`dense_scan`) or "mask"
+    (`mask_scan`), model the group's own model where it differs from the
+    run's (one launch can then mix groups of several models)."""
 
     events: torch.Tensor
     val_of: torch.Tensor
@@ -125,6 +131,26 @@ class DenseLaunch:
     n_slots: int
     macro_p: Optional[int] = None
     tag: str = "dense"
+    kind: str = "domain"
+    model: Optional[object] = None
+
+    def scan(self, model):
+        """The group's verdicts through its kernel's wrapper."""
+        m = model if self.model is None else self.model
+        if self.kind == "mask":
+            return mask_scan(self.events, self.n_slots, self.macro_p,
+                             self.n_events, model=m)
+        return dense_scan(self.events, self.val_of, self.n_slots,
+                          self.macro_p, self.n_events, m)
+
+    def launcher(self, model):
+        """(ok, launch) from its kernel's launcher (card only)."""
+        m = model if self.model is None else self.model
+        if self.kind == "mask":
+            return mask_scan_launcher(self.events, self.n_slots,
+                                      self.macro_p, self.n_events, model=m)
+        return dense_scan_launcher(self.events, self.val_of, self.n_slots,
+                                   self.macro_p, self.n_events, m)
 
 
 @dataclass
@@ -146,9 +172,10 @@ def _timer() -> torch.cuda.Event:
 
 def run_dense_groups(launches: List[DenseLaunch], model,
                      timed: bool = False) -> GroupRun:
-    """Launch every group's dense kernel, then synchronise once and read
-    the verdicts. On the card every group is checked and allocated first,
-    then the kernels launch back to back, each on its own side stream:
+    """Launch every group's kernel (domain or mask, by `kind`), then
+    synchronise once and read the verdicts. On the card every group is
+    checked and allocated first, then the kernels launch back to back,
+    each on its own side stream:
     a side stream first waits for the current stream (which carried the
     inputs' host-to-device copies and allocated the verdicts), every
     tensor a side stream touches is recorded on it, and the current
@@ -160,19 +187,14 @@ def run_dense_groups(launches: List[DenseLaunch], model,
     timed = timed and on_card
     oks, marks, span = [], [], None
     if not on_card:
-        oks = [dense_scan(ln.events, ln.val_of, ln.n_slots,
-                          macro_p=ln.macro_p, n_events=ln.n_events,
-                          model=model) for ln in launches]
+        oks = [ln.scan(model) for ln in launches]
     else:
         dev = launches[0].events.device
         main = torch.cuda.current_stream(dev)
         # PyTorch hands out its pooled streams round-robin, so these are
         # distinct for up to 32 groups
         sides = [torch.cuda.Stream(device=dev) for _ in launches]
-        ready = [dense_scan_launcher(ln.events, ln.val_of, ln.n_slots,
-                                     macro_p=ln.macro_p,
-                                     n_events=ln.n_events, model=model)
-                 for ln in launches]
+        ready = [ln.launcher(model) for ln in launches]
         if timed:
             span = (_timer(), _timer())
             marks = [(_timer(), _timer()) for _ in launches]

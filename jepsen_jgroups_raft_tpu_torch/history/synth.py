@@ -196,3 +196,86 @@ def random_valid_history(
             # invocation as a crashed (info) op, same as jepsen.
     return build_history(rows)
 
+
+
+def offset_counter_history(history, offset: int) -> list:
+    """A counter history as if the counter had started at `offset`:
+    every observed value (a read's, an add-and-get's new value) moves by
+    `offset`, wrapping like int32. Check it with Counter(initial=offset);
+    an offset near 2^31 makes the counter cross the int32 boundary."""
+    def shift(v):
+        return ((v + offset + 2**31) & 0xFFFFFFFF) - 2**31
+
+    out = []
+    for op in history:
+        v = op.value
+        if op.type == OK and v is not None:
+            if op.f == "read":
+                op = op.replace(value=shift(v))
+            elif op.f == "add-and-get":
+                op = op.replace(value=(v[0], shift(v[1])))
+        out.append(op)
+    return out
+
+
+#: counter arguments that reach the int32 edges
+_EDGE_VALUES = (-2**31, 2**31 - 1, 2**30, -2**30, 1, -1, 0, 7, 3)
+
+
+def random_mask_rows(rng, n: int, n_rows: int, n_slots: int,
+                     macro_p, kind: str):
+    """[n, n_rows, R] int32 event rows for the mask-mode scan that stray
+    from what the packer emits, while keeping many frontiers alive:
+    mostly always-legal ops (counter adds, queue crashed enqueues) on
+    free slots and FORCEs of open slots, but also slots out of range
+    (added to the clipped column at OPEN, clipped at FORCE), re-opened
+    slots, payloads sharing a slot in one macro row, n_opens past P or
+    negative, padding and unknown kinds, unknown opcodes, and counter
+    arguments at the int32 edges. `rng` is a numpy Generator; R is 5
+    (macro_p None) or 3 + 4·macro_p; kind is "counter" or "queue"."""
+    import numpy as np
+
+    W, P = int(n_slots), macro_p
+    R = 5 if P is None else 3 + 4 * P
+    ev = np.zeros((n, n_rows, R), dtype=np.int32)
+
+    def slot(among, p_among):
+        if among and rng.random() < p_among:
+            return int(rng.choice(among))
+        return int(rng.integers(-2, W + 2))
+
+    def op():
+        if kind == "counter":
+            f = int(rng.choice([1, 0, 2, 5], p=[.8, .07, .08, .05]))
+            a = int(rng.choice(_EDGE_VALUES))
+        else:
+            f = int(rng.choice([1, 4, 0, 2, 3, 7],
+                               p=[.45, .2, .15, .1, .05, .05]))
+            a = int(rng.integers(-1, 4))
+        return f, a, int(rng.choice(_EDGE_VALUES))
+
+    for h in range(n):
+        open_: set = set()
+        for e in range(n_rows):
+            free = [w for w in range(W) if w not in open_]
+            k = int(rng.choice([0, 1, 2, 3], p=[.05, .45, .45, .05]))
+            if k == 2 and P is None and not open_ and rng.random() < .9:
+                k = 1
+            opens = []
+            if P is None and k == 1:
+                opens = [(slot(free, 0.85), *op())]
+                ev[h, e, :5] = (1, *opens[0])
+            elif P is not None:
+                m = int(rng.integers(0, min(len(free), P) + 1))
+                opens = [(slot(free, 0.85), *op()) for _ in range(m)]
+                for j, pay in enumerate(opens):
+                    ev[h, e, 3 + 4 * j:7 + 4 * j] = pay
+                ev[h, e, 2] = m if rng.random() < 0.9 else \
+                    int(rng.choice([-1, P + 2]))
+            open_ |= {q for q, *_ in opens if 0 <= q < W}
+            ev[h, e, 0] = k
+            if k == 2:
+                f = slot(sorted(open_), 0.97)
+                ev[h, e, 1] = f
+                open_.discard(f)
+    return ev

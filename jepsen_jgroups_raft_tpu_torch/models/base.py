@@ -9,7 +9,7 @@ To run on the card, models are constrained to:
   * a small integer op code ``f`` plus two int32 arguments ``a``/``b``,
   * a branch-free step on tensors (`torch_step`: pure `torch.where` math,
     no data-dependent control flow), whose device twin lives in the CUDA
-    kernel's model switch (ops/csrc/dense_scan.cu).
+    kernels' model steps (ops/csrc/models.cuh).
 
 A copy of the reference's models/base.py with `jax_step` renamed
 `torch_step`.
@@ -42,6 +42,26 @@ def _i32(x) -> int:
         return NIL
     x = int(x)
     return max(INT32_MIN, min(INT32_MAX, x))
+
+
+def wrap_i32(x):
+    """An integer tensor folded into int32 with two's-complement
+    wraparound (x mod 2^32), as the reference's jnp.int32 arithmetic
+    wraps."""
+    import torch
+
+    x = x.to(torch.int64)
+    return (((x + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def add_i32(x, y):
+    """x + y on int32 tensors (broadcasting; y may be a python int),
+    wrapping like int32: the sum is taken in int64 and folded back, so
+    no int32 addition ever overflows."""
+    import torch
+
+    return wrap_i32(x.to(torch.int64) + (
+        y.to(torch.int64) if isinstance(y, torch.Tensor) else int(y)))
 
 
 @dataclass(frozen=True)

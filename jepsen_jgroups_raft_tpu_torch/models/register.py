@@ -11,9 +11,9 @@ Completion semantics mirror the reference client:
     mutated the register;
   * info writes/cas may or may not have applied: optional ops.
 
-`KERNEL_MODEL` is this model's id in the CUDA kernel's model switch
-(ops/csrc/dense_scan.cu `model_step`), whose register case is the device
-twin of `torch_step`.
+`KERNEL_MODEL` is this model's id in the CUDA kernels' model switch
+(ops/csrc/models.cuh), whose register step is the device twin of
+`torch_step`.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ class CasRegister(Model):
     name = "cas-register"
     n_fcodes = 3
     readonly_fcodes = (READ,)
-    #: model id in the CUDA kernel's switch (ops/csrc/dense_scan.cu)
+    #: model id in the CUDA kernels' switch (ops/csrc/models.cuh)
     KERNEL_MODEL = 0
 
     def __init__(self, initial: Optional[int] = None):

@@ -3,9 +3,10 @@
 * `kernel_ir`  — eligibility caps, the macro row layout, and the plain
   PyTorch step parts (latch, closure fixpoint, FORCE) the plain version
   of every dense kernel is built from.
-* `dense_scan` — window grouping (`dense_plans_grouped`), the CUDA
-  dense-domain scan wrapper `dense_scan` and its plain version
-  `dense_scan_plain`.
+* `dense_scan` — grouping by kind and window (`dense_plans_grouped`),
+  the CUDA kernel wrappers `dense_scan` (dense-domain scan) and
+  `mask_scan` (mask-mode scan) and their plain versions
+  `dense_scan_plain`, `mask_scan_plain`.
 * `_build`     — nvcc build of `csrc/*.cu` at first use, ctypes binding.
 """
 

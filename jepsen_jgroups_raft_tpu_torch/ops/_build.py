@@ -1,11 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (sm_90a) into a
-shared library with a plain C entry point, at first use, into
-`build/torch_kernels/` at the root of the checkout (listed in
-.gitignore), and loaded with `ctypes`. The library's file name carries
-a hash of its source and flags, so an edited source never loads a
-stale build. No PyTorch headers are compiled, which keeps a build to
+Each `csrc/<name>.cu` (with the shared `csrc/*.cuh` headers) is
+compiled by `nvcc` for Hopper (sm_90a) into a shared library with a
+plain C entry point, at first use, into `build/torch_kernels/` at the
+root of the checkout (listed in .gitignore), and loaded with `ctypes`.
+The library's file name carries a hash of its sources and flags, so an
+edited source or header never loads a stale build. No PyTorch headers are compiled, which keeps a build to
 seconds. Any failure — no nvcc, a compile error, a load error — raises;
 there is no fallback.
 """
@@ -42,6 +42,13 @@ SIGNATURES: Dict[str, dict] = {
                                    _I, _I, _I, _I, _VP]),
         "dense_scan_error_string": (ctypes.c_char_p, [_I]),
     },
+    "mask_scan": {
+        # events, n_events, ok, B, E, R, macro_p, W, model, init_state,
+        # device, stream
+        "mask_scan_launch": (_I, [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _VP]),
+        "mask_scan_error_string": (ctypes.c_char_p, [_I]),
+    },
 }
 
 _LOCK = threading.Lock()
@@ -53,7 +60,9 @@ BUILD_LOG: Dict[str, str] = {}
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every kernel's source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -89,56 +89,23 @@
 //
 // Integers: NIL = -2^31 only ever meets `==`; nothing negates or
 // subtracts a value.
+//
+// The frontier layout, the FORCE and the row ring are shared with the
+// mask-mode scan (warp_frontier.cuh); the model steps live in
+// models.cuh. Only the register has a dense domain, so the launcher
+// refuses every other model.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "models.cuh"
+#include "warp_frontier.cuh"
 
 namespace {
 
 constexpr int kMaxSlots = 10;   // DENSE_MAX_SLOTS
 constexpr int kMaxStates = 16;  // DENSE_MAX_STATES
 constexpr int kMaxCells = 8192; // DENSE_MAX_CELLS = 2^W * S
-constexpr int kMaxOpens = 16;   // MACRO_MAX_OPENS
-constexpr int kRowPitch = 3 + 4 * kMaxOpens + 1;  // ring row stride, ints
-constexpr int kRingDepth = 8;   // rows staged per warp
-constexpr int kWarpsPerBlock = 4;
-constexpr unsigned kFull = 0xffffffffu;
-
-constexpr int32_t kEvOpen = 1;
-constexpr int32_t kEvForce = 2;
-
-// Model switch: one case per model family with a device step. Ids match
-// the Python models' KERNEL_MODEL.
-constexpr int kModelCasRegister = 0;
-
-// CAS register opcodes (models/register.py).
-constexpr int32_t kWrite = 1;
-constexpr int32_t kCas = 2;
-
-// Device twin of the models' torch_step: (state, op) -> (state', legal).
-__device__ __forceinline__ void model_step(int model, int32_t state,
-                                           int32_t f, int32_t a, int32_t b,
-                                           int32_t* next, bool* legal) {
-  switch (model) {
-    case kModelCasRegister:
-    default: {
-      const bool is_write = f == kWrite;
-      const bool match = state == a;
-      *legal = is_write || match;  // read/cas legal iff observed matches
-      *next = is_write ? a : ((f == kCas && match) ? b : state);
-    }
-  }
-}
-
-// Bits of a word whose position has bit p clear (p < 5): the fields of
-// the masks without the in-word mask bit at p.
-__host__ __device__ constexpr uint32_t low_half(int p) {
-  return p == 0 ? 0x55555555u
-       : p == 1 ? 0x33333333u
-       : p == 2 ? 0x0f0f0f0fu
-       : p == 3 ? 0x00ff00ffu
-                : 0x0000ffffu;
-}
 
 // Bit 0 of every FS-bit field of a word.
 __host__ __device__ constexpr uint32_t field_unit(int lf) {
@@ -148,13 +115,6 @@ __host__ __device__ constexpr uint32_t field_unit(int lf) {
        : lf == 3 ? 0x01010101u
                  : 0x00010001u;
 }
-
-template <int W, int LF>
-struct Layout {
-  static constexpr int kBits = W + LF;  // log2 of the frontier's bits
-  static constexpr int kWords = kBits > 10 ? 1 << (kBits - 10) : 1;
-  static constexpr int kFS = 1 << LF;
-};
 
 // Every field of x mapped through slot w's rows t[0..FS).
 template <int LF>
@@ -233,64 +193,6 @@ __device__ __forceinline__ void closure(
   }
 }
 
-// FORCE over a register-word mask bit b[10 + k]: words j without the bit
-// take words j | bit, which are cleared. Returns this lane's survivors.
-template <int W, int LF, int k>
-__device__ __forceinline__ uint32_t force_words(
-    uint32_t (&F)[Layout<W, LF>::kWords]) {
-  uint32_t live = 0;
-#pragma unroll
-  for (int j = 0; j < Layout<W, LF>::kWords; ++j) {
-    if (!((j >> k) & 1)) {
-      live |= F[j | (1 << k)];
-      F[j] = F[j | (1 << k)];
-      F[j | (1 << k)] = 0;
-    }
-  }
-  return live;
-}
-
-// FORCE slot w (already clipped to [0, W)): a survivor must hold bit w;
-// the bit-w half moves down onto the other and is cleared. In-word and
-// lane bits take the slot as a runtime shift or shuffle mask; register
-// words branch (warp-uniformly) to their compile-time move. Returns
-// "some survivor" (warp-wide).
-template <int W, int LF>
-__device__ __forceinline__ bool force(uint32_t (&F)[Layout<W, LF>::kWords],
-                                      int w, int lane) {
-  constexpr int kWords = Layout<W, LF>::kWords;
-  const int p = LF + w;
-  uint32_t live = 0;
-  if (p < 5) {
-    const uint32_t lo = p == 0 ? low_half(0) : p == 1 ? low_half(1)
-                      : p == 2 ? low_half(2) : p == 3 ? low_half(3)
-                                                      : low_half(4);
-#pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      live |= F[j] & ~lo;
-      F[j] = (F[j] >> (1 << p)) & lo;
-    }
-  } else if (p < 10) {
-    const int x = 1 << (p - 5);
-    const bool has = lane & x;
-#pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      live |= has ? F[j] : 0u;
-      const uint32_t up = __shfl_xor_sync(kFull, F[j], x);
-      F[j] = has ? 0u : up;
-    }
-  } else if constexpr (kWords > 1) {
-    if (p == 10) live = force_words<W, LF, 0>(F);
-    if constexpr (kWords > 2) {
-      if (p == 11) live = force_words<W, LF, 1>(F);
-    }
-    if constexpr (kWords > 4) {
-      if (p == 12) live = force_words<W, LF, 2>(F);
-    }
-  }
-  return __any_sync(kFull, live != 0);
-}
-
 // Transition row of source state s under op (f, a, b): every state id
 // s' < S whose value is the step's result (duplicates in the padded
 // table all light up), or nothing when illegal or s >= S.
@@ -309,22 +211,6 @@ __device__ __forceinline__ uint32_t transition_row(
   for (int s2 = 0; s2 < (1 << LF); ++s2)
     bits |= (s2 < S && vals[s2] == next) ? 1u << s2 : 0u;
   return (legal && s < S) ? bits : 0u;
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <int W, int LF>
@@ -347,19 +233,9 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
   uint32_t (*T)[kFS] = T_all[warp];
   const int32_t* ev = events + static_cast<size_t>(h) * E * R;
   const int n_rows = min(max(n_events[h], 0), E);
-
-  // Copy row e into its ring slot (nothing past the history's end) and
-  // close a cp.async group either way, so group counts stay uniform.
-  auto stage = [&](int e) {
-    if (e < n_rows) {
-      const int32_t* src = ev + static_cast<size_t>(e) * R;
-      int32_t* dst = ring[e % kRingDepth];
-      for (int i = lane; i < R; i += 32) cp_async4(dst + i, src + i);
-    }
-    cp_async_commit();
-  };
 #pragma unroll
-  for (int e = 0; e < kRingDepth - 1; ++e) stage(e);
+  for (int e = 0; e < kRingDepth - 1; ++e)
+    stage_row(ring, ev, e, n_rows, R, lane);
 
   int32_t vals[kFS];
 #pragma unroll
@@ -377,7 +253,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
   bool ok = true;
   const int base = macro_p ? 3 : 1;  // first payload (slot, f, a, b)
   for (int e = 0; e < n_rows; ++e) {
-    stage(e + kRingDepth - 1);
+    stage_row(ring, ev, e + kRingDepth - 1, n_rows, R, lane);
     cp_async_wait<kRingDepth - 1>();  // this lane's copies of row e landed
     __syncwarp();                     // ... and every other lane's
     const int32_t* row = ring[e % kRingDepth];
@@ -512,7 +388,7 @@ extern "C" const char* dense_scan_error_string(int code) {
     case -2: return "(W, S) beyond the dense caps";
     case -3: return "macro_p beyond MACRO_MAX_OPENS";
     case -4: return "row width does not match macro_p";
-    case -5: return "model has no device step";
+    case -5: return "model has no dense domain (only the register has)";
     case -6: return "field_log2 is not the layout's field width for S";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

@@ -1,0 +1,366 @@
+// Mask-mode linearizability scan for Hopper (sm_90a): one warp per
+// history, the frontier bitset in registers.
+//
+// Replaces the reference's mask-mode program, jepsen_jgroups_raft_tpu/
+// ops/dense_scan.py `mask_step_parts` (dense_scan.py:577; an XLA program,
+// no `pallas_call`), for models whose state after a SET of ops does not
+// depend on their order (`mask_determined`: the counter, the ticket
+// queue). The frontier is a bitset F[2^W], W <= 12: bit m = "some
+// linearization of exactly the ops in window mask m survives". Config
+// m's state is base + sums[m], where sums[m] is the subset sum of the
+// open slots' deltas and base absorbs the delta of every retired op. Per
+// event row:
+//
+//   latch    the OPEN payloads set their slots' registers (f, a, b,
+//            delta) and update sums;
+//   closure  at a FORCE after an OPEN: legal[w][m] = slot w's op is legal
+//            in state base + sums[m] (one table per closing FORCE), then
+//            F[m | bit w] |= F[m] & legal[w][m] for every open slot w, to
+//            fixpoint;
+//   FORCE w  survivors hold bit w; the bit-w half moves down onto the
+//            other; ok &= "some survivor"; slot w's delta retires into
+//            base.
+//
+// What bounds it on this card: serial depth, as for dense_scan.cu. A
+// suite history is ~1000 macro rows, each depending on the one before,
+// and the bytes and operations per row are few. So the design is
+// dense_scan.cu's skeleton (warp_frontier.cuh): one warp per history
+// and four per block, no block barrier in the event loop (every branch
+// is warp-uniform), rows staged ahead by cp.async, the frontier in
+// registers at field width 0 (2^W bits, at most 4 words a lane), a
+// closure sweep that applies every open slot to the same frontier. New
+// here:
+//
+// * sums without a 2^W table. Every update the reference makes to its
+//   int32 sums[2^W] adds one scalar to one column — the masks that hold
+//   bit c of the slot clipped to [0, W): at OPEN the new delta less the
+//   slot's old one, at FORCE minus the retired delta. Addition mod 2^32
+//   commutes, so sums[m] = Σ_{c in m} X[c], with X[c] the running total
+//   added to column c. That is the reference's array exactly, also on
+//   rows whose out-of-range slot adds to the clipped column while no
+//   slot's delta changes. Lane c < W keeps X[c] and slot c's registers;
+//   a closure shuffles them out once.
+//
+// * legality by ballot. legal[w][m] is built 32 masks at a time: lane i
+//   evaluates mask m = 32 g + i and `__ballot_sync` hands the 32 bits to
+//   the lane that holds that frontier word. A lane's state is base +
+//   lo(lane) + hi(g), partial sums over the mask's low five and high
+//   bits, so no mask re-sums W deltas. A closing FORCE costs each lane
+//   (open slots) * max(2^W / 32, 1) model steps — 64 at W = 8, 1536 at
+//   W = 12 — of a few integer operations each; closed slots cost nothing
+//   and get an empty table.
+//
+// * a closure pass is dense_scan.cu's shift / shuffle / register move
+//   with an AND of the legality word in place of the transition lookup.
+//
+// Same function as the reference, bit for bit: the closure reaches the
+// same least fixpoint in at most W + 1 sweeps (the argument is in
+// dense_scan.cu); payloads that share one slot in one macro row SUM their
+// f, a, b and deltas into it (the reference's `macro_latch_i32`); slots
+// are clipped to [0, W) for the sums column and the FORCE, as the
+// reference clips them; the scan stops at n_events or at the first dead
+// FORCE. Integers: every sum is taken in uint32_t and cast back, so it
+// wraps as the reference's int32 does.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "models.cuh"
+#include "warp_frontier.cuh"
+
+namespace {
+
+constexpr int kMaskMaxSlots = 12;  // MASK_DENSE_MAX_SLOTS
+
+template <int W>
+using MaskLayout = Layout<W, 0>;
+
+template <int W>
+constexpr int kMaskWords = MaskLayout<W>::kWords;
+
+// Slot w's image in a closure sweep: F[m] & legal[w][m] for every mask m
+// without bit w, placed at m | bit w and OR-ed into `add`.
+template <int W, int w>
+__device__ __forceinline__ void mask_slot_image(
+    const uint32_t (&F)[kMaskWords<W>], uint32_t (&add)[kMaskWords<W>],
+    const uint32_t (&L)[kMaskWords<W>], int lane) {
+  constexpr int kWords = kMaskWords<W>;
+  if constexpr (w < 5) {
+    constexpr uint32_t lo = low_half(w);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) add[j] |= (F[j] & L[j] & lo) << (1 << w);
+  } else if constexpr (w < 10) {
+    constexpr int k = w - 5;
+    const uint32_t dst = ((lane >> k) & 1) ? kFull : 0u;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      add[j] |= __shfl_xor_sync(kFull, F[j] & L[j], 1 << k) & dst;
+  } else {
+    constexpr int k = w - 10;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      if (!((j >> k) & 1)) add[j | (1 << k)] |= F[j] & L[j];
+  }
+}
+
+template <int W, int w = 0>
+__device__ __forceinline__ void mask_sweep(
+    const uint32_t (&F)[kMaskWords<W>], uint32_t (&add)[kMaskWords<W>],
+    const uint32_t (&L)[W][kMaskWords<W>], int lane) {
+  if constexpr (w < W) {
+    mask_slot_image<W, w>(F, add, L[w], lane);
+    mask_sweep<W, w + 1>(F, add, L, lane);
+  }
+}
+
+// Closure to fixpoint: each sweep adds every slot's image of the
+// frontier it starts from, until a sweep adds nothing, in at most W + 1
+// sweeps (the reference's bound).
+template <int W>
+__device__ __forceinline__ void mask_closure(
+    uint32_t (&F)[kMaskWords<W>], const uint32_t (&L)[W][kMaskWords<W>],
+    int lane) {
+  constexpr int kWords = kMaskWords<W>;
+  for (int it = 0; it <= W; ++it) {
+    uint32_t add[kWords];
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) add[j] = 0u;
+    mask_sweep<W>(F, add, L, lane);
+    uint32_t fresh = 0;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      fresh |= add[j] & ~F[j];
+      F[j] |= add[j];
+    }
+    if (!__any_sync(kFull, fresh != 0)) break;
+  }
+}
+
+// This lane's legality words: bit i of L[w][j] is "open slot w's op is
+// legal in the state of mask (j << 10) | (lane << 5) | i", zero for
+// closed slots and for masks >= 2^W. Slot c's registers (op, column
+// total X[c]) are lane c's; `open` is warp-uniform.
+template <int W, int MODEL>
+__device__ __forceinline__ void legality(uint32_t (&L)[W][kMaskWords<W>],
+                                         uint32_t base, uint32_t col,
+                                         int32_t sf, int32_t sa, int32_t sb,
+                                         unsigned open, int lane) {
+  constexpr int kWords = kMaskWords<W>;
+  constexpr int kM = 1 << W;
+  // lanes holding frontier words: ballot groups per register word
+  constexpr int kGroups = kM >= 1024 ? 32 : (kM >= 32 ? kM / 32 : 1);
+  uint32_t X[W];
+  int32_t f[W], a[W], b[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    X[c] = __shfl_sync(kFull, col, c);
+    f[c] = __shfl_sync(kFull, sf, c);
+    a[c] = __shfl_sync(kFull, sa, c);
+    b[c] = __shfl_sync(kFull, sb, c);
+  }
+  uint32_t lo = base;  // + the mask's low five bits, which are the lane's
+#pragma unroll
+  for (int c = 0; c < W && c < 5; ++c) lo += ((lane >> c) & 1) ? X[c] : 0u;
+  const bool real = kM >= 32 || lane < kM;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    uint32_t hj = lo;  // + mask bits 10.. (the register word)
+#pragma unroll
+    for (int c = 10; c < W; ++c) hj += ((j >> (c - 10)) & 1) ? X[c] : 0u;
+#pragma unroll
+    for (int w = 0; w < W; ++w) L[w][j] = 0u;
+#pragma unroll 1
+    for (int g = 0; g < kGroups; ++g) {  // frontier lane g, word j
+      uint32_t st = hj;  // + mask bits 5..9 (the frontier lane)
+#pragma unroll
+      for (int c = 5; c < W && c < 10; ++c)
+        st += ((g >> (c - 5)) & 1) ? X[c] : 0u;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (!((open >> w) & 1)) continue;  // warp-uniform
+        int32_t next;
+        bool lg;
+        Model<MODEL>::step(static_cast<int32_t>(st), f[w], a[w], b[w], &next,
+                           &lg);
+        const uint32_t word = __ballot_sync(kFull, lg && real);
+        if (lane == g) L[w][j] = word;
+      }
+    }
+  }
+}
+
+template <int W, int MODEL>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
+    mask_scan_warp(const int32_t* __restrict__ events,
+                   const int32_t* __restrict__ n_events,
+                   uint8_t* __restrict__ ok_out, int B, int E, int R,
+                   int macro_p, int32_t init_state) {
+  constexpr int kWords = kMaskWords<W>;
+  __shared__ int32_t ring_all[kWarpsPerBlock][kRingDepth][kRowPitch];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.x * kWarpsPerBlock + warp;
+  if (h >= B) return;  // warp-uniform; no other warp waits on this one
+  int32_t (*ring)[kRowPitch] = ring_all[warp];
+  const int32_t* ev = events + static_cast<size_t>(h) * E * R;
+  const int n_rows = min(max(n_events[h], 0), E);
+#pragma unroll
+  for (int e = 0; e < kRingDepth - 1; ++e)
+    stage_row(ring, ev, e, n_rows, R, lane);
+
+  uint32_t F[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) F[j] = 0u;
+  if (lane == 0) F[0] = 1u;  // the empty mask
+
+  // Slot `lane`'s registers (lanes >= W keep zeros): its op, its delta,
+  // the column total X[lane] of sums, and whether it is open.
+  int32_t sf = 0, sa = 0, sb = 0;
+  uint32_t sdelta = 0, col = 0;
+  bool sopen = false;
+  uint32_t base = static_cast<uint32_t>(init_state);  // warp-uniform
+  bool dirty = false;  // an OPEN since the last FORCE: a closure is due
+  bool ok = true;
+  const int first = macro_p ? 3 : 1;  // first payload (slot, f, a, b)
+  for (int e = 0; e < n_rows; ++e) {
+    stage_row(ring, ev, e + kRingDepth - 1, n_rows, R, lane);
+    cp_async_wait<kRingDepth - 1>();  // this lane's copies of row e landed
+    __syncwarp();                     // ... and every other lane's
+    const int32_t* row = ring[e % kRingDepth];
+    const int32_t kind = row[0];
+    const int32_t fslot = row[1];
+    const int n = macro_p ? min(max(row[2], 0), macro_p) : (kind == kEvOpen);
+
+    // ---- latch: lane c < W folds in the payloads whose clipped slot is c
+    if (n > 0) {
+      dirty = true;
+      if (lane < W) {
+        const uint32_t old = sdelta;
+        uint32_t dx = 0, nd = 0, nf = 0, na = 0, nb = 0;
+        bool hit = false;
+        for (int p = 0; p < n; ++p) {
+          const int32_t* pay = row + first + 4 * p;
+          const int q = pay[0];
+          if (min(max(q, 0), W - 1) != lane) continue;
+          const uint32_t d = Model<MODEL>::mask_delta(pay[1], pay[2], pay[3]);
+          if (q == lane) {  // the slot itself: its registers take the op
+            hit = true;
+            dx += d - old;
+            nd += d;
+            nf += static_cast<uint32_t>(pay[1]);
+            na += static_cast<uint32_t>(pay[2]);
+            nb += static_cast<uint32_t>(pay[3]);
+          } else {  // out of range: only the clipped column moves
+            dx += d;
+          }
+        }
+        col += dx;
+        if (hit) {
+          sf = static_cast<int32_t>(nf);
+          sa = static_cast<int32_t>(na);
+          sb = static_cast<int32_t>(nb);
+          sdelta = nd;
+          sopen = true;
+        }
+      }
+    }
+
+    if (kind == kEvForce) {
+      // ---- closure to fixpoint, only when an OPEN came since the last
+      // FORCE (the reference's rule), over the hoisted legality table
+      if (dirty) {
+        uint32_t L[W][kWords];
+        const unsigned open = __ballot_sync(kFull, sopen);
+        legality<W, MODEL>(L, base, col, sf, sa, sb, open, lane);
+        mask_closure<W>(F, L, lane);
+        dirty = false;
+      }
+      // ---- FORCE: survivors hold the slot's bit; recycle the bit and
+      // retire the slot's delta into base
+      const int w = min(max(fslot, 0), W - 1);
+      ok = force<W, 0>(F, w, lane);
+      const bool in_range = fslot >= 0 && fslot < W;
+      const uint32_t d_w = __shfl_sync(kFull, sdelta, w);
+      const uint32_t retired = in_range ? d_w : 0u;
+      base += retired;
+      if (in_range && lane == fslot) {
+        col -= retired;
+        sdelta = 0u;
+        sopen = false;
+      }
+    }
+    __syncwarp();  // every lane is done with this ring slot
+    if (!ok) break;
+  }
+  cp_async_wait<0>();
+  if (lane == 0) ok_out[h] = ok ? 1 : 0;
+}
+
+using KernelFn = void (*)(const int32_t*, const int32_t*, uint8_t*, int, int,
+                          int, int, int32_t);
+
+template <int MODEL>
+KernelFn pick_window(int W) {
+  switch (W) {
+    case 1: return mask_scan_warp<1, MODEL>;
+    case 2: return mask_scan_warp<2, MODEL>;
+    case 3: return mask_scan_warp<3, MODEL>;
+    case 4: return mask_scan_warp<4, MODEL>;
+    case 5: return mask_scan_warp<5, MODEL>;
+    case 6: return mask_scan_warp<6, MODEL>;
+    case 7: return mask_scan_warp<7, MODEL>;
+    case 8: return mask_scan_warp<8, MODEL>;
+    case 9: return mask_scan_warp<9, MODEL>;
+    case 10: return mask_scan_warp<10, MODEL>;
+    case 11: return mask_scan_warp<11, MODEL>;
+    case 12: return mask_scan_warp<12, MODEL>;
+    default: return nullptr;
+  }
+}
+
+KernelFn pick(int W, int model) {
+  switch (model) {
+    case kModelCounter: return pick_window<kModelCounter>(W);
+    case kModelQueue: return pick_window<kModelQueue>(W);
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+// Launch the scan over B histories on `stream`, one warp per history and
+// kWarpsPerBlock histories per block, with the kernel instantiated for
+// (W, model); init_state is the model's initial state. Returns 0, a CUDA
+// error code from the launch, or a negative code for refused arguments
+// (see mask_scan_error_string). Does not synchronise.
+extern "C" int mask_scan_launch(const int32_t* events, const int32_t* n_events,
+                                uint8_t* ok, int B, int E, int R, int macro_p,
+                                int W, int model, int init_state, int device,
+                                void* stream) {
+  if (B < 0 || E < 0) return -1;
+  if (W < 1 || W > kMaskMaxSlots) return -2;
+  if (macro_p < 0 || macro_p > kMaxOpens) return -3;
+  if (R != (macro_p ? 3 + 4 * macro_p : 5)) return -4;
+  const KernelFn kernel = pick(W, model);
+  if (kernel == nullptr) return -5;
+  if (B == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  kernel<<<blocks, kWarpsPerBlock * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(events, n_events, ok, B, E, R,
+                                                macro_p, init_state);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* mask_scan_error_string(int code) {
+  switch (code) {
+    case -1: return "negative batch or event count";
+    case -2: return "W beyond the mask caps (1..12)";
+    case -3: return "macro_p beyond MACRO_MAX_OPENS";
+    case -4: return "row width does not match macro_p";
+    case -5: return "model has no mask-mode device step";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
+}

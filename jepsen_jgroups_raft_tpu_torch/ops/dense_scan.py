@@ -19,14 +19,22 @@ Per event (packing.py's stream):
   FORCE w: survivors must hold bit w; the bit is recycled by moving the
            bit-w half onto the other; ok &= "some survivor".
 
+Mask mode (the reference's `mask_step_parts`) serves models whose state
+after a set of ops does not depend on their order (`mask_determined`:
+the counter, the ticket queue): the frontier is a bare bitset F[2^W],
+config m's state is base + sums[m] (subset sums of the open slots'
+deltas, base holding the retired ones), and legality of every open slot
+at every mask is one table per closing FORCE. W ≤ 12.
+
 This module holds:
 
   * the window grouping (`dense_plan`, `dense_plans_grouped`) — numpy,
-    identical groups to the reference's;
-  * `dense_scan`, the wrapper of the hand-written CUDA kernel
-    (ops/csrc/dense_scan.cu) — the main path's only kernel;
-  * `dense_scan_plain`, the same function in plain PyTorch, which the CPU
-    tests use and chip_smoke.py holds the kernel to on the card.
+    identical groups, kinds and `rest` to the reference's;
+  * `dense_scan` and `mask_scan`, the wrappers of the hand-written CUDA
+    kernels (ops/csrc/dense_scan.cu, ops/csrc/mask_scan.cu);
+  * `dense_scan_plain` and `mask_scan_plain`, the same functions in
+    plain PyTorch, which the CPU tests use and chip_smoke.py holds the
+    kernels to on the card.
 
 `val_of[S]` is a per-history input (id 0 = initial state); padding
 repeats id 0, so duplicate ids are expected and must all light up.
@@ -43,17 +51,23 @@ import numpy as np
 import torch
 
 from ..history.packing import EncodedHistory
+from ..models.base import wrap_i32
 from . import _build
 from .kernel_ir import (DENSE_MAX_CELLS, DENSE_MAX_SLOTS, DENSE_MAX_STATES,
-                        closure_fixpoint, force_arith, macro_row_ints,
-                        make_stream_step)
+                        MASK_DENSE_MAX_SLOTS, closure_fixpoint, force_arith,
+                        macro_row_ints, make_stream_step)
 
 
 @dataclass(frozen=True)
 class DensePlan:
-    """How to run a window group on the dense kernel: frontier
-    F[2^W, S] over an enumerated value domain; `val_of` [B, S] is the
-    per-history id→value table (kernel input)."""
+    """How to run a window group on a dense kernel.
+
+    kind "domain": frontier F[2^W, S] over an enumerated value domain;
+    `val_of` [B, S] is the per-history id→value table (kernel input).
+    kind "mask": frontier F[2^W] for order-independent models
+    (`model.mask_determined`), per-mask states from subset sums; `val_of`
+    is a [B, 1] dummy, as in the reference, which the mask kernel does
+    not read."""
 
     kind: str
     n_slots: int
@@ -63,7 +77,7 @@ class DensePlan:
     @property
     def kernel_tag(self) -> str:
         """Reporting label (checker results)."""
-        return "dense"
+        return "dense" if self.kind == "domain" else "dense-mask"
 
 
 def _fits(W: int, S: int) -> bool:
@@ -71,10 +85,14 @@ def _fits(W: int, S: int) -> bool:
             and (1 << W) * S <= DENSE_MAX_CELLS)
 
 
+def _mask_plan(W: int, B: int) -> DensePlan:
+    return DensePlan("mask", W, 1, np.zeros((B, 1), dtype=np.int32))
+
+
 def dense_plan(model, encs: Sequence[EncodedHistory]) -> Optional[DensePlan]:
-    """One plan for a whole batch at its widest window, or None when
-    some history's domain is not enumerable or the cells exceed the
-    caps. Domain tables are padded with their own id-0 value."""
+    """One plan for a whole batch at its widest window — domain mode
+    first, mask mode second — or None when neither fits. Domain tables
+    are padded with their own id-0 value."""
     if not encs:
         return None
     W = max((e.n_slots for e in encs), default=0)
@@ -82,13 +100,18 @@ def dense_plan(model, encs: Sequence[EncodedHistory]) -> Optional[DensePlan]:
     for e in encs:
         d = model.dense_domain(e.events)
         if d is None:
-            return None
+            domains = None
+            break
         domains.append(np.asarray(d, dtype=np.int32))
-    S = max((len(d) for d in domains), default=1)
-    if not _fits(W, S):
-        return None
-    S_b, val_of = _pad_domains(domains, range(len(domains)))
-    return DensePlan("domain", max(W, 1), S_b, val_of)
+    if domains is not None:
+        S = max((len(d) for d in domains), default=1)
+        if _fits(W, S):
+            S_b, val_of = _pad_domains(domains, range(len(domains)))
+            return DensePlan("domain", max(W, 1), S_b, val_of)
+    if W <= MASK_DENSE_MAX_SLOTS and \
+            all(model.mask_eligible(e.events) for e in encs):
+        return _mask_plan(max(W, 1), len(encs))
+    return None
 
 
 #: Don't launch a group for fewer histories than this — merge the
@@ -98,7 +121,7 @@ DENSE_MIN_GROUP = 16
 #: Past this legacy event count a history counts as LONG.
 MERGE_MAX_EVENTS = 4096
 
-#: Long histories merge into one launch only while the group's window
+#: Merged histories share one launch only while the group's window
 #: spread stays within this many slots of the widest member.
 MERGE_LONG_MAX_SPREAD = 3
 
@@ -108,6 +131,14 @@ def _merge_long_groups() -> bool:
     launches. Off unless ``JGRAFT_MERGE_LONG=1`` (the reference's
     default off the TPU; the port asks no backend)."""
     return os.environ.get("JGRAFT_MERGE_LONG") == "1"
+
+
+def _merge_all_groups() -> bool:
+    """Whether SHORT histories merge into cluster launches too
+    (``JGRAFT_MERGE_ALL=1``, off by default, as in the reference).
+    ``JGRAFT_MERGE_LONG=0`` forbids it as well."""
+    return (os.environ.get("JGRAFT_MERGE_ALL", "0") == "1"
+            and os.environ.get("JGRAFT_MERGE_LONG") != "0")
 
 
 def _pad_domains(domains, idxs):
@@ -130,28 +161,35 @@ def dense_plans_grouped(model, encs: Sequence[EncodedHistory]):
     """Route each history of a batch to its dense window group.
 
     Returns (groups, rest): `groups` is [(indices, DensePlan)] over the
-    dense-eligible histories, partitioned by concurrency window (kernel
-    cost is exponential in W, and a real batch's windows spread with
-    per-history crash counts); `rest` holds the indices beyond the dense
-    caps. Groups of fewer than DENSE_MIN_GROUP histories merge into the
-    next-wider window; a merged group whose padded cells exceed the cap
-    sheds its widest members to `rest`. Each history's domain is
-    scanned once. Same groups, `rest` and `val_of` as the reference."""
+    dense-eligible histories, partitioned by kernel kind (domain first,
+    then mask) and concurrency window (kernel cost is exponential in W,
+    and a real batch's windows spread with per-history crash counts);
+    `rest` holds the indices beyond both kinds' caps. Groups of fewer
+    than DENSE_MIN_GROUP histories merge into the next-wider window; a
+    merged domain group whose padded cells exceed the cap sheds its
+    widest members to `rest`. With ``JGRAFT_MERGE_LONG=1`` long
+    histories, and with ``JGRAFT_MERGE_ALL=1`` short ones too, pool into
+    spread-capped cluster launches. Each history's domain is scanned
+    once. Same groups, kinds, `rest` and `val_of` as the reference."""
     domains = [model.dense_domain(e.events) for e in encs]
     buckets: dict = {}
     rest: list = []
     for i, (e, d) in enumerate(zip(encs, domains)):
         W = max(e.n_slots, 1)
         if d is not None and _fits(W, len(d)):
-            buckets.setdefault(W, []).append(i)
+            buckets.setdefault(("domain", W), []).append(i)
+        elif W <= MASK_DENSE_MAX_SLOTS and model.mask_eligible(e.events):
+            buckets.setdefault(("mask", W), []).append(i)
         else:
             rest.append(i)
     groups: list = []
 
-    def flush(pending):
+    def flush(kind, pending):
         """(indices, plan) for one group at the group's own widest
         window, or None when the whole group sheds."""
         w_eff = max(max(encs[i].n_slots for i in pending), 1)
+        if kind == "mask":
+            return (pending, _mask_plan(w_eff, len(pending)))
         S, val_of = _pad_domains(domains, pending)
         while (1 << w_eff) * S > DENSE_MAX_CELLS and pending:
             widest = max(pending, key=lambda i: encs[i].n_slots)
@@ -164,60 +202,71 @@ def dense_plans_grouped(model, encs: Sequence[EncodedHistory]):
             return None
         return (pending, DensePlan("domain", w_eff, S, val_of))
 
-    windows = sorted(buckets)
-    if _merge_long_groups():
-        long_pool = [i for w in windows for i in buckets[w]
-                     if encs[i].n_events > MERGE_MAX_EVENTS]
-        if long_pool:
-            pooled = set(long_pool)
-            for w in windows:
-                buckets[w] = [i for i in buckets[w] if i not in pooled]
-            windows = [w for w in windows if buckets[w]]
-            by_w = sorted(long_pool, key=lambda i: encs[i].n_slots,
-                          reverse=True)
-            while by_w:
-                w_top = encs[by_w[0]].n_slots
-                cut = w_top - MERGE_LONG_MAX_SPREAD
-                # greedy take, re-checking the padded cell envelope as
-                # members join; a member that would overflow it waits
-                # for a later, narrower cluster
-                take, rest_pool, s_run = [], [], 1
-                for i in by_w:
-                    if encs[i].n_slots < cut:
-                        rest_pool.append(i)
-                        continue
-                    s_new = max(s_run, len(domains[i]))
-                    s_pad = 1
-                    while s_pad < s_new:
-                        s_pad *= 2
-                    if take and (1 << w_top) * s_pad > DENSE_MAX_CELLS:
-                        rest_pool.append(i)
-                        continue
-                    take.append(i)
-                    s_run = s_new
-                by_w = rest_pool
-                g = flush(take)
+    merge_long, merge_all = _merge_long_groups(), _merge_all_groups()
+    for kind in ("domain", "mask"):
+        windows = sorted(w for k, w in buckets if k == kind)
+        if merge_long or merge_all:
+            # one pool of long histories, and under MERGE_ALL one of
+            # short ones: a short history merged into a long launch would
+            # be padded to the long length
+            pools = [[i for w in windows for i in buckets[(kind, w)]
+                      if (encs[i].n_events > MERGE_MAX_EVENTS) == is_long]
+                     for is_long in ((True, False) if merge_all
+                                     else (True,))]
+            pools = [p for p in pools if p]
+            pooled = set(i for p in pools for i in p)
+            if pooled:
+                for w in windows:
+                    buckets[(kind, w)] = [i for i in buckets[(kind, w)]
+                                          if i not in pooled]
+                windows = [w for w in windows if buckets[(kind, w)]]
+            for pool in pools:
+                by_w = sorted(pool, key=lambda i: encs[i].n_slots,
+                              reverse=True)
+                while by_w:
+                    w_top = encs[by_w[0]].n_slots
+                    cut = w_top - MERGE_LONG_MAX_SPREAD
+                    # greedy take, re-checking the padded cell envelope
+                    # as members join; a member that would overflow it
+                    # waits for a later, narrower cluster
+                    take, rest_pool, s_run = [], [], 1
+                    for i in by_w:
+                        if encs[i].n_slots < cut:
+                            rest_pool.append(i)
+                            continue
+                        s_new = max(s_run, len(domains[i])
+                                    if kind == "domain" else 1)
+                        s_pad = 1
+                        while s_pad < s_new:
+                            s_pad *= 2
+                        if take and (1 << w_top) * s_pad > DENSE_MAX_CELLS:
+                            rest_pool.append(i)
+                            continue
+                        take.append(i)
+                        s_run = s_new
+                    by_w = rest_pool
+                    g = flush(kind, take)
+                    if g is not None:
+                        groups.append(g)
+        pending: list = []
+        for w in windows:
+            bucket = buckets[(kind, w)]
+            long_bucket = any(encs[i].n_events > MERGE_MAX_EVENTS
+                              for i in bucket)
+            if long_bucket and pending:
+                # short stragglers flush first: merging them into a long
+                # launch would pad their streams to the long length
+                g = flush(kind, pending)
                 if g is not None:
                     groups.append(g)
-    pending: list = []
-    for w in windows:
-        bucket = buckets[w]
-        long_bucket = any(encs[i].n_events > MERGE_MAX_EVENTS
-                          for i in bucket)
-        if long_bucket and pending:
-            # short stragglers flush first: merging them into a long
-            # launch would pad their streams to the long length
-            g = flush(pending)
-            if g is not None:
-                groups.append(g)
-            pending = []
-        pending += bucket
-        min_group = 1 if long_bucket else DENSE_MIN_GROUP
-        if len(pending) >= min_group or w == windows[-1]:
-            g = flush(pending)
-            if g is not None:
-                groups.append(g)
-            pending = []
+                pending = []
+            pending += bucket
+            min_group = 1 if long_bucket else DENSE_MIN_GROUP
+            if len(pending) >= min_group or w == windows[-1]:
+                g = flush(kind, pending)
+                if g is not None:
+                    groups.append(g)
+                pending = []
     return groups, rest
 
 
@@ -328,12 +377,144 @@ def dense_scan_plain(events, val_of, n_slots: int,
     return carry[3]
 
 
+def mask_sweep_fn(legal):
+    """One closure sweep of the mask-mode plain version, as F -> F'.
+
+    legal [B, W, M] bool: slot w's op is legal in mask m's state (closed
+    slots all False); F [B, M, 1] bool. Slots w = 0 .. W-1 in turn, each
+    pass seeing the ones before: F[m | bit w] |= F[m] & legal[w, m] for
+    every mask m without bit w."""
+    B, W, M = (int(x) for x in legal.shape)
+
+    def sweep(F):
+        for w in range(W):
+            Fb = F.view(B, M >> (w + 1), 2, 1 << w)
+            Lb = legal[:, w].reshape(B, M >> (w + 1), 2, 1 << w)
+            grown = Fb[:, :, 1] | (Fb[:, :, 0] & Lb[:, :, 0])
+            F = torch.stack([Fb[:, :, 0], grown], dim=2).reshape(B, M, 1)
+        return F
+
+    return sweep
+
+
+def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
+                    n_events=None, *, model, stats: Optional[dict] = None):
+    """The mask-mode scan in plain PyTorch: a Python loop over event
+    rows, batched over B, following the reference's `mask_step_parts`
+    step for step — `sums[2^W]` kept incrementally at latch and FORCE
+    with the reference's clipped slot columns, legality hoisted to one
+    [W, M] table per closing FORCE, the W + 1 sweep cap of
+    `closure_fixpoint`, and `force_arith`.
+
+    events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
+    n_events [B] only bounds the loop; `model` is mask-determined (its
+    `torch_step`, `mask_delta` and initial state are used). Returns ok
+    [B] bool on events' device. `stats`, when given, accumulates over
+    rows still alive: "force_rows", "closures" (closing FORCEs),
+    "sweeps", "slot_passes" (sweeps × open slots) and "legal_steps"
+    (model steps of the legality tables: open slots × 2^W per
+    closure)."""
+    W = int(n_slots)
+    M = 1 << W
+    B, E = int(events.shape[0]), int(events.shape[1])
+    dev = events.device
+    i64 = torch.int64
+    slot_ids = torch.arange(W, dtype=torch.int32, device=dev)
+    bit = ((torch.arange(M, device=dev)[:, None]
+            >> torch.arange(W, device=dev)[None, :]) & 1)      # [M, W]
+
+    def cols(slot):
+        """[B, M] (or [B, M, P]) column of each row's clipped slot."""
+        return bit[:, slot.clamp(0, W - 1)].movedim(0, 1)
+
+    def latch(carry, slot, f, a, b, is_open, upd):
+        F, base, sums, delta, sf, sa, sb, so, ok, dirty = carry
+        onehot = slot_ids[None, :] == slot[:, None]
+        old_d = (delta.to(i64) * onehot).sum(1)
+        new_d = model.mask_delta(f, a, b).to(i64)
+        sums = torch.where(is_open[:, None],
+                           wrap_i32(sums + cols(slot) * (new_d - old_d)
+                                    [:, None]), sums)
+        sf = torch.where(upd, f[:, None], sf)
+        sa = torch.where(upd, a[:, None], sa)
+        sb = torch.where(upd, b[:, None], sb)
+        delta = torch.where(upd, wrap_i32(new_d)[:, None], delta)
+        return (F, base, sums, delta, sf, sa, sb, so | upd, ok,
+                dirty | is_open)
+
+    def macro_latch(carry, pslot, pf, pa, pb, valid, n, eq, upd):
+        F, base, sums, delta, sf, sa, sb, so, ok, dirty = carry
+        sel = eq.to(i64)                                        # [B,W,P]
+        old_d = (sel * delta.to(i64)[:, :, None]).sum(1)       # [B, P]
+        new_d = model.mask_delta(pf, pa, pb).to(i64)           # [B, P]
+
+        def put(old, new):  # the reference's macro_latch_i32
+            return torch.where(upd, wrap_i32(
+                (sel * new.to(i64)[:, None, :]).sum(2)), old)
+
+        d = torch.where(valid, new_d - old_d, 0)
+        sums = wrap_i32(sums + (cols(pslot) * d[:, None, :]).sum(2))
+        return (F, base, sums, put(delta, new_d), put(sf, pf), put(sa, pa),
+                put(sb, pb), so | upd, ok, dirty | (n > 0))
+
+    def force_tail(carry, is_force, slot):
+        F, base, sums, delta, sf, sa, sb, so, ok, dirty = carry
+        active = is_force & dirty
+        if bool(active.any()):
+            state = wrap_i32(base[:, None].to(i64) + sums)     # [B, M]
+            legal = model.torch_step(state[:, None, :], sf[:, :, None],
+                                     sa[:, :, None], sb[:, :, None])[1]
+            legal = legal & so[:, :, None]                      # [B, W, M]
+            F, sweeps = closure_fixpoint(W, mask_sweep_fn(legal), F, active)
+            if stats is not None:
+                live = ok.to(i64)
+                n_open = so.sum(dim=1)
+                stats["closures"] += int((active.to(i64) * live).sum())
+                stats["sweeps"] += int((sweeps * live).sum())
+                stats["slot_passes"] += int((sweeps * live * n_open).sum())
+                stats["legal_steps"] += int(
+                    (active.to(i64) * live * n_open).sum()) * M
+        dirty = dirty & ~is_force
+        if stats is not None:
+            stats["force_rows"] += int((is_force & ok).sum())
+        F_forced, alive = force_arith(F, slot.clamp(0, W - 1))
+        F = torch.where(is_force[:, None, None], F_forced, F)
+        ok = ok & (~is_force | alive)
+        # retire the forced op: its delta joins every survivor's base
+        onehot = (slot_ids[None, :] == slot[:, None]) & is_force[:, None]
+        old_d = (delta.to(i64) * onehot).sum(1)
+        base = wrap_i32(base + old_d)
+        sums = wrap_i32(sums - cols(slot) * old_d[:, None])
+        delta = torch.where(onehot, 0, delta)
+        return (F, base, sums, delta, sf, sa, sb, so & ~onehot, ok, dirty)
+
+    step = make_stream_step(W, latch, macro_latch, force_tail, macro_p)
+    F = torch.zeros((B, M, 1), dtype=torch.bool, device=dev)
+    F[:, 0, 0] = True
+    zw = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    carry = (F, torch.full((B,), int(model.init_state()), dtype=torch.int32,
+                           device=dev),
+             torch.zeros((B, M), dtype=torch.int32, device=dev),
+             zw, zw, zw, zw, torch.zeros((B, W), dtype=torch.bool, device=dev),
+             torch.ones((B,), dtype=torch.bool, device=dev),
+             torch.zeros((B,), dtype=torch.bool, device=dev))
+    if stats is not None:
+        for k in ("force_rows", "closures", "sweeps", "slot_passes",
+                  "legal_steps"):
+            stats.setdefault(k, 0)
+    n_scan = E if n_events is None or B == 0 else \
+        min(E, int(torch.as_tensor(n_events).max()))
+    for e in range(n_scan):
+        carry = step(carry, events[:, e])
+    return carry[8]
+
+
 # ------------------------------------------------------------ the kernel
 
 #: Launch counts of the port's kernels, one plain integer per wrapper:
 #: a wrapper adds one where it launches its kernel and nowhere else, so
 #: a run can show that its main path went through the card's kernels.
-LAUNCHES = {"dense_scan": 0}
+LAUNCHES = {"dense_scan": 0, "mask_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -401,6 +582,16 @@ def dense_layout(n_slots: int, n_states: int) -> DenseLayout:
     return DenseLayout(W, (S - 1).bit_length())
 
 
+def mask_layout(n_slots: int) -> DenseLayout:
+    """The mask kernel's frontier layout for window W: `DenseLayout` at
+    field width 0 (bit b = mask m), for 1 ≤ W ≤ MASK_DENSE_MAX_SLOTS."""
+    W = int(n_slots)
+    if not 1 <= W <= MASK_DENSE_MAX_SLOTS:
+        raise ValueError(f"mask_scan: W={W} beyond the mask caps "
+                         f"(1..{MASK_DENSE_MAX_SLOTS})")
+    return DenseLayout(W, 0)
+
+
 def _check_int32(name, t, dims, device):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
@@ -437,6 +628,50 @@ def dense_scan(events, val_of, n_slots: int,
     return ok
 
 
+def _card_rows(name: str, events, macro_p, n_events):
+    """Check a group's CUDA event rows for a launcher: (device, B, E, R,
+    P, n_events), with n_events [B] int32 made (all E rows) when None."""
+    if events.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {events.device}")
+    dev = events.device
+    _check_int32("events", events, 3, dev)
+    B, E, R = (int(x) for x in events.shape)
+    P = int(macro_p or 0)
+    if R != (5 if not P else macro_row_ints(P)):
+        raise ValueError(f"{name}: row width {R} does not match "
+                         f"macro_p={macro_p}")
+    if n_events is None:
+        n_events = torch.full((B,), E, dtype=torch.int32, device=dev)
+    _check_int32("n_events", n_events, 1, dev)
+    if n_events.shape[0] != B:
+        raise ValueError(f"{name}: n_events must be [B]")
+    return dev, B, E, R, P, n_events
+
+
+def _launch_fn(name: str, lib, tensors, sizes, B: int):
+    """launch(stream): call library `name`'s C entry point on the
+    tensors' addresses, the sizes and the stream; raise on a refused or
+    failed launch; count it. The closure holds the tensors, not only
+    their addresses, so a default n_events made by the launcher outlives
+    the launch."""
+    def launch(stream) -> None:
+        if B == 0:
+            return
+        rc = getattr(lib, f"{name}_launch")(
+            *(ctypes.c_void_p(t.data_ptr()) for t in tensors), *sizes,
+            ctypes.c_void_p(stream.cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: "
+                               f"{_build.error_string(name, rc)}")
+        LAUNCHES[name] += 1
+
+    return launch
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 def dense_scan_launcher(events, val_of, n_slots: int,
                         macro_p: Optional[int] = None, n_events=None,
                         model=None):
@@ -449,47 +684,60 @@ def dense_scan_launcher(events, val_of, n_slots: int,
     if model is None:
         from ..models.register import CasRegister
         model = CasRegister()
-    if events.device.type != "cuda":
-        raise ValueError(f"dense_scan: unsupported device {events.device}")
-    dev = events.device
-    _check_int32("events", events, 3, dev)
+    dev, B, E, R, P, n_events = _card_rows("dense_scan", events, macro_p,
+                                           n_events)
     _check_int32("val_of", val_of, 2, dev)
-    B, E, R = (int(x) for x in events.shape)
     W, S = int(n_slots), int(val_of.shape[1])
-    P = int(macro_p or 0)
-    if R != (5 if not P else macro_row_ints(P)):
-        raise ValueError(f"dense_scan: row width {R} does not match "
-                         f"macro_p={macro_p}")
     if val_of.shape[0] != B:
         raise ValueError("dense_scan: val_of rows differ from events rows")
     layout = dense_layout(W, S)
-    if n_events is None:
-        n_events = torch.full((B,), E, dtype=torch.int32, device=dev)
-    _check_int32("n_events", n_events, 1, dev)
-    if n_events.shape[0] != B:
-        raise ValueError("dense_scan: n_events must be [B]")
     code = getattr(model, "KERNEL_MODEL", None)
     if code is None:
         raise ValueError(f"dense_scan: model {type(model).__name__} has no "
                          f"device step in the CUDA kernel")
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
     lib = _build.load("dense_scan")
-    # the closure holds the tensors, not only their addresses: a default
-    # n_events made here must outlive the launch
-    tensors = (events, val_of, n_events, ok)
-    sizes = (B, E, R, P, W, S, layout.field_log2, int(code),
-             dev.index if dev.index is not None
-             else torch.cuda.current_device())
+    return ok, _launch_fn(
+        "dense_scan", lib, (events, val_of, n_events, ok),
+        (B, E, R, P, W, S, layout.field_log2, int(code), _device_index(dev)),
+        B)
 
-    def launch(stream) -> None:
-        if B == 0:
-            return
-        rc = lib.dense_scan_launch(
-            *(ctypes.c_void_p(t.data_ptr()) for t in tensors), *sizes,
-            ctypes.c_void_p(stream.cuda_stream))
-        if rc != 0:
-            raise RuntimeError(f"dense_scan kernel launch failed: "
-                               f"{_build.error_string('dense_scan', rc)}")
-        LAUNCHES["dense_scan"] += 1
 
-    return ok, launch
+def mask_scan(events, n_slots: int, macro_p: Optional[int] = None,
+              n_events=None, *, model):
+    """The mask-mode scan over a window group: ok [B] bool.
+
+    events [B, E, 5] int32 (legacy rows) or [B, E, 3 + 4·P] int32 (macro
+    rows, macro_p=P); n_events [B] int32 real row counts (default: all E
+    rows); `model` a mask-determined model (the counter, the queue). A
+    CPU tensor takes `mask_scan_plain`; a CUDA tensor launches the
+    hand-written kernel (ops/csrc/mask_scan.cu, one warp per history,
+    instantiated for (W, model)) on the current stream without
+    synchronising, or raises."""
+    if events.device.type == "cpu":
+        return mask_scan_plain(events, n_slots, macro_p, n_events,
+                               model=model)
+    ok, launch = mask_scan_launcher(events, n_slots, macro_p, n_events,
+                                    model=model)
+    launch(torch.cuda.current_stream(events.device))
+    return ok
+
+
+def mask_scan_launcher(events, n_slots: int, macro_p: Optional[int] = None,
+                       n_events=None, *, model):
+    """`dense_scan_launcher`'s counterpart for the mask kernel: check the
+    CUDA tensors, allocate ok [B] bool, build or load the kernel; returns
+    (ok, launch)."""
+    dev, B, E, R, P, n_events = _card_rows("mask_scan", events, macro_p,
+                                           n_events)
+    W = mask_layout(n_slots).n_slots
+    code = getattr(model, "KERNEL_MODEL", None)
+    if code is None or not getattr(model, "mask_determined", False):
+        raise ValueError(f"mask_scan: model {type(model).__name__} has no "
+                         f"mask-mode step in the CUDA kernel")
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    lib = _build.load("mask_scan")
+    return ok, _launch_fn(
+        "mask_scan", lib, (events, n_events, ok),
+        (B, E, R, P, W, int(code), int(model.init_state()),
+         _device_index(dev)), B)

@@ -19,8 +19,9 @@ contract:
       soundness argument: both latch phases reach the same registers,
       then run this same code.
 
-These functions are the semantics the CUDA kernel (ops/csrc/
-dense_scan.cu) is held to; they are not on the card's main path.
+These functions are the semantics the CUDA kernels (ops/csrc/
+dense_scan.cu, ops/csrc/mask_scan.cu) are held to; they are not on the
+card's main path.
 """
 
 from __future__ import annotations
@@ -40,6 +41,10 @@ from ..history.packing import EV_FORCE, EV_OPEN, MACRO_MAX_OPENS
 DENSE_MAX_SLOTS = 10
 DENSE_MAX_STATES = 16
 DENSE_MAX_CELLS = 8192  # 2^W · S
+
+#: Mask mode has no state dimension (S² → 1), so it affords a wider
+#: window: F[2^12] bits per history.
+MASK_DENSE_MAX_SLOTS = 12
 
 
 # ------------------------------------------------------- event-row layout

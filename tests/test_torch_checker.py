@@ -1,5 +1,5 @@
 """The port's checker against the reference's `check_histories` on
-register histories (the reference under the suite's pins:
+register, counter and queue histories (the reference under the suite's pins:
 JGRAFT_LIN_FASTPATH=0, JGRAFT_AUTOTUNE=0). Inside the dense caps every
 result must agree on valid?, kernel, decided-tier, op-count and
 concurrency-window; beyond them the reference takes its own ladder and
@@ -12,6 +12,8 @@ import torch
 
 from jepsen_jgroups_raft_tpu.checker.linearizable import \
     check_histories as ref_check
+from jepsen_jgroups_raft_tpu.models.counter import Counter as RefCounter
+from jepsen_jgroups_raft_tpu.models.queuemodel import TicketQueue as RefQueue
 from jepsen_jgroups_raft_tpu.models.register import CasRegister as RefReg
 from jepsen_jgroups_raft_tpu_torch.checker import schedule
 from jepsen_jgroups_raft_tpu_torch.checker.base import UNKNOWN
@@ -23,6 +25,7 @@ from jepsen_jgroups_raft_tpu_torch.history.packing import (encode_history,
                                                            pack_macro_batch)
 from jepsen_jgroups_raft_tpu_torch.history.synth import (build_history,
                                                          random_valid_history)
+from jepsen_jgroups_raft_tpu_torch.models import Counter, TicketQueue
 from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
 from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import dense_plan
 
@@ -174,3 +177,65 @@ def test_run_dense_groups_mixed_groups_match_reference():
     theirs = [r["valid?"] for r in ref_check(hists, RefReg())]
     assert ours == theirs
     assert True in ours and False in ours
+
+
+MASK_MODELS = {"counter": (Counter, RefCounter),
+               "queue": (TicketQueue, RefQueue)}
+
+
+def _mask_batch(kind, seed=21, n=30):
+    """Counter or queue histories at the suite's shape (5 processes, at
+    most 3 crashes), odd ones with one observation raised by 1000, and
+    last one history beyond the mask cap: 13 crashed ops, then a read
+    (window 14)."""
+    rng = random.Random(seed)
+    hs = []
+    for i in range(n):
+        h = list(random_valid_history(rng, kind, n_ops=rng.randint(80, 160),
+                                      n_procs=5, crash_p=0.1,
+                                      max_crashes=3))
+        idx = [j for j, op in enumerate(h) if op.type == "ok"
+               and op.value is not None
+               and op.f in ("read", "add-and-get", "enqueue", "dequeue")]
+        if i % 2 and idx:
+            j = rng.choice(idx)
+            v = h[j].value
+            h[j] = h[j].replace(value=(v[0], v[1] + 1000)
+                                if isinstance(v, tuple) else v + 1000)
+        hs.append(h)
+    f, g, v = (("add", "read", 13) if kind == "counter"
+               else ("enqueue", "dequeue", 0))
+    hs.append(build_history(
+        [(k, "invoke", f, 1 if kind == "counter" else None)
+         for k in range(13)] + [(20, "invoke", g, None), (20, "ok", g, v)]))
+    return hs
+
+
+@pytest.mark.parametrize("kind", list(MASK_MODELS))
+def test_counter_and_queue_match_reference(kind):
+    port_m, ref_m = (c() for c in MASK_MODELS[kind])
+    hs = _mask_batch(kind)
+    ours = check_histories(hs, port_m, device="cpu")
+    theirs = ref_check(hs, ref_m)
+    assert [_view(r) for r in ours[:-1]] == [_view(r) for r in theirs[:-1]]
+    verdicts = [r["valid?"] for r in ours[:-1]]
+    assert True in verdicts and False in verdicts
+    assert {(r["kernel"], r["decided-tier"], r["algorithm"])
+            for r in ours[:-1]} == {("dense-mask", "mask", "torch")}
+    # beyond the mask cap: the port's host tier, the reference's ladder
+    wide, ref_wide = ours[-1], theirs[-1]
+    assert wide["concurrency-window"] == 14
+    assert wide["valid?"] is ref_wide["valid?"] is True
+    assert (wide["algorithm"], wide["decided-tier"]) == ("cpu", "host")
+
+
+@pytest.mark.parametrize("kind", list(MASK_MODELS))
+def test_algorithm_dense_covers_mask_groups(kind):
+    port_m, _ = (c() for c in MASK_MODELS[kind])
+    hs = _mask_batch(kind, seed=8, n=6)
+    dense = check_histories(hs, port_m, algorithm="dense", device="cpu")
+    assert {r["decided-tier"] for r in dense[:-1]} == {"mask"}
+    assert dense[-1]["valid?"] == UNKNOWN and "caps" in dense[-1]["error"]
+    auto = check_histories(hs, port_m, device="cpu")
+    assert [r["valid?"] for r in dense[:-1]] == \
+        [r["valid?"] for r in auto[:-1]]

@@ -230,4 +230,5 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
                     macro_p=batch["macro_p"],
                     n_events=torch.from_numpy(batch["n_events"]))
     assert ok.tolist() == [True, False, True, False]
-    assert port_ds.launch_counts() == {"dense_scan": 0}  # no kernel ran
+    assert port_ds.launch_counts() == {"dense_scan": 0,
+                                       "mask_scan": 0}  # no kernel ran

@@ -24,8 +24,10 @@ from jepsen_jgroups_raft_tpu_torch.checker.schedule import (DenseLaunch,
 from jepsen_jgroups_raft_tpu_torch.history.packing import (encode_history,
                                                            pack_batch,
                                                            pack_macro_batch)
-from jepsen_jgroups_raft_tpu_torch.history.synth import (build_history,
-                                                         random_valid_history)
+from jepsen_jgroups_raft_tpu_torch.history.synth import (
+    build_history, offset_counter_history, random_mask_rows,
+    random_valid_history)
+from jepsen_jgroups_raft_tpu_torch.models import Counter, TicketQueue
 from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
 from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
 
@@ -272,3 +274,176 @@ def test_check_histories_on_card_matches_cpu(cuda):
             "concurrency-window")
     assert [{k: r[k] for k in keys} for r in on_card] == \
         [{k: r[k] for k in keys} for r in on_host]
+
+
+# ------------------------------------------------------------ mask mode
+
+MASK_MODELS = {"counter": Counter, "queue": TicketQueue}
+
+
+def _corrupt_observation(h, rng):
+    """One ok read / add-and-get / enqueue / dequeue observation raised
+    by 1000, beyond what the crashed ops could explain."""
+    idx = [j for j, op in enumerate(h) if op.type == "ok"
+           and op.value is not None
+           and op.f in ("read", "add-and-get", "enqueue", "dequeue")]
+    if idx:
+        j = rng.choice(idx)
+        v = h[j].value
+        h[j] = h[j].replace(value=(v[0], v[1] + 1000)
+                            if isinstance(v, tuple) else v + 1000)
+    return h
+
+
+def _mask_histories(kind, W, n, n_ops, seed):
+    """n counter or queue histories with windows up to W, the first
+    exactly W (up to 5 processes, the rest of the window from crashed
+    ops); odd ones with one observation bumped. Returns (histories,
+    encodings)."""
+    rng = random.Random(seed)
+    m = MASK_MODELS[kind]()
+    n_procs, crashes = min(W, 5), max(W - 5, 0)
+    top, rest = None, []
+    while top is None or len(rest) < n - 1:
+        h = list(random_valid_history(rng, kind, n_ops=n_ops,
+                                      n_procs=n_procs,
+                                      crash_p=0.5 if crashes else 0.0,
+                                      max_crashes=crashes))
+        w = encode_history(h, m).n_slots
+        if w == W and top is None:
+            top = h
+        elif w <= W and len(rest) < n - 1:
+            rest.append(h)
+    hists = [_corrupt_observation(h, rng) if i % 2 else h
+             for i, h in enumerate([top] + rest)]
+    return hists, [encode_history(h, m) for h in hists]
+
+
+def _mask_group(encs, macro, dev):
+    batch = pack_macro_batch(encs) if macro else pack_batch(encs)
+    return (torch.from_numpy(batch["events"]).to(dev),
+            torch.from_numpy(batch["n_events"]).to(dev),
+            batch.get("macro_p"))
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("W", range(1, 13), ids=lambda w: f"W{w}")
+@pytest.mark.parametrize("kind", list(MASK_MODELS))
+def test_mask_scan_kernel_every_window(cuda, kind, W, macro):
+    m = MASK_MODELS[kind]()
+    _, encs = _mask_histories(kind, W, 24, 100, 300 + W)
+    ev, ne, P = _mask_group(encs, macro, cuda)
+    before = ds.launch_counts()["mask_scan"]
+    ok = ds.mask_scan(ev, W, P, ne, model=m)
+    torch.cuda.synchronize()
+    assert ds.launch_counts()["mask_scan"] == before + 1
+    plain = ds.mask_scan_plain(ev, W, P, ne, model=m)
+    assert ok.device.type == "cuda" and ok.dtype == torch.bool
+    assert ok.cpu().tolist() == plain.cpu().tolist()
+    assert 0 < int(plain.sum()) < len(plain)  # both polarities
+
+
+@pytest.mark.parametrize("P", [None, 3, 16], ids=["legacy", "P3", "P16"])
+@pytest.mark.parametrize("W", [1, 5, 6, 10, 12], ids=lambda w: f"W{w}")
+@pytest.mark.parametrize("kind,init", [("counter", 0), ("queue", 0),
+                                       ("counter", 2**31 - 3)],
+                         ids=["counter", "queue", "counter_near_2^31"])
+def test_mask_scan_kernel_matches_plain_on_arbitrary_rows(cuda, kind, init,
+                                                          W, P):
+    m = Counter(init) if kind == "counter" else TicketQueue()
+    rng = np.random.default_rng(1000 * W + (P or 0))
+    B, E = 96, 48
+    ev = random_mask_rows(rng, B, E, W, P, kind)
+    n_events = rng.integers(0, E + 1, size=B, dtype=np.int32)
+    ev[np.arange(E)[None, :] >= n_events[:, None]] = 0  # EV_PAD past the end
+    ev = torch.from_numpy(ev).to(cuda)
+    ne = torch.from_numpy(n_events).to(cuda)
+    ok = ds.mask_scan(ev, W, P, ne, model=m)
+    torch.cuda.synchronize()
+    plain = ds.mask_scan_plain(ev, W, P, ne, model=m)
+    assert ok.cpu().tolist() == plain.cpu().tolist()
+    assert 0 < int(plain.sum()) < B  # both polarities
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+def test_mask_scan_counter_crosses_int32_boundary(cuda, macro):
+    """Counter histories started 40 below 2^31: the sums wrap to negative
+    values mid-history, in the kernel as in the plain version."""
+    offset = 2**31 - 40
+    m = Counter(offset)
+    hists, _ = _mask_histories("counter", 8, 32, 120, 77)
+    encs = [encode_history(offset_counter_history(h, offset), m)
+            for h in hists]
+    assert any(((e.events[:, 3] < 0) & (e.events[:, 2] == 0)).any()
+               for e in encs)  # some read observed a wrapped value
+    ev, ne, P = _mask_group(encs, macro, cuda)
+    W = max(e.n_slots for e in encs)
+    ok = ds.mask_scan(ev, W, P, ne, model=m)
+    torch.cuda.synchronize()
+    plain = ds.mask_scan_plain(ev, W, P, ne, model=m)
+    assert ok.cpu().tolist() == plain.cpu().tolist()
+    assert 0 < int(plain.sum()) < len(plain)
+
+
+def test_mask_scan_refuses_bad_inputs(cuda):
+    _, encs = _mask_histories("counter", 5, 8, 40, 5)
+    ev, ne, P = _mask_group(encs, True, cuda)
+    with pytest.raises(ValueError):
+        ds.mask_scan(ev, 13, P, ne, model=Counter())
+    with pytest.raises(ValueError):
+        ds.mask_scan(ev, 5, P, ne, model=CasRegister())
+    with pytest.raises(TypeError):
+        ds.mask_scan(ev.to(torch.int64), 5, P, ne, model=Counter())
+    with pytest.raises(ValueError):
+        ds.mask_scan(ev, 5, P, ne.cpu(), model=Counter())
+
+
+def test_run_dense_groups_domain_and_mask_groups_together(cuda):
+    """Register domain groups and counter / queue mask groups launched
+    back to back in one run_dense_groups call (each mask group carries
+    its own model), each against its plain version."""
+    launches = []
+    for k, (W, S, n, n_ops, macro) in enumerate([(6, 16, 24, 120, True),
+                                                 (3, 4, 16, 60, False)]):
+        ev, vo, ne, P, _ = _group(_cap_histories(400 + k, W, S, n, n_ops),
+                                  W, S, macro, cuda)
+        launches.append(DenseLaunch(events=ev, val_of=vo, n_events=ne,
+                                    n_slots=W, macro_p=P))
+    for kind, W, macro in (("counter", 8, True), ("queue", 12, True),
+                           ("counter", 2, False)):
+        _, encs = _mask_histories(kind, W, 16, 80, 500 + W)
+        ev, ne, P = _mask_group(encs, macro, cuda)
+        launches.append(DenseLaunch(
+            events=ev, val_of=torch.zeros((ev.shape[0], 1),
+                                          dtype=torch.int32, device=cuda),
+            n_events=ne, n_slots=W, macro_p=P, tag="dense-mask",
+            kind="mask", model=MASK_MODELS[kind]()))
+    before = ds.launch_counts()
+    run = run_dense_groups(launches, CasRegister(), timed=True)
+    after = ds.launch_counts()
+    assert after["dense_scan"] - before["dense_scan"] == 2
+    assert after["mask_scan"] - before["mask_scan"] == 3
+    assert len(run.kernel_ms) == len(launches) and run.span_ms > 0
+    for ln, ok in zip(launches, run.ok):
+        if ln.kind == "mask":
+            plain = ds.mask_scan_plain(ln.events, ln.n_slots, ln.macro_p,
+                                       ln.n_events, model=ln.model)
+        else:
+            plain = ds.dense_scan_plain(ln.events, ln.val_of, ln.n_slots,
+                                        macro_p=ln.macro_p,
+                                        n_events=ln.n_events)
+        assert ok.tolist() == plain.cpu().tolist()
+        assert 0 < int(plain.sum()) < len(plain)
+
+
+@pytest.mark.parametrize("kind", list(MASK_MODELS))
+def test_check_histories_mask_on_card_matches_cpu(cuda, kind):
+    hists, _ = _mask_histories(kind, 8, 48, 200, 9)
+    m = MASK_MODELS[kind]()
+    on_card = check_histories(hists, m)
+    on_host = check_histories(hists, m, device="cpu")
+    keys = ("valid?", "kernel", "decided-tier", "op-count",
+            "concurrency-window")
+    assert [{k: r[k] for k in keys} for r in on_card] == \
+        [{k: r[k] for k in keys} for r in on_host]
+    assert {r["decided-tier"] for r in on_card} == {"mask"}
