@@ -9,16 +9,18 @@ and PyTorch built for CUDA):
 Phases, each printing JSON lines; any failure exits non-zero:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
-               mask_scan; one nvcc per source, started together) from this
-               checkout's sources into build/torch_kernels/; ptxas's report
-               for each, which must show no spill bytes and no stack frame
+               mask_scan) and the instrumented mask_scan_profile from this
+               checkout's sources into build/torch_kernels/, one nvcc per
+               library, started together; ptxas's report for each; the
+               paths' kernels must show no spill bytes and no stack frame
   3. kernel  — dense_scan against its plain PyTorch version, bitwise, at
                every window W = 1..10 with the largest domain S the caps
                allow, at W = 1 / S = 1 and at the north-star shape, both
                row formats, valid and invalid histories in each case
   4. mask_kernel — mask_scan against its plain version, bitwise: counter
                and queue groups at every window W = 1..12, both row
-               formats, both polarities; a counter group that crosses
+               formats, both polarities; 10-process counter groups at
+               W = 10..12 (1000 ops); a counter group that crosses
                2^31; arbitrary rows (slots out of range, shared slots,
                int32 edges) for the counter, the queue and a counter
                started near 2^31
@@ -35,8 +37,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                overlapped span of the groups, each group's time alone, its
                ns per row, the plain version's time and the bound
   7. profile — one check under torch.profiler: the device's busy share of
-               the check's wall (reported as not measured when the trace
-               holds no device time)
+               the check's wall (a trace without device time fails)
   8. invalid — 64 of those histories with one read corrupted: kernel,
                plain version and host oracle must agree row for row, and
                every corrupted row must be INVALID
@@ -46,9 +47,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
                20260729, through `check_histories` on the card, measured
                as `main`; all VALID, every row on the mask tier, 0 host
                rows, mask_scan's launch count above 0
- 10. counter_invalid — 64 of the counter histories with one read
+ 10. counter10_main — the counter at upstream's documented concurrency
+               (10 processes, crash_p 0.05, at most 3 crashes, 1000 ops,
+               seed 20260729 + 10): the first 1000 histories whose window
+               is within the mask cap (12; the number drawn is printed),
+               measured as `main`, groups at W = 10..12
+ 11. counter_invalid — 64 of the counter histories with one read
                corrupted: kernel, plain version and host oracle agree row
                for row, every corrupted row INVALID
+ 12. mask_profile — the instrumented mask kernel (built with
+               -DMASK_SCAN_PROFILE, never on a main path) on the counter's
+               W = 8 group, the queue group (also its first rows alone,
+               one per SM sub-partition) and the 10-process W = 12 group:
+               SM cycles by phase
+               (ring wait, latch, legality, sweeps, FORCE), ballots per
+               closing FORCE, cycles per ballot; its ballots must equal
+               the plain version's `ballots_lazy`
 
 Then the kernels' summary line, the card's `nvidia-smi` name and power
 limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -62,7 +76,6 @@ import random
 import subprocess
 import sys
 import time
-import traceback
 
 SEED = 20260729
 N_HISTORIES = 1000
@@ -72,11 +85,22 @@ CRASH_P = 0.05
 MAX_CRASHES = 3
 VALUE_RANGE = 3  # history/synth.py's default: a domain of ≤ 4 values
 N_INVALID = 64
+#: upstream's documented "5 nodes, concurrency 10" (doc/intro.md:34-37):
+#: counter histories of 10 processes, crash_p 0.05, at most 3 crashes
+COUNTER10_SHAPE = (10, CRASH_P, MAX_CRASHES)
+#: warp schedulers (sub-partitions) per SM on Hopper
+SUB_PARTITIONS_PER_SM = 4
 
 #: H100 SXM rates: HBM3 bandwidth, and the CUDA-core (non-tensor) peak
-#: used for the kernel's bit operations.
+#: used for the kernels' 32-bit integer operations.
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+#: the fewest integer operations one mask-mode legality evaluation takes
+#: per mask (ops/csrc/models.cuh): the mask's state, one add off a
+#: neighbouring mask's, then one compare — the counter's `state == a`
+#: (or `state == b - a`, b - a taken once per slot), the queue's field
+#: compare `(state & field) == a << 15`, one AND and the compare
+LEGAL_STEP_OPS = {"counter": 2, "queue": 3}
 
 #: kernel name -> (source in the repo, the TPU-side program it replaces)
 KERNELS = {
@@ -261,22 +285,24 @@ def corrupt_observation(ops, rng, bump: int):
     return ops
 
 
-def mask_histories(rng, kind: str, W: int, n: int, n_ops: int):
+def mask_histories(rng, kind: str, W: int, n: int, n_ops: int,
+                   shape=None):
     """n counter or queue histories with windows up to W, the first
-    exactly W (up to 5 processes, the rest of the window held by crashed
-    ops); odd ones with one observation raised by 1000."""
+    exactly W; odd ones with one observation raised by 1000. `shape` is
+    (processes, crash_p, max crashes); by default up to 5 processes and
+    the rest of the window held by crashed ops."""
     from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
     from jepsen_jgroups_raft_tpu_torch.history.synth import (
         random_valid_history)
     from jepsen_jgroups_raft_tpu_torch.models import MODELS
 
     m = MODELS[kind]()
-    n_procs, crashes = min(W, 5), max(W - 5, 0)
+    n_procs, crash_p, crashes = shape or (min(W, 5), 0.5 if W > 5 else 0.0,
+                                          max(W - 5, 0))
     top, rest = None, []
     while top is None or len(rest) < n - 1:
         h = random_valid_history(rng, kind, n_ops=n_ops, n_procs=n_procs,
-                                 crash_p=0.5 if crashes else 0.0,
-                                 max_crashes=crashes)
+                                 crash_p=crash_p, max_crashes=crashes)
         w = encode_history(h, m).n_slots
         if w == W and top is None:
             top = h
@@ -301,9 +327,10 @@ def mask_tensors(encs, macro: bool, dev):
 
 def phase_mask_kernel(dev):
     """mask_scan against its plain version: counter and queue groups at
-    every window W = 1..12 (both row formats, both polarities), a counter
-    group across 2^31, and arbitrary rows. Returns (rows compared, max
-    |kernel - plain|)."""
+    every window W = 1..12 (both row formats, both polarities), counter
+    groups of upstream's 10-process shape at W = 10..12, a counter group
+    across 2^31, and arbitrary rows. Returns (rows compared, max |kernel -
+    plain|)."""
     import numpy as np
     import torch
 
@@ -348,6 +375,13 @@ def phase_mask_kernel(dev):
                 ev, ne, P = mask_tensors(encs, macro, dev)
                 check(f"{kind}_W{W}_{'macro' if macro else 'legacy'}", ev,
                       ne, W, P, model)
+    for W in (10, 11, 12):  # upstream's documented concurrency
+        encs = [encode_history(h, Counter()) for h in mask_histories(
+            rng, "counter", W, 24, N_OPS, COUNTER10_SHAPE)]
+        for macro in (False, True):
+            ev, ne, P = mask_tensors(encs, macro, dev)
+            check(f"counter10_W{W}_{'macro' if macro else 'legacy'}", ev, ne,
+                  W, P, Counter())
     offset = 2**31 - 40  # the counter crosses 2^31 mid-history
     model = Counter(offset)
     encs = [encode_history(offset_counter_history(h, offset), model)
@@ -455,7 +489,8 @@ def phase_groups(dev, model):
 def phase_profile(dev, model, histories):
     """Busy share of the card over one check, read from a torch.profiler
     trace: the union of the device events' intervals over the check's
-    host wall (profiler on). None when the trace has no device time."""
+    host wall (profiler on). A trace without device time fails the
+    phase."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -485,11 +520,12 @@ def phase_profile(dev, model, histories):
             t = getattr(e, "self_cuda_time_total", 0.0)
         if t and e.device_type == DeviceType.CUDA:
             by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + t / 1e3
-    share = busy / wall_us if spans else None
+    if not spans:
+        raise AssertionError("profile: the trace holds no device time")
+    share = busy / wall_us
     emit("profile", device_events=len(spans), device_busy_ms=busy / 1e3,
          check_wall_ms=wall_us / 1e3, busy_share=share,
-         device_ms_by_name=by_name,
-         note=None if spans else "trace holds no device time: not measured")
+         device_ms_by_name=by_name)
     return share
 
 
@@ -508,8 +544,140 @@ def suite_histories(kind: str):
     return hs, time.perf_counter() - t0
 
 
+def counter10_histories():
+    """Counter histories at upstream's documented concurrency: N_OPS ops,
+    COUNTER10_SHAPE, seed SEED + 10; the first N_HISTORIES whose window
+    is within the mask cap (12). Returns (histories, histories drawn,
+    windows of the drawn, seconds)."""
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        random_valid_history)
+    from jepsen_jgroups_raft_tpu_torch.models import Counter
+    from jepsen_jgroups_raft_tpu_torch.ops.kernel_ir import (
+        MASK_DENSE_MAX_SLOTS)
+
+    t0 = time.perf_counter()
+    rng = random.Random(SEED + 10)
+    n_procs, crash_p, crashes = COUNTER10_SHAPE
+    m, kept, windows = Counter(), [], {}
+    while len(kept) < N_HISTORIES:
+        h = random_valid_history(rng, "counter", n_ops=N_OPS, n_procs=n_procs,
+                                 crash_p=crash_p, max_crashes=crashes)
+        w = encode_history(h, m).n_slots
+        windows[w] = windows.get(w, 0) + 1
+        if w <= MASK_DENSE_MAX_SLOTS:
+            kept.append(h)
+    return kept, sum(windows.values()), dict(sorted(windows.items())), \
+        time.perf_counter() - t0
+
+
+def phase_mask_profile(dev, paths: dict):
+    """The instrumented mask kernel (`mask_scan_profile`) on the main
+    paths' own groups — the counter suite's W = 8 group, the queue group,
+    the 10-process counter's W = 12 group — and on the queue group's
+    first rows, one per SM sub-partition (the card's SMs × 4; the whole
+    group puts two warps on most): per phase, the share of the
+    SM cycles; ballots per closing FORCE and cycles per ballot. Its
+    verdicts must equal the plain version's, its closing FORCEs the plain
+    version's, and its ballots `mask_scan_plain`'s `ballots_lazy` (below
+    the full tables' count)."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
+        DenseLaunch, run_dense_groups)
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+        MASK_PROFILE_FIELDS, mask_scan_profile)
+
+    phases = ("ring", "latch", "legality", "sweep", "force")
+    cycle_fields = [f"{p}_cycles" for p in phases]
+    count_fields = [k for k in MASK_PROFILE_FIELDS if k not in cycle_fields]
+    sub_partitions = (torch.cuda.get_device_properties(dev)
+                      .multi_processor_count * SUB_PARTITIONS_PER_SM)
+
+    def summed(prof):
+        return dict(zip(MASK_PROFILE_FIELDS, prof.sum(0).cpu().tolist()))
+
+    def profile(name, ln, model, plain_ok=None, g=None):
+        ok, prof = mask_scan_profile(ln.events, ln.n_slots, ln.macro_p,
+                                     ln.n_events, model=model)
+        sync(dev)
+        c = summed(prof)
+        total = sum(c[k] for k in cycle_fields)
+        B, M = int(ln.events.shape[0]), 1 << ln.n_slots
+        full = None if g is None else \
+            g["legal_steps"] * max(M // 32, 1) // M
+        line = {
+            "case": name, "model": model.name, "rows": B, "W": ln.n_slots,
+            "sub_partitions": sub_partitions,
+            "warps_per_subpartition": B / sub_partitions,
+            "cycles": total, "cycles_per_row": total / max(c["rows"], 1),
+            "share": {p: c[f"{p}_cycles"] / total for p in phases},
+            **{k: c[k] for k in count_fields},
+            "ballots_per_closure": c["ballots"] / max(c["closures"], 1),
+            "full_ballots_per_closure": None if full is None
+            else full / max(c["closures"], 1),
+            "cycles_per_ballot": c["legality_cycles"] / max(c["ballots"], 1),
+            "sweep_cycles_per_sweep": c["sweep_cycles"] / max(c["sweeps"], 1),
+            "plain": None if g is None else {
+                k: g[k] for k in ("closures", "ballots_lazy", "legal_needed",
+                                  "legal_steps")},
+            "ballots_full": full}
+        emit("mask_profile", **line)
+        if plain_ok is not None:
+            if not torch.equal(ok.cpu(), plain_ok.cpu()):
+                raise AssertionError(f"mask_profile/{name}: verdicts differ "
+                                     f"from the plain version")
+            if c["closures"] != g["closures"] or \
+                    c["ballots"] != g["ballots_lazy"] or \
+                    c["ballots"] > full:
+                raise AssertionError(f"mask_profile/{name}: closing FORCEs "
+                                     f"or ballots differ from the plain "
+                                     f"version's count")
+        return prof
+
+    for path, W in (("counter_main", 8), ("queue_main", 8),
+                    ("counter10_main", 12)):
+        x = paths[path]
+        ks = [k for k, ln in enumerate(x["groups"]) if ln.n_slots == W]
+        if not ks:
+            raise AssertionError(f"mask_profile: {path} has no W = {W} group")
+        k = ks[0]
+        ln, model = x["groups"][k], x["model"]
+        prof = profile(f"{path}_W{W}", ln, model, x["plain_oks"][k],
+                       x["group_stats"][k])
+        if path != "queue_main":
+            continue
+        # the same first rows alone, at most one warp per sub-partition:
+        # their cycles per ballot in the full group and alone, and both
+        # launches' kernel times
+        n = min(sub_partitions, int(ln.events.shape[0]))
+        head = DenseLaunch(events=ln.events[:n].contiguous(),
+                           val_of=ln.val_of[:n].contiguous(),
+                           n_events=ln.n_events[:n].contiguous(),
+                           n_slots=ln.n_slots, macro_p=ln.macro_p,
+                           tag=ln.tag, kind=ln.kind)
+        alone = profile(f"{path}_W{W}_first{n}", head, model)
+        in_full, by_self = summed(prof[:n]), summed(alone)
+        ms = {"all": [], "first": []}
+        for _ in range(3):
+            for key, grp in (("all", ln), ("first", head)):
+                ms[key].append(run_dense_groups([grp], model,
+                                                timed=True).kernel_ms[0])
+        emit("mask_profile_contention", case=f"{path}_W{W}", rows_first=n,
+             rows_all=int(ln.events.shape[0]),
+             cycles_per_ballot_first_in_all=in_full["legality_cycles"]
+             / max(in_full["ballots"], 1),
+             cycles_per_ballot_first_alone=by_self["legality_cycles"]
+             / max(by_self["ballots"], 1),
+             cycles_per_row_first_in_all=sum(in_full[k] for k in cycle_fields)
+             / max(in_full["rows"], 1),
+             cycles_per_row_first_alone=sum(by_self[k] for k in cycle_fields)
+             / max(by_self["rows"], 1),
+             kernel_ms_all=min(ms["all"]), kernel_ms_first=min(ms["first"]))
+
+
 def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
-             kernel: str, ptxas: dict) -> dict:
+             kernel: str, ptxas: dict, n_ops: int = N_OPS) -> dict:
     """Drive one main path through check_histories on the card: a
     warm-up, then best of 3, each run with the launch counts set to 0
     just before it and read just after (the path's kernel must have
@@ -518,7 +686,9 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
     pack, the kernels overlapped (span, per group) and each group alone,
     ns per row, the plain version's time and bitwise agreement on the
     same groups, and the bound from the work this run's data needed.
-    Emits the phase's line; returns the kernels-line numbers."""
+    Emits the phase's line; returns the kernels-line numbers, and the
+    groups' launches, plain stats and verdicts and times alone (for
+    `phase_mask_profile`)."""
     import torch
 
     from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
@@ -612,11 +782,16 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
 
     # bound: the bytes the kernel must move (the real event rows and
     # n_events read once, val_of read once by the domain kernel, ok
-    # written once) against the operations this data needed, one per
-    # cell: closure, one per (mask, source state) of each open slot's
-    # pass; FORCE, one per mask; latch, S² compares per opened op
-    # (domain) or one per op (mask); and the mask kernel's legality
-    # tables, one model step per (open slot, mask) of each closing FORCE
+    # written once) against the 32-bit integer operations this data
+    # needed. The frontier is a bitset of M·S bits (S = 1 for a mask
+    # group), so its passes count words: a closure pass, one operation
+    # per word of its M/2 source masks' bits and per state plane (S);
+    # a FORCE, one per word of the frontier. Latch: S² compares per
+    # opened op (domain) or one per op (mask). The mask kernel's
+    # legality is element-wise: LEGAL_STEP_OPS per (mask of the closed
+    # frontier, open slot whose op is not always legal) of each closing
+    # FORCE — the entries the closure can read, not the reference's
+    # full tables
     bytes_moved, ops = 0, 0
     for ln, b, g in zip(launch_list, batches, group_stats):
         B, _, R = (int(x) for x in ln.events.shape)
@@ -624,12 +799,15 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
         n_opens = int(ln.events[:, :, 2].clamp(min=0).sum())
         bytes_moved += int(b["n_events"].sum()) * R * 4 + B * 5
         if ln.kind == "mask":
-            ops += (g["slot_passes"] * (M // 2) + g["force_rows"] * M
-                    + g["legal_steps"] + n_opens)
+            ops += (g["slot_passes"] * max(M // 64, 1)
+                    + g["force_rows"] * max(M // 32, 1)
+                    + g["legal_needed"] * LEGAL_STEP_OPS[model.name]
+                    + n_opens)
         else:
             S = int(ln.val_of.shape[1])
             bytes_moved += B * S * 4
-            ops += (g["slot_passes"] * (M // 2) * S + g["force_rows"] * M
+            ops += (g["slot_passes"] * max(M * S // 64, 1) * S
+                    + g["force_rows"] * max(M * S // 32, 1)
                     + n_opens * S * S)
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / CORE_OPS_PER_S
@@ -637,8 +815,8 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
     best = min(walls)
     stats = {k: sum(g.get(k, 0) for g in group_stats)
              for k in ("sweeps", "slot_passes", "force_rows", "closures",
-                       "legal_steps")}
-    emit(phase, model=model.name, histories=n, ops_per_history=N_OPS,
+                       "legal_steps", "legal_needed", "ballots_lazy")}
+    emit(phase, model=model.name, histories=n, ops_per_history=n_ops,
          valid=n_valid, host_rows=host_rows, rest=len(rest),
          groups=len(grouped), kinds=sorted({p.kind for _, p in grouped}),
          windows=[int(p.n_slots) for _, p in grouped],
@@ -653,8 +831,10 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
          plain_ms=plain_ms, scan_steps=scan_steps,
          closure_sweeps=stats["sweeps"], slot_passes=stats["slot_passes"],
          force_rows=stats["force_rows"], closures=stats["closures"],
-         legal_steps=stats["legal_steps"], bytes_moved=bytes_moved,
-         bit_ops=ops, bound_ms=bound_ms,
+         legal_steps=stats["legal_steps"],
+         legal_needed=stats["legal_needed"],
+         ballots_lazy=stats["ballots_lazy"], bytes_moved=bytes_moved,
+         word_ops=ops, bound_ms=bound_ms,
          bound_by="bytes" if t_bytes >= t_ops else "operations",
          spill_bytes=ptxas["spill_store_bytes"] + ptxas["spill_load_bytes"],
          max_registers=ptxas["max_registers"], launches=launches,
@@ -662,7 +842,8 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
          power=nvidia_smi_line())
     return {"launches": int(launches[kernel]), "max_abs_err": err,
             "ms": span_ms, "plain_ms": plain_ms, "t_bytes": t_bytes,
-            "t_ops": t_ops}
+            "t_ops": t_ops, "groups": launch_list, "group_stats": group_stats,
+            "plain_oks": plain_oks, "ms_alone": alone_ms}
 
 
 def phase_invalid(dev, model, bad, tier: str, kernel_plain, name: str):
@@ -728,15 +909,18 @@ def main() -> int:
     stamp = toolchain_stamp()
     emit("stamp", **stamp)
 
-    # 2. build every kernel from this checkout's sources, in parallel
-    build_s = _build.build(list(KERNELS))
-    ptxas = {k: _build.ptxas_report(k) for k in KERNELS}
-    emit("build", seconds=build_s, kernels=list(KERNELS), ptxas=ptxas)
+    # 2. build every kernel from this checkout's sources, and the
+    # instrumented mask kernel, in parallel
+    libs = [*KERNELS, "mask_scan_profile"]
+    build_s = _build.build(libs)
+    ptxas = {k: _build.ptxas_report(k) for k in libs}
+    emit("build", seconds=build_s, kernels=libs, ptxas=ptxas)
     for k, rep in ptxas.items():
         if rep["functions"] == 0:
             raise AssertionError(f"no ptxas report for {k}")
-        if rep["spill_store_bytes"] + rep["spill_load_bytes"] or \
-                rep["max_stack_bytes"]:
+        if k in KERNELS and (rep["spill_store_bytes"]
+                             + rep["spill_load_bytes"] or
+                             rep["max_stack_bytes"]):
             raise AssertionError(f"{k} spills or uses a stack: {rep}")
 
     # 3. dense_scan against its plain version at every window
@@ -760,14 +944,8 @@ def main() -> int:
                                    "dense", "dense_scan",
                                    ptxas["dense_scan"])}
 
-    # 7. the card's busy share over one check, from a profiler trace; a
-    # profiler that cannot trace here is reported, not fatal
-    try:
-        phase_profile(dev, model, histories)
-    except Exception as e:  # noqa: BLE001 — measurement only
-        traceback.print_exc()
-        emit("profile", busy_share=None,
-             note=f"not measured: {type(e).__name__}: {e}")
+    # 7. the card's busy share over one check, from a profiler trace
+    phase_profile(dev, model, histories)
 
     # 8. invalid subset: guaranteed-invalid corruption (the bumped read
     # leaves the value domain), kernel vs plain vs host oracle
@@ -793,17 +971,29 @@ def main() -> int:
     phase_invalid(dev, model, bad, "dense", dense_plain, "invalid")
 
     # 9. the counter and queue paths: the suite's shapes on the mask kernel
-    mask_line = []
+    paths = {}
     counter_histories = None
     for phase, kind, m in (("counter_main", "counter", Counter()),
                            ("queue_main", "queue", TicketQueue())):
         hs, synth_s = suite_histories(kind)
         if kind == "counter":
             counter_histories = hs
-        mask_line.append(run_path(phase, dev, m, hs, synth_s, "mask",
-                                  "mask_scan", ptxas["mask_scan"]))
+        paths[phase] = run_path(phase, dev, m, hs, synth_s, "mask",
+                                "mask_scan", ptxas["mask_scan"])
+        paths[phase]["model"] = m
+    mask_line = list(paths.values())
 
-    # 10. counter invalid subset: a read raised by 10^6 (beyond any sum
+    # 10. the counter at upstream's documented concurrency (10 processes):
+    # windows 10..13, the rows within the mask cap
+    hs, drawn, windows, synth_s = counter10_histories()
+    emit("counter10_synth", kept=len(hs), drawn=drawn, windows=windows,
+         seconds=synth_s)
+    paths["counter10_main"] = run_path("counter10_main", dev, Counter(), hs,
+                                       synth_s, "mask", "mask_scan",
+                                       ptxas["mask_scan"])
+    paths["counter10_main"]["model"] = Counter()
+
+    # 11. counter invalid subset: a read raised by 10^6 (beyond any sum
     # of the history's adds), kernel vs plain vs host oracle
     rng = random.Random(SEED + 5)
     bad = []
@@ -814,6 +1004,9 @@ def main() -> int:
         bad.append(ops_)
     m = Counter()
     phase_invalid(dev, m, bad, "mask", mask_plain(m), "counter_invalid")
+
+    # 12. the instrumented mask kernel on the paths' own groups
+    phase_mask_profile(dev, paths)
 
     line["mask_scan"] = {
         "launches": sum(x["launches"] for x in mask_line),

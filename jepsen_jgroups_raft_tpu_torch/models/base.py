@@ -182,6 +182,15 @@ class Model:
         `mask_determined` is True."""
         raise NotImplementedError
 
+    def always_legal(self, f):
+        """Vectorized: whether an op with opcode `f` is legal in every
+        state — exactly the term of `torch_step`'s legality that reads no
+        state. The mask-mode kernel gives such a slot an all-ones
+        legality word instead of evaluating it per mask (its device twin
+        is `Model<...>::always_legal` in ops/csrc/models.cuh). Only
+        consulted when `mask_determined` is True."""
+        raise NotImplementedError
+
     # -- crashed-op pruning hooks (SURVEY §7.4.3: crashed ops never
     # retire and double the search frontier; these let the encoder prove
     # some of them irrelevant and drop them before slot assignment) ----

@@ -86,6 +86,11 @@ class Counter(Model):
 
         return torch.where(f == READ, 0, a)
 
+    def always_legal(self, f):
+        """An add is legal in every state (the unconditional term of
+        `torch_step`); bool tensor of f's shape."""
+        return f == ADD
+
     def _encode(self, pair: OpPair) -> Optional[EncodedOp]:
         f = pair.f
         forced = pair.ctype == OK

@@ -131,6 +131,11 @@ class TicketQueue(Model):
         return torch.where(enq, 1 << TICKET_BITS,
                            torch.where(deq, 1, 0)).to(torch.int32)
 
+    def always_legal(self, f):
+        """A crashed enqueue (ENQ_ANY) is legal in every state (the
+        unconditional term of `torch_step`); bool tensor of f's shape."""
+        return f == ENQ_ANY
+
     def _encode(self, pair: OpPair) -> Optional[EncodedOp]:
         f = pair.f
         forced = pair.ctype == OK

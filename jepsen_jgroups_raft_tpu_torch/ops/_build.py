@@ -49,7 +49,30 @@ SIGNATURES: Dict[str, dict] = {
                                   _I, _I, _VP]),
         "mask_scan_error_string": (ctypes.c_char_p, [_I]),
     },
+    "mask_scan_profile": {
+        # events, n_events, ok, prof, B, E, R, macro_p, W, model,
+        # init_state, device, stream
+        "mask_scan_profile_launch": (_I, [_VP, _VP, _VP, _VP, _I, _I, _I,
+                                          _I, _I, _I, _I, _I, _VP]),
+        "mask_scan_profile_error_string": (ctypes.c_char_p, [_I]),
+        "mask_scan_profile_fields": (_I, []),
+    },
 }
+
+#: Libraries built from another library's source with extra nvcc flags:
+#: name -> (source stem in csrc/, flags). Every other library `name`
+#: builds from csrc/<name>.cu. The instrumented mask kernel is one: it
+#: is measured by chip_smoke.py and never launched on a main path.
+VARIANTS: Dict[str, tuple] = {
+    "mask_scan_profile": ("mask_scan", ["-DMASK_SCAN_PROFILE"]),
+}
+
+
+def _source(name: str):
+    """(source path, extra nvcc flags) of library `name`."""
+    stem, flags = VARIANTS.get(name, (name, []))
+    return CSRC / f"{stem}.cu", list(flags)
+
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -61,9 +84,9 @@ BUILD_LOG: Dict[str, str] = {}
 
 def _target(name: str) -> Path:
     # the shared headers are part of every kernel's source
-    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
-                                             *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    cu, flags = _source(name)
+    src = b"".join(p.read_bytes() for p in [cu, *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + flags).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -79,7 +102,8 @@ def _start(name: str):
                            "PATH); the port's CUDA kernels cannot build")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cu, flags = _source(name)
+    cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(cu)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

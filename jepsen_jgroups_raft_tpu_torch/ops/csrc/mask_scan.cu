@@ -1,5 +1,6 @@
 // Mask-mode linearizability scan for Hopper (sm_90a): one warp per
-// history, the frontier bitset in registers.
+// history, the frontier bitset in registers, legality built only where
+// the frontier reaches.
 //
 // Replaces the reference's mask-mode program, jepsen_jgroups_raft_tpu/
 // ops/dense_scan.py `mask_step_parts` (dense_scan.py:577; an XLA program,
@@ -13,23 +14,24 @@
 //
 //   latch    the OPEN payloads set their slots' registers (f, a, b,
 //            delta) and update sums;
-//   closure  at a FORCE after an OPEN: legal[w][m] = slot w's op is legal
-//            in state base + sums[m] (one table per closing FORCE), then
-//            F[m | bit w] |= F[m] & legal[w][m] for every open slot w, to
-//            fixpoint;
+//   closure  at a FORCE after an OPEN: F[m | bit w] |= F[m] & legal[w][m]
+//            for every open slot w, to fixpoint, where legal[w][m] = slot
+//            w's op is legal in state base + sums[m];
 //   FORCE w  survivors hold bit w; the bit-w half moves down onto the
 //            other; ok &= "some survivor"; slot w's delta retires into
 //            base.
 //
 // What bounds it on this card: serial depth, as for dense_scan.cu. A
 // suite history is ~1000 macro rows, each depending on the one before,
-// and the bytes and operations per row are few. So the design is
-// dense_scan.cu's skeleton (warp_frontier.cuh): one warp per history
-// and four per block, no block barrier in the event loop (every branch
-// is warp-uniform), rows staged ahead by cp.async, the frontier in
-// registers at field width 0 (2^W bits, at most 4 words a lane), a
-// closure sweep that applies every open slot to the same frontier. New
-// here:
+// and the bytes and operations per row are few. So the skeleton is
+// dense_scan.cu's (warp_frontier.cuh): one warp per history and four per
+// block, no block barrier in the event loop (every branch is
+// warp-uniform), rows staged ahead by cp.async, the frontier in
+// registers at field width 0 (2^W bits, at most 4 words a lane), closure
+// sweeps that apply every open slot to the same frontier.
+//
+// The work of a row is the legality the closure reads, so the design is
+// about building less of it:
 //
 // * sums without a 2^W table. Every update the reference makes to its
 //   int32 sums[2^W] adds one scalar to one column — the masks that hold
@@ -41,26 +43,48 @@
 //   slot's delta changes. Lane c < W keeps X[c] and slot c's registers;
 //   a closure shuffles them out once.
 //
-// * legality by ballot. legal[w][m] is built 32 masks at a time: lane i
-//   evaluates mask m = 32 g + i and `__ballot_sync` hands the 32 bits to
-//   the lane that holds that frontier word. A lane's state is base +
-//   lo(lane) + hi(g), partial sums over the mask's low five and high
-//   bits, so no mask re-sums W deltas. A closing FORCE costs each lane
-//   (open slots) * max(2^W / 32, 1) model steps — 64 at W = 8, 1536 at
-//   W = 12 — of a few integer operations each; closed slots cost nothing
-//   and get an empty table.
+// * always-legal slots skip the table. A slot whose op passes
+//   `Model::always_legal` (a counter add, a crashed enqueue: exactly the
+//   term of the step's legality that reads no state, evaluated on the
+//   same latched, possibly summed, f) is legal at every mask: its
+//   legality words are all ones, at no model step and no ballot; a
+//   closed slot's are zero. The sweep ANDs every slot's words in rather
+//   than branching per slot: a branch around each image kept the
+//   sweep's shuffles from overlapping and tripled its cycles (PERF.md).
 //
-// * a closure pass is dense_scan.cu's shift / shuffle / register move
-//   with an AND of the legality word in place of the transition lookup.
+// * legality built lazily, 32 masks at a time, inside the closure. The
+//   masks of frontier word j in lane g form ballot group (j, g): lane i
+//   evaluates mask (j << 10) | (g << 5) | i and `__ballot_sync` hands the
+//   32 bits to lane g. Before each sweep the groups the frontier holds
+//   and that are not built yet in this closure are built, for the open
+//   slots that are not always legal, and marked in `built` (one bit per
+//   group, at most 128, warp-uniform because it is made of ballots). The
+//   groups it holds are named by a ballot over F[j] != 0 before the
+//   first sweep and, after each, by the ballot over the sweep's fresh
+//   masks that also ends the closure. A lane's state is base + lo(lane)
+//   + hi(j) + mid(g), partial sums over the mask's bits, so no mask
+//   re-sums W deltas.
+//
+//   Why this reaches the same fixpoint as the full table: a sweep reads
+//   legality only through F[m] & L[w][m], F the frontier the sweep starts
+//   from. Every group holding a mask of that F is built before the
+//   sweep, with the ops latched now; at any other mask F[m] = 0, and the
+//   term is 0 whatever L holds there. So every sweep ORs in exactly what
+//   it would with the whole table, and the sweeps, their number and the
+//   least fixpoint are the full table's. The groups built in a closure
+//   are those of its closed frontier (the sweeps start from growing
+//   frontiers, the last one from the closed one), so a closing FORCE
+//   costs (closed-frontier groups) x (open slots not always legal)
+//   ballots, against (open slots) x 2^W / 32 for the whole table.
 //
 // Same function as the reference, bit for bit: the closure reaches the
-// same least fixpoint in at most W + 1 sweeps (the argument is in
-// dense_scan.cu); payloads that share one slot in one macro row SUM their
-// f, a, b and deltas into it (the reference's `macro_latch_i32`); slots
-// are clipped to [0, W) for the sums column and the FORCE, as the
-// reference clips them; the scan stops at n_events or at the first dead
-// FORCE. Integers: every sum is taken in uint32_t and cast back, so it
-// wraps as the reference's int32 does.
+// same least fixpoint in at most W + 1 sweeps (the argument for sweeps
+// of the same frontier is in dense_scan.cu); payloads that share one slot
+// in one macro row SUM their f, a, b and deltas into it (the reference's
+// `macro_latch_i32`); slots are clipped to [0, W) for the sums column
+// and the FORCE, as the reference clips them; the scan stops at n_events
+// or at the first dead FORCE. Integers: every sum is taken in uint32_t
+// and cast back, so it wraps as the reference's int32 does.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,6 +101,49 @@ using MaskLayout = Layout<W, 0>;
 
 template <int W>
 constexpr int kMaskWords = MaskLayout<W>::kWords;
+
+// ---- instrumentation, compiled in only with -DMASK_SCAN_PROFILE (the
+// library "mask_scan_profile", never on a main path): per history, SM
+// clock cycles by phase and counts of the work done, written by lane 0.
+// Columns match ops/dense_scan.py MASK_PROFILE_FIELDS, which checks their
+// number against mask_scan_profile_fields().
+enum : int {
+  kProfRing, kProfLatch, kProfLegality, kProfSweep, kProfForce, kProfRows,
+  kProfClosures, kProfSweeps, kProfGroups, kProfBallots, kProfSteps,
+  kProfFields
+};
+
+struct Prof {
+#ifdef MASK_SCAN_PROFILE
+  unsigned c[kProfFields];
+  long long t;
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int k = 0; k < kProfFields; ++k) c[k] = 0u;
+    t = clock64();
+  }
+  // charge the cycles since the last lap to phase k
+  __device__ __forceinline__ void lap(int k) {
+    const long long now = clock64();
+    c[k] += static_cast<unsigned>(now - t);
+    t = now;
+  }
+  __device__ __forceinline__ void add(int k, unsigned v) { c[k] += v; }
+  __device__ __forceinline__ void store(long long* out, int h,
+                                        int lane) const {
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kProfFields; ++k)
+        out[static_cast<size_t>(h) * kProfFields + k] = c[k];
+    }
+  }
+#else
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void lap(int) {}
+  __device__ __forceinline__ void add(int, unsigned) {}
+  __device__ __forceinline__ void store(long long*, int, int) const {}
+#endif
+};
 
 // Slot w's image in a closure sweep: F[m] & legal[w][m] for every mask m
 // without bit w, placed at m | bit w and OR-ed into `add`.
@@ -113,42 +180,78 @@ __device__ __forceinline__ void mask_sweep(
   }
 }
 
-// Closure to fixpoint: each sweep adds every slot's image of the
-// frontier it starts from, until a sweep adds nothing, in at most W + 1
-// sweeps (the reference's bound).
-template <int W>
-__device__ __forceinline__ void mask_closure(
-    uint32_t (&F)[kMaskWords<W>], const uint32_t (&L)[W][kMaskWords<W>],
+// Build legality group (j, g) for the slots in `need`: lane i evaluates
+// mask (j << 10) | (g << 5) | i in state st, and lane g keeps the ballot
+// as L[w][j].
+template <int W, int MODEL, int j>
+__device__ __forceinline__ void build_group(
+    uint32_t (&L)[W][kMaskWords<W>], uint32_t st, const int32_t (&f)[W],
+    const int32_t (&a)[W], const int32_t (&b)[W], unsigned need, int g,
     int lane) {
-  constexpr int kWords = kMaskWords<W>;
-  for (int it = 0; it <= W; ++it) {
-    uint32_t add[kWords];
+  constexpr bool kReal = (1 << W) >= 32;  // else lanes >= 2^W hold no mask
+  const bool real = kReal || lane < (1 << W);
 #pragma unroll
-    for (int j = 0; j < kWords; ++j) add[j] = 0u;
-    mask_sweep<W>(F, add, L, lane);
-    uint32_t fresh = 0;
-#pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      fresh |= add[j] & ~F[j];
-      F[j] |= add[j];
-    }
-    if (!__any_sync(kFull, fresh != 0)) break;
+  for (int w = 0; w < W; ++w) {
+    if (!((need >> w) & 1)) continue;  // warp-uniform
+    int32_t next;
+    bool lg;
+    Model<MODEL>::step(static_cast<int32_t>(st), f[w], a[w], b[w], &next,
+                       &lg);
+    const uint32_t word = __ballot_sync(kFull, lg && real);
+    if (lane == g) L[w][j] = word;
   }
 }
 
-// This lane's legality words: bit i of L[w][j] is "open slot w's op is
-// legal in the state of mask (j << 10) | (lane << 5) | i", zero for
-// closed slots and for masks >= 2^W. Slot c's registers (op, column
-// total X[c]) are lane c's; `open` is warp-uniform.
+// Build the groups of register word j named by `todo` (a ballot: bit g =
+// lane g's word j). `hj` is base + lo(lane) + hi(j).
+template <int W, int MODEL, int j>
+__device__ __forceinline__ void build_word(
+    uint32_t (&L)[W][kMaskWords<W>], unsigned todo, uint32_t hj,
+    const uint32_t (&X)[W], const int32_t (&f)[W], const int32_t (&a)[W],
+    const int32_t (&b)[W], unsigned need, int lane) {
+  while (todo) {  // warp-uniform: a ballot
+    const int g = __ffs(todo) - 1;
+    todo &= todo - 1;
+    uint32_t st = hj;  // + mask bits 5..9 (the frontier lane g)
+#pragma unroll
+    for (int c = 5; c < W && c < 10; ++c)
+      st += ((g >> (c - 5)) & 1) ? X[c] : 0u;
+    build_group<W, MODEL, j>(L, st, f, a, b, need, g, lane);
+  }
+}
+
+template <int W, int MODEL, int j = 0>
+__device__ __forceinline__ void build_words(
+    uint32_t (&L)[W][kMaskWords<W>], const unsigned (&todo)[kMaskWords<W>],
+    const uint32_t (&hi)[kMaskWords<W>], const uint32_t (&X)[W],
+    const int32_t (&f)[W], const int32_t (&a)[W], const int32_t (&b)[W],
+    unsigned need, int lane) {
+  if constexpr (j < kMaskWords<W>) {
+    build_word<W, MODEL, j>(L, todo[j], hi[j], X, f, a, b, need, lane);
+    build_words<W, MODEL, j + 1>(L, todo, hi, X, f, a, b, need, lane);
+  }
+}
+
+// Closure to fixpoint at a closing FORCE, legality built lazily (see the
+// top of the file). Slot c's registers (op, column total X[c]) are lane
+// c's; `open` and `always` (open slots whose op is always legal) are
+// warp-uniform. Each sweep adds every slot's image of the frontier it
+// starts from, until a sweep adds nothing, in at most W + 1 sweeps.
+// Legality words: all ones for an always-legal slot, zero for a closed
+// one (an AND with them costs less than a branch per slot, which would
+// keep the sweep's shuffles from overlapping), built for the others.
+// `grow` holds, per register word, the lanes whose word gained masks —
+// all non-empty ones before the first sweep, then the sweep's fresh ones
+// — so the groups not built yet are grow & ~built, and the same ballot
+// tells whether the sweep added anything.
 template <int W, int MODEL>
-__device__ __forceinline__ void legality(uint32_t (&L)[W][kMaskWords<W>],
-                                         uint32_t base, uint32_t col,
-                                         int32_t sf, int32_t sa, int32_t sb,
-                                         unsigned open, int lane) {
+__device__ __forceinline__ void mask_closure(
+    uint32_t (&F)[kMaskWords<W>], uint32_t base, uint32_t col, int32_t sf,
+    int32_t sa, int32_t sb, unsigned open, unsigned always, int lane,
+    Prof& prof) {
   constexpr int kWords = kMaskWords<W>;
-  constexpr int kM = 1 << W;
-  // lanes holding frontier words: ballot groups per register word
-  constexpr int kGroups = kM >= 1024 ? 32 : (kM >= 32 ? kM / 32 : 1);
+  constexpr unsigned kLanesPerGroup = (1 << W) < 32 ? (1u << W) : 32u;
+  const unsigned need = open & ~always;
   uint32_t X[W];
   int32_t f[W], a[W], b[W];
 #pragma unroll
@@ -161,31 +264,54 @@ __device__ __forceinline__ void legality(uint32_t (&L)[W][kMaskWords<W>],
   uint32_t lo = base;  // + the mask's low five bits, which are the lane's
 #pragma unroll
   for (int c = 0; c < W && c < 5; ++c) lo += ((lane >> c) & 1) ? X[c] : 0u;
-  const bool real = kM >= 32 || lane < kM;
+  uint32_t hi[kWords];  // + mask bits 10.. (the register word)
+  uint32_t L[W][kWords];
+  unsigned built[kWords], grow[kWords];
 #pragma unroll
   for (int j = 0; j < kWords; ++j) {
-    uint32_t hj = lo;  // + mask bits 10.. (the register word)
+    hi[j] = lo;
 #pragma unroll
-    for (int c = 10; c < W; ++c) hj += ((j >> (c - 10)) & 1) ? X[c] : 0u;
+    for (int c = 10; c < W; ++c) hi[j] += ((j >> (c - 10)) & 1) ? X[c] : 0u;
 #pragma unroll
-    for (int w = 0; w < W; ++w) L[w][j] = 0u;
-#pragma unroll 1
-    for (int g = 0; g < kGroups; ++g) {  // frontier lane g, word j
-      uint32_t st = hj;  // + mask bits 5..9 (the frontier lane)
+    for (int w = 0; w < W; ++w) L[w][j] = ((always >> w) & 1) ? kFull : 0u;
+    built[j] = 0u;
+    grow[j] = __ballot_sync(kFull, F[j] != 0u);
+  }
+  prof.add(kProfClosures, 1u);
+  prof.lap(kProfLegality);
+  for (int it = 0; it <= W; ++it) {
+    unsigned todo[kWords], any = 0u;
 #pragma unroll
-      for (int c = 5; c < W && c < 10; ++c)
-        st += ((g >> (c - 5)) & 1) ? X[c] : 0u;
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        if (!((open >> w) & 1)) continue;  // warp-uniform
-        int32_t next;
-        bool lg;
-        Model<MODEL>::step(static_cast<int32_t>(st), f[w], a[w], b[w], &next,
-                           &lg);
-        const uint32_t word = __ballot_sync(kFull, lg && real);
-        if (lane == g) L[w][j] = word;
-      }
+    for (int j = 0; j < kWords; ++j) {
+      todo[j] = need ? grow[j] & ~built[j] : 0u;
+      built[j] |= todo[j];
+      any |= todo[j];
     }
+    if (any) {  // warp-uniform
+      build_words<W, MODEL>(L, todo, hi, X, f, a, b, need, lane);
+      unsigned groups = 0;
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) groups += __popc(todo[j]);
+      const unsigned ballots = groups * __popc(need);
+      prof.add(kProfGroups, groups);
+      prof.add(kProfBallots, ballots);
+      prof.add(kProfSteps, ballots * kLanesPerGroup);
+      prof.lap(kProfLegality);
+    }
+    uint32_t add[kWords];
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) add[j] = 0u;
+    mask_sweep<W>(F, add, L, lane);
+    unsigned more = 0u;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      grow[j] = __ballot_sync(kFull, (add[j] & ~F[j]) != 0u);
+      F[j] |= add[j];
+      more |= grow[j];
+    }
+    prof.add(kProfSweeps, 1u);
+    prof.lap(kProfSweep);
+    if (!more) break;
   }
 }
 
@@ -193,7 +319,8 @@ template <int W, int MODEL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
     mask_scan_warp(const int32_t* __restrict__ events,
                    const int32_t* __restrict__ n_events,
-                   uint8_t* __restrict__ ok_out, int B, int E, int R,
+                   uint8_t* __restrict__ ok_out,
+                   long long* __restrict__ prof_out, int B, int E, int R,
                    int macro_p, int32_t init_state) {
   constexpr int kWords = kMaskWords<W>;
   __shared__ int32_t ring_all[kWarpsPerBlock][kRingDepth][kRowPitch];
@@ -223,10 +350,14 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
   bool dirty = false;  // an OPEN since the last FORCE: a closure is due
   bool ok = true;
   const int first = macro_p ? 3 : 1;  // first payload (slot, f, a, b)
+  Prof prof;
+  prof.start();
   for (int e = 0; e < n_rows; ++e) {
     stage_row(ring, ev, e + kRingDepth - 1, n_rows, R, lane);
     cp_async_wait<kRingDepth - 1>();  // this lane's copies of row e landed
     __syncwarp();                     // ... and every other lane's
+    prof.add(kProfRows, 1u);
+    prof.lap(kProfRing);
     const int32_t* row = ring[e % kRingDepth];
     const int32_t kind = row[0];
     const int32_t fslot = row[1];
@@ -265,15 +396,17 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
         }
       }
     }
+    prof.lap(kProfLatch);
 
     if (kind == kEvForce) {
       // ---- closure to fixpoint, only when an OPEN came since the last
-      // FORCE (the reference's rule), over the hoisted legality table
+      // FORCE (the reference's rule)
       if (dirty) {
-        uint32_t L[W][kWords];
         const unsigned open = __ballot_sync(kFull, sopen);
-        legality<W, MODEL>(L, base, col, sf, sa, sb, open, lane);
-        mask_closure<W>(F, L, lane);
+        const unsigned always =
+            __ballot_sync(kFull, sopen && Model<MODEL>::always_legal(sf));
+        mask_closure<W, MODEL>(F, base, col, sf, sa, sb, open, always, lane,
+                               prof);
         dirty = false;
       }
       // ---- FORCE: survivors hold the slot's bit; recycle the bit and
@@ -289,16 +422,18 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
         sdelta = 0u;
         sopen = false;
       }
+      prof.lap(kProfForce);
     }
     __syncwarp();  // every lane is done with this ring slot
     if (!ok) break;
   }
   cp_async_wait<0>();
   if (lane == 0) ok_out[h] = ok ? 1 : 0;
+  prof.store(prof_out, h, lane);
 }
 
-using KernelFn = void (*)(const int32_t*, const int32_t*, uint8_t*, int, int,
-                          int, int, int32_t);
+using KernelFn = void (*)(const int32_t*, const int32_t*, uint8_t*,
+                          long long*, int, int, int, int, int32_t);
 
 template <int MODEL>
 KernelFn pick_window(int W) {
@@ -327,17 +462,9 @@ KernelFn pick(int W, int model) {
   }
 }
 
-}  // namespace
-
-// Launch the scan over B histories on `stream`, one warp per history and
-// kWarpsPerBlock histories per block, with the kernel instantiated for
-// (W, model); init_state is the model's initial state. Returns 0, a CUDA
-// error code from the launch, or a negative code for refused arguments
-// (see mask_scan_error_string). Does not synchronise.
-extern "C" int mask_scan_launch(const int32_t* events, const int32_t* n_events,
-                                uint8_t* ok, int B, int E, int R, int macro_p,
-                                int W, int model, int init_state, int device,
-                                void* stream) {
+int launch(const int32_t* events, const int32_t* n_events, uint8_t* ok,
+           long long* prof, int B, int E, int R, int macro_p, int W,
+           int model, int init_state, int device, void* stream) {
   if (B < 0 || E < 0) return -1;
   if (W < 1 || W > kMaskMaxSlots) return -2;
   if (macro_p < 0 || macro_p > kMaxOpens) return -3;
@@ -349,9 +476,24 @@ extern "C" int mask_scan_launch(const int32_t* events, const int32_t* n_events,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
   kernel<<<blocks, kWarpsPerBlock * 32, 0,
-           static_cast<cudaStream_t>(stream)>>>(events, n_events, ok, B, E, R,
-                                                macro_p, init_state);
+           static_cast<cudaStream_t>(stream)>>>(events, n_events, ok, prof, B,
+                                                E, R, macro_p, init_state);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch the scan over B histories on `stream`, one warp per history and
+// kWarpsPerBlock histories per block, with the kernel instantiated for
+// (W, model); init_state is the model's initial state. Returns 0, a CUDA
+// error code from the launch, or a negative code for refused arguments
+// (see mask_scan_error_string). Does not synchronise.
+extern "C" int mask_scan_launch(const int32_t* events, const int32_t* n_events,
+                                uint8_t* ok, int B, int E, int R, int macro_p,
+                                int W, int model, int init_state, int device,
+                                void* stream) {
+  return launch(events, n_events, ok, nullptr, B, E, R, macro_p, W, model,
+                init_state, device, stream);
 }
 
 extern "C" const char* mask_scan_error_string(int code) {
@@ -364,3 +506,25 @@ extern "C" const char* mask_scan_error_string(int code) {
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }
+
+#ifdef MASK_SCAN_PROFILE
+// The instrumented build's launch: as mask_scan_launch, and also
+// prof[B][kProfFields] int64, each history's counters (Prof).
+extern "C" int mask_scan_profile_launch(const int32_t* events,
+                                        const int32_t* n_events, uint8_t* ok,
+                                        long long* prof, int B, int E, int R,
+                                        int macro_p, int W, int model,
+                                        int init_state, int device,
+                                        void* stream) {
+  return launch(events, n_events, ok, prof, B, E, R, macro_p, W, model,
+                init_state, device, stream);
+}
+
+extern "C" const char* mask_scan_profile_error_string(int code) {
+  return mask_scan_error_string(code);
+}
+
+// The number of counters per history in prof (kProfFields), for the
+// binding to check against its own list of columns.
+extern "C" int mask_scan_profile_fields() { return kProfFields; }
+#endif

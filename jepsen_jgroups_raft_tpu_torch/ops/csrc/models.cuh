@@ -1,8 +1,9 @@
 // Device steps of the port's models, shared by the CUDA kernels
 // (dense_scan.cu, mask_scan.cu). Each `step<MODEL>` is the device twin of
 // a model's `torch_step` (models/register.py, counter.py, queuemodel.py):
-// (state, op f a b) -> (state', legal); `mask_delta<MODEL>` is the twin
-// of the mask-mode models' `mask_delta`. Ids match the Python models'
+// (state, op f a b) -> (state', legal); `mask_delta<MODEL>` and
+// `always_legal<MODEL>` are the twins of the mask-mode models'
+// `mask_delta` and `always_legal`. Ids match the Python models'
 // KERNEL_MODEL.
 //
 // Integers: the reference's int32 arithmetic wraps, and signed overflow
@@ -69,6 +70,10 @@ struct Model<kModelCounter> {
              (f == kCtrAddAndGet && added == b);
     *next = f == kCtrRead ? state : added;
   }
+  // exactly the term of `step`'s legality that reads no state
+  __device__ __forceinline__ static bool always_legal(int32_t f) {
+    return f == kCtrAdd;
+  }
   __device__ __forceinline__ static uint32_t mask_delta(int32_t f, int32_t a,
                                                         int32_t) {
     return f == kCtrRead ? 0u : static_cast<uint32_t>(a);
@@ -91,6 +96,10 @@ struct Model<kModelQueue> {
              (f == kQueDeqEmpty && h == t);
     *next = wrap_add(state,
                      (deq ? 1u : 0u) + (enq ? 1u << kTicketBits : 0u));
+  }
+  // exactly the term of `step`'s legality that reads no state
+  __device__ __forceinline__ static bool always_legal(int32_t f) {
+    return f == kQueEnqAny;
   }
   __device__ __forceinline__ static uint32_t mask_delta(int32_t f, int32_t,
                                                         int32_t) {

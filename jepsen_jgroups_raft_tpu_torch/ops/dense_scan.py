@@ -397,6 +397,11 @@ def mask_sweep_fn(legal):
     return sweep
 
 
+#: The work counters `mask_scan_plain` accumulates into its `stats`.
+MASK_STATS = ("force_rows", "closures", "sweeps", "slot_passes",
+              "legal_steps", "legal_needed", "ballots_lazy")
+
+
 def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
                     n_events=None, *, model, stats: Optional[dict] = None):
     """The mask-mode scan in plain PyTorch: a Python loop over event
@@ -409,11 +414,15 @@ def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
     events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
     n_events [B] only bounds the loop; `model` is mask-determined (its
     `torch_step`, `mask_delta` and initial state are used). Returns ok
-    [B] bool on events' device. `stats`, when given, accumulates over
-    rows still alive: "force_rows", "closures" (closing FORCEs),
-    "sweeps", "slot_passes" (sweeps × open slots) and "legal_steps"
-    (model steps of the legality tables: open slots × 2^W per
-    closure)."""
+    [B] bool on events' device. `stats`, when given, accumulates
+    `MASK_STATS` over rows still alive: "force_rows", "closures"
+    (closing FORCEs), "sweeps", "slot_passes" (sweeps × open slots),
+    "legal_steps" (the reference's full legality tables: open slots ×
+    2^W per closure), "legal_needed" (the table entries the closure can
+    read: masks of the closed frontier × open slots whose op is not
+    `always_legal`) and "ballots_lazy" (what the CUDA kernel builds:
+    32-mask groups holding a closed-frontier mask × those slots). These
+    only count; the result does not depend on them."""
     W = int(n_slots)
     M = 1 << W
     B, E = int(events.shape[0]), int(events.shape[1])
@@ -468,15 +477,25 @@ def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
             F, sweeps = closure_fixpoint(W, mask_sweep_fn(legal), F, active)
             if stats is not None:
                 live = ok.to(i64)
+                closing = active.to(i64) * live
                 n_open = so.sum(dim=1)
-                stats["closures"] += int((active.to(i64) * live).sum())
-                stats["sweeps"] += int((sweeps * live).sum())
-                stats["slot_passes"] += int((sweeps * live * n_open).sum())
-                stats["legal_steps"] += int(
-                    (active.to(i64) * live * n_open).sum()) * M
+                # open slots whose op is not legal in every state, and the
+                # masks and 32-mask ballot groups of the closed frontier
+                # (the kernel's sweeps start from growing frontiers, and
+                # its last one from the closed one: the groups it builds,
+                # each once, are the closed frontier's)
+                n_need = (so & ~model.always_legal(sf)).sum(dim=1)
+                n_masks = F.view(B, M).sum(dim=1)
+                n_groups = F.view(B, max(M >> 5, 1), -1).any(dim=2).sum(dim=1)
+                acc["closures"] += closing.sum()
+                acc["sweeps"] += (sweeps * live).sum()
+                acc["slot_passes"] += (sweeps * live * n_open).sum()
+                acc["legal_steps"] += (closing * n_open).sum() * M
+                acc["legal_needed"] += (closing * n_need * n_masks).sum()
+                acc["ballots_lazy"] += (closing * n_need * n_groups).sum()
         dirty = dirty & ~is_force
         if stats is not None:
-            stats["force_rows"] += int((is_force & ok).sum())
+            acc["force_rows"] += (is_force & ok).sum()
         F_forced, alive = force_arith(F, slot.clamp(0, W - 1))
         F = torch.where(is_force[:, None, None], F_forced, F)
         ok = ok & (~is_force | alive)
@@ -498,14 +517,15 @@ def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
              zw, zw, zw, zw, torch.zeros((B, W), dtype=torch.bool, device=dev),
              torch.ones((B,), dtype=torch.bool, device=dev),
              torch.zeros((B,), dtype=torch.bool, device=dev))
-    if stats is not None:
-        for k in ("force_rows", "closures", "sweeps", "slot_passes",
-                  "legal_steps"):
-            stats.setdefault(k, 0)
+    # the counters accumulate on the device and are read once at the end
+    acc = {k: torch.zeros((), dtype=i64, device=dev) for k in MASK_STATS}
     n_scan = E if n_events is None or B == 0 else \
         min(E, int(torch.as_tensor(n_events).max()))
     for e in range(n_scan):
         carry = step(carry, events[:, e])
+    if stats is not None:
+        for k, v in acc.items():
+            stats[k] = stats.get(k, 0) + int(v)
     return carry[8]
 
 
@@ -648,21 +668,27 @@ def _card_rows(name: str, events, macro_p, n_events):
     return dev, B, E, R, P, n_events
 
 
+def _call_launch(name: str, lib, tensors, sizes, stream) -> None:
+    """Call library `name`'s C launch entry point on the tensors'
+    addresses, the sizes and the stream; raise on a refused or failed
+    launch."""
+    rc = getattr(lib, f"{name}_launch")(
+        *(ctypes.c_void_p(t.data_ptr()) for t in tensors), *sizes,
+        ctypes.c_void_p(stream.cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{_build.error_string(name, rc)}")
+
+
 def _launch_fn(name: str, lib, tensors, sizes, B: int):
-    """launch(stream): call library `name`'s C entry point on the
-    tensors' addresses, the sizes and the stream; raise on a refused or
-    failed launch; count it. The closure holds the tensors, not only
-    their addresses, so a default n_events made by the launcher outlives
-    the launch."""
+    """launch(stream): launch library `name`'s kernel (`_call_launch`) and
+    count it in LAUNCHES. The closure holds the tensors, not only their
+    addresses, so a default n_events made by the launcher outlives the
+    launch."""
     def launch(stream) -> None:
         if B == 0:
             return
-        rc = getattr(lib, f"{name}_launch")(
-            *(ctypes.c_void_p(t.data_ptr()) for t in tensors), *sizes,
-            ctypes.c_void_p(stream.cuda_stream))
-        if rc != 0:
-            raise RuntimeError(f"{name} kernel launch failed: "
-                               f"{_build.error_string(name, rc)}")
+        _call_launch(name, lib, tensors, sizes, stream)
         LAUNCHES[name] += 1
 
     return launch
@@ -728,6 +754,16 @@ def mask_scan_launcher(events, n_slots: int, macro_p: Optional[int] = None,
     """`dense_scan_launcher`'s counterpart for the mask kernel: check the
     CUDA tensors, allocate ok [B] bool, build or load the kernel; returns
     (ok, launch)."""
+    dev, B, n_events, sizes = _mask_args(events, n_slots, macro_p, n_events,
+                                         model)
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    lib = _build.load("mask_scan")
+    return ok, _launch_fn("mask_scan", lib, (events, n_events, ok), sizes, B)
+
+
+def _mask_args(events, n_slots, macro_p, n_events, model):
+    """Check a mask group's CUDA tensors and model: (device, B, n_events,
+    the launch's integer arguments)."""
     dev, B, E, R, P, n_events = _card_rows("mask_scan", events, macro_p,
                                            n_events)
     W = mask_layout(n_slots).n_slots
@@ -735,9 +771,40 @@ def mask_scan_launcher(events, n_slots: int, macro_p: Optional[int] = None,
     if code is None or not getattr(model, "mask_determined", False):
         raise ValueError(f"mask_scan: model {type(model).__name__} has no "
                          f"mask-mode step in the CUDA kernel")
+    return dev, B, n_events, (B, E, R, P, W, int(code),
+                              int(model.init_state()), _device_index(dev))
+
+
+#: Columns of `mask_scan_profile`'s per-history counters: SM clock
+#: cycles spent waiting for the row, latching, building legality, in
+#: closure sweeps and in the FORCE; then event rows scanned, closing
+#: FORCEs, closure sweeps, 32-mask legality groups built, ballots (one
+#: per group and slot evaluated) and model steps (ballots × the lanes
+#: holding a real mask).
+MASK_PROFILE_FIELDS = ("ring_cycles", "latch_cycles", "legality_cycles",
+                       "sweep_cycles", "force_cycles", "rows", "closures",
+                       "sweeps", "groups_built", "ballots", "model_steps")
+
+
+def mask_scan_profile(events, n_slots: int, macro_p: Optional[int] = None,
+                      n_events=None, *, model):
+    """The mask kernel's instrumented build (ops/csrc/mask_scan.cu
+    compiled with -DMASK_SCAN_PROFILE into a library of its own) on the
+    current stream: (ok [B] bool, prof [B, len(MASK_PROFILE_FIELDS)]
+    int64). Card only; for measurement, never on a main path, so it is
+    not counted in LAUNCHES. Raises if the library's counters per history
+    are not MASK_PROFILE_FIELDS' columns."""
+    dev, B, n_events, sizes = _mask_args(events, n_slots, macro_p, n_events,
+                                         model)
+    lib = _build.load("mask_scan_profile")
+    n_fields = lib.mask_scan_profile_fields()
+    if n_fields != len(MASK_PROFILE_FIELDS):
+        raise RuntimeError(f"mask_scan_profile writes {n_fields} counters "
+                           f"per history, MASK_PROFILE_FIELDS names "
+                           f"{len(MASK_PROFILE_FIELDS)}")
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
-    lib = _build.load("mask_scan")
-    return ok, _launch_fn(
-        "mask_scan", lib, (events, n_events, ok),
-        (B, E, R, P, W, int(code), int(model.init_state()),
-         _device_index(dev)), B)
+    prof = torch.zeros((B, n_fields), dtype=torch.int64, device=dev)
+    if B:
+        _call_launch("mask_scan_profile", lib, (events, n_events, ok, prof),
+                     sizes, torch.cuda.current_stream(dev))
+    return ok, prof

@@ -24,9 +24,11 @@ from jepsen_jgroups_raft_tpu_torch import models
 from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
 from jepsen_jgroups_raft_tpu_torch.history.synth import (
     build_history, offset_counter_history, random_valid_history)
-from jepsen_jgroups_raft_tpu_torch.models.counter import Counter
+from jepsen_jgroups_raft_tpu_torch.models.counter import (
+    ADD, ADD_AND_GET, READ, Counter)
 from jepsen_jgroups_raft_tpu_torch.models.queuemodel import (
-    TICKET_MAX, TicketQueue, pack_state, unpack_state)
+    DEQ, DEQ_ANY, DEQ_EMPTY, ENQ, ENQ_ANY, TICKET_MAX, TicketQueue,
+    pack_state, unpack_state)
 
 torch.set_num_threads(1)
 
@@ -91,6 +93,57 @@ def test_mask_delta_and_columnar_step_match_reference(kind, f):
     ns_c, lg_c = port.step_columnar(s, fs, a, b)
     ns_r, lg_r = ref.step_columnar(s, fs, a, b)
     assert np.array_equal(ns_c, ns_r) and np.array_equal(lg_c, lg_r)
+
+
+# Each model's `always_legal(f)`, the predicate the mask kernel uses to
+# skip a slot's legality table, must be exactly the term of `torch_step`'s
+# legality that reads no state.
+ALWAYS = {"counter": ADD, "queue": ENQ_ANY}
+OPCODES = {"counter": (READ, ADD, ADD_AND_GET),
+           "queue": (ENQ, ENQ_ANY, DEQ, DEQ_EMPTY, DEQ_ANY)}
+
+
+def _check_always_legal(kind, f):
+    """`always_legal(f)` against `torch_step` over the grid: where it
+    holds, the op is legal in every state for every (a, b); where it
+    fails for a real opcode, each (a, b) has a state that makes the op
+    illegal; an f outside the opcodes is never legal. Returns the
+    predicate's value."""
+    port, _ = _models(kind)
+    s, fs, a, b = _torch(*_inputs(kind, f))
+    n_args = len(COUNTER_VALUES if kind == "counter" else QUEUE_ARGS)
+    legal = port.torch_step(s, fs, a, b)[1].view(-1, n_args, n_args)
+    al = port.always_legal(fs)
+    assert al.dtype == torch.bool and al.shape == fs.shape
+    assert bool(al.all()) or not bool(al.any())  # a function of f alone
+    if bool(al[0]):
+        assert bool(legal.all())
+    elif f in OPCODES[kind]:
+        assert bool((~legal).any(dim=0).all())  # each (a, b) can fail
+    else:
+        assert not bool(legal.any())
+    return bool(al[0])
+
+
+@pytest.mark.parametrize("f", range(-3, 9))
+@pytest.mark.parametrize("kind", ["counter", "queue"])
+def test_always_legal_is_the_unconditional_term(kind, f):
+    assert _check_always_legal(kind, f) == (f == ALWAYS[kind])
+
+
+@pytest.mark.parametrize("kind", ["counter", "queue"])
+def test_always_legal_is_elementwise_on_summed_opcodes(kind):
+    """A macro row may sum several payloads' f into one slot (the
+    reference's `macro_latch_i32`), and the predicate reads that sum as
+    the step does: every sum of two or three opcodes (or of -1, an
+    unknown one) is held to `torch_step` as one f, and a batch of the
+    sums gives the same answers element by element."""
+    ops = (-1, *OPCODES[kind])
+    sums = sorted({sum(c) for r in (2, 3)
+                   for c in itertools.combinations_with_replacement(ops, r)})
+    port, _ = _models(kind)
+    got = port.always_legal(torch.tensor(sums, dtype=torch.int32)).tolist()
+    assert got == [_check_always_legal(kind, f) for f in sums]
 
 
 def test_queue_scalar_step_matches_reference_inside_fields():

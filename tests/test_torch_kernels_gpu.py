@@ -447,3 +447,119 @@ def test_check_histories_mask_on_card_matches_cpu(cuda, kind):
     assert [{k: r[k] for k in keys} for r in on_card] == \
         [{k: r[k] for k in keys} for r in on_host]
     assert {r["decided-tier"] for r in on_card} == {"mask"}
+
+
+def _counter10_histories(W, n, n_ops, seed):
+    """n counter histories of upstream's documented concurrency (10
+    processes, crash_p 0.05, at most 3 crashes) with windows up to W, the
+    first exactly W; odd ones with one observation bumped."""
+    rng = random.Random(seed)
+    m = Counter()
+    top, rest = None, []
+    while top is None or len(rest) < n - 1:
+        h = list(random_valid_history(rng, "counter", n_ops=n_ops, n_procs=10,
+                                      crash_p=0.05, max_crashes=3))
+        w = encode_history(h, m).n_slots
+        if w == W and top is None:
+            top = h
+        elif w <= W and len(rest) < n - 1:
+            rest.append(h)
+    hists = [_corrupt_observation(h, rng) if i % 2 else h
+             for i, h in enumerate([top] + rest)]
+    return [encode_history(h, m) for h in hists]
+
+
+def _kernel_and_plain(ev, ne, W, P, m):
+    ok = ds.mask_scan(ev, W, P, ne, model=m)
+    torch.cuda.synchronize()
+    plain = ds.mask_scan_plain(ev, W, P, ne, model=m)
+    assert ok.cpu().tolist() == plain.cpu().tolist()
+    return plain
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("W", [10, 11, 12], ids=lambda w: f"W{w}")
+def test_mask_scan_kernel_ten_processes(cuda, W, macro):
+    ev, ne, P = _mask_group(_counter10_histories(W, 24, 300, 600 + W), macro,
+                            cuda)
+    plain = _kernel_and_plain(ev, ne, W, P, Counter())
+    assert 0 < int(plain.sum()) < len(plain)
+
+
+def test_mask_scan_kernel_queue_thousand_rows(cuda):
+    """A queue group of 1000 histories at W = 8: two warps on most SM
+    sub-partitions, as the suite's queue batch puts them."""
+    _, encs = _mask_histories("queue", 8, 1000, 60, 71)
+    ev, ne, P = _mask_group(encs, True, cuda)
+    plain = _kernel_and_plain(ev, ne, 8, P, TicketQueue())
+    assert 0 < int(plain.sum()) < len(plain)
+
+
+@pytest.mark.parametrize("P", [None, 4], ids=["legacy", "P4"])
+@pytest.mark.parametrize("W", [3, 8, 12], ids=lambda w: f"W{w}")
+@pytest.mark.parametrize("kind", list(MASK_MODELS))
+def test_mask_scan_kernel_always_legal_rows(cuda, kind, W, P):
+    """Rows whose every op is always legal (counter adds, crashed
+    enqueues): no slot is built; a few rows FORCE a slot never opened,
+    so both polarities show."""
+    rng = np.random.default_rng(50 * W + (P or 0))
+    B, E = 64, 40
+    R = 5 if P is None else 3 + 4 * P
+    ev = np.zeros((B, E, R), dtype=np.int32)
+    for h in range(B):
+        open_ = set()
+        for e in range(E):
+            free = [w for w in range(W) if w not in open_]
+            if free and (not open_ or rng.random() < 0.5):
+                n = 1 if P is None else int(rng.integers(1, min(len(free),
+                                                                P) + 1))
+                slots = rng.choice(free, size=n, replace=False)
+                for j, q in enumerate(slots):
+                    pay = (int(q), 1, int(rng.integers(-3, 4)), 0)
+                    if P is None:
+                        ev[h, e] = (1, *pay)
+                    else:
+                        ev[h, e, 3 + 4 * j:7 + 4 * j] = pay
+                if P is not None:
+                    ev[h, e, :3] = (1, 0, n)
+                open_ |= {int(q) for q in slots}
+            else:
+                q = int(rng.choice(sorted(open_)))
+                if h % 4 == 3 and e == E // 2:
+                    q = min(free) if free else q  # a slot never opened
+                ev[h, e, :2] = (2, q)
+                open_.discard(q)
+    ev_t = torch.from_numpy(ev).to(cuda)
+    ne = torch.full((B,), E, dtype=torch.int32, device=cuda)
+    m = MASK_MODELS[kind]()
+    stats: dict = {}
+    ds.mask_scan_plain(ev_t, W, P, ne, model=m, stats=stats)
+    assert stats["ballots_lazy"] == 0 and stats["closures"] > 0
+    plain = _kernel_and_plain(ev_t, ne, W, P, m)
+    assert 0 < int(plain.sum()) < B
+
+
+@pytest.mark.parametrize("kind,W", [("counter", 5), ("counter", 8),
+                                    ("queue", 8), ("counter", 12)])
+def test_mask_scan_profile_counts_match_plain(cuda, kind, W):
+    """The instrumented build's verdicts equal the plain version's, and
+    its closing FORCEs and ballots equal the plain version's `closures`
+    and `ballots_lazy`; it is not counted as a launch of the main
+    kernel."""
+    if W == 12:
+        encs = _counter10_histories(W, 16, 200, 800)
+    else:
+        _, encs = _mask_histories(kind, W, 32, 200, 810)
+    ev, ne, P = _mask_group(encs, True, cuda)
+    m = MASK_MODELS[kind]()
+    before = ds.launch_counts()
+    ok, prof = ds.mask_scan_profile(ev, W, P, ne, model=m)
+    torch.cuda.synchronize()
+    assert ds.launch_counts() == before
+    stats: dict = {}
+    plain = ds.mask_scan_plain(ev, W, P, ne, model=m, stats=stats)
+    assert ok.cpu().tolist() == plain.cpu().tolist()
+    c = dict(zip(ds.MASK_PROFILE_FIELDS, prof.sum(0).cpu().tolist()))
+    assert c["closures"] == stats["closures"]
+    assert c["ballots"] == stats["ballots_lazy"]
+    assert c["rows"] > 0 and c["legality_cycles"] > 0
