@@ -9,7 +9,7 @@ and PyTorch built for CUDA):
 Phases, each printing JSON lines; any failure exits non-zero:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
-               mask_scan) and the instrumented mask_scan_profile from this
+               mask_scan, sort_scan) and the instrumented mask_scan_profile from this
                checkout's sources into build/torch_kernels/, one nvcc per
                library, started together; ptxas's report for each; the
                paths' kernels must show no spill bytes and no stack frame
@@ -20,7 +20,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
   4. mask_kernel — mask_scan against its plain version, bitwise: counter
                and queue groups at every window W = 1..12, both row
                formats, both polarities; 10-process counter groups at
-               W = 10..12 (1000 ops); a counter group that crosses
+               W = 10..12 (250 ops); a counter group that crosses
                2^31; arbitrary rows (slots out of range, shared slots,
                int32 edges) for the counter, the queue and a counter
                started near 2^31
@@ -63,6 +63,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
                (ring wait, latch, legality, sweeps, FORCE), ballots per
                closing FORCE, cycles per ballot; its ballots must equal
                the plain version's `ballots_lazy`
+ 13. sort_kernel — sort_scan against its plain version, bitwise on ok
+               and overflow: the four models at every kernel window 1..16
+               and 31, 63, 95, 127 (histories up to the window, bursts
+               that fill it), C in {4, 64, 256}, the row format
+               alternating, valid and corrupted; short histories with C near their frontier
+               (rows that overflow and end ok, rows that overflow and do
+               not: both counts must be above 0); arbitrary rows (slots
+               out of range, shared slots, int32 edges)
+ 14. set_main — the reference suite's set shape (bench.py config 6:
+               1000 histories of 1000 ops, 5 processes, crash_p 0.05, at
+               most 3 crashes, value_range 32, seed 20260729) through
+               `check_histories` on the card, measured as `main`: all
+               VALID, every row on the sort tier, 0 host rows, sort_scan's
+               launch count above 0; then each rung of the ladder (C = 64,
+               then the rows that overflowed at C = 256): rows, kernel ms,
+               ns per row, the plain version's time and bitwise flags
+ 15. set_invalid — 64 of those histories with one read made impossible
+               (it misses an element whose add completed before the read
+               began): kernel, plain ladder and host oracle agree row for
+               row, every row INVALID
 
 Then the kernels' summary line, the card's `nvidia-smi` name and power
 limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -88,6 +108,10 @@ N_INVALID = 64
 #: upstream's documented "5 nodes, concurrency 10" (doc/intro.md:34-37):
 #: counter histories of 10 processes, crash_p 0.05, at most 3 crashes
 COUNTER10_SHAPE = (10, CRASH_P, MAX_CRASHES)
+#: ops per history of mask_kernel's 10-process groups (cut from N_OPS to
+#: keep the script inside half its time limit; counter10_main still
+#: holds its full-size groups to the plain version)
+COUNTER10_KERNEL_OPS = 250
 #: warp schedulers (sub-partitions) per SM on Hopper
 SUB_PARTITIONS_PER_SM = 4
 
@@ -102,12 +126,21 @@ CORE_OPS_PER_S = 67e12
 #: compare `(state & field) == a << 15`, one AND and the compare
 LEGAL_STEP_OPS = {"counter": 2, "queue": 3}
 
+#: the reference suite's set workload (bench.py:1013-1017): elements
+#: drawn from 32
+SET_VALUE_RANGE = 32
+#: the sort kernel's windows: exact up to 16, then the word buckets
+SORT_WINDOWS = tuple(range(1, 17)) + (31, 63, 95, 127)
+SORT_CAPS = (4, 64, 256)
+
 #: kernel name -> (source in the repo, the TPU-side program it replaces)
 KERNELS = {
     "dense_scan": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/dense_scan.cu",
                    "jepsen_jgroups_raft_tpu/ops/pallas_scan.py:102"),
     "mask_scan": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/mask_scan.cu",
                   "jepsen_jgroups_raft_tpu/ops/dense_scan.py:577"),
+    "sort_scan": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/sort_scan.cu",
+                  "jepsen_jgroups_raft_tpu/ops/linear_scan.py:138"),
 }
 
 
@@ -270,9 +303,9 @@ def phase_kernel(dev, model):
 
 
 def corrupt_observation(ops, rng, bump: int):
-    """Raise one ok observation of a counter or queue history (a read,
-    an add-and-get's new value, an enqueue's or dequeue's ticket) by
-    `bump`."""
+    """Change one ok observation (a read, an add-and-get's new value, an
+    enqueue's or dequeue's ticket): a number raised by `bump`, a set
+    read given element 31 (or losing it)."""
     ops = list(ops)
     idx = [j for j, op in enumerate(ops) if op.type == "ok"
            and op.value is not None
@@ -280,8 +313,9 @@ def corrupt_observation(ops, rng, bump: int):
     if idx:
         j = rng.choice(idx)
         v = ops[j].value
-        ops[j] = ops[j].replace(value=(v[0], v[1] + bump)
-                                if isinstance(v, tuple) else v + bump)
+        v = (sorted(set(v) ^ {31}) if isinstance(v, list) else
+             (v[0], v[1] + bump) if isinstance(v, tuple) else v + bump)
+        ops[j] = ops[j].replace(value=v)
     return ops
 
 
@@ -377,7 +411,7 @@ def phase_mask_kernel(dev):
                       ne, W, P, model)
     for W in (10, 11, 12):  # upstream's documented concurrency
         encs = [encode_history(h, Counter()) for h in mask_histories(
-            rng, "counter", W, 24, N_OPS, COUNTER10_SHAPE)]
+            rng, "counter", W, 24, COUNTER10_KERNEL_OPS, COUNTER10_SHAPE)]
         for macro in (False, True):
             ev, ne, P = mask_tensors(encs, macro, dev)
             check(f"counter10_W{W}_{'macro' if macro else 'legacy'}", ev, ne,
@@ -529,17 +563,19 @@ def phase_profile(dev, model, histories):
     return share
 
 
-def suite_histories(kind: str):
+def suite_histories(kind: str, **kw):
     """The suite shape: N_HISTORIES histories of N_OPS ops, N_PROCS
-    processes, crash_p CRASH_P, at most MAX_CRASHES crashes, seed SEED.
-    Returns (histories, seconds to make them)."""
+    processes, crash_p CRASH_P, at most MAX_CRASHES crashes, seed SEED
+    (`kw`: the generator's other arguments, e.g. value_range). Returns
+    (histories, seconds to make them)."""
     from jepsen_jgroups_raft_tpu_torch.history.synth import (
         random_valid_history)
 
     t0 = time.perf_counter()
     rng = random.Random(SEED)
     hs = [random_valid_history(rng, kind, n_ops=N_OPS, n_procs=N_PROCS,
-                               crash_p=CRASH_P, max_crashes=MAX_CRASHES)
+                               crash_p=CRASH_P, max_crashes=MAX_CRASHES,
+                               **kw)
           for _ in range(N_HISTORIES)]
     return hs, time.perf_counter() - t0
 
@@ -881,6 +917,351 @@ def phase_invalid(dev, model, bad, tier: str, kernel_plain, name: str):
     return 0
 
 
+def sort_histories(rng, kind: str, W: int, n: int):
+    """n histories for sort window W: random ones with windows up to W
+    (up to 5 processes, the rest crashed ops) and bursts (every op open
+    at once) that reach W; odd ones corrupted."""
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        burst_history, random_valid_history)
+
+    vr = {"value_range": SET_VALUE_RANGE} if kind == "set" else {}
+    hs = []
+    if W <= 16:
+        hs = [random_valid_history(rng, kind, n_ops=24, n_procs=min(W, 5),
+                                   crash_p=0.3 if W > 5 else 0.1,
+                                   max_crashes=max(W - 5, 0), **vr)
+              for _ in range(n - 1)]
+    for j in range(n - len(hs)):
+        hs.append(burst_history(rng, kind, max(W - 3 * j, 1), **vr))
+    return [corrupt_observation(h, rng, 1) if i % 2 else list(h)
+            for i, h in enumerate(hs)]
+
+
+def phase_sort_kernel(dev):
+    """sort_scan against sort_scan_plain, bitwise on both flags: the four
+    models at every window of SORT_WINDOWS (C cycling through SORT_CAPS,
+    the row format alternating), short histories with C near their
+    frontier (both formats), and arbitrary rows. Returns (rows compared,
+    max |kernel - plain|, {rows that overflowed and ended ok, and not})."""
+    import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        random_mask_rows, random_valid_history)
+    from jepsen_jgroups_raft_tpu_torch.models import MODELS
+    from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import (
+        bucket_slots, sort_scan, sort_scan_plain)
+
+    rng = random.Random(SEED + 7)
+    kinds = {"set": "set", "counter": "counter", "register": "cas-register",
+             "queue": "queue"}
+    compared, max_err = 0, 0
+    overflowed = {"ok": 0, "not_ok": 0}
+
+    def check(name, ev, ne, W, C, P, model):
+        nonlocal compared, max_err
+        ok_k, of_k = sort_scan(ev, W, C, P, ne, model=model)
+        sync(dev)
+        ok_p, of_p = sort_scan_plain(ev, W, C, P, ne, model=model)
+        err = max(int((ok_k.int() - ok_p.int()).abs().max()),
+                  int((of_k.int() - of_p.int()).abs().max()))
+        emit("sort_kernel", case=name, model=model.name,
+             rows=int(ev.shape[0]), events=int(ev.shape[1]),
+             row_ints=int(ev.shape[2]), W=W, C=C, macro_p=P,
+             valid=int(ok_p.sum()), overflow=int(of_p.sum()),
+             overflow_ok=int((of_p & ok_p).sum()), max_abs_err=err)
+        if err != 0:
+            raise AssertionError(f"sort_kernel/{name}: kernel disagrees "
+                                 f"with the plain version")
+        compared += int(ev.shape[0])
+        max_err = max(max_err, err)
+        return ok_p, of_p
+
+    def tensors(encs, macro):
+        ev, ne, P = mask_tensors(encs, macro, dev)
+        return ev, ne, P, max(e.n_slots for e in encs)
+
+    for k, (kind, key) in enumerate(kinds.items()):
+        m = MODELS[key]()
+        for i, W in enumerate(SORT_WINDOWS):
+            C = SORT_CAPS[(i + k) % len(SORT_CAPS)]
+            encs = [encode_history(h, m)
+                    for h in sort_histories(rng, kind, W, 6)]
+            for macro in ((i + k) % 2 == 1,):
+                ev, ne, P, widest = tensors(encs, macro)
+                if widest > W or (bucket_slots(widest) != W and
+                                  kind != "register"):
+                    raise AssertionError(f"sort_kernel: {kind} W={W} "
+                                         f"histories reach {widest}")
+                check(f"{kind}_W{W}_C{C}_{'macro' if macro else 'legacy'}",
+                      ev, ne, W, C, P, m)
+        # the 12-op shape: frontiers near C, so rows overflow and some
+        # still end ok
+        srng = random.Random(11)
+        encs = [encode_history(random_valid_history(
+            srng, kind, n_ops=12, n_procs=4, crash_p=0.0, max_crashes=0), m)
+            for _ in range(64)]
+        for C in (4, 8):
+            for macro in (False, True):
+                ev, ne, P, widest = tensors(encs, macro)
+                ok_p, of_p = check(f"{kind}_12ops_C{C}_"
+                                   f"{'macro' if macro else 'legacy'}",
+                                   ev, ne, bucket_slots(widest), C, P, m)
+                overflowed["ok"] += int((of_p & ok_p).sum())
+                overflowed["not_ok"] += int((of_p & ~ok_p).sum())
+    B, E = 32, 32
+    for kind, key, init in (("counter", "counter", None),
+                            ("queue", "queue", None), ("set", "set", None),
+                            ("register", "cas-register", None),
+                            ("counter", "counter", 2**31 - 3)):
+        m = MODELS[key]() if init is None else MODELS[key](init)
+        for i, W in enumerate((1, 6, 12, 40, 127)):
+            P = (None, 3, 16)[i % 3]
+            nrng = np.random.default_rng(SEED + 10 * W + (P or 0))
+            ev = random_mask_rows(nrng, B, E, W, P, kind)
+            n_events = nrng.integers(0, E + 1, size=B, dtype=np.int32)
+            ev[np.arange(E)[None, :] >= n_events[:, None]] = 0
+            check(f"rows_{kind}_{int(m.init_state())}_W{W}_P{P}",
+                  torch.from_numpy(ev).to(dev),
+                  torch.from_numpy(n_events).to(dev), W,
+                  64 if W <= 12 else 4, P, m)
+    if not overflowed["ok"] or not overflowed["not_ok"]:
+        raise AssertionError(f"sort_kernel: rows that overflowed and ended "
+                             f"ok / not ok: {overflowed}; both expected")
+    return compared, max_err, overflowed
+
+
+def plain_ladder(encs, model, dev, stats=None):
+    """The sort ladder's verdicts from the plain version: per row True
+    (ok at a rung), False (not ok, no overflow) or None (overflowed at the
+    top rung). Returns (verdicts, per rung (rows, plain ms, ok, overflow))."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        SORT_LADDER)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        pack_macro_batch)
+    from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import (
+        bucket_slots, sort_scan_plain)
+
+    W = bucket_slots(max(e.n_slots for e in encs))
+    verdicts = [None] * len(encs)
+    remaining, rungs = list(range(len(encs))), []
+    for C in SORT_LADDER:
+        b = pack_macro_batch([encs[i] for i in remaining])
+        ev = torch.from_numpy(b["events"]).to(dev)
+        ne = torch.from_numpy(b["n_events"]).to(dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        ok, of = sort_scan_plain(ev, W, C, b["macro_p"], ne, model=model,
+                                 stats=stats)
+        ok, of = ok.cpu().numpy(), of.cpu().numpy()
+        rungs.append((len(remaining), (time.perf_counter() - t0) * 1e3, ok,
+                      of))
+        escalate = []
+        for j, i in enumerate(remaining):
+            if ok[j] or not of[j]:
+                verdicts[i] = bool(ok[j])
+            else:
+                escalate.append(i)
+        remaining = escalate
+        if not remaining:
+            break
+    return verdicts, rungs
+
+
+def run_set_path(dev, histories, synth_s: float, ptxas: dict) -> dict:
+    """The set path through check_histories on the card, as `run_path`
+    measures the others: warm-up, best of 3 with the launch counts set to
+    0 just before each run and read just after; guards: every history
+    VALID, every row on the sort tier, 0 host rows, sort_scan launched.
+    Then the ladder's breakdown: encode, pack, each rung's rows, kernel
+    ms (CUDA events, best of 3) and ns per row, escalations, the plain
+    version's time and bitwise flags on the same rungs, and the bound
+    from the work this run's data needed. Returns the kernels-line
+    numbers."""
+    import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        SORT_LADDER, check_histories)
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
+        consume_tiers, run_sort_rung)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        encode_history, pack_macro_batch)
+    from jepsen_jgroups_raft_tpu_torch.models import GSet
+    from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
+    from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
+
+    model = GSet()
+    check_histories(histories, model, device=dev)  # warm-up
+    consume_tiers()
+    walls, launches = [], None
+    for _ in range(3):
+        torch.cuda.synchronize()
+        ds.reset_launch_counts()
+        ls.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = check_histories(histories, model, device=dev)
+        walls.append(time.perf_counter() - t0)
+        launches = {**ds.launch_counts(), **ls.launch_counts()}
+        if launches["sort_scan"] <= 0:
+            raise AssertionError("set_main: the path launched no sort_scan "
+                                 "kernel")
+    tiers = consume_tiers()
+    n = len(histories)
+    n_valid = sum(1 for r in results if r["valid?"] is True)
+    off_tier = sum(1 for r in results if r.get("decided-tier") != "sort")
+    if n_valid != n:
+        raise AssertionError(f"set_main verdict guard: {n_valid} of {n} "
+                             f"VALID (every history is valid by "
+                             f"construction)")
+    if off_tier or "host" in tiers:
+        raise AssertionError(f"set_main: {off_tier} rows left the sort tier")
+
+    t0 = time.perf_counter()
+    encs = [encode_history(h, model) for h in histories]
+    encode_s = time.perf_counter() - t0
+    W = ls.bucket_slots(max(e.n_slots for e in encs))
+    windows = {}
+    for e in encs:
+        windows[e.n_slots] = windows.get(e.n_slots, 0) + 1
+    remaining, rungs, pack_s = list(range(n)), [], 0.0
+    bytes_moved = 0
+    for C in SORT_LADDER:
+        t0 = time.perf_counter()
+        b = pack_macro_batch([encs[i] for i in remaining])
+        pack_s += time.perf_counter() - t0
+        ev = torch.from_numpy(b["events"]).to(dev)
+        ne = torch.from_numpy(b["n_events"]).to(dev)
+        ms = []
+        for _ in range(3):
+            run = run_sort_rung(ev, ne, W, C, b["macro_p"], model,
+                                timed=True)
+            ms.append(run.kernel_ms)
+        B, _, R = (int(x) for x in ev.shape)
+        bytes_moved += int(b["n_events"].sum()) * R * 4 + B * 4 + 2 * B
+        longest = int(b["n_events"].max())
+        escalate = [i for j, i in enumerate(remaining)
+                    if not run.ok[j] and run.overflow[j]]
+        rungs.append({"C": C, "rows": B, "macro_p": int(b["macro_p"]),
+                      "events": int(ev.shape[1]), "longest_rows": longest,
+                      "kernel_ms_reps": ms, "kernel_ms": min(ms),
+                      "ns_per_row": min(ms) * 1e6 / longest,
+                      "valid": int(run.ok.sum()),
+                      "overflow": int(run.overflow.sum()),
+                      "escalated": len(escalate),
+                      "ok": run.ok, "overflow_flags": run.overflow})
+        remaining = escalate
+        if not remaining:
+            break
+    # the plain version on the same rungs: time, bitwise flags, and the
+    # work the data needed
+    g: dict = {}
+    _, plain = plain_ladder(encs, model, dev, stats=g)
+    err = 0
+    for r, (rows, p_ms, p_ok, p_of) in zip(rungs, plain):
+        r["plain_ms"] = p_ms
+        err = max(err, int(np.abs(r.pop("ok").astype(int)
+                                  - p_ok.astype(int)).max()),
+                  int(np.abs(r.pop("overflow_flags").astype(int)
+                             - p_of.astype(int)).max()))
+    if err != 0 or len(plain) != len(rungs):
+        raise AssertionError("set_main rungs: kernel disagrees with the "
+                             "plain version")
+    # bound: the event rows and n_events read once and both flags written
+    # once per rung, against the operations this data needed: per closure
+    # round, a model step per (live configuration, open slot) and one
+    # dedup probe per legal candidate (the plain version's count)
+    ops = g["steps"] + g["candidates"]
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / CORE_OPS_PER_S
+    best = min(walls)
+    ms_total = sum(r["kernel_ms"] for r in rungs)
+    plain_ms = sum(r["plain_ms"] for r in rungs)
+    emit("set_main", model=model.name, histories=n, ops_per_history=N_OPS,
+         value_range=SET_VALUE_RANGE, valid=n_valid, host_rows=off_tier,
+         windows=dict(sorted(windows.items())), kernel_window=W,
+         synth_s=synth_s, check_s_reps=walls, check_s_best=best,
+         hist_per_s=n / best, encode_s=encode_s, pack_s=pack_s,
+         rungs=rungs, kernel_ms=ms_total, plain_ms=plain_ms,
+         plain_stats=g, bytes_moved=bytes_moved, ops=ops,
+         bound_ms=max(t_bytes, t_ops) * 1e3,
+         bound_by="bytes" if t_bytes >= t_ops else "operations",
+         spill_bytes=ptxas["spill_store_bytes"] + ptxas["spill_load_bytes"],
+         max_registers=ptxas["max_registers"], launches=launches,
+         tiers=tiers, device=torch.cuda.get_device_name(dev),
+         power=nvidia_smi_line())
+    return {"launches": int(launches["sort_scan"]), "max_abs_err": err,
+            "ms": ms_total, "plain_ms": plain_ms, "t_bytes": t_bytes,
+            "t_ops": t_ops}
+
+
+def corrupt_set_read(ops, rng):
+    """The first ok read invoked after some add of element e completed,
+    with e dropped from what it observed: no linearization explains it
+    (the add takes effect before the read begins, and a set only grows).
+    Only a drop that changes the read's encoded mask counts: the model
+    encodes element 31 as the int32 clamp 0x7FFFFFFF (as the reference
+    does), which hides every other element of a membership holding 31.
+    Returns (ops, changed)."""
+    from jepsen_jgroups_raft_tpu_torch.models.setmodel import element_mask
+
+    ops = list(ops)
+    done, seen_at = set(), {}
+    for j, op in enumerate(ops):
+        if op.type == "invoke" and op.f == "read":
+            seen_at[op.process] = set(done)
+        elif op.type == "ok" and op.f == "add":
+            done.add(op.value)
+        elif op.type == "ok" and op.f == "read":
+            drops = [e for e in sorted(seen_at.get(op.process, ()))
+                     if element_mask(sorted(set(op.value) - {e}))
+                     != element_mask(op.value)]
+            if drops:
+                e = rng.choice(drops)
+                ops[j] = op.replace(value=sorted(set(op.value) - {e}))
+                return ops, True
+    return ops, False
+
+
+def phase_set_invalid(dev, histories):
+    """Set histories with one impossible read: the kernel (check_encoded
+    on the card), the plain ladder and the host oracle agree row for row,
+    every row INVALID and on the sort tier. Returns max |kernel - plain|."""
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_encoded)
+    from jepsen_jgroups_raft_tpu_torch.checker.wgl_cpu import (
+        check_encoded_cpu)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.models import GSet
+
+    model = GSet()
+    rng = random.Random(SEED + 6)
+    bad = []
+    for h in histories[:N_INVALID]:
+        ops_, changed = corrupt_set_read(h, rng)
+        if not changed:
+            raise AssertionError("a set history without a read after a "
+                                 "completed add")
+        bad.append(ops_)
+    encs = [encode_history(h, model) for h in bad]
+    res = check_encoded(encs, model, device=dev)
+    k_ok = [r["valid?"] for r in res]
+    p_ok, _ = plain_ladder(encs, model, dev)
+    o_ok = [check_encoded_cpu(e, model).valid for e in encs]
+    emit("set_invalid", rows=len(encs), kernel_invalid=k_ok.count(False),
+         plain_invalid=p_ok.count(False), oracle_invalid=o_ok.count(False),
+         tiers=sorted({r.get("decided-tier") for r in res}))
+    if any(r.get("decided-tier") != "sort" for r in res):
+        raise AssertionError("set_invalid: a row left the sort tier")
+    if k_ok != p_ok or k_ok != o_ok or any(k_ok):
+        raise AssertionError("set_invalid: kernel, plain version and host "
+                             "oracle disagree, or a corrupted row passed")
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1008,6 +1389,22 @@ def main() -> int:
     # 12. the instrumented mask kernel on the paths' own groups
     phase_mask_profile(dev, paths)
 
+    # 13. sort_scan against its plain version
+    t0 = time.perf_counter()
+    compared, sort_err, overflowed = phase_sort_kernel(dev)
+    emit("sort_kernel_summary", rows_compared=compared, max_abs_err=sort_err,
+         overflowed_and_ok=overflowed["ok"],
+         overflowed_and_not_ok=overflowed["not_ok"],
+         seconds=time.perf_counter() - t0)
+
+    # 14. the set path: the suite's set shape through the sort ladder
+    set_hs, synth_s = suite_histories("set", value_range=SET_VALUE_RANGE)
+    line["sort_scan"] = run_set_path(dev, set_hs, synth_s,
+                                     ptxas["sort_scan"])
+
+    # 15. set invalid subset: kernel vs plain ladder vs host oracle
+    phase_set_invalid(dev, set_hs)
+
     line["mask_scan"] = {
         "launches": sum(x["launches"] for x in mask_line),
         "max_abs_err": max(x["max_abs_err"] for x in mask_line),
@@ -1016,7 +1413,8 @@ def main() -> int:
         "t_bytes": sum(x["t_bytes"] for x in mask_line),
         "t_ops": sum(x["t_ops"] for x in mask_line)}
     errs = {"dense_scan": max(corner_err, groups_err["dense_scan"]),
-            "mask_scan": max(mask_err, groups_err["mask_scan"])}
+            "mask_scan": max(mask_err, groups_err["mask_scan"]),
+            "sort_scan": sort_err}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         x = line[name]

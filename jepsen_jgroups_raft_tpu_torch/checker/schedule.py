@@ -1,5 +1,9 @@
 """Window-group launches and the port's run counters.
 
+`run_sort_rung` launches one rung of the sort-frontier ladder (the sort
+kernel at one capacity C over the rung's rows) and synchronises: the
+ladder needs each rung's flags before it can pick the next rung's rows.
+
 `run_dense_groups` is the port's launch loop for the dense kernels (the
 dense-domain scan for domain groups, the mask-mode scan for mask
 groups): it launches every window group's kernel at once, each on a
@@ -30,6 +34,7 @@ import torch
 
 from ..ops.dense_scan import (dense_scan, dense_scan_launcher, mask_scan,
                               mask_scan_launcher)
+from ..ops.linear_scan import sort_scan, sort_scan_launcher
 
 _STATS_LOCK = threading.Lock()
 _STATS_ZERO = {"groups_run": 0, "rows_run": 0, "wall_s": 0.0}
@@ -224,3 +229,47 @@ def run_dense_groups(launches: List[DenseLaunch], model,
                     kernel_ms=[s.elapsed_time(e) for s, e in marks]
                     if timed else None,
                     span_ms=span[0].elapsed_time(span[1]) if timed else None)
+
+
+@dataclass
+class SortRun:
+    """Flags of `run_sort_rung`: ok [B] and overflow [B] bool arrays.
+    When timed (card only), kernel_ms is the kernel's time by CUDA
+    events."""
+
+    ok: np.ndarray
+    overflow: np.ndarray
+    wall_s: float
+    kernel_ms: Optional[float] = None
+
+
+def run_sort_rung(events, n_events, n_slots: int, n_configs: int,
+                  macro_p: Optional[int], model,
+                  timed: bool = False) -> SortRun:
+    """One rung of the sort ladder: the sort kernel at capacity
+    `n_configs` over the rows `events` [B, E, R] (on the launch device),
+    then one synchronisation to read the flags. `timed` brackets the
+    launch with CUDA events (card only)."""
+    t0 = time.perf_counter()
+    kernel_ms = None
+    if events.device.type != "cuda":
+        ok, overflow = sort_scan(events, n_slots, n_configs, macro_p,
+                                 n_events, model=model)
+    else:
+        stream = torch.cuda.current_stream(events.device)
+        ok, overflow, launch = sort_scan_launcher(
+            events, n_slots, n_configs, macro_p, n_events, model=model)
+        marks = (_timer(), _timer()) if timed else None
+        if timed:
+            marks[0].record(stream)
+        launch(stream)
+        if timed:
+            marks[1].record(stream)
+        stream.synchronize()
+        if timed:
+            kernel_ms = marks[0].elapsed_time(marks[1])
+    out_ok, out_of = ok.cpu().numpy(), overflow.cpu().numpy()
+    wall = time.perf_counter() - t0
+    _add_stats(groups_run=1, rows_run=int(events.shape[0]), wall_s=wall)
+    return SortRun(ok=out_ok, overflow=out_of, wall_s=wall,
+                   kernel_ms=kernel_ms)

@@ -198,6 +198,74 @@ def random_valid_history(
 
 
 
+def burst_history(rng: random.Random, model_kind: str, n_ops: int,
+                  value_range: int = 3) -> History:
+    """n_ops processes each invoke one op at once; the ops take effect
+    in a random order and complete in another: linearizable by
+    construction, with every kept op open at the same time, so the
+    concurrency window is the number of ops the encoder keeps (a
+    register's failed CAS is dropped). model_kind as in `random_valid_history`:
+    "register", "counter", "set" or "queue". Wide windows (up to the
+    sort kernel's 127 slots) in few rows: one closing FORCE per
+    history."""
+    ops = []
+    for p in range(n_ops):
+        if model_kind == "register":
+            f = rng.choice(["read", "write", "cas"])
+            v = (None if f == "read" else rng.randrange(value_range)
+                 if f == "write" else (rng.randrange(value_range),
+                                       rng.randrange(value_range)))
+        elif model_kind == "set":
+            f = rng.choice(["add", "add", "read"])
+            v = rng.randrange(value_range) if f == "add" else None
+        elif model_kind == "queue":
+            f, v = rng.choice(["enqueue", "enqueue", "dequeue"]), None
+        else:
+            f = rng.choice(["read", "add", "add-and-get"])
+            v = None if f == "read" else rng.randrange(1, value_range + 1)
+        ops.append([p, f, v, None])
+    state = (None if model_kind == "register" else
+             (0, 0) if model_kind == "queue" else 0)
+    for k in rng.sample(range(n_ops), n_ops):
+        _, f, v, _ = op = ops[k]
+        if model_kind == "register":
+            if f == "read":
+                op[3] = state
+            elif f == "write":
+                state = v
+            else:
+                op[3] = state == v[0]
+                state = v[1] if op[3] else state
+        elif model_kind == "set":
+            if f == "add":
+                state |= 1 << v
+            else:
+                op[3] = [i for i in range(32) if (state >> i) & 1]
+        elif model_kind == "queue":
+            h, t = state
+            if f == "enqueue":
+                state, op[3] = (h, t + 1), t
+            elif h == t:
+                op[3] = None
+            else:
+                state, op[3] = (h + 1, t), h
+        else:
+            if f != "read":
+                state += v
+            op[3] = state if f == "read" else (v, state) \
+                if f == "add-and-get" else None
+    rows = [(p, INVOKE, f, v) for p, f, v, _ in ops]
+    for k in rng.sample(range(n_ops), n_ops):
+        p, f, v, r = ops[k]
+        if model_kind == "register" and f == "cas":
+            rows.append((p, OK if r else FAIL, f, v))
+        elif f in ("read", "add-and-get", "enqueue", "dequeue"):
+            rows.append((p, OK, f, r))
+        else:
+            rows.append((p, OK, f, v))
+    return build_history(rows)
+
+
 def offset_counter_history(history, offset: int) -> list:
     """A counter history as if the counter had started at `offset`:
     every observed value (a read's, an add-and-get's new value) moves by
@@ -224,15 +292,16 @@ _EDGE_VALUES = (-2**31, 2**31 - 1, 2**30, -2**30, 1, -1, 0, 7, 3)
 
 def random_mask_rows(rng, n: int, n_rows: int, n_slots: int,
                      macro_p, kind: str):
-    """[n, n_rows, R] int32 event rows for the mask-mode scan that stray
-    from what the packer emits, while keeping many frontiers alive:
-    mostly always-legal ops (counter adds, queue crashed enqueues) on
-    free slots and FORCEs of open slots, but also slots out of range
-    (added to the clipped column at OPEN, clipped at FORCE), re-opened
-    slots, payloads sharing a slot in one macro row, n_opens past P or
-    negative, padding and unknown kinds, unknown opcodes, and counter
-    arguments at the int32 edges. `rng` is a numpy Generator; R is 5
-    (macro_p None) or 3 + 4·macro_p; kind is "counter" or "queue"."""
+    """[n, n_rows, R] int32 event rows for the mask-mode and sort scans
+    that stray from what the packer emits, while keeping many frontiers
+    alive: mostly always-legal ops (counter adds, queue crashed
+    enqueues, set adds, register writes) on free slots and FORCEs of
+    open slots, but also slots out of range (added to the clipped column
+    at OPEN, clipped at FORCE), re-opened slots, payloads sharing a slot
+    in one macro row, n_opens past P or negative, padding and unknown
+    kinds, unknown opcodes, and arguments at the int32 edges. `rng` is a
+    numpy Generator; R is 5 (macro_p None) or 3 + 4·macro_p; kind is
+    "counter", "queue", "set" or "register"."""
     import numpy as np
 
     W, P = int(n_slots), macro_p
@@ -248,6 +317,15 @@ def random_mask_rows(rng, n: int, n_rows: int, n_slots: int,
         if kind == "counter":
             f = int(rng.choice([1, 0, 2, 5], p=[.8, .07, .08, .05]))
             a = int(rng.choice(_EDGE_VALUES))
+        elif kind == "set":  # add an element bit, read a membership
+            f = int(rng.choice([0, 1, 5], p=[.8, .12, .08]))
+            a = (1 << int(rng.integers(0, 32)) if rng.random() < .8
+                 else int(rng.choice(_EDGE_VALUES)))
+            a = ((a + 2**31) & 0xFFFFFFFF) - 2**31
+        elif kind == "register":  # write, read, cas over a few values
+            f = int(rng.choice([1, 0, 2, 6], p=[.6, .15, .2, .05]))
+            a = int(rng.choice([0, 1, 2, -2**31, 2**31 - 1]))
+            return f, a, int(rng.choice([0, 1, 2, -2**31]))
         else:
             f = int(rng.choice([1, 4, 0, 2, 3, 7],
                                p=[.45, .2, .15, .1, .05, .05]))

@@ -1,11 +1,12 @@
 """State carried across from the reference package.
 
-The checker has no weights: its state is the encoded histories and the
-per-group domain tables. These helpers read the numpy fields of a
-reference `EncodedHistory` or `DensePlan` by attribute (duck typing —
-nothing of the reference is imported) and return the port's own
-objects, so a test can feed the reference's encodings straight into the
-port's scan and never depend on the port's encoder.
+The checker has no weights: its state is the models, the encoded
+histories and the per-group domain tables. These helpers read the
+fields of a reference model, `EncodedHistory` or `DensePlan` by
+attribute (duck typing — nothing of the reference is imported) and
+return the port's own objects, so a test can feed the reference's
+encodings straight into the port's scan and never depend on the port's
+encoder.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional
 import numpy as np
 
 from .history.packing import EncodedHistory
+from .models import MODELS
 from .ops.dense_scan import DensePlan
 
 
@@ -44,3 +46,18 @@ def plan_from_reference(obj) -> DensePlan:
     return DensePlan(str(obj.kind), int(obj.n_slots), int(obj.n_states),
                      np.ascontiguousarray(np.asarray(obj.val_of,
                                                      dtype=np.int32)))
+
+
+def model_from_reference(obj):
+    """The port's model with a reference model's name and initial state
+    (`obj.initial` where the model has one)."""
+    cls = MODELS.get(getattr(obj, "name", None))
+    if cls is None:
+        raise ValueError(f"no port model named {getattr(obj, 'name', None)!r}")
+    model = cls()
+    if hasattr(obj, "initial"):
+        model.initial = int(obj.initial)
+    if model.init_state() != int(obj.init_state()):
+        raise ValueError(f"{cls.__name__}: initial state "
+                         f"{model.init_state()} != {obj.init_state()}")
+    return model

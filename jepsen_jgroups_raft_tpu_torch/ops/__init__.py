@@ -7,6 +7,9 @@
   the CUDA kernel wrappers `dense_scan` (dense-domain scan) and
   `mask_scan` (mask-mode scan) and their plain versions
   `dense_scan_plain`, `mask_scan_plain`.
+* `linear_scan` — the sort-frontier ladder: window buckets
+  (`bucket_slots`), the CUDA kernel wrapper `sort_scan` and its plain
+  version `sort_scan_plain`.
 * `_build`     — nvcc build of `csrc/*.cu` at first use, ctypes binding.
 """
 

@@ -49,6 +49,13 @@ SIGNATURES: Dict[str, dict] = {
                                   _I, _I, _VP]),
         "mask_scan_error_string": (ctypes.c_char_p, [_I]),
     },
+    "sort_scan": {
+        # events, n_events, ok, overflow, B, E, R, macro_p, W, C, model,
+        # init_state, device, stream
+        "sort_scan_launch": (_I, [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _VP]),
+        "sort_scan_error_string": (ctypes.c_char_p, [_I]),
+    },
     "mask_scan_profile": {
         # events, n_events, ok, prof, B, E, R, macro_p, W, model,
         # init_state, device, stream

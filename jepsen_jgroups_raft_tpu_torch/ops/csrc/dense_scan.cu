@@ -92,8 +92,10 @@
 //
 // The frontier layout, the FORCE and the row ring are shared with the
 // mask-mode scan (warp_frontier.cuh); the model steps live in
-// models.cuh. Only the register has a dense domain, so the launcher
-// refuses every other model.
+// models.cuh. The register and the set (a set history with at most 4
+// distinct adds, `GSet.dense_domain`) have dense domains; the launcher
+// refuses every other model. The model is a runtime switch
+// (`model_step`), so the set adds no instance.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -366,7 +368,7 @@ extern "C" int dense_scan_launch(const int32_t* events, const int32_t* val_of,
     return -2;
   if (macro_p < 0 || macro_p > kMaxOpens) return -3;
   if (R != (macro_p ? 3 + 4 * macro_p : 5)) return -4;
-  if (model != kModelCasRegister) return -5;
+  if (model != kModelCasRegister && model != kModelSet) return -5;
   if (field_log2 < 0 || field_log2 > 4 || (1 << field_log2) < S ||
       (field_log2 > 0 && (1 << (field_log2 - 1)) >= S))
     return -6;
@@ -388,7 +390,7 @@ extern "C" const char* dense_scan_error_string(int code) {
     case -2: return "(W, S) beyond the dense caps";
     case -3: return "macro_p beyond MACRO_MAX_OPENS";
     case -4: return "row width does not match macro_p";
-    case -5: return "model has no dense domain (only the register has)";
+    case -5: return "model has no dense domain (the register and the set have)";
     case -6: return "field_log2 is not the layout's field width for S";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

@@ -6,7 +6,8 @@
 // ops/dense_scan.py `mask_step_parts` (dense_scan.py:577; an XLA program,
 // no `pallas_call`), for models whose state after a SET of ops does not
 // depend on their order (`mask_determined`: the counter, the ticket
-// queue). The frontier is a bitset F[2^W], W <= 12: bit m = "some
+// queue; and the set histories whose adds hit distinct fresh bits,
+// `GSet.mask_eligible`, where the subset sums equal the OR). The frontier is a bitset F[2^W], W <= 12: bit m = "some
 // linearization of exactly the ops in window mask m survives". Config
 // m's state is base + sums[m], where sums[m] is the subset sum of the
 // open slots' deltas and base absorbs the delta of every retired op. Per
@@ -458,6 +459,7 @@ KernelFn pick(int W, int model) {
   switch (model) {
     case kModelCounter: return pick_window<kModelCounter>(W);
     case kModelQueue: return pick_window<kModelQueue>(W);
+    case kModelSet: return pick_window<kModelSet>(W);
     default: return nullptr;
   }
 }

@@ -1,6 +1,7 @@
 // Device steps of the port's models, shared by the CUDA kernels
-// (dense_scan.cu, mask_scan.cu). Each `step<MODEL>` is the device twin of
-// a model's `torch_step` (models/register.py, counter.py, queuemodel.py):
+// (dense_scan.cu, mask_scan.cu, sort_scan.cu). Each `step<MODEL>` is the
+// device twin of a model's `torch_step` (models/register.py, counter.py,
+// queuemodel.py, setmodel.py):
 // (state, op f a b) -> (state', legal); `mask_delta<MODEL>` and
 // `always_legal<MODEL>` are the twins of the mask-mode models'
 // `mask_delta` and `always_legal`. Ids match the Python models'
@@ -22,6 +23,7 @@ namespace {
 constexpr int kModelCasRegister = 0;
 constexpr int kModelCounter = 1;
 constexpr int kModelQueue = 2;
+constexpr int kModelSet = 3;
 
 // CAS register opcodes (models/register.py).
 constexpr int32_t kRegWrite = 1;
@@ -40,6 +42,10 @@ constexpr int32_t kQueDeqEmpty = 3;
 constexpr int32_t kQueDeqAny = 4;
 constexpr int kTicketBits = 15;
 constexpr int32_t kTicketMax = (1 << kTicketBits) - 1;
+
+// Grow-only set opcodes (models/setmodel.py); any other opcode acts as a
+// read, as in `torch_step`.
+constexpr int32_t kSetAdd = 0;
 
 __device__ __forceinline__ int32_t wrap_add(int32_t x, uint32_t y) {
   return static_cast<int32_t>(static_cast<uint32_t>(x) + y);
@@ -109,6 +115,27 @@ struct Model<kModelQueue> {
   }
 };
 
+template <>
+struct Model<kModelSet> {
+  __device__ __forceinline__ static void step(int32_t state, int32_t f,
+                                              int32_t a, int32_t,
+                                              int32_t* next, bool* legal) {
+    const bool is_add = f == kSetAdd;
+    *legal = is_add || state == a;  // a read pins the whole membership
+    *next = is_add ? (state | a) : state;
+  }
+  // exactly the term of `step`'s legality that reads no state
+  __device__ __forceinline__ static bool always_legal(int32_t f) {
+    return f == kSetAdd;
+  }
+  // the add's element bit: equal to the OR only for the histories the
+  // router proves additive (`GSet.mask_eligible`)
+  __device__ __forceinline__ static uint32_t mask_delta(int32_t f, int32_t a,
+                                                        int32_t) {
+    return f == kSetAdd ? static_cast<uint32_t>(a) : 0u;
+  }
+};
+
 // The step of the model with runtime id `model` (unknown ids take the
 // register's step; the launchers refuse them first).
 __device__ __forceinline__ void model_step(int model, int32_t state,
@@ -120,6 +147,9 @@ __device__ __forceinline__ void model_step(int model, int32_t state,
       break;
     case kModelQueue:
       Model<kModelQueue>::step(state, f, a, b, next, legal);
+      break;
+    case kModelSet:
+      Model<kModelSet>::step(state, f, a, b, next, legal);
       break;
     case kModelCasRegister:
     default:

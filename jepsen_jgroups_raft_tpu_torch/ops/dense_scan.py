@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..history.packing import EncodedHistory
-from ..models.base import wrap_i32
+from ..models.base import Model, wrap_i32
 from . import _build
 from .kernel_ir import (DENSE_MAX_CELLS, DENSE_MAX_SLOTS, DENSE_MAX_STATES,
                         MASK_DENSE_MAX_SLOTS, closure_fixpoint, force_arith,
@@ -412,8 +412,9 @@ def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
     `closure_fixpoint`, and `force_arith`.
 
     events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
-    n_events [B] only bounds the loop; `model` is mask-determined (its
-    `torch_step`, `mask_delta` and initial state are used). Returns ok
+    n_events [B] only bounds the loop; `model` has a mask-mode step (its
+    `torch_step`, `mask_delta`, `always_legal` and initial state are
+    used). Returns ok
     [B] bool on events' device. `stats`, when given, accumulates
     `MASK_STATS` over rows still alive: "force_rows", "closures"
     (closing FORCEs), "sweeps", "slot_passes" (sweeps × open slots),
@@ -680,16 +681,18 @@ def _call_launch(name: str, lib, tensors, sizes, stream) -> None:
                            f"{_build.error_string(name, rc)}")
 
 
-def _launch_fn(name: str, lib, tensors, sizes, B: int):
+def _launch_fn(name: str, lib, tensors, sizes, B: int, counts=None):
     """launch(stream): launch library `name`'s kernel (`_call_launch`) and
-    count it in LAUNCHES. The closure holds the tensors, not only their
-    addresses, so a default n_events made by the launcher outlives the
-    launch."""
+    count it in `counts` (default: this module's LAUNCHES). The closure
+    holds the tensors, not only their addresses, so a default n_events
+    made by the launcher outlives the launch."""
+    counts = LAUNCHES if counts is None else counts
+
     def launch(stream) -> None:
         if B == 0:
             return
         _call_launch(name, lib, tensors, sizes, stream)
-        LAUNCHES[name] += 1
+        counts[name] += 1
 
     return launch
 
@@ -735,7 +738,8 @@ def mask_scan(events, n_slots: int, macro_p: Optional[int] = None,
 
     events [B, E, 5] int32 (legacy rows) or [B, E, 3 + 4·P] int32 (macro
     rows, macro_p=P); n_events [B] int32 real row counts (default: all E
-    rows); `model` a mask-determined model (the counter, the queue). A
+    rows); `model` a model with a mask-mode step (the counter, the
+    queue, the set on histories `GSet.mask_eligible` accepts). A
     CPU tensor takes `mask_scan_plain`; a CUDA tensor launches the
     hand-written kernel (ops/csrc/mask_scan.cu, one warp per history,
     instantiated for (W, model)) on the current stream without
@@ -768,7 +772,7 @@ def _mask_args(events, n_slots, macro_p, n_events, model):
                                            n_events)
     W = mask_layout(n_slots).n_slots
     code = getattr(model, "KERNEL_MODEL", None)
-    if code is None or not getattr(model, "mask_determined", False):
+    if code is None or type(model).mask_delta is Model.mask_delta:
         raise ValueError(f"mask_scan: model {type(model).__name__} has no "
                          f"mask-mode step in the CUDA kernel")
     return dev, B, n_events, (B, E, R, P, W, int(code),

@@ -20,8 +20,8 @@ contract:
       then run this same code.
 
 These functions are the semantics the CUDA kernels (ops/csrc/
-dense_scan.cu, ops/csrc/mask_scan.cu) are held to; they are not on the
-card's main path.
+dense_scan.cu, ops/csrc/mask_scan.cu, ops/csrc/sort_scan.cu) are held
+to; they are not on the card's main path.
 """
 
 from __future__ import annotations
@@ -45,6 +45,12 @@ DENSE_MAX_CELLS = 8192  # 2^W · S
 #: Mask mode has no state dimension (S² → 1), so it affords a wider
 #: window: F[2^12] bits per history.
 MASK_DENSE_MAX_SLOTS = 12
+
+#: Sort-frontier caps (ops/linear_scan.py): a configuration's mask is
+#: K = W // 32 + 1 uint32 words with a spare top bit, so 4 words hold
+#: 127 slots; C configurations per history at the top rung.
+SORT_MAX_SLOTS = 127
+SORT_DEFAULT_CONFIGS = 256
 
 
 # ------------------------------------------------------- event-row layout

@@ -1,0 +1,316 @@
+"""Sort-frontier scan: the general linearizability kernel (the ladder).
+
+The port of the reference's sort kernel (`jepsen_jgroups_raft_tpu/ops/
+linear_scan.py` `sort_step_parts` and `_dedup_compact`, an XLA program).
+It takes any model and any window W ≤ 127, where the dense kernels need
+a small domain or an order-independent model and W ≤ 12:
+
+  * A configuration is (K-word uint32 mask over the W window slots,
+    int32 model state), K = W // 32 + 1, so the last word always keeps
+    its top bit spare. The frontier holds at most C configurations; an
+    empty entry has every mask word all-ones.
+  * OPEN rows latch (f, a, b) into their slot's registers. At a FORCE
+    after an OPEN, a closure: each round expands every live
+    configuration by every open slot not in its mask whose step is
+    legal, then deduplicates parents and candidates and keeps the C
+    smallest distinct entries; rounds repeat while one finds a candidate
+    distinct from every parent, at most W + 1 of them. The FORCE kills
+    configurations without the slot's bit and clears the bit in the
+    survivors; ``ok &= some survivor``.
+  * More than C distinct configurations in a round set ``overflow``: a
+    VALID verdict stays sound (configurations were only dropped), an
+    INVALID one is unknown, and the caller escalates the row to a larger
+    C or to the host oracle.
+
+Which C entries are kept decides the flags of a row that overflowed, so
+the order is the reference's exactly: its two stable sorts leave the
+distinct live entries ordered by the last mask word, then words 0 ..
+K−2, then the state (words unsigned, the state signed).
+
+This module holds `bucket_slots` (the kernel windows), `sort_scan_plain`
+(the plain PyTorch version, batched over B, which the CPU tests hold to
+the reference and chip_smoke.py holds the CUDA kernel to) and
+`sort_scan`, the wrapper of the hand-written CUDA kernel
+(ops/csrc/sort_scan.cu).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..models.base import wrap_i32
+from . import _build
+from .dense_scan import _card_rows, _device_index, _launch_fn
+from .kernel_ir import SORT_DEFAULT_CONFIGS, SORT_MAX_SLOTS, make_stream_step
+
+MAX_SLOTS = SORT_MAX_SLOTS
+DEFAULT_N_CONFIGS = SORT_DEFAULT_CONFIGS
+
+#: The largest C the CUDA kernel takes (one thread per configuration,
+#: one block per history).
+MAX_CONFIGS = 512
+
+#: Windows ≤ SLOT_EXACT_MAX run at their exact size; wider ones at the
+#: smallest SLOT_BUCKETS rung that holds them (32k − 1 slots for k words).
+SLOT_EXACT_MAX = 16
+SLOT_BUCKETS = (31, 63, 95, 127)
+
+#: An empty entry's mask word.
+_SENT = 0xFFFFFFFF
+
+
+def bucket_slots(n: int) -> int:
+    """Kernel window for a real window of n slots: exact when small, else
+    the smallest SLOT_BUCKETS rung ≥ n."""
+    if n <= SLOT_EXACT_MAX:
+        return max(n, 1)
+    for b in SLOT_BUCKETS:
+        if n <= b:
+            return b
+    raise ValueError(f"window {n} exceeds MAX_SLOTS {MAX_SLOTS}")
+
+
+def mask_words(n_slots: int) -> int:
+    """K, the uint32 words of a configuration's mask at window W."""
+    return int(n_slots) // 32 + 1
+
+
+# ----------------------------------------------------------- plain version
+
+#: The work counters `sort_scan_plain` accumulates into its `stats`.
+SORT_STATS = ("closures", "rounds", "steps", "candidates")
+
+
+def _gather_rows(x, idx):
+    """x [B, N] or [B, N, K] reordered along dim 1 by idx [B, M]."""
+    if x.dim() == 2:
+        return torch.gather(x, 1, idx)
+    return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+
+
+def _dedup_compact(masks, states, tags, n_configs: int):
+    """The reference's `_dedup_compact`, batched: masks [B, N, K] int64
+    (uint32 words), states [B, N] int32, tags [B, N] int64 (0 parent, 1
+    candidate). Returns (masks' [B, C, K], states' [B, C], count [B],
+    grew [B]): the C first of the distinct live entries in the
+    reference's order, their exact number, and whether one of them is a
+    candidate equal to no parent."""
+    B, N, K = masks.shape
+    # the first sort: lexicographic on (w0 .. w_{K-1}, state, tag), as
+    # stable sorts from the last key to the first
+    order = torch.arange(N, device=masks.device).expand(B, N)
+    for key in [tags, states] + [masks[:, :, j] for j in reversed(range(K))]:
+        k = torch.gather(key, 1, order)
+        order = torch.gather(order, 1,
+                             torch.sort(k, dim=1, stable=True).indices)
+    sm, ss, st = (_gather_rows(x, order) for x in (masks, states, tags))
+    same = (sm[:, 1:] == sm[:, :-1]).all(dim=2) & (ss[:, 1:] == ss[:, :-1])
+    dup = torch.cat([torch.zeros((B, 1), dtype=torch.bool,
+                                 device=masks.device), same], dim=1)
+    keep = ~dup & (sm[:, :, K - 1] != _SENT)
+    count = keep.sum(dim=1)
+    grew = (keep & (st == 1)).any(dim=1)
+    # the second sort, stable on the last word alone: dropped rows are
+    # blanked to the empty entry, which sorts after every live one
+    m2 = torch.where(keep[:, :, None], sm, _SENT)
+    s2 = torch.where(keep, ss, 0)
+    idx = torch.sort(m2[:, :, K - 1], dim=1, stable=True).indices[:, :n_configs]
+    return _gather_rows(m2, idx), _gather_rows(s2, idx), count, grew
+
+
+def sort_scan_plain(events, n_slots: int, n_configs: int,
+                    macro_p: Optional[int] = None, n_events=None, *, model,
+                    stats: Optional[dict] = None):
+    """The sort-frontier scan in plain PyTorch: a Python loop over event
+    rows, batched over B, following the reference's `sort_step_parts`
+    and `_dedup_compact` step for step through the port's kernel_ir
+    hooks.
+
+    events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
+    n_events [B] only bounds the loop (rows past a history's length are
+    EV_PAD no-ops); W = n_slots ≤ MAX_SLOTS, C = n_configs. Returns (ok
+    [B] bool, overflow [B] bool) on events' device. `stats`, when given,
+    accumulates `SORT_STATS` over rows still alive: "closures" (closing
+    FORCEs), "rounds" (closure rounds), "steps" (live
+    configurations × open slots, per round: the model steps the round
+    takes) and "candidates" (legal expansions, per round: each one
+    dedup probe). They only count; the result does not depend on them."""
+    W, C = int(n_slots), int(n_configs)
+    if not 1 <= W <= MAX_SLOTS:
+        raise ValueError(f"sort_scan: W={W} beyond 1..{MAX_SLOTS}")
+    if C < 1:
+        raise ValueError(f"sort_scan: n_configs={C} < 1")
+    K = mask_words(W)
+    B, E = int(events.shape[0]), int(events.shape[1])
+    dev = events.device
+    i64 = torch.int64
+    slot_ids = torch.arange(W, dtype=torch.int32, device=dev)
+    slot_word = torch.arange(W, device=dev) // 32
+    slot_bit = 1 << (torch.arange(W, dtype=i64, device=dev) % 32)     # [W]
+    set_bits = torch.where(torch.arange(K, device=dev)[None, :]
+                           == slot_word[:, None], slot_bit[:, None], 0)
+    parent_tags = torch.zeros((B, C), dtype=i64, device=dev)
+    cand_tags = torch.ones((B, C * W), dtype=i64, device=dev)
+    acc = {k: torch.zeros((), dtype=i64, device=dev) for k in SORT_STATS}
+
+    def expand_once(masks, states, sf, sa, sb, so):
+        live = masks[:, :, K - 1] != _SENT                            # [B,C]
+        m_w = masks[:, :, slot_word]                                  # [B,C,W]
+        cand_open = so[:, None, :] & ((m_w & slot_bit) == 0)
+        ns, legal = model.torch_step(states[:, :, None], sf[:, None, :],
+                                     sa[:, None, :], sb[:, None, :])
+        good = live[:, :, None] & cand_open & legal
+        cand = masks[:, :, None, :] | set_bits[None, None]            # [B,C,W,K]
+        cand_m = torch.where(good[..., None], cand, _SENT)
+        cand_s = torch.where(good, ns, 0).to(torch.int32)
+        nm, nst, count, grew = _dedup_compact(
+            torch.cat([masks, cand_m.reshape(B, C * W, K)], dim=1),
+            torch.cat([states, cand_s.reshape(B, C * W)], dim=1),
+            torch.cat([parent_tags, cand_tags], dim=1), C)
+        n_steps = (live.sum(dim=1) * so.sum(dim=1)).to(i64)
+        return nm, nst, count, grew, n_steps, good.sum(dim=(1, 2))
+
+    def latch(carry, slot, f, a, b, is_open, upd):
+        masks, states, sf, sa, sb, so, ok, overflow, dirty = carry
+        sf = torch.where(upd, f[:, None], sf)
+        sa = torch.where(upd, a[:, None], sa)
+        sb = torch.where(upd, b[:, None], sb)
+        return (masks, states, sf, sa, sb, so | upd, ok, overflow,
+                dirty | is_open)
+
+    def macro_latch(carry, pslot, pf, pa, pb, valid, n, eq, upd):
+        masks, states, sf, sa, sb, so, ok, overflow, dirty = carry
+        sel = eq.to(i64)                                              # [B,W,P]
+
+        def put(old, new):  # the reference's macro_latch_i32
+            return torch.where(upd, wrap_i32(
+                (sel * new.to(i64)[:, None, :]).sum(2)), old)
+
+        return (masks, states, put(sf, pf), put(sa, pa), put(sb, pb),
+                so | upd, ok, overflow, dirty | (n > 0))
+
+    def force_tail(carry, is_force, slot):
+        masks, states, sf, sa, sb, so, ok, overflow, dirty = carry
+        active = is_force & dirty
+        if bool(active.any()):
+            # closure: rounds while one grew, at most W + 1, row by row
+            cont = active.clone()
+            acc["closures"] += (active & ok).sum()
+            it = 0
+            while bool(cont.any()):
+                nm, nst, count, grew, n_steps, n_cand = expand_once(
+                    masks, states, sf, sa, sb, so)
+                counted = (cont & ok).to(i64)
+                acc["rounds"] += counted.sum()
+                acc["steps"] += (counted * n_steps).sum()
+                acc["candidates"] += (counted * n_cand).sum()
+                masks = torch.where(cont[:, None, None], nm, masks)
+                states = torch.where(cont[:, None], nst, states)
+                overflow = overflow | (cont & (count > C))
+                cont = cont & grew & (it < W)
+                it += 1
+        dirty = dirty & ~is_force
+        # FORCE: survivors hold the slot's bit, which is then cleared; a
+        # slot outside [0, W) has no bit in any live mask
+        in_range = (slot >= 0) & (slot < W)
+        sc = slot.clamp(0, W - 1).to(i64)
+        bitvec = torch.where((torch.arange(K, device=dev)[None, :]
+                              == (sc // 32)[:, None]) & in_range[:, None],
+                             (1 << (sc % 32))[:, None], 0)            # [B,K]
+        live = masks[:, :, K - 1] != _SENT
+        has = ((masks & bitvec[:, None, :]) != 0).any(dim=2) & live
+        killed = torch.where((is_force[:, None] & live & ~has)[:, :, None],
+                             _SENT, masks)
+        masks = torch.where((is_force[:, None] & has)[:, :, None],
+                            killed & ~bitvec[:, None, :], killed)
+        alive = (masks[:, :, K - 1] != _SENT).any(dim=1)
+        ok = ok & (~is_force | alive)
+        so = so & ~((slot_ids[None, :] == slot[:, None]) & is_force[:, None])
+        return (masks, states, sf, sa, sb, so, ok, overflow, dirty)
+
+    step = make_stream_step(W, latch, macro_latch, force_tail, macro_p)
+    masks = torch.full((B, C, K), _SENT, dtype=i64, device=dev)
+    masks[:, 0] = 0
+    states = torch.zeros((B, C), dtype=torch.int32, device=dev)
+    states[:, 0] = int(model.init_state())
+    zw = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    carry = (masks, states, zw, zw, zw,
+             torch.zeros((B, W), dtype=torch.bool, device=dev),
+             torch.ones((B,), dtype=torch.bool, device=dev),
+             torch.zeros((B,), dtype=torch.bool, device=dev),
+             torch.zeros((B,), dtype=torch.bool, device=dev))
+    n_scan = E if n_events is None or B == 0 else \
+        min(E, int(torch.as_tensor(n_events).max()))
+    for e in range(n_scan):
+        carry = step(carry, events[:, e])
+    if stats is not None:
+        for k, v in acc.items():
+            stats[k] = stats.get(k, 0) + int(v)
+    return carry[6], carry[7]
+
+
+# ------------------------------------------------------------ the kernel
+
+#: Launch count of the sort kernel's wrapper: one is added where it
+#: launches its kernel and nowhere else.
+LAUNCHES = {"sort_scan": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def sort_scan(events, n_slots: int, n_configs: int,
+              macro_p: Optional[int] = None, n_events=None, *, model):
+    """The sort-frontier scan over a batch: (ok [B] bool, overflow [B]
+    bool).
+
+    events [B, E, 5] int32 (legacy rows) or [B, E, 3 + 4·P] int32 (macro
+    rows, macro_p=P); n_events [B] int32 real row counts (default: all E
+    rows); W = n_slots ≤ MAX_SLOTS, C = n_configs ≤ MAX_CONFIGS; any
+    model with a `KERNEL_MODEL`. A CPU tensor takes `sort_scan_plain`; a
+    CUDA tensor launches the hand-written kernel (ops/csrc/sort_scan.cu,
+    one block per history) on the current stream without synchronising,
+    or raises."""
+    if events.device.type == "cpu":
+        return sort_scan_plain(events, n_slots, n_configs, macro_p,
+                               n_events, model=model)
+    ok, overflow, launch = sort_scan_launcher(events, n_slots, n_configs,
+                                              macro_p, n_events, model=model)
+    launch(torch.cuda.current_stream(events.device))
+    return ok, overflow
+
+
+def sort_scan_launcher(events, n_slots: int, n_configs: int,
+                       macro_p: Optional[int] = None, n_events=None, *,
+                       model):
+    """Everything `sort_scan` does on the card before the launch: check
+    the CUDA tensors and shape, allocate ok and overflow [B] bool, build
+    or load the kernel. Returns (ok, overflow, launch); launch(stream)
+    launches the kernel on that `torch.cuda.Stream` without
+    synchronising and counts it, or raises."""
+    dev, B, E, R, P, n_events = _card_rows("sort_scan", events, macro_p,
+                                           n_events)
+    W, C = int(n_slots), int(n_configs)
+    if not 1 <= W <= MAX_SLOTS:
+        raise ValueError(f"sort_scan: W={W} beyond 1..{MAX_SLOTS}")
+    if not 1 <= C <= MAX_CONFIGS:
+        raise ValueError(f"sort_scan: n_configs={C} beyond 1..{MAX_CONFIGS}")
+    code = getattr(model, "KERNEL_MODEL", None)
+    if code is None:
+        raise ValueError(f"sort_scan: model {type(model).__name__} has no "
+                         f"device step in the CUDA kernel")
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    overflow = torch.empty((B,), dtype=torch.bool, device=dev)
+    lib = _build.load("sort_scan")
+    return ok, overflow, _launch_fn(
+        "sort_scan", lib, (events, n_events, ok, overflow),
+        (B, E, R, P, W, C, int(code), int(model.init_state()),
+         _device_index(dev)), B, LAUNCHES)

@@ -99,7 +99,12 @@ def test_algorithms_dense_and_cpu():
     hs = [_wide(True)] + _batch(seed=3, n=4)
     dense = check_histories(hs, CasRegister(), algorithm="dense",
                             device="cpu")
-    assert dense[0]["valid?"] == UNKNOWN and "caps" in dense[0]["error"]
+    # 13 slots: beyond the dense kernels, inside the sort ladder
+    assert (dense[0]["valid?"], dense[0]["decided-tier"]) == (True, "sort")
+    # undecided at the top rung (one rung of 2 configurations): UNKNOWN
+    [pinned] = check_histories(hs[:1], CasRegister(), algorithm="dense",
+                               device="cpu", n_configs=2)
+    assert pinned["valid?"] == UNKNOWN and "caps" in pinned["error"]
     host = check_histories(hs, CasRegister(), algorithm="cpu", device="cpu")
     assert {r["decided-tier"] for r in host} == {"host"}
     assert [r["valid?"] for r in host[1:]] == \

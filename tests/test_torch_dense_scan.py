@@ -26,12 +26,14 @@ from jepsen_jgroups_raft_tpu.history.packing import (encode_history,
                                                      pad_batch_bucketed)
 from jepsen_jgroups_raft_tpu.history.synth import random_valid_history
 from jepsen_jgroups_raft_tpu.models.register import CasRegister as RefReg
+from jepsen_jgroups_raft_tpu.models.setmodel import GSet as RefGSet
 from jepsen_jgroups_raft_tpu.ops import dense_scan as ref_ds
 from jepsen_jgroups_raft_tpu.ops.pallas_scan import make_pallas_batch_checker
 from jepsen_jgroups_raft_tpu_torch import interop
 from jepsen_jgroups_raft_tpu_torch.checker.wgl_cpu import (
     check_encoded_cpu as port_oracle)
 from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
+from jepsen_jgroups_raft_tpu_torch.models.setmodel import GSet
 from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as port_ds
 from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (dense_scan,
                                                           dense_scan_plain)
@@ -137,6 +139,58 @@ def test_plain_matches_xla_dense_and_oracle(case, macro):
     assert oracle == [port_oracle(interop.encoding_from_reference(e),
                                   CasRegister()).valid for e in encs]
     assert 0 < sum(oracle) < len(oracle) or case == "S16"
+
+
+def _set_domain(seed, n, n_ops, n_procs, max_crashes, value_range):
+    """Set histories with at most 4 distinct adds (a dense domain of up
+    to 16 states); odd ones with one observed element dropped."""
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        h = list(random_valid_history(rng, "set", n_ops=n_ops,
+                                      n_procs=n_procs, crash_p=0.3,
+                                      max_crashes=max_crashes,
+                                      value_range=value_range))
+        reads = [j for j, op in enumerate(h) if op.type == OK
+                 and op.f == "read" and op.value]
+        if i % 2 and reads:
+            j = rng.choice(reads)
+            h[j] = h[j].replace(value=h[j].value[1:])
+        out.append(h)
+    return out
+
+
+SET_CASES = {  # name -> (histories, expected window range, expected S)
+    "set_W<=6_S8": (lambda: _set_domain(31, 16, 40, 4, 2, 3), (3, 6), 8),
+    "set_W<=9_S16": (lambda: _set_domain(32, 12, 40, 5, 4, 4), (6, 9), 16),
+}
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("case", list(SET_CASES))
+def test_plain_set_domain_matches_xla_dense_and_oracle(case, macro):
+    """The set on the dense-domain scan (its OR step through the same
+    transition rows), against the reference's XLA kernel and oracle."""
+    make, (w_lo, w_hi), S = SET_CASES[case]
+    encs = [encode_history(h, RefGSet()) for h in make()]
+    plan = ref_ds.dense_plan(RefGSet(), encs)
+    assert plan.kind == "domain" and w_lo <= plan.n_slots <= w_hi
+    assert plan.n_states == S
+    batch = pack_macro_batch(encs) if macro else pack_batch(encs)
+    p = interop.plan_from_reference(plan)
+    ok = dense_scan_plain(torch.from_numpy(batch["events"]),
+                          torch.from_numpy(p.val_of), p.n_slots,
+                          macro_p=batch.get("macro_p"),
+                          n_events=torch.from_numpy(batch["n_events"]),
+                          model=GSet()).numpy()
+    ev, (val_of,), B = pad_batch_bucketed(batch["events"], (plan.val_of,))
+    ref_kernel = ref_ds.make_dense_batch_checker(
+        RefGSet(), "domain", plan.n_slots, plan.n_states,
+        macro_p=batch.get("macro_p"))
+    ref_ok = np.asarray(ref_kernel(ev, val_of)[0])[:B]
+    oracle = [check_encoded_cpu(e, RefGSet()).valid for e in encs]
+    assert ok.tolist() == ref_ok.tolist() == oracle
+    assert 0 < sum(oracle) < len(oracle)
 
 
 @pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])

@@ -25,11 +25,13 @@ from jepsen_jgroups_raft_tpu_torch.history.packing import (encode_history,
                                                            pack_batch,
                                                            pack_macro_batch)
 from jepsen_jgroups_raft_tpu_torch.history.synth import (
-    build_history, offset_counter_history, random_mask_rows,
+    build_history, burst_history, offset_counter_history, random_mask_rows,
     random_valid_history)
-from jepsen_jgroups_raft_tpu_torch.models import Counter, TicketQueue
+from jepsen_jgroups_raft_tpu_torch.models import (MODELS, Counter, GSet,
+                                                  TicketQueue)
 from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
 from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
+from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
 
 pytestmark = pytest.mark.gpu
 
@@ -281,17 +283,19 @@ def test_check_histories_on_card_matches_cpu(cuda):
 MASK_MODELS = {"counter": Counter, "queue": TicketQueue}
 
 
-def _corrupt_observation(h, rng):
-    """One ok read / add-and-get / enqueue / dequeue observation raised
-    by 1000, beyond what the crashed ops could explain."""
+def _corrupt_observation(h, rng, bump=1000):
+    """One ok read / add-and-get / enqueue / dequeue observation changed:
+    a number raised by `bump` (1000: beyond what the crashed ops could
+    explain), a set read given element 31 (or losing it)."""
     idx = [j for j, op in enumerate(h) if op.type == "ok"
            and op.value is not None
            and op.f in ("read", "add-and-get", "enqueue", "dequeue")]
     if idx:
         j = rng.choice(idx)
         v = h[j].value
-        h[j] = h[j].replace(value=(v[0], v[1] + 1000)
-                            if isinstance(v, tuple) else v + 1000)
+        v = (sorted(set(v) ^ {31}) if isinstance(v, list) else
+             (v[0], v[1] + bump) if isinstance(v, tuple) else v + bump)
+        h[j] = h[j].replace(value=v)
     return h
 
 
@@ -563,3 +567,196 @@ def test_mask_scan_profile_counts_match_plain(cuda, kind, W):
     assert c["closures"] == stats["closures"]
     assert c["ballots"] == stats["ballots_lazy"]
     assert c["rows"] > 0 and c["legality_cycles"] > 0
+
+
+# ------------------------------------------------------- the sort ladder
+
+SORT_KINDS = {"register": "cas-register", "counter": "counter",
+              "queue": "queue", "set": "set"}
+SORT_WINDOWS = list(range(1, 17)) + [31, 63, 95, 127]
+SORT_CAPS = (4, 64, 256)
+
+
+def _sort_histories(kind, W, n, seed):
+    """n histories for sort window W: random ones with windows up to W
+    (up to 5 processes, the rest crashed ops) and bursts (every op open
+    at once) that reach W; odd ones corrupted."""
+    rng = random.Random(seed)
+    vr = {"value_range": 32} if kind == "set" else {}
+    hs = []
+    if W <= 16:
+        hs = [list(random_valid_history(rng, kind, n_ops=24,
+                                        n_procs=min(W, 5),
+                                        crash_p=0.3 if W > 5 else 0.1,
+                                        max_crashes=max(W - 5, 0), **vr))
+              for _ in range(n - 1)]
+    for j in range(n - len(hs)):
+        hs.append(list(burst_history(rng, kind, max(W - 3 * j, 1), **vr)))
+    return [_corrupt_observation(h, rng, 1) if i % 2 else h
+            for i, h in enumerate(hs)]
+
+
+def _sort_group(kind, hists, macro, dev):
+    m = MODELS[SORT_KINDS[kind]]()
+    encs = [encode_history(h, m) for h in hists]
+    batch = pack_macro_batch(encs) if macro else pack_batch(encs)
+    return (m, torch.from_numpy(batch["events"]).to(dev),
+            torch.from_numpy(batch["n_events"]).to(dev),
+            batch.get("macro_p"), max(e.n_slots for e in encs))
+
+
+def _sort_kernel_and_plain(ev, ne, W, C, P, m):
+    before = ls.launch_counts()["sort_scan"]
+    ok, of = ls.sort_scan(ev, W, C, P, ne, model=m)
+    torch.cuda.synchronize()
+    assert ls.launch_counts()["sort_scan"] == before + 1
+    assert ok.device == ev.device and ok.dtype == of.dtype == torch.bool
+    p_ok, p_of = ls.sort_scan_plain(ev, W, C, P, ne, model=m)
+    assert ok.cpu().tolist() == p_ok.cpu().tolist()
+    assert of.cpu().tolist() == p_of.cpu().tolist()
+    return p_ok.cpu(), p_of.cpu()
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("W", SORT_WINDOWS, ids=lambda w: f"W{w}")
+@pytest.mark.parametrize("kind", list(SORT_KINDS))
+def test_sort_scan_kernel_every_window(cuda, kind, W, macro):
+    C = SORT_CAPS[SORT_WINDOWS.index(W) % len(SORT_CAPS)]
+    m, ev, ne, P, widest = _sort_group(
+        kind, _sort_histories(kind, W, 6, 900 + W), macro, cuda)
+    assert widest <= W and (ls.bucket_slots(widest) == W or
+                            kind == "register")
+    _sort_kernel_and_plain(ev, ne, W, C, P, m)
+
+
+OVERFLOW_CASES = [("set", 8), ("counter", 8), ("register", 4),
+                  ("register", 8), ("queue", 8)]
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("kind,C", OVERFLOW_CASES,
+                         ids=[f"{k}_C{c}" for k, c in OVERFLOW_CASES])
+def test_sort_scan_kernel_overflowed_rows(cuda, kind, C, macro):
+    """Short histories with C near their frontier: rows that overflow
+    and end ok, and rows that overflow and do not, equal the plain
+    version's (the kept entries are the same)."""
+    rng = random.Random(11)
+    hs = [random_valid_history(rng, kind, n_ops=12, n_procs=4, crash_p=0.0,
+                               max_crashes=0) for _ in range(64)]
+    m, ev, ne, P, widest = _sort_group(kind, hs, macro, cuda)
+    ok, of = _sort_kernel_and_plain(ev, ne, ls.bucket_slots(widest), C, P, m)
+    assert (of & ok).any() and (of & ~ok).any()
+
+
+@pytest.mark.parametrize("P", [None, 3, 16], ids=["legacy", "P3", "P16"])
+@pytest.mark.parametrize("W", [1, 6, 12, 40, 127], ids=lambda w: f"W{w}")
+@pytest.mark.parametrize("kind,init", [("counter", None), ("queue", None),
+                                       ("set", None), ("register", None),
+                                       ("counter", 2**31 - 3)],
+                         ids=["counter", "queue", "set", "register",
+                              "counter_near_2^31"])
+def test_sort_scan_kernel_matches_plain_on_arbitrary_rows(cuda, kind, init,
+                                                          W, P):
+    m = MODELS[SORT_KINDS[kind]](init) if init is not None else \
+        MODELS[SORT_KINDS[kind]]()
+    rng = np.random.default_rng(7 * W + (P or 0))
+    B, E = 32, 32
+    ev = random_mask_rows(rng, B, E, W, P, kind)
+    n_events = rng.integers(0, E + 1, size=B, dtype=np.int32)
+    ev[np.arange(E)[None, :] >= n_events[:, None]] = 0
+    _sort_kernel_and_plain(torch.from_numpy(ev).to(cuda),
+                           torch.from_numpy(n_events).to(cuda), W,
+                           4 if W > 12 else 64, P, m)
+
+
+def test_sort_scan_refuses_bad_inputs(cuda):
+    m, ev, ne, P, _ = _sort_group("set", _sort_histories("set", 5, 4, 3),
+                                  True, cuda)
+    for W, C in ((0, 4), (128, 4), (5, 0), (5, ls.MAX_CONFIGS + 1)):
+        with pytest.raises(ValueError):
+            ls.sort_scan(ev, W, C, P, ne, model=m)
+    with pytest.raises(TypeError):
+        ls.sort_scan(ev.to(torch.int64), 5, 4, P, ne, model=m)
+    with pytest.raises(ValueError):
+        ls.sort_scan(ev, 5, 4, P, ne.cpu(), model=m)
+    with pytest.raises(ValueError):
+        ls.sort_scan(ev, 5, 4, None, ne, model=m)  # macro rows, legacy P
+
+
+def test_sort_scan_rows_past_n_events_are_not_read(cuda):
+    m, ev, ne, P, W = _sort_group("set", _sort_histories("set", 6, 6, 4),
+                                  True, cuda)
+    want = _sort_kernel_and_plain(ev, ne, W, 64, P, m)
+    junk = torch.cat([ev, torch.full_like(ev[:, :5], 2)], dim=1)
+    ok, of = ls.sort_scan(junk.contiguous(), W, 64, P, ne, model=m)
+    assert [ok.cpu().tolist(), of.cpu().tolist()] == \
+        [want[0].tolist(), want[1].tolist()]
+
+
+@pytest.mark.parametrize("W", [3, 8, 12], ids=lambda w: f"W{w}")
+def test_set_through_dense_and_mask_kernels(cuda, W):
+    """The set's device step in dense_scan.cu (few distinct adds) and
+    mask_scan.cu (distinct fresh elements) against the plain versions."""
+    rng = random.Random(40 + W)
+    m = GSet()
+    groups = {"domain": [], "mask": []} if W <= 10 else {"mask": []}
+    while min(len(g) for g in groups.values()) < 12:
+        h = list(random_valid_history(
+            rng, "set", n_ops=rng.randint(8, 40), n_procs=min(W, 5),
+            crash_p=0.4 if W > 5 else 0.0, max_crashes=max(W - 5, 0),
+            value_range=rng.choice([3, 31])))
+        e = encode_history(h, m)
+        if e.n_slots > W:
+            continue
+        kind = ("domain" if m.dense_domain(e.events) is not None
+                else "mask" if m.mask_eligible(e.events) else None)
+        if kind in groups and len(groups[kind]) < 12:
+            reads = [j for j, op in enumerate(h) if op.type == "ok"
+                     and op.f == "read"]
+            if len(groups[kind]) % 2 and reads:  # a never-added element
+                j = rng.choice(reads)
+                h[j] = h[j].replace(value=sorted(h[j].value) + [31])
+            groups[kind].append(encode_history(h, m))
+    for kind, encs in groups.items():
+        plan = ds.dense_plan(m, encs)
+        assert plan is not None and plan.kind == kind
+        batch = pack_macro_batch(encs)
+        ev = torch.from_numpy(batch["events"]).to(cuda)
+        ne = torch.from_numpy(batch["n_events"]).to(cuda)
+        if kind == "domain":
+            vo = torch.from_numpy(plan.val_of).to(cuda)
+            ok = ds.dense_scan(ev, vo, plan.n_slots, batch["macro_p"], ne, m)
+            plain = ds.dense_scan_plain(ev, vo, plan.n_slots,
+                                        batch["macro_p"], ne, m)
+        else:
+            ok = ds.mask_scan(ev, plan.n_slots, batch["macro_p"], ne,
+                              model=m)
+            plain = ds.mask_scan_plain(ev, plan.n_slots, batch["macro_p"],
+                                       ne, model=m)
+        torch.cuda.synchronize()
+        assert ok.cpu().tolist() == plain.cpu().tolist()
+        assert 0 < int(plain.sum()) < len(plain)
+
+
+def test_check_histories_set_on_card_matches_cpu(cuda):
+    """A set batch that takes all three kernels (domain, mask, the sort
+    ladder at both rungs) on the card, against the plain versions."""
+    rng = random.Random(77)
+    hs = []
+    for n_ops, vr in ((24, 3), (14, 31), (200, 32)):
+        for i in range(12):
+            h = list(random_valid_history(rng, "set", n_ops=n_ops, n_procs=5,
+                                          crash_p=0.05, max_crashes=3,
+                                          value_range=vr))
+            hs.append(_corrupt_observation(h, rng, 1) if i % 3 == 1 else h)
+    m = GSet()
+    ds.reset_launch_counts()
+    ls.reset_launch_counts()
+    on_card = check_histories(hs, m)
+    assert ls.launch_counts()["sort_scan"] > 0
+    on_host = check_histories(hs, m, device="cpu")
+    keys = ("valid?", "kernel", "decided-tier", "op-count",
+            "concurrency-window")
+    assert [{k: r.get(k) for k in keys} for r in on_card] == \
+        [{k: r.get(k) for k in keys} for r in on_host]
+    assert {"dense", "sort"} <= {r["decided-tier"] for r in on_card}

@@ -31,6 +31,7 @@ from jepsen_jgroups_raft_tpu.history.synth import random_valid_history
 from jepsen_jgroups_raft_tpu.models.counter import Counter as RefCounter
 from jepsen_jgroups_raft_tpu.models.queuemodel import TicketQueue as RefQueue
 from jepsen_jgroups_raft_tpu.models.register import CasRegister as RefReg
+from jepsen_jgroups_raft_tpu.models.setmodel import GSet as RefGSet
 from jepsen_jgroups_raft_tpu.ops import dense_scan as ref_ds
 from jepsen_jgroups_raft_tpu_torch import interop
 from jepsen_jgroups_raft_tpu_torch.checker.wgl_cpu import (
@@ -38,7 +39,7 @@ from jepsen_jgroups_raft_tpu_torch.checker.wgl_cpu import (
 from jepsen_jgroups_raft_tpu_torch.history.synth import (
     offset_counter_history, random_mask_rows)
 from jepsen_jgroups_raft_tpu_torch.models import (CasRegister, Counter,
-                                                  TicketQueue)
+                                                  GSet, TicketQueue)
 from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as port_ds
 from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (DenseLayout,
                                                           mask_layout,
@@ -48,7 +49,7 @@ from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (DenseLayout,
 torch.set_num_threads(1)
 
 MODELS = {"counter": (Counter, RefCounter), "queue": (TicketQueue, RefQueue),
-          "register": (CasRegister, RefReg)}
+          "register": (CasRegister, RefReg), "set": (GSet, RefGSet)}
 
 
 def _bump(h, rng):
@@ -97,6 +98,10 @@ def _wide(kind):
         rows += [(k + 1, "invoke", "cas", (k, k + 1)) for k in range(12)]
         return build_history(rows + [(20, "invoke", "read", None),
                                      (20, "ok", "read", 12)])
+    if kind == "set":  # 14 crashed adds, then a read: window 15
+        rows = [(k, "invoke", "add", k % 7) for k in range(14)]
+        return build_history(rows + [(20, "invoke", "read", None),
+                                     (20, "ok", "read", list(range(7)))])
     f = "add" if kind == "counter" else "enqueue"
     rows = [(k, "invoke", f, 1 if kind == "counter" else None)
             for k in range(13)]
@@ -135,6 +140,53 @@ def test_plain_matches_xla_mask_and_oracles(kind, W, macro):
     assert oracle == [port_oracle(interop.encoding_from_reference(e),
                                   port_m).valid for e in encs]
     assert 0 < sum(oracle) < len(oracle)  # both polarities
+
+
+def _set_mask_encodings(W, n, seed):
+    """Reference encodings of n set histories that ride the mask kernel
+    (more than 4 adds, each of a fresh element) with windows up to W,
+    the first exactly W; odd ones with element 31 added to one read."""
+    rng = random.Random(seed)
+    m = RefGSet()
+    n_procs, crashes = min(W, 5), max(W - 5, 0)
+    top, rest = None, []
+    while top is None or len(rest) < n - 1:
+        h = list(random_valid_history(rng, "set", n_ops=rng.randint(8, 16),
+                                      n_procs=n_procs,
+                                      crash_p=0.5 if crashes else 0.0,
+                                      max_crashes=crashes, value_range=31))
+        e = encode_history(h, m)
+        if e.n_slots > W or m.dense_domain(e.events) is not None or \
+                not m.mask_eligible(e.events):
+            continue
+        if e.n_slots == W and top is None:
+            top = h
+        elif len(rest) < n - 1:
+            rest.append(h)
+    out = []
+    for i, h in enumerate([top] + rest):
+        reads = [j for j, op in enumerate(h) if op.type == "ok"
+                 and op.f == "read"]
+        if i % 2 and reads:
+            j = rng.choice(reads)
+            h[j] = h[j].replace(value=sorted(h[j].value) + [31])
+        out.append(encode_history(h, m))
+    return out
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("W", range(1, 13), ids=lambda w: f"W{w}")
+def test_plain_set_matches_xla_mask_and_oracles(W, macro):
+    """The set on the mask kernel: single-bit deltas whose subset sums
+    equal the OR, for the histories `mask_eligible` proves additive."""
+    encs = _set_mask_encodings(W, 8, 70 + 2 * W + macro)
+    plan = ref_ds.dense_plan(RefGSet(), encs)
+    assert (plan.kind, plan.n_slots, plan.n_states) == ("mask", W, 1)
+    batch = pack_macro_batch(encs) if macro else pack_batch(encs)
+    ok = _plain(GSet(), W, batch)
+    oracle = [check_encoded_cpu(e, RefGSet()).valid for e in encs]
+    assert ok.tolist() == _xla(RefGSet(), W, batch).tolist() == oracle
+    assert 0 < sum(oracle) < len(oracle)
 
 
 @pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
@@ -194,12 +246,16 @@ def _grouping_batch(kind):
               (5, 4, 6, 40), (5, 6, 4, 40), (5, 8, 3, 60), (4, 2, 3, 3000),
               (2, 1, 2, 3000)]
     encs = []
-    for n_procs, crashes, n, n_ops in shapes:
+    for k, (n_procs, crashes, n, n_ops) in enumerate(shapes):
+        short_set = kind == "set" and n_ops < 3000 and k % 3
+        if short_set:  # few adds over 32 elements: many are distinct
+            n_ops = 14
         for _ in range(n):
+            kw = ({"value_range": 15} if kind == "register" else
+                  {"value_range": 32 if short_set else 3}
+                  if kind == "set" else {})
             h = random_valid_history(rng, kind, n_ops=n_ops, n_procs=n_procs,
-                                     crash_p=0.5, max_crashes=crashes,
-                                     **({"value_range": 15}
-                                        if kind == "register" else {}))
+                                     crash_p=0.5, max_crashes=crashes, **kw)
             encs.append(encode_history(h, m))
     return encs + [encode_history(_wide(kind), m)]
 
@@ -211,7 +267,7 @@ KNOBS = {"default": {}, "merge_long": {"JGRAFT_MERGE_LONG": "1"},
 
 
 @pytest.mark.parametrize("knobs", list(KNOBS))
-@pytest.mark.parametrize("kind", ["counter", "queue", "register"])
+@pytest.mark.parametrize("kind", ["counter", "queue", "register", "set"])
 def test_dense_plans_grouped_matches_reference(monkeypatch, kind, knobs):
     for k in ("JGRAFT_MERGE_LONG", "JGRAFT_MERGE_ALL"):
         monkeypatch.delenv(k, raising=False)
@@ -231,8 +287,11 @@ def test_dense_plans_grouped_matches_reference(monkeypatch, kind, knobs):
             (rp.kind, rp.n_slots, rp.n_states, rp.kernel_tag)
         assert np.array_equal(pp.val_of, rp.val_of)
         assert pp.val_of.dtype == np.int32
-    want = "domain" if kind == "register" else "mask"
-    assert {p.kind for _, p in port_groups} == {want}
+    # the set: ≤ 4 distinct adds → domain, distinct fresh bits → mask,
+    # re-adds → rest
+    want = {"register": {"domain"}, "set": {"domain", "mask"}}.get(
+        kind, {"mask"})
+    assert {p.kind for _, p in port_groups} == want
 
 
 @pytest.mark.parametrize("kind", ["counter", "queue"])
