@@ -9,7 +9,8 @@ and PyTorch built for CUDA):
 Phases, each printing JSON lines; any failure exits non-zero:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
-               mask_scan, sort_scan) and the instrumented mask_scan_profile from this
+               mask_scan, sort_scan, segment_scan) and the instrumented
+               mask_scan_profile from this
                checkout's sources into build/torch_kernels/, one nvcc per
                library, started together; ptxas's report for each; the
                paths' kernels must show no spill bytes and no stack frame
@@ -83,6 +84,37 @@ Phases, each printing JSON lines; any failure exits non-zero:
                (it misses an element whose add completed before the read
                began): kernel, plain ladder and host oracle agree row for
                row, every row INVALID
+ 16. segment_kernel — segment_scan against its plain version, bitwise on
+               every bit of the final frontiers: W = 1..10 at the largest
+               S the caps allow and W = 3 / S = 1, segments of 2048 rows
+               at W = 7..10 (512 below), crash sets of 0..4 slots, dead
+               seeds, mixed real lengths
+ 17. long_main — the reference suite's long histories (bench.py configs
+               5 and 4: one 100k-op register history, crash_p 0.01, and
+               16 of 10k ops, crash_p 0.02; 5 processes, at most 4
+               crashes, seeded from SEED) through `check_histories` on the
+               card with JGRAFT_SEGMENT=1 and =0, best of 3 each: all
+               VALID, the segmented arm on "dense-seg" with more than one
+               segment and segment_scan launched; encode / plan / kernel /
+               compose times; both arms on the first 1 / 2 / 4 / 8 of
+               config 4's histories; with JGRAFT_SEGMENT unset (the
+               card's default) config 5 must take the segmented scan and
+               config 4 the monolithic one; for config 5, segment_scan alone
+               against its plain version on the path's own tensors
+               (bitwise) and the bound
+ 18. long_invalid — config 5 with one late read moved outside the
+               domain: INVALID on both arms and on the plain version
+ 19. wide_auto — the first 32 of the 10-process counter histories
+               counter10_main drops (W > 12) through `auto` on the card:
+               all VALID, none UNKNOWN, tier counts
+ 20. lin_fastpath — the first 256 north-star histories with
+               JGRAFT_LIN_FASTPATH unset (the default) against 0:
+               verdicts identical; certified, gated and kernel rows, both
+               walls
+
+Every phase but lin_fastpath runs with JGRAFT_LIN_FASTPATH=0 (set at
+the start), as the reference's test suite runs: at the default knobs
+the host certifier decides most valid rows before any kernel.
 
 Then the kernels' summary line, the card's `nvidia-smi` name and power
 limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -92,6 +124,7 @@ without a CUDA device, and when the port's package is not beside it.
 from __future__ import annotations
 
 import json
+import os
 import random
 import subprocess
 import sys
@@ -141,6 +174,8 @@ KERNELS = {
                   "jepsen_jgroups_raft_tpu/ops/dense_scan.py:577"),
     "sort_scan": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/sort_scan.cu",
                   "jepsen_jgroups_raft_tpu/ops/linear_scan.py:138"),
+    "segment_scan": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/segment_scan.cu",
+                     "jepsen_jgroups_raft_tpu/ops/segment_scan.py:188"),
 }
 
 
@@ -584,7 +619,8 @@ def counter10_histories():
     """Counter histories at upstream's documented concurrency: N_OPS ops,
     COUNTER10_SHAPE, seed SEED + 10; the first N_HISTORIES whose window
     is within the mask cap (12). Returns (histories, histories drawn,
-    windows of the drawn, seconds)."""
+    windows of the drawn, seconds, the drawn histories beyond the cap
+    — `wide_auto`'s input)."""
     from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
     from jepsen_jgroups_raft_tpu_torch.history.synth import (
         random_valid_history)
@@ -595,16 +631,15 @@ def counter10_histories():
     t0 = time.perf_counter()
     rng = random.Random(SEED + 10)
     n_procs, crash_p, crashes = COUNTER10_SHAPE
-    m, kept, windows = Counter(), [], {}
+    m, kept, wide, windows = Counter(), [], [], {}
     while len(kept) < N_HISTORIES:
         h = random_valid_history(rng, "counter", n_ops=N_OPS, n_procs=n_procs,
                                  crash_p=crash_p, max_crashes=crashes)
         w = encode_history(h, m).n_slots
         windows[w] = windows.get(w, 0) + 1
-        if w <= MASK_DENSE_MAX_SLOTS:
-            kept.append(h)
+        (kept if w <= MASK_DENSE_MAX_SLOTS else wide).append(h)
     return kept, sum(windows.values()), dict(sorted(windows.items())), \
-        time.perf_counter() - t0
+        time.perf_counter() - t0, wide
 
 
 def phase_mask_profile(dev, paths: dict):
@@ -1262,6 +1297,479 @@ def phase_set_invalid(dev, histories):
     return 0
 
 
+#: the reference suite's long-history configurations (bench.py:998-1009):
+#: 4 — 16 register histories of 10k ops (crash_p 0.02, ≤ 4 crashes);
+#: 5 — one register history of 100k ops (crash_p 0.01, ≤ 4 crashes),
+#: BASELINE.json's "long-history stress"; 5 processes each
+LONG_CONFIGS = {"config5": (1, 100_000, 0.01, 4),
+                "config4": (16, 10_000, 0.02, 4)}
+#: long_main also times both arms on the first 1, 2, 4 and 8 histories of
+#: config 4: with config 4's 16, the row counts behind
+#: `SEGMENT_MAX_LONG_ROWS`, the card's routing default
+LONG_SWEEP_ROWS = (1, 2, 4, 8)
+#: segment_kernel: rows per segment — the configs' E_seg at the windows
+#: their histories reach (W = 7..10), a quarter of it below (the plain
+#: version, a Python loop per row, is the phase's cost) — and segments
+SEGMENT_KERNEL_ROWS = 2048
+SEGMENT_KERNEL_FULL_W = 7
+SEGMENT_KERNEL_K = 4
+#: wide_auto: the first histories of the drawn W > 12 set (all 405 took
+#: 414 s of host DFS on the H100's host, 64 took 72.5 s: past the
+#: script's time budget; PERF.md §6)
+WIDE_AUTO_ROWS = 32
+#: wide_auto also checks rows the fast DFS cannot decide, so that auto
+#: sends them to the sort ladder on the card: INVALID counter chains
+#: (history/synth.chained_bursts) of (window, bursts, seed); at window
+#: 20 and 400 bursts (16k events) the fast DFS runs out and the ladder
+#: decides at C = 256
+WIDE_AUTO_CHAINS = ((20, 400, 1), (20, 400, 2))
+#: lin_fastpath: rows of the north-star batch, as the reference's row
+#: (bench.py:752-807) caps them
+LIN_FASTPATH_ROWS = 256
+
+
+def phase_segment_kernel(dev):
+    """segment_scan against its plain version, bitwise on every bit of
+    the final frontiers: every window W = 1..10 at the largest S the caps
+    allow (and W = 3 / S = 1), segments of SEGMENT_KERNEL_ROWS rows from
+    W = SEGMENT_KERNEL_FULL_W up and a quarter of that below, crash sets
+    of 0..4 slots, dead seeds, mixed real lengths. Returns
+    (runs compared, live runs, max |kernel - plain|)."""
+    import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        random_segment_inputs)
+    from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss
+
+    runs = live = err = 0
+    cases = [(W, min(16, 8192 >> W)) for W in range(1, 11)] + [(3, 1)]
+    for W, S in cases:
+        c = W % 5 if W > 4 else min(W, (W * 3) % 5)
+        E = SEGMENT_KERNEL_ROWS if W >= SEGMENT_KERNEL_FULL_W and S > 1 \
+            else SEGMENT_KERNEL_ROWS // 4
+        # reads and cas that miss, and rows with a slot out of range, at
+        # rates low enough that many 2048-row runs keep a frontier
+        ev, vals, sm, st, ne = (torch.from_numpy(a).to(dev) for a in
+                                random_segment_inputs(
+                                    np.random.default_rng(SEED + 100 * W),
+                                    SEGMENT_KERNEL_K, E, W, S, c,
+                                    bad_read=0.0005, stray=0.0005))
+        F = ss.segment_scan(ev, vals, sm, st, W, ne)
+        plain = ss.segment_scan_plain(ev, vals, sm, st, W, ne)
+        sync(dev)
+        e = int((F.int() - plain.int()).abs().max())
+        err = max(err, e)
+        runs += F.shape[0] * F.shape[1]
+        live += int(plain.flatten(2).any(dim=2).sum())
+        emit("segment_kernel_case", W=W, S=S, crashed=c, rows=E,
+             runs=F.shape[0] * F.shape[1], max_abs_err=e,
+             live_runs=int(plain.flatten(2).any(dim=2).sum()),
+             bits_set=int(plain.sum()))
+        if e:
+            raise AssertionError(f"segment_kernel W={W} S={S}: kernel "
+                                 f"disagrees with the plain version")
+    if not live:
+        raise AssertionError("segment_kernel: no run kept a frontier")
+    return runs, live, err
+
+
+def long_histories(name: str):
+    """Suite config 4 or 5 (LONG_CONFIGS), seeded from SEED. Returns
+    (histories, seconds)."""
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        random_valid_history)
+
+    n, n_ops, crash_p, crashes = LONG_CONFIGS[name]
+    t0 = time.perf_counter()
+    rng = random.Random(SEED + (5 if name == "config5" else 4))
+    hs = [random_valid_history(rng, "register", n_ops=n_ops, n_procs=N_PROCS,
+                               crash_p=crash_p, max_crashes=crashes)
+          for _ in range(n)]
+    return hs, time.perf_counter() - t0
+
+
+def reset_all_launch_counts() -> None:
+    from jepsen_jgroups_raft_tpu_torch.ops import (dense_scan, linear_scan,
+                                                   segment_scan)
+
+    for mod in (dense_scan, linear_scan, segment_scan):
+        mod.reset_launch_counts()
+
+
+def all_launch_counts() -> dict:
+    from jepsen_jgroups_raft_tpu_torch.ops import (dense_scan, linear_scan,
+                                                   segment_scan)
+
+    return {**dense_scan.launch_counts(), **linear_scan.launch_counts(),
+            **segment_scan.launch_counts()}
+
+
+def with_env(name: str, value, fn):
+    """fn() with environment variable `name` set to `value` (None:
+    unset), restored afterwards."""
+    import os
+
+    prior = os.environ.get(name)
+    try:
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+        return fn()
+    finally:
+        if prior is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prior
+
+
+def run_long_arm(dev, model, hs, arm: str) -> dict:
+    """check_histories on the card with JGRAFT_SEGMENT=arm: a warm-up,
+    then best of 3, the launch counts set to 0 just before each run and
+    read just after. Guards: every history VALID; the segmented arm
+    decides every row as "dense-seg" with more than one segment and
+    launches segment_scan; the monolithic arm decides them on the dense
+    tier and launches dense_scan."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+
+    def go():
+        check_histories(hs, model, device=dev)  # warm-up
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            rs = check_histories(hs, model, device=dev)
+            walls.append(time.perf_counter() - t0)
+            launches = all_launch_counts()
+        return walls, rs, launches
+
+    walls, rs, launches = with_env("JGRAFT_SEGMENT", arm, go)
+    kernel = "dense-seg" if arm == "1" else "dense"
+    lib = "segment_scan" if arm == "1" else "dense_scan"
+    if not all(r["valid?"] is True for r in rs):
+        raise AssertionError(f"long_main arm {arm}: a history is not VALID")
+    if any(r.get("kernel") != kernel or r.get("decided-tier") != "dense"
+           for r in rs):
+        raise AssertionError(f"long_main arm {arm}: a row left {kernel}: "
+                             f"{[r.get('kernel') for r in rs]}")
+    if arm == "1" and not all(r["segments"] > 1 for r in rs):
+        raise AssertionError("long_main: a history ran as one segment")
+    if launches[lib] <= 0:
+        raise AssertionError(f"long_main arm {arm}: no {lib} launch")
+    return {"walls": walls, "best": min(walls), "launches": launches,
+            "segments": [r.get("segments") for r in rs]}
+
+
+def phase_long_main(dev) -> dict:
+    """Suite configs 5 and 4 through check_histories on the card, the
+    segmented arm (JGRAFT_SEGMENT=1) and the monolithic one (=0), best of
+    3 each; then, for config 5, the segmented path's own kernel inputs:
+    encode / plan / kernel / compose times, segment_scan alone (CUDA
+    events, best of 3) against its plain version on the same tensors
+    (bitwise on every table bit, with the work it did), and the bound.
+    Returns the kernels-line numbers of segment_scan (config 5), and
+    config 5's history and tables for `long_invalid`."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        SEGMENT_MAX_LONG_ROWS, check_histories)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+    from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss
+
+    model = CasRegister()
+    out = {}
+    for name in ("config5", "config4"):
+        hs, synth_s = long_histories(name)
+        t0 = time.perf_counter()
+        encs = [encode_history(h, model) for h in hs]
+        encode_s = time.perf_counter() - t0
+        arms = {arm: run_long_arm(dev, model, hs, arm) for arm in ("1", "0")}
+        # JGRAFT_SEGMENT unset: the card's default routing, segmented for
+        # up to SEGMENT_MAX_LONG_ROWS long rows (config 5), monolithic
+        # beyond (config 4)
+        default = with_env("JGRAFT_SEGMENT", None, lambda: check_histories(
+            hs, model, device=dev))
+        want = "dense-seg" if len(hs) <= SEGMENT_MAX_LONG_ROWS else "dense"
+        if {r.get("kernel") for r in default} != {want}:
+            raise AssertionError(f"long_main {name}: the default routing "
+                                 f"did not take {want}")
+        stats: dict = {}
+        ss.check_segmented_batch(encs, model, device=dev, stats=stats)
+        batch = ss.prepare_segment_batch(encs, model, device=dev)
+        line = {"config": name, "histories": len(hs),
+                "ops_per_history": LONG_CONFIGS[name][1],
+                "events": [e.n_events for e in encs],
+                "windows": sorted({e.n_slots for e in encs}),
+                "synth_s": synth_s, "encode_s": encode_s,
+                "segmented_s_reps": arms["1"]["walls"],
+                "segmented_s_best": arms["1"]["best"],
+                "monolithic_s_reps": arms["0"]["walls"],
+                "monolithic_s_best": arms["0"]["best"],
+                "segmented_over_monolithic":
+                    arms["1"]["best"] / arms["0"]["best"],
+                "segments": arms["1"]["segments"],
+                "launches_segmented": arms["1"]["launches"],
+                "launches_monolithic": arms["0"]["launches"],
+                "plan_s": stats.get("plan_s"),
+                "kernel_and_copy_s": stats.get("kernel_s"),
+                "compose_s": stats.get("compose_s"),
+                "K": int(batch.events.shape[0]), "NB": batch.NB,
+                "W": batch.W, "S": batch.S, "E_seg": batch.E_seg}
+        if name == "config4":
+            line["rows_sweep"] = {
+                n: {arm_name: run_long_arm(dev, model, hs[:n], arm)["best"]
+                    for arm_name, arm in (("segmented_s_best", "1"),
+                                          ("monolithic_s_best", "0"))}
+                for n in LONG_SWEEP_ROWS}
+        if name == "config5":
+            ev, vo, sm, st, ne = batch.tensors(dev)
+            times = []
+            for _ in range(3):
+                a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+                a.record()
+                F = ss.segment_scan(ev, vo, sm, st, batch.W, ne, model)
+                b.record()
+                sync(dev)
+                times.append(a.elapsed_time(b))
+            g: dict = {}
+            sync(dev)
+            t0 = time.perf_counter()
+            plain = ss.segment_scan_plain(ev, vo, sm, st, batch.W, ne, model,
+                                          stats=g)
+            sync(dev)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = int((F.int() - plain.int()).abs().max())
+            if err:
+                raise AssertionError("long_main config5: segment_scan "
+                                     "disagrees with its plain version")
+            verdict = ss.compose_segment_tables(batch, F.cpu().numpy())
+            if [r["valid"] for r in verdict] != [True]:
+                raise AssertionError("long_main config5: composed tables "
+                                     "not VALID")
+            # bound: the segments' real rows (5 int32 each), n_events,
+            # val_of and the seeds read once, the packed tables written
+            # once; operations as the plain version counted them over
+            # the runs still alive (a closure pass: one per word of the
+            # M·S/2 source bits per state plane; a FORCE, one per
+            # frontier word; a latch, S² compares)
+            M, S = 1 << batch.W, batch.S
+            K, NB = int(ev.shape[0]), int(sm.shape[1])
+            words = ss.segment_words(batch.W, (S - 1).bit_length())
+            bytes_moved = (int(ne.sum()) * 20 + K * 4 + K * S * 4
+                           + K * NB * 8 + K * NB * words * 4)
+            ops = (g["slot_passes"] * max(M * S // 64, 1) * S
+                   + g["force_rows"] * max(M * S // 32, 1)
+                   + g["opens"] * S * S)
+            t_bytes = bytes_moved / HBM_BYTES_PER_S
+            t_ops = ops / CORE_OPS_PER_S
+            line.update(kernel_ms_reps=times, kernel_ms=min(times),
+                        plain_ms=plain_ms, max_abs_err=err,
+                        runs=K * NB,
+                        live_runs=int(plain.flatten(2).any(dim=2).sum()),
+                        plain_stats=g, bytes_moved=bytes_moved,
+                        word_ops=ops, bound_ms=max(t_bytes, t_ops) * 1e3,
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations")
+            out["line"] = {"launches": int(
+                arms["1"]["launches"]["segment_scan"]), "max_abs_err": err,
+                "ms": min(times), "plain_ms": plain_ms, "t_bytes": t_bytes,
+                "t_ops": t_ops}
+            out["config5"] = hs[0]
+        emit("long_main", **line, device=torch.cuda.get_device_name(dev),
+             power=nvidia_smi_line())
+    return out
+
+
+def late_corrupt_read(ops, rng, bump: int):
+    """Raise one ok read among the last tenth of a history by `bump`
+    (VALUE_RANGE + 1 moves it outside the domain); returns ops."""
+    ops = list(ops)
+    reads = [j for j, op in enumerate(ops) if j >= len(ops) * 9 // 10
+             and op.type == "ok" and op.f == "read" and op.value is not None]
+    if not reads:
+        raise AssertionError("no late ok read to corrupt")
+    j = rng.choice(reads)
+    ops[j] = ops[j].replace(value=ops[j].value + bump)
+    return ops
+
+
+def phase_long_invalid(dev, history) -> int:
+    """Config 5's history with one late read moved outside the domain:
+    INVALID on the segmented arm, on the monolithic arm and on the plain
+    version of the segmented path (segment_scan_plain's tables, composed
+    on the host). Returns max |kernel - plain| over the tables."""
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+    from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss
+
+    model = CasRegister()
+    bad = late_corrupt_read(history, random.Random(SEED + 7),
+                            VALUE_RANGE + 1)
+    arms = {}
+    for arm in ("1", "0"):
+        [r] = with_env("JGRAFT_SEGMENT", arm, lambda: check_histories(
+            [bad], model, device=dev))
+        arms[arm] = (r["valid?"], r.get("kernel"), r.get("segments"))
+    batch = ss.prepare_segment_batch([encode_history(bad, model)], model,
+                                     device=dev)
+    ev, vo, sm, st, ne = batch.tensors(dev)
+    F = ss.segment_scan(ev, vo, sm, st, batch.W, ne, model)
+    plain = ss.segment_scan_plain(ev, vo, sm, st, batch.W, ne, model)
+    err = int((F.int() - plain.int()).abs().max())
+    [p] = ss.compose_segment_tables(batch, plain.cpu().numpy())
+    emit("long_invalid", segmented=arms["1"], monolithic=arms["0"],
+         plain_valid=p["valid"], segments=p["segments"], max_abs_err=err)
+    if arms["1"][:2] != (False, "dense-seg") or \
+            arms["0"][:2] != (False, "dense") or p["valid"] or err:
+        raise AssertionError("long_invalid: an arm or the plain version "
+                             "did not answer INVALID, or the tables differ")
+    return err
+
+
+def phase_wide_auto(dev, wide):
+    """The first WIDE_AUTO_ROWS of the 10-process counter histories that
+    counter10_main drops (W > 12) through check_histories under auto on
+    the card: all VALID, none UNKNOWN; the tier counts and the wall.
+    Then the WIDE_AUTO_CHAINS rows, which the fast DFS cannot decide:
+    all INVALID on the sort tier under auto, with sort_scan launched,
+    as the full-budget DFS answers on the host."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.dfs_cpu import (
+        check_encoded_dfs)
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        DEFAULT_DFS_BUDGET, check_histories)
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import consume_tiers
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.history.synth import chained_bursts
+    from jepsen_jgroups_raft_tpu_torch.models import Counter
+
+    drawn = len(wide)
+    wide = wide[:WIDE_AUTO_ROWS]
+    consume_tiers()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    rs = check_histories(wide, Counter(), device=dev)
+    wall = time.perf_counter() - t0
+    tiers = consume_tiers()
+    by = {}
+    for r in rs:
+        key = f"{r.get('algorithm')}/{r.get('decided-tier')}"
+        by[key] = by.get(key, 0) + 1
+    n_valid = sum(1 for r in rs if r["valid?"] is True)
+    n_unknown = sum(1 for r in rs if r["valid?"] == "unknown")
+    emit("wide_auto", histories=len(rs), drawn_wide=drawn, valid=n_valid,
+         unknown=n_unknown,
+         windows=sorted({r.get("concurrency-window") for r in rs}),
+         algorithm_tier=by, tiers=tiers, check_s=wall,
+         launches=all_launch_counts(),
+         device=torch.cuda.get_device_name(dev))
+    if n_valid != len(rs) or n_unknown:
+        raise AssertionError(f"wide_auto: {n_valid} VALID and {n_unknown} "
+                             f"UNKNOWN of {len(rs)}")
+
+    chains = [chained_bursts(random.Random(SEED + seed), w, n, off=1)
+              for w, n, seed in WIDE_AUTO_CHAINS]
+    consume_tiers()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    rs = check_histories(chains, Counter(), device=dev)
+    wall = time.perf_counter() - t0
+    launches = all_launch_counts()
+    t0 = time.perf_counter()
+    host = [check_encoded_dfs(encode_history(h, Counter()), Counter(),
+                              max_steps=DEFAULT_DFS_BUDGET).valid
+            for h in chains]
+    host_s = time.perf_counter() - t0
+    view = [(r["valid?"], r.get("decided-tier")) for r in rs]
+    emit("wide_auto_chains", histories=len(rs),
+         windows=[r.get("concurrency-window") for r in rs],
+         events=[encode_history(h, Counter()).n_events for h in chains],
+         verdict_tier=view, host_dfs=host, check_s=wall, host_dfs_s=host_s,
+         tiers=consume_tiers(), launches=launches)
+    if view != [(False, "sort")] * len(rs) or any(host) or \
+            not launches.get("sort_scan"):
+        raise AssertionError("wide_auto: a chain was not INVALID on the "
+                             "sort tier, the host DFS disagreed, or "
+                             "sort_scan was never launched")
+
+
+def phase_lin_fastpath(dev, histories):
+    """The first LIN_FASTPATH_ROWS north-star histories through
+    check_encoded on the card, the gate's store in a fresh directory
+    under build/: with JGRAFT_LIN_FASTPATH at 0 (warm-up, then one
+    timed run), then with it unset (the default) twice — the first run
+    on an empty gate tries the host certifier, the second routes by what
+    the first measured (certify wall per row against hit rate × the
+    device's wall per row). Verdicts identical; certified, gated and
+    kernel rows and the walls of every run."""
+    import shutil
+    from pathlib import Path
+
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_encoded, consume_fastpath_counters)
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import consume_tiers
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+
+    model = CasRegister()
+    encs = [encode_history(h, model)
+            for h in histories[:LIN_FASTPATH_ROWS]]
+    store = Path(__file__).resolve().parent / "build" / "chip_smoke_autotune"
+    shutil.rmtree(store, ignore_errors=True)
+
+    def timed():
+        consume_tiers()
+        consume_fastpath_counters()
+        t0 = time.perf_counter()
+        rs = check_encoded(encs, model, device=dev)
+        dt = time.perf_counter() - t0
+        fp = consume_fastpath_counters()
+        return {"s": dt, "rs": rs, "tiers": consume_tiers(),
+                "certified_rows": fp["rows_certified"],
+                "scanned_rows": fp["rows_scanned"],
+                "gated_rows": fp["rows_gated"],
+                "certify_wall_s": fp["certify_wall_s"],
+                "kernel_rows": sum(1 for r in rs
+                                   if r.get("algorithm") == "torch")}
+
+    def off():
+        check_encoded(encs, model, device=dev)  # warm-up
+        return timed()
+
+    def default():
+        return [timed(), timed()]
+
+    runs = {}
+    runs["off"] = with_env("JGRAFT_AUTOTUNE_STORE", str(store),
+                           lambda: with_env("JGRAFT_LIN_FASTPATH", "0", off))
+    runs["first"], runs["second"] = with_env(
+        "JGRAFT_AUTOTUNE_STORE", str(store),
+        lambda: with_env("JGRAFT_LIN_FASTPATH", None, default))
+    shutil.rmtree(store, ignore_errors=True)
+    verdicts = {k: [r["valid?"] for r in v.pop("rs")]
+                for k, v in runs.items()}
+    identical = verdicts["first"] == verdicts["second"] == verdicts["off"]
+    for run in runs.values():
+        run["decided_by_tier"] = {k: v["rows"]
+                                  for k, v in run.pop("tiers").items()}
+    emit("lin_fastpath", rows=len(encs), off_s=runs["off"]["s"],
+         first_s=runs["first"]["s"], second_s=runs["second"]["s"],
+         second_over_off=runs["second"]["s"] / max(runs["off"]["s"], 1e-9),
+         runs=runs, verdicts_identical=identical)
+    if not identical or runs["first"]["scanned_rows"] == 0:
+        raise AssertionError("lin_fastpath: verdicts differ, or the fast "
+                             "path never ran at the default knobs")
+
+
 def main() -> int:
     try:
         import torch
@@ -1285,6 +1793,10 @@ def main() -> int:
               f"({e})", file=sys.stderr)
         return 2
 
+    # the phases that drive a kernel hold every row on its kernel's tier,
+    # so they run with the lin fast path off, as the reference's test
+    # suite does; `lin_fastpath` runs the default knobs on its own
+    os.environ["JGRAFT_LIN_FASTPATH"] = "0"
     dev = torch.device("cuda")
     model = CasRegister()
     stamp = toolchain_stamp()
@@ -1366,7 +1878,7 @@ def main() -> int:
 
     # 10. the counter at upstream's documented concurrency (10 processes):
     # windows 10..13, the rows within the mask cap
-    hs, drawn, windows, synth_s = counter10_histories()
+    hs, drawn, windows, synth_s, counter10_wide = counter10_histories()
     emit("counter10_synth", kept=len(hs), drawn=drawn, windows=windows,
          seconds=synth_s)
     paths["counter10_main"] = run_path("counter10_main", dev, Counter(), hs,
@@ -1405,6 +1917,34 @@ def main() -> int:
     # 15. set invalid subset: kernel vs plain ladder vs host oracle
     phase_set_invalid(dev, set_hs)
 
+    # 16. segment_scan against its plain version at full segment size
+    t0 = time.perf_counter()
+    runs, live, seg_err = phase_segment_kernel(dev)
+    emit("segment_kernel_summary", runs_compared=runs, live_runs=live,
+         max_abs_err=seg_err, seconds=time.perf_counter() - t0)
+
+    # 17. suite configs 5 and 4, segmented and monolithic, on the card
+    t0 = time.perf_counter()
+    long = phase_long_main(dev)
+    line["segment_scan"] = long["line"]
+    emit("long_main_summary", seconds=time.perf_counter() - t0)
+
+    # 18. config 5 with one late read outside the domain
+    t0 = time.perf_counter()
+    seg_err = max(seg_err, phase_long_invalid(dev, long["config5"]))
+    emit("long_invalid_summary", seconds=time.perf_counter() - t0)
+
+    # 19. the 10-process counter histories beyond the mask cap, under auto
+    t0 = time.perf_counter()
+    phase_wide_auto(dev, counter10_wide)
+    emit("wide_auto_summary", seconds=time.perf_counter() - t0)
+
+    # 20. the north-star batch at the default knobs against the fast
+    # path off
+    t0 = time.perf_counter()
+    phase_lin_fastpath(dev, histories)
+    emit("lin_fastpath_summary", seconds=time.perf_counter() - t0)
+
     line["mask_scan"] = {
         "launches": sum(x["launches"] for x in mask_line),
         "max_abs_err": max(x["max_abs_err"] for x in mask_line),
@@ -1414,7 +1954,7 @@ def main() -> int:
         "t_ops": sum(x["t_ops"] for x in mask_line)}
     errs = {"dense_scan": max(corner_err, groups_err["dense_scan"]),
             "mask_scan": max(mask_err, groups_err["mask_scan"]),
-            "sort_scan": sort_err}
+            "sort_scan": sort_err, "segment_scan": seg_err}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         x = line[name]

@@ -3,10 +3,14 @@
 A second package beside `jepsen_jgroups_raft_tpu` (the JAX reference,
 which it never imports). Histories are encoded and macro-packed on the
 host, grouped by kernel kind and concurrency window, and verified by
-hand-written CUDA kernels, one warp per history: the dense-domain scan
+hand-written CUDA kernels: the dense-domain scan
 (`ops/csrc/dense_scan.cu`) for the CAS register, the north-star
-workload, and the mask-mode scan (`ops/csrc/mask_scan.cu`) for the
-counter and the ticket queue.
+workload, the mask-mode scan (`ops/csrc/mask_scan.cu`) for the counter
+and the ticket queue, the sort-frontier ladder (`ops/csrc/sort_scan.cu`)
+for every other row with a window ≤ 127, and the segmented scan
+(`ops/csrc/segment_scan.cu`) for long histories. Host tiers decide what
+the kernels cannot (a DFS, the frontier oracle), and at the default
+knobs a host witness certifier decides most valid rows first.
 
 Layout (mirrors the reference's module paths):
   platform.py          env knobs, `resolve_device`, `toolchain_stamp`
@@ -15,8 +19,12 @@ Layout (mirrors the reference's module paths):
   ops/kernel_ir.py     caps, macro row layout, plain-torch step parts
   ops/dense_scan.py    grouping, the kernel wrappers `dense_scan` and
                        `mask_scan` and their plain versions
+  ops/linear_scan.py   the sort ladder's kernel wrapper `sort_scan`
+  ops/segment_scan.py  long-history planning and composition, the
+                       kernel wrapper `segment_scan`
   ops/csrc/            CUDA sources, built by ops/_build.py at first use
-  checker/             `check_histories`, the host oracle, tier stats
+  checker/             `check_histories`, the lin fast path, the host
+                       tiers, counterexamples, tier stats
   interop.py           reading reference encodings and plans by duck type
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,0 +1,311 @@
+"""The measured gate of the lin fast path, in a host-fingerprinted store.
+
+The port's share of the reference's checker/autotune.py: the
+linearizable-rung pre-kernel certify pass (checker/linearizable
+`lin_fastpath_pass`) has a measured worst case — a batch whose rows the
+host certifier cannot decide pays the host scan AND the kernel — so per
+(model family, event shape-bucket) this module accumulates hit-rate and
+marginal-wall samples and `lin_fastpath_route` answers whether a bucket
+tries the host certifier first or goes kernel-first. Beyond the
+reference's hit-rate floor, the port's gate also weighs the two walls it
+measures: certifying a row costs the certify wall per row and saves, on
+a hit, the device's wall per row, so a bucket whose certify wall per row
+exceeds hit rate × device wall per row goes kernel-first too. On the
+card the device checks a north-star row in a fraction of what the host
+certifier takes, which the hit rate alone cannot see (PERF.md §5).
+Gating only ever affects ROUTING, never verdicts (undecided rows always
+reach the kernels). With ``JGRAFT_AUTOTUNE=0`` the fast path always tries and
+nothing is persisted (what the deterministic test environment pins).
+
+Persistence: ``store/autotune/<host-fingerprint>/linfp-*.json``
+(``JGRAFT_AUTOTUNE_STORE`` overrides the root); ``JGRAFT_LINFP_DIR``
+names a gate directory shared by several processes. The fingerprint hashes the STABLE host identity —
+cpu count, the device (the card's name and count, or "cpu"), the torch
+and CUDA versions — so a host or toolchain change re-observes instead of
+silently mis-gating.
+
+The launch-plan store (`tuned_group_plan`, `tuned_sort_plan`) and the
+cycle-arm store of the reference come with the autotune item of the
+ROADMAP.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+from ..history.packing import bucket_rows
+from ..platform import env_float, env_int, env_str
+
+_log = logging.getLogger(__name__)
+
+#: Default store root (gitignored alongside the test stores).
+DEFAULT_STORE = "store/autotune"
+
+_LOCK = threading.Lock()
+
+
+def autotune_on() -> bool:
+    """Whether plans are consulted/measured at all. Default ON; the
+    measurement work-gates below keep small batches on the untuned
+    path, so tiny runs behave exactly as before either way.
+    JGRAFT_AUTOTUNE=0 restores today's behavior bit for bit. Parsed
+    defensively (platform.env_int): garbage warns and keeps the
+    default."""
+    return env_int("JGRAFT_AUTOTUNE", 1, minimum=0) != 0
+
+
+def store_root() -> Path:
+    """Store root; JGRAFT_AUTOTUNE_STORE overrides (defensively:
+    a blank value keeps the default rather than writing to cwd)."""
+    raw = os.environ.get("JGRAFT_AUTOTUNE_STORE", "")
+    raw = raw.strip() if raw else ""
+    return Path(raw) if raw else Path(DEFAULT_STORE)
+
+
+# --------------------------------------------------------- fingerprint
+
+
+def fingerprint_info() -> dict:
+    """The STABLE host identity a gate record is valid for: cpu count,
+    the device platform and count, the card's name, the torch and CUDA
+    versions ("cpu" and torch's version without a card). Excludes load
+    averages on purpose: a busy host should not fork the store."""
+    info = {"cpu_count": os.cpu_count()}
+    try:
+        import torch
+
+        info["torch"] = torch.__version__
+        if torch.cuda.is_available():
+            info["platform"] = "cuda"
+            info["devices"] = torch.cuda.device_count()
+            info["device_name"] = torch.cuda.get_device_name(0)
+            info["cuda"] = torch.version.cuda
+        else:
+            info["platform"] = "cpu"
+    except Exception:  # noqa: BLE001 — fingerprinting must never raise
+        info["platform"] = "?"
+    return info
+
+
+def host_fingerprint() -> str:
+    """Short stable hash of `fingerprint_info` — the store directory
+    key. A host change lands in a different directory, so stale
+    observations are never silently applied."""
+    raw = json.dumps(fingerprint_info(), sort_keys=True)
+    return hashlib.sha256(raw.encode()).hexdigest()[:16]
+
+
+def reset_for_tests() -> None:
+    """Drop the in-memory gate records (tests simulate fresh
+    processes)."""
+    with _LOCK:
+        _LINFP_MEM.clear()
+
+
+def _fresh_record() -> dict:
+    return {"rows": 0, "hits": 0, "certify_wall_s": 0.0,
+            "kernel_wall_per_row_s": 0.0}
+
+
+# ------------------------------------------------ lin fast-path gating
+
+
+#: lin-fastpath record schema version; unknown versions re-observe.
+LINFP_VERSION = 1
+
+#: sig -> {"rows", "hits", "certify_wall_s", "kernel_wall_per_row_s"}
+_LINFP_MEM: dict = {}
+
+
+def lin_fastpath_min_hit() -> float:
+    """Hit-rate floor below which a measured bucket routes kernel-first
+    (JGRAFT_LIN_FASTPATH_MIN_HIT, default 0.05 — the ~5% worst-case
+    overhead bound the acceptance A/B pins; defensive parse)."""
+    return env_float("JGRAFT_LIN_FASTPATH_MIN_HIT", 0.05, minimum=0.0)
+
+
+def lin_fastpath_min_obs() -> int:
+    """Rows a bucket must have been observed over before the hit-rate
+    gate may route it kernel-first (JGRAFT_LIN_FASTPATH_MIN_OBS,
+    default 64): trying IS measuring, so unknown buckets always try."""
+    return env_int("JGRAFT_LIN_FASTPATH_MIN_OBS", 64, minimum=1)
+
+
+def lin_fastpath_sig(family: str, n_events: int) -> tuple:
+    """Gating bucket: model family plus the pow2+midpoint event bucket
+    (the same floor-32 series the launch shapes pad to). Window/state
+    shape is deliberately absent — certify cost scales with E·W but the
+    hit-rate is a property of the WORKLOAD family, and fragmenting the
+    observations per window would starve the gate of samples."""
+    return ("linfp", str(family), bucket_rows(max(int(n_events), 1), 32))
+
+
+def _linfp_path(sig: tuple) -> Path:
+    return store_root() / host_fingerprint() / \
+        f"linfp-{sig[1]}-e{sig[2]}.json"
+
+
+def linfp_shared_dir() -> Optional[Path]:
+    """Shared gate-store directory: when JGRAFT_LINFP_DIR names a
+    directory every process can reach, lin-fastpath gate records
+    replicate through ``<dir>/linfp/``, so a fresh process routes off
+    the published observations instead of re-observing. Unset → None
+    (gating stays host-local)."""
+    raw = env_str("JGRAFT_LINFP_DIR", "").strip()
+    if not raw:
+        return None
+    return Path(raw) / "linfp"
+
+
+def _linfp_shared_path(sig: tuple) -> Optional[Path]:
+    d = linfp_shared_dir()
+    if d is None:
+        return None
+    return d / f"linfp-{sig[1]}-e{sig[2]}.json"
+
+
+def _load_linfp(path: Path, sig: tuple, require_host: bool) -> \
+        Optional[dict]:
+    """Parse one gate record, or None. Shared records skip the
+    host-fingerprint check: the hit-RATE is a property of the workload
+    family, not the host, so a shared record seeds the rows and hits
+    and leaves the device wall unobserved (the walls belong to the host
+    that measured them) — while host-local records keep the strict
+    check so a toolchain swap re-observes."""
+    try:
+        raw = json.loads(path.read_text())
+        if (raw.get("version") == LINFP_VERSION
+                and raw.get("signature") == list(sig)
+                and (not require_host
+                     or raw.get("fingerprint") == host_fingerprint())):
+            return {"rows": int(raw["rows"]), "hits": int(raw["hits"]),
+                    "certify_wall_s": float(raw["certify_wall_s"]),
+                    "kernel_wall_per_row_s": float(
+                        raw.get("kernel_wall_per_row_s", 0.0))
+                    if require_host else 0.0}
+        _log.warning("autotune: stale lin-fastpath record %s — "
+                     "re-observing", path)
+    except FileNotFoundError:
+        pass
+    except (OSError, json.JSONDecodeError, UnicodeDecodeError,
+            KeyError, TypeError, ValueError) as e:
+        _log.warning("autotune: unreadable lin-fastpath record %s "
+                     "(%s: %s) — re-observing", path, type(e).__name__, e)
+    return None
+
+
+def _linfp_record(sig: tuple) -> dict:
+    """The bucket's in-memory record, seeded on first touch from the
+    fingerprint store — or, when the local file is absent/stale, from
+    the shared gate dir, which is how a fresh process inherits the
+    shared gate history instead of paying min_obs rows of
+    re-observation. Corrupt/stale/foreign files mean 'start fresh,
+    never silently mis-gate' — same stance as `plan_for`."""
+    with _LOCK:
+        rec = _LINFP_MEM.get(sig)
+        if rec is not None:
+            return rec
+    fresh = _load_linfp(_linfp_path(sig), sig, require_host=True)
+    if fresh is None:
+        shared = _linfp_shared_path(sig)
+        if shared is not None:
+            fresh = _load_linfp(shared, sig, require_host=False)
+    if fresh is None:
+        fresh = _fresh_record()
+    with _LOCK:
+        rec = _LINFP_MEM.setdefault(sig, fresh)
+    return rec
+
+
+def lin_fastpath_route(sig: tuple) -> bool:
+    """True → run the host certifier first for this bucket; False →
+    the measurements say kernel-first: a hit rate under the floor, or a
+    certify wall per row above what a hit saves (hit rate × the device's
+    latest wall per row). Routing only: a gated bucket's rows take the
+    ordinary kernel ladder unchanged."""
+    if not autotune_on():
+        return True
+    rec = _linfp_record(sig)
+    with _LOCK:
+        rows, hits = rec["rows"], rec["hits"]
+        certify, kernel = rec["certify_wall_s"], rec["kernel_wall_per_row_s"]
+    if rows < lin_fastpath_min_obs():
+        return True
+    if hits / rows < lin_fastpath_min_hit():
+        return False
+    return not (kernel > 0.0 and certify / rows > hits / rows * kernel)
+
+
+def lin_fastpath_observe(sig: tuple, rows: int, hits: int,
+                         wall_s: float) -> None:
+    """Fold one batch's certify outcome into the bucket's record and
+    persist it (atomic tmp+rename, best-effort — a read-only store
+    degrades gating to in-memory, never checking)."""
+    if rows <= 0 or not autotune_on():
+        return
+    rec = _linfp_record(sig)
+    with _LOCK:
+        rec["rows"] += int(rows)
+        rec["hits"] += int(hits)
+        rec["certify_wall_s"] += float(wall_s)
+    _persist(sig, rec)
+
+
+def lin_fastpath_observe_kernel(sig: tuple, rows: int,
+                                wall_s: float) -> None:
+    """Record the device's wall per row for `rows` rows of the bucket
+    that one check sent to the device, and persist it. The latest batch
+    replaces the earlier one, so a first call that also built the
+    kernels does not hold the gate for long."""
+    if rows <= 0 or not autotune_on():
+        return
+    rec = _linfp_record(sig)
+    with _LOCK:
+        rec["kernel_wall_per_row_s"] = float(wall_s) / int(rows)
+    _persist(sig, rec)
+
+
+def _persist(sig: tuple, rec: dict) -> None:
+    with _LOCK:
+        payload = {
+            "version": LINFP_VERSION,
+            "fingerprint": host_fingerprint(),
+            "fingerprint_info": fingerprint_info(),
+            "signature": list(sig),
+            "rows": rec["rows"],
+            "hits": rec["hits"],
+            "certify_wall_s": round(rec["certify_wall_s"], 6),
+            # the marginal-wall sample an operator reads the gate by
+            "certify_wall_per_row_s": round(
+                rec["certify_wall_s"] / max(rec["rows"], 1), 6),
+            "hit_rate": round(rec["hits"] / max(rec["rows"], 1), 4),
+            "kernel_wall_per_row_s": rec["kernel_wall_per_row_s"],
+            "updated_utc": time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                         time.gmtime()),
+        }
+    # publish locally AND (when configured) into the shared gate dir,
+    # so sibling processes inherit the observation. Shared writes race
+    # last-writer-wins across processes; each writer's record carries a
+    # complete, internally consistent observation history, so whichever
+    # lands is a valid gate input (per-pid tmp names keep the renames
+    # atomic and non-colliding).
+    targets = [_linfp_path(sig)]
+    shared = _linfp_shared_path(sig)
+    if shared is not None:
+        targets.append(shared)
+    for path in targets:
+        try:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            tmp.write_text(json.dumps(payload, indent=2))
+            os.replace(tmp, path)
+        except OSError as e:
+            _log.warning("autotune: could not persist lin-fastpath "
+                         "record %s (%s: %s)", path, type(e).__name__, e)

@@ -1,46 +1,65 @@
 """Linearizability checker of the port: the north-star check on the card.
 
 Equivalent of the reference's checker/linearizable.py at its
-linearizable rung with the lin fast path off (``JGRAFT_LIN_FASTPATH=0``,
-which the reference's test suite pins): histories are encoded and
-macro-packed on the host, grouped by kernel kind and concurrency window
+linearizable rung, in the reference's order. Histories are encoded on
+the host; at the default knobs the lin fast path (`lin_fastpath_pass`:
+the host witness certifier, gated per bucket by `checker/autotune`)
+decides the rows it can certify first, and only the rest reach the
+device. There, histories of at least LONG_HISTORY_MIN_EVENTS events may
+take the segmented scan (`ops.segment_scan.check_segmented_batch`, the
+CUDA kernel ops/csrc/segment_scan.cu; rows report ``"kernel":
+"dense-seg"`` and their ``"segments"``), the others are macro-packed,
+grouped by kernel kind and concurrency window
 (`ops.dense_scan.dense_plans_grouped`), and every window group runs a
-hand-written CUDA kernel: the dense-domain scan
-(`ops.dense_scan.dense_scan`) for enumerable domains (the register, a
-set with few distinct adds), the mask-mode scan (`ops.dense_scan.
-mask_scan`) for order-independent models (the counter, the queue, a set
-whose adds hit distinct fresh bits), whose rows report ``"kernel":
-"dense-mask"`` and ``"decided-tier": "mask"``. The rows beyond the dense
-plans take the sort-frontier ladder, as the reference's `_jax_pass` runs
-it: one batch at `bucket_slots` of its widest window through the sort
-kernel (`ops.linear_scan.sort_scan`) at C = 64, the rows that overflow
-again at C = 256; ``ok`` is VALID at any rung, ``~ok & ~overflow``
-INVALID, and a row that overflows at the top rung is undecided. Ladder
-rows report ``"kernel": "sort"``, ``"decided-tier": "sort"``.
+hand-written CUDA kernel: the dense-domain scan (`ops.dense_scan.
+dense_scan`) for enumerable domains (the register, a set with few
+distinct adds), the mask-mode scan (`ops.dense_scan.mask_scan`) for
+order-independent models (the counter, the queue, a set whose adds hit
+distinct fresh bits), whose rows report ``"kernel": "dense-mask"`` and
+``"decided-tier": "mask"``. The rows beyond the dense plans with a
+window ≤ SORT_MAX_SLOTS (127) take the sort-frontier ladder, as the
+reference's `_jax_pass` runs it: one batch at `bucket_slots` of its
+widest window through the sort kernel (`ops.linear_scan.sort_scan`) at
+C = 64, the rows that overflow again at C = 256; ``ok`` is VALID at any
+rung, ``~ok & ~overflow`` INVALID, and a row that overflows at the top
+rung is undecided. Ladder rows report ``"kernel": "sort"``,
+``"decided-tier": "sort"``.
 
 Algorithms:
-  * ``"auto"``  — dense kernels for the rows inside the dense caps; the
-                  ladder for the other rows with a window ≤
-                  MASK_DENSE_MAX_SLOTS (12), as the reference sends
-                  exactly those there; the rest, and the rows undecided
-                  at the top rung, take the host frontier oracle
-                  (`wgl_cpu.check_encoded_cpu`), stamped ``"algorithm":
-                  "cpu"``, ``"decided-tier": "host"``. (The reference
-                  tries a budgeted DFS on windows above 12 first, then
-                  the ladder; the port has no DFS tier yet: the same
-                  verdict, another tier.)
-  * ``"dense"`` — the device only (the reference's ``"jax"``): dense
-                  kernels, then the ladder for every other row with a
-                  window ≤ SORT_MAX_SLOTS (127); a row beyond it, or
-                  undecided at the top rung, reports UNKNOWN with an
-                  error.
-  * ``"cpu"``   — the host oracle for every history.
+  * ``"auto"``  — a budgeted DFS (FAST_DFS_BUDGET) first on rows whose
+                  window is beyond every dense kernel (> 12); then the
+                  device pass above for every undecided row; then, on
+                  the rows still undecided, the full-budget DFS
+                  (DEFAULT_DFS_BUDGET) before the host frontier oracle
+                  (`wgl_cpu.check_encoded_cpu`) on wide rows, and again
+                  after an oracle UNKNOWN — a DFS budget that ran out is
+                  not retried. Host verdicts report ``"decided-tier":
+                  "host"`` with ``"algorithm"`` ``"dfs"`` or ``"cpu"``.
+  * ``"dense"`` — the device only (the reference's ``"jax"``): a row
+                  beyond the ladder, or undecided at its top rung,
+                  reports UNKNOWN with an error.
+  * ``"cpu"``   — the host frontier oracle for every history.
+  * ``"dfs"``   — the DFS-with-undo engine (`dfs_cpu`) for every history.
+  * ``"race"``  — the device pass and the DFS engine at once, on two
+                  threads; per history the first decided verdict wins
+                  (knossos' competition analysis), the rest take the
+                  host oracle. The device thread launches on a CUDA
+                  stream of its own and reads every result back before
+                  it ends, so no launch is left pending; a device pass
+                  that raises is raised again once both threads end.
 
 ``n_configs`` / ``n_slots`` pin the sort kernel's shape, as in the
-reference: a pin skips the dense plans and runs every row through the
-ladder at that shape (``n_configs``: one rung of that capacity;
-``n_slots``: that kernel window, and rows wider than it are beyond the
-ladder).
+reference: a pin skips the segmented and dense plans and runs every row
+through the ladder at that shape (``n_configs``: one rung of that
+capacity; ``n_slots``: that kernel window, and rows wider than it are
+beyond the ladder).
+
+Knobs, with the reference's names and meanings: ``JGRAFT_LIN_FASTPATH``
+(0 turns the fast path off), ``JGRAFT_LIN_FASTPATH_ABORT`` (its per-event
+step budget), the gate's ``JGRAFT_LIN_FASTPATH_MIN_HIT`` / ``_MIN_OBS``,
+``JGRAFT_AUTOTUNE``, ``JGRAFT_AUTOTUNE_STORE``, ``JGRAFT_LINFP_DIR``, and
+``JGRAFT_SEGMENT`` (1/0 forces the long-history routing; unset, a CPU
+device routes nothing and the card follows `_segment_routing_on`).
 
 Device: every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions on the
@@ -49,6 +68,8 @@ host. With no CUDA device and no explicit CPU request they raise.
 
 from __future__ import annotations
 
+import os
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -60,8 +81,13 @@ from ..history.packing import (EncodedHistory, encode_history,
 from ..ops.dense_scan import dense_plans_grouped
 from ..ops.kernel_ir import MASK_DENSE_MAX_SLOTS
 from ..ops.linear_scan import DEFAULT_N_CONFIGS, MAX_SLOTS, bucket_slots
-from ..platform import resolve_device
+from ..ops.segment_scan import LONG_HISTORY_MIN_EVENTS, check_segmented_batch
+from ..platform import env_int, resolve_device
+from . import autotune
 from .base import Checker, INVALID, UNKNOWN, VALID
+from .certify_batch import certify_many
+from .counterexample import attach_counterexample, write_counterexample_html
+from .dfs_cpu import SearchBudgetExceeded, check_encoded_dfs
 from .schedule import DenseLaunch, note_tier, run_dense_groups, run_sort_rung
 from .wgl_cpu import FrontierOverflow, check_encoded_cpu
 
@@ -69,10 +95,150 @@ from .wgl_cpu import FrontierOverflow, check_encoded_cpu
 #: exponential in the window, so beyond this it reports UNKNOWN.
 DEFAULT_MAX_CPU_CONFIGS = 1 << 18
 
-ALGORITHMS = ("auto", "dense", "cpu")
+ALGORITHMS = ("auto", "dense", "cpu", "dfs", "race")
 
 #: Capacities of the sort ladder's rungs, smallest first.
 SORT_LADDER = (64, DEFAULT_N_CONFIGS)
+
+#: DFS step budget of the "dfs" and "race" engines and of auto's host
+#: ladder: enough for any history the harness produces at its scale,
+#: small enough that adversarial backtracking cannot wedge a check.
+DEFAULT_DFS_BUDGET = 4_000_000
+
+#: Budget of auto's wide-window DFS first pass (sub-second): valid
+#: histories typically decide in thousands of steps; adversarial ones
+#: exhaust this quickly and go on to the device pass.
+FAST_DFS_BUDGET = 300_000
+
+#: On the card, the long-history rows of a batch take the segmented scan
+#: when there are at most this many of them (`_segment_routing_on`).
+#: chip_smoke.py's `long_main` times both arms end to end on suite
+#: config 5 (one 100k-op history) and on 1, 2, 4, 8 and 16 of config 4's
+#: 10k-op histories: the segmented arm won at 1, 2 and 4 in every run,
+#: and at 8 and 16 the two tied, either one ahead by a few percent
+#: (PERF.md §5; H100 80GB HBM3, 700 W).
+SEGMENT_MAX_LONG_ROWS = 4
+
+
+# ---------------------------------------------------- the lin fast path
+# The host witness certifier (checker/consistency.certify_encoded, via
+# certify_batch.certify_many) runs as a pre-kernel pass: a witness that
+# respects every [OPEN, FORCE] interval IS a linearization, so a
+# certified row is a sound VALID decided on the host in O(E·W) with no
+# kernel launch. Undecided rows go on to the device unchanged, so
+# verdicts are identical with the pass off (JGRAFT_LIN_FASTPATH=0). Its
+# worst case (host scan AND kernel) is bounded by a length-scaled abort
+# budget per row and by the measured per-bucket gate of
+# checker/autotune.py, which routes low-hit buckets kernel-first.
+
+#: Algorithms the fast path fronts: the kernel-launching selectors. An
+#: explicit "cpu"/"dfs" keeps its host engine, and "race" already runs
+#: a host engine of its own.
+LIN_FASTPATH_ALGOS = ("auto", "dense")
+
+
+def lin_fastpath_on() -> bool:
+    """Whether the pre-kernel certify pass runs. Default ON;
+    ``JGRAFT_LIN_FASTPATH=0`` force-disables (defensive parse — garbage
+    keeps the default)."""
+    return env_int("JGRAFT_LIN_FASTPATH", 1, minimum=0) != 0
+
+
+def lin_abort_steps() -> int:
+    """Per-event abort budget for the fast path's host scan
+    (``JGRAFT_LIN_FASTPATH_ABORT``, default 32 `model.step` calls per
+    stream event; 0 = unbounded): a hopeless row aborts after budget·E
+    steps. The reference calibrated it on a host-CPU A/B: valid rows
+    certify in ~2–8 step calls per event."""
+    return env_int("JGRAFT_LIN_FASTPATH_ABORT", 32, minimum=0)
+
+
+_FP_LOCK = threading.Lock()
+_FP_ZERO = {"rows_scanned": 0, "rows_certified": 0, "rows_gated": 0,
+            "events_scanned": 0, "certify_wall_s": 0.0}
+_FP_COUNTERS = dict(_FP_ZERO)
+
+
+def _fp_bump(**kw) -> None:
+    with _FP_LOCK:
+        for k, v in kw.items():
+            _FP_COUNTERS[k] += v
+
+
+def fastpath_counters() -> dict:
+    """Process-wide lin-fastpath counters (non-destructive):
+    rows_scanned / rows_certified (the hit rate), rows_gated (routed
+    kernel-first by the measured gate), events_scanned and the summed
+    certify wall."""
+    with _FP_LOCK:
+        return dict(_FP_COUNTERS)
+
+
+def consume_fastpath_counters() -> dict:
+    """Return and reset the counters (one window's worth)."""
+    global _FP_COUNTERS
+    with _FP_LOCK:
+        out = dict(_FP_COUNTERS)
+        _FP_COUNTERS = dict(_FP_ZERO)
+        return out
+
+
+def lin_fastpath_pass(encs: Sequence[EncodedHistory], model,
+                      note: bool = True) -> list:
+    """Run the certifier over a batch; returns one result dict per row,
+    None where undecided (the caller sends those to the device). Rows
+    are grouped into the gate's buckets; gated buckets are skipped
+    wholesale (counted), and every scanned bucket's (rows, hits, wall)
+    feeds the gate's record. Certified rows report ``"algorithm":
+    "greedy-witness"`` and ``"decided-tier"`` ``"greedy@lin"`` or
+    ``"backtrack@lin"``; ``note=False`` leaves tier attribution to the
+    caller."""
+    results: list = [None] * len(encs)
+    fam = type(model).__name__
+    buckets: dict = {}
+    for i, e in enumerate(encs):
+        if e.n_events <= 0:
+            continue  # trivial rows keep their "trivial" tier
+        buckets.setdefault(
+            autotune.lin_fastpath_sig(fam, e.n_events), []).append(i)
+    abort = lin_abort_steps()
+    for sig, idxs in buckets.items():
+        if not autotune.lin_fastpath_route(sig):
+            _fp_bump(rows_gated=len(idxs))
+            continue
+        t0 = time.perf_counter()
+        hits = 0
+        certs = certify_many(
+            [encs[i] for i in idxs], model,
+            max_steps=[abort * max(encs[i].n_events, 1) if abort
+                       else None for i in idxs])
+        for i, (ok, tier, _) in zip(idxs, certs):
+            if ok:
+                hits += 1
+                results[i] = {
+                    "valid?": VALID,
+                    "algorithm": "greedy-witness",
+                    "op-count": encs[i].n_ops,
+                    "concurrency-window": encs[i].n_slots,
+                    "decided-tier": tier + "@lin",
+                }
+        dt = time.perf_counter() - t0
+        # every scanned row cost ~dt/len(idxs); the certified rows book
+        # that share, the undecided rows' cost is their kernel's wall
+        per_row = dt / max(len(idxs), 1)
+        if note:
+            for i in idxs:
+                if results[i] is not None:
+                    note_tier(results[i]["decided-tier"], wall_s=per_row)
+        autotune.lin_fastpath_observe(sig, rows=len(idxs), hits=hits,
+                                      wall_s=dt)
+        _fp_bump(rows_scanned=len(idxs), rows_certified=hits,
+                 events_scanned=sum(encs[i].n_events for i in idxs),
+                 certify_wall_s=dt)
+    return results
+
+
+# -------------------------------------------------------- entry points
 
 
 def check_histories(
@@ -103,66 +269,182 @@ def check_encoded(
     max_cpu_configs: Optional[int] = DEFAULT_MAX_CPU_CONFIGS,
     n_configs: Optional[int] = None,
     n_slots: Optional[int] = None,
+    lin_fastpath: Optional[bool] = None,
 ) -> list[dict]:
     """Check already-encoded histories (`history.packing.encode_history`),
-    one result dict each."""
+    one result dict each. ``lin_fastpath``: None = the default (the
+    pre-kernel certify pass runs for "auto" and "dense" unless
+    ``JGRAFT_LIN_FASTPATH=0``), False = skip it."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}; "
                          f"expected one of {ALGORITHMS}")
     dev = resolve_device(device)
-    if algorithm == "cpu":
-        return [_check_cpu(e, model, witness, max_cpu_configs)
-                for e in encs]
-    pinned = n_configs is not None or n_slots is not None
-    results, rest = (_dense_pass(encs, model, dev) if not pinned
-                     else _trivial_pass(encs))
-    # the ladder's window cap: the sort kernel's, or under auto the
-    # rows the reference sends to the ladder without its DFS tier first
-    cap = n_slots or MAX_SLOTS
-    if algorithm == "auto":
-        cap = min(cap, MASK_DENSE_MAX_SLOTS)
-    _sort_pass(encs, model, dev, [i for i in rest if encs[i].n_slots <= cap],
-               results, n_configs, n_slots)
-    for i, r in enumerate(results):
-        if r is not None:
-            continue
-        if algorithm == "dense":
-            results[i] = {
-                "valid?": UNKNOWN,
-                "algorithm": "torch",
-                "error": "beyond the kernels' caps (window "
-                         f"{encs[i].n_slots} slots, or a frontier overflow "
-                         "at the top rung); use algorithm='auto' or 'cpu'",
-            }
-        else:
-            results[i] = _check_cpu(encs[i], model, witness,
-                                    max_cpu_configs)
+
+    def rest(sub):
+        return _check_encoded(sub, model, algorithm, dev, witness,
+                              max_cpu_configs, n_configs, n_slots)
+
+    # The reference also keeps sharded batches kernel-first unless the
+    # gate store is shared (its distributed wavefront); the port has no
+    # mesh yet (B10), so the condition does not arise.
+    if not (lin_fastpath is not False and encs
+            and algorithm in LIN_FASTPATH_ALGOS and lin_fastpath_on()):
+        return rest(encs)
+    results = lin_fastpath_pass(encs, model)
+    todo = [i for i, r in enumerate(results) if r is None]
+    if todo:
+        for i, r in zip(todo, rest([encs[i] for i in todo])):
+            results[i] = r
+    _observe_device_walls(encs, model, results)
     return results
 
 
-def _trivial_pass(encs):
-    """(results, rest): VALID for the empty histories, None and an entry
-    in `rest` for every other."""
+def _observe_device_walls(encs, model, results) -> None:
+    """Feed the fast path's gate the device's wall per row in each
+    bucket this check sent to the device: what a certified row of that
+    bucket would have saved."""
+    fam = type(model).__name__
+    walls: dict = {}
+    for e, r in zip(encs, results):
+        if r.get("algorithm") == "torch" and e.n_events > 0:
+            w = walls.setdefault(autotune.lin_fastpath_sig(fam, e.n_events),
+                                 [0, 0.0])
+            w[0] += 1
+            w[1] += r.get("time-s", 0.0)
+    for sig, (rows, wall) in walls.items():
+        autotune.lin_fastpath_observe_kernel(sig, rows, wall)
+
+
+def _check_encoded(encs, model, algorithm, dev, witness, max_cpu_configs,
+                   n_configs, n_slots) -> list[dict]:
+    """The reference's `_check_encoded` order, fast path excluded."""
+    if algorithm == "cpu":
+        return [_check_cpu(e, model, witness, max_cpu_configs)
+                for e in encs]
+    if algorithm == "dfs":
+        return [_check_dfs(e, model, witness, max_steps=DEFAULT_DFS_BUDGET)
+                for e in encs]
+    if algorithm == "race":
+        return _race(encs, model, dev, n_configs, n_slots, witness,
+                     max_cpu_configs)
     results: list = [None] * len(encs)
-    rest = []
+    if algorithm == "auto":
+        # Wide windows are frontier-hostile (breadth-first cost ~2^W) but
+        # usually DFS-trivial when valid: a small DFS budget first.
+        for i, e in enumerate(encs):
+            if e.n_slots > MASK_DENSE_MAX_SLOTS and e.n_events > 0:
+                r = _check_dfs(e, model, witness, max_steps=FAST_DFS_BUDGET)
+                if r["valid?"] is not UNKNOWN:
+                    results[i] = r
+    todo = [i for i, r in enumerate(results) if r is None]
+    for i, r in zip(todo, _device_pass([encs[i] for i in todo], model, dev,
+                                       n_configs, n_slots)):
+        results[i] = r
+    if algorithm == "dense":
+        for i, r in enumerate(results):
+            if r is None:
+                results[i] = {
+                    "valid?": UNKNOWN,
+                    "algorithm": "torch",
+                    "error": "beyond the kernels' caps (window "
+                             f"{encs[i].n_slots} slots, or a frontier "
+                             "overflow at the top rung); use "
+                             "algorithm='auto' or 'cpu'",
+                }
+        return results
+    for i, r in enumerate(results):
+        dfs_exhausted = False
+        if r is None and encs[i].n_slots > MASK_DENSE_MAX_SLOTS:
+            # wide windows the device could not decide: the full-budget
+            # DFS before the host frontier, whose overflow cap is the
+            # final "unfeasible to verify" answer
+            r2 = _check_dfs(encs[i], model, witness,
+                            max_steps=DEFAULT_DFS_BUDGET)
+            if r2["valid?"] is not UNKNOWN:
+                results[i] = r2
+                continue
+            dfs_exhausted = True  # deterministic: a re-run cannot differ
+        if results[i] is None:
+            results[i] = _check_cpu(encs[i], model, witness, max_cpu_configs)
+        if results[i].get("valid?") is UNKNOWN and not dfs_exhausted:
+            r2 = _check_dfs(encs[i], model, witness,
+                            max_steps=DEFAULT_DFS_BUDGET)
+            if r2["valid?"] is not UNKNOWN:
+                results[i] = r2
+    return results
+
+
+# --------------------------------------------------------- device pass
+
+
+def _device_pass(encs, model, dev, n_configs=None, n_slots=None,
+                 note: bool = True) -> list:
+    """The reference's `_jax_pass` on the card (or the kernels' plain
+    versions on a CPU device): one result dict per history, or None
+    where the device could not decide (a window beyond the ladder, or a
+    frontier overflow at the top rung). Order: trivial rows; long rows
+    through the segmented scan; the dense plans; the sort ladder for
+    the rest."""
+    results: list = [None] * len(encs)
+    cap = n_slots or MAX_SLOTS
+    fits = []
     for i, e in enumerate(encs):
         if e.n_events == 0:
-            note_tier("trivial")
+            if note:
+                note_tier("trivial")
             results[i] = {"valid?": VALID, "algorithm": "trivial",
                           "op-count": 0, "decided-tier": "trivial"}
-        else:
-            rest.append(i)
-    return results, rest
+        elif e.n_slots <= cap:
+            fits.append(i)
+    if fits and n_configs is None and n_slots is None:
+        fits = _segment_pass(encs, model, dev, fits, results, note)
+        fits = _dense_pass(encs, model, dev, fits, results, note)
+    _sort_pass(encs, model, dev, fits, results, n_configs, n_slots, note)
+    return results
 
 
-def _dense_pass(encs, model, dev):
-    """Run every dense-eligible history through its group's CUDA kernel,
-    domain or mask (or the kernel's plain version on a CPU device).
-    Returns (results, rest): None in results and an index in `rest` for
-    the histories beyond both kinds' caps."""
-    results, fits = _trivial_pass(encs)
+def _segment_routing_on(n_long: int, dev) -> bool:
+    """Whether a batch's `n_long` long-history rows take the segmented
+    scan. ``JGRAFT_SEGMENT`` forces it (1 on, anything else off);
+    unset, a CPU device routes nothing (the basis multiplies host work)
+    and the card routes up to SEGMENT_MAX_LONG_ROWS rows."""
+    forced = os.environ.get("JGRAFT_SEGMENT")
+    if forced is not None:
+        return forced == "1"
+    return torch.device(dev).type == "cuda" and \
+        n_long <= SEGMENT_MAX_LONG_ROWS
+
+
+def _segment_pass(encs, model, dev, fits, results, note: bool) -> list:
+    """Long histories first: the rows of at least LONG_HISTORY_MIN_EVENTS
+    events go to the segmented scan when `_segment_routing_on` says so.
+    Fills `results` for the rows it decides (``"kernel": "dense-seg"``,
+    ``"segments"``); returns the rest of `fits`. The segmented path keeps
+    legacy event rows (its planner reasons about single events)."""
+    long_idx = [i for i in fits if encs[i].n_events >= LONG_HISTORY_MIN_EVENTS]
+    if not long_idx or not _segment_routing_on(len(long_idx), dev):
+        return fits
+    t0 = time.perf_counter()
+    seg = check_segmented_batch([encs[i] for i in long_idx], model,
+                                device=dev)
+    dt = time.perf_counter() - t0
+    n_done = sum(1 for r in seg if r is not None)
+    for j, i in enumerate(long_idx):
+        if seg[j] is not None:
+            r = _jx(VALID if seg[j]["valid"] else INVALID, encs[i],
+                    dt / max(n_done, 1), kernel="dense-seg", note=note)
+            r["segments"] = seg[j]["segments"]
+            results[i] = r
+    return [i for i in fits if results[i] is None]
+
+
+def _dense_pass(encs, model, dev, fits, results, note: bool) -> list:
+    """Run every dense-eligible history of `fits` through its group's
+    CUDA kernel, domain or mask (or the kernel's plain version on a CPU
+    device). Fills `results` for them; returns the rows beyond both
+    kinds' caps."""
     if not fits:
-        return results, []
+        return fits
     grouped, rest = dense_plans_grouped(model, [encs[i] for i in fits])
     pack = pack_macro_batch if macro_events_on() else pack_batch
     subs, launches = [], []
@@ -178,18 +460,18 @@ def _dense_pass(encs, model, dev):
         subs.append(sub)
     rest = [fits[j] for j in rest]
     if not launches:
-        return results, rest
+        return rest
     run = run_dense_groups(launches, model)
     dt = run.wall_s / max(sum(len(s) for s in subs), 1)
     for sub, ok, ln in zip(subs, run.ok, launches):
         for j, i in enumerate(sub):
             results[i] = _jx(VALID if ok[j] else INVALID, encs[i], dt,
-                             kernel=ln.tag)
-    return results, rest
+                             kernel=ln.tag, note=note)
+    return rest
 
 
 def _sort_pass(encs, model, dev, rows, results, n_configs=None,
-               n_slots=None) -> None:
+               n_slots=None, note: bool = True) -> None:
     """The sort-frontier ladder over `rows` (indices into encs), as the
     reference's `_jax_pass` runs it: one batch at the widest window's
     bucket (or the pinned `n_slots`), rungs SORT_LADDER (or the pinned
@@ -210,9 +492,11 @@ def _sort_pass(encs, model, dev, rows, results, n_configs=None,
         escalate = []
         for j, i in enumerate(remaining):
             if run.ok[j]:
-                results[i] = _jx(VALID, encs[i], dt, kernel="sort")
+                results[i] = _jx(VALID, encs[i], dt, kernel="sort",
+                                 note=note)
             elif not run.overflow[j]:
-                results[i] = _jx(INVALID, encs[i], dt, kernel="sort")
+                results[i] = _jx(INVALID, encs[i], dt, kernel="sort",
+                                 note=note)
             elif rung + 1 < len(ladder):
                 escalate.append(i)
             # else: overflowed at the top rung, undecided
@@ -221,10 +505,85 @@ def _sort_pass(encs, model, dev, rows, results, n_configs=None,
             break
 
 
+# ---------------------------------------------------------------- race
+
+
+def _race(encs, model, dev, n_configs, n_slots, witness, max_cpu_configs):
+    """Race the device pass against the DFS engine; per history the first
+    decided verdict wins (knossos.competition analogue). Histories
+    neither engine decides take the capped host frontier, which can
+    itself report UNKNOWN on adversarial histories. On the card the
+    device thread sets the device and launches on a stream of its own;
+    every launch it makes is read back before the thread ends, and both
+    threads are joined before this returns. A device pass that raises
+    (a kernel that does not build or launch) stops the DFS side at its
+    next history and is raised again here: the host never answers for
+    a device that failed."""
+    decided: list = [None] * len(encs)
+    lock = threading.Lock()
+    failed: list = []
+
+    def record(i, res):
+        with lock:
+            if decided[i] is None:
+                res["raced"] = True
+                decided[i] = res
+                # tier attribution belongs to the winner only
+                tier = res.get("decided-tier")
+                if tier is not None:
+                    note_tier(tier, wall_s=res.get("time-s", 0.0))
+
+    def device_side():
+        try:
+            if dev.type == "cuda":
+                with torch.cuda.device(dev), \
+                        torch.cuda.stream(torch.cuda.Stream(dev)):
+                    rs = _device_pass(encs, model, dev, n_configs, n_slots,
+                                      note=False)
+            else:
+                rs = _device_pass(encs, model, dev, n_configs, n_slots,
+                                  note=False)
+        except BaseException as e:  # noqa: BLE001 — raised after the join
+            failed.append(e)
+            return
+        for i, r in enumerate(rs):
+            if r is not None:
+                record(i, r)
+
+    def dfs_side():
+        # cheapest histories first: win the race where DFS is strong
+        for i in sorted(range(len(encs)), key=lambda i: encs[i].n_events):
+            if failed:
+                return
+            with lock:
+                if decided[i] is not None:
+                    continue
+            r = _check_dfs(encs[i], model, witness,
+                           max_steps=DEFAULT_DFS_BUDGET, note=False)
+            if r["valid?"] is not UNKNOWN:
+                record(i, r)
+
+    threads = [threading.Thread(target=device_side),
+               threading.Thread(target=dfs_side)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if failed:
+        raise failed[0]
+    for i, r in enumerate(decided):
+        if r is None:
+            decided[i] = _check_cpu(encs[i], model, witness, max_cpu_configs)
+    return decided
+
+
+# ------------------------------------------------------------- results
+
+
 def kernel_tier(tag: str) -> str:
     """Decided-tier name of a kernel tag (the reference's attribution):
     the mask kernel is its own tier, the sort ladder "sort", every other
-    dense-family kernel "dense"."""
+    dense-family kernel (domain, segmented) "dense"."""
     if "mask" in tag:
         return "mask"
     if "sort" in tag:
@@ -246,6 +605,36 @@ def _jx(valid, enc: EncodedHistory, secs: float,
         "time-s": secs,
         "decided-tier": tier,
     }
+
+
+def _check_dfs(enc: EncodedHistory, model, witness: bool = False,
+               max_steps: Optional[int] = None, note: bool = True) -> dict:
+    if enc.n_events == 0:
+        if note:
+            note_tier("trivial")
+        return {"valid?": VALID, "algorithm": "trivial", "op-count": 0,
+                "decided-tier": "trivial"}
+    t0 = time.perf_counter()
+    try:
+        r = check_encoded_dfs(enc, model, max_steps=max_steps,
+                              witness=witness)
+    except SearchBudgetExceeded as e:
+        return {"valid?": UNKNOWN, "algorithm": "dfs", "error": str(e)}
+    if note:
+        note_tier("host", wall_s=time.perf_counter() - t0)
+    out = {
+        "valid?": VALID if r.valid else INVALID,
+        "algorithm": "dfs",
+        "op-count": enc.n_ops,
+        "concurrency-window": enc.n_slots,
+        "configs-explored": r.configs_explored,
+        "decided-tier": "host",
+    }
+    if not r.valid:
+        out["failing-op-index"] = r.failing_op_index
+    if r.witness is not None:
+        out["witness"] = r.witness
+    return out
 
 
 def _check_cpu(enc: EncodedHistory, model, witness: bool,
@@ -277,7 +666,9 @@ def _check_cpu(enc: EncodedHistory, model, witness: bool,
 
 class LinearizableChecker(Checker):
     """Checker-protocol wrapper around `check_histories` for one
-    history (client ops only)."""
+    history (client ops only). An INVALID result carries the reference's
+    counterexample (`checker/counterexample.py`), and its HTML timeline
+    is written into ``test["store_dir"]`` when there is one."""
 
     def __init__(self, model, algorithm: str = "auto", device=None,
                  max_cpu_configs: Optional[int] = DEFAULT_MAX_CPU_CONFIGS):
@@ -289,8 +680,16 @@ class LinearizableChecker(Checker):
     def check(self, test, history, opts=None) -> dict:
         if not isinstance(history, History):
             history = History(history)
+        hist = history.client_ops()
+        # witness=True so the host engines explain during the verdict
+        # run; attach_counterexample re-searches only for kernel verdicts
         [result] = check_histories(
-            [history.client_ops()], self.model, self.algorithm,
-            self.device, witness=True,
+            [hist], self.model, self.algorithm, self.device, witness=True,
             max_cpu_configs=self.max_cpu_configs)
+        if result.get("valid?") is INVALID:
+            attach_counterexample(result, hist, self.model,
+                                  max_cpu_configs=self.max_cpu_configs)
+            write_counterexample_html(result, hist,
+                                      (test or {}).get("store_dir"),
+                                      "counterexample.html")
         return result

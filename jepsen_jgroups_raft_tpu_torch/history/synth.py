@@ -266,6 +266,33 @@ def burst_history(rng: random.Random, model_kind: str, n_ops: int,
     return build_history(rows)
 
 
+def chained_bursts(rng: random.Random, width: int, n_bursts: int,
+                   ambiguous: int = 1, off: int = 0) -> History:
+    """A counter history of `n_bursts` bursts one after another: in
+    each, `width` processes invoke an increment by 1 at once — the first
+    `ambiguous` of them a plain add, the rest add-and-get, whose
+    observed values pin their order — the increments take effect in a
+    random order and complete in another. A final read observes the
+    total plus `off` (INVALID for any `off` other than 0). The window is
+    `width` while the frontier stays a few dozen configurations, so the
+    sort ladder decides such a history at width 20 with one ambiguous
+    add; a DFS over an INVALID one visits every configuration before
+    the final read and, past a few hundred bursts, runs out of auto's
+    fast budget (FAST_DFS_BUDGET)."""
+    rows, total = [], 0
+    fs = ["add"] * ambiguous + ["add-and-get"] * (width - ambiguous)
+    for _ in range(n_bursts):
+        rows += [(p, INVOKE, fs[p], 1) for p in range(width)]
+        seen = {}
+        for p in rng.sample(range(width), width):
+            total += 1
+            seen[p] = total
+        rows += [(p, OK, fs[p], 1 if fs[p] == "add" else (1, seen[p]))
+                 for p in rng.sample(range(width), width)]
+    rows += [(0, INVOKE, "read", None), (0, OK, "read", total + off)]
+    return build_history(rows)
+
+
 def offset_counter_history(history, offset: int) -> list:
     """A counter history as if the counter had started at `offset`:
     every observed value (a read's, an add-and-get's new value) moves by
@@ -357,3 +384,88 @@ def random_mask_rows(rng, n: int, n_rows: int, n_slots: int,
                 ev[h, e, 1] = f
                 open_.discard(f)
     return ev
+
+
+def random_segment_rows(rng, K: int, n_rows: int, n_slots: int, vals,
+                        n_crashed: int, bad_read: float = 0.01,
+                        stray: float = 0.005):
+    """[K, n_rows, 5] int32 legacy event rows for the segmented scan, as
+    its planner lays a segment out: a prologue that OPENs slots 0 ..
+    n_crashed-1 (crashed ops: never FORCEd), then register ops on the
+    other slots, OPENed on free slots and FORCEd while open. Each op
+    takes effect at its OPEN on a running register state that starts at
+    `vals[k][0]` (a read observes it, a cas expects it), so frontiers
+    seeded at id 0 survive; a share `bad_read` of the reads and cas
+    observe another value, and a few rows stray from the packer: 2 % padding and
+    unknown kinds, a share `stray` with slots out of range (a FORCE of
+    one clips to slot 0), unknown opcodes. Lower both for long segments,
+    or every frontier dies early. `rng` is a numpy Generator; `vals`
+    [K, S] int (a segment's id→value table)."""
+    import numpy as np
+
+    W = int(n_slots)
+    ev = np.zeros((K, n_rows, 5), dtype=np.int32)
+    for k in range(K):
+        table = [int(v) for v in vals[k]]
+        state = table[0]
+
+        def op(state):
+            f = int(rng.choice([1, 0, 2, 6], p=[.45, .35, .17, .03]))
+            a, b = int(rng.choice(table)), int(rng.choice(table))
+            if f != 1 and rng.random() >= bad_read:
+                a = state
+            nxt = a if f == 1 else (b if f == 2 and a == state else state)
+            return (f, a, b), nxt
+
+        pro = min(n_crashed, W, n_rows)
+        for c in range(pro):
+            ev[k, c] = (1, c, *op(state)[0])
+        open_: set = set()
+        for e in range(pro, n_rows):
+            free = [w for w in range(n_crashed, W) if w not in open_]
+            u = rng.random()
+            if u < 0.02:
+                ev[k, e, 0] = int(rng.choice([0, 3]))   # padding, unknown
+            elif u < 0.02 + stray:
+                ev[k, e] = (int(rng.choice([1, 2])),
+                            int(rng.choice([-1, W, W + 3])), *op(state)[0])
+            elif free and (not open_ or u < 0.5):
+                w = int(rng.choice(free))
+                args, state = op(state)
+                ev[k, e] = (1, w, *args)
+                open_.add(w)
+            elif open_:
+                w = int(rng.choice(sorted(open_)))
+                ev[k, e, :2] = (2, w)
+                open_.discard(w)
+    return ev
+
+
+def random_segment_inputs(rng, K: int, n_rows: int, n_slots: int,
+                          n_states: int, n_crashed: int,
+                          bad_read: float = 0.01, stray: float = 0.005):
+    """A batch of K arbitrary segments for the segmented scan at window
+    `n_slots` over `n_states`-entry value tables (the last quarter
+    repeating id 0, as the planner pads): `random_segment_rows` with
+    crashed slots 0 .. n_crashed-1, the seed basis (every subset of them
+    × every state id), then dead seeds (-1) and a seed mask beyond the
+    frontier; real lengths mixed (the first segment whole). Returns numpy
+    (events [K, n_rows, 5], val_of [K, S], seed_mask and seed_state [K,
+    NB], n_events [K]), all int32, NB ≤ 256."""
+    import numpy as np
+
+    W, S = int(n_slots), int(n_states)
+    vals = rng.integers(-3, 4, size=(K, S)).astype(np.int32)
+    vals[:, S - S // 4:] = vals[:, :1]
+    ev = random_segment_rows(rng, K, n_rows, W, vals, n_crashed, bad_read,
+                             stray)
+    basis = [(sub, s) for sub in range(1 << n_crashed) for s in range(S)]
+    NB = min(len(basis) + 4, 256)
+    seed_mask = np.full((K, NB), -1, dtype=np.int32)
+    seed_state = np.zeros((K, NB), dtype=np.int32)
+    for b, (m, s) in enumerate(basis[:NB - 2]):
+        seed_mask[:, b], seed_state[:, b] = m, s
+    seed_mask[:, NB - 1] = 1 << W
+    n_events = rng.integers(n_rows // 3, n_rows + 1, size=K).astype(np.int32)
+    n_events[0] = n_rows
+    return ev, vals, seed_mask, seed_state, n_events

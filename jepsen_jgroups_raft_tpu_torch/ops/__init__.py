@@ -10,6 +10,10 @@
 * `linear_scan` — the sort-frontier ladder: window buckets
   (`bucket_slots`), the CUDA kernel wrapper `sort_scan` and its plain
   version `sort_scan_plain`.
+* `segment_scan` — long histories cut at quiescent boundaries: the
+  planner and host composition (`check_segmented_batch`), the CUDA
+  kernel wrapper `segment_scan` (one warp per (segment, seed)) and its
+  plain version `segment_scan_plain`.
 * `_build`     — nvcc build of `csrc/*.cu` at first use, ctypes binding.
 """
 

@@ -56,6 +56,13 @@ SIGNATURES: Dict[str, dict] = {
                                   _I, _I, _I, _I, _VP]),
         "sort_scan_error_string": (ctypes.c_char_p, [_I]),
     },
+    "segment_scan": {
+        # events, val_of, seed_mask, seed_state, n_events, out, K, NB, E,
+        # W, S, field_log2, model, device, stream
+        "segment_scan_launch": (_I, [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _VP]),
+        "segment_scan_error_string": (ctypes.c_char_p, [_I]),
+    },
     "mask_scan_profile": {
         # events, n_events, ok, prof, B, E, R, macro_p, W, model,
         # init_state, device, stream

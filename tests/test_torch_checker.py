@@ -2,8 +2,9 @@
 register, counter and queue histories (the reference under the suite's pins:
 JGRAFT_LIN_FASTPATH=0, JGRAFT_AUTOTUNE=0). Inside the dense caps every
 result must agree on valid?, kernel, decided-tier, op-count and
-concurrency-window; beyond them the reference takes its own ladder and
-the port the host tier, so only valid? is compared. Exact equality."""
+concurrency-window; beyond them both take the reference's ladder (fast
+DFS, device, host), and valid?, algorithm and decided-tier agree. Exact
+equality."""
 
 import random
 
@@ -84,14 +85,18 @@ def test_matches_reference_inside_dense_caps():
 
 
 def test_beyond_caps_takes_host_tier_with_reference_verdict():
+    """Beyond the dense caps both packages take the reference's ladder —
+    the fast DFS first on a window above 12, then the device, then the
+    host: verdict, algorithm and decided tier agree row for row."""
     hs = [_wide(True), _wide(False)] + _batch(seed=9, n=6)
     ours = check_histories(hs, CasRegister(), device="cpu")
     theirs = ref_check(hs, RefReg())
     assert [r["valid?"] for r in ours] == [r["valid?"] for r in theirs]
     assert [r["valid?"] for r in ours[:2]] == [True, False]
-    for r in ours[:2]:
+    for r, t in zip(ours[:2], theirs[:2]):
         assert r["concurrency-window"] == 13
-        assert (r["algorithm"], r["decided-tier"]) == ("cpu", "host")
+        assert (r["algorithm"], r["decided-tier"]) == \
+            (t["algorithm"], t["decided-tier"]) == ("dfs", "host")
     assert [_view(r) for r in ours[2:]] == [_view(r) for r in theirs[2:]]
 
 
@@ -227,11 +232,12 @@ def test_counter_and_queue_match_reference(kind):
     assert True in verdicts and False in verdicts
     assert {(r["kernel"], r["decided-tier"], r["algorithm"])
             for r in ours[:-1]} == {("dense-mask", "mask", "torch")}
-    # beyond the mask cap: the port's host tier, the reference's ladder
+    # beyond the mask cap: both take the reference's ladder
     wide, ref_wide = ours[-1], theirs[-1]
     assert wide["concurrency-window"] == 14
     assert wide["valid?"] is ref_wide["valid?"] is True
-    assert (wide["algorithm"], wide["decided-tier"]) == ("cpu", "host")
+    assert (wide["algorithm"], wide["decided-tier"]) == \
+        (ref_wide["algorithm"], ref_wide["decided-tier"]) == ("dfs", "host")
 
 
 @pytest.mark.parametrize("kind", list(MASK_MODELS))

@@ -11,11 +11,19 @@ Each kernel is held bitwise to its plain PyTorch version on the same
 inputs (verdicts are booleans: tolerance is exact equality).
 """
 
+import os
 import random
 
 import numpy as np
 import pytest
 import torch
+
+# tests/conftest.py's pins, which --noconftest skips: the kernel suites
+# run with the lin fast path off (at the default knobs the host
+# certifier decides most valid rows before any launch) and no measured
+# gate state
+os.environ.setdefault("JGRAFT_LIN_FASTPATH", "0")
+os.environ.setdefault("JGRAFT_AUTOTUNE", "0")
 
 from jepsen_jgroups_raft_tpu_torch.checker.linearizable import \
     check_histories
@@ -760,3 +768,100 @@ def test_check_histories_set_on_card_matches_cpu(cuda):
     assert [{k: r.get(k) for k in keys} for r in on_card] == \
         [{k: r.get(k) for k in keys} for r in on_host]
     assert {"dense", "sort"} <= {r["decided-tier"] for r in on_card}
+
+
+# ------------------------------------------------------- segment_scan (B6)
+
+from jepsen_jgroups_raft_tpu_torch.history.synth import \
+    random_segment_inputs  # noqa: E402
+from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss  # noqa: E402
+
+
+def _segment_inputs(seed, W, S, K, E, n_crashed, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(a).to(dev) for a in random_segment_inputs(
+        rng, K, E, W, S, n_crashed)]
+
+
+@pytest.mark.parametrize("W,S", [(W, min(16, 8192 >> W))
+                                 for W in range(1, 11)] + [(3, 1), (6, 4)])
+def test_segment_scan_kernel_matches_plain(cuda, W, S):
+    for n_crashed in range(0, min(W, 4) + 1):
+        ev, vals, sm, st, n_ev = _segment_inputs(
+            100 * W + n_crashed, W, S, 6, 160, n_crashed, cuda)
+        before = ss.launch_counts()["segment_scan"]
+        F = ss.segment_scan(ev, vals, sm, st, W, n_ev)
+        torch.cuda.synchronize()
+        assert ss.launch_counts()["segment_scan"] == before + 1
+        plain = ss.segment_scan_plain(ev, vals, sm, st, W, n_ev)
+        assert F.shape == plain.shape == (6, sm.shape[1], 1 << W, S)
+        assert F.dtype == torch.bool
+        assert torch.equal(F.cpu(), plain.cpu()), (W, S, n_crashed)
+        live = plain.flatten(2).any(dim=2)
+        assert not live[:, -1].any() and not live[:, -2].any()
+
+
+def test_segmented_batch_on_card_matches_cpu(cuda):
+    """Register histories through check_segmented_batch on the card and
+    on the host: the same plans on both (no CPU cell budget bites at
+    this size) and the same verdicts; corrupted reads INVALID."""
+    rng = random.Random(31)
+    m = CasRegister()
+    encs = []
+    for i in range(8):
+        h = list(random_valid_history(rng, "register", n_ops=300, n_procs=4,
+                                      crash_p=0.03, max_crashes=2))
+        reads = [j for j, op in enumerate(h) if op.type == "ok"
+                 and op.f == "read" and op.value is not None]
+        if i % 2 and reads:
+            j = rng.choice(reads)
+            h[j] = h[j].replace(value=h[j].value + 10)
+        encs.append(encode_history(h, m))
+    ss.reset_launch_counts()
+    on_card = ss.check_segmented_batch(encs, m, block_events=40,
+                                       min_events=0)
+    assert ss.launch_counts()["segment_scan"] == 1
+    on_host = ss.check_segmented_batch(encs, m, block_events=40,
+                                       min_events=0, device="cpu")
+    assert on_card == on_host
+    assert [r["valid"] for r in on_card] == [i % 2 == 0 for i in range(8)]
+
+
+def test_race_raises_when_the_kernel_fails(cuda, monkeypatch):
+    """A kernel that raises on the card under "race" makes the call
+    raise after both threads end: no host verdict stands in for it."""
+    from jepsen_jgroups_raft_tpu_torch.checker import linearizable
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("kernel failed to launch")
+
+    monkeypatch.setattr(linearizable, "run_dense_groups", broken)
+    hs = _histories(6, 4, 120, 5, 3, 3, 0.1)
+    with pytest.raises(RuntimeError, match="kernel failed to launch"):
+        check_histories(hs, CasRegister(), algorithm="race")
+
+
+def test_race_and_wide_auto_on_card_match_cpu(cuda):
+    """"race" on the card (the device engine on a thread and a stream of
+    its own, against the DFS) gives the host's verdicts, and auto's wide
+    rows (W > 12: fast DFS, then the card's ladder) the host's verdicts,
+    algorithms and tiers."""
+    rng = random.Random(5)
+    m = CasRegister()
+    hs = _histories(6, 12, 120, 5, 3, 3, 0.1)
+    raced = check_histories(hs, m, algorithm="race")
+    on_host = check_histories(hs, m, algorithm="race", device="cpu")
+    assert [r["valid?"] for r in raced] == [r["valid?"] for r in on_host]
+    assert all(r.get("raced") for r in raced)
+    wide = []
+    while len(wide) < 6:
+        h = list(random_valid_history(rng, "counter", n_ops=300, n_procs=10,
+                                      crash_p=0.1, max_crashes=4))
+        if encode_history(h, Counter()).n_slots > 12:
+            wide.append(_corrupt_observation(h, rng) if len(wide) % 2
+                        else h)
+    keys = ("valid?", "algorithm", "decided-tier")
+    ours = check_histories(wide, Counter())
+    ref = check_histories(wide, Counter(), device="cpu")
+    assert [{k: r.get(k) for k in keys} for r in ours] == \
+        [{k: r.get(k) for k in keys} for r in ref]
