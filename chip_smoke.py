@@ -9,8 +9,8 @@ and PyTorch built for CUDA):
 Phases, each printing JSON lines; any failure exits non-zero:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
-               mask_scan, sort_scan, segment_scan) and the instrumented
-               mask_scan_profile from this
+               mask_scan, sort_scan, segment_scan, cycle_closure: B7 and
+               B8) and the instrumented mask_scan_profile from this
                checkout's sources into build/torch_kernels/, one nvcc per
                library, started together; ptxas's report for each; the
                paths' kernels must show no spill bytes and no stack frame
@@ -65,7 +65,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
                closing FORCE, cycles per ballot; its ballots must equal
                the plain version's `ballots_lazy`
  13. sort_kernel — sort_scan against its plain version, bitwise on ok
-               and overflow: the four models at every kernel window 1..16
+               and overflow: the five models (list-append included) at
+               every kernel window 1..16
                and 31, 63, 95, 127 (histories up to the window, bursts
                that fill it), C in {4, 64, 256}, the row format
                alternating, valid and corrupted; short histories with C near their frontier
@@ -104,20 +105,52 @@ Phases, each printing JSON lines; any failure exits non-zero:
                (bitwise) and the bound
  18. long_invalid — config 5 with one late read moved outside the
                domain: INVALID on both arms and on the plain version
- 19. wide_auto — the first 32 of the 10-process counter histories
+ 19. wide_auto — the first 16 of the 10-process counter histories
                counter10_main drops (W > 12) through `auto` on the card:
                all VALID, none UNKNOWN, tier counts
  20. lin_fastpath — the first 256 north-star histories with
                JGRAFT_LIN_FASTPATH unset (the default) against 0:
                verdicts identical; certified, gated and kernel rows, both
                walls
+ 21. cycle_kernel — B7 (cycle_closure, N ≤ 512) and B8
+               (cycle_closure_tiled) against their plain versions, bitwise
+               on every bit of the closure and on has_cycle (also against
+               the host DFS), at every bucket 4 … 4096: random digraphs,
+               dense DAGs, a long chain, a planted N-cycle, padded rows;
+               the kernel timed alone, the plain version, and at N = 512,
+               1024, 4096 the library yardstick (⌈log₂N⌉ bf16 `torch.bmm`
+               squarings, never on a path)
+ 22. sequential_main — check_histories at consistency="sequential" on
+               upstream's per-key shape (1000 histories of 100 ops, 5
+               processes, values in [0, 5), crash_p 0.05) and on the first
+               256 north-star histories, 64 of each with a late stale
+               read: the default knobs (cycle-arm store in a fresh
+               directory), JGRAFT_CYCLE_KERNEL=1, =1 with
+               JGRAFT_GREEDY_CERTIFY=0 (every row reaches B7 or B8), the
+               host DFS arm; planted rows INVALID on the cycle tier with a
+               real cycle, the rest VALID, identical across arms
+ 23. session_evidence — the planted rows at consistency="session": every
+               one carries sc-refuted; the forced kernel arm launched
+ 24. anomaly_main — certify_history on the reference's transactional A/B
+               shape (2000 ops, 24 keys, 5 processes) with planted
+               G-single and G1c, G-single alone, and clean: condensation
+               on (B7), JGRAFT_CYCLE_CONDENSE=0 (B8 at bucket 2048) and
+               kernel=False identical, the expected class each
+ 25. listappend_main — bench.py config 9: 1000 list-append histories of
+               1000 ops (5 processes, crash_p 0.05, at most 3 crashes)
+               through check_histories, measured as set_main: all VALID
+               on the sort tier, each rung bitwise against the plain
+               ladder
+Then B7 and B8 on the batches the sequential path gave them (kernel
+against plain, bitwise; kernel, plain and library times; the bound).
 
 Every phase but lin_fastpath runs with JGRAFT_LIN_FASTPATH=0 (set at
 the start), as the reference's test suite runs: at the default knobs
 the host certifier decides most valid rows before any kernel.
 
-Then the kernels' summary line, the card's `nvidia-smi` name and power
-limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
+Then the kernels' summary line (dense_scan, mask_scan, sort_scan,
+segment_scan, cycle_closure, cycle_closure_tiled), the card's
+`nvidia-smi` name and power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device, and when the port's package is not beside it.
 """
 
@@ -176,7 +209,14 @@ KERNELS = {
                   "jepsen_jgroups_raft_tpu/ops/linear_scan.py:138"),
     "segment_scan": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/segment_scan.cu",
                      "jepsen_jgroups_raft_tpu/ops/segment_scan.py:188"),
+    "cycle_closure": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/cycle_closure.cu",
+                      "jepsen_jgroups_raft_tpu/ops/kernel_ir.py:371"),
+    "cycle_closure_tiled": (
+        "jepsen_jgroups_raft_tpu_torch/ops/csrc/cycle_closure.cu",
+        "jepsen_jgroups_raft_tpu/ops/kernel_ir.py:431"),
 }
+#: kernels built into another kernel's library (ops/_build.py names)
+KERNEL_LIBRARY = {"cycle_closure_tiled": "cycle_closure"}
 
 
 def emit(phase: str, **kw) -> None:
@@ -968,13 +1008,27 @@ def sort_histories(rng, kind: str, W: int, n: int):
               for _ in range(n - 1)]
     for j in range(n - len(hs)):
         hs.append(burst_history(rng, kind, max(W - 3 * j, 1), **vr))
-    return [corrupt_observation(h, rng, 1) if i % 2 else list(h)
-            for i, h in enumerate(hs)]
+    bad = (corrupt_list_read if kind == "list-append" else
+           (lambda h, r: corrupt_observation(h, r, 1)))
+    return [bad(h, rng) if i % 2 else list(h) for i, h in enumerate(hs)]
+
+
+def corrupt_list_read(ops, rng):
+    """A list-append history with one ok read made to observe a list it
+    never held: its last element dropped ([1] for an empty list)."""
+    ops = list(ops)
+    idx = [j for j, op in enumerate(ops) if op.type == "ok"
+           and op.f == "read"]
+    if idx:
+        j = rng.choice(idx)
+        v = list(ops[j].value)
+        ops[j] = ops[j].replace(value=v[:-1] if v else [1])
+    return ops
 
 
 def phase_sort_kernel(dev):
-    """sort_scan against sort_scan_plain, bitwise on both flags: the four
-    models at every window of SORT_WINDOWS (C cycling through SORT_CAPS,
+    """sort_scan against sort_scan_plain, bitwise on both flags: the five
+    models (list-append included) at every window of SORT_WINDOWS (C cycling through SORT_CAPS,
     the row format alternating), short histories with C near their
     frontier (both formats), and arbitrary rows. Returns (rows compared,
     max |kernel - plain|, {rows that overflowed and ended ok, and not})."""
@@ -990,7 +1044,7 @@ def phase_sort_kernel(dev):
 
     rng = random.Random(SEED + 7)
     kinds = {"set": "set", "counter": "counter", "register": "cas-register",
-             "queue": "queue"}
+             "queue": "queue", "list-append": "list-append"}
     compared, max_err = 0, 0
     overflowed = {"ok": 0, "not_ok": 0}
 
@@ -1049,7 +1103,8 @@ def phase_sort_kernel(dev):
     for kind, key, init in (("counter", "counter", None),
                             ("queue", "queue", None), ("set", "set", None),
                             ("register", "cas-register", None),
-                            ("counter", "counter", 2**31 - 3)):
+                            ("counter", "counter", 2**31 - 3),
+                            ("list-append", "list-append", None)):
         m = MODELS[key]() if init is None else MODELS[key](init)
         for i, W in enumerate((1, 6, 12, 40, 127)):
             P = (None, 3, 16)[i % 3]
@@ -1106,9 +1161,10 @@ def plain_ladder(encs, model, dev, stats=None):
     return verdicts, rungs
 
 
-def run_set_path(dev, histories, synth_s: float, ptxas: dict) -> dict:
-    """The set path through check_histories on the card, as `run_path`
-    measures the others: warm-up, best of 3 with the launch counts set to
+def run_sort_path(phase: str, dev, model, histories, synth_s: float,
+                  ptxas: dict, **extra) -> dict:
+    """A ladder path (the set, list-append) through check_histories on
+    the card, as `run_path` measures the others: warm-up, best of 3 with the launch counts set to
     0 just before each run and read just after; guards: every history
     VALID, every row on the sort tier, 0 host rows, sort_scan launched.
     Then the ladder's breakdown: encode, pack, each rung's rows, kernel
@@ -1125,11 +1181,9 @@ def run_set_path(dev, histories, synth_s: float, ptxas: dict) -> dict:
         consume_tiers, run_sort_rung)
     from jepsen_jgroups_raft_tpu_torch.history.packing import (
         encode_history, pack_macro_batch)
-    from jepsen_jgroups_raft_tpu_torch.models import GSet
     from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
     from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
 
-    model = GSet()
     check_histories(histories, model, device=dev)  # warm-up
     consume_tiers()
     walls, launches = [], None
@@ -1142,18 +1196,18 @@ def run_set_path(dev, histories, synth_s: float, ptxas: dict) -> dict:
         walls.append(time.perf_counter() - t0)
         launches = {**ds.launch_counts(), **ls.launch_counts()}
         if launches["sort_scan"] <= 0:
-            raise AssertionError("set_main: the path launched no sort_scan "
-                                 "kernel")
+            raise AssertionError(f"{phase}: the path launched no sort_scan "
+                                 f"kernel")
     tiers = consume_tiers()
     n = len(histories)
     n_valid = sum(1 for r in results if r["valid?"] is True)
     off_tier = sum(1 for r in results if r.get("decided-tier") != "sort")
     if n_valid != n:
-        raise AssertionError(f"set_main verdict guard: {n_valid} of {n} "
+        raise AssertionError(f"{phase} verdict guard: {n_valid} of {n} "
                              f"VALID (every history is valid by "
                              f"construction)")
     if off_tier or "host" in tiers:
-        raise AssertionError(f"set_main: {off_tier} rows left the sort tier")
+        raise AssertionError(f"{phase}: {off_tier} rows left the sort tier")
 
     t0 = time.perf_counter()
     encs = [encode_history(h, model) for h in histories]
@@ -1203,8 +1257,8 @@ def run_set_path(dev, histories, synth_s: float, ptxas: dict) -> dict:
                   int(np.abs(r.pop("overflow_flags").astype(int)
                              - p_of.astype(int)).max()))
     if err != 0 or len(plain) != len(rungs):
-        raise AssertionError("set_main rungs: kernel disagrees with the "
-                             "plain version")
+        raise AssertionError(f"{phase} rungs: kernel disagrees with the "
+                             f"plain version")
     # bound: the event rows and n_events read once and both flags written
     # once per rung, against the operations this data needed: per closure
     # round, a model step per (live configuration, open slot) and one
@@ -1215,8 +1269,8 @@ def run_set_path(dev, histories, synth_s: float, ptxas: dict) -> dict:
     best = min(walls)
     ms_total = sum(r["kernel_ms"] for r in rungs)
     plain_ms = sum(r["plain_ms"] for r in rungs)
-    emit("set_main", model=model.name, histories=n, ops_per_history=N_OPS,
-         value_range=SET_VALUE_RANGE, valid=n_valid, host_rows=off_tier,
+    emit(phase, model=model.name, histories=n, ops_per_history=N_OPS,
+         **extra, valid=n_valid, host_rows=off_tier,
          windows=dict(sorted(windows.items())), kernel_window=W,
          synth_s=synth_s, check_s_reps=walls, check_s_best=best,
          hist_per_s=n / best, encode_s=encode_s, pack_s=pack_s,
@@ -1315,8 +1369,9 @@ SEGMENT_KERNEL_FULL_W = 7
 SEGMENT_KERNEL_K = 4
 #: wide_auto: the first histories of the drawn W > 12 set (all 405 took
 #: 414 s of host DFS on the H100's host, 64 took 72.5 s: past the
-#: script's time budget; PERF.md §6)
-WIDE_AUTO_ROWS = 32
+#: script's time budget; 16 since the cycle and anomaly phases came;
+#: PERF.md §4)
+WIDE_AUTO_ROWS = 16
 #: wide_auto also checks rows the fast DFS cannot decide, so that auto
 #: sends them to the sort ladder on the card: INVALID counter chains
 #: (history/synth.chained_bursts) of (window, bursts, seed); at window
@@ -1770,6 +1825,526 @@ def phase_lin_fastpath(dev, histories):
                              "path never ran at the default knobs")
 
 
+# ----------------------------------------------- the cycle and anomaly tiers
+
+#: the cycle tier's node buckets: the monolithic closure (B7) up to 512
+#: nodes, the blocked one (B8) above
+CYCLE_BUCKETS = (4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384,
+                 512, 768, 1024, 1536, 2048, 3072, 4096)
+#: buckets where the library yardstick (bf16 `torch.bmm` squaring) is timed
+CYCLE_LIBRARY_BUCKETS = (512, 1024, 4096)
+#: sequential_main's sizes: upstream's per-key shape (`--ops-per-key
+#: 100`, raft.clj:24-27): histories, ops, processes, values in [0, n);
+#: and bench.py's sequential-rung row, the first 256 north-star
+#: histories (bench.py:712). SEQ_PLANTED histories of each carry a late
+#: stale read.
+SEQ_UPSTREAM = (1000, 100, 5, 5)
+SEQ_BENCH_ROWS = 256
+SEQ_PLANTED = 64
+#: anomaly_main: the reference's transactional cycle A/B shape
+#: (scripts/ab_cycle.py:50-72 at --n-ops 2000 --n-keys 24): ops, keys,
+#: processes
+ANOMALY_SHAPE = (2000, 24, 5)
+
+
+def with_envs(env: dict, fn):
+    """fn() with every variable of `env` set (None: unset), restored
+    afterwards."""
+    items = list(env.items())
+    if not items:
+        return fn()
+    (name, value), rest = items[0], dict(items[1:])
+    return with_env(name, value, lambda: with_envs(rest, fn))
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Least device time of fn() over `reps` runs, by CUDA events, after
+    one warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return min(times)
+
+
+def cycle_graphs(N: int, seed: int):
+    """[G, N, N] int32 test graphs of bucket N: a random digraph (1.5
+    edges a node), a dense DAG, a long chain, a planted N-cycle and a
+    zero-padded random graph, nodes shuffled (the first three only above
+    2048 nodes, where the plain version takes seconds). Returns (graphs,
+    kinds)."""
+    import numpy as np
+
+    kinds = (("random", "chain", "cycle") if N > 2048 else
+             ("random", "dag", "chain", "cycle", "padded"))
+    rng = np.random.default_rng(seed)
+    out = []
+    for kind in kinds:
+        n = max(2, N - N // 5) if kind == "padded" else N
+        if kind in ("random", "padded"):
+            g = (rng.random((n, n)) < 1.5 / n).astype(np.int32)
+        elif kind == "dag":
+            g = np.triu((rng.random((n, n)) < 0.3).astype(np.int32), 1)
+        else:
+            g = np.zeros((n, n), np.int32)
+            g[np.arange(n - 1), np.arange(1, n)] = 1
+            if kind == "cycle":
+                g[n - 1, 0] = 1
+        np.fill_diagonal(g, 0)
+        p = rng.permutation(n)
+        full = np.zeros((N, N), np.int32)
+        full[:n, :n] = g[np.ix_(p, p)]
+        out.append(full)
+    return np.stack(out), kinds
+
+
+def closure_library(adj):
+    """The yardstick, never on a path: the closure as ⌈log₂N⌉ `torch.bmm`
+    calls in bf16 (fp32 accumulation; 0/1 inputs and integer sums ≤ N are
+    exact enough that `> 0` is) with binarization after each."""
+    import torch
+
+    n = int(adj.shape[-1])
+    a = (adj != 0).to(torch.bfloat16)
+    for _ in range(max(1, (max(n, 2) - 1).bit_length())):
+        a = ((a > 0) | (torch.bmm(a, a) > 0)).to(torch.bfloat16)
+    return a > 0
+
+
+def closure_bound(B: int, N: int) -> tuple:
+    """(seconds by bytes, seconds by operations) of closing B graphs of
+    bucket N: their bit matrices read and written once, and N³/32 32-bit
+    word operations per graph (one Warshall pass)."""
+    nw = (N + 31) // 32
+    return ((2 * B * N * nw * 4 + B) / HBM_BYTES_PER_S,
+            B * N ** 3 / 32 / CORE_OPS_PER_S)
+
+
+def closure_measure(dev, N: int, adj, tile=None,
+                    library: bool = True) -> dict:
+    """On one batch adj [B, N, N] (on the card): the kernel against its
+    plain version, bitwise on every bit of `closed` and on has_cycle; the
+    kernel's device time alone on packed bits, the plain version's and
+    (with `library`) the library yardstick's (CUDA events), the bound."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
+
+    has, closed = cc.cycle_closure(adj, tile)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    p_has, p_closed = cc.closure_plain(adj, tile)
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    err = max(int((closed - p_closed).abs().max()) if closed.numel() else 0,
+              int((has.int() - p_has.int()).abs().max()) if has.numel()
+              else 0)
+    bits = cc.pack_bits(adj)
+    kernel_ms = event_ms(lambda: cc.cycle_closure_bits(bits, N, tile))
+    out = {"N": N, "graphs": int(adj.shape[0]), "max_abs_err": err,
+           "library_err": 0, "has_cycle": has.cpu().tolist(),
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms}
+    if library:
+        lib = closure_library(adj)
+        out["library_err"] = int((lib.int() - p_closed).abs().max()) \
+            if lib.numel() else 0
+        out["library_ms"] = event_ms(lambda: closure_library(adj), reps=2)
+    out["t_bytes"], out["t_ops"] = closure_bound(int(adj.shape[0]), N)
+    return out
+
+
+def phase_cycle_kernel(dev) -> dict:
+    """B7 and B8 against their plain versions on the card at every bucket
+    of CYCLE_BUCKETS, bitwise on every bit of `closed` and on has_cycle,
+    has_cycle also against the host DFS; the kernel timed alone, the
+    plain version and (at CYCLE_LIBRARY_BUCKETS) the library yardstick.
+    Returns the largest disagreement and the library times."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.cycle import host_has_cycle
+
+    max_err, library = 0, {}
+    for N in CYCLE_BUCKETS:
+        adj, kinds = cycle_graphs(N, SEED + N)
+        m = closure_measure(dev, N, torch.from_numpy(adj).to(dev),
+                            library=N in CYCLE_LIBRARY_BUCKETS)
+        host = [host_has_cycle(g) for g in adj]
+        if "library_ms" in m:
+            library[N] = m["library_ms"]
+        emit("cycle_kernel", kernel="cycle_closure" if N <= 512
+             else "cycle_closure_tiled", kinds=list(kinds),
+             host_has_cycle=host, **m,
+             bound_ms=max(m["t_bytes"], m["t_ops"]) * 1e3)
+        if m["max_abs_err"] or m["library_err"] or m["has_cycle"] != host \
+                or not m["has_cycle"][kinds.index("cycle")] \
+                or m["has_cycle"][kinds.index("chain")]:
+            raise AssertionError(f"cycle_kernel N={N}: the kernel, its "
+                                 f"plain version, the yardstick or the host "
+                                 f"DFS disagree")
+        max_err = max(max_err, m["max_abs_err"])
+    return {"max_abs_err": max_err, "library_ms": library}
+
+
+def cycle_counts() -> dict:
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
+
+    return cc.launch_counts()
+
+
+def add_counts(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def real_cycle(witness, enc, model) -> bool:
+    """Whether a witness (history op indices) is a cycle of the row's
+    dependency graph: every consecutive pair, wrapping, an edge."""
+    from jepsen_jgroups_raft_tpu_torch.checker.cycle import build_sc_graph
+
+    g = build_sc_graph(enc, model)
+    if not witness or g is None or "adj" not in g:
+        return False
+    node = {op: i for i, op in enumerate(g["op_index"])}
+    if any(w not in node for w in witness):
+        return False
+    path = [node[w] for w in witness]
+    return all(g["adj"][path[i], path[(i + 1) % len(path)]]
+               for i in range(len(path)))
+
+
+def planted_histories(hs, rng):
+    """`hs` with a late stale read planted in the first SEQ_PLANTED
+    histories that admit one (`synth.plant_stale_read`). Returns
+    (histories, indices of the planted)."""
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        build_history, plant_stale_read)
+
+    out, planted = [], []
+    for i, h in enumerate(hs):
+        if len(planted) < SEQ_PLANTED:
+            rows, _ = plant_stale_read(h, rng)
+            if rows is not None:
+                out.append(build_history(rows))
+                planted.append(i)
+                continue
+        out.append(list(h))
+    if len(planted) < SEQ_PLANTED:
+        raise AssertionError("sequential_main: too few histories admit a "
+                             "planted stale read")
+    return out, planted
+
+
+def run_rung(dev, hs, model, rung: str, env: dict,
+             algorithm: str = "auto") -> dict:
+    """check_histories at `rung` on the card under `env`, the launch
+    counts and tier and run counters set to 0 just before and read just
+    after."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
+        consume_stats, consume_tiers)
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
+
+    def go():
+        torch.cuda.synchronize()
+        reset_all_launch_counts()
+        cc.reset_launch_counts()
+        consume_tiers()
+        consume_stats()
+        t0 = time.perf_counter()
+        rs = check_histories(hs, model, algorithm, device=dev,
+                             consistency=rung)
+        dt = time.perf_counter() - t0
+        stats = consume_stats()
+        return {"results": rs, "s": dt,
+                "launches": {**all_launch_counts(), **cycle_counts()},
+                "tiers": {k: v["rows"] for k, v in consume_tiers().items()},
+                "cycle": {k: v for k, v in stats.items()
+                          if k.startswith("cycle_")}}
+
+    return with_envs(env, go)
+
+
+def phase_sequential_main(dev, north_star) -> dict:
+    """The sequential rung on the card at two sizes (SEQ_UPSTREAM, and
+    the first SEQ_BENCH_ROWS north-star histories), SEQ_PLANTED of each
+    with a late stale read. Arms: the default knobs (the cycle-arm store
+    in a fresh directory: the run measures the buckets it meets on first
+    contact), JGRAFT_CYCLE_KERNEL=1, =1
+    with JGRAFT_GREEDY_CERTIFY=0 (every row reaches B7 or B8), and the
+    host DFS arm (=0). Guards: planted rows INVALID on the cycle tier
+    with a real cycle as witness, every other row VALID, verdicts
+    identical across arms (witnesses too between the kernel and DFS
+    arms), B7 / B8 launched in the kernel arms; and `find_cycles` called
+    directly, its kernel arm equal to its DFS arm row for row. Returns the planted
+    subsets, the launches and the batches each kernel got (for the
+    kernels line)."""
+    import shutil
+    from pathlib import Path
+
+    from jepsen_jgroups_raft_tpu_torch.checker.cycle import (build_sc_graph,
+                                                             find_cycles)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        bucket_rows, encode_history)
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        random_valid_history)
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
+
+    model = CasRegister()
+    n_h, n_ops, n_procs, vr = SEQ_UPSTREAM
+    rng = random.Random(SEED + 11)
+    upstream = [random_valid_history(rng, "register", n_ops=n_ops,
+                                     n_procs=n_procs, crash_p=CRASH_P,
+                                     max_crashes=MAX_CRASHES, value_range=vr)
+                for _ in range(n_h)]
+    store = Path(__file__).resolve().parent / "build" / "chip_smoke_cycle"
+    out = {"planted": {}, "launches": {}, "batches": {}}
+    for size, base, kernel in (("upstream", upstream, "cycle_closure"),
+                               ("bench", north_star[:SEQ_BENCH_ROWS],
+                                "cycle_closure_tiled")):
+        hs, planted = planted_histories(base, random.Random(SEED + 12))
+        encs = [encode_history(h, model) for h in hs]
+        shutil.rmtree(store, ignore_errors=True)
+        arms = (("default", {"JGRAFT_AUTOTUNE_STORE": str(store)}),
+                ("kernel", {"JGRAFT_CYCLE_KERNEL": "1"}),
+                ("kernel_all", {"JGRAFT_CYCLE_KERNEL": "1",
+                                "JGRAFT_GREEDY_CERTIFY": "0"}),
+                ("dfs", {"JGRAFT_CYCLE_KERNEL": "0"}))
+        runs = {}
+        for arm, env in arms:
+            runs[arm] = run_rung(dev, hs, model, "sequential", env)
+            if arm != "dfs":
+                add_counts(out["launches"], cycle_counts())
+        shutil.rmtree(store, ignore_errors=True)
+        verdicts = {a: [r["valid?"] for r in run["results"]]
+                    for a, run in runs.items()}
+        want = [i not in set(planted) for i in range(len(hs))]
+        bad = []
+        for arm, run in runs.items():
+            if verdicts[arm] != want:
+                bad.append(f"{arm}: verdicts")
+            for i in planted:
+                r = run["results"][i]
+                if r.get("decided-tier") != "cycle" or \
+                        not real_cycle(r.get("cycle"), encs[i], model):
+                    bad.append(f"{arm}: planted row {i} {r}")
+                    break
+        if [r.get("cycle") for r in runs["kernel"]["results"]] != \
+                [r.get("cycle") for r in runs["dfs"]["results"]]:
+            bad.append("kernel and dfs witnesses differ")
+        launched = runs["kernel_all"]["launches"][kernel]
+        if launched <= 0 or runs["kernel"]["launches"][kernel] <= 0:
+            bad.append(f"{kernel} not launched")
+        # find_cycles called directly as well (a rung could hide a
+        # failure of the tier): its kernel arm against its host DFS arm,
+        # row for row, witnesses included
+        def direct():
+            cc.reset_launch_counts()
+            return find_cycles(encs, model, device=dev), cycle_counts()
+
+        got, counts = with_envs({"JGRAFT_CYCLE_KERNEL": "1"}, direct)
+        add_counts(out["launches"], counts)
+        host = with_envs({"JGRAFT_CYCLE_KERNEL": "0"},
+                         lambda: find_cycles(encs, model, device=dev))
+        if got != host or counts[kernel] <= 0:
+            bad.append(f"find_cycles: kernel arm differs from the host DFS "
+                       f"arm or launched no {kernel}")
+        # the batches the kernel arms hand each closure kernel: every
+        # row's graph, bucketed as find_cycles buckets them
+        graphs = [build_sc_graph(e, model) for e in encs]
+        buckets: dict = {}
+        for g in graphs:
+            if g is not None and "adj" in g and g["n"] >= 2:
+                buckets.setdefault(bucket_rows(g["n"], 4), []).append(
+                    g["adj"])
+        n_graphs = sum(len(v) for v in buckets.values())
+        if n_graphs != len(hs):
+            bad.append(f"{n_graphs} of {len(hs)} rows build a graph")
+        out["batches"][kernel] = buckets
+        out["planted"][size] = [hs[i] for i in planted]
+        emit("sequential_main", size=size, histories=len(hs),
+             planted=len(planted),
+             buckets={N: len(v) for N, v in sorted(buckets.items())},
+             arms={a: {"s": run["s"], "hist_per_s": len(hs) / run["s"],
+                       "tiers": run["tiers"], "launches": run["launches"],
+                       "cycle_counters": run["cycle"]}
+                   for a, run in runs.items()},
+             verdicts_identical=not bad)
+        if bad:
+            raise AssertionError(f"sequential_main/{size}: {bad[:3]}")
+    return out
+
+
+def phase_session_evidence(dev, planted: dict) -> dict:
+    """The planted subsets at the session rung on the card, with the
+    closure kernel forced (JGRAFT_CYCLE_KERNEL=1) and at the default
+    knobs (the cycle-arm store in a fresh directory): every planted row
+    carries sc-refuted with its cycle, the verdicts and the evidence
+    flags agree, and the forced run launched the kernel. The session
+    rung defers a write's FORCE to its process's next read, so the
+    1000-op rows reach windows of 32–42 slots; the phase checks on the
+    card alone (algorithm "dense": the ladder's undecided rows report
+    UNKNOWN instead of taking the host DFS), since the evidence, not the
+    verdict, is what it holds. Returns the forced runs' launches."""
+    import shutil
+    from pathlib import Path
+
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+
+    model = CasRegister()
+    store = Path(__file__).resolve().parent / "build" / "chip_smoke_cycle"
+    launches: dict = {}
+    for size, hs in planted.items():
+        shutil.rmtree(store, ignore_errors=True)
+        runs = {arm: run_rung(dev, hs, model, "session", env, "dense")
+                for arm, env in (("kernel", {"JGRAFT_CYCLE_KERNEL": "1"}),
+                                 ("default", {"JGRAFT_AUTOTUNE_STORE":
+                                              str(store)}))}
+        shutil.rmtree(store, ignore_errors=True)
+        add_counts(launches, runs["kernel"]["launches"])
+        ok = all(r.get("sc-refuted") is True and r.get("sc-cycle")
+                 and r.get("consistency") == "session"
+                 for run in runs.values() for r in run["results"])
+        same = [(r["valid?"], r.get("sc-refuted")) for r in
+                runs["kernel"]["results"]] == \
+            [(r["valid?"], r.get("sc-refuted")) for r in
+             runs["default"]["results"]]
+        closures = runs["kernel"]["launches"]["cycle_closure"] + \
+            runs["kernel"]["launches"]["cycle_closure_tiled"]
+        emit("session_evidence", size=size, histories=len(hs),
+             sc_refuted=sum(1 for r in runs["kernel"]["results"]
+                            if r.get("sc-refuted")),
+             verdicts={str(v): sum(1 for r in runs["kernel"]["results"]
+                                   if r["valid?"] == v)
+                       for v in (True, False, "unknown")},
+             arms={a: {"s": run["s"], "launches": run["launches"],
+                       "tiers": run["tiers"]} for a, run in runs.items()},
+             identical=same)
+        if not ok or not same or closures <= 0:
+            raise AssertionError(f"session_evidence/{size}: evidence "
+                                 f"missing, arms differ or no closure "
+                                 f"kernel launched")
+    return launches
+
+
+def phase_anomaly_main(dev) -> dict:
+    """certify_history on the card on histories of the reference's
+    transactional A/B shape (ANOMALY_SHAPE): two with a planted G-single
+    and a planted G1c (the sharper G1c is the verdict), one with a
+    planted G-single alone and a clean one (whose reachability closure
+    the direct arm needs). Arms: condensation on (the planted SCCs' closure
+    on B7), JGRAFT_CYCLE_CONDENSE=0 (the whole graph's closure at bucket
+    2048 on B8) and kernel=False (host). Classes and witnesses identical
+    across arms, each history's expected class. Returns the launches."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.anomaly import certify_history
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        build_history, listappend_txn_rows, plant_anomaly)
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
+
+    n_ops, n_keys, n_procs = ANOMALY_SHAPE
+    cases = []
+    for j, (plants, want) in enumerate(((("G-single", "G1c"), ["G1c"]),
+                                        (("G-single", "G1c"), ["G1c"]),
+                                        (("G-single",), ["G-single"]),
+                                        ((), []))):
+        rows = listappend_txn_rows(random.Random(SEED + 19 + j), n_ops,
+                                   n_keys, n_procs)
+        for k, kind in enumerate(plants):
+            rows = plant_anomaly(rows, kind, f"planted-{k}", 100 + 10 * k)
+        cases.append((build_history(rows), list(plants), want))
+    launches: dict = {}
+    lines = []
+    for h, plants, want in cases:
+        arms = {}
+        for arm, env, kernel in (("condensed", {"JGRAFT_CYCLE_CONDENSE": None},
+                                  None),
+                                 ("direct", {"JGRAFT_CYCLE_CONDENSE": "0"},
+                                  None),
+                                 ("host", {"JGRAFT_CYCLE_CONDENSE": None},
+                                  False)):
+            def go():
+                torch.cuda.synchronize()
+                cc.reset_launch_counts()
+                t0 = time.perf_counter()
+                r = certify_history(h, kernel=kernel, device=dev)
+                return r, time.perf_counter() - t0, cc.launch_counts()
+
+            r, dt, counts = with_envs(env, go)
+            if kernel is None:
+                add_counts(launches, counts)
+            arms[arm] = {"result": r, "s": dt, "launches": counts}
+        results = [a["result"] for a in arms.values()]
+        same = all(r == results[0] for r in results)
+        classes = sorted(results[0]["anomalies"])
+        lines.append({"plants": plants, "nodes": results[0].get("nodes"),
+                      "classes": classes, "identical": same,
+                      "arms": {a: {"s": v["s"], "launches": v["launches"]}
+                               for a, v in arms.items()}})
+        if not same or classes != want or \
+                results[0]["valid?"] is not (not want):
+            raise AssertionError(f"anomaly_main {plants}: arms differ or "
+                                 f"classes {classes} != {want}")
+    emit("anomaly_main", histories=len(cases), ops=n_ops, keys=n_keys,
+         processes=n_procs, cases=lines, launches=launches)
+    if launches.get("cycle_closure", 0) <= 0 or \
+            launches.get("cycle_closure_tiled", 0) <= 0:
+        raise AssertionError(f"anomaly_main: B7 and B8 must both launch: "
+                             f"{launches}")
+    return launches
+
+
+def closure_line(dev, kernel: str, batches: dict, launches: int,
+                 err: int) -> dict:
+    """A kernels-line entry for a closure kernel from the batches the main
+    path gave it (one per bucket): kernel bitwise against its plain
+    version on each, device times summed, bound from these inputs."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops.cycle_closure import (
+        pack_adjacency, unpack_adjacency)
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_bytes": 0.0,
+             "t_ops": 0.0}
+    per = []
+    for N, graphs in sorted(batches.items()):
+        adj = torch.from_numpy(unpack_adjacency(
+            pack_adjacency(graphs, N), N).astype("int32")).to(dev)
+        m = closure_measure(dev, N, adj)
+        err = max(err, m["max_abs_err"], m["library_err"])
+        per.append({k: m[k] for k in ("N", "graphs", "kernel_ms",
+                                      "plain_ms", "library_ms")})
+        total["ms"] += m["kernel_ms"]
+        total["plain_ms"] += m["plain_ms"]
+        total["library_ms"] += m["library_ms"]
+        total["t_bytes"] += m["t_bytes"]
+        total["t_ops"] += m["t_ops"]
+        del adj
+        torch.cuda.empty_cache()
+    emit("closure_main_path", kernel=kernel, batches=per, **total,
+         max_abs_err=err)
+    if err:
+        raise AssertionError(f"{kernel}: disagrees with its plain version "
+                             f"on the main path's batches")
+    return {"launches": launches, "max_abs_err": err, **total}
+
+
 def main() -> int:
     try:
         import torch
@@ -1782,7 +2357,8 @@ def main() -> int:
         return 2
     try:
         from jepsen_jgroups_raft_tpu_torch.models import (CasRegister,
-                                                          Counter,
+                                                          Counter, GSet,
+                                                          ListAppend,
                                                           TicketQueue)
         from jepsen_jgroups_raft_tpu_torch.ops import _build
         from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
@@ -1804,16 +2380,18 @@ def main() -> int:
 
     # 2. build every kernel from this checkout's sources, and the
     # instrumented mask kernel, in parallel
-    libs = [*KERNELS, "mask_scan_profile"]
+    path_libs = list(dict.fromkeys(KERNEL_LIBRARY.get(k, k)
+                                   for k in KERNELS))
+    libs = [*path_libs, "mask_scan_profile"]
     build_s = _build.build(libs)
     ptxas = {k: _build.ptxas_report(k) for k in libs}
     emit("build", seconds=build_s, kernels=libs, ptxas=ptxas)
     for k, rep in ptxas.items():
         if rep["functions"] == 0:
             raise AssertionError(f"no ptxas report for {k}")
-        if k in KERNELS and (rep["spill_store_bytes"]
-                             + rep["spill_load_bytes"] or
-                             rep["max_stack_bytes"]):
+        if k in path_libs and (rep["spill_store_bytes"]
+                               + rep["spill_load_bytes"] or
+                               rep["max_stack_bytes"]):
             raise AssertionError(f"{k} spills or uses a stack: {rep}")
 
     # 3. dense_scan against its plain version at every window
@@ -1911,8 +2489,9 @@ def main() -> int:
 
     # 14. the set path: the suite's set shape through the sort ladder
     set_hs, synth_s = suite_histories("set", value_range=SET_VALUE_RANGE)
-    line["sort_scan"] = run_set_path(dev, set_hs, synth_s,
-                                     ptxas["sort_scan"])
+    line["sort_scan"] = run_sort_path("set_main", dev, GSet(), set_hs,
+                                      synth_s, ptxas["sort_scan"],
+                                      value_range=SET_VALUE_RANGE)
 
     # 15. set invalid subset: kernel vs plain ladder vs host oracle
     phase_set_invalid(dev, set_hs)
@@ -1945,6 +2524,48 @@ def main() -> int:
     phase_lin_fastpath(dev, histories)
     emit("lin_fastpath_summary", seconds=time.perf_counter() - t0)
 
+    # 21. B7 and B8 against their plain versions at every bucket
+    t0 = time.perf_counter()
+    ck = phase_cycle_kernel(dev)
+    emit("cycle_kernel_summary", max_abs_err=ck["max_abs_err"],
+         library_ms=ck["library_ms"], seconds=time.perf_counter() - t0)
+
+    # 22. the sequential rung at upstream's per-key shape and bench.py's
+    # row, planted stale reads refuted by the cycle tier
+    t0 = time.perf_counter()
+    seq = phase_sequential_main(dev, histories)
+    cycle_launches = dict(seq["launches"])
+    emit("sequential_main_summary", seconds=time.perf_counter() - t0)
+
+    # 23. the planted rows' sc-refuted evidence at the session rung
+    t0 = time.perf_counter()
+    add_counts(cycle_launches, phase_session_evidence(dev, seq["planted"]))
+    emit("session_evidence_summary", seconds=time.perf_counter() - t0)
+
+    # 24. the transactional anomaly rung at the reference's A/B shape
+    t0 = time.perf_counter()
+    add_counts(cycle_launches, phase_anomaly_main(dev))
+    emit("anomaly_main_summary", seconds=time.perf_counter() - t0)
+
+    # 25. list-append (bench.py config 9) through the sort ladder
+    t0 = time.perf_counter()
+    la_hs, synth_s = suite_histories("list-append")
+    la_line = run_sort_path("listappend_main", dev, ListAppend(), la_hs,
+                            synth_s, ptxas["sort_scan"])
+    for k in ("launches", "ms", "plain_ms", "t_bytes", "t_ops"):
+        line["sort_scan"][k] += la_line[k]
+    line["sort_scan"]["max_abs_err"] = max(line["sort_scan"]["max_abs_err"],
+                                           la_line["max_abs_err"])
+    emit("listappend_main_summary", seconds=time.perf_counter() - t0)
+
+    # the closure kernels' numbers on the batches the main path gave them
+    t0 = time.perf_counter()
+    for name in ("cycle_closure", "cycle_closure_tiled"):
+        line[name] = closure_line(dev, name, seq["batches"][name],
+                                  cycle_launches.get(name, 0),
+                                  ck["max_abs_err"])
+    emit("closure_main_path_summary", seconds=time.perf_counter() - t0)
+
     line["mask_scan"] = {
         "launches": sum(x["launches"] for x in mask_line),
         "max_abs_err": max(x["max_abs_err"] for x in mask_line),
@@ -1954,10 +2575,13 @@ def main() -> int:
         "t_ops": sum(x["t_ops"] for x in mask_line)}
     errs = {"dense_scan": max(corner_err, groups_err["dense_scan"]),
             "mask_scan": max(mask_err, groups_err["mask_scan"]),
-            "sort_scan": sort_err, "segment_scan": seg_err}
+            "sort_scan": sort_err, "segment_scan": seg_err,
+            "cycle_closure": 0, "cycle_closure_tiled": 0}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         x = line[name]
+        if x["launches"] <= 0:
+            raise AssertionError(f"{name}: never launched on its main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": x["launches"],
@@ -1966,7 +2590,7 @@ def main() -> int:
             "bound_ms": max(x["t_bytes"], x["t_ops"]) * 1e3,
             "bound_by": "bytes" if x["t_bytes"] >= x["t_ops"]
             else "operations",
-            "library_ms": None})
+            "library_ms": x.get("library_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,22 +10,31 @@ and the ticket queue, the sort-frontier ladder (`ops/csrc/sort_scan.cu`)
 for every other row with a window ≤ 127, and the segmented scan
 (`ops/csrc/segment_scan.cu`) for long histories. Host tiers decide what
 the kernels cannot (a DFS, the frontier oracle), and at the default
-knobs a host witness certifier decides most valid rows first.
+knobs a host witness certifier decides most valid rows first. The
+weaker rungs (sequential, session) relax the encodings and refute by
+dependency cycle, and the transactional anomaly rung certifies
+list-append histories, both through the closure kernels
+(`ops/csrc/cycle_closure.cu`).
 
 Layout (mirrors the reference's module paths):
   platform.py          env knobs, `resolve_device`, `toolchain_stamp`
   history/             op records, encoding, macro packing, synthesis
-  models/              the model protocol, register, counter, queue
+  models/              the model protocol, register, counter, queue,
+                       set, list-append
   ops/kernel_ir.py     caps, macro row layout, plain-torch step parts
   ops/dense_scan.py    grouping, the kernel wrappers `dense_scan` and
                        `mask_scan` and their plain versions
   ops/linear_scan.py   the sort ladder's kernel wrapper `sort_scan`
   ops/segment_scan.py  long-history planning and composition, the
                        kernel wrapper `segment_scan`
+  ops/cycle_closure.py the closure kernels' wrapper `cycle_closure`
+                       and their plain versions
   ops/csrc/            CUDA sources, built by ops/_build.py at first use
   checker/             `check_histories`, the lin fast path, the host
-                       tiers, counterexamples, tier stats
-  interop.py           reading reference encodings and plans by duck type
+                       tiers, the consistency rungs and the cycle tier,
+                       the anomaly rung, counterexamples, tier stats
+  interop.py           reading reference encodings, plans and graphs by
+                       duck type
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise.

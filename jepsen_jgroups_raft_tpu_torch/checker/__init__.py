@@ -2,9 +2,11 @@
 kernels, in the reference's order — the lin fast path (host witness
 certifier, `certify_batch` / `consistency`, gated by `autotune`), the
 segmented, dense, mask and sort kernels, and the host tiers (`dfs_cpu`,
-the frontier oracle `wgl_cpu`) —; counterexamples (`counterexample`,
-`timeline`), the brute-force oracle of the tests (`brute`), and tier
-attribution (`schedule`)."""
+the frontier oracle `wgl_cpu`) —; the weaker rungs (`consistency`) with
+the exact cycle tier (`cycle`); the transactional anomaly rung
+(`anomaly`); counterexamples (`counterexample`, `timeline`), the
+brute-force oracle of the tests (`brute`), and tier attribution
+(`schedule`)."""
 
 from .base import Checker, compose, VALID, INVALID, UNKNOWN  # noqa: F401
 from .wgl_cpu import check_encoded_cpu, CpuCheckResult  # noqa: F401

@@ -1,0 +1,409 @@
+"""Transactional anomaly rung: G0 / G1c / G-single certification (the
+port's copy of the reference's checker/anomaly.py).
+
+The transactional half of history verification, after Elle: build the
+dependency graph a serializable execution must respect, label every
+edge with its class, and read the anomaly CLASS off the cheapest cycle
+that exists. The rung sits on the cycle tier's substrate
+(checker/cycle.py): edge-class-labeled adjacency planes, SCC
+condensation, and transitive closure over class-restricted submatrices
+— the closure kernels of ops/cycle_closure.py (B7 up to 512 nodes, B8
+above) where routed, host float32 squaring otherwise.
+
+Two plane sources share the certifier:
+
+  * **Register-shaped histories** — `checker.cycle.build_sc_graph(...,
+    want_planes=True)` labels the edges it derives (po = session order,
+    wr = reads-from, ww = reads-from into an op that itself writes, rw =
+    anti-dependency + reads-of-initial).
+  * **List-append histories** (`build_txn_graph` here) — multi-key: ops
+    are ``("append", (k, e))`` / ``("read", (k, list))`` against per-key
+    append-only lists, and a required observation of list L on key k
+    yields
+      - **wr**:  append(last L) → observer;
+      - **ww**:  append(L[i]) → append(L[i+1]) for consecutive pairs (the
+        observed order IS the write order; a completed append
+        contributes its written list prev + [e]);
+      - **rw**:  observer → every required append of an element ∉ L on k
+        (an append missing from the observed state linearizes after it);
+      - **po**:  session order, across keys — the only edge class that
+        crosses keys, which lets a cross-key cycle exist while every
+        single-key projection stays serializable.
+
+    Required ops are the forced (ok) ones; a crashed append joins only
+    when its element is observed by a required op. Elements appended
+    more than once per key contribute no wr/ww edges (rw edges stay
+    sound).
+
+Anomaly classes over the planes (Adya / Elle, session flavor):
+
+  * **G0**  — cycle in po ∪ ww;
+  * **G1c** — cycle in po ∪ ww ∪ wr needing a wr edge (reported only
+    when G0 is clean: the sharpest class wins);
+  * **G-single** — exactly one rw edge closes an otherwise po∪ww∪wr
+    path: rw edge (u, v) with v ⇝ u in the closure of po ∪ ww ∪ wr.
+
+Every edge holds in every legal serial execution of the required ops,
+so a cycle in any plane subset proves no such execution exists — the
+class only names WHICH guarantee broke. Certification runs per
+non-trivial SCC of the union graph (condensation pre-pass,
+``JGRAFT_CYCLE_CONDENSE``; =0 is the direct whole-graph arm); routing
+never changes verdicts.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..history.ops import FAIL, OK, History
+from ..platform import resolve_device
+from .base import Checker
+from .cycle import (_condense_env, _use_kernel, closure_fn, cycle_max_ops,
+                    cycle_witness, host_has_cycle, tarjan_scc)
+
+PLANE_NAMES = ("po", "ww", "wr", "rw")
+
+
+# ------------------------------------------------- list-append inference
+
+
+def _keyed(value) -> Optional[tuple]:
+    """(key, payload) from a tuple/list-shaped op value, else None."""
+    if isinstance(value, (tuple, list)) and len(value) == 2:
+        return value[0], value[1]
+    return None
+
+
+def _obs_list(payload) -> Optional[List[int]]:
+    """A well-formed observed list (ints), else None (malformed
+    observations contribute no edges — conservative, never unsound)."""
+    if isinstance(payload, (tuple, list)) and \
+            all(isinstance(e, int) for e in payload):
+        return list(payload)
+    return None
+
+
+def build_txn_graph(history: History) -> Optional[dict]:
+    """Multi-key list-append dependency graph with edge-class planes,
+    the skip marker {"skipped-nodes": n} past cycle_max_ops(), or None
+    when the history holds no append/read ops (nothing to certify).
+    Returns {"n", "adj", "planes", "op_index"} — adj is exactly the
+    union of the planes."""
+    if not isinstance(history, History):
+        history = History(history)
+    # (kind, key, elem | obs, pid, hist_index, forced, written_list)
+    ops: List[tuple] = []
+    for p in history.client_ops().pairs():
+        kv = _keyed(p.invoke.value)
+        if p.f == "append":
+            if p.ctype == FAIL or kv is None or \
+                    not isinstance(kv[1], int):
+                continue
+            written = None
+            if p.ctype == OK:
+                ckv = _keyed(p.completion.value)
+                obs = _obs_list(ckv[1]) if ckv else None
+                # the recorded result must actually end with the
+                # appended element; otherwise keep the op as an
+                # observation-free append (element evidence only)
+                if obs and obs[-1] == kv[1]:
+                    written = obs
+            ops.append(("append", kv[0], kv[1], p.invoke.process,
+                        p.invoke.index, p.ctype == OK, written))
+        elif p.f == "read":
+            if p.ctype != OK:
+                continue
+            ckv = _keyed(p.completion.value)
+            obs = _obs_list(ckv[1]) if ckv else None
+            if ckv is None or obs is None:
+                continue
+            ops.append(("read", ckv[0], None, p.invoke.process,
+                        p.invoke.index, True, obs))
+    if not ops:
+        return None
+
+    # appends per (key, element) — identification needs uniqueness
+    appends: Dict[tuple, List[int]] = {}
+    for k, op in enumerate(ops):
+        if op[0] == "append":
+            appends.setdefault((op[1], op[2]), []).append(k)
+
+    def observation(k: int) -> Optional[List[int]]:
+        return ops[k][6]
+
+    # required = forced ∪ (appends whose element a required op
+    # observed); a pulled-in crashed append carries no observation, so
+    # one pass reaches the fixpoint
+    required = {k for k, op in enumerate(ops) if op[5]}
+    for k in sorted(required):
+        obs = observation(k)
+        if obs is None:
+            continue
+        key = ops[k][1]
+        for e in obs:
+            required.update(appends.get((key, e), []))
+    if len(required) > cycle_max_ops():
+        return {"skipped-nodes": len(required)}
+
+    order = sorted(required, key=lambda k: ops[k][4])
+    node = {k: i for i, k in enumerate(order)}
+    n = len(order)
+    adj = np.zeros((n, n), dtype=np.uint8)
+    planes = {c: np.zeros((n, n), dtype=np.uint8) for c in PLANE_NAMES}
+
+    def edge(cls_name, u, v):
+        if u != v:
+            adj[u, v] = 1
+            planes[cls_name][u, v] = 1
+
+    # po: consecutive required ops per process, across keys
+    last_of: dict = {}
+    for k in order:
+        pid = ops[k][3]
+        if pid in last_of:
+            edge("po", node[last_of[pid]], node[k])
+        last_of[pid] = k
+
+    def unique_append(key, e) -> Optional[int]:
+        ws = appends.get((key, e), [])
+        return ws[0] if len(ws) == 1 and ws[0] in required else None
+
+    req_appends: Dict[object, List[int]] = {}
+    for k in order:
+        if ops[k][0] == "append":
+            req_appends.setdefault(ops[k][1], []).append(k)
+
+    for k in order:
+        obs = observation(k)
+        if obs is None:
+            continue
+        key = ops[k][1]
+        # wr: the observer read exactly the state ending in obs[-1]
+        if obs:
+            w = unique_append(key, obs[-1])
+            if w is not None and w != k:
+                edge("wr", node[w], node[k])
+        # ww: observed element order IS append order (append-only)
+        for ei, ej in zip(obs, obs[1:]):
+            u, v = unique_append(key, ei), unique_append(key, ej)
+            if u is not None and v is not None:
+                edge("ww", node[u], node[v])
+        # rw: appends of elements missing from the observed state must
+        # come after it (every copy of them — sound under duplicates)
+        seen = set(obs)
+        for a in req_appends.get(key, []):
+            if a != k and ops[a][2] not in seen:
+                edge("rw", node[k], node[a])
+    np.fill_diagonal(adj, 0)
+    for p in planes.values():
+        np.fill_diagonal(p, 0)
+    return {"n": n, "adj": adj, "planes": planes,
+            "op_index": [ops[k][4] for k in order]}
+
+
+# --------------------------------------------------------- certification
+
+
+def _closure_reach(adj: np.ndarray, kernel: Optional[bool],
+                   dev=None) -> np.ndarray:
+    """Boolean transitive closure of one matrix: the closure kernel of
+    its bucket (B7 or B8, `ops.cycle_closure.cycle_closure_bits` on
+    `dev`) when routed on, host float32 squaring otherwise (counts stay
+    well under the f32 exact integer range; re-binarized every step)."""
+    n = int(adj.shape[0])
+    use_kernel = _use_kernel(dev) if kernel is None else kernel
+    if use_kernel and n >= 2:
+        from ..history.packing import bucket_rows
+        from .schedule import note_cycle
+
+        N = bucket_rows(n, 4)
+        kfn, tiles = closure_fn(N)
+        if kfn is not None:
+            _has, closed = kfn([adj], dev, want_closed=True)
+            if tiles > 1:
+                note_cycle(cycle_tiles_run=tiles)
+            return closed[0, :n, :n] > 0
+    a = adj.astype(np.float32)
+    for _ in range(max(1, (max(n, 2) - 1).bit_length())):
+        nxt = ((a > 0) | ((a @ a) > 0)).astype(np.float32)
+        if np.array_equal(nxt, a):
+            break
+        a = nxt
+    return a > 0
+
+
+def _certify_component(planes: Dict[str, np.ndarray],
+                       op_of: List[int],
+                       kernel: Optional[bool], dev=None) -> dict:
+    """Class certification over one (sub)graph's planes. Witnesses are
+    minimized: shortest cycle through the earliest reachable node
+    (cycle_witness's BFS), history op indices."""
+    out: dict = {"G0": None, "G1c": None, "G-single": None}
+    c0 = (planes["po"] | planes["ww"]).astype(np.uint8)
+    c1 = (c0 | planes["wr"]).astype(np.uint8)
+
+    def wit(sub: np.ndarray) -> Optional[List[int]]:
+        path = cycle_witness(sub)
+        return [op_of[v] for v in path] if path else None
+
+    if host_has_cycle(c0):
+        out["G0"] = {"cycle": wit(c0)}
+        return out
+    if host_has_cycle(c1):
+        out["G1c"] = {"cycle": wit(c1)}
+        return out
+    # G-single: one rw edge closing a po∪ww∪wr path — the WEAKEST
+    # class, only consulted when G0/G1c are clean (the sharpest class
+    # names the anomaly; a G0 cycle would make any G-single report
+    # redundant noise)
+    rw_edges = np.argwhere(planes["rw"] > 0)
+    if len(rw_edges):
+        reach = _closure_reach(c1, kernel, dev)
+        best: Optional[List[int]] = None
+        best_edge = None
+        for u, v in rw_edges:
+            u, v = int(u), int(v)
+            if not reach[v, u]:
+                continue
+            path = _shortest_path(c1, v, u)
+            if path is not None and (best is None
+                                     or len(path) < len(best) - 1):
+                best = [u] + path
+                best_edge = (u, v)
+        if best is not None:
+            out["G-single"] = {"cycle": [op_of[v] for v in best],
+                               "rw-edge": [op_of[best_edge[0]],
+                                           op_of[best_edge[1]]]}
+    return out
+
+
+def _shortest_path(adj: np.ndarray, src: int, dst: int
+                   ) -> Optional[List[int]]:
+    """BFS path src → dst (inclusive), None when unreachable.
+    src == dst returns [src] (the rw edge is itself the cycle)."""
+    if src == dst:
+        return [src]
+    n = int(adj.shape[0])
+    prev = np.full(n, -1, dtype=np.int64)
+    prev[src] = src
+    q = [src]
+    qi = 0
+    while qi < len(q):
+        v = q[qi]
+        qi += 1
+        for w in np.flatnonzero(adj[v]):
+            w = int(w)
+            if prev[w] >= 0:
+                continue
+            prev[w] = v
+            if w == dst:
+                path = [dst]
+                while path[-1] != src:
+                    path.append(int(prev[path[-1]]))
+                path.reverse()
+                return path
+            q.append(w)
+    return None
+
+
+def certify_planes(g: dict, kernel: Optional[bool] = None,
+                   dev=None) -> dict:
+    """Anomaly certification over one plane-labeled graph: SCC
+    condensation first (every cycle of every plane subset lies inside
+    a non-trivial SCC of the union — no SCC means all three classes
+    are clean with no closure at all), per-component class checks
+    after. JGRAFT_CYCLE_CONDENSE=0 forces the direct whole-graph arm
+    (verdict-identical). `dev` is where a routed closure runs."""
+    from .schedule import note_cycle
+
+    n = g["n"]
+    note_cycle(cycle_nodes_pre=n)
+    condense = _condense_env()
+    condense = True if condense is None else condense
+    anomalies: dict = {"G0": None, "G1c": None, "G-single": None}
+    if condense:
+        comps = tarjan_scc(g["adj"])
+        nontrivial = sorted((sorted(c) for c in comps if len(c) >= 2),
+                            key=lambda c: c[0])
+        note_cycle(cycle_nodes_post=len(comps),
+                   cycle_scc_hits=len(nontrivial))
+        for comp in nontrivial:
+            idx = np.ix_(comp, comp)
+            sub_planes = {c: p[idx] for c, p in g["planes"].items()}
+            sub = _certify_component(
+                sub_planes, [g["op_index"][v] for v in comp], kernel, dev)
+            for cls_name, hit in sub.items():
+                if hit is not None and anomalies[cls_name] is None:
+                    anomalies[cls_name] = hit
+    else:
+        anomalies = _certify_component(g["planes"], g["op_index"], kernel,
+                                       dev)
+    # the sharpest class wins globally too (components are certified
+    # independently, so a G0 in one and a G-single in another must
+    # still collapse to the G0 name — identical to what the direct arm
+    # reports, where _certify_component already stops at the sharpest)
+    if anomalies["G0"] is not None:
+        anomalies["G1c"] = None
+        anomalies["G-single"] = None
+    elif anomalies["G1c"] is not None:
+        anomalies["G-single"] = None
+    return anomalies
+
+
+def certify_history(history, kernel: Optional[bool] = None,
+                    device=None) -> dict:
+    """One history's transactional-anomaly verdict:
+    {"valid?": True/False/"unknown", "anomalies": {class: witness},
+    "nodes": n} — "unknown" + "skipped-size" when the graph exceeds
+    the node cap (the stamped skip, never a silent pass). `kernel`
+    routes the G-single closure (None: JGRAFT_CYCLE_KERNEL, else the
+    kernel where the device is CUDA; False: the host, and no device is
+    resolved); `device` as in `checker.cycle.find_cycles`."""
+    from .base import UNKNOWN
+    from .schedule import note_cycle
+
+    g = build_txn_graph(history)
+    if g is None:
+        return {"valid?": True, "anomalies": {}, "nodes": 0}
+    if "adj" not in g:
+        note_cycle(cycle_size_skips=1)
+        return {"valid?": UNKNOWN, "anomalies": {},
+                "skipped-size": g["skipped-nodes"],
+                "cycle-skipped-size": g["skipped-nodes"]}
+    dev = None if kernel is False else resolve_device(device)
+    anomalies = certify_planes(g, kernel, dev)
+    found = {k: v for k, v in anomalies.items() if v is not None}
+    return {"valid?": not found, "anomalies": found, "nodes": g["n"]}
+
+
+class TxnAnomalyChecker(Checker):
+    """Composable checker façade over `certify_history`: the
+    list-append workload composes it beside the per-key linearizable
+    checker, so runs refute cross-key serializability violations the
+    per-key rungs honestly cannot see. The device is resolved here (no
+    card and no ``device="cpu"`` raises); a failure during a check is
+    reported as an unknown verdict, as the reference does."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+
+    def check(self, test, history, opts=None) -> dict:
+        try:
+            return certify_history(history, device=self.device)
+        except Exception as e:  # evidence must never crash a run
+            return {"valid?": "unknown",
+                    "error": f"{type(e).__name__}: {e}"}
+
+
+def certify_submission(histories: Sequence) -> dict:
+    """The checking service's admission hook: certify each submitted
+    multi-key history and merge — any anomaly refutes the submission
+    even when every per-key unit passes its rung. Kept host-only
+    (kernel=False): admission must not launch device work."""
+    per = [certify_history(h, kernel=False) for h in histories]
+    from .base import merge_valid
+
+    return {"valid?": merge_valid(r["valid?"] for r in per),
+            "histories": per}

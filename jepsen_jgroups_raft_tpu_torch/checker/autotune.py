@@ -24,8 +24,11 @@ cpu count, the device (the card's name and count, or "cpu"), the torch
 and CUDA versions — so a host or toolchain change re-observes instead of
 silently mis-gating.
 
-The launch-plan store (`tuned_group_plan`, `tuned_sort_plan`) and the
-cycle-arm store of the reference come with the autotune item of the
+The exact cycle tier's arm store (`cycle_arm_for`, `resolve_cycle_arm`)
+keeps, per node bucket, the measured fastest of condensation, the host
+DFS and the closure kernel, in the same store
+(``cycle-arm-n<N>.json``). The launch-plan store (`tuned_group_plan`,
+`tuned_sort_plan`) of the reference comes with the autotune item of the
 ROADMAP.
 """
 
@@ -38,7 +41,7 @@ import os
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 from ..history.packing import bucket_rows
 from ..platform import env_float, env_int, env_str
@@ -49,6 +52,8 @@ _log = logging.getLogger(__name__)
 DEFAULT_STORE = "store/autotune"
 
 _LOCK = threading.Lock()
+_MISS = object()          # negative-cache sentinel (cycle_arm_for)
+_COUNTERS = {"plans_loaded": 0, "plans_measured": 0, "plan_misses": 0}
 
 
 def autotune_on() -> bool:
@@ -59,6 +64,19 @@ def autotune_on() -> bool:
     defensively (platform.env_int): garbage warns and keeps the
     default."""
     return env_int("JGRAFT_AUTOTUNE", 1, minimum=0) != 0
+
+
+def sample_reps() -> int:
+    """Timed reps per measured arm (after one untimed warm-up rep);
+    JGRAFT_AUTOTUNE_SAMPLES, default 2."""
+    return env_int("JGRAFT_AUTOTUNE_SAMPLES", 2, minimum=1)
+
+
+def min_cells() -> int:
+    """Work gate: a bucket's cells (for the cycle tier, N² × graphs)
+    must reach this many before a measurement triggers
+    (JGRAFT_AUTOTUNE_MIN_CELLS, default 2^16)."""
+    return env_int("JGRAFT_AUTOTUNE_MIN_CELLS", 1 << 16, minimum=1)
 
 
 def store_root() -> Path:
@@ -102,11 +120,28 @@ def host_fingerprint() -> str:
     return hashlib.sha256(raw.encode()).hexdigest()[:16]
 
 
+def consume_counters() -> dict:
+    """Return and reset the store counters."""
+    with _LOCK:
+        out = dict(_COUNTERS)
+        for k in _COUNTERS:
+            _COUNTERS[k] = 0
+        return out
+
+
+def _bump(key: str) -> None:
+    with _LOCK:
+        _COUNTERS[key] += 1
+
+
 def reset_for_tests() -> None:
-    """Drop the in-memory gate records (tests simulate fresh
+    """Drop the in-memory records and counters (tests simulate fresh
     processes)."""
     with _LOCK:
         _LINFP_MEM.clear()
+        _CYCLE_MEM.clear()
+        for k in _COUNTERS:
+            _COUNTERS[k] = 0
 
 
 def _fresh_record() -> dict:
@@ -309,3 +344,126 @@ def _persist(sig: tuple, rec: dict) -> None:
         except OSError as e:
             _log.warning("autotune: could not persist lin-fastpath "
                          "record %s (%s: %s)", path, type(e).__name__, e)
+
+
+# ------------------------------------------------- cycle-tier arm store
+# The exact cycle tier has two routing dimensions per node bucket —
+# condense-vs-direct (host Tarjan pre-pass or straight to the detector)
+# and kernel-vs-DFS (batched closure launch or host 3-color DFS) — so
+# the choice is measured per bucket, as the reference does: a
+# fingerprint-keyed JSON record, version/signature checks, an in-memory
+# negative cache, interleaved rotated best-of-min measurement. Arm
+# choice is ROUTING ONLY — every arm is verdict-identical, so a stale or
+# foreign record can only cost time, never answers.
+
+#: cycle-arm record schema version; unknown versions re-measure.
+CYCLE_ARM_VERSION = 1
+
+#: Measurable arms, in deterministic measurement order: "condense" =
+#: host Tarjan SCC pre-pass (detection IS the pre-pass), "dfs" = direct
+#: host 3-color DFS, "kernel" = direct batched closure launch.
+CYCLE_ARMS = ("condense", "dfs", "kernel")
+
+_CYCLE_MEM: dict = {}   # sig -> arm str | _MISS
+
+
+def cycle_arm_sig(n_bucket: int) -> tuple:
+    """Arm bucket: the pow2+midpoint node bucket alone. The arm
+    tradeoff is a property of graph size and host-vs-device matmul
+    cost, not of the model family — fragmenting per family would
+    starve small buckets of measurements."""
+    return ("cycle-arm", int(n_bucket))
+
+
+def _cycle_arm_path(sig: tuple) -> Path:
+    return store_root() / host_fingerprint() / f"cycle-arm-n{sig[1]}.json"
+
+
+def cycle_arm_for(sig: tuple) -> Optional[str]:
+    """The bucket's measured arm: memory, then the fingerprint store.
+    Corrupt/stale/foreign records return None (re-measure, never
+    silently mis-route); misses are negative-cached so per-batch
+    consults stay disk-free."""
+    with _LOCK:
+        arm = _CYCLE_MEM.get(sig)
+    if arm is _MISS:
+        return None
+    if arm is not None:
+        _bump("plans_loaded")
+        return arm
+    path = _cycle_arm_path(sig)
+    try:
+        raw = json.loads(path.read_text())
+    except FileNotFoundError:
+        return _cycle_miss(sig)
+    except (OSError, json.JSONDecodeError, UnicodeDecodeError) as e:
+        _log.warning("autotune: unreadable cycle-arm record %s (%s: %s)"
+                     " — re-measuring", path, type(e).__name__, e)
+        return _cycle_miss(sig)
+    arm = raw.get("arm")
+    if (raw.get("version") != CYCLE_ARM_VERSION
+            or raw.get("fingerprint") != host_fingerprint()
+            or raw.get("signature") != list(sig)
+            or arm not in CYCLE_ARMS):
+        _log.warning("autotune: stale/corrupt cycle-arm record %s — "
+                     "re-measuring", path)
+        return _cycle_miss(sig)
+    with _LOCK:
+        _CYCLE_MEM[sig] = arm
+    _bump("plans_loaded")
+    return arm
+
+
+def _cycle_miss(sig: tuple):
+    with _LOCK:
+        _CYCLE_MEM[sig] = _MISS
+        _COUNTERS["plan_misses"] += 1
+    return None
+
+
+def save_cycle_arm(sig: tuple, arm: str, samples: dict) -> None:
+    """Persist a measured arm (atomic tmp+rename; persistence failures
+    warn and keep the in-memory arm)."""
+    with _LOCK:
+        _CYCLE_MEM[sig] = arm
+    path = _cycle_arm_path(sig)
+    payload = {
+        "version": CYCLE_ARM_VERSION,
+        "fingerprint": host_fingerprint(),
+        "fingerprint_info": fingerprint_info(),
+        "signature": list(sig),
+        "arm": arm,
+        "samples": samples,
+        "created_utc": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+    }
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_text(json.dumps(payload, indent=2))
+        os.replace(tmp, path)
+    except OSError as e:
+        _log.warning("autotune: could not persist cycle-arm record %s "
+                     "(%s: %s)", path, type(e).__name__, e)
+
+
+def resolve_cycle_arm(sig: tuple,
+                      measures: "dict[str, Callable[[], float]]") -> str:
+    """Measure the available arms interleaved (one untimed warm-up rep
+    each absorbs kernel builds, then `sample_reps` rounds with rotating
+    order), pick best-of-min, persist, return. `measures` maps arm name
+    → zero-arg wall-seconds measurement over the SAME batch of graphs
+    (every arm is verdict-identical)."""
+    arms = [a for a in CYCLE_ARMS if a in measures]
+    times: dict = {a: [] for a in arms}
+    for a in arms:
+        measures[a]()
+    reps = sample_reps()
+    for rep in range(reps):
+        order = arms[rep % len(arms):] + arms[:rep % len(arms)]
+        for a in order:
+            times[a].append(measures[a]())
+    best = min(arms, key=lambda a: min(times[a]))
+    samples = {a: [round(t, 6) for t in ts] for a, ts in times.items()}
+    save_cycle_arm(sig, best, samples)
+    _bump("plans_measured")
+    return best

@@ -1,25 +1,90 @@
-"""The value-guided witness certifier, at the linearizable rung.
+"""Consistency rungs and the value-guided witness certifier.
 
-A copy of the part of the reference's checker/consistency.py that the
-lin fast path runs: `certify_encoded` builds a linearization witness on
-the host in O(events · window), with bounded backtracking, and never
-refutes — True is a sound VALID (the committed order respects every
-[OPEN, FORCE] interval of the stream), False means undecided and the
-kernels answer. `checker/linearizable.lin_fastpath_pass` runs it (through
-`checker/certify_batch.certify_many`) before the kernels.
+A copy of the reference's checker/consistency.py, less its
+`StreamingCertifier` (which comes with streaming sessions). Pure Python
+and numpy.
 
-The weaker rungs (stream relaxation, `apply_rung`, the streaming
-certifier) come with the rest of the reference's module (ROADMAP A6).
-Pure Python and numpy.
+The packed event stream (history/packing.py) encodes ALL real-time
+precedence through FORCE placement — an op must linearize between its
+OPEN and its FORCE. A weaker consistency rung is therefore a *stream
+transform*: defer each op's FORCE along the axis the rung cares about
+(`relax_encoded`) and re-run the same frontier kernels.
+
+Rungs (strong → weak), by FORCE placement:
+
+  ``linearizable``  — FORCE at the op's real-time completion (the
+                      untouched encoding).
+  ``sequential``    — FORCE deferred to just before the same process's
+                      NEXT op opens (or end of stream): cross-process
+                      real-time edges are dropped, per-process program
+                      order is kept.
+  ``session``       — (monotonic-reads tier) FORCE deferred to just
+                      before the same process's next *read* opens
+                      (``Model.readonly_fcodes``), else end of stream.
+
+Soundness: every rung only moves FORCEs later (clamped to
+``max(original, deferred)``), so a history passing linearizability
+passes every weaker rung and a FAIL at a weak rung certifies
+non-linearizability; a ``sequential`` PASS certifies sequential
+consistency (the witness respects program order; the rung may be
+stricter than full SC, since stream order still carries the
+cross-process edges the interval encoding cannot drop); a ``session``
+PASS certifies monotonic reads + read-your-writes.
+
+`certify_encoded` builds a witness on the host in O(events · window),
+with bounded backtracking, and never refutes — True is a sound VALID
+for whatever rung produced the stream, False means undecided and the
+kernels answer. The lin fast path (`checker/linearizable.
+lin_fastpath_pass`) runs it before the kernels at the linearizable
+rung; `apply_rung` runs it at the weak rungs, first on the original
+stream and then on the relaxed one.
 """
 
 from __future__ import annotations
 
+import heapq
 from collections import deque
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from ..history.packing import EV_FORCE, EV_OPEN, EncodedHistory
 from ..platform import env_int
+
+#: Rung names, strongest first. Index = position in the ladder.
+CONSISTENCY_LEVELS = ("linearizable", "sequential", "session")
+
+_ALIASES = {
+    "lin": "linearizable",
+    "linearizability": "linearizable",
+    "seq": "sequential",
+    "monotonic-reads": "session",
+    "monotonic": "session",
+}
+
+
+def normalize_consistency(name: Optional[str]) -> str:
+    """Canonical rung name (aliases accepted); ValueError on unknowns."""
+    if name is None:
+        return "linearizable"
+    n = _ALIASES.get(str(name).strip().lower(), str(name).strip().lower())
+    if n not in CONSISTENCY_LEVELS:
+        raise ValueError(
+            f"unknown consistency {name!r}; valid: "
+            f"{CONSISTENCY_LEVELS} (aliases: {sorted(_ALIASES)})")
+    return n
+
+
+def rung_index(name: str) -> int:
+    return CONSISTENCY_LEVELS.index(normalize_consistency(name))
+
+
+def greedy_on() -> bool:
+    """Whether the greedy witness certifier runs before the kernel pass
+    on weaker rungs. ``JGRAFT_GREEDY_CERTIFY=0`` disables it — the
+    ablation arm (rung verdicts must be identical either way, pinned by
+    tests) and the A/B denominator."""
+    return env_int("JGRAFT_GREEDY_CERTIFY", 1, minimum=0) != 0
 
 
 #: Default BASE flip budget for the bounded-backtrack certifier:
@@ -62,6 +127,117 @@ def _effective_budget(base: int, n_events: int) -> int:
     `_BUDGET_SCALE_EVENTS` events (64 at ≤256 events, ~448 at a
     2000-event 1000-op register history)."""
     return base * max(1, n_events // _BUDGET_SCALE_EVENTS)
+
+
+# ----------------------------------------------------- stream relaxation
+
+
+def relax_encoded(enc: EncodedHistory, model,
+                  consistency: str) -> EncodedHistory:
+    """Re-encode one packed history with the rung's relaxed FORCE
+    placement (module docstring). Pure host transform on the packed
+    tensors; slot assignment is re-run so the relaxed stream is a
+    first-class `EncodedHistory` every kernel family accepts.
+
+    An encoding without per-event process ids (`proc is None` — hand
+    built, or loaded from an older artifact) cannot be relaxed
+    per-process; it is returned UNCHANGED, which is conservative and
+    sound in both directions (the rung is then exactly linearizability
+    for that row: a pass still implies the weaker guarantee, a fail
+    still certifies non-linearizability)."""
+    consistency = normalize_consistency(consistency)
+    if consistency == "linearizable" or enc.n_events == 0:
+        return enc
+    proc = enc.proc
+    if proc is None or len(proc) != enc.n_events:
+        return enc
+    events = enc.events
+    op_index = enc.op_index
+    readonly = frozenset(getattr(model, "readonly_fcodes", ()) or ())
+
+    # -- decode the stream back into ops -------------------------------
+    # op record: [open_pos, f, a, b, open_idx, pid, force_pos|-1,
+    #             force_idx] (force_idx = the completion row's history
+    #             index — FORCE rows must keep reporting it so rung
+    #             counterexamples point at the completion, like the
+    #             original encoding's op_index convention).
+    ops: List[list] = []
+    active: dict = {}          # slot -> op record index
+    per_proc: dict = {}        # pid -> [op record index...] in open order
+    for pos in range(enc.n_events):
+        et = int(events[pos, 0])
+        slot = int(events[pos, 1])
+        if et == EV_OPEN:
+            k = len(ops)
+            ops.append([pos, int(events[pos, 2]), int(events[pos, 3]),
+                        int(events[pos, 4]), int(op_index[pos]),
+                        int(proc[pos]), -1, -1])
+            active[slot] = k
+            per_proc.setdefault(int(proc[pos]), []).append(k)
+        elif et == EV_FORCE:
+            k = active.pop(slot)
+            ops[k][6] = pos
+            ops[k][7] = int(op_index[pos])
+
+    # -- per-process deferral targets ----------------------------------
+    END = enc.n_events
+    anchor: List[Optional[int]] = [None] * len(ops)  # forced ops only
+    for pid, ks in per_proc.items():
+        for j, k in enumerate(ks):
+            if ops[k][6] < 0:
+                continue  # optional op: never forced, nothing to move
+            later = ks[j + 1:]
+            if consistency == "sequential":
+                cand = ops[later[0]][0] if later else END
+            else:  # session: next same-process READ open
+                cand = END
+                for k2 in later:
+                    if ops[k2][1] in readonly:
+                        cand = ops[k2][0]
+                        break
+            # Monotone-relaxation clamp: never move a FORCE earlier
+            # than its real-time position (ill-formed inputs included).
+            anchor[k] = cand if cand > ops[k][6] else ops[k][6]
+
+    # -- rebuild: opens at their positions, forces just before their
+    # anchor opens (END = past everything); ties among deferred forces
+    # keep original completion order. kind 0 (force) sorts before kind 1
+    # (open) at the same anchor, which is exactly "just before".
+    items = []
+    for k, o in enumerate(ops):
+        items.append((o[0], 1, k, EV_OPEN))
+        if o[6] >= 0:
+            items.append((anchor[k], 0, o[6], EV_FORCE, k))
+    items.sort(key=lambda it: (it[0], it[1], it[2]))
+
+    n_ev = len(items)
+    out = np.zeros((n_ev, 5), dtype=np.int32)
+    out_idx = np.empty(n_ev, dtype=np.int32)
+    out_proc = np.empty(n_ev, dtype=np.int32)
+    slot_of: dict = {}
+    free: List[int] = []
+    next_slot = 0
+    for j, it in enumerate(items):
+        if it[3] == EV_OPEN:
+            k = it[2]
+            if free:
+                s = heapq.heappop(free)
+            else:
+                s = next_slot
+                next_slot += 1
+            slot_of[k] = s
+            out[j] = (EV_OPEN, s, ops[k][1], ops[k][2], ops[k][3])
+            out_idx[j] = ops[k][4]
+        else:
+            k = it[4]
+            s = slot_of[k]
+            out[j] = (EV_FORCE, s, 0, 0, 0)
+            heapq.heappush(free, s)
+            out_idx[j] = ops[k][7]
+        out_proc[j] = ops[k][5]
+    return EncodedHistory(events=out, op_index=out_idx,
+                          n_slots=next_slot, n_ops=len(ops),
+                          proc=out_proc)
 
 
 def _value_guide_masks(model, ops, forced):
@@ -293,3 +469,62 @@ def certify_encoded(enc: EncodedHistory, model,
     except _AbortBudget:
         return False, None, flips  # abort budget spent — undecided
     return True, ("greedy" if flips == 0 else "backtrack"), flips
+
+
+def greedy_certify(enc: EncodedHistory, model,
+                   budget: Optional[int] = None) -> bool:
+    """Boolean view of :func:`certify_encoded` (True = sound VALID
+    witness built, False = undecided)."""
+    return certify_encoded(enc, model, budget=budget)[0]
+
+
+# ------------------------------------------------------------ batch entry
+
+
+def apply_rung(encs: Sequence[EncodedHistory], model, consistency: str):
+    """Certify/relax a batch at `consistency`. Returns (out, certified,
+    tiers): `certified[i]` True where a witness already proves the row
+    VALID at the rung (then `out[i]` is whichever encoding certified it
+    and `tiers[i]` is "greedy" or "backtrack" — the decided-tier
+    attribution); otherwise `out[i]` is the rung-relaxed encoding for
+    the ordinary kernel ladder and `tiers[i]` is None.
+
+    Certification order exploits monotone relaxation: a witness for the
+    ORIGINAL (linearizable) stream is a witness for every weaker rung,
+    and the original stream's FORCE order — real completion order, an
+    approximation of the linearization order — is exactly the guidance
+    the certifier needs, so it succeeds there on most valid histories
+    and the row never pays the relaxation pass at all. Rows it misses
+    relax and retry (the relaxed stream admits rung-only witnesses,
+    e.g. stale reads); rows still undecided go to the kernels on the
+    relaxed stream."""
+    from .certify_batch import certify_many
+
+    consistency = normalize_consistency(consistency)
+    n = len(encs)
+    out: list = list(encs)
+    certified = [False] * n
+    tiers: list = [None] * n
+    greedy = greedy_on()
+    # Pass 1: certify the ORIGINAL streams, batched across the rows
+    # (checker/certify_batch.py — outcome-identical to the per-row
+    # scalar loop; JGRAFT_CERTIFY_BATCH=0 restores it exactly).
+    first = ([i for i in range(n) if encs[i].n_events > 0]
+             if greedy else [])
+    res = certify_many([encs[i] for i in first], model)
+    for i, (ok, tier, _) in zip(first, res):
+        if ok:
+            certified[i] = True
+            tiers[i] = tier
+    # Pass 2: relax the misses and retry on the rung's stream.
+    retry = [i for i in range(n) if not certified[i]]
+    for i in retry:
+        out[i] = relax_encoded(encs[i], model, consistency)
+    if greedy:
+        retry = [i for i in retry if out[i].n_events > 0]
+        res = certify_many([out[i] for i in retry], model)
+        for i, (ok, tier, _) in zip(retry, res):
+            if ok:
+                certified[i] = True
+                tiers[i] = tier
+    return out, certified, tiers

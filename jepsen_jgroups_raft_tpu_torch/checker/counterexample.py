@@ -1,9 +1,9 @@
 """Counterexample presentation for invalid linearizability verdicts.
 
-A copy of the reference's checker/counterexample.py at the linearizable
-rung. Knossos emits linearization diagrams and the upstream control
-image ships graphviz to render anomalies; this module is that capability
-for the checker: given an INVALID verdict, it
+A copy of the reference's checker/counterexample.py. Knossos emits
+linearization diagrams and the upstream control image ships graphviz to
+render anomalies; this module is that capability for the checker: given
+an INVALID verdict, it
 
   1. recovers a machine-checkable explanation — the failing op (the
      completion at which no linearization order survives) and a witness
@@ -53,13 +53,15 @@ def _index_map(history: History) -> dict:
 
 def _encode_at_rung(history: History, model,
                     consistency: Optional[str]):
-    """Encode a history as the deciding engine scanned it, so
-    explanations and minimization re-searches stay on the verdict's own
-    precedence order. Only the linearizable rung exists in the port."""
+    """Encode (and, for a weaker rung, relax) a history — the stream the
+    deciding engine actually scanned, so explanations and minimization
+    re-searches stay on the verdict's own precedence order."""
+    enc = encode_history(history, model)
     if consistency not in (None, "linearizable"):
-        raise ValueError(f"consistency rung {consistency!r} is not ported "
-                         f"(only 'linearizable')")
-    return encode_history(history, model)
+        from .consistency import relax_encoded
+
+        enc = relax_encoded(enc, model, consistency)
+    return enc
 
 
 def attach_counterexample(result: dict, history: History, model,

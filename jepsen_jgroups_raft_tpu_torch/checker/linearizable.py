@@ -1,11 +1,12 @@
 """Linearizability checker of the port: the north-star check on the card.
 
-Equivalent of the reference's checker/linearizable.py at its
-linearizable rung, in the reference's order. Histories are encoded on
-the host; at the default knobs the lin fast path (`lin_fastpath_pass`:
-the host witness certifier, gated per bucket by `checker/autotune`)
-decides the rows it can certify first, and only the rest reach the
-device. There, histories of at least LONG_HISTORY_MIN_EVENTS events may
+Equivalent of the reference's checker/linearizable.py, in the
+reference's order; the weaker rungs ("sequential", "session") re-enter
+the linearizable rung on relaxed encodings (`check_encoded`).
+Histories are encoded on the host; at the default knobs the lin fast
+path (`lin_fastpath_pass`: the host witness certifier, gated per bucket
+by `checker/autotune`) decides the rows it can certify first, and only
+the rest reach the device. There, histories of at least LONG_HISTORY_MIN_EVENTS events may
 take the segmented scan (`ops.segment_scan.check_segmented_batch`, the
 CUDA kernel ops/csrc/segment_scan.cu; rows report ``"kernel":
 "dense-seg"`` and their ``"segments"``), the others are macro-packed,
@@ -59,7 +60,10 @@ Knobs, with the reference's names and meanings: ``JGRAFT_LIN_FASTPATH``
 step budget), the gate's ``JGRAFT_LIN_FASTPATH_MIN_HIT`` / ``_MIN_OBS``,
 ``JGRAFT_AUTOTUNE``, ``JGRAFT_AUTOTUNE_STORE``, ``JGRAFT_LINFP_DIR``, and
 ``JGRAFT_SEGMENT`` (1/0 forces the long-history routing; unset, a CPU
-device routes nothing and the card follows `_segment_routing_on`).
+device routes nothing and the card follows `_segment_routing_on`); at
+the weak rungs ``JGRAFT_GREEDY_CERTIFY`` / ``JGRAFT_GREEDY_BACKTRACK``
+(checker/consistency.py) and the cycle tier's ``JGRAFT_CYCLE_*``
+(checker/cycle.py).
 
 Device: every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions on the
@@ -155,7 +159,8 @@ def lin_abort_steps() -> int:
 
 _FP_LOCK = threading.Lock()
 _FP_ZERO = {"rows_scanned": 0, "rows_certified": 0, "rows_gated": 0,
-            "events_scanned": 0, "certify_wall_s": 0.0}
+            "rows_rung_skipped": 0, "events_scanned": 0,
+            "certify_wall_s": 0.0}
 _FP_COUNTERS = dict(_FP_ZERO)
 
 
@@ -168,8 +173,9 @@ def _fp_bump(**kw) -> None:
 def fastpath_counters() -> dict:
     """Process-wide lin-fastpath counters (non-destructive):
     rows_scanned / rows_certified (the hit rate), rows_gated (routed
-    kernel-first by the measured gate), events_scanned and the summed
-    certify wall."""
+    kernel-first by the measured gate), rows_rung_skipped (weak-rung
+    rows the fast path did not rescan: the rung certifier already had),
+    events_scanned and the summed certify wall."""
     with _FP_LOCK:
         return dict(_FP_COUNTERS)
 
@@ -250,14 +256,17 @@ def check_histories(
     max_cpu_configs: Optional[int] = DEFAULT_MAX_CPU_CONFIGS,
     n_configs: Optional[int] = None,
     n_slots: Optional[int] = None,
+    consistency: str = "linearizable",
 ) -> list[dict]:
     """Check a batch of histories; one result dict per history. The
     batch is the unit of device work: histories are encoded, grouped
-    by window, and each group is one kernel launch."""
+    by window, and each group is one kernel launch. ``consistency``
+    selects the verdict's rung (`check_encoded`)."""
     dev = resolve_device(device)
     encs = [encode_history(h, model) for h in histories]
     return check_encoded(encs, model, algorithm, dev, witness,
-                         max_cpu_configs, n_configs, n_slots)
+                         max_cpu_configs, n_configs, n_slots,
+                         consistency=consistency)
 
 
 def check_encoded(
@@ -269,16 +278,36 @@ def check_encoded(
     max_cpu_configs: Optional[int] = DEFAULT_MAX_CPU_CONFIGS,
     n_configs: Optional[int] = None,
     n_slots: Optional[int] = None,
+    consistency: str = "linearizable",
     lin_fastpath: Optional[bool] = None,
 ) -> list[dict]:
     """Check already-encoded histories (`history.packing.encode_history`),
     one result dict each. ``lin_fastpath``: None = the default (the
     pre-kernel certify pass runs for "auto" and "dense" unless
-    ``JGRAFT_LIN_FASTPATH=0``), False = skip it."""
+    ``JGRAFT_LIN_FASTPATH=0``), False = skip it.
+
+    ``consistency`` selects the rung (checker/consistency.py):
+    "linearizable" (default), "sequential" or "session" (aliases
+    accepted). A weak rung certifies what the host witness scan can
+    (`apply_rung`: ``"algorithm": "greedy-witness"``, ``"decided-tier"``
+    ``"greedy"`` or ``"backtrack"``); at "sequential" the exact cycle
+    tier (`checker.cycle.find_cycles`) refutes the undecided rows it can
+    (INVALID, ``"algorithm"`` and ``"decided-tier"`` ``"cycle"``, the
+    ``"cycle"`` witness, ``"exact-sc-refutation"``); the rest re-enter
+    here at the linearizable rung on their relaxed encodings, with the
+    lin fast path off. At "session" a dependency cycle is attached as
+    ``"sc-refuted"`` / ``"sc-cycle"`` evidence, never a verdict. Rows too
+    big for the cycle tier carry ``"cycle-skipped-size"``; every result
+    of a weak rung carries ``"consistency"``."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}; "
                          f"expected one of {ALGORITHMS}")
     dev = resolve_device(device)
+    consistency = _normalize_rung(consistency)
+    if consistency != "linearizable":
+        return _check_rung(encs, model, algorithm, dev, witness,
+                           max_cpu_configs, n_configs, n_slots,
+                           consistency)
 
     def rest(sub):
         return _check_encoded(sub, model, algorithm, dev, witness,
@@ -297,6 +326,122 @@ def check_encoded(
             results[i] = r
     _observe_device_walls(encs, model, results)
     return results
+
+
+def _check_rung(encs, model, algorithm, dev, witness, max_cpu_configs,
+                n_configs, n_slots, consistency) -> list[dict]:
+    """A weak rung, as the reference's `check_encoded` runs it: certify
+    and relax the batch once (`apply_rung`), refute by dependency cycle
+    at the sequential rung (`find_cycles`), check the rest at the
+    linearizable rung on their relaxed encodings."""
+    from .consistency import apply_rung
+
+    t0 = time.perf_counter()
+    relaxed, certified, tiers = apply_rung(encs, model, consistency)
+    dt_cert = time.perf_counter() - t0
+    results: list = [None] * len(encs)
+    todo: list = []
+    # each certified row carries its fair share of the certify + relax
+    # pass; the undecided rows' cost is their kernel tier's wall
+    per_row = dt_cert / max(len(encs), 1)
+    for i, (enc, ok) in enumerate(zip(relaxed, certified)):
+        if ok:
+            results[i] = {
+                "valid?": VALID, "algorithm": "greedy-witness",
+                "op-count": enc.n_ops,
+                "concurrency-window": enc.n_slots,
+                "decided-tier": tiers[i],
+            }
+            note_tier(tiers[i], wall_s=per_row)
+        else:
+            todo.append(i)
+    # The exact cycle tier: a dependency cycle among the required ops is
+    # a sharp SC refutation, and at the sequential rung it implies the
+    # kernels' verdict INVALID, so undecided rows consult it before the
+    # relaxed kernel pass. It only ever refutes.
+    cycle_skips: dict = {}
+    if todo and consistency == "sequential":
+        from .cycle import cycle_tier_on, find_cycles
+
+        if cycle_tier_on():
+            t0 = time.perf_counter()
+            cyc = find_cycles([encs[i] for i in todo], model, device=dev)
+            dt_cyc = time.perf_counter() - t0
+            hits = [(j, i) for j, i in enumerate(todo)
+                    if cyc[j] is not None and "cycle" in cyc[j]]
+            cycle_skips.update(
+                (i, cyc[j]["skipped-size"]) for j, i in enumerate(todo)
+                if cyc[j] is not None and "skipped-size" in cyc[j])
+            for j, i in hits:
+                results[i] = {
+                    "valid?": INVALID, "algorithm": "cycle",
+                    "op-count": encs[i].n_ops,
+                    "concurrency-window": encs[i].n_slots,
+                    "decided-tier": "cycle",
+                    "cycle": cyc[j]["cycle"],
+                    "exact-sc-refutation": True,
+                }
+                note_tier("cycle", wall_s=dt_cyc / len(hits))
+            if hits:
+                todo = [i for i in todo if results[i] is None]
+    if todo:
+        # the rung certifier already scanned these rows, on the original
+        # stream and on the relaxed one (a superset of legality), so the
+        # lin fast path could not certify them; the counter shows the
+        # skip, and only where the fast path would have run
+        if algorithm in LIN_FASTPATH_ALGOS and lin_fastpath_on():
+            _fp_bump(rows_rung_skipped=len(todo))
+        sub = check_encoded([relaxed[i] for i in todo], model, algorithm,
+                            dev, witness, max_cpu_configs, n_configs,
+                            n_slots, consistency="linearizable",
+                            lin_fastpath=False)
+        for i, r in zip(todo, sub):
+            results[i] = r
+    if consistency == "session":
+        _annotate_sc_refutations(encs, results, model, dev)
+    for i, n_skipped in cycle_skips.items():
+        if results[i] is not None:
+            results[i]["cycle-skipped-size"] = n_skipped
+    for r in results:
+        r["consistency"] = consistency
+    return results
+
+
+def _normalize_rung(name) -> str:
+    """Rung normalization; the default rung never imports the
+    consistency module."""
+    if name in (None, "linearizable"):
+        return "linearizable"
+    from .consistency import normalize_consistency
+
+    return normalize_consistency(name)
+
+
+def _annotate_sc_refutations(encs, results, model, dev) -> None:
+    """Session-rung SC evidence: the session guarantee (monotonic reads
+    + read-your-writes) does not imply sequential consistency — a
+    monotonic-writes violation can honestly PASS the rung — so a
+    dependency cycle here is attached as an annotation, never a verdict
+    change: ``sc-refuted`` / ``sc-cycle`` mark results whose history is
+    exactly proven non-SC although the weaker rung holds. As in the
+    reference, the evidence is best effort: a failure of the cycle tier
+    leaves the sound verdicts without it."""
+    from .cycle import cycle_tier_on, find_cycles
+
+    if not cycle_tier_on():
+        return
+    try:
+        cyc = find_cycles(encs, model, device=dev)
+    except Exception:
+        return  # evidence must never take down a sound verdict
+    for r, c in zip(results, cyc):
+        if c is None or r is None:
+            continue
+        if "cycle" in c:
+            r["sc-refuted"] = True
+            r["sc-cycle"] = c["cycle"]
+        elif "skipped-size" in c:
+            r["cycle-skipped-size"] = c["skipped-size"]
 
 
 def _observe_device_walls(encs, model, results) -> None:
@@ -666,16 +811,20 @@ def _check_cpu(enc: EncodedHistory, model, witness: bool,
 
 class LinearizableChecker(Checker):
     """Checker-protocol wrapper around `check_histories` for one
-    history (client ops only). An INVALID result carries the reference's
-    counterexample (`checker/counterexample.py`), and its HTML timeline
-    is written into ``test["store_dir"]`` when there is one."""
+    history (client ops only), at the rung ``consistency``. An INVALID
+    result carries the reference's counterexample
+    (`checker/counterexample.py`, searched on the rung's stream), and
+    its HTML timeline is written into ``test["store_dir"]`` when there
+    is one."""
 
     def __init__(self, model, algorithm: str = "auto", device=None,
-                 max_cpu_configs: Optional[int] = DEFAULT_MAX_CPU_CONFIGS):
+                 max_cpu_configs: Optional[int] = DEFAULT_MAX_CPU_CONFIGS,
+                 consistency: str = "linearizable"):
         self.model = model
         self.algorithm = algorithm
         self.device = resolve_device(device)
         self.max_cpu_configs = max_cpu_configs
+        self.consistency = _normalize_rung(consistency)
 
     def check(self, test, history, opts=None) -> dict:
         if not isinstance(history, History):
@@ -685,10 +834,12 @@ class LinearizableChecker(Checker):
         # run; attach_counterexample re-searches only for kernel verdicts
         [result] = check_histories(
             [hist], self.model, self.algorithm, self.device, witness=True,
-            max_cpu_configs=self.max_cpu_configs)
+            max_cpu_configs=self.max_cpu_configs,
+            consistency=self.consistency)
         if result.get("valid?") is INVALID:
             attach_counterexample(result, hist, self.model,
-                                  max_cpu_configs=self.max_cpu_configs)
+                                  max_cpu_configs=self.max_cpu_configs,
+                                  consistency=self.consistency)
             write_counterexample_html(result, hist,
                                       (test or {}).get("store_dir"),
                                       "counterexample.html")

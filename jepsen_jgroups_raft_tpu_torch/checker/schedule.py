@@ -18,7 +18,8 @@ eviction's two cases inside one launch.
 
 The counters follow the reference's checker/schedule.py: per-tier
 decided rows and wall (`note_tier`, `consume_tiers`) and run counters
-(`consume_stats`), both also collected into any active `stats_scope`.
+(`consume_stats`, the cycle tier's through `note_cycle`), both also
+collected into any active `stats_scope`.
 """
 
 from __future__ import annotations
@@ -37,7 +38,14 @@ from ..ops.dense_scan import (dense_scan, dense_scan_launcher, mask_scan,
 from ..ops.linear_scan import sort_scan, sort_scan_launcher
 
 _STATS_LOCK = threading.Lock()
-_STATS_ZERO = {"groups_run": 0, "rows_run": 0, "wall_s": 0.0}
+_STATS_ZERO = {"groups_run": 0, "rows_run": 0, "wall_s": 0.0,
+               # the cycle tier's counters, as the reference keeps them:
+               # rows that skipped the exact tier for size, graph nodes
+               # before and after SCC condensation, non-trivial SCCs
+               # hit, and blocked-closure tile programs run
+               "cycle_size_skips": 0, "cycle_nodes_pre": 0,
+               "cycle_nodes_post": 0, "cycle_scc_hits": 0,
+               "cycle_tiles_run": 0}
 _STATS = dict(_STATS_ZERO)
 #: (scope dict, owner thread id), innermost last; guarded by _STATS_LOCK.
 _SCOPES: List[tuple] = []
@@ -60,6 +68,17 @@ def _add_stats(**kw) -> None:
             _STATS[k] += v
             for scope in targets:
                 scope[k] += v
+
+
+def note_cycle(**kw) -> None:
+    """Record cycle-tier counters (the ``cycle_*`` keys of the run
+    counters) into the active scopes and the process totals. An unknown
+    key is a programming error and raises KeyError before anything is
+    recorded."""
+    for k in kw:
+        if k not in _STATS_ZERO:
+            raise KeyError(f"unknown cycle counter {k!r}")
+    _add_stats(**kw)
 
 
 @contextlib.contextmanager

@@ -197,6 +197,109 @@ def random_valid_history(
     return build_history(rows)
 
 
+def listappend_txn_rows(rng: random.Random, n_ops: int, n_keys: int,
+                        n_procs: int, read_p: float = 0.55) -> list:
+    """Rows (process, type, f, value) of a clean multi-key list-append
+    history, serializable by construction: serial keyed ops round-robined
+    over processes, ``("append", (k, e))`` completing with the key's
+    whole list and ``("read", (k, None))`` observing it; at most 31
+    appends per key (elements 1..31), reads once a key is full. Reads
+    observe prefixes that later appends extend, so anti-dependency (rw)
+    edges abound — the shape of the reference's transactional cycle A/B
+    (scripts/ab_cycle.py `_serial_listappend_rows`, same draws from
+    `rng`)."""
+    state = {k: [] for k in range(n_keys)}
+    next_elem = {k: 1 for k in range(n_keys)}
+    rows = []
+    for i in range(n_ops):
+        p = i % n_procs
+        k = rng.randrange(n_keys)
+        if next_elem[k] <= 31 and rng.random() > read_p:
+            e = next_elem[k]
+            next_elem[k] += 1
+            state[k] = state[k] + [e]
+            rows.append((p, INVOKE, "append", (k, e)))
+            rows.append((p, OK, "append", (k, list(state[k]))))
+        else:
+            rows.append((p, INVOKE, "read", (k, None)))
+            rows.append((p, OK, "read", (k, list(state[k]))))
+    return rows
+
+
+#: Planted transactional anomalies on keys "x" and "y" (the fixtures of
+#: the reference's tests/test_anomaly.py), each the smallest history of
+#: its class:
+#:   * "G0"       — cross-key po/ww cycle: the two sessions' append
+#:                  orders are pinned contradictory by a third reader;
+#:   * "G1c"      — cross-key po/wr cycle: each session reads the OTHER
+#:                  key's append before its own lands;
+#:   * "G-single" — one key: a read observes [2], and the rw edge back to
+#:                  append(1) closes the ww/wr path (the only rw edge);
+#:   * "clean"    — no anomaly.
+ANOMALY_ROWS = {
+    "G0": (
+        (1, INVOKE, "append", ("x", 1)), (1, OK, "append", ("x", [2, 1])),
+        (1, INVOKE, "append", ("y", 1)), (1, OK, "append", ("y", [1])),
+        (2, INVOKE, "append", ("y", 2)), (2, OK, "append", ("y", [1, 2])),
+        (2, INVOKE, "append", ("x", 2)), (2, OK, "append", ("x", [2])),
+        (3, INVOKE, "read", ("x", None)), (3, OK, "read", ("x", [2, 1])),
+        (3, INVOKE, "read", ("y", None)), (3, OK, "read", ("y", [1, 2])),
+    ),
+    "G1c": (
+        (1, INVOKE, "read", ("y", None)), (1, OK, "read", ("y", [1])),
+        (2, INVOKE, "read", ("x", None)), (2, OK, "read", ("x", [1])),
+        (1, INVOKE, "append", ("x", 1)), (1, OK, "append", ("x", [1])),
+        (2, INVOKE, "append", ("y", 1)), (2, OK, "append", ("y", [1])),
+    ),
+    "G-single": (
+        (1, INVOKE, "append", ("x", 1)), (1, OK, "append", ("x", [1])),
+        (1, INVOKE, "append", ("x", 2)), (1, OK, "append", ("x", [1, 2])),
+        (2, INVOKE, "read", ("x", None)), (2, OK, "read", ("x", [2])),
+    ),
+    "clean": (
+        (1, INVOKE, "append", ("x", 1)), (1, OK, "append", ("x", [1])),
+        (2, INVOKE, "append", ("y", 1)), (2, OK, "append", ("y", [1])),
+        (1, INVOKE, "append", ("y", 2)), (1, OK, "append", ("y", [1, 2])),
+        (2, INVOKE, "read", ("x", None)), (2, OK, "read", ("x", [1])),
+        (1, INVOKE, "read", ("y", None)), (1, OK, "read", ("y", [1, 2])),
+    ),
+}
+
+
+def plant_anomaly(rows: list, kind: str, tag: str,
+                  proc_base: int) -> list:
+    """`rows` followed by the ANOMALY_ROWS fixture `kind`, on keys of its
+    own (``(tag, "x")``, ``(tag, "y")``) and processes `proc_base` + its
+    process ids, so its edges touch nothing of `rows`."""
+    return list(rows) + [
+        (proc_base + p, typ, f, ((tag, v[0]), v[1]))
+        for p, typ, f, v in ANOMALY_ROWS[kind]]
+
+
+def plant_stale_read(history, rng: random.Random):
+    """A register history with one late read appended: a process whose
+    last op completed, and which completed a write, reads the initial
+    value (None) after everything else. No op writes the initial value,
+    so the read must precede every write, and its own write precedes it
+    in session order: INVALID at the sequential rung, refuted by the
+    cycle tier. Returns (rows, the process), or (None, None) when no
+    process qualifies."""
+    ops = list(history)
+    last: dict = {}
+    wrote = set()
+    for op in ops:
+        last[op.process] = op
+        if op.type == OK and op.f == "write":
+            wrote.add(op.process)
+    cands = sorted(p for p, op in last.items()
+                   if p in wrote and op.type in (OK, FAIL))
+    if not cands:
+        return None, None
+    p = rng.choice(cands)
+    rows = [(op.process, op.type, op.f, op.value) for op in ops]
+    rows += [(p, INVOKE, "read", None), (p, OK, "read", None)]
+    return rows, p
+
 
 def burst_history(rng: random.Random, model_kind: str, n_ops: int,
                   value_range: int = 3) -> History:
@@ -205,12 +308,15 @@ def burst_history(rng: random.Random, model_kind: str, n_ops: int,
     construction, with every kept op open at the same time, so the
     concurrency window is the number of ops the encoder keeps (a
     register's failed CAS is dropped). model_kind as in `random_valid_history`:
-    "register", "counter", "set" or "queue". Wide windows (up to the
-    sort kernel's 127 slots) in few rows: one closing FORCE per
-    history."""
+    "register", "counter", "set", "queue" or "list-append" (appends of
+    elements 1..6 by the first six processes, reads by the rest: the
+    packed list holds six). Wide windows (up to the sort kernel's 127
+    slots) in few rows: one closing FORCE per history."""
     ops = []
     for p in range(n_ops):
-        if model_kind == "register":
+        if model_kind == "list-append":
+            f, v = ("append", p + 1) if p < 6 else ("read", None)
+        elif model_kind == "register":
             f = rng.choice(["read", "write", "cas"])
             v = (None if f == "read" else rng.randrange(value_range)
                  if f == "write" else (rng.randrange(value_range),
@@ -225,10 +331,15 @@ def burst_history(rng: random.Random, model_kind: str, n_ops: int,
             v = None if f == "read" else rng.randrange(1, value_range + 1)
         ops.append([p, f, v, None])
     state = (None if model_kind == "register" else
-             (0, 0) if model_kind == "queue" else 0)
+             (0, 0) if model_kind == "queue" else
+             [] if model_kind == "list-append" else 0)
     for k in rng.sample(range(n_ops), n_ops):
         _, f, v, _ = op = ops[k]
-        if model_kind == "register":
+        if model_kind == "list-append":
+            if f == "append":
+                state = state + [v]
+            op[3] = list(state)  # the resulting / observed list
+        elif model_kind == "register":
             if f == "read":
                 op[3] = state
             elif f == "write":
@@ -259,7 +370,7 @@ def burst_history(rng: random.Random, model_kind: str, n_ops: int,
         p, f, v, r = ops[k]
         if model_kind == "register" and f == "cas":
             rows.append((p, OK if r else FAIL, f, v))
-        elif f in ("read", "add-and-get", "enqueue", "dequeue"):
+        elif f in ("read", "add-and-get", "enqueue", "dequeue", "append"):
             rows.append((p, OK, f, r))
         else:
             rows.append((p, OK, f, v))
@@ -328,7 +439,9 @@ def random_mask_rows(rng, n: int, n_rows: int, n_slots: int,
     in one macro row, n_opens past P or negative, padding and unknown
     kinds, unknown opcodes, and arguments at the int32 edges. `rng` is a
     numpy Generator; R is 5 (macro_p None) or 3 + 4·macro_p; kind is
-    "counter", "queue", "set" or "register"."""
+    "counter", "queue", "set", "register" or "list-append" (whose crashed
+    appends at int32-edge elements drive the state negative and past
+    int32)."""
     import numpy as np
 
     W, P = int(n_slots), macro_p
@@ -353,6 +466,11 @@ def random_mask_rows(rng, n: int, n_rows: int, n_slots: int,
             f = int(rng.choice([1, 0, 2, 6], p=[.6, .15, .2, .05]))
             a = int(rng.choice([0, 1, 2, -2**31, 2**31 - 1]))
             return f, a, int(rng.choice([0, 1, 2, -2**31]))
+        elif kind == "list-append":  # crashed appends, reads, appends
+            f = int(rng.choice([2, 0, 1, 5], p=[.7, .1, .15, .05]))
+            a = (int(rng.integers(1, 32)) if rng.random() < .8
+                 else int(rng.choice(_EDGE_VALUES)))
+            return f, a, int(rng.choice([1, 7, 31, 2**31 - 1, -2**31]))
         else:
             f = int(rng.choice([1, 4, 0, 2, 3, 7],
                                p=[.45, .2, .15, .1, .05, .05]))

@@ -1,12 +1,13 @@
 """State carried across from the reference package.
 
 The checker has no weights: its state is the models, the encoded
-histories and the per-group domain tables. These helpers read the
-fields of a reference model, `EncodedHistory` or `DensePlan` by
-attribute (duck typing — nothing of the reference is imported) and
-return the port's own objects, so a test can feed the reference's
-encodings straight into the port's scan and never depend on the port's
-encoder.
+histories, the per-group domain tables and the cycle tier's dependency
+graphs. These helpers read the fields of a reference model (the
+list-append model included), `EncodedHistory`, `DensePlan` or graph dict
+by attribute or key (duck typing — nothing of the reference is imported)
+and return the port's own objects, so a test can feed the reference's
+encodings and graphs straight into the port and never depend on the
+port's encoder or graph builder.
 """
 
 from __future__ import annotations
@@ -61,3 +62,22 @@ def model_from_reference(obj):
         raise ValueError(f"{cls.__name__}: initial state "
                          f"{model.init_state()} != {obj.init_state()}")
     return model
+
+
+def graph_from_reference(g: Optional[dict]) -> Optional[dict]:
+    """The port's copy of a reference dependency graph
+    (`checker.cycle.build_sc_graph`, `checker.anomaly.build_txn_graph`):
+    {"n", "adj" [n, n] uint8, "op_index", and "planes" {po, ww, wr, rw}
+    when present}; the skip marker {"skipped-nodes": n} and None pass
+    through."""
+    if g is None:
+        return None
+    if "adj" not in g:
+        return {"skipped-nodes": int(g["skipped-nodes"])}
+    out = {"n": int(g["n"]),
+           "adj": np.array(g["adj"], dtype=np.uint8, copy=True),
+           "op_index": [int(x) for x in g["op_index"]]}
+    if "planes" in g:
+        out["planes"] = {k: np.array(v, dtype=np.uint8, copy=True)
+                         for k, v in g["planes"].items()}
+    return out

@@ -112,6 +112,19 @@ class CasRegister(Model):
             return (enc.a,)
         return ()
 
+    def rw_classify(self, f: int, a: int, b: int):
+        """Cycle-tier roles (models/base.py contract — the register IS
+        a last-writer-wins cell): READ observes a, WRITE exposes a, CAS
+        observes a then exposes b. Every encoded register op
+        classifies, so register histories always build a graph."""
+        if f == READ:
+            return ("r", a)
+        if f == WRITE:
+            return ("w", a)
+        if f == CAS:
+            return ("rw", a, b)
+        return None
+
     def _encode(self, pair: OpPair) -> Optional[EncodedOp]:
         f = pair.f
         forced = pair.ctype == OK

@@ -14,6 +14,10 @@
   planner and host composition (`check_segmented_batch`), the CUDA
   kernel wrapper `segment_scan` (one warp per (segment, seed)) and its
   plain version `segment_scan_plain`.
+* `cycle_closure` — batched boolean transitive closure for the cycle
+  tier: the CUDA kernel wrapper `cycle_closure` (B7 monolithic, B8
+  blocked) and its plain versions `cycle_closure_plain`,
+  `cycle_closure_tiled_plain`.
 * `_build`     — nvcc build of `csrc/*.cu` at first use, ctypes binding.
 """
 

@@ -63,6 +63,14 @@ SIGNATURES: Dict[str, dict] = {
                                      _I, _I, _I, _I, _I, _I, _VP]),
         "segment_scan_error_string": (ctypes.c_char_p, [_I]),
     },
+    "cycle_closure": {
+        # B7: in, out, has, B, N, device, stream
+        "cycle_closure_launch": (_I, [_VP, _VP, _VP, _I, _I, _I, _VP]),
+        # B8: a (in place), has, B, N, T, device, stream
+        "cycle_closure_tiled_launch": (_I, [_VP, _VP, _I, _I, _I, _I,
+                                            _VP]),
+        "cycle_closure_error_string": (ctypes.c_char_p, [_I]),
+    },
     "mask_scan_profile": {
         # events, n_events, ok, prof, B, E, R, macro_p, W, model,
         # init_state, device, stream

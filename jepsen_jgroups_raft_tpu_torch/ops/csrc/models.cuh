@@ -1,7 +1,8 @@
 // Device steps of the port's models, shared by the CUDA kernels
-// (dense_scan.cu, mask_scan.cu, sort_scan.cu). Each `step<MODEL>` is the
-// device twin of a model's `torch_step` (models/register.py, counter.py,
-// queuemodel.py, setmodel.py):
+// (dense_scan.cu, mask_scan.cu, sort_scan.cu, segment_scan.cu). Each
+// `step<MODEL>` is the device twin of a model's `torch_step`
+// (models/register.py, counter.py, queuemodel.py, setmodel.py,
+// listappend.py):
 // (state, op f a b) -> (state', legal); `mask_delta<MODEL>` and
 // `always_legal<MODEL>` are the twins of the mask-mode models'
 // `mask_delta` and `always_legal`. Ids match the Python models'
@@ -24,6 +25,7 @@ constexpr int kModelCasRegister = 0;
 constexpr int kModelCounter = 1;
 constexpr int kModelQueue = 2;
 constexpr int kModelSet = 3;
+constexpr int kModelListAppend = 4;
 
 // CAS register opcodes (models/register.py).
 constexpr int32_t kRegWrite = 1;
@@ -46,6 +48,14 @@ constexpr int32_t kTicketMax = (1 << kTicketBits) - 1;
 // Grow-only set opcodes (models/setmodel.py); any other opcode acts as a
 // read, as in `torch_step`.
 constexpr int32_t kSetAdd = 0;
+
+// List-append opcodes and packing (models/listappend.py): base-32 digits,
+// the packed-prefix bound 32^5.
+constexpr int32_t kLstRead = 0;
+constexpr int32_t kLstAppend = 1;
+constexpr int32_t kLstAppendAny = 2;
+constexpr uint32_t kLstBase = 32u;
+constexpr int32_t kLstPrefixMax = 32 * 32 * 32 * 32 * 32;
 
 __device__ __forceinline__ int32_t wrap_add(int32_t x, uint32_t y) {
   return static_cast<int32_t>(static_cast<uint32_t>(x) + y);
@@ -136,6 +146,25 @@ struct Model<kModelSet> {
   }
 };
 
+template <>
+struct Model<kModelListAppend> {
+  __device__ __forceinline__ static void step(int32_t state, int32_t f,
+                                              int32_t a, int32_t b,
+                                              int32_t* next, bool* legal) {
+    // the bound is a signed compare: a negative state may append
+    *legal = ((f == kLstRead || f == kLstAppend) && state == a) ||
+             (f == kLstAppendAny && state < kLstPrefixMax);
+    // products and sums in uint32_t wrap as the reference's int32 does
+    const uint32_t appended = static_cast<uint32_t>(a) * kLstBase +
+                              static_cast<uint32_t>(b);
+    const uint32_t shifted = static_cast<uint32_t>(state) * kLstBase +
+                             static_cast<uint32_t>(a);
+    *next = f == kLstAppend      ? static_cast<int32_t>(appended)
+            : f == kLstAppendAny ? static_cast<int32_t>(shifted)
+                                 : state;
+  }
+};
+
 // The step of the model with runtime id `model` (unknown ids take the
 // register's step; the launchers refuse them first).
 __device__ __forceinline__ void model_step(int model, int32_t state,
@@ -150,6 +179,9 @@ __device__ __forceinline__ void model_step(int model, int32_t state,
       break;
     case kModelSet:
       Model<kModelSet>::step(state, f, a, b, next, legal);
+      break;
+    case kModelListAppend:
+      Model<kModelListAppend>::step(state, f, a, b, next, legal);
       break;
     case kModelCasRegister:
     default:

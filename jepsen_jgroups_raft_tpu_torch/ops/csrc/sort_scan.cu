@@ -468,7 +468,7 @@ extern "C" int sort_scan_launch(const int32_t* events, const int32_t* n_events,
   if (W < 1 || W > kSortMaxSlots) return -2;
   if (macro_p < 0 || macro_p > kMaxOpens) return -3;
   if (R != (macro_p ? 3 + 4 * macro_p : 5)) return -4;
-  if (model < kModelCasRegister || model > kModelSet) return -5;
+  if (model < kModelCasRegister || model > kModelListAppend) return -5;
   if (C < 1 || C > kSortMaxConfigs) return -6;
   const int K = W / 32 + 1;
   const KernelFn kernel = pick(K);

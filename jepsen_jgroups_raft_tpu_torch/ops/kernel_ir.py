@@ -164,3 +164,58 @@ def make_stream_step(n_slots: int, latch: Callable, macro_latch: Callable,
                                 upd)
             return force_tail(carry, is_force, fslot)
     return step
+
+
+# ------------------------------------------------------- cycle closure
+# Caps and bookkeeping of the closure kernels (ops/cycle_closure.py,
+# ops/csrc/cycle_closure.cu), with the reference's values and meanings.
+
+#: Dependency graphs up to this many nodes take the monolithic closure
+#: (B7: one CTA per graph, the whole bit-packed matrix in shared memory).
+CYCLE_MAX_NODES = 512
+
+#: Graphs above CYCLE_MAX_NODES and up to this many nodes take the
+#: blocked closure (B8); rows beyond it skip the exact tier and say so
+#: (the ``cycle-skipped-size`` annotation, checker/cycle.py).
+CYCLE_MAX_NODES_TILED = 4096
+
+#: Default closure tile edge. Every node bucket the pow2+midpoint series
+#: emits above 512 (768, 1024, 1536, ...) is a multiple of 256, so the
+#: default tile always divides the bucket.
+CYCLE_TILE = 256
+
+
+def cycle_closure_tile(n_nodes: int, tile: int) -> int:
+    """Effective tile edge for a bucket: the largest power of two ≤
+    ``tile`` that divides ``n_nodes`` (768 = 3·256 admits any power of
+    two ≤ 256, not 512)."""
+    n, t = int(n_nodes), int(tile)
+    t = min(t, n)
+    if t >= 1:
+        t = 1 << (t.bit_length() - 1)  # largest pow2 ≤ t
+    while t > 1 and n % t:
+        t //= 2
+    return max(t, 1)
+
+
+def cycle_adjacency_bytes(n_nodes: int) -> int:
+    """Per-row resident bytes of the reference's monolithic closure: the
+    int32 adjacency/closure matrix plus the squared product (two [N, N]
+    int32 slabs)."""
+    return 2 * n_nodes * n_nodes * 4
+
+
+def cycle_closure_tile_bytes(n_nodes: int, tile: int) -> int:
+    """Per-row resident int32 bytes of one pivot step of the reference's
+    blocked closure: the [T, N] row panel, the [N, T] column panel, the
+    closed [T, T] diagonal block and one [T, N] product slab."""
+    return (3 * tile * n_nodes + tile * tile) * 4
+
+
+def cycle_closure_tiles(n_nodes: int, tile: int) -> int:
+    """Tile-program count of one blocked-closure pass, the reference's
+    bookkeeping for the ``cycle_tiles_run`` counter: per pivot block one
+    diagonal closure, N/T row-panel products, N/T column-panel products
+    and N/T fold products of N/T tiles each."""
+    nt = max(1, n_nodes // max(1, tile))
+    return nt * (1 + 2 * nt + nt * nt)

@@ -865,3 +865,217 @@ def test_race_and_wide_auto_on_card_match_cpu(cuda):
     ref = check_histories(wide, Counter(), device="cpu")
     assert [{k: r.get(k) for k in keys} for r in ours] == \
         [{k: r.get(k) for k in keys} for r in ref]
+
+
+# ------------------------------------------- the closure kernels (B7, B8)
+
+from jepsen_jgroups_raft_tpu_torch.checker import anomaly, cycle  # noqa: E402
+from jepsen_jgroups_raft_tpu_torch.history import synth  # noqa: E402
+from jepsen_jgroups_raft_tpu_torch.ops import _build  # noqa: E402
+from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc  # noqa: E402
+
+#: every node bucket the cycle tier emits, word-partial ones included
+CYCLE_BUCKETS = (4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384,
+                 512, 768, 1024, 1536, 2048, 3072, 4096)
+
+
+def _cycle_graphs(N, seed):
+    """Random digraphs, a dense DAG, a long chain, a planted N-cycle and
+    zero-padded rows, nodes shuffled: [G, N, N] int32 (three graphs above
+    2048 nodes, where the plain version is slow)."""
+    kinds = (("random", "chain", "cycle") if N > 2048 else
+             ("random", "dag", "chain", "cycle", "padded"))
+    rng = np.random.default_rng(seed)
+    out = []
+    for kind in kinds:
+        n = max(2, N - N // 5) if kind == "padded" else N
+        if kind in ("random", "padded"):
+            g = (rng.random((n, n)) < 1.5 / n).astype(np.int32)
+        elif kind == "dag":
+            g = np.triu((rng.random((n, n)) < 0.3).astype(np.int32), 1)
+        else:
+            g = np.zeros((n, n), np.int32)
+            g[np.arange(n - 1), np.arange(1, n)] = 1
+            if kind == "cycle":
+                g[n - 1, 0] = 1
+        np.fill_diagonal(g, 0)
+        p = rng.permutation(n)
+        full = np.zeros((N, N), np.int32)
+        full[:n, :n] = g[np.ix_(p, p)]
+        out.append(full)
+    return np.stack(out), kinds
+
+
+def _closure_kernel_and_plain(adj, N, tile=None):
+    name = "cycle_closure" if N <= 512 else "cycle_closure_tiled"
+    before = cc.launch_counts()[name]
+    has, closed = cc.cycle_closure(adj, tile)
+    torch.cuda.synchronize()
+    assert cc.launch_counts()[name] == before + 1
+    assert has.device == adj.device and has.dtype == torch.bool
+    p_has, p_closed = cc.closure_plain(adj, tile)
+    assert has.cpu().tolist() == p_has.cpu().tolist()
+    assert torch.equal(closed, p_closed)
+    return has.cpu()
+
+
+@pytest.mark.parametrize("N", CYCLE_BUCKETS, ids=lambda n: f"N{n}")
+def test_cycle_closure_kernel_every_bucket(cuda, N):
+    adj, kinds = _cycle_graphs(N, N)
+    has = _closure_kernel_and_plain(torch.from_numpy(adj).to(cuda), N)
+    assert has[kinds.index("cycle")] and not has[kinds.index("chain")]
+    flags = [cycle.host_has_cycle(g) for g in adj]
+    assert has.tolist() == flags
+
+
+@pytest.mark.parametrize("N,T", [(768, 128), (1024, 32), (1024, 64),
+                                 (1536, 512), (2048, 16)],
+                         ids=lambda x: str(x))
+def test_cycle_closure_tiled_kernel_at_other_tiles(cuda, N, T):
+    adj, _ = _cycle_graphs(N, N + T)
+    _closure_kernel_and_plain(torch.from_numpy(adj).to(cuda), N, T)
+
+
+def test_cycle_closure_bits_on_card_match_host_packing(cuda):
+    """Host-packed bit rows (the tier's path) through the kernels."""
+    for N in (48, 768):
+        adj, _ = _cycle_graphs(N, 3)
+        bits = torch.from_numpy(cc.pack_adjacency(list(adj), N)).to(cuda)
+        has, closed = cc.cycle_closure_bits(bits, N)
+        p_has, p_closed = cc.closure_plain(torch.from_numpy(adj), None)
+        assert has.cpu().tolist() == p_has.tolist()
+        assert np.array_equal(cc.unpack_adjacency(closed.cpu().numpy(), N),
+                              p_closed.numpy())
+
+
+def test_cycle_closure_refuses_bad_inputs(cuda):
+    bits = torch.zeros((2, 96, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        cc.cycle_closure_bits(bits, 4097)
+    with pytest.raises(ValueError):
+        cc.cycle_closure_bits(bits, 64)  # shape is [B, 96, 3]
+    with pytest.raises(TypeError):
+        cc.cycle_closure_bits(bits.to(torch.int64), 96)
+    with pytest.raises(ValueError):
+        cc.cycle_closure_bits(bits[:, :, :2], 96)
+
+
+def test_cycle_closure_broken_build_raises(cuda, tmp_path, monkeypatch):
+    """A CUDA tensor with a kernel source that does not compile raises:
+    no plain version stands in for the kernel."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in _build.CSRC.glob("*.cuh"):
+        (src / f.name).write_text(f.read_text())
+    (src / "cycle_closure.cu").write_text(
+        (_build.CSRC / "cycle_closure.cu").read_text() + "\n#error broken\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(_build._LIBS, "cycle_closure", raising=False)
+    adj = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="build failed"):
+        cc.cycle_closure(adj)
+
+
+def test_find_cycles_on_card_matches_cpu(cuda, monkeypatch):
+    """Every arm of the tier on the card gives the host's rows,
+    witnesses included; the kernel arm launches B7 and B8."""
+    rng = random.Random(3)
+    m = CasRegister()
+    encs = []
+    for n_ops in (40, 60, 900, 1000):
+        for i in range(3):
+            h = list(random_valid_history(rng, "register", n_ops=n_ops,
+                                          n_procs=5, crash_p=0.05,
+                                          max_crashes=3))
+            if i == 1:
+                rows, _ = synth.plant_stale_read(h, rng)
+                h = list(build_history(rows))
+            encs.append(encode_history(h, m))
+    want = cycle.find_cycles(encs, m, device="cpu")
+    assert sum(1 for c in want if c and "cycle" in c) >= 4
+    for env in ({}, {"JGRAFT_CYCLE_KERNEL": "1"},
+                {"JGRAFT_CYCLE_KERNEL": "1", "JGRAFT_CYCLE_CONDENSE": "0"}):
+        for k in ("JGRAFT_CYCLE_KERNEL", "JGRAFT_CYCLE_CONDENSE"):
+            monkeypatch.delenv(k, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        cc.reset_launch_counts()
+        assert cycle.find_cycles(encs, m) == want
+        if env:
+            assert min(cc.launch_counts().values()) >= 1
+
+
+def test_sequential_rung_on_card_matches_cpu(cuda, monkeypatch):
+    monkeypatch.setenv("JGRAFT_GREEDY_CERTIFY", "0")
+    monkeypatch.setenv("JGRAFT_CYCLE_KERNEL", "1")
+    rng = random.Random(9)
+    hs = []
+    for i in range(12):
+        h = list(random_valid_history(rng, "register", n_ops=100,
+                                      n_procs=5, crash_p=0.05,
+                                      max_crashes=3, value_range=5))
+        if i % 3 == 0:
+            rows, _ = synth.plant_stale_read(h, rng)
+            h = list(build_history(rows))
+        hs.append(h)
+    keys = ("valid?", "algorithm", "decided-tier", "cycle", "sc-refuted",
+            "consistency")
+    for rung in ("sequential", "session"):
+        cc.reset_launch_counts()
+        ours = check_histories(hs, CasRegister(), consistency=rung)
+        assert cc.launch_counts()["cycle_closure"] >= 1
+        host = check_histories(hs, CasRegister(), device="cpu",
+                               consistency=rung)
+        assert [{k: r.get(k) for k in keys} for r in ours] == \
+            [{k: r.get(k) for k in keys} for r in host]
+
+
+def test_anomaly_rung_on_card_matches_host(cuda, monkeypatch):
+    rows = synth.listappend_txn_rows(random.Random(23), 900, 12, 5)
+    for plants in ((), ("G-single",), ("G-single", "G1c")):
+        r = rows
+        for j, kind in enumerate(plants):
+            r = synth.plant_anomaly(r, kind, f"p{j}", 100 + 10 * j)
+        h = build_history(r)
+        host = anomaly.certify_history(h, kernel=False)
+        for condense in ("1", "0"):
+            monkeypatch.setenv("JGRAFT_CYCLE_CONDENSE", condense)
+            assert anomaly.certify_history(h) == host
+
+
+# ------------------------------------------ list-append on the sort kernel
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("W", [1, 4, 8, 12, 16], ids=lambda w: f"W{w}")
+def test_sort_scan_list_append_twin(cuda, W, macro):
+    m = MODELS["list-append"]()
+    rng = random.Random(70 + W)
+    hs = [list(random_valid_history(rng, "list-append", n_ops=30,
+                                    n_procs=min(W, 5),
+                                    crash_p=0.3 if W > 5 else 0.1,
+                                    max_crashes=max(W - 5, 0)))
+          for _ in range(6)]
+    encs = [encode_history(h, m) for h in hs]
+    batch = pack_macro_batch(encs) if macro else pack_batch(encs)
+    _sort_kernel_and_plain(torch.from_numpy(batch["events"]).to(cuda),
+                           torch.from_numpy(batch["n_events"]).to(cuda),
+                           ls.bucket_slots(max(e.n_slots for e in encs)),
+                           64, batch.get("macro_p"), m)
+
+
+@pytest.mark.parametrize("P", [None, 3, 16], ids=["legacy", "P3", "P16"])
+@pytest.mark.parametrize("W", [1, 6, 12, 40, 127], ids=lambda w: f"W{w}")
+def test_sort_scan_list_append_twin_on_arbitrary_rows(cuda, W, P):
+    """Negative states, states past 32^5 and products past int32: the
+    signed bound and the wrapping product of models.cuh."""
+    m = MODELS["list-append"]()
+    rng = np.random.default_rng(11 * W + (P or 0))
+    B, E = 32, 32
+    ev = synth.random_mask_rows(rng, B, E, W, P, "list-append")
+    n_events = rng.integers(0, E + 1, size=B, dtype=np.int32)
+    ev[np.arange(E)[None, :] >= n_events[:, None]] = 0
+    _sort_kernel_and_plain(torch.from_numpy(ev).to(cuda),
+                           torch.from_numpy(n_events).to(cuda), W,
+                           4 if W > 12 else 64, P, m)
