@@ -10,10 +10,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
                mask_scan, sort_scan, segment_scan, cycle_closure: B7 and
-               B8) and the instrumented mask_scan_profile from this
-               checkout's sources into build/torch_kernels/, one nvcc per
-               library, started together; ptxas's report for each; the
-               paths' kernels must show no spill bytes and no stack frame
+               B8, election_safety) and the instrumented
+               mask_scan_profile from this checkout's sources into
+               build/torch_kernels/, one nvcc per library, started
+               together; ptxas's report for each; the paths' kernels must
+               show no spill bytes and no stack frame
   3. kernel  — dense_scan against its plain PyTorch version, bitwise, at
                every window W = 1..10 with the largest domain S the caps
                allow, at W = 1 / S = 1 and at the north-star shape, both
@@ -143,13 +144,39 @@ Phases, each printing JSON lines; any failure exits non-zero:
                ladder
 Then B7 and B8 on the batches the sequential path gave them (kernel
 against plain, bitwise; kernel, plain and library times; the bound).
+ 26. election_kernel — B9's election-safety kernel against its plain
+               version, bitwise, at N = 1, 2, 31, 32, 33, 1024, 4096 and
+               65536 (all safe; a second leader planted early, in the
+               middle and last; one observation repeated; a padded tail;
+               negative terms), also cut by a valid_len; timed alone at
+               512 runs × 4096 pooled observations beside the plain
+               version and the bound; and on the pooled observations of
+               16 election runs written to a store (8 with a planted
+               second leader), held to `check_election_safety_np`
+ 27. recorded_main — BASELINE config 3 from a store: the 512-key
+               multi-register run (16 ops a key, 10 threads, 8 keys with
+               windows over 12; seed 20260729 + 23), a counter run and an
+               election run with views, re-checked by `check_recorded` on
+               the card (warm-up, best of 3): all VALID, dense_scan,
+               mask_scan and sort_scan launched, the tiers; per key
+               through `IndependentLinearizable`, the 8 wide keys on the
+               fast DFS; algorithm "cpu" gives the same verdicts and
+               n-unknown; the election run's pooled observations through
+               the election kernel beside the host verdict (its main
+               path); the `check` CLI in a subprocess (rc 0, the same
+               verdicts); a copy with one key's read corrupted: INVALID,
+               that key named, a counterexample attached
+ 28. keyed_main — BASELINE config 4 (16 register histories of 10k ops)
+               tupled into one history through `IndependentLinearizable`
+               on the card: per key equal to `check_histories`
 
 Every phase but lin_fastpath runs with JGRAFT_LIN_FASTPATH=0 (set at
 the start), as the reference's test suite runs: at the default knobs
 the host certifier decides most valid rows before any kernel.
 
 Then the kernels' summary line (dense_scan, mask_scan, sort_scan,
-segment_scan, cycle_closure, cycle_closure_tiled), the card's
+segment_scan, cycle_closure, cycle_closure_tiled, election_safety; each
+with its library's ptxas registers and spill bytes), the card's
 `nvidia-smi` name and power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device, and when the port's package is not beside it.
 """
@@ -161,7 +188,9 @@ import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 SEED = 20260729
 N_HISTORIES = 1000
@@ -214,6 +243,9 @@ KERNELS = {
     "cycle_closure_tiled": (
         "jepsen_jgroups_raft_tpu_torch/ops/csrc/cycle_closure.cu",
         "jepsen_jgroups_raft_tpu/ops/kernel_ir.py:431"),
+    "election_safety": (
+        "jepsen_jgroups_raft_tpu_torch/ops/csrc/election_safety.cu",
+        "jepsen_jgroups_raft_tpu/models/leader.py:163"),
 }
 #: kernels built into another kernel's library (ops/_build.py names)
 KERNEL_LIBRARY = {"cycle_closure_tiled": "cycle_closure"}
@@ -1445,19 +1477,24 @@ def long_histories(name: str):
 
 
 def reset_all_launch_counts() -> None:
-    from jepsen_jgroups_raft_tpu_torch.ops import (dense_scan, linear_scan,
+    from jepsen_jgroups_raft_tpu_torch.ops import (dense_scan,
+                                                   election_safety,
+                                                   linear_scan,
                                                    segment_scan)
 
-    for mod in (dense_scan, linear_scan, segment_scan):
+    for mod in (dense_scan, linear_scan, segment_scan, election_safety):
         mod.reset_launch_counts()
 
 
 def all_launch_counts() -> dict:
-    from jepsen_jgroups_raft_tpu_torch.ops import (dense_scan, linear_scan,
+    from jepsen_jgroups_raft_tpu_torch.ops import (dense_scan,
+                                                   election_safety,
+                                                   linear_scan,
                                                    segment_scan)
 
     return {**dense_scan.launch_counts(), **linear_scan.launch_counts(),
-            **segment_scan.launch_counts()}
+            **segment_scan.launch_counts(),
+            **election_safety.launch_counts()}
 
 
 def with_env(name: str, value, fn):
@@ -2345,6 +2382,362 @@ def closure_line(dev, kernel: str, batches: dict, launches: int,
     return {"launches": launches, "max_abs_err": err, **total}
 
 
+#: election_kernel: the kernel against its plain version at these row
+#: lengths (each with every case of `election_cases`), then timed at the
+#: users' size: 512 election runs × 4096 pooled observations
+ELECTION_NS = (1, 2, 31, 32, 33, 1024, 4096, 65536)
+ELECTION_BATCH = (512, 4096)
+#: election runs written for the agreement with the host check (half
+#: with a planted second leader), and their ops
+ELECTION_RUNS = 16
+ELECTION_RUN_OPS = 1000
+#: the fewest 32-bit operations the kernel does per observation: the
+#: term's multiply-shift hash and the compare of the slot's term
+ELECTION_OPS_PER_OBS = 3
+#: recorded_main's store: bench.py's recorded config 3 (512 keys of 16
+#: ops, 10 threads a key, values in [0, 5), 8 timeout-polluted keys), a
+#: counter run (suite config 2's shape) and an election run with views
+RECORDED_SEED = SEED + 23
+
+
+def election_cases(N: int, seed: int):
+    """[7, N, 2] int32 rows of pooled observations and their kinds: all
+    safe; one planted second leader early, in the middle and last; one
+    observation repeated; a padded tail; negative terms with two
+    leaders (ignored by the check)."""
+    import numpy as np
+
+    from jepsen_jgroups_raft_tpu_torch.history.synth import (
+        election_observation_rows)
+
+    kinds = ("safe", "early", "middle", "last", "repeated", "padded",
+             "negative")
+    rng = np.random.default_rng(seed)
+    obs = election_observation_rows(rng, len(kinds), N,
+                                    n_terms=max(2, min(N // 3, 4096)))
+    for b, kind in enumerate(kinds):
+        if kind in ("early", "middle", "last") and N > 1:
+            j = {"early": 1, "middle": N // 2, "last": N - 1}[kind]
+            obs[b, j] = (obs[b, 0, 0], obs[b, 0, 1] + 1)
+        elif kind == "repeated":
+            obs[b] = obs[b, 0]
+        elif kind == "padded":
+            obs[b, int(rng.integers(0, N + 1)):] = -1
+        elif kind == "negative":
+            half = (N + 1) // 2
+            obs[b, :half, 0] = -1 - (np.arange(half) % 2)
+    return obs, kinds
+
+
+def plant_second_leader(history, rng):
+    """A copy of an election history in which one ok views op also
+    reports, for one of its nodes, another leader at that node's term."""
+    ops = list(history)
+    cands = [j for j, op in enumerate(ops) if op.type == "ok"
+             and op.f == "views"
+             and any(v[1] is not None for v in op.value)]
+    j = rng.choice(cands)
+    node, _, term = rng.choice([v for v in ops[j].value if v[1] is not None])
+    ops[j] = ops[j].replace(value=list(ops[j].value) + [(node, "zz", term)])
+    return ops
+
+
+def pad_observations(rows):
+    """[R, max N, 2] int32 numpy batch of per-run observation arrays,
+    padded with (-1, -1)."""
+    import numpy as np
+
+    n = max(1, max(len(o) for o in rows))
+    out = np.full((len(rows), n, 2), -1, np.int32)
+    for i, o in enumerate(rows):
+        out[i, :len(o)] = o
+    return out
+
+
+def phase_election_kernel(dev, root) -> dict:
+    """B9's election-safety kernel against its plain version, bitwise,
+    at every length of ELECTION_NS on every case of `election_cases`
+    (also cut by a valid_len); timed alone at ELECTION_BATCH (CUDA
+    events) beside the plain version and the bound; and on the pooled
+    observations of ELECTION_RUNS election runs written to `root` (half
+    with a planted second leader) and loaded back, held to the host's
+    `check_election_safety_np`. Returns the kernels-line numbers."""
+    import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.core.store import load_history
+    from jepsen_jgroups_raft_tpu_torch.history import synth
+    from jepsen_jgroups_raft_tpu_torch.history.ops import History
+    from jepsen_jgroups_raft_tpu_torch.models.leader import (
+        MajorityLeaderModel, check_election_safety,
+        check_election_safety_np, check_election_safety_plain)
+    from jepsen_jgroups_raft_tpu_torch.ops.election_safety import (
+        election_safety)
+
+    def both(obs, valid_len=None):
+        got = check_election_safety(obs, valid_len).cpu()
+        want = check_election_safety_plain(obs, valid_len).cpu()
+        return got.tolist(), int((got != want).sum())
+
+    err, compared = 0, 0
+    for N in ELECTION_NS:
+        obs, kinds = election_cases(N, SEED + N)
+        t = torch.from_numpy(obs).to(dev)
+        got, bad = both(t)
+        vl = torch.from_numpy(np.random.default_rng(N).integers(
+            0, N + 1, size=len(kinds)).astype(np.int32)).to(dev)
+        _, bad_vl = both(t, vl)
+        err = max(err, bad, bad_vl)
+        compared += 2 * len(kinds)
+        expect = {"safe": True, "repeated": True, "padded": True}
+        if N > 1:
+            expect.update(early=False, middle=False, last=False)
+        view = dict(zip(kinds, got))
+        emit("election_kernel", N=N, verdicts=view, mismatches=bad,
+             mismatches_valid_len=bad_vl)
+        if bad or bad_vl or any(view[k] is not v for k, v in expect.items()):
+            raise AssertionError(f"election_kernel N={N}: the kernel and "
+                                 f"its plain version disagree, or a case "
+                                 f"has the wrong verdict: {view}")
+
+    B, N = ELECTION_BATCH
+    rng = np.random.default_rng(SEED + 24)
+    obs = synth.election_observation_rows(rng, B, N)
+    planted = np.arange(B) % 8 == 3
+    for b in np.flatnonzero(planted):
+        j = int(rng.integers(1, N))
+        obs[b, j] = (obs[b, 0, 0], obs[b, 0, 1] + 1)
+    t = torch.from_numpy(obs).to(dev)
+    got, bad = both(t)
+    if bad or got != (~planted).tolist():
+        raise AssertionError("election_kernel: the users' size batch "
+                             "disagrees with its plain version or with "
+                             "its planted rows")
+    kernel_ms = event_ms(lambda: election_safety(t), reps=10)
+    plain_ms = event_ms(lambda: check_election_safety_plain(t), reps=3)
+    t_bytes = (8 * B * N + B) / HBM_BYTES_PER_S
+    t_ops = ELECTION_OPS_PER_OBS * B * N / CORE_OPS_PER_S
+
+    runs, want = [], []
+    prng = random.Random(SEED + 26)
+    for i in range(ELECTION_RUNS):
+        h = synth.election_history(random.Random(SEED + 27 + i),
+                                   n_ops=ELECTION_RUN_OPS)
+        if i % 2:
+            h = plant_second_leader(h, prng)
+        runs.append(synth.write_run(root, f"election-{i}", "election",
+                                    History(h)))
+        want.append(i % 2 == 0)
+    pooled = [MajorityLeaderModel().pooled(load_history(d).client_ops(),
+                                           {})[0] for d in runs]
+    host = [check_election_safety_np(o)[0] for o in pooled]
+    got, bad = both(torch.from_numpy(pad_observations(pooled)).to(dev))
+    emit("election_kernel_runs", runs=len(runs),
+         observations=[len(o) for o in pooled], kernel=got, host_np=host,
+         mismatches=bad)
+    if bad or got != host or host != want:
+        raise AssertionError("election_kernel: the kernel disagrees with "
+                             "check_election_safety_np on the runs")
+    emit("election_kernel_timed", rows=B, observations=N,
+         kernel_ms=kernel_ms, plain_ms=plain_ms,
+         bound_ms=max(t_bytes, t_ops) * 1e3, t_bytes=t_bytes, t_ops=t_ops,
+         cases_compared=compared)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "t_bytes": t_bytes, "t_ops": t_ops, "library_ms": None}
+
+
+def corrupt_keyed_read(run_dir, dst, key: int) -> None:
+    """A copy of multi-register run `run_dir` in `dst` with key `key`'s
+    last ok read moved outside the register's values [0, 5)."""
+    from pathlib import Path
+
+    dst.mkdir(parents=True)
+    for name in ("test.json", "results.json"):
+        (dst / name).write_text((Path(run_dir) / name).read_text())
+    ops = [json.loads(line) for line in
+           (Path(run_dir) / "history.jsonl").read_text().splitlines()]
+    j = max(i for i, o in enumerate(ops) if o["type"] == "ok"
+            and o["f"] == "read" and o["value"][0] == key)
+    v = ops[j]["value"][1]
+    ops[j]["value"][1] = 17 if v is None else v + 11
+    (dst / "history.jsonl").write_text(
+        "".join(json.dumps(o) + "\n" for o in ops))
+
+
+def phase_recorded_main(dev, root) -> dict:
+    """BASELINE config 3 re-checked from a store on the card: the
+    512-key multi-register run, a counter run and an election run with
+    views written through the port's store, then `check_recorded` (a
+    warm-up, then best of 3, the launch counts set to 0 just before each
+    run and read just after): all VALID, dense_scan, mask_scan and
+    sort_scan launched. Per key through IndependentLinearizable: the 8
+    wide keys (W > 12) on the reference's tier (fast DFS, "dfs" /
+    "host"). Guard: the verdicts and n-unknown of algorithm "cpu". The
+    election run's pooled observations through the election kernel
+    beside the host verdict (its main-path launch). Then the `check`
+    CLI in a subprocess (rc 0, the same verdicts), and a copy with one
+    key's read corrupted: INVALID, that key named, a counterexample."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.independent import (
+        IndependentLinearizable)
+    from jepsen_jgroups_raft_tpu_torch.checker.recorded import (
+        check_recorded)
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import consume_tiers
+    from jepsen_jgroups_raft_tpu_torch.core.store import load_history
+    from jepsen_jgroups_raft_tpu_torch.history import synth
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+    from jepsen_jgroups_raft_tpu_torch.models.leader import (
+        MajorityLeaderModel, check_election_safety,
+        check_election_safety_np)
+
+    t0 = time.perf_counter()
+    runs = [synth.keyed_register_run(root, RECORDED_SEED),
+            synth.counter_run(root, RECORDED_SEED + 1),
+            synth.election_run(root, RECORDED_SEED + 2)]
+    synth_s = time.perf_counter() - t0
+    check_recorded(runs, device=dev)  # warm-up
+    walls = []
+    for _ in range(3):
+        consume_tiers()
+        torch.cuda.synchronize()
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        summary = check_recorded(runs, device=dev)
+        walls.append(time.perf_counter() - t0)
+        launches = all_launch_counts()
+        tiers = consume_tiers()
+    if summary["valid?"] is not True or summary["n-unknown"] or \
+            summary["n-valid"] != summary["histories"]:
+        raise AssertionError(f"recorded_main: not all VALID: {summary}")
+    for k in ("dense_scan", "mask_scan", "sort_scan"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"recorded_main: no {k} launch: "
+                                 f"{launches}")
+
+    keyed = IndependentLinearizable(CasRegister, device=dev).check(
+        {}, load_history(runs[0]))
+    by = {}
+    for r in keyed["results"].values():
+        key = f"{r.get('algorithm')}/{r.get('decided-tier')}"
+        by[key] = by.get(key, 0) + 1
+    wide = {k: (r["algorithm"], r["decided-tier"],
+                r["concurrency-window"])
+            for k, r in keyed["results"].items()
+            if r["concurrency-window"] > 12}
+    if keyed["valid?"] is not True or len(wide) != 8 or \
+            any(v[:2] != ("dfs", "host") for v in wide.values()):
+        raise AssertionError(f"recorded_main: a key is not VALID or a "
+                             f"wide key left the fast DFS tier: {wide}")
+
+    guard = check_recorded(runs, algorithm="cpu", device=dev)
+    if guard["run-verdicts"] != summary["run-verdicts"] or \
+            guard["n-unknown"] != summary["n-unknown"]:
+        raise AssertionError(f"recorded_main: algorithm cpu disagrees: "
+                             f"{guard}")
+
+    pooled, _ = MajorityLeaderModel().pooled(
+        load_history(runs[2]).client_ops(), {})
+    obs = torch.from_numpy(pad_observations([pooled])).to(dev)
+    reset_all_launch_counts()
+    safe = check_election_safety(obs).cpu().tolist()
+    election_launches = all_launch_counts()["election_safety"]
+    if safe != [check_election_safety_np(pooled)[0]] or \
+            safe != [summary["run-verdicts"][str(runs[2])]]:
+        raise AssertionError("recorded_main: the election kernel's verdict "
+                             "differs from the host's")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "jepsen_jgroups_raft_tpu_torch", "check",
+                          str(root)], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    cli = json.loads(out.stdout) if out.returncode == 0 else {}
+    mine = {d: v for d, v in cli.get("run-verdicts", {}).items()
+            if d in summary["run-verdicts"]}
+    if out.returncode != 0 or mine != summary["run-verdicts"]:
+        raise AssertionError(f"recorded_main: the check CLI exited "
+                             f"{out.returncode} or its verdicts differ: "
+                             f"{out.stderr[-2000:]}")
+
+    key = random.Random(RECORDED_SEED + 3).randrange(512)
+    bad = root / "corrupted" / "run"
+    corrupt_keyed_read(runs[0], bad, key)
+    bad_summary = check_recorded([bad], device=dev)
+    bad_keyed = IndependentLinearizable(CasRegister, device=dev).check(
+        {"store_dir": str(bad)}, load_history(bad))
+    named = [k for k, r in bad_keyed["results"].items()
+             if r["valid?"] is not True]
+    ce = bad_keyed["results"].get(str(key), {}).get("counterexample", {})
+    if bad_summary["valid?"] is not False or \
+            bad_summary["n-invalid"] != 1 or named != [str(key)] or \
+            not ce.get("minimal-ops") or "file" not in ce:
+        raise AssertionError(f"recorded_main: the corrupted key {key} was "
+                             f"not named INVALID with a counterexample: "
+                             f"{bad_summary}, {named}")
+    emit("recorded_main", runs=len(runs), histories=summary["histories"],
+         synth_s=synth_s, walls=walls, check_s_best=min(walls),
+         hist_per_s=summary["histories"] / min(walls),
+         time_s=summary["time-s"], tiers=tiers, launches=launches,
+         keyed_algorithm_tier=by, wide_keys=wide,
+         cpu_guard_time_s=guard["time-s"], cli_s=cli_s,
+         election_kernel_verdict=safe, election_launches=election_launches,
+         corrupted_key=key,
+         counterexample_minimal_ops=ce["minimal-op-count"],
+         device=torch.cuda.get_device_name(dev))
+    return {"election_launches": election_launches}
+
+
+def phase_keyed_main(dev) -> dict:
+    """BASELINE config 4 (bench.py:998-1003: 16 register histories of
+    10k ops, 5 processes, crash_p 0.02, ≤ 4 crashes; long_main's
+    histories) tupled into one multi-key history and checked through
+    IndependentLinearizable on the card; per key valid?, algorithm,
+    decided-tier, kernel, op-count and window must equal
+    `check_histories` on the same sub-histories."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.independent import (
+        IndependentLinearizable)
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+    from jepsen_jgroups_raft_tpu_torch.history.ops import History, Op
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+
+    hs, synth_s = long_histories("config4")
+    tupled = History()
+    for k, h in enumerate(hs):
+        for op in h:
+            tupled.append(Op(process=1000 * k + op.process, type=op.type,
+                             f=op.f, value=(k, op.value),
+                             time=len(tupled)))
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    keyed = IndependentLinearizable(CasRegister, device=dev).check(
+        {}, tupled)
+    keyed_s = time.perf_counter() - t0
+    launches = all_launch_counts()
+    t0 = time.perf_counter()
+    want = check_histories(hs, CasRegister(), device=dev)
+    direct_s = time.perf_counter() - t0
+    fields = ("valid?", "algorithm", "decided-tier", "kernel", "op-count",
+              "concurrency-window")
+    got = [{f: keyed["results"][str(k)].get(f) for f in fields}
+           for k in range(len(hs))]
+    exp = [{f: r.get(f) for f in fields} for r in want]
+    emit("keyed_main", keys=len(hs), ops=len(tupled), synth_s=synth_s,
+         keyed_s=keyed_s, check_histories_s=direct_s, launches=launches,
+         tiers=sorted({(r["kernel"], r["decided-tier"]) for r in got}),
+         device=torch.cuda.get_device_name(dev))
+    if got != exp or keyed["valid?"] is not True:
+        raise AssertionError("keyed_main: IndependentLinearizable differs "
+                             "from check_histories on config 4")
+    return {}
+
+
 def main() -> int:
     try:
         import torch
@@ -2566,6 +2959,22 @@ def main() -> int:
                                   ck["max_abs_err"])
     emit("closure_main_path_summary", seconds=time.perf_counter() - t0)
 
+    # 26-28: B9's election-safety kernel; the re-check of recorded runs
+    # (BASELINE config 3) and the per-key checker (config 4), each store
+    # written to a directory of its own
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        t0 = time.perf_counter()
+        line["election_safety"] = phase_election_kernel(
+            dev, Path(tmp) / "elections")
+        emit("election_kernel_summary", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        rec = phase_recorded_main(dev, Path(tmp) / "recorded")
+        line["election_safety"]["launches"] = rec["election_launches"]
+        emit("recorded_main_summary", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_keyed_main(dev)
+    emit("keyed_main_summary", seconds=time.perf_counter() - t0)
+
     line["mask_scan"] = {
         "launches": sum(x["launches"] for x in mask_line),
         "max_abs_err": max(x["max_abs_err"] for x in mask_line),
@@ -2576,10 +2985,12 @@ def main() -> int:
     errs = {"dense_scan": max(corner_err, groups_err["dense_scan"]),
             "mask_scan": max(mask_err, groups_err["mask_scan"]),
             "sort_scan": sort_err, "segment_scan": seg_err,
-            "cycle_closure": 0, "cycle_closure_tiled": 0}
+            "cycle_closure": 0, "cycle_closure_tiled": 0,
+            "election_safety": 0}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         x = line[name]
+        rep = ptxas[KERNEL_LIBRARY.get(name, name)]
         if x["launches"] <= 0:
             raise AssertionError(f"{name}: never launched on its main path")
         kernels.append({
@@ -2590,7 +3001,10 @@ def main() -> int:
             "bound_ms": max(x["t_bytes"], x["t_ops"]) * 1e3,
             "bound_by": "bytes" if x["t_bytes"] >= x["t_ops"]
             else "operations",
-            "library_ms": x.get("library_ms")})
+            "library_ms": x.get("library_ms"),
+            "registers": rep["max_registers"],
+            "spill_bytes": rep["spill_store_bytes"] +
+            rep["spill_load_bytes"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

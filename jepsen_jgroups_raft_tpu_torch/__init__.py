@@ -14,13 +14,18 @@ knobs a host witness certifier decides most valid rows first. The
 weaker rungs (sequential, session) relax the encodings and refute by
 dependency cycle, and the transactional anomaly rung certifies
 list-append histories, both through the closure kernels
-(`ops/csrc/cycle_closure.cu`).
+(`ops/csrc/cycle_closure.cu`). Recorded runs are re-checked from the
+store (`checker/recorded.py`, the `check` CLI), multi-key histories per
+key in one batch (`checker/independent.py`), and election safety has a
+batched check on the card (`ops/csrc/election_safety.cu`).
 
 Layout (mirrors the reference's module paths):
   platform.py          env knobs, `resolve_device`, `toolchain_stamp`
   history/             op records, encoding, macro packing, synthesis
+  core/store.py        the store's on-disk format (the reference's)
+  cli.py, __main__.py  `python -m jepsen_jgroups_raft_tpu_torch check`
   models/              the model protocol, register, counter, queue,
-                       set, list-append
+                       set, list-append, the election-safety models
   ops/kernel_ir.py     caps, macro row layout, plain-torch step parts
   ops/dense_scan.py    grouping, the kernel wrappers `dense_scan` and
                        `mask_scan` and their plain versions
@@ -29,10 +34,13 @@ Layout (mirrors the reference's module paths):
                        kernel wrapper `segment_scan`
   ops/cycle_closure.py the closure kernels' wrapper `cycle_closure`
                        and their plain versions
+  ops/election_safety.py the election-safety kernel's wrapper
   ops/csrc/            CUDA sources, built by ops/_build.py at first use
   checker/             `check_histories`, the lin fast path, the host
                        tiers, the consistency rungs and the cycle tier,
-                       the anomaly rung, counterexamples, tier stats
+                       the anomaly rung, counterexamples, tier stats,
+                       the per-key checker, recorded runs, the counter's
+                       interval tier, the set and queue analyses
   interop.py           reading reference encodings, plans and graphs by
                        duck type
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import random
 
-from .ops import FAIL, INFO, INVOKE, OK, History, Op
+from .ops import FAIL, INFO, INVOKE, NEMESIS, OK, History, Op
 
 
 def build_history(rows) -> History:
@@ -587,3 +587,179 @@ def random_segment_inputs(rng, K: int, n_rows: int, n_slots: int,
     n_events = rng.integers(n_rows // 3, n_rows + 1, size=K).astype(np.int32)
     n_events[0] = n_rows
     return ev, vals, seed_mask, seed_state, n_events
+
+
+# ------------------------------------------------------ recorded runs
+# Stores shaped like the harness's own runs, written through the port's
+# `core/store.save_test` (the reference's on-disk format), for the
+# re-check of recorded runs (`checker/recorded.py`, the `check` CLI).
+
+#: the partition nemesis's op names (the reference's nemesis/package.py)
+PARTITION_FS = ("start-partition", "stop-partition")
+
+
+def _crashed_pids(rows) -> set:
+    """Processes whose last op in `rows` is an invocation left open or an
+    info completion: crashed workers, never used again."""
+    last: dict = {}
+    for p, typ, _, _ in rows:
+        last[p] = typ
+    return {p for p, typ in last.items() if typ in (INVOKE, INFO)}
+
+
+def keyed_register_history(rng: random.Random, n_keys: int = 512,
+                           ops_per_key: int = 16, concurrency: int = 10,
+                           value_range: int = 5, crash_p: float = 0.05,
+                           max_crashes: int = 3, n_wide: int = 8,
+                           wide_crash_p: float = 0.5,
+                           wide_max_crashes: int = 8,
+                           wide_min_window: int = 13,
+                           nemesis_every: int = 32) -> History:
+    """A multi-register run shaped like the reference suite's recorded
+    config 3 (bench.py:1946-1958: 5 nodes, `concurrency` 10 threads,
+    `ops_per_key` 16 ops a key, values in [0, 5)). With min(2n,
+    concurrency) = 10 threads a key (the reference's
+    workload/register.py), one group of `concurrency` workers works one
+    key after another; each
+    key's ops are a `random_valid_history` over that group, every value
+    tupled `(key, v)`. A crashed worker comes back under a fresh process
+    id (jepsen's remapping) and keeps it for later keys. Standing in for
+    the partition nemesis's timeouts, `n_wide` keys (drawn by `rng`) take
+    `wide_crash_p` with ≤ `wide_max_crashes` crashes, redrawn until the
+    encoded window is ≥ `wide_min_window`; the rest take `crash_p` with
+    ≤ `max_crashes`. Nemesis ops (process "nemesis", type info,
+    start-partition / stop-partition) sit between keys every
+    `nemesis_every` keys; `client_ops()` drops them."""
+    from ..models.register import CasRegister
+    from .packing import encode_history
+
+    wide = set(rng.sample(range(n_keys), n_wide))
+    slots = list(range(concurrency))  # the live worker of each thread
+    next_pid = concurrency
+    out: list = []
+    for k in range(n_keys):
+        if k % nemesis_every == 0 and k:
+            f = PARTITION_FS[(k // nemesis_every + 1) % 2]
+            v = "majority" if f == PARTITION_FS[0] else None
+            out += [(NEMESIS, INFO, f, v), (NEMESIS, INFO, f, v)]
+        while True:
+            sub = random_valid_history(
+                rng, "register", n_ops=ops_per_key, n_procs=concurrency,
+                value_range=value_range,
+                crash_p=wide_crash_p if k in wide else crash_p,
+                max_crashes=wide_max_crashes if k in wide else max_crashes)
+            if k not in wide or encode_history(
+                    sub, CasRegister()).n_slots >= wide_min_window:
+                break
+        rows = [(op.process, op.type, op.f, op.value) for op in sub]
+        crashed = _crashed_pids(rows)
+        universe = concurrency + len(crashed)
+        pid = {p: slots[p] for p in range(concurrency)}
+        for q in range(concurrency, universe):
+            pid[q] = next_pid
+            next_pid += 1
+        out += [(pid[p], typ, f, (k, v)) for p, typ, f, v in rows]
+        slots = [pid[p] for p in range(universe) if p not in crashed]
+    return build_history(out)
+
+
+def election_history(rng: random.Random, n_ops: int = 1000,
+                     n_nodes: int = 5, concurrency: int = 5,
+                     p_views: float = 0.25, p_new_term: float = 0.02,
+                     p_catch_up: float = 0.3,
+                     p_timeout: float = 0.02) -> History:
+    """An election run with views (the reference's election workload with
+    its every-node probe, workload/leader.py: `inspect` ops observe the
+    connected node's (leader, term), and every 4th op on average is a
+    `views` op observing [(node, leader, term)] of every node). A
+    simulated cluster: each new term has one leader (or none yet, a
+    leaderless interval), and each node's view moves forward to the
+    newest term with probability `p_catch_up` a step, so views lag but
+    never go back: the run is safe by construction. Process p talks to
+    node p mod n_nodes; an op times out (info) with `p_timeout`."""
+    nodes = [f"n{i + 1}" for i in range(n_nodes)]
+    term, leader = 1, rng.choice(nodes)
+    view = {n: (leader, term) for n in nodes}
+    pending: dict = {}  # process -> f
+    rows: list = []
+    done = 0
+    free = list(range(concurrency))
+    while done < n_ops or pending:
+        if rng.random() < p_new_term:
+            term += 1
+            leader = rng.choice(nodes) if rng.random() < 0.8 else None
+        for n in nodes:
+            if view[n][1] < term and rng.random() < p_catch_up:
+                view[n] = (leader, term)
+        if free and done < n_ops and (not pending or rng.random() < 0.5):
+            p = free.pop(rng.randrange(len(free)))
+            f = "views" if rng.random() < p_views else "inspect"
+            pending[p] = f
+            rows.append((p, INVOKE, f, None))
+            done += 1
+            continue
+        p = rng.choice(sorted(pending))
+        f = pending.pop(p)
+        free.append(p)
+        if rng.random() < p_timeout:
+            rows.append((p, INFO, f, None))
+        elif f == "inspect":
+            rows.append((p, OK, f, view[nodes[p % n_nodes]]))
+        else:
+            rows.append((p, OK, f, [(n, *view[n]) for n in nodes]))
+    return build_history(rows)
+
+
+def write_run(store_root, name: str, workload: str, history: History,
+              **params) -> str:
+    """Write `history` as one run of `workload` under
+    `store_root`/`name`/<timestamp>/ through `core/store.save_test`
+    (history.jsonl, results.json, test.json and the `latest` symlink);
+    `params` go into test.json. Returns the run dir."""
+    from ..core.store import save_test
+
+    test = {"name": name, "workload": workload,
+            "store_root": str(store_root), **params}
+    return save_test(test, history, {"synthesized": True})
+
+
+def keyed_register_run(store_root, seed: int, **shape) -> str:
+    """`keyed_register_history(random.Random(seed), **shape)` written as a
+    multi-register run."""
+    h = keyed_register_history(random.Random(seed), **shape)
+    return write_run(store_root, "multi-register", "multi-register", h,
+                     seed=seed, nemesis="partition", **shape)
+
+
+def counter_run(store_root, seed: int, n_ops: int = 1000, n_procs: int = 5,
+                crash_p: float = 0.05, max_crashes: int = 3) -> str:
+    """A counter run of the reference suite's counter shape (bench.py
+    config 2: 1000 ops, 5 processes, crash_p 0.05, ≤ 3 crashes), drawn
+    by `random_valid_history(random.Random(seed), "counter", ...)`."""
+    shape = dict(n_ops=n_ops, n_procs=n_procs, crash_p=crash_p,
+                 max_crashes=max_crashes)
+    h = random_valid_history(random.Random(seed), "counter", **shape)
+    return write_run(store_root, "counter", "counter", h, seed=seed,
+                     **shape)
+
+
+def election_run(store_root, seed: int, **shape) -> str:
+    """`election_history(random.Random(seed), **shape)` written as an
+    election run."""
+    h = election_history(random.Random(seed), **shape)
+    return write_run(store_root, "election", "election", h, seed=seed,
+                     **shape)
+
+
+def election_observation_rows(rng, B: int, N: int, n_terms: int = 64,
+                              n_leaders: int = 5):
+    """[B, N, 2] int32 numpy rows of pooled (term, leader) observations,
+    safe by construction: terms drawn from [0, n_terms), one leader per
+    term (numpy Generator `rng`). Rows to plant conflicts in are the
+    caller's to edit."""
+    import numpy as np
+
+    lead = rng.integers(0, n_leaders, size=(B, n_terms), dtype=np.int32)
+    terms = rng.integers(0, n_terms, size=(B, N), dtype=np.int32)
+    leaders = np.take_along_axis(lead, terms, axis=1)
+    return np.stack([terms, leaders], axis=2).astype(np.int32)

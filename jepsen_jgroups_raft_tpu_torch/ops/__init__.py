@@ -18,6 +18,9 @@
   tier: the CUDA kernel wrapper `cycle_closure` (B7 monolithic, B8
   blocked) and its plain versions `cycle_closure_plain`,
   `cycle_closure_tiled_plain`.
+* `election_safety` — election safety over batches of (term, leader)
+  rows: the CUDA kernel wrapper `election_safety` (its plain version is
+  `models.leader.check_election_safety_plain`).
 * `_build`     — nvcc build of `csrc/*.cu` at first use, ctypes binding.
 """
 

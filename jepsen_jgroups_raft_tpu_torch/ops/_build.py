@@ -71,6 +71,13 @@ SIGNATURES: Dict[str, dict] = {
                                             _VP]),
         "cycle_closure_error_string": (ctypes.c_char_p, [_I]),
     },
+    "election_safety": {
+        # obs, valid_len (or null), table, safe, B, N, log2cap, device,
+        # stream
+        "election_safety_launch": (_I, [_VP, _VP, _VP, _VP, _I, _I, _I,
+                                        _I, _VP]),
+        "election_safety_error_string": (ctypes.c_char_p, [_I]),
+    },
     "mask_scan_profile": {
         # events, n_events, ok, prof, B, E, R, macro_p, W, model,
         # init_state, device, stream

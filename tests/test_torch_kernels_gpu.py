@@ -1079,3 +1079,135 @@ def test_sort_scan_list_append_twin_on_arbitrary_rows(cuda, W, P):
     _sort_kernel_and_plain(torch.from_numpy(ev).to(cuda),
                            torch.from_numpy(n_events).to(cuda), W,
                            4 if W > 12 else 64, P, m)
+
+
+# ---------------------------------------- election safety (B9's last)
+
+from jepsen_jgroups_raft_tpu_torch.checker import recorded  # noqa: E402
+from jepsen_jgroups_raft_tpu_torch.checker.independent import \
+    IndependentLinearizable  # noqa: E402
+from jepsen_jgroups_raft_tpu_torch.models import leader  # noqa: E402
+from jepsen_jgroups_raft_tpu_torch.ops import \
+    election_safety as es  # noqa: E402
+
+
+def _election_rows(N, seed, B=12):
+    """[B, N, 2] rows: safe, a planted conflict early / in the middle /
+    last, one leader repeated, padding, negative terms with two
+    leaders."""
+    rng = np.random.default_rng(seed)
+    obs = synth.election_observation_rows(rng, B, N,
+                                          n_terms=max(2, min(N // 3, 4096)))
+    for b in range(B):
+        kind = b % 7
+        if kind in (1, 2, 3) and N > 1:
+            j = {1: 1, 2: N // 2, 3: N - 1}[kind]
+            obs[b, j] = (obs[b, 0, 0], obs[b, 0, 1] + 1)
+        elif kind == 4:
+            obs[b] = obs[b, 0]
+        elif kind == 5:
+            obs[b, int(rng.integers(0, N + 1)):] = -1
+        elif kind == 6:
+            obs[b, : (N + 1) // 2, 0] = -1 - (np.arange((N + 1) // 2) % 2)
+    return obs
+
+
+def _election_kernel_and_plain(obs, valid_len=None):
+    before = es.launch_counts()["election_safety"]
+    safe = leader.check_election_safety(obs, valid_len)
+    torch.cuda.synchronize()
+    assert es.launch_counts()["election_safety"] == before + 1
+    assert safe.device == obs.device and safe.dtype == torch.bool
+    want = leader.check_election_safety_plain(obs, valid_len)
+    assert safe.cpu().tolist() == want.cpu().tolist()
+    return safe.cpu().tolist()
+
+
+@pytest.mark.parametrize("N", [1, 2, 31, 32, 33, 1024, 4096, 65536],
+                         ids=lambda n: f"N{n}")
+def test_election_safety_kernel_matches_plain(cuda, N):
+    obs = torch.from_numpy(_election_rows(N, N)).to(cuda)
+    got = _election_kernel_and_plain(obs)
+    if N > 1:
+        assert not all(got) and any(got)
+    vl = torch.from_numpy(np.random.default_rng(N).integers(
+        0, N + 1, size=obs.shape[0]).astype(np.int32)).to(cuda)
+    _election_kernel_and_plain(obs, vl)
+
+
+def test_election_safety_kernel_matches_np_on_runs(cuda):
+    m = leader.MajorityLeaderModel()
+    rows = []
+    for seed in range(6):
+        h = synth.election_history(random.Random(seed), n_ops=400)
+        obs, _ = m.pooled(h, {})
+        rows.append(obs)
+    n = max(len(o) for o in rows)
+    batch = np.full((len(rows), n, 2), -1, np.int32)
+    for i, o in enumerate(rows):
+        batch[i, :len(o)] = o
+    got = _election_kernel_and_plain(torch.from_numpy(batch).to(cuda))
+    assert got == [leader.check_election_safety_np(o)[0] for o in rows]
+
+
+def test_election_safety_refuses_bad_inputs(cuda):
+    obs = torch.zeros((2, 8, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        es.election_safety(obs.to(torch.int64))
+    with pytest.raises(ValueError):
+        es.election_safety(torch.zeros((2, 8, 3), dtype=torch.int32,
+                                       device=cuda))
+    with pytest.raises(ValueError):
+        es.election_safety(torch.zeros(33, dtype=torch.int32,
+                                       device=cuda)[1:].view(2, 8, 2))
+    with pytest.raises(ValueError):
+        es.election_safety(obs, torch.zeros(3, dtype=torch.int32,
+                                            device=cuda))
+    assert es.election_safety(obs[:, :0].contiguous()).tolist() == \
+        [True, True]
+
+
+def test_election_safety_broken_build_raises(cuda, tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in _build.CSRC.glob("*.cuh"):
+        (src / f.name).write_text(f.read_text())
+    (src / "election_safety.cu").write_text(
+        (_build.CSRC / "election_safety.cu").read_text() +
+        "\n#error broken\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(_build._LIBS, "election_safety", raising=False)
+    obs = torch.zeros((1, 8, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="build failed"):
+        leader.check_election_safety(obs)
+
+
+def test_check_recorded_on_card_matches_cpu(cuda, tmp_path):
+    runs = [synth.keyed_register_run(tmp_path, 20260729 + 23, n_keys=64,
+                                     n_wide=2),
+            synth.counter_run(tmp_path, 3, n_ops=300),
+            synth.election_run(tmp_path, 4, n_ops=300)]
+    ours = recorded.check_recorded(runs, device=cuda)
+    want = recorded.check_recorded(runs, device="cpu")
+    strip = ("time-s", "histories-per-sec")
+    assert {k: v for k, v in ours.items() if k not in strip} == \
+        {k: v for k, v in want.items() if k not in strip}
+    assert ours["valid?"] is True
+
+
+def test_independent_linearizable_on_card_matches_cpu(cuda):
+    h = synth.keyed_register_history(random.Random(5), n_keys=40, n_wide=2)
+    ops = list(h)
+    j = max(i for i, op in enumerate(ops) if op.type == "ok"
+            and op.f == "read" and op.value[0] == 7)
+    k, v = ops[j].value
+    ops[j] = ops[j].replace(value=(k, 17 if v is None else v + 11))
+    ours = IndependentLinearizable(CasRegister, device=cuda).check({}, ops)
+    want = IndependentLinearizable(CasRegister, device="cpu").check({}, ops)
+    assert ours["valid?"] is False
+    assert ours["key-count"] == want["key-count"] == 40
+    for k, r in want["results"].items():
+        assert {x: v for x, v in ours["results"][k].items()
+                if x != "time-s"} == \
+            {x: v for x, v in r.items() if x != "time-s"}, k
