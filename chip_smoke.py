@@ -9,8 +9,9 @@ and PyTorch built for CUDA):
 Phases, each printing JSON lines; any failure exits non-zero:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
-               mask_scan, sort_scan, segment_scan, cycle_closure: B7 and
-               B8, election_safety) and the instrumented
+               mask_scan, sort_scan — each with its chunk entry point,
+               segment_scan, cycle_closure: B7 and B8, election_safety)
+               and the instrumented
                mask_scan_profile from this checkout's sources into
                build/torch_kernels/, one nvcc per library, started
                together; ptxas's report for each; the paths' kernels must
@@ -31,13 +32,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
                through `run_dense_groups` (one stream each): every group's
                verdicts equal the plain version's on that group alone
   6. main    — the north-star check through the port's `check_histories`
-               on the card: 1000 CAS-register histories of 1000 ops (5
-               processes, crash_p 0.05, at most 3 crashes, seed 20260729);
-               warm-up, then best of 3; all must be VALID, every row on the
-               dense tier, dense_scan's launch count (reset before each
-               run) above 0. Then the breakdown: encode, group + pack, the
-               overlapped span of the groups, each group's time alone, its
-               ns per row, the plain version's time and the bound
+               on the card at the default chunk (JGRAFT_SCAN_CHUNK unset:
+               the chunked wavefront over the chunk kernels): 1000
+               CAS-register histories of 1000 ops (5 processes, crash_p
+               0.05, at most 3 crashes, seed 20260729); warm-up, then best
+               of MAIN_REPS; all must be VALID, every row on the dense
+               tier, dense_scan_chunk's launch count (reset before each
+               run) above 0; chunks_run, evicted_rows, groups_early_exited.
+               Then the breakdown: encode, group + pack, the one-shot
+               kernels' overlapped span, each group's time alone, its ns
+               per row, the plain version's time and the bound; the same
+               groups through `run_chunked` (verdicts bitwise equal to the
+               one-shot groups', kernel span, launches per group); the
+               chunk kernel on the largest group's first launch against
+               its plain version (time, bound); and one check at
+               JGRAFT_SCAN_CHUNK=0 (the one-shot path's wall and launches)
   7. profile — one check under torch.profiler: the device's busy share of
                the check's wall (a trace without device time fails)
   8. invalid — 64 of those histories with one read corrupted: kernel,
@@ -47,8 +56,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                shapes (bench.py configs 2 and 7): 1000 histories of 1000
                ops, 5 processes, crash_p 0.05, at most 3 crashes, seed
                20260729, through `check_histories` on the card, measured
-               as `main`; all VALID, every row on the mask tier, 0 host
-               rows, mask_scan's launch count above 0
+               as `main` (the counter with the one-shot arm and the
+               measured chunk launch); all VALID, every row on the mask
+               tier, 0 host rows, mask_scan_chunk's launch count above 0
  10. counter10_main — the counter at upstream's documented concurrency
                (10 processes, crash_p 0.05, at most 3 crashes, 1000 ops,
                seed 20260729 + 10): the first 1000 histories whose window
@@ -74,14 +84,25 @@ Phases, each printing JSON lines; any failure exits non-zero:
                (rows that overflow and end ok, rows that overflow and do
                not: both counts must be above 0); arbitrary rows (slots
                out of range, shared slots, int32 edges)
+ 13b. chunk_kernel — the chunk forms against their plain versions,
+               flags and carry compared after every launch, one
+               recompaction (carry and events gathered) halfway: B1 at
+               W = 1..10 with the largest S, B4 at W = 1..12 for the
+               counter and the queue, B5 for the five models at W = 1, 8,
+               31, 127 (C = 64; C = 4 too at W = 8); chunks of 32 and 128
+               rows in both row formats, of 1 row in one (alternating)
  14. set_main — the reference suite's set shape (bench.py config 6:
                1000 histories of 1000 ops, 5 processes, crash_p 0.05, at
                most 3 crashes, value_range 32, seed 20260729) through
                `check_histories` on the card, measured as `main`: all
-               VALID, every row on the sort tier, 0 host rows, sort_scan's
-               launch count above 0; then each rung of the ladder (C = 64,
-               then the rows that overflowed at C = 256): rows, kernel ms,
-               ns per row, the plain version's time and bitwise flags
+               VALID, every row on the sort tier, 0 host rows,
+               sort_scan_chunk's launch count above 0; then each rung of
+               the ladder (C = 64, then the rows that overflowed at C =
+               256): rows, one-shot kernel ms, ns per row, the rung
+               through `run_chunked` (flags bitwise equal, span,
+               launches), the plain version's time and bitwise flags; the
+               C = 64 rung's first chunk launch against its plain version;
+               one check at JGRAFT_SCAN_CHUNK=0
  15. set_invalid — 64 of those histories with one read made impossible
                (it misses an element whose add completed before the read
                began): kernel, plain ladder and host oracle agree row for
@@ -175,8 +196,12 @@ the start), as the reference's test suite runs: at the default knobs
 the host certifier decides most valid rows before any kernel.
 
 Then the kernels' summary line (dense_scan, mask_scan, sort_scan,
-segment_scan, cycle_closure, cycle_closure_tiled, election_safety; each
-with its library's ptxas registers and spill bytes), the card's
+segment_scan, cycle_closure, cycle_closure_tiled, election_safety,
+dense_scan_chunk, mask_scan_chunk, sort_scan_chunk; each with its
+library's ptxas registers and spill bytes; a one-shot kernel's launches
+are its JGRAFT_SCAN_CHUNK=0 arms', a chunk kernel's the default runs'
+of every path, and its ms, plain ms and bound one measured launch's),
+the card's
 `nvidia-smi` name and power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device, and when the port's package is not beside it.
 """
@@ -246,9 +271,27 @@ KERNELS = {
     "election_safety": (
         "jepsen_jgroups_raft_tpu_torch/ops/csrc/election_safety.cu",
         "jepsen_jgroups_raft_tpu/models/leader.py:163"),
+    # the chunk entry points of B1, B4 and B5 (one kernel body each, carry in
+    # and out): the reference's chunk forms
+    "dense_scan_chunk": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/dense_scan.cu",
+                         "jepsen_jgroups_raft_tpu/ops/dense_scan.py:755"),
+    "mask_scan_chunk": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/mask_scan.cu",
+                        "jepsen_jgroups_raft_tpu/ops/dense_scan.py:755"),
+    "sort_scan_chunk": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/sort_scan.cu",
+                        "jepsen_jgroups_raft_tpu/ops/linear_scan.py:351"),
 }
 #: kernels built into another kernel's library (ops/_build.py names)
-KERNEL_LIBRARY = {"cycle_closure_tiled": "cycle_closure"}
+KERNEL_LIBRARY = {"cycle_closure_tiled": "cycle_closure",
+                  "dense_scan_chunk": "dense_scan",
+                  "mask_scan_chunk": "mask_scan",
+                  "sort_scan_chunk": "sort_scan"}
+#: timed runs of each main path's check (after one warm-up); the best
+#: is kept (3 up to PR 9; 2 since PR 10's wavefront phases, to keep the
+#: script inside its time)
+MAIN_REPS = 2
+#: chunk sizes chunk_kernel holds the chunk forms to their plain
+#: versions at (128 is the reference's default JGRAFT_SCAN_CHUNK)
+CHUNK_SIZES = (1, 32, 128)
 
 
 def emit(phase: str, **kw) -> None:
@@ -820,43 +863,58 @@ def phase_mask_profile(dev, paths: dict):
 
 
 def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
-             kernel: str, ptxas: dict, n_ops: int = N_OPS) -> dict:
-    """Drive one main path through check_histories on the card: a
-    warm-up, then best of 3, each run with the launch counts set to 0
-    just before it and read just after (the path's kernel must have
-    launched). Guards: every history VALID (valid by construction),
-    every row on `tier`. Then the breakdown of one run: encode, group +
-    pack, the kernels overlapped (span, per group) and each group alone,
-    ns per row, the plain version's time and bitwise agreement on the
-    same groups, and the bound from the work this run's data needed.
-    Emits the phase's line; returns the kernels-line numbers, and the
-    groups' launches, plain stats and verdicts and times alone (for
-    `phase_mask_profile`)."""
+             kernel: str, ptxas: dict, n_ops: int = N_OPS,
+             one_shot: bool = False, measure_chunk: bool = False) -> dict:
+    """Drive one main path through check_histories on the card at the
+    default chunk (the wavefront over the chunk kernels): a warm-up, then
+    best of MAIN_REPS, each run with the launch counts set to 0 just
+    before it and read just after (the path's chunk kernel must have
+    launched), with its wavefront counters. Guards: every history VALID
+    (valid by construction), every row on `tier`. Then the breakdown of
+    one run: encode, group + pack, the one-shot kernels overlapped (span,
+    per group) and each group alone, ns per row, the plain version's
+    time and bitwise agreement on the same groups, the bound from the
+    work this run's data needed; the same groups through `run_chunked`
+    (best of 3 kernel spans), its verdicts bitwise equal to the one-shot
+    groups', its launches per group. `one_shot`: one more check at
+    JGRAFT_SCAN_CHUNK=0 (the one-shot path: its wall and launches).
+    `measure_chunk`: the chunk kernel on its largest group's first
+    wavefront launch (`measure_chunk_launch`). Emits the phase's line;
+    returns the kernels-line numbers, and the groups' launches, plain
+    stats and verdicts and times alone (for `phase_mask_profile`)."""
     import torch
 
     from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
         check_histories)
     from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
-        DenseLaunch, consume_tiers, run_dense_groups)
+        DenseLaunch, build_dense_launches, consume_stats, consume_tiers,
+        run_chunked, run_dense_groups)
     from jepsen_jgroups_raft_tpu_torch.history.packing import (
-        encode_history, pack_macro_batch)
+        bucket_rows, encode_history, pack_macro_batch)
     from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
-        dense_plans_grouped, dense_scan_plain, launch_counts,
-        mask_scan_plain, reset_launch_counts)
+        MERGE_MAX_EVENTS, chunk_launch_counts, dense_carry_layout,
+        dense_chunk_plain, dense_plans_grouped, dense_scan_plain,
+        launch_counts, make_dense_chunk_checker, mask_carry_layout,
+        mask_chunk_plain, mask_scan_plain, reset_launch_counts)
 
+    import numpy as np
+
+    chunk_kernel = kernel + "_chunk"
     check_histories(histories, model, device=dev)  # warm-up
     consume_tiers()
-    walls, launches = [], None
-    for _ in range(3):
+    walls, launches, wave = [], None, None
+    for _ in range(MAIN_REPS):
         torch.cuda.synchronize()
         reset_launch_counts()
+        consume_stats()
         t0 = time.perf_counter()
         results = check_histories(histories, model, device=dev)
         walls.append(time.perf_counter() - t0)
-        launches = launch_counts()
-        if launches[kernel] <= 0:
-            raise AssertionError(f"{phase}: the path launched no {kernel} "
-                                 f"kernel")
+        wave = consume_stats()
+        launches = {**launch_counts(), **chunk_launch_counts()}
+        if launches[chunk_kernel] <= 0:
+            raise AssertionError(f"{phase}: the path launched no "
+                                 f"{chunk_kernel} kernel")
     tiers = consume_tiers()
     n = len(histories)
     n_valid = sum(1 for r in results if r["valid?"] is True)
@@ -901,11 +959,12 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
 
     # the plain version on the same groups: its time, bitwise agreement,
     # and the work this run's data needed (for the bound)
-    plain_oks, group_stats = [], []
+    plain_oks, group_stats, group_plain_ms = [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for ln in launch_list:
         g: dict = {}
+        t1 = time.perf_counter()
         if ln.kind == "mask":
             plain_oks.append(mask_scan_plain(
                 ln.events, ln.n_slots, ln.macro_p, ln.n_events, model=model,
@@ -914,8 +973,9 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
             plain_oks.append(dense_scan_plain(
                 ln.events, ln.val_of, ln.n_slots, macro_p=ln.macro_p,
                 n_events=ln.n_events, model=model, stats=g))
+        torch.cuda.synchronize()
+        group_plain_ms.append((time.perf_counter() - t1) * 1e3)
         group_stats.append(g)
-    torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max(int((torch.from_numpy(k).int() - p.cpu().int()).abs().max())
               for k, p in zip(run.ok, plain_oks))
@@ -959,6 +1019,83 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
     stats = {k: sum(g.get(k, 0) for g in group_stats)
              for k in ("sweeps", "slot_passes", "force_rows", "closures",
                        "legal_steps", "legal_needed", "ballots_lazy")}
+
+    # the same groups through the wavefront: verdicts bitwise equal to
+    # the one-shot groups', kernel span (best of 3), launches per group
+    triples = [(idxs, plan, b) for (idxs, plan), b in zip(grouped, batches)]
+    chunked, outs = None, None
+    for _ in range(3):
+        chunk_launches, subs = build_dense_launches(model, triples,
+                                                    device=dev)
+        timer: dict = {}
+        outs = run_chunked(chunk_launches, record_stats=False, timer=timer)
+        chunked = timer["span_ms"] if chunked is None else \
+            min(chunked, timer["span_ms"])
+    by_rows = {tuple(idxs): j for j, (idxs, _) in enumerate(grouped)}
+    for sub, out in zip(subs, outs):
+        if not (out.ok == run.ok[by_rows[tuple(sub)]]).all():
+            raise AssertionError(f"{phase}: the wavefront's verdicts differ "
+                                 f"from the one-shot groups'")
+    chunk_line = {"max_abs_err": 0}
+    if measure_chunk:
+        j = max(range(len(launch_list)),
+                key=lambda k: int(launch_list[k].events.shape[0]))
+        ln, b = launch_list[j], batches[j]
+        W, S = ln.n_slots, int(ln.val_of.shape[1])
+        E = int(ln.events.shape[1])
+        init, step = make_dense_chunk_checker(model, ln.kind, W, S,
+                                              macro_p=ln.macro_p)
+        width = first_span(b["n_events"], 128,
+                           E if b["legacy_events"] > MERGE_MAX_EVENTS
+                           else bucket_rows(E, 32))
+        if ln.kind == "mask":
+            def plain(c, e, w, st):
+                return mask_chunk_plain(c, e, W, ln.macro_p, model=model,
+                                        width=w, stats=st)
+
+            def work(g, sl):
+                M = 1 << W
+                return (g["slot_passes"] * max(M // 64, 1)
+                        + g["force_rows"] * max(M // 32, 1)
+                        + g["legal_needed"] * LEGAL_STEP_OPS[model.name]
+                        + int(sl[:, :, 2].clamp(min=0).sum()))
+        else:
+            def plain(c, e, w, st):
+                return dense_chunk_plain(c, e, W, S, ln.macro_p, model, w,
+                                         st)
+
+            def work(g, sl):
+                MS = (1 << W) * S
+                return (g["slot_passes"] * max(MS // 64, 1) * S
+                        + g["force_rows"] * max(MS // 32, 1)
+                        + int(sl[:, :, 2].clamp(min=0).sum()) * S * S)
+        lay = (mask_carry_layout(W) if ln.kind == "mask"
+               else dense_carry_layout(W, S))
+        # a first launch over the group's whole schedule is the one-shot
+        # scan of the group: its plain run above stands for the chunk
+        # form's
+        p_ok = plain_oks[j].cpu().numpy()
+        given = ((p_ok, np.zeros_like(p_ok), group_plain_ms[j],
+                  group_stats[j]) if width >= E else None)
+        chunk_line = measure_chunk_launch(
+            dev, chunk_kernel, step, plain, init(ln.val_of, ln.n_events),
+            ln.events, ln.n_events, width, lay, work, given=given)
+    arm = None
+    if one_shot:
+        def go():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rs = check_histories(histories, model, device=dev)
+            return time.perf_counter() - t0, rs, launch_counts()
+
+        wall, rs, one_launches = with_env("JGRAFT_SCAN_CHUNK", "0", go)
+        if [r["valid?"] for r in rs] != [r["valid?"] for r in results] or \
+                any("chunked" in r for r in rs) or \
+                one_launches[kernel] <= 0:
+            raise AssertionError(f"{phase}: the one-shot arm differs, or "
+                                 f"launched no {kernel}")
+        arm = {"check_s": wall, "launches": one_launches}
     emit(phase, model=model.name, histories=n, ops_per_history=n_ops,
          valid=n_valid, host_rows=host_rows, rest=len(rest),
          groups=len(grouped), kinds=sorted({p.kind for _, p in grouped}),
@@ -981,12 +1118,24 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
          bound_by="bytes" if t_bytes >= t_ops else "operations",
          spill_bytes=ptxas["spill_store_bytes"] + ptxas["spill_load_bytes"],
          max_registers=ptxas["max_registers"], launches=launches,
+         chunks_run=wave["chunks_run"], evicted_rows=wave["evicted_rows"],
+         groups_run=wave["groups_run"],
+         groups_early_exited=wave["groups_early_exited"],
+         wavefront={"span_ms": chunked,
+                    "kernel_ms_per_group": [o.kernel_ms for o in outs],
+                    "launches_per_group": [o.chunks_run for o in outs],
+                    "evicted_per_group": [o.evicted_rows for o in outs],
+                    "early_exit": [o.early_exit for o in outs],
+                    "group_rows": [len(x) for x in subs]},
+         chunk_launch=chunk_line, one_shot_arm=arm,
          tiers=tiers, device=torch.cuda.get_device_name(dev),
          power=nvidia_smi_line())
-    return {"launches": int(launches[kernel]), "max_abs_err": err,
-            "ms": span_ms, "plain_ms": plain_ms, "t_bytes": t_bytes,
-            "t_ops": t_ops, "groups": launch_list, "group_stats": group_stats,
-            "plain_oks": plain_oks, "ms_alone": alone_ms}
+    return {"launches": int(arm["launches"][kernel]) if arm else 0,
+            "max_abs_err": err, "ms": span_ms, "plain_ms": plain_ms,
+            "t_bytes": t_bytes, "t_ops": t_ops, "groups": launch_list,
+            "group_stats": group_stats, "plain_oks": plain_oks,
+            "ms_alone": alone_ms,
+            "chunk": dict(chunk_line, launches=int(launches[chunk_kernel]))}
 
 
 def phase_invalid(dev, model, bad, tier: str, kernel_plain, name: str):
@@ -1154,10 +1303,231 @@ def phase_sort_kernel(dev):
     return compared, max_err, overflowed
 
 
-def plain_ladder(encs, model, dev, stats=None):
+def chunk_chain(step, plain, carry, ev, lay, chunk: int, counts: dict,
+                name: str):
+    """Chain a chunk kernel (`step`, a chunk pair's step_fn) and its plain
+    version (`plain`(carry, events, width)) on the card from the same
+    carry over ev [B, E, R] in slices of `chunk` rows. After every launch
+    the four flags must be equal and the carries agree (`carry_mismatch`
+    0: a decided row's slot state is the one thing left undefined);
+    halfway both recompact to the rows i with i mod 4 < 2 (carry and
+    events gathered, as the wavefront does), so odd (corrupted) and even
+    rows stay. Every kernel step must add one to counts[name]. Returns
+    (launches, the plain version's last ok)."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops.kernel_ir import carry_mismatch
+
+    ck = cp = carry
+    evk = evp = ev
+    n = -(-int(ev.shape[1]) // chunk)
+    ok = None
+    for i in range(n):
+        if i == n // 2 and int(ck.shape[0]) > 1:
+            idx = torch.tensor([r for r in range(int(ck.shape[0]))
+                                if r % 4 < 2], device=ev.device)
+            ck, evk, cp, evp = (t.index_select(0, idx)
+                                for t in (ck, evk, cp, evp))
+        lo = i * chunk
+        before = counts[name]
+        outk = step(ck, evk[:, lo:lo + chunk], chunk)
+        if counts[name] != before + 1:
+            raise AssertionError(f"{name}: a chunk step did not launch once")
+        outp = plain(cp, evp[:, lo:lo + chunk], chunk)
+        sync(ev.device)
+        err = carry_mismatch(lay, outk[0], outp[0]) + sum(
+            int((a != b).sum()) for a, b in zip(outk[1:], outp[1:]))
+        if err:
+            raise AssertionError(f"{name}: chunk {i} of {n} at chunk size "
+                                 f"{chunk}: {err} entries differ from the "
+                                 f"plain version")
+        ck, cp, ok = outk[0], outp[0], outp[3]
+    return n, ok.cpu()
+
+
+def phase_chunk_kernel(dev) -> dict:
+    """The chunk forms against their plain versions on the card after
+    every launch (`chunk_chain`): B1 at W = 1..10 with the largest S the
+    caps allow, B4 at W = 1..12 for the counter and the queue, B5 for
+    the five models at W = 1, 8, 31, 127 (C = 64, and C = 4 at W = 8,
+    where rows overflow). Every case runs chunks of 128 rows and,
+    alternating, of 32 or of 1 row (of 1 only where W ≤ 8), in both row
+    formats, but B5 at W = 31 and 127 in one format (alternating by
+    model): the plain version costs ~35 ms an event there on a host
+    core. Returns max |kernel - plain| per chunk kernel (0, or the phase
+    fails)."""
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.models import MODELS, CasRegister
+    from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
+    from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
+    from jepsen_jgroups_raft_tpu_torch.ops.kernel_ir import (
+        DENSE_MAX_CELLS, DENSE_MAX_SLOTS, DENSE_MAX_STATES,
+        MASK_DENSE_MAX_SLOTS)
+
+    rng = random.Random(SEED + 11)
+    out = {}
+    counts = {"dense_scan_chunk": ds.CHUNK_LAUNCHES,
+              "mask_scan_chunk": ds.CHUNK_LAUNCHES,
+              "sort_scan_chunk": ls.CHUNK_LAUNCHES}
+
+    def run(name, cases):
+        t0 = time.perf_counter()
+        launches, oks, configs, sizes = 0, set(), 0, set()
+        turn = {False: 0, True: 0}  # per row format: 1 row, then 32
+        for step, plain, carry, ev, lay, macro, one in cases():
+            configs += 1
+            second = 1 if one and turn[macro] == 0 else 32
+            turn[macro] ^= 1
+            for chunk in (128, second):
+                n, ok = chunk_chain(step, plain, carry, ev, lay, chunk,
+                                    counts[name], name)
+                launches += n
+                oks.update(ok.tolist())
+                sizes.add((chunk, macro))
+        if oks != {True, False} or len(sizes) != 6:
+            raise AssertionError(f"{name}: both polarities and every chunk "
+                                 f"size in both row formats expected")
+        emit("chunk_kernel", kernel=name, configs=configs,
+             launches_compared=launches, chunk_sizes=sorted(sizes),
+             max_abs_err=0, seconds=time.perf_counter() - t0)
+        out[name] = 0
+
+    def dense_cases():
+        m = CasRegister()
+        for W in range(1, DENSE_MAX_SLOTS + 1):
+            S = min(DENSE_MAX_STATES, DENSE_MAX_CELLS >> W)
+            encs = [encode_history(h, m)
+                    for h in cap_histories(rng, W, S, 8, 30)]
+            plan = ds.dense_plan(m, encs)
+            if plan.n_slots > W or plan.n_states > S:
+                raise AssertionError(f"chunk_kernel: W{W} S{S} overflows")
+            for macro in (False, True):
+                ev, vo, ne, P, _ = group_tensors(encs, plan, macro, dev, W, S)
+                init, step = ds.make_dense_chunk_checker(m, "domain", W, S,
+                                                         macro_p=P)
+
+                def plain(c, e, w, W=W, S=S, P=P):
+                    return ds.dense_chunk_plain(c, e, W, S, P, m, w)
+                yield (step, plain, init(vo, ne), ev,
+                       ds.dense_carry_layout(W, S), macro, True)
+
+    def mask_cases():
+        for kind in ("counter", "queue"):
+            m = MODELS[kind]()
+            for W in range(1, MASK_DENSE_MAX_SLOTS + 1):
+                encs = [encode_history(h, m)
+                        for h in mask_histories(rng, kind, W, 8, 40)]
+                for macro in (False, True):
+                    ev, ne, P = mask_tensors(encs, macro, dev)
+                    init, step = ds.make_dense_chunk_checker(m, "mask", W, 1,
+                                                             macro_p=P)
+
+                    def plain(c, e, w, W=W, P=P, m=m):
+                        return ds.mask_chunk_plain(c, e, W, P, model=m,
+                                                   width=w)
+                    yield (step, plain, init(None, ne), ev,
+                           ds.mask_carry_layout(W), macro, W <= 8)
+
+    def sort_cases():
+        for kind, key in (("register", "cas-register"),
+                          ("counter", "counter"), ("queue", "queue"),
+                          ("set", "set"), ("list-append", "list-append")):
+            m = MODELS[key]()
+            for W in (1, 8, 31, 127):
+                encs = [encode_history(h, m)
+                        for h in sort_histories(rng, kind, W, 6)]
+                for macro in ((False, True) if W <= 8 else
+                              ((len(key) + W) % 2 == 1,)):
+                    ev, ne, P = mask_tensors(encs, macro, dev)
+                    for C in ((64, 4) if W == 8 else (64,)):
+                        init, step = ls.make_sort_chunk_checker(m, C, W,
+                                                                macro_p=P)
+
+                        def plain(c, e, w, W=W, C=C, P=P, m=m):
+                            return ls.sort_chunk_plain(c, e, W, C, P,
+                                                       model=m, width=w)
+                        yield (step, plain, init(ne), ev,
+                               ls.sort_carry_layout(W, C), macro, W <= 8)
+
+    run("dense_scan_chunk", dense_cases)
+    run("mask_scan_chunk", mask_cases)
+    run("sort_scan_chunk", sort_cases)
+    return out
+
+
+def first_span(n_events, chunk: int, e_sched: int) -> int:
+    """Width of a group's first wavefront launch (checker/schedule.py
+    `_span_chunks` from a fresh group): up to the first boundary where a
+    row can retire, a power-of-two number of chunks."""
+    first = int(min(n_events)) if len(n_events) else 0
+    p = max(1, -(-first // chunk))
+    p = min(p, -(-e_sched // chunk))
+    return (1 << (p.bit_length() - 1) if p > 1 else 1) * chunk
+
+
+def measure_chunk_launch(dev, name: str, step, plain, carry, ev, ne,
+                         width: int, lay, work, given=None) -> dict:
+    """One launch of a chunk kernel at a main path's shape (a group's
+    first wavefront launch): its time by CUDA events (best of 3), its
+    plain version's time on the card and agreement (flags and carry),
+    and the bound: the carry read and written, the real event rows and
+    the flags at HBM_BYTES_PER_S, against `work(stats)`, the 32-bit
+    operations the plain version counted, at CORE_OPS_PER_S. `given`
+    (ok, overflow, plain ms, stats): a launch that covers its rows'
+    whole schedule from a fresh carry is the one-shot scan, so the
+    caller's one-shot plain run of the same rows stands for the plain
+    version (the flags are compared; the carry is held to the plain
+    chunk form by `chunk_kernel`)."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops.kernel_ir import carry_mismatch
+
+    sl = ev[:, :width]
+    ms = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        outk = step(carry, sl, width)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    if given is None:
+        stats: dict = {}
+        sync(dev)
+        t0 = time.perf_counter()
+        outp = plain(carry, sl, width, stats)
+        sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = carry_mismatch(lay, outk[0], outp[0]) + sum(
+            int((a != b).sum()) for a, b in zip(outk[1:], outp[1:]))
+    else:
+        p_ok, p_of, plain_ms, stats = given
+        if not bool(outk[2].all()):
+            raise AssertionError(f"{name}: `given` needs a launch over the "
+                                 f"whole schedule")
+        err = int((outk[3].cpu().numpy() != p_ok).sum()) + \
+            int((outk[4].cpu().numpy() != p_of).sum())
+    if err:
+        raise AssertionError(f"{name}: the main path's launch differs from "
+                             f"the plain version ({err} entries)")
+    B, _, R = (int(x) for x in ev.shape)
+    rows = int(ne.clamp(min=0, max=width).sum())
+    bytes_moved = 2 * carry.numel() * 4 + rows * R * 4 + 4 * B
+    ops = work(stats, sl)
+    return {"rows": B, "width": width, "carry_ints": int(carry.shape[1]),
+            "kernel_ms_reps": ms, "ms": min(ms), "plain_ms": plain_ms,
+            "bytes": bytes_moved, "ops": ops,
+            "t_bytes": bytes_moved / HBM_BYTES_PER_S,
+            "t_ops": ops / CORE_OPS_PER_S, "max_abs_err": err}
+
+
+def plain_ladder(encs, model, dev, stats=None, rung_stats=None):
     """The sort ladder's verdicts from the plain version: per row True
     (ok at a rung), False (not ok, no overflow) or None (overflowed at the
-    top rung). Returns (verdicts, per rung (rows, plain ms, ok, overflow))."""
+    top rung). Returns (verdicts, per rung (rows, plain ms, ok, overflow)).
+    `stats` accumulates the plain version's work counters over the
+    rungs; `rung_stats`, a list, gets each rung's own."""
     import torch
 
     from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
@@ -1176,8 +1546,14 @@ def plain_ladder(encs, model, dev, stats=None):
         ne = torch.from_numpy(b["n_events"]).to(dev)
         sync(dev)
         t0 = time.perf_counter()
+        one: dict = {}
         ok, of = sort_scan_plain(ev, W, C, b["macro_p"], ne, model=model,
-                                 stats=stats)
+                                 stats=one)
+        if rung_stats is not None:
+            rung_stats.append(one)
+        if stats is not None:
+            for k, v in one.items():
+                stats[k] = stats.get(k, 0) + v
         ok, of = ok.cpu().numpy(), of.cpu().numpy()
         rungs.append((len(remaining), (time.perf_counter() - t0) * 1e3, ok,
                       of))
@@ -1194,42 +1570,51 @@ def plain_ladder(encs, model, dev, stats=None):
 
 
 def run_sort_path(phase: str, dev, model, histories, synth_s: float,
-                  ptxas: dict, **extra) -> dict:
+                  ptxas: dict, one_shot: bool = False,
+                  measure_chunk: bool = False, **extra) -> dict:
     """A ladder path (the set, list-append) through check_histories on
-    the card, as `run_path` measures the others: warm-up, best of 3 with the launch counts set to
-    0 just before each run and read just after; guards: every history
-    VALID, every row on the sort tier, 0 host rows, sort_scan launched.
-    Then the ladder's breakdown: encode, pack, each rung's rows, kernel
-    ms (CUDA events, best of 3) and ns per row, escalations, the plain
-    version's time and bitwise flags on the same rungs, and the bound
-    from the work this run's data needed. Returns the kernels-line
-    numbers."""
+    the card at the default chunk, as `run_path` measures the others:
+    warm-up, best of MAIN_REPS with the launch counts set to 0 just
+    before each run and read just after; guards: every history VALID,
+    every row on the sort tier, 0 host rows, sort_scan_chunk launched.
+    Then the ladder's breakdown: encode, pack, each rung's rows, one-shot
+    kernel ms (CUDA events, best of 3) and ns per row, escalations, the
+    rung through `run_chunked` (flags bitwise equal to the one-shot
+    rung's, its kernel span and launches), the plain version's time and
+    bitwise flags on the same rungs, and the bound from the work this
+    run's data needed. `one_shot` and `measure_chunk` as `run_path`'s
+    (the measured launch: the C = 64 rung's first). Returns the
+    kernels-line numbers."""
     import numpy as np
     import torch
 
     from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
         SORT_LADDER, check_histories)
     from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
-        consume_tiers, run_sort_rung)
+        ChunkLaunch, consume_stats, consume_tiers, run_chunked,
+        run_sort_rung)
     from jepsen_jgroups_raft_tpu_torch.history.packing import (
-        encode_history, pack_macro_batch)
+        bucket_rows, encode_history, pack_macro_batch)
     from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
     from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
 
     check_histories(histories, model, device=dev)  # warm-up
     consume_tiers()
-    walls, launches = [], None
-    for _ in range(3):
+    walls, launches, wave = [], None, None
+    for _ in range(MAIN_REPS):
         torch.cuda.synchronize()
         ds.reset_launch_counts()
         ls.reset_launch_counts()
+        consume_stats()
         t0 = time.perf_counter()
         results = check_histories(histories, model, device=dev)
         walls.append(time.perf_counter() - t0)
-        launches = {**ds.launch_counts(), **ls.launch_counts()}
-        if launches["sort_scan"] <= 0:
-            raise AssertionError(f"{phase}: the path launched no sort_scan "
-                                 f"kernel")
+        wave = consume_stats()
+        launches = {**ds.launch_counts(), **ls.launch_counts(),
+                    **ds.chunk_launch_counts(), **ls.chunk_launch_counts()}
+        if launches["sort_scan_chunk"] <= 0:
+            raise AssertionError(f"{phase}: the path launched no "
+                                 f"sort_scan_chunk kernel")
     tiers = consume_tiers()
     n = len(histories)
     n_valid = sum(1 for r in results if r["valid?"] is True)
@@ -1248,8 +1633,14 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
     windows = {}
     for e in encs:
         windows[e.n_slots] = windows.get(e.n_slots, 0) + 1
+    # the plain version on the same rungs: time, flags, and the work the
+    # data needed
+    g: dict = {}
+    rung_stats: list = []
+    _, plain = plain_ladder(encs, model, dev, stats=g, rung_stats=rung_stats)
     remaining, rungs, pack_s = list(range(n)), [], 0.0
     bytes_moved = 0
+    chunk_line = {"max_abs_err": 0}
     for C in SORT_LADDER:
         t0 = time.perf_counter()
         b = pack_macro_batch([encs[i] for i in remaining])
@@ -1266,6 +1657,34 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
         longest = int(b["n_events"].max())
         escalate = [i for j, i in enumerate(remaining)
                     if not run.ok[j] and run.overflow[j]]
+        # the rung through the wavefront: the one-shot rung's flags
+        init, step = ls.make_sort_chunk_checker(model, C, W,
+                                                macro_p=b["macro_p"])
+        e_sched = bucket_rows(int(ev.shape[1]), 32)
+        timer: dict = {}
+        [out] = run_chunked([ChunkLaunch(
+            events=b["events"], n_events=b["n_events"], init_fn=init,
+            step_fn=step, e_sched=e_sched, device=dev, tag="sort")],
+            record_stats=False, timer=timer)
+        if not ((out.ok == run.ok).all() and
+                (out.overflow == run.overflow).all()):
+            raise AssertionError(f"{phase}: the wavefront's flags differ "
+                                 f"from the one-shot rung's at C = {C}")
+        if measure_chunk and not rungs:
+            lay = ls.sort_carry_layout(W, C)
+            width = first_span(b["n_events"], 128, e_sched)
+
+            def chunk_plain(c, e, w, st):
+                return ls.sort_chunk_plain(c, e, W, C, b["macro_p"],
+                                           model=model, width=w, stats=st)
+            # a first launch over the whole rung is the one-shot rung: its
+            # plain run above stands for the chunk form's
+            given = ((plain[0][2], plain[0][3], plain[0][1], rung_stats[0])
+                     if width >= int(ev.shape[1]) else None)
+            chunk_line = measure_chunk_launch(
+                dev, "sort_scan_chunk", step, chunk_plain, init(ne), ev, ne,
+                width, lay, lambda st, sl: st["steps"] + st["candidates"],
+                given=given)
         rungs.append({"C": C, "rows": B, "macro_p": int(b["macro_p"]),
                       "events": int(ev.shape[1]), "longest_rows": longest,
                       "kernel_ms_reps": ms, "kernel_ms": min(ms),
@@ -1273,14 +1692,15 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
                       "valid": int(run.ok.sum()),
                       "overflow": int(run.overflow.sum()),
                       "escalated": len(escalate),
+                      "wavefront": {"span_ms": timer["span_ms"],
+                                    "kernel_ms": out.kernel_ms,
+                                    "launches": out.chunks_run,
+                                    "evicted": out.evicted_rows,
+                                    "early_exit": out.early_exit},
                       "ok": run.ok, "overflow_flags": run.overflow})
         remaining = escalate
         if not remaining:
             break
-    # the plain version on the same rungs: time, bitwise flags, and the
-    # work the data needed
-    g: dict = {}
-    _, plain = plain_ladder(encs, model, dev, stats=g)
     err = 0
     for r, (rows, p_ms, p_ok, p_of) in zip(rungs, plain):
         r["plain_ms"] = p_ms
@@ -1301,6 +1721,21 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
     best = min(walls)
     ms_total = sum(r["kernel_ms"] for r in rungs)
     plain_ms = sum(r["plain_ms"] for r in rungs)
+    arm = None
+    if one_shot:
+        def go():
+            torch.cuda.synchronize()
+            ls.reset_launch_counts()
+            t0 = time.perf_counter()
+            rs = check_histories(histories, model, device=dev)
+            return time.perf_counter() - t0, rs, ls.launch_counts()
+
+        wall, rs, one_launches = with_env("JGRAFT_SCAN_CHUNK", "0", go)
+        if [r["valid?"] for r in rs] != [r["valid?"] for r in results] or \
+                one_launches["sort_scan"] <= 0:
+            raise AssertionError(f"{phase}: the one-shot arm differs, or "
+                                 f"launched no sort_scan")
+        arm = {"check_s": wall, "launches": one_launches}
     emit(phase, model=model.name, histories=n, ops_per_history=N_OPS,
          **extra, valid=n_valid, host_rows=off_tier,
          windows=dict(sorted(windows.items())), kernel_window=W,
@@ -1312,11 +1747,17 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
          bound_by="bytes" if t_bytes >= t_ops else "operations",
          spill_bytes=ptxas["spill_store_bytes"] + ptxas["spill_load_bytes"],
          max_registers=ptxas["max_registers"], launches=launches,
+         chunks_run=wave["chunks_run"], evicted_rows=wave["evicted_rows"],
+         groups_run=wave["groups_run"],
+         groups_early_exited=wave["groups_early_exited"],
+         chunk_launch=chunk_line, one_shot_arm=arm,
          tiers=tiers, device=torch.cuda.get_device_name(dev),
          power=nvidia_smi_line())
-    return {"launches": int(launches["sort_scan"]), "max_abs_err": err,
-            "ms": ms_total, "plain_ms": plain_ms, "t_bytes": t_bytes,
-            "t_ops": t_ops}
+    return {"launches": int(arm["launches"]["sort_scan"]) if arm else 0,
+            "max_abs_err": err, "ms": ms_total, "plain_ms": plain_ms,
+            "t_bytes": t_bytes, "t_ops": t_ops,
+            "chunk": dict(chunk_line,
+                          launches=int(launches["sort_scan_chunk"]))}
 
 
 def corrupt_set_read(ops, rng):
@@ -1493,6 +1934,8 @@ def all_launch_counts() -> dict:
                                                    segment_scan)
 
     return {**dense_scan.launch_counts(), **linear_scan.launch_counts(),
+            **dense_scan.chunk_launch_counts(),
+            **linear_scan.chunk_launch_counts(),
             **segment_scan.launch_counts(),
             **election_safety.launch_counts()}
 
@@ -1542,7 +1985,7 @@ def run_long_arm(dev, model, hs, arm: str) -> dict:
 
     walls, rs, launches = with_env("JGRAFT_SEGMENT", arm, go)
     kernel = "dense-seg" if arm == "1" else "dense"
-    lib = "segment_scan" if arm == "1" else "dense_scan"
+    lib = "segment_scan" if arm == "1" else "dense_scan_chunk"
     if not all(r["valid?"] is True for r in rs):
         raise AssertionError(f"long_main arm {arm}: a history is not VALID")
     if any(r.get("kernel") != kernel or r.get("decided-tier") != "dense"
@@ -1788,10 +2231,10 @@ def phase_wide_auto(dev, wide):
          verdict_tier=view, host_dfs=host, check_s=wall, host_dfs_s=host_s,
          tiers=consume_tiers(), launches=launches)
     if view != [(False, "sort")] * len(rs) or any(host) or \
-            not launches.get("sort_scan"):
+            not launches.get("sort_scan_chunk"):
         raise AssertionError("wide_auto: a chain was not INVALID on the "
                              "sort tier, the host DFS disagreed, or "
-                             "sort_scan was never launched")
+                             "sort_scan_chunk was never launched")
 
 
 def phase_lin_fastpath(dev, histories):
@@ -2610,7 +3053,7 @@ def phase_recorded_main(dev, root) -> dict:
     if summary["valid?"] is not True or summary["n-unknown"] or \
             summary["n-valid"] != summary["histories"]:
         raise AssertionError(f"recorded_main: not all VALID: {summary}")
-    for k in ("dense_scan", "mask_scan", "sort_scan"):
+    for k in ("dense_scan_chunk", "mask_scan_chunk", "sort_scan_chunk"):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"recorded_main: no {k} launch: "
                                  f"{launches}")
@@ -2806,7 +3249,9 @@ def main() -> int:
     histories, synth_s = suite_histories("register")
     line = {"dense_scan": run_path("main", dev, model, histories, synth_s,
                                    "dense", "dense_scan",
-                                   ptxas["dense_scan"])}
+                                   ptxas["dense_scan"], one_shot=True,
+                                   measure_chunk=True)}
+    line["dense_scan_chunk"] = line["dense_scan"].pop("chunk")
 
     # 7. the card's busy share over one check, from a profiler trace
     phase_profile(dev, model, histories)
@@ -2843,7 +3288,9 @@ def main() -> int:
         if kind == "counter":
             counter_histories = hs
         paths[phase] = run_path(phase, dev, m, hs, synth_s, "mask",
-                                "mask_scan", ptxas["mask_scan"])
+                                "mask_scan", ptxas["mask_scan"],
+                                one_shot=kind == "counter",
+                                measure_chunk=kind == "counter")
         paths[phase]["model"] = m
     mask_line = list(paths.values())
 
@@ -2880,11 +3327,19 @@ def main() -> int:
          overflowed_and_not_ok=overflowed["not_ok"],
          seconds=time.perf_counter() - t0)
 
+    # 13b. the chunk forms against their plain versions after every launch
+    t0 = time.perf_counter()
+    chunk_errs = phase_chunk_kernel(dev)
+    emit("chunk_kernel_summary", max_abs_err=max(chunk_errs.values()),
+         seconds=time.perf_counter() - t0)
+
     # 14. the set path: the suite's set shape through the sort ladder
     set_hs, synth_s = suite_histories("set", value_range=SET_VALUE_RANGE)
     line["sort_scan"] = run_sort_path("set_main", dev, GSet(), set_hs,
                                       synth_s, ptxas["sort_scan"],
+                                      one_shot=True, measure_chunk=True,
                                       value_range=SET_VALUE_RANGE)
+    line["sort_scan_chunk"] = line["sort_scan"].pop("chunk")
 
     # 15. set invalid subset: kernel vs plain ladder vs host oracle
     phase_set_invalid(dev, set_hs)
@@ -2949,6 +3404,7 @@ def main() -> int:
         line["sort_scan"][k] += la_line[k]
     line["sort_scan"]["max_abs_err"] = max(line["sort_scan"]["max_abs_err"],
                                            la_line["max_abs_err"])
+    line["sort_scan_chunk"]["launches"] += la_line["chunk"]["launches"]
     emit("listappend_main_summary", seconds=time.perf_counter() - t0)
 
     # the closure kernels' numbers on the batches the main path gave them
@@ -2982,11 +3438,14 @@ def main() -> int:
         "plain_ms": sum(x["plain_ms"] for x in mask_line),
         "t_bytes": sum(x["t_bytes"] for x in mask_line),
         "t_ops": sum(x["t_ops"] for x in mask_line)}
+    line["mask_scan_chunk"] = dict(
+        paths["counter_main"]["chunk"],
+        launches=sum(x["chunk"]["launches"] for x in paths.values()))
     errs = {"dense_scan": max(corner_err, groups_err["dense_scan"]),
             "mask_scan": max(mask_err, groups_err["mask_scan"]),
             "sort_scan": sort_err, "segment_scan": seg_err,
             "cycle_closure": 0, "cycle_closure_tiled": 0,
-            "election_safety": 0}
+            "election_safety": 0, **chunk_errs}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         x = line[name]

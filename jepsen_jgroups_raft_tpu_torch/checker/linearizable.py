@@ -24,7 +24,12 @@ widest window through the sort kernel (`ops.linear_scan.sort_scan`) at
 C = 64, the rows that overflow again at C = 256; ``ok`` is VALID at any
 rung, ``~ok & ~overflow`` INVALID, and a row that overflows at the top
 rung is undecided. Ladder rows report ``"kernel": "sort"``,
-``"decided-tier": "sort"``.
+``"decided-tier": "sort"``. At the default ``JGRAFT_SCAN_CHUNK`` (128)
+the window groups and every rung run through the chunked wavefront
+(`schedule.run_chunked` over the kernels' chunk forms), as the
+reference's do, and chunked dense rows carry ``"chunked": True``;
+``JGRAFT_SCAN_CHUNK=0`` selects the one-shot launches
+(`schedule.run_dense_groups`, `schedule.run_sort_rung`).
 
 Algorithms:
   * ``"auto"``  — a budgeted DFS (FAST_DFS_BUDGET) first on rows whose
@@ -80,11 +85,12 @@ from typing import Optional, Sequence
 import torch
 
 from ..history.ops import History
-from ..history.packing import (EncodedHistory, encode_history,
+from ..history.packing import (EncodedHistory, bucket_rows, encode_history,
                                macro_events_on, pack_batch, pack_macro_batch)
 from ..ops.dense_scan import dense_plans_grouped
 from ..ops.kernel_ir import MASK_DENSE_MAX_SLOTS
-from ..ops.linear_scan import DEFAULT_N_CONFIGS, MAX_SLOTS, bucket_slots
+from ..ops.linear_scan import (DEFAULT_N_CONFIGS, MAX_SLOTS, bucket_slots,
+                               make_sort_chunk_checker)
 from ..ops.segment_scan import LONG_HISTORY_MIN_EVENTS, check_segmented_batch
 from ..platform import env_int, resolve_device
 from . import autotune
@@ -92,7 +98,9 @@ from .base import Checker, INVALID, UNKNOWN, VALID
 from .certify_batch import certify_many
 from .counterexample import attach_counterexample, write_counterexample_html
 from .dfs_cpu import SearchBudgetExceeded, check_encoded_dfs
-from .schedule import DenseLaunch, note_tier, run_dense_groups, run_sort_rung
+from .schedule import (ChunkLaunch, DenseLaunch, build_dense_launches,
+                       note_tier, run_chunked, run_dense_groups, run_sort_rung,
+                       scan_chunk)
 from .wgl_cpu import FrontierOverflow, check_encoded_cpu
 
 #: Default host-oracle frontier cap: the search is worst-case
@@ -586,29 +594,41 @@ def _segment_pass(encs, model, dev, fits, results, note: bool) -> list:
 def _dense_pass(encs, model, dev, fits, results, note: bool) -> list:
     """Run every dense-eligible history of `fits` through its group's
     CUDA kernel, domain or mask (or the kernel's plain version on a CPU
-    device). Fills `results` for them; returns the rows beyond both
-    kinds' caps."""
+    device): through the chunked wavefront (`run_chunked`, rows stamped
+    ``"chunked": True``) when `scan_chunk()` > 0, else the one-shot
+    launches (`run_dense_groups`). Fills `results` for them; returns the
+    rows beyond both kinds' caps."""
     if not fits:
         return fits
     grouped, rest = dense_plans_grouped(model, [encs[i] for i in fits])
+    rest = [fits[j] for j in rest]
+    if not grouped:
+        return rest
     pack = pack_macro_batch if macro_events_on() else pack_batch
-    subs, launches = [], []
+    triples = []
     for idxs, plan in grouped:
         sub = [fits[j] for j in idxs]
-        batch = pack([encs[i] for i in sub])
-        launches.append(DenseLaunch(
-            events=torch.from_numpy(batch["events"]).to(dev),
-            val_of=torch.from_numpy(plan.val_of).to(dev),
-            n_events=torch.from_numpy(batch["n_events"]).to(dev),
-            n_slots=plan.n_slots, macro_p=batch.get("macro_p"),
-            tag=plan.kernel_tag, kind=plan.kind))
-        subs.append(sub)
-    rest = [fits[j] for j in rest]
-    if not launches:
+        triples.append((sub, plan, pack([encs[i] for i in sub])))
+    if scan_chunk() > 0:
+        launches, subs = build_dense_launches(model, triples, device=dev)
+        for sub, out in zip(subs, run_chunked(launches)):
+            # each row reports its group's (overlapped) wall share
+            dt = out.wall_s / max(len(sub), 1)
+            for j, i in enumerate(sub):
+                r = _jx(VALID if out.ok[j] else INVALID, encs[i], dt,
+                        kernel=out.tag, note=note)
+                r["chunked"] = True
+                results[i] = r
         return rest
+    launches = [DenseLaunch(
+        events=torch.from_numpy(batch["events"]).to(dev),
+        val_of=torch.from_numpy(plan.val_of).to(dev),
+        n_events=torch.from_numpy(batch["n_events"]).to(dev),
+        n_slots=plan.n_slots, macro_p=batch.get("macro_p"),
+        tag=plan.kernel_tag, kind=plan.kind) for _, plan, batch in triples]
     run = run_dense_groups(launches, model)
-    dt = run.wall_s / max(sum(len(s) for s in subs), 1)
-    for sub, ok, ln in zip(subs, run.ok, launches):
+    dt = run.wall_s / max(sum(len(t[0]) for t in triples), 1)
+    for (sub, _, _), ok, ln in zip(triples, run.ok, launches):
         for j, i in enumerate(sub):
             results[i] = _jx(VALID if ok[j] else INVALID, encs[i], dt,
                              kernel=ln.tag, note=note)
@@ -620,7 +640,10 @@ def _sort_pass(encs, model, dev, rows, results, n_configs=None,
     """The sort-frontier ladder over `rows` (indices into encs), as the
     reference's `_jax_pass` runs it: one batch at the widest window's
     bucket (or the pinned `n_slots`), rungs SORT_LADDER (or the pinned
-    `n_configs` alone); the rows that overflow go up a rung. Fills
+    `n_configs` alone); the rows that overflow go up a rung. Each rung
+    is one `ChunkLaunch` (tag "sort") through the chunked wavefront when
+    `scan_chunk()` > 0, else one `run_sort_rung`; its rows are recorded
+    alike either way (no "chunked" stamp, as the reference's). Fills
     `results` for the rows it decides."""
     if not rows:
         return
@@ -630,16 +653,28 @@ def _sort_pass(encs, model, dev, rows, results, n_configs=None,
     remaining = rows
     for rung, C in enumerate(ladder):
         batch = pack([encs[i] for i in remaining])
-        run = run_sort_rung(torch.from_numpy(batch["events"]).to(dev),
-                            torch.from_numpy(batch["n_events"]).to(dev),
-                            W, C, batch.get("macro_p"), model)
-        dt = run.wall_s / len(remaining)
+        t0 = time.perf_counter()
+        if scan_chunk() > 0:
+            init_fn, step_fn = make_sort_chunk_checker(
+                model, C, W, macro_p=batch.get("macro_p"))
+            [out] = run_chunked([ChunkLaunch(
+                events=batch["events"], n_events=batch["n_events"],
+                init_fn=init_fn, step_fn=step_fn,
+                e_sched=bucket_rows(batch["events"].shape[1], 32),
+                device=dev, tag="sort")])
+            ok, overflow = out.ok, out.overflow
+        else:
+            run = run_sort_rung(torch.from_numpy(batch["events"]).to(dev),
+                                torch.from_numpy(batch["n_events"]).to(dev),
+                                W, C, batch.get("macro_p"), model)
+            ok, overflow = run.ok, run.overflow
+        dt = (time.perf_counter() - t0) / len(remaining)
         escalate = []
         for j, i in enumerate(remaining):
-            if run.ok[j]:
+            if ok[j]:
                 results[i] = _jx(VALID, encs[i], dt, kernel="sort",
                                  note=note)
-            elif not run.overflow[j]:
+            elif not overflow[j]:
                 results[i] = _jx(INVALID, encs[i], dt, kernel="sort",
                                  note=note)
             elif rung + 1 < len(ladder):

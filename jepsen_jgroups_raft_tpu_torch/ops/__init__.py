@@ -1,15 +1,19 @@
 """Device kernels of the port.
 
-* `kernel_ir`  — eligibility caps, the macro row layout, and the plain
+* `kernel_ir`  — eligibility caps, the macro row layout, the plain
   PyTorch step parts (latch, closure fixpoint, FORCE) the plain version
-  of every dense kernel is built from.
+  of every dense kernel is built from, and the chunk-carry contract
+  (`CarryLayout`, `chunk_scan`).
 * `dense_scan` — grouping by kind and window (`dense_plans_grouped`),
   the CUDA kernel wrappers `dense_scan` (dense-domain scan) and
   `mask_scan` (mask-mode scan) and their plain versions
-  `dense_scan_plain`, `mask_scan_plain`.
+  `dense_scan_plain`, `mask_scan_plain`; their chunk forms
+  (`make_dense_chunk_checker`: `dense_chunk`, `mask_chunk` and the
+  plain `dense_chunk_plain`, `mask_chunk_plain`).
 * `linear_scan` — the sort-frontier ladder: window buckets
   (`bucket_slots`), the CUDA kernel wrapper `sort_scan` and its plain
-  version `sort_scan_plain`.
+  version `sort_scan_plain`; the chunk form (`make_sort_chunk_checker`:
+  `sort_chunk`, `sort_chunk_plain`).
 * `segment_scan` — long histories cut at quiescent boundaries: the
   planner and host composition (`check_segmented_batch`), the CUDA
   kernel wrapper `segment_scan` (one warp per (segment, seed)) and its

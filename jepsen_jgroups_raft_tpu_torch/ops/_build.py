@@ -33,13 +33,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: ctypes signatures of each library's C entry points: name ->
 #: {function: (restype, argtypes)}. Pointers and the stream are
 #: c_void_p — a plain int would be cut to 32 bits.
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES: Dict[str, dict] = {
     "dense_scan": {
         # events, val_of, n_events, ok, B, E, R, macro_p, W, S,
         # field_log2, model, device, stream
         "dense_scan_launch": (_I, [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _VP]),
+        # events, carry in, carry out, flags, row stride, B, width, R,
+        # macro_p, W, S, field_log2, model, carry length, device, stream
+        "dense_scan_chunk_launch": (_I, [_VP, _VP, _VP, _VP, _LL] + [_I] * 10
+                                    + [_VP]),
         "dense_scan_error_string": (ctypes.c_char_p, [_I]),
     },
     "mask_scan": {
@@ -47,6 +51,10 @@ SIGNATURES: Dict[str, dict] = {
         # device, stream
         "mask_scan_launch": (_I, [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _VP]),
+        # events, carry in, carry out, flags, row stride, B, width, R,
+        # macro_p, W, model, carry length, device, stream
+        "mask_scan_chunk_launch": (_I, [_VP, _VP, _VP, _VP, _LL] + [_I] * 8
+                                   + [_VP]),
         "mask_scan_error_string": (ctypes.c_char_p, [_I]),
     },
     "sort_scan": {
@@ -54,6 +62,10 @@ SIGNATURES: Dict[str, dict] = {
         # init_state, device, stream
         "sort_scan_launch": (_I, [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _VP]),
+        # events, carry in, carry out, flags, row stride, B, width, R,
+        # macro_p, W, C, model, carry length, device, stream
+        "sort_scan_chunk_launch": (_I, [_VP, _VP, _VP, _VP, _LL] + [_I] * 9
+                                   + [_VP]),
         "sort_scan_error_string": (ctypes.c_char_p, [_I]),
     },
     "segment_scan": {
@@ -86,6 +98,14 @@ SIGNATURES: Dict[str, dict] = {
         "mask_scan_profile_error_string": (ctypes.c_char_p, [_I]),
         "mask_scan_profile_fields": (_I, []),
     },
+}
+
+#: Entry points named apart from their library: the chunk entry points live
+#: in the one-shot kernel's source (one kernel body, two entry points).
+ENTRY_LIBRARY: Dict[str, str] = {
+    "dense_scan_chunk": "dense_scan",
+    "mask_scan_chunk": "mask_scan",
+    "sort_scan_chunk": "sort_scan",
 }
 
 #: Libraries built from another library's source with extra nvcc flags:
@@ -183,10 +203,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def error_string(name: str, rc: int) -> str:
-    """Readable form of library `name`'s return code (its
-    `<name>_error_string` entry): a CUDA error's text, or the argument
-    check that refused the launch."""
-    msg = getattr(load(name), f"{name}_error_string")(int(rc))
+    """Readable form of entry point `name`'s return code (its library's
+    `<library>_error_string` entry): a CUDA error's text, or the
+    argument check that refused the launch."""
+    lib = ENTRY_LIBRARY.get(name, name)
+    msg = getattr(load(lib), f"{lib}_error_string")(int(rc))
     return f"{rc}: {msg.decode() if msg else 'unknown error'}"
 
 

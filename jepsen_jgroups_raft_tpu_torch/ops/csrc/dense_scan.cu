@@ -72,6 +72,15 @@
 //   each group on its own stream, so the check's kernel span approaches
 //   the slowest group rather than the sum.
 //
+// * The chunk form (the reference's `make_dense_chunk_checker`,
+//   ops/dense_scan.py:755, under its chunked wavefront) is a second
+//   entry point of the same kernel body: the warp reads its carry
+//   (frontier words, transition rows, open slots, dirty, ok, left) at
+//   the start, scans at most `left` rows of a column slice of the batch,
+//   and writes the carry and four flags at the end. What it adds is the
+//   carry's bytes, read and written once a launch (F <= 1 KB, T <= 640 B
+//   a history), against the rows the launch scans.
+//
 // Same function as the reference, bit for bit. The reference sweeps the
 // slots in order, each pass seeing the passes before it; here a sweep
 // applies every slot to the same frontier. Both stop at the least
@@ -107,13 +116,44 @@
 
 namespace {
 
+// The chunk carry of one history (ops/dense_scan.py dense_carry_layout):
+// int32 fields ok, overflow, dirty, left (kCarryHead), open[W] (0/1),
+// val_of[S], T[W][FS] (the transition rows as the kernel keeps them in
+// shared memory) and the frontier's words F[kWords of the layout, lane
+// order] (word 32 j + l is lane l's register word j: bits [32 g, 32 g +
+// 32) of b = m * FS + s, as segment_scan.cu writes its frontiers).
+template <int W, int LF>
+struct DenseCarry {
+  static constexpr int kFS = Layout<W, LF>::kFS;
+  static constexpr int kNW = (1 << (W + LF)) > 32 ? (1 << (W + LF)) / 32 : 1;
+  static constexpr int kOpen = kCarryHead;
+  static constexpr int kVal = kOpen + W;
+  __host__ __device__ static constexpr int t(int S) { return kVal + S; }
+  __host__ __device__ static constexpr int f(int S) { return t(S) + W * kFS; }
+  __host__ __device__ static constexpr int len(int S) { return f(S) + kNW; }
+};
+
+// One kernel body, two entry points. One-shot (dense_scan_launch):
+// carry_in, carry_out and flags are null; the scan starts fresh, reads
+// n_events[h] rows of each history's E and writes ok_out. Chunk
+// (dense_scan_chunk_launch): the state starts from carry_in, the scan
+// reads min(left, E) rows of the slice (E is the slice's width, `left`
+// the history's real rows not yet scanned), then writes carry_out with
+// left - E and flags [4][B]: decided (= !ok), exhausted (left - E <= 0),
+// ok, overflow (always 0 here). A row whose frontier died stops there;
+// its carry keeps ok = 0 and the empty frontier (the slot state it
+// holds is then not the reference's, and nothing reads it again).
 template <int W, int LF>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
-    dense_scan_warp(const int32_t* __restrict__ events,
+    dense_scan_warp(const int32_t* __restrict__ events, long long row_stride,
                     const int32_t* __restrict__ val_of,
                     const int32_t* __restrict__ n_events,
+                    const int32_t* __restrict__ carry_in,
+                    int32_t* __restrict__ carry_out,
+                    uint8_t* __restrict__ flags,
                     uint8_t* __restrict__ ok_out, int B, int E, int R,
                     int macro_p, int S, int model) {
+  using Carry = DenseCarry<W, LF>;
   constexpr int kFS = Layout<W, LF>::kFS;
   constexpr int kWords = Layout<W, LF>::kWords;
   __shared__ int32_t ring_all[kWarpsPerBlock][kRingDepth][kRowPitch];
@@ -125,26 +165,42 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
   if (h >= B) return;  // warp-uniform; no other warp waits on this one
   int32_t (*ring)[kRowPitch] = ring_all[warp];
   uint32_t (*T)[kFS] = T_all[warp];
-  const int32_t* ev = events + static_cast<size_t>(h) * E * R;
-  const int n_rows = min(max(n_events[h], 0), E);
+  const int32_t* cin =
+      carry_in ? carry_in + static_cast<size_t>(h) * Carry::len(S) : nullptr;
+  const int32_t* ev = events + static_cast<size_t>(h) * row_stride;
+  const int left = cin ? cin[kCarryLeft] : n_events[h];
+  bool ok = cin ? cin[kCarryOk] != 0 : true;
+  const int n_rows = ok ? min(max(left, 0), E) : 0;
 #pragma unroll
   for (int e = 0; e < kRingDepth - 1; ++e)
     stage_row(ring, ev, e, n_rows, R, lane);
 
+  const int32_t* vsrc = cin ? cin + Carry::kVal
+                            : val_of + static_cast<size_t>(h) * S;
   int32_t vals[kFS];
 #pragma unroll
-  for (int s = 0; s < kFS; ++s)
-    vals[s] = s < S ? __ldg(val_of + static_cast<size_t>(h) * S + s) : 0;
-  for (int i = lane; i < W * kFS; i += 32) (&T[0][0])[i] = 0u;
+  for (int s = 0; s < kFS; ++s) vals[s] = s < S ? __ldg(vsrc + s) : 0;
   uint32_t F[kWords];
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) F[j] = 0u;
-  if (lane == 0) F[0] = 1u;  // mask 0, state id 0
-  __syncwarp();
-
   unsigned open = 0;   // slots holding a latched op
   bool dirty = false;  // an OPEN since the last FORCE: a closure is due
-  bool ok = true;
+  if (cin) {
+    for (int i = lane; i < W * kFS; i += 32)
+      (&T[0][0])[i] = static_cast<uint32_t>(cin[Carry::t(S) + i]);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      F[j] = 32 * j + lane < Carry::kNW
+                 ? static_cast<uint32_t>(cin[Carry::f(S) + 32 * j + lane])
+                 : 0u;
+    open = __ballot_sync(kFull, lane < W && cin[Carry::kOpen + lane] != 0);
+    dirty = cin[kCarryDirty] != 0;
+  } else {
+    for (int i = lane; i < W * kFS; i += 32) (&T[0][0])[i] = 0u;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) F[j] = 0u;
+    if (lane == 0) F[0] = 1u;  // mask 0, state id 0
+  }
+  __syncwarp();
+
   const int base = macro_p ? 3 : 1;  // first payload (slot, f, a, b)
   for (int e = 0; e < n_rows; ++e) {
     stage_row(ring, ev, e + kRingDepth - 1, n_rows, R, lane);
@@ -205,10 +261,24 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
     if (!ok) break;
   }
   cp_async_wait<0>();
-  if (lane == 0) ok_out[h] = ok ? 1 : 0;
+  if (ok_out != nullptr && lane == 0) ok_out[h] = ok ? 1 : 0;
+  if (carry_out != nullptr) {
+    int32_t* cout = carry_out + static_cast<size_t>(h) * Carry::len(S);
+    for (int i = lane; i < W * kFS; i += 32)
+      cout[Carry::t(S) + i] = static_cast<int32_t>((&T[0][0])[i]);
+    for (int i = lane; i < S; i += 32) cout[Carry::kVal + i] = vsrc[i];
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      if (32 * j + lane < Carry::kNW)
+        cout[Carry::f(S) + 32 * j + lane] = static_cast<int32_t>(F[j]);
+    if (lane < W) cout[Carry::kOpen + lane] = (open >> lane) & 1u;
+    if (lane == 0)
+      write_head(cout, flags, h, B, ok, false, dirty, left - E);
+  }
 }
 
-using KernelFn = void (*)(const int32_t*, const int32_t*, const int32_t*,
+using KernelFn = void (*)(const int32_t*, long long, const int32_t*,
+                          const int32_t*, const int32_t*, int32_t*, uint8_t*,
                           uint8_t*, int, int, int, int, int, int);
 
 template <int W>
@@ -241,6 +311,66 @@ KernelFn pick(int W, int lf) {
   }
 }
 
+template <int W>
+int carry_len_field(int lf, int S) {
+  switch (lf) {
+    case 0: return DenseCarry<W, 0>::len(S);
+    case 1: return DenseCarry<W, 1>::len(S);
+    case 2: return DenseCarry<W, 2>::len(S);
+    case 3: return DenseCarry<W, 3>::len(S);
+    default: return DenseCarry<W, 4>::len(S);
+  }
+}
+
+int carry_len(int W, int lf, int S) {
+  switch (W) {
+    case 1: return carry_len_field<1>(lf, S);
+    case 2: return carry_len_field<2>(lf, S);
+    case 3: return carry_len_field<3>(lf, S);
+    case 4: return carry_len_field<4>(lf, S);
+    case 5: return carry_len_field<5>(lf, S);
+    case 6: return carry_len_field<6>(lf, S);
+    case 7: return carry_len_field<7>(lf, S);
+    case 8: return carry_len_field<8>(lf, S);
+    case 9: return carry_len_field<9>(lf, S);
+    default: return carry_len_field<10>(lf, S);
+  }
+}
+
+// The argument checks both entry points share: 0, or a negative code.
+int check_args(int B, int E, int R, int macro_p, int W, int S,
+               int field_log2, int model) {
+  if (B < 0 || E < 0) return -1;
+  if (W < 1 || W > kMaxSlots || S < 1 || S > kMaxStates ||
+      (1 << W) * S > kMaxCells)
+    return -2;
+  if (macro_p < 0 || macro_p > kMaxOpens) return -3;
+  if (R != (macro_p ? 3 + 4 * macro_p : 5)) return -4;
+  if (model != kModelCasRegister && model != kModelSet) return -5;
+  if (field_log2 < 0 || field_log2 > 4 || (1 << field_log2) < S ||
+      (field_log2 > 0 && (1 << (field_log2 - 1)) >= S))
+    return -6;
+  if (pick(W, field_log2) == nullptr) return -6;
+  return 0;
+}
+
+int launch(const int32_t* events, long long row_stride,
+           const int32_t* val_of, const int32_t* n_events,
+           const int32_t* carry_in, int32_t* carry_out, uint8_t* flags,
+           uint8_t* ok, int B, int E, int R, int macro_p, int W, int S,
+           int field_log2, int model, int device, void* stream) {
+  if (B == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const KernelFn kernel = pick(W, field_log2);
+  kernel<<<blocks, kWarpsPerBlock * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      events, row_stride, val_of, n_events, carry_in, carry_out, flags, ok,
+      B, E, R, macro_p, S, model);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launch the scan over B histories on `stream`, one warp per history and
@@ -254,26 +384,33 @@ extern "C" int dense_scan_launch(const int32_t* events, const int32_t* val_of,
                                  int E, int R, int macro_p, int W, int S,
                                  int field_log2, int model, int device,
                                  void* stream) {
-  if (B < 0 || E < 0) return -1;
-  if (W < 1 || W > kMaxSlots || S < 1 || S > kMaxStates ||
-      (1 << W) * S > kMaxCells)
-    return -2;
-  if (macro_p < 0 || macro_p > kMaxOpens) return -3;
-  if (R != (macro_p ? 3 + 4 * macro_p : 5)) return -4;
-  if (model != kModelCasRegister && model != kModelSet) return -5;
-  if (field_log2 < 0 || field_log2 > 4 || (1 << field_log2) < S ||
-      (field_log2 > 0 && (1 << (field_log2 - 1)) >= S))
-    return -6;
-  const KernelFn kernel = pick(W, field_log2);
-  if (kernel == nullptr) return -6;
-  if (B == 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  kernel<<<blocks, kWarpsPerBlock * 32, 0,
-           static_cast<cudaStream_t>(stream)>>>(events, val_of, n_events, ok,
-                                                B, E, R, macro_p, S, model);
-  return static_cast<int>(cudaGetLastError());
+  const int rc = check_args(B, E, R, macro_p, W, S, field_log2, model);
+  if (rc != 0) return rc;
+  return launch(events, static_cast<long long>(E) * R, val_of, n_events,
+                nullptr, nullptr, nullptr, ok, B, E, R, macro_p, W, S,
+                field_log2, model, device, stream);
+}
+
+// Launch one chunk over B histories on `stream`: the state of history h
+// from row h of carry_in (carry_len ints, DenseCarry's layout), its
+// event rows from events + h * row_stride (width rows of R ints; a slice
+// of a longer batch), the state after them to row h of carry_out and
+// its four flags to flags[k * B + h]. Returns as dense_scan_launch; -7
+// when carry_len is not the layout's length. Does not synchronise.
+extern "C" int dense_scan_chunk_launch(const int32_t* events,
+                                       const int32_t* carry_in,
+                                       int32_t* carry_out, uint8_t* flags,
+                                       long long row_stride, int B, int width,
+                                       int R, int macro_p, int W, int S,
+                                       int field_log2, int model,
+                                       int carry_len_, int device,
+                                       void* stream) {
+  const int rc = check_args(B, width, R, macro_p, W, S, field_log2, model);
+  if (rc != 0) return rc;
+  if (carry_len_ != carry_len(W, field_log2, S)) return -7;
+  return launch(events, row_stride, nullptr, nullptr, carry_in, carry_out,
+                flags, nullptr, B, width, R, macro_p, W, S, field_log2, model,
+                device, stream);
 }
 
 extern "C" const char* dense_scan_error_string(int code) {
@@ -284,6 +421,7 @@ extern "C" const char* dense_scan_error_string(int code) {
     case -4: return "row width does not match macro_p";
     case -5: return "model has no dense domain (the register and the set have)";
     case -6: return "field_log2 is not the layout's field width for S";
+    case -7: return "carry length does not match the carry layout";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -78,6 +78,13 @@
 //   costs (closed-frontier groups) x (open slots not always legal)
 //   ballots, against (open slots) x 2^W / 32 for the whole table.
 //
+// The chunk form (the reference's `make_dense_chunk_checker` for mask
+// groups, under its chunked wavefront) is a second entry point of the
+// same body: the carry holds the frontier words, base and each slot's
+// registers with its column total X[c] (not the reference's sums[2^W],
+// 16 KB a history at W = 12: sums[m] is the sum of X over m's bits), read
+// at the start of a launch and written at its end.
+//
 // Same function as the reference, bit for bit: the closure reaches the
 // same least fixpoint in at most W + 1 sweeps (the argument for sweeps
 // of the same frontier is in dense_scan.cu); payloads that share one slot
@@ -316,13 +323,43 @@ __device__ __forceinline__ void mask_closure(
   }
 }
 
+// The chunk carry of one history (ops/dense_scan.py mask_carry_layout):
+// int32 fields ok, overflow, dirty, left (kCarryHead), base, then per
+// slot open, f, a, b, delta and col (the column total X[c]) [W], then
+// the frontier's words in lane order (word 32 j + l is lane l's register
+// word j). sums[2^W] is not stored: it is Σ_{c in m} X[c].
+template <int W>
+struct MaskCarry {
+  static constexpr int kNW = (1 << W) > 32 ? (1 << W) / 32 : 1;
+  static constexpr int kBase = kCarryHead;
+  static constexpr int kOpen = kBase + 1;
+  static constexpr int kF = kOpen + W;
+  static constexpr int kA = kF + W;
+  static constexpr int kB = kA + W;
+  static constexpr int kDelta = kB + W;
+  static constexpr int kCol = kDelta + W;
+  static constexpr int kFrontier = kCol + W;
+  static constexpr int kLen = kFrontier + kNW;
+};
+
+// One kernel body, two entry points, as dense_scan.cu's: one-shot
+// (carry_in, carry_out and flags null; a fresh state, n_events[h] rows,
+// ok_out) and chunk (the state from carry_in, min(left, E) rows of the
+// slice, carry_out with left - E and the four flags). Every field of the
+// state lives in registers between rows, so the carry holds all of it;
+// the lazy legality of mask_closure is built and dropped inside one
+// closing FORCE and crosses no row.
 template <int W, int MODEL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
-    mask_scan_warp(const int32_t* __restrict__ events,
+    mask_scan_warp(const int32_t* __restrict__ events, long long row_stride,
                    const int32_t* __restrict__ n_events,
+                   const int32_t* __restrict__ carry_in,
+                   int32_t* __restrict__ carry_out,
+                   uint8_t* __restrict__ flags,
                    uint8_t* __restrict__ ok_out,
                    long long* __restrict__ prof_out, int B, int E, int R,
                    int macro_p, int32_t init_state) {
+  using Carry = MaskCarry<W>;
   constexpr int kWords = kMaskWords<W>;
   __shared__ int32_t ring_all[kWarpsPerBlock][kRingDepth][kRowPitch];
 
@@ -331,17 +368,17 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
   const int h = blockIdx.x * kWarpsPerBlock + warp;
   if (h >= B) return;  // warp-uniform; no other warp waits on this one
   int32_t (*ring)[kRowPitch] = ring_all[warp];
-  const int32_t* ev = events + static_cast<size_t>(h) * E * R;
-  const int n_rows = min(max(n_events[h], 0), E);
+  const int32_t* cin =
+      carry_in ? carry_in + static_cast<size_t>(h) * Carry::kLen : nullptr;
+  const int32_t* ev = events + static_cast<size_t>(h) * row_stride;
+  const int left = cin ? cin[kCarryLeft] : n_events[h];
+  bool ok = cin ? cin[kCarryOk] != 0 : true;
+  const int n_rows = ok ? min(max(left, 0), E) : 0;
 #pragma unroll
   for (int e = 0; e < kRingDepth - 1; ++e)
     stage_row(ring, ev, e, n_rows, R, lane);
 
   uint32_t F[kWords];
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) F[j] = 0u;
-  if (lane == 0) F[0] = 1u;  // the empty mask
-
   // Slot `lane`'s registers (lanes >= W keep zeros): its op, its delta,
   // the column total X[lane] of sums, and whether it is open.
   int32_t sf = 0, sa = 0, sb = 0;
@@ -349,7 +386,27 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
   bool sopen = false;
   uint32_t base = static_cast<uint32_t>(init_state);  // warp-uniform
   bool dirty = false;  // an OPEN since the last FORCE: a closure is due
-  bool ok = true;
+  if (cin) {
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      F[j] = 32 * j + lane < Carry::kNW
+                 ? static_cast<uint32_t>(cin[Carry::kFrontier + 32 * j + lane])
+                 : 0u;
+    if (lane < W) {
+      sf = cin[Carry::kF + lane];
+      sa = cin[Carry::kA + lane];
+      sb = cin[Carry::kB + lane];
+      sdelta = static_cast<uint32_t>(cin[Carry::kDelta + lane]);
+      col = static_cast<uint32_t>(cin[Carry::kCol + lane]);
+      sopen = cin[Carry::kOpen + lane] != 0;
+    }
+    base = static_cast<uint32_t>(cin[Carry::kBase]);
+    dirty = cin[kCarryDirty] != 0;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) F[j] = 0u;
+    if (lane == 0) F[0] = 1u;  // the empty mask
+  }
   const int first = macro_p ? 3 : 1;  // first payload (slot, f, a, b)
   Prof prof;
   prof.start();
@@ -429,11 +486,31 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
     if (!ok) break;
   }
   cp_async_wait<0>();
-  if (lane == 0) ok_out[h] = ok ? 1 : 0;
+  if (ok_out != nullptr && lane == 0) ok_out[h] = ok ? 1 : 0;
+  if (carry_out != nullptr) {
+    int32_t* cout = carry_out + static_cast<size_t>(h) * Carry::kLen;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      if (32 * j + lane < Carry::kNW)
+        cout[Carry::kFrontier + 32 * j + lane] = static_cast<int32_t>(F[j]);
+    if (lane < W) {
+      cout[Carry::kF + lane] = sf;
+      cout[Carry::kA + lane] = sa;
+      cout[Carry::kB + lane] = sb;
+      cout[Carry::kDelta + lane] = static_cast<int32_t>(sdelta);
+      cout[Carry::kCol + lane] = static_cast<int32_t>(col);
+      cout[Carry::kOpen + lane] = sopen ? 1 : 0;
+    }
+    if (lane == 0) {
+      cout[Carry::kBase] = static_cast<int32_t>(base);
+      write_head(cout, flags, h, B, ok, false, dirty, left - E);
+    }
+  }
   prof.store(prof_out, h, lane);
 }
 
-using KernelFn = void (*)(const int32_t*, const int32_t*, uint8_t*,
+using KernelFn = void (*)(const int32_t*, long long, const int32_t*,
+                          const int32_t*, int32_t*, uint8_t*, uint8_t*,
                           long long*, int, int, int, int, int32_t);
 
 template <int MODEL>
@@ -464,9 +541,28 @@ KernelFn pick(int W, int model) {
   }
 }
 
-int launch(const int32_t* events, const int32_t* n_events, uint8_t* ok,
-           long long* prof, int B, int E, int R, int macro_p, int W,
-           int model, int init_state, int device, void* stream) {
+int carry_len(int W) {
+  switch (W) {
+    case 1: return MaskCarry<1>::kLen;
+    case 2: return MaskCarry<2>::kLen;
+    case 3: return MaskCarry<3>::kLen;
+    case 4: return MaskCarry<4>::kLen;
+    case 5: return MaskCarry<5>::kLen;
+    case 6: return MaskCarry<6>::kLen;
+    case 7: return MaskCarry<7>::kLen;
+    case 8: return MaskCarry<8>::kLen;
+    case 9: return MaskCarry<9>::kLen;
+    case 10: return MaskCarry<10>::kLen;
+    case 11: return MaskCarry<11>::kLen;
+    default: return MaskCarry<12>::kLen;
+  }
+}
+
+int launch(const int32_t* events, long long row_stride,
+           const int32_t* n_events, const int32_t* carry_in,
+           int32_t* carry_out, uint8_t* flags, uint8_t* ok, long long* prof,
+           int B, int E, int R, int macro_p, int W, int model, int init_state,
+           int device, void* stream) {
   if (B < 0 || E < 0) return -1;
   if (W < 1 || W > kMaskMaxSlots) return -2;
   if (macro_p < 0 || macro_p > kMaxOpens) return -3;
@@ -478,8 +574,9 @@ int launch(const int32_t* events, const int32_t* n_events, uint8_t* ok,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
   kernel<<<blocks, kWarpsPerBlock * 32, 0,
-           static_cast<cudaStream_t>(stream)>>>(events, n_events, ok, prof, B,
-                                                E, R, macro_p, init_state);
+           static_cast<cudaStream_t>(stream)>>>(
+      events, row_stride, n_events, carry_in, carry_out, flags, ok, prof, B,
+      E, R, macro_p, init_state);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -494,8 +591,28 @@ extern "C" int mask_scan_launch(const int32_t* events, const int32_t* n_events,
                                 uint8_t* ok, int B, int E, int R, int macro_p,
                                 int W, int model, int init_state, int device,
                                 void* stream) {
-  return launch(events, n_events, ok, nullptr, B, E, R, macro_p, W, model,
+  return launch(events, static_cast<long long>(E) * R, n_events, nullptr,
+                nullptr, nullptr, ok, nullptr, B, E, R, macro_p, W, model,
                 init_state, device, stream);
+}
+
+// Launch one chunk over B histories on `stream`: the state of history h
+// from row h of carry_in (carry_len ints, MaskCarry's layout), its event
+// rows from events + h * row_stride (width rows of R ints; a slice of a
+// longer batch), the state after them to row h of carry_out and its four
+// flags to flags[k * B + h]. Returns as mask_scan_launch; -7 when
+// carry_len is not the layout's length. Does not synchronise.
+extern "C" int mask_scan_chunk_launch(const int32_t* events,
+                                      const int32_t* carry_in,
+                                      int32_t* carry_out, uint8_t* flags,
+                                      long long row_stride, int B, int width,
+                                      int R, int macro_p, int W, int model,
+                                      int carry_len_, int device,
+                                      void* stream) {
+  if (W >= 1 && W <= kMaskMaxSlots && carry_len_ != carry_len(W)) return -7;
+  return launch(events, row_stride, nullptr, carry_in, carry_out, flags,
+                nullptr, nullptr, B, width, R, macro_p, W, model, 0, device,
+                stream);
 }
 
 extern "C" const char* mask_scan_error_string(int code) {
@@ -505,6 +622,7 @@ extern "C" const char* mask_scan_error_string(int code) {
     case -3: return "macro_p beyond MACRO_MAX_OPENS";
     case -4: return "row width does not match macro_p";
     case -5: return "model has no mask-mode device step";
+    case -7: return "carry length does not match the carry layout";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }
@@ -518,7 +636,8 @@ extern "C" int mask_scan_profile_launch(const int32_t* events,
                                         int macro_p, int W, int model,
                                         int init_state, int device,
                                         void* stream) {
-  return launch(events, n_events, ok, prof, B, E, R, macro_p, W, model,
+  return launch(events, static_cast<long long>(E) * R, n_events, nullptr,
+                nullptr, nullptr, ok, prof, B, E, R, macro_p, W, model,
                 init_state, device, stream);
 }
 

@@ -64,6 +64,14 @@
 //   before is processed; the scan stops at n_events or at the first dead
 //   FORCE (a dead frontier stays dead and its overflow flag is final).
 //
+// * The chunk form (the reference's `make_sort_chunk_checker`,
+//   linear_scan.py:351, under its chunked wavefront) is a second
+//   entry point of the same body: the block reads the carry's frontier
+//   (compacting its live entries with a block scan), slot registers and
+//   scalars at the start, and writes them back canonical at the end:
+//   the live entries in key order, then empty ones (~5 KB a history at
+//   C = 256, K = 4). Shared memory does not grow.
+//
 // The model is a runtime switch (models.cuh `model_step`), so the kernel
 // is instantiated only for K = 1..4.
 
@@ -306,12 +314,66 @@ __device__ __forceinline__ void merge_slot(
   *r = min(total, C);
 }
 
+// A configuration's key from its K mask words and state, and back.
+template <int K>
+__device__ __forceinline__ Key<K> key_of(const int32_t* m, int32_t state) {
+  Key<K> x;
+#pragma unroll
+  for (int i = 0; i < Key<K>::kU64; ++i) x.v[i] = 0ull;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int fi = field_of_word<K>(j);
+    x.v[fi >> 1] |= static_cast<uint64_t>(static_cast<uint32_t>(m[j]))
+                    << (fi & 1 ? 0 : 32);
+  }
+  set_state(x, state);
+  return x;
+}
+
+template <int K>
+__device__ __forceinline__ void key_words(const Key<K>& x, int32_t* m,
+                                          int32_t* state) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int fi = field_of_word<K>(j);
+    m[j] = static_cast<int32_t>(
+        static_cast<uint32_t>(x.v[fi >> 1] >> (fi & 1 ? 0 : 32)));
+  }
+  *state = get_state(x);
+}
+
+// The chunk carry of one history (ops/linear_scan.py sort_carry_layout):
+// int32 fields ok, overflow, dirty, left (kCarryHead), per slot open, f,
+// a, b [W], states [C], masks [C][K]. The frontier is canonical: the
+// live configurations first, in key order (the reference's), then empty
+// entries (every word all ones, state 0).
+struct SortCarry {
+  int W, C, K;
+  __host__ __device__ int open() const { return kCarryHead; }
+  __host__ __device__ int f() const { return kCarryHead + W; }
+  __host__ __device__ int a() const { return kCarryHead + 2 * W; }
+  __host__ __device__ int b() const { return kCarryHead + 3 * W; }
+  __host__ __device__ int states() const { return kCarryHead + 4 * W; }
+  __host__ __device__ int masks() const { return states() + C; }
+  __host__ __device__ int len() const { return masks() + C * K; }
+};
+
+// One kernel body, two entry points. One-shot (sort_scan_launch):
+// carry_in, carry_out and flags null; one configuration (the empty
+// mask, the initial state), n_events[h] rows, ok_out and overflow_out.
+// Chunk (sort_scan_chunk_launch): the frontier, slot registers and
+// scalars from carry_in (its live entries are sorted and distinct, as
+// this kernel and the plain version write them), min(left, E) rows of
+// the slice, then carry_out with left - E and the four flags.
 template <int K>
 __global__ void __launch_bounds__(kSortMaxConfigs)
-    sort_scan_block(const int32_t* __restrict__ events,
+    sort_scan_block(const int32_t* __restrict__ events, long long row_stride,
                     const int32_t* __restrict__ n_events,
+                    const int32_t* __restrict__ carry_in,
+                    int32_t* __restrict__ carry_out,
+                    uint8_t* __restrict__ flags,
                     uint8_t* __restrict__ ok_out,
-                    uint8_t* __restrict__ overflow_out, int E, int R,
+                    uint8_t* __restrict__ overflow_out, int B, int E, int R,
                     int macro_p, int W, int C, int Cp, int model,
                     int32_t init_state) {
   extern __shared__ uint64_t smem[];
@@ -324,12 +386,38 @@ __global__ void __launch_bounds__(kSortMaxConfigs)
 
   const int tid = threadIdx.x;
   const int h = blockIdx.x;
-  const int32_t* ev = events + static_cast<size_t>(h) * E * R;
-  const int n_rows = min(max(n_events[h], 0), E);
+  const SortCarry lay{W, C, K};
+  const int32_t* cin =
+      carry_in ? carry_in + static_cast<size_t>(h) * lay.len() : nullptr;
+  const int32_t* ev = events + static_cast<size_t>(h) * row_stride;
+  const int left = cin ? cin[kCarryLeft] : n_events[h];
+  bool ok = cin ? cin[kCarryOk] != 0 : true;
+  bool overflow = cin ? cin[kCarryOverflow] != 0 : false;
+  bool dirty = cin ? cin[kCarryDirty] != 0 : false;
+  const int n_rows = ok ? min(max(left, 0), E) : 0;
 
-  for (int s = tid; s < W; s += blockDim.x) sf[s] = sa[s] = sb[s] = 0;
+  for (int s = tid; s < W; s += blockDim.x) {
+    sf[s] = cin ? cin[lay.f() + s] : 0;
+    sa[s] = cin ? cin[lay.a() + s] : 0;
+    sb[s] = cin ? cin[lay.b() + s] : 0;
+  }
   if (tid < kSlotWords) open[tid] = 0u;
-  if (tid == 0) {
+  __syncthreads();
+  int n = 1;  // live parents, par[0, n) sorted and distinct
+  if (cin) {
+    for (int s = tid; s < W; s += blockDim.x)
+      if (cin[lay.open() + s] != 0) atomicOr(&open[s >> 5], 1u << (s & 31));
+    // the carry's live entries, squeezed to the front in their order
+    bool live = false;
+    Key<K> x = empty_key<K>();
+    if (tid < C) {
+      const int32_t* m = cin + lay.masks() + static_cast<size_t>(tid) * K;
+      live = m[K - 1] != -1;
+      if (live) x = key_of<K>(m, cin[lay.states() + tid]);
+    }
+    const int pos = block_scan(live ? 1 : 0, warp_tot, &n);
+    if (live) par[pos] = x;
+  } else if (tid == 0) {
     Key<K> x;
 #pragma unroll
     for (int i = 0; i < Key<K>::kU64; ++i) x.v[i] = 0ull;
@@ -340,9 +428,6 @@ __global__ void __launch_bounds__(kSortMaxConfigs)
     for (int i = tid; i < R; i += blockDim.x) rows[0][i] = ev[i];
   __syncthreads();
 
-  int n = 1;           // live parents, par[0, n) sorted and distinct
-  bool dirty = false;  // an OPEN since the last FORCE: a closure is due
-  bool ok = true, overflow = false;
   const int first = macro_p ? 3 : 1;  // first payload (slot, f, a, b)
   for (int e = 0; e < n_rows; ++e) {
     // the next row lands in the other buffer while this one runs
@@ -430,14 +515,36 @@ __global__ void __launch_bounds__(kSortMaxConfigs)
     if (!ok) break;
   }
   cp_async_wait<0>();
-  if (tid == 0) {
+  if (ok_out != nullptr && tid == 0) {
     ok_out[h] = ok ? 1 : 0;
     overflow_out[h] = overflow ? 1 : 0;
   }
+  if (carry_out != nullptr) {
+    int32_t* cout = carry_out + static_cast<size_t>(h) * lay.len();
+    for (int s = tid; s < W; s += blockDim.x) {
+      cout[lay.f() + s] = sf[s];
+      cout[lay.a() + s] = sa[s];
+      cout[lay.b() + s] = sb[s];
+      cout[lay.open() + s] = (open[s >> 5] >> (s & 31)) & 1u;
+    }
+    for (int i = tid; i < C; i += blockDim.x) {
+      int32_t* m = cout + lay.masks() + static_cast<size_t>(i) * K;
+      if (i < n) {
+        key_words<K>(par[i], m, cout + lay.states() + i);
+      } else {
+#pragma unroll
+        for (int j = 0; j < K; ++j) m[j] = -1;
+        cout[lay.states() + i] = 0;
+      }
+    }
+    if (tid == 0) write_head(cout, flags, h, B, ok, overflow, dirty, left - E);
+  }
 }
 
-using KernelFn = void (*)(const int32_t*, const int32_t*, uint8_t*, uint8_t*,
-                          int, int, int, int, int, int, int, int32_t);
+using KernelFn = void (*)(const int32_t*, long long, const int32_t*,
+                          const int32_t*, int32_t*, uint8_t*, uint8_t*,
+                          uint8_t*, int, int, int, int, int, int, int, int,
+                          int32_t);
 
 KernelFn pick(int K) {
   switch (K) {
@@ -451,19 +558,11 @@ KernelFn pick(int K) {
 
 size_t key_bytes(int K) { return sizeof(uint64_t) * ((K + 2) / 2); }
 
-}  // namespace
-
-// Launch the scan over B histories on `stream`, one block per history of
-// max(Cp, 32) threads (Cp: C rounded up to a power of two), with the
-// kernel instantiated for K = W / 32 + 1 mask words; `model` is the
-// model's KERNEL_MODEL and init_state its initial state. Writes ok and
-// overflow per history. Returns 0, a CUDA error code from the launch, or
-// a negative code for refused arguments (see sort_scan_error_string).
-// Does not synchronise.
-extern "C" int sort_scan_launch(const int32_t* events, const int32_t* n_events,
-                                uint8_t* ok, uint8_t* overflow, int B, int E,
-                                int R, int macro_p, int W, int C, int model,
-                                int init_state, int device, void* stream) {
+int launch(const int32_t* events, long long row_stride,
+           const int32_t* n_events, const int32_t* carry_in,
+           int32_t* carry_out, uint8_t* flags, uint8_t* ok,
+           uint8_t* overflow, int B, int E, int R, int macro_p, int W, int C,
+           int model, int init_state, int device, void* stream) {
   if (B < 0 || E < 0) return -1;
   if (W < 1 || W > kSortMaxSlots) return -2;
   if (macro_p < 0 || macro_p > kMaxOpens) return -3;
@@ -481,9 +580,49 @@ extern "C" int sort_scan_launch(const int32_t* events, const int32_t* n_events,
   const size_t smem = 3 * static_cast<size_t>(Cp) * key_bytes(K) +
                       32 * sizeof(int);
   kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      events, n_events, ok, overflow, E, R, macro_p, W, C, Cp, model,
-      init_state);
+      events, row_stride, n_events, carry_in, carry_out, flags, ok, overflow,
+      B, E, R, macro_p, W, C, Cp, model, init_state);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch the scan over B histories on `stream`, one block per history of
+// max(Cp, 32) threads (Cp: C rounded up to a power of two), with the
+// kernel instantiated for K = W / 32 + 1 mask words; `model` is the
+// model's KERNEL_MODEL and init_state its initial state. Writes ok and
+// overflow per history. Returns 0, a CUDA error code from the launch, or
+// a negative code for refused arguments (see sort_scan_error_string).
+// Does not synchronise.
+extern "C" int sort_scan_launch(const int32_t* events, const int32_t* n_events,
+                                uint8_t* ok, uint8_t* overflow, int B, int E,
+                                int R, int macro_p, int W, int C, int model,
+                                int init_state, int device, void* stream) {
+  return launch(events, static_cast<long long>(E) * R, n_events, nullptr,
+                nullptr, nullptr, ok, overflow, B, E, R, macro_p, W, C, model,
+                init_state, device, stream);
+}
+
+// Launch one chunk over B histories on `stream`: history h's frontier,
+// slot registers and scalars from row h of carry_in (carry_len ints,
+// SortCarry's layout), its event rows from events + h * row_stride
+// (width rows of R ints; a slice of a longer batch), the state after
+// them to row h of carry_out and its four flags to flags[k * B + h].
+// Returns as sort_scan_launch; -7 when carry_len is not the layout's
+// length. Does not synchronise.
+extern "C" int sort_scan_chunk_launch(const int32_t* events,
+                                      const int32_t* carry_in,
+                                      int32_t* carry_out, uint8_t* flags,
+                                      long long row_stride, int B, int width,
+                                      int R, int macro_p, int W, int C,
+                                      int model, int carry_len, int device,
+                                      void* stream) {
+  if (W >= 1 && W <= kSortMaxSlots && C >= 1 &&
+      carry_len != SortCarry{W, C, W / 32 + 1}.len())
+    return -7;
+  return launch(events, row_stride, nullptr, carry_in, carry_out, flags,
+                nullptr, nullptr, B, width, R, macro_p, W, C, model, 0, device,
+                stream);
 }
 
 extern "C" const char* sort_scan_error_string(int code) {
@@ -494,6 +633,7 @@ extern "C" const char* sort_scan_error_string(int code) {
     case -4: return "row width does not match macro_p";
     case -5: return "unknown model id";
     case -6: return "n_configs beyond the kernel's caps (1..512)";
+    case -7: return "carry length does not match the carry layout";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -1,7 +1,8 @@
 // The warp-per-history skeleton shared by the port's scan kernels
-// (dense_scan.cu, mask_scan.cu): the event-row constants, the per-warp
-// ring of rows staged ahead with `cp.async`, the register layout of a
-// frontier bitset and the FORCE over it.
+// (dense_scan.cu, mask_scan.cu): the event-row constants, the chunk
+// carry's head (also sort_scan.cu's), the per-warp ring of rows staged
+// ahead with `cp.async`, the register layout of a frontier bitset and
+// the FORCE over it.
 //
 // Frontier layout. A frontier of 2^(W+LF) bits (W window slots, a field
 // of 2^LF bits per mask; the mask-mode scan has LF = 0) is spread over
@@ -29,6 +30,34 @@ constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int32_t kEvOpen = 1;
 constexpr int32_t kEvForce = 2;
+
+// The scalars every chunk carry row starts with, in this order
+// (ops/kernel_ir.py CARRY_HEAD); each kernel's fields follow.
+constexpr int kCarryOk = 0;
+constexpr int kCarryOverflow = 1;
+constexpr int kCarryDirty = 2;
+constexpr int kCarryLeft = 3;
+constexpr int kCarryHead = 4;
+
+// Write a carry row's scalars and, when flags is not null, history h's
+// four chunk flags flags[k * B + h]: decided (= !ok), exhausted (left <=
+// 0), ok, overflow.
+__device__ __forceinline__ void write_head(int32_t* cout, uint8_t* flags,
+                                           int h, int B, bool ok,
+                                           bool overflow, bool dirty,
+                                           int left) {
+  cout[kCarryOk] = ok ? 1 : 0;
+  cout[kCarryOverflow] = overflow ? 1 : 0;
+  cout[kCarryDirty] = dirty ? 1 : 0;
+  cout[kCarryLeft] = left;
+  if (flags != nullptr) {
+    const size_t b = static_cast<size_t>(B);
+    flags[h] = ok ? 0 : 1;
+    flags[b + h] = left <= 0 ? 1 : 0;
+    flags[2 * b + h] = ok ? 1 : 0;
+    flags[3 * b + h] = overflow ? 1 : 0;
+  }
+}
 
 // Bits of a word whose position has bit p clear (p < 5): the fields of
 // the masks without the in-word mask bit at p.

@@ -54,8 +54,10 @@ from ..history.packing import EncodedHistory
 from ..models.base import Model, wrap_i32
 from . import _build
 from .kernel_ir import (DENSE_MAX_CELLS, DENSE_MAX_SLOTS, DENSE_MAX_STATES,
-                        MASK_DENSE_MAX_SLOTS, closure_fixpoint, force_arith,
-                        macro_row_ints, make_stream_step)
+                        MASK_DENSE_MAX_SLOTS, CarryLayout, carry_layout,
+                        chunk_flags, chunk_scan, closure_fixpoint,
+                        force_arith, macro_row_ints, make_stream_step,
+                        new_carry, pack_bits, unpack_bits)
 
 
 @dataclass(frozen=True)
@@ -297,28 +299,18 @@ def dense_sweep_fn(T, slot_open):
     return sweep
 
 
-def dense_scan_plain(events, val_of, n_slots: int,
-                     macro_p: Optional[int] = None, n_events=None,
-                     model=None, stats: Optional[dict] = None):
-    """The dense-domain scan in plain PyTorch: a Python loop over event
-    rows, batched over B, following the reference's `dense_step_parts`
-    (transition rows hoisted to OPEN, as the kernel builds them).
-
-    events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
-    val_of [B, S] int32; n_events [B] (rows past a history's length are
-    EV_PAD no-ops, so it only bounds the loop). Returns ok [B] bool on
-    events' device. `stats`, when given, accumulates the work the
-    data needed over rows still alive: "force_rows" (FORCE events),
-    "sweeps" (closure sweeps) and "slot_passes" (sweeps × open slots)."""
-    if model is None:
-        from ..models.register import CasRegister
-        model = CasRegister()
-    W, S = int(n_slots), int(val_of.shape[1])
-    M = 1 << W
-    B, E = int(events.shape[0]), int(events.shape[1])
-    dev = events.device
+def _dense_step(model, W: int, vo, macro_p: Optional[int],
+                stats: Optional[dict]):
+    """The per-event body of the dense-domain plain version, shared by
+    the one-shot scan and the chunk form: step(state, rows) -> state over
+    the state (F [B, 2^W, S] bool, T [B, W, S, S'] bool, slot_open [B, W],
+    ok [B], dirty [B]), with the transition rows latched at OPEN (as the
+    kernel builds them) from the domain tables vo [B, S]."""
+    dev = vo.device
     slot_ids = torch.arange(W, dtype=torch.int32, device=dev)
-    vo = val_of
+    if stats is not None:
+        for k in ("force_rows", "sweeps", "slot_passes"):
+            stats.setdefault(k, 0)
 
     def t_rows(f, a, b):
         """Transition rows for ops (f, a, b) [B, K] -> [B, K, S, S']."""
@@ -360,21 +352,149 @@ def dense_scan_plain(events, val_of, n_slots: int,
                                   & is_force[:, None])
         return (F, T, slot_open, ok, dirty)
 
-    step = make_stream_step(W, latch, macro_latch, force_tail, macro_p)
-    F = torch.zeros((B, M, S), dtype=torch.bool, device=dev)
-    F[:, 0, 0] = True
-    carry = (F, torch.zeros((B, W, S, S), dtype=torch.bool, device=dev),
-             torch.zeros((B, W), dtype=torch.bool, device=dev),
-             torch.ones((B,), dtype=torch.bool, device=dev),
-             torch.zeros((B,), dtype=torch.bool, device=dev))
-    if stats is not None:
-        for k in ("force_rows", "sweeps", "slot_passes"):
-            stats.setdefault(k, 0)
+    return make_stream_step(W, latch, macro_latch, force_tail, macro_p)
+
+
+def dense_scan_plain(events, val_of, n_slots: int,
+                     macro_p: Optional[int] = None, n_events=None,
+                     model=None, stats: Optional[dict] = None):
+    """The dense-domain scan in plain PyTorch: a Python loop over event
+    rows, batched over B, following the reference's `dense_step_parts`
+    (transition rows hoisted to OPEN, as the kernel builds them).
+
+    events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
+    val_of [B, S] int32; n_events [B] (rows past a history's length are
+    EV_PAD no-ops, so it only bounds the loop). Returns ok [B] bool on
+    events' device. `stats`, when given, accumulates the work the
+    data needed over rows still alive: "force_rows" (FORCE events),
+    "sweeps" (closure sweeps) and "slot_passes" (sweeps × open slots)."""
+    if model is None:
+        from ..models.register import CasRegister
+        model = CasRegister()
+    W, S = int(n_slots), int(val_of.shape[1])
+    B, E = int(events.shape[0]), int(events.shape[1])
+    step = _dense_step(model, W, val_of, macro_p, stats)
+    state = _dense_fresh(B, W, S, events.device)
     n_scan = E if n_events is None or B == 0 else \
         min(E, int(torch.as_tensor(n_events).max()))
     for e in range(n_scan):
-        carry = step(carry, events[:, e])
-    return carry[3]
+        state = step(state, events[:, e])
+    return state[3]
+
+
+def _dense_fresh(B: int, W: int, S: int, dev):
+    """The dense-domain scan's initial state: the empty mask in state id
+    0, no slot latched, ok, not dirty."""
+    F = torch.zeros((B, 1 << W, S), dtype=torch.bool, device=dev)
+    F[:, 0, 0] = True
+    return (F, torch.zeros((B, W, S, S), dtype=torch.bool, device=dev),
+            torch.zeros((B, W), dtype=torch.bool, device=dev),
+            torch.ones((B,), dtype=torch.bool, device=dev),
+            torch.zeros((B,), dtype=torch.bool, device=dev))
+
+
+# ----------------------------------------------------------- chunk forms
+
+
+def dense_carry_layout(n_slots: int, n_states: int) -> CarryLayout:
+    """The chunk carry of the dense-domain scan at window W and table
+    size S (ops/csrc/dense_scan.cu reads and writes the same): after
+    CARRY_HEAD, "open" [W] (0/1), "val_of" [S] (the domain table),
+    "T" [W·FS] (transition rows: bit s' of T[w·FS + s] = slot w's op
+    takes state id s to s'; zero for s ≥ S), "F" (the frontier, bit m·FS
+    + s of the packed words; FS = 2^field_log2 of `dense_layout`)."""
+    W, S = int(n_slots), int(n_states)
+    lf = dense_layout(W, S).field_log2
+    return carry_layout("domain", [
+        ("open", W), ("val_of", S), ("T", W << lf),
+        ("F", max(1, (1 << (W + lf)) // 32))])
+
+
+def mask_carry_layout(n_slots: int) -> CarryLayout:
+    """The chunk carry of the mask-mode scan at window W (ops/csrc/
+    mask_scan.cu reads and writes the same): after CARRY_HEAD, "base",
+    the slot registers "open", "f", "a", "b", "delta" [W], "col" [W] —
+    the running total added to column c of the reference's sums[2^W], so
+    sums[m] = Σ_{c in m} col[c] mod 2^32 and col[c] = sums[1 << c] — and
+    "F" (bit m of the packed words)."""
+    W = mask_layout(n_slots).n_slots
+    return carry_layout("mask", [
+        ("base", 1), ("open", W), ("f", W), ("a", W), ("b", W),
+        ("delta", W), ("col", W), ("F", max(1, (1 << W) // 32))])
+
+
+def dense_chunk_init(val_of, n_events, n_slots: int) -> torch.Tensor:
+    """A fresh dense-domain carry [B, L] int32 on n_events' device: the
+    empty mask in state id 0, `left` = n_events, the domain tables."""
+    S = int(val_of.shape[1])
+    lay = dense_carry_layout(n_slots, S)
+    c = new_carry(lay, n_events)
+    lay.view(c, "val_of")[:] = val_of.to(torch.int32)
+    lay.view(c, "F")[:, 0] = 1
+    return c
+
+
+def mask_chunk_init(n_events, n_slots: int, model) -> torch.Tensor:
+    """A fresh mask-mode carry: the empty mask, base = the model's
+    initial state, `left` = n_events."""
+    lay = mask_carry_layout(n_slots)
+    c = new_carry(lay, n_events)
+    lay.view(c, "base")[:] = int(model.init_state())
+    lay.view(c, "F")[:, 0] = 1
+    return c
+
+
+def _dense_unpack(carry, lay: CarryLayout, W: int, S: int):
+    B = int(carry.shape[0])
+    FS = lay.view(carry, "T").shape[1] // W
+    F = unpack_bits(lay.view(carry, "F"), (1 << W) * FS)
+    T = unpack_bits(lay.view(carry, "T").reshape(B * W * FS, 1), S)
+    return (F.view(B, 1 << W, FS)[:, :, :S].contiguous(),
+            T.view(B, W, FS, S)[:, :, :S].contiguous(),
+            lay.view(carry, "open") != 0, lay.view(carry, "ok")[:, 0] != 0,
+            lay.view(carry, "dirty")[:, 0] != 0)
+
+
+def _dense_pack(state, carry, lay: CarryLayout, W: int, S: int, left):
+    F, T, so, ok, dirty = state
+    B = int(carry.shape[0])
+    FS = lay.view(carry, "T").shape[1] // W
+    out = carry.clone()
+    Fp = torch.zeros((B, 1 << W, FS), dtype=torch.bool, device=F.device)
+    Fp[:, :, :S] = F
+    lay.view(out, "F")[:] = pack_bits(Fp.view(B, -1))
+    Tw = (T.to(torch.int64) << torch.arange(S, device=T.device)).sum(3)
+    Tp = torch.zeros((B, W, FS), dtype=torch.int64, device=T.device)
+    Tp[:, :, :S] = Tw
+    lay.view(out, "T")[:] = wrap_i32(Tp.view(B, -1))
+    lay.view(out, "open")[:] = so.to(torch.int32)
+    lay.view(out, "ok")[:, 0] = ok.to(torch.int32)
+    lay.view(out, "dirty")[:, 0] = dirty.to(torch.int32)
+    lay.view(out, "left")[:, 0] = left.to(torch.int32)
+    return out
+
+
+def dense_chunk_plain(carry, events, n_slots: int, n_states: int,
+                      macro_p: Optional[int] = None, model=None,
+                      width: Optional[int] = None,
+                      stats: Optional[dict] = None):
+    """One chunk of the dense-domain scan in plain PyTorch: the body of
+    `dense_scan_plain` over the rows of `events` [B, w, R] (each row's
+    first `left` ones; `width`, default w, is the slice's length in the
+    schedule), from the carry [B, L] of `dense_carry_layout`. Returns
+    (carry', decided, exhausted, ok, overflow), the reference's
+    `chunk_step_fns` contract (overflow is always False). `stats` as
+    `dense_scan_plain`'s."""
+    if model is None:
+        from ..models.register import CasRegister
+        model = CasRegister()
+    W, S = int(n_slots), int(n_states)
+    lay = dense_carry_layout(W, S)
+    step = _dense_step(model, W, lay.view(carry, "val_of"), macro_p, stats)
+    state, left = chunk_scan(step, _dense_unpack(carry, lay, W, S), events,
+                             lay.view(carry, "left")[:, 0], width)
+    out = _dense_pack(state, carry, lay, W, S, left)
+    return (out,) + chunk_flags(out, lay)
 
 
 def mask_sweep_fn(legal):
@@ -402,32 +522,14 @@ MASK_STATS = ("force_rows", "closures", "sweeps", "slot_passes",
               "legal_steps", "legal_needed", "ballots_lazy")
 
 
-def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
-                    n_events=None, *, model, stats: Optional[dict] = None):
-    """The mask-mode scan in plain PyTorch: a Python loop over event
-    rows, batched over B, following the reference's `mask_step_parts`
-    step for step — `sums[2^W]` kept incrementally at latch and FORCE
-    with the reference's clipped slot columns, legality hoisted to one
-    [W, M] table per closing FORCE, the W + 1 sweep cap of
-    `closure_fixpoint`, and `force_arith`.
-
-    events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
-    n_events [B] only bounds the loop; `model` has a mask-mode step (its
-    `torch_step`, `mask_delta`, `always_legal` and initial state are
-    used). Returns ok
-    [B] bool on events' device. `stats`, when given, accumulates
-    `MASK_STATS` over rows still alive: "force_rows", "closures"
-    (closing FORCEs), "sweeps", "slot_passes" (sweeps × open slots),
-    "legal_steps" (the reference's full legality tables: open slots ×
-    2^W per closure), "legal_needed" (the table entries the closure can
-    read: masks of the closed frontier × open slots whose op is not
-    `always_legal`) and "ballots_lazy" (what the CUDA kernel builds:
-    32-mask groups holding a closed-frontier mask × those slots). These
-    only count; the result does not depend on them."""
-    W = int(n_slots)
+def _mask_step(model, W: int, macro_p: Optional[int], dev,
+               acc: Optional[dict]):
+    """The per-event body of the mask-mode plain version, shared by the
+    one-shot scan and the chunk form: step(state, rows) -> state over the
+    reference's carry (F [B, 2^W, 1] bool, base [B], sums [B, 2^W],
+    delta, f, a, b [B, W] int32, slot_open [B, W], ok, dirty [B]).
+    `acc`, when given, accumulates `MASK_STATS` (on the device)."""
     M = 1 << W
-    B, E = int(events.shape[0]), int(events.shape[1])
-    dev = events.device
     i64 = torch.int64
     slot_ids = torch.arange(W, dtype=torch.int32, device=dev)
     bit = ((torch.arange(M, device=dev)[:, None]
@@ -469,6 +571,7 @@ def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
 
     def force_tail(carry, is_force, slot):
         F, base, sums, delta, sf, sa, sb, so, ok, dirty = carry
+        B = int(F.shape[0])
         active = is_force & dirty
         if bool(active.any()):
             state = wrap_i32(base[:, None].to(i64) + sums)     # [B, M]
@@ -476,7 +579,7 @@ def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
                                      sa[:, :, None], sb[:, :, None])[1]
             legal = legal & so[:, :, None]                      # [B, W, M]
             F, sweeps = closure_fixpoint(W, mask_sweep_fn(legal), F, active)
-            if stats is not None:
+            if acc is not None:
                 live = ok.to(i64)
                 closing = active.to(i64) * live
                 n_open = so.sum(dim=1)
@@ -495,7 +598,7 @@ def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
                 acc["legal_needed"] += (closing * n_need * n_masks).sum()
                 acc["ballots_lazy"] += (closing * n_need * n_groups).sum()
         dirty = dirty & ~is_force
-        if stats is not None:
+        if acc is not None:
             acc["force_rows"] += (is_force & ok).sum()
         F_forced, alive = force_arith(F, slot.clamp(0, W - 1))
         F = torch.where(is_force[:, None, None], F_forced, F)
@@ -508,26 +611,121 @@ def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
         delta = torch.where(onehot, 0, delta)
         return (F, base, sums, delta, sf, sa, sb, so & ~onehot, ok, dirty)
 
-    step = make_stream_step(W, latch, macro_latch, force_tail, macro_p)
-    F = torch.zeros((B, M, 1), dtype=torch.bool, device=dev)
-    F[:, 0, 0] = True
-    zw = torch.zeros((B, W), dtype=torch.int32, device=dev)
-    carry = (F, torch.full((B,), int(model.init_state()), dtype=torch.int32,
-                           device=dev),
-             torch.zeros((B, M), dtype=torch.int32, device=dev),
-             zw, zw, zw, zw, torch.zeros((B, W), dtype=torch.bool, device=dev),
-             torch.ones((B,), dtype=torch.bool, device=dev),
-             torch.zeros((B,), dtype=torch.bool, device=dev))
+    return make_stream_step(W, latch, macro_latch, force_tail, macro_p)
+
+
+def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
+                    n_events=None, *, model, stats: Optional[dict] = None):
+    """The mask-mode scan in plain PyTorch: a Python loop over event
+    rows, batched over B, following the reference's `mask_step_parts`
+    step for step — `sums[2^W]` kept incrementally at latch and FORCE
+    with the reference's clipped slot columns, legality hoisted to one
+    [W, M] table per closing FORCE, the W + 1 sweep cap of
+    `closure_fixpoint`, and `force_arith`.
+
+    events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
+    n_events [B] only bounds the loop; `model` has a mask-mode step (its
+    `torch_step`, `mask_delta`, `always_legal` and initial state are
+    used). Returns ok
+    [B] bool on events' device. `stats`, when given, accumulates
+    `MASK_STATS` over rows still alive: "force_rows", "closures"
+    (closing FORCEs), "sweeps", "slot_passes" (sweeps × open slots),
+    "legal_steps" (the reference's full legality tables: open slots ×
+    2^W per closure), "legal_needed" (the table entries the closure can
+    read: masks of the closed frontier × open slots whose op is not
+    `always_legal`) and "ballots_lazy" (what the CUDA kernel builds:
+    32-mask groups holding a closed-frontier mask × those slots). These
+    only count; the result does not depend on them."""
+    W = int(n_slots)
+    B, E = int(events.shape[0]), int(events.shape[1])
+    dev = events.device
     # the counters accumulate on the device and are read once at the end
-    acc = {k: torch.zeros((), dtype=i64, device=dev) for k in MASK_STATS}
+    acc = ({k: torch.zeros((), dtype=torch.int64, device=dev)
+            for k in MASK_STATS} if stats is not None else None)
+    step = _mask_step(model, W, macro_p, dev, acc)
+    state = _mask_fresh(B, W, model, dev)
     n_scan = E if n_events is None or B == 0 else \
         min(E, int(torch.as_tensor(n_events).max()))
     for e in range(n_scan):
-        carry = step(carry, events[:, e])
+        state = step(state, events[:, e])
     if stats is not None:
         for k, v in acc.items():
             stats[k] = stats.get(k, 0) + int(v)
-    return carry[8]
+    return state[8]
+
+
+def _mask_fresh(B: int, W: int, model, dev):
+    """The mask-mode scan's initial state: the empty mask, base = the
+    model's initial state, no slot latched, ok, not dirty."""
+    F = torch.zeros((B, 1 << W, 1), dtype=torch.bool, device=dev)
+    F[:, 0, 0] = True
+    zw = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    return (F, torch.full((B,), int(model.init_state()), dtype=torch.int32,
+                          device=dev),
+            torch.zeros((B, 1 << W), dtype=torch.int32, device=dev),
+            zw, zw, zw, zw, torch.zeros((B, W), dtype=torch.bool, device=dev),
+            torch.ones((B,), dtype=torch.bool, device=dev),
+            torch.zeros((B,), dtype=torch.bool, device=dev))
+
+
+def mask_sums(col) -> torch.Tensor:
+    """sums [B, 2^W] int32 of the reference's mask carry from the column
+    totals col [B, W]: sums[m] = Σ_{c in m} col[c] mod 2^32."""
+    W = int(col.shape[1])
+    bit = ((torch.arange(1 << W, device=col.device)[:, None]
+            >> torch.arange(W, device=col.device)[None, :]) & 1)
+    return wrap_i32((bit[None] * col.to(torch.int64)[:, None, :]).sum(2))
+
+
+def _mask_unpack(carry, lay: CarryLayout, W: int):
+    B = int(carry.shape[0])
+    v = lay.view
+    F = unpack_bits(v(carry, "F"), 1 << W).view(B, 1 << W, 1)
+    return (F, v(carry, "base")[:, 0].clone(), mask_sums(v(carry, "col")),
+            v(carry, "delta").clone(), v(carry, "f").clone(),
+            v(carry, "a").clone(), v(carry, "b").clone(),
+            v(carry, "open") != 0, v(carry, "ok")[:, 0] != 0,
+            v(carry, "dirty")[:, 0] != 0)
+
+
+def _mask_pack(state, carry, lay: CarryLayout, W: int, left):
+    F, base, sums, delta, sf, sa, sb, so, ok, dirty = state
+    B = int(carry.shape[0])
+    out = carry.clone()
+    v = lay.view
+    v(out, "F")[:] = pack_bits(F.view(B, -1))
+    v(out, "base")[:, 0] = base
+    v(out, "col")[:] = sums[:, [1 << c for c in range(W)]]
+    for name, x in (("delta", delta), ("f", sf), ("a", sa), ("b", sb),
+                    ("open", so)):
+        v(out, name)[:] = x.to(torch.int32)
+    v(out, "ok")[:, 0] = ok.to(torch.int32)
+    v(out, "dirty")[:, 0] = dirty.to(torch.int32)
+    v(out, "left")[:, 0] = left.to(torch.int32)
+    return out
+
+
+def mask_chunk_plain(carry, events, n_slots: int,
+                     macro_p: Optional[int] = None, *, model,
+                     width: Optional[int] = None,
+                     stats: Optional[dict] = None):
+    """One chunk of the mask-mode scan in plain PyTorch: the body of
+    `mask_scan_plain` from the carry [B, L] of `mask_carry_layout` (sums
+    rebuilt from "col", and "col" read back from sums[1 << c]). Returns
+    (carry', decided, exhausted, ok, overflow) as `dense_chunk_plain`;
+    `stats` as `mask_scan_plain`'s."""
+    W = int(n_slots)
+    lay = mask_carry_layout(W)
+    acc = ({k: torch.zeros((), dtype=torch.int64, device=carry.device)
+            for k in MASK_STATS} if stats is not None else None)
+    step = _mask_step(model, W, macro_p, carry.device, acc)
+    state, left = chunk_scan(step, _mask_unpack(carry, lay, W), events,
+                             lay.view(carry, "left")[:, 0], width)
+    out = _mask_pack(state, carry, lay, W, left)
+    if stats is not None:
+        for k, v in acc.items():
+            stats[k] = stats.get(k, 0) + int(v)
+    return (out,) + chunk_flags(out, lay)
 
 
 # ------------------------------------------------------------ the kernel
@@ -536,15 +734,22 @@ def mask_scan_plain(events, n_slots: int, macro_p: Optional[int] = None,
 #: a wrapper adds one where it launches its kernel and nowhere else, so
 #: a run can show that its main path went through the card's kernels.
 LAUNCHES = {"dense_scan": 0, "mask_scan": 0}
+#: The same for the chunk entry points of the two kernels.
+CHUNK_LAUNCHES = {"dense_scan_chunk": 0, "mask_scan_chunk": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CHUNK_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def chunk_launch_counts() -> dict:
+    return dict(CHUNK_LAUNCHES)
 
 
 @dataclass(frozen=True)
@@ -681,6 +886,47 @@ def _call_launch(name: str, lib, tensors, sizes, stream) -> None:
                            f"{_build.error_string(name, rc)}")
 
 
+def _chunk_rows(name: str, carry, events, macro_p, lay: CarryLayout,
+                width: Optional[int]):
+    """Check a chunk launch's CUDA carry and event slice: (device, B, w,
+    R, P, width, row stride in ints). `events` [B, w, R] may be a column
+    slice of a longer batch (each row's R ints contiguous, rows `row
+    stride` ints apart); `width` ≥ w is the slice's length in the
+    schedule."""
+    if events.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {events.device}")
+    dev = events.device
+    if events.dtype != torch.int32 or events.dim() != 3:
+        raise TypeError(f"{name}: events must be [B, w, R] int32")
+    B, w, R = (int(x) for x in events.shape)
+    if events.stride(2) != 1 or (w > 1 and events.stride(1) != R):
+        raise ValueError(f"{name}: each row's event rows must be "
+                         f"contiguous")
+    P = int(macro_p or 0)
+    if R != (5 if not P else macro_row_ints(P)):
+        raise ValueError(f"{name}: row width {R} does not match "
+                         f"macro_p={macro_p}")
+    _check_int32("carry", carry, 2, dev)
+    if tuple(carry.shape) != (B, lay.length):
+        raise ValueError(f"{name}: carry must be [{B}, {lay.length}], got "
+                         f"{tuple(carry.shape)}")
+    width = w if width is None else int(width)
+    if width < w:
+        raise ValueError(f"{name}: width {width} < the slice's {w} rows")
+    return dev, B, w, R, P, width, int(events.stride(0)) if B else 0
+
+
+def _chunk_out(carry, B: int, dev):
+    """The chunk launch's outputs: carry' like carry, flags [4, B] bool
+    (decided, exhausted, ok, overflow)."""
+    return (torch.empty_like(carry),
+            torch.empty((4, B), dtype=torch.bool, device=dev))
+
+
+def _flags(out, flags):
+    return (out, flags[0], flags[1], flags[2], flags[3])
+
+
 def _launch_fn(name: str, lib, tensors, sizes, B: int, counts=None):
     """launch(stream): launch library `name`'s kernel (`_call_launch`) and
     count it in `counts` (default: this module's LAUNCHES). The closure
@@ -812,3 +1058,116 @@ def mask_scan_profile(events, n_slots: int, macro_p: Optional[int] = None,
         _call_launch("mask_scan_profile", lib, (events, n_events, ok, prof),
                      sizes, torch.cuda.current_stream(dev))
     return ok, prof
+
+
+# ------------------------------------------------- the chunk kernels
+
+
+def dense_chunk(carry, events, n_slots: int, n_states: int,
+                macro_p: Optional[int] = None, model=None,
+                width: Optional[int] = None):
+    """One chunk of the dense-domain scan: (carry', decided, exhausted,
+    ok, overflow), the contract of `dense_chunk_plain`. A CPU tensor
+    takes the plain version; a CUDA tensor launches the chunk entry point of
+    the dense kernel (ops/csrc/dense_scan.cu: the one-shot kernel's body,
+    reading the carry at the start and writing it and the four flags at
+    the end) on the current stream without synchronising, or raises."""
+    if events.device.type == "cpu":
+        return dense_chunk_plain(carry, events, n_slots, n_states, macro_p,
+                                 model, width)
+    out, flags, launch = dense_chunk_launcher(carry, events, n_slots,
+                                              n_states, macro_p, model,
+                                              width)
+    launch(torch.cuda.current_stream(events.device))
+    return _flags(out, flags)
+
+
+def dense_chunk_launcher(carry, events, n_slots: int, n_states: int,
+                         macro_p: Optional[int] = None, model=None,
+                         width: Optional[int] = None):
+    """Check the CUDA tensors, allocate carry' and flags [4, B] bool,
+    build or load the kernel: (carry', flags, launch)."""
+    if model is None:
+        from ..models.register import CasRegister
+        model = CasRegister()
+    W, S = int(n_slots), int(n_states)
+    lay = dense_carry_layout(W, S)
+    dev, B, w, R, P, width, stride = _chunk_rows(
+        "dense_scan_chunk", carry, events, macro_p, lay, width)
+    code = getattr(model, "KERNEL_MODEL", None)
+    if code is None:
+        raise ValueError(f"dense_scan: model {type(model).__name__} has no "
+                         f"device step in the CUDA kernel")
+    out, flags = _chunk_out(carry, B, dev)
+    lib = _build.load("dense_scan")
+    return out, flags, _launch_fn(
+        "dense_scan_chunk", lib, (events, carry, out, flags),
+        (stride, B, width, R, P, W, S, dense_layout(W, S).field_log2,
+         int(code), lay.length, _device_index(dev)), B, CHUNK_LAUNCHES)
+
+
+def mask_chunk(carry, events, n_slots: int, macro_p: Optional[int] = None,
+               *, model, width: Optional[int] = None):
+    """One chunk of the mask-mode scan: the contract of
+    `mask_chunk_plain`; a CUDA tensor launches the chunk entry point of
+    ops/csrc/mask_scan.cu on the current stream, or raises."""
+    if events.device.type == "cpu":
+        return mask_chunk_plain(carry, events, n_slots, macro_p, model=model,
+                                width=width)
+    out, flags, launch = mask_chunk_launcher(carry, events, n_slots,
+                                             macro_p, model=model,
+                                             width=width)
+    launch(torch.cuda.current_stream(events.device))
+    return _flags(out, flags)
+
+
+def mask_chunk_launcher(carry, events, n_slots: int,
+                        macro_p: Optional[int] = None, *, model,
+                        width: Optional[int] = None):
+    """`dense_chunk_launcher`'s counterpart for the mask kernel."""
+    W = mask_layout(n_slots).n_slots
+    lay = mask_carry_layout(W)
+    dev, B, w, R, P, width, stride = _chunk_rows(
+        "mask_scan_chunk", carry, events, macro_p, lay, width)
+    code = getattr(model, "KERNEL_MODEL", None)
+    if code is None or type(model).mask_delta is Model.mask_delta:
+        raise ValueError(f"mask_scan: model {type(model).__name__} has no "
+                         f"mask-mode step in the CUDA kernel")
+    out, flags = _chunk_out(carry, B, dev)
+    lib = _build.load("mask_scan")
+    return out, flags, _launch_fn(
+        "mask_scan_chunk", lib, (events, carry, out, flags),
+        (stride, B, width, R, P, W, int(code), lay.length,
+         _device_index(dev)), B, CHUNK_LAUNCHES)
+
+
+def make_dense_chunk_checker(model, kind: str, n_slots: int, n_states: int,
+                             macro_p: Optional[int] = None):
+    """The chunk pair of a dense window group, as the reference's
+    `make_dense_chunk_checker` (ops/dense_scan.py:755): (init_fn,
+    step_fn) with
+
+      init_fn(val_of [B, S], n_events [B] int32) -> carry [B, L] int32
+          (a mask group ignores val_of);
+      step_fn(carry, events [B, w, R], width=None) -> (carry', decided
+          [B], exhausted [B], ok [B], overflow [B])
+
+    on the tensors' device: the plain versions on the CPU, the chunk
+    kernels (`dense_chunk`, `mask_chunk`) on a card. `macro_p` selects
+    macro rows; `n_events` and `left` then count macro rows."""
+    W = int(n_slots)
+    if kind == "mask":
+        def init_fn(val_of, n_events):
+            return mask_chunk_init(n_events, W, model)
+
+        def step_fn(carry, events, width=None):
+            return mask_chunk(carry, events, W, macro_p, model=model,
+                              width=width)
+    else:
+        def init_fn(val_of, n_events):
+            return dense_chunk_init(val_of, n_events, W)
+
+        def step_fn(carry, events, width=None):
+            return dense_chunk(carry, events, W, n_states, macro_p, model,
+                               width)
+    return init_fn, step_fn

@@ -22,15 +22,28 @@ contract:
 These functions are the semantics the CUDA kernels (ops/csrc/
 dense_scan.cu, ops/csrc/mask_scan.cu, ops/csrc/sort_scan.cu) are held
 to; they are not on the card's main path.
+
+The chunk-carry contract (the reference's `chunk_step_fns` and
+`batch_chunk_checker`, kernel_ir.py:290-343): a chunk step takes
+``(carry, events [B, span·chunk, R])`` and returns ``(carry', decided,
+exhausted, ok, overflow)`` with ``decided = ~ok`` and ``exhausted =
+left ≤ 0``, where ``left`` (the row's real events not yet scanned) drops
+by the slice's width. Here a carry is one int32 tensor [B, L]: each row
+holds the scan state's fields at the offsets of a `CarryLayout` (the
+kernels read and write the same layout), the four scalars first
+(`CARRY_HEAD`). Rows are independent, so the wavefront's recompaction
+is one `index_select` over the carry. `chunk_scan` is the plain loop
+of the contract; `shard_chunk_fns` has no counterpart on one card.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
 
 import torch
 
-from ..history.packing import EV_FORCE, EV_OPEN, MACRO_MAX_OPENS
+from ..history.packing import EV_FORCE, EV_OPEN, EV_PAD, MACRO_MAX_OPENS
 
 # --------------------------------------------------------------- caps
 
@@ -164,6 +177,128 @@ def make_stream_step(n_slots: int, latch: Callable, macro_latch: Callable,
                                 upd)
             return force_tail(carry, is_force, fslot)
     return step
+
+
+# ------------------------------------------------------- chunk carry
+
+#: The scalars every carry row starts with, in this order.
+CARRY_HEAD = ("ok", "overflow", "dirty", "left")
+
+
+@dataclass(frozen=True)
+class CarryLayout:
+    """The int32 fields of one carry row, in order: ((name, length),
+    ...), CARRY_HEAD first. `view(carry, name)` is field `name` of every
+    row, [B, length] (a view, no copy). `frontier` names the fields that
+    hold the frontier: with "ok", "overflow" and "left" they are all a
+    decided row's carry defines (`carry_mismatch`)."""
+
+    kind: str
+    fields: tuple
+    frontier: tuple = ("F",)
+
+    @property
+    def length(self) -> int:
+        return sum(n for _, n in self.fields)
+
+    def offset(self, name: str) -> int:
+        off = 0
+        for f, n in self.fields:
+            if f == name:
+                return off
+            off += n
+        raise KeyError(name)
+
+    def view(self, carry, name: str):
+        off = self.offset(name)
+        return carry[:, off:off + dict(self.fields)[name]]
+
+
+def carry_layout(kind: str, fields: Sequence[tuple],
+                 frontier: Sequence[str] = ("F",)) -> CarryLayout:
+    """A layout with CARRY_HEAD's scalars before `fields`."""
+    return CarryLayout(kind, tuple((h, 1) for h in CARRY_HEAD)
+                       + tuple((str(f), int(n)) for f, n in fields),
+                       tuple(frontier))
+
+
+def carry_mismatch(layout: CarryLayout, a, b) -> int:
+    """How many int32 entries of carries a and b [B, L] differ where
+    they are defined: every field of a row that is ok in both; of a row
+    decided (ok = 0) in both, its frontier (empty), "ok", "overflow" and
+    "left" — a kernel stops a row at its first dead FORCE, the plain
+    version runs on (the reference's schedule), and a decided row's slot
+    state is never read again. A row ok in one and not the other counts
+    every entry."""
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    ok_a = layout.view(a, "ok")[:, 0] != 0
+    ok_b = layout.view(b, "ok")[:, 0] != 0
+    diff = a != b
+    dead = ~ok_a & ~ok_b
+    if bool(dead.any()):
+        keep = torch.zeros(layout.length, dtype=torch.bool, device=a.device)
+        for name in ("ok", "overflow", "left") + layout.frontier:
+            off = layout.offset(name)
+            keep[off:off + dict(layout.fields)[name]] = True
+        diff[dead] &= keep
+    return int(diff.sum())
+
+
+def new_carry(layout: CarryLayout, n_events) -> torch.Tensor:
+    """A fresh carry [B, L] int32 on n_events' device: every field 0 but
+    ok = 1 and left = n_events (the caller sets the scan's own initial
+    fields)."""
+    n_events = torch.as_tensor(n_events)
+    c = torch.zeros((int(n_events.shape[0]), layout.length),
+                    dtype=torch.int32, device=n_events.device)
+    layout.view(c, "ok")[:] = 1
+    layout.view(c, "left")[:, 0] = n_events.to(torch.int32)
+    return c
+
+
+def pack_bits(bits) -> torch.Tensor:
+    """bool [B, N] → int32 [B, max(1, ⌈N/32⌉)]: bit i in word i // 32 at
+    position i % 32 (the frontier words' order in the carry)."""
+    B, N = int(bits.shape[0]), int(bits.shape[1])
+    nw = max(1, -(-N // 32))
+    pad = torch.zeros((B, nw * 32), dtype=torch.int64, device=bits.device)
+    pad[:, :N] = bits.to(torch.int64)
+    w = (pad.view(B, nw, 32)
+         << torch.arange(32, dtype=torch.int64, device=bits.device)).sum(2)
+    return (((w + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def unpack_bits(words, n: int) -> torch.Tensor:
+    """`pack_bits`'s inverse: int32 [B, nw] → bool [B, n]."""
+    sh = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64)[:, :, None] >> sh) & 1
+    return bits.reshape(words.shape[0], -1)[:, :n].bool()
+
+
+def chunk_flags(carry, layout: CarryLayout):
+    """(decided, exhausted, ok, overflow) [B] bool of a carry."""
+    ok = layout.view(carry, "ok")[:, 0] != 0
+    return (~ok, layout.view(carry, "left")[:, 0] <= 0, ok,
+            layout.view(carry, "overflow")[:, 0] != 0)
+
+
+def chunk_scan(step: Callable, state, events, left,
+               width: Optional[int] = None):
+    """The plain loop of one chunk: apply `step` to the event rows of
+    `events` [B, w, R] in order and return (state', left - width).
+    `width` (default w) is the slice's length in the schedule; rows past
+    w, and each row's rows past its own `left`, are EV_PAD no-ops, as in
+    the reference (every row beyond a history's real length is EV_PAD),
+    so the loop stops at the last row any history still reads."""
+    width = int(events.shape[1]) if width is None else int(width)
+    left = left.to(torch.int64)
+    n = min(int(events.shape[1]), width,
+            int(left.max()) if left.numel() else 0)
+    for e in range(max(n, 0)):
+        rows = events[:, e]
+        state = step(state, torch.where((e < left)[:, None], rows,
+                                        torch.full_like(rows, EV_PAD)))
+    return state, left - width
 
 
 # ------------------------------------------------------- cycle closure

@@ -42,8 +42,11 @@ import torch
 
 from ..models.base import wrap_i32
 from . import _build
-from .dense_scan import _card_rows, _device_index, _launch_fn
-from .kernel_ir import SORT_DEFAULT_CONFIGS, SORT_MAX_SLOTS, make_stream_step
+from .dense_scan import (_card_rows, _chunk_out, _chunk_rows, _device_index,
+                         _flags, _launch_fn)
+from .kernel_ir import (SORT_DEFAULT_CONFIGS, SORT_MAX_SLOTS, CarryLayout,
+                        carry_layout, chunk_flags, chunk_scan,
+                        make_stream_step, new_carry)
 
 MAX_SLOTS = SORT_MAX_SLOTS
 DEFAULT_N_CONFIGS = SORT_DEFAULT_CONFIGS
@@ -120,42 +123,23 @@ def _dedup_compact(masks, states, tags, n_configs: int):
     return _gather_rows(m2, idx), _gather_rows(s2, idx), count, grew
 
 
-def sort_scan_plain(events, n_slots: int, n_configs: int,
-                    macro_p: Optional[int] = None, n_events=None, *, model,
-                    stats: Optional[dict] = None):
-    """The sort-frontier scan in plain PyTorch: a Python loop over event
-    rows, batched over B, following the reference's `sort_step_parts`
-    and `_dedup_compact` step for step through the port's kernel_ir
-    hooks.
-
-    events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
-    n_events [B] only bounds the loop (rows past a history's length are
-    EV_PAD no-ops); W = n_slots ≤ MAX_SLOTS, C = n_configs. Returns (ok
-    [B] bool, overflow [B] bool) on events' device. `stats`, when given,
-    accumulates `SORT_STATS` over rows still alive: "closures" (closing
-    FORCEs), "rounds" (closure rounds), "steps" (live
-    configurations × open slots, per round: the model steps the round
-    takes) and "candidates" (legal expansions, per round: each one
-    dedup probe). They only count; the result does not depend on them."""
-    W, C = int(n_slots), int(n_configs)
-    if not 1 <= W <= MAX_SLOTS:
-        raise ValueError(f"sort_scan: W={W} beyond 1..{MAX_SLOTS}")
-    if C < 1:
-        raise ValueError(f"sort_scan: n_configs={C} < 1")
+def _sort_step(model, W: int, C: int, macro_p: Optional[int], dev,
+               acc: Optional[dict]):
+    """The per-event body of the sort plain version, shared by the
+    one-shot scan and the chunk form: step(state, rows) -> state over the
+    reference's carry (masks [B, C, K] int64 words, states [B, C] int32,
+    f, a, b [B, W] int32, slot_open [B, W], ok, overflow, dirty [B]).
+    `acc`, when given, accumulates `SORT_STATS` (on the device)."""
     K = mask_words(W)
-    B, E = int(events.shape[0]), int(events.shape[1])
-    dev = events.device
     i64 = torch.int64
     slot_ids = torch.arange(W, dtype=torch.int32, device=dev)
     slot_word = torch.arange(W, device=dev) // 32
     slot_bit = 1 << (torch.arange(W, dtype=i64, device=dev) % 32)     # [W]
     set_bits = torch.where(torch.arange(K, device=dev)[None, :]
                            == slot_word[:, None], slot_bit[:, None], 0)
-    parent_tags = torch.zeros((B, C), dtype=i64, device=dev)
-    cand_tags = torch.ones((B, C * W), dtype=i64, device=dev)
-    acc = {k: torch.zeros((), dtype=i64, device=dev) for k in SORT_STATS}
 
     def expand_once(masks, states, sf, sa, sb, so):
+        B = int(masks.shape[0])
         live = masks[:, :, K - 1] != _SENT                            # [B,C]
         m_w = masks[:, :, slot_word]                                  # [B,C,W]
         cand_open = so[:, None, :] & ((m_w & slot_bit) == 0)
@@ -168,7 +152,9 @@ def sort_scan_plain(events, n_slots: int, n_configs: int,
         nm, nst, count, grew = _dedup_compact(
             torch.cat([masks, cand_m.reshape(B, C * W, K)], dim=1),
             torch.cat([states, cand_s.reshape(B, C * W)], dim=1),
-            torch.cat([parent_tags, cand_tags], dim=1), C)
+            torch.cat([torch.zeros((B, C), dtype=i64, device=dev),
+                       torch.ones((B, C * W), dtype=i64, device=dev)],
+                      dim=1), C)
         n_steps = (live.sum(dim=1) * so.sum(dim=1)).to(i64)
         return nm, nst, count, grew, n_steps, good.sum(dim=(1, 2))
 
@@ -197,15 +183,17 @@ def sort_scan_plain(events, n_slots: int, n_configs: int,
         if bool(active.any()):
             # closure: rounds while one grew, at most W + 1, row by row
             cont = active.clone()
-            acc["closures"] += (active & ok).sum()
+            if acc is not None:
+                acc["closures"] += (active & ok).sum()
             it = 0
             while bool(cont.any()):
                 nm, nst, count, grew, n_steps, n_cand = expand_once(
                     masks, states, sf, sa, sb, so)
-                counted = (cont & ok).to(i64)
-                acc["rounds"] += counted.sum()
-                acc["steps"] += (counted * n_steps).sum()
-                acc["candidates"] += (counted * n_cand).sum()
+                if acc is not None:
+                    counted = (cont & ok).to(i64)
+                    acc["rounds"] += counted.sum()
+                    acc["steps"] += (counted * n_steps).sum()
+                    acc["candidates"] += (counted * n_cand).sum()
                 masks = torch.where(cont[:, None, None], nm, masks)
                 states = torch.where(cont[:, None], nst, states)
                 overflow = overflow | (cont & (count > C))
@@ -230,25 +218,161 @@ def sort_scan_plain(events, n_slots: int, n_configs: int,
         so = so & ~((slot_ids[None, :] == slot[:, None]) & is_force[:, None])
         return (masks, states, sf, sa, sb, so, ok, overflow, dirty)
 
-    step = make_stream_step(W, latch, macro_latch, force_tail, macro_p)
-    masks = torch.full((B, C, K), _SENT, dtype=i64, device=dev)
+    return make_stream_step(W, latch, macro_latch, force_tail, macro_p)
+
+
+def _check_shape(W: int, C: int) -> None:
+    if not 1 <= W <= MAX_SLOTS:
+        raise ValueError(f"sort_scan: W={W} beyond 1..{MAX_SLOTS}")
+    if C < 1:
+        raise ValueError(f"sort_scan: n_configs={C} < 1")
+
+
+def sort_scan_plain(events, n_slots: int, n_configs: int,
+                    macro_p: Optional[int] = None, n_events=None, *, model,
+                    stats: Optional[dict] = None):
+    """The sort-frontier scan in plain PyTorch: a Python loop over event
+    rows, batched over B, following the reference's `sort_step_parts`
+    and `_dedup_compact` step for step through the port's kernel_ir
+    hooks.
+
+    events [B, E, 5] int32 (legacy) or [B, E, 3 + 4·P] (macro_p=P);
+    n_events [B] only bounds the loop (rows past a history's length are
+    EV_PAD no-ops); W = n_slots ≤ MAX_SLOTS, C = n_configs. Returns (ok
+    [B] bool, overflow [B] bool) on events' device. `stats`, when given,
+    accumulates `SORT_STATS` over rows still alive: "closures" (closing
+    FORCEs), "rounds" (closure rounds), "steps" (live
+    configurations × open slots, per round: the model steps the round
+    takes) and "candidates" (legal expansions, per round: each one
+    dedup probe). They only count; the result does not depend on them."""
+    W, C = int(n_slots), int(n_configs)
+    _check_shape(W, C)
+    B, E = int(events.shape[0]), int(events.shape[1])
+    dev = events.device
+    acc = ({k: torch.zeros((), dtype=torch.int64, device=dev)
+            for k in SORT_STATS} if stats is not None else None)
+    step = _sort_step(model, W, C, macro_p, dev, acc)
+    state = _sort_fresh(B, W, C, model, dev)
+    n_scan = E if n_events is None or B == 0 else \
+        min(E, int(torch.as_tensor(n_events).max()))
+    for e in range(n_scan):
+        state = step(state, events[:, e])
+    if stats is not None:
+        for k, v in acc.items():
+            stats[k] = stats.get(k, 0) + int(v)
+    return state[6], state[7]
+
+
+def _sort_fresh(B: int, W: int, C: int, model, dev):
+    """The sort scan's initial state: one configuration (the empty mask,
+    the model's initial state), the rest empty; ok, no overflow."""
+    masks = torch.full((B, C, mask_words(W)), _SENT, dtype=torch.int64,
+                       device=dev)
     masks[:, 0] = 0
     states = torch.zeros((B, C), dtype=torch.int32, device=dev)
     states[:, 0] = int(model.init_state())
     zw = torch.zeros((B, W), dtype=torch.int32, device=dev)
-    carry = (masks, states, zw, zw, zw,
-             torch.zeros((B, W), dtype=torch.bool, device=dev),
-             torch.ones((B,), dtype=torch.bool, device=dev),
-             torch.zeros((B,), dtype=torch.bool, device=dev),
-             torch.zeros((B,), dtype=torch.bool, device=dev))
-    n_scan = E if n_events is None or B == 0 else \
-        min(E, int(torch.as_tensor(n_events).max()))
-    for e in range(n_scan):
-        carry = step(carry, events[:, e])
+    return (masks, states, zw, zw, zw,
+            torch.zeros((B, W), dtype=torch.bool, device=dev),
+            torch.ones((B,), dtype=torch.bool, device=dev),
+            torch.zeros((B,), dtype=torch.bool, device=dev),
+            torch.zeros((B,), dtype=torch.bool, device=dev))
+
+
+# ------------------------------------------------------------ chunk form
+
+
+def sort_carry_layout(n_slots: int, n_configs: int) -> CarryLayout:
+    """The chunk carry of the sort scan at window W and capacity C
+    (ops/csrc/sort_scan.cu reads and writes the same): after CARRY_HEAD,
+    the slot registers "open", "f", "a", "b" [W], "states" [C] and
+    "masks" [C·K] (configuration i's words at i·K .. i·K + K − 1). The
+    frontier is canonical: the live configurations first, in the
+    reference's order (which a FORCE keeps), then empty entries (every
+    word all ones, state 0) — the reference's carry with the entries a
+    FORCE killed squeezed out (`canonical_frontier`)."""
+    W, C = int(n_slots), int(n_configs)
+    _check_shape(W, C)
+    return carry_layout("sort", [
+        ("open", W), ("f", W), ("a", W), ("b", W), ("states", C),
+        ("masks", C * mask_words(W))], frontier=("states", "masks"))
+
+
+def sort_chunk_init(n_events, n_slots: int, n_configs: int,
+                    model) -> torch.Tensor:
+    """A fresh sort carry [B, L] int32 on n_events' device: one
+    configuration (the empty mask, the model's initial state), `left` =
+    n_events."""
+    lay = sort_carry_layout(n_slots, n_configs)
+    c = new_carry(lay, n_events)
+    lay.view(c, "masks")[:] = -1
+    lay.view(c, "masks")[:, :mask_words(n_slots)] = 0
+    lay.view(c, "states")[:, 0] = int(model.init_state())
+    return c
+
+
+def canonical_frontier(masks, states):
+    """(masks, states) with the live entries (last word not all ones)
+    moved to the front in their order and the rest emptied (words all
+    ones, state 0): masks [B, C, K] int64 words, states [B, C]."""
+    K = int(masks.shape[2])
+    live = masks[:, :, K - 1] != _SENT
+    order = torch.sort((~live).to(torch.int8), dim=1, stable=True).indices
+    live = torch.gather(live, 1, order)
+    masks = torch.where(live[:, :, None], _gather_rows(masks, order), _SENT)
+    states = torch.where(live, _gather_rows(states, order), 0)
+    return masks, states.to(torch.int32)
+
+
+def _sort_unpack(carry, lay: CarryLayout, W: int, C: int):
+    B, K = int(carry.shape[0]), mask_words(W)
+    v = lay.view
+    masks = v(carry, "masks").to(torch.int64).reshape(B, C, K) & 0xFFFFFFFF
+    return (masks, v(carry, "states").clone(), v(carry, "f").clone(),
+            v(carry, "a").clone(), v(carry, "b").clone(),
+            v(carry, "open") != 0, v(carry, "ok")[:, 0] != 0,
+            v(carry, "overflow")[:, 0] != 0, v(carry, "dirty")[:, 0] != 0)
+
+
+def _sort_pack(state, carry, lay: CarryLayout, left):
+    masks, states, sf, sa, sb, so, ok, overflow, dirty = state
+    B = int(carry.shape[0])
+    masks, states = canonical_frontier(masks, states)
+    out = carry.clone()
+    v = lay.view
+    v(out, "masks")[:] = wrap_i32(masks.reshape(B, -1))
+    v(out, "states")[:] = states
+    for name, x in (("f", sf), ("a", sa), ("b", sb), ("open", so)):
+        v(out, name)[:] = x.to(torch.int32)
+    for name, x in (("ok", ok), ("overflow", overflow), ("dirty", dirty),
+                    ("left", left)):
+        v(out, name)[:, 0] = x.to(torch.int32)
+    return out
+
+
+def sort_chunk_plain(carry, events, n_slots: int, n_configs: int,
+                     macro_p: Optional[int] = None, *, model,
+                     width: Optional[int] = None,
+                     stats: Optional[dict] = None):
+    """One chunk of the sort scan in plain PyTorch: the body of
+    `sort_scan_plain` over the rows of `events` [B, w, R] (each row's
+    first `left`; `width`, default w, the slice's length in the
+    schedule) from the carry [B, L] of `sort_carry_layout`; the frontier
+    written back canonical. Returns (carry', decided, exhausted, ok,
+    overflow), the reference's `chunk_step_fns` contract; `stats` as
+    `sort_scan_plain`'s."""
+    W, C = int(n_slots), int(n_configs)
+    lay = sort_carry_layout(W, C)
+    acc = ({k: torch.zeros((), dtype=torch.int64, device=carry.device)
+            for k in SORT_STATS} if stats is not None else None)
+    step = _sort_step(model, W, C, macro_p, carry.device, acc)
+    state, left = chunk_scan(step, _sort_unpack(carry, lay, W, C), events,
+                             lay.view(carry, "left")[:, 0], width)
+    out = _sort_pack(state, carry, lay, left)
     if stats is not None:
         for k, v in acc.items():
             stats[k] = stats.get(k, 0) + int(v)
-    return carry[6], carry[7]
+    return (out,) + chunk_flags(out, lay)
 
 
 # ------------------------------------------------------------ the kernel
@@ -256,15 +380,22 @@ def sort_scan_plain(events, n_slots: int, n_configs: int,
 #: Launch count of the sort kernel's wrapper: one is added where it
 #: launches its kernel and nowhere else.
 LAUNCHES = {"sort_scan": 0}
+#: The same for the sort kernel's chunk entry point.
+CHUNK_LAUNCHES = {"sort_scan_chunk": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CHUNK_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def chunk_launch_counts() -> dict:
+    return dict(CHUNK_LAUNCHES)
 
 
 def sort_scan(events, n_slots: int, n_configs: int,
@@ -314,3 +445,70 @@ def sort_scan_launcher(events, n_slots: int, n_configs: int,
         "sort_scan", lib, (events, n_events, ok, overflow),
         (B, E, R, P, W, C, int(code), int(model.init_state()),
          _device_index(dev)), B, LAUNCHES)
+
+
+def sort_chunk(carry, events, n_slots: int, n_configs: int,
+               macro_p: Optional[int] = None, *, model,
+               width: Optional[int] = None):
+    """One chunk of the sort scan: (carry', decided, exhausted, ok,
+    overflow), the contract of `sort_chunk_plain`. A CPU tensor takes the
+    plain version; a CUDA tensor launches the chunk entry point of the sort
+    kernel (ops/csrc/sort_scan.cu: the one-shot kernel's body, reading
+    the canonical frontier at the start and writing it back, with the
+    four flags, at the end) on the current stream, or raises."""
+    if events.device.type == "cpu":
+        return sort_chunk_plain(carry, events, n_slots, n_configs, macro_p,
+                                model=model, width=width)
+    out, flags, launch = sort_chunk_launcher(carry, events, n_slots,
+                                             n_configs, macro_p, model=model,
+                                             width=width)
+    launch(torch.cuda.current_stream(events.device))
+    return _flags(out, flags)
+
+
+def sort_chunk_launcher(carry, events, n_slots: int, n_configs: int,
+                        macro_p: Optional[int] = None, *, model,
+                        width: Optional[int] = None):
+    """Check the CUDA tensors, allocate carry' and flags [4, B] bool,
+    build or load the kernel: (carry', flags, launch)."""
+    W, C = int(n_slots), int(n_configs)
+    if not 1 <= C <= MAX_CONFIGS:
+        raise ValueError(f"sort_scan: n_configs={C} beyond 1..{MAX_CONFIGS}")
+    lay = sort_carry_layout(W, C)
+    dev, B, w, R, P, width, stride = _chunk_rows(
+        "sort_scan_chunk", carry, events, macro_p, lay, width)
+    code = getattr(model, "KERNEL_MODEL", None)
+    if code is None:
+        raise ValueError(f"sort_scan: model {type(model).__name__} has no "
+                         f"device step in the CUDA kernel")
+    out, flags = _chunk_out(carry, B, dev)
+    lib = _build.load("sort_scan")
+    return out, flags, _launch_fn(
+        "sort_scan_chunk", lib, (events, carry, out, flags),
+        (stride, B, width, R, P, W, C, int(code), lay.length,
+         _device_index(dev)), B, CHUNK_LAUNCHES)
+
+
+def make_sort_chunk_checker(model, n_configs: int = DEFAULT_N_CONFIGS,
+                            n_slots: int = MAX_SLOTS,
+                            macro_p: Optional[int] = None):
+    """The chunk pair of one sort rung, as the reference's
+    `make_sort_chunk_checker` (ops/linear_scan.py:351): (init_fn,
+    step_fn) with
+
+      init_fn(n_events [B] int32) -> carry [B, L] int32
+      step_fn(carry, events [B, w, R], width=None) -> (carry', decided
+          [B], exhausted [B], ok [B], overflow [B])
+
+    on the tensors' device (`sort_chunk`). Eviction is sound as in the
+    reference: `ok` only falls, and once the frontier is empty nothing
+    expands, so a decided row's (ok, overflow) pair is final."""
+    W, C = int(n_slots), int(n_configs)
+
+    def init_fn(n_events):
+        return sort_chunk_init(n_events, W, C, model)
+
+    def step_fn(carry, events, width=None):
+        return sort_chunk(carry, events, W, C, macro_p, model=model,
+                          width=width)
+    return init_fn, step_fn

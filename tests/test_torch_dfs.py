@@ -298,8 +298,8 @@ def test_checker_returns_reference_keys(tmp_path):
         ours_file = ours.get("counterexample", {}).pop("file", None)
         theirs_file = theirs.get("counterexample", {}).pop("file", None)
         # the device's algorithm is "torch" where the reference's is
-        # "jax", and its chunked wavefront (not ported) stamps "chunked"
-        skip = {"algorithm", "chunked"}
+        # "jax"; both stamp "chunked" from their wavefronts
+        skip = {"algorithm"}
         assert {k: v for k, v in ours.items() if k not in skip} == \
             {k: v for k, v in theirs.items() if k not in skip}
         assert (ours_file is None) == (theirs_file is None)

@@ -25,6 +25,7 @@ import torch
 os.environ.setdefault("JGRAFT_LIN_FASTPATH", "0")
 os.environ.setdefault("JGRAFT_AUTOTUNE", "0")
 
+from jepsen_jgroups_raft_tpu_torch.checker import schedule
 from jepsen_jgroups_raft_tpu_torch.checker.linearizable import \
     check_histories
 from jepsen_jgroups_raft_tpu_torch.checker.schedule import (DenseLaunch,
@@ -40,6 +41,7 @@ from jepsen_jgroups_raft_tpu_torch.models import (MODELS, Counter, GSet,
 from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
 from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
 from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
+from jepsen_jgroups_raft_tpu_torch.ops.kernel_ir import carry_mismatch
 
 pytestmark = pytest.mark.gpu
 
@@ -836,6 +838,7 @@ def test_race_raises_when_the_kernel_fails(cuda, monkeypatch):
         raise RuntimeError("kernel failed to launch")
 
     monkeypatch.setattr(linearizable, "run_dense_groups", broken)
+    monkeypatch.setattr(linearizable, "run_chunked", broken)
     hs = _histories(6, 4, 120, 5, 3, 3, 0.1)
     with pytest.raises(RuntimeError, match="kernel failed to launch"):
         check_histories(hs, CasRegister(), algorithm="race")
@@ -1211,3 +1214,179 @@ def test_independent_linearizable_on_card_matches_cpu(cuda):
         assert {x: v for x, v in ours["results"][k].items()
                 if x != "time-s"} == \
             {x: v for x, v in r.items() if x != "time-s"}, k
+
+
+# ------------------------------------------- the chunk forms (B1, B4, B5)
+
+
+def _chunks_kernel_and_plain(step, carry, ev, lay, chunk, counts, name):
+    """Chain `step` (a chunk pair's step_fn) on the card and on the CPU
+    from the same carry over ev [B, E, R] in chunks of `chunk` rows: after
+    every launch the four flags are equal and the carries agree
+    (`carry_mismatch` 0); halfway, both recompact to the rows i with i
+    mod 4 < 2 (carry and events gathered; the fixtures corrupt the odd
+    rows, so both polarities stay). Each launch adds one to
+    counts[name]. Returns the plain version's last (ok, overflow)."""
+    ck, cp = carry.to(ev.device), carry.cpu()
+    evk, evp = ev, ev.cpu()
+    E = int(ev.shape[1])
+    n_launch = -(-E // chunk)
+    out = None
+    for i in range(n_launch):
+        if i == n_launch // 2 and ck.shape[0] > 1:
+            idx = torch.tensor([r for r in range(int(ck.shape[0]))
+                                if r % 4 < 2])
+            ck, evk = (t.index_select(0, idx.to(ev.device)) for t in (ck, evk))
+            cp, evp = (t.index_select(0, idx) for t in (cp, evp))
+        lo = i * chunk
+        before = counts[name]
+        ok_k = step(ck, evk[:, lo:lo + chunk], chunk)
+        torch.cuda.synchronize()
+        assert counts[name] == before + 1
+        out = step(cp, evp[:, lo:lo + chunk], chunk)
+        for a, b in zip(ok_k[1:], out[1:]):
+            assert a.device.type == "cuda" and a.dtype == torch.bool
+            assert a.cpu().tolist() == b.tolist(), (chunk, i)
+        assert carry_mismatch(lay, ok_k[0].cpu(), out[0]) == 0, (chunk, i)
+        ck, cp = ok_k[0], out[0]
+    return out[3], out[4]
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("W,S", WINDOWS,
+                         ids=[f"W{w}_S{s}" for w, s in WINDOWS])
+def test_dense_chunk_kernel_matches_plain(cuda, W, S, macro):
+    """B1's chunk form against dense_chunk_plain at chunks 1, 32 and
+    128: flags and carry after every launch, a recompaction halfway."""
+    ev, vo, ne, P, _ = _group(_cap_histories(300 + W, W, S, 12, 60), W, S,
+                              macro, cuda)
+    init, step = ds.make_dense_chunk_checker(CasRegister(), "domain", W, S,
+                                             macro_p=P)
+    lay = ds.dense_carry_layout(W, S)
+    oks = set()
+    for chunk in (1, 32, 128):
+        ok, _ = _chunks_kernel_and_plain(step, init(vo, ne), ev, lay, chunk,
+                                         ds.CHUNK_LAUNCHES, "dense_scan_chunk")
+        oks.update(ok.tolist())
+    assert oks == {True, False} or S == 1
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("W", [1, 3, 5, 8, 10, 12], ids=lambda w: f"W{w}")
+@pytest.mark.parametrize("kind", list(MASK_MODELS))
+def test_mask_chunk_kernel_matches_plain(cuda, kind, W, macro):
+    """B4's chunk form against mask_chunk_plain at chunks 1, 32 and 128
+    (the carry's sums kept as column totals on both sides)."""
+    m = MASK_MODELS[kind]()
+    _, encs = _mask_histories(kind, W, 8, 60, 500 + W)
+    ev, ne, P = _mask_group(encs, macro, cuda)
+    init, step = ds.make_dense_chunk_checker(m, "mask", W, 1, macro_p=P)
+    lay = ds.mask_carry_layout(W)
+    for chunk in (1, 32, 128):
+        _chunks_kernel_and_plain(step, init(None, ne), ev, lay, chunk,
+                                 ds.CHUNK_LAUNCHES, "mask_scan_chunk")
+
+
+@pytest.mark.parametrize("macro", [False, True], ids=["legacy", "macro"])
+@pytest.mark.parametrize("W", [1, 8, 31, 127], ids=lambda w: f"W{w}")
+@pytest.mark.parametrize("kind", list(SORT_KINDS) + ["list-append"])
+def test_sort_chunk_kernel_matches_plain(cuda, kind, W, macro):
+    """B5's chunk form against sort_chunk_plain at chunks 1, 32 and 128,
+    C = 64 (and C = 4 at W = 8, where rows overflow): flags and the
+    canonical frontier after every launch."""
+    m = MODELS[SORT_KINDS.get(kind, kind)]()
+    hs = _sort_histories(kind, W, 6, 700 + W) if kind != "list-append" \
+        else [list(burst_history(random.Random(W + j), "list-append",
+                                 max(W - 3 * j, 1))) for j in range(6)]
+    encs = [encode_history(h, m) for h in hs]
+    batch = pack_macro_batch(encs) if macro else pack_batch(encs)
+    ev = torch.from_numpy(batch["events"]).to(cuda)
+    ne = torch.from_numpy(batch["n_events"]).to(cuda)
+    for C in ((64, 4) if W == 8 else (64,)):
+        init, step = ls.make_sort_chunk_checker(m, C, W,
+                                                macro_p=batch.get("macro_p"))
+        lay = ls.sort_carry_layout(W, C)
+        for chunk in (1, 32, 128):
+            _chunks_kernel_and_plain(step, init(ne), ev, lay, chunk,
+                                     ls.CHUNK_LAUNCHES, "sort_scan_chunk")
+
+
+def test_chunk_kernels_refuse_bad_inputs(cuda):
+    """A carry of the wrong length or device, or rows that are not
+    contiguous, raise before any launch."""
+    ev, vo, ne, P, _ = _group(_cap_histories(5, 4, 4, 4, 20), 4, 4, False,
+                              cuda)
+    init, step = ds.make_dense_chunk_checker(CasRegister(), "domain", 4, 4)
+    carry = init(vo, ne)
+    with pytest.raises(ValueError):
+        step(carry[:, :-1].contiguous(), ev)
+    with pytest.raises(ValueError):
+        step(carry.cpu(), ev)
+    with pytest.raises(ValueError):
+        step(carry, ev[:, :, :4])
+    with pytest.raises(ValueError):
+        step(carry, ev, int(ev.shape[1]) - 1)
+
+
+def test_set_element_31_clamp_on_card(cuda):
+    """The reference's element-31 clamp (ROADMAP Queue C) on the sort
+    kernel: a read of {31} that misses a completed add of 5 is VALID in
+    the one-shot and the chunk form, as on the plain version and the
+    reference (tests/test_torch_set.py)."""
+    m = GSet()
+    rows = [(0, "invoke", "add", 5), (0, "ok", "add", 5),
+            (1, "invoke", "add", 31), (1, "ok", "add", 31),
+            (2, "invoke", "read", None), (2, "ok", "read", [31])]
+    enc = encode_history(build_history(rows), m)
+    W = ls.bucket_slots(enc.n_slots)
+    for pack in (pack_batch, pack_macro_batch):
+        b = pack([enc])
+        ev = torch.from_numpy(b["events"]).to(cuda)
+        ne = torch.from_numpy(b["n_events"]).to(cuda)
+        ok, of = ls.sort_scan(ev, W, 64, b.get("macro_p"), ne, model=m)
+        assert ok.cpu().tolist() == [True] and of.cpu().tolist() == [False]
+        init, step = ls.make_sort_chunk_checker(m, 64, W, b.get("macro_p"))
+        carry = init(ne)
+        for lo in range(int(ev.shape[1])):
+            carry, _, _, ok, of = step(carry, ev[:, lo:lo + 1])
+        assert ok.cpu().tolist() == [True] and of.cpu().tolist() == [False]
+
+
+@pytest.mark.parametrize("kind", ["register", "counter", "set"])
+def test_chunked_check_on_card_matches_cpu(cuda, kind, monkeypatch):
+    """check_histories at the default chunk on the card: the CPU's result
+    dicts ("chunked" included, less "time-s") and wavefront counters,
+    the chunk kernels launched; at JGRAFT_SCAN_CHUNK=0 the one-shot
+    kernels, the same verdicts and no "chunked" stamp."""
+    monkeypatch.delenv("JGRAFT_SCAN_CHUNK", raising=False)
+    model = MODELS[SORT_KINDS[kind]]()
+    rng = random.Random(61)
+    vr = {"value_range": 32} if kind == "set" else {}
+    hs = [_corrupt_observation(list(random_valid_history(
+        rng, kind, n_ops=120, n_procs=5, crash_p=0.05, max_crashes=3,
+        **vr)), rng, 1) if i % 3 == 1 else random_valid_history(
+        rng, kind, n_ops=120, n_procs=5, crash_p=0.05, max_crashes=3, **vr)
+        for i in range(24)]
+    keys = ("chunks_run", "evicted_rows", "groups_run",
+            "groups_early_exited")
+
+    def run(dev):
+        schedule.consume_stats()
+        rs = check_histories(hs, model, device=dev)
+        st = schedule.consume_stats()
+        return ([{k: v for k, v in r.items() if k != "time-s"} for r in rs],
+                [st[k] for k in keys])
+
+    ds.reset_launch_counts()
+    ls.reset_launch_counts()
+    on_card, host = run(None), run("cpu")
+    assert on_card == host
+    chunk_launches = sum(ds.chunk_launch_counts().values()) + \
+        ls.chunk_launch_counts()["sort_scan_chunk"]
+    assert chunk_launches > 0 and on_card[1][2] > 0
+    monkeypatch.setenv("JGRAFT_SCAN_CHUNK", "0")
+    one_shot = run(None)
+    assert [r["valid?"] for r in one_shot[0]] == \
+        [r["valid?"] for r in on_card[0]]
+    assert not any("chunked" in r for r in one_shot[0])
+    assert one_shot[1][2] == 0

@@ -249,3 +249,49 @@ def test_dense_algorithm_matches_reference_jax():
     assert ours[0]["concurrency-window"] == 13
     assert ours[0]["decided-tier"] == "sort" and ours[0]["valid?"] is True
 
+
+
+def test_element_31_clamp_pinned_valid():
+    """The reference's element-31 clamp (ROADMAP Queue C), kept visible:
+    `GSet` encodes 31 as the int32 clamp 0x7FFFFFFF, so a read holding
+    31 hides every other element. This history adds 5, then 31, both
+    completed, then reads {31}: the read misses the completed add of 5,
+    yet the reference's checker (its default path and its sort kernel),
+    the port's `sort_scan_plain` (both row formats), its chunk form, the
+    host oracle `wgl_cpu` and `check_encoded` all answer VALID. A fix
+    would edit the reference; until then the port keeps its verdict."""
+    from jepsen_jgroups_raft_tpu.ops.linear_scan import make_batch_checker
+    from jepsen_jgroups_raft_tpu_torch.checker.wgl_cpu import \
+        check_encoded_cpu
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        pack_batch, pack_macro_batch)
+    from jepsen_jgroups_raft_tpu_torch.history.synth import \
+        build_history as port_build
+    from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
+
+    rows = [(0, "invoke", "add", 5), (0, "ok", "add", 5),
+            (1, "invoke", "add", 31), (1, "ok", "add", 31),
+            (2, "invoke", "read", None), (2, "ok", "read", [31])]
+    assert element_mask([31]) == 2**31 - 1 == element_mask([5, 31])
+    ref_m, m = RefGSet(), GSet()
+    [theirs] = ref_check([build_history(rows)], ref_m)
+    assert theirs["valid?"] is True
+    enc = encode_history(port_build(rows), m)
+    ref_e = ref_enc(build_history(rows), ref_m)
+    np.testing.assert_array_equal(enc.events, ref_e.events)
+    W = ls.bucket_slots(enc.n_slots)
+    ref_ok, ref_of = make_batch_checker(ref_m, 64, W)(ref_e.events[None])
+    assert bool(np.asarray(ref_ok)[0]) and not bool(np.asarray(ref_of)[0])
+    for pack in (pack_batch, pack_macro_batch):
+        b = pack([enc])
+        ev, ne = torch.from_numpy(b["events"]), torch.from_numpy(b["n_events"])
+        ok, of = ls.sort_scan_plain(ev, W, 64, b.get("macro_p"), ne, model=m)
+        assert ok.tolist() == [True] and of.tolist() == [False]
+        init, step = ls.make_sort_chunk_checker(m, 64, W, b.get("macro_p"))
+        carry = init(ne)
+        for lo in range(0, ev.shape[1]):
+            carry, _, _, ok, of = step(carry, ev[:, lo:lo + 1])
+        assert ok.tolist() == [True] and of.tolist() == [False]
+    assert check_encoded_cpu(enc, m).valid is True
+    [ours] = check_encoded([enc], m, device="cpu")
+    assert ours["valid?"] is True
