@@ -79,18 +79,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
                and overflow: the five models (list-append included) at
                every kernel window 1..16
                and 31, 63, 95, 127 (histories up to the window, bursts
-               that fill it), C in {4, 64, 256}, the row format
-               alternating, valid and corrupted; short histories with C near their frontier
-               (rows that overflow and end ok, rows that overflow and do
-               not: both counts must be above 0); arbitrary rows (slots
-               out of range, shared slots, int32 edges)
+               that fill it), C in {1, 4, 64, 256, 512}, the row format
+               alternating, valid and corrupted; short histories with C
+               near their frontier (rows that overflow and end ok, rows
+               that overflow and do not: both counts must be above 0);
+               arbitrary rows (slots out of range, shared slots, int32
+               edges); hand-written rows (`synth.sort_edge_cases`:
+               candidates colliding on one key, keys that differ only in
+               the state or only in the highest key field up to K = 4,
+               distinct counts of exactly C and C + 1, C = 1 … 512); four
+               groups at other block shapes and cut tiles
  13b. chunk_kernel — the chunk forms against their plain versions,
                flags and carry compared after every launch, one
                recompaction (carry and events gathered) halfway: B1 at
                W = 1..10 with the largest S, B4 at W = 1..12 for the
                counter and the queue, B5 for the five models at W = 1, 8,
-               31, 127 (C = 64; C = 4 too at W = 8); chunks of 32 and 128
-               rows in both row formats, of 1 row in one (alternating)
+               31, 127 (C = 64; C = 4 too at W = 8) and on the
+               hand-written edge rows; chunks of 32 and 128 rows in both
+               row formats, of 1 row in one (alternating)
  14. set_main — the reference suite's set shape (bench.py config 6:
                1000 histories of 1000 ops, 5 processes, crash_p 0.05, at
                most 3 crashes, value_range 32, seed 20260729) through
@@ -98,7 +104,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                VALID, every row on the sort tier, 0 host rows,
                sort_scan_chunk's launch count above 0; then each rung of
                the ladder (C = 64, then the rows that overflowed at C =
-               256): rows, one-shot kernel ms, ns per row, the rung
+               256): rows, one-shot kernel ms, ns per row, mean closure
+               rounds a row and ns per round, the launch shape and the
+               rung's ms at every block size of SORT_SHAPE_THREADS (flags
+               unchanged), the rung
                through `run_chunked` (flags bitwise equal, span,
                launches), the plain version's time and bitwise flags; the
                C = 64 rung's first chunk launch against its plain version;
@@ -251,7 +260,10 @@ LEGAL_STEP_OPS = {"counter": 2, "queue": 3}
 SET_VALUE_RANGE = 32
 #: the sort kernel's windows: exact up to 16, then the word buckets
 SORT_WINDOWS = tuple(range(1, 17)) + (31, 63, 95, 127)
-SORT_CAPS = (4, 64, 256)
+SORT_CAPS = (1, 4, 64, 256, 512)
+#: block sizes the ladder's rungs are timed at beside the default shape
+#: (set_main, listappend_main): the record of the shapes tried
+SORT_SHAPE_THREADS = (32, 64, 128, 256, 512, 1024)
 
 #: kernel name -> (source in the repo, the TPU-side program it replaces)
 KERNELS = {
@@ -1209,19 +1221,22 @@ def corrupt_list_read(ops, rng):
 
 def phase_sort_kernel(dev):
     """sort_scan against sort_scan_plain, bitwise on both flags: the five
-    models (list-append included) at every window of SORT_WINDOWS (C cycling through SORT_CAPS,
-    the row format alternating), short histories with C near their
-    frontier (both formats), and arbitrary rows. Returns (rows compared,
-    max |kernel - plain|, {rows that overflowed and ended ok, and not})."""
+    models (list-append included) at every window of SORT_WINDOWS (C
+    cycling through SORT_CAPS, the row format alternating), short
+    histories with C near their frontier (both formats), arbitrary rows,
+    the hand-written edge cases (`synth.sort_edge_cases`) and four groups
+    at other block shapes and cut tiles. Returns (rows compared, max
+    |kernel - plain|, {rows that overflowed and ended ok, and not})."""
     import numpy as np
     import torch
 
     from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
     from jepsen_jgroups_raft_tpu_torch.history.synth import (
-        random_mask_rows, random_valid_history)
+        random_mask_rows, random_valid_history, sort_edge_cases)
     from jepsen_jgroups_raft_tpu_torch.models import MODELS
     from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import (
-        bucket_slots, sort_scan, sort_scan_plain)
+        bucket_slots, sort_scan, sort_scan_launcher, sort_scan_plain,
+        sort_shape)
 
     rng = random.Random(SEED + 7)
     kinds = {"set": "set", "counter": "counter", "register": "cas-register",
@@ -1297,6 +1312,35 @@ def phase_sort_kernel(dev):
                   torch.from_numpy(ev).to(dev),
                   torch.from_numpy(n_events).to(dev), W,
                   64 if W <= 12 else 4, P, m)
+    # hand-written rows: candidates that collide on one key, keys that
+    # differ only in the state or only in the highest key field, distinct
+    # counts of exactly C and C + 1, C from 1 to 512
+    reg = MODELS["cas-register"]()
+    for name, W, C, ev, ne, P in sort_edge_cases():
+        check(f"edge_{name}", torch.from_numpy(ev).to(dev),
+              torch.from_numpy(ne).to(dev), W, C, P, reg)
+    # other block shapes and tiles cut small (rounds tile after tile)
+    for kind, W, C in (("set", 8, 64), ("queue", 31, 16),
+                       ("list-append", 12, 8), ("counter", 127, 4)):
+        m = MODELS[kinds[kind]]()
+        encs = [encode_history(h, m) for h in sort_histories(rng, kind, W, 6)]
+        ev, ne, P, _ = tensors(encs, True)
+        p_ok, p_of = sort_scan_plain(ev, W, C, P, ne, model=m)
+        for threads, cap in ((32, None), (32, 1), (256, 8192), (1024, None)):
+            shape = sort_shape(W, C, threads, cap)
+            ok_k, of_k, launch = sort_scan_launcher(ev, W, C, P, ne, model=m,
+                                                    shape=shape)
+            launch(torch.cuda.current_stream(dev))
+            sync(dev)
+            err = max(int((ok_k.int() - p_ok.int()).abs().max()),
+                      int((of_k.int() - p_of.int()).abs().max()))
+            emit("sort_kernel", case=f"shape_{kind}_W{W}_C{C}",
+                 model=m.name, rows=int(ev.shape[0]), W=W, C=C, macro_p=P,
+                 shape=list(shape), max_abs_err=err)
+            if err != 0:
+                raise AssertionError(f"sort_kernel: shape {shape} disagrees "
+                                     f"with the plain version")
+            compared += int(ev.shape[0])
     if not overflowed["ok"] or not overflowed["not_ok"]:
         raise AssertionError(f"sort_kernel: rows that overflowed and ended "
                              f"ok / not ok: {overflowed}; both expected")
@@ -1350,13 +1394,17 @@ def phase_chunk_kernel(dev) -> dict:
     every launch (`chunk_chain`): B1 at W = 1..10 with the largest S the
     caps allow, B4 at W = 1..12 for the counter and the queue, B5 for
     the five models at W = 1, 8, 31, 127 (C = 64, and C = 4 at W = 8,
-    where rows overflow). Every case runs chunks of 128 rows and,
+    where rows overflow) and the hand-written edge cases
+    (`synth.sort_edge_cases`). Every case runs chunks of 128 rows and,
     alternating, of 32 or of 1 row (of 1 only where W ≤ 8), in both row
     formats, but B5 at W = 31 and 127 in one format (alternating by
     model): the plain version costs ~35 ms an event there on a host
     core. Returns max |kernel - plain| per chunk kernel (0, or the phase
     fails)."""
+    import torch
+
     from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.history.synth import sort_edge_cases
     from jepsen_jgroups_raft_tpu_torch.models import MODELS, CasRegister
     from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
     from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
@@ -1448,6 +1496,15 @@ def phase_chunk_kernel(dev) -> dict:
                                                        model=m, width=w)
                         yield (step, plain, init(ne), ev,
                                ls.sort_carry_layout(W, C), macro, W <= 8)
+        m = CasRegister()
+        for _, W, C, ev, ne, P in sort_edge_cases():
+            ev, ne = torch.from_numpy(ev).to(dev), torch.from_numpy(ne).to(dev)
+            init, step = ls.make_sort_chunk_checker(m, C, W, macro_p=P)
+
+            def plain(c, e, w, W=W, C=C, P=P):
+                return ls.sort_chunk_plain(c, e, W, C, P, model=m, width=w)
+            yield (step, plain, init(ne), ev, ls.sort_carry_layout(W, C),
+                   P is not None, True)
 
     run("dense_scan_chunk", dense_cases)
     run("mask_scan_chunk", mask_cases)
@@ -1685,10 +1742,20 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
                 dev, "sort_scan_chunk", step, chunk_plain, init(ne), ev, ne,
                 width, lay, lambda st, sl: st["steps"] + st["candidates"],
                 given=given)
+        # the mean closure rounds a row (the plain version's count) and
+        # the kernel's time per round of a row; the rung at other shapes
+        rounds = rung_stats[len(rungs)]["rounds"]
+        per_row = rounds / max(B, 1)
+        shapes = rung_shapes(phase, ev, ne, W, C, b["macro_p"], model,
+                             run.ok, run.overflow)
         rungs.append({"C": C, "rows": B, "macro_p": int(b["macro_p"]),
                       "events": int(ev.shape[1]), "longest_rows": longest,
                       "kernel_ms_reps": ms, "kernel_ms": min(ms),
                       "ns_per_row": min(ms) * 1e6 / longest,
+                      "rounds": rounds, "mean_rounds_a_row": per_row,
+                      "ns_per_round": min(ms) * 1e6 / max(per_row, 1e-9),
+                      "shape": list(ls.sort_shape(W, C)),
+                      "ms_by_threads": shapes,
                       "valid": int(run.ok.sum()),
                       "overflow": int(run.overflow.sum()),
                       "escalated": len(escalate),
@@ -1758,6 +1825,40 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
             "t_bytes": t_bytes, "t_ops": t_ops,
             "chunk": dict(chunk_line,
                           launches=int(launches["sort_scan_chunk"]))}
+
+
+def rung_shapes(phase: str, ev, ne, W: int, C: int, P, model, ok,
+                overflow) -> dict:
+    """One ladder rung's kernel at each block size of SORT_SHAPE_THREADS
+    the kernel takes at this W (its default tile rule): best of 3 ms by
+    CUDA events; the flags must equal the default shape's (ok and
+    overflow, host numpy)."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
+
+    out = {}
+    stream = torch.cuda.current_stream(ev.device)
+    for threads in SORT_SHAPE_THREADS:
+        shape = ls.sort_shape(W, C, threads)
+        if shape[0] != threads:
+            continue
+        ms = []
+        for _ in range(3):
+            k_ok, k_of, launch = ls.sort_scan_launcher(
+                ev, W, C, P, ne, model=model, shape=shape)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record(stream)
+            launch(stream)
+            b.record(stream)
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        if (k_ok.cpu().numpy() != ok).any() or \
+                (k_of.cpu().numpy() != overflow).any():
+            raise AssertionError(f"{phase}: the rung at C = {C} gives "
+                                 f"other flags at {threads} threads")
+        out[str(threads)] = min(ms)
+    return out
 
 
 def corrupt_set_read(ops, rng):
@@ -2242,10 +2343,11 @@ def phase_lin_fastpath(dev, histories):
     check_encoded on the card, the gate's store in a fresh directory
     under build/: with JGRAFT_LIN_FASTPATH at 0 (warm-up, then one
     timed run), then with it unset (the default) twice — the first run
-    on an empty gate tries the host certifier, the second routes by what
-    the first measured (certify wall per row against hit rate × the
-    device's wall per row). Verdicts identical; certified, gated and
-    kernel rows and the walls of every run."""
+    on an empty gate tries the host certifier, the second routes by the
+    hit rate the first measured, as the reference's gate does (a bucket
+    under JGRAFT_LIN_FASTPATH_MIN_HIT goes kernel-first). Verdicts
+    identical; certified, gated and kernel rows and the walls of every
+    run."""
     import shutil
     from pathlib import Path
 

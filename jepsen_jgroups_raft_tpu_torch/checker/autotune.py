@@ -145,8 +145,7 @@ def reset_for_tests() -> None:
 
 
 def _fresh_record() -> dict:
-    return {"rows": 0, "hits": 0, "certify_wall_s": 0.0,
-            "kernel_wall_per_row_s": 0.0}
+    return {"rows": 0, "hits": 0, "certify_wall_s": 0.0}
 
 
 # ------------------------------------------------ lin fast-path gating
@@ -155,7 +154,7 @@ def _fresh_record() -> dict:
 #: lin-fastpath record schema version; unknown versions re-observe.
 LINFP_VERSION = 1
 
-#: sig -> {"rows", "hits", "certify_wall_s", "kernel_wall_per_row_s"}
+#: sig -> {"rows", "hits", "certify_wall_s"}
 _LINFP_MEM: dict = {}
 
 
@@ -209,11 +208,11 @@ def _linfp_shared_path(sig: tuple) -> Optional[Path]:
 def _load_linfp(path: Path, sig: tuple, require_host: bool) -> \
         Optional[dict]:
     """Parse one gate record, or None. Shared records skip the
-    host-fingerprint check: the hit-RATE is a property of the workload
-    family, not the host, so a shared record seeds the rows and hits
-    and leaves the device wall unobserved (the walls belong to the host
-    that measured them) — while host-local records keep the strict
-    check so a toolchain swap re-observes."""
+    host-fingerprint check: the hit-RATE the gate routes on is a
+    property of the workload family, not the host — while host-local
+    records keep the strict check so a toolchain swap re-observes. Keys
+    the gate does not read (an older record's device wall) are
+    ignored."""
     try:
         raw = json.loads(path.read_text())
         if (raw.get("version") == LINFP_VERSION
@@ -221,10 +220,7 @@ def _load_linfp(path: Path, sig: tuple, require_host: bool) -> \
                 and (not require_host
                      or raw.get("fingerprint") == host_fingerprint())):
             return {"rows": int(raw["rows"]), "hits": int(raw["hits"]),
-                    "certify_wall_s": float(raw["certify_wall_s"]),
-                    "kernel_wall_per_row_s": float(
-                        raw.get("kernel_wall_per_row_s", 0.0))
-                    if require_host else 0.0}
+                    "certify_wall_s": float(raw["certify_wall_s"])}
         _log.warning("autotune: stale lin-fastpath record %s — "
                      "re-observing", path)
     except FileNotFoundError:
@@ -261,21 +257,16 @@ def _linfp_record(sig: tuple) -> dict:
 
 def lin_fastpath_route(sig: tuple) -> bool:
     """True → run the host certifier first for this bucket; False →
-    the measurements say kernel-first: a hit rate under the floor, or a
-    certify wall per row above what a hit saves (hit rate × the device's
-    latest wall per row). Routing only: a gated bucket's rows take the
-    ordinary kernel ladder unchanged."""
+    the measured hit-rate says kernel-first. Routing only: a gated
+    bucket's rows take the ordinary kernel ladder unchanged."""
     if not autotune_on():
         return True
     rec = _linfp_record(sig)
     with _LOCK:
         rows, hits = rec["rows"], rec["hits"]
-        certify, kernel = rec["certify_wall_s"], rec["kernel_wall_per_row_s"]
     if rows < lin_fastpath_min_obs():
         return True
-    if hits / rows < lin_fastpath_min_hit():
-        return False
-    return not (kernel > 0.0 and certify / rows > hits / rows * kernel)
+    return hits / rows >= lin_fastpath_min_hit()
 
 
 def lin_fastpath_observe(sig: tuple, rows: int, hits: int,
@@ -293,20 +284,6 @@ def lin_fastpath_observe(sig: tuple, rows: int, hits: int,
     _persist(sig, rec)
 
 
-def lin_fastpath_observe_kernel(sig: tuple, rows: int,
-                                wall_s: float) -> None:
-    """Record the device's wall per row for `rows` rows of the bucket
-    that one check sent to the device, and persist it. The latest batch
-    replaces the earlier one, so a first call that also built the
-    kernels does not hold the gate for long."""
-    if rows <= 0 or not autotune_on():
-        return
-    rec = _linfp_record(sig)
-    with _LOCK:
-        rec["kernel_wall_per_row_s"] = float(wall_s) / int(rows)
-    _persist(sig, rec)
-
-
 def _persist(sig: tuple, rec: dict) -> None:
     with _LOCK:
         payload = {
@@ -321,7 +298,6 @@ def _persist(sig: tuple, rec: dict) -> None:
             "certify_wall_per_row_s": round(
                 rec["certify_wall_s"] / max(rec["rows"], 1), 6),
             "hit_rate": round(rec["hits"] / max(rec["rows"], 1), 4),
-            "kernel_wall_per_row_s": rec["kernel_wall_per_row_s"],
             "updated_utc": time.strftime("%Y-%m-%dT%H:%M:%SZ",
                                          time.gmtime()),
         }

@@ -332,7 +332,6 @@ def check_encoded(
     if todo:
         for i, r in zip(todo, rest([encs[i] for i in todo])):
             results[i] = r
-    _observe_device_walls(encs, model, results)
     return results
 
 
@@ -450,22 +449,6 @@ def _annotate_sc_refutations(encs, results, model, dev) -> None:
             r["sc-cycle"] = c["cycle"]
         elif "skipped-size" in c:
             r["cycle-skipped-size"] = c["skipped-size"]
-
-
-def _observe_device_walls(encs, model, results) -> None:
-    """Feed the fast path's gate the device's wall per row in each
-    bucket this check sent to the device: what a certified row of that
-    bucket would have saved."""
-    fam = type(model).__name__
-    walls: dict = {}
-    for e, r in zip(encs, results):
-        if r.get("algorithm") == "torch" and e.n_events > 0:
-            w = walls.setdefault(autotune.lin_fastpath_sig(fam, e.n_events),
-                                 [0, 0.0])
-            w[0] += 1
-            w[1] += r.get("time-s", 0.0)
-    for sig, (rows, wall) in walls.items():
-        autotune.lin_fastpath_observe_kernel(sig, rows, wall)
 
 
 def _check_encoded(encs, model, algorithm, dev, witness, max_cpu_configs,

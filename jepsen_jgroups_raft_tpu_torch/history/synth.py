@@ -504,6 +504,74 @@ def random_mask_rows(rng, n: int, n_rows: int, n_slots: int,
     return ev
 
 
+def sort_edge_rows(ops, forces, macro_p=None):
+    """One history's event rows [E, R] int32 for the sort scan, written
+    by hand: an OPEN of each (slot, f, a, b) of `ops` in order (legacy
+    rows, or macro rows of up to `macro_p` opens), then a FORCE of each
+    slot of `forces` in order (a macro row's opens join the first
+    FORCE)."""
+    import numpy as np
+
+    P = macro_p
+    rows = []
+    if P is None:
+        rows = [(1, *op) for op in ops] + [(2, w, 0, 0, 0) for w in forces]
+        return np.asarray(rows, dtype=np.int32).reshape(-1, 5)
+    groups = [ops[i:i + P] for i in range(0, len(ops), P)] or [[]]
+    for i, g in enumerate(groups):
+        row = [0] * (3 + 4 * P)
+        last = i == len(groups) - 1
+        row[0], row[1], row[2] = (2, forces[0], len(g)) if last and forces \
+            else (1, 0, len(g))
+        for j, op in enumerate(g):
+            row[3 + 4 * j:7 + 4 * j] = op
+        rows.append(row)
+    rows += [[2, w, 0] + [0] * 4 * P for w in forces[1:]]
+    return np.asarray(rows, dtype=np.int32)
+
+
+def sort_edge_cases():
+    """The sort scan's edge cases, on the CAS register (write f=1, read
+    f=0): [(name, W, C, events [B, E, R] int32, n_events [B], macro_p)].
+    Writes of one value on w slots reach all 2^w masks, each round's
+    candidates colliding (the last round's on one key); C = 2^w is a
+    distinct count of exactly C, C = 2^w - 1 one of C + 1 (the full mask,
+    the largest key, is dropped, so forcing every slot fails). Writes of
+    w distinct values give keys that differ only in the state (1 + w·2^(w-1)
+    distinct). Slots from 32·(K-1) up give keys that differ only in the
+    highest key field, the last mask word (W = 127: K = 4). Each case has
+    two histories: the slots forced in ascending and in descending order;
+    the row format alternates."""
+    import numpy as np
+
+    plan = [  # (kind, W, first slot, w, C)
+        ("illegal", 1, 0, 1, 1), ("collide", 1, 0, 1, 1),
+        ("collide", 2, 0, 2, 4), ("collide", 2, 0, 2, 3),
+        ("collide", 6, 0, 6, 64), ("collide", 6, 0, 6, 63),
+        ("collide", 8, 0, 8, 256), ("collide", 8, 0, 8, 255),
+        ("collide", 9, 0, 9, 512), ("collide", 9, 0, 9, 511),
+        ("state", 4, 0, 4, 33), ("state", 4, 0, 4, 32),
+        ("state", 5, 0, 5, 64), ("state", 8, 0, 8, 256),
+        ("high", 63, 32, 6, 64), ("high", 95, 64, 6, 63),
+        ("high", 127, 96, 6, 64), ("high", 127, 96, 6, 63),
+        ("high", 127, 96, 9, 512), ("high", 127, 96, 9, 511),
+        ("state", 127, 96, 5, 64), ("state", 127, 96, 6, 256),
+    ]
+    cases = []
+    for i, (kind, W, lo, w, C) in enumerate(plan):
+        slots = list(range(lo, lo + w))
+        ops = [(s, 0, 5, 0) if kind == "illegal" else
+               (s, 1, 1 + j if kind == "state" else 1, 0)
+               for j, s in enumerate(slots)]
+        P = None if i % 2 == 0 else (8 if w <= 8 else 16)
+        hs = [sort_edge_rows(ops, order, P)
+              for order in (slots, slots[::-1])]
+        ev = np.stack(hs)
+        ne = np.full(len(hs), ev.shape[1], dtype=np.int32)
+        cases.append((f"{kind}_W{W}_w{w}_C{C}", W, C, ev, ne, P))
+    return cases
+
+
 def random_segment_rows(rng, K: int, n_rows: int, n_slots: int, vals,
                         n_crashed: int, bad_read: float = 0.01,
                         stray: float = 0.005):

@@ -59,13 +59,16 @@ SIGNATURES: Dict[str, dict] = {
     },
     "sort_scan": {
         # events, n_events, ok, overflow, B, E, R, macro_p, W, C, model,
-        # init_state, device, stream
-        "sort_scan_launch": (_I, [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _VP]),
+        # init_state, threads, tile, table log2, device, stream
+        "sort_scan_launch": (_I, [_VP, _VP, _VP, _VP] + [_I] * 12 + [_VP]),
         # events, carry in, carry out, flags, row stride, B, width, R,
-        # macro_p, W, C, model, carry length, device, stream
-        "sort_scan_chunk_launch": (_I, [_VP, _VP, _VP, _VP, _LL] + [_I] * 9
+        # macro_p, W, C, model, carry length, threads, tile, table log2,
+        # device, stream
+        "sort_scan_chunk_launch": (_I, [_VP, _VP, _VP, _VP, _LL] + [_I] * 12
                                    + [_VP]),
+        # W, C, threads, shared-memory cap, out[4]
+        "sort_scan_shape": (_I, [_I, _I, _I, _I,
+                                 ctypes.POINTER(ctypes.c_longlong)]),
         "sort_scan_error_string": (ctypes.c_char_p, [_I]),
     },
     "segment_scan": {
@@ -223,17 +226,21 @@ def build_log(name: str) -> str:
 _PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 
 
 def ptxas_report(name: str) -> dict:
     """Sum of ptxas -v's per-function report for library `name`: the
-    functions compiled, the most registers and stack any of them uses,
-    and the spill bytes stored and loaded over all of them."""
+    functions compiled, the most registers, static shared memory and
+    stack any of them uses, and the spill bytes stored and loaded over
+    all of them."""
     log = build_log(name)
     frames = [tuple(int(x) for x in m) for m in _PTXAS_FRAME.findall(log)]
     regs = [int(x) for x in _PTXAS_REGS.findall(log)]
+    smem = [int(x) for x in _PTXAS_SMEM.findall(log)]
     return {"functions": len(frames),
             "max_registers": max(regs, default=0),
+            "max_static_smem_bytes": max(smem, default=0),
             "max_stack_bytes": max((f[0] for f in frames), default=0),
             "spill_store_bytes": sum(f[1] for f in frames),
             "spill_load_bytes": sum(f[2] for f in frames)}

@@ -31,11 +31,14 @@ This module holds `bucket_slots` (the kernel windows), `sort_scan_plain`
 (the plain PyTorch version, batched over B, which the CPU tests hold to
 the reference and chip_smoke.py holds the CUDA kernel to) and
 `sort_scan`, the wrapper of the hand-written CUDA kernel
-(ops/csrc/sort_scan.cu).
+(ops/csrc/sort_scan.cu: a round's candidates formed at once, deduplicated
+by a hash table, ordered only when more than C are distinct; its launch
+shape from `sort_shape`).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -51,8 +54,8 @@ from .kernel_ir import (SORT_DEFAULT_CONFIGS, SORT_MAX_SLOTS, CarryLayout,
 MAX_SLOTS = SORT_MAX_SLOTS
 DEFAULT_N_CONFIGS = SORT_DEFAULT_CONFIGS
 
-#: The largest C the CUDA kernel takes (one thread per configuration,
-#: one block per history).
+#: The largest C the CUDA kernel takes (one block per history, the
+#: frontier, its hash table and a round's candidates in shared memory).
 MAX_CONFIGS = 512
 
 #: Windows ≤ SLOT_EXACT_MAX run at their exact size; wider ones at the
@@ -398,6 +401,38 @@ def chunk_launch_counts() -> dict:
     return dict(CHUNK_LAUNCHES)
 
 
+def sort_shape(n_slots: int, n_configs: int, threads: Optional[int] = None,
+               smem_cap: Optional[int] = None) -> tuple:
+    """The sort kernel's launch shape at (W, C), from the kernel's own
+    rule (ops/csrc/sort_scan.cu `sort_shape`): (threads a block, tile —
+    the candidates a round forms at once —, log2 of the hash table's
+    slots, dynamic shared memory bytes). `threads` and `smem_cap` (bytes)
+    override the defaults. Loads the library (card only)."""
+    W, C = int(n_slots), int(n_configs)
+    _check_caps(W, C)
+    out = (ctypes.c_longlong * 4)()
+    rc = _build.load("sort_scan").sort_scan_shape(
+        W, C, int(threads or 0), int(smem_cap or 0), out)
+    if rc != 0:
+        raise ValueError(f"sort_scan: {_build.error_string('sort_scan', rc)}")
+    return tuple(int(x) for x in out)
+
+
+def _check_caps(W: int, C: int) -> None:
+    if not 1 <= W <= MAX_SLOTS:
+        raise ValueError(f"sort_scan: W={W} beyond 1..{MAX_SLOTS}")
+    if not 1 <= C <= MAX_CONFIGS:
+        raise ValueError(f"sort_scan: n_configs={C} beyond 1..{MAX_CONFIGS}")
+
+
+def _kernel_model(model) -> int:
+    code = getattr(model, "KERNEL_MODEL", None)
+    if code is None:
+        raise ValueError(f"sort_scan: model {type(model).__name__} has no "
+                         f"device step in the CUDA kernel")
+    return int(code)
+
+
 def sort_scan(events, n_slots: int, n_configs: int,
               macro_p: Optional[int] = None, n_events=None, *, model):
     """The sort-frontier scan over a batch: (ok [B] bool, overflow [B]
@@ -408,8 +443,9 @@ def sort_scan(events, n_slots: int, n_configs: int,
     rows); W = n_slots ≤ MAX_SLOTS, C = n_configs ≤ MAX_CONFIGS; any
     model with a `KERNEL_MODEL`. A CPU tensor takes `sort_scan_plain`; a
     CUDA tensor launches the hand-written kernel (ops/csrc/sort_scan.cu,
-    one block per history) on the current stream without synchronising,
-    or raises."""
+    one block per history, `sort_shape`) on the current stream without
+    synchronising, or raises. A hash table that fills traps the kernel:
+    the next synchronisation raises."""
     if events.device.type == "cpu":
         return sort_scan_plain(events, n_slots, n_configs, macro_p,
                                n_events, model=model)
@@ -421,30 +457,26 @@ def sort_scan(events, n_slots: int, n_configs: int,
 
 def sort_scan_launcher(events, n_slots: int, n_configs: int,
                        macro_p: Optional[int] = None, n_events=None, *,
-                       model):
+                       model, shape: Optional[tuple] = None):
     """Everything `sort_scan` does on the card before the launch: check
     the CUDA tensors and shape, allocate ok and overflow [B] bool, build
     or load the kernel. Returns (ok, overflow, launch); launch(stream)
     launches the kernel on that `torch.cuda.Stream` without
-    synchronising and counts it, or raises."""
+    synchronising and counts it, or raises (a shape the kernel refuses
+    too). `shape` (threads, tile, table log2) overrides `sort_shape`'s."""
     dev, B, E, R, P, n_events = _card_rows("sort_scan", events, macro_p,
                                            n_events)
     W, C = int(n_slots), int(n_configs)
-    if not 1 <= W <= MAX_SLOTS:
-        raise ValueError(f"sort_scan: W={W} beyond 1..{MAX_SLOTS}")
-    if not 1 <= C <= MAX_CONFIGS:
-        raise ValueError(f"sort_scan: n_configs={C} beyond 1..{MAX_CONFIGS}")
-    code = getattr(model, "KERNEL_MODEL", None)
-    if code is None:
-        raise ValueError(f"sort_scan: model {type(model).__name__} has no "
-                         f"device step in the CUDA kernel")
+    _check_caps(W, C)
+    code = _kernel_model(model)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
     overflow = torch.empty((B,), dtype=torch.bool, device=dev)
     lib = _build.load("sort_scan")
+    threads, tile, tlog = (shape or sort_shape(W, C))[:3]
     return ok, overflow, _launch_fn(
         "sort_scan", lib, (events, n_events, ok, overflow),
-        (B, E, R, P, W, C, int(code), int(model.init_state()),
-         _device_index(dev)), B, LAUNCHES)
+        (B, E, R, P, W, C, code, int(model.init_state()), threads, tile,
+         tlog, _device_index(dev)), B, LAUNCHES)
 
 
 def sort_chunk(carry, events, n_slots: int, n_configs: int,
@@ -454,8 +486,9 @@ def sort_chunk(carry, events, n_slots: int, n_configs: int,
     overflow), the contract of `sort_chunk_plain`. A CPU tensor takes the
     plain version; a CUDA tensor launches the chunk entry point of the sort
     kernel (ops/csrc/sort_scan.cu: the one-shot kernel's body, reading
-    the canonical frontier at the start and writing it back, with the
-    four flags, at the end) on the current stream, or raises."""
+    the carry's live entries at the start and writing the frontier back
+    sorted, with the four flags, at the end) on the current stream, or
+    raises."""
     if events.device.type == "cpu":
         return sort_chunk_plain(carry, events, n_slots, n_configs, macro_p,
                                 model=model, width=width)
@@ -472,20 +505,17 @@ def sort_chunk_launcher(carry, events, n_slots: int, n_configs: int,
     """Check the CUDA tensors, allocate carry' and flags [4, B] bool,
     build or load the kernel: (carry', flags, launch)."""
     W, C = int(n_slots), int(n_configs)
-    if not 1 <= C <= MAX_CONFIGS:
-        raise ValueError(f"sort_scan: n_configs={C} beyond 1..{MAX_CONFIGS}")
+    _check_caps(W, C)
     lay = sort_carry_layout(W, C)
     dev, B, w, R, P, width, stride = _chunk_rows(
         "sort_scan_chunk", carry, events, macro_p, lay, width)
-    code = getattr(model, "KERNEL_MODEL", None)
-    if code is None:
-        raise ValueError(f"sort_scan: model {type(model).__name__} has no "
-                         f"device step in the CUDA kernel")
+    code = _kernel_model(model)
     out, flags = _chunk_out(carry, B, dev)
     lib = _build.load("sort_scan")
+    threads, tile, tlog = sort_shape(W, C)[:3]
     return out, flags, _launch_fn(
         "sort_scan_chunk", lib, (events, carry, out, flags),
-        (stride, B, width, R, P, W, C, int(code), lay.length,
+        (stride, B, width, R, P, W, C, code, lay.length, threads, tile, tlog,
          _device_index(dev)), B, CHUNK_LAUNCHES)
 
 

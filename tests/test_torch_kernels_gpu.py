@@ -35,7 +35,7 @@ from jepsen_jgroups_raft_tpu_torch.history.packing import (encode_history,
                                                            pack_macro_batch)
 from jepsen_jgroups_raft_tpu_torch.history.synth import (
     build_history, burst_history, offset_counter_history, random_mask_rows,
-    random_valid_history)
+    random_valid_history, sort_edge_cases)
 from jepsen_jgroups_raft_tpu_torch.models import (MODELS, Counter, GSet,
                                                   TicketQueue)
 from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
@@ -703,6 +703,81 @@ def test_sort_scan_rows_past_n_events_are_not_read(cuda):
         [want[0].tolist(), want[1].tolist()]
 
 
+SORT_EDGES = sort_edge_cases()
+
+
+@pytest.mark.parametrize("case", SORT_EDGES, ids=[c[0] for c in SORT_EDGES])
+def test_sort_scan_kernel_edge_cases(cuda, case):
+    """Candidates that collide on one key, keys that differ only in the
+    state or only in the highest key field (K up to 4, W = 127), distinct
+    counts of exactly C and C + 1, C from 1 to 512: bitwise to the plain
+    version (run on the card)."""
+    name, W, C, ev, ne, P = case
+    _sort_kernel_and_plain(torch.from_numpy(ev).to(cuda),
+                           torch.from_numpy(ne).to(cuda), W, C, P,
+                           CasRegister())
+
+
+@pytest.mark.parametrize("threads,smem_cap", [(32, None), (64, None),
+                                              (128, None), (1024, None),
+                                              (32, 1), (256, 8192)],
+                         ids=["t32", "t64", "t128", "t1024", "t32_tiled",
+                              "t256_tiled"])
+def test_sort_scan_kernel_at_other_shapes(cuda, threads, smem_cap):
+    """Other block shapes, and tiles cut small by a shared-memory cap
+    (rounds tile after tile, selects between tiles): the flags do not
+    move."""
+    for kind, W, C in (("set", 8, 64), ("register", 12, 8),
+                       ("queue", 31, 16), ("counter", 63, 4)):
+        m, ev, ne, P, widest = _sort_group(
+            kind, _sort_histories(kind, W, 6, 300 + W), True, cuda)
+        shape = ls.sort_shape(W, C, threads, smem_cap)
+        assert shape[0] == min(threads, 1024 if W < 32 else 512)
+        ok, of, launch = ls.sort_scan_launcher(ev, W, C, P, ne, model=m,
+                                               shape=shape)
+        launch(torch.cuda.current_stream(cuda))
+        p_ok, p_of = ls.sort_scan_plain(ev, W, C, P, ne, model=m)
+        assert ok.cpu().tolist() == p_ok.cpu().tolist()
+        assert of.cpu().tolist() == p_of.cpu().tolist()
+
+
+def test_sort_scan_refuses_bad_shapes(cuda):
+    """A block that is not whole warps, a tile past 8 a thread, or a
+    hash table smaller than twice what a round can hold is refused at
+    launch and raises; nothing runs in its place."""
+    m, ev, ne, P, W = _sort_group("set", _sort_histories("set", 6, 4, 5),
+                                  True, cuda)
+    threads, tile, tlog, _ = ls.sort_shape(W, 64)
+    for bad in ((48, tile, tlog), (threads, 8 * threads + 1, tlog + 4),
+                (threads, tile, tlog - 1), (2048, tile, tlog)):
+        before = ls.launch_counts()["sort_scan"]
+        ok, of, launch = ls.sort_scan_launcher(ev, W, 64, P, ne, model=m,
+                                               shape=bad)
+        with pytest.raises(RuntimeError):
+            launch(torch.cuda.current_stream(cuda))
+        assert ls.launch_counts()["sort_scan"] == before
+
+
+CHUNK_EDGES = [c for c in SORT_EDGES
+               if c[1] <= 9 or c[0] in ("high_W63_w6_C64",
+                                        "high_W127_w6_C64")]
+
+
+@pytest.mark.parametrize("case", CHUNK_EDGES,
+                         ids=[c[0] for c in CHUNK_EDGES])
+def test_sort_chunk_kernel_edge_cases(cuda, case):
+    """The chunk form on the edge cases, chunks of 1 and 4 rows: flags and
+    the canonical frontier after every launch."""
+    name, W, C, ev, ne, P = case
+    m = CasRegister()
+    ev, ne = torch.from_numpy(ev).to(cuda), torch.from_numpy(ne).to(cuda)
+    init, step = ls.make_sort_chunk_checker(m, C, W, macro_p=P)
+    lay = ls.sort_carry_layout(W, C)
+    for chunk in (1, 4):
+        _chunks_kernel_and_plain(step, init(ne), ev, lay, chunk,
+                                 ls.CHUNK_LAUNCHES, "sort_scan_chunk")
+
+
 @pytest.mark.parametrize("W", [3, 8, 12], ids=lambda w: f"W{w}")
 def test_set_through_dense_and_mask_kernels(cuda, W):
     """The set's device step in dense_scan.cu (few distinct adds) and
@@ -763,7 +838,8 @@ def test_check_histories_set_on_card_matches_cpu(cuda):
     ds.reset_launch_counts()
     ls.reset_launch_counts()
     on_card = check_histories(hs, m)
-    assert ls.launch_counts()["sort_scan"] > 0
+    # the ladder's rungs run the chunked wavefront by default
+    assert ls.chunk_launch_counts()["sort_scan_chunk"] > 0
     on_host = check_histories(hs, m, device="cpu")
     keys = ("valid?", "kernel", "decided-tier", "op-count",
             "concurrency-window")

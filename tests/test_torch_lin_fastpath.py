@@ -5,11 +5,13 @@ gate with its fingerprinted store. tests/conftest.py pins
 JGRAFT_LIN_FASTPATH=0 and JGRAFT_AUTOTUNE=0 for the kernel suites; each
 test here sets what it needs with monkeypatch. Exact equality."""
 
+import json
 import random
 
 import pytest
 import torch
 
+from jepsen_jgroups_raft_tpu.checker import autotune as ref_autotune
 from jepsen_jgroups_raft_tpu.checker.certify_batch import \
     certify_many as ref_certify_many
 from jepsen_jgroups_raft_tpu.checker.linearizable import \
@@ -212,52 +214,101 @@ def test_low_hit_bucket_routes_kernel_first(monkeypatch, tmp_path):
     autotune.reset_for_tests()
 
 
-@pytest.mark.parametrize("certify_s, device_s, certify_first", [
-    (0.010, 0.001, False),   # certifying costs more than a hit saves
-    (0.0001, 0.001, True),   # a hit saves more than certifying costs
-    (0.010, 0.0, True),      # no device wall observed yet
-])
-def test_gate_weighs_certify_wall_against_device_wall(
-        monkeypatch, tmp_path, certify_s, device_s, certify_first):
-    """A bucket whose rows certify often still goes kernel-first when
-    its certify wall per row exceeds hit rate × the device's wall per
-    row; the record reloads from the store with the same answer."""
+# (rows, hits, certify wall per row): rows below MIN_OBS = 8, then hit
+# rates below, at and above the floor of 0.05 with large and small
+# certify walls.
+GATE_RECORDS = [
+    (0, 0, 0.0), (4, 0, 0.010), (7, 7, 0.0001),
+    (100, 0, 0.010), (100, 4, 0.0001), (100, 5, 0.010), (100, 5, 0.0001),
+    (100, 6, 0.010), (100, 90, 0.010), (100, 90, 0.0001),
+    (8, 1, 0.050), (8, 0, 0.0001),
+]
+
+
+def _fresh_gates(monkeypatch, store):
+    monkeypatch.setenv("JGRAFT_AUTOTUNE_STORE", str(store))
+    autotune.reset_for_tests()
+    ref_autotune.reset_for_tests()
+
+
+@pytest.mark.parametrize("rows, hits, certify_s", GATE_RECORDS)
+def test_gate_routes_as_the_reference(monkeypatch, tmp_path, rows, hits,
+                                      certify_s):
+    """The same observations fed to both gates, each with its own store:
+    the port routes as the reference, by hit rate alone, before and
+    after the record reloads from the store."""
     monkeypatch.setenv("JGRAFT_AUTOTUNE", "1")
-    monkeypatch.setenv("JGRAFT_AUTOTUNE_STORE", str(tmp_path))
     monkeypatch.setenv("JGRAFT_LIN_FASTPATH_MIN_OBS", "8")
     monkeypatch.delenv("JGRAFT_LINFP_DIR", raising=False)
-    autotune.reset_for_tests()
+    monkeypatch.delenv("JGRAFT_SERVICE_CLUSTER_DIR", raising=False)
+    routes = []
+    for gate, store in ((autotune, tmp_path / "port"),
+                        (ref_autotune, tmp_path / "ref")):
+        _fresh_gates(monkeypatch, store)
+        sig = gate.lin_fastpath_sig("CasRegister", 200)
+        # two batches, so the record accumulates as a check's would
+        for part, share in ((rows // 2, hits // 2),
+                            (rows - rows // 2, hits - hits // 2)):
+            gate.lin_fastpath_observe(sig, rows=part, hits=share,
+                                      wall_s=part * certify_s)
+        first = gate.lin_fastpath_route(sig)
+        _fresh_gates(monkeypatch, store)
+        routes.append((first, gate.lin_fastpath_route(sig)))
+    _fresh_gates(monkeypatch, tmp_path)
+    assert routes[0] == routes[1]
+    assert routes[0][0] == routes[0][1]
+    assert routes[0][0] is (rows < 8 or hits / rows >= 0.05)
+
+
+def test_record_with_a_device_wall_still_loads(monkeypatch, tmp_path):
+    """A record written with the former `kernel_wall_per_row_s` field
+    loads, and the gate ignores the field."""
+    monkeypatch.setenv("JGRAFT_AUTOTUNE", "1")
+    monkeypatch.setenv("JGRAFT_LIN_FASTPATH_MIN_OBS", "8")
+    monkeypatch.delenv("JGRAFT_LINFP_DIR", raising=False)
+    _fresh_gates(monkeypatch, tmp_path)
     sig = autotune.lin_fastpath_sig("CasRegister", 200)
-    autotune.lin_fastpath_observe(sig, rows=100, hits=90,
-                                  wall_s=100 * certify_s)
-    autotune.lin_fastpath_observe_kernel(sig, rows=10, wall_s=10 * device_s)
-    assert autotune.lin_fastpath_route(sig) is certify_first
+    autotune.lin_fastpath_observe(sig, rows=100, hits=90, wall_s=1.0)
+    [path] = (tmp_path / autotune.host_fingerprint()).glob("linfp-*.json")
+    raw = json.loads(path.read_text())
+    raw["kernel_wall_per_row_s"] = 1e-6
+    path.write_text(json.dumps(raw))
     autotune.reset_for_tests()
-    assert autotune.lin_fastpath_route(sig) is certify_first
+    rec = autotune._linfp_record(sig)
+    assert (rec["rows"], rec["hits"]) == (100, 90)
+    assert "kernel_wall_per_row_s" not in rec
+    assert autotune.lin_fastpath_route(sig) is True
     autotune.reset_for_tests()
 
 
-def test_checks_record_the_device_wall(monkeypatch, tmp_path):
-    """A check at the default knobs records, per bucket, the device's
-    wall per row of the rows it sent to the device; verdicts match the
-    path off."""
+def test_second_check_keeps_the_reference_tiers(monkeypatch, tmp_path):
+    """ROADMAP Queue C's close test: 32 register histories at the default
+    knobs with the gate on (MIN_OBS 8), a fresh store per package, two
+    checks: both checks give the reference's tiers row for row (29
+    backtrack@lin, 3 dense) and its verdicts."""
     monkeypatch.delenv("JGRAFT_LIN_FASTPATH", raising=False)
     monkeypatch.setenv("JGRAFT_AUTOTUNE", "1")
-    monkeypatch.setenv("JGRAFT_AUTOTUNE_STORE", str(tmp_path))
+    monkeypatch.setenv("JGRAFT_LIN_FASTPATH_MIN_OBS", "8")
     monkeypatch.delenv("JGRAFT_LINFP_DIR", raising=False)
-    autotune.reset_for_tests()
-    m = MODELS["cas-register"]()
-    hs = _mixed("register")
-    rs = check_histories(hs, m, device="cpu")
-    sent = [h for h, r in zip(hs, rs) if r["algorithm"] == "torch"]
-    assert sent
-    sig = autotune.lin_fastpath_sig("CasRegister",
-                                    encode_history(sent[0], m).n_events)
-    assert autotune._linfp_record(sig)["kernel_wall_per_row_s"] > 0.0
-    monkeypatch.setenv("JGRAFT_LIN_FASTPATH", "0")
-    assert [r["valid?"] for r in rs] == \
-        [r["valid?"] for r in check_histories(hs, m, device="cpu")]
-    autotune.reset_for_tests()
+    monkeypatch.delenv("JGRAFT_SERVICE_CLUSTER_DIR", raising=False)
+    rng = random.Random(5)
+    hs = [random_valid_history(rng, "register", n_ops=400, n_procs=5,
+                               crash_p=0.1, max_crashes=3)
+          for _ in range(32)]
+    views = {}
+    for name, run in (
+            ("port", lambda: check_histories(
+                hs, MODELS["cas-register"](), device="cpu")),
+            ("ref", lambda: ref_check(hs, REF_MODELS["cas-register"]()))):
+        _fresh_gates(monkeypatch, tmp_path / name)
+        views[name] = [[(r["valid?"], r["decided-tier"]) for r in run()]
+                       for _ in range(2)]
+    _fresh_gates(monkeypatch, tmp_path)
+    assert views["port"] == views["ref"]
+    for view in views["port"]:
+        tiers = [t for _, t in view]
+        assert (tiers.count("backtrack@lin"), tiers.count("dense")) \
+            == (29, 3)
 
 
 def test_shared_gate_dir_seeds_a_fresh_store(monkeypatch, tmp_path):

@@ -32,7 +32,8 @@ from jepsen_jgroups_raft_tpu.models import MODELS as REF_MODELS
 from jepsen_jgroups_raft_tpu.ops import linear_scan as ref_ls
 from jepsen_jgroups_raft_tpu_torch import interop
 from jepsen_jgroups_raft_tpu_torch.history.synth import (burst_history,
-                                                         random_mask_rows)
+                                                         random_mask_rows,
+                                                         sort_edge_cases)
 from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as port_ls
 from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import (bucket_slots,
                                                            sort_scan,
@@ -252,3 +253,130 @@ def test_plain_refuses_shapes_beyond_the_caps():
     for W, C in ((0, 4), (128, 4), (4, 0)):
         with pytest.raises(ValueError):
             sort_scan_plain(ev, W, C, model=_models("set")[0])
+
+
+# ------------------------------------------- what the CUDA kernel relies on
+# The kernel (ops/csrc/sort_scan.cu) keeps its frontier in no order and
+# deduplicates by hashing, so the plain version it is held to must be a
+# function of each round's entries as a set.
+
+
+def _random_entries(rng, K, N, n_parents):
+    masks = rng.integers(0, 4, size=(N, K)).astype(np.uint32)
+    masks[:, K - 1] &= 0x7FFFFFFF
+    masks[rng.random(N) < 0.2] = 0xFFFFFFFF
+    states = rng.choice([-2**31, -1, 0, 1, 2**31 - 1], size=N).astype(np.int32)
+    dup = rng.integers(0, N, size=N // 4)
+    masks[dup[1:]] = masks[dup[:-1]]
+    states[dup[1:]] = states[dup[:-1]]
+    tags = (np.arange(N) >= n_parents).astype(np.int64)
+    return masks.astype(np.int64), states, tags
+
+
+def _dedup(masks, states, tags, C):
+    m, s, count, grew = port_ls._dedup_compact(
+        torch.from_numpy(masks)[None], torch.from_numpy(states)[None],
+        torch.from_numpy(tags)[None], C)
+    return m[0].tolist(), s[0].tolist(), int(count[0]), bool(grew[0])
+
+
+@pytest.mark.parametrize("where", ["below", "at", "above"])
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+def test_dedup_compact_is_a_function_of_the_multiset(K, where):
+    """Permuting the rows of (masks, states, tags) leaves the kept
+    entries, the distinct count and grew unchanged, with C below, at and
+    above the distinct count."""
+    rng = np.random.default_rng(40 + K)
+    N = 48
+    for trial in range(6):
+        masks, states, tags = _random_entries(rng, K, N, 6 + trial)
+        live = masks[:, K - 1] != 0xFFFFFFFF
+        d = len({(tuple(m), int(s)) for m, s, ok in
+                 zip(masks.tolist(), states, live) if ok})
+        C = {"below": max(d - 1, 1), "at": d, "above": min(d + 1, N)}[where]
+        want = _dedup(masks, states, tags, C)
+        assert want[2] == d
+        for _ in range(3):
+            p = rng.permutation(N)
+            assert _dedup(masks[p], states[p], tags[p], C) == want
+
+
+def _frontier_set(carry, lay, K):
+    masks = lay.view(carry, "masks").reshape(carry.shape[0], -1, K)
+    states = lay.view(carry, "states")
+    return [sorted((tuple(m), s) for m, s in zip(mr.tolist(), sr.tolist())
+                   if m[K - 1] != -1)
+            for mr, sr in zip(masks, states)]
+
+
+@pytest.mark.parametrize("kind,W,C", [("register", 8, 8), ("counter", 8, 64),
+                                      ("queue", 12, 8), ("set", 8, 64),
+                                      ("list-append", 5, 8),
+                                      ("register", 31, 4),
+                                      ("set", 12, 16), ("counter", 40, 8)])
+def test_chunk_plain_is_a_function_of_the_frontier_set(kind, W, C):
+    """sort_chunk_plain from a carry whose live frontier entries are
+    permuted gives the same four flags and, as a set, the same frontier,
+    chunk after chunk."""
+    from jepsen_jgroups_raft_tpu_torch.history.packing import \
+        encode_history as port_encode
+    from jepsen_jgroups_raft_tpu_torch.history.packing import \
+        pack_batch as port_pack
+    from jepsen_jgroups_raft_tpu_torch.models import MODELS
+
+    m = MODELS[KINDS.get(kind, kind)]()
+    rng = random.Random(W * 7 + C)
+    vr = {"value_range": 32} if kind == "set" else {}
+    hs = [burst_history(rng, kind, W - j, **vr) for j in range(2)] + \
+        [random_valid_history(rng, kind, n_ops=30, n_procs=min(W, 5),
+                              crash_p=0.3, max_crashes=max(W - 5, 0), **vr)
+         for _ in range(4)]
+    batch = port_pack([port_encode(h, m) for h in hs])
+    ev = torch.from_numpy(batch["events"])
+    ne = torch.from_numpy(batch["n_events"])
+    K, lay = port_ls.mask_words(W), port_ls.sort_carry_layout(W, C)
+    carry = port_ls.sort_chunk_init(ne, W, C, m)
+    prng = np.random.default_rng(W + C)
+    permuted = 0
+    for lo in range(0, int(ev.shape[1]), 6):
+        rows = ev[:, lo:lo + 6].contiguous()
+        out = port_ls.sort_chunk_plain(carry, rows, W, C, model=m, width=6)
+        shuffled = carry.clone()
+        masks = lay.view(shuffled, "masks").reshape(len(hs), C, K)
+        states = lay.view(shuffled, "states")
+        for b in range(len(hs)):
+            n = int((masks[b, :, K - 1] != -1).sum())
+            p = torch.from_numpy(prng.permutation(n))
+            masks[b, :n] = masks[b, p].clone()
+            states[b, :n] = states[b, p].clone()
+            permuted += n > 1
+        lay.view(shuffled, "masks")[:] = masks.reshape(len(hs), C * K)
+        got = port_ls.sort_chunk_plain(shuffled, rows, W, C, model=m,
+                                       width=6)
+        for a, b in zip(out[1:], got[1:]):
+            assert a.tolist() == b.tolist()
+        assert _frontier_set(out[0], lay, K) == _frontier_set(got[0], lay, K)
+        carry = out[0]
+    assert permuted > 0
+
+
+EDGE_CASES = [c for c in sort_edge_cases()
+              if c[1] <= 9 or c[0] == "high_W63_w6_C64"]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_edge_cases_match_reference(case):
+    """The kernel's edge cases on the CPU: candidates that collide on one
+    key, keys that differ only in the state or only in the highest key
+    field, distinct counts of exactly C and C + 1, C from 1 to 512. The
+    plain version equals the reference's sort kernel on both flags."""
+    name, W, C, ev, ne, P = case
+    port_m, ref_m = _models("register")
+    batch = {"events": ev, "macro_p": P}
+    ok, of = _plain(port_m, C, W, batch, ne)
+    r_ok, r_of = _ref(ref_m, C, W, batch)
+    assert ok.tolist() == r_ok.tolist() and of.tolist() == r_of.tolist()
+    kind, w = name.split("_")[0], int(name.split("_w")[1].split("_")[0])
+    distinct = {"illegal": 1, "state": 1 + w * 2 ** (w - 1)}.get(kind,
+                                                                 2 ** w)
+    assert of.tolist() == [distinct > C] * len(ne)
