@@ -147,8 +147,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                (cycle_closure_tiled) against their plain versions, bitwise
                on every bit of the closure and on has_cycle (also against
                the host DFS), at every bucket 4 … 4096: random digraphs,
-               dense DAGs, a long chain, a planted N-cycle, padded rows;
-               the kernel timed alone, the plain version, and at N = 512,
+               dense DAGs, a long chain, a planted N-cycle, padded rows,
+               dense random digraphs (p = 0.5), the complete and the
+               empty digraph, at the launch shape `closure_shape` gives
+               each bucket (the warp form to 128 nodes, the panel form
+               to 512, the tiled form above); the kernel timed, the plain
+               version, and at N = 512,
                1024, 4096 the library yardstick (⌈log₂N⌉ bf16 `torch.bmm`
                squarings, never on a path)
  22. sequential_main — check_histories at consistency="sequential" on
@@ -172,8 +176,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
                through check_histories, measured as set_main: all VALID
                on the sort tier, each rung bitwise against the plain
                ladder
-Then B7 and B8 on the batches the sequential path gave them (kernel
-against plain, bitwise; kernel, plain and library times; the bound).
+Then B7 and B8 on the batches the sequential path gave them (64 / 96
+and 768 / 1024 nodes): kernel against plain, bitwise; the wrapper
+call's, the kernels' device-only, plain and library times; the bound;
+per bucket the shape, ms per launch and per graph, ptxas's registers
+and shared memory of each kernel the launch runs, the closure's
+density and (B8) the share of fold work the kernel skips on this data
+with the LOP3 floor of the work it does: `closure_main_path`.
  26. election_kernel — B9's election-safety kernel against its plain
                version, bitwise, at N = 1, 2, 31, 32, 33, 1024, 4096 and
                65536 (all safe; a second leader planted early, in the
@@ -248,6 +257,10 @@ SUB_PARTITIONS_PER_SM = 4
 #: used for the kernels' 32-bit integer operations.
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+#: 32-bit bitwise operations (LOP3) an SM completes a clock on compute
+#: capability 9.0 (the CUDA C++ Programming Guide's throughput table):
+#: the closure folds' own floor, beside the bound at CORE_OPS_PER_S
+LOP3_PER_CLOCK_PER_SM = 64
 #: the fewest integer operations one mask-mode legality evaluation takes
 #: per mask (ops/csrc/models.cuh): the mask's state, one add off a
 #: neighbouring mask's, then one compare — the counter's `state == a`
@@ -315,6 +328,20 @@ def nvidia_smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def lop3_per_s() -> float:
+    """LOP3s a second of card 0: LOP3_PER_CLOCK_PER_SM x its SMs x its
+    highest SM clock (nvidia-smi's clocks.max.sm)."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return LOP3_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
 def sync(dev) -> None:
@@ -2458,16 +2485,118 @@ def event_ms(fn, reps: int = 3) -> float:
     return min(times)
 
 
+#: GPU clock cycles `torch.cuda._sleep` holds the stream for while the
+#: host enqueues one timed closure launch (~1 ms)
+HOLD_CYCLES = 2_000_000
+
+
+def closure_kernel_ms(bits, N: int, tile=None, reps: int = 5) -> float:
+    """Device time of one closure launch's kernels alone (not the
+    wrapper's allocations, nor the copy B8's wrapper makes to close in
+    place): least over `reps`, after a warm-up, of CUDA events recorded
+    around a call of the C entry point on a stream that
+    `torch.cuda._sleep` keeps busy while the host enqueues event, launch
+    and event, so that the events bracket the kernels and nothing of the
+    host. Each launch starts from a fresh copy of `bits`, made before the
+    events. Reported as `device_ms` beside the wrapper call's `ms`."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops import _build
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import _device_index
+
+    lib = _build.load("cycle_closure")
+    B = int(bits.shape[0])
+    out = torch.empty_like(bits)
+    has = torch.empty((B,), dtype=torch.bool, device=bits.device)
+    dev = _device_index(bits.device)
+    stream = torch.cuda.current_stream(bits.device)
+
+    def launch():
+        if N > 512:
+            return lib.cycle_closure_tiled_launch(
+                out.data_ptr(), has.data_ptr(), B, N, cc._kernel_tile(N, tile),
+                dev, stream.cuda_stream)
+        return lib.cycle_closure_launch(
+            bits.data_ptr(), out.data_ptr(), has.data_ptr(), B, N, dev,
+            stream.cuda_stream)
+
+    times = []
+    for _ in range(reps + 1):
+        out.copy_(bits)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        a.record()
+        rc = launch()
+        b.record()
+        b.synchronize()
+        if rc != 0:
+            raise AssertionError(f"closure launch at N={N} refused: {rc}")
+        times.append(a.elapsed_time(b))
+    return min(times[1:])
+
+
+def fold_work(adj, N: int, tile=None) -> dict:
+    """B8's fold work on one batch adj [B, N, N] (on the card), counted on
+    the plain version's blocked Floyd-Warshall state at the kernel's tile
+    T: per pivot block kb, the row panel's folds read C = D* (the closed
+    diagonal tile) for N/T - 1 tiles, the rest's read C = A[ib, kb] (as
+    it stands before the column panel's fold, a lower bound of what the
+    kernel reads) for N/T tiles each. A unit is one warp's 32 rows times
+    one 32-pivot word of C: 32 x 32 x T/32 LOP3s, skipped when that word
+    is zero in all 32 rows. Returns the share of units skipped and the
+    LOP3s of the units done plus the diagonal tiles' dense closure."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
+
+    B = int(adj.shape[0])
+    t = cc._kernel_tile(N, tile)
+    nt, tw = N // t, t // 32
+    a = (adj != 0).to(torch.float32)
+
+    def live(c):
+        """nonzero (warp, 32-pivot word) units of C [B, R, T]."""
+        return int((c.reshape(B, -1, 32, tw, 32).amax(dim=(2, 4)) > 0).sum())
+
+    def closed(x):
+        return ((x + (torch.bmm(x, x) > 0)) > 0).to(torch.float32)
+
+    done = total = 0
+    for kb in range(nt):
+        o = kb * t
+        d = a[:, o:o + t, o:o + t]
+        for _ in range(max(1, (t - 1).bit_length())):
+            d = closed(d)
+        done += live(d) * (nt - 1)
+        total += B * tw * tw * (nt - 1)
+        row = ((a[:, o:o + t, :] + (torch.bmm(d, a[:, o:o + t, :]) > 0))
+               > 0).to(torch.float32)
+        a[:, o:o + t, :] = row
+        col = a[:, :, o:o + t].clone()
+        rest = torch.cat([col[:, :o], col[:, o + t:]], dim=1)
+        done += live(rest) * nt
+        total += B * (nt - 1) * tw * tw * nt
+        col = ((col + (torch.bmm(col, d) > 0)) > 0).to(torch.float32)
+        a[:, :, o:o + t] = col
+        a = ((a + (torch.bmm(col, row) > 0)) > 0).to(torch.float32)
+    return {"tile": t, "skipped_share": 1 - done / max(1, total),
+            "lop3": done * 32 * 32 * tw + B * nt * t ** 3 // 32}
+
+
 def cycle_graphs(N: int, seed: int):
     """[G, N, N] int32 test graphs of bucket N: a random digraph (1.5
-    edges a node), a dense DAG, a long chain, a planted N-cycle and a
-    zero-padded random graph, nodes shuffled (the first three only above
-    2048 nodes, where the plain version takes seconds). Returns (graphs,
-    kinds)."""
+    edges a node), a dense DAG, a long chain, a planted N-cycle, a
+    zero-padded random graph, a dense random digraph
+    (p = 0.5), the complete and the empty digraph, nodes shuffled (no
+    DAG or padded graph above 2048 nodes, where the plain version takes
+    seconds). Returns (graphs, kinds)."""
     import numpy as np
 
     kinds = (("random", "chain", "cycle") if N > 2048 else
-             ("random", "dag", "chain", "cycle", "padded"))
+             ("random", "dag", "chain", "cycle", "padded")) + \
+        ("dense", "complete", "empty")
     rng = np.random.default_rng(seed)
     out = []
     for kind in kinds:
@@ -2476,6 +2605,10 @@ def cycle_graphs(N: int, seed: int):
             g = (rng.random((n, n)) < 1.5 / n).astype(np.int32)
         elif kind == "dag":
             g = np.triu((rng.random((n, n)) < 0.3).astype(np.int32), 1)
+        elif kind == "dense":
+            g = (rng.random((n, n)) < 0.5).astype(np.int32)
+        elif kind in ("complete", "empty"):
+            g = np.full((n, n), int(kind == "complete"), np.int32)
         else:
             g = np.zeros((n, n), np.int32)
             g[np.arange(n - 1), np.arange(1, n)] = 1
@@ -2515,8 +2648,9 @@ def closure_measure(dev, N: int, adj, tile=None,
                     library: bool = True) -> dict:
     """On one batch adj [B, N, N] (on the card): the kernel against its
     plain version, bitwise on every bit of `closed` and on has_cycle; the
-    kernel's device time alone on packed bits, the plain version's and
-    (with `library`) the library yardstick's (CUDA events), the bound."""
+    wrapper call's time on packed bits, the plain version's and (with
+    `library`) the library yardstick's (CUDA events), the bound, and the
+    closure's density (set bits over B N^2)."""
     import torch
 
     from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
@@ -2537,6 +2671,9 @@ def closure_measure(dev, N: int, adj, tile=None,
     kernel_ms = event_ms(lambda: cc.cycle_closure_bits(bits, N, tile))
     out = {"N": N, "graphs": int(adj.shape[0]), "max_abs_err": err,
            "library_err": 0, "has_cycle": has.cpu().tolist(),
+           "shape": list(cc.closure_shape(N, tile)),
+           "density": float(p_closed.float().mean())
+           if p_closed.numel() else 0.0,
            "kernel_ms": kernel_ms, "plain_ms": plain_ms}
     if library:
         lib = closure_library(adj)
@@ -2549,9 +2686,10 @@ def closure_measure(dev, N: int, adj, tile=None,
 
 def phase_cycle_kernel(dev) -> dict:
     """B7 and B8 against their plain versions on the card at every bucket
-    of CYCLE_BUCKETS, bitwise on every bit of `closed` and on has_cycle,
-    has_cycle also against the host DFS; the kernel timed alone, the
-    plain version and (at CYCLE_LIBRARY_BUCKETS) the library yardstick.
+    of CYCLE_BUCKETS (every form of `closure_shape`), bitwise on every
+    bit of `closed` and on has_cycle, has_cycle also against the host
+    DFS; the kernel timed, the plain version and (at
+    CYCLE_LIBRARY_BUCKETS) the library yardstick.
     Returns the largest disagreement and the library times."""
     import torch
 
@@ -2571,7 +2709,8 @@ def phase_cycle_kernel(dev) -> dict:
              bound_ms=max(m["t_bytes"], m["t_ops"]) * 1e3)
         if m["max_abs_err"] or m["library_err"] or m["has_cycle"] != host \
                 or not m["has_cycle"][kinds.index("cycle")] \
-                or m["has_cycle"][kinds.index("chain")]:
+                or m["has_cycle"][kinds.index("chain")] \
+                or m["has_cycle"][kinds.index("empty")]:
             raise AssertionError(f"cycle_kernel N={N}: the kernel, its "
                                  f"plain version, the yardstick or the host "
                                  f"DFS disagree")
@@ -2892,27 +3031,83 @@ def phase_anomaly_main(dev) -> dict:
     return launches
 
 
+def closure_functions(N: int, shape, tile=None) -> list:
+    """(ptxas entry-function name fragment, dynamic shared memory bytes)
+    of each kernel a closure launch of `shape` runs at bucket N (see
+    ops/csrc/cycle_closure.cu)."""
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
+
+    nw = cc.words_per_row(N)
+    if shape.form == "warp":
+        return [(f"closure_warpILi{nw}E", 0)]
+    if shape.form == "panels":
+        mw = 1 << (nw - 1).bit_length()
+        return [(f"closure_panelsILi{mw}E",
+                 (32 * mw + 32 * nw * (nw | 1)) * 4)]
+    tw = cc._kernel_tile(N, tile) // 32
+    return [(f"close_diagonalILi{tw}E", 0),
+            (f"fold_tilesILi{tw}E", 0)]
+
+
+def closure_resources(N: int, shape, tile=None) -> list:
+    """ptxas's registers, static shared memory, stack and spill bytes of
+    each kernel of a closure launch, with its dynamic shared memory."""
+    from jepsen_jgroups_raft_tpu_torch.ops import _build
+
+    funcs = _build.ptxas_functions("cycle_closure")
+    out = []
+    for frag, dyn in closure_functions(N, shape, tile):
+        hit = [dict(v, function=k) for k, v in funcs.items() if frag in k]
+        if len(hit) != 1:
+            raise AssertionError(f"ptxas report: {len(hit)} functions "
+                                 f"match {frag}")
+        out.append(dict(hit[0], dynamic_smem_bytes=dyn))
+    return out
+
+
 def closure_line(dev, kernel: str, batches: dict, launches: int,
                  err: int) -> dict:
     """A kernels-line entry for a closure kernel from the batches the main
     path gave it (one per bucket): kernel bitwise against its plain
-    version on each, device times summed, bound from these inputs."""
+    version on each; the wrapper calls' event-timed ms summed as `ms`,
+    as every kernel's `ms` is timed, and the kernels' device-only times
+    (`closure_kernel_ms`) as `device_ms`; bound from these inputs. Per
+    bucket also the closure's density, the LOP3 floor of the dense fold
+    (N^3/32 word operations a graph at `lop3_per_s`) and, for B8, the
+    share of fold units skipped on this data and the LOP3 floor of the
+    work done (`fold_work`)."""
     import torch
 
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
     from jepsen_jgroups_raft_tpu_torch.ops.cycle_closure import (
         pack_adjacency, unpack_adjacency)
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_bytes": 0.0,
-             "t_ops": 0.0}
+    rate = lop3_per_s()
+    total = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+             "library_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0}
     per = []
     for N, graphs in sorted(batches.items()):
         adj = torch.from_numpy(unpack_adjacency(
             pack_adjacency(graphs, N), N).astype("int32")).to(dev)
         m = closure_measure(dev, N, adj)
         err = max(err, m["max_abs_err"], m["library_err"])
-        per.append({k: m[k] for k in ("N", "graphs", "kernel_ms",
-                                      "plain_ms", "library_ms")})
+        shape = cc.closure_shape(N)
+        dev_ms = closure_kernel_ms(cc.pack_bits(adj), N)
+        B = m["graphs"]
+        row = {**{k: m[k] for k in ("N", "graphs", "plain_ms", "library_ms",
+                                    "density")},
+               "ms": m["kernel_ms"], "device_ms": dev_ms,
+               "shape": list(shape),
+               "device_us_per_graph": dev_ms * 1e3 / max(1, B),
+               "dense_lop3_floor_ms": B * N ** 3 / 32 / rate * 1e3,
+               "kernels": closure_resources(N, shape)}
+        if shape.form == "tiled":
+            work = fold_work(adj, N)
+            row.update(fold_skipped_share=work["skipped_share"],
+                       lop3_floor_ms=work["lop3"] / rate * 1e3)
+        per.append(row)
         total["ms"] += m["kernel_ms"]
+        total["device_ms"] += dev_ms
         total["plain_ms"] += m["plain_ms"]
         total["library_ms"] += m["library_ms"]
         total["t_bytes"] += m["t_bytes"]
@@ -2920,7 +3115,7 @@ def closure_line(dev, kernel: str, batches: dict, launches: int,
         del adj
         torch.cuda.empty_cache()
     emit("closure_main_path", kernel=kernel, batches=per, **total,
-         max_abs_err=err)
+         lop3_per_s=rate, max_abs_err=err)
     if err:
         raise AssertionError(f"{kernel}: disagrees with its plain version "
                              f"on the main path's batches")
@@ -3323,7 +3518,8 @@ def main() -> int:
     libs = [*path_libs, "mask_scan_profile"]
     build_s = _build.build(libs)
     ptxas = {k: _build.ptxas_report(k) for k in libs}
-    emit("build", seconds=build_s, kernels=libs, ptxas=ptxas)
+    emit("build", seconds=build_s, kernels=libs, ptxas=ptxas,
+         cycle_closure_functions=_build.ptxas_functions("cycle_closure"))
     for k, rep in ptxas.items():
         if rep["functions"] == 0:
             raise AssertionError(f"no ptxas report for {k}")
@@ -3563,6 +3759,7 @@ def main() -> int:
             "bound_by": "bytes" if x["t_bytes"] >= x["t_ops"]
             else "operations",
             "library_ms": x.get("library_ms"),
+            "device_ms": x.get("device_ms"),
             "registers": rep["max_registers"],
             "spill_bytes": rep["spill_store_bytes"] +
             rep["spill_load_bytes"]})

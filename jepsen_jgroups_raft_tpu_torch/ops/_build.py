@@ -229,6 +229,27 @@ _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 
 
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+
+
+def ptxas_functions(name: str) -> Dict[str, dict]:
+    """ptxas -v's report for each entry function of library `name`
+    (mangled name → registers, static shared memory, stack and spill
+    bytes)."""
+    out: Dict[str, dict] = {}
+    parts = _PTXAS_ENTRY.split(build_log(name))
+    for fn, text in zip(parts[1::2], parts[2::2]):
+        frame = _PTXAS_FRAME.search(text)
+        regs = _PTXAS_REGS.search(text)
+        smem = _PTXAS_SMEM.search(text)
+        out[fn] = {"registers": int(regs.group(1)) if regs else 0,
+                   "static_smem_bytes": int(smem.group(1)) if smem else 0,
+                   "stack_bytes": int(frame.group(1)) if frame else 0,
+                   "spill_bytes": (int(frame.group(2)) + int(frame.group(3))
+                                   if frame else 0)}
+    return out
+
+
 def ptxas_report(name: str) -> dict:
     """Sum of ptxas -v's per-function report for library `name`: the
     functions compiled, the most registers, static shared memory and

@@ -24,18 +24,22 @@ This module holds:
     `unpack_bits` on tensors, `pack_adjacency` / `unpack_adjacency` for
     numpy on the host.
   * `cycle_closure_bits`, the wrapper of the hand-written CUDA kernels
-    (ops/csrc/cycle_closure.cu): B7 (``cycle_closure``, one CTA per graph
-    with the whole bit matrix in shared memory, bit-Warshall) for
+    (ops/csrc/cycle_closure.cu): B7 (``cycle_closure``) for
     N ≤ CYCLE_MAX_NODES, B8 (``cycle_closure_tiled``, blocked
     Floyd–Warshall over T×T bit tiles in global memory) above, up to
     CYCLE_MAX_NODES_TILED; and `cycle_closure`, the same on unpacked
     matrices. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel or raises.
+  * `closure_shape`, the launch shape the kernels take at a bucket:
+    B7's form — ``warp`` (one warp per graph, the matrix in registers,
+    N ≤ WARP_MAX_NODES) or ``panels`` (one CTA per graph, blocked
+    Warshall over 32-pivot panels in shared memory) — or B8's
+    (``tiled``), and its warps a block.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,8 +55,15 @@ from .kernel_ir import (CYCLE_MAX_NODES, CYCLE_MAX_NODES_TILED, CYCLE_TILE,
 #: bucket above CYCLE_MAX_NODES is a multiple of 256, which each divides.
 KERNEL_TILES = (32, 64, 128, 256)
 
+#: B7's warp form holds a graph's matrix in one warp's registers up to
+#: this many nodes (⌈N/32⌉² ≤ 16 words a lane).
+WARP_MAX_NODES = 128
+
+#: Graphs (one a warp) a block of the warp form holds.
+WARP_GRAPHS_PER_BLOCK = 4
+
 #: Launch counts of the wrapper: one is added per call that launches a
-#: kernel on the card (B8's call is 2·N/T + 1 CUDA launches), and nowhere
+#: kernel on the card (B8's call is 3·N/T + 1 CUDA launches), and nowhere
 #: else.
 LAUNCHES = {"cycle_closure": 0, "cycle_closure_tiled": 0}
 
@@ -193,6 +204,34 @@ def _kernel_tile(n: int, tile: Optional[int]) -> int:
     return min(max(t, KERNEL_TILES[0]), KERNEL_TILES[-1])
 
 
+class ClosureShape(NamedTuple):
+    """A closure launch's shape: `form` ("warp", "panels" or "tiled") and
+    `warps` a block."""
+    form: str
+    warps: int
+
+
+def closure_shape(n_nodes: int, tile: Optional[int] = None) -> ClosureShape:
+    """The launch shape the kernels take at bucket N, from N alone (and,
+    for B8, the effective tile T of `tile` as `cycle_closure_bits` reads
+    it): the warp form with WARP_GRAPHS_PER_BLOCK graphs a block up to
+    WARP_MAX_NODES, the panel form (one thread a row, ⌈N/32⌉ warps) up to
+    CYCLE_MAX_NODES, B8 (one thread a tile row, T / 32 warps) above.
+    ValueError beyond 1..CYCLE_MAX_NODES_TILED. Plain Python: runs
+    without a card. PERF.md records the sweep of other shapes (warps a
+    block, the panel form at N ≤ 128, 2 and 4 tile rows a thread) that
+    chose these."""
+    n = int(n_nodes)
+    if not 1 <= n <= CYCLE_MAX_NODES_TILED:
+        raise ValueError(f"cycle_closure: N={n} beyond "
+                         f"1..{CYCLE_MAX_NODES_TILED}")
+    if n <= WARP_MAX_NODES:
+        return ClosureShape("warp", WARP_GRAPHS_PER_BLOCK)
+    if n <= CYCLE_MAX_NODES:
+        return ClosureShape("panels", words_per_row(n))
+    return ClosureShape("tiled", _kernel_tile(n, tile) // 32)
+
+
 def cycle_closure_bits(bits, n_nodes: int, tile: Optional[int] = None,
                        want_closed: bool = True):
     """The closure over bit rows: bits [B, N, ⌈N/32⌉] int32 (see
@@ -201,7 +240,8 @@ def cycle_closure_bits(bits, n_nodes: int, tile: Optional[int] = None,
     to CYCLE_MAX_NODES_TILED B8 at `tile` (default CYCLE_TILE, made a
     divisor of N by `cycle_closure_tile`). A CPU tensor takes the plain
     version; a CUDA tensor launches the hand-written kernel on the
-    current stream without synchronising, or raises."""
+    current stream without synchronising (at `closure_shape`), or
+    raises."""
     n = int(n_nodes)
     if not 1 <= n <= CYCLE_MAX_NODES_TILED:
         raise ValueError(f"cycle_closure: N={n} beyond "

@@ -10,6 +10,19 @@ T = 128. The bit layout (`pack_bits`, `pack_adjacency`) and the
 dispatcher's CPU routing are checked too. The CUDA kernels are held to
 these plain versions on the card (tests/test_torch_kernels_gpu.py,
 chip_smoke.py `cycle_kernel`).
+
+The kernels' schedules (ops/csrc/cycle_closure.cu) are modelled here in
+numpy over packed bits and held to the reference on more kinds (a dense
+random digraph, the complete and the empty one): B7's warp form (one
+row a lane, pivot rows broadcast), its panel form (`panel_warshall`:
+32-pivot panels, the diagonal block closed by shuffles, the panel rows
+through it, then every other row's broadcast fold), and B8's blocked
+schedule (the panel routine on the diagonal tile, then the
+dense broadcast fold on the row panel and on the rest: one tile row a
+thread, 32-pivot words skipped when zero across a warp), with the last
+launch's reads of C taken either before any of its writes or after the
+column panel's. `closure_shape`'s
+defaults and refusals are checked without a card.
 """
 
 import numpy as np
@@ -26,6 +39,11 @@ torch.set_num_threads(1)
 BUCKETS = (4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
 
 
+#: graph kinds beside the five above: a dense random digraph (p = 0.5),
+#: the complete digraph and the empty one
+NEW_KINDS = ("dense", "complete", "empty")
+
+
 def graphs(N: int, seed: int, kinds=("random", "dag", "chain", "cycle",
                                      "padded")) -> np.ndarray:
     """[len(kinds), N, N] int32 0/1 graphs of bucket N (nodes shuffled)."""
@@ -37,6 +55,10 @@ def graphs(N: int, seed: int, kinds=("random", "dag", "chain", "cycle",
             g = (rng.random((n, n)) < 1.5 / n).astype(np.int32)
         elif kind == "dag":
             g = np.triu((rng.random((n, n)) < 0.3).astype(np.int32), 1)
+        elif kind == "dense":
+            g = (rng.random((n, n)) < 0.5).astype(np.int32)
+        elif kind in ("complete", "empty"):
+            g = np.full((n, n), int(kind == "complete"), np.int32)
         else:
             g = np.zeros((n, n), np.int32)
             g[np.arange(n - 1), np.arange(1, n)] = 1
@@ -148,3 +170,185 @@ def test_dispatcher_refuses_beyond_the_tiled_cap():
     with pytest.raises(ValueError):
         cc.cycle_closure_bits(torch.zeros((1, 4097, 129), dtype=torch.int32),
                               4097)
+
+
+# ------------------------------------------- the kernels' schedules in numpy
+
+_K = np.arange(32, dtype=np.uint32)
+
+
+def _words(adj: np.ndarray) -> np.ndarray:
+    """[B, N, N] 0/1 → [B, N, ⌈N/32⌉] uint32 bit rows."""
+    N = adj.shape[-1]
+    return cc.pack_adjacency(list(adj), N).view(np.uint32).copy()
+
+
+def _unwords(M: np.ndarray, N: int) -> np.ndarray:
+    return cc.unpack_adjacency(M.view(np.int32), N)
+
+
+def _fold(c: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """The dense broadcast fold of one 32-pivot word: for each row, the OR
+    of rows[k] & -(bit k of c). c [B, R] uint32, rows [B, 32, m] →
+    [B, R, m]."""
+    bits = ((c[..., None] >> _K) & 1).astype(bool)          # [B, R, 32]
+    sel = np.where(bits[..., None], rows[:, None], np.uint32(0))
+    return np.bitwise_or.reduce(sel, axis=2)
+
+
+def warp_form(M: np.ndarray, N: int) -> np.ndarray:
+    """B7's warp form: every row in registers, for pivot k row k
+    broadcast (its value at step k) and ORed into each row whose bit k
+    is set, all rows in lockstep."""
+    M = M.copy()
+    for k in range(N):
+        bit = ((M[:, :, k >> 5] >> np.uint32(k & 31)) & 1).astype(bool)
+        M |= np.where(bit[..., None], M[:, k:k + 1], np.uint32(0))
+    return M
+
+
+def panel_warshall(M: np.ndarray, npanels: int, m: int) -> np.ndarray:
+    """`panel_warshall`: rows of M [B, R, ≥ m] are the threads, pivot k
+    is row k with its bit in word k >> 5. Per panel p: close the 32 × 32
+    diagonal block by shuffles (lockstep Warshall on word p); the panel's
+    rows take their paths through it (each of their first m words, in
+    lockstep, masked by the closed block); then every other row ORs in
+    the panel rows its word p selects."""
+    M = M.copy()
+    R = M.shape[1]
+    for p in range(npanels):
+        sl = slice(32 * p, 32 * p + 32)
+        d = M[:, sl, p].copy()
+        for k in range(32):
+            bit = ((d >> np.uint32(k)) & 1).astype(bool)
+            d |= np.where(bit, d[:, k:k + 1], np.uint32(0))
+        P = M[:, sl, :m].copy()
+        for k in range(32):
+            bit = ((d >> np.uint32(k)) & 1).astype(bool)
+            P |= np.where(bit[..., None], P[:, k:k + 1], np.uint32(0))
+        M[:, sl, :m] = P
+        others = np.r_[0:32 * p, 32 * p + 32:R]
+        M[:, others, :m] |= _fold(M[:, others, p], P)
+    return M
+
+
+def panel_form(M: np.ndarray, N: int) -> np.ndarray:
+    """B7's panel form: the matrix padded to 32·NW rows, one thread a
+    row, `panel_warshall` over every pivot."""
+    B, _, nw = M.shape
+    pad = np.zeros((B, 32 * nw, nw), np.uint32)
+    pad[:, :N] = M
+    return panel_warshall(pad, nw, nw)[:, :N]
+
+
+def tiled_form(M: np.ndarray, N: int, T: int,
+               c_after_diag: bool) -> np.ndarray:
+    """B8: per pivot block kb, `close_diagonal` (the panel routine on the
+    diagonal tile), the row panel's `fold_tiles` (tile (kb, jb) ORs in
+    D*·P, P as staged before the write), then the rest's (tile (ib, jb),
+    ib ≠ kb, ORs in C·R with one tile row a thread: a 32-pivot word zero
+    in a warp's 32 rows is skipped, as is a tile whose C is zero). C is read before any fold of
+    the launch writes it or, with `c_after_diag`, after the column
+    panel's tile (jb = kb) was folded."""
+    M = M.copy()
+    TW, nt = T // 32, N // T
+    warp_rows = [np.arange(32 * w, 32 * w + 32) for w in range(TW)]
+
+    def fold(C, R, acc):
+        """`fold_tiles` on one row block: acc |= C·R, C [B, T, TW]."""
+        acc = acc.copy()
+        tile_live = C.any(axis=(1, 2))
+        for wk in range(TW):
+            c = C[:, :, wk]
+            add = _fold(c, R[:, wk * 32:wk * 32 + 32])
+            for wr in warp_rows:
+                live = tile_live & c[:, wr].any(axis=1)
+                acc[:, wr] |= np.where(live[:, None, None], add[:, wr],
+                                       np.uint32(0))
+        return acc
+
+    for kb in range(nt):
+        o, ow = kb * T, kb * TW
+        dcols = slice(ow, ow + TW)
+        M[:, o:o + T, dcols] = panel_warshall(M[:, o:o + T, dcols], TW, TW)
+        rest = np.r_[0:ow, ow + TW:N // 32]
+        if len(rest):
+            P = M[:, o:o + T, rest]
+            M[:, o:o + T, rest] = fold(M[:, o:o + T, dcols], P, P)
+        A1 = M.copy()
+        Rk = A1[:, o:o + T]                            # new pivot rows
+        for ib in range(nt):
+            if ib == kb:
+                continue
+            io = ib * T
+            C0 = A1[:, io:io + T, dcols]
+            new_col = fold(C0, Rk[:, :, dcols], C0)
+            C = new_col if c_after_diag else C0
+            if len(rest):
+                M[:, io:io + T, rest] = fold(C, Rk[:, :, rest],
+                                             A1[:, io:io + T, rest])
+            M[:, io:io + T, dcols] = new_col
+    return M
+
+
+def _ref_mono(adj):
+    return np.asarray(ref_ir.make_cycle_closure(adj.shape[-1])(adj)[1])
+
+
+@pytest.mark.parametrize("N", BUCKETS)
+def test_b7_schedules_match_reference(N):
+    """The panel form at every bucket (and the warp form up to 128 nodes)
+    against the reference's `make_cycle_closure`, on the earlier kinds and
+    the dense, complete and empty digraphs."""
+    base = (("random", "chain", "cycle") if N >= 384 else
+            ("random", "dag", "chain", "cycle", "padded"))
+    adj = graphs(N, 11 * N, base + NEW_KINDS)
+    want = _ref_mono(adj)
+    M = _words(adj)
+    forms = [panel_form] + ([warp_form] if N <= cc.WARP_MAX_NODES else [])
+    for form in forms:
+        got = _unwords(form(M, N), N)
+        assert np.array_equal(got, want), form.__name__
+
+
+@pytest.mark.parametrize("N,T", [(N, T) for N in (768, 1024)
+                                 for T in cc.KERNEL_TILES])
+def test_b8_schedule_matches_reference(N, T):
+    """B8's schedule at every tile and both read orders against the
+    reference's `make_cycle_closure_tiled` at T."""
+    adj = graphs(N, 13 * N + T, ("random", "chain", "cycle") + NEW_KINDS)
+    r_has, r_closed = (np.asarray(x) for x in
+                       ref_ir.make_cycle_closure_tiled(N, T)(adj))
+    M = _words(adj)
+    for after in (False, True):
+        got = _unwords(tiled_form(M, N, T, after), N)
+        assert np.array_equal(got, r_closed), after
+        has = got[:, np.arange(N), np.arange(N)].any(axis=1)
+        assert has.tolist() == r_has.tolist()
+
+
+@pytest.mark.parametrize("N,want", [
+    (4, ("warp", 4)), (64, ("warp", 4)), (96, ("warp", 4)),
+    (128, ("warp", 4)), (192, ("panels", 6)), (256, ("panels", 8)),
+    (384, ("panels", 12)), (512, ("panels", 16)), (768, ("tiled", 8)),
+    (1024, ("tiled", 8)), (1536, ("tiled", 8)), (4096, ("tiled", 8)),
+])
+def test_closure_shape_defaults(N, want):
+    assert tuple(cc.closure_shape(N)) == want
+
+
+@pytest.mark.parametrize("N,T,want", [(768, 32, ("tiled", 1)),
+                                      (1024, 64, ("tiled", 2)),
+                                      (1024, 128, ("tiled", 4)),
+                                      (2048, 4096, ("tiled", 8)),
+                                      (96, 32, ("warp", 4))])
+def test_closure_shape_follows_the_tile(N, T, want):
+    assert tuple(cc.closure_shape(N, T)) == want
+    if N > 512:
+        assert want[1] == cc._kernel_tile(N, T) // 32
+
+
+@pytest.mark.parametrize("N", (0, -1, 4097, 8192))
+def test_closure_shape_refusals(N):
+    with pytest.raises(ValueError):
+        cc.closure_shape(N)

@@ -958,12 +958,20 @@ CYCLE_BUCKETS = (4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384,
                  512, 768, 1024, 1536, 2048, 3072, 4096)
 
 
+#: graph kinds the closure kernels are held to their plain versions on:
+#: the first five, then a dense random digraph (p = 0.5), the
+#: complete digraph and the empty one
+CYCLE_KINDS = ("random", "dag", "chain", "cycle", "padded", "dense",
+               "complete", "empty")
+
+
 def _cycle_graphs(N, seed):
-    """Random digraphs, a dense DAG, a long chain, a planted N-cycle and
-    zero-padded rows, nodes shuffled: [G, N, N] int32 (three graphs above
-    2048 nodes, where the plain version is slow)."""
-    kinds = (("random", "chain", "cycle") if N > 2048 else
-             ("random", "dag", "chain", "cycle", "padded"))
+    """Random digraphs, a dense DAG, a long chain, a planted N-cycle,
+    zero-padded rows, a dense random digraph, the complete and the empty
+    digraph, nodes shuffled: [G, N, N] int32 (no DAG or padded graph
+    above 2048 nodes, where the plain version is slow)."""
+    kinds = tuple(k for k in CYCLE_KINDS
+                  if N <= 2048 or k not in ("dag", "padded"))
     rng = np.random.default_rng(seed)
     out = []
     for kind in kinds:
@@ -972,6 +980,10 @@ def _cycle_graphs(N, seed):
             g = (rng.random((n, n)) < 1.5 / n).astype(np.int32)
         elif kind == "dag":
             g = np.triu((rng.random((n, n)) < 0.3).astype(np.int32), 1)
+        elif kind == "dense":
+            g = (rng.random((n, n)) < 0.5).astype(np.int32)
+        elif kind in ("complete", "empty"):
+            g = np.full((n, n), int(kind == "complete"), np.int32)
         else:
             g = np.zeros((n, n), np.int32)
             g[np.arange(n - 1), np.arange(1, n)] = 1
@@ -1003,8 +1015,57 @@ def test_cycle_closure_kernel_every_bucket(cuda, N):
     adj, kinds = _cycle_graphs(N, N)
     has = _closure_kernel_and_plain(torch.from_numpy(adj).to(cuda), N)
     assert has[kinds.index("cycle")] and not has[kinds.index("chain")]
+    assert not has[kinds.index("empty")]
+    assert bool(has[kinds.index("complete")]) == (N > 1)
     flags = [cycle.host_has_cycle(g) for g in adj]
     assert has.tolist() == flags
+
+
+#: (N, tile) reaching every form `closure_shape` gives: the warp form at
+#: 64 … 128 nodes, the panel form at 256 and 512, the tiled form at every
+#: kernel tile at 768 and 1024
+EVERY_FORM = [(N, None) for N in (64, 96, 128, 256, 512)] + \
+    [(N, T) for N in (768, 1024) for T in cc.KERNEL_TILES]
+
+
+@pytest.mark.parametrize("N,T", EVERY_FORM, ids=str)
+def test_cycle_closure_every_form(cuda, N, T):
+    """Every form of `closure_shape` against the plain version, bitwise,
+    on every kind of graph (more graphs than a block of the warp form
+    holds, so blocks fill and a last one is partial)."""
+    adj, kinds = _cycle_graphs(N, 5 * N + (T or 0))
+    adj = np.concatenate([adj] * 3)[:2 * len(kinds) + 1]
+    has = _closure_kernel_and_plain(torch.from_numpy(adj).to(cuda), N, T)
+    assert has.tolist() == [cycle.host_has_cycle(g) for g in adj]
+
+
+@pytest.mark.parametrize("entry,args,code", [
+    ("cycle_closure_launch", (70000, 96), -1),       # batch beyond 65535
+    ("cycle_closure_launch", (2, 0), -2),            # N beyond 1..512
+    ("cycle_closure_launch", (2, 768), -2),
+    ("cycle_closure_tiled_launch", (2, 512, 256), -3),   # N ≤ 512
+    ("cycle_closure_tiled_launch", (2, 4352, 256), -3),  # N > 4096
+    ("cycle_closure_tiled_launch", (2, 768, 512), -4),   # tile beyond 256
+    ("cycle_closure_tiled_launch", (2, 1024, 48), -4),   # tile not a kernel's
+    ("cycle_closure_tiled_launch", (2, 1536, 1024), -4),
+], ids=str)
+def test_cycle_closure_refused_shape_raises(cuda, entry, args, code):
+    """A launch the entry points refuse returns its code, with its
+    message, and launches nothing."""
+    lib = _build.load("cycle_closure")
+    buf = torch.zeros((4 << 20,), dtype=torch.int32, device=cuda)
+    has = torch.zeros((70000,), dtype=torch.bool, device=cuda)
+    before = buf.clone()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    ptrs = ((buf.data_ptr(), buf.data_ptr(), has.data_ptr())
+            if entry == "cycle_closure_launch"
+            else (buf.data_ptr(), has.data_ptr()))
+    rc = getattr(lib, entry)(*ptrs, *args, cuda.index or 0, stream)
+    torch.cuda.synchronize()
+    assert rc == code
+    word = {-1: "batch", -2: "monolithic", -3: "blocked", -4: "tile"}[code]
+    assert word in _build.error_string("cycle_closure", rc)
+    assert torch.equal(buf, before) and not bool(has.any())
 
 
 @pytest.mark.parametrize("N,T", [(768, 128), (1024, 32), (1024, 64),
