@@ -5,14 +5,24 @@ Usage (from the root of a checkout, on a machine with a CUDA card, nvcc
 and PyTorch built for CUDA):
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only segment,election   # one kernel's phase
+
+With `--only`, only the named phases run, each after building just the
+libraries it needs: `segment` measures B6 on config 5 as long_main does
+(wrapper and device-only ms, bitwise against the plain version, the
+tables composed to VALID, the bound, the launch shape and the
+instrumented build's profile); `election` runs phase 26. They end with
+the card's `nvidia-smi` line and {"ok": true, "only": [...], ...}, and
+print no kernels line. With no arguments every phase runs:
 
 Phases, each printing JSON lines; any failure exits non-zero:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
                mask_scan, sort_scan — each with its chunk entry point,
                segment_scan, cycle_closure: B7 and B8, election_safety)
-               and the instrumented
-               mask_scan_profile from this checkout's sources into
+               and the instrumented builds mask_scan_profile and
+               segment_scan_profile (never on a main path) from this
+               checkout's sources into
                build/torch_kernels/, one nvcc per library, started
                together; ptxas's report for each; the paths' kernels must
                show no spill bytes and no stack frame
@@ -133,7 +143,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                card's default) config 5 must take the segmented scan and
                config 4 the monolithic one; for config 5, segment_scan alone
                against its plain version on the path's own tensors
-               (bitwise) and the bound
+               (bitwise) and the bound; the wrapper call's ms and the
+               kernel's device-only ms, its launch shape
+               (`segment_shape`), and the instrumented build
+               (`segment_scan_profile`, bitwise): SM cycles by
+               phase, closures, sweeps and slot images, registers,
+               resident warps an SM, waves and the chain floor
  18. long_invalid — config 5 with one late read moved outside the
                domain: INVALID on both arms and on the plain version
  19. wide_auto — the first 16 of the 10-process counter histories
@@ -184,12 +199,16 @@ and shared memory of each kernel the launch runs, the closure's
 density and (B8) the share of fold work the kernel skips on this data
 with the LOP3 floor of the work it does: `closure_main_path`.
  26. election_kernel — B9's election-safety kernel against its plain
-               version, bitwise, at N = 1, 2, 31, 32, 33, 1024, 4096 and
-               65536 (all safe; a second leader planted early, in the
-               middle and last; one observation repeated; a padded tail;
-               negative terms), also cut by a valid_len; timed alone at
-               512 runs × 4096 pooled observations beside the plain
-               version and the bound; and on the pooled observations of
+               version, bitwise, at N = 1, 2, 31, 32, 33, 1024, 4096,
+               8192, 8193 and 65536 (all safe; a second leader planted
+               early, in the middle and last; one observation repeated; a
+               padded tail; negative terms), also cut by a valid_len, in
+               `election_form(N)`'s form and, where that is the shared
+               one, in the global form too; timed at 512 runs × 4096
+               pooled observations (the wrapper call, and each form's
+               kernels alone) beside the plain version and the bound,
+               and at 16 × 65536 (the global form); and on the pooled
+               observations of
                16 election runs written to a store (8 with a planted
                second leader), held to `check_election_safety_np`
  27. recorded_main — BASELINE config 3 from a store: the 512-key
@@ -330,18 +349,22 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock_hz() -> float:
+    """Card 0's highest SM clock in Hz (nvidia-smi's clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def lop3_per_s() -> float:
     """LOP3s a second of card 0: LOP3_PER_CLOCK_PER_SM x its SMs x its
     highest SM clock (nvidia-smi's clocks.max.sm)."""
     import torch
 
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60,
-                         check=True)
-    mhz = float(out.stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return LOP3_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    return LOP3_PER_CLOCK_PER_SM * sms * sm_clock_hz()
 
 
 def sync(dev) -> None:
@@ -2030,6 +2053,71 @@ def phase_segment_kernel(dev):
     return runs, live, err
 
 
+def segment_profile(dev, batch, model, F) -> dict:
+    """B6's instrumented build (`segment_scan_profile`, never on a main
+    path) on a segment batch: SM cycles by phase summed over the launch's
+    warps and their shares, closures a live warp, sweeps and slot images
+    a closure; the launch's residency (the instantiation's registers,
+    local bytes, threads and dynamic shared bytes a block, blocks and
+    warps an SM can hold and the warps its busiest SM holds, the SMs
+    used, the waves); and the chain floor: the longest warp's rows × the
+    fewest cycles a row of any live warp (its own phases, not the wait
+    for the CTA's others), at the card's highest SM clock — what one
+    warp's serial chain of events costs at the least, beside the bound
+    that treats the runs' operations as independent. Its tables must
+    equal F, the kernel's, bit for bit."""
+    import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops.segment_scan import (
+        SEGMENT_PROFILE_FIELDS, segment_attributes, segment_scan_profile)
+
+    ev, vo, sm, st, ne = batch.tensors(dev)
+    Fp, prof = segment_scan_profile(ev, vo, sm, st, batch.W, ne, model)
+    sync(dev)
+    if not torch.equal(Fp, F):
+        raise AssertionError("segment_profile: the instrumented build's "
+                             "tables differ from the kernel's")
+    p = prof.cpu().numpy().astype(np.float64)
+    col = {k: i for i, k in enumerate(SEGMENT_PROFILE_FIELDS)}
+    phases = ("stage", "latch", "closure", "force", "tail")
+    # a warp's own chain: every phase but the wait for the CTA's others
+    cyc = sum(p[:, col[f"{x}_cycles"]] for x in phases[:-1])
+    rows = p[:, col["rows"]]
+    live = rows > 0
+    total = {k: float(p[:, i].sum()) for k, i in col.items()}
+    all_cycles = sum(total[f"{x}_cycles"] for x in phases)
+    cpr = cyc[live] / rows[live]
+    clock = sm_clock_hz()
+    K, NB = int(sm.shape[0]), int(sm.shape[1])
+    att = segment_attributes(batch.W, batch.S, K, NB, int(ev.shape[1]))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_wave = max(att["blocks_per_sm"], 1) * sms
+    longest = float(rows.max()) if live.any() else 0.0
+    warps = att["threads"] // 32
+    return {
+        "runs": K * NB, "warps": len(p), "live_warps": int(live.sum()),
+        **total,
+        "share": {x: total[f"{x}_cycles"] / max(all_cycles, 1.0)
+                  for x in phases},
+        "closures_per_live_warp": total["closures"] / max(live.sum(), 1),
+        "sweeps_per_closure": total["sweeps"] / max(total["closures"], 1),
+        "images_per_closure": total["images"] / max(total["closures"], 1),
+        "cycles_per_row_min": float(cpr.min()) if live.any() else None,
+        "cycles_per_row_median": float(np.median(cpr))
+        if live.any() else None,
+        "cycles_per_row_all": all_cycles / max(total["rows"], 1.0),
+        "longest_run_rows": longest, "sm_clock_hz": clock,
+        "chain_floor_ms": (longest * float(cpr.min()) / clock * 1e3
+                           if live.any() else 0.0),
+        "attributes": att,
+        "warps_per_sm_limit": att["blocks_per_sm"] * warps,
+        "warps_per_sm_used": min(att["blocks_per_sm"],
+                                 -(-att["blocks"] // sms)) * warps,
+        "sms_used": min(sms, att["blocks"]),
+        "waves": -(-att["blocks"] // per_wave)}
+
+
 def long_histories(name: str):
     """Suite config 4 or 5 (LONG_CONFIGS), seeded from SEED. Returns
     (histories, seconds)."""
@@ -2128,6 +2216,75 @@ def run_long_arm(dev, model, hs, arm: str) -> dict:
             "segments": [r.get("segments") for r in rs]}
 
 
+def segment_kernel_timed(dev, batch, model) -> tuple:
+    """segment_scan on a segment batch's own tensors (config 5's in
+    long_main): the wrapper call (CUDA events, best of 3) against its
+    plain version (bitwise on every table bit, with the work it did), the
+    tables composed to VALID, the bound; the kernel's device-only ms
+    (its C entry point on a held stream), its launch shape, and the
+    instrumented build's profile, residency and chain floor. Returns the
+    fields for long_main's line and the kernels-line numbers (launches
+    left to the caller)."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss
+
+    ev, vo, sm, st, ne = batch.tensors(dev)
+    times = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        F = ss.segment_scan(ev, vo, sm, st, batch.W, ne, model)
+        b.record()
+        sync(dev)
+        times.append(a.elapsed_time(b))
+    g: dict = {}
+    sync(dev)
+    t0 = time.perf_counter()
+    plain = ss.segment_scan_plain(ev, vo, sm, st, batch.W, ne, model,
+                                  stats=g)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((F.int() - plain.int()).abs().max())
+    if err:
+        raise AssertionError("segment_scan disagrees with its plain "
+                             "version on the batch")
+    verdict = ss.compose_segment_tables(batch, F.cpu().numpy())
+    if not verdict or not all(r["valid"] for r in verdict):
+        raise AssertionError("segment_scan: composed tables not VALID")
+    # bound: the segments' real rows (5 int32 each), n_events, val_of and
+    # the seeds read once, the packed tables written once; operations as
+    # the plain version counted them over the runs still alive (a closure
+    # pass: one per word of the M·S/2 source bits per state plane; a
+    # FORCE, one per frontier word; a latch, S² compares)
+    M, S = 1 << batch.W, batch.S
+    K, NB = int(ev.shape[0]), int(sm.shape[1])
+    words = ss.segment_words(batch.W, (S - 1).bit_length())
+    bytes_moved = (int(ne.sum()) * 20 + K * 4 + K * S * 4
+                   + K * NB * 8 + K * NB * words * 4)
+    ops = (g["slot_passes"] * max(M * S // 64, 1) * S
+           + g["force_rows"] * max(M * S // 32, 1)
+           + g["opens"] * S * S)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / CORE_OPS_PER_S
+    _, launch = ss.segment_scan_launcher(ev, vo, sm, st, batch.W, ne, model)
+    device_ms = launch_device_ms(launch)
+    prof = segment_profile(dev, batch, model, F)
+    fields = dict(kernel_ms_reps=times, kernel_ms=min(times),
+                  device_ms=device_ms,
+                  shape=list(ss.segment_shape(batch.W, S, NB)),
+                  profile=prof, plain_ms=plain_ms, max_abs_err=err,
+                  runs=K * NB,
+                  live_runs=int(plain.flatten(2).any(dim=2).sum()),
+                  plain_stats=g, bytes_moved=bytes_moved, word_ops=ops,
+                  bound_ms=max(t_bytes, t_ops) * 1e3,
+                  bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return fields, {"max_abs_err": err, "ms": min(times),
+                    "device_ms": device_ms, "plain_ms": plain_ms,
+                    "t_bytes": t_bytes, "t_ops": t_ops,
+                    "chain_floor_ms": prof["chain_floor_ms"]}
+
+
 def phase_long_main(dev) -> dict:
     """Suite configs 5 and 4 through check_histories on the card, the
     segmented arm (JGRAFT_SEGMENT=1) and the monolithic one (=0), best of
@@ -2191,58 +2348,10 @@ def phase_long_main(dev) -> dict:
                                           ("monolithic_s_best", "0"))}
                 for n in LONG_SWEEP_ROWS}
         if name == "config5":
-            ev, vo, sm, st, ne = batch.tensors(dev)
-            times = []
-            for _ in range(3):
-                a, b = torch.cuda.Event(True), torch.cuda.Event(True)
-                a.record()
-                F = ss.segment_scan(ev, vo, sm, st, batch.W, ne, model)
-                b.record()
-                sync(dev)
-                times.append(a.elapsed_time(b))
-            g: dict = {}
-            sync(dev)
-            t0 = time.perf_counter()
-            plain = ss.segment_scan_plain(ev, vo, sm, st, batch.W, ne, model,
-                                          stats=g)
-            sync(dev)
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            err = int((F.int() - plain.int()).abs().max())
-            if err:
-                raise AssertionError("long_main config5: segment_scan "
-                                     "disagrees with its plain version")
-            verdict = ss.compose_segment_tables(batch, F.cpu().numpy())
-            if [r["valid"] for r in verdict] != [True]:
-                raise AssertionError("long_main config5: composed tables "
-                                     "not VALID")
-            # bound: the segments' real rows (5 int32 each), n_events,
-            # val_of and the seeds read once, the packed tables written
-            # once; operations as the plain version counted them over
-            # the runs still alive (a closure pass: one per word of the
-            # M·S/2 source bits per state plane; a FORCE, one per
-            # frontier word; a latch, S² compares)
-            M, S = 1 << batch.W, batch.S
-            K, NB = int(ev.shape[0]), int(sm.shape[1])
-            words = ss.segment_words(batch.W, (S - 1).bit_length())
-            bytes_moved = (int(ne.sum()) * 20 + K * 4 + K * S * 4
-                           + K * NB * 8 + K * NB * words * 4)
-            ops = (g["slot_passes"] * max(M * S // 64, 1) * S
-                   + g["force_rows"] * max(M * S // 32, 1)
-                   + g["opens"] * S * S)
-            t_bytes = bytes_moved / HBM_BYTES_PER_S
-            t_ops = ops / CORE_OPS_PER_S
-            line.update(kernel_ms_reps=times, kernel_ms=min(times),
-                        plain_ms=plain_ms, max_abs_err=err,
-                        runs=K * NB,
-                        live_runs=int(plain.flatten(2).any(dim=2).sum()),
-                        plain_stats=g, bytes_moved=bytes_moved,
-                        word_ops=ops, bound_ms=max(t_bytes, t_ops) * 1e3,
-                        bound_by="bytes" if t_bytes >= t_ops
-                        else "operations")
-            out["line"] = {"launches": int(
-                arms["1"]["launches"]["segment_scan"]), "max_abs_err": err,
-                "ms": min(times), "plain_ms": plain_ms, "t_bytes": t_bytes,
-                "t_ops": t_ops}
+            timed, out["line"] = segment_kernel_timed(dev, batch, model)
+            out["line"]["launches"] = int(
+                arms["1"]["launches"]["segment_scan"])
+            line.update(timed)
             out["config5"] = hs[0]
         emit("long_main", **line, device=torch.cuda.get_device_name(dev),
              power=nvidia_smi_line())
@@ -2533,6 +2642,29 @@ def closure_kernel_ms(bits, N: int, tile=None, reps: int = 5) -> float:
         b.synchronize()
         if rc != 0:
             raise AssertionError(f"closure launch at N={N} refused: {rc}")
+        times.append(a.elapsed_time(b))
+    return min(times[1:])
+
+
+def launch_device_ms(launch, reps: int = 5) -> float:
+    """Device time of one kernel launch alone: least over `reps`, after a
+    warm-up, of CUDA events recorded around launch(stream) — a call of
+    the kernel's C entry point, not its Python wrapper — on a stream that
+    `torch.cuda._sleep` keeps busy while the host enqueues event, launch
+    and event, so that the events bracket the kernel and nothing of the
+    host. Reported as `device_ms` beside the wrapper call's `ms`."""
+    import torch
+
+    stream = torch.cuda.current_stream()
+    times = []
+    for _ in range(reps + 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        a.record()
+        launch(stream)
+        b.record()
+        b.synchronize()
         times.append(a.elapsed_time(b))
     return min(times[1:])
 
@@ -3125,8 +3257,11 @@ def closure_line(dev, kernel: str, batches: dict, launches: int,
 #: election_kernel: the kernel against its plain version at these row
 #: lengths (each with every case of `election_cases`), then timed at the
 #: users' size: 512 election runs × 4096 pooled observations
-ELECTION_NS = (1, 2, 31, 32, 33, 1024, 4096, 65536)
+ELECTION_NS = (1, 2, 31, 32, 33, 1024, 4096, 8192, 8193, 65536)
 ELECTION_BATCH = (512, 4096)
+#: election_kernel also times the global form at one N it takes alone
+#: (rows × observations)
+ELECTION_LARGE = (16, 65536)
 #: election runs written for the agreement with the host check (half
 #: with a planted second leader), and their ops
 ELECTION_RUNS = 16
@@ -3211,6 +3346,7 @@ def phase_election_kernel(dev, root) -> dict:
     from jepsen_jgroups_raft_tpu_torch.models.leader import (
         MajorityLeaderModel, check_election_safety,
         check_election_safety_np, check_election_safety_plain)
+    from jepsen_jgroups_raft_tpu_torch.ops import election_safety as es
     from jepsen_jgroups_raft_tpu_torch.ops.election_safety import (
         election_safety)
 
@@ -3218,6 +3354,15 @@ def phase_election_kernel(dev, root) -> dict:
         got = check_election_safety(obs, valid_len).cpu()
         want = check_election_safety_plain(obs, valid_len).cpu()
         return got.tolist(), int((got != want).sum())
+
+    def global_form(obs, valid_len=None):
+        # the global form on rows the shared form takes: against the plain
+        # version, outside the launch count
+        safe, launch = es.election_safety_launcher(obs, valid_len,
+                                                   form="global")
+        launch(torch.cuda.current_stream())
+        want = check_election_safety_plain(obs, valid_len).cpu()
+        return int((safe.cpu() != want).sum())
 
     err, compared = 0, 0
     for N in ELECTION_NS:
@@ -3229,12 +3374,20 @@ def phase_election_kernel(dev, root) -> dict:
         _, bad_vl = both(t, vl)
         err = max(err, bad, bad_vl)
         compared += 2 * len(kinds)
+        if es.election_form(N) == "shared":
+            bad_global = global_form(t) + global_form(t, vl)
+            err = max(err, bad_global)
+            compared += 2 * len(kinds)
+            if bad_global:
+                raise AssertionError(f"election_kernel N={N}: the global "
+                                     f"form disagrees with the plain "
+                                     f"version")
         expect = {"safe": True, "repeated": True, "padded": True}
         if N > 1:
             expect.update(early=False, middle=False, last=False)
         view = dict(zip(kinds, got))
-        emit("election_kernel", N=N, verdicts=view, mismatches=bad,
-             mismatches_valid_len=bad_vl)
+        emit("election_kernel", N=N, form=es.election_form(N),
+             verdicts=view, mismatches=bad, mismatches_valid_len=bad_vl)
         if bad or bad_vl or any(view[k] is not v for k, v in expect.items()):
             raise AssertionError(f"election_kernel N={N}: the kernel and "
                                  f"its plain version disagree, or a case "
@@ -3257,6 +3410,29 @@ def phase_election_kernel(dev, root) -> dict:
     plain_ms = event_ms(lambda: check_election_safety_plain(t), reps=3)
     t_bytes = (8 * B * N + B) / HBM_BYTES_PER_S
     t_ops = ELECTION_OPS_PER_OBS * B * N / CORE_OPS_PER_S
+    # each form's kernels alone on these rows (the global form's memsets
+    # included), its verdicts bitwise
+    device_ms = {}
+    for form in ("shared", "global"):
+        safe, launch = es.election_safety_launcher(t, form=form)
+        device_ms[form] = launch_device_ms(launch, reps=10)
+        if safe.cpu().tolist() != got:
+            raise AssertionError(f"election_kernel: the {form} form's "
+                                 f"verdicts differ at the users' size")
+    # the global form where it is the only one: ELECTION_LARGE
+    LB, LN = ELECTION_LARGE
+    large = synth.election_observation_rows(rng, LB, LN)
+    large[3, LN - 1] = (large[3, 0, 0], large[3, 0, 1] + 1)
+    lt = torch.from_numpy(large).to(dev)
+    lgot, lbad = both(lt)
+    if lbad or lgot[3] or es.election_form(LN) != "global":
+        raise AssertionError("election_kernel: the large rows disagree "
+                             "with the plain version")
+    _, llaunch = es.election_safety_launcher(lt)
+    large_line = {"rows": LB, "observations": LN, "form": "global",
+                  "ms": event_ms(lambda: election_safety(lt), reps=10),
+                  "device_ms": launch_device_ms(llaunch, reps=10),
+                  "bound_ms": (8 * LB * LN + LB) / HBM_BYTES_PER_S * 1e3}
 
     runs, want = [], []
     prng = random.Random(SEED + 26)
@@ -3279,11 +3455,14 @@ def phase_election_kernel(dev, root) -> dict:
         raise AssertionError("election_kernel: the kernel disagrees with "
                              "check_election_safety_np on the runs")
     emit("election_kernel_timed", rows=B, observations=N,
-         kernel_ms=kernel_ms, plain_ms=plain_ms,
+         form=es.election_form(N), kernel_ms=kernel_ms,
+         device_ms=device_ms, plain_ms=plain_ms,
          bound_ms=max(t_bytes, t_ops) * 1e3, t_bytes=t_bytes, t_ops=t_ops,
-         cases_compared=compared)
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "t_bytes": t_bytes, "t_ops": t_ops, "library_ms": None}
+         cases_compared=compared, large=large_line)
+    return {"max_abs_err": err, "ms": kernel_ms,
+            "device_ms": device_ms[es.election_form(N)],
+            "plain_ms": plain_ms, "t_bytes": t_bytes, "t_ops": t_ops,
+            "library_ms": None}
 
 
 def corrupt_keyed_read(run_dir, dst, key: int) -> None:
@@ -3478,7 +3657,47 @@ def phase_keyed_main(dev) -> dict:
     return {}
 
 
-def main() -> int:
+def phase_segment_timed(dev) -> None:
+    """`--only segment`: config 5's segment batch through
+    `segment_kernel_timed` (as long_main measures it), alone."""
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+    from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss
+
+    model = CasRegister()
+    hs, synth_s = long_histories("config5")
+    batch = ss.prepare_segment_batch(
+        [encode_history(h, model) for h in hs], model, device=dev)
+    fields, _ = segment_kernel_timed(dev, batch, model)
+    emit("segment_timed", config="config5", synth_s=synth_s,
+         K=int(batch.events.shape[0]), NB=batch.NB, W=batch.W, S=batch.S,
+         E_seg=batch.E_seg, **fields, power=nvidia_smi_line())
+
+
+def phase_election_alone(dev) -> None:
+    """`--only election`: phase 26 (election_kernel), alone."""
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        phase_election_kernel(dev, Path(tmp) / "elections")
+
+
+#: phases that `--only NAME[,NAME...]` runs on their own, each with the
+#: libraries it builds: the quick measurement of one kernel, a phase of
+#: the full run cut to it (no kernels line)
+ONLY = {"segment": (("segment_scan", "segment_scan_profile"),
+                    phase_segment_timed),
+        "election": (("election_safety",), phase_election_alone)}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only" or \
+                not set(argv[1].split(",")) <= set(ONLY):
+            print(f"usage: chip_smoke.py [--only "
+                  f"{{{','.join(ONLY)}}}[,...]]", file=sys.stderr)
+            return 2
+        only = list(dict.fromkeys(argv[1].split(",")))
     try:
         import torch
     except ImportError:
@@ -3510,12 +3729,25 @@ def main() -> int:
     model = CasRegister()
     stamp = toolchain_stamp()
     emit("stamp", **stamp)
+    if only is not None:
+        libs = list(dict.fromkeys(k for x in only for k in ONLY[x][0]))
+        emit("build", seconds=_build.build(libs), kernels=libs,
+             ptxas={k: _build.ptxas_report(k) for k in libs})
+        for x in only:
+            t0 = time.perf_counter()
+            ONLY[x][1](dev)
+            emit(f"{x}_summary", seconds=time.perf_counter() - t0)
+        print(nvidia_smi_line(), flush=True)
+        print(json.dumps({"ok": True, "only": only, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 2. build every kernel from this checkout's sources, and the
     # instrumented mask kernel, in parallel
     path_libs = list(dict.fromkeys(KERNEL_LIBRARY.get(k, k)
                                    for k in KERNELS))
-    libs = [*path_libs, "mask_scan_profile"]
+    libs = [*path_libs, "mask_scan_profile", "segment_scan_profile"]
     build_s = _build.build(libs)
     ptxas = {k: _build.ptxas_report(k) for k in libs}
     emit("build", seconds=build_s, kernels=libs, ptxas=ptxas,
@@ -3760,6 +3992,7 @@ def main() -> int:
             else "operations",
             "library_ms": x.get("library_ms"),
             "device_ms": x.get("device_ms"),
+            "chain_floor_ms": x.get("chain_floor_ms"),
             "registers": rep["max_registers"],
             "spill_bytes": rep["spill_store_bytes"] +
             rep["spill_load_bytes"]})

@@ -16,8 +16,8 @@
   `sort_chunk`, `sort_chunk_plain`).
 * `segment_scan` — long histories cut at quiescent boundaries: the
   planner and host composition (`check_segmented_batch`), the CUDA
-  kernel wrapper `segment_scan` (one warp per (segment, seed)) and its
-  plain version `segment_scan_plain`.
+  kernel wrapper `segment_scan` (one CTA per segment or group of its
+  seeds, at `segment_shape`) and its plain version `segment_scan_plain`.
 * `cycle_closure` — batched boolean transitive closure for the cycle
   tier: the CUDA kernel wrapper `cycle_closure` (B7 monolithic, B8
   blocked) and its plain versions `cycle_closure_plain`,

@@ -73,10 +73,18 @@ SIGNATURES: Dict[str, dict] = {
     },
     "segment_scan": {
         # events, val_of, seed_mask, seed_state, n_events, out, K, NB, E,
-        # W, S, field_log2, model, device, stream
-        "segment_scan_launch": (_I, [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
-                                     _I, _I, _I, _I, _I, _I, _VP]),
+        # W, S, field_log2, model, warps, device, stream
+        "segment_scan_launch": (_I, [_VP] * 6 + [_I] * 9 + [_VP]),
+        # W, field_log2, K, NB, E, warps, out[8]
+        "segment_scan_attributes": (_I, [_I] * 6 +
+                                    [ctypes.POINTER(ctypes.c_longlong)]),
         "segment_scan_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "segment_scan_profile": {
+        # as segment_scan_launch, with prof after out
+        "segment_scan_profile_launch": (_I, [_VP] * 7 + [_I] * 9 + [_VP]),
+        "segment_scan_profile_error_string": (ctypes.c_char_p, [_I]),
+        "segment_scan_profile_fields": (_I, []),
     },
     "cycle_closure": {
         # B7: in, out, has, B, N, device, stream
@@ -87,10 +95,9 @@ SIGNATURES: Dict[str, dict] = {
         "cycle_closure_error_string": (ctypes.c_char_p, [_I]),
     },
     "election_safety": {
-        # obs, valid_len (or null), table, safe, B, N, log2cap, device,
-        # stream
-        "election_safety_launch": (_I, [_VP, _VP, _VP, _VP, _I, _I, _I,
-                                        _I, _VP]),
+        # obs, valid_len (or null), table (or null), safe, B, N, log2cap,
+        # form, device, stream
+        "election_safety_launch": (_I, [_VP] * 4 + [_I] * 5 + [_VP]),
         "election_safety_error_string": (ctypes.c_char_p, [_I]),
     },
     "mask_scan_profile": {
@@ -113,10 +120,12 @@ ENTRY_LIBRARY: Dict[str, str] = {
 
 #: Libraries built from another library's source with extra nvcc flags:
 #: name -> (source stem in csrc/, flags). Every other library `name`
-#: builds from csrc/<name>.cu. The instrumented mask kernel is one: it
-#: is measured by chip_smoke.py and never launched on a main path.
+#: builds from csrc/<name>.cu. The instrumented mask and segment kernels
+#: are two: each is measured by chip_smoke.py and never launched on a main
+#: path.
 VARIANTS: Dict[str, tuple] = {
     "mask_scan_profile": ("mask_scan", ["-DMASK_SCAN_PROFILE"]),
+    "segment_scan_profile": ("segment_scan", ["-DSEGMENT_SCAN_PROFILE"]),
 }
 
 

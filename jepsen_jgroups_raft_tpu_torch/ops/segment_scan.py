@@ -28,10 +28,13 @@ This module holds:
     composition — numpy, identical to the reference's plans, arrays and
     verdicts;
   * `segment_scan`, the wrapper of the hand-written CUDA kernel
-    (ops/csrc/segment_scan.cu: one warp per (segment, seed), the
-    frontier in registers), and `segment_scan_plain`, the same function
-    in plain PyTorch, which the CPU tests use and chip_smoke.py holds
-    the kernel to on the card.
+    (ops/csrc/segment_scan.cu: one CTA per segment or group of its
+    seeds, the rows' descriptors and the OPENs' transition rows prepared
+    once in shared memory for all of its runs, each run's frontier in
+    registers, several runs a warp where a frontier is narrow; its launch
+    shape is `segment_shape`), and `segment_scan_plain`, the same
+    function in plain PyTorch, which the CPU tests use and chip_smoke.py
+    holds the kernel to on the card.
 
 The reference shards the segment axis over its device mesh; here all
 segments of a batch go to one launch on one card. Where the reference
@@ -43,9 +46,10 @@ does. `MAX_BASIS` holds on both.
 
 from __future__ import annotations
 
+import ctypes
 import time
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -527,31 +531,70 @@ def launch_counts() -> dict:
     return dict(LAUNCHES)
 
 
+#: Warps a CTA of the kernel holds at most (its launch bound). At 4 the
+#: 101 segments of config 5 take 202 CTAs and reach the 31 SMs that 8
+#: leave idle, but 70 SMs still hold 8 warps and every CTA prepares its
+#: segment again: 4.8 % slower on the card (PERF.md §6).
+SEGMENT_MAX_WARPS = 8
+
+#: Rows a CTA prepares into shared memory at a time: a launch's tile is
+#: min(E, SEGMENT_MAX_TILE_ROWS), so a segment of the planner's size
+#: (DEFAULT_BLOCK_EVENTS plus its prologue, E = 2048) is one tile.
+SEGMENT_MAX_TILE_ROWS = 2048
+
+
+class SegmentShape(NamedTuple):
+    """The kernel's launch shape for a batch: runs (seeds) a warp — the
+    warp's lanes split among narrow frontiers —, warps a CTA, and CTAs a
+    segment."""
+    seeds_per_warp: int
+    warps: int
+    ctas_per_segment: int
+
+
+def segment_shape(n_slots: int, n_states: int, n_seeds: int) -> SegmentShape:
+    """The launch shape at window W, domain table S and NB seeds a
+    segment, from those alone: a run's frontier of 2^(W + field_log2)
+    bits fills max(1, bits / 32) lanes (all 32 from 2^10 bits on), so a
+    warp holds 32 / lanes runs; a CTA holds the warps that cover NB runs,
+    up to SEGMENT_MAX_WARPS, and more seeds take more CTAs of the same
+    segment (each prepares the segment's rows itself). Plain Python: runs
+    without a card; ops/csrc/segment_scan.cu computes the same runs a
+    warp and CTAs a segment from the warps it is given."""
+    bits = int(n_slots) + dense_layout(n_slots, n_states).field_log2
+    lanes = 32 if bits >= 10 else 1 << max(bits - 5, 0)
+    per_warp = 32 // lanes
+    nb = max(int(n_seeds), 1)
+    warps = min(SEGMENT_MAX_WARPS, -(-nb // per_warp))
+    return SegmentShape(per_warp, warps, -(-nb // (per_warp * warps)))
+
+
 def segment_words(n_slots: int, field_log2: int) -> int:
     """32-bit words of one packed final frontier in the kernel's output
     (bit b = m·2^field_log2 + s; at least one word)."""
     return max(1 << (int(n_slots) + int(field_log2)), 32) // 32
 
 
-def segment_scan(events, val_of, seed_mask, seed_state, n_slots: int,
-                 n_events=None, model=None):
-    """B6 over a batch of segments: the final frontier of every (segment,
-    seed) pair, F [K, NB, 2^W, S] bool.
+def _unpack(words, n_slots: int, n_states: int, field_log2: int):
+    """The kernel's packed frontiers words [K, NB, n_words] int32 as F [K,
+    NB, 2^W, S] bool."""
+    K, NB, n_words = (int(x) for x in words.shape)
+    bits = (words[..., None] >> torch.arange(32, dtype=torch.int32,
+                                             device=words.device)) & 1
+    FS = 1 << field_log2
+    F = bits.reshape(K, NB, n_words * 32)[:, :, :(1 << n_slots) * FS]
+    return F.reshape(K, NB, 1 << n_slots, FS)[..., :n_states].to(torch.bool)
 
-    events [K, E, 5] int32 (legacy rows), val_of [K, S] int32, seed_mask
-    and seed_state [K, NB] int32, n_events [K] int32 real rows per
-    segment (default all E). A CPU tensor takes `segment_scan_plain`; a
-    CUDA tensor launches the hand-written kernel
-    (ops/csrc/segment_scan.cu, one warp per (segment, seed), instantiated
-    for `dense_layout(W, S)`) on the current stream, which writes each
-    frontier bit-packed [K, NB, words]; the wrapper unpacks it. Raises on
-    anything else."""
+
+def segment_scan_launcher(events, val_of, seed_mask, seed_state,
+                          n_slots: int, n_events=None, model=None,
+                          library: str = "segment_scan", prof=None):
+    """Check the CUDA tensors, allocate the packed output, build or load
+    `library` (the kernel, or its instrumented build with `prof`): (words
+    [K, NB, n_words] int32, launch(stream)). Nothing is counted here."""
     if model is None:
         from ..models.register import CasRegister
         model = CasRegister()
-    if events.device.type == "cpu":
-        return segment_scan_plain(events, val_of, seed_mask, seed_state,
-                                  n_slots, n_events, model)
     if events.device.type != "cuda":
         raise ValueError(f"segment_scan: unsupported device {events.device}")
     dev = events.device
@@ -580,20 +623,100 @@ def segment_scan(events, val_of, seed_mask, seed_state, n_slots: int,
     if code is None:
         raise ValueError(f"segment_scan: model {type(model).__name__} has "
                          f"no device step in the CUDA kernel")
-    n_words = segment_words(W, layout.field_log2)
-    words = torch.empty((K, NB, n_words), dtype=torch.int32, device=dev)
-    if K and NB:
-        lib = _build.load("segment_scan")
-        _call_launch("segment_scan", lib,
-                     (events, val_of, seed_mask, seed_state, n_events,
-                      words),
-                     (K, NB, E, W, S, layout.field_log2, int(code),
-                      _device_index(dev)),
-                     torch.cuda.current_stream(dev))
-        LAUNCHES["segment_scan"] += 1
-    bits = (words[..., None] >> torch.arange(32, dtype=torch.int32,
-                                             device=dev)) & 1
-    FS = 1 << layout.field_log2
-    F = bits.reshape(K, NB, n_words * 32)[:, :, :(1 << W) * FS]
-    return F.reshape(K, NB, 1 << W, FS)[..., :S].to(torch.bool)
+    words = torch.empty((K, NB, segment_words(W, layout.field_log2)),
+                        dtype=torch.int32, device=dev)
+    lib = _build.load(library)
+    tensors = (events, val_of, seed_mask, seed_state, n_events, words,
+               *(() if prof is None else (prof,)))
+    sizes = (K, NB, E, W, S, layout.field_log2, int(code),
+             segment_shape(W, S, NB).warps, _device_index(dev))
 
+    def launch(stream):
+        _call_launch(library, lib, tensors, sizes, stream)
+
+    return words, launch
+
+
+def segment_scan(events, val_of, seed_mask, seed_state, n_slots: int,
+                 n_events=None, model=None):
+    """B6 over a batch of segments: the final frontier of every (segment,
+    seed) pair, F [K, NB, 2^W, S] bool.
+
+    events [K, E, 5] int32 (legacy rows), val_of [K, S] int32, seed_mask
+    and seed_state [K, NB] int32, n_events [K] int32 real rows per
+    segment (default all E). A CPU tensor takes `segment_scan_plain`; a
+    CUDA tensor launches the hand-written kernel
+    (ops/csrc/segment_scan.cu, instantiated for `dense_layout(W, S)`, at
+    `segment_shape(W, S, NB)`) on the current stream, which writes each
+    frontier bit-packed [K, NB, words]; the wrapper unpacks it. Raises on
+    anything else."""
+    if events.device.type == "cpu":
+        return segment_scan_plain(events, val_of, seed_mask, seed_state,
+                                  n_slots, n_events, model)
+    words, launch = segment_scan_launcher(events, val_of, seed_mask,
+                                          seed_state, n_slots, n_events,
+                                          model)
+    if words.numel():
+        launch(torch.cuda.current_stream(events.device))
+        LAUNCHES["segment_scan"] += 1
+    return _unpack(words, int(n_slots), int(val_of.shape[1]),
+                   dense_layout(n_slots, val_of.shape[1]).field_log2)
+
+
+#: Columns of `segment_scan_profile`'s counters, one row per warp of the
+#: launch: SM clock cycles spent preparing tiles (the rows' descriptors
+#: and transition rows, read from global memory, and the block barrier
+#: after), latching OPENs, in closures, in FORCEs, and waiting at a
+#: tile's end for the CTA's other warps; then rows scanned, OPENs,
+#: closures, closure sweeps and slot images computed.
+SEGMENT_PROFILE_FIELDS = ("stage_cycles", "latch_cycles", "closure_cycles",
+                          "force_cycles", "tail_cycles", "rows", "opens",
+                          "closures", "sweeps", "images")
+
+
+def segment_scan_profile(events, val_of, seed_mask, seed_state,
+                         n_slots: int, n_events=None, model=None):
+    """The kernel's instrumented build (ops/csrc/segment_scan.cu compiled
+    with -DSEGMENT_SCAN_PROFILE into a library of its own) on the current
+    stream: (F [K, NB, 2^W, S] bool, prof [warps of the launch,
+    len(SEGMENT_PROFILE_FIELDS)] int64). Card only; for measurement,
+    never on a main path, so it is not counted in LAUNCHES."""
+    K, NB = int(seed_mask.shape[0]), int(seed_mask.shape[1])
+    shape = segment_shape(n_slots, val_of.shape[1], NB)
+    lib = _build.load("segment_scan_profile")
+    n_fields = lib.segment_scan_profile_fields()
+    if n_fields != len(SEGMENT_PROFILE_FIELDS):
+        raise RuntimeError(f"segment_scan_profile writes {n_fields} "
+                           f"counters per warp, SEGMENT_PROFILE_FIELDS names "
+                           f"{len(SEGMENT_PROFILE_FIELDS)}")
+    prof = torch.zeros((K * shape.ctas_per_segment * shape.warps,
+                        n_fields), dtype=torch.int64, device=events.device)
+    words, launch = segment_scan_launcher(
+        events, val_of, seed_mask, seed_state, n_slots, n_events, model,
+        library="segment_scan_profile", prof=prof)
+    if words.numel():
+        launch(torch.cuda.current_stream(events.device))
+    return (_unpack(words, int(n_slots), int(val_of.shape[1]),
+                    dense_layout(n_slots, val_of.shape[1]).field_log2), prof)
+
+
+def segment_attributes(n_slots: int, n_states: int, n_segments: int,
+                       n_seeds: int, n_rows: int) -> dict:
+    """The kernel instantiation for `dense_layout(W, S)` as the card's
+    runtime reports it, for a launch over K segments × NB seeds of E rows
+    at `segment_shape`: registers a thread, local (stack and spill)
+    bytes, static shared bytes, threads a block, blocks resident on one
+    SM, the launch's blocks, runs a warp, and dynamic shared bytes a
+    block."""
+    layout = dense_layout(n_slots, n_states)
+    out = (ctypes.c_longlong * 8)()
+    lib = _build.load("segment_scan")
+    rc = lib.segment_scan_attributes(
+        int(n_slots), layout.field_log2, int(n_segments), int(n_seeds),
+        int(n_rows), segment_shape(n_slots, n_states, n_seeds).warps, out)
+    if rc != 0:
+        raise RuntimeError(f"segment_scan_attributes: "
+                           f"{_build.error_string('segment_scan', rc)}")
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "threads", "blocks_per_sm", "blocks", "seeds_per_warp",
+                     "dynamic_smem_bytes"), list(out)))

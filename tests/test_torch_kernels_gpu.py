@@ -879,6 +879,101 @@ def test_segment_scan_kernel_matches_plain(cuda, W, S):
         assert not live[:, -1].any() and not live[:, -2].any()
 
 
+#: every (W, field_log2) the launcher instantiates, at S = 2^field_log2
+SEGMENT_LAYOUTS = [(W, lf) for W in range(1, 11) for lf in range(5)
+                   if W + lf <= 13]
+
+
+def _segment_case(seed, W, S, NB, dev, K=4, E=160):
+    """K segments at (W, S) with NB seeds: the crash set's basis first,
+    then more seeds drawn from it (so every CTA of a wide NB has live
+    runs), then padded (-1) and out-of-frontier seeds; segment 1 has no
+    real rows, segment 2 starts with a FORCE of slot 0 (every seed
+    without bit 0 dies there), the others real lengths of their own."""
+    rng = np.random.default_rng(seed)
+    c = min(W, 2)
+    ev, vals, sm0, st0, ne = random_segment_inputs(rng, K, E, W, S, c)
+    sm = np.full((K, NB), -1, np.int32)
+    st = np.zeros((K, NB), np.int32)
+    n0 = min(NB, sm0.shape[1])
+    sm[:, :n0], st[:, :n0] = sm0[:, :n0], st0[:, :n0]
+    if NB > n0:
+        extra = NB - n0
+        sm[:, n0:] = rng.integers(0, 1 << c, size=(K, extra))
+        st[:, n0:] = rng.integers(0, S, size=(K, extra))
+        sm[:, -3:] = -1
+        sm[:, -1] = 1 << W
+    if K > 2:
+        ne[1] = 0
+        ev[2, 0] = (2, 0, 0, 0, 0)  # EV_FORCE of slot 0, nothing open
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (ev, vals, sm, st, ne)]
+
+
+@pytest.mark.parametrize("W,lf", SEGMENT_LAYOUTS,
+                         ids=lambda x: str(x))
+def test_segment_scan_every_layout_and_shape(cuda, W, lf):
+    """Every instantiation at NB = 1, 16 and 256 (runs a warp, warps a
+    CTA and CTAs a segment as `segment_shape` gives them): bitwise to the
+    plain version, with runs that live, runs that die at the first
+    FORCE, padded seeds and a segment without rows."""
+    S = 1 << lf
+    for NB in (1, 16, 256):
+        shape = ss.segment_shape(W, S, NB)
+        ev, vals, sm, st, ne = _segment_case(1000 * W + 10 * lf + NB, W, S,
+                                             NB, cuda)
+        F = ss.segment_scan(ev, vals, sm, st, W, ne)
+        torch.cuda.synchronize()
+        plain = ss.segment_scan_plain(ev, vals, sm, st, W, ne)
+        assert torch.equal(F.cpu(), plain.cpu()), (W, S, NB, shape)
+        live = plain.flatten(2).any(dim=2).cpu()
+        seeded = (sm >= 0) & (sm < (1 << W))
+        # no rows: the seed itself survives
+        assert torch.equal(live[1], seeded[1].cpu())
+        if NB >= 16:
+            assert live.any() and not live.all()
+        att = ss.segment_attributes(W, S, 4, NB, 160)
+        assert att["seeds_per_warp"] == shape.seeds_per_warp
+        assert att["blocks"] == 4 * shape.ctas_per_segment
+        assert att["threads"] == 32 * shape.warps
+        assert att["local_bytes"] == 0
+
+
+def test_segment_scan_rows_beyond_one_tile(cuda):
+    """Segments longer than one tile of SEGMENT_MAX_TILE_ROWS rows: the
+    CTA prepares and walks them tile by tile, the latched rows and open
+    slots carried across; at S = 16 a tile takes more than 48 KB of
+    shared memory (the kernel opts in). Bitwise to the plain version."""
+    for W, S, c in ((5, 4, 2), (8, 2, 3), (6, 16, 1)):
+        rng = np.random.default_rng(W)
+        E = 2 * ss.SEGMENT_MAX_TILE_ROWS + 300
+        arrays = random_segment_inputs(rng, 3, E, W, S, c, bad_read=0.0002,
+                                       stray=0.0002)
+        ev, vals, sm, st, ne = (torch.from_numpy(a).to(cuda)
+                                for a in arrays)
+        F = ss.segment_scan(ev, vals, sm, st, W, ne)
+        torch.cuda.synchronize()
+        plain = ss.segment_scan_plain(ev, vals, sm, st, W, ne)
+        assert torch.equal(F.cpu(), plain.cpu()), (W, S)
+        assert plain[0].any()
+
+
+def test_segment_scan_refuses_other_shapes(cuda):
+    """The C entry point refuses warps a CTA outside 1..8."""
+    from jepsen_jgroups_raft_tpu_torch.ops import _build
+
+    lib = _build.load("segment_scan")
+    ev, vals, sm, st, ne = _segment_case(5, 4, 4, 16, cuda)
+    out = torch.empty((4, 16, 2), dtype=torch.int32, device=cuda)
+    for warps in (0, 9):
+        rc = lib.segment_scan_launch(
+            *(t.data_ptr() for t in (ev, vals, sm, st, ne, out)), 4, 16,
+            160, 4, 4, 2, 0, warps, cuda.index or 0,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == -8
+        assert "warps" in _build.error_string("segment_scan", rc)
+
+
 def test_segmented_batch_on_card_matches_cpu(cuda):
     """Register histories through check_segmented_batch on the card and
     on the host: the same plans on both (no CPU cell budget bites at
@@ -1263,16 +1358,33 @@ def _election_kernel_and_plain(obs, valid_len=None):
     return safe.cpu().tolist()
 
 
-@pytest.mark.parametrize("N", [1, 2, 31, 32, 33, 1024, 4096, 65536],
-                         ids=lambda n: f"N{n}")
+@pytest.mark.parametrize("N", [1, 2, 31, 32, 33, 1024, 4096, 8192, 8193,
+                               65536], ids=lambda n: f"N{n}")
 def test_election_safety_kernel_matches_plain(cuda, N):
-    obs = torch.from_numpy(_election_rows(N, N)).to(cuda)
+    """The form `election_form(N)` gives (both sides of its boundary at
+    8192), and the global form on the same rows where the shared form
+    takes them: bitwise to the plain version, valid_len cuts and rows
+    whose terms are all negative included."""
+    rows = _election_rows(N, N, B=14)
+    rows[13, :, 0] = -1 - (np.arange(N) % 3)  # every term negative
+    obs = torch.from_numpy(rows).to(cuda)
     got = _election_kernel_and_plain(obs)
+    assert got[13] is True
     if N > 1:
         assert not all(got) and any(got)
     vl = torch.from_numpy(np.random.default_rng(N).integers(
-        0, N + 1, size=obs.shape[0]).astype(np.int32)).to(cuda)
+        -1, N + 2, size=obs.shape[0]).astype(np.int32)).to(cuda)
     _election_kernel_and_plain(obs, vl)
+    if es.election_form(N) == "shared":
+        for v in (None, vl):
+            safe, launch = es.election_safety_launcher(obs, v, form="global")
+            launch(torch.cuda.current_stream())
+            want = leader.check_election_safety_plain(obs, v)
+            assert safe.cpu().tolist() == want.cpu().tolist()
+    else:
+        with pytest.raises(RuntimeError, match="2\\^14"):
+            es.election_safety_launcher(obs, form="shared")[1](
+                torch.cuda.current_stream())
 
 
 def test_election_safety_kernel_matches_np_on_runs(cuda):

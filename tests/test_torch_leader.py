@@ -31,7 +31,7 @@ from jepsen_jgroups_raft_tpu_torch.models.leader import (
     LeaderModel, MajorityLeaderModel, check_election_safety,
     check_election_safety_np, check_election_safety_plain)
 from jepsen_jgroups_raft_tpu_torch.ops.election_safety import (
-    election_safety, table_log2)
+    SHARED_MAX_OBSERVATIONS, election_form, election_safety, table_log2)
 
 torch.set_num_threads(1)
 
@@ -219,8 +219,27 @@ def test_plain_matches_np_on_nonnegative_terms():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_sizes_its_table():
+    """The kernel's table holds 2N slots at least; the form that keeps it
+    in shared memory takes rows up to 8192 observations (2^14 slots, 128
+    KB of the 227 KB a CTA may have), the global form the rest."""
     with pytest.raises(ValueError, match="CUDA"):
         election_safety(torch.zeros((1, 4, 2), dtype=torch.int32))
-    assert [table_log2(n) for n in (1, 2, 3, 4096, 65536)] == \
-        [1, 2, 3, 13, 17]
+    assert [table_log2(n) for n in (1, 2, 3, 4096, 8192, 8193, 65536)] == \
+        [1, 2, 3, 13, 14, 15, 17]
+    assert [election_form(n) for n in (1, 2, 31, 4096, 8192)] == \
+        ["shared"] * 5
+    assert [election_form(n) for n in (8193, 65536, 1 << 26)] == \
+        ["global"] * 3
+    assert SHARED_MAX_OBSERVATIONS == 8192
+    assert 8 << table_log2(SHARED_MAX_OBSERVATIONS) <= 227 * 1024
     assert MODELS["leader"] is LeaderModel
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 8191, 8192, 8193, 65536])
+def test_election_form_is_a_function_of_n(n):
+    """`election_form` reads N alone: the shared form exactly while the
+    row's table (the power of two ≥ 2N slots) fits 2^14 slots."""
+    want = "shared" if 2 * n <= 1 << 14 else "global"
+    assert election_form(n) == want
+    assert (1 << table_log2(n)) >= 2 * n > (1 << table_log2(n)) // 2 \
+        or n == 1

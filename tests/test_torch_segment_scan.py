@@ -150,6 +150,143 @@ def test_plain_tables_equal_the_reference_kernel(W, S, n_crashed):
                                        torch.from_numpy(n_ev)), ours)
 
 
+# ------------------------------------------- the kernel's closure schedule
+# ops/csrc/segment_scan.cu closes a frontier by Jacobi sweeps (every open
+# slot's image of the frontier the sweep starts from), the reference by
+# in-order sweeps (slot w from the frontier slots < w updated). The
+# model below runs both on the same rows in numpy, holds each to the
+# reference's tables and counts their sweeps.
+
+def _image(X, T, w):
+    """Slot w's image of frontiers X [B, M, S]: every mask m without bit w
+    through T[w] into m | bit w."""
+    M = X.shape[1]
+    src = np.array([m for m in range(M) if not (m >> w) & 1])
+    out = np.zeros_like(X)
+    out[:, src | (1 << w)] = np.einsum("bms,st->bmt", X[:, src].astype(
+        np.int64), T[w].astype(np.int64)) > 0
+    return out
+
+
+def _close(F, T, open_, W, schedule, stats, active):
+    """Close F [B, M, S] under the open slots, at most W + 1 sweeps, a run
+    sweeping while its last sweep changed it; count sweeps per run in
+    `stats` (runs in `active` only)."""
+    slots = [w for w in range(W) if (open_ >> w) & 1]
+    cont = active.copy()
+    for _ in range(W + 1):
+        before = F.copy()
+        if schedule == "jacobi":
+            add = np.zeros_like(F)
+            for w in slots:
+                add |= _image(F, T, w)
+            F |= add
+        else:  # the reference's sweep: slot w from the updated frontier
+            for w in slots:
+                F |= _image(F, T, w)
+        stats["sweeps"] += int(cont.sum())
+        cont &= (F != before).reshape(len(F), -1).any(axis=1)
+        if not cont.any():
+            break
+    return F
+
+
+def _schedule_tables(W, S, ev, vals, sm, st, n_ev, schedule):
+    """The seeded scan of every (segment, seed) with closures run by
+    `schedule` ("jacobi" or "reference"): (F [K, NB, 2^W, S], stats:
+    closures and sweeps over live runs)."""
+    m = CasRegister()
+    K, NB = sm.shape
+    M = 1 << W
+    out = np.zeros((K, NB, M, S), dtype=bool)
+    stats = {"closures": 0, "sweeps": 0}
+    for k in range(K):
+        F = np.zeros((NB, M, S), dtype=bool)
+        ok = (sm[k] >= 0) & (sm[k] < M) & (st[k] >= 0) & (st[k] < S)
+        F[np.flatnonzero(ok), sm[k][ok], st[k][ok]] = True
+        T = np.zeros((W, S, S), dtype=bool)
+        vo = torch.from_numpy(vals[k][None].astype(np.int32))
+        open_ = 0
+        dirty = False
+        for e in range(int(n_ev[k])):
+            kind, slot, f, a, b = (int(x) for x in ev[k, e])
+            if kind == 1:
+                dirty = True
+                if 0 <= slot < W:
+                    ns, legal = m.torch_step(vo, *(torch.tensor([[x]])
+                                                   for x in (f, a, b)))
+                    T[slot] = ((ns[0][:, None] == vo[0][None, :])
+                               & legal[0][:, None]).numpy()
+                    open_ |= 1 << slot
+            elif kind == 2:
+                live = F.reshape(NB, -1).any(axis=1)
+                if dirty:
+                    stats["closures"] += int(live.sum())
+                    F = _close(F, T, open_, W, schedule, stats, live)
+                    dirty = False
+                w = min(max(slot, 0), W - 1)
+                has = (np.arange(M) >> w) & 1 == 1
+                G = np.zeros_like(F)
+                G[:, ~has] = F[:, np.arange(M)[~has] | (1 << w)]
+                F = G
+                if 0 <= slot < W:
+                    open_ &= ~(1 << slot)
+        out[k] = F
+    return out, stats
+
+
+@pytest.mark.parametrize("W,S,n_crashed", [(2, 4, 1), (4, 2, 3), (6, 4, 2),
+                                           (5, 1, 0), (7, 4, 2)])
+def test_closure_schedules_give_the_reference_tables(W, S, n_crashed):
+    """The kernel's Jacobi sweeps and the reference's in-order sweeps
+    reach the reference `make_segment_kernel`'s tables on seeded random
+    segments (stray rows included: a FORCE on a clipped slot that stays
+    open); in-order sweeps never need more of them than Jacobi's."""
+    K, E = 5, 96
+    rng = np.random.default_rng(W * 100 + S * 10 + n_crashed)
+    from jepsen_jgroups_raft_tpu_torch.history.synth import \
+        random_segment_inputs
+    ev, vals, sm, st, n_ev = random_segment_inputs(
+        rng, K, E, W, S, n_crashed, bad_read=0.002, stray=0.02)
+    for k in range(K):
+        ev[k, n_ev[k]:] = 0                      # EV_PAD tail
+    theirs = _reference_tables(W, S, ev, vals, sm, st)
+    stats = {}
+    for schedule in ("jacobi", "reference"):
+        ours, stats[schedule] = _schedule_tables(W, S, ev, vals, sm, st,
+                                                 n_ev, schedule)
+        assert np.array_equal(ours, theirs), schedule
+    jac, ref = stats["jacobi"], stats["reference"]
+    assert jac["closures"] == ref["closures"] > 0
+    assert jac["sweeps"] >= ref["sweeps"] >= jac["closures"]
+    assert theirs.any()
+
+
+def test_segment_shape_is_a_function_of_the_shape():
+    """Runs a warp from the frontier's width (32 lanes from 2^10 bits
+    on), warps a CTA up to SEGMENT_MAX_WARPS, CTAs a segment to cover
+    every seed — config 5's shape (W = 7, S = 4, NB = 16) is one CTA of 8
+    warps holding two runs each."""
+    f = ss.segment_shape
+    assert f(7, 4, 16) == ss.SegmentShape(2, 8, 1)
+    assert f(9, 4, 64) == (1, 8, 8)
+    assert f(3, 1, 1) == (32, 1, 1)
+    assert f(10, 8, 256) == (1, 8, 32)
+    assert f(5, 4, 1) == (8, 1, 1)
+    assert f(7, 4, 0) == (2, 1, 1)
+    for W in range(1, 11):
+        for S in (1, 2, 3, 4, 8, 16):
+            if (1 << W) * S > 8192:
+                continue
+            for NB in (1, 5, 16, 64, 256):
+                per, warps, ctas = f(W, S, NB)
+                bits = W + ss.dense_layout(W, S).field_log2
+                assert per * max(1 << max(bits - 5, 0), 1) == 32 \
+                    if bits < 10 else per == 1
+                assert 1 <= warps <= ss.SEGMENT_MAX_WARPS
+                assert ctas * warps * per >= NB > (ctas - 1) * warps * per
+
+
 def test_plain_tables_of_planned_histories_equal_the_reference():
     """Real plans: crash sets of 1-3 slots that span segment boundaries,
     the batch's padded basis and PAD tails, as check_segmented_batch
