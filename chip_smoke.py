@@ -11,15 +11,26 @@ With `--only`, only the named phases run, each after building just the
 libraries it needs: `segment` measures B6 on config 5 as long_main does
 (wrapper and device-only ms, bitwise against the plain version, the
 tables composed to VALID, the bound, the launch shape and the
-instrumented build's profile); `election` runs phase 26. They end with
+instrumented build's profile); `election` runs phase 26; `mesh` and
+`cluster` run phases 29 and 30 (`mesh` on a north-star batch of its
+own). They end with
 the card's `nvidia-smi` line and {"ok": true, "only": [...], ...}, and
 print no kernels line. With no arguments every phase runs:
 
-Phases, each printing JSON lines; any failure exits non-zero:
+Phases, each printing JSON lines (`t_s`: seconds since the start); any
+failure exits non-zero. The north-star batch is made on the host while
+nvcc builds. Phases 3-5, 13, 13b, 16 and 21 (each kernel against its
+plain version on its own cases) run in a second process on the same
+card, their lines printed when it ends, while this one makes the other
+suites' batches and runs 8, 11, 15, 19, 20, 22-24, 27 and 28 (host
+walls; no time on the card is taken in them); the phases that time the
+card run after both, in the order 6, 7, 9, 10, 12, 14, 17, 18, 25, the
+closure kernels' line, 26, 29, 30:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
                mask_scan, sort_scan — each with its chunk entry point,
-               segment_scan, cycle_closure: B7 and B8, election_safety)
+               segment_scan, cycle_closure: B7 and B8, election_safety,
+               verdict_counts: B10)
                and the instrumented builds mask_scan_profile and
                segment_scan_profile (never on a main path) from this
                checkout's sources into
@@ -45,33 +56,35 @@ Phases, each printing JSON lines; any failure exits non-zero:
                on the card at the default chunk (JGRAFT_SCAN_CHUNK unset:
                the chunked wavefront over the chunk kernels): 1000
                CAS-register histories of 1000 ops (5 processes, crash_p
-               0.05, at most 3 crashes, seed 20260729); warm-up, then best
-               of MAIN_REPS; all must be VALID, every row on the dense
-               tier, dense_scan_chunk's launch count (reset before each
-               run) above 0; chunks_run, evicted_rows, groups_early_exited.
-               Then the breakdown: encode, group + pack, the one-shot
-               kernels' overlapped span, each group's time alone, its ns
-               per row, the plain version's time and the bound; the same
-               groups through `run_chunked` (verdicts bitwise equal to the
-               one-shot groups', kernel span, launches per group); the
-               chunk kernel on the largest group's first launch against
-               its plain version (time, bound); and one check at
-               JGRAFT_SCAN_CHUNK=0 (the one-shot path's wall and launches)
+               0.05, at most 3 crashes, seed 20260729); best of
+               MAIN_REPS (no warm-up); all must be VALID, every row on
+               the dense tier, dense_scan_chunk's launch count (reset
+               before each run) above 0; chunks_run, evicted_rows,
+               groups_early_exited. Then the breakdown: encode, group +
+               pack, the one-shot kernels' overlapped span, each group's
+               time alone, its ns per row, the plain version's time and
+               the bound; the same groups through `run_chunked` (verdicts
+               bitwise equal to the one-shot groups', kernel span,
+               launches per group); the chunk kernel on the largest
+               group's first launch against its plain version (time,
+               bound); and one check at JGRAFT_SCAN_CHUNK=0 (the one-shot
+               path's wall and launches)
   7. profile — one check under torch.profiler: the device's busy share of
                the check's wall (a trace without device time fails)
   8. invalid — 64 of those histories with one read corrupted: kernel,
                plain version and host oracle must agree row for row, and
                every corrupted row must be INVALID
   9. counter_main, queue_main — the reference suite's counter and queue
-               shapes (bench.py configs 2 and 7): 1000 histories of 1000
-               ops, 5 processes, crash_p 0.05, at most 3 crashes, seed
-               20260729, through `check_histories` on the card, measured
-               as `main` (the counter with the one-shot arm and the
-               measured chunk launch); all VALID, every row on the mask
+               shapes (bench.py configs 2 and 7): 250 (SUITE_ROWS; the
+               suite's 1000 cut) histories of 1000 ops, 5 processes,
+               crash_p 0.05, at most 3 crashes, seed 20260729, through
+               `check_histories` on the card, measured as `main` (the
+               counter with the one-shot arm and the measured chunk
+               launch); all VALID, every row on the mask
                tier, 0 host rows, mask_scan_chunk's launch count above 0
  10. counter10_main — the counter at upstream's documented concurrency
                (10 processes, crash_p 0.05, at most 3 crashes, 1000 ops,
-               seed 20260729 + 10): the first 1000 histories whose window
+               seed 20260729 + 10): the first 250 histories whose window
                is within the mask cap (12; the number drawn is printed),
                measured as `main`, groups at W = 10..12
  11. counter_invalid — 64 of the counter histories with one read
@@ -108,7 +121,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                hand-written edge rows; chunks of 32 and 128 rows in both
                row formats, of 1 row in one (alternating)
  14. set_main — the reference suite's set shape (bench.py config 6:
-               1000 histories of 1000 ops, 5 processes, crash_p 0.05, at
+               250 histories of 1000 ops, 5 processes, crash_p 0.05, at
                most 3 crashes, value_range 32, seed 20260729) through
                `check_histories` on the card, measured as `main`: all
                VALID, every row on the sort tier, 0 host rows,
@@ -186,7 +199,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                G-single and G1c, G-single alone, and clean: condensation
                on (B7), JGRAFT_CYCLE_CONDENSE=0 (B8 at bucket 2048) and
                kernel=False identical, the expected class each
- 25. listappend_main — bench.py config 9: 1000 list-append histories of
+ 25. listappend_main — bench.py config 9: 250 list-append histories of
                1000 ops (5 processes, crash_p 0.05, at most 3 crashes)
                through check_histories, measured as set_main: all VALID
                on the sort tier, each rung bitwise against the plain
@@ -227,6 +240,39 @@ with the LOP3 floor of the work it does: `closure_main_path`.
  28. keyed_main — BASELINE config 4 (16 register histories of 10k ops)
                tupled into one history through `IndependentLinearizable`
                on the card: per key equal to `check_histories`
+ 29. mesh    — B10 on the north-star batch of `main` (encoded again):
+               `parallel.mesh.check_batch_sharded(dense=plan,
+               defer=True)` over every window group, blocking once
+               (bench.py's one-shot arm), and the sort ladder with no plan
+               on all 1000 rows (legacy rows, bench.py's `n_slots`); the
+               `rest` rows, where the groups leave any, in the first arm:
+               the first arm 1000 VALID and equal row for row to the
+               groups' `run_chunked` verdicts; the ladder no row INVALID,
+               each row it decides VALID, the rows that overflow C = 256
+               undecided and counted on the host (about half: the
+               reference's ladder leaves the same rows); verdict_counts
+               launched once a group in the first arm, none in the
+               ladder; the one-shot arm's walls beside
+               `run_dense_groups`' on the same groups (in turns, 5 runs
+               each, tensors copied inside both); then
+               verdict_counts against its plain version, bitwise, in both
+               modes at B = 0, 1, 31, 32, 33, 1000 and 2^20, on sliced
+               flags at unaligned offsets; timed at B = 1000 (the
+               wrapper call, the kernel alone, the plain version, one
+               `torch.count_nonzero` of the masked products) and at 2^20
+               (the kernel alone), beside the bound
+ 30. cluster — `parallel.launch.launch_local_cluster(2, ...)` running
+               `parallel.selfcheck` on this card: both ranks on cuda:0
+               under gloo (two ranks share the card), each with the same
+               128 register histories of 1000 ops (5 processes, every 8th
+               with a read out of its domain; cut from 1000 to keep the
+               phase short), checked through `check_histories` (the seam
+               shards them, `run_sharded`) and counted by
+               `check_batch_global` (with a 128-history counter batch):
+               every rank's verdicts equal one process's
+               `check_histories` on the card (its 3-row check too, and
+               `run_sharded` of one row, which leaves rank 0's shard
+               empty), and its counts `check_batch_sharded`'s
 
 Every phase but lin_fastpath runs with JGRAFT_LIN_FASTPATH=0 (set at
 the start), as the reference's test suite runs: at the default knobs
@@ -234,7 +280,7 @@ the host certifier decides most valid rows before any kernel.
 
 Then the kernels' summary line (dense_scan, mask_scan, sort_scan,
 segment_scan, cycle_closure, cycle_closure_tiled, election_safety,
-dense_scan_chunk, mask_scan_chunk, sort_scan_chunk; each with its
+verdict_counts, dense_scan_chunk, mask_scan_chunk, sort_scan_chunk; each with its
 library's ptxas registers and spill bytes; a one-shot kernel's launches
 are its JGRAFT_SCAN_CHUNK=0 arms', a chunk kernel's the default runs'
 of every path, and its ms, plain ms and bound one measured launch's),
@@ -252,8 +298,10 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+T0 = time.perf_counter()
 SEED = 20260729
 N_HISTORIES = 1000
 N_OPS = 1000
@@ -269,6 +317,13 @@ COUNTER10_SHAPE = (10, CRASH_P, MAX_CRASHES)
 #: keep the script inside half its time limit; counter10_main still
 #: holds its full-size groups to the plain version)
 COUNTER10_KERNEL_OPS = 250
+#: histories in each batch of the suites beside the north star (the
+#: counter, the queue, the 10-process counter, the set, list-append):
+#: cut from N_HISTORIES to keep the script inside half its time limit.
+#: Their rows keep the suite's shape (N_OPS ops, the same processes and
+#: crashes), so their kernels and plain versions run at the same widths
+#: and lengths
+SUITE_ROWS = 250
 #: warp schedulers (sub-partitions) per SM on Hopper
 SUB_PARTITIONS_PER_SM = 4
 
@@ -315,6 +370,9 @@ KERNELS = {
     "election_safety": (
         "jepsen_jgroups_raft_tpu_torch/ops/csrc/election_safety.cu",
         "jepsen_jgroups_raft_tpu/models/leader.py:163"),
+    "verdict_counts": (
+        "jepsen_jgroups_raft_tpu_torch/ops/csrc/verdict_counts.cu",
+        "jepsen_jgroups_raft_tpu/parallel/mesh.py:141"),
     # the chunk entry points of B1, B4 and B5 (one kernel body each, carry in
     # and out): the reference's chunk forms
     "dense_scan_chunk": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/dense_scan.cu",
@@ -329,17 +387,22 @@ KERNEL_LIBRARY = {"cycle_closure_tiled": "cycle_closure",
                   "dense_scan_chunk": "dense_scan",
                   "mask_scan_chunk": "mask_scan",
                   "sort_scan_chunk": "sort_scan"}
-#: timed runs of each main path's check (after one warm-up); the best
-#: is kept (3 up to PR 9; 2 since PR 10's wavefront phases, to keep the
-#: script inside its time)
+#: timed runs of each main path's check; the best is kept. No warm-up
+#: run, to keep the script inside half its time limit: the first timed
+#: run stands for it
 MAIN_REPS = 2
+#: the longest wait for the kernels' checks against their plain versions
+#: (`finish_kernel_checks`; they took ~270 s alone)
+KERNEL_CHECKS_TIMEOUT_S = 900
 #: chunk sizes chunk_kernel holds the chunk forms to their plain
 #: versions at (128 is the reference's default JGRAFT_SCAN_CHUNK)
 CHUNK_SIZES = (1, 32, 128)
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; `t_s`: seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -775,11 +838,11 @@ def phase_profile(dev, model, histories):
     return share
 
 
-def suite_histories(kind: str, **kw):
-    """The suite shape: N_HISTORIES histories of N_OPS ops, N_PROCS
-    processes, crash_p CRASH_P, at most MAX_CRASHES crashes, seed SEED
-    (`kw`: the generator's other arguments, e.g. value_range). Returns
-    (histories, seconds to make them)."""
+def suite_histories(kind: str, n: int = N_HISTORIES, **kw):
+    """The suite shape: n histories of N_OPS ops, N_PROCS processes,
+    crash_p CRASH_P, at most MAX_CRASHES crashes, seed SEED (`kw`: the
+    generator's other arguments, e.g. value_range). Returns (histories,
+    seconds to make them)."""
     from jepsen_jgroups_raft_tpu_torch.history.synth import (
         random_valid_history)
 
@@ -788,13 +851,13 @@ def suite_histories(kind: str, **kw):
     hs = [random_valid_history(rng, kind, n_ops=N_OPS, n_procs=N_PROCS,
                                crash_p=CRASH_P, max_crashes=MAX_CRASHES,
                                **kw)
-          for _ in range(N_HISTORIES)]
+          for _ in range(n)]
     return hs, time.perf_counter() - t0
 
 
 def counter10_histories():
     """Counter histories at upstream's documented concurrency: N_OPS ops,
-    COUNTER10_SHAPE, seed SEED + 10; the first N_HISTORIES whose window
+    COUNTER10_SHAPE, seed SEED + 10; the first SUITE_ROWS whose window
     is within the mask cap (12). Returns (histories, histories drawn,
     windows of the drawn, seconds, the drawn histories beyond the cap
     — `wide_auto`'s input)."""
@@ -809,7 +872,7 @@ def counter10_histories():
     rng = random.Random(SEED + 10)
     n_procs, crash_p, crashes = COUNTER10_SHAPE
     m, kept, wide, windows = Counter(), [], [], {}
-    while len(kept) < N_HISTORIES:
+    while len(kept) < SUITE_ROWS:
         h = random_valid_history(rng, "counter", n_ops=N_OPS, n_procs=n_procs,
                                  crash_p=crash_p, max_crashes=crashes)
         w = encode_history(h, m).n_slots
@@ -928,11 +991,12 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
              kernel: str, ptxas: dict, n_ops: int = N_OPS,
              one_shot: bool = False, measure_chunk: bool = False) -> dict:
     """Drive one main path through check_histories on the card at the
-    default chunk (the wavefront over the chunk kernels): a warm-up, then
-    best of MAIN_REPS, each run with the launch counts set to 0 just
-    before it and read just after (the path's chunk kernel must have
-    launched), with its wavefront counters. Guards: every history VALID
-    (valid by construction), every row on `tier`. Then the breakdown of
+    default chunk (the wavefront over the chunk kernels): best of
+    MAIN_REPS (no warm-up: the first run stands for it), each run with
+    the launch counts set to 0 just before it and read just after (the
+    path's chunk kernel must have launched), with its wavefront
+    counters. Guards: every history VALID (valid by construction), every
+    row on `tier`. Then the breakdown of
     one run: encode, group + pack, the one-shot kernels overlapped (span,
     per group) and each group alone, ns per row, the plain version's
     time and bitwise agreement on the same groups, the bound from the
@@ -962,7 +1026,6 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
     import numpy as np
 
     chunk_kernel = kernel + "_chunk"
-    check_histories(histories, model, device=dev)  # warm-up
     consume_tiers()
     walls, launches, wave = [], None, None
     for _ in range(MAIN_REPS):
@@ -1681,7 +1744,7 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
                   measure_chunk: bool = False, **extra) -> dict:
     """A ladder path (the set, list-append) through check_histories on
     the card at the default chunk, as `run_path` measures the others:
-    warm-up, best of MAIN_REPS with the launch counts set to 0 just
+    best of MAIN_REPS (no warm-up) with the launch counts set to 0 just
     before each run and read just after; guards: every history VALID,
     every row on the sort tier, 0 host rows, sort_scan_chunk launched.
     Then the ladder's breakdown: encode, pack, each rung's rows, one-shot
@@ -1705,7 +1768,6 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
     from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
     from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
 
-    check_histories(histories, model, device=dev)  # warm-up
     consume_tiers()
     walls, launches, wave = [], None, None
     for _ in range(MAIN_REPS):
@@ -2137,9 +2199,11 @@ def reset_all_launch_counts() -> None:
     from jepsen_jgroups_raft_tpu_torch.ops import (dense_scan,
                                                    election_safety,
                                                    linear_scan,
-                                                   segment_scan)
+                                                   segment_scan,
+                                                   verdict_counts)
 
-    for mod in (dense_scan, linear_scan, segment_scan, election_safety):
+    for mod in (dense_scan, linear_scan, segment_scan, election_safety,
+                verdict_counts):
         mod.reset_launch_counts()
 
 
@@ -2147,13 +2211,15 @@ def all_launch_counts() -> dict:
     from jepsen_jgroups_raft_tpu_torch.ops import (dense_scan,
                                                    election_safety,
                                                    linear_scan,
-                                                   segment_scan)
+                                                   segment_scan,
+                                                   verdict_counts)
 
     return {**dense_scan.launch_counts(), **linear_scan.launch_counts(),
             **dense_scan.chunk_launch_counts(),
             **linear_scan.chunk_launch_counts(),
             **segment_scan.launch_counts(),
-            **election_safety.launch_counts()}
+            **election_safety.launch_counts(),
+            **verdict_counts.launch_counts()}
 
 
 def with_env(name: str, value, fn):
@@ -3657,6 +3723,317 @@ def phase_keyed_main(dev) -> dict:
     return {}
 
 
+#: B10's edge sizes: verdict_counts is held to its plain version, bitwise,
+#: at each, in both modes, on flags sliced at unaligned offsets too
+VERDICT_SIZES = (0, 1, 31, 32, 33, 1000, 1 << 20)
+#: (ok, overflow, real) start offsets of the sliced flags: equal offsets
+#: take the 16-byte loads after a scalar head, unequal ones the scalar loop
+VERDICT_OFFSETS = ((0, 0, 0), (1, 1, 1), (3, 5, 7), (16, 0, 9), (15, 15, 15))
+#: 32-bit operations a row of verdict_counts: ok & ~overflow & real (3),
+#: overflow & real (1), two adds
+VERDICT_OPS_PER_ROW = 6
+#: the cluster phase's batch: CLUSTER_HISTORIES histories of N_OPS ops on
+#: each of two ranks (cut from N_HISTORIES: two processes start on the
+#: card and the phase stays short)
+CLUSTER_HISTORIES = 128
+CLUSTER_SEED = SEED + 40
+
+
+def verdict_counts_edges(dev) -> int:
+    """verdict_counts against verdict_counts_plain on the card, bitwise, in
+    both modes at VERDICT_SIZES, each on three flag rows cut from one
+    tensor at VERDICT_OFFSETS; returns the comparisons made."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    compared = 0
+    for B in VERDICT_SIZES:
+        u = torch.rand((3, B + 16), generator=gen)
+        flags = (u < torch.tensor([[0.7], [0.3], [0.8]])).to(dev)
+        for o in VERDICT_OFFSETS:
+            ok, ovf, real = (flags[r, o[r]:o[r] + B] for r in range(3))
+            for mode in ("dense", "sort"):
+                got = vc.verdict_counts(ok, ovf, real, mode)
+                want = vc.verdict_counts_plain(ok, ovf, real, mode)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"verdict_counts differs from its plain version at "
+                        f"B={B}, offsets {o}, {mode}: {got.tolist()} != "
+                        f"{want.tolist()}")
+                compared += 1
+    return compared
+
+
+def verdict_counts_timed(dev, ok, ovf, real) -> dict:
+    """verdict_counts on the north-star flags [B]: the wrapper call, the
+    kernel alone (`launch_device_ms`), the plain version, one
+    `torch.count_nonzero` of the two masked products (the library
+    yardstick, never on a path), and the kernel alone at 2^20 rows; the
+    bound from 3·B bytes read, 16 written and VERDICT_OPS_PER_ROW·B
+    operations."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    B = int(ok.shape[0])
+    _, launch = vc.verdict_counts_launcher(ok, ovf, real, "sort")
+    prods = torch.stack([ok & ~ovf & real, ovf & real])
+    big = (torch.rand((3, 1 << 20), device=dev) < 0.5)
+    _, big_launch = vc.verdict_counts_launcher(big[0], big[1], big[2],
+                                               "sort")
+    return {
+        "B": B,
+        "ms": event_ms(lambda: vc.verdict_counts(ok, ovf, real, "sort"),
+                       reps=20),
+        "device_ms": launch_device_ms(launch, reps=20),
+        "plain_ms": event_ms(
+            lambda: vc.verdict_counts_plain(ok, ovf, real, "sort"), reps=20),
+        "library_ms": event_ms(lambda: torch.count_nonzero(prods, dim=1),
+                               reps=20),
+        "t_bytes": (3 * B + 16) / HBM_BYTES_PER_S,
+        "t_ops": VERDICT_OPS_PER_ROW * B / CORE_OPS_PER_S,
+        "device_ms_1m": launch_device_ms(big_launch, reps=20),
+        "bound_ms_1m": (3 * (1 << 20) + 16) / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def phase_mesh(dev, model, histories) -> dict:
+    """Phase 29: B10 on the north-star batch (see the module docstring).
+    Returns the kernels-line numbers of verdict_counts."""
+    import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_encoded)
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
+        DenseLaunch, build_dense_launches, run_chunked, run_dense_groups)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        encode_history, pack_batch, pack_macro_batch)
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+        dense_plans_grouped)
+    from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import bucket_slots
+    from jepsen_jgroups_raft_tpu_torch.parallel.mesh import (
+        check_batch_sharded)
+
+    n = len(histories)
+    t0 = time.perf_counter()
+    encs = [encode_history(h, model) for h in histories]
+    encode_s = time.perf_counter() - t0
+    grouped, rest = dense_plans_grouped(model, encs)
+    batches = [pack_macro_batch([encs[i] for i in idxs])
+               for idxs, _ in grouped]
+    n_slots = bucket_slots(max(e.n_slots for e in encs))
+    rest_ev = pack_batch([encs[i] for i in rest])["events"] if rest else None
+    # the wavefront's verdicts on the same groups (and rows)
+    launches, subs = build_dense_launches(
+        model, [(idxs, plan, b) for (idxs, plan), b
+                in zip(grouped, batches)], device=dev)
+    want = np.zeros((n,), dtype=bool)
+    for sub, out in zip(subs, run_chunked(launches)):
+        want[sub] = out.ok
+    if rest:
+        want[rest] = [r["valid?"] is True for r in
+                      check_encoded([encs[i] for i in rest], model,
+                                    device=dev)]
+
+    def one_shot():
+        fins = [check_batch_sharded(model, b["events"], dense=plan,
+                                    defer=True, macro_p=b["macro_p"],
+                                    device=dev)
+                for b, (_, plan) in zip(batches, grouped)]
+        if rest:
+            fins.append(check_batch_sharded(model, rest_ev, n_slots=n_slots,
+                                            defer=True, device=dev))
+        return [f() for f in fins]
+
+    def groups_run():
+        return run_dense_groups([DenseLaunch(
+            events=torch.from_numpy(b["events"]).to(dev),
+            val_of=torch.from_numpy(plan.val_of).to(dev),
+            n_events=torch.from_numpy(b["n_events"]).to(dev),
+            n_slots=plan.n_slots, macro_p=b["macro_p"], tag=plan.kernel_tag,
+            kind=plan.kind) for b, (_, plan) in zip(batches, grouped)], model)
+
+    def timed(fn, reps=5):
+        fn()  # warm-up
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return walls
+
+    # the main path of B10: the launch counts set to 0 just before each
+    # arm's drive and read just after
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    outs = one_shot()
+    arm_s = time.perf_counter() - t0
+    arm_launches = all_launch_counts()
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    l_ok, l_ovf, l_valid, l_unknown = check_batch_sharded(
+        model, pack_batch(encs)["events"], n_slots=n_slots, device=dev)
+    ladder_s = time.perf_counter() - t0
+    ladder_launches = all_launch_counts()
+    got = np.zeros((n,), dtype=bool)
+    for (idxs, _), (ok, _, _, _) in zip(grouped, outs):
+        got[idxs] = ok
+    if rest:
+        got[rest] = outs[-1][0]
+    n_valid = sum(o[2] for o in outs)
+    n_unknown = sum(o[3] for o in outs)
+    if (n_valid, n_unknown) != (n, 0) or not np.array_equal(got, want) \
+            or not want.all():
+        raise AssertionError(f"mesh one-shot arm: {n_valid} VALID, "
+                             f"{n_unknown} UNKNOWN of {n}; "
+                             f"{int((got != want).sum())} rows differ from "
+                             "run_chunked")
+    # The ladder cannot hold every register frontier: at C = 256 about
+    # half of these rows overflow undecided, in the reference's ladder as
+    # in this one (tests/test_torch_mesh.py). Every row it decides must be
+    # VALID, as run_chunked's, and none INVALID.
+    undecided = l_ovf & ~l_ok
+    if l_valid + l_unknown != n or not np.array_equal(l_ok | undecided,
+                                                      want) \
+            or l_unknown != int(undecided.sum()):
+        raise AssertionError(f"mesh ladder arm: {l_valid} VALID, "
+                             f"{l_unknown} UNKNOWN of {n}, "
+                             f"{int((~l_ok & ~l_ovf).sum())} INVALID")
+    for name, lc, kernels in (
+            ("one-shot", arm_launches,
+             {"dense_scan": len(grouped), "verdict_counts": len(grouped)}),
+            ("ladder", ladder_launches, {"sort_scan": 1})):
+        for k, least in kernels.items():
+            if lc[k] < least:
+                raise AssertionError(f"mesh {name} arm: {k} launched "
+                                     f"{lc[k]} times, expected {least}")
+    # the ladder counts on the host: no verdict_counts launch is unread
+    if ladder_launches["verdict_counts"] or \
+            arm_launches["verdict_counts"] != len(grouped):
+        raise AssertionError("mesh: verdict_counts launched "
+                             f"{arm_launches['verdict_counts']} times in "
+                             f"the one-shot arm (groups: {len(grouped)}), "
+                             f"{ladder_launches['verdict_counts']} in the "
+                             "ladder (expected 0)")
+    # in turns (groups, arm, arm, groups): the two differ by where the
+    # copies and launches are queued, which the card's spread can hide
+    groups_walls = timed(groups_run)
+    arm_walls = timed(one_shot) + timed(one_shot)
+    groups_walls += timed(groups_run)
+    compared = verdict_counts_edges(dev)
+    flags = [torch.from_numpy(x).to(dev) for x in
+             (got, np.zeros((n,), dtype=bool), np.ones((n,), dtype=bool))]
+    vline = verdict_counts_timed(dev, *flags)
+    emit("mesh", histories=n, encode_s=encode_s,
+         groups=[len(idxs) for idxs, _ in grouped], rest_rows=len(rest),
+         n_slots=n_slots, one_shot_s=arm_s, one_shot_launches=arm_launches,
+         one_shot_walls_s=arm_walls, run_dense_groups_walls_s=groups_walls,
+         ladder_s=ladder_s, ladder_launches=ladder_launches,
+         ladder_overflowed=int(l_ovf.sum()), ladder_valid=l_valid,
+         ladder_unknown=l_unknown, n_valid=n_valid,
+         verdict_counts_compared=compared, verdict_counts=vline,
+         power=nvidia_smi_line())
+    return dict(vline, max_abs_err=0,
+                launches=arm_launches["verdict_counts"])
+
+
+def phase_cluster(dev, model) -> None:
+    """Phase 30: two ranks on this card through `launch_local_cluster`
+    (see the module docstring)."""
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        encode_history, pack_macro_batch)
+    from jepsen_jgroups_raft_tpu_torch.models import Counter
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import dense_plan
+    from jepsen_jgroups_raft_tpu_torch.parallel.launch import (
+        launch_local_cluster)
+    from jepsen_jgroups_raft_tpu_torch.parallel.mesh import (
+        check_batch_sharded)
+    from jepsen_jgroups_raft_tpu_torch.parallel.selfcheck import seeded_batch
+
+    shape = ["--histories", str(CLUSTER_HISTORIES), "--ops", str(N_OPS),
+             "--procs", str(N_PROCS), "--wide", "0", "--corrupt-every",
+             "8", "--seed", str(CLUSTER_SEED)]
+    t0 = time.perf_counter()
+    outs = launch_local_cluster(
+        2, [sys.executable, "-m",
+            "jepsen_jgroups_raft_tpu_torch.parallel.selfcheck", *shape,
+            "--macro", "1", "--algorithms", "auto", "--global", "--device",
+            dev.type],
+        env_extra={"PYTHONPATH": str(Path(__file__).resolve().parent),
+                   "JGRAFT_LIN_FASTPATH": "0"}, timeout_s=300)
+    cluster_s = time.perf_counter() - t0
+    ranks = []
+    for rank, (rc, out) in enumerate(outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("SELFCHECK ")]
+        if rc != 0 or len(lines) != 1:
+            raise AssertionError(f"cluster rank {rank} exited {rc}:\n"
+                                 f"{out[-3000:]}")
+        ranks.append(json.loads(lines[0][len("SELFCHECK "):]))
+    hs = seeded_batch(CLUSTER_SEED, CLUSTER_HISTORIES, N_OPS, N_PROCS, 0, 8)
+    t0 = time.perf_counter()
+    single = [r["valid?"] for r in
+              with_env("JGRAFT_MACRO_EVENTS", "1",
+                       lambda: check_histories(hs, model, "auto",
+                                               device=dev))]
+    single_s = time.perf_counter() - t0
+
+    def counts(m, batch):
+        encs = [encode_history(h, m) for h in batch]
+        packed = pack_macro_batch(encs)
+        return list(check_batch_sharded(
+            m, packed["events"], dense=dense_plan(m, encs),
+            macro_p=packed["macro_p"], device=dev)[2:])
+
+    want = {"register": counts(model, hs),
+            "counter": counts(Counter(), seeded_batch(
+                CLUSTER_SEED + 1, CLUSTER_HISTORIES, N_OPS, N_PROCS,
+                kind="counter"))}
+    if not (0 < sum(single) < len(single)):
+        raise AssertionError("cluster: the batch should hold VALID and "
+                             "INVALID rows")
+    for r in ranks:
+        [check] = r["checks"].values()
+        if check["verdicts"] != single:
+            raise AssertionError(f"cluster rank {r['rank']}: verdicts "
+                                 "differ from one process's")
+        if {k: list(v) for k, v in r["global"].items()} != want:
+            raise AssertionError(f"cluster rank {r['rank']}: global "
+                                 f"counts {r['global']} != {want}")
+        if r["tiny"] != single[:3] or r["empty_shard"] != single[:1]:
+            raise AssertionError(f"cluster rank {r['rank']}: the 3-row "
+                                 "or the empty-shard check differs")
+    emit("cluster", ranks=len(ranks), histories=CLUSTER_HISTORIES,
+         devices=[r["device"] for r in ranks],
+         rank_seconds=[r["seconds"] for r in ranks], cluster_s=cluster_s,
+         single_process_s=single_s, n_valid=sum(single), counts=want,
+         remote_rows=[r["checks"][next(iter(r["checks"]))]["kernels"]
+                      .count("remote-shard") for r in ranks])
+
+
+def phase_mesh_alone(dev) -> None:
+    """`--only mesh`: phase 29 on a north-star batch of its own."""
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+
+    histories, synth_s = suite_histories("register")
+    emit("mesh_synth", seconds=synth_s)
+    phase_mesh(dev, CasRegister(), histories)
+
+
+def phase_cluster_alone(dev) -> None:
+    """`--only cluster`: phase 30, alone."""
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+
+    phase_cluster(dev, CasRegister())
+
+
 def phase_segment_timed(dev) -> None:
     """`--only segment`: config 5's segment batch through
     `segment_kernel_timed` (as long_main measures it), alone."""
@@ -3685,7 +4062,363 @@ def phase_election_alone(dev) -> None:
 #: the full run cut to it (no kernels line)
 ONLY = {"segment": (("segment_scan", "segment_scan_profile"),
                     phase_segment_timed),
-        "election": (("election_safety",), phase_election_alone)}
+        "election": (("election_safety",), phase_election_alone),
+        "mesh": (("dense_scan", "mask_scan", "sort_scan", "verdict_counts"),
+                 phase_mesh_alone),
+        "cluster": (("dense_scan", "mask_scan", "sort_scan",
+                     "verdict_counts"), phase_cluster_alone)}
+
+
+def kernel_checks(dev, model) -> dict:
+    """Phases 3-5, 13, 13b, 16 and 21: each kernel against its plain
+    version on the shapes of its own cases (nothing in them times the
+    card for the kernels line). Returns each kernel's max |kernel -
+    plain| (0, or a phase fails)."""
+    # 3. dense_scan against its plain version at every window
+    t0 = time.perf_counter()
+    compared, corner_err = phase_kernel(dev, model)
+    emit("kernel_summary", rows_compared=compared, max_abs_err=corner_err,
+         seconds=time.perf_counter() - t0)
+
+    # 4. mask_scan against its plain version
+    t0 = time.perf_counter()
+    compared, mask_err = phase_mask_kernel(dev)
+    emit("mask_kernel_summary", rows_compared=compared,
+         max_abs_err=mask_err, seconds=time.perf_counter() - t0)
+
+    # 5. domain and mask groups launched together
+    _, groups_err = phase_groups(dev, model)
+
+    # 13. sort_scan against its plain version
+    t0 = time.perf_counter()
+    compared, sort_err, overflowed = phase_sort_kernel(dev)
+    emit("sort_kernel_summary", rows_compared=compared, max_abs_err=sort_err,
+         overflowed_and_ok=overflowed["ok"],
+         overflowed_and_not_ok=overflowed["not_ok"],
+         seconds=time.perf_counter() - t0)
+
+    # 13b. the chunk forms against their plain versions after every launch
+    t0 = time.perf_counter()
+    chunk_errs = phase_chunk_kernel(dev)
+    emit("chunk_kernel_summary", max_abs_err=max(chunk_errs.values()),
+         seconds=time.perf_counter() - t0)
+
+    # 16. segment_scan against its plain version at full segment size
+    t0 = time.perf_counter()
+    runs, live, seg_err = phase_segment_kernel(dev)
+    emit("segment_kernel_summary", runs_compared=runs, live_runs=live,
+         max_abs_err=seg_err, seconds=time.perf_counter() - t0)
+
+    # 21. B7 and B8 against their plain versions at every bucket
+    t0 = time.perf_counter()
+    ck = phase_cycle_kernel(dev)
+    emit("cycle_kernel_summary", max_abs_err=ck["max_abs_err"],
+         library_ms=ck["library_ms"], seconds=time.perf_counter() - t0)
+    return {"dense_scan": max(corner_err, groups_err["dense_scan"]),
+            "mask_scan": max(mask_err, groups_err["mask_scan"]),
+            "sort_scan": sort_err, "segment_scan": seg_err,
+            "cycle_closure": ck["max_abs_err"],
+            "cycle_closure_tiled": ck["max_abs_err"], **chunk_errs}
+
+
+def kernel_checks_child(conn, out: str, t0: float) -> None:
+    """`kernel_checks` in a process of its own (see `start_kernel_checks`):
+    its lines go to the file `out`, its result or its traceback to
+    `conn`. `t0`: the parent's start, so that `t_s` reads alike."""
+    import traceback
+
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+
+    global T0
+    T0 = t0
+    sys.stdout = open(out, "w", buffering=1)
+    try:
+        conn.send(("ok", kernel_checks(torch.device("cuda"),
+                                       CasRegister())))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+    finally:
+        sys.stdout.flush()
+
+
+def start_kernel_checks(tmp: str):
+    """Start `kernel_checks` in a spawned process on the same card, beside
+    this one's host phases (the kernels are built; the process loads
+    them). Returns (process, its end of the pipe, its output file)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    out = str(Path(tmp) / "kernel_checks.jsonl")
+    proc = ctx.Process(target=kernel_checks_child, args=(send, out, T0))
+    proc.start()
+    send.close()
+    return proc, recv, out
+
+
+def finish_kernel_checks(proc, recv, out: str) -> dict:
+    """Wait for `start_kernel_checks`' process (at most
+    KERNEL_CHECKS_TIMEOUT_S), print its lines, and return its result;
+    fails if it failed, died or outlived the wait."""
+    status, value = "error", "no result: the process timed out or died"
+    if recv.poll(KERNEL_CHECKS_TIMEOUT_S):
+        try:
+            status, value = recv.recv()
+        except EOFError:
+            pass
+    proc.join(60)
+    with open(out) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+    if status != "ok" or proc.exitcode != 0:
+        raise AssertionError(f"the kernels' checks against their plain "
+                             f"versions failed (exit {proc.exitcode}): "
+                             f"{value}")
+    return value
+
+
+def run_phases(dev, model, ptxas: dict, histories: list,
+               synth_s: float) -> list:
+    """Phases 3-30 of the full run, on the kernels `main` built;
+    `histories`: the north-star batch (made in `synth_s` seconds, beside
+    the build). The kernels' checks against their plain versions run in
+    a second process on the card (`start_kernel_checks`) while this one
+    makes the suites' batches and runs the phases whose numbers are
+    host walls: 8, 11, 15, 19, 20, 22-24, 27 and 28. The phases that time
+    the card run after both. Returns the kernels line."""
+    from jepsen_jgroups_raft_tpu_torch.models import (Counter, GSet,
+                                                      ListAppend,
+                                                      TicketQueue)
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+        dense_scan_plain, mask_scan_plain)
+
+    def dense_plain(encs, plan):
+        ev, vo, ne, P, W = group_tensors(encs, plan, True, dev)
+        return dense_scan_plain(ev, vo, W, macro_p=P, n_events=ne,
+                                model=model).cpu().tolist()
+
+    def mask_plain(m):
+        def run(encs, plan):
+            ev, ne, P = mask_tensors(encs, True, dev)
+            return mask_scan_plain(ev, plan.n_slots, P, ne,
+                                   model=m).cpu().tolist()
+        return run
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        proc, recv, out = start_kernel_checks(tmp)
+        try:
+            # the suites' batches beside the north star
+            suites = {kind: suite_histories(kind, SUITE_ROWS)
+                      for kind in ("counter", "queue", "list-append")}
+            suites["set"] = suite_histories("set", SUITE_ROWS,
+                                            value_range=SET_VALUE_RANGE)
+            c10, drawn, windows, c10_synth_s, counter10_wide = \
+                counter10_histories()
+            emit("counter10_synth", kept=len(c10), drawn=drawn,
+                 windows=windows, seconds=c10_synth_s)
+
+            # 8. invalid subset: guaranteed-invalid corruption (the bumped
+            # read leaves the value domain), kernel vs plain vs host oracle
+            rng = random.Random(SEED + 2)
+            bad = []
+            for h in histories[:N_INVALID]:
+                ops_, changed = corrupt_read(h, rng, VALUE_RANGE + 1)
+                if not changed:
+                    raise AssertionError("a north-star history without an "
+                                         "ok read")
+                bad.append(ops_)
+            phase_invalid(dev, model, bad, "dense", dense_plain, "invalid")
+
+            # 11. counter invalid subset: a read raised by 10^6 (beyond any
+            # sum of the history's adds), kernel vs plain vs host oracle
+            rng = random.Random(SEED + 5)
+            bad = []
+            for h in suites["counter"][0][:N_INVALID]:
+                ops_, changed = corrupt_read(h, rng, 10**6)
+                if not changed:
+                    raise AssertionError("a counter history without an ok "
+                                         "read")
+                bad.append(ops_)
+            m = Counter()
+            phase_invalid(dev, m, bad, "mask", mask_plain(m),
+                          "counter_invalid")
+
+            # 15. set invalid subset: kernel vs plain ladder vs host oracle
+            phase_set_invalid(dev, suites["set"][0])
+
+            # 19. the 10-process counter histories beyond the mask cap,
+            # under auto
+            t0 = time.perf_counter()
+            phase_wide_auto(dev, counter10_wide)
+            emit("wide_auto_summary", seconds=time.perf_counter() - t0)
+
+            # 20. the north-star batch at the default knobs against the
+            # fast path off
+            t0 = time.perf_counter()
+            phase_lin_fastpath(dev, histories)
+            emit("lin_fastpath_summary", seconds=time.perf_counter() - t0)
+
+            # 22. the sequential rung at upstream's per-key shape and
+            # bench.py's row, planted stale reads refuted by the cycle tier
+            t0 = time.perf_counter()
+            seq = phase_sequential_main(dev, histories)
+            cycle_launches = dict(seq["launches"])
+            emit("sequential_main_summary", seconds=time.perf_counter() - t0)
+
+            # 23. the planted rows' sc-refuted evidence at the session rung
+            t0 = time.perf_counter()
+            add_counts(cycle_launches,
+                       phase_session_evidence(dev, seq["planted"]))
+            emit("session_evidence_summary",
+                 seconds=time.perf_counter() - t0)
+
+            # 24. the transactional anomaly rung at the reference's A/B
+            # shape
+            t0 = time.perf_counter()
+            add_counts(cycle_launches, phase_anomaly_main(dev))
+            emit("anomaly_main_summary", seconds=time.perf_counter() - t0)
+
+            # 27-28: the re-check of recorded runs (BASELINE config 3) and
+            # the per-key checker (config 4)
+            t0 = time.perf_counter()
+            rec = phase_recorded_main(dev, Path(tmp) / "recorded")
+            emit("recorded_main_summary", seconds=time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            phase_keyed_main(dev)
+            emit("keyed_main_summary", seconds=time.perf_counter() - t0)
+
+            errs = finish_kernel_checks(proc, recv, out)
+        finally:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+
+        # 6. the main path: the north-star batch through check_histories
+        line = {"dense_scan": run_path("main", dev, model, histories,
+                                       synth_s, "dense", "dense_scan",
+                                       ptxas["dense_scan"], one_shot=True,
+                                       measure_chunk=True)}
+        line["dense_scan_chunk"] = line["dense_scan"].pop("chunk")
+
+        # 7. the card's busy share over one check, from a profiler trace
+        phase_profile(dev, model, histories)
+
+        # 9. the counter and queue paths: the suite's shapes on the mask
+        # kernel
+        paths = {}
+        for phase, kind, m in (("counter_main", "counter", Counter()),
+                               ("queue_main", "queue", TicketQueue())):
+            hs, kind_synth_s = suites[kind]
+            paths[phase] = run_path(phase, dev, m, hs, kind_synth_s, "mask",
+                                    "mask_scan", ptxas["mask_scan"],
+                                    one_shot=kind == "counter",
+                                    measure_chunk=kind == "counter")
+            paths[phase]["model"] = m
+
+        # 10. the counter at upstream's documented concurrency (10
+        # processes): windows 10..13, the rows within the mask cap
+        paths["counter10_main"] = run_path("counter10_main", dev, Counter(),
+                                           c10, c10_synth_s, "mask",
+                                           "mask_scan", ptxas["mask_scan"])
+        paths["counter10_main"]["model"] = Counter()
+        mask_line = list(paths.values())
+
+        # 12. the instrumented mask kernel on the paths' own groups
+        phase_mask_profile(dev, paths)
+
+        # 14. the set path: the suite's set shape through the sort ladder
+        set_hs, set_synth_s = suites["set"]
+        line["sort_scan"] = run_sort_path("set_main", dev, GSet(), set_hs,
+                                          set_synth_s, ptxas["sort_scan"],
+                                          one_shot=True, measure_chunk=True,
+                                          value_range=SET_VALUE_RANGE)
+        line["sort_scan_chunk"] = line["sort_scan"].pop("chunk")
+
+        # 17. suite configs 5 and 4, segmented and monolithic, on the card
+        t0 = time.perf_counter()
+        long = phase_long_main(dev)
+        line["segment_scan"] = long["line"]
+        emit("long_main_summary", seconds=time.perf_counter() - t0)
+
+        # 18. config 5 with one late read outside the domain
+        t0 = time.perf_counter()
+        errs["segment_scan"] = max(errs["segment_scan"],
+                                   phase_long_invalid(dev, long["config5"]))
+        emit("long_invalid_summary", seconds=time.perf_counter() - t0)
+
+        # 25. list-append (bench.py config 9) through the sort ladder
+        t0 = time.perf_counter()
+        la_hs, la_synth_s = suites["list-append"]
+        la_line = run_sort_path("listappend_main", dev, ListAppend(), la_hs,
+                                la_synth_s, ptxas["sort_scan"])
+        for k in ("launches", "ms", "plain_ms", "t_bytes", "t_ops"):
+            line["sort_scan"][k] += la_line[k]
+        line["sort_scan"]["max_abs_err"] = max(
+            line["sort_scan"]["max_abs_err"], la_line["max_abs_err"])
+        line["sort_scan_chunk"]["launches"] += la_line["chunk"]["launches"]
+        emit("listappend_main_summary", seconds=time.perf_counter() - t0)
+
+        # the closure kernels' numbers on the batches the main path gave
+        # them
+        t0 = time.perf_counter()
+        for name in ("cycle_closure", "cycle_closure_tiled"):
+            line[name] = closure_line(dev, name, seq["batches"][name],
+                                      cycle_launches.get(name, 0),
+                                      errs["cycle_closure"])
+        emit("closure_main_path_summary", seconds=time.perf_counter() - t0)
+
+        # 26: B9's election-safety kernel, its store in a directory of its
+        # own; its launches on the main path are the recorded re-check's
+        t0 = time.perf_counter()
+        line["election_safety"] = phase_election_kernel(
+            dev, Path(tmp) / "elections")
+        line["election_safety"]["launches"] = rec["election_launches"]
+        emit("election_kernel_summary", seconds=time.perf_counter() - t0)
+
+    # 29-30: B10, the batch mesh on the north-star batch, and two ranks on
+    # this card
+    t0 = time.perf_counter()
+    line["verdict_counts"] = phase_mesh(dev, model, histories)
+    emit("mesh_summary", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_cluster(dev, model)
+    emit("cluster_summary", seconds=time.perf_counter() - t0)
+
+    line["mask_scan"] = {
+        "launches": sum(x["launches"] for x in mask_line),
+        "max_abs_err": max(x["max_abs_err"] for x in mask_line),
+        "ms": sum(x["ms"] for x in mask_line),
+        "plain_ms": sum(x["plain_ms"] for x in mask_line),
+        "t_bytes": sum(x["t_bytes"] for x in mask_line),
+        "t_ops": sum(x["t_ops"] for x in mask_line)}
+    line["mask_scan_chunk"] = dict(
+        paths["counter_main"]["chunk"],
+        launches=sum(x["chunk"]["launches"] for x in paths.values()))
+    errs.update(election_safety=0, verdict_counts=0)
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        x = line[name]
+        rep = ptxas[KERNEL_LIBRARY.get(name, name)]
+        if x["launches"] <= 0:
+            raise AssertionError(f"{name}: never launched on its main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": x["launches"],
+            "max_abs_err": float(max(errs[name], x["max_abs_err"])),
+            "ms": x["ms"], "plain_ms": x["plain_ms"],
+            "bound_ms": max(x["t_bytes"], x["t_ops"]) * 1e3,
+            "bound_by": "bytes" if x["t_bytes"] >= x["t_ops"]
+            else "operations",
+            "library_ms": x.get("library_ms"),
+            "device_ms": x.get("device_ms"),
+            "chain_floor_ms": x.get("chain_floor_ms"),
+            "registers": rep["max_registers"],
+            "spill_bytes": rep["spill_store_bytes"] +
+            rep["spill_load_bytes"]})
+    return kernels
 
 
 def main(argv=None) -> int:
@@ -3708,13 +4441,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     try:
-        from jepsen_jgroups_raft_tpu_torch.models import (CasRegister,
-                                                          Counter, GSet,
-                                                          ListAppend,
-                                                          TicketQueue)
+        from jepsen_jgroups_raft_tpu_torch.models import CasRegister
         from jepsen_jgroups_raft_tpu_torch.ops import _build
-        from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
-            dense_scan_plain, mask_scan_plain)
         from jepsen_jgroups_raft_tpu_torch.platform import toolchain_stamp
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script "
@@ -3748,7 +4476,11 @@ def main(argv=None) -> int:
     path_libs = list(dict.fromkeys(KERNEL_LIBRARY.get(k, k)
                                    for k in KERNELS))
     libs = [*path_libs, "mask_scan_profile", "segment_scan_profile"]
-    build_s = _build.build(libs)
+    # in parallel; the north-star batch is made on the host meanwhile
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(_build.build, libs)
+        histories, synth_s = suite_histories("register")
+        build_s = building.result()
     ptxas = {k: _build.ptxas_report(k) for k in libs}
     emit("build", seconds=build_s, kernels=libs, ptxas=ptxas,
          cycle_closure_functions=_build.ptxas_functions("cycle_closure"))
@@ -3760,242 +4492,7 @@ def main(argv=None) -> int:
                                rep["max_stack_bytes"]):
             raise AssertionError(f"{k} spills or uses a stack: {rep}")
 
-    # 3. dense_scan against its plain version at every window
-    t0 = time.perf_counter()
-    compared, corner_err = phase_kernel(dev, model)
-    emit("kernel_summary", rows_compared=compared, max_abs_err=corner_err,
-         seconds=time.perf_counter() - t0)
-
-    # 4. mask_scan against its plain version
-    t0 = time.perf_counter()
-    compared, mask_err = phase_mask_kernel(dev)
-    emit("mask_kernel_summary", rows_compared=compared,
-         max_abs_err=mask_err, seconds=time.perf_counter() - t0)
-
-    # 5. domain and mask groups launched together
-    _, groups_err = phase_groups(dev, model)
-
-    # 6. the main path: the north-star batch through check_histories
-    histories, synth_s = suite_histories("register")
-    line = {"dense_scan": run_path("main", dev, model, histories, synth_s,
-                                   "dense", "dense_scan",
-                                   ptxas["dense_scan"], one_shot=True,
-                                   measure_chunk=True)}
-    line["dense_scan_chunk"] = line["dense_scan"].pop("chunk")
-
-    # 7. the card's busy share over one check, from a profiler trace
-    phase_profile(dev, model, histories)
-
-    # 8. invalid subset: guaranteed-invalid corruption (the bumped read
-    # leaves the value domain), kernel vs plain vs host oracle
-    def dense_plain(encs, plan):
-        ev, vo, ne, P, W = group_tensors(encs, plan, True, dev)
-        return dense_scan_plain(ev, vo, W, macro_p=P, n_events=ne,
-                                model=model).cpu().tolist()
-
-    def mask_plain(m):
-        def run(encs, plan):
-            ev, ne, P = mask_tensors(encs, True, dev)
-            return mask_scan_plain(ev, plan.n_slots, P, ne,
-                                   model=m).cpu().tolist()
-        return run
-
-    rng = random.Random(SEED + 2)
-    bad = []
-    for h in histories[:N_INVALID]:
-        ops_, changed = corrupt_read(h, rng, VALUE_RANGE + 1)
-        if not changed:
-            raise AssertionError("a north-star history without an ok read")
-        bad.append(ops_)
-    phase_invalid(dev, model, bad, "dense", dense_plain, "invalid")
-
-    # 9. the counter and queue paths: the suite's shapes on the mask kernel
-    paths = {}
-    counter_histories = None
-    for phase, kind, m in (("counter_main", "counter", Counter()),
-                           ("queue_main", "queue", TicketQueue())):
-        hs, synth_s = suite_histories(kind)
-        if kind == "counter":
-            counter_histories = hs
-        paths[phase] = run_path(phase, dev, m, hs, synth_s, "mask",
-                                "mask_scan", ptxas["mask_scan"],
-                                one_shot=kind == "counter",
-                                measure_chunk=kind == "counter")
-        paths[phase]["model"] = m
-    mask_line = list(paths.values())
-
-    # 10. the counter at upstream's documented concurrency (10 processes):
-    # windows 10..13, the rows within the mask cap
-    hs, drawn, windows, synth_s, counter10_wide = counter10_histories()
-    emit("counter10_synth", kept=len(hs), drawn=drawn, windows=windows,
-         seconds=synth_s)
-    paths["counter10_main"] = run_path("counter10_main", dev, Counter(), hs,
-                                       synth_s, "mask", "mask_scan",
-                                       ptxas["mask_scan"])
-    paths["counter10_main"]["model"] = Counter()
-
-    # 11. counter invalid subset: a read raised by 10^6 (beyond any sum
-    # of the history's adds), kernel vs plain vs host oracle
-    rng = random.Random(SEED + 5)
-    bad = []
-    for h in counter_histories[:N_INVALID]:
-        ops_, changed = corrupt_read(h, rng, 10**6)
-        if not changed:
-            raise AssertionError("a counter history without an ok read")
-        bad.append(ops_)
-    m = Counter()
-    phase_invalid(dev, m, bad, "mask", mask_plain(m), "counter_invalid")
-
-    # 12. the instrumented mask kernel on the paths' own groups
-    phase_mask_profile(dev, paths)
-
-    # 13. sort_scan against its plain version
-    t0 = time.perf_counter()
-    compared, sort_err, overflowed = phase_sort_kernel(dev)
-    emit("sort_kernel_summary", rows_compared=compared, max_abs_err=sort_err,
-         overflowed_and_ok=overflowed["ok"],
-         overflowed_and_not_ok=overflowed["not_ok"],
-         seconds=time.perf_counter() - t0)
-
-    # 13b. the chunk forms against their plain versions after every launch
-    t0 = time.perf_counter()
-    chunk_errs = phase_chunk_kernel(dev)
-    emit("chunk_kernel_summary", max_abs_err=max(chunk_errs.values()),
-         seconds=time.perf_counter() - t0)
-
-    # 14. the set path: the suite's set shape through the sort ladder
-    set_hs, synth_s = suite_histories("set", value_range=SET_VALUE_RANGE)
-    line["sort_scan"] = run_sort_path("set_main", dev, GSet(), set_hs,
-                                      synth_s, ptxas["sort_scan"],
-                                      one_shot=True, measure_chunk=True,
-                                      value_range=SET_VALUE_RANGE)
-    line["sort_scan_chunk"] = line["sort_scan"].pop("chunk")
-
-    # 15. set invalid subset: kernel vs plain ladder vs host oracle
-    phase_set_invalid(dev, set_hs)
-
-    # 16. segment_scan against its plain version at full segment size
-    t0 = time.perf_counter()
-    runs, live, seg_err = phase_segment_kernel(dev)
-    emit("segment_kernel_summary", runs_compared=runs, live_runs=live,
-         max_abs_err=seg_err, seconds=time.perf_counter() - t0)
-
-    # 17. suite configs 5 and 4, segmented and monolithic, on the card
-    t0 = time.perf_counter()
-    long = phase_long_main(dev)
-    line["segment_scan"] = long["line"]
-    emit("long_main_summary", seconds=time.perf_counter() - t0)
-
-    # 18. config 5 with one late read outside the domain
-    t0 = time.perf_counter()
-    seg_err = max(seg_err, phase_long_invalid(dev, long["config5"]))
-    emit("long_invalid_summary", seconds=time.perf_counter() - t0)
-
-    # 19. the 10-process counter histories beyond the mask cap, under auto
-    t0 = time.perf_counter()
-    phase_wide_auto(dev, counter10_wide)
-    emit("wide_auto_summary", seconds=time.perf_counter() - t0)
-
-    # 20. the north-star batch at the default knobs against the fast
-    # path off
-    t0 = time.perf_counter()
-    phase_lin_fastpath(dev, histories)
-    emit("lin_fastpath_summary", seconds=time.perf_counter() - t0)
-
-    # 21. B7 and B8 against their plain versions at every bucket
-    t0 = time.perf_counter()
-    ck = phase_cycle_kernel(dev)
-    emit("cycle_kernel_summary", max_abs_err=ck["max_abs_err"],
-         library_ms=ck["library_ms"], seconds=time.perf_counter() - t0)
-
-    # 22. the sequential rung at upstream's per-key shape and bench.py's
-    # row, planted stale reads refuted by the cycle tier
-    t0 = time.perf_counter()
-    seq = phase_sequential_main(dev, histories)
-    cycle_launches = dict(seq["launches"])
-    emit("sequential_main_summary", seconds=time.perf_counter() - t0)
-
-    # 23. the planted rows' sc-refuted evidence at the session rung
-    t0 = time.perf_counter()
-    add_counts(cycle_launches, phase_session_evidence(dev, seq["planted"]))
-    emit("session_evidence_summary", seconds=time.perf_counter() - t0)
-
-    # 24. the transactional anomaly rung at the reference's A/B shape
-    t0 = time.perf_counter()
-    add_counts(cycle_launches, phase_anomaly_main(dev))
-    emit("anomaly_main_summary", seconds=time.perf_counter() - t0)
-
-    # 25. list-append (bench.py config 9) through the sort ladder
-    t0 = time.perf_counter()
-    la_hs, synth_s = suite_histories("list-append")
-    la_line = run_sort_path("listappend_main", dev, ListAppend(), la_hs,
-                            synth_s, ptxas["sort_scan"])
-    for k in ("launches", "ms", "plain_ms", "t_bytes", "t_ops"):
-        line["sort_scan"][k] += la_line[k]
-    line["sort_scan"]["max_abs_err"] = max(line["sort_scan"]["max_abs_err"],
-                                           la_line["max_abs_err"])
-    line["sort_scan_chunk"]["launches"] += la_line["chunk"]["launches"]
-    emit("listappend_main_summary", seconds=time.perf_counter() - t0)
-
-    # the closure kernels' numbers on the batches the main path gave them
-    t0 = time.perf_counter()
-    for name in ("cycle_closure", "cycle_closure_tiled"):
-        line[name] = closure_line(dev, name, seq["batches"][name],
-                                  cycle_launches.get(name, 0),
-                                  ck["max_abs_err"])
-    emit("closure_main_path_summary", seconds=time.perf_counter() - t0)
-
-    # 26-28: B9's election-safety kernel; the re-check of recorded runs
-    # (BASELINE config 3) and the per-key checker (config 4), each store
-    # written to a directory of its own
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-        t0 = time.perf_counter()
-        line["election_safety"] = phase_election_kernel(
-            dev, Path(tmp) / "elections")
-        emit("election_kernel_summary", seconds=time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        rec = phase_recorded_main(dev, Path(tmp) / "recorded")
-        line["election_safety"]["launches"] = rec["election_launches"]
-        emit("recorded_main_summary", seconds=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    phase_keyed_main(dev)
-    emit("keyed_main_summary", seconds=time.perf_counter() - t0)
-
-    line["mask_scan"] = {
-        "launches": sum(x["launches"] for x in mask_line),
-        "max_abs_err": max(x["max_abs_err"] for x in mask_line),
-        "ms": sum(x["ms"] for x in mask_line),
-        "plain_ms": sum(x["plain_ms"] for x in mask_line),
-        "t_bytes": sum(x["t_bytes"] for x in mask_line),
-        "t_ops": sum(x["t_ops"] for x in mask_line)}
-    line["mask_scan_chunk"] = dict(
-        paths["counter_main"]["chunk"],
-        launches=sum(x["chunk"]["launches"] for x in paths.values()))
-    errs = {"dense_scan": max(corner_err, groups_err["dense_scan"]),
-            "mask_scan": max(mask_err, groups_err["mask_scan"]),
-            "sort_scan": sort_err, "segment_scan": seg_err,
-            "cycle_closure": 0, "cycle_closure_tiled": 0,
-            "election_safety": 0, **chunk_errs}
-    kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        x = line[name]
-        rep = ptxas[KERNEL_LIBRARY.get(name, name)]
-        if x["launches"] <= 0:
-            raise AssertionError(f"{name}: never launched on its main path")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": x["launches"],
-            "max_abs_err": float(max(errs[name], x["max_abs_err"])),
-            "ms": x["ms"], "plain_ms": x["plain_ms"],
-            "bound_ms": max(x["t_bytes"], x["t_ops"]) * 1e3,
-            "bound_by": "bytes" if x["t_bytes"] >= x["t_ops"]
-            else "operations",
-            "library_ms": x.get("library_ms"),
-            "device_ms": x.get("device_ms"),
-            "chain_floor_ms": x.get("chain_floor_ms"),
-            "registers": rep["max_registers"],
-            "spill_bytes": rep["spill_store_bytes"] +
-            rep["spill_load_bytes"]})
+    kernels = run_phases(dev, model, ptxas, histories, synth_s)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -68,7 +68,8 @@ step budget), the gate's ``JGRAFT_LIN_FASTPATH_MIN_HIT`` / ``_MIN_OBS``,
 device routes nothing and the card follows `_segment_routing_on`); at
 the weak rungs ``JGRAFT_GREEDY_CERTIFY`` / ``JGRAFT_GREEDY_BACKTRACK``
 (checker/consistency.py) and the cycle tier's ``JGRAFT_CYCLE_*``
-(checker/cycle.py).
+(checker/cycle.py); inside a multi-process group ``JGRAFT_DISTRIBUTED``
+(0 keeps every process on its whole batch; see ``distribute``).
 
 Device: every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs the kernels' plain PyTorch versions on the
@@ -92,6 +93,7 @@ from ..ops.kernel_ir import MASK_DENSE_MAX_SLOTS
 from ..ops.linear_scan import (DEFAULT_N_CONFIGS, MAX_SLOTS, bucket_slots,
                                make_sort_chunk_checker)
 from ..ops.segment_scan import LONG_HISTORY_MIN_EVENTS, check_segmented_batch
+from ..parallel import distributed
 from ..platform import env_int, resolve_device
 from . import autotune
 from .base import Checker, INVALID, UNKNOWN, VALID
@@ -265,16 +267,18 @@ def check_histories(
     n_configs: Optional[int] = None,
     n_slots: Optional[int] = None,
     consistency: str = "linearizable",
+    distribute: bool = True,
 ) -> list[dict]:
     """Check a batch of histories; one result dict per history. The
     batch is the unit of device work: histories are encoded, grouped
     by window, and each group is one kernel launch. ``consistency``
-    selects the verdict's rung (`check_encoded`)."""
+    selects the verdict's rung, ``distribute`` the cluster seam
+    (`check_encoded`)."""
     dev = resolve_device(device)
     encs = [encode_history(h, model) for h in histories]
     return check_encoded(encs, model, algorithm, dev, witness,
                          max_cpu_configs, n_configs, n_slots,
-                         consistency=consistency)
+                         consistency=consistency, distribute=distribute)
 
 
 def check_encoded(
@@ -288,11 +292,22 @@ def check_encoded(
     n_slots: Optional[int] = None,
     consistency: str = "linearizable",
     lin_fastpath: Optional[bool] = None,
+    distribute: bool = True,
 ) -> list[dict]:
     """Check already-encoded histories (`history.packing.encode_history`),
     one result dict each. ``lin_fastpath``: None = the default (the
     pre-kernel certify pass runs for "auto" and "dense" unless
     ``JGRAFT_LIN_FASTPATH=0``), False = skip it.
+
+    ``distribute`` (default True): inside a multi-process group
+    (`parallel.distributed.wavefront_active`) a batch of more than one
+    row goes through the reference's seam, `parallel.distributed.
+    run_sharded`: each process checks its row shard and the verdicts are
+    exchanged, so every process returns the whole batch's results (other
+    processes' rows as ``"kernel": "remote-shard"`` stubs). Such a batch
+    stays kernel-first — no lin fast path — unless the gate store is
+    shared (``JGRAFT_LINFP_DIR``): each process's gate is its own state,
+    and two processes evicting different rows would break the exchange.
 
     ``consistency`` selects the rung (checker/consistency.py):
     "linearizable" (default), "sequential" or "session" (aliases
@@ -315,16 +330,26 @@ def check_encoded(
     if consistency != "linearizable":
         return _check_rung(encs, model, algorithm, dev, witness,
                            max_cpu_configs, n_configs, n_slots,
-                           consistency)
+                           consistency, distribute)
 
-    def rest(sub):
+    def local(sub):
         return _check_encoded(sub, model, algorithm, dev, witness,
                               max_cpu_configs, n_configs, n_slots)
 
-    # The reference also keeps sharded batches kernel-first unless the
-    # gate store is shared (its distributed wavefront); the port has no
-    # mesh yet (B10), so the condition does not arise.
+    def rest(sub):
+        # the reference's `_kernel_path` seam
+        if distribute and distributed.wavefront_active() and len(sub) > 1:
+            return distributed.run_sharded(sub, local)
+        return local(sub)
+
+    # A sharded batch stays kernel-first unless every process reads the
+    # same gate records (the shared store): the gate is process-local
+    # state, and processes that evicted different rows would exchange
+    # mismatched shards.
+    distributing = (distribute and distributed.wavefront_active()
+                    and len(encs) > 1)
     if not (lin_fastpath is not False and encs
+            and (not distributing or autotune.linfp_shared_dir() is not None)
             and algorithm in LIN_FASTPATH_ALGOS and lin_fastpath_on()):
         return rest(encs)
     results = lin_fastpath_pass(encs, model)
@@ -336,7 +361,8 @@ def check_encoded(
 
 
 def _check_rung(encs, model, algorithm, dev, witness, max_cpu_configs,
-                n_configs, n_slots, consistency) -> list[dict]:
+                n_configs, n_slots, consistency,
+                distribute: bool = True) -> list[dict]:
     """A weak rung, as the reference's `check_encoded` runs it: certify
     and relax the batch once (`apply_rung`), refute by dependency cycle
     at the sequential rung (`find_cycles`), check the rest at the
@@ -401,7 +427,7 @@ def _check_rung(encs, model, algorithm, dev, witness, max_cpu_configs,
         sub = check_encoded([relaxed[i] for i in todo], model, algorithm,
                             dev, witness, max_cpu_configs, n_configs,
                             n_slots, consistency="linearizable",
-                            lin_fastpath=False)
+                            lin_fastpath=False, distribute=distribute)
         for i, r in zip(todo, sub):
             results[i] = r
     if consistency == "session":

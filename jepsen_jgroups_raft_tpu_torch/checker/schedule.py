@@ -28,6 +28,8 @@ reference's bucket series.
 `run_dense_groups` and `run_sort_rung` are the one-shot path
 (`JGRAFT_SCAN_CHUNK=0`): every group's kernel launched at once on side
 streams, or one rung of the sort ladder, then one synchronisation.
+`launch_dense_groups` is the launch half of `run_dense_groups`, which
+`parallel.mesh.check_batch_sharded` finalizes later (``defer=True``).
 
 The counters follow the reference's checker/schedule.py: per-tier
 decided rows and wall (`note_tier`, `consume_tiers`) and run counters
@@ -54,6 +56,7 @@ from ..history.packing import bucket_rows
 from ..ops.dense_scan import (dense_scan, dense_scan_launcher, mask_scan,
                               mask_scan_launcher)
 from ..ops.linear_scan import sort_scan, sort_scan_launcher
+from ..ops.verdict_counts import verdict_counts, verdict_counts_launcher
 from ..platform import env_int, resolve_device
 
 #: Default events per chunk, the reference's (its calibration on the
@@ -190,15 +193,16 @@ class DenseLaunch:
 
     events [B, E, R] int32, val_of [B, S] int32 (a [B, 1] dummy for mask
     groups, which the mask kernel does not read), n_events [B] int32
-    (real row counts), n_slots the group's window W, macro_p the macro
-    payload width (None for legacy rows), tag the kernel label for
-    results, kind the plan's kind: "domain" (`dense_scan`) or "mask"
-    (`mask_scan`), model the group's own model where it differs from the
-    run's (one launch can then mix groups of several models)."""
+    (real row counts; None: all E), n_slots the group's window W,
+    macro_p the macro payload width (None for legacy rows), tag the
+    kernel label for results, kind the plan's kind: "domain"
+    (`dense_scan`) or "mask" (`mask_scan`), model the group's own model
+    where it differs from the run's (one launch can then mix groups of
+    several models)."""
 
     events: torch.Tensor
     val_of: torch.Tensor
-    n_events: torch.Tensor
+    n_events: Optional[torch.Tensor]
     n_slots: int
     macro_p: Optional[int] = None
     tag: str = "dense"
@@ -229,36 +233,49 @@ class GroupRun:
     """Verdicts of `run_dense_groups`: ok[k] is launch k's [B] bool
     array. When timed (card only), kernel_ms[k] is launch k's kernel time
     on its own stream and span_ms the check's kernel span, from before
-    the first launch to the join of the last, by CUDA events."""
+    the first launch to the end of the last kernel, by CUDA events. With
+    counts, counts[k] is launch k's int64 (n_valid, n_unknown) from B10's
+    `verdict_counts`."""
 
     ok: List[np.ndarray]
     wall_s: float
     kernel_ms: Optional[List[float]] = None
     span_ms: Optional[float] = None
+    counts: Optional[List[np.ndarray]] = None
 
 
 def _timer() -> torch.cuda.Event:
     return torch.cuda.Event(enable_timing=True)
 
 
-def run_dense_groups(launches: List[DenseLaunch], model,
-                     timed: bool = False) -> GroupRun:
-    """Launch every group's kernel (domain or mask, by `kind`), then
-    synchronise once and read the verdicts. On the card every group is
-    checked and allocated first, then the kernels launch back to back,
-    each on its own side stream:
-    a side stream first waits for the current stream (which carried the
-    inputs' host-to-device copies and allocated the verdicts), every
-    tensor a side stream touches is recorded on it, and the current
-    stream waits for all of them before the verdicts are read. `timed`
-    adds CUDA events (card only) for per-group kernel times and the
-    overlapped span."""
+def launch_dense_groups(launches: List[DenseLaunch], model,
+                        timed: bool = False,
+                        counts: bool = False) -> Callable[[], GroupRun]:
+    """Launch every group's kernel (domain or mask, by `kind`) and return
+    finalize() -> GroupRun, which blocks once and reads the verdicts. On
+    the card every group is checked and allocated first, then the kernels
+    launch back to back, each on its own side stream: a side stream
+    first waits for the current stream (which carried the inputs'
+    host-to-device copies and allocated the outputs), copies its
+    verdicts to pinned host memory after its kernel, and records an
+    event; every tensor a side stream touches is recorded on it.
+    finalize blocks on those events, never on the whole device, and the
+    current stream never waits for a side stream, so the copies of a
+    check launched after this one overlap this one's kernels. `counts`
+    adds B10's `verdict_counts` in dense mode (every row real) after each
+    group's kernel on its stream. `timed` adds CUDA events (card only)
+    for per-group kernel times and the overlapped span, from before the
+    first launch to the end of the last kernel."""
     t0 = time.perf_counter()
     on_card = any(ln.events.device.type == "cuda" for ln in launches)
     timed = timed and on_card
-    oks, marks, span = [], [], None
+    marks, start, dones = [], None, []
     if not on_card:
         oks = [ln.scan(model) for ln in launches]
+        host_ok = oks
+        host_counts = [verdict_counts(ok, torch.zeros_like(ok),
+                                      torch.ones_like(ok), "dense")
+                       for ok in oks] if counts else []
     else:
         dev = launches[0].events.device
         main = torch.cuda.current_stream(dev)
@@ -266,34 +283,64 @@ def run_dense_groups(launches: List[DenseLaunch], model,
         # distinct for up to 32 groups
         sides = [torch.cuda.Stream(device=dev) for _ in launches]
         ready = [ln.launcher(model) for ln in launches]
+        oks = [ok for ok, _ in ready]
+        flags = [(torch.zeros_like(ok), torch.ones_like(ok)) for ok in oks] \
+            if counts else []
+        tally = [verdict_counts_launcher(ok, ovf, real, "dense")
+                 for ok, (ovf, real) in zip(oks, flags)]
+        host_ok = [torch.empty(ok.shape, dtype=torch.bool, pin_memory=True)
+                   for ok in oks]
+        host_counts = [torch.empty((2,), dtype=torch.int64, pin_memory=True)
+                       for _ in tally]
         if timed:
-            span = (_timer(), _timer())
+            start = _timer()
             marks = [(_timer(), _timer()) for _ in launches]
-            span[0].record(main)
-        for k, ((ok, launch), side) in enumerate(zip(ready, sides)):
+            start.record(main)
+        for k, ((_, launch), side) in enumerate(zip(ready, sides)):
             side.wait_stream(main)
             if timed:
                 marks[k][0].record(side)
             launch(side)
             if timed:
                 marks[k][1].record(side)
-            oks.append(ok)
-        for side in sides:
-            main.wait_stream(side)
-        if timed:
-            span[1].record(main)
-        for ln, ok, side in zip(launches, oks, sides):
-            for t in (ln.events, ln.val_of, ln.n_events, ok):
-                t.record_stream(side)
-        main.synchronize()
-    out = [o.cpu().numpy() for o in oks]
-    wall = time.perf_counter() - t0
-    _add_stats(rows_run=sum(int(ln.events.shape[0]) for ln in launches),
-               wall_s=wall)
-    return GroupRun(ok=out, wall_s=wall,
-                    kernel_ms=[s.elapsed_time(e) for s, e in marks]
-                    if timed else None,
-                    span_ms=span[0].elapsed_time(span[1]) if timed else None)
+            with torch.cuda.stream(side):
+                host_ok[k].copy_(oks[k], non_blocking=True)
+                if counts:
+                    tally[k][1](side)
+                    host_counts[k].copy_(tally[k][0], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
+            dones.append(done)
+        for k, (ln, side) in enumerate(zip(launches, sides)):
+            touched = [ln.events, ln.val_of, ln.n_events, oks[k]]
+            if counts:
+                touched += [*flags[k], tally[k][0]]
+            for t in touched:
+                if t is not None:
+                    t.record_stream(side)
+
+    def finalize() -> GroupRun:
+        for done in dones:
+            done.synchronize()
+        wall = time.perf_counter() - t0
+        _add_stats(rows_run=sum(int(ln.events.shape[0]) for ln in launches),
+                   wall_s=wall)
+        return GroupRun(
+            ok=[o.numpy() for o in host_ok], wall_s=wall,
+            kernel_ms=[s.elapsed_time(e) for s, e in marks]
+            if timed else None,
+            span_ms=max(start.elapsed_time(e) for _, e in marks)
+            if timed else None,
+            counts=[c.numpy() for c in host_counts] if counts else None)
+
+    return finalize
+
+
+def run_dense_groups(launches: List[DenseLaunch], model,
+                     timed: bool = False) -> GroupRun:
+    """`launch_dense_groups`, finalized at once: every group's kernel
+    launched, then one synchronisation."""
+    return launch_dense_groups(launches, model, timed)()
 
 
 @dataclass

@@ -2,10 +2,11 @@
 
 A copy of the reference's host encoder (`jepsen_jgroups_raft_tpu/history/
 packing.py`), trimmed to what the port's main path runs: the encode
-(columnar path and dead-crashed-op prune included), batch packing,
-macro compaction and the bucket series. Its output is byte-identical to
-the reference's (tests/test_torch_packing.py pins it), so the port's
-kernels consume exactly the streams the reference kernels do.
+(columnar path and dead-crashed-op prune included), batch packing (and
+its per-process shard packers), macro compaction and the bucket series.
+Its output is byte-identical to the reference's (tests/test_torch_packing.py
+and tests/test_torch_mesh.py pin it), so the port's kernels consume
+exactly the streams the reference kernels do.
 
 The event stream:
 
@@ -411,6 +412,22 @@ def _macro_group_counts(events: np.ndarray):
     return counts, len(force_idx), open_idx, force_idx, grp
 
 
+def _macro_rows_from_counts(counts: np.ndarray, nF: int, macro_p: int) -> int:
+    """Row-count half of the macro math given a history's (counts, nF):
+    ⌈opens/P⌉ latch rows per group, at least one row per FORCE."""
+    n_rows = -(-counts // int(macro_p))
+    n_rows[:nF] = np.maximum(n_rows[:nF], 1)
+    return int(n_rows.sum())
+
+
+def macro_row_count(events: np.ndarray, macro_p: int) -> int:
+    """Macro rows `macro_compact(events, macro_p)` would produce, without
+    building them: the shard packers size the batch-global macro row
+    count from this counting pass and compact only their own shard."""
+    counts, nF, _, _, _ = _macro_group_counts(events)
+    return _macro_rows_from_counts(counts, nF, macro_p)
+
+
 def max_open_run(events: np.ndarray) -> int:
     """Longest run of consecutive OPEN events (the quantity P buckets);
     the trailing group of never-forced opens counts too."""
@@ -492,4 +509,114 @@ def pack_macro_batch(
         "n_slots": ns,
         "macro_p": P,
         "legacy_events": max(e.n_events for e in encs),
+    }
+
+
+def shard_bounds(n_rows: int, n_shards: int, index: int) -> tuple:
+    """Contiguous [lo, hi) row range of shard `index` out of `n_shards`
+    over `n_rows` rows: the balanced cuts ``i·n_rows // n_shards``, the
+    reference's `parallel.distributed.shard_bounds` at granularity 1.
+    Shards can be empty; callers tolerate a zero-row shard."""
+    if not 0 <= index < n_shards:
+        raise ValueError(f"shard index {index} out of range {n_shards}")
+    return index * n_rows // n_shards, (index + 1) * n_rows // n_shards
+
+
+def _shard_slice(n_encs: int, process_index: int, process_count: int,
+                 n_rows: Optional[int]) -> tuple:
+    """(lo, hi, n_rows) of a per-process pack: the shard's row range over
+    the global row count (≥ the batch; the rows past the batch are
+    EV_PAD no-op histories of the trailing shards)."""
+    n_rows = n_encs if n_rows is None else int(n_rows)
+    if n_rows < n_encs:
+        raise ValueError(f"n_rows {n_rows} smaller than batch {n_encs}")
+    lo, hi = shard_bounds(n_rows, process_count, process_index)
+    return lo, hi, n_rows
+
+
+def pack_batch_shard(
+    encoded: Sequence[EncodedHistory],
+    process_index: int,
+    process_count: int,
+    n_rows: Optional[int] = None,
+    n_events: Optional[int] = None,
+) -> dict:
+    """Per-process twin of `pack_batch`: fill only the row shard process
+    `process_index` of `process_count` owns (`shard_bounds`), at the
+    batch-global event length, so the shards of every process
+    concatenated in process order equal `pack_batch` of the whole batch
+    byte for byte. `n_rows` (≥ the batch) adds global EV_PAD
+    rows. Extra keys: ``shard`` = (lo, hi) and ``n_rows_global``."""
+    encs = list(encoded)
+    if not encs:
+        raise ValueError("empty batch")
+    E = n_events or max(e.n_events for e in encs)
+    if any(e.n_events > E for e in encs):
+        raise ValueError("n_events smaller than longest history")
+    lo, hi, n_rows = _shard_slice(len(encs), process_index, process_count,
+                                  n_rows)
+    B_local = hi - lo
+    events = np.zeros((B_local, E, 5), dtype=np.int32)
+    op_index = np.full((B_local, E), -1, dtype=np.int32)
+    ne = np.zeros((B_local,), dtype=np.int32)
+    ns = np.zeros((B_local,), dtype=np.int32)
+    for j, e in enumerate(encs[lo:min(hi, len(encs))]):
+        events[j, : e.n_events] = e.events
+        op_index[j, : e.n_events] = e.op_index
+        ne[j] = e.n_events
+        ns[j] = e.n_slots
+    return {
+        "events": events,
+        "op_index": op_index,
+        "n_events": ne,
+        "n_slots": ns,
+        "shard": (lo, hi),
+        "n_rows_global": n_rows,
+    }
+
+
+def pack_macro_batch_shard(
+    encoded: Sequence[EncodedHistory],
+    process_index: int,
+    process_count: int,
+    n_rows: Optional[int] = None,
+    n_events: Optional[int] = None,
+    cap: int = MACRO_MAX_OPENS,
+) -> dict:
+    """Per-process twin of `pack_macro_batch`: the batch-global shapes
+    (payload width P from the longest open run anywhere, macro row count
+    E) come from every history's counting pass (`_macro_group_counts`,
+    no row assembly); only this process's shard is compacted and
+    filled. The shards concatenated equal `pack_macro_batch` of the whole
+    batch byte for byte. Extra keys: ``shard`` and ``n_rows_global``."""
+    encs = list(encoded)
+    if not encs:
+        raise ValueError("empty batch")
+    # one counting pass a history feeds both P and the row counts at P
+    metas = [_macro_group_counts(e.events)[:2] for e in encs]
+    P = bucket_opens(max(int(c.max()) if c.size else 0 for c, _ in metas),
+                     cap)
+    row_counts = [_macro_rows_from_counts(c, nF, P) for c, nF in metas]
+    E = n_events or max(max(row_counts), 1)
+    if any(c > E for c in row_counts):
+        raise ValueError("n_events smaller than longest macro stream")
+    lo, hi, n_rows = _shard_slice(len(encs), process_index, process_count,
+                                  n_rows)
+    B_local = hi - lo
+    events = np.zeros((B_local, E, 3 + 4 * P), dtype=np.int32)
+    ne = np.zeros((B_local,), dtype=np.int32)
+    ns = np.zeros((B_local,), dtype=np.int32)
+    for j, e in enumerate(encs[lo:min(hi, len(encs))]):
+        c = macro_compact(e.events, P)
+        events[j, : c.shape[0]] = c
+        ne[j] = c.shape[0]
+        ns[j] = e.n_slots
+    return {
+        "events": events,
+        "n_events": ne,
+        "n_slots": ns,
+        "macro_p": P,
+        "legacy_events": max(e.n_events for e in encs),
+        "shard": (lo, hi),
+        "n_rows_global": n_rows,
     }

@@ -25,6 +25,9 @@
 * `election_safety` — election safety over batches of (term, leader)
   rows: the CUDA kernel wrapper `election_safety` (its plain version is
   `models.leader.check_election_safety_plain`).
+* `verdict_counts` — B10's per-shard verdict counts (n_valid,
+  n_unknown) of a batch's flags: the CUDA kernel wrapper
+  `verdict_counts` and its plain version `verdict_counts_plain`.
 * `_build`     — nvcc build of `csrc/*.cu` at first use, ctypes binding.
 """
 

@@ -100,6 +100,11 @@ SIGNATURES: Dict[str, dict] = {
         "election_safety_launch": (_I, [_VP] * 4 + [_I] * 5 + [_VP]),
         "election_safety_error_string": (ctypes.c_char_p, [_I]),
     },
+    "verdict_counts": {
+        # B10: ok, overflow, real, out[2], B, mode, device, stream
+        "verdict_counts_launch": (_I, [_VP] * 4 + [_LL, _I, _I, _VP]),
+        "verdict_counts_error_string": (ctypes.c_char_p, [_I]),
+    },
     "mask_scan_profile": {
         # events, n_events, ok, prof, B, E, R, macro_p, W, model,
         # init_state, device, stream

@@ -33,7 +33,11 @@ holds the scan state's fields at the offsets of a `CarryLayout` (the
 kernels read and write the same layout), the four scalars first
 (`CARRY_HEAD`). Rows are independent, so the wavefront's recompaction
 is one `index_select` over the carry. `chunk_scan` is the plain loop
-of the contract; `shard_chunk_fns` has no counterpart on one card.
+of the contract. The reference's `shard_chunk_fns` (kernel_ir.py:346),
+the chunk pair under `shard_map` over a mesh, has no counterpart: a
+chunk launch is one launch a process on one card, and spreading its
+rows over several local GPUs is a later item (ROADMAP, local multi-GPU
+fan-out).
 """
 
 from __future__ import annotations

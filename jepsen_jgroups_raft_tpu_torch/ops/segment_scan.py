@@ -36,12 +36,15 @@ This module holds:
     function in plain PyTorch, which the CPU tests use and chip_smoke.py
     holds the kernel to on the card.
 
-The reference shards the segment axis over its device mesh; here all
-segments of a batch go to one launch on one card. Where the reference
-asks whether its backend is a TPU, the port reads the device: a CPU
-device keeps `CPU_STEP_CELL_BUDGET` (so CPU runs plan exactly what the
-reference plans on its CPU backend), a CUDA device skips it, as the TPU
-does. `MAX_BASIS` holds on both.
+The reference shards the segment axis over its device mesh
+(`jepsen_jgroups_raft_tpu/ops/segment_scan.py:397`); here the mesh is
+one launch a process on one card: all segments of a batch go to one
+launch on the process's device. Spreading the segments over several
+local GPUs is a later item (ROADMAP, local multi-GPU fan-out). Where
+the reference asks whether its backend is a TPU, the port reads the
+device: a CPU device keeps `CPU_STEP_CELL_BUDGET` (so CPU runs plan
+exactly what the reference plans on its CPU backend), a CUDA device
+skips it, as the TPU does. `MAX_BASIS` holds on both.
 """
 
 from __future__ import annotations

@@ -1639,3 +1639,150 @@ def test_chunked_check_on_card_matches_cpu(cuda, kind, monkeypatch):
         [r["valid?"] for r in on_card[0]]
     assert not any("chunked" in r for r in one_shot[0])
     assert one_shot[1][2] == 0
+
+
+# ------------------------------------------------ B10: the batch mesh
+
+VERDICT_SIZES = (0, 1, 31, 32, 33, 1000, 1 << 20)
+
+
+def _verdict_flags(cuda, B, offsets=(0, 0, 0), seed=0):
+    gen = torch.Generator().manual_seed(seed * 131 + B)
+    u = torch.rand((3, B + 16), generator=gen)
+    flags = (u < torch.tensor([[0.7], [0.3], [0.8]])).to(cuda)
+    return [flags[r, o:o + B] for r, o in enumerate(offsets)]
+
+
+@pytest.mark.parametrize("mode", ["dense", "sort"])
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 1), (3, 5, 7),
+                                     (16, 0, 9), (15, 15, 15)],
+                         ids=lambda o: "off" + "-".join(map(str, o)))
+@pytest.mark.parametrize("B", VERDICT_SIZES, ids=lambda b: f"B{b}")
+def test_verdict_counts_matches_plain(cuda, B, offsets, mode):
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    ok, ovf, real = _verdict_flags(cuda, B, offsets)
+    before = vc.launch_counts()["verdict_counts"]
+    got = vc.verdict_counts(ok, ovf, real, mode)
+    want = vc.verdict_counts_plain(ok, ovf, real, mode)
+    torch.cuda.synchronize()
+    assert got.device == ok.device and got.dtype == torch.int64
+    assert got.tolist() == want.tolist()
+    assert vc.launch_counts()["verdict_counts"] == before + 1
+
+
+def test_verdict_counts_refuses_bad_inputs(cuda):
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    ok, ovf, real = _verdict_flags(cuda, 64)
+    with pytest.raises(ValueError, match="ok on"):
+        vc.verdict_counts(ok, ovf.cpu(), real)
+    with pytest.raises(ValueError, match="contiguous"):
+        vc.verdict_counts(ok[::2], ovf[::2], real[::2])
+    with pytest.raises(TypeError, match="bool"):
+        vc.verdict_counts(ok.to(torch.uint8), ovf, real)
+    with pytest.raises(ValueError, match="mode"):
+        vc.verdict_counts(ok, ovf, real, "psum")
+
+
+def test_verdict_counts_broken_build_raises(cuda, tmp_path, monkeypatch):
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in _build.CSRC.glob("*.cuh"):
+        (src / f.name).write_text(f.read_text())
+    (src / "verdict_counts.cu").write_text(
+        (_build.CSRC / "verdict_counts.cu").read_text() + "\n#error broken\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.delitem(_build._LIBS, "verdict_counts", raising=False)
+    with pytest.raises(RuntimeError, match="build failed"):
+        vc.verdict_counts(*_verdict_flags(cuda, 8))
+
+
+def _mesh_batch(kind, n=40, n_ops=120):
+    rng = random.Random(77)
+    model = {"register": CasRegister(), "counter": Counter()}[kind]
+    hs = []
+    for i in range(n):
+        h = list(random_valid_history(rng, kind, n_ops=n_ops, n_procs=5,
+                                      crash_p=0.05, max_crashes=3))
+        reads = [j for j, op in enumerate(h) if op.type == "ok"
+                 and op.f == "read" and op.value is not None]
+        if i % 3 == 0 and reads:
+            j = rng.choice(reads)
+            h[j] = h[j].replace(value=h[j].value + 10**6)
+        hs.append(h)
+    return model, [encode_history(h, model) for h in hs]
+
+
+@pytest.mark.parametrize("kind", ["register", "counter"])
+@pytest.mark.parametrize("arm", ["dense", "dense-defer", "ladder",
+                                 "pinned", "macro-ladder"])
+def test_check_batch_sharded_on_card_matches_cpu(cuda, kind, arm):
+    """Every arm of `parallel.mesh.check_batch_sharded` gives on the card
+    the flags and counts it gives on the CPU (the plain versions),
+    `verdict_counts` launched on the card by the dense arms only (the
+    ladder counts on the host)."""
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import dense_plan
+    from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import bucket_slots
+    from jepsen_jgroups_raft_tpu_torch.parallel.mesh import \
+        check_batch_sharded
+
+    model, encs = _mesh_batch(kind)
+    macro = arm.startswith("dense") or arm == "macro-ladder"
+    batch = (pack_macro_batch if macro else pack_batch)(encs)
+    kw = {"macro_p": batch.get("macro_p")}
+    if arm.startswith("dense"):
+        kw.update(dense=dense_plan(model, encs), defer=arm == "dense-defer")
+    else:
+        kw["n_slots"] = bucket_slots(max(e.n_slots for e in encs))
+        if arm == "pinned":
+            kw["n_configs"] = 64
+    before = vc.launch_counts()["verdict_counts"]
+
+    def run(device):
+        out = check_batch_sharded(model, batch["events"], device=device,
+                                  **kw)
+        return out() if kw.get("defer") else out
+
+    on_card, on_cpu = run(cuda), run("cpu")
+    assert vc.launch_counts()["verdict_counts"] == before + \
+        (1 if arm.startswith("dense") else 0)
+    for a, b in zip(on_card, on_cpu):
+        assert np.array_equal(a, b)
+    assert 0 < on_card[2] < len(encs)
+
+
+@pytest.mark.parametrize("kind", ["register", "counter"])
+def test_launch_dense_groups_counts_on_card(cuda, kind):
+    """`checker.schedule.launch_dense_groups` with counts: two pending
+    groups on the card, finalized in reverse order, give the CPU's
+    verdicts and counts, one `verdict_counts` launch a group."""
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
+        DenseLaunch, launch_dense_groups)
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import dense_plan
+
+    model, encs = _mesh_batch(kind)
+    plan = dense_plan(model, encs)
+    batch = pack_macro_batch(encs)
+    halves = (slice(0, 17), slice(17, len(encs)))
+
+    def pending(device):
+        return [launch_dense_groups([DenseLaunch(
+            events=torch.from_numpy(batch["events"][h]).to(device),
+            val_of=torch.from_numpy(plan.val_of[h]).to(device),
+            n_events=None, n_slots=plan.n_slots, macro_p=batch["macro_p"],
+            kind=plan.kind)], model, counts=True) for h in halves]
+
+    before = vc.launch_counts()["verdict_counts"]
+    on_card = [f() for f in reversed(pending(cuda))]
+    assert vc.launch_counts()["verdict_counts"] == before + 2
+    on_cpu = [f() for f in reversed(pending("cpu"))]
+    for a, b in zip(on_card, on_cpu):
+        assert np.array_equal(a.ok[0], b.ok[0])
+        assert a.counts[0].tolist() == b.counts[0].tolist() == \
+            [int(b.ok[0].sum()), 0]
