@@ -19,9 +19,9 @@ print no kernels line. With no arguments every phase runs:
 
 Phases, each printing JSON lines (`t_s`: seconds since the start); any
 failure exits non-zero. The north-star batch is made on the host while
-nvcc builds. Phases 3-5, 13, 13b, 16 and 21 (each kernel against its
-plain version on its own cases) run in a second process on the same
-card, their lines printed when it ends, while this one makes the other
+nvcc builds. Phases 3, 29a, 4-5, 13, 13b, 16, 21 and 29b (each kernel
+against its plain version on its own cases) run in a second process on
+the same card, their lines printed when it ends, while this one makes the other
 suites' batches and runs 8, 11, 15, 19, 20, 22-24, 27 and 28 (host
 walls; no time on the card is taken in them); the phases that time the
 card run after both, in the order 6, 7, 9, 10, 12, 14, 17, 18, 25, the
@@ -35,8 +35,10 @@ closure kernels' line, 26, 29, 30:
                segment_scan_profile (never on a main path) from this
                checkout's sources into
                build/torch_kernels/, one nvcc per library, started
-               together; ptxas's report for each; the paths' kernels must
-               show no spill bytes and no stack frame
+               together; ptxas's report for each, each library's nvcc
+               seconds, and the one-shot scans' instances with and
+               without the counting flag (registers, stack, spills); the
+               paths' kernels must show no spill bytes and no stack frame
   3. kernel  — dense_scan against its plain PyTorch version, bitwise, at
                every window W = 1..10 with the largest domain S the caps
                allow, at W = 1 / S = 1 and at the north-star shape, both
@@ -250,17 +252,36 @@ with the LOP3 floor of the work it does: `closure_main_path`.
                groups' `run_chunked` verdicts; the ladder no row INVALID,
                each row it decides VALID, the rows that overflow C = 256
                undecided and counted on the host (about half: the
-               reference's ladder leaves the same rows); verdict_counts
-               launched once a group in the first arm, none in the
-               ladder; the one-shot arm's walls beside
+               reference's ladder leaves the same rows); no
+               verdict_counts launch in either arm (the first arm counts
+               in its scans' epilogues, one counting launch a group; the
+               phase fails on any); the one-shot arm's walls beside
                `run_dense_groups`' on the same groups (in turns, 5 runs
-               each, tensors copied inside both); then
+               each, tensors copied inside both); the standalone
+               verdict_counts driven once on the arm's verdicts, equal
+               to the fused counts; what counting adds
+               to each group's one-shot B1 launch (median of 20 each,
+               in turns) and, from set_main, to B5's C = 64 rung, with
+               the counts of those launches (and of one with a `real`
+               mask with holes) held bitwise against the plain counts of
+               their own flags, and the plain count and one
+               `torch.count_nonzero` timed on the same flags; then
+               verdict_counts timed at B = 1000 (the wrapper call and
+               its host parts — checks, allocation, ctypes launch —,
+               the kernel alone, the plain version, one
+               `torch.count_nonzero` of the masked products), at 16384
+               and 16385 rows (the kernel alone: one block, then the
+               grid after its memset) and at 2^20, beside the bound
+ 29a. verdict_counts_edges (in the checks' process, after phase 3) —
                verdict_counts against its plain version, bitwise, in both
-               modes at B = 0, 1, 31, 32, 33, 1000 and 2^20, on sliced
-               flags at unaligned offsets; timed at B = 1000 (the
-               wrapper call, the kernel alone, the plain version, one
-               `torch.count_nonzero` of the masked products) and at 2^20
-               (the kernel alone), beside the bound
+               modes at B = 0, 1, 31, 32, 33, 1000, 16384, 16385 and 2^20,
+               on sliced flags at unaligned offsets, through the wrapper
+               and the launcher (on a poisoned output); the fused counts of B1, B4 and B5 (every
+               instance the north star and the set use, K = 1..4) at
+               B = 1, 31, 32, 33, 1000 with and without `real`, bitwise
+               against the plain counts of the same launch's verdicts
+               (~10 s); 29b, the last of that process: the device
+               operations a standalone call enqueues (the profiler)
  30. cluster — `parallel.launch.launch_local_cluster(2, ...)` running
                `parallel.selfcheck` on this card: both ranks on cuda:0
                under gloo (two ranks share the card), each with the same
@@ -280,7 +301,10 @@ the host certifier decides most valid rows before any kernel.
 
 Then the kernels' summary line (dense_scan, mask_scan, sort_scan,
 segment_scan, cycle_closure, cycle_closure_tiled, election_safety,
-verdict_counts, dense_scan_chunk, mask_scan_chunk, sort_scan_chunk; each with its
+verdict_counts_fused (B10 in the scans' epilogues: the one-shot arm's
+counting launches; its ms what counting adds to the slowest group, its
+plain and library ms the plain count and `torch.count_nonzero` of that
+group's flags), dense_scan_chunk, mask_scan_chunk, sort_scan_chunk; each with its
 library's ptxas registers and spill bytes; a one-shot kernel's launches
 are its JGRAFT_SCAN_CHUNK=0 arms', a chunk kernel's the default runs'
 of every path, and its ms, plain ms and bound one measured launch's),
@@ -370,9 +394,16 @@ KERNELS = {
     "election_safety": (
         "jepsen_jgroups_raft_tpu_torch/ops/csrc/election_safety.cu",
         "jepsen_jgroups_raft_tpu/models/leader.py:163"),
+    # B10's standalone entry: built, checked and timed (phase 29), not on
+    # the kernels line (OFF_PATH)
     "verdict_counts": (
         "jepsen_jgroups_raft_tpu_torch/ops/csrc/verdict_counts.cu",
         "jepsen_jgroups_raft_tpu/parallel/mesh.py:141"),
+    # B10's counts in the epilogues of B1, B4 and B5 (their one-shot
+    # entries' counting instances): the shared routine
+    "verdict_counts_fused": (
+        "jepsen_jgroups_raft_tpu_torch/ops/csrc/verdict_counts.cuh",
+        "jepsen_jgroups_raft_tpu/parallel/mesh.py:171"),
     # the chunk entry points of B1, B4 and B5 (one kernel body each, carry in
     # and out): the reference's chunk forms
     "dense_scan_chunk": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/dense_scan.cu",
@@ -382,11 +413,20 @@ KERNELS = {
     "sort_scan_chunk": ("jepsen_jgroups_raft_tpu_torch/ops/csrc/sort_scan.cu",
                         "jepsen_jgroups_raft_tpu/ops/linear_scan.py:351"),
 }
+#: kernels no main path launches: the standalone verdict_counts counts
+#: flags already in memory, and since the scans count in their epilogues
+#: no path calls it. Its numbers go on the `mesh` line, not the kernels
+#: line.
+OFF_PATH = ("verdict_counts",)
 #: kernels built into another kernel's library (ops/_build.py names)
 KERNEL_LIBRARY = {"cycle_closure_tiled": "cycle_closure",
+                  "verdict_counts_fused": "dense_scan_count",
                   "dense_scan_chunk": "dense_scan",
                   "mask_scan_chunk": "mask_scan",
                   "sort_scan_chunk": "sort_scan"}
+#: the libraries of B1's and B4's counting instances (the scans'
+#: `counts=True` option), built beside the plain ones
+COUNT_LIBRARIES = ("dense_scan_count", "mask_scan_count")
 #: timed runs of each main path's check; the best is kept. No warm-up
 #: run, to keep the script inside half its time limit: the first timed
 #: run stands for it
@@ -1741,7 +1781,8 @@ def plain_ladder(encs, model, dev, stats=None, rung_stats=None):
 
 def run_sort_path(phase: str, dev, model, histories, synth_s: float,
                   ptxas: dict, one_shot: bool = False,
-                  measure_chunk: bool = False, **extra) -> dict:
+                  measure_chunk: bool = False, measure_fused: bool = False,
+                  **extra) -> dict:
     """A ladder path (the set, list-append) through check_histories on
     the card at the default chunk, as `run_path` measures the others:
     best of MAIN_REPS (no warm-up) with the launch counts set to 0 just
@@ -1753,8 +1794,9 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
     rung's, its kernel span and launches), the plain version's time and
     bitwise flags on the same rungs, and the bound from the work this
     run's data needed. `one_shot` and `measure_chunk` as `run_path`'s
-    (the measured launch: the C = 64 rung's first). Returns the
-    kernels-line numbers."""
+    (the measured launch: the C = 64 rung's first). `measure_fused`: what
+    the counting option adds to the first rung's one-shot launch
+    (`fused_added`), under "fused". Returns the kernels-line numbers."""
     import numpy as np
     import torch
 
@@ -1810,6 +1852,7 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
     remaining, rungs, pack_s = list(range(n)), [], 0.0
     bytes_moved = 0
     chunk_line = {"max_abs_err": 0}
+    fused = None
     for C in SORT_LADDER:
         t0 = time.perf_counter()
         b = pack_macro_batch([encs[i] for i in remaining])
@@ -1839,6 +1882,13 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
                 (out.overflow == run.overflow).all()):
             raise AssertionError(f"{phase}: the wavefront's flags differ "
                                  f"from the one-shot rung's at C = {C}")
+        if measure_fused and not rungs:
+            fused = dict(fused_added(
+                ls.sort_scan_launcher(ev, W, C, b["macro_p"], ne,
+                                      model=model)[-1],
+                lambda real: ls.sort_scan_launcher(
+                    ev, W, C, b["macro_p"], ne, model=model, counts=True,
+                    real=real), "sort"), C=C, W=W)
         if measure_chunk and not rungs:
             lay = ls.sort_carry_layout(W, C)
             width = first_span(b["n_events"], 128, e_sched)
@@ -1934,7 +1984,7 @@ def run_sort_path(phase: str, dev, model, histories, synth_s: float,
          power=nvidia_smi_line())
     return {"launches": int(arm["launches"]["sort_scan"]) if arm else 0,
             "max_abs_err": err, "ms": ms_total, "plain_ms": plain_ms,
-            "t_bytes": t_bytes, "t_ops": t_ops,
+            "t_bytes": t_bytes, "t_ops": t_ops, "fused": fused,
             "chunk": dict(chunk_line,
                           launches=int(launches["sort_scan_chunk"]))}
 
@@ -2217,6 +2267,8 @@ def all_launch_counts() -> dict:
     return {**dense_scan.launch_counts(), **linear_scan.launch_counts(),
             **dense_scan.chunk_launch_counts(),
             **linear_scan.chunk_launch_counts(),
+            **dense_scan.count_launch_counts(),
+            **linear_scan.count_launch_counts(),
             **segment_scan.launch_counts(),
             **election_safety.launch_counts(),
             **verdict_counts.launch_counts()}
@@ -2712,18 +2764,14 @@ def closure_kernel_ms(bits, N: int, tile=None, reps: int = 5) -> float:
     return min(times[1:])
 
 
-def launch_device_ms(launch, reps: int = 5) -> float:
-    """Device time of one kernel launch alone: least over `reps`, after a
-    warm-up, of CUDA events recorded around launch(stream) — a call of
-    the kernel's C entry point, not its Python wrapper — on a stream that
-    `torch.cuda._sleep` keeps busy while the host enqueues event, launch
-    and event, so that the events bracket the kernel and nothing of the
-    host. Reported as `device_ms` beside the wrapper call's `ms`."""
+def launch_device_times(launch, reps: int) -> list:
+    """`launch_device_ms`'s device times of launch(stream), every one of
+    `reps` runs (no warm-up)."""
     import torch
 
     stream = torch.cuda.current_stream()
     times = []
-    for _ in range(reps + 1):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(HOLD_CYCLES)
@@ -2732,7 +2780,17 @@ def launch_device_ms(launch, reps: int = 5) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return min(times[1:])
+    return times
+
+
+def launch_device_ms(launch, reps: int = 5) -> float:
+    """Device time of one kernel launch alone: least over `reps`, after a
+    warm-up, of CUDA events recorded around launch(stream) — a call of
+    the kernel's C entry point, not its Python wrapper — on a stream that
+    `torch.cuda._sleep` keeps busy while the host enqueues event, launch
+    and event, so that the events bracket the kernel and nothing of the
+    host. Reported as `device_ms` beside the wrapper call's `ms`."""
+    return min(launch_device_times(launch, reps + 1)[1:])
 
 
 def fold_work(adj, N: int, tile=None) -> dict:
@@ -3725,7 +3783,24 @@ def phase_keyed_main(dev) -> dict:
 
 #: B10's edge sizes: verdict_counts is held to its plain version, bitwise,
 #: at each, in both modes, on flags sliced at unaligned offsets too
-VERDICT_SIZES = (0, 1, 31, 32, 33, 1000, 1 << 20)
+#: (16384 / 16385: both sides of its one-block limit), in both grid forms
+VERDICT_SIZES = (0, 1, 31, 32, 33, 1000, 16384, 16385, 1 << 20)
+#: batch sizes of the scans' fused counts (one row, a warp's worth around
+#: a block's edges, the north star's batch), with and without `real`
+FUSED_SIZES = (1, 31, 32, 33, 1000)
+#: B1's (W, S) of the fused checks: the north star's groups (S 4), the
+#: set's dense domains (S 16), the other field widths
+FUSED_DENSE = ((5, 4), (6, 4), (7, 4), (8, 4), (3, 16), (6, 16), (9, 16),
+               (1, 1), (4, 2), (10, 8))
+#: B4's (kind, W) of the fused checks, the 10-process counter at W 10..12
+FUSED_MASK = (("counter", 5), ("queue", 5), ("counter", 10),
+              ("counter", 12))
+#: B5's windows of the fused checks: K = 1..4 mask words
+FUSED_SORT = (8, 40, 70, 127)
+#: launches timed for a fused count's added time (median of each arm)
+FUSED_REPS = 20
+#: wrapper calls the host parts of verdict_counts are timed over
+HOST_PART_REPS = 200
 #: (ok, overflow, real) start offsets of the sliced flags: equal offsets
 #: take the 16-byte loads after a scalar head, unequal ones the scalar loop
 VERDICT_OFFSETS = ((0, 0, 0), (1, 1, 1), (3, 5, 7), (16, 0, 9), (15, 15, 15))
@@ -3739,10 +3814,98 @@ CLUSTER_HISTORIES = 128
 CLUSTER_SEED = SEED + 40
 
 
-def verdict_counts_edges(dev) -> int:
-    """verdict_counts against verdict_counts_plain on the card, bitwise, in
+def device_ops_per_call(fn, calls: int = 10):
+    """Device operations (kernels and memsets) a call of fn() enqueues, as
+    torch.profiler's device events over `calls` calls; None when the
+    profiler shows no device event at all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(ops) / calls if ops else None
+
+
+def fused_counts_edges(dev) -> int:
+    """The scans' counting option on the card: B1 at FUSED_DENSE, B4 at
+    FUSED_MASK, B5 at FUSED_SORT, each at FUSED_SIZES with and without a
+    `real` mask, on arbitrary rows (`synth.random_mask_rows`, 32 rows
+    repeated to 1000): the verdicts equal the non-counting launch's and
+    the counts `verdict_counts_plain` of those verdicts, bitwise. Returns
+    the comparisons made."""
+    import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.history.synth import random_mask_rows
+    from jepsen_jgroups_raft_tpu_torch.models import (CasRegister, Counter,
+                                                      TicketQueue)
+    from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
+    from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    top = max(FUSED_SIZES)
+    rng = np.random.default_rng(SEED + 42)
+
+    def rows(W, kind, E):
+        ev = random_mask_rows(rng, 32, E, W, 3, kind)
+        return torch.from_numpy(np.resize(ev, (top,) + ev.shape[1:])).to(dev)
+
+    cases = []
+    for W, S in FUSED_DENSE:
+        vals = np.resize(np.array([-2**31, 0, 1, 2, 3, 4, 5, 6], np.int32), S)
+        ev = rows(W, "register", 32)
+        vo = torch.from_numpy(np.tile(vals, (top, 1))).to(dev)
+        cases.append((f"dense_W{W}_S{S}", "dense",
+                      lambda b, ev=ev, vo=vo, W=W, **kw: ds.dense_scan(
+                          ev[:b], vo[:b], W, 3, **kw)))
+    for kind, W in FUSED_MASK:
+        m = Counter() if kind == "counter" else TicketQueue()
+        ev = rows(W, kind, 32)
+        cases.append((f"mask_{kind}_W{W}", "dense",
+                      lambda b, ev=ev, W=W, m=m, **kw: ds.mask_scan(
+                          ev[:b], W, 3, model=m, **kw)))
+    for W in FUSED_SORT:
+        ev = rows(W, "register", 24)
+        cases.append((f"sort_W{W}", "sort",
+                      lambda b, ev=ev, W=W, **kw: ls.sort_scan(
+                          ev[:b], W, 4, 3, model=CasRegister(), **kw)))
+    gen = torch.Generator().manual_seed(SEED + 43)
+    compared = 0
+    for name, mode, scan in cases:
+        for b in FUSED_SIZES:
+            want = scan(b)
+            want = list(want) if mode == "sort" else [want]
+            for real in (None, (torch.rand(b, generator=gen) < 0.7).to(dev)):
+                *flags, counts = scan(b, counts=True, real=real)
+                plain = vc.verdict_counts_plain(
+                    flags[0], flags[1] if mode == "sort" else
+                    torch.zeros_like(flags[0]),
+                    torch.ones_like(flags[0]) if real is None else real,
+                    mode)
+                torch.cuda.synchronize()
+                if not (all(torch.equal(a, w) for a, w in zip(flags, want))
+                        and torch.equal(counts, plain)):
+                    raise AssertionError(
+                        f"fused counts of {name} at B={b} (real "
+                        f"{real is not None}): {counts.tolist()} != "
+                        f"{plain.tolist()}, or the verdicts moved")
+                compared += 1
+    return compared
+
+
+def verdict_counts_edges(dev) -> dict:
+    """B10 against its plain counts on the card, bitwise: verdict_counts in
     both modes at VERDICT_SIZES, each on three flag rows cut from one
-    tensor at VERDICT_OFFSETS; returns the comparisons made."""
+    tensor at VERDICT_OFFSETS, through the wrapper and the launcher (its
+    output poisoned first); then the scans' fused counts
+    (`fused_counts_edges`). Returns the comparisons made."""
     import torch
 
     from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
@@ -3755,25 +3918,141 @@ def verdict_counts_edges(dev) -> int:
         for o in VERDICT_OFFSETS:
             ok, ovf, real = (flags[r, o[r]:o[r] + B] for r in range(3))
             for mode in ("dense", "sort"):
-                got = vc.verdict_counts(ok, ovf, real, mode)
                 want = vc.verdict_counts_plain(ok, ovf, real, mode)
+                out, launch = vc.verdict_counts_launcher(ok, ovf, real,
+                                                         mode)
+                out.fill_(-1)
+                launch(torch.cuda.current_stream())
+                got = [vc.verdict_counts(ok, ovf, real, mode), out]
                 torch.cuda.synchronize()
-                if not torch.equal(got, want):
+                if not all(torch.equal(g, want) for g in got):
                     raise AssertionError(
                         f"verdict_counts differs from its plain version at "
-                        f"B={B}, offsets {o}, {mode}: {got.tolist()} != "
-                        f"{want.tolist()}")
+                        f"B={B}, offsets {o}, {mode}: "
+                        f"{[g.tolist() for g in got]} != {want.tolist()}")
                 compared += 1
-    return compared
+    return {"compared": compared, "fused_compared": fused_counts_edges(dev)}
+
+
+def verdict_counts_ops(dev) -> dict:
+    """The device operations a standalone verdict_counts call enqueues at
+    B = 1000 (one block) and at 16385 rows (the grid: a memset and the
+    kernel), by the profiler (`device_ops_per_call`). A profiler session
+    slows the process's later launches, so this runs after every phase
+    of its process."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    gen = torch.Generator().manual_seed(SEED + 44)
+    flags = (torch.rand((3, 16385), generator=gen) < 0.5).to(dev)
+    return {"ops_per_call": device_ops_per_call(
+                lambda: vc.verdict_counts(*flags[:, :1000], "sort")),
+            "grid_ops_per_call": device_ops_per_call(
+                lambda: vc.verdict_counts(*flags, "sort"))}
+
+
+def fused_added(plain_launch, counting, mode: str) -> dict:
+    """What the counting option adds to one scan launch of a main path,
+    on its inputs, and whether its counts are right there.
+    `plain_launch`: the non-counting instance's launch; `counting(real)`:
+    the counting instance's launcher with that `real` mask, (flags...,
+    counts, launch). Each arm's device time (`launch_device_times`, the
+    counting arm's memset included; `real` None, as the main path
+    launches it), FUSED_REPS of each in turns after a warm-up: the
+    medians and their difference, also as a share of the plain arm's.
+    Then the counts of the last timed launch, and of one launch with a
+    `real` mask with holes, equal `verdict_counts_plain` of that launch's
+    own flags, bitwise (`mode` "dense" or "sort"); and on the main path's
+    flags the plain count (`counts_plain_ms`) and one
+    `torch.count_nonzero` of the masked products (`counts_library_ms`):
+    the work the epilogue does, done apart."""
+    import statistics
+
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    *flags, counts, counting_launch = counting(None)
+    plain_launch(torch.cuda.current_stream())
+    counting_launch(torch.cuda.current_stream())
+    plain, timed = [], []
+    for _ in range(FUSED_REPS):
+        plain += launch_device_times(plain_launch, 1)
+        timed += launch_device_times(counting_launch, 1)
+    p, c = statistics.median(plain), statistics.median(timed)
+    ok = flags[0]
+    ovf = flags[1] if mode == "sort" else torch.zeros_like(ok)
+    every = torch.ones_like(ok)
+    gen = torch.Generator().manual_seed(SEED + 45)
+    holes = (torch.rand(ok.shape[0], generator=gen) < 0.7).to(ok.device)
+    *h_flags, h_counts, h_launch = counting(holes)
+    h_counts.fill_(-1)
+    h_launch(torch.cuda.current_stream())
+    checks = ((counts, vc.verdict_counts_plain(ok, ovf, every, mode)),
+              (h_counts, vc.verdict_counts_plain(
+                  h_flags[0], h_flags[1] if mode == "sort" else ovf, holes,
+                  mode)))
+    torch.cuda.synchronize()
+    for (got, want), real in zip(checks, ("every row", "holes")):
+        if not torch.equal(got, want):
+            raise AssertionError(f"fused counts {got.tolist()} != the plain "
+                                 f"counts {want.tolist()} of the launch's "
+                                 f"own flags (real: {real})")
+    if not all(torch.equal(a, b) for a, b in zip(flags, h_flags)):
+        raise AssertionError("fused counts: the verdicts moved with `real`")
+    prods = torch.stack([ok & ~ovf if mode == "sort" else ok, ovf])
+    return {"plain_ms": p, "counting_ms": c, "added_ms": c - p,
+            "added_share": (c - p) / p, "rows": int(ok.shape[0]),
+            "counts_compared": len(checks),
+            "counts_plain_ms": event_ms(
+                lambda: vc.verdict_counts_plain(ok, ovf, every, mode),
+                reps=20),
+            "counts_library_ms": event_ms(
+                lambda: torch.count_nonzero(prods, dim=1), reps=20)}
+
+
+def host_parts(ok, ovf, real) -> dict:
+    """The host side of a `verdict_counts` call in its three parts, each
+    the median of HOST_PART_REPS timed calls (perf_counter, µs): the
+    checks (`_check`), the output's allocation, and the ctypes launch
+    (the current stream's handle and the C entry point, which enqueues
+    the kernel)."""
+    import statistics
+
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    index = ok.get_device()
+    out = torch.empty((2,), dtype=torch.int64, device=ok.device)
+    parts = {"check_us": lambda: vc._check(ok, ovf, real, "sort"),
+             "alloc_us": lambda: torch.empty((2,), dtype=torch.int64,
+                                             device=ok.device),
+             "launch_us": lambda: vc._launch(ok, ovf, real, out,
+                                             int(ok.shape[0]), 1, index,
+                                             vc._stream_handle(index))}
+    got = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(HOST_PART_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        got[name] = statistics.median(times)
+        torch.cuda.synchronize()
+    return got
 
 
 def verdict_counts_timed(dev, ok, ovf, real) -> dict:
     """verdict_counts on the north-star flags [B]: the wrapper call, the
-    kernel alone (`launch_device_ms`), the plain version, one
-    `torch.count_nonzero` of the two masked products (the library
-    yardstick, never on a path), and the kernel alone at 2^20 rows; the
-    bound from 3·B bytes read, 16 written and VERDICT_OPS_PER_ROW·B
-    operations."""
+    kernel alone (`launch_device_ms`: one block, no memset), the plain
+    version, one `torch.count_nonzero` of the two masked products (the
+    library yardstick, never on a path), the wrapper's host parts
+    (`host_parts`); the kernel alone on both sides of its one-block limit
+    (16384 rows: one block; 16385: a memset, then the grid) and at 2^20
+    rows; the bound from 3·B bytes read, 16 written and
+    VERDICT_OPS_PER_ROW·B operations."""
     import torch
 
     from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
@@ -3782,27 +4061,35 @@ def verdict_counts_timed(dev, ok, ovf, real) -> dict:
     _, launch = vc.verdict_counts_launcher(ok, ovf, real, "sort")
     prods = torch.stack([ok & ~ovf & real, ovf & real])
     big = (torch.rand((3, 1 << 20), device=dev) < 0.5)
-    _, big_launch = vc.verdict_counts_launcher(big[0], big[1], big[2],
-                                               "sort")
+
+    def alone(rows):
+        return launch_device_ms(vc.verdict_counts_launcher(
+            *big[:, :rows], "sort")[1], reps=20)
+
     return {
         "B": B,
         "ms": event_ms(lambda: vc.verdict_counts(ok, ovf, real, "sort"),
                        reps=20),
         "device_ms": launch_device_ms(launch, reps=20),
+        "device_ms_16384": alone(16384),
+        "device_ms_16385": alone(16385),
         "plain_ms": event_ms(
             lambda: vc.verdict_counts_plain(ok, ovf, real, "sort"), reps=20),
         "library_ms": event_ms(lambda: torch.count_nonzero(prods, dim=1),
                                reps=20),
+        "host": host_parts(ok, ovf, real),
         "t_bytes": (3 * B + 16) / HBM_BYTES_PER_S,
         "t_ops": VERDICT_OPS_PER_ROW * B / CORE_OPS_PER_S,
-        "device_ms_1m": launch_device_ms(big_launch, reps=20),
+        "device_ms_1m": alone(1 << 20),
         "bound_ms_1m": (3 * (1 << 20) + 16) / HBM_BYTES_PER_S * 1e3,
     }
 
 
-def phase_mesh(dev, model, histories) -> dict:
+def phase_mesh(dev, model, histories, fused_sort=None) -> dict:
     """Phase 29: B10 on the north-star batch (see the module docstring).
-    Returns the kernels-line numbers of verdict_counts."""
+    `fused_sort`: what the counting option added to B5's launch on the
+    set's C = 64 rung (`run_sort_path`). Returns the kernels-line numbers
+    of verdict_counts_fused (the standalone's are on the `mesh` line)."""
     import numpy as np
     import torch
 
@@ -3815,6 +4102,8 @@ def phase_mesh(dev, model, histories) -> dict:
     from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
         dense_plans_grouped)
     from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import bucket_slots
+    from jepsen_jgroups_raft_tpu_torch.ops.verdict_counts import (
+        verdict_counts)
     from jepsen_jgroups_raft_tpu_torch.parallel.mesh import (
         check_batch_sharded)
 
@@ -3905,30 +4194,57 @@ def phase_mesh(dev, model, histories) -> dict:
         raise AssertionError(f"mesh ladder arm: {l_valid} VALID, "
                              f"{l_unknown} UNKNOWN of {n}, "
                              f"{int((~l_ok & ~l_ovf).sum())} INVALID")
-    for name, lc, kernels in (
-            ("one-shot", arm_launches,
-             {"dense_scan": len(grouped), "verdict_counts": len(grouped)}),
-            ("ladder", ladder_launches, {"sort_scan": 1})):
-        for k, least in kernels.items():
-            if lc[k] < least:
-                raise AssertionError(f"mesh {name} arm: {k} launched "
-                                     f"{lc[k]} times, expected {least}")
-    # the ladder counts on the host: no verdict_counts launch is unread
-    if ladder_launches["verdict_counts"] or \
-            arm_launches["verdict_counts"] != len(grouped):
+    # one counting launch a group in the one-shot arm (B1's, or B4's for
+    # a mask group), counted apart from the instances that do not count
+    arm_counting = arm_launches["dense_scan_count"] + \
+        arm_launches["mask_scan_count"]
+    if arm_counting != len(grouped):
+        raise AssertionError(f"mesh one-shot arm: {arm_counting} counting "
+                             f"scan launches, expected one a group "
+                             f"({len(grouped)})")
+    if ladder_launches["sort_scan"] < 1:
+        raise AssertionError("mesh ladder arm: sort_scan launched "
+                             f"{ladder_launches['sort_scan']} times, "
+                             "expected 1 or more")
+    # the one-shot arm counts in its scans' epilogues and the ladder on
+    # the host: no path launches verdict_counts
+    if ladder_launches["verdict_counts"] or arm_launches["verdict_counts"]:
         raise AssertionError("mesh: verdict_counts launched "
                              f"{arm_launches['verdict_counts']} times in "
-                             f"the one-shot arm (groups: {len(grouped)}), "
+                             "the one-shot arm, "
                              f"{ladder_launches['verdict_counts']} in the "
-                             "ladder (expected 0)")
+                             "ladder (expected 0 and 0)")
+    # the standalone entry, driven once as a user calls it (counts set to
+    # 0 just before, read just after), on the one-shot arm's verdicts:
+    # it must agree with the counts the scans made in their epilogues
+    flags = [torch.from_numpy(x).to(dev) for x in
+             (got, np.zeros((n,), dtype=bool), np.ones((n,), dtype=bool))]
+    reset_all_launch_counts()
+    standalone = verdict_counts(*flags, "dense").tolist()
+    standalone_launches = all_launch_counts()
+    if standalone != [n_valid, n_unknown] or \
+            standalone_launches["verdict_counts"] != 1:
+        raise AssertionError(f"mesh: verdict_counts of the arm's verdicts "
+                             f"{standalone} != the fused counts "
+                             f"{[n_valid, n_unknown]}, or it launched "
+                             f"{standalone_launches['verdict_counts']} times")
     # in turns (groups, arm, arm, groups): the two differ by where the
     # copies and launches are queued, which the card's spread can hide
     groups_walls = timed(groups_run)
     arm_walls = timed(one_shot) + timed(one_shot)
     groups_walls += timed(groups_run)
-    compared = verdict_counts_edges(dev)
-    flags = [torch.from_numpy(x).to(dev) for x in
-             (got, np.zeros((n,), dtype=bool), np.ones((n,), dtype=bool))]
+    # what counting adds to each north-star group's one-shot B1 launch
+    fused_dense = []
+    for b, (_, plan) in zip(batches, grouped):
+        ln = DenseLaunch(
+            events=torch.from_numpy(b["events"]).to(dev),
+            val_of=torch.from_numpy(plan.val_of).to(dev),
+            n_events=torch.from_numpy(b["n_events"]).to(dev),
+            n_slots=plan.n_slots, macro_p=b["macro_p"], kind=plan.kind)
+        fused_dense.append(dict(
+            fused_added(ln.launcher(model)[-1],
+                        group_counting(ln, model), "dense"),
+            W=plan.n_slots))
     vline = verdict_counts_timed(dev, *flags)
     emit("mesh", histories=n, encode_s=encode_s,
          groups=[len(idxs) for idxs, _ in grouped], rest_rows=len(rest),
@@ -3937,10 +4253,40 @@ def phase_mesh(dev, model, histories) -> dict:
          ladder_s=ladder_s, ladder_launches=ladder_launches,
          ladder_overflowed=int(l_ovf.sum()), ladder_valid=l_valid,
          ladder_unknown=l_unknown, n_valid=n_valid,
-         verdict_counts_compared=compared, verdict_counts=vline,
-         power=nvidia_smi_line())
-    return dict(vline, max_abs_err=0,
-                launches=arm_launches["verdict_counts"])
+         standalone_launches=standalone_launches["verdict_counts"],
+         fused_added_dense=fused_dense, fused_added_sort=fused_sort,
+         verdict_counts=vline, power=nvidia_smi_line())
+    worst = max(fused_dense, key=lambda x: x["added_ms"])
+    # the fused form's line: its launches the one-shot arm's counting
+    # launches; its ms the time counting adds to the north star's group
+    # launch that it slows most, its plain and library ms the same counts
+    # of that group's flags done apart; its work is reading `real` (none
+    # here: every row real) and writing 16 bytes a launch
+    fused = {"launches": arm_counting, "max_abs_err": 0,
+             "ms": worst["added_ms"], "added_share": worst["added_share"],
+             "plain_ms": worst["counts_plain_ms"],
+             "library_ms": worst["counts_library_ms"],
+             "t_bytes": 16 * len(grouped) / HBM_BYTES_PER_S,
+             "t_ops": 2 * n / CORE_OPS_PER_S}
+    return {"verdict_counts_fused": fused}
+
+
+def group_counting(ln, model):
+    """counting(real): the counting launcher of a dense group
+    (`checker.schedule.DenseLaunch`) with that `real` mask, for
+    `fused_added`."""
+    from jepsen_jgroups_raft_tpu_torch.ops import dense_scan as ds
+
+    def counting(real):
+        if ln.kind == "mask":
+            return ds.mask_scan_launcher(ln.events, ln.n_slots, ln.macro_p,
+                                         ln.n_events, model=model,
+                                         counts=True, real=real)
+        return ds.dense_scan_launcher(ln.events, ln.val_of, ln.n_slots,
+                                      ln.macro_p, ln.n_events, model,
+                                      counts=True, real=real)
+
+    return counting
 
 
 def phase_cluster(dev, model) -> None:
@@ -4019,12 +4365,17 @@ def phase_cluster(dev, model) -> None:
 
 
 def phase_mesh_alone(dev) -> None:
-    """`--only mesh`: phase 29 on a north-star batch of its own."""
+    """`--only mesh`: phase 29 on a north-star batch of its own, after
+    B10's edges (the kernels' checks of the full run)."""
     from jepsen_jgroups_raft_tpu_torch.models import CasRegister
 
+    t0 = time.perf_counter()
+    emit("verdict_counts_edges", **verdict_counts_edges(dev),
+         seconds=time.perf_counter() - t0)
     histories, synth_s = suite_histories("register")
     emit("mesh_synth", seconds=synth_s)
     phase_mesh(dev, CasRegister(), histories)
+    emit("verdict_counts_ops", **verdict_counts_ops(dev))
 
 
 def phase_cluster_alone(dev) -> None:
@@ -4063,22 +4414,30 @@ def phase_election_alone(dev) -> None:
 ONLY = {"segment": (("segment_scan", "segment_scan_profile"),
                     phase_segment_timed),
         "election": (("election_safety",), phase_election_alone),
-        "mesh": (("dense_scan", "mask_scan", "sort_scan", "verdict_counts"),
-                 phase_mesh_alone),
+        "mesh": (("dense_scan", "mask_scan", "sort_scan", "verdict_counts",
+                  *COUNT_LIBRARIES), phase_mesh_alone),
         "cluster": (("dense_scan", "mask_scan", "sort_scan",
-                     "verdict_counts"), phase_cluster_alone)}
+                     "verdict_counts", *COUNT_LIBRARIES),
+                    phase_cluster_alone)}
 
 
 def kernel_checks(dev, model) -> dict:
-    """Phases 3-5, 13, 13b, 16 and 21: each kernel against its plain
-    version on the shapes of its own cases (nothing in them times the
-    card for the kernels line). Returns each kernel's max |kernel -
-    plain| (0, or a phase fails)."""
+    """Phases 3, 29a, 4-5, 13, 13b, 16, 21 and 29b: each kernel against
+    its plain version on the shapes of its own cases (nothing in them
+    times the card for the kernels line). Returns each kernel's max
+    |kernel - plain| (0, or a phase fails), and B10's edges and device
+    operations a call under "verdict_counts_edges"."""
     # 3. dense_scan against its plain version at every window
     t0 = time.perf_counter()
     compared, corner_err = phase_kernel(dev, model)
     emit("kernel_summary", rows_compared=compared, max_abs_err=corner_err,
          seconds=time.perf_counter() - t0)
+
+    # 29a. B10, standalone and fused into B1, B4 and B5, against the plain
+    # counts
+    t0 = time.perf_counter()
+    edges = verdict_counts_edges(dev)
+    emit("verdict_counts_edges", **edges, seconds=time.perf_counter() - t0)
 
     # 4. mask_scan against its plain version
     t0 = time.perf_counter()
@@ -4114,11 +4473,19 @@ def kernel_checks(dev, model) -> dict:
     ck = phase_cycle_kernel(dev)
     emit("cycle_kernel_summary", max_abs_err=ck["max_abs_err"],
          library_ms=ck["library_ms"], seconds=time.perf_counter() - t0)
+
+    # 29b. the device operations of a standalone verdict_counts call (last:
+    # the profiler slows what runs after it)
+    t0 = time.perf_counter()
+    edges.update(verdict_counts_ops(dev))
+    emit("verdict_counts_ops", **edges, seconds=time.perf_counter() - t0)
     return {"dense_scan": max(corner_err, groups_err["dense_scan"]),
             "mask_scan": max(mask_err, groups_err["mask_scan"]),
             "sort_scan": sort_err, "segment_scan": seg_err,
             "cycle_closure": ck["max_abs_err"],
-            "cycle_closure_tiled": ck["max_abs_err"], **chunk_errs}
+            "cycle_closure_tiled": ck["max_abs_err"], **chunk_errs,
+            "verdict_counts_fused": 0,
+            "verdict_counts_edges": edges}
 
 
 def kernel_checks_child(conn, out: str, t0: float) -> None:
@@ -4334,8 +4701,10 @@ def run_phases(dev, model, ptxas: dict, histories: list,
         line["sort_scan"] = run_sort_path("set_main", dev, GSet(), set_hs,
                                           set_synth_s, ptxas["sort_scan"],
                                           one_shot=True, measure_chunk=True,
+                                          measure_fused=True,
                                           value_range=SET_VALUE_RANGE)
         line["sort_scan_chunk"] = line["sort_scan"].pop("chunk")
+        fused_sort = line["sort_scan"].pop("fused")
 
         # 17. suite configs 5 and 4, segmented and monolithic, on the card
         t0 = time.perf_counter()
@@ -4381,7 +4750,8 @@ def run_phases(dev, model, ptxas: dict, histories: list,
     # 29-30: B10, the batch mesh on the north-star batch, and two ranks on
     # this card
     t0 = time.perf_counter()
-    line["verdict_counts"] = phase_mesh(dev, model, histories)
+    line.update(phase_mesh(dev, model, histories, fused_sort))
+    errs.pop("verdict_counts_edges")  # on its own lines
     emit("mesh_summary", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_cluster(dev, model)
@@ -4397,9 +4767,11 @@ def run_phases(dev, model, ptxas: dict, histories: list,
     line["mask_scan_chunk"] = dict(
         paths["counter_main"]["chunk"],
         launches=sum(x["chunk"]["launches"] for x in paths.values()))
-    errs.update(election_safety=0, verdict_counts=0)
+    errs.update(election_safety=0)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        if name in OFF_PATH:
+            continue
         x = line[name]
         rep = ptxas[KERNEL_LIBRARY.get(name, name)]
         if x["launches"] <= 0:
@@ -4419,6 +4791,28 @@ def run_phases(dev, model, ptxas: dict, histories: list,
             "spill_bytes": rep["spill_store_bytes"] +
             rep["spill_load_bytes"]})
     return kernels
+
+
+def scan_instances(libs) -> dict:
+    """ptxas's report of the scan libraries among `libs`, split by the
+    counting flag (`_build.ptxas_by_count`): instances, most registers,
+    stack and spill bytes."""
+    from jepsen_jgroups_raft_tpu_torch.ops import _build
+
+    out = {}
+    for lib in _build.SCAN_TEMPLATES:
+        if lib not in libs:
+            continue
+        for flag, funcs in zip(("plain", "counting"),
+                               _build.ptxas_by_count(lib)):
+            rs = list(funcs.values())
+            out[f"{lib}_{flag}"] = {
+                "instances": len(rs),
+                "max_registers": max((r["registers"] for r in rs),
+                                     default=0),
+                "stack_bytes": sum(r["stack_bytes"] for r in rs),
+                "spill_bytes": sum(r["spill_bytes"] for r in rs)}
+    return out
 
 
 def main(argv=None) -> int:
@@ -4460,7 +4854,9 @@ def main(argv=None) -> int:
     if only is not None:
         libs = list(dict.fromkeys(k for x in only for k in ONLY[x][0]))
         emit("build", seconds=_build.build(libs), kernels=libs,
-             ptxas={k: _build.ptxas_report(k) for k in libs})
+             seconds_by_library=dict(_build.BUILD_SECONDS),
+             ptxas={k: _build.ptxas_report(k) for k in libs},
+             scan_instances=scan_instances(libs))
         for x in only:
             t0 = time.perf_counter()
             ONLY[x][1](dev)
@@ -4473,8 +4869,8 @@ def main(argv=None) -> int:
 
     # 2. build every kernel from this checkout's sources, and the
     # instrumented mask kernel, in parallel
-    path_libs = list(dict.fromkeys(KERNEL_LIBRARY.get(k, k)
-                                   for k in KERNELS))
+    path_libs = list(dict.fromkeys([*(KERNEL_LIBRARY.get(k, k)
+                                      for k in KERNELS), *COUNT_LIBRARIES]))
     libs = [*path_libs, "mask_scan_profile", "segment_scan_profile"]
     # in parallel; the north-star batch is made on the host meanwhile
     with ThreadPoolExecutor(1) as pool:
@@ -4482,7 +4878,9 @@ def main(argv=None) -> int:
         histories, synth_s = suite_histories("register")
         build_s = building.result()
     ptxas = {k: _build.ptxas_report(k) for k in libs}
-    emit("build", seconds=build_s, kernels=libs, ptxas=ptxas,
+    emit("build", seconds=build_s, kernels=libs,
+         seconds_by_library=dict(_build.BUILD_SECONDS), ptxas=ptxas,
+         scan_instances=scan_instances(libs),
          cycle_closure_functions=_build.ptxas_functions("cycle_closure"))
     for k, rep in ptxas.items():
         if rep["functions"] == 0:

@@ -56,7 +56,6 @@ from ..history.packing import bucket_rows
 from ..ops.dense_scan import (dense_scan, dense_scan_launcher, mask_scan,
                               mask_scan_launcher)
 from ..ops.linear_scan import sort_scan, sort_scan_launcher
-from ..ops.verdict_counts import verdict_counts, verdict_counts_launcher
 from ..platform import env_int, resolve_device
 
 #: Default events per chunk, the reference's (its calibration on the
@@ -209,23 +208,27 @@ class DenseLaunch:
     kind: str = "domain"
     model: Optional[object] = None
 
-    def scan(self, model):
-        """The group's verdicts through its kernel's wrapper."""
+    def scan(self, model, counts: bool = False):
+        """The group's verdicts through its kernel's wrapper; with
+        `counts`, (ok, counts) from the same launch."""
         m = model if self.model is None else self.model
         if self.kind == "mask":
             return mask_scan(self.events, self.n_slots, self.macro_p,
-                             self.n_events, model=m)
+                             self.n_events, model=m, counts=counts)
         return dense_scan(self.events, self.val_of, self.n_slots,
-                          self.macro_p, self.n_events, m)
+                          self.macro_p, self.n_events, m, counts=counts)
 
-    def launcher(self, model):
-        """(ok, launch) from its kernel's launcher (card only)."""
+    def launcher(self, model, counts: bool = False):
+        """(ok, launch) from its kernel's launcher (card only); with
+        `counts`, (ok, counts, launch) of the instance that counts."""
         m = model if self.model is None else self.model
         if self.kind == "mask":
             return mask_scan_launcher(self.events, self.n_slots,
-                                      self.macro_p, self.n_events, model=m)
+                                      self.macro_p, self.n_events, model=m,
+                                      counts=counts)
         return dense_scan_launcher(self.events, self.val_of, self.n_slots,
-                                   self.macro_p, self.n_events, m)
+                                   self.macro_p, self.n_events, m,
+                                   counts=counts)
 
 
 @dataclass
@@ -234,8 +237,8 @@ class GroupRun:
     array. When timed (card only), kernel_ms[k] is launch k's kernel time
     on its own stream and span_ms the check's kernel span, from before
     the first launch to the end of the last kernel, by CUDA events. With
-    counts, counts[k] is launch k's int64 (n_valid, n_unknown) from B10's
-    `verdict_counts`."""
+    counts, counts[k] is launch k's int64 (n_valid, n_unknown), B10's
+    counts from the same kernel launch."""
 
     ok: List[np.ndarray]
     wall_s: float
@@ -262,32 +265,28 @@ def launch_dense_groups(launches: List[DenseLaunch], model,
     finalize blocks on those events, never on the whole device, and the
     current stream never waits for a side stream, so the copies of a
     check launched after this one overlap this one's kernels. `counts`
-    adds B10's `verdict_counts` in dense mode (every row real) after each
-    group's kernel on its stream. `timed` adds CUDA events (card only)
-    for per-group kernel times and the overlapped span, from before the
-    first launch to the end of the last kernel."""
+    launches each group's counting instance instead (B10's counts in
+    dense mode, every row real, from the kernel's epilogue), and copies
+    its counts to pinned memory beside its verdicts. `timed` adds CUDA
+    events (card only) for per-group kernel times and the overlapped
+    span, from before the first launch to the end of the last kernel."""
     t0 = time.perf_counter()
     on_card = any(ln.events.device.type == "cuda" for ln in launches)
     timed = timed and on_card
     marks, start, dones = [], None, []
     if not on_card:
-        oks = [ln.scan(model) for ln in launches]
-        host_ok = oks
-        host_counts = [verdict_counts(ok, torch.zeros_like(ok),
-                                      torch.ones_like(ok), "dense")
-                       for ok in oks] if counts else []
+        outs = [ln.scan(model, counts=counts) for ln in launches]
+        host_ok = [o[0] for o in outs] if counts else outs
+        host_counts = [o[1] for o in outs] if counts else []
     else:
         dev = launches[0].events.device
         main = torch.cuda.current_stream(dev)
         # PyTorch hands out its pooled streams round-robin, so these are
         # distinct for up to 32 groups
         sides = [torch.cuda.Stream(device=dev) for _ in launches]
-        ready = [ln.launcher(model) for ln in launches]
-        oks = [ok for ok, _ in ready]
-        flags = [(torch.zeros_like(ok), torch.ones_like(ok)) for ok in oks] \
-            if counts else []
-        tally = [verdict_counts_launcher(ok, ovf, real, "dense")
-                 for ok, (ovf, real) in zip(oks, flags)]
+        ready = [ln.launcher(model, counts=counts) for ln in launches]
+        oks = [r[0] for r in ready]
+        tally = [r[1] for r in ready] if counts else []
         host_ok = [torch.empty(ok.shape, dtype=torch.bool, pin_memory=True)
                    for ok in oks]
         host_counts = [torch.empty((2,), dtype=torch.int64, pin_memory=True)
@@ -296,25 +295,24 @@ def launch_dense_groups(launches: List[DenseLaunch], model,
             start = _timer()
             marks = [(_timer(), _timer()) for _ in launches]
             start.record(main)
-        for k, ((_, launch), side) in enumerate(zip(ready, sides)):
+        for k, (r, side) in enumerate(zip(ready, sides)):
             side.wait_stream(main)
             if timed:
                 marks[k][0].record(side)
-            launch(side)
+            r[-1](side)
             if timed:
                 marks[k][1].record(side)
             with torch.cuda.stream(side):
                 host_ok[k].copy_(oks[k], non_blocking=True)
                 if counts:
-                    tally[k][1](side)
-                    host_counts[k].copy_(tally[k][0], non_blocking=True)
+                    host_counts[k].copy_(tally[k], non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(side)
             dones.append(done)
         for k, (ln, side) in enumerate(zip(launches, sides)):
             touched = [ln.events, ln.val_of, ln.n_events, oks[k]]
             if counts:
-                touched += [*flags[k], tally[k][0]]
+                touched.append(tally[k])
             for t in touched:
                 if t is not None:
                     t.record_stream(side)

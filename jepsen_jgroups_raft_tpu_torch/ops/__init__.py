@@ -26,8 +26,11 @@
   rows: the CUDA kernel wrapper `election_safety` (its plain version is
   `models.leader.check_election_safety_plain`).
 * `verdict_counts` — B10's per-shard verdict counts (n_valid,
-  n_unknown) of a batch's flags: the CUDA kernel wrapper
-  `verdict_counts` and its plain version `verdict_counts_plain`.
+  n_unknown): made by the scans' counting option (`dense_scan`,
+  `mask_scan`, `sort_scan` with ``counts=True``: the kernels' epilogue,
+  csrc/verdict_counts.cuh), or of flags already in memory by the CUDA
+  kernel wrapper `verdict_counts`; the plain version
+  `verdict_counts_plain`.
 * `_build`     — nvcc build of `csrc/*.cu` at first use, ctypes binding.
 """
 

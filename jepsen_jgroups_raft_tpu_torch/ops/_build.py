@@ -19,6 +19,7 @@ import re
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -36,31 +37,40 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES: Dict[str, dict] = {
     "dense_scan": {
-        # events, val_of, n_events, ok, B, E, R, macro_p, W, S,
-        # field_log2, model, device, stream
-        "dense_scan_launch": (_I, [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _VP]),
+        # events, val_of, n_events, ok, real (or null), counts (or null),
+        # B, E, R, macro_p, W, S, field_log2, model, device, stream
+        "dense_scan_launch": (_I, [_VP] * 6 + [_I] * 9 + [_VP]),
         # events, carry in, carry out, flags, row stride, B, width, R,
         # macro_p, W, S, field_log2, model, carry length, device, stream
         "dense_scan_chunk_launch": (_I, [_VP, _VP, _VP, _VP, _LL] + [_I] * 10
                                     + [_VP]),
         "dense_scan_error_string": (ctypes.c_char_p, [_I]),
     },
+    "dense_scan_count": {
+        # as dense_scan's, with counts (never null) and real (or null)
+        "dense_scan_launch": (_I, [_VP] * 6 + [_I] * 9 + [_VP]),
+        "dense_scan_error_string": (ctypes.c_char_p, [_I]),
+    },
     "mask_scan": {
-        # events, n_events, ok, B, E, R, macro_p, W, model, init_state,
-        # device, stream
-        "mask_scan_launch": (_I, [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _VP]),
+        # events, n_events, ok, real (or null), counts (or null), B, E, R,
+        # macro_p, W, model, init_state, device, stream
+        "mask_scan_launch": (_I, [_VP] * 5 + [_I] * 8 + [_VP]),
         # events, carry in, carry out, flags, row stride, B, width, R,
         # macro_p, W, model, carry length, device, stream
         "mask_scan_chunk_launch": (_I, [_VP, _VP, _VP, _VP, _LL] + [_I] * 8
                                    + [_VP]),
         "mask_scan_error_string": (ctypes.c_char_p, [_I]),
     },
+    "mask_scan_count": {
+        # as mask_scan's, with counts (never null) and real (or null)
+        "mask_scan_launch": (_I, [_VP] * 5 + [_I] * 8 + [_VP]),
+        "mask_scan_error_string": (ctypes.c_char_p, [_I]),
+    },
     "sort_scan": {
-        # events, n_events, ok, overflow, B, E, R, macro_p, W, C, model,
-        # init_state, threads, tile, table log2, device, stream
-        "sort_scan_launch": (_I, [_VP, _VP, _VP, _VP] + [_I] * 12 + [_VP]),
+        # events, n_events, ok, overflow, real (or null), counts (or
+        # null), B, E, R, macro_p, W, C, model, init_state, threads, tile,
+        # table log2, device, stream
+        "sort_scan_launch": (_I, [_VP] * 6 + [_I] * 12 + [_VP]),
         # events, carry in, carry out, flags, row stride, B, width, R,
         # macro_p, W, C, model, carry length, threads, tile, table log2,
         # device, stream
@@ -127,10 +137,13 @@ ENTRY_LIBRARY: Dict[str, str] = {
 #: name -> (source stem in csrc/, flags). Every other library `name`
 #: builds from csrc/<name>.cu. The instrumented mask and segment kernels
 #: are two: each is measured by chip_smoke.py and never launched on a main
-#: path.
+#: path. The counting instances of B1 and B4 (the scans' `counts=True`
+#: option) are two more, built beside the plain ones by their own nvcc.
 VARIANTS: Dict[str, tuple] = {
     "mask_scan_profile": ("mask_scan", ["-DMASK_SCAN_PROFILE"]),
     "segment_scan_profile": ("segment_scan", ["-DSEGMENT_SCAN_PROFILE"]),
+    "dense_scan_count": ("dense_scan", ["-DDENSE_SCAN_COUNT"]),
+    "mask_scan_count": ("mask_scan", ["-DMASK_SCAN_COUNT"]),
 }
 
 
@@ -146,6 +159,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: process; `build_log` also reads it back from beside a library built
 #: earlier.
 BUILD_LOG: Dict[str, str] = {}
+#: wall seconds from the start of a `build` call to the end of each
+#: library's nvcc, for the libraries this process built
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def _target(name: str) -> Path:
@@ -175,19 +191,26 @@ def _start(name: str):
     return proc, tmp, out
 
 
+def _finish(proc, t0: float):
+    """(nvcc's output, seconds from t0 to its end) of one started build."""
+    log, _ = proc.communicate()
+    return log, time.perf_counter() - t0
+
+
 def build(names: Iterable[str]) -> float:
     """Build every named library that is not built yet, one nvcc per
-    source, all started together. Returns the wall seconds spent;
-    raises on any compile failure."""
+    source, all started together (each one's seconds in BUILD_SECONDS).
+    Returns the wall seconds spent; raises on any compile failure."""
     t0 = time.perf_counter()
     with _LOCK:
-        jobs = {n: _start(n) for n in names}
+        jobs = {n: j for n, j in ((n, _start(n)) for n in names)
+                if j is not None}
+        with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+            ends = {n: pool.submit(_finish, j[0], t0)
+                    for n, j in jobs.items()}
         errors = []
-        for name, job in jobs.items():
-            if job is None:
-                continue
-            proc, tmp, out = job
-            log, _ = proc.communicate()
+        for name, (proc, tmp, out) in jobs.items():
+            log, BUILD_SECONDS[name] = ends[name].result()
             BUILD_LOG[name] = log
             if proc.returncode != 0:
                 errors.append(f"{name}: nvcc exited {proc.returncode}:\n"
@@ -262,6 +285,28 @@ def ptxas_functions(name: str) -> Dict[str, dict]:
                    "spill_bytes": (int(frame.group(2)) + int(frame.group(3))
                                    if frame else 0)}
     return out
+
+
+#: the one-shot scans' kernel templates, by library: their instances
+#: without the counting option (template flag false, `Lb0E` in the
+#: mangled name) and with it (`Lb1E`; B1's and B4's in the library of
+#: the same name with "_count")
+SCAN_TEMPLATES = {"dense_scan": "dense_scan_warp",
+                  "mask_scan": "mask_scan_warp",
+                  "sort_scan": "sort_scan_block"}
+
+
+def ptxas_by_count(lib: str) -> tuple:
+    """ptxas's per-function report of scan library `lib`'s one-shot
+    kernel template (and of `lib`_count's, where the counting instances
+    build apart), split into the instances that do not count and those
+    that do: (plain, counting), each mangled name → `ptxas_functions`'s
+    entry. Reads the build logs of libraries built or loaded earlier."""
+    stem = SCAN_TEMPLATES[lib]
+    funcs = {n: r for x in (lib, f"{lib}_count") if x in SIGNATURES
+             for n, r in ptxas_functions(x).items() if stem in n}
+    return ({n: r for n, r in funcs.items() if "Lb0E" in n},
+            {n: r for n, r in funcs.items() if "Lb1E" in n})
 
 
 def ptxas_report(name: str) -> dict:

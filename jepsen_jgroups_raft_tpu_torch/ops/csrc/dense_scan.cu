@@ -112,6 +112,7 @@
 
 #include "dense_frontier.cuh"
 #include "models.cuh"
+#include "verdict_counts.cuh"
 #include "warp_frontier.cuh"
 
 namespace {
@@ -143,7 +144,11 @@ struct DenseCarry {
 // ok, overflow (always 0 here). A row whose frontier died stops there;
 // its carry keeps ok = 0 and the empty frontier (the slot state it
 // holds is then not the reference's, and nothing reads it again).
-template <int W, int LF>
+// kCount (one-shot only) also counts the row's verdict into counts[2]
+// in dense mode, real[h] (null: every row real) masking padding rows
+// out (verdict_counts.cuh); the instances without it are the same code
+// as before the counts existed.
+template <int W, int LF, bool kCount>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
     dense_scan_warp(const int32_t* __restrict__ events, long long row_stride,
                     const int32_t* __restrict__ val_of,
@@ -152,7 +157,9 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
                     int32_t* __restrict__ carry_out,
                     uint8_t* __restrict__ flags,
                     uint8_t* __restrict__ ok_out, int B, int E, int R,
-                    int macro_p, int S, int model) {
+                    int macro_p, int S, int model,
+                    const uint8_t* __restrict__ real,
+                    unsigned long long* __restrict__ counts) {
   using Carry = DenseCarry<W, LF>;
   constexpr int kFS = Layout<W, LF>::kFS;
   constexpr int kWords = Layout<W, LF>::kWords;
@@ -162,6 +169,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int h = blockIdx.x * kWarpsPerBlock + warp;
+  if constexpr (kCount) count_open();  // before any warp exits
   if (h >= B) return;  // warp-uniform; no other warp waits on this one
   int32_t (*ring)[kRowPitch] = ring_all[warp];
   uint32_t (*T)[kFS] = T_all[warp];
@@ -262,6 +270,13 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
   }
   cp_async_wait<0>();
   if (ok_out != nullptr && lane == 0) ok_out[h] = ok ? 1 : 0;
+  if constexpr (kCount) {
+    const uint32_t r = real == nullptr || real[h] != 0;
+    count_rows(lane == 0 ? valid_bits<kCountDense>(ok, 0u, r) : 0u, 0u,
+               min(kWarpsPerBlock, B - static_cast<int>(blockIdx.x) *
+                                           kWarpsPerBlock),
+               counts);
+  }
   if (carry_out != nullptr) {
     int32_t* cout = carry_out + static_cast<size_t>(h) * Carry::len(S);
     for (int i = lane; i < W * kFS; i += 32)
@@ -279,37 +294,52 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
 
 using KernelFn = void (*)(const int32_t*, long long, const int32_t*,
                           const int32_t*, const int32_t*, int32_t*, uint8_t*,
-                          uint8_t*, int, int, int, int, int, int);
+                          uint8_t*, int, int, int, int, int, int,
+                          const uint8_t*, unsigned long long*);
 
-template <int W>
+template <int W, bool kCount>
 KernelFn pick_field(int lf) {
   switch (lf) {
-    case 0: return dense_scan_warp<W, 0>;
-    case 1: return dense_scan_warp<W, 1>;
-    case 2: return dense_scan_warp<W, 2>;
-    case 3: return dense_scan_warp<W, 3>;
+    case 0: return dense_scan_warp<W, 0, kCount>;
+    case 1: return dense_scan_warp<W, 1, kCount>;
+    case 2: return dense_scan_warp<W, 2, kCount>;
+    case 3: return dense_scan_warp<W, 3, kCount>;
     case 4:
-      if constexpr (W + 4 <= 13) return dense_scan_warp<W, 4>;
+      if constexpr (W + 4 <= 13) return dense_scan_warp<W, 4, kCount>;
       return nullptr;
     default: return nullptr;
   }
 }
 
-KernelFn pick(int W, int lf) {
+template <bool kCount>
+KernelFn pick_window(int W, int lf) {
   switch (W) {
-    case 1: return pick_field<1>(lf);
-    case 2: return pick_field<2>(lf);
-    case 3: return pick_field<3>(lf);
-    case 4: return pick_field<4>(lf);
-    case 5: return pick_field<5>(lf);
-    case 6: return pick_field<6>(lf);
-    case 7: return pick_field<7>(lf);
-    case 8: return pick_field<8>(lf);
-    case 9: return pick_field<9>(lf);
-    case 10: return pick_field<10>(lf);
+    case 1: return pick_field<1, kCount>(lf);
+    case 2: return pick_field<2, kCount>(lf);
+    case 3: return pick_field<3, kCount>(lf);
+    case 4: return pick_field<4, kCount>(lf);
+    case 5: return pick_field<5, kCount>(lf);
+    case 6: return pick_field<6, kCount>(lf);
+    case 7: return pick_field<7, kCount>(lf);
+    case 8: return pick_field<8, kCount>(lf);
+    case 9: return pick_field<9, kCount>(lf);
+    case 10: return pick_field<10, kCount>(lf);
     default: return nullptr;
   }
 }
+
+// Which instances a build holds: the counting ones in the library built
+// with -DDENSE_SCAN_COUNT (dense_scan_count: the one-shot entry only),
+// the others in dense_scan (with the chunk entry). Two libraries keep
+// each nvcc to the instances it had before the counts existed, and the
+// two build side by side.
+#ifdef DENSE_SCAN_COUNT
+constexpr bool kCountBuild = true;
+#else
+constexpr bool kCountBuild = false;
+#endif
+
+KernelFn pick(int W, int lf) { return pick_window<kCountBuild>(W, lf); }
 
 template <int W>
 int carry_len_field(int lf, int S) {
@@ -357,17 +387,24 @@ int check_args(int B, int E, int R, int macro_p, int W, int S,
 int launch(const int32_t* events, long long row_stride,
            const int32_t* val_of, const int32_t* n_events,
            const int32_t* carry_in, int32_t* carry_out, uint8_t* flags,
-           uint8_t* ok, int B, int E, int R, int macro_p, int W, int S,
-           int field_log2, int model, int device, void* stream) {
-  if (B == 0) return 0;
+           uint8_t* ok, const uint8_t* real, long long* counts, int B, int E,
+           int R, int macro_p, int W, int S, int field_log2, int model,
+           int device, void* stream) {
+  if ((counts != nullptr) != kCountBuild) return -8;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (counts != nullptr) {  // the blocks add into zeroed counters
+    err = cudaMemsetAsync(counts, 0, 2 * sizeof(long long), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (B == 0) return 0;
   const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const KernelFn kernel = pick(W, field_log2);
-  kernel<<<blocks, kWarpsPerBlock * 32, 0,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(
       events, row_stride, val_of, n_events, carry_in, carry_out, flags, ok,
-      B, E, R, macro_p, S, model);
+      B, E, R, macro_p, S, model, real,
+      reinterpret_cast<unsigned long long*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -376,21 +413,26 @@ int launch(const int32_t* events, long long row_stride,
 // Launch the scan over B histories on `stream`, one warp per history and
 // kWarpsPerBlock histories per block, with the kernel instantiated for
 // (W, field_log2); field_log2 is the layout's LF (ops/dense_scan.py
-// `dense_layout`). Returns 0, a CUDA error code from the launch, or a
-// negative code for refused arguments (see dense_scan_error_string).
-// Does not synchronise.
+// `dense_layout`). With counts (int64 [2], else null; only in
+// dense_scan_count, and there always) the kernel's epilogue also counts
+// the verdicts in dense mode, real [B] (null: every row) masking rows
+// out; counts is zeroed on `stream` first. Returns 0,
+// a CUDA error code from the launch, or a negative code for refused
+// arguments (see dense_scan_error_string). Does not synchronise.
 extern "C" int dense_scan_launch(const int32_t* events, const int32_t* val_of,
-                                 const int32_t* n_events, uint8_t* ok, int B,
-                                 int E, int R, int macro_p, int W, int S,
-                                 int field_log2, int model, int device,
+                                 const int32_t* n_events, uint8_t* ok,
+                                 const uint8_t* real, long long* counts,
+                                 int B, int E, int R, int macro_p, int W,
+                                 int S, int field_log2, int model, int device,
                                  void* stream) {
   const int rc = check_args(B, E, R, macro_p, W, S, field_log2, model);
   if (rc != 0) return rc;
   return launch(events, static_cast<long long>(E) * R, val_of, n_events,
-                nullptr, nullptr, nullptr, ok, B, E, R, macro_p, W, S,
-                field_log2, model, device, stream);
+                nullptr, nullptr, nullptr, ok, real, counts, B, E, R, macro_p,
+                W, S, field_log2, model, device, stream);
 }
 
+#ifndef DENSE_SCAN_COUNT
 // Launch one chunk over B histories on `stream`: the state of history h
 // from row h of carry_in (carry_len ints, DenseCarry's layout), its
 // event rows from events + h * row_stride (width rows of R ints; a slice
@@ -408,10 +450,12 @@ extern "C" int dense_scan_chunk_launch(const int32_t* events,
   const int rc = check_args(B, width, R, macro_p, W, S, field_log2, model);
   if (rc != 0) return rc;
   if (carry_len_ != carry_len(W, field_log2, S)) return -7;
+  if (B == 0) return 0;
   return launch(events, row_stride, nullptr, nullptr, carry_in, carry_out,
-                flags, nullptr, B, width, R, macro_p, W, S, field_log2, model,
-                device, stream);
+                flags, nullptr, nullptr, nullptr, B, width, R, macro_p, W, S,
+                field_log2, model, device, stream);
 }
+#endif
 
 extern "C" const char* dense_scan_error_string(int code) {
   switch (code) {
@@ -422,6 +466,7 @@ extern "C" const char* dense_scan_error_string(int code) {
     case -5: return "model has no dense domain (the register and the set have)";
     case -6: return "field_log2 is not the layout's field width for S";
     case -7: return "carry length does not match the carry layout";
+    case -8: return "counts asked of dense_scan, or not of dense_scan_count";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -98,6 +98,7 @@
 #include <cuda_runtime.h>
 
 #include "models.cuh"
+#include "verdict_counts.cuh"
 #include "warp_frontier.cuh"
 
 namespace {
@@ -348,8 +349,11 @@ struct MaskCarry {
 // slice, carry_out with left - E and the four flags). Every field of the
 // state lives in registers between rows, so the carry holds all of it;
 // the lazy legality of mask_closure is built and dropped inside one
-// closing FORCE and crosses no row.
-template <int W, int MODEL>
+// closing FORCE and crosses no row. kCount (one-shot only) also counts
+// the row's verdict into counts[2] in dense mode, real[h] (null: every
+// row real) masking padding rows out (verdict_counts.cuh); the instances
+// without it are the same code as before the counts existed.
+template <int W, int MODEL, bool kCount>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
     mask_scan_warp(const int32_t* __restrict__ events, long long row_stride,
                    const int32_t* __restrict__ n_events,
@@ -358,7 +362,9 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
                    uint8_t* __restrict__ flags,
                    uint8_t* __restrict__ ok_out,
                    long long* __restrict__ prof_out, int B, int E, int R,
-                   int macro_p, int32_t init_state) {
+                   int macro_p, int32_t init_state,
+                   const uint8_t* __restrict__ real,
+                   unsigned long long* __restrict__ counts) {
   using Carry = MaskCarry<W>;
   constexpr int kWords = kMaskWords<W>;
   __shared__ int32_t ring_all[kWarpsPerBlock][kRingDepth][kRowPitch];
@@ -366,6 +372,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int h = blockIdx.x * kWarpsPerBlock + warp;
+  if constexpr (kCount) count_open();  // before any warp exits
   if (h >= B) return;  // warp-uniform; no other warp waits on this one
   int32_t (*ring)[kRowPitch] = ring_all[warp];
   const int32_t* cin =
@@ -487,6 +494,13 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
   }
   cp_async_wait<0>();
   if (ok_out != nullptr && lane == 0) ok_out[h] = ok ? 1 : 0;
+  if constexpr (kCount) {
+    const uint32_t r = real == nullptr || real[h] != 0;
+    count_rows(lane == 0 ? valid_bits<kCountDense>(ok, 0u, r) : 0u, 0u,
+               min(kWarpsPerBlock, B - static_cast<int>(blockIdx.x) *
+                                           kWarpsPerBlock),
+               counts);
+  }
   if (carry_out != nullptr) {
     int32_t* cout = carry_out + static_cast<size_t>(h) * Carry::kLen;
 #pragma unroll
@@ -511,32 +525,44 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
 
 using KernelFn = void (*)(const int32_t*, long long, const int32_t*,
                           const int32_t*, int32_t*, uint8_t*, uint8_t*,
-                          long long*, int, int, int, int, int32_t);
+                          long long*, int, int, int, int, int32_t,
+                          const uint8_t*, unsigned long long*);
 
-template <int MODEL>
+template <int MODEL, bool kCount>
 KernelFn pick_window(int W) {
   switch (W) {
-    case 1: return mask_scan_warp<1, MODEL>;
-    case 2: return mask_scan_warp<2, MODEL>;
-    case 3: return mask_scan_warp<3, MODEL>;
-    case 4: return mask_scan_warp<4, MODEL>;
-    case 5: return mask_scan_warp<5, MODEL>;
-    case 6: return mask_scan_warp<6, MODEL>;
-    case 7: return mask_scan_warp<7, MODEL>;
-    case 8: return mask_scan_warp<8, MODEL>;
-    case 9: return mask_scan_warp<9, MODEL>;
-    case 10: return mask_scan_warp<10, MODEL>;
-    case 11: return mask_scan_warp<11, MODEL>;
-    case 12: return mask_scan_warp<12, MODEL>;
+    case 1: return mask_scan_warp<1, MODEL, kCount>;
+    case 2: return mask_scan_warp<2, MODEL, kCount>;
+    case 3: return mask_scan_warp<3, MODEL, kCount>;
+    case 4: return mask_scan_warp<4, MODEL, kCount>;
+    case 5: return mask_scan_warp<5, MODEL, kCount>;
+    case 6: return mask_scan_warp<6, MODEL, kCount>;
+    case 7: return mask_scan_warp<7, MODEL, kCount>;
+    case 8: return mask_scan_warp<8, MODEL, kCount>;
+    case 9: return mask_scan_warp<9, MODEL, kCount>;
+    case 10: return mask_scan_warp<10, MODEL, kCount>;
+    case 11: return mask_scan_warp<11, MODEL, kCount>;
+    case 12: return mask_scan_warp<12, MODEL, kCount>;
     default: return nullptr;
   }
 }
 
+// Which instances a build holds: the counting ones in the library built
+// with -DMASK_SCAN_COUNT (mask_scan_count: the one-shot entry only), the
+// others in mask_scan (with the chunk entry) and in the instrumented
+// build. Two libraries keep each nvcc to the instances it had before the
+// counts existed, and the two build side by side.
+#ifdef MASK_SCAN_COUNT
+constexpr bool kCountBuild = true;
+#else
+constexpr bool kCountBuild = false;
+#endif
+
 KernelFn pick(int W, int model) {
   switch (model) {
-    case kModelCounter: return pick_window<kModelCounter>(W);
-    case kModelQueue: return pick_window<kModelQueue>(W);
-    case kModelSet: return pick_window<kModelSet>(W);
+    case kModelCounter: return pick_window<kModelCounter, kCountBuild>(W);
+    case kModelQueue: return pick_window<kModelQueue, kCountBuild>(W);
+    case kModelSet: return pick_window<kModelSet, kCountBuild>(W);
     default: return nullptr;
   }
 }
@@ -561,22 +587,30 @@ int carry_len(int W) {
 int launch(const int32_t* events, long long row_stride,
            const int32_t* n_events, const int32_t* carry_in,
            int32_t* carry_out, uint8_t* flags, uint8_t* ok, long long* prof,
-           int B, int E, int R, int macro_p, int W, int model, int init_state,
-           int device, void* stream) {
+           const uint8_t* real, long long* counts, int B, int E, int R,
+           int macro_p, int W, int model, int init_state, int device,
+           void* stream) {
   if (B < 0 || E < 0) return -1;
   if (W < 1 || W > kMaskMaxSlots) return -2;
   if (macro_p < 0 || macro_p > kMaxOpens) return -3;
   if (R != (macro_p ? 3 + 4 * macro_p : 5)) return -4;
   const KernelFn kernel = pick(W, model);
   if (kernel == nullptr) return -5;
-  if (B == 0) return 0;
+  if ((counts != nullptr) != kCountBuild) return -8;
+  if (B == 0 && counts == nullptr) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (counts != nullptr) {  // the blocks add into zeroed counters
+    err = cudaMemsetAsync(counts, 0, 2 * sizeof(long long), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (B == 0) return 0;
+  }
   const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  kernel<<<blocks, kWarpsPerBlock * 32, 0,
-           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(
       events, row_stride, n_events, carry_in, carry_out, flags, ok, prof, B,
-      E, R, macro_p, init_state);
+      E, R, macro_p, init_state, real,
+      reinterpret_cast<unsigned long long*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,18 +618,23 @@ int launch(const int32_t* events, long long row_stride,
 
 // Launch the scan over B histories on `stream`, one warp per history and
 // kWarpsPerBlock histories per block, with the kernel instantiated for
-// (W, model); init_state is the model's initial state. Returns 0, a CUDA
-// error code from the launch, or a negative code for refused arguments
-// (see mask_scan_error_string). Does not synchronise.
+// (W, model); init_state is the model's initial state. With counts
+// (int64 [2], else null; only in mask_scan_count, and there always) the
+// kernel's epilogue also counts the verdicts in dense mode, real [B] (null: every row) masking rows out; counts is
+// zeroed on `stream` first. Returns 0, a CUDA error code from the
+// launch, or a negative code for refused arguments (see
+// mask_scan_error_string). Does not synchronise.
 extern "C" int mask_scan_launch(const int32_t* events, const int32_t* n_events,
-                                uint8_t* ok, int B, int E, int R, int macro_p,
-                                int W, int model, int init_state, int device,
-                                void* stream) {
+                                uint8_t* ok, const uint8_t* real,
+                                long long* counts, int B, int E, int R,
+                                int macro_p, int W, int model, int init_state,
+                                int device, void* stream) {
   return launch(events, static_cast<long long>(E) * R, n_events, nullptr,
-                nullptr, nullptr, ok, nullptr, B, E, R, macro_p, W, model,
-                init_state, device, stream);
+                nullptr, nullptr, ok, nullptr, real, counts, B, E, R, macro_p,
+                W, model, init_state, device, stream);
 }
 
+#ifndef MASK_SCAN_COUNT
 // Launch one chunk over B histories on `stream`: the state of history h
 // from row h of carry_in (carry_len ints, MaskCarry's layout), its event
 // rows from events + h * row_stride (width rows of R ints; a slice of a
@@ -611,9 +650,10 @@ extern "C" int mask_scan_chunk_launch(const int32_t* events,
                                       void* stream) {
   if (W >= 1 && W <= kMaskMaxSlots && carry_len_ != carry_len(W)) return -7;
   return launch(events, row_stride, nullptr, carry_in, carry_out, flags,
-                nullptr, nullptr, B, width, R, macro_p, W, model, 0, device,
-                stream);
+                nullptr, nullptr, nullptr, nullptr, B, width, R, macro_p, W,
+                model, 0, device, stream);
 }
+#endif
 
 extern "C" const char* mask_scan_error_string(int code) {
   switch (code) {
@@ -623,6 +663,7 @@ extern "C" const char* mask_scan_error_string(int code) {
     case -4: return "row width does not match macro_p";
     case -5: return "model has no mask-mode device step";
     case -7: return "carry length does not match the carry layout";
+    case -8: return "counts asked of mask_scan, or not of mask_scan_count";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }
@@ -637,8 +678,8 @@ extern "C" int mask_scan_profile_launch(const int32_t* events,
                                         int init_state, int device,
                                         void* stream) {
   return launch(events, static_cast<long long>(E) * R, n_events, nullptr,
-                nullptr, nullptr, ok, prof, B, E, R, macro_p, W, model,
-                init_state, device, stream);
+                nullptr, nullptr, ok, prof, nullptr, nullptr, B, E, R, macro_p,
+                W, model, init_state, device, stream);
 }
 
 extern "C" const char* mask_scan_profile_error_string(int code) {

@@ -91,6 +91,7 @@
 #include <cuda_runtime.h>
 
 #include "models.cuh"
+#include "verdict_counts.cuh"
 #include "warp_frontier.cuh"
 
 namespace {
@@ -544,8 +545,12 @@ __host__ __device__ inline SortSmem sort_smem(int W, int C, int K, int tile,
 // mask, the initial state), n_events[h] rows, ok_out and overflow_out.
 // Chunk (sort_scan_chunk_launch): the frontier, slot registers and
 // scalars from carry_in, min(left, E) rows of the slice, then carry_out
-// (its frontier sorted) with left - E and the four flags.
-template <int K>
+// (its frontier sorted) with left - E and the four flags. kCount
+// (one-shot only) also counts the row's flags into counts[2] in sort
+// mode, real[h] (null: every row real) masking padding rows out
+// (verdict_counts.cuh: thread 0 holds both flags, warp 0 counts); the
+// instances without it are the same code as before the counts existed.
+template <int K, bool kCount>
 __global__ void __launch_bounds__(K == 1 ? kMaxThreads : kMaxThreads / 2)
     sort_scan_block(const int32_t* __restrict__ events, long long row_stride,
                     const int32_t* __restrict__ n_events,
@@ -555,7 +560,8 @@ __global__ void __launch_bounds__(K == 1 ? kMaxThreads : kMaxThreads / 2)
                     uint8_t* __restrict__ ok_out,
                     uint8_t* __restrict__ overflow_out, int B, int E, int R,
                     int macro_p, int W, int C, int tile, int tlog, int model,
-                    int32_t init_state) {
+                    int32_t init_state, const uint8_t* __restrict__ real,
+                    unsigned long long* __restrict__ counts) {
   extern __shared__ uint64_t smem[];
   const SortSmem lay_s = sort_smem(W, C, K, tile, tlog);
   Key<K>* ent = reinterpret_cast<Key<K>*>(smem);
@@ -821,6 +827,13 @@ __global__ void __launch_bounds__(K == 1 ? kMaxThreads : kMaxThreads / 2)
     ok_out[h] = ok ? 1 : 0;
     overflow_out[h] = overflow ? 1 : 0;
   }
+  if constexpr (kCount) {
+    if (tid < 32) {
+      const uint32_t r = tid == 0 && (real == nullptr || real[h] != 0);
+      count_rows(valid_bits<kCountSort>(ok, overflow, r), overflow & r, 1,
+                 counts);
+    }
+  }
   if (carry_out != nullptr) {
     // the frontier canonical: one bitonic sort, ascending; empty last
     const int L = pow2_at_least(max(n, 1));
@@ -859,16 +872,21 @@ __global__ void __launch_bounds__(K == 1 ? kMaxThreads : kMaxThreads / 2)
 using KernelFn = void (*)(const int32_t*, long long, const int32_t*,
                           const int32_t*, int32_t*, uint8_t*, uint8_t*,
                           uint8_t*, int, int, int, int, int, int, int, int,
-                          int, int32_t);
+                          int, int32_t, const uint8_t*, unsigned long long*);
 
-KernelFn pick(int K) {
+template <bool kCount>
+KernelFn pick_words(int K) {
   switch (K) {
-    case 1: return sort_scan_block<1>;
-    case 2: return sort_scan_block<2>;
-    case 3: return sort_scan_block<3>;
-    case 4: return sort_scan_block<4>;
+    case 1: return sort_scan_block<1, kCount>;
+    case 2: return sort_scan_block<2, kCount>;
+    case 3: return sort_scan_block<3, kCount>;
+    case 4: return sort_scan_block<4, kCount>;
     default: return nullptr;
   }
+}
+
+KernelFn pick(int K, bool count) {
+  return count ? pick_words<true>(K) : pick_words<false>(K);
 }
 
 int max_threads(int K) { return K == 1 ? kMaxThreads : kMaxThreads / 2; }
@@ -911,9 +929,9 @@ Shape sort_shape(int W, int C, int threads, int smem_cap) {
 int launch(const int32_t* events, long long row_stride,
            const int32_t* n_events, const int32_t* carry_in,
            int32_t* carry_out, uint8_t* flags, uint8_t* ok,
-           uint8_t* overflow, int B, int E, int R, int macro_p, int W, int C,
-           int model, int init_state, int threads, int tile, int tlog,
-           int device, void* stream) {
+           uint8_t* overflow, const uint8_t* real, long long* counts, int B,
+           int E, int R, int macro_p, int W, int C, int model, int init_state,
+           int threads, int tile, int tlog, int device, void* stream) {
   if (B < 0 || E < 0) return -1;
   if (W < 1 || W > kSortMaxSlots) return -2;
   if (macro_p < 0 || macro_p > kMaxOpens) return -3;
@@ -921,7 +939,7 @@ int launch(const int32_t* events, long long row_stride,
   if (model < kModelCasRegister || model > kModelListAppend) return -5;
   if (C < 1 || C > kSortMaxConfigs) return -6;
   const int K = W / 32 + 1;
-  const KernelFn kernel = pick(K);
+  const KernelFn kernel = pick(K, counts != nullptr);
   if (kernel == nullptr) return -2;
   if (threads < 32 || threads % 32 != 0 || threads > max_threads(K))
     return -8;
@@ -934,6 +952,11 @@ int launch(const int32_t* events, long long row_stride,
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem + attr.sharedSizeBytes > kSmemMax) return -11;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (counts != nullptr) {  // the blocks add into zeroed counters
+    err = cudaMemsetAsync(counts, 0, 2 * sizeof(long long), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (B == 0) return 0;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
@@ -941,9 +964,10 @@ int launch(const int32_t* events, long long row_stride,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, threads, smem, s>>>(
       events, row_stride, n_events, carry_in, carry_out, flags, ok, overflow,
-      B, E, R, macro_p, W, C, tile, tlog, model, init_state);
+      B, E, R, macro_p, W, C, tile, tlog, model, init_state, real,
+      reinterpret_cast<unsigned long long*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -970,17 +994,20 @@ extern "C" int sort_scan_shape(int W, int C, int threads, int smem_cap,
 // a table of 2^tlog slots (sort_scan_shape gives them), the kernel
 // instantiated for K = W / 32 + 1 mask words; `model` is the model's
 // KERNEL_MODEL and init_state its initial state. Writes ok and overflow
-// per history. Returns 0, a CUDA error code from the launch, or a
-// negative code for refused arguments (see sort_scan_error_string). Does
-// not synchronise.
+// per history; with counts (int64 [2], else null) the epilogue also
+// counts them in sort mode, real [B] (null: every row) masking rows out;
+// counts is zeroed on `stream` first. Returns 0, a CUDA error code from
+// the launch, or a negative code for refused arguments (see
+// sort_scan_error_string). Does not synchronise.
 extern "C" int sort_scan_launch(const int32_t* events, const int32_t* n_events,
-                                uint8_t* ok, uint8_t* overflow, int B, int E,
-                                int R, int macro_p, int W, int C, int model,
-                                int init_state, int threads, int tile,
-                                int tlog, int device, void* stream) {
+                                uint8_t* ok, uint8_t* overflow,
+                                const uint8_t* real, long long* counts, int B,
+                                int E, int R, int macro_p, int W, int C,
+                                int model, int init_state, int threads,
+                                int tile, int tlog, int device, void* stream) {
   return launch(events, static_cast<long long>(E) * R, n_events, nullptr,
-                nullptr, nullptr, ok, overflow, B, E, R, macro_p, W, C, model,
-                init_state, threads, tile, tlog, device, stream);
+                nullptr, nullptr, ok, overflow, real, counts, B, E, R, macro_p,
+                W, C, model, init_state, threads, tile, tlog, device, stream);
 }
 
 // Launch one chunk over B histories on `stream`: history h's frontier,
@@ -1002,8 +1029,8 @@ extern "C" int sort_scan_chunk_launch(const int32_t* events,
       carry_len != SortCarry{W, C, W / 32 + 1}.len())
     return -7;
   return launch(events, row_stride, nullptr, carry_in, carry_out, flags,
-                nullptr, nullptr, B, width, R, macro_p, W, C, model, 0,
-                threads, tile, tlog, device, stream);
+                nullptr, nullptr, nullptr, nullptr, B, width, R, macro_p, W, C,
+                model, 0, threads, tile, tlog, device, stream);
 }
 
 extern "C" const char* sort_scan_error_string(int code) {

@@ -58,6 +58,7 @@ from .kernel_ir import (DENSE_MAX_CELLS, DENSE_MAX_SLOTS, DENSE_MAX_STATES,
                         chunk_flags, chunk_scan, closure_fixpoint,
                         force_arith, macro_row_ints, make_stream_step,
                         new_carry, pack_bits, unpack_bits)
+from .verdict_counts import check_real, counts_out, scan_counts_plain
 
 
 @dataclass(frozen=True)
@@ -736,10 +737,14 @@ def mask_chunk_plain(carry, events, n_slots: int,
 LAUNCHES = {"dense_scan": 0, "mask_scan": 0}
 #: The same for the chunk entry points of the two kernels.
 CHUNK_LAUNCHES = {"dense_scan_chunk": 0, "mask_scan_chunk": 0}
+#: The same for the one-shot entries' counting instances (``counts=True``,
+#: B10's counts in the epilogue), counted apart from LAUNCHES so that a
+#: run shows which instance it launched.
+COUNT_LAUNCHES = {"dense_scan_count": 0, "mask_scan_count": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, CHUNK_LAUNCHES):
+    for counts in (LAUNCHES, CHUNK_LAUNCHES, COUNT_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -750,6 +755,10 @@ def launch_counts() -> dict:
 
 def chunk_launch_counts() -> dict:
     return dict(CHUNK_LAUNCHES)
+
+
+def count_launch_counts() -> dict:
+    return dict(COUNT_LAUNCHES)
 
 
 @dataclass(frozen=True)
@@ -832,26 +841,33 @@ def _check_int32(name, t, dims, device):
 
 
 def dense_scan(events, val_of, n_slots: int,
-               macro_p: Optional[int] = None, n_events=None, model=None):
-    """The dense-domain scan over a window group: ok [B] bool.
+               macro_p: Optional[int] = None, n_events=None, model=None, *,
+               counts: bool = False, real=None):
+    """The dense-domain scan over a window group: ok [B] bool, and with
+    `counts` (ok, counts): int64 [2] (n_valid = Σ ok & real, n_unknown =
+    0), B10's counts in dense mode, `real` [B] bool (default: every row)
+    masking padding rows out.
 
     events [B, E, 5] int32 (legacy rows) or [B, E, 3 + 4·P] int32 (macro
     rows, macro_p=P); val_of [B, S] int32; n_events [B] int32 real row
-    counts (default: all E rows). A CPU tensor takes `dense_scan_plain`;
-    a CUDA tensor launches the hand-written kernel
-    (ops/csrc/dense_scan.cu, one warp per history, instantiated for
-    `dense_layout(W, S)`) on the current stream without synchronising,
-    or raises."""
+    counts (default: all E rows). A CPU tensor takes `dense_scan_plain`
+    (and `verdict_counts_plain` of its flags); a CUDA tensor launches the
+    hand-written kernel (ops/csrc/dense_scan.cu, one warp per history,
+    instantiated for `dense_layout(W, S)`; with `counts`, the instance
+    that counts in its epilogue) on the current stream without
+    synchronising, or raises."""
     if model is None:
         from ..models.register import CasRegister
         model = CasRegister()
     if events.device.type == "cpu":
-        return dense_scan_plain(events, val_of, n_slots, macro_p, n_events,
-                                model)
-    ok, launch = dense_scan_launcher(events, val_of, n_slots, macro_p,
-                                     n_events, model)
-    launch(torch.cuda.current_stream(events.device))
-    return ok
+        ok = dense_scan_plain(events, val_of, n_slots, macro_p, n_events,
+                              model)
+        return (ok, scan_counts_plain(ok, None, real, "dense")) if counts \
+            else ok
+    ready = dense_scan_launcher(events, val_of, n_slots, macro_p, n_events,
+                                model, counts=counts, real=real)
+    ready[-1](torch.cuda.current_stream(events.device))
+    return ready[:-1] if counts else ready[0]
 
 
 def _card_rows(name: str, events, macro_p, n_events):
@@ -876,11 +892,11 @@ def _card_rows(name: str, events, macro_p, n_events):
 
 def _call_launch(name: str, lib, tensors, sizes, stream) -> None:
     """Call library `name`'s C launch entry point on the tensors'
-    addresses, the sizes and the stream; raise on a refused or failed
-    launch."""
+    addresses (None: a null pointer), the sizes and the stream; raise on
+    a refused or failed launch."""
     rc = getattr(lib, f"{name}_launch")(
-        *(ctypes.c_void_p(t.data_ptr()) for t in tensors), *sizes,
-        ctypes.c_void_p(stream.cuda_stream))
+        *(ctypes.c_void_p(None if t is None else t.data_ptr())
+          for t in tensors), *sizes, ctypes.c_void_p(stream.cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{_build.error_string(name, rc)}")
@@ -927,18 +943,21 @@ def _flags(out, flags):
     return (out, flags[0], flags[1], flags[2], flags[3])
 
 
-def _launch_fn(name: str, lib, tensors, sizes, B: int, counts=None):
+def _launch_fn(name: str, lib, tensors, sizes, B: int, counts=None,
+               key: Optional[str] = None):
     """launch(stream): launch library `name`'s kernel (`_call_launch`) and
-    count it in `counts` (default: this module's LAUNCHES). The closure
-    holds the tensors, not only their addresses, so a default n_events
-    made by the launcher outlives the launch."""
+    count it in `counts` (default: this module's LAUNCHES) under `key`
+    (default: `name`). The closure holds the tensors, not only their
+    addresses, so a default n_events made by the launcher outlives the
+    launch."""
     counts = LAUNCHES if counts is None else counts
+    key = name if key is None else key
 
     def launch(stream) -> None:
         if B == 0:
             return
         _call_launch(name, lib, tensors, sizes, stream)
-        counts[name] += 1
+        counts[key] += 1
 
     return launch
 
@@ -949,13 +968,14 @@ def _device_index(dev) -> int:
 
 def dense_scan_launcher(events, val_of, n_slots: int,
                         macro_p: Optional[int] = None, n_events=None,
-                        model=None):
+                        model=None, *, counts: bool = False, real=None):
     """Everything `dense_scan` does on the card before the launch: check
-    the CUDA tensors, allocate ok [B] bool, build or load the kernel.
-    Returns (ok, launch); launch(stream) launches the kernel on that
-    `torch.cuda.Stream` without synchronising and counts it, or raises.
-    Splitting the two lets `run_dense_groups` launch several window
-    groups back to back."""
+    the CUDA tensors, allocate ok [B] bool (and with `counts` the int64
+    [2] counts), build or load the kernel. Returns (ok, launch), or with
+    `counts` (ok, counts, launch); launch(stream) launches the kernel on
+    that `torch.cuda.Stream` without synchronising and counts it, or
+    raises. Splitting the two lets `run_dense_groups` launch several
+    window groups back to back."""
     if model is None:
         from ..models.register import CasRegister
         model = CasRegister()
@@ -971,16 +991,20 @@ def dense_scan_launcher(events, val_of, n_slots: int,
         raise ValueError(f"dense_scan: model {type(model).__name__} has no "
                          f"device step in the CUDA kernel")
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
-    lib = _build.load("dense_scan")
-    return ok, _launch_fn(
-        "dense_scan", lib, (events, val_of, n_events, ok),
+    check_real(real, B, dev)
+    tally = counts_out(B, dev) if counts else None
+    lib = _build.load("dense_scan_count" if counts else "dense_scan")
+    launch = _launch_fn(
+        "dense_scan", lib, (events, val_of, n_events, ok, real, tally),
         (B, E, R, P, W, S, layout.field_log2, int(code), _device_index(dev)),
-        B)
+        B, *((COUNT_LAUNCHES, "dense_scan_count") if counts else ()))
+    return (ok, tally, launch) if counts else (ok, launch)
 
 
 def mask_scan(events, n_slots: int, macro_p: Optional[int] = None,
-              n_events=None, *, model):
-    """The mask-mode scan over a window group: ok [B] bool.
+              n_events=None, *, model, counts: bool = False, real=None):
+    """The mask-mode scan over a window group: ok [B] bool, and with
+    `counts` (ok, counts) as `dense_scan`'s (dense mode).
 
     events [B, E, 5] int32 (legacy rows) or [B, E, 3 + 4·P] int32 (macro
     rows, macro_p=P); n_events [B] int32 real row counts (default: all E
@@ -988,27 +1012,35 @@ def mask_scan(events, n_slots: int, macro_p: Optional[int] = None,
     queue, the set on histories `GSet.mask_eligible` accepts). A
     CPU tensor takes `mask_scan_plain`; a CUDA tensor launches the
     hand-written kernel (ops/csrc/mask_scan.cu, one warp per history,
-    instantiated for (W, model)) on the current stream without
-    synchronising, or raises."""
+    instantiated for (W, model), and counting in its epilogue with
+    `counts`) on the current stream without synchronising, or raises."""
     if events.device.type == "cpu":
-        return mask_scan_plain(events, n_slots, macro_p, n_events,
-                               model=model)
-    ok, launch = mask_scan_launcher(events, n_slots, macro_p, n_events,
-                                    model=model)
-    launch(torch.cuda.current_stream(events.device))
-    return ok
+        ok = mask_scan_plain(events, n_slots, macro_p, n_events, model=model)
+        return (ok, scan_counts_plain(ok, None, real, "dense")) if counts \
+            else ok
+    ready = mask_scan_launcher(events, n_slots, macro_p, n_events,
+                               model=model, counts=counts, real=real)
+    ready[-1](torch.cuda.current_stream(events.device))
+    return ready[:-1] if counts else ready[0]
 
 
 def mask_scan_launcher(events, n_slots: int, macro_p: Optional[int] = None,
-                       n_events=None, *, model):
+                       n_events=None, *, model, counts: bool = False,
+                       real=None):
     """`dense_scan_launcher`'s counterpart for the mask kernel: check the
-    CUDA tensors, allocate ok [B] bool, build or load the kernel; returns
-    (ok, launch)."""
+    CUDA tensors, allocate ok [B] bool (and the counts), build or load
+    the kernel; returns (ok, launch), or (ok, counts, launch)."""
     dev, B, n_events, sizes = _mask_args(events, n_slots, macro_p, n_events,
                                          model)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
-    lib = _build.load("mask_scan")
-    return ok, _launch_fn("mask_scan", lib, (events, n_events, ok), sizes, B)
+    check_real(real, B, dev)
+    tally = counts_out(B, dev) if counts else None
+    lib = _build.load("mask_scan_count" if counts else "mask_scan")
+    launch = _launch_fn("mask_scan", lib,
+                        (events, n_events, ok, real, tally), sizes, B,
+                        *((COUNT_LAUNCHES, "mask_scan_count") if counts
+                          else ()))
+    return (ok, tally, launch) if counts else (ok, launch)
 
 
 def _mask_args(events, n_slots, macro_p, n_events, model):

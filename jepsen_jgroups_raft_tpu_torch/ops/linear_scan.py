@@ -50,6 +50,7 @@ from .dense_scan import (_card_rows, _chunk_out, _chunk_rows, _device_index,
 from .kernel_ir import (SORT_DEFAULT_CONFIGS, SORT_MAX_SLOTS, CarryLayout,
                         carry_layout, chunk_flags, chunk_scan,
                         make_stream_step, new_carry)
+from .verdict_counts import check_real, counts_out, scan_counts_plain
 
 MAX_SLOTS = SORT_MAX_SLOTS
 DEFAULT_N_CONFIGS = SORT_DEFAULT_CONFIGS
@@ -385,10 +386,13 @@ def sort_chunk_plain(carry, events, n_slots: int, n_configs: int,
 LAUNCHES = {"sort_scan": 0}
 #: The same for the sort kernel's chunk entry point.
 CHUNK_LAUNCHES = {"sort_scan_chunk": 0}
+#: The same for the one-shot entry's counting instances (``counts=True``),
+#: counted apart from LAUNCHES.
+COUNT_LAUNCHES = {"sort_scan_count": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, CHUNK_LAUNCHES):
+    for counts in (LAUNCHES, CHUNK_LAUNCHES, COUNT_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -399,6 +403,10 @@ def launch_counts() -> dict:
 
 def chunk_launch_counts() -> dict:
     return dict(CHUNK_LAUNCHES)
+
+
+def count_launch_counts() -> dict:
+    return dict(COUNT_LAUNCHES)
 
 
 def sort_shape(n_slots: int, n_configs: int, threads: Optional[int] = None,
@@ -434,9 +442,13 @@ def _kernel_model(model) -> int:
 
 
 def sort_scan(events, n_slots: int, n_configs: int,
-              macro_p: Optional[int] = None, n_events=None, *, model):
+              macro_p: Optional[int] = None, n_events=None, *, model,
+              counts: bool = False, real=None):
     """The sort-frontier scan over a batch: (ok [B] bool, overflow [B]
-    bool).
+    bool), and with `counts` (ok, overflow, counts): int64 [2] (n_valid =
+    Σ ok & ~overflow & real, n_unknown = Σ overflow & real), B10's counts
+    in sort mode, `real` [B] bool (default: every row) masking padding
+    rows out.
 
     events [B, E, 5] int32 (legacy rows) or [B, E, 3 + 4·P] int32 (macro
     rows, macro_p=P); n_events [B] int32 real row counts (default: all E
@@ -444,26 +456,33 @@ def sort_scan(events, n_slots: int, n_configs: int,
     model with a `KERNEL_MODEL`. A CPU tensor takes `sort_scan_plain`; a
     CUDA tensor launches the hand-written kernel (ops/csrc/sort_scan.cu,
     one block per history, `sort_shape`) on the current stream without
-    synchronising, or raises. A hash table that fills traps the kernel:
+    synchronising, or raises; with `counts` the kernel's instance that
+    counts in its epilogue (on the CPU `verdict_counts_plain` of the
+    plain version's flags). A hash table that fills traps the kernel:
     the next synchronisation raises."""
     if events.device.type == "cpu":
-        return sort_scan_plain(events, n_slots, n_configs, macro_p,
-                               n_events, model=model)
-    ok, overflow, launch = sort_scan_launcher(events, n_slots, n_configs,
-                                              macro_p, n_events, model=model)
-    launch(torch.cuda.current_stream(events.device))
-    return ok, overflow
+        ok, overflow = sort_scan_plain(events, n_slots, n_configs, macro_p,
+                                       n_events, model=model)
+        return (ok, overflow, scan_counts_plain(ok, overflow, real, "sort")) \
+            if counts else (ok, overflow)
+    ready = sort_scan_launcher(events, n_slots, n_configs, macro_p, n_events,
+                               model=model, counts=counts, real=real)
+    ready[-1](torch.cuda.current_stream(events.device))
+    return ready[:-1]
 
 
 def sort_scan_launcher(events, n_slots: int, n_configs: int,
                        macro_p: Optional[int] = None, n_events=None, *,
-                       model, shape: Optional[tuple] = None):
+                       model, shape: Optional[tuple] = None,
+                       counts: bool = False, real=None):
     """Everything `sort_scan` does on the card before the launch: check
-    the CUDA tensors and shape, allocate ok and overflow [B] bool, build
-    or load the kernel. Returns (ok, overflow, launch); launch(stream)
-    launches the kernel on that `torch.cuda.Stream` without
-    synchronising and counts it, or raises (a shape the kernel refuses
-    too). `shape` (threads, tile, table log2) overrides `sort_shape`'s."""
+    the CUDA tensors and shape, allocate ok and overflow [B] bool (and
+    with `counts` the int64 [2] counts), build or load the kernel.
+    Returns (ok, overflow, launch), or (ok, overflow, counts, launch);
+    launch(stream) launches the kernel on that `torch.cuda.Stream`
+    without synchronising and counts it, or raises (a shape the kernel
+    refuses too). `shape` (threads, tile, table log2) overrides
+    `sort_shape`'s."""
     dev, B, E, R, P, n_events = _card_rows("sort_scan", events, macro_p,
                                            n_events)
     W, C = int(n_slots), int(n_configs)
@@ -471,12 +490,17 @@ def sort_scan_launcher(events, n_slots: int, n_configs: int,
     code = _kernel_model(model)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
     overflow = torch.empty((B,), dtype=torch.bool, device=dev)
+    check_real(real, B, dev)
+    tally = counts_out(B, dev) if counts else None
     lib = _build.load("sort_scan")
     threads, tile, tlog = (shape or sort_shape(W, C))[:3]
-    return ok, overflow, _launch_fn(
-        "sort_scan", lib, (events, n_events, ok, overflow),
+    launch = _launch_fn(
+        "sort_scan", lib, (events, n_events, ok, overflow, real, tally),
         (B, E, R, P, W, C, code, int(model.init_state()), threads, tile,
-         tlog, _device_index(dev)), B, LAUNCHES)
+         tlog, _device_index(dev)), B,
+        *((COUNT_LAUNCHES, "sort_scan_count") if counts else (LAUNCHES,)))
+    return (ok, overflow, tally, launch) if counts else \
+        (ok, overflow, launch)
 
 
 def sort_chunk(carry, events, n_slots: int, n_configs: int,

@@ -30,7 +30,8 @@ with torchrun's environment. Four layers, smallest dependency first:
 
 * **Global counts** — `check_batch_global`: per-process packing
   (`history.packing.pack_*_batch_shard`), the dense or mask kernel on
-  the rank's own device, B10's verdict counts, and one ``all_reduce``
+  the rank's own device, which counts B10's verdict counts in the same
+  launch, and one ``all_reduce``
   of the two counts — the reference's global-mesh ``psum``.
 """
 
@@ -419,10 +420,10 @@ def check_batch_global(model, encs: Sequence) -> Tuple[int, int]:
     packs and fills only its row shard (`pack_batch_shard` /
     `pack_macro_batch_shard` at batch-global shapes, the batch padded to
     a multiple of the world with EV_PAD rows that `real` masks out), runs
-    the dense or mask kernel and B10's counts on its device
-    (`mesh.sharded_dense_checker`), and one ``all_reduce(SUM)`` sums the
-    two counts — on the device tensor under nccl, on the host under
-    gloo. Returns the global (n_valid, n_unknown), equal on every
+    the dense or mask kernel on its device, which counts B10's counts in
+    the same launch (`mesh.sharded_dense_checker`), and one
+    ``all_reduce(SUM)`` sums the two counts — on the device tensor under
+    nccl, on the host under gloo. Returns the global (n_valid, n_unknown), equal on every
     process. Needs `collectives_supported()` and a dense-eligible batch.
 
     Unlike the reference, whose CPU backend refuses multiprocess

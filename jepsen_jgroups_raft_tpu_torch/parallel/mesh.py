@@ -6,10 +6,11 @@ The reference shards a batch over a 1-D `jax.sharding.Mesh` with
 kernel, and a `psum` over the mesh axis sums the verdict counts. On the
 H100 a process owns one card, so its shard is the whole batch it is
 given: one launch of the ported scan kernel (B5 `sort_scan`, or B1
-`dense_scan` / B4 `mask_scan`) over every row, then one launch of B10's
-`verdict_counts` kernel for the two counts. Across processes the counts
-are summed by torch.distributed (`distributed.check_batch_global`), the
-verdicts exchanged through the store (`distributed.run_sharded`).
+`dense_scan` / B4 `mask_scan`) over every row, whose epilogue also makes
+B10's two counts (the kernels' counting option,
+ops/csrc/verdict_counts.cuh). Across processes the counts are summed by
+torch.distributed (`distributed.check_batch_global`), the verdicts
+exchanged through the store (`distributed.run_sharded`).
 
   * `make_mesh` — a `Mesh` of this process's device (the rank's card,
     `distributed.rank_device`, or the CPU by name).
@@ -36,7 +37,6 @@ import torch
 from ..checker.schedule import DenseLaunch, launch_dense_groups, run_sort_rung
 from ..ops.dense_scan import dense_scan, mask_scan
 from ..ops.linear_scan import DEFAULT_N_CONFIGS, MAX_SLOTS, sort_scan
-from ..ops.verdict_counts import verdict_counts
 from ..platform import resolve_device
 
 
@@ -78,16 +78,15 @@ def sharded_batch_checker(model, mesh: Mesh,
     """fn(events [B, E, R] int32, real [B] bool) -> (ok [B], overflow [B],
     n_valid, n_unknown), all tensors on the mesh's device: one launch of
     B5 (`sort_scan` at capacity `n_configs`, window `n_slots`; macro rows
-    with `macro_p`) over the batch, then one of B10 in sort mode
-    (n_valid = Σ ok & ~overflow & real, n_unknown = Σ overflow & real).
-    `real` masks padding rows out of the counts."""
+    with `macro_p`) over the batch, which counts B10's counts in sort
+    mode in its epilogue (n_valid = Σ ok & ~overflow & real, n_unknown =
+    Σ overflow & real). `real` masks padding rows out of the counts."""
     dev = mesh.device
 
     def fn(events, real):
         _on_device("sharded_batch_checker", dev, events, real)
-        ok, overflow = sort_scan(events, n_slots, n_configs, macro_p,
-                                 model=model)
-        counts = verdict_counts(ok, overflow, real, "sort")
+        ok, overflow, counts = sort_scan(events, n_slots, n_configs, macro_p,
+                                         model=model, counts=True, real=real)
         return ok, overflow, counts[0], counts[1]
 
     return fn
@@ -98,9 +97,10 @@ def sharded_dense_checker(model, mesh: Mesh, kind: str, n_slots: int,
     """fn(events [B, E, R] int32, val_of [B, S] int32, real [B] bool) ->
     (ok [B], overflow [B], n_valid, n_unknown) on the mesh's device: one
     launch of B1 (`dense_scan`, kind "domain", S = `n_states`) or B4
-    (`mask_scan`, kind "mask", val_of unread), then one of B10 in dense
-    mode (n_valid = Σ ok & real, n_unknown = Σ overflow & real; the dense
-    kernels never overflow)."""
+    (`mask_scan`, kind "mask", val_of unread), which counts B10's counts
+    in dense mode in its epilogue (n_valid = Σ ok & real, n_unknown = 0:
+    the dense kernels never overflow; the zero overflow [B] is returned
+    for the reference's signature)."""
     if kind not in ("domain", "mask"):
         raise ValueError(f"sharded_dense_checker: kind {kind!r} is not "
                          "'domain' or 'mask'")
@@ -109,16 +109,16 @@ def sharded_dense_checker(model, mesh: Mesh, kind: str, n_slots: int,
     def fn(events, val_of, real):
         _on_device("sharded_dense_checker", dev, events, val_of, real)
         if kind == "mask":
-            ok = mask_scan(events, n_slots, macro_p, model=model)
+            ok, counts = mask_scan(events, n_slots, macro_p, model=model,
+                                   counts=True, real=real)
         else:
             if int(val_of.shape[-1]) != int(n_states):
                 raise ValueError(f"sharded_dense_checker: val_of has "
                                  f"{val_of.shape[-1]} states, the plan "
                                  f"{n_states}")
-            ok = dense_scan(events, val_of, n_slots, macro_p, None, model)
-        overflow = torch.zeros_like(ok)
-        counts = verdict_counts(ok, overflow, real, "dense")
-        return ok, overflow, counts[0], counts[1]
+            ok, counts = dense_scan(events, val_of, n_slots, macro_p, None,
+                                    model, counts=True, real=real)
+        return ok, torch.zeros_like(ok), counts[0], counts[1]
 
     return fn
 
@@ -145,10 +145,10 @@ def check_batch_sharded(model, events, mesh: Optional[Mesh] = None,
     CPU.
 
     `dense` — an `ops.dense_scan.DensePlan` — routes the batch to B1
-    (domain) or B4 (mask) and B10's counts, launched as one group of
-    `checker.schedule.launch_dense_groups`: exact, ladder-free; overflow
-    is all False and n_unknown 0, as in the reference. Otherwise the
-    capacity ladder of B5 (unless `n_configs` pins one rung), each rung
+    (domain) or B4 (mask), whose launch also counts B10's counts, as one
+    group of `checker.schedule.launch_dense_groups`: exact, ladder-free;
+    overflow is all False and n_unknown 0, as in the reference. Otherwise
+    the capacity ladder of B5 (unless `n_configs` pins one rung), each rung
     one `checker.schedule.run_sort_rung`: the whole batch at C = 64, then
     only the rows that overflowed and are not ok at C =
     DEFAULT_N_CONFIGS ("valid" at a small capacity is final); the counts

@@ -66,7 +66,8 @@ def test_mesh_phases_build_b10():
     for name in ("mesh", "cluster"):
         libs, _ = only[name]
         assert set(libs) == {"dense_scan", "mask_scan", "sort_scan",
-                             "verdict_counts"}
+                             "verdict_counts", "dense_scan_count",
+                             "mask_scan_count"}
 
 
 def test_kernels_line_lists_verdict_counts():

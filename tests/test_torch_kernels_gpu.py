@@ -1643,7 +1643,8 @@ def test_chunked_check_on_card_matches_cpu(cuda, kind, monkeypatch):
 
 # ------------------------------------------------ B10: the batch mesh
 
-VERDICT_SIZES = (0, 1, 31, 32, 33, 1000, 1 << 20)
+#: 16384 and 16385: both sides of the standalone's one-block limit
+VERDICT_SIZES = (0, 1, 31, 32, 33, 1000, 16384, 16385, 1 << 20)
 
 
 def _verdict_flags(cuda, B, offsets=(0, 0, 0), seed=0):
@@ -1659,6 +1660,9 @@ def _verdict_flags(cuda, B, offsets=(0, 0, 0), seed=0):
                          ids=lambda o: "off" + "-".join(map(str, o)))
 @pytest.mark.parametrize("B", VERDICT_SIZES, ids=lambda b: f"B{b}")
 def test_verdict_counts_matches_plain(cuda, B, offsets, mode):
+    """The standalone entry at each size and offset, bitwise: one block
+    up to 16384 rows, a grid above; through the launcher too, on a
+    poisoned output (the one block stores, the grid zeroes first)."""
     from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
 
     ok, ovf, real = _verdict_flags(cuda, B, offsets)
@@ -1669,6 +1673,22 @@ def test_verdict_counts_matches_plain(cuda, B, offsets, mode):
     assert got.device == ok.device and got.dtype == torch.int64
     assert got.tolist() == want.tolist()
     assert vc.launch_counts()["verdict_counts"] == before + 1
+    out, launch = vc.verdict_counts_launcher(ok, ovf, real, mode)
+    out.fill_(-1)  # neither form may rely on zeroed memory
+    launch(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    assert out.tolist() == want.tolist()
+
+
+def test_verdict_counts_stream_handle_is_the_current_stream(cuda):
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    index = torch.cuda.current_device()
+    side = torch.cuda.Stream()
+    assert vc._stream_handle(index) == \
+        torch.cuda.current_stream().cuda_stream
+    with torch.cuda.stream(side):
+        assert vc._stream_handle(index) == side.cuda_stream
 
 
 def test_verdict_counts_refuses_bad_inputs(cuda):
@@ -1722,9 +1742,9 @@ def _mesh_batch(kind, n=40, n_ops=120):
                                  "pinned", "macro-ladder"])
 def test_check_batch_sharded_on_card_matches_cpu(cuda, kind, arm):
     """Every arm of `parallel.mesh.check_batch_sharded` gives on the card
-    the flags and counts it gives on the CPU (the plain versions),
-    `verdict_counts` launched on the card by the dense arms only (the
-    ladder counts on the host)."""
+    the flags and counts it gives on the CPU (the plain versions), and no
+    arm launches `verdict_counts`: the dense arms count in their scan
+    kernel's epilogue (one launch of it), the ladder on the host."""
     from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
     from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import dense_plan
     from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import bucket_slots
@@ -1741,7 +1761,12 @@ def test_check_batch_sharded_on_card_matches_cpu(cuda, kind, arm):
         kw["n_slots"] = bucket_slots(max(e.n_slots for e in encs))
         if arm == "pinned":
             kw["n_configs"] = 64
-    before = vc.launch_counts()["verdict_counts"]
+    def launches():
+        return (vc.launch_counts()["verdict_counts"],
+                sum(ds.launch_counts().values()),
+                sum(ds.count_launch_counts().values()))
+
+    before = launches()
 
     def run(device):
         out = check_batch_sharded(model, batch["events"], device=device,
@@ -1749,8 +1774,8 @@ def test_check_batch_sharded_on_card_matches_cpu(cuda, kind, arm):
         return out() if kw.get("defer") else out
 
     on_card, on_cpu = run(cuda), run("cpu")
-    assert vc.launch_counts()["verdict_counts"] == before + \
-        (1 if arm.startswith("dense") else 0)
+    assert launches() == (before[0], before[1], before[2] +
+                          (1 if arm.startswith("dense") else 0))
     for a, b in zip(on_card, on_cpu):
         assert np.array_equal(a, b)
     assert 0 < on_card[2] < len(encs)
@@ -1760,7 +1785,8 @@ def test_check_batch_sharded_on_card_matches_cpu(cuda, kind, arm):
 def test_launch_dense_groups_counts_on_card(cuda, kind):
     """`checker.schedule.launch_dense_groups` with counts: two pending
     groups on the card, finalized in reverse order, give the CPU's
-    verdicts and counts, one `verdict_counts` launch a group."""
+    verdicts and counts, from one counting scan launch a group and no
+    `verdict_counts` launch."""
     from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
         DenseLaunch, launch_dense_groups)
     from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
@@ -1778,11 +1804,166 @@ def test_launch_dense_groups_counts_on_card(cuda, kind):
             n_events=None, n_slots=plan.n_slots, macro_p=batch["macro_p"],
             kind=plan.kind)], model, counts=True) for h in halves]
 
-    before = vc.launch_counts()["verdict_counts"]
+    def launches():
+        return (vc.launch_counts()["verdict_counts"],
+                sum(ds.launch_counts().values()),
+                sum(ds.count_launch_counts().values()))
+
+    before = launches()
     on_card = [f() for f in reversed(pending(cuda))]
-    assert vc.launch_counts()["verdict_counts"] == before + 2
+    assert launches() == (before[0], before[1], before[2] + 2)
     on_cpu = [f() for f in reversed(pending("cpu"))]
     for a, b in zip(on_card, on_cpu):
         assert np.array_equal(a.ok[0], b.ok[0])
         assert a.counts[0].tolist() == b.counts[0].tolist() == \
             [int(b.ok[0].sum()), 0]
+
+
+# ------------------------------------- B10 fused: the scans' counting option
+
+#: batch sizes of the fused counts: one row, a warp's worth around a
+#: block's edges, the north star's batch
+FUSED_SIZES = (1, 31, 32, 33, 1000)
+#: B1's (W, S) of the fused tests: the north star's register groups
+#: (W 5..8, S 4: field width 2), the set's dense domains (S up to 16:
+#: field width 4) at every window they reach, and the other field widths
+FUSED_DENSE = ([(w, 4) for w in (5, 6, 7, 8)] +
+               [(w, 16) for w in range(1, 10)] + [(1, 1), (4, 2), (10, 8)])
+#: B4's (kind, W): the counter and the queue, and the counter at
+#: upstream's 10 processes (W 10..12)
+FUSED_MASK = [("counter", 1), ("counter", 5), ("queue", 5), ("queue", 12),
+              ("counter", 10), ("counter", 11), ("counter", 12)]
+#: B5's windows: K = W // 32 + 1 = 1..4 mask words
+FUSED_SORT = (8, 40, 70, 127)
+
+
+def _tiled(rows, dev):
+    """A batch of max(FUSED_SIZES) rows: `rows` repeated (cheaper to make
+    than as many distinct random rows), on the card."""
+    B = max(FUSED_SIZES)
+    return torch.from_numpy(np.resize(rows, (B,) + rows.shape[1:])).to(dev)
+
+
+def _fused_real(cuda, B):
+    gen = torch.Generator().manual_seed(B)
+    return (torch.rand(B, generator=gen) < 0.7).to(cuda)
+
+
+def _assert_fused(counts, flags, mode, real):
+    """counts equal verdict_counts_plain of the launch's own flags,
+    bitwise (real None: every row)."""
+    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc
+
+    ok = flags[0]
+    ovf = flags[1] if len(flags) > 1 else torch.zeros_like(ok)
+    want = vc.verdict_counts_plain(
+        ok, ovf, torch.ones_like(ok) if real is None else real, mode)
+    assert counts.dtype == torch.int64 and counts.device == ok.device
+    assert counts.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("W,S", FUSED_DENSE,
+                         ids=[f"W{w}_S{s}" for w, s in FUSED_DENSE])
+def test_dense_fused_counts_match_plain(cuda, W, S):
+    """B1's counting instance at each size, with and without `real`: its
+    verdicts equal the non-counting launch's and its counts the plain
+    counts of those verdicts, bitwise."""
+    rng = np.random.default_rng(40 * W + S)
+    vals = np.resize(np.array([-2**31, 0, 1, 2, 3, 4, 5, 6], np.int32), S)
+    B, E = max(FUSED_SIZES), 32
+    ev = _tiled(_random_rows(rng, 128, E, W, 3, vals), cuda)
+    vo = torch.from_numpy(np.tile(vals, (B, 1))).to(cuda)
+    for b in FUSED_SIZES:
+        want = ds.dense_scan(ev[:b], vo[:b], W, macro_p=3)
+        for real in (None, _fused_real(cuda, b)):
+            before = (ds.launch_counts()["dense_scan"],
+                      ds.count_launch_counts()["dense_scan_count"])
+            ok, counts = ds.dense_scan(ev[:b], vo[:b], W, macro_p=3,
+                                       counts=True, real=real)
+            torch.cuda.synchronize()
+            assert (ds.launch_counts()["dense_scan"],
+                    ds.count_launch_counts()["dense_scan_count"]) == \
+                (before[0], before[1] + 1)
+            assert torch.equal(ok, want)
+            _assert_fused(counts, [ok], "dense", real)
+
+
+@pytest.mark.parametrize("kind,W", FUSED_MASK,
+                         ids=[f"{k}_W{w}" for k, w in FUSED_MASK])
+def test_mask_fused_counts_match_plain(cuda, kind, W):
+    m = Counter() if kind == "counter" else TicketQueue()
+    rng = np.random.default_rng(60 * W + len(kind))
+    ev = _tiled(random_mask_rows(rng, 128, 32, W, 3, kind), cuda)
+    for b in FUSED_SIZES:
+        want = ds.mask_scan(ev[:b], W, 3, model=m)
+        for real in (None, _fused_real(cuda, b)):
+            ok, counts = ds.mask_scan(ev[:b], W, 3, model=m, counts=True,
+                                      real=real)
+            torch.cuda.synchronize()
+            assert torch.equal(ok, want)
+            _assert_fused(counts, [ok], "dense", real)
+
+
+@pytest.mark.parametrize("W", FUSED_SORT, ids=lambda w: f"W{w}")
+def test_sort_fused_counts_match_plain(cuda, W):
+    """B5's counting instance (K = 1..4) in sort mode: n_valid counts ok
+    rows that did not overflow."""
+    m = MODELS[SORT_KINDS["register"]]()
+    rng = np.random.default_rng(80 + W)
+    C = 4
+    ev = _tiled(random_mask_rows(rng, 128, 24, W, 3, "register"), cuda)
+    for b in FUSED_SIZES:
+        want = ls.sort_scan(ev[:b], W, C, 3, model=m)
+        for real in (None, _fused_real(cuda, b)):
+            ok, of, counts = ls.sort_scan(ev[:b], W, C, 3, model=m,
+                                          counts=True, real=real)
+            torch.cuda.synchronize()
+            assert torch.equal(ok, want[0]) and torch.equal(of, want[1])
+            _assert_fused(counts, [ok, of], "sort", real)
+    assert bool((want[1] & want[0]).any() or (want[1] & ~want[0]).any())
+
+
+def test_fused_counts_of_groups_on_side_streams(cuda):
+    """`launch_dense_groups(counts=True)` with six groups on six side
+    streams, domain and mask: each group's counts are its own verdicts'
+    (a counter or ticket shared between launches would mix them)."""
+    specs = [(2, 16, 30, 50), (6, 16, 24, 120), (10, 8, 24, 150),
+             (1, 1, 12, 30), (5, 4, 40, 100), (8, 4, 40, 100)]
+    launches = []
+    for k, (W, S, n, n_ops) in enumerate(specs):
+        ev, vo, ne, P, _ = _group(_cap_histories(500 + k, W, S, n, n_ops),
+                                  W, S, True, cuda)
+        launches.append(DenseLaunch(events=ev, val_of=vo, n_events=ne,
+                                    n_slots=W, macro_p=P))
+    _, encs = _mask_histories("counter", 7, 33, 80, 41)
+    ev, ne, P = _mask_group(encs, True, cuda)
+    launches.append(DenseLaunch(events=ev, val_of=None, n_events=ne,
+                                n_slots=7, macro_p=P, kind="mask",
+                                model=Counter()))
+    run = schedule.launch_dense_groups(launches, CasRegister(),
+                                       counts=True)()
+    assert len(run.counts) == len(launches)
+    for ok, c in zip(run.ok, run.counts):
+        assert c.tolist() == [int(ok.sum()), 0]
+    assert len({c[0] for c in run.counts}) > 1
+
+
+@pytest.mark.parametrize("lib,stem,regs,instances", [
+    ("dense_scan", "dense_scan_warp", 246, 49),
+    ("mask_scan", "mask_scan_warp", 168, 36),
+    ("sort_scan", "sort_scan_block", 64, 4)], ids=["B1", "B4", "B5"])
+def test_fused_counts_keep_the_scans_registers(cuda, lib, stem, regs,
+                                               instances):
+    """The non-counting instances keep the registers they had before the
+    counts existed (B1 246, B4 168 at most, B5 at most 64); every
+    instance, counting or not, has no spill and no stack."""
+    for x in (lib, f"{lib}_count"):
+        if x in _build.SIGNATURES:
+            _build.load(x)
+    assert _build.SCAN_TEMPLATES[lib] == stem
+    plain, counting = _build.ptxas_by_count(lib)
+    assert len(plain) == len(counting) == instances
+    most = max(r["registers"] for r in plain.values())
+    assert most == regs if lib != "sort_scan" else most <= regs
+    for name, r in {**plain, **counting}.items():
+        assert r["spill_bytes"] == 0 and r["stack_bytes"] == 0, name

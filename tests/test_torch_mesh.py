@@ -363,13 +363,26 @@ def _spy(monkeypatch, module, name):
     return calls
 
 
+def _spy_counts(monkeypatch):
+    """Spies on the ways a count can be made: the scans `checker.schedule`
+    calls (their counting option) and the standalone `verdict_counts`."""
+    from jepsen_jgroups_raft_tpu_torch.checker import schedule
+
+    return ({name: _spy(monkeypatch, schedule, name)
+             for name in ("dense_scan", "mask_scan", "sort_scan")},
+            _spy(monkeypatch, vc, "verdict_counts"))
+
+
 @pytest.mark.parametrize("kind", ["domain", "mask"])
 def test_dense_arm_is_one_group_of_launch_dense_groups(monkeypatch, kind):
     """`dense=` queues one group through `checker.schedule`'s launch
-    helper, counts included, and reads the counts it returns."""
+    helper, counts included, and reads the counts it returns: they come
+    from the group's own scan (its counting option), with no standalone
+    `verdict_counts` call after it."""
     model, _, plan, ev, _, real = _padded(kind)
     ev = ev[real]
     calls = _spy(monkeypatch, mesh, "launch_dense_groups")
+    scans, standalone = _spy_counts(monkeypatch)
     ok, ovf, n_valid, n_unknown = mesh.check_batch_sharded(
         model, ev, CPU, dense=plan)
     [(args, kw)] = calls
@@ -377,30 +390,35 @@ def test_dense_arm_is_one_group_of_launch_dense_groups(monkeypatch, kind):
     assert kw == {"counts": True} and ln.kind == plan.kind
     assert ln.n_events is None and ln.n_slots == plan.n_slots
     assert (n_valid, n_unknown) == (int(ok.sum()), 0) and not ovf.any()
+    scan = "mask_scan" if kind == "mask" else "dense_scan"
+    assert [c[1]["counts"] for c in scans[scan]] == [True]
+    assert standalone == [] and not scans["sort_scan"]
 
 
 @pytest.mark.parametrize("n_configs", [None, 8])
 def test_ladder_launches_no_counts(monkeypatch, ladder, n_configs):
-    """The ladder counts on the host: one `run_sort_rung` a rung, and no
-    `verdict_counts` call whose result nothing reads."""
-    from jepsen_jgroups_raft_tpu_torch.ops import verdict_counts as vc_mod
-
+    """The ladder counts on the host: one `run_sort_rung` a rung, whose
+    scan asks for no counts, and no `verdict_counts` call whose result
+    nothing reads."""
     ev, W = ladder
     rungs = _spy(monkeypatch, mesh, "run_sort_rung")
-    counted = [_spy(monkeypatch, mod, "verdict_counts")
-               for mod in (mesh, vc_mod)]
+    scans, standalone = _spy_counts(monkeypatch)
     ok, ovf, n_valid, n_unknown = mesh.check_batch_sharded(
         CasRegister(), ev, CPU, n_configs=n_configs, n_slots=W)
-    assert counted == [[], []]
+    assert standalone == [] and not scans["dense_scan"]
+    assert len(scans["sort_scan"]) == len(rungs)
+    assert not any(c[1].get("counts") for c in scans["sort_scan"])
     assert [a[3] for a, _ in rungs] == ([8] if n_configs
                                         else [64, DEFAULT_N_CONFIGS])
     assert (n_valid, n_unknown) == (int(ok.sum()), int((ovf & ~ok).sum()))
 
 
 @pytest.mark.parametrize("kind", ["domain", "mask"])
-def test_launch_dense_groups_counts_and_finalizes(kind):
+def test_launch_dense_groups_counts_and_finalizes(monkeypatch, kind):
     """The launch helper's finalizer gives `run_dense_groups`' verdicts,
-    and with counts each group's (n_valid, n_unknown) of its verdicts."""
+    and with counts each group's (n_valid, n_unknown) of its verdicts,
+    from each group's own scan (one counting scan a group, no
+    `verdict_counts` call)."""
     from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
         DenseLaunch, launch_dense_groups, run_dense_groups)
 
@@ -410,7 +428,11 @@ def test_launch_dense_groups_counts_and_finalizes(kind):
         events=torch.from_numpy(ev[h]), val_of=torch.from_numpy(val_of[h]),
         n_events=None, n_slots=plan.n_slots, kind=plan.kind)
         for h in halves]
+    scans, standalone = _spy_counts(monkeypatch)
     fin = launch_dense_groups(launches, model, counts=True)
+    scan = "mask_scan" if kind == "mask" else "dense_scan"
+    assert [c[1]["counts"] for c in scans[scan]] == [True, True]
+    assert standalone == []
     run, plain = fin(), run_dense_groups(launches, model)
     assert plain.counts is None
     for ok, want, c in zip(run.ok, plain.ok, run.counts):
