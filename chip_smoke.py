@@ -24,8 +24,8 @@ against its plain version on its own cases) run in a second process on
 the same card, their lines printed when it ends, while this one makes the other
 suites' batches and runs 8, 11, 15, 19, 20, 22-24, 27 and 28 (host
 walls; no time on the card is taken in them); the phases that time the
-card run after both, in the order 6, 7, 9, 10, 12, 14, 17, 18, 25, the
-closure kernels' line, 26, 29, 30:
+card run after both, in the order 6, 6b, 6c, 7, 9, 10, 12, 14, 17, 18,
+25, the closure kernels' line, 26, 29, 30:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
                mask_scan, sort_scan — each with its chunk entry point,
@@ -71,6 +71,41 @@ closure kernels' line, 26, 29, 30:
                group's first launch against its plain version (time,
                bound); and one check at JGRAFT_SCAN_CHUNK=0 (the one-shot
                path's wall and launches)
+ 6b. autotune_main — the same batch through `check_histories` with the
+               launch plans on (JGRAFT_AUTOTUNE=1) and an empty store: a
+               check that measures every bucket that passes the gates,
+               then, the process's plans dropped, one that loads them;
+               each bucket's signature, its candidates' sample times
+               (ms), the chosen plan and its sources; the store counters
+               and the chunk launches by kernel of each check; both walls
+               beside main's untuned best; then, the plans in memory, a
+               check of the batch with phase 8's 64 corrupted rows in
+               place of its first (those INVALID, the rest VALID, every
+               row on the dense tier), which must apply a plan. Then the
+               chosen plan's first launch on the largest group (packed
+               under the plan; the whole schedule at scan_chunk 0)
+               against the plain chunk form, flags and carry bitwise: its
+               ms and bound beside main's untuned chunk launch. Fails if
+               a verdict differs, if the first check measures nothing, if
+               the second measures, or if it loads nothing
+ 6c. stream  — streaming sessions: 64 north-star histories and 16 with one
+               read out of the domain, their crashed invocations given
+               the info rows a live run records (`record_crashes`; the
+               event streams do not move), fed 50 history rows an append
+               through `IncrementalEncoder`, `StreamingCertifier` and
+               `CarriedScan` (B5's chunk entry point, one row a launch,
+               C = 256), and one history fed whole (a backlog): every
+               settled stream equal to the one-shot encode, the final
+               (ok, overflow) equal to one `run_sort_rung` over the whole
+               streams at the same C and W, each corrupted session's ok
+               falling at the first append whose prefix a one-shot scan
+               finds dead, no launch after a session decided, the backlog
+               in more than one launch, the verdicts equal to
+               `check_histories`'; appends and launches per session, the
+               median and p99 ms of `CarriedScan.feed` and of a whole
+               append, one B = 1 launch against its plain version (the
+               wrapper's and the device's ms, the bound), and the sessions
+               the certifier carried to the end
   7. profile — one check under torch.profiler: the device's busy share of
                the check's wall (a trace without device time fails)
   8. invalid — 64 of those histories with one read corrupted: kernel,
@@ -137,6 +172,15 @@ closure kernels' line, 26, 29, 30:
                launches), the plain version's time and bitwise flags; the
                C = 64 rung's first chunk launch against its plain version;
                one check at JGRAFT_SCAN_CHUNK=0
+ 14b. autotune_set — the set batch at JGRAFT_AUTOTUNE=1 as autotune_main
+               runs the north star (the sort ladder's rungs ask
+               `tuned_sort_plan`): measuring, loading, and the batch with
+               phase 15's corrupted rows in place of its first (those
+               INVALID, the rest VALID); then the mixed batch's C = 64
+               rung under its loaded plan through `run_chunked` against
+               the untuned rung's one-shot `run_sort_rung`, ok and
+               overflow bitwise. Fails as autotune_main, or if no sort
+               plan was measured
  15. set_invalid — 64 of those histories with one read made impossible
                (it misses an element whose add completed before the read
                began): kernel, plain ladder and host oracle agree row for
@@ -297,7 +341,14 @@ with the LOP3 floor of the work it does: `closure_main_path`.
 
 Every phase but lin_fastpath runs with JGRAFT_LIN_FASTPATH=0 (set at
 the start), as the reference's test suite runs: at the default knobs
-the host certifier decides most valid rows before any kernel.
+the host certifier decides most valid rows before any kernel. Every
+phase runs with JGRAFT_AUTOTUNE=0 (no launch plan and no cycle-arm
+store: the launches the phases always measured) but autotune_main,
+autotune_set, lin_fastpath and the "default" arms of sequential_main
+and session_evidence, which lift the pin; JGRAFT_AUTOTUNE_STORE names a
+fresh directory under build/ for the whole run, so no plan of an
+earlier run is loaded, and each of those phases measures into a
+directory of its own; lin_fastpath measures its plans before its arms.
 
 Then the kernels' summary line (dense_scan, mask_scan, sort_scan,
 segment_scan, cycle_closure, cycle_closure_tiled, election_safety,
@@ -307,7 +358,12 @@ plain and library ms the plain count and `torch.count_nonzero` of that
 group's flags), dense_scan_chunk, mask_scan_chunk, sort_scan_chunk; each with its
 library's ptxas registers and spill bytes; a one-shot kernel's launches
 are its JGRAFT_SCAN_CHUNK=0 arms', a chunk kernel's the default runs'
-of every path, and its ms, plain ms and bound one measured launch's),
+of every path, and its ms, plain ms and bound one measured launch's;
+dense_scan_chunk and sort_scan_chunk give their launches by path,
+`launches_by_path`: the wavefront paths, autotune_main, autotune_set
+and, for sort_scan_chunk, the streaming sessions, whose B = 1 launch is
+its `stream_launch`; dense_scan_chunk's `tuned_launch` is the largest
+north-star group's launch under its plan),
 the card's
 `nvidia-smi` name and power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
 without a CUDA device, and when the port's package is not beside it.
@@ -318,6 +374,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1058,10 +1115,9 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
     from jepsen_jgroups_raft_tpu_torch.history.packing import (
         bucket_rows, encode_history, pack_macro_batch)
     from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
-        MERGE_MAX_EVENTS, chunk_launch_counts, dense_carry_layout,
-        dense_chunk_plain, dense_plans_grouped, dense_scan_plain,
-        launch_counts, make_dense_chunk_checker, mask_carry_layout,
-        mask_chunk_plain, mask_scan_plain, reset_launch_counts)
+        MERGE_MAX_EVENTS, chunk_launch_counts, dense_plans_grouped,
+        dense_scan_plain, launch_counts, make_dense_chunk_checker,
+        mask_scan_plain, reset_launch_counts)
 
     import numpy as np
 
@@ -1213,29 +1269,7 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
         width = first_span(b["n_events"], 128,
                            E if b["legacy_events"] > MERGE_MAX_EVENTS
                            else bucket_rows(E, 32))
-        if ln.kind == "mask":
-            def plain(c, e, w, st):
-                return mask_chunk_plain(c, e, W, ln.macro_p, model=model,
-                                        width=w, stats=st)
-
-            def work(g, sl):
-                M = 1 << W
-                return (g["slot_passes"] * max(M // 64, 1)
-                        + g["force_rows"] * max(M // 32, 1)
-                        + g["legal_needed"] * LEGAL_STEP_OPS[model.name]
-                        + int(sl[:, :, 2].clamp(min=0).sum()))
-        else:
-            def plain(c, e, w, st):
-                return dense_chunk_plain(c, e, W, S, ln.macro_p, model, w,
-                                         st)
-
-            def work(g, sl):
-                MS = (1 << W) * S
-                return (g["slot_passes"] * max(MS // 64, 1) * S
-                        + g["force_rows"] * max(MS // 32, 1)
-                        + int(sl[:, :, 2].clamp(min=0).sum()) * S * S)
-        lay = (mask_carry_layout(W) if ln.kind == "mask"
-               else dense_carry_layout(W, S))
+        plain, work, lay = dense_chunk_fns(model, ln.kind, W, S, ln.macro_p)
         # a first launch over the group's whole schedule is the one-shot
         # scan of the group: its plain run above stands for the chunk
         # form's
@@ -1297,7 +1331,8 @@ def run_path(phase: str, dev, model, histories, synth_s: float, tier: str,
          power=nvidia_smi_line())
     return {"launches": int(arm["launches"][kernel]) if arm else 0,
             "max_abs_err": err, "ms": span_ms, "plain_ms": plain_ms,
-            "t_bytes": t_bytes, "t_ops": t_ops, "groups": launch_list,
+            "t_bytes": t_bytes, "t_ops": t_ops, "check_s_best": best,
+            "verdicts": [r["valid?"] for r in results], "groups": launch_list,
             "group_stats": group_stats, "plain_oks": plain_oks,
             "ms_alone": alone_ms,
             "chunk": dict(chunk_line, launches=int(launches[chunk_kernel]))}
@@ -1673,6 +1708,39 @@ def first_span(n_events, chunk: int, e_sched: int) -> int:
     p = max(1, -(-first // chunk))
     p = min(p, -(-e_sched // chunk))
     return (1 << (p.bit_length() - 1) if p > 1 else 1) * chunk
+
+
+def dense_chunk_fns(model, kind: str, W: int, S: int, macro_p) -> tuple:
+    """The plain chunk form of a dense group's kernel (B1 for a domain
+    group, B4 for a mask group) as `measure_chunk_launch` calls it, the
+    32-bit operations its counted work needs (the bound, as `run_path`
+    counts it for the one-shot kernels), and its carry layout."""
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+        dense_carry_layout, dense_chunk_plain, mask_carry_layout,
+        mask_chunk_plain)
+
+    if kind == "mask":
+        def plain(c, e, w, st):
+            return mask_chunk_plain(c, e, W, macro_p, model=model, width=w,
+                                    stats=st)
+
+        def work(g, sl):
+            M = 1 << W
+            return (g["slot_passes"] * max(M // 64, 1)
+                    + g["force_rows"] * max(M // 32, 1)
+                    + g["legal_needed"] * LEGAL_STEP_OPS[model.name]
+                    + int(sl[:, :, 2].clamp(min=0).sum()))
+        return plain, work, mask_carry_layout(W)
+
+    def plain(c, e, w, st):
+        return dense_chunk_plain(c, e, W, S, macro_p, model, w, st)
+
+    def work(g, sl):
+        MS = (1 << W) * S
+        return (g["slot_passes"] * max(MS // 64, 1) * S
+                + g["force_rows"] * max(MS // 32, 1)
+                + int(sl[:, :, 2].clamp(min=0).sum()) * S * S)
+    return plain, work, dense_carry_layout(W, S)
 
 
 def measure_chunk_launch(dev, name: str, step, plain, carry, ev, ne,
@@ -2054,7 +2122,8 @@ def corrupt_set_read(ops, rng):
 def phase_set_invalid(dev, histories):
     """Set histories with one impossible read: the kernel (check_encoded
     on the card), the plain ladder and the host oracle agree row for row,
-    every row INVALID and on the sort tier. Returns max |kernel - plain|."""
+    every row INVALID and on the sort tier. Returns the corrupted
+    histories."""
     from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
         check_encoded)
     from jepsen_jgroups_raft_tpu_torch.checker.wgl_cpu import (
@@ -2084,7 +2153,7 @@ def phase_set_invalid(dev, histories):
     if k_ok != p_ok or k_ok != o_ok or any(k_ok):
         raise AssertionError("set_invalid: kernel, plain version and host "
                              "oracle disagree, or a corrupted row passed")
-    return 0
+    return bad
 
 
 #: the reference suite's long-history configurations (bench.py:998-1009):
@@ -2594,17 +2663,18 @@ def phase_wide_auto(dev, wide):
 
 def phase_lin_fastpath(dev, histories):
     """The first LIN_FASTPATH_ROWS north-star histories through
-    check_encoded on the card, the gate's store in a fresh directory
-    under build/: with JGRAFT_LIN_FASTPATH at 0 (warm-up, then one
-    timed run), then with it unset (the default) twice — the first run
-    on an empty gate tries the host certifier, the second routes by the
-    hit rate the first measured, as the reference's gate does (a bucket
-    under JGRAFT_LIN_FASTPATH_MIN_HIT goes kernel-first). Verdicts
-    identical; certified, gated and kernel rows and the walls of every
-    run."""
-    import shutil
-    from pathlib import Path
-
+    check_encoded on the card at JGRAFT_AUTOTUNE's default (1; the run's
+    pin lifted), the store in a fresh directory under build/: first one
+    check with JGRAFT_LIN_FASTPATH at 0 that measures the launch plans
+    into the store (and stands for the warm-up), so that the arms
+    compare the gate alone under the same plans; then with the fast path
+    at 0 (one timed run), then with it unset (the default) twice — the
+    first run on an empty gate tries the host certifier, the second
+    routes by the hit rate the first measured, as the reference's gate
+    does (a bucket under JGRAFT_LIN_FASTPATH_MIN_HIT goes kernel-first).
+    Verdicts identical; certified, gated and kernel rows, the walls of
+    every run and the plan counters of the measuring check."""
+    from jepsen_jgroups_raft_tpu_torch.checker import autotune
     from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
         check_encoded, consume_fastpath_counters)
     from jepsen_jgroups_raft_tpu_torch.checker.schedule import consume_tiers
@@ -2616,6 +2686,7 @@ def phase_lin_fastpath(dev, histories):
             for h in histories[:LIN_FASTPATH_ROWS]]
     store = Path(__file__).resolve().parent / "build" / "chip_smoke_autotune"
     shutil.rmtree(store, ignore_errors=True)
+    plans: dict = {}
 
     def timed():
         consume_tiers()
@@ -2633,18 +2704,21 @@ def phase_lin_fastpath(dev, histories):
                                    if r.get("algorithm") == "torch")}
 
     def off():
-        check_encoded(encs, model, device=dev)  # warm-up
+        # the launch plans every arm uses, measured before the arms
+        autotune.reset_for_tests()
+        check_encoded(encs, model, device=dev)
+        plans.update(autotune.consume_counters())
         return timed()
 
     def default():
         return [timed(), timed()]
 
     runs = {}
-    runs["off"] = with_env("JGRAFT_AUTOTUNE_STORE", str(store),
-                           lambda: with_env("JGRAFT_LIN_FASTPATH", "0", off))
-    runs["first"], runs["second"] = with_env(
-        "JGRAFT_AUTOTUNE_STORE", str(store),
-        lambda: with_env("JGRAFT_LIN_FASTPATH", None, default))
+    with_plans = {"JGRAFT_AUTOTUNE": None, "JGRAFT_AUTOTUNE_STORE": str(store)}
+    runs["off"] = with_envs({**with_plans, "JGRAFT_LIN_FASTPATH": "0"}, off)
+    runs["first"], runs["second"] = with_envs(
+        {**with_plans, "JGRAFT_LIN_FASTPATH": None}, default)
+    autotune.reset_for_tests()
     shutil.rmtree(store, ignore_errors=True)
     verdicts = {k: [r["valid?"] for r in v.pop("rs")]
                 for k, v in runs.items()}
@@ -2655,7 +2729,8 @@ def phase_lin_fastpath(dev, histories):
     emit("lin_fastpath", rows=len(encs), off_s=runs["off"]["s"],
          first_s=runs["first"]["s"], second_s=runs["second"]["s"],
          second_over_off=runs["second"]["s"] / max(runs["off"]["s"], 1e-9),
-         runs=runs, verdicts_identical=identical)
+         runs=runs, verdicts_identical=identical,
+         plans_measured_before_arms=plans)
     if not identical or runs["first"]["scanned_rows"] == 0:
         raise AssertionError("lin_fastpath: verdicts differ, or the fast "
                              "path never ran at the default knobs")
@@ -3059,7 +3134,8 @@ def run_rung(dev, hs, model, rung: str, env: dict,
 def phase_sequential_main(dev, north_star) -> dict:
     """The sequential rung on the card at two sizes (SEQ_UPSTREAM, and
     the first SEQ_BENCH_ROWS north-star histories), SEQ_PLANTED of each
-    with a late stale read. Arms: the default knobs (the cycle-arm store
+    with a late stale read. Arms: the default knobs (the run's
+    JGRAFT_AUTOTUNE pin lifted; the store, launch plans and cycle arms,
     in a fresh directory: the run measures the buckets it meets on first
     contact), JGRAFT_CYCLE_KERNEL=1, =1
     with JGRAFT_GREEDY_CERTIFY=0 (every row reaches B7 or B8), and the
@@ -3097,7 +3173,8 @@ def phase_sequential_main(dev, north_star) -> dict:
         hs, planted = planted_histories(base, random.Random(SEED + 12))
         encs = [encode_history(h, model) for h in hs]
         shutil.rmtree(store, ignore_errors=True)
-        arms = (("default", {"JGRAFT_AUTOTUNE_STORE": str(store)}),
+        arms = (("default", {"JGRAFT_AUTOTUNE": None,
+                             "JGRAFT_AUTOTUNE_STORE": str(store)}),
                 ("kernel", {"JGRAFT_CYCLE_KERNEL": "1"}),
                 ("kernel_all", {"JGRAFT_CYCLE_KERNEL": "1",
                                 "JGRAFT_GREEDY_CERTIFY": "0"}),
@@ -3170,7 +3247,8 @@ def phase_sequential_main(dev, north_star) -> dict:
 def phase_session_evidence(dev, planted: dict) -> dict:
     """The planted subsets at the session rung on the card, with the
     closure kernel forced (JGRAFT_CYCLE_KERNEL=1) and at the default
-    knobs (the cycle-arm store in a fresh directory): every planted row
+    knobs (the run's JGRAFT_AUTOTUNE pin lifted, the store in a fresh
+    directory): every planted row
     carries sc-refuted with its cycle, the verdicts and the evidence
     flags agree, and the forced run launched the kernel. The session
     rung defers a write's FORCE to its process's next read, so the
@@ -3190,7 +3268,8 @@ def phase_session_evidence(dev, planted: dict) -> dict:
         shutil.rmtree(store, ignore_errors=True)
         runs = {arm: run_rung(dev, hs, model, "session", env, "dense")
                 for arm, env in (("kernel", {"JGRAFT_CYCLE_KERNEL": "1"}),
-                                 ("default", {"JGRAFT_AUTOTUNE_STORE":
+                                 ("default", {"JGRAFT_AUTOTUNE": None,
+                                              "JGRAFT_AUTOTUNE_STORE":
                                               str(store)}))}
         shutil.rmtree(store, ignore_errors=True)
         add_counts(launches, runs["kernel"]["launches"])
@@ -4547,6 +4626,524 @@ def finish_kernel_checks(proc, recv, out: str) -> dict:
     return value
 
 
+# ----------------------------------------- the plan store and the stream
+
+#: stream: the north-star sessions fed append by append (the first
+#: STREAM_VALID histories as they are, the next STREAM_CORRUPT with one
+#: read moved out of the domain), the history rows an append carries, and
+#: the B = 1 launch's timed reps
+STREAM_VALID = 64
+STREAM_CORRUPT = 16
+STREAM_APPEND_ROWS = 50
+STREAM_LAUNCH_REPS = 20
+#: the append from which a session's launch is timed alone (a frontier
+#: and a window the session has grown into)
+STREAM_TIMED_APPEND = 20
+
+
+def plan_buckets(store: Path, applied: list) -> list:
+    """Each plan file under `store`: its bucket's signature, each
+    candidate's sample times in ms, the chosen plan, and the sources it
+    was applied from (`applied`: the applied logs of the checks)."""
+    out = []
+    for path in sorted(store.rglob("*.json")):
+        raw = json.loads(path.read_text())
+        sig = raw["signature"]
+        out.append({
+            "signature": sig, "file": path.name,
+            "samples_ms": {k: [t * 1e3 for t in ts]
+                           for k, ts in raw["samples"].items()},
+            "plan": raw["plan"],
+            "sources": [e["source"] for e in applied
+                        if e["signature"] == sig]})
+    return out
+
+
+def tuned_checks(dev, model, histories, want: list, mixed, want_mixed: list,
+                 store: Path) -> dict:
+    """`check_histories` at JGRAFT_AUTOTUNE=1 with `store` emptied: a
+    measuring check of `histories`, then, the process's plans dropped, a
+    loading check of them, then a check of `mixed` (the batch with
+    corrupted rows in place of its first ones) under the plans in
+    memory; each with the launch counts set to 0 just before it and
+    read just after, its store counters, the plans it applied, its wall
+    and its verdicts against `want` / `want_mixed` (every row on one
+    tier). Fails if a verdict differs, if the first check
+    measures nothing, if the second measures or loads nothing, or if the
+    mixed check applies no plan. Returns the runs and the buckets."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker import autotune
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import consume_stats
+
+    shutil.rmtree(store, ignore_errors=True)
+    runs: dict = {}
+    applied: list = []
+
+    def check(name, hs, expect):
+        torch.cuda.synchronize()
+        reset_all_launch_counts()
+        consume_stats()
+        seq = autotune.applied_seq()
+        t0 = time.perf_counter()
+        rs = check_histories(hs, model, device=dev)
+        wall = time.perf_counter() - t0
+        log = autotune.applied_since(seq)
+        applied.extend(log)
+        runs[name] = {"check_s": wall,
+                      "counters": autotune.consume_counters(),
+                      "plans_applied": len(log),
+                      "launches": {k: v for k, v in
+                                   all_launch_counts().items() if v},
+                      "chunks_run": consume_stats()["chunks_run"],
+                      "tiers": sorted({str(r.get("decided-tier"))
+                                       for r in rs}),
+                      "invalid": sum(1 for r in rs if r["valid?"] is False),
+                      "verdicts_equal": [r["valid?"] for r in rs] == expect}
+
+    def go():
+        autotune.reset_for_tests()
+        check("measuring", histories, want)
+        # a fresh process: the plans in memory dropped, the store kept
+        autotune.reset_for_tests()
+        check("loading", histories, want)
+        check("mixed", mixed, want_mixed)
+
+    with_envs({"JGRAFT_AUTOTUNE": "1", "JGRAFT_AUTOTUNE_STORE": str(store)},
+              go)
+    first, second, third = runs["measuring"], runs["loading"], runs["mixed"]
+    if not all(r["verdicts_equal"] and len(r["tiers"]) == 1
+               for r in runs.values()) or \
+            first["counters"]["plans_measured"] == 0 or \
+            second["counters"]["plans_measured"] or \
+            not second["counters"]["plans_loaded"] or \
+            not third["plans_applied"]:
+        raise AssertionError(f"tuned checks: a verdict differs, a row left "
+                             f"the tier, the first check measured nothing, "
+                             f"the second measured or loaded nothing, or "
+                             f"the mixed batch ran under no plan: {runs}")
+    return {"runs": runs, "buckets": plan_buckets(store, applied)}
+
+
+def tuned_env(store: Path, fn):
+    """fn() with the launch plans on and `store` as the store."""
+    return with_envs({"JGRAFT_AUTOTUNE": "1",
+                      "JGRAFT_AUTOTUNE_STORE": str(store)}, fn)
+
+
+def phase_autotune_main(dev, model, histories, untuned: dict, bad) -> dict:
+    """6b. The north-star batch through `check_histories` at
+    JGRAFT_AUTOTUNE=1 with an empty store (a directory of its own):
+    `tuned_checks`, its mixed batch the north star with phase 8's
+    corrupted rows (`bad`, each INVALID by the host oracle there) in
+    place of its first ones. Prints each bucket's signature, its
+    candidates' sample times, the chosen plan and its sources; the store
+    counters, walls and chunk launches by kernel of each check, beside
+    `main`'s untuned best (`untuned`: main's best wall, verdicts and its
+    chunk launch). Then the chosen plan's launch on the largest group
+    (the plan loaded, the group packed under it, its first wavefront
+    launch, the whole schedule under a plan of scan_chunk 0) against the
+    plain chunk form, flags and carry bitwise (`measure_chunk_launch`):
+    its ms and bound beside the untuned launch's. Returns the chunk
+    launches of the checks by kernel, and the tuned launch's numbers."""
+    from dataclasses import asdict
+
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker import autotune
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
+        build_dense_launches)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import encode_history
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+        dense_plans_grouped)
+
+    store = Path(os.environ["JGRAFT_AUTOTUNE_STORE"]) / "autotune_main"
+    mixed = list(bad) + list(histories[len(bad):])
+    want_mixed = [False] * len(bad) + untuned["verdicts"][len(bad):]
+    got = tuned_checks(dev, model, histories, untuned["verdicts"], mixed,
+                       want_mixed, store)
+
+    def tuned_launch():
+        # the largest group as `_dense_pass` forms it, under its plan
+        encs = [encode_history(h, model) for h in histories]
+        grouped, _ = dense_plans_grouped(model, encs)
+        idxs, plan = max(grouped, key=lambda g: len(g[0]))
+        sub = [encs[i] for i in idxs]
+        tuned = autotune.tuned_group_plan(model, plan, sub, device=dev)
+        if tuned is None:
+            raise AssertionError("autotune_main: the largest group has no "
+                                 "plan")
+        batch = autotune.pack_group(sub, tuned)
+        [ln], _ = build_dense_launches(model, [(idxs, plan, batch, tuned)],
+                                       device=dev)
+        W, S = plan.n_slots, int(plan.val_of.shape[1])
+        plain, work, lay = dense_chunk_fns(model, plan.kind, W, S,
+                                           batch.get("macro_p"))
+        ev = torch.from_numpy(batch["events"]).to(dev)
+        ne = torch.from_numpy(batch["n_events"]).to(dev)
+        vo = torch.from_numpy(plan.val_of).to(dev)
+        width = first_span(batch["n_events"], ln.chunk, ln.e_sched)
+        line = measure_chunk_launch(
+            dev, "dense_scan_chunk", ln.step_fn, plain, ln.init_fn(vo, ne),
+            ev, ne, width, lay, work)
+        return dict(line, plan=asdict(tuned), chunk=ln.chunk,
+                    e_sched=ln.e_sched, macro_p=batch.get("macro_p"),
+                    window=W, states=S)
+
+    launch = tuned_env(store, tuned_launch)
+    shutil.rmtree(store, ignore_errors=True)
+    first, second = got["runs"]["measuring"], got["runs"]["loading"]
+    emit("autotune_main", histories=len(histories), buckets=got["buckets"],
+         **got["runs"], untuned_best_s=untuned["check_s_best"],
+         measuring_over_untuned=first["check_s"] / untuned["check_s_best"],
+         loading_over_untuned=second["check_s"] / untuned["check_s_best"],
+         corrupted_rows=len(bad), tuned_launch=launch,
+         untuned_launch=untuned["chunk_launch"],
+         device=torch.cuda.get_device_name(dev), power=nvidia_smi_line())
+    out: dict = {}
+    for r in got["runs"].values():
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return {"launches": out, "tuned_launch": launch}
+
+
+def phase_autotune_set(dev, histories, bad) -> dict:
+    """14b. The set suite (every row VALID on the sort tier, `set_main`)
+    through `check_histories` at JGRAFT_AUTOTUNE=1: `tuned_checks`, the
+    sort ladder's rungs asking `tuned_sort_plan`, its mixed batch the
+    suite with phase 15's corrupted rows (`bad`) in place of its first
+    ones. Then, the plans in memory, the mixed batch's C = 64 rung as
+    `_sort_pass` launches it under its plan (packed under it, one
+    `run_chunked`) against the untuned rung's one-shot `run_sort_rung`,
+    ok and overflow bitwise. Returns the chunk launches of the checks by
+    kernel."""
+    import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker import autotune
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
+        ChunkLaunch, run_chunked, run_sort_rung)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        bucket_rows, encode_history, pack_macro_batch)
+    from jepsen_jgroups_raft_tpu_torch.models import GSet
+    from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import (
+        bucket_slots, make_sort_chunk_checker)
+
+    model = GSet()
+    store = Path(os.environ["JGRAFT_AUTOTUNE_STORE"]) / "autotune_set"
+    mixed = list(bad) + list(histories[len(bad):])
+    want = [True] * len(histories)
+    want_mixed = [False] * len(bad) + want[len(bad):]
+    got = tuned_checks(dev, model, histories, want, mixed, want_mixed, store)
+
+    def rung():
+        encs = [encode_history(h, model) for h in mixed]
+        W, C = bucket_slots(max(e.n_slots for e in encs)), 64
+        tuned = autotune.tuned_sort_plan(model, encs, C, W, device=dev)
+        if tuned is None:
+            raise AssertionError("autotune_set: the C = 64 rung has no plan")
+        batch = autotune.pack_group(encs, tuned)
+        init_fn, step_fn = make_sort_chunk_checker(
+            model, C, W, macro_p=batch.get("macro_p"))
+        e_sched = bucket_rows(batch["events"].shape[1], 32)
+        timer: dict = {}
+        [out] = run_chunked([ChunkLaunch(
+            events=batch["events"], n_events=batch["n_events"],
+            init_fn=init_fn, step_fn=step_fn, e_sched=e_sched, device=dev,
+            tag="sort", chunk=tuned.scan_chunk or max(e_sched, 1))],
+            record_stats=False, timer=timer)
+        base = pack_macro_batch(encs)
+        one = run_sort_rung(torch.from_numpy(base["events"]).to(dev),
+                            torch.from_numpy(base["n_events"]).to(dev),
+                            W, C, base.get("macro_p"), model)
+        diff = int((np.asarray(out.ok) != np.asarray(one.ok)).sum()
+                   + (np.asarray(out.overflow)
+                      != np.asarray(one.overflow)).sum())
+        return {"W": W, "C": C, "plan": {"scan_chunk": tuned.scan_chunk,
+                                         "macro_p": tuned.macro_p},
+                "launches": out.chunks_run, "span_ms": timer.get("span_ms"),
+                "ok": int(np.asarray(out.ok).sum()),
+                "overflow": int(np.asarray(out.overflow).sum()),
+                "flags_differ": diff}
+
+    flags = tuned_env(store, rung)
+    shutil.rmtree(store, ignore_errors=True)
+    emit("autotune_set", histories=len(histories), buckets=got["buckets"],
+         **got["runs"], corrupted_rows=len(bad), tuned_rung=flags,
+         device=torch.cuda.get_device_name(dev), power=nvidia_smi_line())
+    if flags["flags_differ"] or not any(
+            b["signature"][0] == "sort" for b in got["buckets"]):
+        raise AssertionError("autotune_set: the tuned rung's flags differ "
+                             "from the untuned rung's, or no sort plan was "
+                             "measured")
+    out: dict = {}
+    for r in got["runs"].values():
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def record_crashes(ops) -> list:
+    """The history as Jepsen's runner records it live: an invocation left
+    with no completion (a crashed worker) gets an info row where its
+    worker was replaced, just before the first invocation of a process
+    id not seen before it (else at the end), so that a stream settles
+    past it. The event stream is unchanged: an info row, like a missing
+    completion, makes the pair a crashed one."""
+    done = set()
+    last = {}
+    for j, op in enumerate(ops):
+        if op.type == "invoke":
+            last[op.process] = j
+        else:
+            done.add(last.pop(op.process))
+    dangling = set(last.values())
+    out, seen, due = [], set(), []
+    for j, op in enumerate(ops):
+        if op.type == "invoke" and op.process not in seen and due:
+            out.extend(due)
+            due = []
+        seen.add(op.process)
+        out.append(op)
+        if j in dangling:
+            due.append(op.replace(type="info", index=-1))
+    return out + due
+
+
+def pct(xs, q: float) -> float:
+    """The q-quantile of xs (nearest rank)."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, int(-(-q * len(xs) // 1)) - 1))]
+
+
+def phase_stream(dev, histories) -> dict:
+    """6c. Streaming sessions on the card: STREAM_VALID north-star
+    histories and STREAM_CORRUPT with one read out of the domain, their
+    crashed invocations given info rows (`record_crashes`), each fed
+    STREAM_APPEND_ROWS history rows an append through
+    `IncrementalEncoder` -> `StreamingCertifier` and `CarriedScan` (B5's
+    chunk entry point, one row a launch; a window that outgrows the
+    carry rebuilds it wider and re-feeds the settled stream, as a
+    session does), and one more history fed whole in one append (a
+    backlog). The launch counts are set to 0 just before the sessions
+    and read just after. Fails if a stream differs from the one-shot
+    encode, if a final (ok, overflow) differs from one `run_sort_rung`
+    over the whole streams at the same C and W, if a corrupted session's
+    ok falls at another append than the first whose prefix a one-shot
+    scan finds dead (one launch a session, its rows the prefixes), if a
+    session launches after it decided, if the backlog takes one launch,
+    or if a verdict differs from `check_histories`'. Prints appends and
+    launches per session, the median and p99 ms of `CarriedScan.feed`
+    and of a whole append, the B = 1 launch against its plain version
+    (the wrapper's ms, the device's ms by CUDA events, the bound), and
+    how many sessions the certifier carried to the end. Returns the
+    kernels-line numbers of the stream path."""
+    import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker.consistency import (
+        StreamingCertifier)
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import (
+        STREAM_FEED_CHUNK, CarriedScan, run_sort_rung)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        IncrementalEncoder, bucket_rows, encode_history)
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+    from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
+
+    model = CasRegister()
+    rng = random.Random(SEED + 60)
+    sessions = [list(h) for h in histories[:STREAM_VALID]]
+    for h in histories[STREAM_VALID:STREAM_VALID + STREAM_CORRUPT]:
+        ops_, changed = corrupt_read(h, rng, VALUE_RANGE + 1)
+        if not changed:
+            raise AssertionError("stream: a history without an ok read")
+        sessions.append(ops_)
+    sessions.append(list(histories[STREAM_VALID + STREAM_CORRUPT]))
+    # the rows as a live run records them (the synthesizer leaves half of
+    # its crashed invocations with no completion row, which would hold a
+    # stream back to its end); the encodings must not move
+    given = sessions
+    sessions = [record_crashes(ops) for ops in given]
+    corrupt = set(range(STREAM_VALID, STREAM_VALID + STREAM_CORRUPT))
+    backlog = len(sessions) - 1
+
+    feed_ms, append_ms, out = [], [], []
+    snap = None
+    torch.cuda.synchronize()
+    ls.reset_launch_counts()
+    t_phase = time.perf_counter()
+    for s, ops in enumerate(sessions):
+        rows = len(ops) if s == backlog else STREAM_APPEND_ROWS
+        enc, cert = IncrementalEncoder(model), StreamingCertifier(model)
+        scan, settled, prefix = None, [], []
+        launches, fell, after = 0, None, 0
+        for a, lo in enumerate(range(0, len(ops), rows)):
+            t0 = time.perf_counter()
+            ev, _, _ = enc.feed(ops[lo:lo + rows],
+                                final=lo + rows >= len(ops))
+            if ev.shape[0]:
+                settled.append(ev)
+                if cert.certified:
+                    cert.feed(ev)
+            if scan is not None and scan.decided:
+                n0 = ls.CHUNK_LAUNCHES["sort_scan_chunk"]
+                scan.feed(ev)
+                after += ls.CHUNK_LAUNCHES["sort_scan_chunk"] - n0
+            elif ev.shape[0]:
+                t1 = time.perf_counter()
+                if scan is None or not scan.fits(enc.n_slots):
+                    if scan is not None:
+                        launches += scan.launches
+                    scan = CarriedScan(model, enc.n_slots, device=dev)
+                    scan.feed(np.concatenate(settled))
+                else:
+                    if snap is None or snap[0] < STREAM_TIMED_APPEND:
+                        span = ev[:STREAM_FEED_CHUNK]
+                        pad = np.zeros((bucket_rows(span.shape[0], 32), 5),
+                                       dtype=np.int32)
+                        pad[:span.shape[0]] = span
+                        snap = (a, s, scan.carry.clone(), pad,
+                                span.shape[0], scan.slots_cap,
+                                scan.n_configs)
+                    scan.feed(ev)
+                feed_ms.append((time.perf_counter() - t1) * 1e3)
+                if scan.decided:
+                    fell = a
+            append_ms.append((time.perf_counter() - t0) * 1e3)
+            prefix.append(sum(e.shape[0] for e in settled))
+        launches += scan.launches
+        out.append({"appends": len(prefix), "launches": launches,
+                    "after_decided": after, "fell": fell,
+                    "ok": scan.ok, "overflow": scan.overflow,
+                    "certified": cert.certified,
+                    "stream": np.concatenate(settled), "prefix": prefix})
+    stream_s = time.perf_counter() - t_phase
+    counted = ls.chunk_launch_counts()["sort_scan_chunk"]
+    if counted != sum(o["launches"] for o in out):
+        raise AssertionError("stream: the launch count disagrees with the "
+                             "sessions' launches")
+
+    # every stream is the one-shot encode; final flags against one
+    # run_sort_rung over the whole streams, by kernel window
+    seconds = {"sessions": stream_s}
+    t0 = time.perf_counter()
+    C = ls.DEFAULT_N_CONFIGS
+    encs = [encode_history(ops, model, prune=False) for ops in given]
+    for o, e in zip(out, encs):
+        if not np.array_equal(o["stream"], e.events):
+            raise AssertionError("stream: a settled stream differs from the "
+                                 "one-shot encode of the history as given")
+    by_w: dict = {}
+    for j, e in enumerate(encs):
+        by_w.setdefault(ls.bucket_slots(max(e.n_slots, 1)), []).append(j)
+    mismatched = 0
+    for W, js in by_w.items():
+        E = max(encs[j].n_events for j in js)
+        ev = np.zeros((len(js), E, 5), dtype=np.int32)
+        for k, j in enumerate(js):
+            ev[k, :encs[j].n_events] = encs[j].events
+        ne = np.array([encs[j].n_events for j in js], dtype=np.int32)
+        run = run_sort_rung(torch.from_numpy(ev).to(dev),
+                            torch.from_numpy(ne).to(dev), W, C, None, model)
+        for k, j in enumerate(js):
+            mismatched += (bool(run.ok[k]), bool(run.overflow[k])) != \
+                (out[j]["ok"], out[j]["overflow"])
+    seconds["one_shot"] = time.perf_counter() - t0
+    # a corrupted session falls at the first append whose prefix is dead
+    t0 = time.perf_counter()
+    wrong_fall = 0
+    for j in sorted(corrupt):
+        e, o = encs[j], out[j]
+        # row k: the stream's first prefix[k] events, EV_PAD after them
+        ev = np.zeros((len(o["prefix"]),) + e.events.shape, dtype=np.int32)
+        for k, n in enumerate(o["prefix"]):
+            ev[k, :n] = e.events[:n]
+        run = run_sort_rung(
+            torch.from_numpy(ev).to(dev),
+            torch.tensor(o["prefix"], dtype=torch.int32, device=dev),
+            ls.bucket_slots(max(e.n_slots, 1)), C, None, model)
+        dead = np.flatnonzero(~run.ok)
+        wrong_fall += (int(dead[0]) if dead.size else None) != o["fell"]
+    seconds["prefixes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # a session's verdict: VALID once certified or ok; INVALID once ok
+    # fell with no overflow; a frontier that overflowed C escalates (a
+    # session runs the whole ladder on it at its end: check_histories'
+    # verdict by construction, so it is counted, not compared)
+    rs = check_histories(given, model, device=dev)
+    verdict = [True if o["certified"] or o["ok"] else
+               (False if not o["overflow"] else None) for o in out]
+    escalated = sum(v is None for v in verdict)
+    differ = sum(v is not None and r["valid?"] != v
+                 for r, v in zip(rs, verdict))
+
+    seconds["check_histories"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the B = 1 launch against its plain version, as the path made it:
+    # the first one at a session's STREAM_TIMED_APPEND-th append or
+    # later (else the last one before it)
+    snap_append, snap_session, carry, pad, n_real, W, Cs = snap
+    init, step = ls.make_sort_chunk_checker(model, Cs, W)
+    ev = torch.from_numpy(pad[None]).to(dev)
+    ne = torch.tensor([n_real], dtype=torch.int32, device=dev)
+
+    def plain(c, e, w, st):
+        return ls.sort_chunk_plain(c, e, W, Cs, None, model=model, width=w,
+                                   stats=st)
+
+    launch_line = measure_chunk_launch(
+        dev, "sort_scan_chunk", step, plain, carry, ev, ne, pad.shape[0],
+        ls.sort_carry_layout(W, Cs),
+        lambda st, sl: st["steps"] + st["candidates"])
+    launch = ls.sort_chunk_launcher(carry, ev, W, Cs, model=model)[2]
+    launch_line["device_ms_reps"] = launch_device_times(
+        launch, STREAM_LAUNCH_REPS + 1)[1:]
+    launch_line["device_ms"] = min(launch_line["device_ms_reps"])
+    launch_line.update(W=W, C=Cs, real_events=n_real, session=snap_session,
+                       append=snap_append)
+
+    seconds["b1_launch"] = time.perf_counter() - t0
+    appends = [o["appends"] for o in out]
+    per = [o["launches"] for o in out]
+    emit("stream", sessions=len(sessions), corrupted=len(corrupt),
+         append_rows=STREAM_APPEND_ROWS, stream_s=stream_s,
+         seconds=seconds,
+         info_rows_added=sum(len(a) - len(b)
+                             for a, b in zip(sessions, given)),
+         appends_per_session={"min": min(appends), "max": max(appends),
+                              "sum": sum(appends)},
+         launches_per_session={"min": min(per), "max": max(per),
+                               "sum": sum(per), "counted": counted},
+         backlog={"events": int(encs[backlog].n_events),
+                  "launches": out[backlog]["launches"]},
+         feed_ms={"median": pct(feed_ms, 0.5), "p99": pct(feed_ms, 0.99),
+                  "n": len(feed_ms)},
+         append_ms={"median": pct(append_ms, 0.5),
+                    "p99": pct(append_ms, 0.99), "n": len(append_ms)},
+         b1_launch=launch_line,
+         b1_bound_ms=max(launch_line["t_bytes"], launch_line["t_ops"]) * 1e3,
+         certifier_carried=sum(o["certified"] for o in out),
+         decided_sessions=sum(o["fell"] is not None for o in out),
+         escalated_sessions=escalated,
+         launches_after_decided=sum(o["after_decided"] for o in out),
+         final_flags_mismatched=mismatched, wrong_fall=wrong_fall,
+         verdicts_differ=differ, kernel_windows=sorted(by_w),
+         device=torch.cuda.get_device_name(dev), power=nvidia_smi_line())
+    if mismatched or wrong_fall or differ or \
+            any(o["after_decided"] for o in out) or \
+            out[backlog]["launches"] < 2 or \
+            any(out[j]["fell"] is None for j in corrupt):
+        raise AssertionError("stream: a final flag, an append where ok "
+                             "fell or a verdict differs, a session launched "
+                             "after it decided, a corrupted session never "
+                             "decided, or the backlog took one launch")
+    return dict(launch_line, launches=counted)
+
+
 def run_phases(dev, model, ptxas: dict, histories: list,
                synth_s: float) -> list:
     """Phases 3-30 of the full run, on the kernels `main` built;
@@ -4590,14 +5187,15 @@ def run_phases(dev, model, ptxas: dict, histories: list,
             # 8. invalid subset: guaranteed-invalid corruption (the bumped
             # read leaves the value domain), kernel vs plain vs host oracle
             rng = random.Random(SEED + 2)
-            bad = []
+            bad_north = []
             for h in histories[:N_INVALID]:
                 ops_, changed = corrupt_read(h, rng, VALUE_RANGE + 1)
                 if not changed:
                     raise AssertionError("a north-star history without an "
                                          "ok read")
-                bad.append(ops_)
-            phase_invalid(dev, model, bad, "dense", dense_plain, "invalid")
+                bad_north.append(ops_)
+            phase_invalid(dev, model, bad_north, "dense", dense_plain,
+                          "invalid")
 
             # 11. counter invalid subset: a read raised by 10^6 (beyond any
             # sum of the history's adds), kernel vs plain vs host oracle
@@ -4614,7 +5212,7 @@ def run_phases(dev, model, ptxas: dict, histories: list,
                           "counter_invalid")
 
             # 15. set invalid subset: kernel vs plain ladder vs host oracle
-            phase_set_invalid(dev, suites["set"][0])
+            bad_set = phase_set_invalid(dev, suites["set"][0])
 
             # 19. the 10-process counter histories beyond the mask cap,
             # under auto
@@ -4669,6 +5267,24 @@ def run_phases(dev, model, ptxas: dict, histories: list,
                                        ptxas["dense_scan"], one_shot=True,
                                        measure_chunk=True)}
         line["dense_scan_chunk"] = line["dense_scan"].pop("chunk")
+        untuned = {k: line["dense_scan"].pop(k)
+                   for k in ("check_s_best", "verdicts")}
+        untuned["chunk_launch"] = {k: v for k, v in
+                                   line["dense_scan_chunk"].items()
+                                   if k != "launches"}
+
+        # 6b. the main path with its launch plans: measured, then loaded,
+        # then on the batch with phase 8's corrupted rows
+        t0 = time.perf_counter()
+        tuned = phase_autotune_main(dev, model, histories, untuned,
+                                    bad_north)
+        tuned_launches = {"autotune_main": tuned["launches"]}
+        emit("autotune_main_summary", seconds=time.perf_counter() - t0)
+
+        # 6c. streaming sessions on the north-star histories
+        t0 = time.perf_counter()
+        stream = phase_stream(dev, histories)
+        emit("stream_summary", seconds=time.perf_counter() - t0)
 
         # 7. the card's busy share over one check, from a profiler trace
         phase_profile(dev, model, histories)
@@ -4705,6 +5321,12 @@ def run_phases(dev, model, ptxas: dict, histories: list,
                                           value_range=SET_VALUE_RANGE)
         line["sort_scan_chunk"] = line["sort_scan"].pop("chunk")
         fused_sort = line["sort_scan"].pop("fused")
+
+        # 14b. the set path with its launch plans (the sort ladder's)
+        t0 = time.perf_counter()
+        tuned_launches["autotune_set"] = phase_autotune_set(
+            dev, set_hs, bad_set)
+        emit("autotune_set_summary", seconds=time.perf_counter() - t0)
 
         # 17. suite configs 5 and 4, segmented and monolithic, on the card
         t0 = time.perf_counter()
@@ -4767,6 +5389,32 @@ def run_phases(dev, model, ptxas: dict, histories: list,
     line["mask_scan_chunk"] = dict(
         paths["counter_main"]["chunk"],
         launches=sum(x["chunk"]["launches"] for x in paths.values()))
+    # the chunk kernels' launches by path: the main paths' wavefront, the
+    # main path and the set path under their launch plans (autotune_main,
+    # autotune_set; samples included) and the streaming sessions (stream,
+    # B5 one row a launch)
+    for name in ("dense_scan_chunk", "sort_scan_chunk"):
+        x = line[name]
+        x["launches_by_path"] = {"wavefront": x["launches"],
+                                 **{path: n.get(name, 0) for path, n in
+                                    tuned_launches.items()}}
+    # the tuned launch: the main path's largest group under its plan
+    line["dense_scan_chunk"]["tuned_launch"] = {
+        k: tuned["tuned_launch"][k] for k in ("ms", "plain_ms", "t_bytes",
+                                              "t_ops", "max_abs_err",
+                                              "rows", "width", "plan")}
+    line["sort_scan_chunk"]["launches_by_path"]["stream"] = \
+        stream["launches"]
+    line["sort_scan_chunk"]["stream_launch"] = {
+        k: stream[k] for k in ("ms", "device_ms", "plain_ms", "t_bytes",
+                               "t_ops", "max_abs_err", "W", "C",
+                               "real_events")}
+    for name in ("dense_scan_chunk", "sort_scan_chunk"):
+        x = line[name]
+        x["launches"] = sum(x["launches_by_path"].values())
+        x["max_abs_err"] = max(x["max_abs_err"], *(
+            x.get(k, {}).get("max_abs_err", 0)
+            for k in ("stream_launch", "tuned_launch")))
     errs.update(election_safety=0)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -4787,6 +5435,9 @@ def run_phases(dev, model, ptxas: dict, histories: list,
             "library_ms": x.get("library_ms"),
             "device_ms": x.get("device_ms"),
             "chain_floor_ms": x.get("chain_floor_ms"),
+            "launches_by_path": x.get("launches_by_path"),
+            "stream_launch": x.get("stream_launch"),
+            "tuned_launch": x.get("tuned_launch"),
             "registers": rep["max_registers"],
             "spill_bytes": rep["spill_store_bytes"] +
             rep["spill_load_bytes"]})
@@ -4845,8 +5496,18 @@ def main(argv=None) -> int:
 
     # the phases that drive a kernel hold every row on its kernel's tier,
     # so they run with the lin fast path off, as the reference's test
-    # suite does; `lin_fastpath` runs the default knobs on its own
+    # suite does; `lin_fastpath` runs the default knobs on its own. The
+    # launch plans and the cycle-arm store are off too, so the phases
+    # measure the launches they always did (`autotune_main`,
+    # `autotune_set`, `lin_fastpath` and the default arms of
+    # `sequential_main` and `session_evidence` turn them on), and the
+    # store is a fresh directory of this run
     os.environ["JGRAFT_LIN_FASTPATH"] = "0"
+    os.environ["JGRAFT_AUTOTUNE"] = "0"
+    store = Path(__file__).resolve().parent / "build" / "chip_smoke_store"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    os.environ["JGRAFT_AUTOTUNE_STORE"] = str(store)
     dev = torch.device("cuda")
     model = CasRegister()
     stamp = toolchain_stamp()

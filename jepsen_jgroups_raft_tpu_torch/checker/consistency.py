@@ -1,8 +1,7 @@
 """Consistency rungs and the value-guided witness certifier.
 
-A copy of the reference's checker/consistency.py, less its
-`StreamingCertifier` (which comes with streaming sessions). Pure Python
-and numpy.
+A copy of the reference's checker/consistency.py, its streaming
+sessions' `StreamingCertifier` included. Pure Python and numpy.
 
 The packed event stream (history/packing.py) encodes ALL real-time
 precedence through FORCE placement — an op must linearize between its
@@ -476,6 +475,269 @@ def greedy_certify(enc: EncodedHistory, model,
     """Boolean view of :func:`certify_encoded` (True = sound VALID
     witness built, False = undecided)."""
     return certify_encoded(enc, model, budget=budget)[0]
+
+
+# ------------------------------------------------- resumable certifier
+
+
+class StreamingCertifier:
+    """Incremental twin of :func:`certify_encoded` for streaming
+    sessions, the reference's `StreamingCertifier`. `feed` consumes
+    settled event suffixes (the `IncrementalEncoder` output) and
+    advances the same witness construction, keeping the certifier's
+    carry — (state, done-set, pending, backtrack stack) — BETWEEN
+    appends, so a long-lived session's per-append cost is O(segment)
+    instead of a per-append restart's O(history). It sits beside
+    `CarriedScan`'s kernel carry; both are rebuilt by replaying a
+    session's segments through the same deterministic pipeline.
+
+    Differences from the one-shot scan, and why they are sound:
+
+      * ``op_forced`` is learned as FORCEs settle (the one-shot
+        pre-scans the whole stream). It only RANKS candidates
+        (will-be-forced before optional), so a late-learned force can
+        cost flips, never a wrong answer; the value-guide masks are
+        recomputed when an op's FORCE settles for the same reason.
+      * `certified` mid-stream means the settled PREFIX has a complete
+        witness, and the final `feed` (after the encoder's
+        end-of-history settle) certifies the whole history.
+      * Once undecided (flip budget spent, no restorable choice point)
+        the certifier is PERMANENTLY dead and the caller's kernel
+        carry takes over — it never un-decides, matching the one-shot
+        contract that undecided falls to the exact ladder.
+
+    The flip budget is length-scaled like the one-shot's
+    (`_effective_budget` over TOTAL settled events, re-resolved per
+    feed, so a growing session earns budget as it grows).
+
+    `_sweep` / `_candidates` / `_scan` mirror the one-shot's commit
+    rules and candidate ordering; a change to either must be made in
+    both. tests/test_torch_stream.py holds this class against the
+    reference's and against `certify_encoded` at random cuts. The
+    one-shot's `max_steps` abort budget is absent here: a feed's work
+    is already bounded by the segment plus the length-scaled flip
+    budget."""
+
+    def __init__(self, model, budget: Optional[int] = None):
+        from ..models.base import EncodedOp
+
+        self._EncodedOp = EncodedOp
+        self._model = model
+        self._step = model.step
+        self._readonly = frozenset(
+            getattr(model, "readonly_fcodes", ()) or ())
+        self._base_budget = budget
+        # op table / event tape (append-only across feeds)
+        self._ops: List[tuple] = []
+        self._op_forced: List[bool] = []
+        self._ev_ops: List[tuple] = []
+        self._opened_by: List[int] = [0]
+        self._active: dict = {}      # slot -> op id (spans feeds)
+        # value-guide masks (grown per op; falls back to lookahead)
+        self._guide_ok = (hasattr(model, "enable_values")
+                          and hasattr(model, "observe_values"))
+        self._dom: dict = {}
+        self._em: List[int] = []
+        self._om: List[int] = []
+        # the carry proper
+        self._state = model.init_state()
+        self._done = 0
+        self._pending: List[int] = []
+        self._stack: deque = deque(maxlen=_BACKTRACK_STACK_CAP)
+        self._pos = 0
+        self._flips = 0
+        self._dead = False
+
+    # ------------------------------------------------------ accessors
+
+    @property
+    def certified(self) -> bool:
+        """True while every settled event so far is covered by a
+        complete legal witness (sound VALID for the settled prefix)."""
+        return not self._dead
+
+    @property
+    def tier(self) -> Optional[str]:
+        """Decided-tier attribution: "greedy" while the first-choice
+        path carried, "backtrack" once any flip was spent; None once
+        undecided."""
+        if self._dead:
+            return None
+        return "greedy" if self._flips == 0 else "backtrack"
+
+    def carry_state(self) -> dict:
+        """The certifier's carry, for the resume-identity tests (a
+        resumed session's replay must land field-for-field here)."""
+        return {
+            "pos": self._pos,
+            "ops": len(self._ops),
+            "done": self._done,
+            "state": self._state,
+            "pending": tuple(self._pending),
+            "flips": self._flips,
+            "stack_depth": len(self._stack),
+            "dead": self._dead,
+        }
+
+    # ---------------------------------------------------------- guide
+
+    def _guide_add(self, k: int) -> None:
+        """(Re)compute op k's enable/observe masks — on OPEN, and again
+        when its FORCE settles (the hooks may key on `forced`)."""
+        if not self._guide_ok:
+            return
+        f, a, b = self._ops[k]
+        eo = self._EncodedOp(f, a, b, self._op_forced[k])
+        evs = self._model.enable_values(eo)
+        ovs = self._model.observe_values(eo)
+        if evs is None or ovs is None:
+            self._guide_ok = False
+            return
+        masks = [0, 0]
+        for j, vals in enumerate((evs, ovs)):
+            for v in vals:
+                if v not in self._dom:
+                    if len(self._dom) >= 63:
+                        self._guide_ok = False
+                        return
+                    self._dom[v] = len(self._dom)
+                masks[j] |= 1 << self._dom[v]
+        self._em[k], self._om[k] = masks
+
+    # ----------------------------------------------------------- scan
+
+    def feed(self, events) -> bool:
+        """Consume one settled suffix ([n, 5] int32 rows) and advance
+        the witness; returns `certified`."""
+        rows = np.asarray(events).tolist() if len(events) else []
+        for row in rows:
+            et, slot = row[0], row[1]
+            if et == EV_OPEN:
+                k = len(self._ops)
+                self._ops.append((row[2], row[3], row[4]))
+                self._op_forced.append(False)
+                self._em.append(0)
+                self._om.append(0)
+                self._active[slot] = k
+                self._ev_ops.append((EV_OPEN, k))
+                self._guide_add(k)
+            elif et == EV_FORCE:
+                k = self._active.pop(slot)
+                self._op_forced[k] = True
+                self._ev_ops.append((EV_FORCE, k))
+                self._guide_add(k)
+            else:
+                self._ev_ops.append((0, -1))
+            self._opened_by.append(
+                self._opened_by[-1] + (1 if et == EV_OPEN else 0))
+        if self._dead:
+            return False
+        return self._scan()
+
+    def _sweep(self, state, done, pending) -> int:
+        step, readonly, ops = self._step, self._readonly, self._ops
+        for k in pending:
+            if not (done >> k) & 1 and ops[k][0] in readonly \
+                    and step(state, *ops[k])[1]:
+                done |= 1 << k
+        return done
+
+    def _candidates(self, state, done, pending, e) -> list:
+        step, ops = self._step, self._ops
+        te = ops[e]
+        legal_e = step(state, *te)[1]
+        out = []
+        if legal_e:
+            out.append((-1, 0, 0, -1, None))
+        for k in pending:
+            if (done >> k) & 1 or k == e:
+                continue
+            s2, legal = step(state, *ops[k])
+            if not legal:
+                continue
+            if self._guide_ok and not (self._em[k] & self._om[e]):
+                enables = 1  # mask proves k exposes nothing e observes
+            else:
+                enables = 0 if step(s2, *te)[1] else 1
+            out.append((0, enables,
+                        0 if self._op_forced[k] else 1, k, k))
+        out.sort(key=lambda t: t[:4])
+        return [t[4] for t in out]
+
+    def _scan(self) -> bool:
+        """The certify_encoded main loop over the not-yet-consumed
+        tape suffix, reading/writing the instance carry."""
+        step, ops, ev_ops = self._step, self._ops, self._ev_ops
+        readonly, opened_by = self._readonly, self._opened_by
+        base = (self._base_budget if self._base_budget is not None
+                else greedy_backtrack_budget())
+        budget = _effective_budget(base, len(ev_ops))
+        state, done, pending = self._state, self._done, self._pending
+        stack, pos, flips = self._stack, self._pos, self._flips
+        n_ev = len(ev_ops)
+        ok = True
+        while pos < n_ev:
+            et, k = ev_ops[pos]
+            if et == EV_OPEN:
+                f, a, b = ops[k]
+                if f in readonly and step(state, f, a, b)[1]:
+                    done |= 1 << k
+                else:
+                    pending.append(k)
+                pos += 1
+                continue
+            if et != EV_FORCE or (done >> k) & 1:
+                pos += 1
+                continue
+            legal_k = step(state, *ops[k])[1]
+            choice = None
+            if legal_k:
+                if budget > 0 and any(not (done >> o) & 1
+                                      for o in pending):
+                    stack.append([pos, state, done, None, 1])
+            else:
+                cands = self._candidates(state, done, pending, k)
+                if cands:
+                    if len(cands) > 1 and budget > 0:
+                        stack.append([pos, state, done, cands, 1])
+                    choice = cands[0]
+                else:
+                    while stack:
+                        cp = stack[-1]
+                        if cp[3] is None:
+                            kc = ev_ops[cp[0]][1]
+                            pc = [o for o in range(opened_by[cp[0]])
+                                  if not (cp[2] >> o) & 1]
+                            cp[3] = self._candidates(cp[1], cp[2], pc,
+                                                     kc)
+                        if cp[4] < len(cp[3]):
+                            flips += 1
+                            if flips > budget:
+                                ok = False
+                                break
+                            pos, state, done = cp[0], cp[1], cp[2]
+                            choice = cp[3][cp[4]]
+                            cp[4] += 1
+                            k = ev_ops[pos][1]
+                            pending = [o for o in range(opened_by[pos])
+                                       if not (done >> o) & 1]
+                            break
+                        stack.pop()
+                    else:
+                        ok = False  # no restorable choice — undecided
+                    if not ok:
+                        break
+            commit = k if choice is None else choice
+            state = step(state, *ops[commit])[0]
+            done = self._sweep(state, done | (1 << commit), pending)
+            if choice is None:
+                pos += 1
+            pending = [o for o in pending if not (done >> o) & 1]
+        self._state, self._done, self._pending = state, done, pending
+        self._pos, self._flips = pos, flips
+        if not ok:
+            self._dead = True
+        return not self._dead
 
 
 # ------------------------------------------------------------ batch entry

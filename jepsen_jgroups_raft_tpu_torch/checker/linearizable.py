@@ -27,7 +27,10 @@ rung is undecided. Ladder rows report ``"kernel": "sort"``,
 ``"decided-tier": "sort"``. At the default ``JGRAFT_SCAN_CHUNK`` (128)
 the window groups and every rung run through the chunked wavefront
 (`schedule.run_chunked` over the kernels' chunk forms), as the
-reference's do, and chunked dense rows carry ``"chunked": True``;
+reference's do, and chunked dense rows carry ``"chunked": True``; there
+each window group and each rung asks the autotuner's plan store
+(checker/autotune.py) for its measured launch plan (chunk, macro cap),
+which loads a persisted plan or, for a large enough bucket, measures one;
 ``JGRAFT_SCAN_CHUNK=0`` selects the one-shot launches
 (`schedule.run_dense_groups`, `schedule.run_sort_rung`).
 
@@ -63,7 +66,9 @@ beyond the ladder).
 Knobs, with the reference's names and meanings: ``JGRAFT_LIN_FASTPATH``
 (0 turns the fast path off), ``JGRAFT_LIN_FASTPATH_ABORT`` (its per-event
 step budget), the gate's ``JGRAFT_LIN_FASTPATH_MIN_HIT`` / ``_MIN_OBS``,
-``JGRAFT_AUTOTUNE``, ``JGRAFT_AUTOTUNE_STORE``, ``JGRAFT_LINFP_DIR``, and
+``JGRAFT_AUTOTUNE`` (0: no plan, no gate), ``JGRAFT_AUTOTUNE_STORE``, the
+plan store's ``JGRAFT_AUTOTUNE_MIN_ROWS`` / ``_MIN_CELLS`` /
+``_SAMPLE_ROWS`` / ``_SAMPLES``, ``JGRAFT_LINFP_DIR``, and
 ``JGRAFT_SEGMENT`` (1/0 forces the long-history routing; unset, a CPU
 device routes nothing and the card follows `_segment_routing_on`); at
 the weak rungs ``JGRAFT_GREEDY_CERTIFY`` / ``JGRAFT_GREEDY_BACKTRACK``
@@ -604,9 +609,10 @@ def _dense_pass(encs, model, dev, fits, results, note: bool) -> list:
     """Run every dense-eligible history of `fits` through its group's
     CUDA kernel, domain or mask (or the kernel's plain version on a CPU
     device): through the chunked wavefront (`run_chunked`, rows stamped
-    ``"chunked": True``) when `scan_chunk()` > 0, else the one-shot
-    launches (`run_dense_groups`). Fills `results` for them; returns the
-    rows beyond both kinds' caps."""
+    ``"chunked": True``) when `scan_chunk()` > 0, each group under its
+    launch plan where `autotune.tuned_group_plan` gives one, else the
+    one-shot launches (`run_dense_groups`). Fills `results` for them;
+    returns the rows beyond both kinds' caps."""
     if not fits:
         return fits
     grouped, rest = dense_plans_grouped(model, [encs[i] for i in fits])
@@ -614,11 +620,22 @@ def _dense_pass(encs, model, dev, fits, results, note: bool) -> list:
     if not grouped:
         return rest
     pack = pack_macro_batch if macro_events_on() else pack_batch
+    chunked = scan_chunk() > 0
     triples = []
     for idxs, plan in grouped:
         sub = [fits[j] for j in idxs]
-        triples.append((sub, plan, pack([encs[i] for i in sub])))
-    if scan_chunk() > 0:
+        sub_encs = [encs[i] for i in sub]
+        # the group's launch plan (checker/autotune.py), on the wavefront
+        # only, as the reference's: a persisted plan loads, a large
+        # enough unplanned bucket measures once, anything else keeps the
+        # defaults; the plan's macro cap acts here, its chunk in
+        # build_dense_launches
+        tuned = (autotune.tuned_group_plan(model, plan, sub_encs, device=dev)
+                 if chunked else None)
+        triples.append((sub, plan,
+                        autotune.pack_group(sub_encs, tuned)
+                        if tuned is not None else pack(sub_encs), tuned))
+    if chunked:
         launches, subs = build_dense_launches(model, triples, device=dev)
         for sub, out in zip(subs, run_chunked(launches)):
             # each row reports its group's (overlapped) wall share
@@ -634,10 +651,11 @@ def _dense_pass(encs, model, dev, fits, results, note: bool) -> list:
         val_of=torch.from_numpy(plan.val_of).to(dev),
         n_events=torch.from_numpy(batch["n_events"]).to(dev),
         n_slots=plan.n_slots, macro_p=batch.get("macro_p"),
-        tag=plan.kernel_tag, kind=plan.kind) for _, plan, batch in triples]
+        tag=plan.kernel_tag, kind=plan.kind)
+        for _, plan, batch, _ in triples]
     run = run_dense_groups(launches, model)
     dt = run.wall_s / max(sum(len(t[0]) for t in triples), 1)
-    for (sub, _, _), ok, ln in zip(triples, run.ok, launches):
+    for (sub, _, _, _), ok, ln in zip(triples, run.ok, launches):
         for j, i in enumerate(sub):
             results[i] = _jx(VALID if ok[j] else INVALID, encs[i], dt,
                              kernel=ln.tag, note=note)
@@ -651,7 +669,9 @@ def _sort_pass(encs, model, dev, rows, results, n_configs=None,
     bucket (or the pinned `n_slots`), rungs SORT_LADDER (or the pinned
     `n_configs` alone); the rows that overflow go up a rung. Each rung
     is one `ChunkLaunch` (tag "sort") through the chunked wavefront when
-    `scan_chunk()` > 0, else one `run_sort_rung`; its rows are recorded
+    `scan_chunk()` > 0, under its launch plan where
+    `autotune.tuned_sort_plan` gives one, else one `run_sort_rung`; its
+    rows are recorded
     alike either way (no "chunked" stamp, as the reference's). Fills
     `results` for the rows it decides."""
     if not rows:
@@ -661,16 +681,25 @@ def _sort_pass(encs, model, dev, rows, results, n_configs=None,
     pack = pack_macro_batch if macro_events_on() else pack_batch
     remaining = rows
     for rung, C in enumerate(ladder):
-        batch = pack([encs[i] for i in remaining])
+        rung_encs = [encs[i] for i in remaining]
+        chunked = scan_chunk() > 0
+        # the rung's launch plan (family "sort", C in the signature), on
+        # the wavefront only, as the reference's
+        tuned = (autotune.tuned_sort_plan(model, rung_encs, C, W, device=dev)
+                 if chunked else None)
+        batch = (autotune.pack_group(rung_encs, tuned) if tuned is not None
+                 else pack(rung_encs))
         t0 = time.perf_counter()
-        if scan_chunk() > 0:
+        if chunked:
             init_fn, step_fn = make_sort_chunk_checker(
                 model, C, W, macro_p=batch.get("macro_p"))
+            e_sched = bucket_rows(batch["events"].shape[1], 32)
             [out] = run_chunked([ChunkLaunch(
                 events=batch["events"], n_events=batch["n_events"],
-                init_fn=init_fn, step_fn=step_fn,
-                e_sched=bucket_rows(batch["events"].shape[1], 32),
-                device=dev, tag="sort")])
+                init_fn=init_fn, step_fn=step_fn, e_sched=e_sched,
+                device=autotune.sort_rung_sharding(tuned) or dev, tag="sort",
+                chunk=(tuned.scan_chunk or max(e_sched, 1))
+                if tuned is not None else None)])
             ok, overflow = out.ok, out.overflow
         else:
             run = run_sort_rung(torch.from_numpy(batch["events"]).to(dev),

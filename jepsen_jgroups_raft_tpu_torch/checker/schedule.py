@@ -31,6 +31,11 @@ streams, or one rung of the sort ladder, then one synchronisation.
 `launch_dense_groups` is the launch half of `run_dense_groups`, which
 `parallel.mesh.check_batch_sharded` finalizes later (``defer=True``).
 
+A group's measured launch plan (checker/autotune.py) pins its launch's
+chunk in `build_dense_launches`. `CarriedScan` keeps one streamed row's
+sort carry across the appends of a streaming session, one B = 1 launch
+of the sort kernel's chunk form a span.
+
 The counters follow the reference's checker/schedule.py: per-tier
 decided rows and wall (`note_tier`, `consume_tiers`) and run counters
 (`consume_stats`, `snapshot_stats`; the wavefront's `chunks_run`,
@@ -464,11 +469,15 @@ class _GroupState:
 def build_dense_launches(model, groups, device=None):
     """The wavefront launch list of dense window groups, as the
     reference's `build_dense_launches`: groups are (rows, plan, batch)
-    with `rows` the caller's row ids, `plan` a DensePlan and `batch` the
-    group's pack_batch or pack_macro_batch dict. Largest group first;
-    the schedule covers the group's event length bucketed from 32
-    (`bucket_rows(E, 32)`), or exactly E past MERGE_MAX_EVENTS legacy
-    events, where the rows also stay in place (`exact_rows`). Returns
+    or (rows, plan, batch, tuned) with `rows` the caller's row ids,
+    `plan` a DensePlan, `batch` the group's pack_batch or
+    pack_macro_batch dict and `tuned` an optional checker/autotune.py
+    TunedPlan (its macro cap acted at pack time, `autotune.pack_group`;
+    its `scan_chunk` pins the launch's chunk here, 0 meaning one
+    whole-schedule span). Largest group first; the schedule covers the
+    group's event length bucketed from 32 (`bucket_rows(E, 32)`), or
+    exactly E past MERGE_MAX_EVENTS legacy events, where the rows also
+    stay in place (`exact_rows`) and a plan is ignored. Returns
     (launches, subs): subs[k] the row ids behind launches[k]."""
     from ..ops.dense_scan import MERGE_MAX_EVENTS, make_dense_chunk_checker
 
@@ -476,16 +485,20 @@ def build_dense_launches(model, groups, device=None):
     subs: list = []
     for grp in sorted(groups, key=lambda g: -len(g[0])):
         rows, plan, batch = grp[:3]
+        tuned = grp[3] if len(grp) > 3 else None
         e_len = batch["events"].shape[1]
         exact = batch.get("legacy_events", e_len) > MERGE_MAX_EVENTS
+        e_sched = e_len if exact else bucket_rows(e_len, 32)
         init_fn, step_fn = make_dense_chunk_checker(
             model, plan.kind, plan.n_slots, plan.n_states,
             macro_p=batch.get("macro_p"))
         launches.append(ChunkLaunch(
             events=batch["events"], n_events=batch["n_events"],
             init_fn=init_fn, step_fn=step_fn, val_of=plan.val_of,
-            e_sched=e_len if exact else bucket_rows(e_len, 32),
-            device=device, tag=plan.kernel_tag, exact_rows=exact))
+            e_sched=e_sched, device=device, tag=plan.kernel_tag,
+            exact_rows=exact,
+            chunk=(tuned.scan_chunk or max(e_sched, 1))
+            if tuned is not None and not exact else None))
         subs.append(list(rows))
     return launches, subs
 
@@ -702,3 +715,96 @@ def run_chunked(launches: List[ChunkLaunch],
                          kernel_ms=(sum(a.elapsed_time(b) for a, b in g.marks)
                                     if g.marks is not None else None))
             for g in groups]
+
+
+# ------------------------------------------------------- streaming carry
+
+
+#: Sentinel event budget for a stream carry: the session does not know
+#: its total event count, so `exhausted` (events left ≤ 0) must never
+#: fire — retirement is decided by the session (decided flag / finish).
+STREAM_EVENTS_SENTINEL = 1 << 30
+
+#: Events per carried launch while catching a backlog up (the per-append
+#: suffix is usually far smaller and rides one padded launch).
+STREAM_FEED_CHUNK = 1024
+
+
+class CarriedScan:
+    """Re-entrant chunk carry of ONE streamed history row, the
+    reference's `CarriedScan`.
+
+    The sort kernel's chunk form (`ops.linear_scan.make_sort_chunk_checker`:
+    a [1, L] int32 carry plus decided / exhausted / ok / overflow flags)
+    makes the scan re-enterable at any chunk boundary; this class keeps
+    that carry on its device ACROSS the appends of a streaming session.
+    Each `feed` advances the same scan steps the one-shot kernel would
+    run over the concatenated stream — a span's padding is EV_PAD rows,
+    which move `left` as the reference's do and nothing else — so after
+    the whole stream the (ok, overflow) pair equals the one-shot sort
+    scan's. `left` starts at STREAM_EVENTS_SENTINEL, so a row never
+    exhausts.
+
+    `ok` only falls, so the moment it is False the verdict (INVALID, or
+    with `overflow` escalate to the host) is final: `decided`, after
+    which `feed` launches nothing.
+
+    The kernel window is fixed at construction (`bucket_slots`, which
+    raises ValueError past MAX_SLOTS); a session whose window outgrows
+    it (`fits`) rebuilds a wider carry and re-feeds its stream.
+
+    Each launch is one row on `device` (the card unless the caller
+    passes the CPU, which runs the plain version): its span is copied
+    to the device, the chunk launched, and `ok` and `overflow` read back
+    — one host synchronisation a launch."""
+
+    def __init__(self, model, n_slots: int,
+                 n_configs: Optional[int] = None, device=None):
+        from ..ops.linear_scan import (DEFAULT_N_CONFIGS, bucket_slots,
+                                       make_sort_chunk_checker)
+
+        self.model = model
+        self.device = resolve_device(device)
+        self.n_configs = int(n_configs or DEFAULT_N_CONFIGS)
+        self.slots_cap = bucket_slots(max(int(n_slots), 1))
+        init_fn, self._step = make_sort_chunk_checker(
+            model, self.n_configs, self.slots_cap)
+        self.carry = init_fn(torch.tensor([STREAM_EVENTS_SENTINEL],
+                                          dtype=torch.int32,
+                                          device=self.device))
+        self.fed = 0          # events consumed (before padding)
+        self.launches = 0
+        self.ok = True
+        self.overflow = False
+
+    @property
+    def decided(self) -> bool:
+        """Frozen-verdict retirement: ~ok is final mid-stream."""
+        return not self.ok
+
+    def fits(self, n_slots: int) -> bool:
+        return int(n_slots) <= self.slots_cap
+
+    def feed(self, events: np.ndarray) -> None:
+        """Advance the carry over an event suffix ([n, 5] int32), in
+        launches of at most STREAM_FEED_CHUNK events, each padded to
+        its 32-row bucket. Stops (launches nothing more) the moment the
+        row decides: the rest of the suffix cannot change a frozen
+        verdict."""
+        n = int(events.shape[0])
+        lo = 0
+        while lo < n and not self.decided:
+            span = events[lo:lo + STREAM_FEED_CHUNK]
+            lo += span.shape[0]
+            padded = np.zeros((bucket_rows(span.shape[0], 32), 5),
+                              dtype=np.int32)
+            padded[:span.shape[0]] = span
+            ev = torch.from_numpy(padded[None]).to(self.device)
+            self.carry, _dec, _exh, ok, overflow = self._step(self.carry,
+                                                              ev)
+            # the per-launch host synchronisation
+            flags = torch.stack([ok, overflow]).cpu()
+            self.ok = bool(flags[0, 0])
+            self.overflow = bool(flags[1, 0])
+            self.launches += 1
+        self.fed += n

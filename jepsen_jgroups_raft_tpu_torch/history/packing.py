@@ -1,9 +1,10 @@
 """Pack an operation history into a fixed-shape int32 event tensor.
 
 A copy of the reference's host encoder (`jepsen_jgroups_raft_tpu/history/
-packing.py`), trimmed to what the port's main path runs: the encode
+packing.py`), trimmed to what the port's paths run: the encode
 (columnar path and dead-crashed-op prune included), batch packing (and
-its per-process shard packers), macro compaction and the bucket series.
+its per-process shard packers), macro compaction, the bucket series and
+the streaming sessions' `IncrementalEncoder`.
 Its output is byte-identical to the reference's (tests/test_torch_packing.py
 and tests/test_torch_mesh.py pin it), so the port's kernels consume
 exactly the streams the reference kernels do.
@@ -620,3 +621,274 @@ def pack_macro_batch_shard(
         "shard": (lo, hi),
         "n_rows_global": n_rows,
     }
+
+
+# ----------------------------------------------------- streaming encoder
+
+
+class IncrementalEncoder:
+    """Append-only twin of ``encode_history(..., prune=False)`` for
+    streaming sessions, the reference's `IncrementalEncoder`: history
+    rows arrive in real-time order across segment boundaries, and each
+    ``feed`` emits the newly SETTLED suffix of the event stream —
+    exactly the rows `encode_history` produces for the complete history,
+    in the same order, so a kernel carry advanced on the suffixes
+    (`checker.schedule.CarriedScan`) reaches the same state as one
+    uninterrupted scan.
+
+    Settlement: an op's OPEN row content depends on its completion (an
+    ok read encodes its observed value, a ``fail`` drops the op
+    entirely), so the event at history position p can only be emitted
+    once every invocation at position ≤ p has its completion RECORDED
+    somewhere in the accumulated history. Jepsen's runner records an
+    ``info`` row for crashed workers, so mid-run every invoke
+    eventually settles; invokes still outstanding at ``feed(...,
+    final=True)`` become crashed pairs — the same rule `pair_ops`
+    applies to a finished history. Settled events are FINAL: appending
+    rows appends events, never rewrites them (prefix stability:
+    tests/test_torch_stream.py pins the emitted stream to the one-shot
+    encode and to the reference's encoder at every cut).
+
+    Pruning is off by design: `_prune_dead_crashed` keys on global
+    observer structure that later appends can change. Pruning is
+    verdict-preserving in both directions (its docstring), so streamed
+    verdicts still match the pruned one-shot path.
+
+    Memory: only the UNSETTLED tail of rows is retained (bounded by the
+    live concurrency window in any real history); settled rows are
+    dropped as their events are emitted.
+    """
+
+    def __init__(self, model):
+        self.model = model
+        #: columnar settle: the settled-suffix emit batch-encodes each
+        #: settle's invokes through the model's columnar twin instead
+        #: of per-op `encode_pair` calls. Fixed at construction
+        #: (JGRAFT_ENCODE_VECTOR) and flipped off permanently if the
+        #: model has no columnar hook — the two paths store different
+        #: `_enc_of` payloads and must never mix mid-session. Emitted
+        #: streams are byte-identical either way.
+        self._vector = encode_vector_on()
+        self.consumed = 0   # history rows ingested
+        self.cut = 0        # rows settled (events emitted)
+        self.n_ops = 0      # encoded (kept) ops
+        self.n_slots = 0    # window high-water (= reference next_slot)
+        self.n_events = 0   # events emitted so far
+        self._tail: list = []      # Op rows at positions [cut, consumed)
+        self._pending: dict = {}   # process -> invoke position
+        self._comp: dict = {}      # invoke position -> completion Op
+        self._inv_of: dict = {}    # completion position -> invoke position
+        self._enc_of: dict = {}    # invoke position -> EncodedOp | None
+        self._free: list = []      # recyclable slots (min-heap)
+        self._slot_of: dict = {}   # invoke position -> slot
+        self._pid_of: dict = {}    # raw process -> dense id
+
+    @property
+    def unsettled(self) -> int:
+        """Rows ingested but not yet settled (the resident tail)."""
+        return self.consumed - self.cut
+
+    def validate(self, ops) -> list:
+        """Parse rows and check pairing against a scratch copy of the
+        pending set WITHOUT mutating the encoder — the same errors
+        `pair_ops_indexed` raises (double invoke, stray completion),
+        raised atomically so a rejected segment leaves the session
+        re-appendable. Returns the parsed Op rows."""
+        ops = [op if isinstance(op, Op) else Op.from_dict(op)
+               for op in ops]
+        scratch = set(self._pending)
+        for op in ops:
+            t = op.type
+            if t == "invoke":
+                if op.process in scratch:
+                    raise ValueError(
+                        f"process {op.process} invoked twice without "
+                        f"completing")
+                scratch.add(op.process)
+            elif op.is_completion():
+                if op.process not in scratch:
+                    raise ValueError(
+                        f"completion without invocation: process "
+                        f"{op.process}")
+                scratch.discard(op.process)
+            else:
+                raise ValueError(f"unknown op type: {t!r}")
+        return ops
+
+    def feed(self, ops, final: bool = False):
+        """Ingest history rows and emit the newly settled events.
+
+        Returns (events [n,5] int32, op_index [n] int32, proc [n]
+        int32) — empty arrays when nothing new settled. Raises
+        ValueError on malformed rows (see `validate`) without mutating
+        the encoder. ``final=True`` settles everything: outstanding
+        invokes become crashed pairs (`pair_ops`' end-of-history
+        rule)."""
+        ops = self.validate(ops)
+        for op in ops:
+            pos = self.consumed
+            self.consumed += 1
+            self._tail.append(op)
+            if op.type == "invoke":
+                self._pending[op.process] = pos
+            else:
+                ipos = self._pending.pop(op.process)
+                self._comp[ipos] = op
+                self._inv_of[pos] = ipos
+        if self._vector:
+            return self._settle_vector(final)
+        return self._settle(final)
+
+    def _settle_vector(self, final: bool):
+        """Columnar twin of `_settle`: the settled prefix's invoke rows
+        batch-encode through the model's
+        `encode_pairs_columnar` — one tight columnar pass instead of a
+        per-op `encode_pair` call with OpPair/EncodedOp construction —
+        then the slot/heap emission loop runs exactly like the scalar
+        path, so the emitted stream is byte-identical (differential-
+        pinned at random cuts). `_enc_of` stores the bare forced flag
+        here (True/False, None for dropped ops) — the only field the
+        completion branch reads — where the scalar path stores the
+        EncodedOp; the per-session `_vector` latch keeps the two
+        representations from ever mixing."""
+        advance = 0
+        for op in self._tail:
+            pos = self.cut + advance
+            if op.type == "invoke" and pos not in self._comp \
+                    and not final:
+                break  # completion not recorded yet: unsettled
+            advance += 1
+        empty = (np.empty((0, 5), dtype=np.int32),
+                 np.empty(0, dtype=np.int32),
+                 np.empty(0, dtype=np.int32))
+        if advance == 0:
+            return empty
+        pairs = []
+        # completion stream position per invoke position (the
+        # encode_pairs_columnar contract wants the COMPLETION's
+        # position in the pair tuple, like pair_ops_indexed emits —
+        # _inv_of maps completion pos -> invoke pos, so invert it;
+        # every recorded completion has an entry until the completion
+        # row itself settles, which is after this pass)
+        cpos_of = {ip: cp for cp, ip in self._inv_of.items()}
+        for j in range(advance):
+            op = self._tail[j]
+            if op.type == "invoke":
+                pos = self.cut + j
+                comp = self._comp.get(pos)
+                pairs.append((pos,
+                              -1 if comp is None else cpos_of[pos],
+                              op, comp))
+        cols = self.model.encode_pairs_columnar(pairs)
+        if cols is None:
+            # model without a columnar twin: latch the scalar path for
+            # the session's lifetime (nothing was stored vector-style
+            # yet — the scalar settle re-walks the untouched tail)
+            self._vector = False
+            return self._settle(final)
+        fs, as_, bs, forced, ips, _cps = cols
+        kept = {ip: (int(f), int(a), int(b), bool(fo))
+                for ip, f, a, b, fo in zip(ips, fs, as_, bs, forced)}
+
+        rows: list = []
+        op_idx: list = []
+        procs: list = []
+        for j in range(advance):
+            op = self._tail[j]
+            pos = self.cut + j
+            if op.type == "invoke":
+                ent = kept.get(pos)
+                self._enc_of[pos] = ent if ent is None else ent[3]
+                if ent is not None:
+                    f, a, b, fo = ent
+                    if fo and pos not in self._comp:
+                        raise ValueError(
+                            f"model {type(self.model).__name__} encoded "
+                            f"a pair with no completion as forced "
+                            f"(invoke index {op.index})")
+                    if self._free:
+                        slot = heapq.heappop(self._free)
+                    else:
+                        slot = self.n_slots
+                        self.n_slots += 1
+                    self._slot_of[pos] = slot
+                    rows.append((EV_OPEN, slot, f, a, b))
+                    op_idx.append(op.index if op.index >= 0 else pos)
+                    procs.append(self._pid_of.setdefault(
+                        op.process, len(self._pid_of)))
+                    self.n_ops += 1
+            else:
+                ipos = self._inv_of.pop(pos)
+                self._comp.pop(ipos, None)
+                encF = self._enc_of.pop(ipos, None)
+                if encF is True:
+                    slot = self._slot_of.pop(ipos)
+                    rows.append((EV_FORCE, slot, 0, 0, 0))
+                    op_idx.append(op.index if op.index >= 0 else pos)
+                    procs.append(self._pid_of.setdefault(
+                        op.process, len(self._pid_of)))
+                    heapq.heappush(self._free, slot)
+                elif encF is False:
+                    # optional (info) op: the slot never recycles
+                    self._slot_of.pop(ipos, None)
+        del self._tail[:advance]
+        self.cut += advance
+        self.n_events += len(rows)
+        events = np.asarray(rows, dtype=np.int32).reshape(-1, 5)
+        return (events,
+                np.asarray(op_idx, dtype=np.int32),
+                np.asarray(procs, dtype=np.int32))
+
+    def _settle(self, final: bool):
+        rows: list = []
+        op_idx: list = []
+        procs: list = []
+        advanced = 0
+        for op in self._tail:
+            pos = self.cut + advanced
+            if op.type == "invoke":
+                if pos not in self._comp and not final:
+                    break  # completion not recorded yet: unsettled
+                comp = self._comp.get(pos)
+                enc = self.model.encode_pair(OpPair(op, comp))
+                self._enc_of[pos] = enc
+                if enc is not None:
+                    if enc.forced and comp is None:
+                        raise ValueError(
+                            f"model {type(self.model).__name__} encoded "
+                            f"a pair with no completion as forced "
+                            f"(invoke index {op.index})")
+                    if self._free:
+                        slot = heapq.heappop(self._free)
+                    else:
+                        slot = self.n_slots
+                        self.n_slots += 1
+                    self._slot_of[pos] = slot
+                    rows.append((EV_OPEN, slot, enc.f, enc.a, enc.b))
+                    op_idx.append(op.index if op.index >= 0 else pos)
+                    procs.append(self._pid_of.setdefault(
+                        op.process, len(self._pid_of)))
+                    self.n_ops += 1
+            else:
+                ipos = self._inv_of.pop(pos)
+                self._comp.pop(ipos, None)
+                enc = self._enc_of.pop(ipos, None)
+                if enc is not None and enc.forced:
+                    slot = self._slot_of.pop(ipos)
+                    rows.append((EV_FORCE, slot, 0, 0, 0))
+                    op_idx.append(op.index if op.index >= 0 else pos)
+                    procs.append(self._pid_of.setdefault(
+                        op.process, len(self._pid_of)))
+                    heapq.heappush(self._free, slot)
+                elif enc is not None:
+                    # optional (info) op: the slot never recycles — the
+                    # op stays a linearization candidate forever.
+                    self._slot_of.pop(ipos, None)
+            advanced += 1
+        del self._tail[:advanced]
+        self.cut += advanced
+        self.n_events += len(rows)
+        events = np.asarray(rows, dtype=np.int32).reshape(-1, 5)
+        return (events,
+                np.asarray(op_idx, dtype=np.int32),
+                np.asarray(procs, dtype=np.int32))

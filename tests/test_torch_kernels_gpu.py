@@ -1967,3 +1967,116 @@ def test_fused_counts_keep_the_scans_registers(cuda, lib, stem, regs,
     assert most == regs if lib != "sort_scan" else most <= regs
     for name, r in {**plain, **counting}.items():
         assert r["spill_bytes"] == 0 and r["stack_bytes"] == 0, name
+
+
+# ------------------------------------------------ the streaming carry
+
+
+@pytest.mark.parametrize("kind", ["register", "set", "list-append"])
+def test_carried_scan_on_card_matches_plain(cuda, kind):
+    """`CarriedScan` on the card (B5's chunk entry point, one row a
+    launch) against the same feeds on the plain version: flags and
+    launches equal after every feed, the carry bitwise equal wherever it
+    is defined (`carry_mismatch`: all of it while the row is ok); a corrupted
+    register stream decides at the same feed on both and launches
+    nothing after it."""
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import CarriedScan
+
+    rng = random.Random(len(kind))
+    model = MODELS[{"register": "cas-register"}.get(kind, kind)]()
+    kw = {"value_range": 32} if kind == "set" else {}
+    for trial in range(3):
+        h = list(random_valid_history(rng, kind, n_ops=200, n_procs=5,
+                                      crash_p=0.05, max_crashes=2, **kw))
+        reads = [j for j, op in enumerate(h) if op.type == "ok"
+                 and op.f == "read" and op.value is not None]
+        if kind == "register" and trial == 2 and reads:
+            j = reads[len(reads) // 2]
+            h[j] = h[j].replace(value=h[j].value + 1000)
+        enc = encode_history(h, model, prune=False)
+        card = CarriedScan(model, enc.n_slots, n_configs=64, device=cuda)
+        plain = CarriedScan(model, enc.n_slots, n_configs=64, device="cpu")
+        lo = 0
+        while lo < enc.n_events:
+            hi = min(enc.n_events, lo + rng.randrange(1, 120))
+            ls.reset_launch_counts()
+            before = card.launches
+            card.feed(enc.events[lo:hi])
+            plain.feed(enc.events[lo:hi])
+            # the card's launches went through the kernel's wrapper
+            assert ls.chunk_launch_counts()["sort_scan_chunk"] == \
+                card.launches - before
+            assert (card.ok, card.overflow, card.launches) == \
+                (plain.ok, plain.overflow, plain.launches)
+            # every field where both are defined: a decided row's slot
+            # state is not (the kernel stops at its first dead FORCE)
+            assert carry_mismatch(ls.sort_carry_layout(card.slots_cap, 64),
+                                  card.carry.cpu(), plain.carry) == 0
+            lo = hi
+        if kind == "register" and trial == 2:
+            assert card.decided and not card.ok
+
+
+def _list_append_with_bad_reads():
+    """48 list-append histories (the sort ladder's rows), a quarter with
+    one ok read made to observe a list it never held."""
+    rng = random.Random(61)
+    hs = []
+    for i in range(48):
+        h = list(random_valid_history(rng, "list-append", n_ops=120,
+                                      n_procs=5, crash_p=0.05,
+                                      max_crashes=2))
+        reads = [j for j, op in enumerate(h) if op.type == "ok"
+                 and op.f == "read"]
+        if i % 4 == 0 and reads:
+            j = rng.choice(reads)
+            v = list(h[j].value)
+            h[j] = h[j].replace(value=v[:-1] if v else [1])
+        hs.append(h)
+    return hs
+
+
+@pytest.mark.parametrize("family", ["dense", "sort"])
+def test_tuned_check_histories_on_card_matches_untuned(cuda, tmp_path,
+                                                       monkeypatch, family):
+    """`check_histories` on the card with plans measured into a fresh
+    store (the gates lowered so that every window group or ladder rung
+    measures), then loaded in a fresh process, gives the untuned check's
+    result dicts row for row: register groups (the dense family), and
+    list-append rows with bad reads (the sort ladder, every row on its
+    tier, the plans applied the sort family's)."""
+    from jepsen_jgroups_raft_tpu_torch.checker import autotune
+
+    if family == "dense":
+        hs = []
+        for cfg in ("W5_S4", "W8_S4"):
+            hs += CONFIGS[cfg][0]()
+        model = CasRegister()
+    else:
+        hs, model = _list_append_with_bad_reads(), MODELS["list-append"]()
+
+    def strip(rs):
+        return [{k: v for k, v in r.items() if k != "time-s"} for r in rs]
+
+    monkeypatch.setenv("JGRAFT_AUTOTUNE", "0")
+    base = strip(check_histories(hs, model, device=cuda))
+    if family == "sort":
+        assert {r["valid?"] for r in base} == {True, False}
+        assert {r.get("decided-tier") for r in base} == {"sort"}
+    monkeypatch.setenv("JGRAFT_AUTOTUNE", "1")
+    monkeypatch.setenv("JGRAFT_AUTOTUNE_STORE", str(tmp_path))
+    monkeypatch.setenv("JGRAFT_AUTOTUNE_MIN_ROWS", "8")
+    monkeypatch.setenv("JGRAFT_AUTOTUNE_MIN_CELLS", "64")
+    autotune.reset_for_tests()
+    try:
+        assert strip(check_histories(hs, model, device=cuda)) == base
+        assert autotune.snapshot_counters()["plans_measured"] >= 1
+        autotune.reset_for_tests()
+        assert strip(check_histories(hs, model, device=cuda)) == base
+        c = autotune.snapshot_counters()
+        assert c["plans_loaded"] >= 1 and c["plans_measured"] == 0
+        if family == "sort":
+            assert {e["signature"][0] for e in autotune.applied_log()} \
+                == {"sort"}
+    finally:
+        autotune.reset_for_tests()
