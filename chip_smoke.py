@@ -378,6 +378,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -5144,6 +5145,405 @@ def phase_stream(dev, histories) -> dict:
     return dict(launch_line, launches=counted)
 
 
+# ------------------------------------------------------- the service
+
+#: service: the north-star histories the main arm submits, the corrupted
+#: rows beside them (the first SERVICE_CORRUPT_EACH of phase 8's register
+#: rows and of phase 15's set rows), suite config 2's counter histories
+#: (the mask kernel's share), histories a request, and tenant threads
+#: (half send binary frames, half JSON)
+SERVICE_VALID = 512
+SERVICE_CORRUPT_EACH = 32
+SERVICE_COUNTER = 64
+SERVICE_PER_REQUEST = 8
+SERVICE_TENANTS = 8
+#: the stream arm: sessions over HTTP (the last SERVICE_STREAM_CORRUPT of
+#: them on corrupted histories) at STREAM_APPEND_ROWS rows an append
+SERVICE_STREAMS = 16
+SERVICE_STREAM_CORRUPT = 4
+#: the default-knob arm: valid and corrupted histories
+SERVICE_DEFAULT_VALID = 64
+SERVICE_DEFAULT_CORRUPT = 16
+#: the restart arm: admitted requests a restart replays
+SERVICE_RESTART = 32
+#: the longest wait for one request or one session of the phase
+SERVICE_WAIT_S = 300.0
+
+
+def service_requests(workload: str, hists: list, expected: list) -> list:
+    """(workload, op-dict rows of each history, expected result of each)
+    per request of SERVICE_PER_REQUEST histories."""
+    rows = [[op.to_dict() for op in h] for h in hists]
+    n = SERVICE_PER_REQUEST
+    return [(workload, rows[i:i + n], expected[i:i + n])
+            for i in range(0, len(rows), n)]
+
+
+def service_wait(cl, rec: dict) -> dict:
+    """Poll a submitted request's record until it is terminal."""
+    deadline = time.monotonic() + SERVICE_WAIT_S
+    while rec.get("status") not in ("done", "failed", "cancelled"):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"service: request {rec['id']} still "
+                                 f"{rec.get('status')}")
+        rec = cl.result(rec["id"], wait_s=10.0)
+    return rec
+
+
+def service_verdicts_match(rec: dict, expected: list, tiers: bool) -> bool:
+    """Whether a request's results equal the one-shot results, by
+    verdict (and by decided tier with `tiers`)."""
+    got = rec.get("results") or []
+    if len(got) != len(expected):
+        return False
+    keys = ("valid?", "decided-tier") if tiers else ("valid?",)
+    return all(g.get(k) == e.get(k) for g, e in zip(got, expected)
+               for k in keys)
+
+
+def service_tenants(port: int, requests: list, n_tenants: int) -> tuple:
+    """Submit `requests` from n_tenants threads, each with its own
+    ServiceClient (even tenants binary frames, odd JSON), each request
+    waited for before the tenant sends its next (closed loop). Returns
+    (records in request order, client-side latencies in ms, wall s)."""
+    from jepsen_jgroups_raft_tpu_torch.service import ServiceClient
+
+    recs: list = [None] * len(requests)
+    lat: list = [None] * len(requests)
+    errors: list = []
+
+    def tenant(k: int) -> None:
+        cl = ServiceClient(f"http://127.0.0.1:{port}", timeout=60.0)
+        try:
+            for i in range(k, len(requests), n_tenants):
+                workload, rows, _ = requests[i]
+                t0 = time.perf_counter()
+                rec = cl.submit(rows, workload=workload,
+                                binary=k % 2 == 0)
+                recs[i] = service_wait(cl, rec)
+                lat[i] = (time.perf_counter() - t0) * 1e3
+        except BaseException as e:  # noqa: BLE001 — raised after the join
+            errors.append(e)
+        finally:
+            cl.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=tenant, args=(k,))
+               for k in range(n_tenants)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return recs, lat, wall
+
+
+def service_streams(port: int, sessions: list) -> tuple:
+    """One thread a session over HTTP, STREAM_APPEND_ROWS rows an
+    append. Returns (final records, append latencies in ms, the
+    sessions whose violation surfaced on an append before finish)."""
+    from jepsen_jgroups_raft_tpu_torch.service import ServiceClient
+
+    finals: list = [None] * len(sessions)
+    lat: list = []
+    mid = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def run(s: int) -> None:
+        cl = ServiceClient(f"http://127.0.0.1:{port}", timeout=60.0)
+        try:
+            sess = cl.stream(workload="register")
+            ops = [op.to_dict() for op in sessions[s]]
+            seen = False
+            for lo in range(0, len(ops), STREAM_APPEND_ROWS):
+                t0 = time.perf_counter()
+                st = sess.append(ops[lo:lo + STREAM_APPEND_ROWS])
+                dt = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    lat.append(dt)
+                seen = seen or st.get("violation") is not None
+            finals[s] = sess.finish()
+            if seen:
+                with lock:
+                    mid.append(s)
+        except BaseException as e:  # noqa: BLE001 — raised after the join
+            errors.append(e)
+        finally:
+            cl.close()
+
+    threads = [threading.Thread(target=run, args=(s,))
+               for s in range(len(sessions))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return finals, lat, sorted(mid)
+
+
+def service_degraded(recs) -> int:
+    """Results among `recs` that carry a platform-degraded stamp."""
+    return sum(1 for rec in recs for r in rec.get("results") or []
+               if "platform-degraded" in r)
+
+
+def phase_service(dev, histories, bad_north, bad_set, counters) -> dict:
+    """6d. The checking service on the card (`service/`): tenants submit
+    over HTTP, the scheduler coalesces their requests into
+    `check_encoded` batches on the card and demultiplexes the verdicts.
+
+    Main arm (lin fast path off): SERVICE_TENANTS tenant threads, each
+    with its own ServiceClient, half sending binary frames and half JSON,
+    submit SERVICE_VALID north-star histories, the corrupted register
+    and set rows and SERVICE_COUNTER counter histories,
+    SERVICE_PER_REQUEST histories a request. Stream arm: SERVICE_STREAMS
+    sessions over HTTP. Default arm: SERVICE_DEFAULT_VALID valid and
+    SERVICE_DEFAULT_CORRUPT corrupted histories at the default knobs (the
+    fast lane on). Restart arm: SERVICE_RESTART requests admitted to a
+    service that never runs them; a second service on a copy of its
+    journal (the journal as a crash leaves it: submit records, no
+    terminal marker) replays them.
+
+    Fails if a main-arm verdict or decided tier differs from
+    `check_histories` on the same histories on this card, if a stream's
+    or a default-arm verdict differs from it, if a corrupted row is not
+    INVALID, if no batch coalesced two requests, if B1's or B5's
+    launches over the main arm (B5's over the stream arm) are 0, if a
+    result is degraded or a batch is, if the binary and JSON fingerprints
+    of the same histories differ, or if a replayed verdict differs from
+    its first answer. The launch counts are set to 0 just before each
+    arm and read just after. Returns each arm's launches by kernel."""
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+    from jepsen_jgroups_raft_tpu_torch.models import (CasRegister, Counter,
+                                                      GSet)
+    from jepsen_jgroups_raft_tpu_torch.service import (CheckingService,
+                                                       ServiceClient,
+                                                       serve_in_thread)
+
+    reg, gset, ctr = CasRegister(), GSet(), Counter()
+    valid = [list(h) for h in histories[:SERVICE_VALID]]
+    bad_reg = bad_north[:SERVICE_CORRUPT_EACH]
+    bad_s = bad_set[:SERVICE_CORRUPT_EACH]
+    cnt = [list(h) for h in counters[:SERVICE_COUNTER]]
+    t0 = time.perf_counter()
+    one_reg = check_histories(valid + bad_reg, reg, device=dev)
+    one_set = check_histories(bad_s, gset, device=dev)
+    one_ctr = check_histories(cnt, ctr, device=dev)
+    oneshot_s = time.perf_counter() - t0
+    requests = (service_requests("register", valid + bad_reg, one_reg)
+                + service_requests("set", bad_s, one_set)
+                + service_requests("counter", cnt, one_ctr))
+    n_valid_req = SERVICE_VALID // SERVICE_PER_REQUEST
+    corrupt_req = set(range(n_valid_req, n_valid_req + 2 * (
+        SERVICE_CORRUPT_EACH // SERVICE_PER_REQUEST)))
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-service-"))
+    out: dict = {}
+    try:
+        # ---- main arm
+        svc = CheckingService(journal_dir=str(tmp / "journal"), device=dev)
+        httpd, port, _ = serve_in_thread(svc)
+        try:
+            reset_all_launch_counts()
+            recs, lat, wall = service_tenants(port, requests,
+                                              SERVICE_TENANTS)
+            main_launches = {k: v for k, v in all_launch_counts().items()
+                             if v}
+            cl = ServiceClient(f"http://127.0.0.1:{port}")
+            workload, rows, _ = requests[0]
+            fp = {lane: cl.submit(rows, workload=workload,
+                                  binary=lane == "binary")["fingerprint"]
+                  for lane in ("binary", "json")}
+            st = cl.stats()
+            cl.close()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            svc.shutdown()
+        per_batch = [r["service-stats"]["batched_requests"] for r in recs]
+        rows_batch = [r["service-stats"]["batch_rows"] for r in recs]
+        # each batch's check wall (its `check_encoded` on the card and the
+        # demultiplexing), once a batch: the rest of the arm's wall is
+        # HTTP, JSON, encode, journal and the linger
+        batch_walls = {r["service-stats"]["batch_seq"]:
+                       r["service-stats"]["batch_wall_s"] for r in recs}
+        bad_match = [i for i, (rec, req) in enumerate(zip(recs, requests))
+                     if not service_verdicts_match(rec, req[2], True)]
+        corrupt_ok = all(r["valid?"] is False for i in corrupt_req
+                         for r in recs[i]["results"])
+        n_hist = sum(len(r[1]) for r in requests)
+        b1 = main_launches.get("dense_scan", 0) + main_launches.get(
+            "dense_scan_chunk", 0)
+        b5 = main_launches.get("sort_scan", 0) + main_launches.get(
+            "sort_scan_chunk", 0)
+        emit("service_main", requests=len(requests), histories=n_hist,
+             batches=st["batches"], batched_requests_max=max(per_batch),
+             batched_requests_mean=st["batch_occupancy_mean"],
+             rows_per_batch_max=max(rows_batch),
+             rows_per_batch_mean=st["batch_rows"] / max(st["batches"], 1),
+             hist_per_s=n_hist / wall, wall_s=wall,
+             batch_wall_sum_s=sum(batch_walls.values()),
+             batch_wall_max_s=max(batch_walls.values()),
+             oneshot_check_s=oneshot_s,
+             latency_p50_ms=pct(lat, 0.5), latency_p99_ms=pct(lat, 0.99),
+             server_p50_latency_s=st.get("p50_latency_s"),
+             server_p99_latency_s=st.get("p99_latency_s"),
+             launches=main_launches, degraded_batches=st["degraded_batches"],
+             degraded_results=service_degraded(recs),
+             decided_tier=st["decided_tier"], mismatched=bad_match,
+             fingerprints_equal=fp["binary"] == fp["json"],
+             journal_append_p50_ms=st.get("journal_append_p50_ms"))
+        if bad_match:
+            raise AssertionError(f"service_main: requests {bad_match} "
+                                 "differ from check_histories")
+        if not corrupt_ok:
+            raise AssertionError("service_main: a corrupted row passed")
+        if max(per_batch) < 2:
+            raise AssertionError("service_main: no batch coalesced two "
+                                 "requests")
+        if b1 <= 0 or b5 <= 0:
+            raise AssertionError(f"service_main: B1 {b1} / B5 {b5} "
+                                 "launches")
+        if st["degraded_batches"] or service_degraded(recs):
+            raise AssertionError("service_main: a degraded batch")
+        if fp["binary"] != fp["json"]:
+            raise AssertionError("service_main: binary and JSON "
+                                 "fingerprints differ")
+        out["main"] = main_launches
+
+        # ---- stream arm
+        rng = random.Random(SEED + 70)
+        n_ok = SERVICE_STREAMS - SERVICE_STREAM_CORRUPT
+        sessions = [list(h) for h in
+                    histories[SERVICE_VALID:SERVICE_VALID + n_ok]]
+        sessions += bad_north[SERVICE_CORRUPT_EACH:SERVICE_CORRUPT_EACH
+                              + SERVICE_STREAM_CORRUPT]
+        sessions = [record_crashes(ops) for ops in sessions]
+        one_stream = check_histories(sessions, reg, device=dev)
+        svc = CheckingService(device=dev)
+        httpd, port, _ = serve_in_thread(svc)
+        try:
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            finals, alat, mid = service_streams(port, sessions)
+            stream_wall = time.perf_counter() - t0
+            stream_launches = {k: v for k, v in
+                               all_launch_counts().items() if v}
+            sst = svc.stats()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            svc.shutdown()
+        differ = [s for s, (f, o) in enumerate(zip(finals, one_stream))
+                  if f["valid?"] != o["valid?"]]
+        emit("service_stream", sessions=len(sessions),
+             appends=len(alat), append_p50_ms=pct(alat, 0.5),
+             append_p99_ms=pct(alat, 0.99), decided_mid_stream=len(mid),
+             mid_stream_sessions=mid, wall_s=stream_wall,
+             launches=stream_launches, differ=differ,
+             stream_violations=sst["stream_violations"])
+        if differ:
+            raise AssertionError(f"service_stream: sessions {differ} "
+                                 "differ from the one-shot check")
+        if any(finals[s]["valid?"] is not False
+               for s in range(n_ok, len(sessions))):
+            raise AssertionError("service_stream: a corrupted session "
+                                 "passed")
+        if stream_launches.get("sort_scan_chunk", 0) <= 0:
+            raise AssertionError("service_stream: B5 never launched")
+        out["stream"] = stream_launches
+
+        # ---- default arm: the fast lane on
+        lo = SERVICE_VALID + n_ok
+        dvalid = [list(h) for h in
+                  histories[lo:lo + SERVICE_DEFAULT_VALID]]
+        c0 = SERVICE_CORRUPT_EACH + SERVICE_STREAM_CORRUPT
+        dbad = bad_north[c0:c0 + SERVICE_DEFAULT_CORRUPT]
+        one_def = check_histories(dvalid + dbad, reg, device=dev)
+        dreqs = service_requests("register", dvalid + dbad, one_def)
+
+        def default_arm():
+            svc = CheckingService(device=dev)
+            httpd, port, _ = serve_in_thread(svc)
+            try:
+                reset_all_launch_counts()
+                recs, _, wall = service_tenants(port, dreqs,
+                                                SERVICE_TENANTS)
+                launches = {k: v for k, v in all_launch_counts().items()
+                            if v}
+                return recs, wall, svc.stats(), launches
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                svc.shutdown()
+
+        drecs, dwall, dst, out["default"] = with_env(
+            "JGRAFT_LIN_FASTPATH", None, default_arm)
+        dbad_req = range(SERVICE_DEFAULT_VALID // SERVICE_PER_REQUEST,
+                         len(dreqs))
+        dmis = [i for i, (rec, req) in enumerate(zip(drecs, dreqs))
+                if not service_verdicts_match(rec, req[2], False)]
+        emit("service_default", requests=len(dreqs),
+             fastlane_requests=dst["fastpath_requests"],
+             batches=dst["batches"], wall_s=dwall,
+             decided_tier=dst["decided_tier"], mismatched=dmis,
+             launches=out["default"],
+             degraded_batches=dst["degraded_batches"])
+        if dmis or any(r["valid?"] is not False for i in dbad_req
+                       for r in drecs[i]["results"]):
+            raise AssertionError("service_default: a verdict differs or a "
+                                 "corrupted row passed")
+        if dst["degraded_batches"] or service_degraded(drecs):
+            raise AssertionError("service_default: a degraded batch")
+
+        # ---- restart arm
+        rreqs = requests[:SERVICE_RESTART]
+        held = CheckingService(journal_dir=str(tmp / "held"), device=dev,
+                               autostart=False)
+        ids = [held.submit(rows, workload=w).id for w, rows, _ in rreqs]
+        # the journal as a crash right now leaves it: every submit record
+        # fsync'd, no terminal marker (the shutdown below writes FAILED
+        # markers into the original, as a clean stop does)
+        shutil.copytree(tmp / "held", tmp / "crashed")
+        held.shutdown()
+        t0 = time.perf_counter()
+        reset_all_launch_counts()
+        again = CheckingService(journal_dir=str(tmp / "crashed"),
+                                device=dev)
+        try:
+            replayed = []
+            for rid in ids:
+                r = again.get(rid)
+                if r is None or not r.wait(SERVICE_WAIT_S):
+                    raise AssertionError(f"service_restart: request {rid} "
+                                         "not replayed")
+                replayed.append(r)
+            out["restart"] = {k: v for k, v in all_launch_counts().items()
+                              if v}
+            rst = again.stats()
+        finally:
+            again.shutdown()
+        restart_s = time.perf_counter() - t0
+        rmis = [i for i, (r, req) in enumerate(zip(replayed, rreqs))
+                if not (r.replayed and service_verdicts_match(
+                    {"results": r.results}, req[2], True))]
+        emit("service_restart", admitted=len(ids),
+             replayed=rst["recovered_requests"], seconds=restart_s,
+             mismatched=rmis, launches=out["restart"],
+             degraded_batches=rst["degraded_batches"])
+        if rst["recovered_requests"] != len(ids) or rmis:
+            raise AssertionError("service_restart: a request was not "
+                                 "replayed, or its verdict differs from "
+                                 "its first answer")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def run_phases(dev, model, ptxas: dict, histories: list,
                synth_s: float) -> list:
     """Phases 3-30 of the full run, on the kernels `main` built;
@@ -5286,6 +5686,13 @@ def run_phases(dev, model, ptxas: dict, histories: list,
         stream = phase_stream(dev, histories)
         emit("stream_summary", seconds=time.perf_counter() - t0)
 
+        # 6d. the checking service on the card: tenants over HTTP, the
+        # stream sessions, the default knobs and a restart
+        t0 = time.perf_counter()
+        service = phase_service(dev, histories, bad_north, bad_set,
+                                suites["counter"][0])
+        emit("service_summary", seconds=time.perf_counter() - t0)
+
         # 7. the card's busy share over one check, from a profiler trace
         phase_profile(dev, model, histories)
 
@@ -5389,6 +5796,8 @@ def run_phases(dev, model, ptxas: dict, histories: list,
     line["mask_scan_chunk"] = dict(
         paths["counter_main"]["chunk"],
         launches=sum(x["chunk"]["launches"] for x in paths.values()))
+    line["mask_scan_chunk"]["launches_by_path"] = {
+        "wavefront": line["mask_scan_chunk"]["launches"]}
     # the chunk kernels' launches by path: the main paths' wavefront, the
     # main path and the set path under their launch plans (autotune_main,
     # autotune_set; samples included) and the streaming sessions (stream,
@@ -5405,11 +5814,29 @@ def run_phases(dev, model, ptxas: dict, histories: list,
                                               "rows", "width", "plan")}
     line["sort_scan_chunk"]["launches_by_path"]["stream"] = \
         stream["launches"]
+    # the checking service's launches (all four of its arms), each
+    # under the kernel that made them: a chunk form's on its chunk line
+    # (summed from launches_by_path below), any other kernel's added to
+    # its line's launches beside those of its other paths
+    service_launches: dict = {}
+    for counts in service.values():
+        for k, n in counts.items():
+            service_launches[k] = service_launches.get(k, 0) + n
+    for name, n in sorted(service_launches.items()):
+        x = line.get(name)
+        if x is None:
+            raise AssertionError(f"service: launches of {name}, which "
+                                 "the kernels line does not list")
+        if not name.endswith("_chunk"):
+            x.setdefault("launches_by_path",
+                         {"other_paths": x["launches"]})
+            x["launches"] += n
+        x["launches_by_path"]["service"] = n
     line["sort_scan_chunk"]["stream_launch"] = {
         k: stream[k] for k in ("ms", "device_ms", "plain_ms", "t_bytes",
                                "t_ops", "max_abs_err", "W", "C",
                                "real_events")}
-    for name in ("dense_scan_chunk", "sort_scan_chunk"):
+    for name in ("dense_scan_chunk", "mask_scan_chunk", "sort_scan_chunk"):
         x = line[name]
         x["launches"] = sum(x["launches_by_path"].values())
         x["max_abs_err"] = max(x["max_abs_err"], *(

@@ -17,13 +17,16 @@ list-append histories, both through the closure kernels
 (`ops/csrc/cycle_closure.cu`). Recorded runs are re-checked from the
 store (`checker/recorded.py`, the `check` CLI), multi-key histories per
 key in one batch (`checker/independent.py`), and election safety has a
-batched check on the card (`ops/csrc/election_safety.cu`).
+batched check on the card (`ops/csrc/election_safety.cu`). The checking
+service (`service/`, graftd, single replica) batches many tenants'
+submissions onto the card over HTTP.
 
 Layout (mirrors the reference's module paths):
   platform.py          env knobs, `resolve_device`, `toolchain_stamp`
   history/             op records, encoding, macro packing, synthesis
   core/store.py        the store's on-disk format (the reference's)
-  cli.py, __main__.py  `python -m jepsen_jgroups_raft_tpu_torch check`
+  cli.py, __main__.py  `python -m jepsen_jgroups_raft_tpu_torch check`,
+                       `... serve-checker`
   models/              the model protocol, register, counter, queue,
                        set, list-append, the election-safety models
   ops/kernel_ir.py     caps, macro row layout, plain-torch step parts
@@ -40,7 +43,10 @@ Layout (mirrors the reference's module paths):
                        tiers, the consistency rungs and the cycle tier,
                        the anomaly rung, counterexamples, tier stats,
                        the per-key checker, recorded runs, the counter's
-                       interval tier, the set and queue analyses
+                       interval tier, the set and queue analyses, the
+                       perf and stats checkers
+  service/             graftd: admission, frames, journal, scheduler,
+                       streams, the daemon, HTTP front and client
   interop.py           reading reference encodings, plans and graphs by
                        duck type
 

@@ -10,8 +10,9 @@ of the tests (`brute`), and tier attribution (`schedule`); the
 streaming carry (`schedule.CarriedScan`,
 `consistency.StreamingCertifier`); the per-key independent checker
 (`independent`), the re-check of recorded runs (`recorded`), the
-counter's interval tier (`counter_bounds`) and the set and queue
-analyses (`set_queue`)."""
+counter's interval tier (`counter_bounds`), the set and queue
+analyses (`set_queue`), and the run-level perf and stats checkers
+(`perf`, `stats`)."""
 
 from .base import Checker, compose, VALID, INVALID, UNKNOWN  # noqa: F401
 from .wgl_cpu import check_encoded_cpu, CpuCheckResult  # noqa: F401
@@ -25,3 +26,5 @@ from .independent import (  # noqa: F401
     IndependentLinearizable,
     split_by_key,
 )
+from .stats import StatsChecker, UnhandledExceptionsChecker  # noqa: F401
+from .perf import PerfChecker  # noqa: F401

@@ -825,6 +825,103 @@ def _jx(valid, enc: EncodedHistory, secs: float,
     }
 
 
+def check_encoded_host(enc: EncodedHistory, model, witness: bool = False,
+                       max_cpu_configs: Optional[int]
+                       = DEFAULT_MAX_CPU_CONFIGS,
+                       consistency: str = "linearizable",
+                       lin_fastpath: Optional[bool] = None) -> dict:
+    """Host-only verdict ladder for one encoded history, the
+    reference's: the capped CPU frontier first, the budgeted DFS when
+    the frontier reports UNKNOWN — never a kernel launch, and no device
+    is resolved. This is the checking service's degrade path (it
+    re-checks a batch through it when the device pass raises mid-check)
+    and its watchdog's forced host retry. A weaker ``consistency`` rung
+    certifies and relaxes exactly like `check_encoded`, with the cycle
+    tier's host arm; at the linearizable rung the same certify fast
+    path runs first unless ``lin_fastpath=False``."""
+    if enc.n_events == 0:
+        note_tier("trivial")
+        return {"valid?": VALID, "algorithm": "trivial", "op-count": 0,
+                "decided-tier": "trivial"}
+    consistency = _normalize_rung(consistency)
+    if consistency != "linearizable":
+        from .consistency import apply_rung
+        from .cycle import cycle_tier_on, find_cycles
+
+        orig = enc
+
+        def annotate_session(res: dict) -> dict:
+            # the sc-refuted evidence the device path attaches to every
+            # session-rung result; best effort, host arm only
+            if consistency == "session" and cycle_tier_on():
+                try:
+                    [c] = find_cycles([orig], model, kernel=False)
+                except Exception:
+                    c = None
+                if c is not None and "cycle" in c:
+                    res["sc-refuted"] = True
+                    res["sc-cycle"] = c["cycle"]
+                elif c is not None and "skipped-size" in c:
+                    res["cycle-skipped-size"] = c["skipped-size"]
+            return res
+
+        [enc], [certified], [tier] = apply_rung([enc], model, consistency)
+        if certified:
+            note_tier(tier)
+            return annotate_session(
+                {"valid?": VALID, "algorithm": "greedy-witness",
+                 "op-count": enc.n_ops,
+                 "concurrency-window": enc.n_slots,
+                 "decided-tier": tier,
+                 "consistency": consistency})
+        if consistency == "sequential" and cycle_tier_on():
+            [c] = find_cycles([orig], model, kernel=False)
+            if c is not None and "cycle" in c:
+                note_tier("cycle")
+                return {"valid?": INVALID, "algorithm": "cycle",
+                        "op-count": orig.n_ops,
+                        "concurrency-window": orig.n_slots,
+                        "decided-tier": "cycle",
+                        "cycle": c["cycle"],
+                        "exact-sc-refutation": True,
+                        "consistency": consistency}
+    if consistency == "linearizable" and lin_fastpath is not False \
+            and lin_fastpath_on():
+        from .consistency import certify_encoded
+
+        sig = autotune.lin_fastpath_sig(type(model).__name__,
+                                        enc.n_events)
+        if autotune.lin_fastpath_route(sig):
+            abort = lin_abort_steps()
+            t0 = time.perf_counter()
+            ok, tier, _ = certify_encoded(
+                enc, model,
+                max_steps=abort * max(enc.n_events, 1) if abort
+                else None)
+            dt = time.perf_counter() - t0
+            autotune.lin_fastpath_observe(sig, rows=1, hits=int(ok),
+                                          wall_s=dt)
+            _fp_bump(rows_scanned=1, rows_certified=int(ok),
+                     events_scanned=enc.n_events, certify_wall_s=dt)
+            if ok:
+                note_tier(tier + "@lin", wall_s=dt)
+                return {"valid?": VALID, "algorithm": "greedy-witness",
+                        "op-count": enc.n_ops,
+                        "concurrency-window": enc.n_slots,
+                        "decided-tier": tier + "@lin"}
+        else:
+            _fp_bump(rows_gated=1)
+    r = _check_cpu(enc, model, witness, max_cpu_configs)
+    if r.get("valid?") is UNKNOWN:
+        r2 = _check_dfs(enc, model, witness, max_steps=DEFAULT_DFS_BUDGET)
+        if r2["valid?"] is not UNKNOWN:
+            r = r2
+    if consistency != "linearizable":
+        r = annotate_session(r)
+        r["consistency"] = consistency
+    return r
+
+
 def _check_dfs(enc: EncodedHistory, model, witness: bool = False,
                max_steps: Optional[int] = None, note: bool = True) -> dict:
     if enc.n_events == 0:

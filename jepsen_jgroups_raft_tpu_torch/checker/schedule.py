@@ -177,12 +177,30 @@ def note_tier(tier: str, rows: int = 1, wall_s: float = 0.0) -> None:
             e[1] += wall_s
 
 
+def _format_tiers(raw: dict) -> dict:
+    return {k: {"rows": v[0], "wall_s": v[1]} for k, v in raw.items()}
+
+
+def snapshot_tiers(scoped: bool = False) -> dict:
+    """Copy of the per-tier decided counters, ``{tier: {"rows",
+    "wall_s"}}`` (non-destructive). `scoped=True` reads the innermost
+    scope owned by this thread, like `snapshot_stats`."""
+    with _STATS_LOCK:
+        if scoped and _SCOPES:
+            tid = threading.get_ident()
+            for s, o in reversed(_SCOPES):
+                if o == tid:
+                    return _format_tiers(s.get("tiers", {}))
+            return _format_tiers(_SCOPES[-1][0].get("tiers", {}))
+        return _format_tiers(_TIERS)
+
+
 def consume_tiers() -> dict:
     """Return and reset the process-wide per-tier counters,
     ``{tier: {"rows", "wall_s"}}``."""
     global _TIERS
     with _STATS_LOCK:
-        out = {k: {"rows": v[0], "wall_s": v[1]} for k, v in _TIERS.items()}
+        out = _format_tiers(_TIERS)
         _TIERS = {}
         return out
 

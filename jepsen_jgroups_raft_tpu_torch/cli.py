@@ -1,7 +1,11 @@
-"""Command-line entry point of the port: re-check recorded runs.
+"""Command-line entry point of the port: re-check recorded runs, and
+serve the checking service.
 
     python -m jepsen_jgroups_raft_tpu_torch check PATH... [--workload W]
         [--algorithm A] [--device D]
+    python -m jepsen_jgroups_raft_tpu_torch serve-checker [--host H]
+        [--port P] [--store DIR] [--queue N] [--batch-wait-ms MS]
+        [--workers N] [--device D]
 
 The reference's `check` subcommand (`jepsen_jgroups_raft_tpu/cli.py`
 `cmd_check`): PATH is a run dir (it holds history.jsonl) or a store root,
@@ -12,8 +16,14 @@ Exit status: 0 when every run is valid, 1 when one is not (or is
 unknown), 2 when no run dir is found, 3 when the device asked for (by
 default the card) is not there. ``--device`` takes the place of the
 reference's ``--platform``: the card unless ``--device cpu`` is given;
-without a card the command does not fall back to the CPU. The harness
-subcommands (test, serve, search) are not ported yet.
+without a card the command does not fall back to the CPU.
+
+``serve-checker`` is the reference's (`cmd_serve_checker`): graftd
+(`service/`) in the foreground, on the card unless ``--device cpu``;
+it exits 3 when the device asked for is not there. The reference's
+``--cluster-dir`` / ``--replica-id`` are not offered: the cluster tier
+is not ported. The harness subcommands (test, serve, search) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -68,6 +78,27 @@ def cmd_check(args) -> int:
     return 0 if summary["valid?"] is True else 1
 
 
+def cmd_serve_checker(args) -> int:
+    """graftd: the always-on multi-tenant checking daemon — queued
+    admission, cross-request batching over the chunked scan on the
+    card, the host-ladder degrade arm. Trace records land under
+    ``--store``."""
+    from .platform import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"serve-checker: {e}", file=sys.stderr)
+        return 3
+    from .service.http import serve_checker
+    return serve_checker(store_root=args.store, host=args.host,
+                         port=args.port, queue_capacity=args.queue,
+                         batch_wait=(args.batch_wait_ms / 1000.0
+                                     if args.batch_wait_ms is not None
+                                     else None),
+                         n_workers=args.workers, device=device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="jepsen_jgroups_raft_tpu_torch",
@@ -84,6 +115,27 @@ def main(argv=None) -> int:
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the kernels' plain versions on the host)")
     c.set_defaults(fn=cmd_check)
+    sc = sub.add_parser("serve-checker",
+                        help="graftd: always-on multi-tenant checking "
+                             "daemon (HTTP+JSON, cross-request batching)")
+    sc.add_argument("--store", default="store",
+                    help="trace-record and journal root")
+    sc.add_argument("--host", default="0.0.0.0")
+    sc.add_argument("--port", type=int, default=8091)
+    sc.add_argument("--queue", type=int, default=None,
+                    help="admission queue capacity "
+                         "(default: JGRAFT_SERVICE_QUEUE or 64)")
+    sc.add_argument("--batch-wait-ms", type=int, default=None,
+                    help="batch-formation linger "
+                         "(default: JGRAFT_SERVICE_BATCH_WAIT_MS or 50)")
+    sc.add_argument("--workers", type=int, default=None,
+                    help="worker shards on the device, each on a CUDA "
+                         "stream of its own "
+                         "(default: JGRAFT_SERVICE_WORKERS or 1)")
+    sc.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the kernels' plain versions on the host)")
+    sc.set_defaults(fn=cmd_serve_checker)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -153,6 +153,14 @@ def _source(name: str):
     return CSRC / f"{stem}.cu", list(flags)
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library that did not build (no nvcc, a compile error)
+    or did not load. Its own class so that the checking service's
+    degrade arm, which re-checks a failing batch on the host, lets it
+    through: a missing kernel fails the request, it is never hidden
+    behind a host verdict."""
+
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas resource report) of each build made by this
@@ -180,8 +188,9 @@ def _start(name: str):
         return None
     nvcc = nvcc_path()
     if nvcc is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH); the port's CUDA kernels cannot build")
+        raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc "
+                               "on PATH); the port's CUDA kernels cannot "
+                               "build")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
     cu, flags = _source(name)
@@ -219,8 +228,8 @@ def build(names: Iterable[str]) -> float:
             out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: concurrent builds agree
         if errors:
-            raise RuntimeError("CUDA kernel build failed\n" +
-                               "\n".join(errors))
+            raise KernelBuildError("CUDA kernel build failed\n" +
+                                   "\n".join(errors))
     return time.perf_counter() - t0
 
 
@@ -233,7 +242,11 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_target(name)))
+            try:
+                lib = ctypes.CDLL(str(_target(name)))
+            except OSError as e:
+                raise KernelBuildError(
+                    f"kernel library {name} did not load: {e}") from e
             for fn, (restype, argtypes) in SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.restype = restype

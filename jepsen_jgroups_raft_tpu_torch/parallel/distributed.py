@@ -183,6 +183,20 @@ def maybe_init_distributed(device=None) -> bool:
     return True
 
 
+def shutdown_distributed() -> None:
+    """Tear the default process group down, if it is up: a barrier, so
+    that no rank leaves while another still exchanges through it, then
+    `destroy_process_group`; the store and device chosen at init are
+    forgotten. A process that returns with its group still up can abort
+    at interpreter exit."""
+    if is_initialized():
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
+    _STATE.clear()
+
+
 def is_initialized() -> bool:
     """Whether the default process group is up."""
     import torch.distributed as dist

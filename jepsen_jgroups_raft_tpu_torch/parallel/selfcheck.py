@@ -19,7 +19,8 @@ empty), and with `--global` counts the register rows and a counter batch of the
 same shape with `distributed.check_batch_global`. The last line is
 ``SELFCHECK {json}``: the verdicts, the kernel tags of the rank's rows
 and the counts. Exit 0 iff the process group came up and every check
-returned.
+returned; the process group is torn down (a barrier, then
+`destroy_process_group`) before `main` returns.
 """
 
 from __future__ import annotations
@@ -89,6 +90,16 @@ def main(argv=None) -> int:
         print("selfcheck: no cluster (torchrun's environment is absent "
               "or wrong)", file=sys.stderr)
         return 2
+    try:
+        out = _run(args)
+    finally:
+        distributed.shutdown_distributed()
+    print("SELFCHECK " + json.dumps(out), flush=True)
+    return 0
+
+
+def _run(args) -> dict:
+    """Every check of `main` on this rank; the result line's object."""
     dev = distributed.rank_device()
     model = CasRegister()
     hs = seeded_batch(args.seed, args.histories, args.ops, args.procs,
@@ -121,8 +132,7 @@ def main(argv=None) -> int:
             "register": distributed.check_batch_global(model, reg),
             "counter": distributed.check_batch_global(Counter(), counter)}
     out["seconds"] = time.perf_counter() - t0
-    print("SELFCHECK " + json.dumps(out), flush=True)
-    return 0
+    return out
 
 
 if __name__ == "__main__":

@@ -1,0 +1,215 @@
+"""Admission control: bounded queue with explicit backpressure + the
+fingerprint result cache.
+
+The queue is the service's ONLY elastic buffer, and it is deliberately
+small (`JGRAFT_SERVICE_QUEUE`, default 64 requests): a checking daemon
+that buffers unboundedly converts overload into an OOM of the host that
+also owns the device mesh. Past capacity, admission fails loudly with a
+`retry-after` estimate derived from observed service time — the client
+retries, the daemon never falls over (the reject-with-retry-after
+stance of every serving stack the batching scheduler borrows from;
+PAPERS.md Orca/vLLM lineage).
+
+The cache maps a submission fingerprint (content hash over the packed
+event tensors — service/request.py) to its verdict list, LRU-bounded.
+Identical resubmissions are a real production pattern for a checker
+(CI re-runs, retry storms after a client timeout): they complete at
+admission time without touching the queue or the mesh.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import OrderedDict
+from typing import Callable, List, Optional
+
+from ..platform import env_int
+from .request import CheckRequest
+
+#: Default queue capacity (requests, not rows).
+DEFAULT_QUEUE_CAP = 64
+
+
+def admit_frame(payload) -> CheckRequest:
+    """Binary-lane admission: decode a submit frame's zero-copy
+    tensor views and normalize them into a CheckRequest. The
+    fingerprint is re-derived server-side over the received bytes
+    (`request.admit_encoded`) — the lying-client argument lives there.
+    Raises `frame.FrameError` (a ValueError → HTTP 400) on malformed
+    frames, ValueError on unknown workloads/rungs exactly like the
+    JSON path's `admit`."""
+    from .frame import KIND_SUBMIT, FrameError, decode_frame
+    from .request import admit_encoded
+
+    fr = decode_frame(payload)
+    if getattr(fr, "labels", None) is None:
+        raise FrameError(f"expected a submit frame (kind {KIND_SUBMIT}); "
+                         "got a stream segment")
+    return admit_encoded(
+        workload=fr.workload, labels=fr.labels, encs=fr.encs,
+        algorithm=fr.algorithm, deadline_ms=fr.deadline_ms,
+        priority=fr.priority, consistency=fr.consistency,
+        claimed_fingerprint=fr.fingerprint)
+
+
+def queue_capacity() -> int:
+    """Resolved admission-queue bound (JGRAFT_SERVICE_QUEUE; parsed
+    defensively like every other env gate — garbage warns and keeps
+    the default, a zero/negative value clamps to 1)."""
+    return env_int("JGRAFT_SERVICE_QUEUE", DEFAULT_QUEUE_CAP, minimum=1)
+
+
+class QueueFull(Exception):
+    """Admission rejected: the queue is at capacity. `retry_after_s` is
+    the daemon's service-time-based estimate of when a slot frees."""
+
+    def __init__(self, depth: int, retry_after_s: float):
+        super().__init__(
+            f"admission queue full ({depth} pending); "
+            f"retry in ~{retry_after_s:.1f}s")
+        self.depth = depth
+        self.retry_after_s = retry_after_s
+
+
+class ServiceStopped(RuntimeError):
+    """Submission after shutdown: the daemon will never drain it. The
+    queue itself enforces this (`close()` → `put` raises) so the check
+    and the insert are one atomic step under the queue lock — a racing
+    shutdown between a daemon-level flag check and the put cannot
+    strand a request in a drained queue."""
+
+
+class AdmissionQueue:
+    """Bounded FIFO-arrival store of pending requests; ordering policy
+    lives in the scheduler (it selects by effective deadline), this
+    class owns capacity, wakeups, and cancelled-entry pruning."""
+
+    def __init__(self, capacity: Optional[int] = None,
+                 on_prune: Optional[Callable[[CheckRequest], None]] = None):
+        self.capacity = capacity if capacity is not None else queue_capacity()
+        self._pending: List[CheckRequest] = []  # guarded_by(_cond)
+        self._cond = threading.Condition()
+        self._closed = False  # guarded_by(_cond)
+        #: called (outside the lock) for each cancelled entry pruned out.
+        self._on_prune = on_prune
+
+    @property
+    def depth(self) -> int:
+        with self._cond:
+            return len(self._pending)
+
+    def put(self, req: CheckRequest, retry_after_s: float) -> None:
+        """Admit, or raise QueueFull (caller-computed estimate) /
+        ServiceStopped (queue closed by shutdown — checked under the
+        same lock as the insert, so no put can land after the drain)."""
+        with self._cond:
+            if self._closed:
+                raise ServiceStopped("admission queue is closed")
+            if len(self._pending) >= self.capacity:
+                raise QueueFull(len(self._pending), retry_after_s)
+            self._pending.append(req)
+            self._cond.notify_all()
+
+    def close(self) -> None:
+        """Refuse all future puts (shutdown). The drain that follows is
+        then complete: nothing can slip in after it."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    def reopen(self) -> None:
+        """Accept puts again (daemon restart via `start()`)."""
+        with self._cond:
+            self._closed = False
+
+    def remove(self, req: CheckRequest) -> bool:
+        """Pull a specific request back out (cancellation while queued).
+        True when it was still pending — the caller owns finalizing it."""
+        with self._cond:
+            for i, r in enumerate(self._pending):
+                if r is req:
+                    del self._pending[i]
+                    return True
+        return False
+
+    def take(self, chooser: Callable[[List[CheckRequest]],
+                                     List[CheckRequest]],
+             timeout: float) -> List[CheckRequest]:
+        """Block up to `timeout` for `chooser` to select a non-empty
+        batch from the pending snapshot; selected requests are removed
+        atomically. Cancelled entries — and already-terminal ones (the
+        stale twin of a watchdog requeue whose other copy finished
+        first) — are pruned (and reported via on_prune) before every
+        selection, so neither ever reaches execution."""
+        deadline = time.monotonic() + timeout
+        while True:
+            pruned: List[CheckRequest] = []
+            with self._cond:
+                keep = []
+                for r in self._pending:
+                    (pruned if r.cancelled.is_set() or r.terminal
+                     else keep).append(r)
+                self._pending = keep
+                chosen = chooser(list(self._pending)) if self._pending else []
+                for r in chosen:
+                    self._pending.remove(r)
+                if not chosen:
+                    remaining = deadline - time.monotonic()
+                    if remaining > 0 and not pruned:
+                        self._cond.wait(remaining)
+            for r in pruned:
+                if self._on_prune is not None:
+                    self._on_prune(r)
+            if chosen or time.monotonic() >= deadline:
+                return chosen
+
+    def requeue(self, reqs: List[CheckRequest]) -> None:
+        """Put popped-but-unfinished requests back (worker-death
+        recovery). Capacity is NOT re-enforced: these rows were already
+        admitted once, and dropping them on a crash is the exact loss
+        mode the supervisor exists to prevent."""
+        with self._cond:
+            # Identity-deduped: a watchdog strike can requeue a request
+            # whose strike-one copy is still sitting in the queue.
+            self._pending[:0] = [r for r in reqs
+                                 if not r.cancelled.is_set()
+                                 and not r.terminal
+                                 and all(r is not p
+                                         for p in self._pending)]
+            self._cond.notify_all()
+
+
+class ResultCache:
+    """Thread-safe LRU of fingerprint → per-unit result list. Only
+    clean (non-degraded) verdicts are stored: a degraded run's results
+    carry a `platform-degraded` stamp that must describe THAT run, not
+    replay into future submissions checked on a healthy platform."""
+
+    def __init__(self, capacity: Optional[int] = None):
+        self.capacity = (capacity if capacity is not None
+                         else env_int("JGRAFT_SERVICE_CACHE", 256,
+                                      minimum=0))
+        self._lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()  # guarded_by(_lock)
+
+    def get(self, fingerprint: str) -> Optional[List[dict]]:
+        with self._lock:
+            results = self._entries.get(fingerprint)
+            if results is None:
+                return None
+            self._entries.move_to_end(fingerprint)
+            return [dict(r) for r in results]
+
+    def put(self, fingerprint: str, results: List[dict]) -> None:
+        if self.capacity <= 0:
+            return
+        with self._lock:
+            self._entries[fingerprint] = [dict(r) for r in results]
+            self._entries.move_to_end(fingerprint)
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)

@@ -1,0 +1,791 @@
+"""Thin HTTP client for graftd — stdlib http.client, JSON in/out (the
+reference's `service/client.py`; it speaks to either package's daemon).
+
+The tenant-side counterpart of service/http.py: tests, chip_smoke.py's
+service phase, and any external submitter use this instead of
+hand-rolling requests.
+
+Connection reuse: calls keep-alive their
+connection per (thread, replica) and reuse it across submits, polls,
+and retries — at wire-speed ingest rates the TCP handshake per call is
+a measurable tax (the `conn_opened`/`conn_reused` counters are the
+A/B evidence). The daemon speaks HTTP/1.1 persistent
+connections already; a STALE kept-alive socket (daemon restarted
+between calls) is retried once on a fresh connection without consuming
+the caller's attempt budget, so restart-survival is as good as the old
+connection-per-call stance. ``JGRAFT_CLIENT_KEEPALIVE=0`` restores
+that stance exactly (the A/B's other arm).
+
+Binary ingest: ``submit(..., binary=True)`` runs
+the pure `encode_history` LOCALLY and ships the packed int32 tensors
+as one `service/frame.py` columnar frame — no JSON op serialization,
+no server-side encode. `stream(..., binary=True)` does the same
+per-segment with a client-owned `IncrementalEncoder`. The server
+re-derives the fingerprint over the received bytes either way, so a
+corrupt client harms only its own verdict. Same-host producers can
+point `base_url` at ``unix:/path/to/graftd.sock`` (the daemon's
+JGRAFT_SERVICE_UDS listener) and skip the TCP stack entirely.
+
+Retry discipline: submission is IDEMPOTENT server-side — a
+resubmitted fingerprint attaches to the live request or hits the result
+cache instead of double-checking — so the client can safely retry the
+failure modes a durable daemon actually produces: 429 backpressure
+(honoring the daemon's Retry-After), 503 while a restart is in flight
+(same), and connection-level failures (daemon SIGKILL'd mid-call; the
+request may or may not have been journaled — resubmitting is safe
+either way, which is the whole point of idempotency). Backoff is capped
+exponential with full jitter and a max-attempts cap; callers that want
+the old single-shot behavior pass ``max_attempts=1``.
+
+Cluster routing: pass ``replicas=[url…]`` and the client
+routes across the fleet — affinity-first (rendezvous hash over the
+submission payload, so identical resubmissions land on the replica
+whose caches already hold the verdict), least-loaded fallback (a
+replica that refused or failed is deprioritized until its advertised
+retry-after elapses), and failover retry that is safe because
+submission is idempotent and verdicts live in the shared store. Two
+rules are deliberately CLUSTER-GLOBAL, not per replica: ``max_attempts``
+caps the total tries across all replicas (N replicas must not multiply
+the retry budget into a fleet-wide storm), and a Retry-After is a floor
+across replicas (a shedding replica answers with the CLUSTER's best
+hint, so hopping to the next replica before it elapses just burns an
+attempt on the same full cluster). A dead replica's connection error,
+by contrast, fails over to the next replica immediately — liveness
+probing is not load backoff. ``/result`` fails over on 404 too: after a
+journal handoff the request lives on the surviving replica that
+adopted it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import random
+import socket
+import threading
+import time
+from collections import OrderedDict
+from http.client import HTTPConnection, HTTPException
+from typing import List, Optional, Sequence
+
+from ..platform import env_int
+
+#: Connection-level failures safe to retry once submission is
+#: idempotent (refused/reset/timeout — the daemon-restart signatures).
+RETRYABLE_CONN_ERRORS = (ConnectionError, HTTPException, TimeoutError,
+                         OSError)
+
+#: HTTP statuses that carry a retry_after_s hint and mean "try later".
+RETRYABLE_STATUSES = (429, 503)
+
+#: Content-Type of binary columnar frames (mirrors service/http.py —
+#: not imported: the client must stay importable without dragging the
+#: daemon stack in).
+FRAME_CONTENT_TYPE = "application/x-jgraft-frame"
+
+
+def client_keepalive() -> bool:
+    """JGRAFT_CLIENT_KEEPALIVE gate (default on; 0 restores the
+    connection-per-call client — the A/B arm)."""
+    return env_int("JGRAFT_CLIENT_KEEPALIVE", 1, minimum=0) != 0
+
+
+class _UDSConnection(HTTPConnection):
+    """http.client over an AF_UNIX socket — the client half of the
+    daemon's same-host lane (`service/http.py` `_UnixHTTPServer`). The
+    Host header is a dummy: HTTP routing over a unix socket is by path,
+    not name."""
+
+    def __init__(self, path: str, timeout=None):
+        super().__init__("localhost", timeout=timeout)
+        self._uds_path = path
+
+    def connect(self):
+        self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        if self.timeout is not None:
+            self.sock.settimeout(self.timeout)
+        self.sock.connect(self._uds_path)
+
+
+class ServiceError(Exception):
+    """Non-2xx daemon answer. `status` is the HTTP code; `payload` the
+    decoded JSON body (carries `retry_after_s` on 429 AND 503)."""
+
+    def __init__(self, status: int, payload: dict):
+        super().__init__(f"HTTP {status}: {payload.get('error', payload)}")
+        self.status = status
+        self.payload = payload
+
+    @property
+    def retry_after_s(self) -> Optional[float]:
+        v = self.payload.get("retry_after_s")
+        return float(v) if v is not None else None
+
+
+def backoff_delay(attempt: int, base_s: float, cap_s: float,
+                  retry_after_s: Optional[float] = None,
+                  rng: Optional[random.Random] = None) -> float:
+    """Delay before retry `attempt` (1-based): capped exponential with
+    FULL jitter — `uniform(0, min(cap, base·2^(attempt-1)))` — so a
+    retry storm from many clients decorrelates instead of re-arriving
+    in lockstep. A server-provided Retry-After is a floor, not a
+    suggestion: we never come back EARLIER than the daemon asked, and
+    jitter is added on top (still capped) so even Retry-After herds
+    spread out."""
+    r = (rng or random).uniform(0.0, 1.0)
+    exp = min(cap_s, base_s * (2.0 ** max(0, attempt - 1)))
+    delay = r * exp
+    if retry_after_s is not None:
+        delay = min(retry_after_s + r * exp, retry_after_s + cap_s)
+        delay = max(delay, retry_after_s)
+    return delay
+
+
+def _close_quietly(conn: HTTPConnection) -> None:
+    try:
+        conn.close()
+    except OSError:
+        pass  # already dead — closing was the point
+
+
+def _netloc(url: str) -> str:
+    if url.startswith("unix:"):
+        # same-host lane: "unix:/abs/path/to/graftd.sock". The path is
+        # carried in the netloc verbatim behind the "unix:" sentinel.
+        return "unix:" + url[len("unix:"):]
+    if "://" in url:
+        url = url.split("://", 1)[1]
+    return url.rstrip("/")
+
+
+class ServiceClient:
+    def __init__(self, base_url: str, timeout: float = 30.0,
+                 max_attempts: int = 4, backoff_base_s: float = 0.1,
+                 backoff_cap_s: float = 5.0,
+                 rng: Optional[random.Random] = None,
+                 replicas: Optional[Sequence[str]] = None):
+        # base_url: http://host:port (path prefixes unsupported — the
+        # daemon serves at the root, like core/serve.py). `replicas`
+        # adds the rest of the cluster; base_url's replica
+        # is included automatically and single-URL behavior is
+        # byte-for-byte unchanged when it is omitted.
+        self.netloc = _netloc(base_url)
+        self.netlocs: List[str] = [self.netloc]
+        for u in replicas or ():
+            n = _netloc(u)
+            if n not in self.netlocs:
+                self.netlocs.append(n)
+        self.timeout = timeout
+        self.max_attempts = max(1, int(max_attempts))
+        self.backoff_base_s = backoff_base_s
+        self.backoff_cap_s = backoff_cap_s
+        self._rng = rng or random.Random()
+        #: wall time before which each replica is deprioritized in the
+        #: fallback order (stamped from its Retry-After / failures) —
+        #: the client-side half of least-loaded routing.
+        self._penalty_until: dict = {}
+        #: cluster-wide Retry-After floor (module docstring).
+        self._floor_until = 0.0
+        #: connection-level failovers performed (a replica died and the
+        #: call moved on) — the failover-latency evidence.
+        self.failovers = 0
+        #: request id → the replica that answered for it (bounded):
+        #: result/cancel polls go straight to the owner instead of
+        #: walking 404 probes across the fleet on every poll. A stale
+        #: or lost hint only costs probes, never correctness.
+        self._owner: "OrderedDict[str, str]" = OrderedDict()
+        #: netloc that served the most recent successful _call (feeds
+        #: the owner map; best-effort under concurrent use).
+        self._answered_by: Optional[str] = None
+        #: per-THREAD keep-alive pool, netloc → live HTTPConnection.
+        #: Thread-local because http.client connections are not
+        #: thread-safe and one client may be driven from many
+        #: submitter threads.
+        self._local = threading.local()
+        self._counter_lock = threading.Lock()
+        #: keep-alive A/B evidence: sockets dialed
+        #: vs. calls served on an already-open connection.
+        self.conn_opened = 0
+        self.conn_reused = 0
+
+    # ---------------------------------------------------- connections
+
+    def _connect(self, netloc: str) -> HTTPConnection:
+        if netloc.startswith("unix:"):
+            return _UDSConnection(netloc[len("unix:"):],
+                                  timeout=self.timeout)
+        return HTTPConnection(netloc, timeout=self.timeout)
+
+    def _pool(self) -> dict:
+        pool = getattr(self._local, "pool", None)
+        if pool is None:
+            pool = self._local.pool = {}
+        return pool
+
+    def _checkout(self, netloc: str, force_fresh: bool = False):
+        """(connection, was_reused) for one call. Reuse comes from this
+        thread's pool; `force_fresh` bypasses it (the stale-keep-alive
+        retry)."""
+        if client_keepalive() and not force_fresh:
+            conn = self._pool().pop(netloc, None)
+            if conn is not None:
+                with self._counter_lock:
+                    self.conn_reused += 1
+                return conn, True
+        with self._counter_lock:
+            self.conn_opened += 1
+        return self._connect(netloc), False
+
+    def _checkin(self, netloc: str, conn: HTTPConnection) -> None:
+        pool = self._pool()
+        old = pool.get(netloc)
+        if old is not None and old is not conn:
+            _close_quietly(old)
+        pool[netloc] = conn
+
+    def close(self) -> None:
+        """Drop this THREAD's kept-alive connections (worker teardown
+        hygiene; other threads' pools drain when their thread dies)."""
+        pool = getattr(self._local, "pool", None) or {}
+        for conn in pool.values():
+            _close_quietly(conn)
+        pool.clear()
+
+    # ------------------------------------------------------- routing
+
+    def _route(self, affinity: Optional[str] = None,
+               prefer: Optional[str] = None) -> List[str]:
+        """Replica order for one logical call: `prefer` (the known
+        owner of the id being polled) first when given, else the affine
+        replica (rendezvous hash — stable per payload, uniform across
+        fingerprints), then the rest least-loaded-first (soonest
+        penalty expiry; ties keep the configured order)."""
+        if len(self.netlocs) == 1:
+            return list(self.netlocs)
+        if affinity:
+            # ONE digest construction per route:
+            # the affinity prefix is hashed once and each replica's
+            # rendezvous key extends a cheap .copy() of that state —
+            # byte-identical to sha256(f"{affinity}|{n}") (same input
+            # stream), so the route order is unchanged, but the
+            # per-replica rehash of the (payload-sized) key is gone.
+            hd = hashlib.sha256(affinity.encode())
+
+            def rendezvous(n: str) -> str:
+                h = hd.copy()
+                h.update(f"|{n}".encode())
+                return h.hexdigest()
+
+            ordered = sorted(self.netlocs, key=rendezvous, reverse=True)
+        else:
+            ordered = list(self.netlocs)
+        now = time.monotonic()
+        head, tail = ordered[:1], ordered[1:]
+        tail.sort(key=lambda n: max(0.0,
+                                    self._penalty_until.get(n, 0.0) - now))
+        route = head + tail
+        if prefer in self.netlocs and route[0] != prefer:
+            route.remove(prefer)
+            route.insert(0, prefer)
+        return route
+
+    def _remember_owner(self, request_id: Optional[str]) -> None:
+        if not request_id or self._answered_by is None \
+                or len(self.netlocs) == 1:
+            return
+        self._owner[request_id] = self._answered_by
+        self._owner.move_to_end(request_id)
+        while len(self._owner) > 1024:
+            self._owner.popitem(last=False)
+
+    def _penalize(self, netloc: str, for_s: float) -> None:
+        self._penalty_until[netloc] = max(
+            self._penalty_until.get(netloc, 0.0),
+            time.monotonic() + max(0.1, for_s))
+
+    def _call_once(self, method: str, path: str,
+                   body: Optional[dict] = None,
+                   netloc: Optional[str] = None,
+                   raw: Optional[bytes] = None,
+                   content_type: Optional[str] = None) -> dict:
+        netloc = netloc or self.netloc
+        if raw is not None:
+            payload: Optional[bytes] = raw
+            headers = {"Content-Type":
+                       content_type or FRAME_CONTENT_TYPE}
+        elif body is not None:
+            payload = json.dumps(body).encode()
+            headers = {"Content-Type": "application/json"}
+        else:
+            payload, headers = None, {}
+        for fresh in (False, True):
+            conn, reused = self._checkout(netloc, force_fresh=fresh)
+            try:
+                conn.request(method, path, body=payload, headers=headers)
+                resp = conn.getresponse()
+                data = json.loads(resp.read() or b"{}")
+            except RETRYABLE_CONN_ERRORS:
+                _close_quietly(conn)
+                if reused and not fresh:
+                    # A REUSED socket died mid-call: the classic stale
+                    # keep-alive race (daemon restarted / idle-closed
+                    # between calls). One immediate fresh-connection
+                    # retry, NOT charged to the caller's attempt budget
+                    # — this failure mode is an artifact of reuse, and
+                    # without this the keep-alive client would be
+                    # strictly less robust than connection-per-call.
+                    continue
+                raise
+            if resp.will_close or not client_keepalive():
+                _close_quietly(conn)
+            else:
+                self._checkin(netloc, conn)
+            if resp.status >= 400:
+                raise ServiceError(resp.status, data)
+            return data
+        raise AssertionError("unreachable")  # loop returns or raises
+
+    def _call(self, method: str, path: str, body: Optional[dict] = None,
+              retry: bool = True, affinity: Optional[str] = None,
+              failover_404: bool = False,
+              prefer: Optional[str] = None,
+              raw: Optional[bytes] = None,
+              content_type: Optional[str] = None) -> dict:
+        """One logical call with the retry discipline (module
+        docstring). `retry=False` restores single-shot semantics for
+        calls the caller wants to fail fast. The attempt cap is
+        CLUSTER-GLOBAL: every try, on whichever replica, counts against
+        the same `max_attempts` budget — failover must not multiply
+        the retry storm by the replica count."""
+        route = self._route(affinity, prefer=prefer)
+        attempts = self.max_attempts if retry else 1
+        last: Exception = None
+        ri = 0
+        seen_404 = 0
+        attempt = 0
+        while attempt < attempts:
+            attempt += 1
+            netloc = route[ri % len(route)]
+            # binary-frame kwargs only when in play: JSON calls keep the
+            # historical _call_once shape (test transports stub it)
+            extra = ({"raw": raw, "content_type": content_type}
+                     if raw is not None or content_type is not None else {})
+            try:
+                out = self._call_once(method, path, body, netloc=netloc,
+                                      **extra)
+                self._penalty_until.pop(netloc, None)
+                self._answered_by = netloc
+                return out
+            except ServiceError as e:
+                if e.status == 404 and failover_404 \
+                        and seen_404 < len(route) - 1:
+                    # the request may live on the replica that adopted
+                    # a dead peer's journal: probe the rest of the
+                    # fleet before concluding "unknown id". Probes are
+                    # sequential reads, not retries — they do not
+                    # consume the attempt budget.
+                    attempt -= 1
+                    seen_404 += 1
+                    ri += 1
+                    continue
+                if e.status not in RETRYABLE_STATUSES \
+                        or attempt >= attempts:
+                    raise
+                last = e
+                if e.retry_after_s is not None:
+                    # the daemon's hint is already the CLUSTER's best
+                    # (its 429 consults peer leases): floor every
+                    # replica behind it, not just the one that answered
+                    self._floor_until = max(
+                        self._floor_until,
+                        time.monotonic() + e.retry_after_s)
+                    self._penalize(netloc, e.retry_after_s)
+                delay = backoff_delay(attempt, self.backoff_base_s,
+                                      self.backoff_cap_s,
+                                      retry_after_s=e.retry_after_s,
+                                      rng=self._rng)
+                delay = max(delay, self._floor_until - time.monotonic())
+                ri += 1
+            except RETRYABLE_CONN_ERRORS as e:
+                # Safe because /submit is idempotent (fingerprint
+                # attach / cache hit) and every other endpoint is a
+                # read or an idempotent cancel.
+                if attempt >= attempts:
+                    raise
+                last = e
+                self._penalize(netloc, 1.0)
+                ri += 1
+                if len(route) > 1 and attempt < len(route):
+                    # a dead replica is a liveness event, not load:
+                    # fail over to the next replica immediately
+                    self.failovers += 1
+                    continue
+                delay = backoff_delay(attempt, self.backoff_base_s,
+                                      self.backoff_cap_s, rng=self._rng)
+            time.sleep(max(0.0, delay))
+        raise last  # unreachable; loop always returns or raises
+
+    # ------------------------------------------------------- surface
+
+    def submit(self, histories: Sequence, workload: str = "register",
+               algorithm: str = "auto", deadline_ms: Optional[float] = None,
+               priority: int = 0, retry: bool = True,
+               consistency: str = "linearizable",
+               affinity: bool = True, binary: bool = False) -> dict:
+        """Submit histories (History objects or op-dict lists); returns
+        the daemon's request record ({"id", "status", ...}). Retries
+        429/503/connection failures with capped jittered backoff up to
+        `max_attempts` (safe: submission is idempotent); the final
+        failure raises ServiceError (read `.retry_after_s`) or the
+        connection error. `retry=False` fails fast. `consistency`
+        selects the verdict's ladder rung (linearizable / sequential /
+        session). `binary=True` encodes CLIENT-SIDE and ships one
+        columnar frame — same verdict, same idempotency
+        (the server re-derives the fingerprint over the same bytes the
+        JSON path would have encoded to)."""
+        if binary:
+            return self._submit_binary(
+                histories, workload=workload, algorithm=algorithm,
+                deadline_ms=deadline_ms, priority=priority, retry=retry,
+                consistency=consistency, affinity=affinity)
+        rows = [h.to_dicts() if hasattr(h, "to_dicts") else list(h)
+                for h in histories]
+        key = None
+        if affinity and len(self.netlocs) > 1:
+            # content-keyed affinity: identical payloads
+            # route to the same replica, so idempotent resubmissions
+            # attach/cache-hit there instead of fanning one fingerprint
+            # across the fleet. Scheduling metadata (deadline,
+            # priority) stays out of the key — it does not change the
+            # verdict identity. `affinity=False` keeps the configured
+            # replica order (a failover measurement pins the dead
+            # replica at the head this way).
+            key = hashlib.sha256(json.dumps(
+                [workload, algorithm, consistency, rows],
+                sort_keys=True, default=str).encode()).hexdigest()
+        rec = self._call("POST", "/submit", {
+            "workload": workload, "histories": rows,
+            "algorithm": algorithm, "deadline_ms": deadline_ms,
+            "priority": priority, "consistency": consistency},
+            retry=retry, affinity=key)
+        self._remember_owner(rec.get("id"))
+        return rec
+
+    def _submit_binary(self, histories: Sequence, workload: str,
+                       algorithm: str, deadline_ms: Optional[float],
+                       priority: int, retry: bool, consistency: str,
+                       affinity: bool) -> dict:
+        """Client-side encode + one columnar frame:
+        the SAME `build_units` + `encode_history` the server's JSON
+        path runs, executed here — so the server-derived fingerprint
+        over the shipped tensors is byte-identical to the JSON path's,
+        and the locally computed digest doubles as the rendezvous
+        affinity key (replica cache locality for free). The frame is
+        built ONCE; every retry re-sends identical bytes."""
+        from ..checker.consistency import normalize_consistency
+        from .frame import encode_submit_frame
+        from .request import build_units, fingerprint_encodings
+
+        from ..history.packing import encode_history
+
+        consistency = normalize_consistency(consistency)
+        model, units = build_units(histories, workload)
+        encs = [encode_history(h, model) for _, h in units]
+        fp = fingerprint_encodings(model, algorithm, encs, consistency)
+        frame = encode_submit_frame(
+            workload, algorithm, consistency,
+            [label for label, _ in units], encs,
+            deadline_ms=deadline_ms, priority=priority, fingerprint=fp)
+        rec = self._call("POST", "/submit", retry=retry,
+                         affinity=fp if affinity else None, raw=frame)
+        self._remember_owner(rec.get("id"))
+        return rec
+
+    def submit_run_dir(self, run_dir: str, workload: Optional[str] = None,
+                       algorithm: str = "auto", retry: bool = True,
+                       consistency: str = "linearizable") -> dict:
+        return self._call("POST", "/submit", {
+            "run_dir": str(run_dir), "workload": workload,
+            "algorithm": algorithm, "consistency": consistency},
+            retry=retry)
+
+    def result(self, request_id: str,
+               wait_s: Optional[float] = None) -> dict:
+        path = f"/result?id={request_id}"
+        if wait_s is not None:
+            path += f"&wait_s={wait_s}"
+        # The known owner (the replica that answered the submit or the
+        # last poll) leads the route — polling must not walk 404
+        # probes across the fleet on every call. 404 still fails over:
+        # after a journal handoff the id answers from the survivor
+        # that adopted it, and the owner map re-learns it.
+        rec = self._call("GET", path,
+                         failover_404=len(self.netlocs) > 1,
+                         prefer=self._owner.get(request_id))
+        self._remember_owner(request_id)
+        return rec
+
+    def cancel(self, request_id: str) -> dict:
+        return self._call("POST", "/cancel", {"id": request_id},
+                          prefer=self._owner.get(request_id))
+
+    def stats(self) -> dict:
+        return self._call("GET", "/stats")
+
+    def healthz(self) -> dict:
+        return self._call("GET", "/healthz")
+
+    def stream(self, workload: str = "register", units: int = 1,
+               algorithm: str = "auto",
+               consistency: str = "linearizable",
+               session_id: Optional[str] = None,
+               resume: bool = False,
+               binary: bool = False) -> "StreamSession":
+        """Open (or resume) a streaming verdict session;
+        returns a `StreamSession` whose `append`/`finish` carry the
+        per-segment idempotent retry discipline. `binary=True` runs
+        the incremental encoder CLIENT-side and ships each settled
+        suffix as a columnar frame."""
+        s = StreamSession(self, workload=workload, units=units,
+                          algorithm=algorithm, consistency=consistency,
+                          session_id=session_id, resume=resume,
+                          binary=binary)
+        s.open()
+        return s
+
+    def check(self, histories: Sequence, workload: str = "register",
+              algorithm: str = "auto", timeout_s: float = 300.0,
+              poll_s: float = 0.05,
+              consistency: str = "linearizable") -> dict:
+        """Submit-and-wait convenience: returns the terminal request
+        record (results included). Waits server-side in bounded slices
+        so one slow verdict cannot park the connection past the
+        daemon's handler cap."""
+        rec = self.submit(histories, workload=workload, algorithm=algorithm,
+                          consistency=consistency)
+        if rec.get("status") in ("done", "failed", "cancelled"):
+            return self.result(rec["id"])
+        deadline = time.monotonic() + timeout_s
+        while True:
+            rec = self.result(rec["id"], wait_s=min(
+                10.0, max(poll_s, deadline - time.monotonic())))
+            if rec.get("status") in ("done", "failed", "cancelled"):
+                return rec
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"request {rec['id']} still {rec.get('status')} after "
+                    f"{timeout_s:.0f}s")
+
+
+class StreamSession:
+    """Producer-side streaming session.
+
+    Wraps one server-side stream session: `open` / `append` / `finish`
+    with the per-segment idempotent retry discipline. The client owns
+    the sequence numbers; a segment whose response was lost (connection
+    error, daemon SIGKILL mid-call) is simply RE-SENT under the same
+    seq — the server's duplicate detection (payload digest) makes the
+    retry a no-op when the first copy landed, and the WAL makes it
+    durable when it did not. 429/503/connection retries ride the
+    owning ServiceClient's backoff (idempotent by construction, so the
+    same safety argument as /submit applies).
+
+    A crashed PRODUCER is recoverable too: a fresh process constructs
+    the session with ``session_id=<sid>, resume=True`` — the server
+    answers with its current state (including ``next_seq``), and the
+    new producer continues from there (the kill-the-client scenario in
+    scripts/chaos_graftd.py).
+    """
+
+    def __init__(self, client: ServiceClient, workload: str = "register",
+                 units: int = 1, algorithm: str = "auto",
+                 consistency: str = "linearizable",
+                 session_id: Optional[str] = None,
+                 resume: bool = False, binary: bool = False):
+        self.client = client
+        self.workload = workload
+        self.units = units
+        self.algorithm = algorithm
+        self.consistency = consistency
+        self.session_id = session_id
+        self.resume = resume
+        #: binary lane: the incremental encoder runs HERE;
+        #: each append ships the settled suffix as a columnar frame.
+        #: Incompatible with `resume`: the encoder carry lives in this
+        #: process, so a crashed binary producer cannot continue its
+        #: old session (the JSON lane, whose encoder lives server-side,
+        #: can) — it must open a fresh session instead.
+        self.binary = binary
+        if binary and resume:
+            raise ValueError(
+                "binary streams cannot resume: the client-side encoder "
+                "carry died with the old producer; open a fresh "
+                "session (or use the JSON lane, which resumes)")
+        self._encoders: Optional[list] = None
+        #: (seq, frame) whose send failed: re-sent (digest-idempotent)
+        #: before the next append/finish, so a transport blip never
+        #: desyncs the client encoder from the server's counters.
+        self._pending_frame: Optional[tuple] = None
+        self._finalized = False
+        self.seq = 1
+        self.last_state: Optional[dict] = None
+
+    def open(self) -> dict:
+        body = {"workload": self.workload, "units": self.units,
+                "algorithm": self.algorithm,
+                "consistency": self.consistency}
+        if self.session_id:
+            body["session"] = self.session_id
+        if self.resume:
+            body["resume"] = True
+        rec = self.client._call("POST", "/stream/open", body)
+        self.session_id = rec["session"]
+        self.seq = int(rec.get("next_seq", 1))
+        self.last_state = rec
+        if self.binary and self._encoders is None:
+            from ..history.packing import IncrementalEncoder
+            from .request import service_workloads
+
+            # the same model the server instantiated at open — the
+            # client-side encoder must emit the stream the server-side
+            # one would have (service_workloads is the shared registry)
+            factory, _ = service_workloads()[self.workload]
+            self._encoders = [IncrementalEncoder(factory())
+                              for _ in range(int(self.units))]
+        return rec
+
+    @staticmethod
+    def _rows(ops) -> list:
+        if hasattr(ops, "to_dicts"):
+            return ops.to_dicts()
+        return [op.to_dict() if hasattr(op, "to_dict") else dict(op)
+                for op in ops]
+
+    def append(self, ops) -> dict:
+        """Append one segment (a flat op list for single-unit sessions,
+        or one list per unit). Assigns the next seq; safe to call again
+        after any transport failure — the seq/digest pair makes the
+        resend idempotent."""
+        if self.binary:
+            return self._append_binary(ops)
+        if ops and not isinstance(ops[0], (list, tuple)) \
+                or hasattr(ops, "to_dicts"):
+            payload = self._rows(ops)
+        elif ops and isinstance(ops[0], (list, tuple)):
+            payload = [self._rows(u) for u in ops]
+        else:
+            payload = list(ops)
+        seq = self.seq
+        # An honest retry of a landed-but-unanswered segment re-sends
+        # the IDENTICAL payload and gets 200 {duplicate: true} from the
+        # digest check — so any 409 here is a REAL conflict (a second
+        # producer on the same session, or a client bug) and must
+        # surface, never be silently resynced past: swallowing it would
+        # drop a segment the server explicitly refused to merge.
+        rec = self.client._call("POST", "/stream/append", {
+            "session": self.session_id, "seq": seq, "ops": payload})
+        self.seq = seq + 1
+        self.last_state = rec
+        return rec
+
+    # ----------------------------------------------------- binary lane
+
+    def _parse_unit_ops(self, ops) -> list:
+        """Wire-shape normalization for the binary lane, mirroring the
+        server's `_parse_units` rules (flat list for single-unit
+        sessions, one list per unit otherwise; nemesis rows filtered;
+        list values retupled) — the client-side encoder must see
+        exactly the rows the server-side one would have."""
+        from ..history.ops import NEMESIS, Op
+
+        if hasattr(ops, "to_dicts") or (
+                ops and not isinstance(ops[0], (list, tuple))):
+            per_unit = [list(ops)]
+        elif ops:
+            per_unit = [list(u) for u in ops]
+        else:
+            per_unit = [[] for _ in range(len(self._encoders))]
+        if len(per_unit) != len(self._encoders):
+            raise ValueError(
+                f"segment carries {len(per_unit)} unit list(s); session "
+                f"has {len(self._encoders)} unit(s)")
+        parsed = []
+        for rows in per_unit:
+            out = []
+            for d in rows:
+                op = d if isinstance(d, Op) else Op.from_dict(dict(d))
+                if isinstance(op.value, list):
+                    op.value = tuple(op.value)
+                if op.process != NEMESIS:
+                    out.append(op)
+            parsed.append(out)
+        return parsed
+
+    def _binary_payload(self, parsed, final: bool) -> list:
+        units = []
+        for encd, rows in zip(self._encoders, parsed):
+            ev, oi, pr = encd.feed(rows, final=final)
+            units.append({"events": ev, "op_index": oi, "proc": pr,
+                          "n_slots": encd.n_slots, "n_ops": encd.n_ops,
+                          "consumed": encd.consumed, "final": final})
+        return units
+
+    def _send_frame(self, seq: int, frame: bytes) -> dict:
+        rec = self.client._call("POST", "/stream/append", raw=frame)
+        self.seq = seq + 1
+        self.last_state = rec
+        return rec
+
+    def _flush_pending(self) -> None:
+        """Re-send a frame whose first send failed (digest-idempotent:
+        identical bytes under the same seq). Without this a transport
+        blip would desync the client encoder — which already consumed
+        the ops — from the server's counters."""
+        if self._pending_frame is None:
+            return
+        seq, frame = self._pending_frame
+        self._send_frame(seq, frame)
+        self._pending_frame = None
+
+    def _append_binary(self, ops, final: bool = False) -> Optional[dict]:
+        from .frame import encode_segment_frame
+
+        self._flush_pending()
+        parsed = self._parse_unit_ops(ops)
+        # an empty final flush still ships: the segment carries the
+        # final flag (and any end-of-history settle events)
+        units = self._binary_payload(parsed, final=final)
+        seq = self.seq
+        frame = encode_segment_frame(self.session_id, seq, units)
+        self._pending_frame = (seq, frame)
+        rec = self._send_frame(seq, frame)
+        self._pending_frame = None
+        return rec
+
+    # --------------------------------------------------------- surface
+
+    def status(self) -> dict:
+        rec = self.client._call(
+            "GET", f"/stream/status?session={self.session_id}")
+        self.last_state = rec
+        return rec
+
+    def finish(self) -> dict:
+        if self.binary and not self._finalized:
+            # the server REFUSES a binary finish without the final
+            # flush (crashed-pair OPENs are linearization candidates);
+            # send it exactly once — empty ops, final=true.
+            self._append_binary([], final=True)
+            self._finalized = True
+        elif self.binary:
+            self._flush_pending()
+        rec = self.client._call("POST", "/stream/finish",
+                                {"session": self.session_id})
+        self.last_state = rec
+        return rec
+
+    @property
+    def violation(self) -> Optional[dict]:
+        """The first mid-run violation the daemon has surfaced, if
+        any (from the most recent response)."""
+        return (self.last_state or {}).get("violation")

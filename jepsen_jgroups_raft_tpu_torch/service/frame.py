@@ -1,0 +1,305 @@
+"""Binary columnar submission frames: graftd's wire-speed ingest lane
+(the reference's `service/frame.py`; the bytes are identical for the
+same input).
+
+The JSON front door parses op dicts and re-encodes them server-side on
+every request. `history.packing.encode_history` is columnar,
+deterministic and byte-identical across hosts — which makes encoding
+*relocatable*:
+a client can run the same pure encode locally and ship the packed int32
+tensors instead of the op dicts. This module is the wire format for
+that: a length-delimited binary frame holding a small JSON header (the
+routing metadata: workload/algorithm/consistency, per-unit shapes) and
+the raw little-endian int32 buffers of each unit's `EncodedHistory`
+(events, op_index, and the proc array the weak rungs hash), closed by a
+CRC32.
+
+Layout (all integers little-endian)::
+
+    offset 0   magic      4 bytes   b"JGF1"
+    offset 4   kind       uint16    1 = submit, 2 = stream segment
+    offset 6   reserved   uint16    0
+    offset 8   header_len uint32    H
+    offset 12  header     H bytes   canonical JSON (sort_keys, compact)
+    …          pad        0–7 zero bytes to 8-align the buffers
+    …          buffers    per unit, in header order:
+                            events   [n_events, 5] int32
+                            op_index [n_events]    int32
+                            proc     [n_events]    int32 (when present)
+    tail       crc        uint32    CRC32 over every preceding byte
+
+Decoding is ZERO-COPY: `np.frombuffer` slices each buffer straight out
+of the received bytes (read-only views — nothing downstream mutates an
+encoding), so the only per-request tensor work left on the server is
+the sha256 fingerprint — which the server ALWAYS re-derives over the
+received bytes (service/request.admit_encoded). A client-claimed
+fingerprint is advisory: a lying client corrupts only its own verdict,
+because every cache/store/WAL key is the server-derived digest
+(doc/checker-design.md §20).
+
+Malformed input (bad magic, truncated/torn frame, CRC rot, header/
+buffer disagreement) raises `FrameError` — a ValueError the HTTP
+surface maps to 400, never a crash or a silently mis-sliced tensor.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+import zlib
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from ..history.packing import EncodedHistory
+
+#: Frame magic + format version (the "1" is the version).
+MAGIC = b"JGF1"
+
+#: `kind` field values.
+KIND_SUBMIT = 1
+KIND_STREAM_SEG = 2
+
+#: Fixed prefix: magic, kind, reserved, header_len.
+_PREFIX = struct.Struct("<4sHHI")
+
+#: Little-endian int32 — the one dtype on the wire, pinned explicitly
+#: so a big-endian host still produces/reads identical frames.
+_I32 = np.dtype("<i4")
+
+#: Header size cap: routing metadata is a few hundred bytes; a
+#: multi-megabyte "header" is a malformed (or hostile) frame.
+MAX_HEADER_BYTES = 1 << 20
+
+
+class FrameError(ValueError):
+    """Malformed binary frame (HTTP 400 at the service surface)."""
+
+
+@dataclass
+class SubmitFrame:
+    """Decoded submission frame: admission metadata plus the per-unit
+    encodings, views over the received bytes."""
+
+    workload: str
+    algorithm: str
+    consistency: str
+    labels: List[str]
+    encs: List[EncodedHistory]
+    deadline_ms: Optional[float] = None
+    priority: int = 0
+    #: client-claimed fingerprint (advisory; the server re-derives).
+    fingerprint: Optional[str] = None  # lint: allow(fp-irrelevant) advisory claim; server-derived digest is the key
+
+
+@dataclass
+class SegmentFrame:
+    """Decoded stream-segment frame: one settled-suffix append.
+    `units` entries carry the suffix arrays plus the
+    client encoder's cumulative counters (the server runs no encoder on
+    the binary lane)."""
+
+    session: str
+    seq: int
+    units: List[dict]
+
+
+def _pad(n: int) -> int:
+    """Zero bytes after an n-byte header to 8-align the buffers."""
+    return -n % 8
+
+
+def _header_and_buffers(kind: int, header: dict,
+                        buffers: Sequence[np.ndarray]) -> bytes:
+    hdr = json.dumps(header, sort_keys=True,
+                     separators=(",", ":")).encode()
+    parts = [_PREFIX.pack(MAGIC, kind, 0, len(hdr)), hdr,
+             b"\x00" * _pad(len(hdr))]
+    for arr in buffers:
+        parts.append(np.ascontiguousarray(arr, dtype=_I32).tobytes())
+    body = b"".join(parts)
+    return body + struct.pack("<I", zlib.crc32(body))
+
+
+def _unit_meta(enc: EncodedHistory) -> dict:
+    return {
+        "n_events": int(enc.events.shape[0]),
+        "n_slots": int(enc.n_slots),
+        "n_ops": int(enc.n_ops),
+        "proc": enc.proc is not None,
+    }
+
+
+def _unit_buffers(enc: EncodedHistory) -> List[np.ndarray]:
+    bufs = [enc.events, enc.op_index]
+    if enc.proc is not None:
+        bufs.append(enc.proc)
+    return bufs
+
+
+def encode_submit_frame(workload: str, algorithm: str, consistency: str,
+                        labels: Sequence[str],
+                        encs: Sequence[EncodedHistory],
+                        deadline_ms: Optional[float] = None,
+                        priority: int = 0,
+                        fingerprint: Optional[str] = None) -> bytes:
+    """Pack an admitted submission (the client-side `encode_history`
+    output) into one submit frame."""
+    if len(labels) != len(encs):
+        raise FrameError(f"{len(labels)} labels for {len(encs)} "
+                         "encodings")
+    header = {
+        "workload": str(workload),
+        "algorithm": str(algorithm),
+        "consistency": str(consistency),
+        "priority": int(priority),
+        "units": [dict(_unit_meta(e), label=str(lab))
+                  for lab, e in zip(labels, encs)],
+    }
+    if deadline_ms is not None:
+        header["deadline_ms"] = float(deadline_ms)
+    if fingerprint is not None:
+        header["fingerprint"] = str(fingerprint)
+    buffers: List[np.ndarray] = []
+    for e in encs:
+        buffers.extend(_unit_buffers(e))
+    return _header_and_buffers(KIND_SUBMIT, header, buffers)
+
+
+def encode_segment_frame(session: str, seq: int,
+                         units: Sequence[dict]) -> bytes:
+    """Pack one binary stream segment: per unit, the newly settled
+    suffix arrays (`IncrementalEncoder.feed` output) plus the client
+    encoder's cumulative counters after this segment. Unit dicts:
+    ``{"events", "op_index", "proc" (array or None), "n_slots",
+    "n_ops", "consumed", "final"}``."""
+    meta = []
+    buffers: List[np.ndarray] = []
+    for u in units:
+        ev = np.ascontiguousarray(u["events"], dtype=_I32).reshape(-1, 5)
+        oi = np.ascontiguousarray(u["op_index"], dtype=_I32)
+        pr = u.get("proc")
+        meta.append({
+            "n_events": int(ev.shape[0]),
+            "n_slots": int(u["n_slots"]),
+            "n_ops": int(u["n_ops"]),
+            "consumed": int(u["consumed"]),
+            "final": bool(u.get("final", False)),
+            "proc": pr is not None,
+        })
+        buffers.append(ev)
+        buffers.append(oi)
+        if pr is not None:
+            buffers.append(np.ascontiguousarray(pr, dtype=_I32))
+    header = {"session": str(session), "seq": int(seq), "units": meta}
+    return _header_and_buffers(KIND_STREAM_SEG, header, buffers)
+
+
+def _take(mv: memoryview, offset: int, n_i32: int, total: int):
+    """Zero-copy int32 view of `n_i32` little-endian words at `offset`;
+    bounds-checked against the buffer region so a lying header is a
+    FrameError, never a mis-sliced tensor."""
+    end = offset + 4 * n_i32
+    if end > total:
+        raise FrameError(f"buffer region truncated (need {end} bytes, "
+                         f"frame carries {total})")
+    return np.frombuffer(mv[offset:end], dtype=_I32), end
+
+
+def _decode_units(mv: memoryview, offset: int, total: int, metas,
+                  want: tuple) -> List[dict]:
+    """Shared buffer walk: per unit meta, slice events/op_index[/proc]
+    and carry the `want` counter fields through."""
+    out: List[dict] = []
+    for i, m in enumerate(metas):
+        if not isinstance(m, dict):
+            raise FrameError(f"unit {i} metadata is not an object")
+        try:
+            n_ev = int(m["n_events"])
+            has_proc = bool(m["proc"])
+            fields = {k: t(m[k]) for k, t in want}
+        except (KeyError, TypeError, ValueError) as e:
+            raise FrameError(f"unit {i} metadata malformed: {e}") from None
+        if n_ev < 0:
+            raise FrameError(f"unit {i}: negative n_events")
+        flat, offset = _take(mv, offset, n_ev * 5, total)
+        events = flat.reshape(n_ev, 5)
+        op_index, offset = _take(mv, offset, n_ev, total)
+        proc = None
+        if has_proc:
+            proc, offset = _take(mv, offset, n_ev, total)
+        out.append(dict(fields, events=events, op_index=op_index,
+                        proc=proc))
+    if offset != total:
+        raise FrameError(f"{total - offset} trailing byte(s) after the "
+                         "last declared buffer")
+    return out
+
+
+def decode_frame(buf):
+    """Decode one frame → `SubmitFrame` | `SegmentFrame`. Raises
+    `FrameError` on anything malformed: bad magic, unknown kind/
+    version, truncation anywhere, CRC mismatch, or a header whose
+    declared shapes disagree with the bytes actually present."""
+    mv = memoryview(buf)
+    if len(mv) < _PREFIX.size + 4:
+        raise FrameError(f"frame too short ({len(mv)} bytes)")
+    magic, kind, _reserved, hdr_len = _PREFIX.unpack_from(mv, 0)
+    if magic != MAGIC:
+        raise FrameError(f"bad magic {bytes(magic)!r} "
+                         f"(expected {MAGIC!r})")
+    if hdr_len > MAX_HEADER_BYTES:
+        raise FrameError(f"header length {hdr_len} over the "
+                         f"{MAX_HEADER_BYTES}-byte cap")
+    (crc,) = struct.unpack_from("<I", mv, len(mv) - 4)
+    if zlib.crc32(mv[:len(mv) - 4]) != crc:
+        raise FrameError("frame CRC mismatch (torn or corrupted)")
+    hdr_end = _PREFIX.size + hdr_len
+    body_start = hdr_end + _pad(hdr_len)
+    if body_start > len(mv) - 4:
+        raise FrameError("header overruns the frame")
+    try:
+        header = json.loads(bytes(mv[_PREFIX.size:hdr_end]))
+        if not isinstance(header, dict):
+            raise ValueError("header is not a JSON object")
+    except (ValueError, json.JSONDecodeError) as e:
+        raise FrameError(f"bad frame header: {e}") from None
+    metas = header.get("units")
+    if not isinstance(metas, list) or not metas:
+        raise FrameError("frame header carries no units")
+    total = len(mv) - 4
+    if kind == KIND_SUBMIT:
+        units = _decode_units(mv, body_start, total, metas,
+                              want=(("label", str), ("n_slots", int),
+                                    ("n_ops", int)))
+        ddl = header.get("deadline_ms")
+        fp = header.get("fingerprint")
+        try:
+            return SubmitFrame(
+                workload=str(header["workload"]),
+                algorithm=str(header.get("algorithm", "auto")),
+                consistency=str(header.get("consistency",
+                                           "linearizable")),
+                labels=[u["label"] for u in units],
+                encs=[EncodedHistory(events=u["events"],
+                                     op_index=u["op_index"],
+                                     n_slots=u["n_slots"],
+                                     n_ops=u["n_ops"],
+                                     proc=u["proc"])
+                      for u in units],
+                deadline_ms=float(ddl) if ddl is not None else None,
+                priority=int(header.get("priority", 0)),
+                fingerprint=str(fp) if fp is not None else None)
+        except (KeyError, TypeError, ValueError) as e:
+            raise FrameError(f"bad submit header: {e}") from None
+    if kind == KIND_STREAM_SEG:
+        units = _decode_units(mv, body_start, total, metas,
+                              want=(("n_slots", int), ("n_ops", int),
+                                    ("consumed", int), ("final", bool)))
+        try:
+            return SegmentFrame(session=str(header["session"]),
+                                seq=int(header["seq"]), units=units)
+        except (KeyError, TypeError, ValueError) as e:
+            raise FrameError(f"bad segment header: {e}") from None
+    raise FrameError(f"unknown frame kind {kind}")

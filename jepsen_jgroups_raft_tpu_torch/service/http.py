@@ -1,0 +1,467 @@
+"""graftd HTTP surface: stdlib http.server + JSON, no framework — the
+same stance as `core/serve.py` (the results browser this daemon's trace
+records feed).
+
+Endpoints::
+
+    POST /submit   {"workload": "register", "histories": [[op…]…],
+                    "algorithm"?, "consistency"?, "deadline_ms"?,
+                    "priority"?,
+                    "run_dir"?}        → 200 {"id", "status", …}
+                                       → 429 {"error", "retry_after_s"}
+                                         (+ Retry-After header)
+                                       → 400 {"error"} on malformed input
+    GET  /result?id=ID[&wait_s=N]      → 200 request record (results
+                                         included once terminal)
+                                       → 404 unknown id
+    POST /cancel   {"id": ID}          → 200 {"id", "status"}
+    GET  /stats                        → 200 service counters
+    GET  /healthz                      → 200 {"ok": true, "worker_alive"}
+
+Streaming sessions::
+
+    POST /stream/open    {"workload"?, "units"?, "algorithm"?,
+                          "consistency"?, "session"?, "resume"?}
+                                       → 200 session state
+                                       → 429 past the session cap
+                                       → 409 id exists (without resume)
+    POST /stream/append  {"session", "seq", "ops": [op…] | [[op…]…]}
+                                       → 200 live state (violations
+                                         surface HERE, mid-run)
+                                       → 409 {"expected_seq"} on gaps /
+                                         reused-seq payload mismatch
+                                       → 429 {"retry_after_s"} over the
+                                         session's segment/byte budget
+    POST /stream/finish  {"session"}   → 200 final record (idempotent)
+    GET  /stream/status?session=ID     → 200 session state
+
+Binary ingest lane: ``POST /submit`` and ``POST
+/stream/append`` additionally accept ``Content-Type:
+application/x-jgraft-frame`` bodies — the length-delimited columnar
+frames of `service/frame.py`, carrying CLIENT-encoded int32 tensors
+that admission memoryview-slices zero-copy into the fingerprint path
+(no JSON parse, no server-side encode). Malformed frames are 400s via
+the same taxonomy as malformed JSON. The JSON surface is unchanged
+byte for byte.
+
+Same-host lane: `make_uds_server`/`serve_uds_in_thread`
+bind the SAME handler over an AF_UNIX socket — no TCP stack, no
+loopback port, one less copy per request.  ``JGRAFT_SERVICE_UDS=
+/path.sock`` makes `serve_checker` listen on both.
+
+Run it: ``python -m jepsen_jgroups_raft_tpu_torch serve-checker``
+(cli.py; on the card unless ``--device cpu``) or embed via
+`make_server` / `serve_in_thread` (tests, chip_smoke.py).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import socket
+import socketserver
+import stat
+import threading
+from functools import partial
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional, Tuple
+
+from ..platform import env_str
+from .admission import QueueFull
+from .daemon import CheckingService, ServiceStopped
+from .stream import StreamBusy, StreamConflict
+
+#: Submission body size cap (bytes): 64 MiB of JSON ops is far beyond
+#: any legitimate history batch and bounds admission-side memory.
+MAX_BODY_BYTES = 64 << 20
+
+#: Content-Type of the binary columnar frames (service/frame.py).
+FRAME_CONTENT_TYPE = "application/x-jgraft-frame"
+
+#: Cap on blocking result waits (seconds) so a handler thread can never
+#: be parked indefinitely by one client.
+MAX_WAIT_S = 60.0
+
+#: Retry-After hint on 503 ServiceStopped: a stopped daemon
+#: is usually a restart in flight (supervisor, chaos harness, rolling
+#: deploy), so the hint is restart-scale — clients with the idempotent
+#: retry discipline come back after the journal replay instead of
+#: erroring out of a survivable blip.
+STOPPED_RETRY_AFTER_S = 2.0
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+
+    def __init__(self, *a, service: CheckingService, **kw):
+        self.service = service
+        super().__init__(*a, **kw)
+
+    # ------------------------------------------------------- plumbing
+
+    def _send(self, code: int, payload: dict,
+              extra_headers: Optional[dict] = None) -> None:
+        body = json.dumps(payload, default=str).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _raw_body(self) -> bytes:
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > MAX_BODY_BYTES:
+            raise ValueError(f"body too large ({length} bytes)")
+        return self.rfile.read(length) if length else b""
+
+    def _body(self) -> dict:
+        raw = self._raw_body() or b"{}"
+        payload = json.loads(raw)
+        if not isinstance(payload, dict):
+            raise ValueError("request body must be a JSON object")
+        return payload
+
+    def _query(self) -> Tuple[str, dict]:
+        from urllib.parse import parse_qs, urlparse
+
+        parsed = urlparse(self.path)
+        return parsed.path, {k: v[-1]
+                             for k, v in parse_qs(parsed.query).items()}
+
+    def log_message(self, fmt, *args):
+        pass  # quiet, like the reference's results browser
+
+    # ------------------------------------------------------- handlers
+
+    def do_GET(self):
+        path, q = self._query()
+        if path == "/healthz":
+            self._send(200, {"ok": True,
+                             "worker_alive":
+                             self.service.stats()["worker_alive"]})
+            return
+        if path == "/stats":
+            self._send(200, self.service.stats())
+            return
+        if path == "/stream/status":
+            try:
+                self._send(200, self.service.streams.status(
+                    q.get("session", "")))
+            except KeyError:
+                self._send(404, {"error": f"unknown stream session "
+                                          f"{q.get('session', '')!r}"})
+            return
+        if path == "/result":
+            req = self.service.get(q.get("id", ""))
+            if req is None:
+                self._send(404, {"error": f"unknown request id "
+                                          f"{q.get('id', '')!r}"})
+                return
+            wait_s = q.get("wait_s")
+            if wait_s is not None:
+                try:
+                    req.wait(min(float(wait_s), MAX_WAIT_S))
+                except ValueError:
+                    self._send(400, {"error": f"bad wait_s {wait_s!r}"})
+                    return
+            self._send(200, req.to_dict())
+            return
+        self._send(404, {"error": f"no such endpoint {path!r}"})
+
+    def do_POST(self):
+        path, _ = self._query()
+        ctype = (self.headers.get("Content-Type")
+                 or "").split(";")[0].strip().lower()
+        if ctype == FRAME_CONTENT_TYPE:
+            self._post_frame(path)
+            return
+        try:
+            body = self._body()
+        except (ValueError, json.JSONDecodeError) as e:
+            self._send(400, {"error": f"bad request body: {e}"})
+            return
+        if path == "/submit":
+            self._submit(body)
+            return
+        if path.startswith("/stream/"):
+            self._stream(path, body)
+            return
+        if path == "/cancel":
+            status = self.service.cancel(str(body.get("id", "")))
+            if status is None:
+                self._send(404, {"error": f"unknown request id "
+                                          f"{body.get('id')!r}"})
+            else:
+                self._send(200, {"id": body.get("id"), "status": status})
+            return
+        self._send(404, {"error": f"no such endpoint {path!r}"})
+
+    def _stream(self, path: str, body: dict) -> None:
+        """Streaming-session endpoints. The error taxonomy
+        mirrors /submit: flow control → 429 + Retry-After (the
+        backoff-retrying client treats both surfaces uniformly),
+        sequencing conflicts → 409 carrying `expected_seq`, malformed
+        input → 400, unknown session → 404."""
+        streams = self.service.streams
+        handlers = {
+            "/stream/open": lambda: streams.open(
+                workload=str(body.get("workload", "register")),
+                units=body.get("units", 1),
+                algorithm=str(body.get("algorithm", "auto")),
+                consistency=str(body.get("consistency",
+                                         "linearizable")),
+                session_id=body.get("session"),
+                resume=bool(body.get("resume"))),
+            "/stream/append": lambda: streams.append(
+                str(body.get("session", "")), body.get("seq"),
+                body.get("ops") or [],
+                n_bytes=int(self.headers.get("Content-Length") or 0)),
+            "/stream/finish": lambda: streams.finish(
+                str(body.get("session", ""))),
+        }
+        handler = handlers.get(path)
+        if handler is None:
+            self._send(404, {"error": f"no such endpoint {path!r}"})
+            return
+        try:
+            out = handler()
+        except KeyError as e:
+            self._send(404, {"error": f"unknown stream session "
+                                      f"{e.args[0]!r}"})
+            return
+        except StreamBusy as e:
+            self._send(429, {"error": str(e),
+                             "retry_after_s": e.retry_after_s},
+                       {"Retry-After": str(max(1, int(e.retry_after_s)))})
+            return
+        except StreamConflict as e:
+            payload = {"error": str(e)}
+            if e.expected_seq is not None:
+                payload["expected_seq"] = e.expected_seq
+            self._send(409, payload)
+            return
+        except (ValueError, TypeError) as e:
+            self._send(400, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self._send(200, out)
+
+    def _submit(self, body: dict) -> None:
+        try:
+            # Inside the try: a non-numeric priority/deadline is a 400,
+            # not an aborted connection.
+            kwargs = {"algorithm": str(body.get("algorithm", "auto")),
+                      "deadline_ms": body.get("deadline_ms"),
+                      "priority": int(body.get("priority", 0)),
+                      "consistency": str(body.get("consistency",
+                                                  "linearizable"))}
+            if body.get("run_dir"):
+                req = self.service.submit_run_dir(
+                    str(body["run_dir"]), workload=body.get("workload"),
+                    **kwargs)
+            else:
+                req = self.service.submit(
+                    body.get("histories") or [],
+                    workload=str(body.get("workload", "register")),
+                    **kwargs)
+        except QueueFull as e:
+            self._send(429, {"error": str(e),
+                             "retry_after_s": e.retry_after_s},
+                       {"Retry-After": str(max(1, int(e.retry_after_s)))})
+            return
+        except ServiceStopped as e:
+            # retry_after_s surfaced exactly like the 429 path, so
+            # ServiceClient's backoff treats both uniformly.
+            self._send(503, {"error": str(e),
+                             "retry_after_s": STOPPED_RETRY_AFTER_S},
+                       {"Retry-After":
+                        str(max(1, int(STOPPED_RETRY_AFTER_S)))})
+            return
+        except (ValueError, OSError, KeyError, TypeError) as e:
+            # Malformed submissions (unknown workload, bad op rows,
+            # unreadable run dir) are client errors, not daemon faults.
+            self._send(400, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self._send(200, req.to_dict(include_results=req.cached))
+
+    def _post_frame(self, path: str) -> None:
+        """Binary-frame POSTs. The error taxonomy MIRRORS
+        the JSON handlers above per endpoint — `frame.FrameError` is a
+        ValueError, so a torn/corrupt frame lands in the same 400 arm
+        a malformed JSON body does; a client cannot tell the lanes
+        apart by failure shape."""
+        try:
+            raw = self._raw_body()
+        except ValueError as e:
+            self._send(400, {"error": f"bad request body: {e}"})
+            return
+        if path == "/submit":
+            try:
+                req = self.service.submit_frame(raw)
+            except QueueFull as e:
+                self._send(429, {"error": str(e),
+                                 "retry_after_s": e.retry_after_s},
+                           {"Retry-After":
+                            str(max(1, int(e.retry_after_s)))})
+                return
+            except ServiceStopped as e:
+                self._send(503, {"error": str(e),
+                                 "retry_after_s": STOPPED_RETRY_AFTER_S},
+                           {"Retry-After":
+                            str(max(1, int(STOPPED_RETRY_AFTER_S)))})
+                return
+            except (ValueError, OSError, KeyError, TypeError) as e:
+                self._send(400, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send(200, req.to_dict(include_results=req.cached))
+            return
+        if path == "/stream/append":
+            from .frame import FrameError, SegmentFrame, decode_frame
+
+            try:
+                fr = decode_frame(raw)
+                if not isinstance(fr, SegmentFrame):
+                    raise FrameError("expected a stream-segment frame "
+                                     "on /stream/append")
+                # idempotency digest over the RAW frame bytes: a
+                # retrying client re-sends the identical frame (the
+                # encoder is deterministic), so a post-crash duplicate
+                # compares equal — the binary twin of segment_digest.
+                out = self.service.streams.append_binary(
+                    fr.session, fr.seq, fr.units, n_bytes=len(raw),
+                    digest=hashlib.sha256(raw).hexdigest())
+            except KeyError as e:
+                self._send(404, {"error": f"unknown stream session "
+                                          f"{e.args[0]!r}"})
+                return
+            except StreamBusy as e:
+                self._send(429, {"error": str(e),
+                                 "retry_after_s": e.retry_after_s},
+                           {"Retry-After":
+                            str(max(1, int(e.retry_after_s)))})
+                return
+            except StreamConflict as e:
+                payload = {"error": str(e)}
+                if e.expected_seq is not None:
+                    payload["expected_seq"] = e.expected_seq
+                self._send(409, payload)
+                return
+            except (ValueError, TypeError) as e:
+                self._send(400, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send(200, out)
+            return
+        self._send(404, {"error": f"endpoint {path!r} does not accept "
+                                  "binary frames"})
+
+
+def make_server(service: CheckingService, host: str = "127.0.0.1",
+                port: int = 0) -> Tuple[ThreadingHTTPServer, int]:
+    """Bind the service's HTTP front (port 0 → ephemeral); the caller
+    owns `serve_forever` (thread it, as `serve_in_thread` does)."""
+    httpd = ThreadingHTTPServer((host, port),
+                                partial(_Handler, service=service))
+    return httpd, httpd.server_address[1]
+
+
+class _UnixHTTPServer(ThreadingHTTPServer):
+    """The same threading HTTP front over an AF_UNIX socket (the
+    same-host lane): identical handlers and taxonomy, no TCP stack or
+    loopback port between a co-located producer and the daemon.
+    `server_bind` skips the TCP-specific getfqdn/port derivation (an
+    AF_UNIX address is a filesystem path) and clears a STALE socket
+    file first — the normal residue of a SIGKILL'd daemon; refusing to
+    bind over it would turn every crash into a manual cleanup."""
+
+    address_family = socket.AF_UNIX
+
+    def server_bind(self):
+        path = self.server_address
+        try:
+            if stat.S_ISSOCK(os.stat(path).st_mode):
+                os.unlink(path)
+        except FileNotFoundError:
+            pass
+        # NOT os.unlink unconditionally: a regular file at the path is
+        # someone else's data — fail loudly instead of deleting it.
+        socketserver.TCPServer.server_bind(self)
+        self.server_name = "localhost"
+        self.server_port = 0
+
+
+def make_uds_server(service: CheckingService, path) -> _UnixHTTPServer:
+    """Bind the service's unix-domain-socket front at `path`; the
+    caller owns `serve_forever` and unlinking the socket after
+    `server_close`."""
+    return _UnixHTTPServer(str(path), partial(_Handler, service=service))
+
+
+def serve_uds_in_thread(service: CheckingService, path):
+    """Start the AF_UNIX front on a daemon thread; returns (httpd,
+    thread). Shut down with `httpd.shutdown(); httpd.server_close()`
+    (the socket file is unlinked by `server_close` callers — see
+    `serve_checker` — or left for the next bind's stale-socket
+    cleanup)."""
+    httpd = make_uds_server(service, path)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True,
+                         name="graftd-uds")
+    t.start()
+    return httpd, t
+
+
+def serve_checker(store_root: str = "store", host: str = "0.0.0.0",
+                  port: int = 8091,
+                  queue_capacity: Optional[int] = None,
+                  batch_wait: Optional[float] = None,
+                  n_workers: Optional[int] = None,
+                  device=None) -> int:
+    """CLI entry (`python -m jepsen_jgroups_raft_tpu_torch
+    serve-checker`): run graftd in the foreground until interrupted, on
+    `device` (None: the card, raising without one)."""
+    service = CheckingService(store_root=store_root,
+                              queue_capacity=queue_capacity,
+                              batch_wait=batch_wait,
+                              n_workers=n_workers,
+                              device=device)
+    httpd, bound = make_server(service, host, port)
+    uds_path = env_str("JGRAFT_SERVICE_UDS", "").strip()
+    uds_httpd = None
+    if uds_path:
+        uds_httpd, _uds_thread = serve_uds_in_thread(service, uds_path)
+    recovered = service.stats()["recovered_requests"]
+    print(f"graftd: checking service on http://{host}:{bound}/ "
+          f"(queue={service.queue.capacity}, "
+          f"workers={service.n_workers}, device={service.device}, "
+          f"store={store_root}, "
+          f"journal={'on' if service._journal is not None else 'off'}"
+          + (f", uds={uds_path}" if uds_path else "")
+          + (f", recovered={recovered}" if recovered else "") + ")")
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        if uds_httpd is not None:
+            uds_httpd.shutdown()
+            uds_httpd.server_close()
+            try:
+                os.unlink(uds_path)
+            except OSError:
+                pass  # already gone / replaced by a newer bind
+        service.shutdown(wait=True)
+    return 0
+
+
+def serve_in_thread(service: CheckingService, host: str = "127.0.0.1",
+                    port: int = 0):
+    """Start the HTTP front on a daemon thread; returns (httpd, port,
+    thread). Tests and chip_smoke.py use this; shut down with
+    `httpd.shutdown(); httpd.server_close()`."""
+    httpd, bound = make_server(service, host, port)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True,
+                         name="graftd-http")
+    t.start()
+    return httpd, bound, t

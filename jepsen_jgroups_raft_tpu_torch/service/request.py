@@ -1,0 +1,463 @@
+"""Request records for the checking service (the reference's
+`service/request.py`, whose fingerprints this module reproduces byte for
+byte).
+
+A submission enters graftd as raw history material (op dicts over the
+wire, `history.ops.History` objects in-process, or a recorded-run dir)
+and is normalized at ADMISSION into a `CheckRequest`: per-unit encoded
+event tensors (`history.packing.encode_history` — encoded exactly once,
+here), a content fingerprint over those tensors (the result-cache key:
+two tenants submitting byte-identical histories share one verdict), and
+scheduling metadata (deadline, priority, submit time). Everything
+downstream — bucketing, coalescing, demux — works on the encodings; the
+raw ops are kept only for the per-request trace record.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from ..checker.base import merge_valid
+from ..history.ops import History, Op
+from ..history.packing import EncodedHistory, encode_history
+
+# Request lifecycle states.
+QUEUED = "queued"
+RUNNING = "running"
+DONE = "done"
+CANCELLED = "cancelled"
+FAILED = "failed"
+
+#: Priority clamp at admission: each unit is one second of deadline
+#: credit (scheduler.PRIORITY_CREDIT_S), so ±8 bounds the head start at
+#: ±8 s — well under the 30 s aging cap, keeping the documented
+#: starvation-free guarantee true against a client-supplied flood of
+#: arbitrarily large priorities.
+MAX_PRIORITY = 8
+
+#: workload name → (model factory, values are (key, value) tuples?).
+#: The tuple-valued workloads are split per key at admission (the same
+#: independent decomposition checker/recorded.py applies to stored
+#: runs), so one submitted multi-register history becomes one check
+#: unit per key. "register"/"counter" accept plain single-key histories
+#: — the shape tests and chip_smoke.py submit.
+def service_workloads() -> dict:
+    from ..models import CasRegister, Counter, GSet, ListAppend, TicketQueue
+
+    return {
+        "register": (CasRegister, False),
+        "counter": (Counter, False),
+        "single-register": (CasRegister, True),
+        "multi-register": (CasRegister, True),
+        "set": (GSet, False),
+        "queue": (TicketQueue, False),
+        "list-append": (ListAppend, True),
+    }
+
+
+def check_algorithm(algorithm) -> str:
+    """An algorithm name of the port (`checker.linearizable.ALGORITHMS`:
+    auto, dense, cpu, dfs, race — the reference's "jax" and "pallas"
+    are not among them), or ValueError: an unknown name is refused at
+    admission (HTTP 400), never carried into a batch whose check would
+    raise and degrade."""
+    from ..checker.linearizable import ALGORITHMS
+
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r} "
+                         f"(have: {', '.join(ALGORITHMS)})")
+    return algorithm
+
+
+def history_from_dicts(rows: Sequence[dict]) -> History:
+    """Wire format → History: one op dict per row (`Op.to_dict` shape).
+    JSON has no tuples, so list-valued ops (the independent workloads'
+    (key, value) pairs) are retupled — same rule as `store.load_history`."""
+    h = History()
+    for d in rows:
+        d = dict(d)
+        if isinstance(d.get("value"), list):
+            d["value"] = tuple(d["value"])
+        h.append(Op.from_dict(d))
+    return h
+
+
+def fingerprint_encodings(model, algorithm: str,
+                          encs: Sequence[EncodedHistory],
+                          consistency: str = "linearizable") -> str:
+    """Content hash over the packed arrays of a submission — the result
+    cache key. Hashing the ENCODING (not the op dicts) makes the cache
+    insensitive to wire-level noise that cannot change the verdict
+    (timestamps, op indices of dropped fail ops) while staying sound:
+    the encoded event stream is exactly the checker's input. The
+    consistency rung is part of the identity: the same bytes checked at
+    a weaker rung are a DIFFERENT verdict — and at a weaker rung the
+    per-event process ids are hashed too, because the relaxation defers
+    FORCEs along per-process order, so two submissions with identical
+    event rows but different proc arrays genuinely have different
+    verdicts there (at the linearizable rung proc is inert and stays
+    out of the hash, preserving wire-noise insensitivity).
+
+    Zero-copy: the packed int32 buffers feed sha256 through
+    memoryviews — `hashlib.update` consumes any
+    C-contiguous buffer directly, so the per-submission `tobytes()`
+    copies of the (often multi-MB) event tensors are gone. The BYTES
+    hashed are identical, so every digest value is unchanged — the
+    content-addressed store and the WAL replay key on these values
+    (pinned by the golden-fingerprint test)."""
+    h = hashlib.sha256()
+    h.update(type(model).__name__.encode())
+    h.update(b"\x00")
+    h.update(algorithm.encode())
+    weak = consistency != "linearizable"
+    if weak:
+        h.update(b"\x00")
+        h.update(consistency.encode())
+    for e in encs:
+        h.update(memoryview(np.asarray(e.events.shape, dtype=np.int64)))
+        h.update(memoryview(np.ascontiguousarray(e.events)))
+        h.update(np.int64(e.n_slots).data)
+        if weak:
+            h.update(b"\x01" if e.proc is not None else b"\x00")
+            if e.proc is not None:
+                h.update(memoryview(np.ascontiguousarray(
+                    np.asarray(e.proc, dtype=np.int32))))
+    return h.hexdigest()
+
+
+@dataclass
+class CheckRequest:
+    """One tenant submission, admitted and encoded.
+
+    units: (label, History) pairs — one frontier-check unit each (a
+        plain submission is one unit per history; independent workloads
+        contribute one unit per key).
+    encs: the per-unit encodings, parallel to `units`.
+    deadline/submitted: monotonic seconds (scheduling only — a missed
+        deadline reorders, it never drops).
+    results: per-unit checker result dicts once DONE.
+    stats: batch-attribution stamped at demux (batched_requests,
+        batch_rows, batch_seq, the launch's labeled scan-scope counters).
+    """
+
+    id: str
+    workload: str
+    model: object
+    algorithm: str
+    units: List[tuple]
+    encs: List[EncodedHistory]
+    fingerprint: str
+    deadline: float
+    submitted: float
+    priority: int = 0
+    #: consistency ladder rung (checker/consistency.py): part of the
+    #: bucket signature (same-rung requests coalesce) and the result
+    #: fingerprint; the checker relaxes per batch, so admission keeps
+    #: the canonical linearizable encoding.
+    consistency: str = "linearizable"
+    status: str = QUEUED
+    results: Optional[List[dict]] = None
+    error: Optional[str] = None
+    cached: bool = False
+    stats: dict = field(default_factory=dict)
+    cancelled: threading.Event = field(default_factory=threading.Event)
+    #: durability/resilience lifecycle: executor deaths while this
+    #: request's batch was in flight (quarantined past the crash
+    #: cap), solo = excluded from coalescing (a poison batch is SPLIT so
+    #: innocent riders complete alone), force_host = the hung-batch
+    #: watchdog's second strike (re-run via check_encoded_host, never
+    #: the device path), watchdog_hits = strikes so far, replayed = came
+    #: back from the admission journal, attached_to = idempotent-dup
+    #: follower of the named primary request.
+    crash_count: int = 0
+    solo: bool = False
+    force_host: bool = False
+    watchdog_hits: int = 0
+    #: monotonic time the CURRENT execution began (scheduler.execute
+    #: stamps it beside the RUNNING flip). The watchdog strikes only
+    #: when the EXECUTION has been running past the margin — a request
+    #: that merely waited out its deadline in a backlogged queue is
+    #: late, not hung, and demoting healthy workers for it would
+    #: amplify the overload.
+    run_started: float = 0.0
+    replayed: bool = False
+    attached_to: Optional[str] = None
+    #: transactional-anomaly overlay: stamped at ADMISSION for
+    #: txn_anomaly_capable models (list-append) from the UNDECOMPOSED
+    #: multi-key histories — the per-key units cannot see cross-key
+    #: cycles, and the fingerprint hashes only per-unit encodings, so
+    #: this rides outside the result cache on purpose: a cached unit
+    #: result-set stays reusable while the overlay is recomputed per
+    #: submission (two submissions CAN share per-key encodings yet
+    #: differ in cross-key session order). The binary lane
+    #: (admit_encoded) ships encodings only, so it has no overlay.
+    txn_anomalies: Optional[dict] = None
+    _done: threading.Event = field(default_factory=threading.Event)
+    _finish_lock: threading.Lock = field(default_factory=threading.Lock)
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.encs)
+
+    @property
+    def terminal(self) -> bool:
+        """True once a terminal state landed (first-wins `finish`)."""
+        return self._done.is_set()
+
+    def verdict(self):
+        """Merged validity over the request's units (checker.base rule:
+        any INVALID → INVALID, else any non-VALID → UNKNOWN), folded
+        with the admission-time transactional-anomaly overlay — a
+        cross-key G0/G1c/G-single refutes the submission even when
+        every per-key unit passes its rung."""
+        if self.results is None:
+            return None
+        base = merge_valid(r.get("valid?") for r in self.results)
+        if self.txn_anomalies is not None:
+            return merge_valid([base,
+                                self.txn_anomalies.get("valid?", True)])
+        return base
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the request reaches a terminal state."""
+        return self._done.wait(timeout)
+
+    def finish(self, status: str, results: Optional[List[dict]] = None,
+               error: Optional[str] = None) -> bool:
+        # FIRST terminal state wins (returns False on a late loser): a
+        # hung batch the watchdog requeued executes at-least-once, and
+        # whichever execution finishes first owns the client-visible
+        # result — the stale twin's finish must not overwrite it
+        # (at-most-once client-visible result, doc/checker-design.md
+        # §11). Results/error land BEFORE the terminal status: a
+        # concurrent reader polling `status` (the HTTP surface's
+        # to_dict without wait_s) must never observe a terminal state
+        # whose results are still missing.
+        with self._finish_lock:
+            if self._done.is_set():
+                return False
+            self.results = results
+            self.error = error
+            self.status = status
+            self._done.set()
+            return True
+
+    def to_dict(self, include_results: bool = True) -> dict:
+        d = {
+            "id": self.id,
+            "status": self.status,
+            "workload": self.workload,
+            "algorithm": self.algorithm,
+            "consistency": self.consistency,
+            "units": [label for label, _ in self.units],
+            "fingerprint": self.fingerprint,
+            "priority": self.priority,
+            "cached": self.cached,
+        }
+        if self.error is not None:
+            d["error"] = self.error
+        if self.replayed:
+            d["replayed"] = True
+        if self.attached_to is not None:
+            d["attached_to"] = self.attached_to
+        if self.stats:
+            d["service-stats"] = dict(self.stats)
+        if self.txn_anomalies is not None:
+            d["txn-anomalies"] = self.txn_anomalies
+        if include_results and self.results is not None:
+            d["valid?"] = self.verdict()
+            d["results"] = self.results
+        return d
+
+
+def build_units(histories: Sequence, workload: str):
+    """Normalize raw submission material into (model, units): the
+    workload's model instance plus (label, History) pairs — one
+    frontier-check unit each, independent workloads split per key.
+    ONE home for the unit decomposition, shared by server-side `admit`
+    and the binary lane's CLIENT-side encoder: both sides must derive
+    identical unit lists from identical histories, or the server-derived
+    fingerprint would diverge from the JSON path's."""
+    workloads = service_workloads()
+    if workload not in workloads:
+        raise ValueError(f"unknown workload {workload!r} "
+                         f"(have: {', '.join(sorted(workloads))})")
+    model_factory, independent = workloads[workload]
+    model = model_factory()
+    units: List[tuple] = []
+    for i, h in enumerate(histories):
+        if not isinstance(h, History):
+            h = history_from_dicts(h)
+        h = h.client_ops()
+        if independent:
+            from ..checker.independent import split_by_key
+
+            for key, sub in sorted(split_by_key(h).items(),
+                                   key=lambda kv: str(kv[0])):
+                units.append((f"h{i}/key={key}", sub))
+        else:
+            units.append((f"h{i}", h))
+    if not units:
+        raise ValueError("empty submission: no checkable history units")
+    return model, units
+
+
+def admit(histories: Sequence, workload: str, algorithm: str = "auto",
+          deadline_ms: Optional[float] = None, priority: int = 0,
+          default_deadline_s: float = 3600.0,
+          request_id: Optional[str] = None,
+          consistency: str = "linearizable") -> CheckRequest:
+    """Normalize a submission into a CheckRequest (encode once +
+    fingerprint). `histories` items are History objects or op-dict
+    lists. Raises ValueError on unknown workloads / malformed ops /
+    unknown consistency rungs — the HTTP surface maps that to 400,
+    never into the queue."""
+    from ..checker.consistency import normalize_consistency
+
+    consistency = normalize_consistency(consistency)
+    check_algorithm(algorithm)
+    model, units = build_units(histories, workload)
+    encs = [encode_history(h, model) for _, h in units]
+    txn = None
+    if getattr(model, "txn_anomaly_capable", False):
+        # host-only (kernel=False inside): Tarjan + numpy closure on
+        # the admission thread, never a device launch
+        from ..checker.anomaly import certify_submission
+
+        txn = certify_submission([
+            (h if isinstance(h, History) else
+             history_from_dicts(h)).client_ops()
+            for h in histories])
+    now = time.monotonic()  # admission timestamp (txn overlay above)
+    deadline = now + (deadline_ms / 1000.0 if deadline_ms is not None
+                      else default_deadline_s)
+    return CheckRequest(
+        id=request_id or uuid.uuid4().hex[:12],
+        workload=workload,
+        model=model,
+        algorithm=algorithm,
+        units=units,
+        encs=encs,
+        fingerprint=fingerprint_encodings(model, algorithm, encs,
+                                          consistency),
+        deadline=deadline,
+        submitted=now,
+        priority=clamp_priority(priority),
+        consistency=consistency,
+        txn_anomalies=txn,
+    )
+
+
+def admit_encoded(workload: str, labels: Sequence[str],
+                  encs: Sequence[EncodedHistory],
+                  algorithm: str = "auto",
+                  deadline_ms: Optional[float] = None, priority: int = 0,
+                  default_deadline_s: float = 3600.0,
+                  consistency: str = "linearizable",
+                  claimed_fingerprint: Optional[str] = None) -> CheckRequest:
+    """Admit a CLIENT-encoded submission (the binary frame lane): the
+    per-unit encodings arrive already packed, so admission
+    skips the encode entirely — but NEVER the fingerprint. The digest
+    is re-derived here over the received tensor bytes, exactly the
+    computation the JSON path runs on its own encode output, so a
+    client lying about its payload (or its claimed fingerprint) can
+    only corrupt its own verdict: every cache/store/WAL key is the
+    server-derived value (doc/checker-design.md §20). A claimed
+    fingerprint that disagrees is recorded in the request's stats
+    (operators can alarm on it) and otherwise ignored.
+
+    Like journal replay (`journal.decode_request`), the units carry
+    empty History placeholders — raw ops stay client-side by design,
+    so the trace record has no history.jsonl and counterexample
+    minimization is skipped for frame submissions."""
+    from ..checker.consistency import normalize_consistency
+
+    consistency = normalize_consistency(consistency)
+    check_algorithm(algorithm)
+    workloads = service_workloads()
+    if workload not in workloads:
+        raise ValueError(f"unknown workload {workload!r} "
+                         f"(have: {', '.join(sorted(workloads))})")
+    model = workloads[workload][0]()
+    if not encs:
+        raise ValueError("empty submission: no checkable history units")
+    if len(labels) != len(encs):
+        raise ValueError(f"{len(labels)} labels for {len(encs)} "
+                         "encodings")
+    fingerprint = fingerprint_encodings(model, algorithm, encs,
+                                        consistency)
+    now = time.monotonic()
+    deadline = now + (deadline_ms / 1000.0 if deadline_ms is not None
+                      else default_deadline_s)
+    req = CheckRequest(
+        id=uuid.uuid4().hex[:12],
+        workload=workload,
+        model=model,
+        algorithm=algorithm,
+        units=[(str(label), History()) for label in labels],
+        encs=list(encs),
+        fingerprint=fingerprint,
+        deadline=deadline,
+        submitted=now,
+        priority=clamp_priority(priority),
+        consistency=consistency,
+    )
+    if claimed_fingerprint is not None \
+            and claimed_fingerprint != fingerprint:
+        # keyed on the server's digest regardless; the mismatch is
+        # evidence, not an error (a 400 would let a prober distinguish
+        # digests it does not hold the preimage of)
+        req.stats["fingerprint_mismatch"] = True
+    return req
+
+
+def clamp_priority(priority) -> int:
+    return max(-MAX_PRIORITY, min(MAX_PRIORITY, int(priority)))
+
+
+def admit_run_dir(run_dir, algorithm: str = "auto",
+                  deadline_ms: Optional[float] = None, priority: int = 0,
+                  workload: Optional[str] = None,
+                  default_deadline_s: float = 3600.0,
+                  consistency: str = "linearizable") -> CheckRequest:
+    """Admit a recorded-run directory (store/<name>/<ts>/): load the
+    stored history, split per key exactly like `checker/recorded.py`,
+    and check it as one request. The service's re-verification surface
+    for artifacts a live run already produced."""
+    from ..checker.consistency import normalize_consistency
+    from ..checker.recorded import load_run_histories
+    from ..models.base import Model
+
+    consistency = normalize_consistency(consistency)
+    check_algorithm(algorithm)
+    model, subs, wl = load_run_histories(run_dir, workload)
+    if not isinstance(model, Model):
+        raise ValueError(
+            f"{run_dir}: workload {wl!r} uses a non-frontier checker; "
+            "re-verify it with `python -m jepsen_jgroups_raft_tpu_torch check`")
+    units = [(f"{wl}/u{i}", h) for i, h in enumerate(subs)]
+    encs = [encode_history(h, model) for _, h in units]
+    now = time.monotonic()
+    deadline = now + (deadline_ms / 1000.0 if deadline_ms is not None
+                      else default_deadline_s)
+    return CheckRequest(
+        id=uuid.uuid4().hex[:12],
+        workload=wl,
+        model=model,
+        algorithm=algorithm,
+        units=units,
+        encs=encs,
+        fingerprint=fingerprint_encodings(model, algorithm, encs,
+                                          consistency),
+        deadline=deadline,
+        submitted=now,
+        priority=clamp_priority(priority),
+        consistency=consistency,
+    )

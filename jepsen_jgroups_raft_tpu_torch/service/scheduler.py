@@ -1,0 +1,581 @@
+"""Batching scheduler: cross-request coalescing over the chunked scan
+(the reference's `service/scheduler.py`, on the service's device).
+
+The checker's substrate — chunked `ChunkLaunch` dispatch with
+decided-row eviction, pow2+midpoint shape buckets, macro-event
+compaction — amortizes kernel work across the ROWS of one caller's
+batch. This module extends the amortization across CALLERS: pending
+requests whose encodings pack into the same shape bucket are coalesced
+into one `check_encoded` batch, so many small tenant histories ride a
+single dense/mask/sort launch on the card; per-request verdicts are
+demuxed back by row count after the wavefront evicts them.
+
+Threads on the card: the batch runs on whichever thread executes it
+(the dispatcher, a shard executor, a watchdog replacement). PyTorch's
+current device and stream are per thread, so every check enters the
+service's device and launches on a CUDA stream owned by its thread; a
+batch the watchdog gave up on keeps its own stream and its own
+tensors, apart from its replacement's.
+
+Soundness of the coalescing (doc/checker-design.md §8): every kernel
+family treats the batch axis as fully independent — rows never exchange
+state (frontier carries are per-row, eviction/recompaction is a gather
+over rows, window grouping only re-orders rows between launches) — so
+the verdict of a row is a function of that row's event stream alone,
+and a demuxed verdict is bitwise-identical to the verdict of the same
+history checked in isolation (pinned by tests/test_torch_service.py).
+
+Ordering: requests are served by EFFECTIVE deadline
+``min(deadline, submitted + aging_cap) - priority_credit·priority`` —
+the deadline drives urgency, the aging cap bounds how long a
+far-deadline request can be overtaken (starvation-free: after
+`AGING_CAP_S` of waiting, a request's key stops growing and arrival
+time breaks ties), and priority buys a fixed head start rather than a
+strict class (a priority flood cannot starve the plain tier forever).
+A batch is formed from the head request's shape bucket; when it is
+small and the head deadline is not imminent, the scheduler lingers
+``JGRAFT_SERVICE_BATCH_WAIT_MS`` for more same-bucket arrivals — the
+classic batching-window trade (latency of the head vs occupancy of the
+launch).
+
+Resilience: an injected ``check_fn`` seam that fails MID-CHECK, or the
+default check path failing on a CPU device, degrades the batch to the
+host-only ladder (`checker.linearizable.check_encoded_host` — CPU
+frontier, budgeted DFS), stamping ``platform-degraded`` into every
+affected result; the request completes with a sound verdict instead of
+erroring. On the card the default check path never degrades: a kernel
+fault, an illegal address, an out-of-memory error or a batch the
+watchdog gave up on twice is raised, and the batch's requests fail
+with the cause. A kernel that does not build or load
+(`ops._build.KernelBuildError`) is never degraded on any device: the
+requests fail with the build log's tail.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import threading
+import time
+from typing import Callable, List, Optional
+
+import torch
+
+from ..checker import autotune
+from ..checker.schedule import stats_scope
+from ..history.packing import bucket_rows
+from ..ops._build import KernelBuildError
+from ..platform import env_int
+from .admission import AdmissionQueue
+from .request import CANCELLED, DONE, FAILED, RUNNING, CheckRequest
+
+LOG = logging.getLogger("jgraft.service")
+
+#: Default linger for batch formation (ms). Small against check time,
+#: large against localhost submit bursts: concurrent tenants submitting
+#: within one RPC round trip coalesce, a lone request pays ≤ this.
+DEFAULT_BATCH_WAIT_MS = 50
+
+#: A request waiting this long is as urgent as scheduling ever treats
+#: it (its effective deadline stops receding) — the starvation bound.
+AGING_CAP_S = 30.0
+
+#: Seconds of deadline credit per priority unit.
+PRIORITY_CREDIT_S = 1.0
+
+#: Cap on rows (check units) per coalesced launch batch.
+DEFAULT_MAX_BATCH_ROWS = 256
+
+
+class WatchdogDegrade(Exception):
+    """Internal signal: the hung-batch watchdog marked this retry
+    ``force_host`` — route it through the same degrade arm a dying
+    device path takes (host ladder + ``platform-degraded`` stamp, never
+    cached), or, where the batch may not degrade, fail it."""
+
+
+class ShardLoads:
+    """Load accounting for graftd's worker shards. A shard is one
+    execution lane — one worker thread, on the service's device — and
+    its load is the rows dispatched to it and
+    not yet finished. `least_loaded` is the routing rule the daemon's
+    dispatcher applies to every formed batch: independent shape-bucket
+    batches land on different shards and check CONCURRENTLY instead of
+    serializing through one worker. Deterministic (ties break to the
+    lowest shard id) so placement is testable; thread-safe (the
+    executors release from their own threads)."""
+
+    def __init__(self, n_shards: int):
+        self.n_shards = max(1, int(n_shards))
+        self._loads = [0] * self.n_shards  # guarded_by(_lock)
+        self._lock = threading.Lock()
+
+    def least_loaded(self) -> int:
+        with self._lock:
+            return min(range(self.n_shards), key=lambda k: self._loads[k])
+
+    def add(self, shard: int, rows: int) -> None:
+        with self._lock:
+            self._loads[shard] += rows
+
+    def done(self, shard: int, rows: int) -> None:
+        with self._lock:
+            self._loads[shard] = max(0, self._loads[shard] - rows)
+
+    def snapshot(self) -> List[int]:
+        with self._lock:
+            return list(self._loads)
+
+
+def batch_wait_s() -> float:
+    """Resolved linger window (JGRAFT_SERVICE_BATCH_WAIT_MS; defensive
+    parse — garbage warns and keeps the default)."""
+    return env_int("JGRAFT_SERVICE_BATCH_WAIT_MS", DEFAULT_BATCH_WAIT_MS,
+                   minimum=0) / 1000.0
+
+
+def effective_deadline(req: CheckRequest,
+                       aging_cap_s: float = AGING_CAP_S) -> float:
+    """Scheduling key (smaller = sooner). See module docstring."""
+    return (min(req.deadline, req.submitted + aging_cap_s)
+            - PRIORITY_CREDIT_S * req.priority)
+
+
+def bucket_signature(req: CheckRequest) -> tuple:
+    """Shape bucket a request's rows pack into — the coalescing key.
+
+    Two requests with the same signature ride one `check_encoded` batch
+    whose group packing pads them into shared jit-cache shapes: same
+    model family (one kernel family), same algorithm, the same
+    consistency rung (a weaker rung relaxes the WHOLE batch's streams
+    before the kernels see them — checker/consistency.py — so mixed
+    rungs cannot share a launch), and the same pow2+midpoint EVENT
+    bucket (`bucket_rows(E, 32)` — the floor_e=32 series
+    `pad_batch_bucketed` pads short groups to). Window grouping inside
+    the checker re-buckets rows further by concurrency window; that is
+    invisible here because it happens after concatenation. Mixed-MODEL
+    submissions need no scheduler changes: different models simply form
+    different buckets, each riding the same formation/linger/execute
+    machinery."""
+    e_max = max((e.n_events for e in req.encs), default=0)
+    return (type(req.model).__name__, req.algorithm, req.consistency,
+            bucket_rows(max(e_max, 1), 32))
+
+
+class BatchScheduler:
+    """Forms and executes coalesced batches from an AdmissionQueue."""
+
+    def __init__(self, queue: AdmissionQueue,
+                 check_fn: Optional[Callable] = None,
+                 host_fallback: Optional[Callable] = None,
+                 max_batch_rows: Optional[int] = None,
+                 batch_wait: Optional[float] = None,
+                 aging_cap_s: float = AGING_CAP_S,
+                 device=None):
+        from ..checker.linearizable import check_encoded, check_encoded_host
+        from ..platform import resolve_device
+
+        #: where every batch checks: the card unless the service was
+        #: built with device="cpu" (no card raises, never falls back)
+        self.device = resolve_device(device)
+        dev = self.device
+
+        def _check_local(encs, model, algorithm="auto",
+                         consistency="linearizable", lin_fastpath=None):
+            # distribute=False: graftd's admission queue is HOST-local
+            # — different daemon processes hold different batches, so
+            # the cross-host SPMD seam (which barriers on every process
+            # checking the SAME batch) would deadlock a clustered
+            # daemon. Multi-host graftd is shard-routed per host
+            # instead: one daemon per host, each with its own workers
+            # (doc/checker-design.md §10).
+            return check_encoded(encs, model, algorithm=algorithm,
+                                 device=dev, distribute=False,
+                                 consistency=consistency,
+                                 lin_fastpath=lin_fastpath)
+
+        #: device-path seam (tests inject failures / gates here).
+        self.check_fn = check_fn or _check_local
+        self.host_fallback = host_fallback or check_encoded_host
+        #: graftd fast lane: enabled only on the DEFAULT
+        #: check path — an injected check_fn is a test/ops seam that
+        #: must observe every batch, so the lane never short-circuits
+        #: it. `_default_host_fallback` gates whether the degrade arm
+        #: may receive the lin_fastpath kwarg (an injected fallback
+        #: predates it).
+        self.fastlane_enabled = check_fn is None
+        self._default_host_fallback = host_fallback is None
+        #: whether a failed check may take the host ladder: only for an
+        #: injected seam, or where the batch's tensors are on the host
+        #: anyway. On the card the default path's failures are raised —
+        #: the host ladder must not hide a kernel's own fault.
+        self.host_degrade = (check_fn is not None
+                             or self.device.type != "cuda")
+        self.max_batch_rows = (max_batch_rows if max_batch_rows is not None
+                               else env_int("JGRAFT_SERVICE_MAX_BATCH_ROWS",
+                                            DEFAULT_MAX_BATCH_ROWS,
+                                            minimum=1))
+        self.batch_wait = (batch_wait if batch_wait is not None
+                           else batch_wait_s())
+        self.aging_cap_s = aging_cap_s
+        self.queue = queue
+        self._seq = 0  # guarded_by(_seq_lock)
+        self._seq_lock = threading.Lock()
+        #: this thread's CUDA stream (one per executing thread)
+        self._tls = threading.local()
+
+    @contextlib.contextmanager
+    def launch_scope(self):
+        """Enter the service's device on this thread and make the
+        thread's own CUDA stream current (created at its first batch);
+        nothing on a CPU device. Every kernel wrapper launches on the
+        current stream and reads its result back before the check
+        returns, so nothing a batch launched outlives its scope."""
+        if self.device.type != "cuda":
+            yield
+            return
+        stream = getattr(self._tls, "stream", None)
+        if stream is None:
+            stream = self._tls.stream = torch.cuda.Stream(self.device)
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            yield
+
+    # ------------------------------------------------------ formation
+
+    def _choose(self, pending: List[CheckRequest]) -> List[CheckRequest]:
+        """Head request by effective deadline, plus every same-bucket
+        request that fits the row cap, in deadline order. A ``solo``
+        request (poison-batch quarantine split, watchdog force-host
+        retry) never coalesces: it forms a singleton batch so
+        a deterministically-crashing rider cannot take innocent
+        neighbors down with it again."""
+        ordered = sorted(pending, key=lambda r: (
+            effective_deadline(r, self.aging_cap_s), r.submitted))
+        head = ordered[0]
+        if head.solo:
+            return [head]
+        sig = bucket_signature(head)
+        batch, rows = [], 0
+        for r in ordered:
+            if r.solo or bucket_signature(r) != sig:
+                continue
+            if batch and rows + r.n_rows > self.max_batch_rows:
+                break
+            batch.append(r)
+            rows += r.n_rows
+        return batch
+
+    def fastlane(self, batch: List[CheckRequest]
+                 ) -> tuple[List[CheckRequest], List[CheckRequest]]:
+        """graftd fast lane: certify each popped request's
+        rows on the host BEFORE the batch lingers, occupies a shard
+        queue, or launches a kernel. Returns ``(decided, live)`` —
+        decided requests are already finished DONE (sub-batch-latency
+        verdicts; the daemon accounts/traces them), live ones proceed
+        to the ordinary coalesced launch with the redundant in-checker
+        fast path suppressed (execute passes ``lin_fastpath=False``).
+
+        All-or-nothing per request: a partially-certifiable request
+        stays live whole — its rows ride one launch and demux by row
+        count, so evicting a subset would tear the fingerprint/trace
+        contract. The abort budget + per-bucket gating inside
+        `lin_fastpath_pass` bound what a hopeless request costs here.
+        Tier attribution is noted HERE, only for delivered requests
+        (``note=False`` in the pass): a discarded partial result's
+        rows are decided — and attributed — by the kernel launch they
+        proceed to, never double-counted."""
+        from ..checker.linearizable import (LIN_FASTPATH_ALGOS,
+                                            lin_fastpath_on,
+                                            lin_fastpath_pass)
+        from ..checker.schedule import note_tier
+
+        if not batch or not self.fastlane_enabled \
+                or not lin_fastpath_on():
+            return [], batch
+        from ..checker.base import VALID
+
+        decided, live = [], []
+        for r in batch:
+            if (r.terminal or r.cancelled.is_set()
+                    or r.consistency != "linearizable"
+                    or r.algorithm not in LIN_FASTPATH_ALGOS
+                    or r.force_host or not r.encs):
+                live.append(r)
+                continue
+            t0 = time.monotonic()
+            rs = lin_fastpath_pass(r.encs, r.model, note=False)
+            # the pass deliberately leaves 0-event rows undecided (the
+            # kernel path stamps them "trivial"); here they are
+            # host-decidable for free and must not force an otherwise
+            # fully-certified request onto the batch path
+            for j, enc in enumerate(r.encs):
+                if rs[j] is None and enc.n_events <= 0:
+                    rs[j] = {"valid?": VALID, "algorithm": "trivial",
+                             "op-count": 0, "decided-tier": "trivial"}
+            # the lane SCANNED this request: execute() may suppress the
+            # redundant in-checker re-scan for it (and only for it)
+            r._fp_tried = True
+            if not all(res is not None for res in rs):
+                live.append(r)
+                continue
+            wall = time.monotonic() - t0
+            # honor a cancel that landed DURING the scan — the batch
+            # path's demux re-checks at the same point (first-wins
+            # finish keeps the race harmless either way)
+            if r.cancelled.is_set():
+                r.finish(CANCELLED)
+                decided.append(r)
+                continue
+            tiers: dict = {}
+            for res in rs:
+                t = res["decided-tier"]
+                tiers[t] = tiers.get(t, 0) + 1
+                note_tier(t, wall_s=wall / max(len(rs), 1))
+            r.stats = {
+                "fastlane": True,
+                "batched_requests": 0,
+                "batch_rows": r.n_rows,
+                "batch_wall_s": round(wall, 4),
+                "decided_tier": tiers,
+                "placement": {"shard": None, "n_shards": 0},
+                "degraded": False,
+            }
+            r.finish(DONE, results=rs)
+            decided.append(r)
+        return decided, live
+
+    def next_batch(self, timeout: float,
+                   on_decided=None) -> List[CheckRequest]:
+        """Block up to `timeout` for a batch. After the first pick, if
+        the launch is far from full and the head's deadline allows,
+        linger one batch-wait window and sweep in same-bucket arrivals
+        (deadline order is preserved: the linger only ever ADDS rows to
+        the head's launch, it never reorders across buckets).
+
+        ``on_decided``: when given, the fast lane certifies
+        the popped requests FIRST — before the linger, so a decided
+        request's latency is the host scan, not the batching window —
+        and decided requests are delivered to the callback instead of
+        the returned batch (linger top-ups ride the lane too)."""
+        batch = self.queue.take(self._choose, timeout)
+        if not batch:
+            return batch
+        if on_decided is not None:
+            done, batch = self.fastlane(batch)
+            if done:
+                on_decided(done)
+            if not batch:
+                return []
+        head = batch[0]
+        rows = sum(r.n_rows for r in batch)
+        slack = head.deadline - time.monotonic()
+        if (self.batch_wait > 0 and rows < self.max_batch_rows
+                and not head.solo and slack > self.batch_wait):
+            time.sleep(self.batch_wait)
+            sig = bucket_signature(head)
+
+            def topup(pending: List[CheckRequest]) -> List[CheckRequest]:
+                extra, extra_rows = [], rows
+                for r in sorted(pending, key=lambda r: (
+                        effective_deadline(r, self.aging_cap_s),
+                        r.submitted)):
+                    if r.solo or bucket_signature(r) != sig:
+                        continue
+                    if extra_rows + r.n_rows > self.max_batch_rows:
+                        break
+                    extra.append(r)
+                    extra_rows += r.n_rows
+                return extra
+
+            extra = self.queue.take(topup, timeout=0.0)
+            if on_decided is not None and extra:
+                done, extra = self.fastlane(extra)
+                if done:
+                    on_decided(done)
+            batch.extend(extra)
+        # Requests cancelled between pop and here stay in the batch:
+        # execute() finalizes them as CANCELLED (dropping them silently
+        # would leave their waiters blocked forever).
+        return batch
+
+    # ------------------------------------------------------ execution
+
+    def execute(self, batch: List[CheckRequest],
+                placement: Optional[dict] = None) -> dict:
+        """Run one coalesced batch and demux; returns batch-level stats
+        for the daemon's counters. Cancelled requests are finalized
+        without results (a cancel landing mid-chunk is honored at
+        demux: the row work is already spent, the verdict is simply
+        not delivered). `placement` (the daemon's shard-routing record:
+        shard id, shard count, loads at dispatch) is stamped into every
+        request's stats so a tenant's trace shows WHERE its launch ran."""
+        live = []
+        for r in batch:
+            if r.terminal:
+                # stale watchdog-requeue twin: the other copy already
+                # delivered the client-visible result (finish is
+                # first-wins) — nothing to execute or finalize.
+                continue
+            if r.cancelled.is_set():
+                r.finish(CANCELLED)
+            else:
+                r.status = RUNNING
+                r.run_started = time.monotonic()
+                live.append(r)
+        if not live:
+            return {"requests": 0, "rows": 0, "degraded": False,
+                    "wall_s": 0.0, "tiers": {}}
+        with self._seq_lock:
+            self._seq += 1
+            seq = self._seq
+        encs = [e for r in live for e in r.encs]
+        model = live[0].model
+        algorithm = live[0].algorithm
+        consistency = live[0].consistency
+        # Weaker-rung batches pass the knob through; the default rung
+        # keeps the historical check_fn arity (injected seams predate
+        # the consistency parameter).
+        check_kw = ({"consistency": consistency}
+                    if consistency != "linearizable" else {})
+        if consistency == "linearizable" and self.fastlane_enabled \
+                and live and all(getattr(r, "_fp_tried", False)
+                                 for r in live):
+            # the dispatch fast lane actually SCANNED every
+            # request in this batch — the in-checker fast path
+            # re-scanning them inside check_encoded would be the
+            # a double scan. Requests the
+            # lane skipped WITHOUT scanning (force_host retries,
+            # cancelled-at-pop, non-kernel algorithms) keep the
+            # checker/host-ladder fast path: for them nothing was
+            # tried yet. Only on the default check path (injected
+            # seams keep their arity).
+            check_kw["lin_fastpath"] = False
+        host_kw = dict(check_kw)
+        if not self._default_host_fallback:
+            host_kw.pop("lin_fastpath", None)
+        label = "graftd:" + ",".join(r.id for r in live)
+        degraded_note_local = None
+        # Autotune consult marker: the checker applies per-bucket
+        # plans inside check_encoded; snapshot the applied-plan SEQUENCE
+        # (not the bounded log's length — that pins at the bound once
+        # trimming starts). Entries are additionally filtered to THIS
+        # thread: with multiple shard executors running
+        # concurrently, "everything after the mark" would include
+        # neighbor shards' plans — the thread filter keeps each batch's
+        # stamp to exactly the plans its own launch consulted.
+        autotune_mark = autotune.applied_seq()
+        t0 = time.monotonic()
+        with stats_scope(label=label) as scan:
+            try:
+                if any(r.force_host for r in live):
+                    # Hung-batch watchdog second strike: the
+                    # first requeue re-ran the device path and it hung
+                    # again, so this retry goes STRAIGHT to the bounded
+                    # host ladder — a slower sound verdict instead of a
+                    # third chance to wedge a shard. Raising
+                    # WatchdogDegrade reuses the degrade arm below
+                    # verbatim (stamped degraded, therefore never
+                    # cached); on the card's default path that arm
+                    # fails the batch instead.
+                    raise WatchdogDegrade(
+                        "hung batch exceeded its deadline twice; "
+                        "watchdog forced the host ladder")
+                with self.launch_scope():
+                    results = self.check_fn(encs, model,
+                                            algorithm=algorithm,
+                                            **check_kw)
+            except Exception as e:
+                if isinstance(e, KernelBuildError) \
+                        or not self.host_degrade:
+                    # a kernel that does not build or load, or any
+                    # failure of the card's default path, is the port's
+                    # fault: the requests fail loudly instead of taking
+                    # a host verdict
+                    raise
+                # An injected seam (or the CPU device's default path)
+                # died mid-check: degrade THIS batch to the host-only
+                # ladder — a slower sound verdict beats a failed
+                # request. The stamp is LOCAL to this batch's results.
+                LOG.warning("graftd batch seq=%d device path failed; "
+                            "degrading %d rows to host CPU",
+                            seq, len(encs), exc_info=True)
+                degraded_note_local = (
+                    f"graftd degraded to host CPU mid-check: "
+                    f"{type(e).__name__}: {e}"[:300])
+                results = [self.host_fallback(enc, model, **host_kw)
+                           for enc in encs]
+                for res in results:
+                    res["platform-degraded"] = degraded_note_local
+        wall = time.monotonic() - t0
+        scan_counters = {k: v for k, v in scan.items()
+                         if k not in ("label", "tiers")}
+        autotune_plans = autotune.applied_since(
+            autotune_mark, thread_id=threading.get_ident())
+        batch_tiers: dict = {}
+        cursor = 0
+        for r in live:
+            mine = results[cursor:cursor + r.n_rows]
+            cursor += r.n_rows
+            # Tier attribution: which decision-ladder tier
+            # decided each of this request's rows — the per-request
+            # trace record's capacity-model evidence, aggregated
+            # daemon-wide into /stats decided_tier.
+            tiers: dict = {}
+            for res in mine:
+                t = res.get("decided-tier") if res else None
+                if t is not None:
+                    tiers[t] = tiers.get(t, 0) + 1
+                    batch_tiers[t] = batch_tiers.get(t, 0) + 1
+            r.stats = {
+                "batched_requests": len(live),
+                "batch_rows": len(encs),
+                "batch_seq": seq,
+                "batch_wall_s": round(wall, 4),
+                "scan": dict(scan_counters, label=label),
+                "autotune_plans": autotune_plans,
+                "decided_tier": tiers,
+                "placement": dict(placement) if placement else
+                {"shard": 0, "n_shards": 1},
+                "degraded": degraded_note_local is not None,
+            }
+            if r.cancelled.is_set():
+                r.finish(CANCELLED)
+            elif any(res is None for res in mine):
+                r.finish(FAILED, error="checker returned no verdict")
+            else:
+                self._attach_counterexamples(r, mine)
+                r.finish(DONE, results=mine)
+        return {"requests": len(live), "rows": len(encs),
+                "degraded": degraded_note_local is not None,
+                "wall_s": wall, "seq": seq, "tiers": batch_tiers}
+
+    #: Skip counterexample minimization for units beyond this many ops:
+    #: the greedy pair-drop is bounded anyway (counterexample.py caps),
+    #: but even the suffix-truncation re-search costs a CPU frontier
+    #: pass — a tenant submitting huge invalid histories should not
+    #: stall the shard's demux.
+    MAX_COUNTEREXAMPLE_OPS = 2048
+
+    def _attach_counterexamples(self, r: CheckRequest, mine: list) -> None:
+        """A `fail` verdict leaving graftd (result record AND trace
+        record — the daemon writes traces from the same result lists)
+        carries the minimized witness (checker/counterexample.py), not a
+        raw op dump. Best-effort:
+        explanation failures must never take down a sound verdict."""
+        from ..checker.base import INVALID
+        from ..checker.counterexample import attach_counterexample
+        from ..checker.linearizable import DEFAULT_MAX_CPU_CONFIGS
+
+        for (label, hist), res in zip(r.units, mine):
+            if res.get("valid?") is not INVALID:
+                continue
+            if res.get("op-count", 0) > self.MAX_COUNTEREXAMPLE_OPS:
+                continue
+            try:
+                attach_counterexample(res, hist, r.model,
+                                      max_cpu_configs=
+                                      DEFAULT_MAX_CPU_CONFIGS,
+                                      consistency=r.consistency)
+            except Exception:
+                LOG.warning("counterexample attach failed for %s/%s",
+                            r.id, label, exc_info=True)

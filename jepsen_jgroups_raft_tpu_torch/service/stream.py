@@ -1,0 +1,1465 @@
+"""Streaming verdict sessions: crash-resumable online checking (the
+reference's `service/stream.py`, on the service's device).
+
+A batch submission is a complete history or nothing; a *stream session*
+is a history checked WHILE it is produced. The client opens a session,
+appends op segments carrying client-assigned monotonically increasing
+sequence numbers, and reads the session's live verdict from every
+append response (and ``/stream/status``): a violation surfaces at the
+earliest segment where it becomes decidable — mid-run, with a minimized
+counterexample — not at ``/stream/finish``.
+
+The machinery is the staged substrate re-entered across process and
+segment boundaries:
+
+* **Incremental encoding** — `history.packing.IncrementalEncoder` emits
+  the SETTLED suffix of the one-shot event stream per append (an op's
+  event content is final once its completion is recorded; settled
+  events are prefix-stable under appends).
+* **Resumable certifier fast path** — the value-guided
+  bounded-backtrack certifier runs per segment as a RESUMABLE carry
+  (`checker.consistency.StreamingCertifier`): its (state,
+  done-set, pending, backtrack frame) persists between appends next to
+  the kernel carry below, so an append costs O(segment) instead of the
+  per-append restart's O(history). Most valid sessions never launch a
+  kernel at all; certifications are tier-stamped ``greedy@lin`` /
+  ``backtrack@lin`` (a stream session certifies the linearizable
+  rung).
+* **Carried chunk scan** — once greedy declines (or the stream outgrows
+  its cap), `checker.schedule.CarriedScan` owns the chunked wavefront's
+  ``{inner, left}`` carry BETWEEN appends: each segment's new events
+  advance the same scan-step sequence one uninterrupted scan would run,
+  so mid-stream flags are the frozen-verdict flags — ``~ok ∧
+  ~overflow`` is a FINAL violation (the unit is evicted: carry, events,
+  and ops freed, which is what bounds memory for unbounded histories),
+  ``~ok ∧ overflow`` escalates to the full ladder at finish. The carry
+  lives on the service's device; every session launches on a CUDA
+  stream of its own (the HTTP handler threads that append to it
+  change, the stream does not), so a session's carry is allocated,
+  advanced and freed on one stream. Verdicts it decides report
+  ``"algorithm": "torch-stream"``.
+* **Durability** — every open/segment/finish is journaled (CRC'd,
+  fsync'd BEFORE the 2xx) into the admission WAL under its own record
+  family. A daemon restart restores
+  sessions as parked *resumable* stubs; the first touch replays the
+  journaled segments through the identical deterministic pipeline, so
+  the resumed verdict is bitwise-identical to an uninterrupted run
+  (doc/checker-design.md §14).
+* **Flow control** — per-session segment-rate and byte budgets answer
+  429 + Retry-After (a runaway producer must not starve batch
+  admission); sessions idle past ``JGRAFT_STREAM_IDLE_S`` are parked
+  as incomplete (memory freed, journal kept, resumable).
+
+Consistency: streaming serves the LINEARIZABLE rung only. The weaker
+rungs relax FORCE placement using per-process *future* structure
+(`checker/consistency.py` defers a FORCE toward the process's next
+op), which is not prefix-stable — a weaker-rung open is rejected with
+400 rather than served unsoundly.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import threading
+import time
+import uuid
+from typing import List, Optional, Sequence
+
+import contextlib
+
+import numpy as np
+import torch
+
+from ..checker.base import INVALID, VALID, merge_valid
+from ..checker.schedule import CarriedScan
+from ..history.ops import NEMESIS, History, Op
+from ..history.packing import EncodedHistory, IncrementalEncoder
+from ..platform import env_float, env_int
+from .journal import (decode_stream_bseg_units, encode_stream_bseg,
+                      encode_stream_fin, encode_stream_open,
+                      encode_stream_segment)
+
+LOG = logging.getLogger("jgraft.service")
+
+# Session lifecycle states.
+OPEN = "open"
+INCOMPLETE = "incomplete"   # parked (idle/restart); resumable from WAL
+DONE = "done"
+FAILED = "failed"
+
+
+def sessions_cap() -> int:
+    """Concurrent live sessions (JGRAFT_STREAM_SESSIONS, default 64).
+    Past the cap `/stream/open` answers 429 — the same
+    reject-don't-buffer stance as the admission queue."""
+    return env_int("JGRAFT_STREAM_SESSIONS", 64, minimum=1)
+
+
+def idle_timeout_s() -> float:
+    """Idle bound (JGRAFT_STREAM_IDLE_S, default 600 s; 0 disables):
+    a session untouched this long is finalized-as-incomplete — memory
+    freed, journal kept, resumable by the next append."""
+    return env_float("JGRAFT_STREAM_IDLE_S", 600.0, minimum=0.0)
+
+
+def segments_per_s() -> float:
+    """Per-session append-rate budget (JGRAFT_STREAM_SEGS_PER_S,
+    default 200/s; 0 disables)."""
+    return env_float("JGRAFT_STREAM_SEGS_PER_S", 200.0, minimum=0.0)
+
+
+def bytes_per_s() -> float:
+    """Per-session byte budget (JGRAFT_STREAM_BYTES_PER_S, default
+    16 MiB/s; 0 disables)."""
+    return env_float("JGRAFT_STREAM_BYTES_PER_S", float(16 << 20),
+                     minimum=0.0)
+
+
+def greedy_max_events() -> int:
+    """Settled-stream size up to which the per-segment greedy certifier
+    carries a unit (JGRAFT_STREAM_GREEDY_MAX_EVENTS, default 8192).
+    The greedy pass is O(E·W) per segment; past the cap the unit
+    engages the carried kernel, whose per-append cost is O(new)."""
+    return env_int("JGRAFT_STREAM_GREEDY_MAX_EVENTS", 8192, minimum=0)
+
+
+def resident_events_cap() -> int:
+    """Per-unit resident settled-event bound
+    (JGRAFT_STREAM_RESIDENT_EVENTS, default 1M rows ≈ 20 MB). Beyond
+    it the unit SPILLS: host buffers are dropped (the journal already
+    holds every segment) and only the O(1) kernel carry stays resident
+    — a carry rebuild or finish-escalation replays from the WAL."""
+    return env_int("JGRAFT_STREAM_RESIDENT_EVENTS", 1 << 20, minimum=1)
+
+
+class StreamBusy(Exception):
+    """Flow-control rejection (HTTP 429 + Retry-After)."""
+
+    def __init__(self, msg: str, retry_after_s: float):
+        super().__init__(msg)
+        self.retry_after_s = round(max(0.1, retry_after_s), 2)
+
+
+class StreamConflict(Exception):
+    """Sequencing/state conflict (HTTP 409). `expected_seq` tells a
+    well-behaved client where the session actually is."""
+
+    def __init__(self, msg: str, expected_seq: Optional[int] = None):
+        super().__init__(msg)
+        self.expected_seq = expected_seq
+
+
+class _Parked(Exception):
+    """Internal: a mutating call raced the idle reaper's park() and
+    holds a freed session object. The manager catches this and retries
+    against the revived session — the race costs one WAL replay, never
+    a client-visible error."""
+
+
+def segment_digest(unit_ops) -> str:
+    """Idempotency key of one segment payload: a duplicate append (the
+    backoff-retrying client re-sending a seq whose 2xx was lost) must
+    carry the SAME payload; a different payload under a reused seq is a
+    client bug answered 409, never silently merged."""
+    return hashlib.sha256(json.dumps(
+        unit_ops, sort_keys=True, default=str).encode()).hexdigest()
+
+
+def binary_segment_digest(units_payload) -> str:
+    """Idempotency key of a BINARY segment when the caller
+    has no raw frame bytes to hash (direct API use, journal replay of a
+    record appended that way). The HTTP surface hashes the received
+    frame bytes instead — either way the journaled digest is what a
+    post-crash duplicate compares against, and a client retry resends
+    identical content."""
+    h = hashlib.sha256()
+    for u in units_payload:
+        for key in ("n_slots", "n_ops", "consumed"):
+            h.update(str(int(u[key])).encode())
+        h.update(b"\x01" if u.get("final") else b"\x00")
+        h.update(np.ascontiguousarray(u["events"], dtype=np.int32)
+                 .tobytes())
+        h.update(np.ascontiguousarray(u["op_index"], dtype=np.int32)
+                 .tobytes())
+        if u.get("proc") is not None:
+            h.update(np.ascontiguousarray(u["proc"], dtype=np.int32)
+                     .tobytes())
+    return h.hexdigest()
+
+
+class _TokenBucket:
+    """Minimal per-session budget: `rate` tokens/s, burst = 2 s worth.
+    0 rate disables."""
+
+    def __init__(self, rate: float):
+        self.rate = float(rate)
+        self.burst = max(self.rate * 2.0, 1.0)
+        self.level = self.burst
+        self.at = time.monotonic()
+
+    def take(self, n: float) -> Optional[float]:
+        """Consume `n` tokens; None on success, else seconds until the
+        deficit refills (the Retry-After hint)."""
+        if self.rate <= 0:
+            return None
+        now = time.monotonic()
+        self.level = min(self.burst, self.level + (now - self.at) * self.rate)
+        self.at = now
+        if self.level >= n:
+            self.level -= n
+            return None
+        return (n - self.level) / self.rate
+
+
+class _BinaryEnc:
+    """Counter stand-in for a binary-lane unit's `enc` slot:
+    the REAL incremental encoder runs on the CLIENT; the server's
+    decision ladder only reads the cumulative counters (``n_slots`` /
+    ``n_ops`` / ``n_events`` / ``consumed``) this mirror accumulates
+    from segment headers. Counters are folded with max() so they stay
+    monotone even against a confused client — which, like a lying
+    fingerprint claim, can only corrupt its own verdict."""
+
+    def __init__(self):
+        self.n_slots = 0
+        self.n_ops = 0
+        self.n_events = 0
+        self.consumed = 0
+
+
+class StreamUnit:
+    """One streamed history row: its incremental encoder, resident
+    settled stream, and whichever decision engine currently carries it
+    (greedy witness, then the carried kernel)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.enc = IncrementalEncoder(model)
+        #: binary lane: the client's final flush arrived (`final=true`
+        #: segment). A binary finish REQUIRES it — without the flush
+        #: the crashed-pair OPEN events of outstanding invokes are
+        #: missing, and dropping linearization candidates can turn a
+        #: valid history into a false INVALID.
+        self.bin_final = False
+        # resident settled stream (dropped on spill / decide)
+        self._events: List[np.ndarray] = []
+        self._op_index: List[np.ndarray] = []
+        self._proc: List[np.ndarray] = []
+        self.events_resident = 0
+        #: settled suffixes not yet fed to the carried scan. Survives a
+        #: spill (the resident buffers do not), so post-spill segments
+        #: still advance the carry — dropping them would freeze the
+        #: scan on the pre-spill prefix and report a false VALID.
+        self.pending: List[np.ndarray] = []
+        self.ops: List[Op] = []       # raw rows (counterexample budget)
+        self.ops_total = 0
+        self.greedy = True            # greedy fast path still carries
+        self.certified = False        # greedy proved the settled prefix
+        self.certify_tier = None      # "greedy@lin"/"backtrack@lin"
+        #: resumable certifier carry: the witness scan's (state,
+        #: done-set, pending, backtrack stack) owned BETWEEN appends
+        #: next to the kernel carry below — per-append certify cost is
+        #: O(segment), not a restart's O(history).
+        #: Rebuilt deterministically on replay like the kernel carry.
+        self.certifier = None         # consistency.StreamingCertifier
+        #: settled suffixes not yet fed to the certifier (the carry's
+        #: feed-queue twin; cleared when the unit leaves the greedy
+        #: path).
+        self.cert_queue: List[np.ndarray] = []
+        self.scan: Optional[CarriedScan] = None
+        self.spilled = False
+        self.escalated = False        # needs the full ladder at finish
+        self.result: Optional[dict] = None   # final per-unit verdict
+        self.decided_seq: Optional[int] = None
+
+    # ------------------------------------------------------- accessors
+
+    @property
+    def decided(self) -> bool:
+        return self.result is not None
+
+    def settled_events(self) -> np.ndarray:
+        if self._events and len(self._events) > 1:
+            self._events = [np.concatenate(self._events)]
+        return self._events[0] if self._events else \
+            np.zeros((0, 5), np.int32)
+
+    def settled_encoding(self) -> EncodedHistory:
+        ev = self.settled_events()
+        oi = (np.concatenate(self._op_index) if self._op_index
+              else np.zeros((0,), np.int32))
+        pr = (np.concatenate(self._proc) if self._proc
+              else np.zeros((0,), np.int32))
+        return EncodedHistory(events=ev, op_index=oi,
+                              n_slots=self.enc.n_slots,
+                              n_ops=self.enc.n_ops, proc=pr)
+
+    def free(self) -> None:
+        """Eviction: a decided row's buffers and carry are dead weight
+        (the frozen verdict cannot change) — this is what keeps an
+        unbounded session's memory bounded."""
+        self._events = []
+        self._op_index = []
+        self._proc = []
+        self.events_resident = 0
+        self.pending = []
+        self.ops = []
+        self.scan = None
+        self.certifier = None
+        self.cert_queue = []
+        self.enc = None
+
+    def drain_pending(self) -> None:
+        """Feed every not-yet-scanned settled suffix into the carry
+        (stopping at a frozen verdict) and clear the queue."""
+        for ev in self.pending:
+            if self.scan is None or self.scan.decided:
+                break
+            self.scan.feed(ev)
+        self.pending = []
+
+    # -------------------------------------------------------- pipeline
+
+    def ingest(self, ops: Sequence[Op], final: bool = False) -> None:
+        """Feed raw rows through the incremental encoder. The settled
+        suffix always enters `pending` (the carry's feed queue); the
+        resident buffers additionally retain it unless spilled."""
+        if self.decided:
+            return
+        ev, oi, pr = self.enc.feed(ops, final=final)
+        self.ops_total += len(ops)
+        if not self.spilled and self.ops_total <= MAX_COUNTEREXAMPLE_OPS:
+            self.ops.extend(ops)
+        if ev.shape[0]:
+            self.pending.append(ev)
+            if self.greedy:
+                self.cert_queue.append(ev)
+            if not self.spilled:
+                self._events.append(ev)
+                self._op_index.append(oi)
+                self._proc.append(pr)
+                self.events_resident += int(ev.shape[0])
+
+    def ingest_encoded(self, u: dict) -> None:
+        """Binary-lane twin of `ingest`: the client ran the
+        incremental encoder; this applies its already-normalized
+        settled-suffix payload (`StreamSession._parse_bseg_units`) and
+        cumulative counters. No raw rows exist server-side — `ops`
+        stays empty, so escalation and carry rebuilds use the settled
+        stream or the WAL's bseg arrays, and violations ship without a
+        minimized counterexample (the same trade journal replay makes)."""
+        if self.decided:
+            return
+        enc = self.enc   # _BinaryEnc (installed by the mode latch)
+        enc.n_slots = max(enc.n_slots, u["n_slots"])
+        enc.n_ops = max(enc.n_ops, u["n_ops"])
+        enc.consumed = max(enc.consumed, u["consumed"])
+        self.ops_total = enc.consumed
+        if u["final"]:
+            self.bin_final = True
+        ev, oi, pr = u["events"], u["op_index"], u["proc"]
+        if pr is None:
+            pr = np.zeros(int(ev.shape[0]), np.int32)
+        if ev.shape[0]:
+            enc.n_events += int(ev.shape[0])
+            self.pending.append(ev)
+            if self.greedy:
+                self.cert_queue.append(ev)
+            if not self.spilled:
+                self._events.append(ev)
+                self._op_index.append(oi)
+                self._proc.append(pr)
+                self.events_resident += int(ev.shape[0])
+
+
+#: Counterexample-minimization budget (the scheduler's bound): beyond
+#: this many raw rows the violation ships without a minimized witness.
+MAX_COUNTEREXAMPLE_OPS = 2048
+
+
+class StreamSession:
+    """One live session. All mutation happens under `lock` (appends to
+    DIFFERENT sessions run concurrently on their handler threads — the
+    same thread discipline as the daemon's shard executors)."""
+
+    def __init__(self, manager, sid: str, workload: str, model,
+                 algorithm: str, consistency: str, n_units: int):
+        self.manager = manager
+        self.sid = sid
+        self.workload = workload
+        self.model = model
+        self.algorithm = algorithm
+        self.consistency = consistency
+        self.units = [StreamUnit(model) for _ in range(n_units)]
+        self.lock = threading.RLock()
+        self.status = OPEN  # guarded_by(lock)
+        #: transport lane, latched at the first accepted segment:
+        #: "json" (raw op dicts, server-side encoder) or "binary"
+        #: (client-encoded settled suffixes). Mixing lanes
+        #: mid-session is a 409: the two lanes journal different record
+        #: kinds and rebuild through different pipelines, and a replay
+        #: must walk exactly one of them.
+        self.mode: Optional[str] = None  # guarded_by(lock)
+        self.error: Optional[str] = None
+        self.final: Optional[dict] = None
+        self.seq_next = 1  # guarded_by(lock)
+        # seq -> payload digest
+        self.seen: dict = {}  # guarded_by(lock)
+        self.segments = 0
+        self.bytes = 0
+        self.opened = time.monotonic()
+        self.last_touch = time.monotonic()
+        self.resumed = False
+        # journal replay in progress
+        self._replaying = False  # guarded_by(lock)
+        self._seg_bucket = _TokenBucket(segments_per_s())
+        self._byte_bucket = _TokenBucket(bytes_per_s())
+        #: this session's CUDA stream (created at its first launch)
+        self._cuda_stream = None
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        """Enter the service's device on the calling thread with this
+        session's own CUDA stream current (module docstring); nothing on
+        a CPU device. Taken under `lock`, so one session's launches
+        never overlap."""
+        dev = self.manager.device
+        if dev.type != "cuda":
+            yield
+            return
+        if self._cuda_stream is None:
+            self._cuda_stream = torch.cuda.Stream(dev)
+        with torch.cuda.device(dev), torch.cuda.stream(self._cuda_stream):
+            yield
+
+    # ------------------------------------------------------ validation
+
+    def _parse_units(self, unit_ops) -> List[List[Op]]:
+        """Wire payload → per-unit Op rows. Accepts a flat op list for
+        single-unit sessions or one list per unit; nemesis rows are
+        filtered (`History.client_ops` rule). Raises ValueError on
+        malformed shapes WITHOUT mutating any encoder."""
+        if not isinstance(unit_ops, (list, tuple)):
+            raise ValueError("segment ops must be a list")
+        if len(self.units) == 1 and (not unit_ops or
+                                     isinstance(unit_ops[0], dict)):
+            unit_ops = [unit_ops]
+        if len(unit_ops) != len(self.units):
+            raise ValueError(
+                f"segment carries {len(unit_ops)} unit list(s); session "
+                f"has {len(self.units)} unit(s)")
+        parsed: List[List[Op]] = []
+        for rows in unit_ops:
+            out = []
+            for d in rows:
+                op = d if isinstance(d, Op) else Op.from_dict(dict(d))
+                if isinstance(op.value, list):
+                    op.value = tuple(op.value)
+                if op.process != NEMESIS:
+                    out.append(op)
+            parsed.append(out)
+        for unit, rows in zip(self.units, parsed):
+            if not unit.decided and unit.enc is not None:
+                unit.enc.validate(rows)
+        return parsed
+
+    # --------------------------------------------------------- appends
+
+    def append(self, seq, unit_ops, n_bytes: int, journal=None,
+               replaying: bool = False,
+               digest: Optional[str] = None) -> dict:
+        with self.lock:
+            self.last_touch = time.monotonic()
+            if self.status == INCOMPLETE:
+                # the idle reaper parked this object between the
+                # manager's lookup and our lock acquisition; the
+                # manager revives and retries (units are freed here)
+                raise _Parked()
+            if self.status in (DONE, FAILED):
+                raise StreamConflict(
+                    f"session {self.sid} is {self.status}")
+            if self.mode == "binary":
+                raise StreamConflict(
+                    f"session {self.sid} is on the binary lane; JSON "
+                    "appends conflict", expected_seq=self.seq_next)
+            try:
+                seq = int(seq)
+            except (TypeError, ValueError):
+                raise ValueError(f"bad segment seq {seq!r}") from None
+            # Replay passes the JOURNALED digest: the live path hashed
+            # the wire payload as received, and a client retrying the
+            # seq after a crash resends exactly that payload — the
+            # idempotency check must compare like with like.
+            if digest is None:
+                digest = segment_digest(unit_ops)
+            if seq in self.seen:
+                if self.seen[seq] != digest:
+                    raise StreamConflict(
+                        f"segment {seq} was already appended with a "
+                        f"different payload", expected_seq=self.seq_next)
+                return dict(self._state(), duplicate=True)
+            if seq != self.seq_next:
+                raise StreamConflict(
+                    f"out-of-order segment {seq} (expected "
+                    f"{self.seq_next})", expected_seq=self.seq_next)
+            if not replaying:
+                wait = self._seg_bucket.take(1.0)
+                if wait is None:
+                    wait = self._byte_bucket.take(float(n_bytes))
+                if wait is not None:
+                    raise StreamBusy(
+                        f"session {self.sid} over its segment budget",
+                        retry_after_s=wait)
+            parsed = self._parse_units(unit_ops)
+            if journal is not None and not replaying:
+                # Durability point: fsync'd before the 2xx — an
+                # accepted segment survives SIGKILL from here on.
+                journal.append_stream(encode_stream_segment(
+                    self.sid, seq, [[op.to_dict() for op in rows]
+                                    for rows in parsed], digest))
+            self.mode = "json"
+            self.seen[seq] = digest
+            self.seq_next = seq + 1
+            self.segments += 1
+            self.bytes += int(n_bytes)
+            with self._on_device():
+                for unit, rows in zip(self.units, parsed):
+                    unit.ingest(rows)
+                    self._advance(unit, seq)
+            return self._state()
+
+    def _parse_bseg_units(self, units_payload) -> List[dict]:
+        """Binary twin of `_parse_units`: normalize/validate the
+        per-unit suffix payloads (`frame.SegmentFrame` shape) WITHOUT
+        mutating any unit — a malformed payload is a clean 400, never a
+        half-ingested segment."""
+        if not isinstance(units_payload, (list, tuple)):
+            raise ValueError("binary segment units must be a list")
+        if len(units_payload) != len(self.units):
+            raise ValueError(
+                f"segment carries {len(units_payload)} unit payload(s); "
+                f"session has {len(self.units)} unit(s)")
+        out: List[dict] = []
+        for i, u in enumerate(units_payload):
+            try:
+                ev = np.ascontiguousarray(
+                    u["events"], dtype=np.int32).reshape(-1, 5)
+                n = int(ev.shape[0])
+                oi = np.ascontiguousarray(
+                    u["op_index"], dtype=np.int32).reshape(n)
+                pr = u.get("proc")
+                if pr is not None:
+                    pr = np.ascontiguousarray(
+                        pr, dtype=np.int32).reshape(n)
+                out.append({
+                    "events": ev, "op_index": oi, "proc": pr,
+                    "n_slots": int(u["n_slots"]),
+                    "n_ops": int(u["n_ops"]),
+                    "consumed": int(u["consumed"]),
+                    "final": bool(u.get("final", False)),
+                })
+            except (KeyError, TypeError, ValueError) as e:
+                raise ValueError(
+                    f"binary segment unit {i} malformed: {e}") from None
+        return out
+
+    def append_binary(self, seq, units_payload, n_bytes: int,
+                      journal=None, replaying: bool = False,
+                      digest: Optional[str] = None) -> dict:
+        """Binary-lane append: the client's
+        `IncrementalEncoder` already settled this suffix; the server
+        ingests the arrays straight into the SAME decision ladder the
+        JSON lane drives — greedy certifier, carried kernel, frozen
+        verdicts — with no per-append encode. Sequencing, idempotency,
+        flow control, and journal-before-2xx are the JSON append's
+        rules verbatim; the journal record is a ``stream-bseg``
+        (arrays, not op dicts) and replay feeds it back through this
+        very method."""
+        with self.lock:
+            self.last_touch = time.monotonic()
+            if self.status == INCOMPLETE:
+                raise _Parked()
+            if self.status in (DONE, FAILED):
+                raise StreamConflict(
+                    f"session {self.sid} is {self.status}")
+            if self.mode == "json":
+                raise StreamConflict(
+                    f"session {self.sid} is on the JSON lane; binary "
+                    "appends conflict", expected_seq=self.seq_next)
+            try:
+                seq = int(seq)
+            except (TypeError, ValueError):
+                raise ValueError(f"bad segment seq {seq!r}") from None
+            if digest is None:
+                digest = binary_segment_digest(units_payload)
+            if seq in self.seen:
+                if self.seen[seq] != digest:
+                    raise StreamConflict(
+                        f"segment {seq} was already appended with a "
+                        f"different payload", expected_seq=self.seq_next)
+                return dict(self._state(), duplicate=True)
+            if seq != self.seq_next:
+                raise StreamConflict(
+                    f"out-of-order segment {seq} (expected "
+                    f"{self.seq_next})", expected_seq=self.seq_next)
+            if not replaying:
+                wait = self._seg_bucket.take(1.0)
+                if wait is None:
+                    wait = self._byte_bucket.take(float(n_bytes))
+                if wait is not None:
+                    raise StreamBusy(
+                        f"session {self.sid} over its segment budget",
+                        retry_after_s=wait)
+            parsed = self._parse_bseg_units(units_payload)
+            if self.mode is None:
+                # latch: swap every unit's encoder slot for the counter
+                # mirror (mode None ⇒ zero accepted segments, so no
+                # encoder state is lost)
+                self.mode = "binary"
+                for unit in self.units:
+                    unit.enc = _BinaryEnc()
+            if journal is not None and not replaying:
+                # Durability point: fsync'd before the 2xx, same as the
+                # JSON lane.
+                journal.append_stream(encode_stream_bseg(
+                    self.sid, seq, parsed, digest))
+            self.seen[seq] = digest
+            self.seq_next = seq + 1
+            self.segments += 1
+            self.bytes += int(n_bytes)
+            with self._on_device():
+                for unit, u in zip(self.units, parsed):
+                    unit.ingest_encoded(u)
+                    self._advance(unit, seq)
+            return self._state()
+
+    def _advance(self, unit: StreamUnit, seq: int) -> None:
+        """Run the decision ladder over a unit's newly settled events:
+        greedy witness while it carries, then the carried kernel. A
+        certain violation (frozen ``~ok ∧ ~overflow``) decides the unit
+        HERE — at the earliest segment where it is decidable — and
+        evicts it."""
+        if unit.decided or unit.escalated or unit.enc is None:
+            return
+        self._maybe_spill(unit)
+        if unit.greedy:
+            if unit.spilled or unit.enc.n_events > greedy_max_events():
+                self._drop_certifier(unit)
+            else:
+                # the value-guided bounded-backtrack certifier,
+                # RESUMABLE — the carry (state, done-set, pending,
+                # backtrack frame) persists between appends, so this
+                # feed costs O(segment) where a per-append restart
+                # would re-scan from op 0. Tier
+                # namespaced @lin: a stream session certifies the
+                # linearizable rung (fleet attribution must not
+                # conflate it with the weak-rung certifier).
+                if self._feed_certifier(unit):
+                    unit.certified = True
+                    unit.certify_tier = unit.certifier.tier + "@lin"
+                    return
+                self._drop_certifier(unit)
+        # Kernel path: build/rebuild the carry, then drain the feed
+        # queue. A window that outgrew the carry's slot bucket rebuilds
+        # a wider carry and re-feeds the whole settled stream — the
+        # rebuilt carry equals an uninterrupted wider scan
+        # (deterministic; §14).
+        if not self._ensure_scan(unit, final=False):
+            return
+        unit.drain_pending()
+        if unit.scan is not None and unit.scan.decided:
+            if unit.scan.overflow:
+                # (False, True): the frontier overflowed its capacity —
+                # invalid is no longer certain; full ladder at finish.
+                unit.escalated = True
+                return
+            self._decide_invalid(unit, seq)
+
+    def _feed_certifier(self, unit: StreamUnit) -> bool:
+        """Drain the unit's settled-suffix queue into its resumable
+        certifier (lazily built); True while the settled prefix stays
+        certified."""
+        from ..checker.consistency import StreamingCertifier
+
+        if unit.certifier is None:
+            unit.certifier = StreamingCertifier(self.model)
+        ok = unit.certifier.certified
+        for ev in unit.cert_queue:
+            ok = unit.certifier.feed(ev)
+            if not ok:
+                break
+        unit.cert_queue = []
+        return ok
+
+    def _drop_certifier(self, unit: StreamUnit) -> None:
+        """The unit leaves the greedy path (spill, size cap, or an
+        undecided certifier): free the certifier carry — the kernel
+        carry takes over, and a dead certifier never un-decides."""
+        unit.greedy = False
+        unit.certified = False
+        unit.certify_tier = None
+        unit.certifier = None
+        unit.cert_queue = []
+
+    def _ensure_scan(self, unit: StreamUnit, final: bool) -> bool:
+        """Build (or rebuild, when the window outgrew the slot bucket)
+        the unit's carry and bring it current with the FULL settled
+        stream — from the resident buffers, or from the WAL for a
+        spilled unit (`final` settles outstanding invokes in the
+        replay, matching a finish-time rebuild). False = the unit
+        escalated (window beyond the kernel caps / WAL unavailable)."""
+        if unit.scan is not None and unit.scan.fits(unit.enc.n_slots):
+            return True
+        try:
+            unit.scan = CarriedScan(self.model, unit.enc.n_slots,
+                                    device=self.manager.device)
+        except ValueError:
+            # window beyond MAX_SLOTS: kernel-undecidable — the full
+            # ladder (DFS fast path etc.) answers at finish
+            unit.scan = None
+            unit.escalated = True
+            unit.pending = []
+            return False
+        if unit.spilled:
+            # resident buffers are gone: rebuild the stream from the
+            # WAL (deterministic — the same pipeline as a resume)
+            if not self.manager._refeed_scan(self, unit, final=final):
+                unit.scan = None
+                unit.escalated = True
+                unit.pending = []
+                return False
+        else:
+            full = unit.settled_events()
+            if full.shape[0]:
+                unit.scan.feed(full)
+        unit.pending = []   # covered by the full re-feed
+        return True
+
+    def _maybe_spill(self, unit: StreamUnit) -> None:
+        if unit.spilled or unit.events_resident <= resident_events_cap():
+            return
+        if self.manager._journal is None:
+            # no WAL to rebuild from: spilling would DESTROY the only
+            # copy of the stream — keep the buffers and let memory
+            # grow (the documented journaling-off trade).
+            return
+        # engage the kernel and bring it current BEFORE dropping the
+        # buffers it would otherwise re-feed from
+        if self._ensure_scan(unit, final=False):
+            unit.drain_pending()
+        self._drop_certifier(unit)
+        unit.spilled = True
+        unit._events = []
+        unit._op_index = []
+        unit._proc = []
+        unit.events_resident = 0
+        unit.ops = []
+
+    def _invalid_result(self, unit: StreamUnit, seq: int) -> dict:  # requires(lock)
+        """The certain-violation record (the frozen ``~ok ∧ ~overflow``
+        pair), with a minimized counterexample when the op budget
+        allows — ONE construction for the mid-run and finish paths."""
+        from ..checker.schedule import note_tier
+
+        note_tier("sort")
+        res = {
+            "valid?": INVALID,
+            "algorithm": "torch-stream",
+            "kernel": "sort-stream",
+            "op-count": unit.enc.n_ops,
+            "concurrency-window": unit.enc.n_slots,
+            "decided-tier": "sort",
+            "decided-at-segment": seq,
+        }
+        if unit.ops and unit.ops_total <= MAX_COUNTEREXAMPLE_OPS:
+            try:
+                from ..checker.counterexample import attach_counterexample
+
+                attach_counterexample(res, History(list(unit.ops)),
+                                      self.model)
+            except Exception:
+                LOG.warning("stream %s: counterexample attach failed",
+                            self.sid, exc_info=True)
+        if not self._replaying:
+            self.manager._count("stream_violations")
+        return res
+
+    def _decide_invalid(self, unit: StreamUnit, seq: int) -> None:
+        """A frozen violation mid-run: record the per-unit result,
+        count it, and evict the row."""
+        unit.result = self._invalid_result(unit, seq)
+        unit.decided_seq = seq
+        unit.free()
+
+    # ---------------------------------------------------------- finish
+
+    def finish(self, journal=None, replaying: bool = False) -> dict:
+        with self.lock:
+            self.last_touch = time.monotonic()
+            if self.status == INCOMPLETE:
+                raise _Parked()   # raced the reaper; manager revives
+            if self.final is not None:
+                return self.final   # idempotent
+            if self.mode == "binary":
+                # Soundness gate: the end-of-history settle ran on the
+                # CLIENT. Without its final-flagged flush the crashed-
+                # pair OPEN events of outstanding invokes never arrived
+                # — and those are linearization candidates whose
+                # absence can turn a valid history into a false
+                # INVALID. Refuse rather than guess.
+                missing = [i for i, u in enumerate(self.units)
+                           if not u.decided and not u.bin_final]
+                if missing:
+                    raise StreamConflict(
+                        f"binary session {self.sid}: unit(s) {missing} "
+                        "have no final-flagged flush segment; append "
+                        "one (final=true) before finish",
+                        expected_seq=self.seq_next)
+            with self._on_device():
+                results = [self._finish_unit(unit) for unit in self.units]
+            valid = merge_valid(r.get("valid?") for r in results)
+            self.final = {
+                "session": self.sid,
+                "status": DONE,
+                "workload": self.workload,
+                "algorithm": self.algorithm,
+                "consistency": self.consistency,
+                "valid?": valid,
+                "results": results,
+                "segments": self.segments,
+                "resumed": self.resumed,
+            }
+            self.status = DONE
+            if journal is not None and not replaying:
+                journal.append_stream(encode_stream_fin(
+                    self.sid, DONE, results=results))
+            for unit in self.units:
+                unit.free()
+            return self.final
+
+    def _finish_unit(self, unit: StreamUnit) -> dict:  # requires(lock)
+        if unit.decided:
+            return unit.result
+        # flush: outstanding invokes become crashed pairs (pair_ops'
+        # end-of-history rule) and every remaining event settles. On
+        # the binary lane the CLIENT ran this flush (finish() enforced
+        # that its final-flagged segment arrived).
+        if unit.enc is not None and self.mode != "binary":
+            unit.ingest([], final=True)
+        if unit.greedy and not unit.spilled \
+                and unit.enc.n_events <= greedy_max_events():
+            from ..checker.schedule import note_tier
+
+            # The resumable certifier consumes only the final settle
+            # suffix here — the earlier segments' witness
+            # is already in its carry.
+            if self._feed_certifier(unit):
+                tier = unit.certifier.tier + "@lin"
+                unit.certified = True
+                unit.certify_tier = tier
+                note_tier(tier)
+                return {"valid?": VALID, "algorithm": "greedy-witness",
+                        "op-count": unit.enc.n_ops,
+                        "concurrency-window": unit.enc.n_slots,
+                        "decided-tier": tier}
+        self._drop_certifier(unit)
+        if not unit.escalated:
+            # final=True: a spilled unit's WAL rebuild must apply the
+            # same end-of-history settle the live encoder just did —
+            # outstanding invokes become crashed pairs, and their OPEN
+            # events are linearization candidates the verdict needs.
+            if self._ensure_scan(unit, final=True):
+                unit.drain_pending()
+            if not unit.escalated and unit.scan is not None:
+                if unit.scan.ok:
+                    from ..checker.schedule import note_tier
+
+                    note_tier("sort")
+                    return {"valid?": VALID, "algorithm": "torch-stream",
+                            "kernel": "sort-stream",
+                            "op-count": unit.enc.n_ops,
+                            "concurrency-window": unit.enc.n_slots,
+                            "decided-tier": "sort"}
+                if not unit.scan.overflow:
+                    return self._invalid_result(unit, self.segments)
+                unit.escalated = True
+        # Escalation: the carried sort kernel could not certify
+        # (overflow / window beyond its caps) — run the full ladder on
+        # the complete history through the STANDARD encode (prune ON:
+        # dead-crashed-op pruning is exactly what tames the wide
+        # windows that land here), so the escalated verdict is the
+        # one-shot `check_histories` verdict by construction. Raw ops
+        # come from the resident buffer or the WAL; the unpruned
+        # settled stream is the (sound) last resort.
+        from ..checker.linearizable import check_encoded
+        from ..history.packing import encode_history
+
+        ops = (list(unit.ops) if unit.ops
+               and len(unit.ops) == unit.ops_total else None)
+        if ops is None and self.mode != "binary":
+            ops = self.manager._replay_ops(self, unit)
+        if ops is not None:
+            enc = encode_history(ops, self.model)
+        elif not unit.spilled:
+            # binary lane lands here by construction (no raw ops exist
+            # server-side): the settled stream IS the complete encoding
+            # — the client's final flush settled every event.
+            enc = unit.settled_encoding()
+        else:
+            enc = (self.manager._journaled_binary_encoding(self, unit)
+                   if self.mode == "binary" else None)
+        if enc is None:
+            return {"valid?": None, "algorithm": "stream",
+                    "error": "stream not reconstructable from journal"}
+        [res] = check_encoded([enc], self.model,
+                              algorithm=self.algorithm,
+                              device=self.manager.device, distribute=False)
+        res["escalated-from-stream"] = True
+        return res
+
+    # ---------------------------------------------------------- status
+
+    def _unit_state(self, i: int, unit: StreamUnit) -> dict:
+        d = {"unit": i, "ops": unit.ops_total if unit.enc is None
+             else unit.enc.consumed}
+        if unit.decided:
+            d["status"] = "invalid"
+            d["decided-at-segment"] = unit.decided_seq
+            d["result"] = unit.result
+        elif unit.escalated:
+            d["status"] = "escalated"
+        elif unit.greedy:
+            d["status"] = "certified" if unit.certified else "streaming"
+            if unit.certified and unit.certify_tier:
+                d["decided-tier"] = unit.certify_tier
+        else:
+            d["status"] = "streaming"
+            if unit.scan is not None:
+                d["events-scanned"] = unit.scan.fed
+        return d
+
+    def _state(self) -> dict:  # requires(lock)
+        violations = [self._unit_state(i, u)
+                      for i, u in enumerate(self.units) if u.decided]
+        d = {
+            "session": self.sid,
+            "status": self.status,
+            "workload": self.workload,
+            "units": len(self.units),
+            "next_seq": self.seq_next,
+            "segments": self.segments,
+            "resumed": self.resumed,
+            "unit_states": [self._unit_state(i, u)
+                            for i, u in enumerate(self.units)],
+        }
+        if self.mode is not None:
+            d["mode"] = self.mode
+        if violations:
+            d["violation"] = violations[0]
+            d["valid?"] = INVALID
+        if self.final is not None:
+            d.update(self.final)
+        if self.error:
+            d["error"] = self.error
+        return d
+
+    def state(self) -> dict:
+        # Deliberately NOT an idle touch: a monitor polling
+        # /stream/status must not keep an abandoned producer's session
+        # resident forever — only appends/finish reset the idle clock.
+        with self.lock:
+            return self._state()
+
+    def park(self) -> None:
+        """Finalize-as-incomplete: free every unit's memory; the
+        session remains resumable from its journaled segments."""
+        with self.lock:
+            if self.status != OPEN:
+                return
+            self.status = INCOMPLETE
+            for unit in self.units:
+                unit.free()
+
+
+class _Stub:
+    """A parked/restored session: journal-backed, nearly free in
+    memory. `status` is INCOMPLETE (resumable) or a terminal state
+    restored from a fin record."""
+
+    def __init__(self, sid: str, status: str = INCOMPLETE,
+                 final: Optional[dict] = None):
+        self.sid = sid
+        self.status = status
+        self.final = final
+
+    def state(self) -> dict:
+        d = {"session": self.sid, "status": self.status,
+             "resumable": self.status == INCOMPLETE}
+        if self.final is not None:
+            d.update(self.final)
+        return d
+
+
+class StreamManager:
+    """Owns every stream session of one daemon: admission caps, the
+    idle reaper and journal/replay wiring."""
+
+    def __init__(self, service):
+        self.service = service
+        #: the device every session's carried scan runs on
+        self.device = service.device
+        self._sessions: dict = {}  # guarded_by(_lock)
+        self._lock = threading.Lock()
+        self._stats = {  # guarded_by(_lock)
+            "stream_sessions": 0,      # opened (lifetime)
+            "segments_total": 0,
+            "resumed_sessions": 0,
+            "binary_segments": 0,
+            "stream_violations": 0,
+            "stream_rejected": 0,
+            "stream_idle_parked": 0,
+        }
+        self._peak_rows = 0  # guarded_by(_lock)
+        self._stop = threading.Event()
+        self._reaper: Optional[threading.Thread] = None
+
+    @property
+    def _journal(self):
+        return self.service._journal
+
+    def _count(self, *keys: str) -> None:
+        with self._lock:
+            for k in keys:
+                self._stats[k] = self._stats.get(k, 0) + 1
+
+    # ------------------------------------------------------- lifecycle
+
+    def ensure_reaper(self) -> None:
+        if idle_timeout_s() <= 0:
+            return
+        with self._lock:
+            if self._reaper is None or not self._reaper.is_alive():
+                self._stop.clear()
+                self._reaper = threading.Thread(
+                    target=self._reaper_loop, daemon=True,
+                    name="graftd-stream-reaper")
+                self._reaper.start()
+
+    def _reaper_loop(self) -> None:
+        idle = idle_timeout_s()
+        poll = max(0.05, min(idle / 4.0, 5.0))
+        while not self._stop.wait(poll):
+            now = time.monotonic()
+            with self._lock:
+                # liveness snapshot: a stale OPEN only means one extra
+                # poll — every mutation below re-checks under s.lock
+                live = [s for s in self._sessions.values()
+                        if isinstance(s, StreamSession)
+                        and s.status == OPEN]  # lint: allow(unguarded)
+            for s in live:
+                if now - s.last_touch <= idle:
+                    continue
+                if self._journal is not None:
+                    s.park()
+                    with self._lock:
+                        self._sessions[s.sid] = _Stub(s.sid)
+                    self._count("stream_idle_parked")
+                    LOG.warning("stream %s idle >%gs; parked as "
+                                "incomplete (resumable)", s.sid, idle)
+                else:
+                    # no journal: nothing to resume from — fail loudly
+                    with s.lock:
+                        if s.status == OPEN:
+                            s.status = FAILED
+                            s.error = (f"idle past {idle:g}s with no "
+                                       "journal to resume from")
+                            for u in s.units:
+                                u.free()
+                    LOG.warning("stream %s idle >%gs with journaling "
+                                "off; session failed", s.sid, idle)
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        t = self._reaper
+        if t is not None and t.is_alive():
+            t.join(5.0)
+
+    # ------------------------------------------------------- admission
+
+    def open(self, workload: str = "register", units: int = 1,
+             algorithm: str = "auto", consistency: str = "linearizable",
+             session_id: Optional[str] = None,
+             resume: bool = False) -> dict:
+        from .request import check_algorithm, service_workloads
+
+        if resume and session_id:
+            return self._touch(str(session_id)).state()
+        check_algorithm(algorithm)
+        consistency = str(consistency or "linearizable")
+        if consistency != "linearizable":
+            raise ValueError(
+                "streaming sessions serve the linearizable rung only "
+                "(weaker rungs relax FORCE placement along per-process "
+                "future order, which is not prefix-stable); submit the "
+                "finished history with consistency="
+                f"{consistency!r} instead")
+        workloads = service_workloads()
+        if workload not in workloads:
+            raise ValueError(f"unknown workload {workload!r} "
+                             f"(have: {', '.join(sorted(workloads))})")
+        model_factory, independent = workloads[workload]
+        if independent:
+            raise ValueError(
+                f"workload {workload!r} splits per key at admission; "
+                "stream each key as its own unit instead")
+        units = int(units)
+        if not 1 <= units <= 256:
+            raise ValueError(f"units must be in [1, 256] (got {units})")
+        sid = str(session_id) if session_id else uuid.uuid4().hex[:12]
+        with self._lock:
+            if sid in self._sessions:
+                raise StreamConflict(f"session {sid} already exists "
+                                     "(pass resume=true to re-attach)")
+            # admission-cap snapshot: a concurrently-finishing session
+            # can only make the count pessimistic (429 + retry-after)
+            live = sum(1 for s in self._sessions.values()
+                       if isinstance(s, StreamSession)
+                       and s.status == OPEN)  # lint: allow(unguarded)
+            if live >= sessions_cap():
+                self._stats["stream_rejected"] += 1
+                raise StreamBusy(
+                    f"{live} live sessions (JGRAFT_STREAM_SESSIONS)",
+                    retry_after_s=max(idle_timeout_s() / 8.0, 1.0))
+            sess = StreamSession(self, sid, workload, model_factory(),
+                                 str(algorithm), consistency, units)
+            self._sessions[sid] = sess
+            self._stats["stream_sessions"] += 1
+        if self._journal is not None:
+            self._journal.append_stream(encode_stream_open(
+                sid, workload, type(sess.model).__name__,
+                str(algorithm), consistency, units))
+        self.ensure_reaper()
+        return sess.state()
+
+    def _get(self, sid: str):
+        with self._lock:
+            s = self._sessions.get(sid)
+        if s is None:
+            raise KeyError(sid)
+        return s
+
+    def _touch(self, sid: str) -> StreamSession:
+        """Session for a mutating call, reviving a parked stub from the
+        WAL (the resume path — also how a restarted daemon serves the
+        first post-crash append)."""
+        s = self._get(sid)
+        if isinstance(s, StreamSession):
+            return s
+        # s is a parked _Stub here (the isinstance return above filtered
+        # live sessions): stubs are frozen at park/fin time, no lock
+        if s.status != INCOMPLETE:  # lint: allow(unguarded)
+            raise StreamConflict(f"session {sid} is {s.status}")  # lint: allow(unguarded)
+        return self._revive(sid)
+
+    # --------------------------------------------------------- surface
+
+    def append(self, sid: str, seq, unit_ops, n_bytes: int) -> dict:
+        sid = str(sid)
+        for _attempt in range(2):
+            sess = self._touch(sid)
+            try:
+                out = sess.append(seq, unit_ops, n_bytes,
+                                  journal=self._journal)
+                break
+            except _Parked:
+                # lost the race with the idle reaper: the manager map
+                # already holds the resumable stub — retry revives it
+                continue
+        else:
+            raise StreamConflict(f"session {sid} is parked")
+        self._count("segments_total")
+        self._note_rows()
+        return out
+
+    def append_binary(self, sid: str, seq, units_payload, n_bytes: int,
+                      digest: Optional[str] = None) -> dict:
+        """Binary-lane append surface: same park-race retry
+        as `append`. `digest` is the HTTP layer's hash of the raw frame
+        bytes (None → content hash of the arrays)."""
+        sid = str(sid)
+        for _attempt in range(2):
+            sess = self._touch(sid)
+            try:
+                out = sess.append_binary(seq, units_payload, n_bytes,
+                                         journal=self._journal,
+                                         digest=digest)
+                break
+            except _Parked:
+                continue
+        else:
+            raise StreamConflict(f"session {sid} is parked")
+        self._count("segments_total", "binary_segments")
+        self._note_rows()
+        return out
+
+    def status(self, sid: str) -> dict:
+        return self._get(str(sid)).state()
+
+    def finish(self, sid: str) -> dict:
+        sid = str(sid)
+        with self._lock:
+            s = self._sessions.get(sid)
+        # frozen _Stub again: park/fin wrote its status once, pre-publish
+        if isinstance(s, _Stub) and s.status not in (INCOMPLETE,):  # lint: allow(unguarded)
+            # finish is idempotent ACROSS restarts too: a retried
+            # finish whose first 2xx was lost must read the fin-record
+            # stub's final state, not a 409.
+            return s.state()
+        for _attempt in range(2):
+            sess = self._touch(sid)
+            try:
+                out = sess.finish(journal=self._journal)
+                break
+            except _Parked:
+                continue
+        else:
+            raise StreamConflict(f"session {sid} is parked")
+        self._note_rows()
+        return out
+
+    def _note_rows(self) -> None:
+        with self._lock:
+            # metrics snapshot (peak-resident gauge): drift is noise,
+            # not a correctness hazard
+            rows = sum(sum(1 for u in s.units if not u.decided)
+                       for s in self._sessions.values()
+                       if isinstance(s, StreamSession)
+                       and s.status == OPEN)  # lint: allow(unguarded)
+            self._peak_rows = max(self._peak_rows, rows)
+
+    # ---------------------------------------------------------- replay
+
+    def restore(self, streams: dict) -> None:
+        """Boot-time restore from `journal.replay()["streams"]`:
+        finished sessions become terminal stubs (status queryable),
+        unfinished ones parked resumable stubs — the first touch
+        replays their segments (lazy: boot stays fast no matter how
+        many sessions the WAL holds)."""
+        for sid, s in streams.items():
+            fin = s.get("fin")
+            with self._lock:
+                if sid in self._sessions:
+                    continue
+                if fin is not None:
+                    final = {k: fin[k] for k in
+                             ("status", "results", "error")
+                             if k in fin}
+                    if "results" in final:
+                        final["valid?"] = merge_valid(
+                            r.get("valid?") for r in final["results"])
+                    self._sessions[sid] = _Stub(
+                        sid, status=fin.get("status", DONE), final=final)
+                else:
+                    self._sessions[sid] = _Stub(sid)
+
+    def _revive(self, sid: str) -> StreamSession:
+        """Rebuild a parked session by replaying its journaled records
+        through the live pipeline — deterministic, so the revived
+        carry/verdict state is bitwise-identical to the uninterrupted
+        session's (§14)."""
+        if self._journal is None:
+            raise StreamConflict(
+                f"session {sid} is parked and journaling is off")
+        recs = self._journal.stream_records(sid)
+        if recs is None:
+            raise StreamConflict(
+                f"session {sid} has no intact journal records")
+        sess = self._build_from_records(sid, recs)
+        sess.resumed = True
+        with self._lock:
+            self._sessions[sid] = sess
+            self._stats["resumed_sessions"] += 1
+        self._note_rows()
+        return sess
+
+    def _build_from_records(self, sid: str, recs: dict) -> StreamSession:
+        from .request import service_workloads
+
+        op = recs["open"]
+        workloads = service_workloads()
+        wl = op.get("workload")
+        if wl not in workloads:
+            raise StreamConflict(f"session {sid}: unknown workload "
+                                 f"{wl!r} in journal")
+        model_factory, _ = workloads[wl]
+        sess = StreamSession(self, sid, wl, model_factory(),
+                             str(op.get("algorithm", "auto")),
+                             str(op.get("consistency", "linearizable")),
+                             int(op.get("units", 1)))
+        sess._replaying = True
+        try:
+            for seg in recs["segments"]:
+                try:
+                    if seg.get("kind") == "stream-bseg":
+                        sess.append_binary(
+                            seg["seq"], decode_stream_bseg_units(seg),
+                            n_bytes=0, replaying=True,
+                            digest=seg.get("digest"))
+                    else:
+                        sess.append(seg["seq"], seg["ops"], n_bytes=0,
+                                    replaying=True,
+                                    digest=seg.get("digest"))
+                except (ValueError, KeyError, StreamConflict) as e:
+                    # deterministic re-raise of a rejected segment: the
+                    # live path already answered the client; skip loudly
+                    LOG.warning("stream %s: journaled segment %s "
+                                "rejected on replay: %s", sid,
+                                seg.get("seq"), e)
+        finally:
+            sess._replaying = False
+        return sess
+
+    def _journaled_unit_ops(self, sess: StreamSession,
+                            unit: StreamUnit) -> Optional[list]:
+        """Per-segment raw Op rows of ONE unit, re-read from the WAL —
+        the single home of the journal-payload normalization (the
+        flat-vs-nested rule and list→tuple value retupling). Returns
+        [[Op…] per segment] or None when the WAL cannot answer."""
+        if self._journal is None:
+            return None
+        recs = self._journal.stream_records(sess.sid)
+        if recs is None:
+            return None
+        idx = sess.units.index(unit)
+        out = []
+        for seg in recs["segments"]:
+            if seg.get("kind") == "stream-bseg":
+                return None   # binary lane: no raw ops exist in the WAL
+            rows = seg["ops"]
+            if len(sess.units) == 1 and (not rows or
+                                         isinstance(rows[0], dict)):
+                rows = [rows]
+            ops = []
+            for d in rows[idx]:
+                op = Op.from_dict(dict(d))
+                if isinstance(op.value, list):
+                    op.value = tuple(op.value)
+                ops.append(op)
+            out.append(ops)
+        return out
+
+    def _journaled_binary_units(self, sess: StreamSession,
+                                unit: StreamUnit) -> Optional[list]:
+        """Per-segment binary payload dicts of ONE unit, re-read from
+        the WAL's ``stream-bseg`` records (the binary lane's twin of
+        `_journaled_unit_ops`). None when the WAL cannot answer."""
+        if self._journal is None:
+            return None
+        recs = self._journal.stream_records(sess.sid)
+        if recs is None:
+            return None
+        idx = sess.units.index(unit)
+        out = []
+        for seg in recs["segments"]:
+            if seg.get("kind") != "stream-bseg":
+                return None
+            try:
+                units = decode_stream_bseg_units(seg)
+                out.append(units[idx])
+            except (KeyError, IndexError, TypeError, ValueError):
+                LOG.warning("stream %s: journaled binary segment %s "
+                            "undecodable", sess.sid, seg.get("seq"),
+                            exc_info=True)
+                return None
+        return out
+
+    def _journaled_binary_encoding(
+            self, sess: StreamSession,
+            unit: StreamUnit) -> Optional[EncodedHistory]:
+        """A spilled binary unit's COMPLETE settled encoding rebuilt
+        from the WAL (finish-escalation path: the resident buffers are
+        gone and no raw ops ever existed server-side)."""
+        segs = self._journaled_binary_units(sess, unit)
+        if segs is None:
+            return None
+        ev = (np.concatenate([u["events"] for u in segs])
+              if segs else np.zeros((0, 5), np.int32))
+        oi = (np.concatenate([u["op_index"] for u in segs])
+              if segs else np.zeros((0,), np.int32))
+        pr = (np.concatenate(
+                  [u["proc"] if u["proc"] is not None
+                   else np.zeros(u["events"].shape[0], np.int32)
+                   for u in segs])
+              if segs else np.zeros((0,), np.int32))
+        return EncodedHistory(
+            events=np.ascontiguousarray(ev, dtype=np.int32),
+            op_index=oi,
+            n_slots=max((u["n_slots"] for u in segs), default=0),
+            n_ops=max((u["n_ops"] for u in segs), default=0),
+            proc=pr)
+
+    def _refeed_scan(self, sess: StreamSession, unit: StreamUnit,
+                     final: bool = False) -> bool:
+        """Rebuild a SPILLED unit's carry from the WAL: replay the
+        session's segments through a scratch encoder and feed the full
+        settled stream into the (fresh) carry. ``final`` applies the
+        end-of-history settle too (a finish-time rebuild must see the
+        crashed-pair OPENs of outstanding invokes, exactly like the
+        live encoder's final flush). True on success.
+
+        Binary lane: the journaled arrays ARE the settled stream — no
+        scratch encoder runs, and ``final`` needs no extra settle
+        because the client's final flush is itself a journaled segment
+        (finish() refuses to run without it)."""
+        # mode read under the session lock held by the _ensure_scan
+        # caller (RLock; mode is also latched by the time a unit spills)
+        if sess.mode == "binary":  # lint: allow(unguarded)
+            bsegs = self._journaled_binary_units(sess, unit)
+            if bsegs is None:
+                return False
+            for u in bsegs:
+                ev = u["events"]
+                if ev.shape[0] and unit.scan is not None:
+                    unit.scan.feed(ev)
+                    if unit.scan.decided:
+                        return True
+            return True
+        segments = self._journaled_unit_ops(sess, unit)
+        if segments is None:
+            return False
+        enc = IncrementalEncoder(sess.model)
+        for rows in segments:
+            ev, _oi, _pr = enc.feed(rows)
+            if ev.shape[0] and unit.scan is not None:
+                unit.scan.feed(ev)
+                if unit.scan.decided:
+                    return True
+        if final:
+            ev, _oi, _pr = enc.feed([], final=True)
+            if ev.shape[0] and unit.scan is not None:
+                unit.scan.feed(ev)
+        return True
+
+    def _replay_ops(self, sess: StreamSession,
+                    unit: StreamUnit) -> Optional[list]:
+        """A unit's complete raw op rows reconstructed from the WAL
+        (finish-escalation of a spilled/over-budget unit)."""
+        segments = self._journaled_unit_ops(sess, unit)
+        if segments is None:
+            return None
+        return [op for rows in segments for op in rows]
+
+    # ----------------------------------------------------------- stats
+
+    def stats(self) -> dict:
+        with self._lock:
+            out = dict(self._stats)
+            out["stream_live_sessions"] = sum(
+                1 for s in self._sessions.values()
+                # /stats gauge: racy read is the documented contract
+                if isinstance(s, StreamSession)
+                and s.status == OPEN)  # lint: allow(unguarded)
+            out["peak_resident_rows"] = self._peak_rows
+        return out

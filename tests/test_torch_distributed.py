@@ -425,3 +425,25 @@ def test_launcher_kills_at_its_deadline(tmp_path):
     assert outs[0][0] == 0 and "killed" not in outs[0][1]
     assert outs[1][0] != 0 and "[killed: no exit in 3s]" in outs[1][1]
     assert outs[1][1].startswith("up")
+
+
+def test_selfcheck_main_tears_its_group_down(monkeypatch):
+    """selfcheck's `main` returns with no process group up (a barrier,
+    then destroy_process_group), so no rank can abort at exit with its
+    group still alive; the store and device chosen at init are
+    forgotten too. One rank, gloo on the CPU."""
+    import torch.distributed as dist
+
+    from jepsen_jgroups_raft_tpu_torch.parallel import selfcheck
+
+    env = launch.cluster_child_env(0, 1, launch.free_coordinator_port())
+    for k in ENV_KEYS:
+        monkeypatch.setenv(k, env[k])
+    monkeypatch.setenv("JGRAFT_LIN_FASTPATH", "0")
+    assert not dist.is_initialized()
+    rc = selfcheck.main(["--device", "cpu", "--histories", "3", "--ops",
+                         "12", "--wide", "0", "--macro", "1",
+                         "--algorithms", "dense"])
+    assert rc == 0
+    assert not dist.is_initialized()
+    assert distributed._STATE == {}

@@ -114,3 +114,53 @@ def test_explicit_cpu_runs_without_card(no_card):
     assert r["valid?"] is True and r["decided-tier"] == "dense"
     r = LinearizableChecker(CasRegister(), device="cpu").check({}, _two()[0])
     assert r["valid?"] is True
+
+
+#: the checking service and the perf and stats checkers, by name
+SERVICE_MODULES = (
+    "checker.perf", "checker.stats", "service", "service.admission",
+    "service.client", "service.daemon", "service.frame", "service.http",
+    "service.journal", "service.request", "service.scheduler",
+    "service.stream")
+
+_BLOCKED_SERVICE = r"""
+import importlib, sys
+for name in ("jax", "jaxlib", "jepsen_jgroups_raft_tpu"):
+    sys.modules[name] = None          # any import of these now fails
+for m in sys.argv[1:]:
+    importlib.import_module("jepsen_jgroups_raft_tpu_torch." + m)
+from jepsen_jgroups_raft_tpu_torch.checker.perf import PerfChecker
+from jepsen_jgroups_raft_tpu_torch.checker.stats import StatsChecker
+from jepsen_jgroups_raft_tpu_torch.history.synth import build_history
+from jepsen_jgroups_raft_tpu_torch.service import (CheckingService,
+                                                   ServiceClient,
+                                                   serve_in_thread)
+rows = [(0, "invoke", "write", 1), (0, "ok", "write", 1),
+        (1, "invoke", "read", None), (1, "ok", "read", 2)]
+svc = CheckingService(device="cpu", batch_wait=0.0)
+httpd, port, _ = serve_in_thread(svc)
+cl = ServiceClient(f"http://127.0.0.1:{port}")
+rec = cl.check([build_history(rows).to_dicts()], workload="register",
+               timeout_s=60)
+httpd.shutdown(); httpd.server_close(); svc.shutdown()
+assert rec["valid?"] is False, rec
+h = build_history(rows)
+assert StatsChecker().check({}, h)["valid?"] is True
+assert PerfChecker(render=False).check({}, h)["valid?"] is True
+assert not any(n.split(".")[0] in ("jax", "jaxlib") and sys.modules[n] is not None
+               for n in sys.modules)
+print("SERVICE_BLOCKED_OK")
+"""
+
+
+def test_service_runs_with_jax_blocked():
+    """Every module of the service and the perf and stats checkers
+    imports with jax and the reference blocked, and a service on the CPU
+    answers a submission over HTTP."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_SERVICE,
+                          *SERVICE_MODULES], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "SERVICE_BLOCKED_OK" in out.stdout

@@ -2080,3 +2080,116 @@ def test_tuned_check_histories_on_card_matches_untuned(cuda, tmp_path,
                 == {"sort"}
     finally:
         autotune.reset_for_tests()
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_service_on_card_checks_register_and_counter(cuda, tmp_path,
+                                                     workers):
+    """A small checking service on the card (`service.CheckingService`,
+    one worker or two shard executors on this one device): a register
+    batch and a counter batch, half their rows corrupted, coalesced from
+    several requests. The dense and mask kernels' launch counts move,
+    no batch is degraded, and every verdict and decided tier equals
+    `check_histories` on the card."""
+    from jepsen_jgroups_raft_tpu_torch.history.ops import History
+    from jepsen_jgroups_raft_tpu_torch.service import CheckingService
+
+    reg = _histories(11, 16, 60, 3, 1, 3, 0.1)
+    rng = random.Random(12)
+    cnt = []
+    for i in range(16):
+        h = list(random_valid_history(rng, "counter", n_ops=60, n_procs=3))
+        reads = [j for j, op in enumerate(h) if op.type == "ok"
+                 and op.f == "read" and op.value is not None]
+        if i % 2 and reads:
+            j = rng.choice(reads)
+            h[j] = h[j].replace(value=h[j].value + 10**6)
+        cnt.append(h)
+    want = {"register": check_histories(reg, CasRegister(), device=cuda),
+            "counter": check_histories(cnt, Counter(), device=cuda)}
+    svc = CheckingService(journal_dir=str(tmp_path / "journal"),
+                          device=cuda, n_workers=workers, autostart=False)
+    reqs = [(w, svc.submit([History(h) for h in hs[i:i + 4]],
+                           workload=w))
+            for w, hs in (("register", reg), ("counter", cnt))
+            for i in range(0, len(hs), 4)]
+    ds.reset_launch_counts()
+    ls.reset_launch_counts()
+    svc.start()
+    try:
+        for _, r in reqs:
+            assert r.wait(300), r.status
+        st = svc.stats()
+    finally:
+        svc.shutdown()
+    launches = {**ds.launch_counts(), **ds.chunk_launch_counts()}
+    assert launches["dense_scan"] + launches["dense_scan_chunk"] > 0
+    assert launches["mask_scan"] + launches["mask_scan_chunk"] > 0
+    assert st["degraded_batches"] == 0
+    assert max(r.stats["batched_requests"] for _, r in reqs) >= 2
+    for w in ("register", "counter"):
+        got = [x for kind, r in reqs if kind == w for x in r.results]
+        assert [(x["valid?"], x["decided-tier"]) for x in got] == \
+            [(x["valid?"], x["decided-tier"]) for x in want[w]]
+        assert not any("platform-degraded" in x for x in got)
+    assert False in [x["valid?"] for x in want["register"]]
+
+
+def test_service_watchdog_zombie_and_replacement_on_their_own_streams(
+        cuda):
+    """The watchdog gives up on a batch wedged before its launch and
+    spawns a replacement worker; the next batch then runs on the
+    replacement's CUDA stream while the released zombie launches its own
+    batch on the old worker's stream. Both answers equal
+    `check_histories` on the card: neither thread's kernels corrupt the
+    other's."""
+    import threading
+    import time
+
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import \
+        check_encoded
+    from jepsen_jgroups_raft_tpu_torch.history.ops import History
+    from jepsen_jgroups_raft_tpu_torch.service import CheckingService
+
+    hs = _histories(21, 32, 120, 5, 3, 7, 0.2)
+    first, second = hs[:16], hs[16:]
+    want = check_histories(hs, CasRegister(), device=cuda)
+    release = threading.Event()
+    zombie = {}
+
+    def hanging(encs, model, algorithm="auto", **kw):
+        if not zombie:
+            zombie["stream"] = torch.cuda.current_stream(cuda)
+            release.wait(60)   # wedged before its launch
+            zombie["results"] = check_encoded(
+                encs, model, algorithm=algorithm, device=cuda,
+                distribute=False, **kw)
+            return zombie["results"]
+        zombie.setdefault("replacement", torch.cuda.current_stream(cuda))
+        return check_encoded(encs, model, algorithm=algorithm, device=cuda,
+                             distribute=False, **kw)
+
+    svc = CheckingService(device=cuda, batch_wait=0.0, check_fn=hanging,
+                          watchdog_margin_s=0.25)
+    try:
+        a = svc.submit([History(h) for h in first], workload="register",
+                       deadline_ms=100)
+        assert a.wait(120) and a.status == "done"
+        b = svc.submit([History(h) for h in second], workload="register")
+        release.set()
+        assert b.wait(120) and b.status == "done"
+        deadline = time.monotonic() + 120
+        while "results" not in zombie:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+    finally:
+        release.set()
+        svc.shutdown()
+    assert zombie["stream"] != zombie["replacement"]
+    assert [x["valid?"] for x in a.results] == \
+        [x["valid?"] for x in want[:16]]
+    assert all("watchdog" in x["platform-degraded"] for x in a.results)
+    assert [(x["valid?"], x["decided-tier"]) for x in b.results] == \
+        [(x["valid?"], x["decided-tier"]) for x in want[16:]]
+    assert [(x["valid?"], x["decided-tier"]) for x in zombie["results"]] \
+        == [(x["valid?"], x["decided-tier"]) for x in want[:16]]
