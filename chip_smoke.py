@@ -13,7 +13,8 @@ libraries it needs: `segment` measures B6 on config 5 as long_main does
 tables composed to VALID, the bound, the launch shape and the
 instrumented build's profile); `election` runs phase 26; `mesh` and
 `cluster` run phases 29 and 30 (`mesh` on a north-star batch of its
-own). They end with
+own); `service_cluster` runs phase 6e on a north-star batch of its own.
+They end with
 the card's `nvidia-smi` line and {"ok": true, "only": [...], ...}, and
 print no kernels line. With no arguments every phase runs:
 
@@ -24,8 +25,8 @@ against its plain version on its own cases) run in a second process on
 the same card, their lines printed when it ends, while this one makes the other
 suites' batches and runs 8, 11, 15, 19, 20, 22-24, 27 and 28 (host
 walls; no time on the card is taken in them); the phases that time the
-card run after both, in the order 6, 6b, 6c, 7, 9, 10, 12, 14, 17, 18,
-25, the closure kernels' line, 26, 29, 30:
+card run after both, in the order 6, 6b, 6c, 6d, 6e, 7, 9, 10, 12, 14,
+17, 18, 25, the closure kernels' line, 26, 29, 30:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
                mask_scan, sort_scan — each with its chunk entry point,
@@ -106,6 +107,29 @@ card run after both, in the order 6, 6b, 6c, 7, 9, 10, 12, 14, 17, 18,
                append, one B = 1 launch against its plain version (the
                wrapper's and the device's ms, the bound), and the sessions
                the certifier carried to the end
+ 6d. service — the checking service on the card (`service/`): 8 tenant
+               threads over HTTP (half binary frames, half JSON), 8
+               histories a request: 512 north-star histories, 32 + 32
+               corrupted register and set rows (phases 8, 15) and 64
+               counter rows; 16 stream sessions (4 corrupted); 64 + 16
+               rows at the default knobs (the fast lane); 32 requests
+               replayed from a crashed journal. Verdicts and tiers equal
+               to `check_histories`', nothing degraded
+ 6e. service_cluster — graftd's cluster tier: two replicas in this
+               process share a cluster dir (leases, the shared result
+               store, WAL handoff), each over HTTP; 8 tenants with routing
+               clients send 256 fresh north-star histories (32
+               corrupted), 8 a request; every request resubmitted to each
+               replica (store hits, no batch, no launch); r0 restarted
+               with its workers off admits 32 fresh requests and opens
+               a stream session (a corrupted history, half appended),
+               then dies, its last lease 0.5 s; r1 claims its WAL, checks them on the card, and a
+               client resumes the session there; a third replica past
+               JGRAFT_SERVICE_SHED_DEPTH=1 answers a 429 with the
+               cluster's best retry-after. Verdicts and tiers equal to
+               `check_histories`', nothing degraded; hist/s, latency p50 /
+               p99, requests a replica, store hits, batches and launches
+               on resubmission, handoff requests and streams, seconds
   7. profile — one check under torch.profiler: the device's busy share of
                the check's wall (a trace without device time fails)
   8. invalid — 64 of those histories with one read corrupted: kernel,
@@ -337,7 +361,11 @@ with the LOP3 floor of the work it does: `closure_main_path`.
                every rank's verdicts equal one process's
                `check_histories` on the card (its 3-row check too, and
                `run_sharded` of one row, which leaves rank 0's shard
-               empty), and its counts `check_batch_sharded`'s
+               empty), and its counts `check_batch_sharded`'s; then the
+               batch again with a result store both ranks share
+               (`selfcheck --result-store`: `run_sharded`'s detail
+               exchange): no row a "remote-shard" stub, the other rank's
+               shard read from the store, one detail record a row
 
 Every phase but lin_fastpath runs with JGRAFT_LIN_FASTPATH=0 (set at
 the start), as the reference's test suite runs: at the default knobs
@@ -362,7 +390,8 @@ of every path, and its ms, plain ms and bound one measured launch's;
 dense_scan_chunk and sort_scan_chunk give their launches by path,
 `launches_by_path`: the wavefront paths, autotune_main, autotune_set
 and, for sort_scan_chunk, the streaming sessions, whose B = 1 launch is
-its `stream_launch`; dense_scan_chunk's `tuned_launch` is the largest
+its `stream_launch`, and the service's arms (`service`, and
+`service_cluster`: the cluster phase's wave and handoff); dense_scan_chunk's `tuned_launch` is the largest
 north-star group's launch under its plan),
 the card's
 `nvidia-smi` name and power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -4384,17 +4413,24 @@ def phase_cluster(dev, model) -> None:
         check_batch_sharded)
     from jepsen_jgroups_raft_tpu_torch.parallel.selfcheck import seeded_batch
 
+    from jepsen_jgroups_raft_tpu_torch.history.packing import shard_bounds
+
     shape = ["--histories", str(CLUSTER_HISTORIES), "--ops", str(N_OPS),
              "--procs", str(N_PROCS), "--wide", "0", "--corrupt-every",
              "8", "--seed", str(CLUSTER_SEED)]
+    store = tempfile.mkdtemp(prefix="chip-smoke-result-store-")
     t0 = time.perf_counter()
-    outs = launch_local_cluster(
-        2, [sys.executable, "-m",
-            "jepsen_jgroups_raft_tpu_torch.parallel.selfcheck", *shape,
-            "--macro", "1", "--algorithms", "auto", "--global", "--device",
-            dev.type],
-        env_extra={"PYTHONPATH": str(Path(__file__).resolve().parent),
-                   "JGRAFT_LIN_FASTPATH": "0"}, timeout_s=300)
+    try:
+        outs = launch_local_cluster(
+            2, [sys.executable, "-m",
+                "jepsen_jgroups_raft_tpu_torch.parallel.selfcheck", *shape,
+                "--macro", "1", "--algorithms", "auto", "--global",
+                "--device", dev.type, "--result-store", store],
+            env_extra={"PYTHONPATH": str(Path(__file__).resolve().parent),
+                       "JGRAFT_LIN_FASTPATH": "0"}, timeout_s=300)
+        detail_records = len(list((Path(store) / "detail").rglob("*.json")))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
     cluster_s = time.perf_counter() - t0
     ranks = []
     for rank, (rc, out) in enumerate(outs):
@@ -4436,12 +4472,29 @@ def phase_cluster(dev, model) -> None:
         if r["tiny"] != single[:3] or r["empty_shard"] != single[:1]:
             raise AssertionError(f"cluster rank {r['rank']}: the 3-row "
                                  "or the empty-shard check differs")
+        # the result-store arm: every row of the other rank's shard is its
+        # owner's whole result, read from the store
+        lo, hi = shard_bounds(CLUSTER_HISTORIES, len(ranks), r["rank"])
+        arm = r["store"]
+        if arm["verdicts"] != single or "remote-shard" in arm["kernels"] \
+                or arm["store_rows"] != CLUSTER_HISTORIES - (hi - lo):
+            raise AssertionError(
+                f"cluster rank {r['rank']}: the result-store arm's "
+                f"verdicts differ, or {arm['kernels'].count('remote-shard')}"
+                f" stubs and {arm['store_rows']} rows from the store")
+    if detail_records != CLUSTER_HISTORIES:
+        raise AssertionError(f"cluster: {detail_records} detail records "
+                             f"for {CLUSTER_HISTORIES} rows")
     emit("cluster", ranks=len(ranks), histories=CLUSTER_HISTORIES,
          devices=[r["device"] for r in ranks],
          rank_seconds=[r["seconds"] for r in ranks], cluster_s=cluster_s,
          single_process_s=single_s, n_valid=sum(single), counts=want,
-         remote_rows=[r["checks"][next(iter(r["checks"]))]["kernels"]
-                      .count("remote-shard") for r in ranks])
+         stub_rows=[r["checks"][next(iter(r["checks"]))]["kernels"]
+                    .count("remote-shard") for r in ranks],
+         remote_rows=[r["store"]["kernels"].count("remote-shard")
+                      for r in ranks],
+         store_rows=[r["store"]["store_rows"] for r in ranks],
+         detail_records=detail_records)
 
 
 def phase_mesh_alone(dev) -> None:
@@ -4463,6 +4516,17 @@ def phase_cluster_alone(dev) -> None:
     from jepsen_jgroups_raft_tpu_torch.models import CasRegister
 
     phase_cluster(dev, CasRegister())
+
+
+def phase_service_cluster_alone(dev) -> None:
+    """`--only service_cluster`: phase 6e on a north-star batch of its
+    own, with phase 8's corrupted rows."""
+    histories, synth_s = suite_histories("register")
+    emit("service_cluster_synth", seconds=synth_s)
+    rng = random.Random(SEED + 2)
+    bad_north = [corrupt_read(h, rng, VALUE_RANGE + 1)[0]
+                 for h in histories[:N_INVALID]]
+    phase_service_cluster(dev, histories, bad_north)
 
 
 def phase_segment_timed(dev) -> None:
@@ -4498,7 +4562,10 @@ ONLY = {"segment": (("segment_scan", "segment_scan_profile"),
                   *COUNT_LIBRARIES), phase_mesh_alone),
         "cluster": (("dense_scan", "mask_scan", "sort_scan",
                      "verdict_counts", *COUNT_LIBRARIES),
-                    phase_cluster_alone)}
+                    phase_cluster_alone),
+        "service_cluster": (("dense_scan", "mask_scan", "sort_scan",
+                             "segment_scan", "cycle_closure"),
+                            phase_service_cluster_alone)}
 
 
 def kernel_checks(dev, model) -> dict:
@@ -5201,11 +5268,13 @@ def service_verdicts_match(rec: dict, expected: list, tiers: bool) -> bool:
                for k in keys)
 
 
-def service_tenants(port: int, requests: list, n_tenants: int) -> tuple:
+def service_tenants(port: int, requests: list, n_tenants: int,
+                    replicas=()) -> tuple:
     """Submit `requests` from n_tenants threads, each with its own
-    ServiceClient (even tenants binary frames, odd JSON), each request
-    waited for before the tenant sends its next (closed loop). Returns
-    (records in request order, client-side latencies in ms, wall s)."""
+    ServiceClient (even tenants binary frames, odd JSON; with `replicas`,
+    the other replicas' URLs, a routing client), each request waited for
+    before the tenant sends its next (closed loop). Returns (records in
+    request order, client-side latencies in ms, wall s)."""
     from jepsen_jgroups_raft_tpu_torch.service import ServiceClient
 
     recs: list = [None] * len(requests)
@@ -5213,7 +5282,8 @@ def service_tenants(port: int, requests: list, n_tenants: int) -> tuple:
     errors: list = []
 
     def tenant(k: int) -> None:
-        cl = ServiceClient(f"http://127.0.0.1:{port}", timeout=60.0)
+        cl = ServiceClient(f"http://127.0.0.1:{port}",
+                           replicas=list(replicas), timeout=60.0)
         try:
             for i in range(k, len(requests), n_tenants):
                 workload, rows, _ = requests[i]
@@ -5544,6 +5614,328 @@ def phase_service(dev, histories, bad_north, bad_set, counters) -> dict:
     return out
 
 
+#: the cluster phase: the wave's valid and corrupted north-star histories
+#: (256 in all, SERVICE_PER_REQUEST a request), the handoff's requests
+#: (HANDOFF_PER_REQUEST histories each, the last HANDOFF_CORRUPT_REQUESTS
+#: requests corrupted), where each arm's histories start in the
+#: north-star batch, and the leases' times
+CLUSTER_WAVE_VALID = 224
+CLUSTER_WAVE_CORRUPT = 32
+CLUSTER_WAVE_AT = 600
+HANDOFF_REQUESTS = 32
+HANDOFF_PER_REQUEST = 4
+HANDOFF_CORRUPT_REQUESTS = 2
+HANDOFF_AT = CLUSTER_WAVE_AT + CLUSTER_WAVE_VALID
+SHED_AT = HANDOFF_AT + HANDOFF_REQUESTS * HANDOFF_PER_REQUEST
+DEAD_LEASE_TTL_S = 0.5
+CLUSTER_SKEW_S = 0.2
+
+
+def phase_service_cluster(dev, histories, bad_north) -> dict:
+    """6e. graftd's cluster tier on the card (`service/cluster.py`,
+    `service/store.py`): two replicas in this process share a fresh
+    cluster dir, each served over HTTP and advertising its URL in its
+    lease (the reference's `bench.py --service --replicas 2`, cut to a
+    phase). Result caches are off (capacity 0), so a repeat is a store
+    hit, not an LRU one.
+
+    Wave: SERVICE_TENANTS tenants, each with a routing client
+    (`replicas=[...]`, affinity first; even tenants binary frames), send
+    CLUSTER_WAVE_VALID fresh north-star histories and CLUSTER_WAVE_CORRUPT
+    corrupted ones, SERVICE_PER_REQUEST a request. Resubmission: every
+    request of the wave to each replica directly, as binary frames.
+    Handoff: replica r0 is
+    stopped and started again with its workers off and its heartbeat on
+    (the same id and WAL), admits HANDOFF_REQUESTS
+    fresh requests and opens one stream session (a corrupted history, its
+    first half appended), and dies (its heartbeat stopped after a last
+    lease of DEAD_LEASE_TTL_S, its journal closed, the lease left to
+    expire); r1's cluster agent claims the WAL, r1 checks the requests on
+    the card, and a client resumes the session on r1 and finishes it.
+    Shedding: a third replica with JGRAFT_SERVICE_SHED_DEPTH=1 and a
+    request queued answers the next with a 429 carrying the cluster's
+    best retry-after.
+
+    Fails if a wave or handoff verdict or decided tier differs from
+    `check_histories` on the same histories on this card, if a corrupted
+    row is not INVALID, if a replica took no wave request, if a result or
+    a batch is degraded, if a resubmission is not a store hit or makes a
+    batch or a launch, if a handoff request or the stream is not claimed,
+    if B1's launches over the wave or the handoff (B5's over the stream)
+    are 0, if the stream's verdict differs from its one-shot check, or if
+    the 429's retry-after is not the cluster's best. The launch counts
+    are set to 0 just before each arm and read just after. Returns each
+    arm's launches by kernel."""
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+    from jepsen_jgroups_raft_tpu_torch.service import (CheckingService,
+                                                       ServiceClient,
+                                                       ServiceError,
+                                                       serve_in_thread)
+
+    reg = CasRegister()
+    lo, hi = CLUSTER_WAVE_AT, CLUSTER_WAVE_AT + CLUSTER_WAVE_VALID
+    wave_h = [list(h) for h in histories[lo:hi]] + \
+        bad_north[:CLUSTER_WAVE_CORRUPT]
+    n_handoff_ok = (HANDOFF_REQUESTS - HANDOFF_CORRUPT_REQUESTS) \
+        * HANDOFF_PER_REQUEST
+    handoff_h = [list(h) for h in
+                 histories[HANDOFF_AT:HANDOFF_AT + n_handoff_ok]] + \
+        bad_north[CLUSTER_WAVE_CORRUPT:CLUSTER_WAVE_CORRUPT
+                  + HANDOFF_CORRUPT_REQUESTS * HANDOFF_PER_REQUEST]
+    stream_h = record_crashes(bad_north[-1])
+    one_wave = check_histories(wave_h, reg, device=dev)
+    one_handoff = check_histories(handoff_h, reg, device=dev)
+    [one_stream] = check_histories([stream_h], reg, device=dev)
+    requests = service_requests("register", wave_h, one_wave)
+    rows = [[op.to_dict() for op in h] for h in handoff_h]
+    n = HANDOFF_PER_REQUEST
+    handoff_reqs = [(rows[i:i + n], one_handoff[i:i + n])
+                    for i in range(0, len(rows), n)]
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-cluster-"))
+    cdir = str(tmp / "cluster")
+    out: dict = {}
+    t_phase = time.perf_counter()
+    old_skew = os.environ.get("JGRAFT_CLUSTER_SKEW_S")
+    os.environ["JGRAFT_CLUSTER_SKEW_S"] = str(CLUSTER_SKEW_S)
+    replicas, fronts = [], []
+    dead = None
+
+    def serve(svc):
+        httpd, port, _ = serve_in_thread(svc)
+        fronts.append(httpd)
+        svc.cluster.set_url(f"http://127.0.0.1:{port}")
+        return port
+
+    def stop(httpd, svc):
+        httpd.shutdown()
+        httpd.server_close()
+        svc.shutdown()
+
+    try:
+        for k in range(2):
+            replicas.append(CheckingService(
+                device=dev, cluster_dir=cdir, replica_id=f"r{k}",
+                cache_capacity=0))
+        ports = [serve(svc) for svc in replicas]
+        urls = [svc.cluster.url for svc in replicas]
+
+        # ---- wave
+        s0 = [svc.stats() for svc in replicas]
+        reset_all_launch_counts()
+        recs, lat, wall = service_tenants(ports[0], requests,
+                                          SERVICE_TENANTS,
+                                          replicas=urls[1:])
+        out["wave"] = {k: v for k, v in all_launch_counts().items() if v}
+        s1 = [svc.stats() for svc in replicas]
+        per_replica = [b["submitted"] - a["submitted"]
+                       for a, b in zip(s0, s1)]
+        mism = [i for i, (rec, req) in enumerate(zip(recs, requests))
+                if not service_verdicts_match(rec, req[2], True)]
+        n_ok_req = CLUSTER_WAVE_VALID // SERVICE_PER_REQUEST
+        corrupt_ok = all(r["valid?"] is False
+                         for rec in recs[n_ok_req:] for r in rec["results"])
+        deadline = time.monotonic() + SERVICE_WAIT_S
+        while sum(svc.stats()["store_puts"] for svc in replicas) \
+                < len(requests):  # published after each request is done
+            if time.monotonic() > deadline:
+                raise AssertionError("service_cluster: the wave's "
+                                     "verdicts were not all published")
+            time.sleep(0.05)
+
+        # ---- resubmission: each request to each replica directly, as
+        # binary frames (the JSON lane's fingerprint, service_main; the
+        # lane skips the server's JSON parse and encode)
+        s0 = [svc.stats() for svc in replicas]
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        cached = 0
+        for url in urls:
+            direct = ServiceClient(url, timeout=60.0)
+            try:
+                for workload, rws, _ in requests:
+                    rec = direct.submit(rws, workload=workload, binary=True)
+                    cached += bool(rec.get("cached")) \
+                        and rec.get("status") == "done"
+            finally:
+                direct.close()
+        resubmit_s = time.perf_counter() - t0
+        resubmit_launches = sum(all_launch_counts().values())
+        s1 = [svc.stats() for svc in replicas]
+        store_hits = sum(b["store_hits"] - a["store_hits"]
+                         for a, b in zip(s0, s1))
+        resubmit_batches = sum(b["batches"] - a["batches"]
+                               for a, b in zip(s0, s1))
+
+        # ---- handoff: r0 restarts with its workers off, admits (its
+        # heartbeat keeping the lease alive), then dies: the heartbeat
+        # stops after one last renewal at DEAD_LEASE_TTL_S, the journal
+        # is closed
+        stop(fronts[0], replicas[0])
+        dead = CheckingService(device=dev, cluster_dir=cdir,
+                               replica_id="r0", cache_capacity=0,
+                               autostart=False)
+        dead.cluster.start()
+        ids = [dead.submit(rws, workload="register").id
+               for rws, _ in handoff_reqs]
+        sid = "handoff-stream"
+        srows = [op.to_dict() for op in stream_h]
+        half = (len(srows) // 2 // STREAM_APPEND_ROWS) * STREAM_APPEND_ROWS
+        dead.streams.open(workload="register", session_id=sid)
+        seq = 1
+        for a in range(0, half, STREAM_APPEND_ROWS):
+            dead.streams.append(sid, seq, srows[a:a + STREAM_APPEND_ROWS],
+                                n_bytes=0)
+            seq += 1
+        reset_all_launch_counts()
+        dead.cluster._stop.set()
+        dead.cluster._thread.join(10)
+        dead.cluster.lease_ttl = DEAD_LEASE_TTL_S
+        dead.cluster.renew_lease()
+        dead._journal.close()  # dies: no terminal marker, no renewal
+        t_dead = time.perf_counter()
+        survivor = replicas[1]
+        while survivor.stats()["handoff_claims"] < 1:
+            if time.perf_counter() - t_dead > 60:
+                raise AssertionError("service_cluster: r0's WAL was not "
+                                     "claimed")
+            time.sleep(0.02)
+        claim_s = time.perf_counter() - t_dead
+        adopted = []
+        for rid in ids:
+            r = survivor.get(rid)
+            if r is None or not r.wait(SERVICE_WAIT_S):
+                raise AssertionError(f"service_cluster: request {rid} not "
+                                     "adopted or not finished")
+            adopted.append(r)
+        handoff_s = time.perf_counter() - t_dead
+        cl = ServiceClient(urls[1], timeout=60.0)
+        try:
+            sess = cl.stream(workload="register", session_id=sid,
+                             resume=True)
+            resumed_at = sess.seq
+            for a in range(half, len(srows), STREAM_APPEND_ROWS):
+                sess.append(srows[a:a + STREAM_APPEND_ROWS])
+            final = sess.finish()
+        finally:
+            cl.close()
+        out["handoff"] = {k: v for k, v in all_launch_counts().items()
+                          if v}
+        hst = survivor.stats()
+        hmis = [i for i, (r, req) in enumerate(zip(adopted, handoff_reqs))
+                if r.status != "done" or not service_verdicts_match(
+                    {"results": r.results}, req[1], True)]
+
+        # ---- shedding: a third replica past its shed depth, beside the
+        # idle r1 (its lease renewed now, so it advertises its idle
+        # retry-after)
+        survivor.cluster.renew_lease()
+        os.environ["JGRAFT_SERVICE_SHED_DEPTH"] = "1"
+        try:
+            shed = CheckingService(device=dev, cluster_dir=cdir,
+                                   replica_id="r2", cache_capacity=0,
+                                   autostart=False)
+        finally:
+            del os.environ["JGRAFT_SERVICE_SHED_DEPTH"]
+        shed_port = serve(shed)
+        try:
+            scl = ServiceClient(f"http://127.0.0.1:{shed_port}",
+                                max_attempts=1, timeout=60.0)
+            first = scl.submit([[op.to_dict() for op in
+                                 histories[SHED_AT]]], workload="register")
+            own = shed._retry_after()
+            best = shed.cluster.best_retry_after(own)
+            try:
+                scl.submit([[op.to_dict() for op in histories[SHED_AT + 1]]],
+                           workload="register")
+                shed_status, shed_retry = 202, None
+            except ServiceError as e:
+                shed_status, shed_retry = e.status, e.retry_after_s
+            scl.close()
+        finally:
+            stop(fronts[-1], shed)
+        degraded = service_degraded(recs) + sum(
+            1 for r in adopted for x in r.results or []
+            if "platform-degraded" in x)
+        st = [svc.stats() for svc in replicas]
+        emit("service_cluster", replicas=2, requests=len(requests),
+             histories=len(wave_h), hist_per_s=len(wave_h) / wall,
+             wall_s=wall, latency_p50_ms=pct(lat, 0.5),
+             latency_p99_ms=pct(lat, 0.99),
+             requests_per_replica=per_replica, mismatched=mism,
+             launches=out["wave"],
+             resubmissions=len(urls) * len(requests), cached=cached,
+             store_hits=store_hits, resubmit_batches=resubmit_batches,
+             resubmit_launches=resubmit_launches, resubmit_s=resubmit_s,
+             handoff_admitted=len(ids),
+             handoff_requests=hst["handoff_requests"],
+             handoff_streams=hst["handoff_streams"],
+             handoff_claims=hst["handoff_claims"], claim_s=claim_s,
+             handoff_s=handoff_s, handoff_mismatched=hmis,
+             handoff_launches=out["handoff"], stream_resumed_at=resumed_at,
+             stream_valid=final.get("valid?"),
+             stream_expected=one_stream["valid?"],
+             shed_status=shed_status, shed_retry_after_s=shed_retry,
+             shed_own_retry_after_s=own, shed_best_retry_after_s=best,
+             shed_first=first.get("status"),
+             degraded_results=degraded,
+             degraded_batches=sum(x["degraded_batches"] for x in st),
+             live_replicas=st[1]["live_replicas"],
+             seconds=time.perf_counter() - t_phase)
+        if mism or not corrupt_ok:
+            raise AssertionError(f"service_cluster: wave requests {mism} "
+                                 "differ from check_histories, or a "
+                                 "corrupted row passed")
+        if min(per_replica) <= 0:
+            raise AssertionError(f"service_cluster: a replica took no wave "
+                                 f"request ({per_replica})")
+        if degraded or any(x["degraded_batches"] for x in st):
+            raise AssertionError("service_cluster: a degraded result")
+        if cached != len(urls) * len(requests) \
+                or store_hits != len(urls) * len(requests) \
+                or resubmit_batches or resubmit_launches:
+            raise AssertionError(
+                f"service_cluster: resubmission {cached} cached, "
+                f"{store_hits} store hits, {resubmit_batches} batches, "
+                f"{resubmit_launches} launches")
+        if hst["handoff_requests"] != len(ids) or hmis \
+                or hst["handoff_streams"] != 1:
+            raise AssertionError(
+                f"service_cluster: handoff took {hst['handoff_requests']} "
+                f"of {len(ids)} requests and {hst['handoff_streams']} "
+                f"streams; {hmis} differ from check_histories")
+        b1 = {arm: c.get("dense_scan_chunk", 0) + c.get("dense_scan", 0)
+              for arm, c in out.items()}
+        if min(b1.values()) <= 0 or \
+                out["handoff"].get("sort_scan_chunk", 0) <= 0:
+            raise AssertionError(f"service_cluster: launches {out}")
+        if resumed_at != seq or final.get("valid?") != one_stream["valid?"]:
+            raise AssertionError(
+                f"service_cluster: the claimed stream resumed at "
+                f"{resumed_at} (want {seq}) with {final.get('valid?')}")
+        if shed_status != 429 or shed_retry != best or best >= own:
+            raise AssertionError(
+                f"service_cluster: shed {shed_status} with retry-after "
+                f"{shed_retry} (own {own}, cluster's best {best})")
+    finally:
+        for httpd in fronts:
+            httpd.shutdown()
+            httpd.server_close()
+        if dead is not None:
+            # its WAL belongs to r1 now: the stop writes nothing there
+            dead._journal = None
+            dead.shutdown()
+        for svc in replicas:
+            svc.shutdown()
+        if old_skew is None:
+            os.environ.pop("JGRAFT_CLUSTER_SKEW_S", None)
+        else:
+            os.environ["JGRAFT_CLUSTER_SKEW_S"] = old_skew
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def run_phases(dev, model, ptxas: dict, histories: list,
                synth_s: float) -> list:
     """Phases 3-30 of the full run, on the kernels `main` built;
@@ -5693,6 +6085,12 @@ def run_phases(dev, model, ptxas: dict, histories: list,
                                 suites["counter"][0])
         emit("service_summary", seconds=time.perf_counter() - t0)
 
+        # 6e. the service's cluster tier: two replicas, the shared store,
+        # a handoff and shedding
+        t0 = time.perf_counter()
+        service_cluster = phase_service_cluster(dev, histories, bad_north)
+        emit("service_cluster_summary", seconds=time.perf_counter() - t0)
+
         # 7. the card's busy share over one check, from a profiler trace
         phase_profile(dev, model, histories)
 
@@ -5814,24 +6212,27 @@ def run_phases(dev, model, ptxas: dict, histories: list,
                                               "rows", "width", "plan")}
     line["sort_scan_chunk"]["launches_by_path"]["stream"] = \
         stream["launches"]
-    # the checking service's launches (all four of its arms), each
+    # the checking service's launches (all four of its arms; the
+    # cluster phase's wave and handoff under a path of their own), each
     # under the kernel that made them: a chunk form's on its chunk line
     # (summed from launches_by_path below), any other kernel's added to
     # its line's launches beside those of its other paths
-    service_launches: dict = {}
-    for counts in service.values():
-        for k, n in counts.items():
-            service_launches[k] = service_launches.get(k, 0) + n
-    for name, n in sorted(service_launches.items()):
-        x = line.get(name)
-        if x is None:
-            raise AssertionError(f"service: launches of {name}, which "
-                                 "the kernels line does not list")
-        if not name.endswith("_chunk"):
-            x.setdefault("launches_by_path",
-                         {"other_paths": x["launches"]})
-            x["launches"] += n
-        x["launches_by_path"]["service"] = n
+    for path, arms in (("service", service),
+                       ("service_cluster", service_cluster)):
+        path_launches: dict = {}
+        for counts in arms.values():
+            for k, n in counts.items():
+                path_launches[k] = path_launches.get(k, 0) + n
+        for name, n in sorted(path_launches.items()):
+            x = line.get(name)
+            if x is None:
+                raise AssertionError(f"{path}: launches of {name}, which "
+                                     "the kernels line does not list")
+            if not name.endswith("_chunk"):
+                x.setdefault("launches_by_path",
+                             {"other_paths": x["launches"]})
+                x["launches"] += n
+            x["launches_by_path"][path] = n
     line["sort_scan_chunk"]["stream_launch"] = {
         k: stream[k] for k in ("ms", "device_ms", "plain_ms", "t_bytes",
                                "t_ops", "max_abs_err", "W", "C",

@@ -18,8 +18,9 @@ list-append histories, both through the closure kernels
 store (`checker/recorded.py`, the `check` CLI), multi-key histories per
 key in one batch (`checker/independent.py`), and election safety has a
 batched check on the card (`ops/csrc/election_safety.cu`). The checking
-service (`service/`, graftd, single replica) batches many tenants'
-submissions onto the card over HTTP.
+service (`service/`, graftd) batches many tenants' submissions onto
+the card over HTTP; N replicas sharing a cluster directory behave as
+one service.
 
 Layout (mirrors the reference's module paths):
   platform.py          env knobs, `resolve_device`, `toolchain_stamp`
@@ -46,7 +47,8 @@ Layout (mirrors the reference's module paths):
                        interval tier, the set and queue analyses, the
                        perf and stats checkers
   service/             graftd: admission, frames, journal, scheduler,
-                       streams, the daemon, HTTP front and client
+                       streams, the daemon, HTTP front and client; the
+                       cluster tier (result store, leases, handoff)
   interop.py           reading reference encodings, plans and graphs by
                        duck type
 

@@ -309,7 +309,9 @@ def check_encoded(
     row goes through the reference's seam, `parallel.distributed.
     run_sharded`: each process checks its row shard and the verdicts are
     exchanged, so every process returns the whole batch's results (other
-    processes' rows as ``"kernel": "remote-shard"`` stubs). Such a batch
+    processes' rows as ``"kernel": "remote-shard"`` stubs, or, with a
+    shared result store, ``JGRAFT_RESULT_STORE``, as their owners'
+    results). Such a batch
     stays kernel-first — no lin fast path — unless the gate store is
     shared (``JGRAFT_LINFP_DIR``): each process's gate is its own state,
     and two processes evicting different rows would break the exchange.
@@ -344,7 +346,11 @@ def check_encoded(
     def rest(sub):
         # the reference's `_kernel_path` seam
         if distribute and distributed.wavefront_active() and len(sub) > 1:
-            return distributed.run_sharded(sub, local)
+            # the result-detail exchange keys its store records over
+            # (model, algorithm, row encoding); inert unless a shared
+            # store dir is configured
+            return distributed.run_sharded(sub, local, model=model,
+                                           algorithm=algorithm)
         return local(sub)
 
     # A sharded batch stays kernel-first unless every process reads the

@@ -5,7 +5,7 @@ serve the checking service.
         [--algorithm A] [--device D]
     python -m jepsen_jgroups_raft_tpu_torch serve-checker [--host H]
         [--port P] [--store DIR] [--queue N] [--batch-wait-ms MS]
-        [--workers N] [--device D]
+        [--workers N] [--cluster-dir DIR] [--replica-id ID] [--device D]
 
 The reference's `check` subcommand (`jepsen_jgroups_raft_tpu/cli.py`
 `cmd_check`): PATH is a run dir (it holds history.jsonl) or a store root,
@@ -20,10 +20,11 @@ without a card the command does not fall back to the CPU.
 
 ``serve-checker`` is the reference's (`cmd_serve_checker`): graftd
 (`service/`) in the foreground, on the card unless ``--device cpu``;
-it exits 3 when the device asked for is not there. The reference's
-``--cluster-dir`` / ``--replica-id`` are not offered: the cluster tier
-is not ported. The harness subcommands (test, serve, search) are not
-ported yet.
+it exits 3 when the device asked for is not there. With
+``--cluster-dir`` it runs as one replica (``--replica-id``) of the
+cluster sharing that directory: the shared result store, leases, load
+shedding and the WAL handoff (`service/cluster.py`). The harness
+subcommands (test, serve, search) are not ported yet.
 """
 
 from __future__ import annotations
@@ -96,7 +97,9 @@ def cmd_serve_checker(args) -> int:
                          batch_wait=(args.batch_wait_ms / 1000.0
                                      if args.batch_wait_ms is not None
                                      else None),
-                         n_workers=args.workers, device=device)
+                         n_workers=args.workers,
+                         cluster_dir=args.cluster_dir,
+                         replica_id=args.replica_id, device=device)
 
 
 def main(argv=None) -> int:
@@ -132,6 +135,15 @@ def main(argv=None) -> int:
                     help="worker shards on the device, each on a CUDA "
                          "stream of its own "
                          "(default: JGRAFT_SERVICE_WORKERS or 1)")
+    sc.add_argument("--cluster-dir", default=None,
+                    help="shared cluster directory: run as one replica "
+                         "of a graftd cluster (result store, leases, "
+                         "journal handoff; default: "
+                         "JGRAFT_SERVICE_CLUSTER_DIR or single-replica)")
+    sc.add_argument("--replica-id", default=None,
+                    help="this replica's id in the cluster "
+                         "(default: JGRAFT_SERVICE_REPLICA_ID or "
+                         "<name>-<pid>)")
     sc.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain versions on the host)")

@@ -24,9 +24,13 @@ with torchrun's environment. Four layers, smallest dependency first:
   .check_encoded` routes through inside a cluster: each process checks
   its contiguous row shard (`history.packing.shard_bounds`) with the
   ordinary single-process pass, then the per-row verdict codes are
-  exchanged, so every process returns the whole batch's verdicts. Remote rows carry
-  `_remote_result` stubs; the reference's result-store detail exchange
-  waits for the service (ROADMAP).
+  exchanged, so every process returns the whole batch's verdicts.
+  Remote rows carry `_remote_result` stubs, unless a result store every
+  process shares is configured (``JGRAFT_RESULT_STORE``, or the service's
+  cluster dir) and the caller names the model: then each process
+  publishes its rows' full results before the exchange and reads the
+  owners' after it (`_detail_exchange`, `service/store.py`), so
+  witnesses and counterexamples follow the verdict across processes.
 
 * **Global counts** — `check_batch_global`: per-process packing
   (`history.packing.pack_*_batch_shard`), the dense or mask kernel on
@@ -346,8 +350,8 @@ def _verdict_code(result: dict) -> int:
 
 def _remote_result(code: int, owner: int) -> dict:
     """Result of a row checked by another process: the verdict is exact
-    (it rode the wire); its detail (witness, timing, kernel tag) stays
-    with the owner until the service's result store carries it."""
+    (it rode the wire); without a shared result store its detail
+    (witness, timing, kernel tag) stays with the owner."""
     from ..checker.base import INVALID, UNKNOWN, VALID
 
     valid = (VALID if code == _CODE_VALID
@@ -357,14 +361,39 @@ def _remote_result(code: int, owner: int) -> dict:
             "decided-tier": "remote-shard"}
 
 
-def run_sharded(encs: Sequence,
-                check_local: Callable[[list], List[dict]]) -> List[dict]:
+def _detail_exchange(model, algorithm: str):
+    """(store, key_fn) for the cross-process result-detail exchange, or
+    (None, None) — inert unless JGRAFT_RESULT_STORE (or the cluster dir)
+    names a directory every process shares, and only usable when the
+    caller supplied the model the detail keys hash over."""
+    if model is None:
+        return None, None
+    from ..service.store import detail_fingerprint, detail_store
+
+    store = detail_store()
+    if store is None:
+        return None, None
+    return store, lambda enc: detail_fingerprint(model, algorithm, enc)
+
+
+def run_sharded(encs: Sequence, check_local: Callable[[list], List[dict]],
+                model=None, algorithm: str = "auto") -> List[dict]:
     """The distributed wavefront driver: check only this process's row
     shard through `check_local` (the ordinary single-process pass), then
     exchange the per-row verdict codes so every process returns the
     whole batch's results in submission order: full dicts for its own
     rows, `_remote_result` stubs for the others'. Outside a cluster it is
     `check_local` of the whole batch, with no wire.
+
+    With a shared result store configured (`model` given, and
+    JGRAFT_RESULT_STORE or the cluster dir), each process publishes its
+    rows' full results before the verdict exchange and reads the owners'
+    after it: a remote row whose published result has its exchanged
+    verdict becomes that result, with ``"process"`` (its owner) and
+    ``"detail-source": "result-store"``. The exchange's barriers order
+    every publish before every read, so a shared filesystem needs no
+    other synchronisation; a missing, mismatched or degraded record (the
+    store refuses degraded ones) leaves that row's stub, never an error.
 
     Every process must call with the same batch (same rows, same order).
     The cuts are the reference's at granularity 1: a process launches on
@@ -374,6 +403,11 @@ def run_sharded(encs: Sequence,
         return check_local(list(encs))
     lo, hi = shard_bounds(len(encs), n, pid)
     local = check_local(list(encs[lo:hi]))
+    store, key_fn = _detail_exchange(model, algorithm)
+    if store is not None:
+        for enc, res in zip(encs[lo:hi], local):
+            if isinstance(res, dict) and "valid?" in res:
+                store.put_detail(key_fn(enc), res)
     codes = exchange_i64([_verdict_code(r) for r in local])
     results: List[dict] = []
     for p in range(n):
@@ -386,7 +420,18 @@ def run_sharded(encs: Sequence,
                 f"shard {p} exchanged {len(codes[p])} verdicts for "
                 f"{phi - plo} rows — processes disagree on the batch (the "
                 "contract of run_sharded is broken)")
-        results.extend(_remote_result(int(c), p) for c in codes[p])
+        for row, c in zip(range(plo, phi), codes[p]):
+            stub = _remote_result(int(c), p)
+            if store is not None:
+                detail = store.get_detail(key_fn(encs[row]))
+                if detail is not None \
+                        and detail.get("valid?") == stub["valid?"]:
+                    # the full result rode the store; keep the owner
+                    # attribution on top of it
+                    detail["process"] = p
+                    detail["detail-source"] = "result-store"
+                    stub = detail
+            results.append(stub)
     return results
 
 

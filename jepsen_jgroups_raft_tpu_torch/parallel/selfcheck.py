@@ -16,9 +16,15 @@ cluster the seam shards it (`distributed.run_sharded`) — once per
 entry, checks its first three rows through `check_histories`, its first
 row through `run_sharded` (across two ranks, rank 0's shard is then
 empty), and with `--global` counts the register rows and a counter batch of the
-same shape with `distributed.check_batch_global`. The last line is
+same shape with `distributed.check_batch_global`. With `--result-store
+DIR` it checks the batch once more (the first `--macro` value and
+`--algorithms` entry) with ``JGRAFT_RESULT_STORE=DIR``, a directory every
+rank shares, so the other ranks' rows come back as their owners' full
+results (the detail exchange of `run_sharded`). The last line is
 ``SELFCHECK {json}``: the verdicts, the kernel tags of the rank's rows
-and the counts. Exit 0 iff the process group came up and every check
+and the counts, and under ``store`` the store arm's verdicts, kernel
+tags, rows read from the store and whole result list. Exit 0 iff the
+process group came up and every check
 returned; the process group is torn down (a barrier, then
 `destroy_process_group`) before `main` returns.
 """
@@ -85,6 +91,9 @@ def main(argv=None) -> int:
     ap.add_argument("--algorithms", default="dense,auto")
     ap.add_argument("--global", dest="global_", action="store_true")
     ap.add_argument("--device", default=None)
+    ap.add_argument("--result-store", default=None,
+                    help="a directory every rank shares: check the batch "
+                         "once more with JGRAFT_RESULT_STORE set to it")
     args = ap.parse_args(argv)
     if not distributed.maybe_init_distributed(device=args.device):
         print("selfcheck: no cluster (torchrun's environment is absent "
@@ -131,6 +140,23 @@ def _run(args) -> dict:
         out["global"] = {
             "register": distributed.check_batch_global(model, reg),
             "counter": distributed.check_batch_global(Counter(), counter)}
+    if args.result_store:
+        from ..core.store import _jsonable
+
+        os.environ["JGRAFT_MACRO_EVENTS"] = args.macro.split(",")[0]
+        os.environ["JGRAFT_RESULT_STORE"] = args.result_store
+        try:
+            rs = check_histories(hs, model,
+                                 algorithm=args.algorithms.split(",")[0],
+                                 device=dev)
+        finally:
+            del os.environ["JGRAFT_RESULT_STORE"]
+        out["store"] = {
+            "verdicts": [r["valid?"] for r in rs],
+            "kernels": [r.get("kernel", r.get("algorithm")) for r in rs],
+            "store_rows": sum(r.get("detail-source") == "result-store"
+                              for r in rs),
+            "results": _jsonable(rs)}
     out["seconds"] = time.perf_counter() - t0
     return out
 

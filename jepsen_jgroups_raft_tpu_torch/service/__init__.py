@@ -1,10 +1,11 @@
 """graftd on the card: the multi-tenant checking service of the port.
 
-The reference's `service/` package, single replica: an always-on daemon
-that coalesces many tenants' submissions into one `check_encoded` batch
-on the card (the chunked wavefront over the dense, mask and sort
-kernels), demultiplexes the verdicts back to each request by row count,
-and streams a history append by append through the carried sort scan.
+The reference's `service/` package: an always-on daemon that coalesces
+many tenants' submissions into one `check_encoded` batch on the card
+(the chunked wavefront over the dense, mask and sort kernels),
+demultiplexes the verdicts back to each request by row count, and
+streams a history append by append through the carried sort scan; N
+daemons sharing one cluster directory behave as one service.
 
 * request.py   — admission-time normalization: encode once, fingerprint
                  the packed tensors (byte-identical to the reference's
@@ -31,20 +32,28 @@ and streams a history append by append through the carried sort scan.
 * http.py      — stdlib HTTP+JSON front (make_server / serve_checker /
                  serve_in_thread).
 * client.py    — ServiceClient: idempotent retry with backoff, keep-
-                 alive, binary frames, stream sessions.
+                 alive, binary frames, stream sessions, cluster routing
+                 (affinity-first, least-loaded fallback, cluster-global
+                 attempt cap).
+* store.py     — shared content-addressed result store: fingerprint →
+                 verdict entries any replica reads and writes atomically
+                 (the reference's bytes); per-row detail records for the
+                 distributed wavefront's detail exchange.
+* cluster.py   — replica membership leases, load shedding with the
+                 cluster's best retry-after, and cross-replica journal
+                 handoff (claim-by-rename, replay, re-own).
 
 Every check runs on the card unless the service is built with
-``device="cpu"`` (the kernels' plain versions on the host). The
-reference's cross-replica cluster tier (`service/cluster.py`, with the
-result store it shares, `service/store.py`) is not ported: a configured
-cluster directory makes `CheckingService` raise.
+``device="cpu"`` (the kernels' plain versions on the host).
 """
 
 from .admission import QueueFull, ServiceStopped  # noqa: F401
 from .client import ServiceClient, ServiceError  # noqa: F401
+from .cluster import ClusterManager, discover_replica_urls  # noqa: F401
 from .client import StreamSession as ClientStreamSession  # noqa: F401
 from .daemon import CheckingService  # noqa: F401
 from .http import make_server, serve_checker, serve_in_thread  # noqa: F401
 from .journal import AdmissionJournal, journal_enabled  # noqa: F401
 from .request import CheckRequest  # noqa: F401
+from .store import ResultStore  # noqa: F401
 from .stream import StreamBusy, StreamConflict, StreamManager  # noqa: F401

@@ -1,5 +1,6 @@
 """graftd: the always-on checking daemon (the reference's
-`service/daemon.py`, single replica, on the service's device).
+`service/daemon.py`, on the service's device; one replica, or one of N
+sharing a cluster dir — service/cluster.py).
 
 Owns the pieces the rest of the package provides — admission queue +
 result cache (service/admission.py), batching scheduler
@@ -15,7 +16,9 @@ Device: `CheckingService(device=None)` checks on the card and raises
 without one; ``device="cpu"`` runs the kernels' plain versions on the
 host. On the card, `start()` builds (or loads) the kernel libraries the
 service can launch (`SERVICE_LIBRARIES`), so a missing nvcc fails the
-start instead of any later request.
+start instead of any later request. A replica of a cluster builds them
+in its constructor, before it publishes its first lease: one whose
+kernels do not build never joins the cluster.
 
 Failure stance:
 
@@ -186,22 +189,11 @@ class CheckingService:
                  crash_cap: Optional[int] = None,
                  watchdog_margin_s: Optional[float] = None,
                  cluster_dir: Optional[str] = None,
+                 replica_id: Optional[str] = None,
+                 advertise_url: Optional[str] = None,
+                 lease_ttl_s: Optional[float] = None,
                  device=None,
                  autostart: bool = True):
-        from ..platform import env_str
-
-        cdir = (cluster_dir if cluster_dir is not None else
-                env_str("JGRAFT_SERVICE_CLUSTER_DIR") or None)
-        if cdir:
-            # the reference would run as one replica of a cluster here;
-            # the port has no cluster tier yet, and running as a lone
-            # replica would silently drop the leases, the shared store
-            # and the WAL handoff the configuration asked for
-            raise RuntimeError(
-                f"cluster directory {cdir!r} configured, but the "
-                "cross-replica cluster tier (service/cluster.py: leases, "
-                "load shedding, WAL handoff) is not ported yet; run "
-                "without cluster_dir / JGRAFT_SERVICE_CLUSTER_DIR")
         self.name = name
         self.store_root = Path(store_root) if store_root else None
         #: where every check of this service runs (module docstring)
@@ -262,6 +254,10 @@ class CheckingService:
             # shard queue, or a kernel launch. Always in the schema,
             # zero when the lane is off.
             "fastpath_requests": 0,
+            # cluster tier — always in the schema, zero when clustering
+            # is not configured (the seam stays inert)
+            "store_hits": 0, "store_puts": 0,
+            "handoff_claims": 0, "handoff_requests": 0,
         }
         #: daemon-wide decided-tier counters ({tier: rows}
         #: over every demuxed verdict) — the fleet capacity-model
@@ -269,10 +265,42 @@ class CheckingService:
         #: _stats so _count's int arithmetic never sees a dict.
         self._tier_counts: dict = {}  # guarded_by(_lock)
         self._service_time_s = 1.0  # EWMA of per-request service time
+        # Cluster tier: constructed only when a cluster dir is
+        # configured — the single-replica daemon never imports the
+        # module. Created BEFORE the journal (the shared layout owns the
+        # WAL path) and before _recover (the manager's first lease
+        # re-arms liveness before the boot-time replay window, so a
+        # restarting replica's peers do not claim the WAL it is
+        # replaying). On the card the kernels are built first: a replica
+        # whose kernels do not build raises here, before it publishes a
+        # lease, and never joins the cluster as a host-only replica.
+        self.cluster = None
+        from ..platform import env_str
+
+        cdir = (cluster_dir if cluster_dir is not None else
+                env_str("JGRAFT_SERVICE_CLUSTER_DIR") or None)
+        if cdir:
+            from .cluster import ClusterManager
+
+            self.prepare_kernels()
+            rid = (replica_id
+                   or env_str("JGRAFT_SERVICE_REPLICA_ID")
+                   or f"{self.name}-{os.getpid()}")
+            url = (advertise_url
+                   or env_str("JGRAFT_SERVICE_ADVERTISE_URL") or None)
+            self.cluster = ClusterManager(self, cdir, rid, url=url,
+                                          lease_ttl=lease_ttl_s,
+                                          autostart=autostart)
         self._journal: Optional[AdmissionJournal] = None
-        if journal_enabled() and (journal_dir or self.store_root):
+        if journal_enabled() and (journal_dir or self.cluster is not None
+                                  or self.store_root):
             root = (Path(journal_dir) if journal_dir
+                    else self.cluster.journal_dir()
+                    if self.cluster is not None
                     else self.store_root / self.name / "journal")
+            if self.cluster is not None and not journal_dir \
+                    and self.store_root is not None:
+                self._migrate_legacy_journal(root)
             self._journal = AdmissionJournal(root, retain=self._retain)
         # Streaming session tier: always constructed — the
         # in-memory mode works without a journal; crash resume and
@@ -282,6 +310,41 @@ class CheckingService:
             self._recover()
         if autostart:
             self.start()
+
+    def _migrate_legacy_journal(self, root: Path) -> None:
+        """First boot after clustering is enabled on a daemon that was
+        running durable single-replica: the per-daemon WAL
+        (store/<name>/journal/wal.jsonl) is moved into the shared
+        layout so its accepted-but-unfinished entries replay instead of
+        being silently abandoned at the legacy path. When BOTH WALs
+        exist (a partial earlier migration or manual copy) the cluster
+        one wins and the legacy one is reported loudly — guessing at a
+        record-level merge could double-admit."""
+        import shutil
+
+        legacy = self.store_root / self.name / "journal" / "wal.jsonl"
+        target = root / "wal.jsonl"
+        if not legacy.exists():
+            return
+        if target.exists():
+            LOG.warning("%s: legacy journal %s left in place (a WAL "
+                        "already exists at %s); entries there will NOT "
+                        "replay — inspect and remove it manually",
+                        self.name, legacy, target)
+            return
+        try:
+            root.mkdir(parents=True, exist_ok=True)
+            # shutil.move survives a cross-filesystem store/cluster
+            # split, where os.replace would EXDEV; startup-only (runs
+            # before worker threads or peers can race the WAL path)
+            shutil.move(str(legacy), str(target))
+            LOG.warning("%s: migrated legacy journal %s into the "
+                        "cluster layout at %s", self.name, legacy,
+                        target)
+        except OSError:
+            LOG.warning("%s: legacy journal migration failed; entries "
+                        "at %s will not replay", self.name, legacy,
+                        exc_info=True)
 
     # ------------------------------------------------------- recovery
 
@@ -329,12 +392,27 @@ class CheckingService:
                 # no-results arm above re-fails such rows), so a
                 # journal-replayed verdict is clean by construction
                 self.cache.put(req.fingerprint, results)  # lint: allow(degraded)
+                # lift the WAL terminal record into the shared store: a
+                # verdict this replica computed before the restart
+                # becomes a fleet-wide cache hit
+                if self.cluster is not None and \
+                        self.cluster.store.put(req.fingerprint, results):
+                    self._count("store_puts")
         recovered = []
         for req in replayed["unfinished"]:
             req._journaled = True
             with self._lock:
                 self._requests[req.id] = req
             cached = self.cache.get(req.fingerprint)
+            if cached is None and self.cluster is not None:
+                # another replica may have verified this fingerprint
+                # while we were down — a cold-started replica warms
+                # from the store instead of re-checking
+                stored = self.cluster.store.get(req.fingerprint)
+                if stored is not None and len(stored) == req.n_rows:
+                    cached = stored
+                    self.cache.put(req.fingerprint, stored)
+                    self._count("store_hits")
             if cached is not None and len(cached) == req.n_rows:
                 req.cached = True
                 req.finish(DONE, results=cached)
@@ -378,15 +456,91 @@ class CheckingService:
                      len(recovered), len(replayed["finished"]),
                      len(streams), replayed["skipped"])
 
+    def adopt_requests(self, reqs, origin: str = "") -> int:
+        """Re-own an expired replica's unfinished journal entries
+        (called by ClusterManager._adopt after its atomic rename claim,
+        on the cluster agent's thread, which never launches: adopted
+        requests enter the admission queue and run on the workers).
+        Each adopted request is re-journaled into THIS replica's WAL
+        before it becomes runnable — the durability chain has no gap:
+        until the claimed dir is removed the entry exists there, and
+        from the append here it exists in our WAL under our live lease.
+        Dedup mirrors _recover: a fingerprint the caches or a live
+        primary already cover short-circuits instead of re-executing
+        (resubmit-at-most-once, cluster-wide); an id this replica
+        already holds (a claimed dir adopted again after a restart) is
+        taken as it stands."""
+        taken = 0
+        recovered = []
+        for req in reqs:
+            if self._stop.is_set():
+                # shutdown mid-adoption: entries not taken stay in the
+                # claimed dir (the manager skips its cleanup when we
+                # report a partial take), so nothing is orphaned
+                break
+            with self._lock:
+                known = req.id in self._requests
+            if known:
+                taken += 1
+                continue
+            req.replayed = True
+            if self._journal is not None:
+                req._journaled = True
+            with self._lock:
+                self._requests[req.id] = req
+            if self._journal is not None:
+                self._journal.append_submit(req)
+            self._count("handoff_requests")
+            taken += 1
+            cached = self.cache.get(req.fingerprint)
+            if cached is None and self.cluster is not None:
+                stored = self.cluster.store.get(req.fingerprint)
+                if stored is not None and len(stored) == req.n_rows:
+                    cached = stored
+                    self.cache.put(req.fingerprint, stored)
+                    self._count("store_hits")
+            if cached is not None and len(cached) == req.n_rows:
+                req.cached = True
+                req.finish(DONE, results=cached)
+                self._count("completed")
+                self._retire(req)
+                self._write_trace(req)
+                continue
+            attached = False
+            with self._lock:
+                primary = self._primary_by_fp.get(req.fingerprint)
+                if primary is not None and not primary.terminal:
+                    req.attached_to = primary.id
+                    self._followers.setdefault(primary.id, []).append(req)
+                    self._stats["attached_requests"] += 1
+                    attached = True
+                else:
+                    self._primary_by_fp[req.fingerprint] = req
+            if not attached:
+                recovered.append(req)
+        if recovered:
+            # replay() delivered them deadline-sorted; requeue preserves
+            # that order at the head (adopted work was admitted before
+            # anything currently queued here)
+            self.queue.requeue(recovered)
+        if taken:
+            self._ensure_worker()
+            LOG.warning("%s adopted %d unfinished request(s) from "
+                        "expired replica %s (%d requeued)", self.name,
+                        taken, origin or "<unknown>", len(recovered))
+        return taken
+
     # ------------------------------------------------------- lifecycle
 
     def start(self) -> None:
-        self.prepare_kernels()
+        self.prepare_kernels()  # a replica's ran before its first lease
         self._stop.clear()
         self.queue.reopen()
         for q in self._shard_queues:
             q.reopen()
         self._started = True
+        if self.cluster is not None:
+            self.cluster.start()
         self._ensure_worker()
 
     def prepare_kernels(self) -> None:
@@ -444,6 +598,14 @@ class CheckingService:
         lands before the drain (and is failed by it) or gets
         ServiceStopped from `put` — never a silently-stranded entry."""
         self._stop.set()
+        # Stop the cluster agent FIRST (joins its thread): a handoff
+        # adoption racing this shutdown would otherwise requeue adopted
+        # entries after the drain below and strand them. Entries it
+        # already re-journaled are safe either way — they are in OUR
+        # WAL, so the drain's terminal markers (or a later replay)
+        # account for them.
+        if self.cluster is not None:
+            self.cluster.shutdown()
         self.queue.close()
         # Close the shard queues BEFORE joining: a dispatcher mid-route
         # either landed its batch (drained here) or gets a refused put
@@ -806,6 +968,21 @@ class CheckingService:
             self._retire(req)
             self._write_trace(req)
             return req
+        if self.cluster is not None:
+            # Shared-store lookup: a fingerprint any replica already
+            # verified completes here without a kernel launch — the
+            # cross-replica cache hit. The LRU is warmed so repeats
+            # skip the filesystem too.
+            stored = self.cluster.store.get(req.fingerprint)
+            if stored is not None and len(stored) == req.n_rows:
+                self.cache.put(req.fingerprint, stored)
+                req.cached = True
+                req.finish(DONE, results=stored)
+                self._count("submitted", "store_hits", "completed")
+                self._observe_latency(req)
+                self._retire(req)
+                self._write_trace(req)
+                return req
         retry_after = self._retry_after()
         reject: Optional[Exception] = None
         with self._lock:
@@ -833,6 +1010,12 @@ class CheckingService:
             else:
                 self._primary_by_fp[req.fingerprint] = req
                 try:
+                    if self.cluster is not None \
+                            and self.cluster.should_shed():
+                        # past the shed threshold: shed to the cluster
+                        # with its best retry-after instead of queueing
+                        # into a backlog a peer could absorb now
+                        raise QueueFull(self.queue.depth, retry_after)
                     self.queue.put(req, retry_after_s=retry_after)
                 except (QueueFull, ServiceStopped) as e:
                     if isinstance(e, QueueFull):
@@ -846,6 +1029,18 @@ class CheckingService:
                     self._stats["max_queue_depth"] = max(
                         self._stats["max_queue_depth"], self.queue.depth)
         if reject is not None:
+            if isinstance(reject, QueueFull) and self.cluster is not None:
+                # A 429 from this replica carries the CLUSTER's best
+                # retry-after (min over live leases), so the backed-off
+                # client returns when the least-loaded peer has room.
+                # Consulting the lease files happens HERE — only on the
+                # reject path and outside the daemon lock — never per
+                # accepted submission (O(replicas) file reads do not
+                # belong on the admission hot path).
+                raise QueueFull(
+                    reject.depth,
+                    self.cluster.best_retry_after(
+                        reject.retry_after_s)) from None
             raise reject
         if self._journal is not None:
             # Durability point: the WAL record is fsync'd BEFORE the
@@ -916,7 +1111,9 @@ class CheckingService:
         out["journal_enabled"] = self._journal is not None
         if self._journal is not None:
             out.update(self._journal.stats())
-        out["cluster_enabled"] = False
+        out["cluster_enabled"] = self.cluster is not None
+        if self.cluster is not None:
+            out.update(self.cluster.stats())
         out.update(self.streams.stats())
         return out
 
@@ -1042,6 +1239,13 @@ class CheckingService:
                     # whichever path put it there: a cached stamp would
                     # replay onto a healed platform.
                     self.cache.put(r.fingerprint, r.results)
+                    # publish fleet-wide: the store applies the same
+                    # never-persist-degraded rule and is first-wins
+                    # against a racing replica
+                    if self.cluster is not None and \
+                            self.cluster.store.put(r.fingerprint,
+                                                   r.results):
+                        self._count("store_puts")
             elif r.status == CANCELLED:
                 self._count("cancelled")
             elif r.status == FAILED:

@@ -416,16 +416,29 @@ def serve_checker(store_root: str = "store", host: str = "0.0.0.0",
                   queue_capacity: Optional[int] = None,
                   batch_wait: Optional[float] = None,
                   n_workers: Optional[int] = None,
+                  cluster_dir: Optional[str] = None,
+                  replica_id: Optional[str] = None,
                   device=None) -> int:
     """CLI entry (`python -m jepsen_jgroups_raft_tpu_torch
     serve-checker`): run graftd in the foreground until interrupted, on
-    `device` (None: the card, raising without one)."""
+    `device` (None: the card, raising without one); with `cluster_dir`,
+    as replica `replica_id` of the cluster sharing that directory."""
     service = CheckingService(store_root=store_root,
                               queue_capacity=queue_capacity,
                               batch_wait=batch_wait,
                               n_workers=n_workers,
+                              cluster_dir=cluster_dir,
+                              replica_id=replica_id,
                               device=device)
     httpd, bound = make_server(service, host, port)
+    if service.cluster is not None and service.cluster.url is None:
+        # Late-bind the advertised URL (the ephemeral port exists only
+        # now) unless JGRAFT_SERVICE_ADVERTISE_URL pinned one; 0.0.0.0
+        # is a bind address, not a reachable one — advertise loopback
+        # for single-host clusters, and real fleets set the env to the
+        # host's routable address.
+        reach = "127.0.0.1" if host in ("0.0.0.0", "::") else host
+        service.cluster.set_url(f"http://{reach}:{bound}")
     uds_path = env_str("JGRAFT_SERVICE_UDS", "").strip()
     uds_httpd = None
     if uds_path:
@@ -437,7 +450,9 @@ def serve_checker(store_root: str = "store", host: str = "0.0.0.0",
           f"store={store_root}, "
           f"journal={'on' if service._journal is not None else 'off'}"
           + (f", uds={uds_path}" if uds_path else "")
-          + (f", recovered={recovered}" if recovered else "") + ")")
+          + (f", recovered={recovered}" if recovered else "")
+          + (f", cluster={service.cluster.replica_id}"
+             if service.cluster is not None else "") + ")")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

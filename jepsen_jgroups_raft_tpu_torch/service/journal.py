@@ -557,11 +557,17 @@ class AdmissionJournal:
              "finished":   [(submit_rec, terminal_rec)…],
              "streams":    {sid: {"open": rec, "segments": [rec…],
                                   "fin": rec | None}},
-             "skipped":    int}              # corrupt/truncated lines
+             "skipped":    int,              # corrupt/truncated lines
+             "refused":    [id…]}            # skipped: an algorithm
+                                             # this daemon does not offer
 
         Submit records that fail to DECODE (unknown model, mangled
         tensor payload) are skipped loudly like torn lines — replay
-        must deliver every intact entry even when one is poison.
+        must deliver every intact entry even when one is poison. Of
+        those, the ids of intact unfinished records under an algorithm
+        the port does not offer (the reference's ``"jax"``,
+        ``"pallas"``) are listed in ``refused``: a request another
+        daemon accepted, which the cluster handoff must not delete.
         Stream records are their OWN record family — many records per
         session id, versioned by ``stream_v`` — grouped
         per session; a record from a NEWER stream version is skipped
@@ -610,8 +616,11 @@ class AdmissionJournal:
             for rec in s["segments"]:
                 seen.setdefault(int(rec.get("seq", -1)), rec)
             s["segments"] = [seen[k] for k in sorted(seen)]
+        from ..checker.linearizable import ALGORITHMS
+
         unfinished: List[CheckRequest] = []
         finished = []
+        refused: List[str] = []
         for rid, rec in submits.items():
             if rid in terminals:
                 finished.append((rec, terminals[rid]))
@@ -620,6 +629,8 @@ class AdmissionJournal:
                 unfinished.append(decode_request(rec))
             except (ValueError, KeyError, TypeError) as e:
                 skipped += 1
+                if rec.get("algorithm") not in ALGORITHMS:
+                    refused.append(rid)
                 LOG.warning("journal entry %s undecodable, skipped: %s",
                             rid, e)
         unfinished.sort(key=lambda r: (r.deadline, r.submitted))
@@ -629,7 +640,8 @@ class AdmissionJournal:
             self._finished_since_compact = len(finished) + sum(
                 1 for s in streams.values() if s["fin"] is not None)
         return {"unfinished": unfinished, "finished": finished,
-                "streams": streams, "skipped": skipped}
+                "streams": streams, "skipped": skipped,
+                "refused": refused}
 
     def stream_records(self, sid: str) -> Optional[dict]:
         """Re-scan the WAL for ONE session's stream records (the revive

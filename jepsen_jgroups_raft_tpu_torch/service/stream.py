@@ -1004,7 +1004,8 @@ class _Stub:
 
 class StreamManager:
     """Owns every stream session of one daemon: admission caps, the
-    idle reaper and journal/replay wiring."""
+    idle reaper, journal/replay wiring, and the handoff surface the
+    cluster tier calls."""
 
     def __init__(self, service):
         self.service = service
@@ -1020,6 +1021,7 @@ class StreamManager:
             "stream_violations": 0,
             "stream_rejected": 0,
             "stream_idle_parked": 0,
+            "handoff_streams": 0,
         }
         self._peak_rows = 0  # guarded_by(_lock)
         self._stop = threading.Event()
@@ -1450,6 +1452,41 @@ class StreamManager:
         if segments is None:
             return None
         return [op for rows in segments for op in rows]
+
+    # --------------------------------------------------------- cluster
+
+    def adopt(self, streams: dict, origin: str = "") -> int:
+        """Re-own a dead replica's stream sessions (the cluster handoff,
+        stream flavor): every record is re-journaled under THIS
+        replica's WAL before the session becomes visible — the same
+        no-gap durability chain as `adopt_requests` — then unfinished
+        sessions appear as parked resumable stubs and finished ones as
+        terminal stubs. Nothing launches here (the cluster agent's
+        thread): a stub revives on its first touch, on the caller's
+        thread and launch scope. Returns sessions taken (the manager
+        keeps the claimed dir when the take was partial)."""
+        taken = 0
+        for sid, s in streams.items():
+            if self.service._stop.is_set():
+                break
+            with self._lock:
+                if sid in self._sessions:
+                    taken += 1   # already known (idempotent re-adopt)
+                    continue
+            if self._journal is not None:
+                if s.get("open") is not None:
+                    self._journal.append_stream(dict(s["open"]))
+                for seg in s.get("segments", ()):
+                    self._journal.append_stream(dict(seg))
+                if s.get("fin") is not None:
+                    self._journal.append_stream(dict(s["fin"]))
+            self.restore({sid: s})
+            self._count("handoff_streams")
+            taken += 1
+        if taken:
+            LOG.warning("adopted %d stream session(s) from expired "
+                        "replica %s", taken, origin or "<unknown>")
+        return taken
 
     # ----------------------------------------------------------- stats
 

@@ -38,7 +38,8 @@ def test_only_refuses_other_arguments(argv, capsys):
 @pytest.mark.parametrize("argv", [[], ["--only", "segment"],
                                   ["--only", "election,segment"],
                                   ["--only", "mesh"], ["--only", "cluster"],
-                                  ["--only", "mesh,cluster"]])
+                                  ["--only", "mesh,cluster"],
+                                  ["--only", "service_cluster"]])
 def test_without_a_card_it_prints_no_result(argv, capsys):
     assert _chip_smoke().main(argv) == 2
     assert capsys.readouterr().out == ""
@@ -46,7 +47,8 @@ def test_without_a_card_it_prints_no_result(argv, capsys):
 
 def test_only_phases_build_known_libraries():
     only = _chip_smoke().ONLY
-    assert set(only) == {"segment", "election", "mesh", "cluster"}
+    assert set(only) == {"segment", "election", "mesh", "cluster",
+                         "service_cluster"}
     for libs, fn in only.values():
         assert libs and callable(fn)
         for lib in libs:

@@ -3,7 +3,8 @@ launch`) on the CPU: shard cuts equal to the reference's, the defensive
 parse of torchrun's environment, the backend rule, the seam in
 `check_encoded`, and a real two-process gloo cluster whose verdicts and
 global counts must equal a single-process run of the port and the
-reference's `check_histories`.
+reference's `check_histories` — and, with a shared result store, whose
+whole result lists must equal a single-process run's.
 
 Tolerance: exact — cuts, verdicts and counts compared for equality."""
 
@@ -277,10 +278,12 @@ def test_remote_stub_keys_are_the_reference():
 @pytest.fixture
 def fake_cluster(monkeypatch):
     """The seam as a two-process cluster would see it, in one process:
-    run_sharded records its calls and checks every row locally."""
+    run_sharded records its calls and checks every row locally; the seam
+    names the model and algorithm the detail exchange keys over."""
     calls = []
 
-    def run_sharded(encs, check_local):
+    def run_sharded(encs, check_local, model=None, algorithm="auto"):
+        assert model is not None and isinstance(algorithm, str)
         calls.append(len(encs))
         return check_local(list(encs))
 
@@ -396,6 +399,66 @@ def test_two_process_gloo_cluster(monkeypatch):
         assert not any(k == "remote-shard" for k in kernels[lo:hi])
         assert r["tiny"] == tiny and r["empty_shard"] == tiny[:1]
         assert {k: list(v) for k, v in r["global"].items()} == counts
+
+
+#: result fields that time the check (they differ from run to run), and
+#: the two the detail exchange adds to a remote row
+TIMING_FIELDS = ("time-s",)
+EXCHANGE_FIELDS = ("process", "detail-source")
+
+
+def test_two_process_gloo_cluster_with_a_result_store(monkeypatch,
+                                                       tmp_path):
+    """selfcheck on two ranks over gloo with `--result-store` (the ranks'
+    JGRAFT_RESULT_STORE): every rank's whole result list equals one
+    process's check of the batch, once the timing fields and the two
+    fields the exchange adds are dropped; no row is a "remote-shard"
+    stub, and every row of the other rank's shard came from the store,
+    each as its owner's result."""
+    store = tmp_path / "store"
+    outs = launch.launch_local_cluster(
+        2, [sys.executable, "-m",
+            "jepsen_jgroups_raft_tpu_torch.parallel.selfcheck",
+            "--device", "cpu", "--macro", "1", "--algorithms", "auto",
+            "--result-store", str(store)],
+        env_extra={"PYTHONPATH": str(ROOT), "JGRAFT_LIN_FASTPATH": "0",
+                   "JGRAFT_AUTOTUNE": "0"},
+        timeout_s=120)
+    got = []
+    for rank, (rc, out) in enumerate(outs):
+        assert rc == 0, f"rank {rank} exited {rc}:\n{out[-3000:]}"
+        [line] = [ln for ln in out.splitlines()
+                  if ln.startswith("SELFCHECK ")]
+        got.append(json.loads(line[len("SELFCHECK "):]))
+    hs = seeded_batch(11, 12, 30, n_wide=4, corrupt_every=3)
+    monkeypatch.setenv("JGRAFT_MACRO_EVENTS", "1")
+    monkeypatch.delenv("JGRAFT_RESULT_STORE", raising=False)
+    from jepsen_jgroups_raft_tpu_torch.core.store import _jsonable
+
+    def strip(rows):
+        return [{k: v for k, v in r.items()
+                 if k not in TIMING_FIELDS + EXCHANGE_FIELDS} for r in rows]
+
+    single = strip(_jsonable(lin.check_histories(hs, CasRegister(), "auto",
+                                                 device="cpu")))
+    assert {False, True} <= {r["valid?"] for r in single}
+    for rank, r in enumerate(got):
+        arm = r["store"]
+        assert strip(arm["results"]) == single
+        assert "remote-shard" not in arm["kernels"]
+        lo, hi = distributed.shard_bounds(len(hs), 2, rank)
+        sources = [x.get("detail-source") for x in arm["results"]]
+        owners = [x.get("process") for x in arm["results"]]
+        assert arm["store_rows"] == len(hs) - (hi - lo)
+        for i in range(len(hs)):
+            if lo <= i < hi:
+                assert sources[i] is None and owners[i] is None
+            else:
+                assert sources[i] == "result-store" and owners[i] == 1 - rank
+        # the plain arm of the same run, without the store, kept its stubs
+        kernels = r["checks"]["macro=1,auto"]["kernels"]
+        assert kernels.count("remote-shard") == len(hs) - (hi - lo)
+    assert len(list((store / "detail").rglob("*.json"))) == len(hs)
 
 
 # ------------------------------------------------------------ the launcher

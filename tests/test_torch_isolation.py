@@ -116,12 +116,13 @@ def test_explicit_cpu_runs_without_card(no_card):
     assert r["valid?"] is True
 
 
-#: the checking service and the perf and stats checkers, by name
+#: the checking service (its cluster tier too) and the perf and stats
+#: checkers, by name
 SERVICE_MODULES = (
     "checker.perf", "checker.stats", "service", "service.admission",
-    "service.client", "service.daemon", "service.frame", "service.http",
-    "service.journal", "service.request", "service.scheduler",
-    "service.stream")
+    "service.client", "service.cluster", "service.daemon", "service.frame",
+    "service.http", "service.journal", "service.request",
+    "service.scheduler", "service.store", "service.stream")
 
 _BLOCKED_SERVICE = r"""
 import importlib, sys
@@ -135,9 +136,12 @@ from jepsen_jgroups_raft_tpu_torch.history.synth import build_history
 from jepsen_jgroups_raft_tpu_torch.service import (CheckingService,
                                                    ServiceClient,
                                                    serve_in_thread)
+import tempfile
 rows = [(0, "invoke", "write", 1), (0, "ok", "write", 1),
         (1, "invoke", "read", None), (1, "ok", "read", 2)]
-svc = CheckingService(device="cpu", batch_wait=0.0)
+svc = CheckingService(device="cpu", batch_wait=0.0,
+                      cluster_dir=tempfile.mkdtemp(), replica_id="r0")
+assert svc.stats()["cluster_enabled"] is True
 httpd, port, _ = serve_in_thread(svc)
 cl = ServiceClient(f"http://127.0.0.1:{port}")
 rec = cl.check([build_history(rows).to_dicts()], workload="register",
@@ -154,9 +158,10 @@ print("SERVICE_BLOCKED_OK")
 
 
 def test_service_runs_with_jax_blocked():
-    """Every module of the service and the perf and stats checkers
-    imports with jax and the reference blocked, and a service on the CPU
-    answers a submission over HTTP."""
+    """Every module of the service (the cluster tier's among them) and
+    the perf and stats checkers imports with jax and the reference
+    blocked, and a replica of a cluster on the CPU answers a submission
+    over HTTP."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_SERVICE,

@@ -2193,3 +2193,72 @@ def test_service_watchdog_zombie_and_replacement_on_their_own_streams(
         [(x["valid?"], x["decided-tier"]) for x in want[16:]]
     assert [(x["valid?"], x["decided-tier"]) for x in zombie["results"]] \
         == [(x["valid?"], x["decided-tier"]) for x in want[:16]]
+
+
+def _scan_launches() -> int:
+    return sum({**ds.launch_counts(), **ds.chunk_launch_counts(),
+                **ls.launch_counts(), **ls.chunk_launch_counts()}.values())
+
+
+def test_service_cluster_two_replicas_and_a_handoff_on_card(
+        cuda, tmp_path, monkeypatch):
+    """Two replicas of a cluster on the card, in one process. Replica r0
+    admits four requests (half their rows corrupted) and dies; r1 claims
+    its WAL and checks every request on the card: the scans launch, the
+    verdicts and tiers equal `check_histories` on the card, nothing is
+    degraded and every verdict is published. A third replica then
+    answers each request from the shared store with no batch and no
+    launch."""
+    import time
+
+    from jepsen_jgroups_raft_tpu_torch.history.ops import History
+    from jepsen_jgroups_raft_tpu_torch.service import CheckingService
+
+    monkeypatch.setenv("JGRAFT_CLUSTER_SKEW_S", "0.05")
+    hs = _histories(41, 16, 60, 3, 1, 3, 0.1)
+    want = check_histories(hs, CasRegister(), device=cuda)
+    cdir = str(tmp_path / "cluster")
+    dead = CheckingService(device=cuda, cluster_dir=cdir, replica_id="r0",
+                           lease_ttl_s=0.2, batch_wait=0.0, autostart=False)
+    reqs = [dead.submit([History(h) for h in hs[i:i + 4]],
+                        workload="register") for i in range(0, 16, 4)]
+    dead._journal.close()
+    survivor = CheckingService(device=cuda, cluster_dir=cdir,
+                               replica_id="r1", batch_wait=0.0)
+    time.sleep(0.4)
+    ds.reset_launch_counts()
+    ls.reset_launch_counts()
+    try:
+        assert survivor.cluster.handoff_scan() == 1
+        outs = [survivor.get(r.id) for r in reqs]
+        for x in outs:
+            assert x is not None and x.wait(300) and x.status == "done"
+        deadline = time.monotonic() + 60
+        while survivor.stats()["store_puts"] < 4:  # published after done
+            assert time.monotonic() < deadline, survivor.stats()
+            time.sleep(0.02)
+        st = survivor.stats()
+    finally:
+        survivor.shutdown()
+    assert _scan_launches() > 0
+    got = [x for r in outs for x in r.results]
+    assert [(x["valid?"], x["decided-tier"]) for x in got] == \
+        [(x["valid?"], x["decided-tier"]) for x in want]
+    assert not any("platform-degraded" in x for x in got)
+    assert st["degraded_batches"] == 0 and st["handoff_requests"] == 4
+    assert st["store_puts"] == 4
+    reader = CheckingService(device=cuda, cluster_dir=cdir,
+                             replica_id="r2", batch_wait=0.0)
+    ds.reset_launch_counts()
+    ls.reset_launch_counts()
+    try:
+        again = [reader.submit([History(h) for h in hs[i:i + 4]],
+                               workload="register") for i in range(0, 16, 4)]
+        rst = reader.stats()
+    finally:
+        reader.shutdown()
+    assert all(r.status == "done" and r.cached for r in again)
+    assert rst["store_hits"] == 4 and rst["batches"] == 0
+    assert _scan_launches() == 0
+    assert [x["valid?"] for r in again for x in r.results] == \
+        [x["valid?"] for x in want]

@@ -16,8 +16,7 @@ against the reference's (`jepsen_jgroups_raft_tpu.service`), on the CPU.
   the default check path (a failed launch, an illegal address, an
   out-of-memory error, a batch the watchdog gave up on twice) fails the
   request and is never degraded; a service on the card builds its
-  kernels at start, so a missing nvcc fails the start; a configured
-  cluster directory raises.
+  kernels at start, so a missing nvcc fails the start.
 * Shards: two shard executors on one device give the single worker's
   verdicts.
 * The HTTP lanes (JSON and binary frames) give one fingerprint; the CLI's
@@ -294,19 +293,6 @@ def test_start_on_the_card_builds_its_kernels(monkeypatch, tmp_path):
     svc.prepare_kernels()  # once per service
     assert built == [port_daemon.SERVICE_LIBRARIES,
                      *port_daemon.SERVICE_LIBRARIES]
-
-
-@pytest.mark.parametrize("how", ["argument", "environment"])
-def test_cluster_directory_raises(monkeypatch, tmp_path, how):
-    """The cluster tier is not ported: a configured cluster directory
-    raises, naming the tier, instead of running as a lone replica."""
-    kw = {}
-    if how == "argument":
-        kw["cluster_dir"] = str(tmp_path)
-    else:
-        monkeypatch.setenv("JGRAFT_SERVICE_CLUSTER_DIR", str(tmp_path))
-    with pytest.raises(RuntimeError, match="cluster tier"):
-        CheckingService(device="cpu", autostart=False, **kw)
 
 
 def _card_service(monkeypatch, check, **kw):

@@ -15,12 +15,16 @@ reference's, on the CPU.
   in the port's daemon and finishes with the reference's verdict.
 * The binary lane gives the JSON lane's verdicts; a weaker rung is
   refused at open, as in the reference.
+* A dead replica's open session is claimed by a surviving replica of
+  the cluster, re-journaled there and finished with the state, carry
+  and verdict of the reference's uninterrupted session.
 
 Tolerance: exact equality.
 """
 
 import random
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -221,3 +225,67 @@ def test_weak_rung_stream_is_refused(rung):
     finally:
         svc.shutdown()
         ref.shutdown()
+
+
+def _but_resumed(state):
+    """A session state without its ``resumed`` flag (the one field in
+    which a revived session differs from an uninterrupted one)."""
+    return {k: v for k, v in state.items() if k != "resumed"}
+
+
+def test_survivor_claims_a_dead_replicas_open_session(tmp_path,
+                                                       monkeypatch):
+    """A port replica of a cluster dies with an open session (two
+    appends journaled, the lease left to expire); a surviving replica
+    claims its WAL, re-journals the session under its own, and the
+    session resumes there on the next append. After every later append
+    the revived session's state and carried sort scan equal the
+    reference's uninterrupted session fed the same segments, and the
+    final verdict equals it and the one-shot check's."""
+    monkeypatch.setenv("JGRAFT_STREAM_GREEDY_MAX_EVENTS", "0")
+    monkeypatch.setenv("JGRAFT_CLUSTER_SKEW_S", "0.05")
+    rows = _rows("register", 9, corrupt=True)
+    segs = [rows[lo:lo + CUT] for lo in range(0, len(rows), CUT)]
+    assert len(segs) >= 3
+    cdir = tmp_path / "cluster"
+    victim = CheckingService(cluster_dir=str(cdir), replica_id="r0",
+                             lease_ttl_s=0.1, device="cpu", autostart=False)
+    victim.streams.open(workload="register", session_id="claimed")
+    for seq, seg in enumerate(segs[:2], 1):
+        victim.streams.append("claimed", seq, seg, n_bytes=0)
+    victim._journal.close()  # dies: no terminal, the lease expires
+    ref = RefService(autostart=False)
+    ref.streams.open(workload="register", session_id="claimed")
+    for seq, seg in enumerate(segs[:2], 1):
+        ref.streams.append("claimed", seq, seg, n_bytes=0)
+    time.sleep(0.2)
+    # the survivor's own agent first scans seconds after its start
+    survivor = CheckingService(cluster_dir=str(cdir), replica_id="r1",
+                               lease_ttl_s=5.0, device="cpu")
+    try:
+        assert survivor.cluster.handoff_scan() == 1
+        st = survivor.stats()
+        assert st["handoff_streams"] == 1 and st["handoff_claims"] == 1
+        assert survivor.streams.status("claimed")["status"] == "incomplete"
+        # re-journaled under the survivor's own WAL, the claim removed
+        assert sorted(p.name for p in (cdir / "journal").iterdir()) == \
+            ["r1"]
+        assert survivor._journal.stream_records("claimed") is not None
+        for seq, seg in enumerate(segs[2:], 3):
+            got = survivor.streams.append("claimed", seq, seg, n_bytes=0)
+            want = ref.streams.append("claimed", seq, seg, n_bytes=0)
+            assert got.get("resumed") is True and not want.get("resumed")
+            assert _normalize(_but_resumed(got)) == _but_resumed(want), seq
+            _check_carries(survivor.streams._get("claimed"),
+                           ref.streams._get("claimed"), MODELS[KIND[
+                               "register"]]())
+        got = survivor.streams.finish("claimed")
+        want = ref.streams.finish("claimed")
+    finally:
+        survivor.shutdown()
+        ref.shutdown()
+    assert _normalize(_but_resumed(got)) == _but_resumed(want)
+    assert got["resumed"] is True
+    [alone] = check_histories([history_from_dicts(rows)],
+                              MODELS["cas-register"](), device="cpu")
+    assert got["valid?"] == alone["valid?"] is False
