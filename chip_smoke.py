@@ -25,7 +25,7 @@ against its plain version on its own cases) run in a second process on
 the same card, their lines printed when it ends, while this one makes the other
 suites' batches and runs 8, 11, 15, 19, 20, 22-24, 27 and 28 (host
 walls; no time on the card is taken in them); the phases that time the
-card run after both, in the order 6, 6b, 6c, 6d, 6e, 7, 9, 10, 12, 14,
+card run after both, in the order 6, 6b, 6c, 6d, 6e, 6f, 7, 9, 10, 12, 14,
 17, 18, 25, the closure kernels' line, 26, 29, 30:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
@@ -33,7 +33,8 @@ card run after both, in the order 6, 6b, 6c, 6d, 6e, 7, 9, 10, 12, 14,
                segment_scan, cycle_closure: B7 and B8, election_safety,
                verdict_counts: B10)
                and the instrumented builds mask_scan_profile and
-               segment_scan_profile (never on a main path) from this
+               segment_scan_profile (never on a main path), and the
+               native tier of phase 6f (make, native/build-torch/), from this
                checkout's sources into
                build/torch_kernels/, one nvcc per library, started
                together; ptxas's report for each, each library's nvcc
@@ -130,6 +131,27 @@ card run after both, in the order 6, 6b, 6c, 6d, 6e, 7, 9, 10, 12, 14,
                `check_histories`', nothing degraded; hist/s, latency p50 /
                p99, requests a replica, store hits, batches and launches
                on resubmission, handoff requests and streams, seconds
+ 6f. harness — the Jepsen harness on the card's host at the documented
+               deployment: the native tier built from this checkout
+               (native/build-torch/, in the build phase beside nvcc),
+               then two `python -m
+               jepsen_jgroups_raft_tpu_torch test` commands at once (the
+               port's `cli.main`, default knobs), each a local cluster of
+               5 raft_server processes, concurrency 10, rate 10:
+               single-register under partition (doc/running.md:12-14) and
+               counter under hell (README.md:69); cuts: --time-limit 30
+               and 20 s of 60, --quiesce 2 s of 10. Each exits 0 with
+               "Everything looks good!" and leaves no raft_server behind;
+               its stored run, re-checked through `check` in this process
+               (fast path off; auto and "dense") on the card, gives the
+               verdicts and tiers of the same check with --device cpu; a
+               copy with its last ok read made impossible is INVALID on
+               both with the same failing op; the card's re-checks launch
+               a kernel (their launches go on the kernels line under
+               `harness`). Ops (ok / fail / info), nemesis ops, the run's
+               and the check's walls, the native build's seconds, the
+               run's decided-tiers and scan-stats, the toolchain stamp.
+               Every raft_server left is SIGKILLed, also on failure
   7. profile — one check under torch.profiler: the device's busy share of
                the check's wall (a trace without device time fails)
   8. invalid — 64 of those histories with one read corrupted: kernel,
@@ -391,7 +413,8 @@ dense_scan_chunk and sort_scan_chunk give their launches by path,
 `launches_by_path`: the wavefront paths, autotune_main, autotune_set
 and, for sort_scan_chunk, the streaming sessions, whose B = 1 launch is
 its `stream_launch`, and the service's arms (`service`, and
-`service_cluster`: the cluster phase's wave and handoff); dense_scan_chunk's `tuned_launch` is the largest
+`service_cluster`: the cluster phase's wave and handoff; `harness`: the
+harness phase's re-checks); dense_scan_chunk's `tuned_launch` is the largest
 north-star group's launch under its plan),
 the card's
 `nvidia-smi` name and power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -5936,6 +5959,296 @@ def phase_service_cluster(dev, histories, bad_north) -> dict:
     return out
 
 
+#: the harness phase (6f): the documented deployment — the local tier,
+#: HARNESS_NODES native nodes, concurrency 10, rate 10 — under two
+#: arms, (workload, nemesis, --time-limit): the recipe of
+#: doc/running.md:12-14 and the hell campaign of README.md:69
+HARNESS_ARMS = (("single-register", "partition", 30.0),
+                ("counter", "hell", 20.0))
+HARNESS_NODES = 5
+HARNESS_CONCURRENCY = 10
+HARNESS_RATE = 10
+#: the cuts for the script's limit: --time-limit 30 s and 20 s of the
+#: recipe's 60, --quiesce 2 s of 10
+HARNESS_QUIESCE = 2.0
+HARNESS_CUTS = {"time_limit_s": [t for _, _, t in HARNESS_ARMS],
+                "time_limit_of_s": 60.0, "quiesce_s": HARNESS_QUIESCE,
+                "quiesce_of_s": 10.0}
+#: seconds an arm's CLI may take past its time limit (two quiesces, the
+#: heal phase, node start-up, the check) before it is stopped
+HARNESS_SLACK_S = 150.0
+
+
+def port_servers() -> set:
+    """Pids of live processes running this checkout's raft_server."""
+    from jepsen_jgroups_raft_tpu_torch import native
+
+    want = str(native.SERVER_BIN)
+    out = set()
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            argv0 = (d / "cmdline").read_bytes().split(b"\0")[0]
+        except OSError:
+            continue
+        if argv0.decode(errors="replace") == want:
+            out.add(int(d.name))
+    return out
+
+
+def kill_servers(pids) -> None:
+    import signal
+
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def check_cli(args: list) -> tuple:
+    """`python -m jepsen_jgroups_raft_tpu_torch check ARGS` run through
+    the port's `cli.main` in this process under a `stats_scope`: (exit
+    code, the printed summary, {tier: rows}, the scan stats)."""
+    import contextlib
+    import io
+
+    from jepsen_jgroups_raft_tpu_torch import cli
+    from jepsen_jgroups_raft_tpu_torch.checker.perf import format_scan_stats
+    from jepsen_jgroups_raft_tpu_torch.checker.schedule import stats_scope
+
+    buf = io.StringIO()
+    with stats_scope() as scope, contextlib.redirect_stdout(buf):
+        rc = cli.main(["check", *args])
+    summary = json.loads(buf.getvalue()) if buf.getvalue().strip() else {}
+    return (rc, summary,
+            {t: v[0] for t, v in scope.get("tiers", {}).items()},
+            format_scan_stats(scope))
+
+
+def plant_corrupt_read(run_dir: Path, dst: Path, workload: str) -> int:
+    """A copy of `run_dir` at `dst` whose last ok read is impossible
+    (the register's leaves its domain [0, 5); the counter's is raised
+    by 10^6, beyond any sum of its adds); returns the op's index."""
+    shutil.copytree(run_dir, dst)
+    lines = (dst / "history.jsonl").read_text().splitlines()
+    ops = [json.loads(x) for x in lines]
+    for op in reversed(ops):
+        if op["f"] == "read" and op["type"] == "ok" and \
+                op["value"] is not None and op["process"] != "nemesis":
+            if workload == "counter":
+                op["value"] += 10**6
+            else:
+                op["value"] = [op["value"][0], 99]
+            break
+    else:
+        raise AssertionError(f"harness: no ok read in {run_dir}")
+    (dst / "history.jsonl").write_text(
+        "".join(json.dumps(o) + "\n" for o in ops))
+    return op["index"]
+
+
+def failing_ops(result) -> list:
+    """Every `failing-op-index` in a (per-key) result."""
+    if not isinstance(result, dict):
+        return []
+    out = [result["failing-op-index"]] if "failing-op-index" in result \
+        else []
+    for v in result.values():
+        out += failing_ops(v)
+    return out
+
+
+def algorithms(result) -> list:
+    """Every engine tag (`algorithm`) in a result, nested ones too."""
+    if not isinstance(result, dict):
+        return []
+    out = [result["algorithm"]] if "algorithm" in result else []
+    for v in result.values():
+        out += algorithms(v)
+    return out
+
+
+def run_harness_arms(tmp: Path) -> dict:
+    """Both arms' `test` commands at once, each a process of its own
+    (`python -m jepsen_jgroups_raft_tpu_torch test`, the port's
+    `cli.main`) on the card at the default knobs (the fast path and the
+    launch plans as users get them; the plans' store a fresh directory).
+    Returns {workload: (exit code, stdout, stderr, wall s)}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JGRAFT_LIN_FASTPATH", "JGRAFT_AUTOTUNE")}
+    env.update(PYTHONPATH=here, TMPDIR=str(tmp),
+               JGRAFT_AUTOTUNE_STORE=str(tmp / "plans"))
+    procs = {}
+    for workload, nemesis, limit in HARNESS_ARMS:
+        cmd = [sys.executable, "-m", "jepsen_jgroups_raft_tpu_torch", "test",
+               "--workload", workload, "--nemesis", nemesis,
+               "--concurrency", str(HARNESS_CONCURRENCY),
+               "--rate", str(HARNESS_RATE), "--time-limit", str(limit),
+               "--quiesce", str(HARNESS_QUIESCE),
+               *(x for i in range(1, HARNESS_NODES + 1)
+                 for x in ("--node", f"n{i}")),
+               "--store", str(tmp / "store" / workload)]
+        procs[workload] = (subprocess.Popen(
+            cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True),
+            time.perf_counter(), limit)
+
+    def finish(p, t0, limit):
+        # one thread a process, so each wall ends when its process does
+        try:
+            so, se = p.communicate(timeout=limit + HARNESS_SLACK_S)
+        except subprocess.TimeoutExpired:
+            p.terminate()  # the CLI unwinds on SIGTERM, killing its nodes
+            try:
+                so, se = p.communicate(timeout=15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                so, se = p.communicate()
+            se += f"\n[harness: stopped after {limit + HARNESS_SLACK_S} s]"
+        return p.returncode, so, se, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(procs)) as pool:
+        futs = {w: pool.submit(finish, *x) for w, x in procs.items()}
+        return {w: f.result() for w, f in futs.items()}
+
+
+def harness_arm(dev, workload: str, nemesis: str, result: tuple,
+                tmp: Path) -> dict:
+    """One arm's guards and numbers; returns its re-checks' launches."""
+    from jepsen_jgroups_raft_tpu_torch.core.store import load_history
+    from jepsen_jgroups_raft_tpu_torch.workload import WORKLOADS
+
+    rc, so, se, wall = result
+    stores = [ln.split("store=", 1)[1].strip() for ln in so.splitlines()
+              if "store=" in ln]
+    if rc != 0 or "Everything looks good!" not in so or len(stores) != 1:
+        raise AssertionError(f"harness {workload}: the test command exited "
+                             f"{rc}: {so[-3000:]} {se[-3000:]}")
+    run = Path(stores[0])
+    results = json.loads((run / "results.json").read_text())
+    if results.get("valid?") is not True:
+        raise AssertionError(f"harness {workload}: not VALID: {results}")
+    hist = [json.loads(x) for x in
+            (run / "history.jsonl").read_text().splitlines()]
+    client = [o for o in hist if o["process"] != "nemesis"]
+    ops = {t: sum(1 for o in client if o["type"] == t)
+           for t in ("ok", "fail", "info")}
+    nemesis_ops = sum(1 for o in hist if o["process"] == "nemesis") // 2
+
+    # the stored run re-checked through `check` with the fast path off
+    # (so the kernels decide), on the card and on the host: auto, then
+    # the kernel tiers alone (algorithm "dense")
+    rechecks = {}
+    launches: dict = {}
+    for algorithm in ("auto", "dense"):
+        arm = {}
+        for device in ("cuda", "cpu"):
+            if device == "cuda":
+                reset_all_launch_counts()
+            t0 = time.perf_counter()
+            code, summary, tiers, scan = check_cli(
+                [str(run), "--algorithm", algorithm,
+                 *(["--device", "cpu"] if device == "cpu" else [])])
+            wall_s = time.perf_counter() - t0
+            if device == "cuda":
+                add_counts(launches, {k: v for k, v in
+                                      all_launch_counts().items() if v})
+            arm[device] = {"rc": code, "wall_s": wall_s, "tiers": tiers,
+                           "scan_stats": scan,
+                           **{k: summary.get(k) for k in (
+                               "valid?", "histories", "n-valid",
+                               "n-invalid", "n-unknown")}}
+        same = {k: v for k, v in arm["cuda"].items()
+                if k not in ("wall_s", "scan_stats")} == \
+            {k: v for k, v in arm["cpu"].items()
+             if k not in ("wall_s", "scan_stats")}
+        if not same or (algorithm == "auto" and arm["cuda"]["rc"] != 0):
+            raise AssertionError(f"harness {workload}: the card's re-check "
+                                 f"({algorithm}) differs from the host's "
+                                 f"or fails: {arm}")
+        rechecks[algorithm] = arm
+
+    # a planted corrupt read: INVALID on both, the same failing op
+    changed = plant_corrupt_read(run, tmp / "planted" / workload, workload)
+    planted = {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            reset_all_launch_counts()
+        code, summary, tiers, _ = check_cli(
+            [str(tmp / "planted" / workload),
+             *(["--device", "cpu"] if device == "cpu" else [])])
+        checker = WORKLOADS[workload]({"device": dev if device == "cuda"
+                                       else "cpu", "conn_factory": None})
+        res = checker["checker"].check(
+            {}, load_history(tmp / "planted" / workload))["linear"]
+        if device == "cuda":
+            add_counts(launches, {k: v for k, v in
+                                  all_launch_counts().items() if v})
+        planted[device] = {"rc": code, "valid?": summary.get("valid?"),
+                           "tiers": tiers, "checker_valid?": res["valid?"],
+                           "failing_ops": failing_ops(res)}
+    if planted["cuda"] != planted["cpu"] or planted["cuda"]["rc"] != 1 or \
+            planted["cuda"]["valid?"] is not False or \
+            planted["cuda"]["checker_valid?"] is not False:
+        raise AssertionError(f"harness {workload}: the planted read at "
+                             f"{changed} is not INVALID alike: {planted}")
+    if not sum(launches.values()):
+        raise AssertionError(f"harness {workload}: no kernel launched in "
+                             f"the re-checks on the card")
+    emit(f"harness_{workload}", nemesis=nemesis, ops=ops,
+         nemesis_ops=nemesis_ops, history_ops=len(client),
+         run_wall_s=wall, run_store=str(run),
+         decided_tiers=results.get("decided-tiers"),
+         scan_stats=results.get("scan-stats"),
+         run_algorithms=sorted(set(algorithms(results["workload"]))),
+         rechecks=rechecks, check_wall_s=rechecks["auto"]["cuda"]["wall_s"],
+         planted_op=changed, planted=planted, launches=launches)
+    return launches
+
+
+def phase_harness(dev) -> dict:
+    """6f. The Jepsen harness on the card's host: the native tier built
+    from this checkout (`native.ensure_built`, native/build-torch/), both
+    arms' `test` commands run at once, each a 5-node local cluster of
+    raft_server processes under its nemesis with its history checked on
+    the card. Each must exit 0 with "Everything looks good!"; its stored
+    run is re-checked in this process through `check` (fast path off)
+    on the card and on the host, verdicts and tiers equal, and a planted
+    corrupt read is INVALID on both with the same failing op; the card's
+    re-checks must launch a kernel. Every raft_server left running is
+    SIGKILLed, also when the phase fails. Returns each arm's re-check
+    launches."""
+    from jepsen_jgroups_raft_tpu_torch import native
+    from jepsen_jgroups_raft_tpu_torch.platform import toolchain_stamp
+
+    t_phase = time.perf_counter()
+    before = port_servers()
+    launches = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-harness-"))
+    try:
+        native.ensure_built()  # a no-op after the full run's build phase
+        build_s = native.BUILD_SECONDS
+        results = run_harness_arms(tmp)
+        left = port_servers() - before
+        if left:
+            raise AssertionError(f"harness: {len(left)} raft_server "
+                                 f"processes outlived their test command")
+        for workload, nemesis, _ in HARNESS_ARMS:
+            launches[workload] = harness_arm(dev, workload, nemesis,
+                                             results[workload], tmp)
+    finally:
+        kill_servers(port_servers() - before)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("harness", native_build_s=build_s, cuts=HARNESS_CUTS,
+         nodes=HARNESS_NODES, concurrency=HARNESS_CONCURRENCY,
+         rate=HARNESS_RATE, launches=launches,
+         seconds=time.perf_counter() - t_phase, toolchain=toolchain_stamp())
+    return launches
+
+
 def run_phases(dev, model, ptxas: dict, histories: list,
                synth_s: float) -> list:
     """Phases 3-30 of the full run, on the kernels `main` built;
@@ -6091,6 +6404,12 @@ def run_phases(dev, model, ptxas: dict, histories: list,
         service_cluster = phase_service_cluster(dev, histories, bad_north)
         emit("service_cluster_summary", seconds=time.perf_counter() - t0)
 
+        # 6f. the Jepsen harness: the documented deployment's two arms on
+        # local native clusters, each run's history checked on the card
+        t0 = time.perf_counter()
+        harness = phase_harness(dev)
+        emit("harness_summary", seconds=time.perf_counter() - t0)
+
         # 7. the card's busy share over one check, from a profiler trace
         phase_profile(dev, model, histories)
 
@@ -6218,7 +6537,8 @@ def run_phases(dev, model, ptxas: dict, histories: list,
     # (summed from launches_by_path below), any other kernel's added to
     # its line's launches beside those of its other paths
     for path, arms in (("service", service),
-                       ("service_cluster", service_cluster)):
+                       ("service_cluster", service_cluster),
+                       ("harness", harness)):
         path_launches: dict = {}
         for counts in arms.values():
             for k, n in counts.items():
@@ -6361,14 +6681,20 @@ def main(argv=None) -> int:
     path_libs = list(dict.fromkeys([*(KERNEL_LIBRARY.get(k, k)
                                       for k in KERNELS), *COUNT_LIBRARIES]))
     libs = [*path_libs, "mask_scan_profile", "segment_scan_profile"]
-    # in parallel; the north-star batch is made on the host meanwhile
-    with ThreadPoolExecutor(1) as pool:
+    # in parallel; the north-star batch is made on the host meanwhile, and
+    # the native tier of the harness phase (6f) is built beside them
+    from jepsen_jgroups_raft_tpu_torch import native
+
+    with ThreadPoolExecutor(2) as pool:
         building = pool.submit(_build.build, libs)
+        building_native = pool.submit(native.ensure_built)
         histories, synth_s = suite_histories("register")
         build_s = building.result()
+        building_native.result()
     ptxas = {k: _build.ptxas_report(k) for k in libs}
     emit("build", seconds=build_s, kernels=libs,
          seconds_by_library=dict(_build.BUILD_SECONDS), ptxas=ptxas,
+         native_build_s=native.BUILD_SECONDS,
          scan_instances=scan_instances(libs),
          cycle_closure_functions=_build.ptxas_functions("cycle_closure"))
     for k, rep in ptxas.items():

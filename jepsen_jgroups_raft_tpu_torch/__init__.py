@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the history checker, for an NVIDIA H100.
+"""PyTorch/CUDA port of the Jepsen harness and its history checker,
+for an NVIDIA H100.
 
 A second package beside `jepsen_jgroups_raft_tpu` (the JAX reference,
 which it never imports). Histories are encoded and macro-packed on the
@@ -20,14 +21,24 @@ key in one batch (`checker/independent.py`), and election safety has a
 batched check on the card (`ops/csrc/election_safety.cu`). The checking
 service (`service/`, graftd) batches many tenants' submissions onto
 the card over HTTP; N replicas sharing a cluster directory behave as
-one service.
+one service. The harness (`core/runner.py`, the `test` CLI) deploys a
+Raft cluster (the native tier as local processes, or the in-process
+SUT), drives the workload's clients under injected faults, records the
+history and checks it on the card.
 
 Layout (mirrors the reference's module paths):
   platform.py          env knobs, `resolve_device`, `toolchain_stamp`
   history/             op records, encoding, macro packing, synthesis
-  core/store.py        the store's on-disk format (the reference's)
-  cli.py, __main__.py  `python -m jepsen_jgroups_raft_tpu_torch check`,
-                       `... serve-checker`
+  core/                the store's on-disk format (the reference's),
+                       the test runner, composition, the DB protocol,
+                       the results browser
+  cli.py, __main__.py  `python -m jepsen_jgroups_raft_tpu_torch test`,
+                       `... serve`, `... check`, `... serve-checker`
+  client/, generator/  the client protocol and error taxonomy; the
+                       generator algebra
+  workload/, nemesis/  the workloads; the fault packages
+  sut/, native/,       the in-process SUT; the native tier's build and
+  deploy/              ctypes client; the local multi-process cluster
   models/              the model protocol, register, counter, queue,
                        set, list-append, the election-safety models
   ops/kernel_ir.py     caps, macro row layout, plain-torch step parts

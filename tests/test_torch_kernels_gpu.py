@@ -2262,3 +2262,90 @@ def test_service_cluster_two_replicas_and_a_handoff_on_card(
     assert _scan_launches() == 0
     assert [x["valid?"] for r in again for x in r.results] == \
         [x["valid?"] for x in want]
+
+
+def _harness_run(device, workload, root, seed, nemesis="partition"):
+    """An in-memory run of the port's harness checked on `device`."""
+    from jepsen_jgroups_raft_tpu_torch.core import compose, db, runner
+    from jepsen_jgroups_raft_tpu_torch.sut import inmemory
+
+    nodes = ["n1", "n2", "n3", "n4", "n5"]
+    c = inmemory.InMemoryCluster(nodes, inmemory.LatencyPlan(seed=seed))
+    try:
+        test = compose.compose_test(
+            {"workload": workload, "nemesis": nemesis, "nodes": nodes,
+             "rate": 60.0, "interval": 0.4, "time_limit": 2.0,
+             "quiesce": 0.2, "concurrency": 4, "operation_timeout": 0.25,
+             "ops_per_key": 30, "conn_factory": c.conn,
+             "store_root": str(root), "device": device},
+            db=db.InMemoryDB(c), net=db.InMemoryNet(c), seed=seed)
+        return runner.run_test(test)
+    finally:
+        c.shutdown()
+
+
+def test_harness_multi_register_run_on_card_equals_cpu_recheck(cuda,
+                                                              tmp_path):
+    """The harness's post-run check on the card: an in-memory
+    multi-register run (its keys one batch) launches the scans, and its
+    verdicts and tiers equal the CPU re-check of the same stored run,
+    through the workload's checker and through `check_recorded`."""
+    from jepsen_jgroups_raft_tpu_torch.checker.recorded import \
+        check_recorded
+    from jepsen_jgroups_raft_tpu_torch.core.store import load_history
+    from jepsen_jgroups_raft_tpu_torch.workload import WORKLOADS
+
+    ds.reset_launch_counts()
+    ls.reset_launch_counts()
+    test = _harness_run(cuda, "multi-register", tmp_path / "store", 17)
+    assert _scan_launches() > 0
+    res = test["results"]
+    assert res["valid?"] is True and res["decided-tiers"]["decided-rows"]
+    d = test["store_dir"]
+    cpu = WORKLOADS["multi-register"]({"conn_factory": None,
+                                       "device": "cpu"})["checker"].check(
+        {}, load_history(d))
+
+    def keyed(r):
+        return {k: (x["valid?"], x.get("decided-tier"), x.get("kernel"))
+                for k, x in r["linear"]["results"].items()}
+
+    assert res["workload"]["valid?"] == cpu["valid?"]
+    assert keyed(res["workload"]) == keyed(cpu)
+    runs = []
+    for dev in (cuda, "cpu"):
+        with schedule.stats_scope() as scope:
+            summary = check_recorded([d], device=dev)
+        tiers = {t: v[0] for t, v in scope.get("tiers", {}).items()}
+        runs.append(({k: summary[k] for k in (
+            "valid?", "runs", "histories", "n-valid", "n-invalid",
+            "n-unknown")}, tiers))
+    assert runs[0] == runs[1]
+    assert runs[1][0]["valid?"] is True and runs[1][1]
+
+
+def test_harness_kernel_failure_fails_the_run_and_the_cli(cuda, tmp_path,
+                                                         monkeypatch,
+                                                         capsys):
+    """A kernel that does not load in the post-run check on the card
+    must fail the run (its verdict not VALID, the error in the results)
+    and the CLI (non-zero exit); nothing re-checks it on the host."""
+    import json
+
+    from jepsen_jgroups_raft_tpu_torch import cli
+    from jepsen_jgroups_raft_tpu_torch.ops import _build
+
+    def broken(name):
+        raise _build.KernelBuildError(f"injected: {name} does not load")
+
+    monkeypatch.setattr(_build, "load", broken)
+    test = _harness_run(cuda, "single-register", tmp_path / "a", 18)
+    res = test["results"]
+    assert res["valid?"] is not True
+    assert "injected" in json.dumps(res, default=str)
+    rc = cli.main(["test", "--deploy", "inmemory", "--time-limit", "1",
+                   "--quiesce", "0.1", "--rate", "40", "--concurrency", "3",
+                   "--operation-timeout", "0.3", "--node", "n1", "--node",
+                   "n2", "--node", "n3", "--store", str(tmp_path / "b")])
+    out = capsys.readouterr().out
+    assert rc == 1 and "injected" in out and "VALID  " not in out
