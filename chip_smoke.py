@@ -25,8 +25,8 @@ against its plain version on its own cases) run in a second process on
 the same card, their lines printed when it ends, while this one makes the other
 suites' batches and runs 8, 11, 15, 19, 20, 22-24, 27 and 28 (host
 walls; no time on the card is taken in them); the phases that time the
-card run after both, in the order 6, 6b, 6c, 6d, 6e, 6f, 7, 9, 10, 12, 14,
-17, 18, 25, the closure kernels' line, 26, 29, 30:
+card run after both, in the order 6, 6b, 6c, 6d, 6e, 6f, 6g, 7, 9, 10,
+12, 14, 17, 18, 25, the closure kernels' line, 26, 29, 30:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
                mask_scan, sort_scan — each with its chunk entry point,
@@ -151,7 +151,42 @@ card run after both, in the order 6, 6b, 6c, 6d, 6e, 6f, 7, 9, 10, 12, 14,
                `harness`). Ops (ok / fail / info), nemesis ops, the run's
                and the check's walls, the native build's seconds, the
                run's decided-tiers and scan-stats, the toolchain stamp.
-               Every raft_server left is SIGKILLed, also on failure
+               Every raft_server left is SIGKILLed, also on failure.
+               Beside the two arms, in this process, the ssh arm
+               (`harness_ssh`): the ssh tier (`deploy/ssh.py`) on one
+               node (raft_server binds 0.0.0.0, so one host holds one
+               node per port pair) at 127.0.0.1 on free ports, its
+               install dir a temp dir, with `ssh` and `scp` shims on PATH
+               (tests/test_ssh_integration.py's) and an `iptables` shim
+               that only records its argv, so the real firewall is never
+               touched: `compose_test` / `run_test`, single-register
+               under kill,pause, 15 s, concurrency 10, rate 10, then one
+               partition and heal through `IptablesNet`. VALID, its run
+               re-checked on the card gives the verdicts and tiers of the
+               --device cpu re-check, the recorded iptables lines are the
+               builders', the downloaded node log is not empty and no
+               raft_server of it is left
+ 6g. search — graftsearch (`search/`) at the CLI's defaults (population
+               48, 8 generations, 12 survivors, edit space 24, register /
+               set / queue / list-append, 4 bases of 20 ops each, seed 0)
+               through `cli.main(["search", ...])` on the card, default
+               knobs: (a) in process; (b) `--recall 20` twice (bench.py's
+               K), the corpus fingerprints equal across the two; (c)
+               through a port graftd on the card in this process, over
+               HTTP (`--service-url`: binary frames, JSON for
+               list-append). Their CPU twins run as subprocesses at
+               `--device cpu` while nvcc builds: (a) and (b) once each,
+               (c) against a `serve-checker --device cpu` daemon. (a) and
+               (c) equal their twins' reports field for field apart from
+               wall_s and cpu_s, (b)'s found and missed plants equal the
+               twin's. (a) and (c) need not agree with each other: the
+               binary lane's rows carry no minimized counterexample, as
+               in the reference, so their fitness, which steers the
+               selection, differs. Every
+               archived entry re-verifies, none is unconfirmed, and the
+               card launched a kernel. Candidates, walls, CPU seconds,
+               candidates a second, recall per CPU-minute, launches by
+               kernel (on the kernels line under `search`)
   7. profile — one check under torch.profiler: the device's busy share of
                the check's wall (a trace without device time fails)
   8. invalid — 64 of those histories with one read corrupted: kernel,
@@ -414,7 +449,8 @@ dense_scan_chunk and sort_scan_chunk give their launches by path,
 and, for sort_scan_chunk, the streaming sessions, whose B = 1 launch is
 its `stream_launch`, and the service's arms (`service`, and
 `service_cluster`: the cluster phase's wave and handoff; `harness`: the
-harness phase's re-checks); dense_scan_chunk's `tuned_launch` is the largest
+harness phase's re-checks, the ssh arm's among them; `search`: the
+search phase's card arms); dense_scan_chunk's `tuned_launch` is the largest
 north-star group's launch under its plan),
 the card's
 `nvidia-smi` name and power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -5979,11 +6015,12 @@ HARNESS_CUTS = {"time_limit_s": [t for _, _, t in HARNESS_ARMS],
 HARNESS_SLACK_S = 150.0
 
 
-def port_servers() -> set:
-    """Pids of live processes running this checkout's raft_server."""
+def port_servers(bins=None) -> set:
+    """Pids of live processes running this checkout's raft_server (or
+    any binary of `bins`)."""
     from jepsen_jgroups_raft_tpu_torch import native
 
-    want = str(native.SERVER_BIN)
+    want = {str(b) for b in bins} if bins else {str(native.SERVER_BIN)}
     out = set()
     for d in Path("/proc").iterdir():
         if not d.name.isdigit():
@@ -5992,7 +6029,7 @@ def port_servers() -> set:
             argv0 = (d / "cmdline").read_bytes().split(b"\0")[0]
         except OSError:
             continue
-        if argv0.decode(errors="replace") == want:
+        if argv0.decode(errors="replace") in want:
             out.add(int(d.name))
     return out
 
@@ -6070,12 +6107,13 @@ def algorithms(result) -> list:
     return out
 
 
-def run_harness_arms(tmp: Path) -> dict:
+def run_harness_arms(tmp: Path, during=None) -> tuple:
     """Both arms' `test` commands at once, each a process of its own
     (`python -m jepsen_jgroups_raft_tpu_torch test`, the port's
     `cli.main`) on the card at the default knobs (the fast path and the
-    launch plans as users get them; the plans' store a fresh directory).
-    Returns {workload: (exit code, stdout, stderr, wall s)}."""
+    launch plans as users get them; the plans' store a fresh directory),
+    and `during()` in this thread while they run. Returns ({workload:
+    (exit code, stdout, stderr, wall s)}, what `during` returned)."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items()
            if k not in ("JGRAFT_LIN_FASTPATH", "JGRAFT_AUTOTUNE")}
@@ -6112,7 +6150,11 @@ def run_harness_arms(tmp: Path) -> dict:
 
     with ThreadPoolExecutor(len(procs)) as pool:
         futs = {w: pool.submit(finish, *x) for w, x in procs.items()}
-        return {w: f.result() for w, f in futs.items()}
+        try:
+            beside = during() if during is not None else None
+        finally:
+            done = {w: f.result() for w, f in futs.items()}
+        return done, beside
 
 
 def harness_arm(dev, workload: str, nemesis: str, result: tuple,
@@ -6209,6 +6251,445 @@ def harness_arm(dev, workload: str, nemesis: str, result: tuple,
     return launches
 
 
+#: the ssh arm beside 6f's two: the ssh tier (deploy/ssh.py) on ONE node
+#: (raft_server binds 0.0.0.0, so one host holds one node per port
+#: pair), reached through shims, under kill,pause for SSH_TIME_LIMIT s
+SSH_NODE = "127.0.0.1"
+SSH_WORKLOAD = "single-register"
+SSH_NEMESIS = "kill,pause"
+SSH_TIME_LIMIT = 15.0
+#: the peer of the arm's one partition through IptablesNet (never dialed)
+SSH_ENEMY = "10.255.0.1"
+
+#: tests/test_ssh_integration.py's shims: `ssh` runs the remote line
+#: here under bash, `scp` copies the file here
+SSH_SHIM = """#!/usr/bin/env python3
+import subprocess, sys
+args, i = [], 1
+while i < len(sys.argv):
+    if sys.argv[i] in ("-o", "-i"):
+        i += 2
+    else:
+        args.append(sys.argv[i]); i += 1
+# args[0] = user@host, args[1] = the remote shell line
+sys.exit(subprocess.call(["bash", "-c", args[1]]))
+"""
+
+SCP_SHIM = """#!/usr/bin/env python3
+import re, shutil, sys
+args, i = [], 1
+while i < len(sys.argv):
+    if sys.argv[i] in ("-o", "-i"):
+        i += 2
+    else:
+        args.append(sys.argv[i]); i += 1
+def local(p):
+    return re.sub(r"^[^@/:]+@[^:]+:", "", p)
+shutil.copy(local(args[0]), local(args[1]))
+"""
+
+
+def iptables_shim(log) -> str:
+    """An `iptables` that appends its argv (one JSON list a line) to
+    `log` and exits 0: the machine's firewall is never touched."""
+    return ("#!/usr/bin/env python3\n"
+            "import json, sys\n"
+            f"with open({str(log)!r}, 'a') as f:\n"
+            "    f.write(json.dumps(sys.argv[1:]) + '\\n')\n")
+
+
+def write_shims(shim_dir: Path, log: Path) -> None:
+    """`ssh`, `scp` and `iptables` shims in `shim_dir`, for PATH."""
+    shim_dir.mkdir(parents=True, exist_ok=True)
+    for name, body in (("ssh", SSH_SHIM), ("scp", SCP_SHIM),
+                       ("iptables", iptables_shim(log))):
+        p = shim_dir / name
+        p.write_text(body)
+        p.chmod(p.stat().st_mode | 0o111)
+
+
+def iptables_argv(cmd: str) -> list:
+    """The argv the iptables shim records for one of deploy/ssh.py's
+    iptables lines: its first command's (the shim exits 0, so the
+    ``|| ...`` branch never runs), without the redirection."""
+    import shlex
+
+    argv = shlex.split(cmd.split(" || ")[0].replace(" 2>/dev/null", ""))
+    if argv[0] != "iptables":
+        raise AssertionError(f"not an iptables line: {cmd!r}")
+    return argv[1:]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ssh_arm(tmp: Path, device=None,
+                time_limit: float = SSH_TIME_LIMIT) -> dict:
+    """The ssh tier end to end on one node: `RemoteRaftCluster`
+    ([SSH_NODE], free client and peer ports, its install dir under
+    `tmp`), `RemoteRaftDB` and `IptablesNet` through the port's
+    `compose_test` and `run_test` (SSH_WORKLOAD under SSH_NEMESIS,
+    concurrency and rate as 6f's arms, checked on `device`), with the
+    ssh, scp and iptables shims first on PATH; then one partition from
+    SSH_ENEMY and a heal. Every raft_server of the install dir left
+    afterwards is SIGKILLed. Returns the run's verdict, store dir, wall,
+    ops, the servers left, the downloaded log's bytes and whether the
+    recorded iptables argv are the builders' (the setup lines once an
+    install, then the partition and the heal)."""
+    from jepsen_jgroups_raft_tpu_torch.core.compose import compose_test
+    from jepsen_jgroups_raft_tpu_torch.core.runner import run_test
+    from jepsen_jgroups_raft_tpu_torch.deploy import ssh
+
+    shim_dir, log = tmp / "shims", tmp / "iptables.log"
+    write_shims(shim_dir, log)
+    remote_dir = tmp / "opt-raft"
+    rbin = (str(remote_dir / "raft_server"),)
+    before = port_servers(rbin)
+
+    def run():
+        cluster = ssh.RemoteRaftCluster(
+            [SSH_NODE], sm="map", remote_dir=str(remote_dir),
+            client_port=free_port(), peer_port=free_port(),
+            log_download_dir=str(tmp / "node-logs"))
+        try:
+            test = run_test(compose_test({
+                "nodes": [SSH_NODE], "workload": SSH_WORKLOAD,
+                "nemesis": SSH_NEMESIS, "time_limit": time_limit,
+                "quiesce": HARNESS_QUIESCE,
+                "concurrency": HARNESS_CONCURRENCY, "rate": HARNESS_RATE,
+                "conn_factory": cluster.conn_factory(),
+                "store_root": str(tmp / "store"), "device": device,
+                "seed": SEED}, db=ssh.RemoteRaftDB(cluster),
+                net=ssh.IptablesNet(cluster)))
+            net = ssh.IptablesNet(cluster)
+            net.partition(test, {SSH_NODE: {SSH_ENEMY}})
+            net.heal(test)
+            return test
+        finally:
+            cluster.shutdown()
+
+    t0 = time.perf_counter()
+    try:
+        test = with_env("PATH", f"{shim_dir}:{os.environ.get('PATH', '')}",
+                        run)
+        wall = time.perf_counter() - t0
+        left = port_servers(rbin) - before
+    finally:
+        kill_servers(port_servers(rbin) - before)
+    recorded = [json.loads(x) for x in log.read_text().splitlines()] \
+        if log.exists() else []
+    setup = [iptables_argv(c) for c in ssh.iptables_setup_cmds()]
+    tail = [iptables_argv(c) for c in (
+        *ssh.iptables_partition_cmds({SSH_ENEMY}),
+        *ssh.iptables_heal_cmds())]
+    installs = (len(recorded) - len(tail)) // len(setup)
+    logs = [Path(f) for fs in (test.get("log_files") or {}).values()
+            for f in fs]
+    client = [op for op in test["history"] if op.process != "nemesis"]
+    return {"valid?": test["results"].get("valid?"),
+            "run": test.get("store_dir"), "wall_s": wall,
+            "ops": {t: sum(1 for op in client if op.type == t)
+                    for t in ("ok", "fail", "info")},
+            "nemesis_ops": sum(1 for op in test["history"]
+                               if op.process == "nemesis") // 2,
+            "left": len(left),
+            "log_bytes": sum(f.stat().st_size for f in logs if f.exists()),
+            "iptables_lines": len(recorded), "installs": installs,
+            "iptables_match": installs >= 1 and
+            recorded == setup * installs + tail}
+
+
+def harness_ssh(res: dict) -> dict:
+    """The ssh arm's guards: VALID, no raft_server left, a node log
+    downloaded, the builders' iptables lines; its stored run re-checked
+    through `check` on the card and on the host (auto), verdicts and
+    tiers equal and the card launching a kernel. Returns its launches."""
+    if res["valid?"] is not True or res["left"] or not res["log_bytes"] \
+            or not res["iptables_match"]:
+        raise AssertionError(f"harness ssh: {res}")
+    arm, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            reset_all_launch_counts()
+        t0 = time.perf_counter()
+        code, summary, tiers, _ = check_cli(
+            [res["run"], *(["--device", "cpu"] if device == "cpu" else [])])
+        wall_s = time.perf_counter() - t0
+        if device == "cuda":
+            launches = {k: v for k, v in all_launch_counts().items() if v}
+        arm[device] = {"rc": code, "tiers": tiers,
+                       **{k: summary.get(k) for k in (
+                           "valid?", "histories", "n-valid", "n-invalid",
+                           "n-unknown")}}
+        arm[device + "_wall_s"] = wall_s
+    if arm["cuda"] != arm["cpu"] or arm["cuda"]["rc"] != 0:
+        raise AssertionError(f"harness ssh: the card's re-check differs "
+                             f"from the host's or fails: {arm}")
+    if not sum(launches.values()):
+        raise AssertionError("harness ssh: no kernel launched in the "
+                             "re-check on the card")
+    emit("harness_ssh", node=SSH_NODE, workload=SSH_WORKLOAD,
+         nemesis=SSH_NEMESIS, time_limit_s=SSH_TIME_LIMIT,
+         **{k: v for k, v in res.items() if k != "valid?"},
+         recheck=arm, launches=launches)
+    return launches
+
+
+# ------------------------------------------------------- graftsearch
+
+#: the search phase (6g): `search` at the CLI's defaults, and bench.py's
+#: recall K, twice
+SEARCH_RECALL_K = 20
+SEARCH_RECALL_REPS = 2
+#: the report's clocks (every other key is held equal)
+SEARCH_CLOCKS = ("wall_s", "cpu_s")
+#: the longest a CPU twin may take
+SEARCH_CPU_TIMEOUT_S = 600.0
+#: the daemons' admission queue: a generation's whole population in
+#: flight (the in-process driver's own service takes 4 x population)
+SEARCH_QUEUE = 256
+
+
+def search_cpu_twins(tmp: Path) -> dict:
+    """The CPU twins of 6g's card arms, run while nvcc builds, each a
+    subprocess at the default knobs: `search --device cpu`, `search
+    --recall 20 --device cpu`, and `search --service-url` against a
+    `serve-checker --device cpu` daemon (its autotune pinned off, as the
+    driver pins it in its own process). Output goes to files under
+    `tmp`. Returns {arm: (exit code, stdout, stderr, wall s)}; every
+    process is stopped before it returns."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JGRAFT_LIN_FASTPATH", "JGRAFT_AUTOTUNE")}
+    env.update(PYTHONPATH=here, TMPDIR=str(tmp))
+    port = free_port()
+    py = [sys.executable, "-m", "jepsen_jgroups_raft_tpu_torch"]
+    procs = {}
+
+    def start(name, argv, **kw):
+        with open(tmp / f"{name}.out", "w") as so, \
+                open(tmp / f"{name}.err", "w") as se:
+            procs[name] = (subprocess.Popen(
+                [*py, *argv], cwd=here, env=kw.pop("env", env), stdout=so,
+                stderr=se, start_new_session=True), time.perf_counter())
+
+    def search(name, *args):
+        start(name, ["search", *args, "--device", "cpu",
+                     "--corpus-dir", str(tmp / name)])
+
+    try:
+        start("daemon", ["serve-checker", "--host", "127.0.0.1", "--port",
+                         str(port), "--store", str(tmp / "daemon-store"),
+                         "--queue", str(SEARCH_QUEUE), "--device", "cpu"],
+              env={**env, "JGRAFT_AUTOTUNE": "0"})
+        search("default")
+        search("recall", "--recall", str(SEARCH_RECALL_K))
+        wait_http(f"http://127.0.0.1:{port}/healthz", procs["daemon"][0])
+        search("http", "--service-url", f"http://127.0.0.1:{port}")
+        out = {}
+        for name, (p, t0) in procs.items():
+            if name == "daemon":
+                continue
+            p.wait(timeout=SEARCH_CPU_TIMEOUT_S)
+            out[name] = (p.returncode, (tmp / f"{name}.out").read_text(),
+                         (tmp / f"{name}.err").read_text(),
+                         time.perf_counter() - t0)
+        return out
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=15)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+
+
+def wait_http(url: str, proc, timeout: float = 120.0) -> None:
+    """Until `url` answers 200 (the daemon `proc` is up)."""
+    import urllib.error
+    import urllib.request
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"search: the daemon exited "
+                                 f"{proc.returncode} before serving")
+        try:
+            with urllib.request.urlopen(url, timeout=2) as r:
+                if r.status == 200:
+                    return
+        except (urllib.error.URLError, OSError):
+            time.sleep(0.2)
+    raise AssertionError(f"search: no answer from {url} in {timeout} s")
+
+
+def search_cli(args: list) -> tuple:
+    """`python -m jepsen_jgroups_raft_tpu_torch search ARGS` through the
+    port's `cli.main` in this process at the default knobs (the lin fast
+    path on): (report, wall s, launches by kernel of the run)."""
+    import contextlib
+    import io
+
+    from jepsen_jgroups_raft_tpu_torch import cli
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure
+
+    buf = io.StringIO()
+    reset_all_launch_counts()
+    cycle_closure.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = with_env("JGRAFT_LIN_FASTPATH", None,
+                      lambda: cli.main(["search", *args]))
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in {**all_launch_counts(),
+                                  **cycle_counts()}.items() if v}
+    if rc != 0:
+        raise AssertionError(f"search {args}: exit {rc}: "
+                             f"{buf.getvalue()[-2000:]}")
+    return json.loads(buf.getvalue()), wall, launches
+
+
+def twin_report(twins: dict, name: str) -> dict:
+    rc, so, se, _ = twins[name]
+    if rc != 0:
+        raise AssertionError(f"search: the CPU twin {name} exited {rc}: "
+                             f"{so[-2000:]} {se[-2000:]}")
+    return json.loads(so)
+
+
+def without_clocks(rep: dict) -> dict:
+    return {k: v for k, v in rep.items() if k not in SEARCH_CLOCKS}
+
+
+def reverify_corpus(root: Path) -> int:
+    """Every entry of the corpus under `root` re-verified on the host
+    (`search/corpus.reverify_entry`); returns how many."""
+    from jepsen_jgroups_raft_tpu_torch.search import Corpus
+    from jepsen_jgroups_raft_tpu_torch.search.corpus import reverify_entry
+
+    n = 0
+    for entry in Corpus(str(root)).entries():
+        if not reverify_entry(entry):
+            raise AssertionError(f"search: entry {entry['fingerprint']} "
+                                 f"under {root} does not re-verify")
+        n += 1
+    return n
+
+
+def phase_search(dev, twins_future) -> dict:
+    """6g. graftsearch on the card at the CLI's defaults: (a) `search`
+    in process; (b) `search --recall 20` twice; (c) `search
+    --service-url` against a port graftd on the card in this process
+    (binary frames; JSON for list-append). Each arm's launches are set
+    to 0 just before it and read just after. Fails unless (a) and (c)
+    equal their CPU twins (`search_cpu_twins`) field for field apart
+    from the clocks, (b)'s two runs archive the same fingerprints and
+    find and miss the twin's plants, every archived entry re-verifies, none is unconfirmed and the card
+    launched a kernel. Returns each arm's launches by kernel."""
+    from jepsen_jgroups_raft_tpu_torch.service import (CheckingService,
+                                                       serve_in_thread)
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-search-"))
+    launches, walls, cpus, reps = {}, {}, {}, {}
+    try:
+        reps["default"], walls["default"], launches["default"] = \
+            search_cli(["--corpus-dir", str(tmp / "default")])
+        recall = []
+        for i in range(SEARCH_RECALL_REPS):
+            rep, wall, n = search_cli(["--recall", str(SEARCH_RECALL_K),
+                                       "--corpus-dir",
+                                       str(tmp / f"recall{i}")])
+            recall.append(rep)
+            walls[f"recall{i}"] = wall
+            add_counts(launches.setdefault("recall", {}), n)
+
+        def over_http():
+            # the daemon at the default knobs as well, from its start
+            svc = CheckingService(store_root=str(tmp / "daemon"),
+                                  queue_capacity=SEARCH_QUEUE, device=dev)
+            httpd, port, _ = serve_in_thread(svc)
+            try:
+                return search_cli(["--service-url",
+                                   f"http://127.0.0.1:{port}",
+                                   "--corpus-dir", str(tmp / "http")])
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                svc.shutdown()
+
+        reps["http"], walls["http"], launches["http"] = with_env(
+            "JGRAFT_LIN_FASTPATH", None, over_http)
+        twins = twins_future.result()
+        cpu = {name: twin_report(twins, name) for name in twins}
+
+        diffs = {name: sorted(k for k in without_clocks(cpu[name])
+                              if without_clocks(cpu[name])[k]
+                              != reps[name].get(k))
+                 for name in ("default", "http")}
+        if any(diffs.values()):
+            raise AssertionError(f"search: the card's reports differ from "
+                                 f"their CPU twins' in {diffs}")
+        if recall[0]["report"]["corpus-fingerprints"] != \
+                recall[1]["report"]["corpus-fingerprints"]:
+            raise AssertionError("search: the recall repetitions archived "
+                                 "different corpora")
+        for i, rep in enumerate(recall):
+            if (rep["found"], rep["missed"]) != \
+                    (cpu["recall"]["found"], cpu["recall"]["missed"]):
+                raise AssertionError(
+                    f"search: recall {i} found {rep['found']} and missed "
+                    f"{rep['missed']}; the CPU twin {cpu['recall']['found']}"
+                    f" and {cpu['recall']['missed']}")
+        runs = {"default": reps["default"], "http": reps["http"],
+                **{f"recall{i}": r["report"] for i, r in enumerate(recall)}}
+        unconfirmed = {k: r["unconfirmed"] for k, r in runs.items()
+                       if r["unconfirmed"]}
+        if unconfirmed:
+            raise AssertionError(f"search: unconfirmed candidates "
+                                 f"{unconfirmed}")
+        reverified = {k: reverify_corpus(tmp / k) for k in runs}
+        total = {}
+        for n in launches.values():
+            add_counts(total, n)
+        if not sum(total.values()):
+            raise AssertionError("search: the card launched no kernel")
+        for k, r in runs.items():
+            cpus[k] = r["cpu_s"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("search",
+         candidates={k: r["candidates"] for k, r in runs.items()},
+         generations={k: r["generations"] for k, r in runs.items()},
+         corpus={k: r["corpus"] for k, r in runs.items()},
+         dedup_skips={k: r["dedup-skips"] for k, r in runs.items()},
+         wall_s=walls, cpu_s=cpus,
+         candidates_per_s={k: runs[k]["candidates"] / walls[k]
+                           for k in runs},
+         recall={"planted": recall[0]["planted"],
+                 "found": len(recall[0]["found"]),
+                 "recall": [r["recall"] for r in recall],
+                 "recall_per_cpu_min": [r["recall_per_cpu_min"]
+                                        for r in recall]},
+         fitness={k: r["fitness"] for k, r in runs.items()},
+         reverified=reverified,
+         twins={k: {"process_wall_s": twins[k][3],
+                    "cpu_s": v["cpu_s"],
+                    "candidates": v.get("candidates",
+                                        v.get("report", {}).get(
+                                            "candidates"))}
+                for k, v in cpu.items()},
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def phase_harness(dev) -> dict:
     """6f. The Jepsen harness on the card's host: the native tier built
     from this checkout (`native.ensure_built`, native/build-torch/), both
@@ -6218,9 +6699,10 @@ def phase_harness(dev) -> dict:
     run is re-checked in this process through `check` (fast path off)
     on the card and on the host, verdicts and tiers equal, and a planted
     corrupt read is INVALID on both with the same failing op; the card's
-    re-checks must launch a kernel. Every raft_server left running is
-    SIGKILLed, also when the phase fails. Returns each arm's re-check
-    launches."""
+    re-checks must launch a kernel. The ssh arm (`run_ssh_arm`,
+    `harness_ssh`) runs in this thread beside the two `test` commands.
+    Every raft_server left running is SIGKILLed, also when the phase
+    fails. Returns each arm's re-check launches."""
     from jepsen_jgroups_raft_tpu_torch import native
     from jepsen_jgroups_raft_tpu_torch.platform import toolchain_stamp
 
@@ -6231,7 +6713,8 @@ def phase_harness(dev) -> dict:
     try:
         native.ensure_built()  # a no-op after the full run's build phase
         build_s = native.BUILD_SECONDS
-        results = run_harness_arms(tmp)
+        results, ssh_res = run_harness_arms(
+            tmp, lambda: run_ssh_arm(tmp / "ssh", dev))
         left = port_servers() - before
         if left:
             raise AssertionError(f"harness: {len(left)} raft_server "
@@ -6239,6 +6722,7 @@ def phase_harness(dev) -> dict:
         for workload, nemesis, _ in HARNESS_ARMS:
             launches[workload] = harness_arm(dev, workload, nemesis,
                                              results[workload], tmp)
+        launches["ssh"] = harness_ssh(ssh_res)
     finally:
         kill_servers(port_servers() - before)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6250,14 +6734,16 @@ def phase_harness(dev) -> dict:
 
 
 def run_phases(dev, model, ptxas: dict, histories: list,
-               synth_s: float) -> list:
+               synth_s: float, search_twins) -> list:
     """Phases 3-30 of the full run, on the kernels `main` built;
     `histories`: the north-star batch (made in `synth_s` seconds, beside
     the build). The kernels' checks against their plain versions run in
     a second process on the card (`start_kernel_checks`) while this one
     makes the suites' batches and runs the phases whose numbers are
     host walls: 8, 11, 15, 19, 20, 22-24, 27 and 28. The phases that time
-    the card run after both. Returns the kernels line."""
+    the card run after both. `search_twins`: the future of phase 6g's
+    CPU twins (`search_cpu_twins`), started beside the build. Returns
+    the kernels line."""
     from jepsen_jgroups_raft_tpu_torch.models import (Counter, GSet,
                                                       ListAppend,
                                                       TicketQueue)
@@ -6410,6 +6896,12 @@ def run_phases(dev, model, ptxas: dict, histories: list,
         harness = phase_harness(dev)
         emit("harness_summary", seconds=time.perf_counter() - t0)
 
+        # 6g. graftsearch at the CLI's defaults on the card: in process,
+        # recall twice, over HTTP; each against its CPU twin
+        t0 = time.perf_counter()
+        search = phase_search(dev, search_twins)
+        emit("search_summary", seconds=time.perf_counter() - t0)
+
         # 7. the card's busy share over one check, from a profiler trace
         phase_profile(dev, model, histories)
 
@@ -6538,7 +7030,7 @@ def run_phases(dev, model, ptxas: dict, histories: list,
     # its line's launches beside those of its other paths
     for path, arms in (("service", service),
                        ("service_cluster", service_cluster),
-                       ("harness", harness)):
+                       ("harness", harness), ("search", search)):
         path_launches: dict = {}
         for counts in arms.values():
             for k, n in counts.items():
@@ -6681,9 +7173,28 @@ def main(argv=None) -> int:
     path_libs = list(dict.fromkeys([*(KERNEL_LIBRARY.get(k, k)
                                       for k in KERNELS), *COUNT_LIBRARIES]))
     libs = [*path_libs, "mask_scan_profile", "segment_scan_profile"]
-    # in parallel; the north-star batch is made on the host meanwhile, and
-    # the native tier of the harness phase (6f) is built beside them
+    # in parallel; the north-star batch is made on the host meanwhile, the
+    # native tier of the harness phase (6f) is built beside them, and the
+    # CPU twins of the search phase (6g) run as subprocesses
+    twins_tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-search-cpu-"))
+    twins_pool = ThreadPoolExecutor(1)
+    try:
+        search_twins = twins_pool.submit(search_cpu_twins, twins_tmp)
+        return build_and_run(dev, model, libs, path_libs, search_twins)
+    finally:
+        twins_pool.shutdown(wait=True)
+        shutil.rmtree(twins_tmp, ignore_errors=True)
+
+
+def build_and_run(dev, model, libs: list, path_libs: list,
+                  search_twins) -> int:
+    """Phase 2 (the build, the north-star batch made meanwhile), then
+    every other phase (`run_phases`), the kernels line and the last
+    lines."""
+    import torch
+
     from jepsen_jgroups_raft_tpu_torch import native
+    from jepsen_jgroups_raft_tpu_torch.ops import _build
 
     with ThreadPoolExecutor(2) as pool:
         building = pool.submit(_build.build, libs)
@@ -6705,7 +7216,8 @@ def main(argv=None) -> int:
                                rep["max_stack_bytes"]):
             raise AssertionError(f"{k} spills or uses a stack: {rep}")
 
-    kernels = run_phases(dev, model, ptxas, histories, synth_s)
+    kernels = run_phases(dev, model, ptxas, histories, synth_s,
+                         search_twins)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

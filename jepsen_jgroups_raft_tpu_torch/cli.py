@@ -9,6 +9,11 @@ re-check recorded runs, and serve the checking service.
     python -m jepsen_jgroups_raft_tpu_torch serve-checker [--host H]
         [--port P] [--store DIR] [--queue N] [--batch-wait-ms MS]
         [--workers N] [--cluster-dir DIR] [--replica-id ID] [--device D]
+    python -m jepsen_jgroups_raft_tpu_torch search [--families F,...]
+        [--population N] [--generations N] [--survivors N]
+        [--edit-space N] [--seed S] [--corpus-dir DIR] [--arm A]
+        [--consistency C] [--n-ops N] [--recall K] [--service-url URL]
+        [--device D]
 
 ``test`` is the reference's (`jepsen_jgroups_raft_tpu/cli.py`
 `cmd_test`, the reference's single-test-cmd, raft.clj:94-101): it
@@ -21,11 +26,13 @@ raised among them, fails the command). Three flags differ:
 any cluster is built (the card unless ``--device cpu`` is given; without
 a card the command prints the error and exits 3, and no node starts);
 ``--algorithm`` takes the port's engines (`checker.linearizable.
-ALGORITHMS`); ``--deploy`` runs ``local`` (the native cluster as local
-processes, the default) or ``inmemory`` (the in-process SUT) and refuses
-``ssh``, which is not ported yet. ``--seed`` (new) seeds the workload's
-op draws, the stagger, the nemesis schedule and the in-memory SUT's
-latencies. ``serve`` is the reference's results browser.
+ALGORITHMS`); ``--seed`` (new) seeds the workload's op draws, the
+stagger, the nemesis schedule and the in-memory SUT's latencies.
+``--deploy`` runs the reference's three tiers: ``local`` (the native
+cluster as local processes, the default), ``inmemory`` (the in-process
+SUT) and ``ssh`` (remote hosts over ssh/scp with iptables partitions,
+`deploy/ssh.py`; ``--ssh-user``, ``--ssh-private-key``). ``serve`` is
+the reference's results browser.
 
 ``check`` is the reference's `cmd_check`: PATH is a run dir (it holds
 history.jsonl) or a store root, under which every run dir is found (the
@@ -42,8 +49,16 @@ given; without a card the command does not fall back to the CPU.
 it exits 3 when the device asked for is not there. With
 ``--cluster-dir`` it runs as one replica (``--replica-id``) of the
 cluster sharing that directory: the shared result store, leases, load
-shedding and the WAL handoff (`service/cluster.py`). The ``search``
-subcommand is not ported yet.
+shedding and the WAL handoff (`service/cluster.py`).
+
+``search`` is the reference's (`cmd_search`): graftsearch, the
+coverage-guided scenario search (`search/`) over the checking service,
+the same flags and ``JGRAFT_SEARCH_*`` knobs; ``--recall K`` plants K
+violations and reports recall per CPU-minute instead. The report is
+printed as JSON and the exit status is 0; a check request that fails
+raises. ``--device`` takes the place of ``--platform`` and is resolved
+first: the in-process service runs on the card unless ``--device cpu``
+is given, and without a card the command exits 3 with nothing run.
 """
 
 from __future__ import annotations
@@ -73,8 +88,8 @@ WORKLOAD_SM = {
     "queue": "map",
 }
 
-#: the deployment tiers the port runs; the reference's "ssh" is refused
-DEPLOYS = ("local", "inmemory")
+#: the deployment tiers (the reference's three)
+DEPLOYS = ("local", "inmemory", "ssh")
 
 
 def _add_test_flags(p: argparse.ArgumentParser) -> None:
@@ -139,15 +154,13 @@ def _add_test_flags(p: argparse.ArgumentParser) -> None:
                    help="seed of the workload's ops, the stagger, the "
                         "nemesis schedule and the in-memory SUT "
                         "(default: unseeded)")
-    p.add_argument("--deploy", default="local",
-                   choices=[*DEPLOYS, "ssh"],
-                   help="SUT deployment tier: local native processes or "
-                        "the in-process fake (the ssh tier is not ported "
-                        "yet and is refused)")
+    p.add_argument("--deploy", default="local", choices=list(DEPLOYS),
+                   help="SUT deployment tier: local native processes, "
+                        "in-process fake, or ssh remote hosts")
     p.add_argument("--ssh-user", default="root",
-                   help="the ssh tier's user (refused with it)")
+                   help="the ssh tier's remote user")
     p.add_argument("--ssh-private-key", default=None,
-                   help="the ssh tier's identity file (refused with it)")
+                   help="identity file for the ssh tier (running.md:88)")
     p.add_argument("--election-ms", type=int, default=300)
     p.add_argument("--heartbeat-ms", type=int, default=100)
     p.add_argument("--repl-timeout-ms", type=int, default=30000,
@@ -176,6 +189,17 @@ def _build_deployment(args, nodes):
         cluster = InMemoryCluster(nodes, LatencyPlan(seed=args.seed))
         return (InMemoryDB(cluster), InMemoryNet(cluster), cluster.conn,
                 cluster.shutdown)
+    if args.deploy == "ssh":
+        from .deploy.ssh import IptablesNet, RemoteRaftCluster, RemoteRaftDB
+        cluster = RemoteRaftCluster(
+            nodes, sm=WORKLOAD_SM[args.workload], ssh_user=args.ssh_user,
+            ssh_key=args.ssh_private_key,
+            election_ms=args.election_ms, heartbeat_ms=args.heartbeat_ms,
+            repl_timeout_ms=args.repl_timeout_ms,
+            compact_every=args.compact_every)
+        return (RemoteRaftDB(cluster, seed=args.seed),
+                IptablesNet(cluster), cluster.conn_factory(),
+                cluster.shutdown)
     from .deploy.local import BlockNet, LocalCluster, LocalRaftDB
     cluster = LocalCluster(
         nodes, sm=WORKLOAD_SM[args.workload], election_ms=args.election_ms,
@@ -199,10 +223,6 @@ def cmd_test(args) -> int:
     from .core.runner import run_test
     from .platform import resolve_device
 
-    if args.deploy not in DEPLOYS:
-        print(f"test: --deploy {args.deploy} is not ported yet; the port "
-              f"runs {' and '.join(DEPLOYS)}", file=sys.stderr)
-        return 2
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -335,6 +355,49 @@ def cmd_serve_checker(args) -> int:
                          replica_id=args.replica_id, device=device)
 
 
+def cmd_search(args) -> int:
+    """graftsearch: coverage-guided scenario search. Default mode runs
+    the open-ended generation loop and prints the run report; --recall K
+    plants K known violations first and reports found-vs-missed per
+    CPU-minute. The device is resolved before anything runs."""
+    from .platform import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"search: {e}", file=sys.stderr)
+        return 3
+    from .search.driver import SearchDriver, search_config_from_env
+    from .search.recall import run_recall
+
+    overrides = {}
+    for flag, key in (("population", "population"),
+                      ("generations", "generations"),
+                      ("survivors", "survivors"),
+                      ("edit_space", "edit_space"),
+                      ("seed", "seed"),
+                      ("corpus_dir", "corpus_dir")):
+        v = getattr(args, flag)
+        if v is not None:
+            overrides[key] = v
+    if args.arm is not None:
+        overrides["guided"] = args.arm == "guided"
+    overrides["families"] = tuple(
+        f.strip() for f in args.families.split(",") if f.strip())
+    overrides["consistency"] = args.consistency
+    overrides["n_ops"] = args.n_ops
+    overrides["device"] = device
+    if args.service_url:
+        overrides["service_url"] = args.service_url
+    cfg = search_config_from_env(**overrides)
+    if args.recall:
+        rep = run_recall(cfg, k=args.recall).to_dict()
+    else:
+        rep = SearchDriver(cfg).run()
+    print(json.dumps(rep, indent=2, default=str))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="jepsen_jgroups_raft_tpu_torch",
@@ -390,6 +453,49 @@ def main(argv=None) -> int:
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain versions on the host)")
     sc.set_defaults(fn=cmd_serve_checker)
+    se = sub.add_parser(
+        "search",
+        help="graftsearch: coverage-guided scenario search over graftd "
+             "(mutation registry + verdict-signal fitness + minimized "
+             "corpus under store/search/)")
+    se.add_argument("--families",
+                    default="register,set,queue,list-append",
+                    help="comma-separated model families to search")
+    se.add_argument("--population", type=int, default=None,
+                    help="candidates per generation "
+                         "(default: JGRAFT_SEARCH_POP or 48)")
+    se.add_argument("--generations", type=int, default=None,
+                    help="default: JGRAFT_SEARCH_GENERATIONS or 8")
+    se.add_argument("--survivors", type=int, default=None,
+                    help="survivor pool size "
+                         "(default: JGRAFT_SEARCH_SURVIVORS or 12)")
+    se.add_argument("--edit-space", type=int, default=None,
+                    help="mutation edit-seed space "
+                         "(default: JGRAFT_SEARCH_EDIT_SPACE or 24)")
+    se.add_argument("--seed", type=int, default=None,
+                    help="run seed (default: JGRAFT_SEARCH_SEED or 0); "
+                         "same seed => identical corpus fingerprints")
+    se.add_argument("--corpus-dir", default=None,
+                    help="corpus root (default: JGRAFT_SEARCH_DIR or "
+                         "store/search)")
+    se.add_argument("--arm", choices=["guided", "random"], default=None,
+                    help="override JGRAFT_SEARCH_GUIDED (random = the "
+                         "blind-mutation ablation arm)")
+    se.add_argument("--consistency", default="linearizable")
+    se.add_argument("--n-ops", type=int, default=20,
+                    help="base-history length per scenario")
+    se.add_argument("--recall", type=int, default=None, metavar="K",
+                    help="plant K known violations and report recall "
+                         "per CPU-minute instead of open-ended search")
+    se.add_argument("--service-url", default=None,
+                    help="evaluate through a running graftd daemon "
+                         "(binary frames for non-transactional "
+                         "workloads); default: in-process service")
+    se.add_argument("--device", default=None,
+                    help="torch device of the in-process service "
+                         "(default: the CUDA card; 'cpu' runs the "
+                         "kernels' plain versions on the host)")
+    se.set_defaults(fn=cmd_search)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -197,6 +197,19 @@ def random_valid_history(
     return build_history(rows)
 
 
+def corrupt(rng: random.Random, hist: History) -> History:
+    """Randomly perturb one completion (may or may not break
+    linearizability — the oracle decides). Thin wrapper over the typed
+    operator registry (`search/operators.py`): every model family has at
+    least one operator that can flip a seeded-valid history to invalid,
+    register writes (invocation and completion rewritten together) and
+    list-append observed lists included. Imported lazily: search
+    composes on top of synth, not the other way around."""
+    from ..search.operators import corrupt_once
+
+    return corrupt_once(rng, hist)
+
+
 def listappend_txn_rows(rng: random.Random, n_ops: int, n_keys: int,
                         n_procs: int, read_p: float = 0.55) -> list:
     """Rows (process, type, f, value) of a clean multi-key list-append

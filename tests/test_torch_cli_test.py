@@ -4,8 +4,9 @@
 `test --deploy inmemory --device cpu` runs, verifies, stores a run dir
 and exits 0; without a card and without ``--device`` it prints the error
 and exits 3 before any cluster is built or node started; a check that
-raises exits 1; an unknown workload, a reference-only algorithm and the
-unported ssh tier are refused. `serve`'s index lists the runs with
+raises exits 1; an unknown workload and a reference-only algorithm are
+refused; `--deploy ssh` builds the port's ssh tier with the reference's
+arguments, after the device is resolved. `serve`'s index lists the runs with
 their verdicts exactly as the reference's does, and its HTTP server
 stays inside the store root (the reference's tests/test_cli.py
 shape)."""
@@ -95,9 +96,59 @@ def test_unknown_workload_and_reference_algorithms_are_refused(capsys):
     capsys.readouterr()
 
 
-def test_ssh_deploy_is_refused_as_not_ported(capsys):
-    assert cli.main(["test", "--deploy", "ssh", "--device", "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
+class _Built(Exception):
+    pass
+
+
+def _recording_cluster(calls):
+    def build(*args, **kw):
+        calls.append((args, kw))
+        raise _Built()
+
+    return build
+
+
+SSH_FLAGS = ["--deploy", "ssh", "--ssh-user", "admin",
+             "--ssh-private-key", "/keys/id_ed25519", "--election-ms", "150",
+             "--heartbeat-ms", "50", "--repl-timeout-ms", "3000",
+             "--compact-every", "512", "--workload", "counter",
+             "--node", "h1", "--node", "h2", "--node", "h3"]
+
+
+def test_ssh_deploy_builds_the_ports_remote_cluster(monkeypatch):
+    """`test --deploy ssh` builds the port's RemoteRaftCluster with the
+    arguments the reference's CLI gives its own."""
+    from jepsen_jgroups_raft_tpu import cli as ref_cli
+    from jepsen_jgroups_raft_tpu.deploy import ssh as ref_ssh
+    from jepsen_jgroups_raft_tpu_torch.deploy import ssh
+
+    port_calls, ref_calls = [], []
+    monkeypatch.setattr(ssh, "RemoteRaftCluster",
+                        _recording_cluster(port_calls))
+    monkeypatch.setattr(ref_ssh, "RemoteRaftCluster",
+                        _recording_cluster(ref_calls))
+    with pytest.raises(_Built):
+        cli.main(["test", *SSH_FLAGS, "--device", "cpu"])
+    with pytest.raises(_Built):
+        ref_cli.main(["test", *SSH_FLAGS])
+    assert port_calls == ref_calls
+    assert port_calls == [((["h1", "h2", "h3"],), {
+        "sm": "counter", "ssh_user": "admin",
+        "ssh_key": "/keys/id_ed25519", "election_ms": 150,
+        "heartbeat_ms": 50, "repl_timeout_ms": 3000,
+        "compact_every": 512})]
+
+
+def test_ssh_deploy_without_a_card_exits_3_and_builds_nothing(monkeypatch,
+                                                              capsys):
+    from jepsen_jgroups_raft_tpu_torch.deploy import ssh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    monkeypatch.setattr(ssh, "RemoteRaftCluster", _recording_cluster(calls))
+    assert cli.main(["test", *SSH_FLAGS]) == 3
+    assert "no CUDA device" in capsys.readouterr().err
+    assert calls == []
 
 
 def _store(tmp_path):

@@ -25,7 +25,8 @@ from jepsen_jgroups_raft_tpu_torch.checker import independent
 from jepsen_jgroups_raft_tpu_torch.core import compose, db, runner
 from jepsen_jgroups_raft_tpu_torch.core.store import load_history
 from jepsen_jgroups_raft_tpu_torch.history.ops import History, Op
-from jepsen_jgroups_raft_tpu_torch.models.listappend import MAX_ELEM
+from jepsen_jgroups_raft_tpu_torch.models.listappend import (MAX_ELEM,
+                                                              MAX_LEN)
 from jepsen_jgroups_raft_tpu_torch.sut import inmemory
 from jepsen_jgroups_raft_tpu_torch.workload import WORKLOADS
 
@@ -117,6 +118,10 @@ def _corrupt(workload, h):
             h.append({**op, "index": len(h) + 1, "process": 999,
                       "value": [v[0], v[1]], "time": op["time"] + 1})
         elif workload == "list-append" and f == "read":
+            # (not a full list: a 7th element leaves the packed domain,
+            # and both packages' encoders raise instead of refuting)
+            if len(v[1]) >= MAX_LEN:
+                continue
             op["value"] = [v[0], [*v[1], MAX_ELEM]]
         else:
             continue

@@ -16,6 +16,7 @@ from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
 from jepsen_jgroups_raft_tpu_torch.history.synth import build_history
 from jepsen_jgroups_raft_tpu_torch.models.register import CasRegister
 from jepsen_jgroups_raft_tpu_torch.platform import resolve_device
+from jepsen_jgroups_raft_tpu_torch.search import SearchConfig, SearchDriver
 
 torch.set_num_threads(1)
 
@@ -95,8 +96,9 @@ def no_card(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["check_histories", "check_encoded",
-                                   "LinearizableChecker", "resolve_device"])
-def test_entry_points_raise_without_card(no_card, entry):
+                                   "LinearizableChecker", "resolve_device",
+                                   "SearchDriver"])
+def test_entry_points_raise_without_card(no_card, entry, tmp_path):
     m = CasRegister()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "check_histories":
@@ -105,8 +107,18 @@ def test_entry_points_raise_without_card(no_card, entry):
             check_encoded([], m)
         elif entry == "LinearizableChecker":
             LinearizableChecker(m)
+        elif entry == "SearchDriver":
+            SearchDriver(SearchConfig(corpus_dir=str(tmp_path))).run()
         else:
             resolve_device("cuda")
+
+
+def test_cli_search_exits_3_without_card(no_card, tmp_path, capsys):
+    from jepsen_jgroups_raft_tpu_torch import cli
+
+    assert cli.main(["search", "--corpus-dir", str(tmp_path / "c")]) == 3
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not (tmp_path / "c").exists()
 
 
 def test_explicit_cpu_runs_without_card(no_card):

@@ -2349,3 +2349,87 @@ def test_harness_kernel_failure_fails_the_run_and_the_cli(cuda, tmp_path,
                    "n2", "--node", "n3", "--store", str(tmp_path / "b")])
     out = capsys.readouterr().out
     assert rc == 1 and "injected" in out and "VALID  " not in out
+
+
+def _search(device, root, **kw):
+    """A small graftsearch run (all four families) on `device`."""
+    from jepsen_jgroups_raft_tpu_torch.search import (SearchConfig,
+                                                      SearchDriver)
+
+    return SearchDriver(SearchConfig(
+        families=("register", "set", "queue", "list-append"),
+        population=16, generations=3, survivors=6, edit_space=12, seed=0,
+        n_ops=14, bases_per_family=2, corpus_dir=str(root), device=device,
+        **kw)).run()
+
+
+def test_search_on_card_equals_the_search_on_the_host(cuda, tmp_path):
+    """The same seeded search with its service on the card and on the
+    host: reports equal apart from the clocks (corpus fingerprints,
+    candidates, per-generation statistics, fitness, regions), the scans
+    launched, nothing unconfirmed, every archived entry re-verified."""
+    from jepsen_jgroups_raft_tpu_torch.search import Corpus
+    from jepsen_jgroups_raft_tpu_torch.search.corpus import reverify_entry
+
+    ds.reset_launch_counts()
+    ls.reset_launch_counts()
+    card = _search(cuda, tmp_path / "card")
+    assert _scan_launches() > 0
+    host = _search("cpu", tmp_path / "host")
+    clocks = ("wall_s", "cpu_s")
+    assert {k: v for k, v in card.items() if k not in clocks} == \
+        {k: v for k, v in host.items() if k not in clocks}
+    assert card["corpus"] >= 1 and card["unconfirmed"] == 0
+    assert all(reverify_entry(e)
+               for e in Corpus(str(tmp_path / "card")).entries())
+
+
+def test_search_check_failing_on_card_raises(cuda, tmp_path, monkeypatch,
+                                             capsys):
+    """A check that fails on the card fails its request, and the search
+    (the driver and the `search` command) raises instead of scoring the
+    candidate as empty rows."""
+    from jepsen_jgroups_raft_tpu_torch import cli
+    from jepsen_jgroups_raft_tpu_torch.checker import linearizable as lin
+
+    def broken(*a, **kw):
+        raise RuntimeError("CUDA error: injected launch failure")
+
+    monkeypatch.setattr(lin, "check_encoded", broken)
+    with pytest.raises(RuntimeError, match="ended failed.*injected"):
+        _search(cuda, tmp_path / "a")
+    with pytest.raises(RuntimeError, match="ended failed.*injected"):
+        cli.main(["search", "--families", "register", "--population", "8",
+                  "--generations", "1", "--n-ops", "10",
+                  "--corpus-dir", str(tmp_path / "b")])
+    capsys.readouterr()
+
+
+def test_ssh_tier_lifecycle_rechecked_on_card(cuda, tmp_path):
+    """chip_smoke.py's ssh arm, short: one node of the ssh tier through
+    ssh, scp and iptables shims (the iptables shim only records), a
+    `run_test` under kill and pause checked on the card; the run's
+    re-check on the card equals the host's, the iptables lines are the
+    builders', a node log came back and no raft_server is left."""
+    import importlib.util
+    from pathlib import Path
+
+    from jepsen_jgroups_raft_tpu_torch.checker.recorded import \
+        check_recorded
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    res = smoke.run_ssh_arm(tmp_path, device=cuda, time_limit=5.0)
+    assert res["valid?"] is True and res["left"] == 0
+    assert res["log_bytes"] > 0 and res["iptables_match"] is True
+    runs = []
+    for dev in (cuda, "cpu"):
+        with schedule.stats_scope() as scope:
+            summary = check_recorded([res["run"]], device=dev)
+        tiers = {t: v[0] for t, v in scope.get("tiers", {}).items()}
+        runs.append(({k: summary[k] for k in (
+            "valid?", "runs", "histories", "n-valid", "n-invalid",
+            "n-unknown")}, tiers))
+    assert runs[0] == runs[1] and runs[0][0]["valid?"] is True
