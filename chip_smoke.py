@@ -13,7 +13,8 @@ libraries it needs: `segment` measures B6 on config 5 as long_main does
 tables composed to VALID, the bound, the launch shape and the
 instrumented build's profile); `election` runs phase 26; `mesh` and
 `cluster` run phases 29 and 30 (`mesh` on a north-star batch of its
-own); `service_cluster` runs phase 6e on a north-star batch of its own.
+own); `service_cluster` runs phase 6e on a north-star batch of its own;
+`lint_contract` runs phase 2b on the batch's first WITNESS_ROWS rows.
 They end with
 the card's `nvidia-smi` line and {"ok": true, "only": [...], ...}, and
 print no kernels line. With no arguments every phase runs:
@@ -41,6 +42,26 @@ card run after both, in the order 6, 6b, 6c, 6d, 6e, 6f, 6g, 7, 9, 10,
                seconds, and the one-shot scans' instances with and
                without the counting flag (registers, stack, spills); the
                paths' kernels must show no spill bytes and no stack frame
+ 2b. lint_contract — the port's lint held against the card (no timing):
+               the kernel contract (jepsen_jgroups_raft_tpu_torch/lint/
+               flow/kernel_contract.py) run in process and clean; its
+               sort twin `sort_shape_plain` equal to the library's
+               `sort_scan_shape` at every W = 1..127, C of the ladder and
+               MAX_CONFIGS, threads and shared-memory cap of its domain;
+               B6's dynamic bytes, threads and runs a warp equal to
+               `segment_attributes` over the dense caps' windows; B7's
+               dynamic bytes and B9's threads equal to the launchers'
+               own rules at every N; the lint's opt-in limit equal to
+               the card's; every ptxas entry of every library within the
+               card's limits (static + the contract's largest dynamic
+               shared bytes ≤ the opt-in limit for a kernel its source
+               opts in, ≤ 48 KB for one it does not; registers × threads
+               ≤ one multiprocessor's registers), the closure's static
+               twins equal to ptxas's; and
+               the sync witness: WITNESS_ROWS rows of the north-star batch
+               checked chunked under torch.cuda.set_sync_debug_mode
+               ("warn"), every port line a sync warning names a host-sync
+               site of the static analyzer or a line with its pragma
   3. kernel  — dense_scan against its plain PyTorch version, bitwise, at
                every window W = 1..10 with the largest domain S the caps
                allow, at W = 1 / S = 1 and at the north-star shape, both
@@ -583,6 +604,9 @@ KERNEL_CHECKS_TIMEOUT_S = 900
 #: chunk sizes chunk_kernel holds the chunk forms to their plain
 #: versions at (128 is the reference's default JGRAFT_SCAN_CHUNK)
 CHUNK_SIZES = (1, 32, 128)
+#: rows of the north-star batch lint_contract's sync witness checks on
+#: the card, chunked (the main phase's path)
+WITNESS_ROWS = 250
 
 
 def emit(phase: str, **kw) -> None:
@@ -4611,6 +4635,296 @@ def phase_election_alone(dev) -> None:
         phase_election_kernel(dev, Path(tmp) / "elections")
 
 
+# ------------------------------------------------------ 2b. lint_contract
+
+
+def sort_grid() -> list:
+    """(W, C, threads, smem_cap) of lint_contract's sort grid: every W of
+    1..SORT_MAX_SLOTS at each C of the sort ladder and MAX_CONFIGS, at
+    every threads and smem_cap of the kernel contract's domain (0: the
+    default)."""
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        SORT_LADDER)
+    from jepsen_jgroups_raft_tpu_torch.lint.flow import kernel_contract as kc
+    from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
+
+    cs = sorted(set(SORT_LADDER) | {ls.MAX_CONFIGS})
+    return [(W, C, t, cap) for C in cs for W in range(1, ls.MAX_SLOTS + 1)
+            for t in kc.SORT_THREADS_DOMAIN for cap in kc.SORT_CAP_DOMAIN]
+
+
+def segment_grid() -> list:
+    """(W, S, NB, E) of lint_contract's segment grid: every window and
+    domain table size the dense caps admit (the largest S of each field
+    width), at one and many seeds, short and long segments."""
+    from jepsen_jgroups_raft_tpu_torch.ops.kernel_ir import (
+        DENSE_MAX_CELLS, DENSE_MAX_SLOTS, DENSE_MAX_STATES)
+
+    out = []
+    for W in range(1, DENSE_MAX_SLOTS + 1):
+        for S in (1, 2, 4, 8, 16):
+            if S <= DENSE_MAX_STATES and (1 << W) * S <= DENSE_MAX_CELLS:
+                out += [(W, S, NB, E) for NB in (1, 33, 256)
+                        for E in (1, 700, 2048, 5000)]
+    return out
+
+
+def card_limits(dev) -> tuple:
+    """(shared memory a block may opt in to, registers of one
+    multiprocessor) as torch's device properties report them. A block
+    runs on one multiprocessor, so its registers never exceed the
+    latter; on an H100 the registers a block may hold are as many,
+    65,536."""
+    import torch
+
+    props = torch.cuda.get_device_properties(dev)
+    return (int(props.shared_memory_per_block_optin),
+            int(props.regs_per_multiprocessor))
+
+
+def entry_kernel(mangled: str, kernels) -> str:
+    """The __global__ function of `kernels` that ptxas's entry `mangled`
+    instantiates (its length-prefixed name in the mangling)."""
+    hits = [k for k in kernels if f"{len(k)}{k}" in mangled]
+    if len(hits) != 1:
+        raise AssertionError(f"lint_contract: ptxas entry {mangled} is "
+                             f"not exactly one of the contract's kernels "
+                             f"{sorted(kernels)}: {hits}")
+    return hits[0]
+
+
+def template_ints(mangled: str) -> list:
+    """The int template arguments of a mangled instance (`ILi8EE` → [8])."""
+    import re
+
+    return [int(x) for x in re.findall(r"Li(\d+)E", mangled)]
+
+
+def sync_witness(dev, histories) -> dict:
+    """(c): `histories` checked through `check_histories` on the card at
+    the default chunk under torch.cuda.set_sync_debug_mode("warn"): each
+    sync warning's site, the innermost frame of the port's package on the
+    stack (taken in a `warnings.showwarning` hook), must be a host-sync
+    site of the static analyzer or carry its pragma. Returns the sites,
+    their warnings, and how many warnings named that frame themselves."""
+    import threading
+    import traceback
+    import warnings
+
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker import check_histories
+    from jepsen_jgroups_raft_tpu_torch.lint import jit_hygiene
+    from jepsen_jgroups_raft_tpu_torch.lint.base import SourceFile
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+
+    pkg = Path(jit_hygiene.__file__).resolve().parents[1]
+    lint_dir = pkg / "lint"
+    hits, direct, outside = {}, [0, 0], []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        port = [f for f in traceback.extract_stack()
+                if Path(f.filename).resolve().is_relative_to(pkg) and
+                not Path(f.filename).resolve().is_relative_to(lint_dir)]
+        if not port:
+            outside.append({"warning": f"{filename}:{lineno}",
+                            "message": str(message)[:200],
+                            "thread": threading.current_thread().name,
+                            "stack": [f"{f.filename}:{f.lineno} {f.name}"
+                                      for f in traceback.extract_stack()
+                                      [-12:-1]]})
+            return
+        site = (str(Path(port[-1].filename).resolve().relative_to(pkg)),
+                port[-1].lineno)
+        hits[site] = hits.get(site, 0) + 1
+        same = Path(filename).resolve() == \
+            Path(port[-1].filename).resolve() and lineno == port[-1].lineno
+        direct[0 if same else 1] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        # the mode first: setting it warns (from torch, with no frame of
+        # the port) before any sync of the port could
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = hook
+        try:
+            results = check_histories(histories, CasRegister(), device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sync(dev)
+    static = {}
+    for rel in sorted({r for r, _ in hits}):
+        src = SourceFile.load(pkg / rel)
+        static[rel] = set(jit_hygiene.raw_sites(src)) | {
+            ln for ln, rules in src.allows.items() if "host-sync" in rules}
+    uncovered = sorted(s for s in hits if s[1] not in static[s[0]])
+    emit("lint_contract_witness",
+         sites={f"{r}:{ln}": n for (r, ln), n in sorted(hits.items())},
+         uncovered=[f"{r}:{ln}" for r, ln in uncovered],
+         outside=outside[:8], n_outside=len(outside))
+    if outside:
+        raise AssertionError(f"lint_contract: {len(outside)} sync "
+                             f"warnings with no frame of the port on the "
+                             f"stack: {outside[:3]}")
+    bad = [i for i, r in enumerate(results) if r.get("valid?") is not True]
+    if bad:
+        raise AssertionError(f"lint_contract: the witness's valid rows "
+                             f"{bad[:5]} did not check VALID")
+    if uncovered:
+        raise AssertionError(
+            "lint_contract: runtime sync sites the host-sync analyzer "
+            "neither reports nor finds a pragma at: " +
+            ", ".join(f"{r}:{ln} ({hits[(r, ln)]}x)" for r, ln in uncovered))
+    return {"sites": {f"{r}:{ln}": n for (r, ln), n in sorted(hits.items())},
+            "warnings": sum(hits.values()),
+            "warning_frame_is_the_site": direct[0],
+            "warning_frame_elsewhere": direct[1]}
+
+
+def phase_lint_contract(dev, histories) -> dict:
+    """2b. The port's lint, held against the card: (a) the kernel
+    contract run in process (it must be clean), its sort twin equal to
+    the library's `sort_scan_shape` at every point of `sort_grid`, and
+    B6's bytes, threads and runs a warp equal to `segment_attributes` at
+    every point of `segment_grid`, B7's dynamic bytes equal to the
+    launchers' rule (`launch_smem_bytes`) at every N of 1..4096 and B9's
+    threads to `shared_threads` (`launch_threads`) at every row length
+    of the shared form; (b) the lint's opt-in limit equal to the card's,
+    and for every entry function of every library ptxas reported: its
+    static shared bytes plus the contract's largest dynamic bytes within
+    the card's opt-in limit where the source opts the kernel in and
+    within 48 KB where it does not, registers × the contract's threads
+    within one multiprocessor's registers, and the closure's static
+    twins equal to ptxas's; (c) `sync_witness` on `histories`. Takes no
+    timing; any mismatch raises."""
+    from jepsen_jgroups_raft_tpu_torch import lint
+    from jepsen_jgroups_raft_tpu_torch.lint.flow import kernel_contract as kc
+    from jepsen_jgroups_raft_tpu_torch.ops import _build
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
+    from jepsen_jgroups_raft_tpu_torch.ops import election_safety as es
+    from jepsen_jgroups_raft_tpu_torch.ops import linear_scan as ls
+    from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import dense_layout
+
+    t0 = time.perf_counter()
+    pkg = Path(kc.__file__).resolve().parents[2]
+    found = lint.run([str(pkg / "ops")], ["kernel"])
+    if found:
+        raise AssertionError("lint_contract: the kernel contract fails: " +
+                             "; ".join(f.render() for f in found))
+    table = kc.contract_table(pkg)
+
+    # (a) the twins against the libraries
+    grid = sort_grid()
+    for W, C, threads, cap in grid:
+        want = ls.sort_shape(W, C, threads or None, cap or None)
+        got = ls.sort_shape_plain(W, C, threads, cap)
+        if tuple(want) != tuple(got):
+            raise AssertionError(f"lint_contract: sort_shape_plain at "
+                                 f"{(W, C, threads, cap)} = {got}, the "
+                                 f"library's {want}")
+    seg = segment_grid()
+    for W, S, NB, E in seg:
+        shape = ss.segment_shape(W, S, NB)
+        att = ss.segment_attributes(W, S, 2, NB, E)
+        want = ss.segment_smem_bytes(W, dense_layout(W, S).field_log2,
+                                     shape.warps, ss.segment_tile(E))
+        if (att["dynamic_smem_bytes"], att["threads"],
+                att["seeds_per_warp"]) != (want, 32 * shape.warps,
+                                           shape.seeds_per_warp) or \
+                att["blocks_per_sm"] < 1:
+            raise AssertionError(f"lint_contract: B6 at (W={W}, S={S}, "
+                                 f"NB={NB}, E={E}): {att}, the twins "
+                                 f"{want} B, {shape}")
+    closure_ns = range(1, cc.CYCLE_MAX_NODES_TILED + 1)
+    for n in closure_ns:
+        if cc.closure_smem_bytes(n) != cc.launch_smem_bytes(n):
+            raise AssertionError(f"lint_contract: closure_smem_bytes({n}) "
+                                 f"= {cc.closure_smem_bytes(n)}, the "
+                                 f"launchers' {cc.launch_smem_bytes(n)}")
+    election_ns = range(1, es.SHARED_MAX_OBSERVATIONS + 1)
+    for n in election_ns:
+        if es.election_threads(n) != es.launch_threads(n):
+            raise AssertionError(f"lint_contract: election_threads({n}) = "
+                                 f"{es.election_threads(n)}, the "
+                                 f"launcher's {es.launch_threads(n)}")
+
+    # (b) ptxas's entries within the card's limits
+    optin, regs_max = card_limits(dev)
+    if optin != kc.SMEM_OPTIN_MAX:
+        raise AssertionError(f"lint_contract: the card opts a block in to "
+                             f"{optin} B of shared memory; the kernel "
+                             f"contract proves {kc.SMEM_OPTIN_MAX}")
+    contract = []
+    n_entries = 0
+    for row in table:
+        fns = row["functions"]
+        per = {k: {"static_smem_bytes": 0, "registers": 0} for k in fns}
+        statics = {}
+        for lib in row["libraries"]:
+            for mangled, rep in _build.ptxas_functions(lib).items():
+                k = entry_kernel(mangled, fns)
+                n_entries += 1
+                st, rg = rep["static_smem_bytes"], rep["registers"]
+                dyn, threads = fns[k]["dynamic_bytes"], fns[k]["threads"]
+                limit = optin if fns[k]["opts_in"] else kc.SMEM_DEFAULT_MAX
+                if st + dyn > limit or rg * threads > regs_max:
+                    raise AssertionError(
+                        f"lint_contract: {lib} {mangled}: {st} B static + "
+                        f"{dyn} B dynamic shared (limit: {limit}), "
+                        f"{rg} registers x {threads} threads (card: "
+                        f"{regs_max})")
+                per[k]["static_smem_bytes"] = max(
+                    per[k]["static_smem_bytes"], st)
+                per[k]["registers"] = max(per[k]["registers"], rg)
+                statics.setdefault(k, {})[tuple(template_ints(mangled))] = st
+        if row["kernel"] == "B7/B8":
+            for (nw,), st in statics.get("closure_warp", {}).items():
+                twin = cc.closure_static_smem_bytes(32 * nw)
+                if st != twin:
+                    raise AssertionError(
+                        f"lint_contract: closure_warp<{nw}> has {st} B "
+                        f"static shared; the twin says {twin}")
+            for tw in (1, 2, 4, 8):
+                st = max(statics.get(k, {}).get((tw,), 0)
+                         for k in ("close_diagonal", "fold_tiles"))
+                twin = cc.closure_static_smem_bytes(4096, 32 * tw)
+                if st != twin:
+                    raise AssertionError(
+                        f"lint_contract: B8 at TW={tw} has {st} B static "
+                        f"shared; the twin says {twin}")
+        contract.append({"kernel": row["kernel"], "functions": {
+            k: {"dynamic_bytes_at_caps": v["dynamic_bytes"],
+                "static_smem_bytes": per[k]["static_smem_bytes"],
+                "registers": per[k]["registers"], "threads": v["threads"],
+                "smem_limit": optin if v["opts_in"] else kc.SMEM_DEFAULT_MAX}
+            for k, v in fns.items()}})
+
+    # (c) the runtime sync witness
+    witness = sync_witness(dev, histories)
+    out = {"contract": contract, "card_smem_optin_bytes": optin,
+           "card_regs_per_multiprocessor": regs_max,
+           "ptxas_entries": n_entries, "sort_grid_points": len(grid),
+           "segment_grid_points": len(seg),
+           "closure_points": len(closure_ns),
+           "election_points": len(election_ns),
+           "witness_rows": len(histories),
+           "witness_sites": len(witness["sites"]), **witness,
+           "seconds": time.perf_counter() - t0}
+    emit("lint_contract", **out)
+    return out
+
+
+def phase_lint_contract_alone(dev) -> None:
+    """`--only lint_contract`: phase 2b on the north-star batch's first
+    WITNESS_ROWS rows."""
+    histories, synth_s = suite_histories("register", WITNESS_ROWS)
+    emit("lint_contract_synth", seconds=synth_s)
+    phase_lint_contract(dev, histories)
+
+
 #: phases that `--only NAME[,NAME...]` runs on their own, each with the
 #: libraries it builds: the quick measurement of one kernel, a phase of
 #: the full run cut to it (no kernels line)
@@ -4624,7 +4938,13 @@ ONLY = {"segment": (("segment_scan", "segment_scan_profile"),
                     phase_cluster_alone),
         "service_cluster": (("dense_scan", "mask_scan", "sort_scan",
                              "segment_scan", "cycle_closure"),
-                            phase_service_cluster_alone)}
+                            phase_service_cluster_alone),
+        "lint_contract": (("dense_scan", "mask_scan", "sort_scan",
+                           "segment_scan", "cycle_closure",
+                           "election_safety", "verdict_counts",
+                           *COUNT_LIBRARIES, "mask_scan_profile",
+                           "segment_scan_profile"),
+                          phase_lint_contract_alone)}
 
 
 def kernel_checks(dev, model) -> dict:
@@ -7215,6 +7535,9 @@ def build_and_run(dev, model, libs: list, path_libs: list,
                                + rep["spill_load_bytes"] or
                                rep["max_stack_bytes"]):
             raise AssertionError(f"{k} spills or uses a stack: {rep}")
+
+    # 2b. the port's lint, held against the card and the libraries
+    phase_lint_contract(dev, histories[:WITNESS_ROWS])
 
     kernels = run_phases(dev, model, ptxas, histories, synth_s,
                          search_twins)

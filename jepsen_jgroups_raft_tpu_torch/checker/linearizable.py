@@ -653,9 +653,9 @@ def _dense_pass(encs, model, dev, fits, results, note: bool) -> list:
                 results[i] = r
         return rest
     launches = [DenseLaunch(
-        events=torch.from_numpy(batch["events"]).to(dev),
-        val_of=torch.from_numpy(plan.val_of).to(dev),
-        n_events=torch.from_numpy(batch["n_events"]).to(dev),
+        events=torch.from_numpy(batch["events"]).to(dev),  # lint: allow(host-sync) the group's inputs go up once (pageable)
+        val_of=torch.from_numpy(plan.val_of).to(dev),  # lint: allow(host-sync) the group's inputs go up once (pageable)
+        n_events=torch.from_numpy(batch["n_events"]).to(dev),  # lint: allow(host-sync) the group's inputs go up once (pageable)
         n_slots=plan.n_slots, macro_p=batch.get("macro_p"),
         tag=plan.kernel_tag, kind=plan.kind)
         for _, plan, batch, _ in triples]
@@ -708,8 +708,8 @@ def _sort_pass(encs, model, dev, rows, results, n_configs=None,
                 if tuned is not None else None)])
             ok, overflow = out.ok, out.overflow
         else:
-            run = run_sort_rung(torch.from_numpy(batch["events"]).to(dev),
-                                torch.from_numpy(batch["n_events"]).to(dev),
+            run = run_sort_rung(torch.from_numpy(batch["events"]).to(dev),  # lint: allow(host-sync) the rung's inputs go up once (pageable)
+                                torch.from_numpy(batch["n_events"]).to(dev),  # lint: allow(host-sync) the rung's inputs go up once (pageable)
                                 W, C, batch.get("macro_p"), model)
             ok, overflow = run.ok, run.overflow
         dt = (time.perf_counter() - t0) / len(remaining)

@@ -342,7 +342,7 @@ def launch_dense_groups(launches: List[DenseLaunch], model,
 
     def finalize() -> GroupRun:
         for done in dones:
-            done.synchronize()
+            done.synchronize()  # lint: allow(host-sync) the groups' flags, once a batch
         wall = time.perf_counter() - t0
         _add_stats(rows_run=sum(int(ln.events.shape[0]) for ln in launches),
                    wall_s=wall)
@@ -398,10 +398,10 @@ def run_sort_rung(events, n_events, n_slots: int, n_configs: int,
         launch(stream)
         if timed:
             marks[1].record(stream)
-        stream.synchronize()
+        stream.synchronize()  # lint: allow(host-sync) the rung's flags decide its escalation
         if timed:
             kernel_ms = marks[0].elapsed_time(marks[1])
-    out_ok, out_of = ok.cpu().numpy(), overflow.cpu().numpy()
+    out_ok, out_of = ok.cpu().numpy(), overflow.cpu().numpy()  # lint: allow(host-sync) after the stream's sync: a copy, no wait
     wall = time.perf_counter() - t0
     _add_stats(rows_run=int(events.shape[0]), wall_s=wall)
     return SortRun(ok=out_ok, overflow=out_of, wall_s=wall,
@@ -542,12 +542,12 @@ def _init_group(launch: ChunkLaunch, chunk: int,
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(dev))
         events = torch.from_numpy(
-            np.ascontiguousarray(launch.events, dtype=np.int32)).to(dev)
+            np.ascontiguousarray(launch.events, dtype=np.int32)).to(dev)  # lint: allow(host-sync) the group's inputs go up once (pageable)
         ne = torch.from_numpy(
-            np.ascontiguousarray(launch.n_events, dtype=np.int32)).to(dev)
+            np.ascontiguousarray(launch.n_events, dtype=np.int32)).to(dev)  # lint: allow(host-sync) the group's inputs go up once (pageable)
         if launch.val_of is not None:
             vo = torch.from_numpy(np.ascontiguousarray(
-                launch.val_of, dtype=np.int32)).to(dev)
+                launch.val_of, dtype=np.int32)).to(dev)  # lint: allow(host-sync) the group's inputs go up once (pageable)
             carry = launch.init_fn(vo, ne)
         else:
             carry = launch.init_fn(ne)
@@ -610,7 +610,7 @@ def _collect(g: _GroupState) -> None:
     g.pending = None
     g.carry = carry
     if done is not None:
-        done.synchronize()  # this group's stream only
+        done.synchronize()  # lint: allow(host-sync) the per-launch flag read; the wavefront decides on it (this group's stream only)
     decided, exhausted, ok, overflow = host.numpy()
     g.intervals.append((t_disp, time.perf_counter()))
     g.cursor += span
@@ -651,7 +651,7 @@ def _collect(g: _GroupState) -> None:
         idx = np.concatenate([alive, np.full(bucket - alive.size, alive[0])])
         lo = g.cursor * g.chunk
         with _on(g.stream):
-            idx_t = torch.from_numpy(idx.astype(np.int64)).to(g.dev)
+            idx_t = torch.from_numpy(idx.astype(np.int64)).to(g.dev)  # lint: allow(host-sync) the survivors' row index, once a recompaction
             g.carry = g.carry.index_select(0, idx_t)
             g.events = g.events[:, lo - g.ev_base:].index_select(0, idx_t)
         g.ev_base = lo
@@ -787,7 +787,7 @@ class CarriedScan:
         self.slots_cap = bucket_slots(max(int(n_slots), 1))
         init_fn, self._step = make_sort_chunk_checker(
             model, self.n_configs, self.slots_cap)
-        self.carry = init_fn(torch.tensor([STREAM_EVENTS_SENTINEL],
+        self.carry = init_fn(torch.tensor([STREAM_EVENTS_SENTINEL],  # lint: allow(host-sync) the stream's initial carry, once a session
                                           dtype=torch.int32,
                                           device=self.device))
         self.fed = 0          # events consumed (before padding)
@@ -817,11 +817,11 @@ class CarriedScan:
             padded = np.zeros((bucket_rows(span.shape[0], 32), 5),
                               dtype=np.int32)
             padded[:span.shape[0]] = span
-            ev = torch.from_numpy(padded[None]).to(self.device)
+            ev = torch.from_numpy(padded[None]).to(self.device)  # lint: allow(host-sync) the append's span goes up (pageable)
             self.carry, _dec, _exh, ok, overflow = self._step(self.carry,
                                                               ev)
             # the per-launch host synchronisation
-            flags = torch.stack([ok, overflow]).cpu()
+            flags = torch.stack([ok, overflow]).cpu()  # lint: allow(host-sync) the per-append flag read: the stream's verdict
             self.ok = bool(flags[0, 0])
             self.overflow = bool(flags[1, 0])
             self.launches += 1

@@ -102,12 +102,16 @@ SIGNATURES: Dict[str, dict] = {
         # B8: a (in place), has, B, N, T, device, stream
         "cycle_closure_tiled_launch": (_I, [_VP, _VP, _I, _I, _I, _I,
                                             _VP]),
+        # N → a block's dynamic shared memory bytes
+        "cycle_closure_smem_bytes": (_LL, [_I]),
         "cycle_closure_error_string": (ctypes.c_char_p, [_I]),
     },
     "election_safety": {
         # obs, valid_len (or null), table (or null), safe, B, N, log2cap,
         # form, device, stream
         "election_safety_launch": (_I, [_VP] * 4 + [_I] * 5 + [_VP]),
+        # N → the shared form's threads a block
+        "election_safety_shared_threads": (_I, [_I]),
         "election_safety_error_string": (ctypes.c_char_p, [_I]),
     },
     "verdict_counts": {

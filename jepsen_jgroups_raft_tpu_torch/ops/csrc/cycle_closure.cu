@@ -86,10 +86,10 @@
 
 namespace {
 
-constexpr int kMaxNodesWarp = 128;
-constexpr int kMaxNodesMono = 512;
-constexpr int kMaxNodesTiled = 4096;
-constexpr int kWarpGraphs = 4;  // graphs (warps) a block in the warp form
+constexpr int kMaxNodesWarp = 128;     // WARP_MAX_NODES
+constexpr int kMaxNodesMono = 512;     // CYCLE_MAX_NODES
+constexpr int kMaxNodesTiled = 4096;  // CYCLE_MAX_NODES_TILED
+constexpr int kWarpGraphs = 4;         // WARP_GRAPHS_PER_BLOCK
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ __forceinline__ int odd_stride(int nw) { return nw | 1; }
@@ -435,14 +435,23 @@ void launch_warp(const uint32_t* in, uint32_t* out, uint8_t* has, int B,
                      0, s>>>(in, out, has, B, N);
 }
 
+// The panel form's pivot panel width in words at nw words a row.
+int panel_words(int nw) { return nw <= 8 ? 8 : 16; }
+
+// The panel form's dynamic shared memory at nw words a row: the pivot
+// panel of 32 rows of MW words and the matrix at an odd row stride.
+size_t panels_smem(int MW, int nw) {
+  return (static_cast<size_t>(32) * MW +
+          static_cast<size_t>(32) * nw * odd_stride(nw)) *
+         sizeof(uint32_t);
+}
+
 template <int MW>
 void launch_panels(const uint32_t* in, uint32_t* out, uint8_t* has, int B,
                    int N, cudaStream_t s) {
   const int nw = (N + 31) >> 5;
-  const size_t smem = (static_cast<size_t>(32) * MW +
-                       static_cast<size_t>(32) * nw * odd_stride(nw)) *
-                      sizeof(uint32_t);
-  closure_panels<MW><<<B, 32 * nw, smem, s>>>(in, out, has, N);
+  closure_panels<MW><<<B, 32 * nw, panels_smem(MW, nw), s>>>(in, out, has,
+                                                             N);
 }
 
 }  // namespace
@@ -470,7 +479,7 @@ extern "C" int cycle_closure_launch(const int32_t* in, int32_t* out,
     case 3: launch_warp<3>(i, o, has, B, N, s); break;
     case 4: launch_warp<4>(i, o, has, B, N, s); break;
     default:
-      if (nw <= 8) {
+      if (panel_words(nw) == 8) {
         launch_panels<8>(i, o, has, B, N, s);
       } else {
         launch_panels<16>(i, o, has, B, N, s);
@@ -501,6 +510,16 @@ extern "C" int cycle_closure_tiled_launch(int32_t* a, uint8_t* has, int B,
     default: err = run_tiled<8>(A, has, B, N, s); break;
   }
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory bytes one block of the closure at N takes, by
+// the launchers' own rule: the panel form's (129 <= N <= 512); the warp
+// form and the blocked closure take none. -2 for N beyond 1..4096.
+extern "C" long long cycle_closure_smem_bytes(int N) {
+  if (N < 1 || N > kMaxNodesTiled) return -2;
+  const int nw = (N + 31) >> 5;
+  if (nw <= 4 || N > kMaxNodesMono) return 0;
+  return static_cast<long long>(panels_smem(panel_words(nw), nw));
 }
 
 extern "C" const char* cycle_closure_error_string(int code) {

@@ -50,11 +50,11 @@ namespace {
 
 constexpr unsigned long long kEmpty = ~0ull;
 constexpr int kThreads = 256;       // the global form's block
-constexpr int kSharedThreads = 512; // the shared form's largest block
+constexpr int kSharedThreads = 512; // SHARED_MAX_THREADS, the largest block
 // cap = 2^log2cap slots a row; 2N <= cap <= 2^27
 constexpr int kMaxLog2Cap = 27;
 // the shared form's largest table: 2^14 slots, 128 KB
-constexpr int kMaxSharedLog2 = 14;
+constexpr int kMaxSharedLog2 = 14;  // SHARED_MAX_LOG2
 constexpr int kMaxDevices = 64;
 
 enum : int { kFormShared = 0, kFormGlobal = 1 };
@@ -189,6 +189,12 @@ extern "C" int election_safety_launch(const int32_t* obs,
       reinterpret_cast<const int2*>(obs), valid_len,
       static_cast<unsigned long long*>(table), safe, total, N, log2cap);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shared form's threads a block for rows of N observations (the
+// launcher's `shared_threads`); -2 for N < 1.
+extern "C" int election_safety_shared_threads(int N) {
+  return N < 1 ? -2 : shared_threads(N);
 }
 
 extern "C" const char* election_safety_error_string(int code) {

@@ -100,7 +100,7 @@ constexpr int kSortMaxSlots = 127;    // SORT_MAX_SLOTS
 constexpr int kSortMaxConfigs = 512;  // linear_scan.MAX_CONFIGS
 constexpr int kSlotWords = (kSortMaxSlots + 31) / 32;
 constexpr uint64_t kEmpty = ~0ull;
-constexpr int kMaxThreads = 1024;
+constexpr int kMaxThreads = 1024;  // SORT_MAX_THREADS
 // K >= 2 table slots: an empty slot, and the tag of a staged candidate.
 constexpr int32_t kNoEntry = -1;
 constexpr int32_t kCandTag = 1 << 30;
@@ -904,7 +904,7 @@ struct Shape {
   size_t smem;
 };
 
-constexpr size_t kSmemCapDefault = 96 * 1024;
+constexpr size_t kSmemCapDefault = 96 * 1024;  // SORT_SMEM_CAP_DEFAULT
 
 Shape sort_shape(int W, int C, int threads, int smem_cap) {
   const int K = W / 32 + 1;

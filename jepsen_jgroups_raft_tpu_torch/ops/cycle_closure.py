@@ -160,7 +160,7 @@ def pack_bits(adj):
     bits = torch.zeros((B, n, nw * 32), dtype=torch.int64,
                        device=adj.device)
     bits[:, :, :n] = (adj != 0).to(torch.int64)
-    weights = torch.tensor([1 << j for j in range(32)], dtype=torch.int64,
+    weights = torch.tensor([1 << j for j in range(32)], dtype=torch.int64,  # lint: allow(host-sync) the 32 bit weights, a few bytes
                            device=adj.device)
     words = (bits.view(B, n, nw, 32) * weights).sum(dim=3)
     return (((words + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
@@ -230,6 +230,52 @@ def closure_shape(n_nodes: int, tile: Optional[int] = None) -> ClosureShape:
     if n <= CYCLE_MAX_NODES:
         return ClosureShape("panels", words_per_row(n))
     return ClosureShape("tiled", _kernel_tile(n, tile) // 32)
+
+
+def closure_smem_bytes(n_nodes: int) -> int:
+    """Dynamic shared memory bytes of one block of the closure at N (the
+    C++ rule, ops/csrc/cycle_closure.cu `launch_panels`, in plain
+    Python): the panel form's pivot panel (32 rows of MW words, MW = 8
+    up to 256 nodes, else 16) and the matrix at an odd row stride
+    (⌈N/32⌉ | 1 words); the warp form and B8 take none."""
+    n = int(n_nodes)
+    if n <= WARP_MAX_NODES or n > CYCLE_MAX_NODES:
+        return 0
+    nw = words_per_row(n)
+    mw = 8 if nw <= 8 else 16
+    return 4 * (32 * mw + 32 * nw * (nw | 1))
+
+
+def launch_smem_bytes(n_nodes: int) -> int:
+    """Dynamic shared memory bytes of one block of the closure at N, from
+    the launchers' own rule (ops/csrc/cycle_closure.cu
+    `cycle_closure_smem_bytes`): what `closure_smem_bytes` restates.
+    Loads the library (card only)."""
+    n = int(n_nodes)
+    got = _build.load("cycle_closure").cycle_closure_smem_bytes(n)
+    if got < 0:
+        raise ValueError(f"cycle_closure: N={n} beyond "
+                         f"1..{CYCLE_MAX_NODES_TILED}")
+    return int(got)
+
+
+def closure_static_smem_bytes(n_nodes: int, tile=None) -> int:
+    """Static shared memory bytes of the kernel instance the closure at N
+    launches (the C++ arrays, ops/csrc/cycle_closure.cu, in plain
+    Python): the warp form's staging, WARP_GRAPHS_PER_BLOCK × 32·NW ×
+    (NW | 1) words; B8's larger pivot step at TW = T/32 words a tile
+    row, `fold_tiles`' R [T·TW] and CA [T·((2·TW) | 1)] words; the panel
+    form none."""
+    n = int(n_nodes)
+    if n <= WARP_MAX_NODES:
+        nw = words_per_row(n)
+        return 4 * WARP_GRAPHS_PER_BLOCK * 32 * nw * (nw | 1)
+    if n <= CYCLE_MAX_NODES:
+        return 0
+    tw = _kernel_tile(n, tile) // 32
+    diagonal = 4 * (32 * tw + 32 * tw * (tw | 1))
+    fold = 4 * (32 * tw * tw + 32 * tw * ((2 * tw) | 1))
+    return max(diagonal, fold)
 
 
 def cycle_closure_bits(bits, n_nodes: int, tile: Optional[int] = None,

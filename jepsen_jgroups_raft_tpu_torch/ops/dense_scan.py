@@ -341,7 +341,7 @@ def _dense_step(model, W: int, vo, macro_p: Optional[int],
             if stats is not None:
                 live = ok.to(torch.int64)
                 stats["sweeps"] += int((sweeps * live).sum())
-                stats["slot_passes"] += int(
+                stats["slot_passes"] += int(  # lint: allow(host-sync) the plain version's work counter
                     (sweeps * live * slot_open.sum(dim=1)).sum())
         dirty = dirty & ~is_force
         if stats is not None:

@@ -38,6 +38,33 @@ SHARED_MAX_LOG2 = 14
 #: The longest row the shared form takes (2N ≤ 2^SHARED_MAX_LOG2).
 SHARED_MAX_OBSERVATIONS = 1 << (SHARED_MAX_LOG2 - 1)
 
+#: The shared form's largest block (its launch bound): one thread an
+#: observation up to this many.
+SHARED_MAX_THREADS = 512
+
+
+def election_threads(n: int) -> int:
+    """The shared form's threads a block for rows of N observations (the
+    C++ rule, ops/csrc/election_safety.cu `shared_threads`, in plain
+    Python): a warp at least, one thread an observation up to
+    SHARED_MAX_THREADS, in powers of two."""
+    t = 32
+    while t < n and t < SHARED_MAX_THREADS:
+        t = t * 2
+    return t
+
+
+def launch_threads(n: int) -> int:
+    """The shared form's threads a block for rows of N, from the
+    launcher's own rule (ops/csrc/election_safety.cu `shared_threads`):
+    what `election_threads` restates. Loads the library (card only)."""
+    got = _build.load("election_safety").election_safety_shared_threads(
+        int(n))
+    if got < 0:
+        raise ValueError(f"election_safety: N={n} must be at least 1")
+    return int(got)
+
+
 #: The C entry point's form codes.
 FORMS = {"shared": 0, "global": 1}
 

@@ -426,6 +426,74 @@ def sort_shape(n_slots: int, n_configs: int, threads: Optional[int] = None,
     return tuple(int(x) for x in out)
 
 
+#: Threads a block of the sort kernel holds at most: its launch bound at
+#: one mask word (K = 1); at more words, half of it (sort_scan.cu
+#: kMaxThreads, `__launch_bounds__` of sort_scan_block).
+SORT_MAX_THREADS = 1024
+
+#: The default cap on a block's dynamic shared memory under which
+#: `sort_shape`'s tile halves (sort_scan.cu kSmemCapDefault).
+SORT_SMEM_CAP_DEFAULT = 96 * 1024
+
+
+def _pow2_at_least(x: int) -> int:
+    p = 1
+    while p < x:
+        p = p * 2
+    return p
+
+
+def sort_smem_plain(n_slots: int, n_configs: int, n_words: int, tile: int,
+                    table_log2: int) -> int:
+    """Dynamic shared memory bytes of one block of the sort kernel at (W,
+    C, K mask words, tile, log2 of the table's slots): the C++ rule
+    (ops/csrc/sort_scan.cu `sort_smem`) in plain Python — the frontier
+    with a round's appended entries, the sort buffer, a tiled round's
+    parents, K ≥ 2's staged candidates (keys of ⌈(K + 2) / 2⌉ 64-bit
+    words), the hash table (64-bit slots at K = 1, else 32-bit) and
+    K ≥ 2's claimed slots (two ints a candidate)."""
+    W, C, K = n_slots, n_configs, n_words
+    key_bytes = 8 * ((K + 2) // 2)
+    p = _pow2_at_least(C)
+    ent = C + tile if C + tile > p else p
+    par = C if C * W > tile else 0
+    cbuf = tile if K >= 2 else 0
+    wslot = 2 * tile if K >= 2 else 0
+    table = (1 << table_log2) * (8 if K == 1 else 4)
+    return (ent + C + par + cbuf) * key_bytes + table + wslot * 4
+
+
+def sort_shape_plain(n_slots: int, n_configs: int, threads=None,
+                     smem_cap=None) -> tuple:
+    """`sort_shape` without a card: the C++ rule (ops/csrc/sort_scan.cu
+    `sort_shape`) in plain Python, for the same arguments the same
+    (threads, tile, table log2, dynamic shared memory bytes). Threads
+    default to a quarter of a round's most candidates (C·W rounded up to
+    a power of two), cut to whole warps in [32, the kernel's bound]; the
+    tile starts at a round's most candidates, at most 8 a thread, and
+    halves (not below the block) until the block's shared memory fits
+    `smem_cap` (default SORT_SMEM_CAP_DEFAULT). The lint's kernel
+    contract runs it over the legal domain, and chip_smoke.py holds it to
+    the library's `sort_scan_shape`."""
+    W, C = int(n_slots), int(n_configs)
+    threads, smem_cap = int(threads or 0), int(smem_cap or 0)
+    K = W // 32 + 1
+    want = _pow2_at_least(C * W)
+    bound = SORT_MAX_THREADS if K == 1 else SORT_MAX_THREADS // 2
+    t = threads // 32 * 32 if threads > 0 else want // 4
+    t = max(32, min(bound, t))
+    tile = min(want, 8 * t)
+    cap = smem_cap if smem_cap > 0 else SORT_SMEM_CAP_DEFAULT
+    while True:
+        tlog = 0
+        while (1 << tlog) < 2 * (C + tile):
+            tlog += 1
+        smem = sort_smem_plain(W, C, K, tile, tlog)
+        if smem <= cap or tile <= t:
+            return (t, tile, tlog, smem)
+        tile = tile // 2
+
+
 def _check_caps(W: int, C: int) -> None:
     if not 1 <= W <= MAX_SLOTS:
         raise ValueError(f"sort_scan: W={W} beyond 1..{MAX_SLOTS}")

@@ -266,7 +266,7 @@ class SegmentBatch:
 
     def tensors(self, dev) -> list:
         """The kernel inputs on `dev`, in `segment_scan`'s order."""
-        return [torch.from_numpy(a).to(dev) for a in
+        return [torch.from_numpy(a).to(dev) for a in  # lint: allow(host-sync) the segments' inputs go up once (pageable)
                 (self.events, self.val_of, self.seed_mask, self.seed_state,
                  self.n_events)]
 
@@ -388,7 +388,7 @@ def check_segmented_batch(encs: Sequence[EncodedHistory], model,
         return results
     # every segment of the batch in one launch on the card
     ev, vo, sm, st, ne = batch.tensors(dev)
-    F = segment_scan(ev, vo, sm, st, batch.W, ne, model).cpu().numpy()
+    F = segment_scan(ev, vo, sm, st, batch.W, ne, model).cpu().numpy()  # lint: allow(host-sync) the final frontiers the host composes
     t2 = time.perf_counter()
     for i, r in zip(batch.live, compose_segment_tables(batch, F)):
         results[i] = r
@@ -452,7 +452,7 @@ def segment_scan_plain(events, val_of, seed_mask, seed_state, n_slots: int,
           & (sm >= 0)[:, None, None])
     n_ev = (torch.full((K,), E, dtype=torch.int64, device=dev)
             if n_events is None else
-            torch.as_tensor(n_events, device=dev).to(torch.int64))
+            torch.as_tensor(n_events, device=dev).to(torch.int64))  # lint: allow(host-sync) the plain version's row lengths
     # the runs still in the batch: their run ids, segments, tables, ends
     ids = F0.flatten(1).any(dim=1).nonzero().squeeze(1)
     seg = ids // max(NB, 1)
@@ -479,7 +479,7 @@ def segment_scan_plain(events, val_of, seed_mask, seed_state, n_slots: int,
                                          active)
             if stats is not None:
                 stats["sweeps"] += int(sweeps.sum())
-                stats["slot_passes"] += int(
+                stats["slot_passes"] += int(  # lint: allow(host-sync) the plain version's work counter
                     (sweeps * slot_open.sum(dim=1)).sum())
         dirty = dirty & ~is_force
         if stats is not None:
@@ -497,10 +497,10 @@ def segment_scan_plain(events, val_of, seed_mask, seed_state, n_slots: int,
              torch.zeros((n, W), dtype=torch.bool, device=dev),
              torch.ones((n,), dtype=torch.bool, device=dev),
              torch.zeros((n,), dtype=torch.bool, device=dev))
-    n_scan = min(E, int(n_ev.max())) if K else 0
+    n_scan = min(E, int(n_ev.max())) if K else 0  # lint: allow(host-sync) the plain version's loop bound
     for e in range(n_scan):
         alive = carry[3]
-        if not bool(alive.all()):
+        if not bool(alive.all()):  # lint: allow(host-sync) the plain version's row eviction
             keep = alive.nonzero().squeeze(1)
             ids, seg = ids[keep], seg[keep]
             run = {k: v[keep] for k, v in run.items()}
@@ -564,12 +564,36 @@ def segment_shape(n_slots: int, n_states: int, n_seeds: int) -> SegmentShape:
     segment (each prepares the segment's rows itself). Plain Python: runs
     without a card; ops/csrc/segment_scan.cu computes the same runs a
     warp and CTAs a segment from the warps it is given."""
-    bits = int(n_slots) + dense_layout(n_slots, n_states).field_log2
+    field_log2 = dense_layout(n_slots, n_states).field_log2
+    return segment_shape_at(n_slots, field_log2, n_seeds)
+
+
+def segment_shape_at(n_slots: int, field_log2: int,
+                     n_seeds: int) -> SegmentShape:
+    """`segment_shape` at window W and state field width field_log2 (the
+    layout's, `dense_layout(W, S).field_log2`)."""
+    bits = int(n_slots) + int(field_log2)
     lanes = 32 if bits >= 10 else 1 << max(bits - 5, 0)
     per_warp = 32 // lanes
     nb = max(int(n_seeds), 1)
     warps = min(SEGMENT_MAX_WARPS, -(-nb // per_warp))
     return SegmentShape(per_warp, warps, -(-nb // (per_warp * warps)))
+
+
+def segment_tile(n_rows: int) -> int:
+    """Rows a CTA prepares into shared memory at a time for segments of
+    E rows: min(E, SEGMENT_MAX_TILE_ROWS), at least one."""
+    return max(1, min(int(n_rows), SEGMENT_MAX_TILE_ROWS))
+
+
+def segment_smem_bytes(n_slots: int, field_log2: int, warps: int,
+                       tile: int) -> int:
+    """Dynamic shared memory bytes of one CTA of the kernel (the C++ rule,
+    ops/csrc/segment_scan.cu `smem_bytes`, in plain Python): the tile's
+    row descriptors and its OPENs' transition rows (2^field_log2 words a
+    row), and each warp's latched rows T[W][2^field_log2]."""
+    fs = 1 << int(field_log2)
+    return 4 * (int(tile) * (1 + fs) + int(warps) * int(n_slots) * fs)
 
 
 def segment_words(n_slots: int, field_log2: int) -> int:

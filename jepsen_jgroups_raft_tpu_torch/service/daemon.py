@@ -337,7 +337,7 @@ class CheckingService:
             # shutil.move survives a cross-filesystem store/cluster
             # split, where os.replace would EXDEV; startup-only (runs
             # before worker threads or peers can race the WAL path)
-            shutil.move(str(legacy), str(target))
+            shutil.move(str(legacy), str(target))  # lint: allow(nonatomic-publish)
             LOG.warning("%s: migrated legacy journal %s into the "
                         "cluster layout at %s", self.name, legacy,
                         target)

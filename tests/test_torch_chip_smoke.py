@@ -39,7 +39,8 @@ def test_only_refuses_other_arguments(argv, capsys):
                                   ["--only", "election,segment"],
                                   ["--only", "mesh"], ["--only", "cluster"],
                                   ["--only", "mesh,cluster"],
-                                  ["--only", "service_cluster"]])
+                                  ["--only", "service_cluster"],
+                                  ["--only", "lint_contract"]])
 def test_without_a_card_it_prints_no_result(argv, capsys):
     assert _chip_smoke().main(argv) == 2
     assert capsys.readouterr().out == ""
@@ -48,7 +49,7 @@ def test_without_a_card_it_prints_no_result(argv, capsys):
 def test_only_phases_build_known_libraries():
     only = _chip_smoke().ONLY
     assert set(only) == {"segment", "election", "mesh", "cluster",
-                         "service_cluster"}
+                         "service_cluster", "lint_contract"}
     for libs, fn in only.values():
         assert libs and callable(fn)
         for lib in libs:
@@ -70,6 +71,17 @@ def test_mesh_phases_build_b10():
         assert set(libs) == {"dense_scan", "mask_scan", "sort_scan",
                              "verdict_counts", "dense_scan_count",
                              "mask_scan_count"}
+
+
+def test_lint_contract_builds_every_library_of_the_contract():
+    """Phase 2b reads ptxas's report of every library the kernel
+    contract names: `--only lint_contract` builds them all."""
+    from jepsen_jgroups_raft_tpu_torch.lint.flow import kernel_contract
+
+    libs, _ = _chip_smoke().ONLY["lint_contract"]
+    named = {lib for row in kernel_contract.contract_table()
+             for lib in row["libraries"]}
+    assert named <= set(libs)
 
 
 def test_kernels_line_lists_verdict_counts():

@@ -2433,3 +2433,80 @@ def test_ssh_tier_lifecycle_rechecked_on_card(cuda, tmp_path):
             "valid?", "runs", "histories", "n-valid", "n-invalid",
             "n-unknown")}, tiers))
     assert runs[0] == runs[1] and runs[0][0]["valid?"] is True
+
+
+def _card_limits(dev):
+    """(shared memory a block may opt in to, registers of one
+    multiprocessor — a block's registers never exceed them) as torch
+    reports the card."""
+    props = torch.cuda.get_device_properties(dev)
+    return (props.shared_memory_per_block_optin,
+            props.regs_per_multiprocessor)
+
+
+def test_lint_contract_twins_equal_the_libraries(cuda):
+    """The lint's kernel contract evaluates plain twins of the kernels'
+    C++ shape rules; at a coarse grid they equal the libraries' own
+    queries: B5's (threads, tile, table log2, dynamic bytes) at each K
+    boundary of W, the ladder's C and MAX_CONFIGS, and every threads and
+    shared-memory cap of the contract's domain; B6's dynamic bytes,
+    threads and runs a warp, with at least one CTA resident; B7's
+    dynamic bytes and B9's threads, each at its forms' edges, equal to
+    the launchers' own rules."""
+    from jepsen_jgroups_raft_tpu_torch.lint.flow import kernel_contract as kc
+    from jepsen_jgroups_raft_tpu_torch.ops import cycle_closure as cc
+    from jepsen_jgroups_raft_tpu_torch.ops import election_safety as es
+    from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss
+
+    for W in (1, 5, 31, 32, 63, 64, 96, 127):
+        for C in (64, 256, ls.MAX_CONFIGS):
+            for threads in kc.SORT_THREADS_DOMAIN:
+                for cap in kc.SORT_CAP_DOMAIN:
+                    assert tuple(ls.sort_shape(W, C, threads or None,
+                                               cap or None)) == \
+                        ls.sort_shape_plain(W, C, threads, cap)
+    for W, S in ((1, 1), (5, 4), (9, 16), (10, 8)):
+        for NB, E in ((1, 1), (33, 2048), (256, 5000)):
+            shape = ss.segment_shape(W, S, NB)
+            att = ss.segment_attributes(W, S, 2, NB, E)
+            assert att["dynamic_smem_bytes"] == ss.segment_smem_bytes(
+                W, ds.dense_layout(W, S).field_log2, shape.warps,
+                ss.segment_tile(E))
+            assert att["threads"] == 32 * shape.warps
+            assert att["blocks_per_sm"] >= 1
+    for n in (1, 128, 129, 256, 257, 512, 513, 4096):
+        assert cc.launch_smem_bytes(n) == cc.closure_smem_bytes(n), n
+    assert cc.launch_smem_bytes(512) > 0 == cc.launch_smem_bytes(128)
+    for n in (1, 32, 33, 511, 512, 513, es.SHARED_MAX_OBSERVATIONS):
+        assert es.launch_threads(n) == es.election_threads(n), n
+
+
+def test_lint_contract_entries_within_the_card(cuda):
+    """Every entry function ptxas reports for the kernels' libraries:
+    its static shared bytes plus the contract's largest dynamic bytes
+    within the card's opt-in limit where its source opts it in and
+    within 48 KB where it does not, and its registers times the
+    contract's threads within one multiprocessor's registers. The
+    lint's opt-in limit is the card's."""
+    from jepsen_jgroups_raft_tpu_torch.lint.flow import kernel_contract as kc
+    from jepsen_jgroups_raft_tpu_torch.ops import _build
+
+    optin, regs = _card_limits(cuda)
+    assert optin == kc.SMEM_OPTIN_MAX
+    table = kc.contract_table()
+    _build.build(sorted({lib for row in table for lib in row["libraries"]
+                         if lib in _build.SIGNATURES}))
+    n = 0
+    for row in table:
+        for lib in row["libraries"]:
+            for mangled, rep in _build.ptxas_functions(lib).items():
+                [k] = [k for k in row["functions"]
+                       if f"{len(k)}{k}" in mangled]
+                fn = row["functions"][k]
+                limit = optin if fn["opts_in"] else kc.SMEM_DEFAULT_MAX
+                assert rep["static_smem_bytes"] + fn["dynamic_bytes"] \
+                    <= limit, (lib, mangled)
+                assert rep["registers"] * fn["threads"] <= regs, \
+                    (lib, mangled)
+                n += 1
+    assert n >= 60
