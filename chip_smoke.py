@@ -13,7 +13,8 @@ libraries it needs: `segment` measures B6 on config 5 as long_main does
 tables composed to VALID, the bound, the launch shape and the
 instrumented build's profile); `election` runs phase 26; `mesh` and
 `cluster` run phases 29 and 30 (`mesh` on a north-star batch of its
-own); `service_cluster` runs phase 6e on a north-star batch of its own;
+own); `fanout` runs phase 29c on batches of its own; `service_cluster`
+runs phase 6e on a north-star batch of its own;
 `lint_contract` runs phase 2b on the batch's first WITNESS_ROWS rows.
 They end with
 the card's `nvidia-smi` line and {"ok": true, "only": [...], ...}, and
@@ -27,7 +28,7 @@ the same card, their lines printed when it ends, while this one makes the other
 suites' batches and runs 8, 11, 15, 19, 20, 22-24, 27 and 28 (host
 walls; no time on the card is taken in them); the phases that time the
 card run after both, in the order 6, 6b, 6c, 6d, 6e, 6f, 6g, 7, 9, 10,
-12, 14, 17, 18, 25, the closure kernels' line, 26, 29, 30:
+12, 14, 17, 18, 25, the closure kernels' line, 26, 29, 29c, 30:
   1. stamp   — torch / CUDA / nvcc versions, the card's name and power limit
   2. build   — nvcc builds every kernel of the paths (dense_scan,
                mask_scan, sort_scan — each with its chunk entry point,
@@ -428,6 +429,29 @@ with the LOP3 floor of the work it does: `closure_main_path`.
                against the plain counts of the same launch's verdicts
                (~10 s); 29b, the last of that process: the device
                operations a standalone call enqueues (the profiler)
+ 29c. fanout — the local multi-card fan-out: one process spreading each
+               launch's rows over a mesh of 4 placements
+               (`parallel.mesh.chunk_sharding`): 4 cards where the host
+               has them (JGRAFT_GROUP_DEVICES=4), otherwise the one card
+               repeated 4 times (`platform.pin_placements`, a stream a
+               placement); on 2 or 3 cards those cards and also the
+               repeated card. Each arm runs once on one card, then fanned
+               out, and must be equal: phase 2b's 250 north-star rows
+               through `check_histories`, chunked and at
+               JGRAFT_SCAN_CHUNK=0 (every row's result dict but its
+               time-s: verdict, tier, "chunked" stamp, kernel; and the
+               wavefront counters); `check_batch_sharded`'s ladder on the
+               set suite's 250 rows (both B5 rungs) and its dense arm on
+               the register rows' groups and 64 counter rows' (B1, B4):
+               ok, overflow, n_valid, n_unknown; the set's C = 64 rung
+               under a plan of fan-out 4 placed as `_sort_pass` places it
+               (`autotune.sort_rung_sharding`): flags, launches,
+               evictions; config 5's segments (one B6 launch a placement):
+               the final tables bitwise and the results. The current card
+               is the same after every fanned call. Prints the cards, the
+               placements, the walls of each arm and its launches; the
+               fanned drives' launches go on the kernels line under path
+               `fanout`
  30. cluster — `parallel.launch.launch_local_cluster(2, ...)` running
                `parallel.selfcheck` on this card: both ranks on cuda:0
                under gloo (two ranks share the card), each with the same
@@ -445,8 +469,10 @@ with the LOP3 floor of the work it does: `closure_main_path`.
                exchange): no row a "remote-shard" stub, the other rank's
                shard read from the store, one detail record a row
 
-Every phase but lin_fastpath runs with JGRAFT_LIN_FASTPATH=0 (set at
-the start), as the reference's test suite runs: at the default knobs
+Every phase but fanout runs with JGRAFT_GROUP_DEVICES=0 (set at the
+start: one card, whatever the host holds). Every phase but lin_fastpath
+runs with JGRAFT_LIN_FASTPATH=0 (set at the start), as the reference's
+test suite runs: at the default knobs
 the host certifier decides most valid rows before any kernel. Every
 phase runs with JGRAFT_AUTOTUNE=0 (no launch plan and no cycle-arm
 store: the launches the phases always measured) but autotune_main,
@@ -471,7 +497,9 @@ and, for sort_scan_chunk, the streaming sessions, whose B = 1 launch is
 its `stream_launch`, and the service's arms (`service`, and
 `service_cluster`: the cluster phase's wave and handoff; `harness`: the
 harness phase's re-checks, the ssh arm's among them; `search`: the
-search phase's card arms); dense_scan_chunk's `tuned_launch` is the largest
+search phase's card arms; `fanout`: phase 29c's fanned drives, on
+dense_scan, mask_scan, sort_scan, segment_scan and the chunk forms, a
+counting instance's under its scan); dense_scan_chunk's `tuned_launch` is the largest
 north-star group's launch under its plan),
 the card's
 `nvidia-smi` name and power limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
@@ -4580,6 +4608,240 @@ def phase_cluster(dev, model) -> None:
          detail_records=detail_records)
 
 
+#: placements of phase 29c's mesh
+FANOUT_PLACEMENTS = 4
+#: counter rows of phase 29c's dense arm (B4's mask plan beside the
+#: register's B1 groups), the suite's shape cut from SUITE_ROWS
+FANOUT_COUNTER_ROWS = 64
+
+
+def fanout_modes() -> list:
+    """Phase 29c's meshes as (mode, placements): FANOUT_PLACEMENTS cards
+    where the host has that many (the first, `JGRAFT_GROUP_DEVICES`
+    capping the rest), on 2 or 3 cards those cards and also the one card
+    repeated, on one card the card repeated FANOUT_PLACEMENTS times
+    (`platform.pin_placements`)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= FANOUT_PLACEMENTS:
+        return [("cards", FANOUT_PLACEMENTS)]
+    if n >= 2:
+        return [("cards", n), ("repeated", FANOUT_PLACEMENTS)]
+    return [("repeated", FANOUT_PLACEMENTS)]
+
+
+def fanout_drive(dev, mode: str, n: int, fn):
+    """fn() with this process's launches fanned out over the mode's mesh
+    (n cards under JGRAFT_GROUP_DEVICES=n, or n placements of `dev`'s
+    card), the mesh and the knob restored afterwards. Fails unless the
+    check's mesh (`chunk_sharding`) has n placements, or when fn leaves
+    another card current than the one before."""
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.parallel.mesh import chunk_sharding
+    from jepsen_jgroups_raft_tpu_torch.platform import pin_placements
+
+    def run():
+        mesh = chunk_sharding(device=dev)
+        if mesh is None or mesh.size != n or (
+                mode == "repeated" and len(set(mesh.devices)) != 1) or (
+                mode == "cards" and len(set(mesh.devices)) != n):
+            raise AssertionError(f"fanout {mode}: the check's mesh is "
+                                 f"{mesh}, not {n} placements")
+        before = torch.cuda.current_device()
+        out = fn()
+        if torch.cuda.current_device() != before:
+            raise AssertionError(f"fanout {mode}: card "
+                                 f"{torch.cuda.current_device()} current "
+                                 f"after the call, {before} before")
+        return out
+
+    if mode == "cards":
+        return with_env("JGRAFT_GROUP_DEVICES", str(n), run)
+    pin_placements(n, dev)
+    try:
+        return with_env("JGRAFT_GROUP_DEVICES", None, run)
+    finally:
+        pin_placements(None)
+
+
+def phase_fanout(dev, model, witness, set_hs, counter_hs, config5) -> dict:
+    """Phase 29c: the local fan-out (see the module docstring). `witness`:
+    phase 2b's north-star rows; `set_hs`: the set suite's rows;
+    `counter_hs`: counter suite rows; `config5`: suite config 5's
+    history. Returns the fanned drives' launches by kernel-line name."""
+    from dataclasses import asdict
+
+    import numpy as np
+    import torch
+
+    from jepsen_jgroups_raft_tpu_torch.checker import schedule
+    from jepsen_jgroups_raft_tpu_torch.checker.autotune import (
+        TunedPlan, default_plan, pack_group, sort_rung_sharding)
+    from jepsen_jgroups_raft_tpu_torch.checker.linearizable import (
+        check_histories)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import (
+        bucket_rows, encode_history, pack_batch, pack_macro_batch)
+    from jepsen_jgroups_raft_tpu_torch.models import Counter, GSet
+    from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import (
+        dense_plans_grouped)
+    from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import (
+        bucket_slots, make_sort_chunk_checker)
+    from jepsen_jgroups_raft_tpu_torch.parallel.mesh import (
+        check_batch_sharded, chunk_sharding)
+
+    t_start = time.perf_counter()
+    keys = ("chunks_run", "evicted_rows", "groups_run",
+            "groups_early_exited")
+
+    def main_path(chunk):
+        schedule.consume_stats()
+        rows = with_env("JGRAFT_SCAN_CHUNK", chunk, lambda: check_histories(
+            witness, model, device=dev))
+        stats = schedule.consume_stats()
+        return ([{k: v for k, v in r.items() if k != "time-s"}
+                 for r in rows], {k: stats[k] for k in keys})
+
+    # the inputs of the other arms, packed once
+    t0 = time.perf_counter()
+    gset = GSet()
+    set_encs = [encode_history(h, gset) for h in set_hs]
+    set_ev = pack_batch(set_encs)["events"]
+    set_W = bucket_slots(max(e.n_slots for e in set_encs))
+    dense_groups = []
+    for m, hs in ((model, witness), (Counter(), counter_hs)):
+        encs = [encode_history(h, m) for h in hs]
+        grouped, _ = dense_plans_grouped(m, encs)
+        dense_groups += [(m, plan, pack_macro_batch([encs[i] for i in idxs]))
+                         for idxs, plan in grouped]
+    if not any(plan.kind == "mask" for _, plan, _ in dense_groups):
+        raise AssertionError("fanout: no mask group in the dense arm")
+    tuned = TunedPlan(**{**asdict(default_plan("sort")),
+                         "mesh_fanout": FANOUT_PLACEMENTS})
+    rung = pack_group(set_encs, tuned)
+    rung_sched = bucket_rows(rung["events"].shape[1], 32)
+    seg_encs = [encode_history(config5, model)]
+    seg_batch = ss.prepare_segment_batch(seg_encs, model, device=dev)
+    prepare_s = time.perf_counter() - t0
+
+    # `check_batch_sharded` launches over the mesh its caller passes (the
+    # check's, `chunk_sharding`; None on one card: the process's device)
+    def ladder():
+        ok, ovf, n_valid, n_unknown = check_batch_sharded(
+            gset, set_ev, chunk_sharding(device=dev), n_slots=set_W,
+            device=dev)
+        return ok.tolist(), ovf.tolist(), int(n_valid), int(n_unknown)
+
+    def dense_arm():
+        out = []
+        for m, plan, b in dense_groups:
+            ok, ovf, n_valid, n_unknown = check_batch_sharded(
+                m, b["events"], chunk_sharding(device=dev), dense=plan,
+                macro_p=b["macro_p"], device=dev)
+            out.append((ok.tolist(), ovf.tolist(), int(n_valid),
+                        int(n_unknown)))
+        return out
+
+    def sort_rung():
+        # a sort rung under a plan of fan-out FANOUT_PLACEMENTS, placed as
+        # checker/linearizable `_sort_pass` places it
+        init_fn, step_fn = make_sort_chunk_checker(
+            gset, 64, set_W, macro_p=rung.get("macro_p"))
+        [out] = schedule.run_chunked([schedule.ChunkLaunch(
+            events=rung["events"], n_events=rung["n_events"],
+            init_fn=init_fn, step_fn=step_fn, e_sched=rung_sched,
+            device=sort_rung_sharding(tuned, device=dev) or dev, tag="sort",
+            chunk=tuned.scan_chunk or max(rung_sched, 1))],
+            record_stats=False)
+        return (out.ok.tolist(), out.overflow.tolist(), out.chunks_run,
+                out.evicted_rows, out.early_exit)
+
+    def segments():
+        # the check's mesh, as checker/linearizable passes it down
+        mesh = chunk_sharding(device=dev)
+        tables = ss._segment_tables(
+            seg_batch, model, mesh.devices if mesh is not None else (dev,))
+        return tables, ss.check_segmented_batch(seg_encs, model, device=dev,
+                                                mesh=mesh)
+
+    arms = (("main_chunked", lambda: main_path(None)),
+            ("main_one_shot", lambda: main_path("0")),
+            ("ladder", ladder), ("dense_arm", dense_arm),
+            ("sort_rung", sort_rung), ("segments", segments))
+    # the one-card run of the same inputs (JGRAFT_GROUP_DEVICES=0, set at
+    # the start), then each mode's fanned run
+    if chunk_sharding(device=dev) is not None:
+        raise AssertionError("fanout: the one-card run would fan out")
+    one, one_s, one_launches = {}, {}, {}
+    for name, fn in arms:
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        one[name] = fn()
+        one_s[name] = time.perf_counter() - t0
+        one_launches[name] = all_launch_counts()
+    if one_launches["ladder"]["sort_scan"] < 2:
+        raise AssertionError("fanout: the set's ladder reached "
+                             f"{one_launches['ladder']['sort_scan']} rung")
+    launches: dict = {}
+    modes = {}
+    for mode, n in fanout_modes():
+        walls, by_arm = {}, {}
+        for name, fn in arms:
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            got = fanout_drive(dev, mode, n, fn)
+            walls[name] = time.perf_counter() - t0
+            counts = {k: v for k, v in all_launch_counts().items() if v}
+            by_arm[name] = counts
+            want = one[name]
+            same = (np.array_equal(got[0], want[0]) and got[1] == want[1]
+                    if name == "segments" else got == want)
+            if not same:
+                raise AssertionError(f"fanout {mode} × {n}: {name} differs "
+                                     "from the one-card run")
+            for k, v in counts.items():
+                # a counting instance is its scan's launch (B1, B4, B5)
+                k = k[:-len("_count")] if k.endswith("_count") else k
+                launches[k] = launches.get(k, 0) + v
+        modes[f"{mode}x{n}"] = {"walls_s": walls, "launches": by_arm}
+    rows, stats = one["main_chunked"]
+    emit("fanout", cards=torch.cuda.device_count(),
+         placements={m: n for m, n in fanout_modes()}, rows=len(rows),
+         verdicts={str(v): sum(r["valid?"] == v for r in rows)
+                   for v in {r["valid?"] for r in rows}},
+         chunked_rows=sum(bool(r.get("chunked")) for r in rows),
+         wavefront=stats, one_shot_wavefront=one["main_one_shot"][1],
+         ladder_valid=one["ladder"][2], ladder_unknown=one["ladder"][3],
+         dense_groups=[(plan.kind, plan.n_slots, len(b["events"]))
+                       for _, plan, b in dense_groups],
+         sort_rung_chunks=one["sort_rung"][2], segments=int(
+             seg_batch.events.shape[0]),
+         prepare_s=prepare_s, one_card_walls_s=one_s,
+         one_card_launches={k: {n: v for n, v in c.items() if v}
+                            for k, c in one_launches.items()},
+         modes=modes, seconds=time.perf_counter() - t_start,
+         power=nvidia_smi_line())
+    return launches
+
+
+def phase_fanout_alone(dev) -> None:
+    """`--only fanout`: phase 29c on batches of its own: phase 2b's
+    north-star rows, the set suite, counter rows and config 5."""
+    from jepsen_jgroups_raft_tpu_torch.models import CasRegister
+
+    t0 = time.perf_counter()
+    witness, _ = suite_histories("register", WITNESS_ROWS)
+    set_hs, _ = suite_histories("set", SUITE_ROWS,
+                                value_range=SET_VALUE_RANGE)
+    counter_hs, _ = suite_histories("counter", FANOUT_COUNTER_ROWS)
+    [config5], _ = long_histories("config5")
+    emit("fanout_synth", seconds=time.perf_counter() - t0)
+    emit("fanout_launches", **phase_fanout(dev, CasRegister(), witness,
+                                           set_hs, counter_hs, config5))
+
+
 def phase_mesh_alone(dev) -> None:
     """`--only mesh`: phase 29 on a north-star batch of its own, after
     B10's edges (the kernels' checks of the full run)."""
@@ -4936,6 +5198,8 @@ ONLY = {"segment": (("segment_scan", "segment_scan_profile"),
         "cluster": (("dense_scan", "mask_scan", "sort_scan",
                      "verdict_counts", *COUNT_LIBRARIES),
                     phase_cluster_alone),
+        "fanout": (("dense_scan", "mask_scan", "sort_scan", "segment_scan",
+                    *COUNT_LIBRARIES), phase_fanout_alone),
         "service_cluster": (("dense_scan", "mask_scan", "sort_scan",
                              "segment_scan", "cycle_closure"),
                             phase_service_cluster_alone),
@@ -7055,7 +7319,7 @@ def phase_harness(dev) -> dict:
 
 def run_phases(dev, model, ptxas: dict, histories: list,
                synth_s: float, search_twins) -> list:
-    """Phases 3-30 of the full run, on the kernels `main` built;
+    """Phases 3-30 (29c among them) of the full run, on the kernels `main` built;
     `histories`: the north-star batch (made in `synth_s` seconds, beside
     the build). The kernels' checks against their plain versions run in
     a second process on the card (`start_kernel_checks`) while this one
@@ -7311,6 +7575,12 @@ def run_phases(dev, model, ptxas: dict, histories: list,
     line.update(phase_mesh(dev, model, histories, fused_sort))
     errs.pop("verdict_counts_edges")  # on its own lines
     emit("mesh_summary", seconds=time.perf_counter() - t0)
+    # 29c: the local fan-out, against the one-card run of the same inputs
+    t0 = time.perf_counter()
+    fanout = phase_fanout(dev, model, histories[:WITNESS_ROWS], set_hs,
+                          suites["counter"][0][:FANOUT_COUNTER_ROWS],
+                          long["config5"])
+    emit("fanout_summary", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_cluster(dev, model)
     emit("cluster_summary", seconds=time.perf_counter() - t0)
@@ -7350,7 +7620,8 @@ def run_phases(dev, model, ptxas: dict, histories: list,
     # its line's launches beside those of its other paths
     for path, arms in (("service", service),
                        ("service_cluster", service_cluster),
-                       ("harness", harness), ("search", search)):
+                       ("harness", harness), ("search", search),
+                       ("fanout", {"fanout": fanout})):
         path_launches: dict = {}
         for counts in arms.values():
             for k, n in counts.items():
@@ -7461,9 +7732,11 @@ def main(argv=None) -> int:
     # measure the launches they always did (`autotune_main`,
     # `autotune_set`, `lin_fastpath` and the default arms of
     # `sequential_main` and `session_evidence` turn them on), and the
-    # store is a fresh directory of this run
+    # store is a fresh directory of this run. Every phase but `fanout`
+    # launches on one card (no local fan-out), as on a one-card host
     os.environ["JGRAFT_LIN_FASTPATH"] = "0"
     os.environ["JGRAFT_AUTOTUNE"] = "0"
+    os.environ["JGRAFT_GROUP_DEVICES"] = "0"
     store = Path(__file__).resolve().parent / "build" / "chip_smoke_store"
     shutil.rmtree(store, ignore_errors=True)
     store.mkdir(parents=True)

@@ -18,11 +18,13 @@ that absorbs a kernel's first load, on up to `sample_rows_cap` rows of
 the actual group, through the very launch path the plan will drive
 (`schedule.run_chunked` with ``record_stats=False``, timed by
 `time.perf_counter` around a run that ends in a flag read, so the card's
-work is inside the window). One process launches on one card and the
-port has no mesh placement, so `mesh_fanout` is always 1 (the reference
-at a single device). Every candidate is a launch shape of the same
-kernels, so verdicts are identical tuned or not. A sample runs on the
-check's own device (`device`).
+work is inside the window). `mesh_fanout` is the width of the local mesh
+a launch spreads its rows over (`parallel.mesh.chunk_sharding`; 1 on one
+card): the default plan takes the whole mesh, the candidates the
+reference's ladder at the mesh's width, and a sort rung's plan may fan
+it out (`sort_rung_sharding`). Every candidate is a launch shape of the
+same kernels, so verdicts are identical tuned or not. A sample runs on
+the check's own device (`device`), through the placement it names.
 
 The lin fast path's gate. The linearizable-rung pre-kernel certify pass
 (checker/linearizable `lin_fastpath_pass`) has a measured worst case — a
@@ -189,8 +191,9 @@ class TunedPlan:
                  wavefront driver).
     macro_p:     macro payload cap for pack_macro_batch; 0 = the legacy
                  one-event-per-step stream.
-    mesh_fanout: devices the launch fans out over; always 1 in the port
-                 (one process launches on one card).
+    mesh_fanout: placements the launch fans out over (outer-bounded by
+                 JGRAFT_GROUP_DEVICES inside chunk_sharding); 1 =
+                 one device.
     """
 
     family: str
@@ -201,12 +204,14 @@ class TunedPlan:
 
 def default_plan(family: str) -> TunedPlan:
     """Today's global defaults, as a plan — the baseline candidate
-    every measurement must beat."""
+    every measurement must beat; its fan-out the local mesh's width."""
+    from ..parallel.mesh import chunk_sharding
     from .schedule import scan_chunk
 
+    mesh = chunk_sharding()
     return TunedPlan(family=family, scan_chunk=scan_chunk(),
                      macro_p=MACRO_MAX_OPENS if macro_events_on() else 0,
-                     mesh_fanout=1)
+                     mesh_fanout=mesh.size if mesh is not None else 1)
 
 
 def bucket_signature(family: str, n_slots: int, n_states: int,
@@ -438,9 +443,17 @@ def _chunk_candidates(default_chunk: int, e_sched: int) -> List[int]:
 
 
 def _fanout_candidates() -> List[int]:
-    """Fan-out widths worth sampling: one card, the only width a process
-    of the port launches at."""
-    return [1]
+    """Fan-out widths worth sampling, the reference's: the full local
+    mesh, half of it (at least 2), 2 and 1 — [1] on one card."""
+    from ..parallel.mesh import chunk_sharding
+
+    mesh = chunk_sharding()
+    full = mesh.size if mesh is not None else 1
+    out = [full]
+    for n in (max(full // 2, 2), 2, 1):
+        if n < full and n not in out:
+            out.append(n)
+    return out
 
 
 def _macro_candidates() -> List[int]:
@@ -517,8 +530,10 @@ def _run_dense_sample(model, plan, sample: Sequence, val_of: np.ndarray,
                       cand: TunedPlan, *, device=None) -> float:
     """One timed sample run of a dense group candidate, through the
     launch path the plan will drive (run_chunked, stats suppressed),
-    on `device`."""
+    on `device` or the mesh its fan-out names (as
+    `schedule.build_dense_launches` places a tuned group)."""
     from ..ops.dense_scan import make_dense_chunk_checker
+    from ..parallel.mesh import chunk_sharding
     from .schedule import ChunkLaunch, run_chunked
 
     batch = pack_group(sample, cand)
@@ -530,8 +545,9 @@ def _run_dense_sample(model, plan, sample: Sequence, val_of: np.ndarray,
     launch = ChunkLaunch(
         events=batch["events"], n_events=batch["n_events"],
         init_fn=init_fn, step_fn=step_fn, val_of=val_of,
-        e_sched=e_sched, device=device, tag="autotune-sample",
-        chunk=chunk)
+        e_sched=e_sched,
+        device=chunk_sharding(cand.mesh_fanout, device=device) or device,
+        tag="autotune-sample", chunk=chunk)
     t0 = time.perf_counter()
     run_chunked([launch], chunk=chunk, record_stats=False)
     return time.perf_counter() - t0
@@ -541,7 +557,10 @@ def tuned_sort_plan(model, encs: Sequence, n_configs: int, n_slots: int,
                     *, device=None) -> Optional[TunedPlan]:
     """Sort-ladder twin of `tuned_group_plan` for one capacity rung; the
     rung's frontier capacity rides the signature's state slot (it picks
-    the kernel instance exactly like S does for the dense family)."""
+    the kernel instance exactly like S does for the dense family). As
+    the reference's, the rung's base plan pins `mesh_fanout=1` (an
+    untuned rung runs on one device), which makes fan-out the rung's
+    main candidate dimension."""
     if not autotune_on() or not encs:
         return None
     e_max = max(e.n_events for e in encs)
@@ -557,16 +576,21 @@ def tuned_sort_plan(model, encs: Sequence, n_configs: int, n_slots: int,
         return _run_sort_sample(model, n_configs, n_slots, sample, cand,
                                 device=device)
 
-    return resolve_plan(sig, _star_candidates(default_plan("sort"),
-                                              bucket_rows(e_max, 32)),
+    base = TunedPlan(**{**asdict(default_plan("sort")), "mesh_fanout": 1})
+    return resolve_plan(sig, _star_candidates(base, bucket_rows(e_max, 32)),
                         measure)
 
 
-def sort_rung_sharding(tuned: Optional[TunedPlan]):
-    """The sort rung's launch placement under a plan: always None (the
-    rung's own device), since the port does not fan a launch out over
-    several cards."""
-    return None
+def sort_rung_sharding(tuned: Optional[TunedPlan], device=None):
+    """The sort rung's launch placement under a plan, the reference's:
+    None (the rung's own device) without a plan or at fan-out ≤ 1, else
+    the capped local mesh (`chunk_sharding(tuned.mesh_fanout)`; `device`
+    the check's, as `chunk_sharding` takes it)."""
+    if tuned is None or tuned.mesh_fanout <= 1:
+        return None
+    from ..parallel.mesh import chunk_sharding
+
+    return chunk_sharding(tuned.mesh_fanout, device=device)
 
 
 def _run_sort_sample(model, n_configs: int, n_slots: int,
@@ -575,6 +599,8 @@ def _run_sort_sample(model, n_configs: int, n_slots: int,
     from ..ops.linear_scan import make_sort_chunk_checker
     from .schedule import ChunkLaunch, run_chunked
 
+    # the rung's placement under this candidate, as `_sort_pass` takes it
+    placement = sort_rung_sharding(cand, device=device) or device
     batch = pack_group(sample, cand)
     e_sched = bucket_rows(batch["events"].shape[1], 32)
     init_fn, step_fn = make_sort_chunk_checker(
@@ -583,7 +609,7 @@ def _run_sort_sample(model, n_configs: int, n_slots: int,
     launch = ChunkLaunch(
         events=batch["events"], n_events=batch["n_events"],
         init_fn=init_fn, step_fn=step_fn, e_sched=e_sched,
-        device=device, tag="autotune-sample", chunk=chunk)
+        device=placement, tag="autotune-sample", chunk=chunk)
     t0 = time.perf_counter()
     run_chunked([launch], chunk=chunk, record_stats=False)
     return time.perf_counter() - t0

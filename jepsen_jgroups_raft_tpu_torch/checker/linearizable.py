@@ -93,7 +93,7 @@ import torch
 from ..history.ops import History
 from ..history.packing import (EncodedHistory, bucket_rows, encode_history,
                                macro_events_on, pack_batch, pack_macro_batch)
-from ..ops.dense_scan import dense_plans_grouped
+from ..ops.dense_scan import MERGE_MAX_EVENTS, dense_plans_grouped
 from ..ops.kernel_ir import MASK_DENSE_MAX_SLOTS
 from ..ops.linear_scan import (DEFAULT_N_CONFIGS, MAX_SLOTS, bucket_slots,
                                make_sort_chunk_checker)
@@ -570,8 +570,12 @@ def _device_pass(encs, model, dev, n_configs=None, n_slots=None,
         elif e.n_slots <= cap:
             fits.append(i)
     if fits and n_configs is None and n_slots is None:
-        fits = _segment_pass(encs, model, dev, fits, results, note)
-        fits = _dense_pass(encs, model, dev, fits, results, note)
+        # the check's fan-out mesh (None: one device), chosen once
+        from ..parallel.mesh import chunk_sharding
+
+        mesh = chunk_sharding(device=dev)
+        fits = _segment_pass(encs, model, dev, fits, results, note, mesh)
+        fits = _dense_pass(encs, model, dev, fits, results, note, mesh)
     _sort_pass(encs, model, dev, fits, results, n_configs, n_slots, note)
     return results
 
@@ -588,7 +592,8 @@ def _segment_routing_on(n_long: int, dev) -> bool:
         n_long <= SEGMENT_MAX_LONG_ROWS
 
 
-def _segment_pass(encs, model, dev, fits, results, note: bool) -> list:
+def _segment_pass(encs, model, dev, fits, results, note: bool,
+                  mesh=None) -> list:
     """Long histories first: the rows of at least LONG_HISTORY_MIN_EVENTS
     events go to the segmented scan when `_segment_routing_on` says so.
     Fills `results` for the rows it decides (``"kernel": "dense-seg"``,
@@ -599,7 +604,7 @@ def _segment_pass(encs, model, dev, fits, results, note: bool) -> list:
         return fits
     t0 = time.perf_counter()
     seg = check_segmented_batch([encs[i] for i in long_idx], model,
-                                device=dev)
+                                device=dev, mesh=mesh)
     dt = time.perf_counter() - t0
     n_done = sum(1 for r in seg if r is not None)
     for j, i in enumerate(long_idx):
@@ -611,14 +616,19 @@ def _segment_pass(encs, model, dev, fits, results, note: bool) -> list:
     return [i for i in fits if results[i] is None]
 
 
-def _dense_pass(encs, model, dev, fits, results, note: bool) -> list:
+def _dense_pass(encs, model, dev, fits, results, note: bool,
+                mesh=None) -> list:
     """Run every dense-eligible history of `fits` through its group's
     CUDA kernel, domain or mask (or the kernel's plain version on a CPU
     device): through the chunked wavefront (`run_chunked`, rows stamped
     ``"chunked": True``) when `scan_chunk()` > 0, each group under its
     launch plan where `autotune.tuned_group_plan` gives one, else the
-    one-shot launches (`run_dense_groups`). Fills `results` for them;
-    returns the rows beyond both kinds' caps."""
+    one-shot launches (`run_dense_groups`). Either way a group's rows
+    spread over the check's fan-out `mesh` (`build_dense_launches`
+    places the wavefront's by the same rule, a tuned fan-out capping
+    it), but for an exact-row LONG group; a failed launch on any
+    placement raises.
+    Fills `results` for them; returns the rows beyond both kinds' caps."""
     if not fits:
         return fits
     grouped, rest = dense_plans_grouped(model, [encs[i] for i in fits])
@@ -652,13 +662,18 @@ def _dense_pass(encs, model, dev, fits, results, note: bool) -> list:
                 r["chunked"] = True
                 results[i] = r
         return rest
+    # the one-shot groups spread over the mesh as the wavefront's do (an
+    # exact-row LONG group stays on `dev`); the launches take their rows
+    # from the host, shard by shard
     launches = [DenseLaunch(
-        events=torch.from_numpy(batch["events"]).to(dev),  # lint: allow(host-sync) the group's inputs go up once (pageable)
-        val_of=torch.from_numpy(plan.val_of).to(dev),  # lint: allow(host-sync) the group's inputs go up once (pageable)
-        n_events=torch.from_numpy(batch["n_events"]).to(dev),  # lint: allow(host-sync) the group's inputs go up once (pageable)
+        events=torch.from_numpy(batch["events"]),
+        val_of=torch.from_numpy(plan.val_of),
+        n_events=torch.from_numpy(batch["n_events"]),
         n_slots=plan.n_slots, macro_p=batch.get("macro_p"),
-        tag=plan.kernel_tag, kind=plan.kind)
-        for _, plan, batch, _ in triples]
+        tag=plan.kernel_tag, kind=plan.kind,
+        mesh=mesh if mesh is not None and batch.get(
+            "legacy_events", batch["events"].shape[1]) <= MERGE_MAX_EVENTS
+        else dev) for _, plan, batch, _ in triples]
     run = run_dense_groups(launches, model)
     dt = run.wall_s / max(sum(len(t[0]) for t in triples), 1)
     for (sub, _, _, _), ok, ln in zip(triples, run.ok, launches):
@@ -703,7 +718,8 @@ def _sort_pass(encs, model, dev, rows, results, n_configs=None,
             [out] = run_chunked([ChunkLaunch(
                 events=batch["events"], n_events=batch["n_events"],
                 init_fn=init_fn, step_fn=step_fn, e_sched=e_sched,
-                device=autotune.sort_rung_sharding(tuned) or dev, tag="sort",
+                device=autotune.sort_rung_sharding(tuned, device=dev) or dev,
+                tag="sort",
                 chunk=(tuned.scan_chunk or max(e_sched, 1))
                 if tuned is not None else None)])
             ok, overflow = out.ok, out.overflow

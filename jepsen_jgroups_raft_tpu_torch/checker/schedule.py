@@ -15,19 +15,31 @@ first boundary where a row can retire (`_span_chunks`). Verdicts equal
 the one-shot scan's by construction: a decided row's (ok, overflow) is
 frozen, an exhausted row has only EV_PAD rows left.
 
-What differs from the reference on one card: no mesh placement, no
-`chunk_sharding`, no host routing of small groups (TPU-specific); each
-group's events go to the device once and every chunk is a column slice
-of them there; each group runs on a side stream of its own, and a
-collect waits on an event recorded on that stream after the flags' copy
-(never on the whole device), then reads the four [B] flag vectors. The
-first launch runs at the batch's own row count (the reference pads it
-to the row bucket for its compile cache); recompaction follows the
-reference's bucket series.
+Placement follows the reference's: a group stays whole and spreads its
+rows over the local mesh (`parallel.mesh.chunk_sharding`; one card, or
+JGRAFT_GROUP_DEVICES=0, keeps it on the process's device). Each
+placement takes a contiguous row shard (`ops.kernel_ir.
+shard_chunk_fns`): its events go to that device once and every chunk is
+a column slice of them there; each shard runs on a side stream of its
+own, and a collect waits on an event recorded on that stream after the
+flags' copy (never on a whole device), then reads the four flag
+vectors. The span is chosen once for the group, so every shard launches
+it and the counters are the one-device run's. What differs from the
+reference: no host routing of small groups (TPU-specific); the first
+launch runs at the shard's own row count (the reference pads the batch
+to its row bucket, a multiple of the mesh, for its compile cache), and
+recompaction follows the reference's bucket series per shard, on the
+shard's own device (the reference rebalances the survivors over the
+mesh; here no carry crosses placements).
 
 `run_dense_groups` and `run_sort_rung` are the one-shot path
-(`JGRAFT_SCAN_CHUNK=0`): every group's kernel launched at once on side
-streams, or one rung of the sort ladder, then one synchronisation.
+(`JGRAFT_SCAN_CHUNK=0`): every group's kernel launched at once, or one
+rung of the sort ladder, then each shard's flags read after its own
+event. Every launch path goes through one helper,
+`ops.kernel_ir.over_shards`: a launch a placement over its contiguous
+rows (one device: one launch over every row), everything of it queued
+on the shard's side stream, the flags joined in row order and the
+counts summed on the host.
 `launch_dense_groups` is the launch half of `run_dense_groups`, which
 `parallel.mesh.check_batch_sharded` finalizes later (``defer=True``).
 
@@ -51,7 +63,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -60,6 +72,8 @@ import torch
 from ..history.packing import bucket_rows
 from ..ops.dense_scan import (dense_scan, dense_scan_launcher, mask_scan,
                               mask_scan_launcher)
+from ..ops.kernel_ir import (ChunkShard, ShardOut, join_rows, over_shards,
+                             shard_chunk_fns, shard_rows)
 from ..ops.linear_scan import sort_scan, sort_scan_launcher
 from ..platform import env_int, resolve_device
 
@@ -208,10 +222,56 @@ def consume_tiers() -> dict:
 # ------------------------------------------------------------- launches
 
 
+def _placements(device) -> tuple:
+    """The devices a launch's rows spread over: a mesh's placements
+    (`parallel.mesh.Mesh`), else the one device `resolve_device` gives;
+    a card named without its index gets the current one's."""
+    devices = getattr(device, "devices", None)
+    if devices is None:
+        devices = (resolve_device(device),)
+    return tuple(torch.device("cuda", torch.cuda.current_device())
+                 if d.type == "cuda" and d.index is None else d
+                 for d in devices)
+
+
+def _launch_devices(mesh, rows) -> tuple:
+    """The placements a launch's rows spread over: a mesh's (one or
+    several), else the one device the rows lie on."""
+    return _placements(mesh) if mesh is not None else (rows.device,)
+
+
+def _timed_launch(launch, stream, marks: Optional[list]) -> None:
+    """launch(stream), bracketed by two CUDA events appended to `marks`
+    with the stream's card, (start, end, device), when it is a list (a
+    timed run)."""
+    if marks is None:
+        launch(stream)
+        return
+    a, b = _timer(), _timer()
+    a.record(stream)
+    launch(stream)
+    b.record(stream)
+    marks.append((a, b, stream.device))
+
+
+def _span_ms(marks) -> Optional[float]:
+    """The kernel span of (start, end, device) marks: per card from the
+    earliest start to the latest end, the longest card's; None when
+    there are none (untimed, or nothing on a card)."""
+    by_dev: dict = {}
+    for a, b, dev in marks:
+        by_dev.setdefault(dev, []).append((a, b))
+    spans = []
+    for pairs in by_dev.values():
+        ref = pairs[0][0]
+        spans.append(max(ref.elapsed_time(b) for _, b in pairs)
+                     - min(ref.elapsed_time(a) for a, _ in pairs))
+    return max(spans) if spans else None
+
+
 @dataclass
 class DenseLaunch:
-    """One window group ready for a dense kernel, its tensors already on
-    the launch device.
+    """One window group ready for a dense kernel.
 
     events [B, E, R] int32, val_of [B, S] int32 (a [B, 1] dummy for mask
     groups, which the mask kernel does not read), n_events [B] int32
@@ -220,7 +280,9 @@ class DenseLaunch:
     kernel label for results, kind the plan's kind: "domain"
     (`dense_scan`) or "mask" (`mask_scan`), model the group's own model
     where it differs from the run's (one launch can then mix groups of
-    several models)."""
+    several models). The tensors lie on the launch device, or, with a
+    `mesh` (a `parallel.mesh.Mesh`, or one device), anywhere: the rows
+    are then cut into contiguous shards, one launch a placement."""
 
     events: torch.Tensor
     val_of: torch.Tensor
@@ -230,6 +292,7 @@ class DenseLaunch:
     tag: str = "dense"
     kind: str = "domain"
     model: Optional[object] = None
+    mesh: Optional[object] = None
 
     def scan(self, model, counts: bool = False):
         """The group's verdicts through its kernel's wrapper; with
@@ -258,10 +321,11 @@ class DenseLaunch:
 class GroupRun:
     """Verdicts of `run_dense_groups`: ok[k] is launch k's [B] bool
     array. When timed (card only), kernel_ms[k] is launch k's kernel time
-    on its own stream and span_ms the check's kernel span, from before
-    the first launch to the end of the last kernel, by CUDA events. With
-    counts, counts[k] is launch k's int64 (n_valid, n_unknown), B10's
-    counts from the same kernel launch."""
+    on its own stream (summed over its shards) and span_ms the check's
+    kernel span, from before the first launch to the end of the last, by
+    CUDA events (over several cards, the longest card's). With counts,
+    counts[k] is launch k's int64 (n_valid, n_unknown), B10's counts from
+    the same kernel launch (summed over its shards on the host)."""
 
     ok: List[np.ndarray]
     wall_s: float
@@ -278,81 +342,72 @@ def launch_dense_groups(launches: List[DenseLaunch], model,
                         timed: bool = False,
                         counts: bool = False) -> Callable[[], GroupRun]:
     """Launch every group's kernel (domain or mask, by `kind`) and return
-    finalize() -> GroupRun, which blocks once and reads the verdicts. On
-    the card every group is checked and allocated first, then the kernels
-    launch back to back, each on its own side stream: a side stream
-    first waits for the current stream (which carried the inputs'
-    host-to-device copies and allocated the outputs), copies its
-    verdicts to pinned host memory after its kernel, and records an
-    event; every tensor a side stream touches is recorded on it.
-    finalize blocks on those events, never on the whole device, and the
-    current stream never waits for a side stream, so the copies of a
-    check launched after this one overlap this one's kernels. `counts`
+    finalize() -> GroupRun, which blocks once and reads the verdicts.
+    Each group is a launch a placement of its mesh over its contiguous
+    rows (`kernel_ir.shard_rows`), or without a mesh one on its rows'
+    device. On the card each shard has a side stream of its own, which
+    first waits for its card's current stream (which carried the
+    caller's earlier work): the shard's row copies, the launcher's
+    checks, allocations and fills (`ChunkShard.call`), then the kernel,
+    the copy of its verdicts to pinned host memory and an event
+    (`ChunkShard.launch`) are all queued on it; every group's shards are
+    prepared before the first kernel, so the kernels launch back to back
+    and overlap. finalize blocks on those events, never on a whole device, and no
+    current stream waits for a side stream, so the copies of a check
+    launched after this one overlap this one's kernels. `counts`
     launches each group's counting instance instead (B10's counts in
     dense mode, every row real, from the kernel's epilogue), and copies
-    its counts to pinned memory beside its verdicts. `timed` adds CUDA
-    events (card only) for per-group kernel times and the overlapped
-    span, from before the first launch to the end of the last kernel."""
+    its counts home beside its verdicts; a sharded group's counts are
+    its shards' summed. `timed` brackets each kernel with CUDA events
+    (card only) for per-group kernel times and the overlapped span, from
+    the first kernel's start to the last one's end. A launch that fails
+    on any placement raises."""
     t0 = time.perf_counter()
-    on_card = any(ln.events.device.type == "cuda" for ln in launches)
-    timed = timed and on_card
-    marks, start, dones = [], None, []
-    if not on_card:
-        outs = [ln.scan(model, counts=counts) for ln in launches]
-        host_ok = [o[0] for o in outs] if counts else outs
-        host_counts = [o[1] for o in outs] if counts else []
-    else:
-        dev = launches[0].events.device
-        main = torch.cuda.current_stream(dev)
-        # PyTorch hands out its pooled streams round-robin, so these are
-        # distinct for up to 32 groups
-        sides = [torch.cuda.Stream(device=dev) for _ in launches]
-        ready = [ln.launcher(model, counts=counts) for ln in launches]
-        oks = [r[0] for r in ready]
-        tally = [r[1] for r in ready] if counts else []
-        host_ok = [torch.empty(ok.shape, dtype=torch.bool, pin_memory=True)
-                   for ok in oks]
-        host_counts = [torch.empty((2,), dtype=torch.int64, pin_memory=True)
-                       for _ in tally]
-        if timed:
-            start = _timer()
-            marks = [(_timer(), _timer()) for _ in launches]
-            start.record(main)
-        for k, (r, side) in enumerate(zip(ready, sides)):
-            side.wait_stream(main)
-            if timed:
-                marks[k][0].record(side)
-            r[-1](side)
-            if timed:
-                marks[k][1].record(side)
-            with torch.cuda.stream(side):
-                host_ok[k].copy_(oks[k], non_blocking=True)
-                if counts:
-                    host_counts[k].copy_(tally[k], non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(side)
-            dones.append(done)
-        for k, (ln, side) in enumerate(zip(launches, sides)):
-            touched = [ln.events, ln.val_of, ln.n_events, oks[k]]
-            if counts:
-                touched.append(tally[k])
-            for t in touched:
-                if t is not None:
-                    t.record_stream(side)
+    marks: List[list] = [[] for _ in launches]
+
+    def prepare(ln: DenseLaunch):
+        # the launcher's checks and allocations (the CPU: the plain scan)
+        def fn(events, val_of, n_events):
+            part = replace(ln, events=events, val_of=val_of,
+                           n_events=n_events, mesh=None)
+            if events.device.type != "cuda":
+                out = part.scan(model, counts=counts)
+                return (out if counts else (out,)), None
+            *outs, launch = part.launcher(model, counts=counts)
+            return tuple(outs), launch
+        return fn
+
+    def fire(ms: list):
+        def fn(ready):
+            outs, launch = ready
+            if launch is not None:
+                _timed_launch(launch,
+                              torch.cuda.current_stream(outs[0].device),
+                              ms if timed else None)
+            return outs
+        return fn
+
+    # every group's shards placed, checked and allocated first, then the
+    # kernels launched back to back, so the groups overlap on the card
+    ready = [[(s, s.call(prepare(ln), *parts)) for s, parts in
+              shard_rows(_launch_devices(ln.mesh, ln.events), ln.events,
+                         ln.val_of, ln.n_events)] for ln in launches]
+    runs = [[(s, s.launch(fire(ms), r)) for s, r in grp]
+            for grp, ms in zip(ready, marks)]
 
     def finalize() -> GroupRun:
-        for done in dones:
-            done.synchronize()  # lint: allow(host-sync) the groups' flags, once a batch
+        homes = [join_rows(r, sums=(1,)) for r in runs]
         wall = time.perf_counter() - t0
         _add_stats(rows_run=sum(int(ln.events.shape[0]) for ln in launches),
                    wall_s=wall)
+        on_card = any(marks)
         return GroupRun(
-            ok=[o.numpy() for o in host_ok], wall_s=wall,
-            kernel_ms=[s.elapsed_time(e) for s, e in marks]
-            if timed else None,
-            span_ms=max(start.elapsed_time(e) for _, e in marks)
-            if timed else None,
-            counts=[c.numpy() for c in host_counts] if counts else None)
+            ok=[h[0] for h in homes], wall_s=wall,
+            kernel_ms=[sum(a.elapsed_time(b) for a, b, _ in ms)
+                       for ms in marks] if on_card else None,
+            span_ms=_span_ms([m for ms in marks for m in ms])
+            if on_card else None,
+            counts=[h[1] for h in homes] if counts else None)
 
     return finalize
 
@@ -368,7 +423,7 @@ def run_dense_groups(launches: List[DenseLaunch], model,
 class SortRun:
     """Flags of `run_sort_rung`: ok [B] and overflow [B] bool arrays.
     When timed (card only), kernel_ms is the kernel's time by CUDA
-    events."""
+    events (summed over the shards of a mesh)."""
 
     ok: np.ndarray
     overflow: np.ndarray
@@ -378,34 +433,33 @@ class SortRun:
 
 def run_sort_rung(events, n_events, n_slots: int, n_configs: int,
                   macro_p: Optional[int], model,
-                  timed: bool = False) -> SortRun:
+                  timed: bool = False, mesh=None) -> SortRun:
     """One rung of the sort ladder: the sort kernel at capacity
-    `n_configs` over the rows `events` [B, E, R] (on the launch device),
-    then one synchronisation to read the flags. `timed` brackets the
-    launch with CUDA events (card only)."""
+    `n_configs` over the rows `events` [B, E, R], one
+    `kernel_ir.over_shards` launch — a launch a placement of `mesh` over
+    its contiguous rows (`events` and `n_events` anywhere), or without
+    a mesh one on the rows' device — then each shard's flags read once,
+    after its own event. `timed` brackets each kernel with CUDA events
+    (card only)."""
     t0 = time.perf_counter()
-    kernel_ms = None
-    if events.device.type != "cuda":
-        ok, overflow = sort_scan(events, n_slots, n_configs, macro_p,
-                                 n_events, model=model)
-    else:
-        stream = torch.cuda.current_stream(events.device)
+    marks: Optional[list] = [] if timed else None
+
+    def fn(ev, ne):
+        if ev.device.type != "cuda":
+            return sort_scan(ev, n_slots, n_configs, macro_p, ne,
+                             model=model)
         ok, overflow, launch = sort_scan_launcher(
-            events, n_slots, n_configs, macro_p, n_events, model=model)
-        marks = (_timer(), _timer()) if timed else None
-        if timed:
-            marks[0].record(stream)
-        launch(stream)
-        if timed:
-            marks[1].record(stream)
-        stream.synchronize()  # lint: allow(host-sync) the rung's flags decide its escalation
-        if timed:
-            kernel_ms = marks[0].elapsed_time(marks[1])
-    out_ok, out_of = ok.cpu().numpy(), overflow.cpu().numpy()  # lint: allow(host-sync) after the stream's sync: a copy, no wait
+            ev, n_slots, n_configs, macro_p, ne, model=model)
+        _timed_launch(launch, torch.cuda.current_stream(ev.device), marks)
+        return ok, overflow
+
+    ok, overflow = join_rows(over_shards(_launch_devices(mesh, events), fn,
+                                         events, n_events))
     wall = time.perf_counter() - t0
     _add_stats(rows_run=int(events.shape[0]), wall_s=wall)
-    return SortRun(ok=out_ok, overflow=out_of, wall_s=wall,
-                   kernel_ms=kernel_ms)
+    return SortRun(ok=ok, overflow=overflow, wall_s=wall,
+                   kernel_ms=sum(a.elapsed_time(b) for a, b, _ in marks)
+                   if marks else None)
 
 
 # ------------------------------------------------------------- wavefront
@@ -422,11 +476,12 @@ class ChunkLaunch:
     init_fn(n_events)), val_of [B, S] the dense group's domain tables
     (None for the sort pair), e_sched the event length the schedule
     covers (the bucketed length the one-shot path would scan; default
-    E), device the torch device (None: the card, raising without one),
-    tag the kernel label for results. `exact_rows` (LONG merged groups)
-    keeps the rows in place: no recompaction. `chunk` pins this launch's
-    chunk (None: the run's); a whole-schedule value makes it one
-    launch."""
+    E), device the torch device (None: the card, raising without one)
+    or a `parallel.mesh.Mesh` whose placements the rows spread over
+    (`parallel.mesh.chunk_sharding`), tag the kernel label for results.
+    `exact_rows` (LONG merged groups) keeps the rows in place: no
+    recompaction. `chunk` pins this launch's chunk (None: the run's); a
+    whole-schedule value makes it one launch."""
 
     events: np.ndarray
     n_events: np.ndarray
@@ -443,10 +498,10 @@ class ChunkLaunch:
 @dataclass
 class GroupOutcome:
     """Per-group result of `run_chunked`; ok / overflow are [B] bool.
-    `chunks_run` counts launches (a span of chunks is one). kernel_ms
-    (timed runs on the card): the device time of the group's launches,
-    each from before its kernel to after its flags' copy, by CUDA events
-    on the group's stream, summed."""
+    `chunks_run` counts launches (a span of chunks is one, over every
+    shard of a mesh). kernel_ms (timed runs on the card): the device time
+    of the group's launches, each from before its kernel to after its
+    flags' copy, by CUDA events on each shard's stream, summed."""
 
     ok: np.ndarray
     overflow: np.ndarray
@@ -459,16 +514,27 @@ class GroupOutcome:
 
 
 @dataclass
+class _Shard:
+    """A group's rows on one placement: their events (copied once),
+    carry, slot map and pending launch, all on the shard's device."""
+
+    place: ChunkShard
+    events: torch.Tensor               # [rows, cols, R]
+    carry: torch.Tensor                # [rows, L]
+    slot_rows: np.ndarray              # [rows] group row id or -1
+    ev_base: int = 0                   # schedule column of events[:, 0]
+    live: bool = True                  # False once no row of it is left
+    pending: Optional[ShardOut] = None  # the launch in flight
+    marks: Optional[list] = None       # timed: (start, end) per launch
+
+
+@dataclass
 class _GroupState:
     launch: ChunkLaunch
     chunk: int                         # this group's resolved chunk size
     scheduled: int                     # chunk units the schedule covers
-    slot_rows: np.ndarray              # [rows] original row id or -1
-    dev: torch.device
-    stream: Optional[torch.cuda.Stream]
-    events: torch.Tensor               # [rows, cols, R] on dev
-    ev_base: int                       # schedule column of events[:, 0]
-    carry: torch.Tensor                # [rows, L] on dev
+    shards: List[_Shard]
+    step_shards: Callable
     ok: np.ndarray                     # [B] final verdicts
     overflow: np.ndarray
     recorded: np.ndarray               # [B] bool
@@ -479,9 +545,8 @@ class _GroupState:
     early_exit: bool = False
     t_start: float = 0.0
     wall_s: float = 0.0
-    pending: Optional[tuple] = None
+    pending: Optional[tuple] = None    # (dispatch time, span)
     intervals: List[tuple] = field(default_factory=list)
-    marks: Optional[list] = None       # timed: (start, end) per launch
 
 
 def build_dense_launches(model, groups, device=None):
@@ -495,10 +560,19 @@ def build_dense_launches(model, groups, device=None):
     whole-schedule span). Largest group first; the schedule covers the
     group's event length bucketed from 32 (`bucket_rows(E, 32)`), or
     exactly E past MERGE_MAX_EVENTS legacy events, where the rows also
-    stay in place (`exact_rows`) and a plan is ignored. Returns
-    (launches, subs): subs[k] the row ids behind launches[k]."""
-    from ..ops.dense_scan import MERGE_MAX_EVENTS, make_dense_chunk_checker
+    stay in place (`exact_rows`) and a plan is ignored.
 
+    Placement, as the reference's: each group stays whole, and every
+    non-`exact_rows` group spreads its rows over the local mesh
+    (`parallel.mesh.chunk_sharding`, or `chunk_sharding(tuned.
+    mesh_fanout)` under a plan; JGRAFT_GROUP_DEVICES stays the outer
+    bound); an `exact_rows` group, or any group when there is no mesh
+    (one card, the knob at 0), runs on `device`. Returns (launches,
+    subs): subs[k] the row ids behind launches[k]."""
+    from ..ops.dense_scan import MERGE_MAX_EVENTS, make_dense_chunk_checker
+    from ..parallel.mesh import chunk_sharding
+
+    mesh = chunk_sharding(device=device)
     launches: list = []
     subs: list = []
     for grp in sorted(groups, key=lambda g: -len(g[0])):
@@ -507,13 +581,20 @@ def build_dense_launches(model, groups, device=None):
         e_len = batch["events"].shape[1]
         exact = batch.get("legacy_events", e_len) > MERGE_MAX_EVENTS
         e_sched = e_len if exact else bucket_rows(e_len, 32)
+        if exact:
+            placement = device
+        elif tuned is not None and tuned.mesh_fanout > 0:
+            placement = chunk_sharding(tuned.mesh_fanout,
+                                       device=device) or device
+        else:
+            placement = mesh or device
         init_fn, step_fn = make_dense_chunk_checker(
             model, plan.kind, plan.n_slots, plan.n_states,
             macro_p=batch.get("macro_p"))
         launches.append(ChunkLaunch(
             events=batch["events"], n_events=batch["n_events"],
             init_fn=init_fn, step_fn=step_fn, val_of=plan.val_of,
-            e_sched=e_sched, device=device, tag=plan.kernel_tag,
+            e_sched=e_sched, device=placement, tag=plan.kernel_tag,
             exact_rows=exact,
             chunk=(tuned.scan_chunk or max(e_sched, 1))
             if tuned is not None and not exact else None))
@@ -521,55 +602,47 @@ def build_dense_launches(model, groups, device=None):
     return launches, subs
 
 
-def _on(stream):
-    return torch.cuda.stream(stream) if stream is not None \
-        else contextlib.nullcontext()
-
-
 def _init_group(launch: ChunkLaunch, chunk: int,
                 timed: bool) -> _GroupState:
-    """The group's tensors on its device (events copied once), its fresh
-    carry, and on a card its side stream, which first waits for the
-    current stream."""
+    """The group's rows cut into one shard a placement
+    (`kernel_ir.shard_chunk_fns`; one shard on a single device), each
+    shard's events copied to its device once and its fresh carry made
+    there, on a card on the shard's own stream, which first waits for
+    its card's current stream."""
     chunk = launch.chunk or chunk
     B, E = launch.events.shape[0], launch.events.shape[1]
     e_sched = max(launch.e_sched or E, E, 1)
     e_pad = -(-e_sched // chunk) * chunk
-    dev = resolve_device(launch.device)
-    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    init_shards, step_shards = shard_chunk_fns(
+        launch.init_fn, launch.step_fn, _placements(launch.device))
     t0 = time.perf_counter()
-    with _on(stream):
-        if stream is not None:
-            stream.wait_stream(torch.cuda.current_stream(dev))
-        events = torch.from_numpy(
-            np.ascontiguousarray(launch.events, dtype=np.int32)).to(dev)  # lint: allow(host-sync) the group's inputs go up once (pageable)
-        ne = torch.from_numpy(
-            np.ascontiguousarray(launch.n_events, dtype=np.int32)).to(dev)  # lint: allow(host-sync) the group's inputs go up once (pageable)
-        if launch.val_of is not None:
-            vo = torch.from_numpy(np.ascontiguousarray(
-                launch.val_of, dtype=np.int32)).to(dev)  # lint: allow(host-sync) the group's inputs go up once (pageable)
-            carry = launch.init_fn(vo, ne)
-        else:
-            carry = launch.init_fn(ne)
+    args = [np.ascontiguousarray(a, dtype=np.int32) for a in
+            ((launch.n_events,) if launch.val_of is None
+             else (launch.val_of, launch.n_events))]
+    places, carries = init_shards(*args)
+    events = np.ascontiguousarray(launch.events, dtype=np.int32)
+    shards = [_Shard(place=p, events=p.put(events), carry=c,
+                     slot_rows=np.arange(p.lo, p.hi, dtype=np.int32),
+                     marks=[] if timed and p.stream is not None else None)
+              for p, c in zip(places, carries)]
     return _GroupState(
         launch=launch, chunk=chunk, scheduled=e_pad // chunk,
-        slot_rows=np.arange(B, dtype=np.int32), dev=dev, stream=stream,
-        events=events, ev_base=0, carry=carry,
+        shards=shards, step_shards=step_shards,
         ok=np.zeros((B,), dtype=bool), overflow=np.zeros((B,), dtype=bool),
-        recorded=np.zeros((B,), dtype=bool), t_start=t0,
-        marks=[] if timed and stream is not None else None)
+        recorded=np.zeros((B,), dtype=bool), t_start=t0)
 
 
 def _span_chunks(g: _GroupState) -> int:
     """How many chunks the next launch covers, as the reference's: no
     live row can exhaust before min(live n_events) (host data), so the
     launch runs to the first boundary where one can retire, rounded down
-    to a power-of-two multiple of the chunk. A row decided inside a span
-    is recorded at its end: its verdict is frozen, only its eviction
-    waits."""
+    to a power-of-two multiple of the chunk. Chosen once for the whole
+    group, over every shard's live rows (a row not yet recorded is live:
+    every evicted row was recorded first), so each shard launches the
+    same span. A row decided inside a span is recorded at its end: its
+    verdict is frozen, only its eviction waits."""
     chunk = g.chunk
-    live = g.slot_rows[g.slot_rows >= 0]
-    live = live[~g.recorded[live]]
+    live = np.flatnonzero(~g.recorded)
     lo = g.cursor * chunk
     first = int(g.launch.n_events[live].min()) if live.size else 0
     p = max(1, -(-(first - lo) // chunk))  # ceil, ≥1 once overdue
@@ -578,66 +651,69 @@ def _span_chunks(g: _GroupState) -> int:
 
 
 def _dispatch(g: _GroupState) -> None:
-    """Launch the group's next span on its stream, then queue the copy
-    of its four flag vectors to the host and an event after it."""
+    """Launch the group's next span on every shard with rows left, each
+    on its own stream, which then copies the shard's four flag vectors
+    to the host and records an event (`ChunkShard.launch`)."""
     span = _span_chunks(g)
     lo, width = g.cursor * g.chunk, span * g.chunk
-    ev = g.events[:, lo - g.ev_base:lo - g.ev_base + width]
+    active = [s for s in g.shards if s.live]
     t0 = time.perf_counter()
-    with _on(g.stream):
-        if g.marks is not None:
-            g.marks.append((_timer(), None))
-            g.marks[-1][0].record(g.stream)
-        carry, *flags = g.launch.step_fn(g.carry, ev, width)
-        if g.stream is None:
-            host, done = torch.stack(flags), None
-        else:
-            flags = torch.stack(flags)
-            host = torch.empty(flags.shape, dtype=torch.bool,
-                               pin_memory=True)
-            host.copy_(flags, non_blocking=True)
-            done = torch.cuda.Event(enable_timing=g.marks is not None)
-            done.record(g.stream)
-            if g.marks is not None:
-                g.marks[-1] = (g.marks[-1][0], done)
-    g.pending = (t0, span, carry, host, done)
+    outs = g.step_shards(
+        [s.place for s in active], [s.carry for s in active],
+        [s.events[:, lo - s.ev_base:lo - s.ev_base + width] for s in active],
+        width, home=lambda out: (torch.stack(out[1:]),),
+        timed=any(s.marks is not None for s in active))
+    for s, out in zip(active, outs):
+        s.pending = out
+        if s.marks is not None:
+            s.marks.append((out.start, out.done))
+    g.pending = (t0, span)
 
 
 def _collect(g: _GroupState) -> None:
-    """Wait for the pending launch's flags, record finished rows, evict,
-    and recompact the survivors when they fit a smaller row bucket."""
-    t_disp, span, carry, host, done = g.pending
+    """Wait for every shard's pending flags, record finished rows, evict,
+    and recompact each shard's survivors, on its own device, when they
+    fit a smaller row bucket (no carry crosses placements)."""
+    t_disp, span = g.pending
     g.pending = None
-    g.carry = carry
-    if done is not None:
-        done.synchronize()  # lint: allow(host-sync) the per-launch flag read; the wavefront decides on it (this group's stream only)
-    decided, exhausted, ok, overflow = host.numpy()
+    active = [s for s in g.shards if s.pending is not None]
+    flags = [s.pending.wait()[0] for s in active]
     g.intervals.append((t_disp, time.perf_counter()))
     g.cursor += span
     g.launches_run += 1
 
-    real = g.slot_rows >= 0
-    finished = (decided | exhausted) & real
-    rows = g.slot_rows[finished]
-    fresh = rows[~g.recorded[rows]]
-    if fresh.size:
-        pos = np.flatnonzero(finished)[~g.recorded[rows]]
-        g.ok[fresh] = ok[pos]
-        g.overflow[fresh] = overflow[pos]
-        g.recorded[fresh] = True
-        if g.cursor < g.scheduled:
-            g.evicted += int(fresh.size)
+    survivors = []
+    for s, (decided, exhausted, ok, overflow) in zip(active, flags):
+        s.carry = s.pending.out[0]
+        s.pending = None
+        real = s.slot_rows >= 0
+        finished = (decided | exhausted) & real
+        rows = s.slot_rows[finished]
+        fresh = rows[~g.recorded[rows]]
+        if fresh.size:
+            pos = np.flatnonzero(finished)[~g.recorded[rows]]
+            g.ok[fresh] = ok[pos]
+            g.overflow[fresh] = overflow[pos]
+            g.recorded[fresh] = True
+            if g.cursor < g.scheduled:
+                g.evicted += int(fresh.size)
+        alive = np.flatnonzero(real & ~(decided | exhausted))
+        alive = alive[~g.recorded[s.slot_rows[alive]]]
+        if alive.size:
+            survivors.append((s, alive, ok, overflow))
+        else:
+            s.live = False
+            s.events = s.carry = None
 
-    alive = np.flatnonzero(real & ~(decided | exhausted))
-    alive = alive[~g.recorded[g.slot_rows[alive]]]
-    if alive.size == 0 or g.cursor >= g.scheduled:
+    if not survivors or g.cursor >= g.scheduled:
         # every row's events fit the schedule, so a row still live at
         # its end cannot happen; were it to, its verdict is the
         # one-shot's (only EV_PAD rows remain)
-        for p in alive:
-            r = g.slot_rows[p]
-            g.ok[r], g.overflow[r] = ok[p], overflow[p]
-            g.recorded[r] = True
+        for s, alive, ok, overflow in survivors:
+            for p in alive:
+                r = s.slot_rows[p]
+                g.ok[r], g.overflow[r] = ok[p], overflow[p]
+                g.recorded[r] = True
         g.done = True
         g.early_exit = g.cursor < g.scheduled
         g.wall_s = time.perf_counter() - g.t_start
@@ -645,19 +721,21 @@ def _collect(g: _GroupState) -> None:
 
     if g.launch.exact_rows:
         return
-    bucket = bucket_rows(int(alive.size))
-    if bucket < g.slot_rows.shape[0]:
+    lo = g.cursor * g.chunk
+    for s, alive, _, _ in survivors:
+        bucket = bucket_rows(int(alive.size))
+        if bucket >= s.slot_rows.shape[0]:
+            continue
         # pad slots repeat the first survivor (their flags are never read)
         idx = np.concatenate([alive, np.full(bucket - alive.size, alive[0])])
-        lo = g.cursor * g.chunk
-        with _on(g.stream):
-            idx_t = torch.from_numpy(idx.astype(np.int64)).to(g.dev)  # lint: allow(host-sync) the survivors' row index, once a recompaction
-            g.carry = g.carry.index_select(0, idx_t)
-            g.events = g.events[:, lo - g.ev_base:].index_select(0, idx_t)
-        g.ev_base = lo
+        with s.place.scope():
+            idx_t = torch.from_numpy(idx.astype(np.int64)).to(s.place.device)  # lint: allow(host-sync) the survivors' row index, once a recompaction
+            s.carry = s.carry.index_select(0, idx_t)
+            s.events = s.events[:, lo - s.ev_base:].index_select(0, idx_t)
+        s.ev_base = lo
         new_rows = np.full((bucket,), -1, dtype=np.int32)
-        new_rows[:alive.size] = g.slot_rows[alive]
-        g.slot_rows = new_rows
+        new_rows[:alive.size] = s.slot_rows[alive]
+        s.slot_rows = new_rows
 
 
 def _overlap_seconds(intervals: List[tuple]) -> float:
@@ -679,12 +757,16 @@ def run_chunked(launches: List[ChunkLaunch],
                 timer: Optional[dict] = None) -> List[GroupOutcome]:
     """Run window groups through the chunked wavefront; one GroupOutcome
     per launch, in order. Every group's first span is dispatched before
-    any flags are read; then each collect refills its group's stream
+    any flags are read; then each collect refills its group's streams
     before the next group is collected. A launch's own `chunk` overrides
     the run's (`scan_chunk()` by default); a run needs a positive chunk.
-    `record_stats=False` keeps the run out of the counters. `timer` (a
-    dict, card only) gets "span_ms": from the start of the first launch
-    to the end of the last, by CUDA events, and each outcome its
+    A launch on a mesh stays one group: its counters (`chunks_run`, one
+    a span over all shards; `evicted_rows`, `groups_run`,
+    `groups_early_exited`) are the one-device run's. A launch that fails
+    on any placement raises. `record_stats=False` keeps the run out of
+    the counters. `timer` (a dict, card only) gets "span_ms": from the
+    start of the first launch to the end of the last, by CUDA events
+    (over several cards, the longest card's), and each outcome its
     kernel_ms."""
     chunk = scan_chunk() if chunk is None else chunk
     if chunk <= 0 and not (launches and all(ln.chunk for ln in launches)):
@@ -692,14 +774,15 @@ def run_chunked(launches: List[ChunkLaunch],
                          "(JGRAFT_SCAN_CHUNK=0 selects the one-shot path "
                          "at the call site; ChunkLaunch.chunk may stand in "
                          "per launch)")
-    start = None
-    if timer is not None and launches:
-        dev = resolve_device(launches[0].device)
-        if dev.type == "cuda":
-            start = _timer()
-            start.record(torch.cuda.current_stream(dev))
+    starts: dict = {}
+    if timer is not None:
+        for ln in launches:
+            for dev in _placements(ln.device):
+                if dev.type == "cuda" and dev not in starts:
+                    starts[dev] = _timer()
+                    starts[dev].record(torch.cuda.current_stream(dev))
     t0 = time.perf_counter()
-    groups = [_init_group(ln, chunk, start is not None) for ln in launches]
+    groups = [_init_group(ln, chunk, bool(starts)) for ln in launches]
     for g in groups:
         _dispatch(g)
     while True:
@@ -710,12 +793,18 @@ def run_chunked(launches: List[ChunkLaunch],
             _collect(g)
             if not g.done:
                 _dispatch(g)
-    if start is not None:
-        # from the first launch to the end of the last (the groups'
-        # event copies, before their first launch, are not in it)
-        timer["span_ms"] = (
-            max(start.elapsed_time(g.marks[-1][1]) for g in groups)
-            - min(start.elapsed_time(g.marks[0][0]) for g in groups))
+    if starts:
+        # per card, from the first launch to the end of the last (the
+        # groups' event copies, before their first launch, are not in
+        # it); the longest card's
+        spans = []
+        for dev, start in starts.items():
+            marks = [m for g in groups for s in g.shards
+                     if s.marks and s.place.device == dev for m in s.marks]
+            if marks:
+                spans.append(max(start.elapsed_time(e) for _, e in marks)
+                             - min(start.elapsed_time(b) for b, _ in marks))
+        timer["span_ms"] = max(spans) if spans else 0.0
     if record_stats:
         _add_stats(chunks_run=sum(g.launches_run for g in groups),
                    evicted_rows=sum(g.evicted for g in groups),
@@ -730,8 +819,10 @@ def run_chunked(launches: List[ChunkLaunch],
     return [GroupOutcome(ok=g.ok, overflow=g.overflow, wall_s=g.wall_s,
                          chunks_run=g.launches_run, evicted_rows=g.evicted,
                          early_exit=g.early_exit, tag=g.launch.tag,
-                         kernel_ms=(sum(a.elapsed_time(b) for a, b in g.marks)
-                                    if g.marks is not None else None))
+                         kernel_ms=(sum(a.elapsed_time(b)
+                                        for s in g.shards if s.marks
+                                        for a, b in s.marks)
+                                    if starts else None))
             for g in groups]
 
 

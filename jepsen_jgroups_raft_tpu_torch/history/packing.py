@@ -517,14 +517,25 @@ def pack_macro_batch(
     }
 
 
-def shard_bounds(n_rows: int, n_shards: int, index: int) -> tuple:
+def shard_bounds(n_rows: int, n_shards: int, index: int,
+                 granularity: int = 1) -> tuple:
     """Contiguous [lo, hi) row range of shard `index` out of `n_shards`
-    over `n_rows` rows: the balanced cuts ``i·n_rows // n_shards``, the
-    reference's `parallel.distributed.shard_bounds` at granularity 1.
-    Shards can be empty; callers tolerate a zero-row shard."""
+    over `n_rows` rows, the reference's `parallel.distributed.
+    shard_bounds`: the balanced cuts ``i·n_rows // n_shards`` rounded
+    down to a multiple of `granularity` (the last cut stays `n_rows`),
+    so with granularity the width of a process's local mesh every
+    non-final shard splits evenly over its placements. Shards can be
+    empty; callers tolerate a zero-row shard."""
     if not 0 <= index < n_shards:
         raise ValueError(f"shard index {index} out of range {n_shards}")
-    return index * n_rows // n_shards, (index + 1) * n_rows // n_shards
+    g = max(1, int(granularity))
+
+    def cut(i: int) -> int:
+        if i >= n_shards:
+            return n_rows
+        return min(n_rows, (i * n_rows // n_shards) // g * g)
+
+    return cut(index), cut(index + 1)
 
 
 def _shard_slice(n_encs: int, process_index: int, process_count: int,

@@ -90,6 +90,7 @@ KNOB_CLASS: Dict[str, str] = {
     "JGRAFT_ENCODE_VECTOR": ROUTING,
     "JGRAFT_GREEDY_BACKTRACK": ROUTING,
     "JGRAFT_GREEDY_CERTIFY": ROUTING,
+    "JGRAFT_GROUP_DEVICES": ROUTING,
     "JGRAFT_LIN_FASTPATH": ROUTING,
     "JGRAFT_LIN_FASTPATH_ABORT": ROUTING,
     "JGRAFT_LIN_FASTPATH_MIN_HIT": ROUTING,

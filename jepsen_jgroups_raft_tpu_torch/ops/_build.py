@@ -259,6 +259,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def call_on_card(entry, *args) -> int:
+    """entry(*args) for a library's launch entry point, which selects its
+    card with cudaSetDevice and leaves it selected, then the calling
+    thread's current card restored: a launch on another placement must
+    not move a later allocation or stream lookup of this thread there."""
+    import torch
+
+    prev = torch.cuda.current_device()
+    try:
+        return entry(*args)
+    finally:
+        torch.cuda.set_device(prev)
+
+
 def error_string(name: str, rc: int) -> str:
     """Readable form of entry point `name`'s return code (its library's
     `<library>_error_string` entry): a CUDA error's text, or the

@@ -316,8 +316,8 @@ def cycle_closure_bits(bits, n_nodes: int, tile: Optional[int] = None,
         args = (out.data_ptr(), has.data_ptr(), B, n, _kernel_tile(n, tile))
     if B:
         lib = _build.load("cycle_closure")
-        rc = getattr(lib, f"{name}_launch")(*args, _device_index(dev),
-                                            stream.cuda_stream)
+        rc = _build.call_on_card(getattr(lib, f"{name}_launch"), *args,
+                                 _device_index(dev), stream.cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{name} kernel launch failed: "
                                f"{_build.error_string('cycle_closure', rc)}")

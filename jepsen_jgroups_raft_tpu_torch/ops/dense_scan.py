@@ -894,7 +894,8 @@ def _call_launch(name: str, lib, tensors, sizes, stream) -> None:
     """Call library `name`'s C launch entry point on the tensors'
     addresses (None: a null pointer), the sizes and the stream; raise on
     a refused or failed launch."""
-    rc = getattr(lib, f"{name}_launch")(
+    rc = _build.call_on_card(
+        getattr(lib, f"{name}_launch"),
         *(ctypes.c_void_p(None if t is None else t.data_ptr())
           for t in tensors), *sizes, ctypes.c_void_p(stream.cuda_stream))
     if rc != 0:

@@ -136,7 +136,8 @@ def _prepare(obs, valid_len, form):
 
 
 def _launch(args, stream) -> None:
-    rc = _build.load("election_safety").election_safety_launch(
+    rc = _build.call_on_card(
+        _build.load("election_safety").election_safety_launch,
         *args[:-1], stream.cuda_stream)
     if rc != 0:
         raise RuntimeError("election_safety kernel launch failed: "

@@ -33,21 +33,30 @@ holds the scan state's fields at the offsets of a `CarryLayout` (the
 kernels read and write the same layout), the four scalars first
 (`CARRY_HEAD`). Rows are independent, so the wavefront's recompaction
 is one `index_select` over the carry. `chunk_scan` is the plain loop
-of the contract. The reference's `shard_chunk_fns` (kernel_ir.py:346),
-the chunk pair under `shard_map` over a mesh, has no counterpart: a
-chunk launch is one launch a process on one card, and spreading its
-rows over several local GPUs is a later item (ROADMAP, local multi-GPU
-fan-out).
+of the contract.
+
+Row shards: every launch of the port, on one device or over a mesh's
+placements, goes through `over_shards` — the rows cut into contiguous
+`ChunkShard`s (`row_shards`), each shard's rows put on its placement,
+fn run and its outputs copied home on the shard's own stream
+(`ChunkShard.launch`), and `join_rows` joining them in row order after
+each shard's own event. `shard_chunk_fns`, the counterpart of the
+reference's (kernel_ir.py:346: the chunk pair under `shard_map` over a
+mesh), runs a chunk pair that way, each shard's carry kept on its
+placement.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
-from ..history.packing import EV_FORCE, EV_OPEN, EV_PAD, MACRO_MAX_OPENS
+from ..history.packing import (EV_FORCE, EV_OPEN, EV_PAD, MACRO_MAX_OPENS,
+                               shard_bounds)
 
 # --------------------------------------------------------------- caps
 
@@ -303,6 +312,185 @@ def chunk_scan(step: Callable, state, events, left,
         state = step(state, torch.where((e < left)[:, None], rows,
                                         torch.full_like(rows, EV_PAD)))
     return state, left - width
+
+
+# ------------------------------------------------------- row shards
+
+
+@dataclass
+class ShardOut:
+    """One shard's launch (`ChunkShard.launch`): fn's outputs on the
+    shard's device, the host copies of the tensors `home` picked (pinned
+    memory on a card, the tensors themselves on the CPU), the event
+    after those copies (None on the CPU or with nothing to copy) and,
+    timed, the event before fn."""
+
+    out: object
+    host: tuple
+    done: Optional[torch.cuda.Event] = None
+    start: Optional[torch.cuda.Event] = None
+
+    def wait(self) -> tuple:
+        """The host copies as numpy arrays, after this shard's event
+        alone (never the whole device)."""
+        if self.done is not None:
+            self.done.synchronize()  # lint: allow(host-sync) a shard's outputs come home (its own stream's event)
+        return tuple(t.numpy() for t in self.host)
+
+
+@dataclass
+class ChunkShard:
+    """One placement's contiguous rows [lo, hi) of a launch: its device
+    and, on a card, a stream of its own, which waited for the
+    placement's current stream when it was made. Everything of the
+    launch — its rows' copies, the launcher's allocations and fills, the
+    kernel, the copies home — is queued on that stream (`scope`)."""
+
+    lo: int
+    hi: int
+    device: torch.device
+    stream: Optional[torch.cuda.Stream] = None
+
+    def scope(self):
+        """The shard's stream as the current one (a no-op on the CPU)."""
+        return (torch.cuda.stream(self.stream) if self.stream is not None
+                else contextlib.nullcontext())
+
+    def put(self, rows) -> Optional[torch.Tensor]:
+        """Rows [lo, hi) of a batch-leading numpy array or tensor (None
+        passes through), on the shard's device, copied on its stream; a
+        tensor already there is recorded on the stream."""
+        if rows is None:
+            return None
+        part = rows[self.lo:self.hi]
+        if not isinstance(part, torch.Tensor):
+            part = torch.from_numpy(np.ascontiguousarray(part))
+        with self.scope():
+            part = part.to(self.device)  # lint: allow(host-sync) a shard's rows go up once (pageable)
+        if self.stream is not None:
+            part.record_stream(self.stream)
+        return part
+
+    def call(self, fn: Callable, *args):
+        """fn(*args) under the shard's scope (a launcher's checks and
+        allocations, queued on the shard's stream)."""
+        with self.scope():
+            return fn(*args)
+
+    def launch(self, fn: Callable, *parts, home: Optional[Callable] = None,
+               timed: bool = False) -> ShardOut:
+        """fn(*parts) under the shard's scope, then on the same stream
+        the tensors `home(out)` picks (default: every output) copied to
+        pinned host memory and an event recorded after them. `timed`
+        (card) records an event before fn as well, and makes the last
+        one a timing event."""
+        with self.scope():
+            start = None
+            if timed and self.stream is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            out = fn(*parts)
+            picked = out if home is None else home(out)
+            picked = (picked,) if isinstance(picked, torch.Tensor) \
+                else tuple(picked)
+            if self.stream is None or not picked:
+                return ShardOut(out, picked, None, start)
+            host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=True) for t in picked)
+            for h, t in zip(host, picked):
+                h.copy_(t, non_blocking=True)
+            done = torch.cuda.Event(enable_timing=timed)
+            done.record()
+            return ShardOut(out, host, done, start)
+
+
+def row_shards(devices: Sequence, n_rows: int) -> list:
+    """The `ChunkShard`s of `n_rows` rows over `devices` (a mesh's
+    placements, in order, or one device): shard i takes the contiguous
+    cut `shard_bounds(n_rows, len(devices), i)`; a shard with no rows is
+    left out (it launches nothing), but for an empty batch, which is one
+    empty shard on the first device, as one device runs it."""
+    devices = [torch.device(d) for d in devices]
+    devices = [torch.device("cuda", torch.cuda.current_device())
+               if d.type == "cuda" and d.index is None else d
+               for d in devices]
+    out = []
+    for i, dev in enumerate(devices):
+        lo, hi = shard_bounds(n_rows, len(devices), i)
+        if hi == lo and (n_rows or i):
+            continue
+        stream = None
+        if dev.type == "cuda":
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        out.append(ChunkShard(lo, hi, dev, stream))
+    return out
+
+
+def shard_rows(devices: Sequence, *arrays) -> list:
+    """[(shard, parts)]: the rows of `arrays` (batch-leading numpy
+    arrays or tensors, the first giving the row count; None passes
+    through) cut into `row_shards` of `devices`, each shard's parts put
+    on its placement."""
+    return [(s, [s.put(a) for a in arrays])
+            for s in row_shards(devices, int(arrays[0].shape[0]))]
+
+
+def over_shards(devices: Sequence, fn: Callable, *arrays,
+                home: Optional[Callable] = None,
+                timed: bool = False) -> list:
+    """One launch of fn a placement over its rows (`shard_rows`), each
+    `ChunkShard.launch`ed with `home` and `timed`. Returns [(shard,
+    ShardOut)] in row order. One device is one shard over every row;
+    nothing crosses placements; a failure on any placement raises."""
+    return [(s, s.launch(fn, *parts, home=home, timed=timed))
+            for s, parts in shard_rows(devices, *arrays)]
+
+
+def join_rows(runs: Sequence, sums: Sequence[int] = ()) -> tuple:
+    """The host outputs of `over_shards`' runs, each shard waited for on
+    its own event: output k concatenated in row order, or, for k in
+    `sums` (the counts), summed over the shards (the reference's
+    `psum`)."""
+    homes = [o.wait() for _, o in runs]
+    return tuple(sum(h[k] for h in homes) if k in sums
+                 else np.concatenate([h[k] for h in homes])
+                 for k in range(len(homes[0])))
+
+
+def shard_chunk_fns(init_fn: Callable, step_fn: Callable, mesh):
+    """The counterpart of the reference's `shard_chunk_fns` (kernel_ir.
+    py:346, the chunk pair under `shard_map` over the batch axis): a
+    chunk pair (init_fn, step_fn) run over a mesh's placements, each
+    contiguous row shard on its own placement and stream. Returns
+    (init_shards, step_shards):
+
+      init_shards(*args) -> (shards, carries): `over_shards` of init_fn
+          over the args' rows (batch-leading numpy arrays or tensors:
+          the init pair's val_of and n_events, or n_events), the carries
+          kept on the shards' devices;
+      step_shards(shards, carries, events, width=None, home=None,
+          timed=False) -> one `ShardOut` a shard: step_fn(carry,
+          events[i], width) launched on the shard's stream
+          (`ChunkShard.launch`; `home` picks the outputs copied to the
+          host there: the wavefront's flags).
+
+    `mesh` is a `parallel.mesh.Mesh`, its tuple of placements, or one
+    device's. Nothing crosses placements: each shard's carry and flags
+    stay on its own device. A failure on any placement raises."""
+    devices = tuple(getattr(mesh, "devices", mesh))
+
+    def init_shards(*args):
+        runs = over_shards(devices, init_fn, *args,
+                           home=lambda carry: ())
+        return [s for s, _ in runs], [o.out for _, o in runs]
+
+    def step_shards(shards, carries, events, width=None, home=None,
+                    timed=False):
+        return [s.launch(step_fn, carry, ev, width, home=home, timed=timed)
+                for s, carry, ev in zip(shards, carries, events)]
+
+    return init_shards, step_shards
 
 
 # ------------------------------------------------------- cycle closure

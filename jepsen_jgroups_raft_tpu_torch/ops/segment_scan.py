@@ -37,10 +37,12 @@ This module holds:
     holds the kernel to on the card.
 
 The reference shards the segment axis over its device mesh
-(`jepsen_jgroups_raft_tpu/ops/segment_scan.py:397`); here the mesh is
-one launch a process on one card: all segments of a batch go to one
-launch on the process's device. Spreading the segments over several
-local GPUs is a later item (ROADMAP, local multi-GPU fan-out). Where
+(`jepsen_jgroups_raft_tpu/ops/segment_scan.py:397`); here the segments
+of a batch go to one launch on the process's device, or, when the check
+fans out (the mesh its caller passes, `parallel.mesh.chunk_sharding`),
+to one launch a placement over a contiguous block of segments, the
+blocks' final tables joined in segment order before the host composes
+them. Where
 the reference asks whether its backend is a TPU, the port reads the
 device: a CPU device keeps `CPU_STEP_CELL_BUDGET` (so CPU runs plan
 exactly what the reference plans on its CPU backend), a CUDA device
@@ -63,7 +65,8 @@ from . import _build
 from .dense_scan import (_call_launch, _check_int32, _device_index,
                          _pad_domains, dense_layout, dense_sweep_fn)
 from .kernel_ir import (DENSE_MAX_CELLS, DENSE_MAX_SLOTS, DENSE_MAX_STATES,
-                        closure_fixpoint, force_arith, make_stream_step)
+                        closure_fixpoint, force_arith, join_rows,
+                        make_stream_step, over_shards)
 
 #: Segment the stream only when it is long enough to be worth the basis
 #: overhead; shorter histories take the plain dense kernel.
@@ -371,9 +374,13 @@ def compose_segment_tables(batch: SegmentBatch, F: np.ndarray) -> list:
 def check_segmented_batch(encs: Sequence[EncodedHistory], model,
                           block_events: int = DEFAULT_BLOCK_EVENTS,
                           min_events: int = LONG_HISTORY_MIN_EVENTS,
-                          device=None, stats: Optional[dict] = None) -> list:
+                          device=None, stats: Optional[dict] = None,
+                          mesh=None) -> list:
     """Batch form: all eligible histories' segments go to ONE kernel
-    launch (the segment axis is the batch axis). Returns a result dict
+    launch on `device` (the segment axis is the batch axis), or, with the
+    check's fan-out `mesh` (a `parallel.mesh.Mesh` of `device`'s kind,
+    `parallel.mesh.chunk_sharding`), one launch a placement
+    (`_segment_tables`). Returns a result dict
     per history, or None per history that should take the monolithic
     path. `stats`, when given, accumulates the host and kernel seconds:
     "plan_s" (planning and layout), "kernel_s" (the launch, tables back
@@ -386,15 +393,29 @@ def check_segmented_batch(encs: Sequence[EncodedHistory], model,
     if batch is None:
         _tally(stats, plan_s=t1 - t0)
         return results
-    # every segment of the batch in one launch on the card
-    ev, vo, sm, st, ne = batch.tensors(dev)
-    F = segment_scan(ev, vo, sm, st, batch.W, ne, model).cpu().numpy()  # lint: allow(host-sync) the final frontiers the host composes
+    F = _segment_tables(batch, model,
+                        mesh.devices if mesh is not None else (dev,))
     t2 = time.perf_counter()
     for i, r in zip(batch.live, compose_segment_tables(batch, F)):
         results[i] = r
     _tally(stats, plan_s=t1 - t0, kernel_s=t2 - t1,
            compose_s=time.perf_counter() - t2)
     return results
+
+
+def _segment_tables(batch: SegmentBatch, model, devices) -> np.ndarray:
+    """The final tables F [K, NB, 2^W, S] of every segment of `batch`,
+    in segment order, on the host: one B6 launch a placement of
+    `devices` over a contiguous block of segments, each on its own
+    stream (`kernel_ir.over_shards`; one device is one launch over every
+    segment), the blocks' tables joined in segment order, as the
+    reference shards the segment axis over its mesh."""
+    def launch(ev, vo, sm, st, ne):
+        return segment_scan(ev, vo, sm, st, batch.W, ne, model)
+
+    return join_rows(over_shards(devices, launch, batch.events,
+                                 batch.val_of, batch.seed_mask,
+                                 batch.seed_state, batch.n_events))[0]
 
 
 def _tally(stats: Optional[dict], **kw) -> None:

@@ -128,7 +128,8 @@ def _launch(ok, overflow, real, out, B: int, mode: int, index: int,
             stream: int) -> None:
     """Call the C entry point on the tensors' addresses (they outlive the
     call in the caller's hands) and count the launch, or raise."""
-    rc = _build.load("verdict_counts").verdict_counts_launch(
+    rc = _build.call_on_card(
+        _build.load("verdict_counts").verdict_counts_launch,
         ok.data_ptr(), overflow.data_ptr(), real.data_ptr(), out.data_ptr(),
         B, mode, index, stream)
     if rc != 0:

@@ -34,9 +34,14 @@ with torchrun's environment. Four layers, smallest dependency first:
 
 * **Global counts** — `check_batch_global`: per-process packing
   (`history.packing.pack_*_batch_shard`), the dense or mask kernel on
-  the rank's own device, which counts B10's verdict counts in the same
-  launch, and one ``all_reduce``
-  of the two counts — the reference's global-mesh ``psum``.
+  the rank's own device or its local mesh, which counts B10's verdict
+  counts in the same launch, and one ``all_reduce`` of the two counts —
+  the reference's global-mesh ``psum``.
+
+Inside a process, launches fan out over its local mesh (`mesh.
+chunk_sharding`: this rank's cards, `mesh.local_cards`); the cross-
+process cuts are rounded to its width (`placement_granularity`), and
+`global_mesh` lists every process's placements in rank order.
 """
 
 from __future__ import annotations
@@ -183,7 +188,7 @@ def maybe_init_distributed(device=None) -> bool:
         return False
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    _STATE.update(store=store, device=dev, backend=backend)
+    _STATE.update(store=store, device=dev, backend=backend, env=env)
     return True
 
 
@@ -237,10 +242,64 @@ def rank_device() -> torch.device:
     return dev
 
 
+def local_rank_world() -> Optional[Tuple[int, int]]:
+    """(LOCAL_RANK, LOCAL_WORLD_SIZE) of this process while a process
+    group is up (from torchrun's environment), else None: what
+    `mesh.local_cards` picks this rank's cards by."""
+    if not is_initialized():
+        return None
+    env = _STATE.get("env") or parse_cluster_env()
+    return None if env is None else (env.local_rank, env.local_world_size)
+
+
 def wavefront_active() -> bool:
     """Whether the checker runs the sharded wavefront: a multi-process
     group is up and the env gate allows it."""
     return distributed_enabled() and process_count() > 1
+
+
+# --------------------------------------------------------------- sharding
+
+
+def placement_granularity() -> int:
+    """Row granularity of the cross-process split: the width of this
+    process's local mesh (`mesh.chunk_sharding`, the same quantity that
+    bounds the autotuner's `mesh_fanout`), so each process's shard
+    splits evenly over its placements; 1 when fan-out is off or the
+    process has one device. Every rank of a host owns as many cards
+    (`mesh.local_cards`), so the ranks agree on it."""
+    from .mesh import chunk_sharding
+
+    mesh = chunk_sharding(device=_STATE.get("device"))
+    return mesh.size if mesh is not None else 1
+
+
+def global_mesh() -> List[Tuple[int, torch.device]]:
+    """Every process's local placements, in rank order, as (rank,
+    device) pairs: each process's fan-out mesh (`mesh.chunk_sharding`,
+    or its one device), gathered through the store (`exchange_i64`), so
+    every process of a cluster gets the same list. Outside a cluster,
+    this process's alone (no wire). The counterpart of the reference's
+    `global_mesh`, whose devices every process addresses; here a
+    process launches only on its own."""
+    from .mesh import chunk_sharding, local_devices
+
+    dev = _STATE.get("device")  # the rank's device, inside a cluster
+    mesh = chunk_sharding(device=dev)
+    if mesh is not None:
+        mine = mesh.devices
+    elif dev is not None:
+        mine = (dev,)
+    else:
+        mine = local_devices()[:1] or (rank_device(),)
+    if process_count() <= 1:
+        return [(0, d) for d in mine]
+    codes = [(-1 if d.type == "cpu" else d.index) for d in mine]
+    out = []
+    for rank, got in enumerate(exchange_i64(codes, tag="mesh")):
+        out.extend((rank, torch.device("cpu") if c < 0
+                    else torch.device("cuda", int(c))) for c in got)
+    return out
 
 
 # --------------------------------------------------------------- exchange
@@ -377,7 +436,8 @@ def _detail_exchange(model, algorithm: str):
 
 
 def run_sharded(encs: Sequence, check_local: Callable[[list], List[dict]],
-                model=None, algorithm: str = "auto") -> List[dict]:
+                model=None, algorithm: str = "auto", *,
+                granularity: Optional[int] = None) -> List[dict]:
     """The distributed wavefront driver: check only this process's row
     shard through `check_local` (the ordinary single-process pass), then
     exchange the per-row verdict codes so every process returns the
@@ -396,12 +456,15 @@ def run_sharded(encs: Sequence, check_local: Callable[[list], List[dict]],
     store refuses degraded ones) leaves that row's stub, never an error.
 
     Every process must call with the same batch (same rows, same order).
-    The cuts are the reference's at granularity 1: a process launches on
-    one device, so no fan-out asks for aligned shards."""
+    The cuts are the reference's: rounded down to a multiple of
+    `granularity` (default `placement_granularity`, the width of the
+    local mesh), so each process's shard splits evenly over the
+    placements it fans its launches out over."""
     n, pid = process_count(), process_index()
     if n <= 1:
         return check_local(list(encs))
-    lo, hi = shard_bounds(len(encs), n, pid)
+    g = placement_granularity() if granularity is None else granularity
+    lo, hi = shard_bounds(len(encs), n, pid, g)
     local = check_local(list(encs[lo:hi]))
     store, key_fn = _detail_exchange(model, algorithm)
     if store is not None:
@@ -411,7 +474,7 @@ def run_sharded(encs: Sequence, check_local: Callable[[list], List[dict]],
     codes = exchange_i64([_verdict_code(r) for r in local])
     results: List[dict] = []
     for p in range(n):
-        plo, phi = shard_bounds(len(encs), n, p)
+        plo, phi = shard_bounds(len(encs), n, p, g)
         if p == pid:
             results.extend(local)
             continue
@@ -478,9 +541,10 @@ def check_batch_global(model, encs: Sequence) -> Tuple[int, int]:
     """One dense check of a batch spread over every process: each process
     packs and fills only its row shard (`pack_batch_shard` /
     `pack_macro_batch_shard` at batch-global shapes, the batch padded to
-    a multiple of the world with EV_PAD rows that `real` masks out), runs
-    the dense or mask kernel on its device, which counts B10's counts in
-    the same launch (`mesh.sharded_dense_checker`), and one
+    a multiple of the world times `placement_granularity` with EV_PAD
+    rows that `real` masks out), runs the dense or mask kernel on its
+    device, or one launch a placement of its local mesh, which counts
+    B10's counts in the same launch (`mesh.sharded_dense_checker`), and one
     ``all_reduce(SUM)`` sums the two counts — on the device tensor under
     nccl, on the host under gloo. Returns the global (n_valid, n_unknown), equal on every
     process. Needs `collectives_supported()` and a dense-eligible batch.
@@ -492,7 +556,7 @@ def check_batch_global(model, encs: Sequence) -> Tuple[int, int]:
     from ..history.packing import (macro_events_on, pack_batch_shard,
                                    pack_macro_batch_shard)
     from ..ops.dense_scan import dense_plan
-    from .mesh import make_mesh, sharded_dense_checker
+    from .mesh import chunk_sharding, make_mesh, sharded_dense_checker
 
     if not collectives_supported():
         raise RuntimeError("collectives unsupported (no process group, or "
@@ -504,9 +568,12 @@ def check_batch_global(model, encs: Sequence) -> Tuple[int, int]:
         raise ValueError("check_batch_global needs a dense-eligible batch "
                          "(run_sharded handles the general routing)")
     n, pid = process_count(), process_index()
+    g = placement_granularity()
     B = len(encs)
-    B_pad = -(-B // n) * n
-    lo, hi = shard_bounds(B_pad, n, pid)
+    # every shard a multiple of the local mesh's width: the cuts at
+    # granularity g are then the packers' balanced ones
+    B_pad = -(-B // (n * g)) * (n * g)
+    lo, hi = shard_bounds(B_pad, n, pid, g)
     pack = pack_macro_batch_shard if macro_events_on() else pack_batch_shard
     batch = pack(encs, pid, n, n_rows=B_pad)
     val_of = np.zeros((hi - lo,) + plan.val_of.shape[1:],
@@ -516,10 +583,13 @@ def check_batch_global(model, encs: Sequence) -> Tuple[int, int]:
     val_of[:n_real] = plan.val_of[lo:lo + n_real]
     val_of[n_real:] = plan.val_of[:1]
     real[:n_real] = True
-    mesh = make_mesh()
-    dev = mesh.device
-    fn = sharded_dense_checker(model, mesh, plan.kind, plan.n_slots,
-                               plan.n_states, macro_p=batch.get("macro_p"))
+    # the shard fans out over the local mesh (its placements take their
+    # rows from the host), else one launch on this process's device
+    mesh = chunk_sharding(device=rank_device())
+    dev = torch.device("cpu") if mesh is not None else rank_device()
+    fn = sharded_dense_checker(model, mesh or make_mesh(), plan.kind,
+                               plan.n_slots, plan.n_states,
+                               macro_p=batch.get("macro_p"))
     _, _, n_valid, n_unknown = fn(torch.from_numpy(batch["events"]).to(dev),  # lint: allow(host-sync) the shard's inputs go up once (pageable)
                                   torch.from_numpy(val_of).to(dev),  # lint: allow(host-sync) the shard's inputs go up once (pageable)
                                   torch.from_numpy(real).to(dev))  # lint: allow(host-sync) the shard's inputs go up once (pageable)

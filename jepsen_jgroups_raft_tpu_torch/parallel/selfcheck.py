@@ -22,7 +22,8 @@ DIR` it checks the batch once more (the first `--macro` value and
 rank shares, so the other ranks' rows come back as their owners' full
 results (the detail exchange of `run_sharded`). The last line is
 ``SELFCHECK {json}``: the verdicts, the kernel tags of the rank's rows
-and the counts, and under ``store`` the store arm's verdicts, kernel
+and the counts, the rank's `placement_granularity` and the cluster's
+`global_mesh`, and under ``store`` the store arm's verdicts, kernel
 tags, rows read from the store and whole result list. Exit 0 iff the
 process group came up and every check
 returned; the process group is torn down (a barrier, then
@@ -115,6 +116,8 @@ def _run(args) -> dict:
                       args.wide, args.corrupt_every)
     out = {"rank": distributed.process_index(),
            "world": distributed.process_count(), "device": str(dev),
+           "granularity": distributed.placement_granularity(),
+           "global_mesh": [[r, str(d)] for r, d in distributed.global_mesh()],
            "checks": {}}
     t0 = time.perf_counter()
     for macro in args.macro.split(","):

@@ -9,6 +9,8 @@ platform.py`), copied so the port never imports it. What is new here:
     on the host behind the caller's back.
   * `toolchain_stamp` — the torch / CUDA / nvcc versions and the card's
     name and power limit, printed beside every number a chip run keeps.
+  * `pin_placements` — several placements of the CPU or of one card as
+    this process's local devices (tests, chip_smoke.py's fan-out phase).
 """
 
 from __future__ import annotations
@@ -101,6 +103,35 @@ def resolve_device(device=None):
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the host")
     return dev
+
+
+#: The local placements `pin_placements` set, or None: the host's cards.
+_PLACEMENTS: Optional[tuple] = None
+
+
+def pin_placements(n_placements: Optional[int], device="cpu") -> None:
+    """Make this process's local devices `n_placements` placements of
+    one `device` (the CPU by default, or one card, each placement of it
+    then launching on a stream of its own), or with None (or 0) go back
+    to the host's cards. The counterpart of the reference's
+    `platform.pin_cpu(n)`, which splits the host into virtual devices:
+    for tests, and for chip_smoke.py's fan-out phase on a one-card host.
+    It reads no environment; the default never repeats a card."""
+    import torch
+
+    global _PLACEMENTS
+    if not n_placements:
+        _PLACEMENTS = None
+        return
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    _PLACEMENTS = (dev,) * int(n_placements)
+
+
+def pinned_placements() -> Optional[tuple]:
+    """The placements `pin_placements` set, or None."""
+    return _PLACEMENTS
 
 
 def _run(cmd) -> Optional[str]:

@@ -36,6 +36,7 @@ from jepsen_jgroups_raft_tpu.checker.linearizable import \
 from jepsen_jgroups_raft_tpu.history.packing import \
     encode_history as ref_encode
 from jepsen_jgroups_raft_tpu.models import MODELS as REF_MODELS
+from jepsen_jgroups_raft_tpu_torch import platform
 from jepsen_jgroups_raft_tpu_torch.checker import autotune
 from jepsen_jgroups_raft_tpu_torch.checker.autotune import (
     TunedPlan, bucket_signature, default_plan, plan_for, resolve_plan,
@@ -148,15 +149,22 @@ def _captured(mod, monkeypatch):
     return seen
 
 
+@pytest.mark.parametrize("width", [1, 8], ids=["one-card", "8-placements"])
 @pytest.mark.parametrize("chunk", [None, "0", "64", "4096"])
 @pytest.mark.parametrize("macro", [None, "0"], ids=["macro", "legacy"])
-def test_candidates_equal_reference_at_one_card(chunk, macro, store,
+def test_candidates_equal_reference_at_one_card(chunk, macro, width, store,
                                                 monkeypatch):
     """The dense star (`_coordinate_candidates`) at several schedules and
     the sort rung's candidates (through `tuned_sort_plan`) equal the
-    reference's at one device, at several JGRAFT_SCAN_CHUNK values, both
-    macro settings."""
-    _one_card(monkeypatch)
+    reference's at one device (one card: the fan-out candidates are [1])
+    and at 8 (8 CPU placements against the reference's 8 devices), at
+    several JGRAFT_SCAN_CHUNK values, both macro settings."""
+    if width == 1:
+        _one_card(monkeypatch)
+    else:
+        # `platform.pin_placements(width)`, undone after the test
+        monkeypatch.setattr(platform, "_PLACEMENTS",
+                            (torch.device("cpu"),) * width)
     for name, v in (("JGRAFT_SCAN_CHUNK", chunk),
                     ("JGRAFT_MACRO_EVENTS", macro)):
         if v is None:
@@ -164,7 +172,7 @@ def test_candidates_equal_reference_at_one_card(chunk, macro, store,
         else:
             monkeypatch.setenv(name, v)
     assert autotune._fanout_candidates() == ref_at._fanout_candidates() \
-        == [1]
+        == ([1] if width == 1 else [8, 4, 2, 1])
     for fam in ("dense", "dense-mask"):
         assert asdict(default_plan(fam)) == asdict(ref_at.default_plan(fam))
         for e_sched in (32, 128, 192, 256, 1536, 8192):

@@ -40,7 +40,9 @@ def test_only_refuses_other_arguments(argv, capsys):
                                   ["--only", "mesh"], ["--only", "cluster"],
                                   ["--only", "mesh,cluster"],
                                   ["--only", "service_cluster"],
-                                  ["--only", "lint_contract"]])
+                                  ["--only", "lint_contract"],
+                                  ["--only", "fanout"],
+                                  ["--only", "mesh,fanout"]])
 def test_without_a_card_it_prints_no_result(argv, capsys):
     assert _chip_smoke().main(argv) == 2
     assert capsys.readouterr().out == ""
@@ -49,7 +51,7 @@ def test_without_a_card_it_prints_no_result(argv, capsys):
 def test_only_phases_build_known_libraries():
     only = _chip_smoke().ONLY
     assert set(only) == {"segment", "election", "mesh", "cluster",
-                         "service_cluster", "lint_contract"}
+                         "service_cluster", "lint_contract", "fanout"}
     for libs, fn in only.values():
         assert libs and callable(fn)
         for lib in libs:
@@ -71,6 +73,25 @@ def test_mesh_phases_build_b10():
         assert set(libs) == {"dense_scan", "mask_scan", "sort_scan",
                              "verdict_counts", "dense_scan_count",
                              "mask_scan_count"}
+
+
+def test_fanout_phase_builds_the_fanned_kernels():
+    """Phase 29c fans B1, B4 (and their counting instances), B5 and B6
+    out; its mesh is 4 placements: 4 cards, or the one card repeated
+    (beside 2 or 3 cards, those cards too)."""
+    smoke = _chip_smoke()
+    libs, fn = smoke.ONLY["fanout"]
+    assert set(libs) == {"dense_scan", "mask_scan", "sort_scan",
+                         "segment_scan", "dense_scan_count",
+                         "mask_scan_count"}
+    assert fn is smoke.phase_fanout_alone
+    for count, want in ((1, [("repeated", 4)]),
+                        (2, [("cards", 2), ("repeated", 4)]),
+                        (3, [("cards", 3), ("repeated", 4)]),
+                        (4, [("cards", 4)]), (8, [("cards", 4)])):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.cuda, "device_count", lambda: count)
+            assert smoke.fanout_modes() == want
 
 
 def test_lint_contract_builds_every_library_of_the_contract():

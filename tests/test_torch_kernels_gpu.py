@@ -2510,3 +2510,338 @@ def test_lint_contract_entries_within_the_card(cuda):
                     (lib, mangled)
                 n += 1
     assert n >= 60
+
+
+# ------------------------------------------------------ the local fan-out
+
+
+@pytest.fixture
+def fan(cuda, monkeypatch):
+    """fan(mode, fn): fn() with fan-out off (one card: the reference),
+    then with this process's launches fanned out over `mode`'s mesh —
+    "repeated": cuda:0 four times (`platform.pin_placements`), "cards":
+    every card (skipped below 2) — each checked to leave the current
+    card as it found it. Returns (one card's, the mesh's)."""
+    from jepsen_jgroups_raft_tpu_torch import platform
+    from jepsen_jgroups_raft_tpu_torch.parallel.mesh import chunk_sharding
+
+    def run(mode, fn):
+        if mode == "cards" and torch.cuda.device_count() < 2:
+            pytest.skip("needs 2 or more cards")
+        monkeypatch.setenv("JGRAFT_GROUP_DEVICES", "0")
+        assert chunk_sharding(device="cuda") is None
+        one = fn()
+        monkeypatch.delenv("JGRAFT_GROUP_DEVICES")
+        if mode == "repeated":
+            platform.pin_placements(4, "cuda:0")
+        mesh = chunk_sharding(device="cuda")
+        n = 4 if mode == "repeated" else torch.cuda.device_count()
+        assert mesh is not None and mesh.size == n
+        assert len(set(mesh.devices)) == (1 if mode == "repeated" else n)
+        before = torch.cuda.current_device()
+        spread = fn()
+        assert torch.cuda.current_device() == before
+        return one, spread
+
+    yield run
+    platform.pin_placements(None)
+
+
+def _no_time(rows):
+    return [{k: v for k, v in r.items() if k != "time-s"} for r in rows]
+
+
+@pytest.mark.parametrize("mode", ["repeated", "cards"])
+@pytest.mark.parametrize("chunk", [None, "0"], ids=["chunked", "one-shot"])
+@pytest.mark.parametrize("kind", ["register", "counter"])
+def test_fan_out_check_histories_equals_one_card(fan, mode, chunk, kind,
+                                                 monkeypatch):
+    """check_histories fanned out over the repeated card, and over the
+    host's cards, gives one card's result dicts (verdict, tier,
+    "chunked" stamp, kernel) and wavefront counters."""
+    if chunk is None:
+        monkeypatch.delenv("JGRAFT_SCAN_CHUNK", raising=False)
+    else:
+        monkeypatch.setenv("JGRAFT_SCAN_CHUNK", chunk)
+    model = {"register": CasRegister(), "counter": Counter()}[kind]
+    rng = random.Random(91)
+    hs = []
+    for i in range(40):
+        h = list(random_valid_history(rng, kind, n_ops=150, n_procs=5,
+                                      crash_p=0.05, max_crashes=3))
+        reads = [j for j, op in enumerate(h) if op.type == "ok"
+                 and op.f == "read" and op.value is not None]
+        if i % 3 == 0 and reads:
+            j = rng.choice(reads)
+            h[j] = h[j].replace(value=h[j].value + 10**6)
+        hs.append(h)
+    keys = ("chunks_run", "evicted_rows", "groups_run",
+            "groups_early_exited")
+
+    def run():
+        schedule.consume_stats()
+        rows = _no_time(check_histories(hs, model))
+        stats = schedule.consume_stats()
+        return rows, [stats[k] for k in keys]
+
+    one, spread = fan(mode, run)
+    assert spread == one
+    assert {r["valid?"] for r in one[0]} == {True, False}
+    assert (one[1][2] > 0) == (chunk is None)
+
+
+@pytest.mark.parametrize("busy", [False, True], ids=["idle", "busy"])
+@pytest.mark.parametrize("mode", ["repeated", "cards"])
+@pytest.mark.parametrize("arm", ["dense", "dense-defer", "ladder",
+                                 "set-ladder"])
+def test_fan_out_check_batch_sharded_equals_one_card(fan, mode, arm, busy,
+                                                     monkeypatch):
+    """`check_batch_sharded` over the mesh (`make_mesh(n_devices=...)`
+    of the local placements): the ladder (the set's reaching both B5
+    rungs), the dense arm (B1 and B4), deferred and not, give one card's
+    flags and counts. `busy` holds every card's current stream busy
+    (`torch.cuda._sleep`) right after the shards are made: everything of
+    a shard — row copies, the launcher's allocations and n_events fill,
+    the kernel, the flags' copy — is queued on its own stream, so work
+    wrongly left on the current stream would run after the kernel that
+    reads it."""
+    from jepsen_jgroups_raft_tpu_torch.ops import kernel_ir
+    from jepsen_jgroups_raft_tpu_torch.ops.dense_scan import dense_plan
+    from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import bucket_slots
+    from jepsen_jgroups_raft_tpu_torch.parallel.mesh import (
+        check_batch_sharded, chunk_sharding)
+
+    if busy:
+        real = kernel_ir.row_shards
+
+        def late(devices, n_rows):
+            shards = real(devices, n_rows)
+            for dev in {s.device for s in shards}:
+                with torch.cuda.device(dev):
+                    torch.cuda._sleep(200_000_000)  # ~0.1 s of its clock
+            return shards
+
+        monkeypatch.setattr(kernel_ir, "row_shards", late)
+
+    if arm == "set-ladder":
+        rng = random.Random(5)
+        model = GSet()
+        encs = [encode_history(random_valid_history(
+            rng, "set", n_ops=300, n_procs=5, crash_p=0.05, max_crashes=3,
+            value_range=32), model) for _ in range(48)]
+    else:
+        model, encs = _mesh_batch("counter" if arm == "dense" else
+                                  "register")
+    batch = (pack_macro_batch if arm.startswith("dense") else
+             pack_batch)(encs)
+    kw = {"macro_p": batch.get("macro_p")}
+    if arm.startswith("dense"):
+        kw.update(dense=dense_plan(model, encs), defer=arm == "dense-defer")
+    else:
+        kw["n_slots"] = bucket_slots(max(e.n_slots for e in encs))
+
+    def run():
+        mesh = chunk_sharding(device="cuda")
+        out = check_batch_sharded(model, batch["events"], mesh, **kw)
+        out = out() if kw.get("defer") else out
+        return [np.asarray(x).tolist() for x in out]
+
+    one, spread = fan(mode, run)
+    assert spread == one
+    assert one[2] > 0
+
+
+@pytest.mark.parametrize("mode", ["repeated", "cards"])
+def test_fan_out_segmented_batch_equals_one_card(fan, mode):
+    """The segment axis over the mesh (one B6 launch a placement over a
+    contiguous block of segments): the final tables equal one launch's
+    bitwise, and the results one card's."""
+    from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss
+    from jepsen_jgroups_raft_tpu_torch.parallel.mesh import chunk_sharding
+
+    rng = random.Random(17)
+    model = CasRegister()
+    hs = [random_valid_history(rng, "register", n_ops=20000, n_procs=5,
+                               crash_p=0.01, max_crashes=4)
+          for _ in range(2)]
+    bad = list(hs[1])
+    reads = [j for j, op in enumerate(bad) if op.type == "ok"
+             and op.f == "read" and op.value is not None]
+    j = reads[len(reads) // 2]
+    bad[j] = bad[j].replace(value=bad[j].value + 10**6)
+    encs = [encode_history(h, model) for h in (hs[0], bad)]
+    batch = ss.prepare_segment_batch(encs, model, device="cuda")
+    assert int(batch.events.shape[0]) >= 4
+
+    def run():
+        mesh = chunk_sharding(device="cuda")
+        devices = mesh.devices if mesh is not None else \
+            (torch.device("cuda", torch.cuda.current_device()),)
+        return (ss._segment_tables(batch, model, devices),
+                ss.check_segmented_batch(encs, model, device="cuda",
+                                         mesh=mesh))
+
+    (t_one, r_one), (t_spread, r_spread) = fan(mode, run)
+    assert t_spread.dtype == t_one.dtype and np.array_equal(t_spread, t_one)
+    assert r_spread == r_one
+    assert [r["valid"] for r in r_one] == [True, False]
+
+
+@pytest.mark.parametrize("mode", ["repeated", "cards"])
+def test_fan_out_tuned_sort_rung_equals_one_card(fan, mode):
+    """A sort rung under a plan of fan-out 4 (`autotune.
+    sort_rung_sharding`, as `_sort_pass` places it) gives one card's
+    flags, launches and evictions."""
+    from jepsen_jgroups_raft_tpu_torch.checker.autotune import (
+        TunedPlan, sort_rung_sharding)
+    from jepsen_jgroups_raft_tpu_torch.history.packing import bucket_rows
+    from jepsen_jgroups_raft_tpu_torch.ops.linear_scan import (
+        bucket_slots, make_sort_chunk_checker)
+
+    rng = random.Random(8)
+    model = GSet()
+    encs = [encode_history(random_valid_history(
+        rng, "set", n_ops=200, n_procs=5, crash_p=0.05, max_crashes=3,
+        value_range=32), model) for _ in range(21)]
+    batch = pack_batch(encs)
+    W = bucket_slots(max(e.n_slots for e in encs))
+    e_sched = bucket_rows(batch["events"].shape[1], 32)
+    plan = TunedPlan("sort", 32, 0, 4)
+
+    def run():
+        init_fn, step_fn = make_sort_chunk_checker(model, 64, W)
+        [out] = schedule.run_chunked([schedule.ChunkLaunch(
+            events=batch["events"], n_events=batch["n_events"],
+            init_fn=init_fn, step_fn=step_fn, e_sched=e_sched,
+            device=sort_rung_sharding(plan, device="cuda") or "cuda",
+            tag="sort", chunk=plan.scan_chunk)], record_stats=False)
+        return (out.ok.tolist(), out.overflow.tolist(), out.chunks_run,
+                out.evicted_rows, out.early_exit)
+
+    one, spread = fan(mode, run)
+    assert spread == one
+
+
+@pytest.mark.parametrize("kernel", ["dense", "mask", "sort", "segment",
+                                    "closure", "election", "counts"])
+def test_launch_on_each_card_keeps_the_current_device(cuda, kernel):
+    """Every library launcher selects its card with cudaSetDevice; the
+    wrappers put the caller's current card back, so a launch on another
+    card never moves a later allocation or stream lookup of this
+    thread. Each kernel launched on every card, from every card."""
+    from jepsen_jgroups_raft_tpu_torch.ops import segment_scan as ss
+    from jepsen_jgroups_raft_tpu_torch.ops.cycle_closure import \
+        cycle_closure_bits
+    from jepsen_jgroups_raft_tpu_torch.ops.election_safety import \
+        election_safety
+    from jepsen_jgroups_raft_tpu_torch.ops.verdict_counts import \
+        verdict_counts
+
+    model, encs = _mesh_batch("counter" if kernel == "mask" else "register",
+                              n=8)
+    seg = None
+    if kernel == "segment":
+        seg_encs = [encode_history(random_valid_history(
+            random.Random(3), "register", n_ops=12000, n_procs=5,
+            crash_p=0.01, max_crashes=4), model)]
+        seg = ss.prepare_segment_batch(seg_encs, model, device="cuda")
+    batch = pack_batch(encs)
+    plan = ds.dense_plan(model, encs)
+    W = ls.bucket_slots(max(e.n_slots for e in encs))
+
+    def launch(d):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+        if kernel in ("dense", "mask"):
+            return (ds.mask_scan(t(batch["events"]), plan.n_slots, None,
+                                 t(batch["n_events"]), model=model)
+                    if kernel == "mask" else
+                    ds.dense_scan(t(batch["events"]), t(plan.val_of),
+                                  plan.n_slots, None, t(batch["n_events"]),
+                                  model))
+        if kernel == "sort":
+            return ls.sort_scan(t(batch["events"]), W, 64, None,
+                                t(batch["n_events"]), model=model)[0]
+        if kernel == "segment":
+            ev, vo, sm, st, ne = seg.tensors(d)
+            return ss.segment_scan(ev, vo, sm, st, seg.W, ne, model)
+        if kernel == "closure":
+            bits = torch.zeros((2, 64, 2), dtype=torch.int32, device=d)
+            return cycle_closure_bits(bits, 64)[0]
+        if kernel == "election":
+            obs = torch.tensor([[[1, 0], [2, 1], [2, 1]]], dtype=torch.int32,
+                               device=d)
+            return election_safety(obs)
+        ok = torch.ones((33,), dtype=torch.bool, device=d)
+        return verdict_counts(ok, ~ok, ok, "dense")
+
+    want = launch(torch.device("cuda", 0)).cpu()
+    for home in range(torch.cuda.device_count()):
+        torch.cuda.set_device(home)
+        for c in range(torch.cuda.device_count()):
+            got = launch(torch.device("cuda", c))
+            assert torch.cuda.current_device() == home, (home, c)
+            assert torch.equal(got.cpu(), want)
+    torch.cuda.set_device(0)
+
+
+def test_fan_out_cluster_ranks_fan_out_over_their_own_cards(cuda,
+                                                            monkeypatch):
+    """Two ranks on a host of 4 or more cards (nccl by rule): rank r owns
+    the cards c with c % 2 == r, its own first, and fans its launches
+    out over them; the cross-rank cuts round to 2; every rank returns
+    one process's verdicts of the whole batch, and the global counts of
+    one process."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from jepsen_jgroups_raft_tpu_torch.parallel import launch
+    from jepsen_jgroups_raft_tpu_torch.parallel.mesh import \
+        check_batch_sharded
+    from jepsen_jgroups_raft_tpu_torch.parallel.selfcheck import \
+        seeded_batch
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip("needs 4 or more cards")
+    outs = launch.launch_local_cluster(
+        2, [sys.executable, "-m",
+            "jepsen_jgroups_raft_tpu_torch.parallel.selfcheck", "--global",
+            "--histories", "12", "--wide", "2"],
+        env_extra={"PYTHONPATH": str(Path(__file__).resolve().parents[1]),
+                   "JGRAFT_LIN_FASTPATH": "0", "JGRAFT_AUTOTUNE": "0"},
+        timeout_s=300)
+    got = []
+    for rank, (rc, out) in enumerate(outs):
+        assert rc == 0, f"rank {rank} exited {rc}:\n{out[-3000:]}"
+        [line] = [ln for ln in out.splitlines()
+                  if ln.startswith("SELFCHECK ")]
+        got.append(json.loads(line[len("SELFCHECK "):]))
+    monkeypatch.setenv("JGRAFT_GROUP_DEVICES", "0")
+    hs = seeded_batch(11, 12, 30, n_wide=2, corrupt_every=3)
+    model = CasRegister()
+    want = {}
+    for macro in ("1", "0"):
+        monkeypatch.setenv("JGRAFT_MACRO_EVENTS", macro)
+        for alg in ("dense", "auto"):
+            want[f"macro={macro},{alg}"] = [
+                r["valid?"] for r in check_histories(hs, model, alg)]
+    counts = {}
+    for name, m, rows in (
+            ("register", model, hs[:12]),
+            ("counter", Counter(),
+             seeded_batch(12, 12, 30, kind="counter"))):
+        es = [encode_history(h, m) for h in rows]
+        b = pack_macro_batch(es)
+        counts[name] = list(check_batch_sharded(
+            m, b["events"], dense=ds.dense_plan(m, es),
+            macro_p=b["macro_p"])[2:])
+    own = [[c for c in range(n) if c % 2 == r][:n // 2] for r in (0, 1)]
+    for rank, r in enumerate(got):
+        assert (r["rank"], r["world"], r["device"]) == \
+            (rank, 2, f"cuda:{rank}")
+        assert r["granularity"] == n // 2
+        assert r["global_mesh"] == [[q, f"cuda:{c}"] for q in (0, 1)
+                                    for c in own[q]]
+        assert {k: v["verdicts"] for k, v in r["checks"].items()} == want
+        assert {k: list(v) for k, v in r["global"].items()} == counts

@@ -17,6 +17,7 @@ from jepsen_jgroups_raft_tpu.models.counter import Counter as RefCounter
 from jepsen_jgroups_raft_tpu.models.register import CasRegister as RefReg
 from jepsen_jgroups_raft_tpu.ops.dense_scan import dense_plan as ref_plan
 from jepsen_jgroups_raft_tpu.parallel import mesh as ref_mesh
+from jepsen_jgroups_raft_tpu_torch import platform
 from jepsen_jgroups_raft_tpu_torch.history import packing
 from jepsen_jgroups_raft_tpu_torch.history.synth import (burst_history,
                                                          random_valid_history)
@@ -333,9 +334,22 @@ def test_checkers_refuse_tensors_off_the_mesh_device():
 # ------------------------------------------------------------ the mesh
 
 
-def test_mesh_is_this_process_device():
-    assert CPU == mesh.Mesh(torch.device("cpu"))
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_mesh_is_this_process_device(n, monkeypatch):
+    """A mesh is an ordered tuple of placements. `make_mesh(device)` is
+    always the one-device mesh of the process's device; the local mesh
+    has the n placements this process owns (`platform.pin_placements`),
+    its first the process's device."""
+    # `platform.pin_placements(n)`, undone after the test
+    monkeypatch.setattr(platform, "_PLACEMENTS", (torch.device("cpu"),) * n)
+    assert CPU == mesh.Mesh(torch.device("cpu")) == mesh.Mesh(("cpu",))
+    assert CPU.size == 1 and CPU.devices == (torch.device("cpu"),)
     assert mesh.make_mesh(torch.device("cpu")).device.type == "cpu"
+    assert mesh.make_mesh(torch.device("cpu")) == CPU
+    local = mesh.local_mesh()
+    assert local.size == n and local.device == CPU.device
+    assert local.devices == (torch.device("cpu"),) * n
+    assert (mesh.chunk_sharding() is None) == (n == 1)
 
 
 def test_card_is_the_default(monkeypatch):
